@@ -1,0 +1,112 @@
+"""Roofline bound of the SU3 multiply on a Hopper card (port of the part of
+``repro.core.roofline`` that needs no compiled program).
+
+The reference derives its terms from XLA's HLO and carries TPU constants;
+neither applies here.  The port's bound is analytic: the bytes the multiply
+must move (the port's ``TrafficModel``) over the card's HBM rate, and its
+flops over the card's FP32 CUDA-core rate (the SU3 product is a K=3
+complex contraction that tensor cores cannot use), whichever is larger.
+
+Constants are NVIDIA's H100 datasheet figures (dense, at the full power
+limit).  A card this module does not know has no spec, and its bound is
+``None``: it is not guessed.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class HardwareSpec:
+    name: str
+    peak_flops_fp32: float  # FP32 on the CUDA cores, flop/s
+    hbm_bw: float  # bytes/s
+    hbm_bytes: float  # device memory
+
+
+# NVIDIA H100 datasheet: SXM5 67 TFLOP/s FP32, 3.35 TB/s HBM3, 80 GB;
+# PCIe 51 TFLOP/s FP32, 2.0 TB/s HBM2e, 80 GB.
+H100_SXM = HardwareSpec("h100_sxm", peak_flops_fp32=67e12, hbm_bw=3.35e12, hbm_bytes=80e9)
+H100_PCIE = HardwareSpec("h100_pcie", peak_flops_fp32=51e12, hbm_bw=2.0e12, hbm_bytes=80e9)
+
+HARDWARE = {h.name: h for h in (H100_SXM, H100_PCIE)}
+
+
+def hardware_for_device(name: str) -> HardwareSpec | None:
+    """The spec for a ``torch.cuda.get_device_name()`` string, else None.
+
+    "NVIDIA H100 80GB HBM3" is the SXM part, "NVIDIA H100 PCIe" the PCIe
+    part; any other name (another card, H100 NVL, the CPU) has no spec.
+    """
+    if "H100" not in name:
+        return None
+    if "PCIe" in name:
+        return H100_PCIE
+    if "HBM3" in name or "SXM" in name:
+        return H100_SXM
+    return None
+
+
+def current_hardware() -> HardwareSpec | None:
+    """The spec of CUDA device 0, or None without CUDA or for an unknown card."""
+    if not torch.cuda.is_available():
+        return None
+    return hardware_for_device(torch.cuda.get_device_name(0))
+
+
+@dataclasses.dataclass(frozen=True)
+class SU3Roofline:
+    """The bound of one launch of a k-chain over ``n_sites`` sites."""
+
+    name: str
+    hw: HardwareSpec
+    flops: float  # useful flops of the whole chain
+    bytes: float  # bytes the launch must move
+
+    @property
+    def compute_s(self) -> float:
+        return self.flops / self.hw.peak_flops_fp32
+
+    @property
+    def memory_s(self) -> float:
+        return self.bytes / self.hw.hbm_bw
+
+    @property
+    def bound_s(self) -> float:
+        return max(self.compute_s, self.memory_s)
+
+    @property
+    def bound_by(self) -> str:
+        return "operations" if self.compute_s > self.memory_s else "bytes"
+
+
+def analytic_su3_report(
+    *,
+    n_sites: int,
+    bytes_per_site_rw: int,
+    k: int = 1,
+    hw: HardwareSpec | None = None,
+) -> SU3Roofline:
+    """Analytic bound of a fused k-chain: the A/C bytes move once, the
+    864 flops/site are done k times.
+
+    Args:
+        n_sites: live lattice sites.
+        bytes_per_site_rw: read A + write C bytes per site (TrafficModel).
+        k: multiplies chained in the launch.
+        hw: the card; defaults to CUDA device 0's spec.
+
+    Raises:
+        LookupError: when no spec is given and the card is unknown.
+    """
+    hw = hw if hw is not None else current_hardware()
+    if hw is None:
+        raise LookupError("no Hopper spec for this device; pass hw= explicitly")
+    return SU3Roofline(
+        name=f"su3_analytic_L4={n_sites}_k{k}",
+        hw=hw,
+        flops=864.0 * n_sites * k,
+        bytes=float(bytes_per_site_rw) * n_sites,
+    )

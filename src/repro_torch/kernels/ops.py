@@ -1,0 +1,72 @@
+"""Public entry points of the SU3 kernels, registered for the plan (port of
+``repro.kernels.ops``).
+
+There is no interpret mode: the tensor's device decides the path.  A CUDA
+tensor goes to the hand-written kernel (or raises); a CPU tensor goes to
+the kernel's plain PyTorch version.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.su3 import layouts, registry
+from repro_torch.core.su3.layouts import Layout
+from repro_torch.kernels import ref as kref
+from repro_torch.kernels import su3_matmul
+
+DEFAULT_TILE = su3_matmul.DEFAULT_TILE
+
+
+@registry.register_kernel(
+    "cuda",
+    layouts=(Layout.SOA, Layout.AOSOA),
+    backends=("cuda",),
+    form=registry.PLANAR,
+    supports_fused=True,
+    supports_accum=True,
+    supports_compressed=True,
+)
+def su3_mult_planar(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    tile: int = DEFAULT_TILE,
+    k_iters: int = 1,
+    alias: bool = False,
+    accum_dtype: str | None = None,
+    compressed: bool = False,
+) -> torch.Tensor:
+    """Planar entry point: a SoA (2, 36|24, S) or AoSoA (S//T, 2, 36|24, T),
+    b (2, 36).
+
+    ``k_iters`` chains K multiplies in one launch; ``alias`` writes C into
+    A's storage; ``accum_dtype`` runs the chain at f32 over bf16 words;
+    ``compressed`` streams two-row gauge blocks.
+    """
+    return su3_matmul.su3_mult_planar(
+        a, b, tile=tile, k_iters=k_iters, alias=alias, accum_dtype=accum_dtype,
+        compressed=compressed,
+    )
+
+
+def su3_mult(a: torch.Tensor, b: torch.Tensor, *, tile: int = DEFAULT_TILE) -> torch.Tensor:
+    """Canonical complex entry point matching kernels.ref.su3_mult_ref.
+
+    a: (n_sites, 4, 3, 3) complex, b: (4, 3, 3) complex, on one device.
+    Packs to planar SoA, pads sites to the tile, runs the kernel, unpacks.
+    """
+    n_sites = a.shape[0]
+    pad = (-n_sites) % tile
+    a_p = layouts.pack_soa(a).reshape(2, su3_matmul.ROWS, n_sites)
+    if pad:
+        a_p = torch.nn.functional.pad(a_p, (0, pad))
+    b_p = layouts.to_planar(b).reshape(2, su3_matmul.ROWS).contiguous()
+    c_p = su3_matmul.su3_mult_planar(a_p.contiguous(), b_p, tile=tile)
+    c_p = c_p[:, :, :n_sites].reshape(2, layouts.LINKS, layouts.SU3, layouts.SU3, n_sites)
+    return layouts.unpack_soa(c_p, a.dtype)
+
+
+# Re-exported oracles so call sites can flip between kernel and reference
+# with one name change.
+su3_mult_ref = kref.su3_mult_ref
+su3_mult_planar_ref = kref.su3_mult_planar_ref

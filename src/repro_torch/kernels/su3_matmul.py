@@ -1,0 +1,294 @@
+"""The SU3_Bench planar multiply: CUDA kernel wrapper and its plain version.
+
+Port of ``repro.kernels.su3_matmul.su3_mult_planar`` (Pallas, TPU).  The
+kernel is ``repro_torch/csrc/su3_mult.cu``; this module holds:
+
+  * :func:`su3_mult_planar_plain` — the same computation in plain PyTorch:
+    expand (two-row), the fixed-order multiply chain, compress, with the
+    rounding of the reference's ``_expand_tile`` / ``_mult_tile`` /
+    ``_compress_tile`` and of the CUDA kernel (every product, sum and
+    difference rounds on its own; pure bf16 rounds after each multiply).
+  * :func:`su3_mult_planar` — the wrapper: for a CUDA tensor it checks the
+    arguments, launches the kernel on the current stream and counts the
+    launch in :data:`LAUNCHES`; for a CPU tensor it runs the plain version;
+    any other device raises.
+  * :func:`kernel_budget` — the kernel's registers, shared memory and
+    occupancy per thread block, from ``cudaFuncGetAttributes`` (the port's
+    counterpart of the reference's VMEM estimate ``vmem_bytes``).
+
+Layout contract (the physical planar layouts, read in place by the kernel):
+  a: SoA (2, rows, S) or AoSoA (S // T, 2, rows, T); rows = 36, or 24 for
+     two-row storage; words f32 or bf16
+  b: (2, 36), the same word dtype
+  -> c shaped like a
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import torch
+
+from repro_torch.kernels import _build
+
+LINKS, SU3 = 4, 3
+ROWS = LINKS * SU3 * SU3  # 36 complex entries per site
+COMP_ROWS = LINKS * 2 * SU3  # 24: two-row compressed gauge (12 reals/link)
+DEFAULT_TILE = 512
+
+# kernel modes, as su3_mult.cu numbers them
+_MODE_F32, _MODE_BF16, _MODE_BF16_ACC_F32 = 0, 1, 2
+
+
+def _flat(j: int, k: int, l: int) -> int:
+    return (j * SU3 + k) * SU3 + l
+
+
+# full-form row ids of the stored rows, in compressed row order
+_COMP_TO_FULL = tuple(
+    _flat(j, k, l) for j in range(LINKS) for k in range(2) for l in range(SU3)
+)
+
+# _mult_tile's operand rows, as gathers over all 36 outputs at once: output
+# row (j, k, m) takes A row (j, k, l) and B row (j, l, m) at step l.
+_OUT = [(j, k, m) for j in range(LINKS) for k in range(SU3) for m in range(SU3)]
+_A_ROWS = tuple(tuple(_flat(j, k, l) for j, k, m in _OUT) for l in range(SU3))
+_B_ROWS = tuple(tuple(_flat(j, l, m) for j, k, m in _OUT) for l in range(SU3))
+
+# _expand_tile's operands: row2[l] = conj(r0[l1]*r1[l2] - r0[l2]*r1[l1])
+_R2 = [(j, l) for j in range(LINKS) for l in range(SU3)]
+_R2_OUT = tuple(_flat(j, 2, l) for j, l in _R2)
+_R2_A = tuple(_flat(j, 0, (l + 1) % 3) for j, l in _R2)
+_R2_B = tuple(_flat(j, 1, (l + 2) % 3) for j, l in _R2)
+_R2_C = tuple(_flat(j, 0, (l + 2) % 3) for j, l in _R2)
+_R2_D = tuple(_flat(j, 1, (l + 1) % 3) for j, l in _R2)
+
+
+def _rows(x: torch.Tensor, idx: tuple[int, ...]) -> torch.Tensor:
+    return x[:, list(idx)]
+
+
+def expand_tile(a: torch.Tensor) -> torch.Tensor:
+    """(2, 24, T) two-row f32 tile -> (2, 36, T): rebuild each link's row 2
+    as ``conj(row0 x row1)`` with the reference's operand grouping."""
+    full = a.new_zeros((2, ROWS) + tuple(a.shape[2:]))
+    full[:, list(_COMP_TO_FULL)] = a
+    (a_r, a_i), (b_r, b_i) = _rows(full, _R2_A), _rows(full, _R2_B)
+    (c_r, c_i), (d_r, d_i) = _rows(full, _R2_C), _rows(full, _R2_D)
+    xr = (a_r * b_r - a_i * b_i) - (c_r * d_r - c_i * d_i)
+    xi = (a_r * b_i + a_i * b_r) - (c_r * d_i + c_i * d_r)
+    full[0, list(_R2_OUT)] = xr
+    full[1, list(_R2_OUT)] = -xi  # conjugate
+    return full
+
+
+def compress_tile(c: torch.Tensor) -> torch.Tensor:
+    """(2, 36, T) full tile -> (2, 24, T): drop each link's third row."""
+    return _rows(c, _COMP_TO_FULL)
+
+
+def mult_tile(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """C = A (x) B on a (2, 36, T) f32 tile with a (2, 36) f32 B.
+
+    Per output entry, in the reference's ``_mult_tile`` order:
+    ``cr = ar*br - ai*bi`` then ``cr = (cr + ar*br) - ai*bi`` for l = 1, 2
+    (and ``ci = (ci + ar*bi) + ai*br``); each op rounds on its own.
+    """
+    cr = ci = None
+    for l in range(SU3):
+        ar, ai = _rows(a, _A_ROWS[l])
+        br, bi = (b[:, list(_B_ROWS[l])][..., None]).unbind(0)
+        if cr is None:
+            cr = ar * br - ai * bi
+            ci = ar * bi + ai * br
+        else:
+            cr = cr + ar * br - ai * bi
+            ci = ci + ar * bi + ai * br
+    return torch.stack([cr, ci], dim=0)
+
+
+def su3_mult_planar_plain(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    k_iters: int = 1,
+    accum_dtype: str | None = None,
+    compressed: bool = False,
+) -> torch.Tensor:
+    """The plain PyTorch version of the kernel on a planar (2, rows, S) tile.
+
+    Works at f32 on every storage dtype.  Pure bf16 storage rounds the tile
+    to bf16 after each multiply of the chain; bf16 storage with
+    ``accum_dtype="float32"`` rounds once, on the way out.
+    """
+    round_each = a.dtype == torch.bfloat16 and accum_dtype != "float32"
+    x, bw = a.to(torch.float32), b.to(torch.float32)
+    if compressed:
+        x = expand_tile(x)
+    for _ in range(k_iters):
+        x = mult_tile(x, bw)
+        if round_each:
+            x = x.to(torch.bfloat16).to(torch.float32)
+    if compressed:
+        x = compress_tile(x)
+    return x.to(a.dtype)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class LaunchCounter:
+    """Launches of one CUDA kernel, counted by its wrapper and nowhere else."""
+
+    name: str
+    count: int = 0
+
+
+LAUNCHES = LaunchCounter("su3_mult_planar")
+
+
+def _library() -> ctypes.CDLL:
+    lib = _build.load("su3_mult")
+    if not getattr(lib, "_repro_typed", False):
+        lib.su3_mult_planar.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ]
+        lib.su3_mult_planar.restype = ctypes.c_int
+        lib.su3_mult_planar_attributes.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+        ]
+        lib.su3_mult_planar_attributes.restype = ctypes.c_int
+        lib.su3_error_string.argtypes = [ctypes.c_int]
+        lib.su3_error_string.restype = ctypes.c_char_p
+        lib._repro_typed = True
+    return lib
+
+
+def _mode(dtype: torch.dtype, accum_dtype: str | None) -> int:
+    if dtype == torch.float32:
+        return _MODE_F32
+    if dtype == torch.bfloat16:
+        return _MODE_BF16_ACC_F32 if accum_dtype == "float32" else _MODE_BF16
+    raise ValueError(f"su3_mult_planar stores float32 or bfloat16 words, got {dtype}")
+
+
+def _check_error(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    if rc != 0:
+        msg = lib.su3_error_string(rc).decode()
+        raise RuntimeError(f"{what} failed: CUDA error {rc} ({msg})")
+
+
+def kernel_budget(
+    dtype: torch.dtype = torch.float32,
+    accum_dtype: str | None = None,
+    compressed: bool = False,
+    aosoa: bool = False,
+) -> dict[str, int | float | None]:
+    """One instantiation's per-block budget, from ``cudaFuncGetAttributes``
+    and ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` on the current
+    CUDA device.
+
+    Returns:
+        ``num_regs`` per thread, ``shared_bytes`` (static) and
+        ``local_bytes`` (register spills) per block, ``threads_per_block``,
+        ``blocks_per_sm`` resident, and ``occupancy`` — resident threads over
+        the SM's maximum (None where PyTorch does not report that maximum).
+    """
+    lib = _library()
+    out = (ctypes.c_int * 6)()
+    rc = lib.su3_mult_planar_attributes(_mode(dtype, accum_dtype), int(compressed), int(aosoa), out)
+    _check_error(lib, rc, "cudaFuncGetAttributes")
+    regs, shared, local, max_threads, threads, blocks = list(out)
+    props = torch.cuda.get_device_properties(torch.cuda.current_device())
+    per_sm = getattr(props, "max_threads_per_multi_processor", None)
+    return {
+        "num_regs": regs,
+        "shared_bytes": shared,
+        "local_bytes": local,
+        "max_threads_per_block": max_threads,
+        "threads_per_block": threads,
+        "blocks_per_sm": blocks,
+        "occupancy": blocks * threads / per_sm if per_sm else None,
+    }
+
+
+def _launch(
+    a: torch.Tensor, b: torch.Tensor, out: torch.Tensor, k_iters: int,
+    accum_dtype: str | None, compressed: bool,
+) -> None:
+    if b.device != a.device or b.dtype != a.dtype:
+        raise ValueError(
+            f"b must match a's device and dtype: a {a.device}/{a.dtype}, b {b.device}/{b.dtype}"
+        )
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("su3_mult_planar needs contiguous a and b")
+    lane = a.shape[3] if a.ndim == 4 else 0
+    n_sites = a.shape[0] * a.shape[3] if a.ndim == 4 else a.shape[2]
+    mode = _mode(a.dtype, accum_dtype)
+    lib = _library()
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = lib.su3_mult_planar(
+            a.data_ptr(), out.data_ptr(), b.data_ptr(), n_sites, lane, k_iters,
+            mode, int(compressed), stream,
+        )
+    _check_error(lib, rc, "su3_mult_planar launch")
+    LAUNCHES.count += 1
+
+
+def su3_mult_planar(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    tile: int = DEFAULT_TILE,
+    k_iters: int = 1,
+    alias: bool = False,
+    accum_dtype: str | None = None,
+    compressed: bool = False,
+) -> torch.Tensor:
+    """Planar SU3 multiply, chained ``k_iters`` times in one launch.
+
+    ``a`` is the physical SoA ``(2, rows, S)`` or AoSoA ``(S//T, 2, rows, T)``
+    tensor, ``b`` the planar ``(2, 36)`` B; ``S`` must be a multiple of
+    ``tile``.  ``alias`` writes C into A's storage and returns A.
+    ``accum_dtype="float32"`` runs the chain at f32 over bf16 words;
+    ``compressed`` streams two-row gauge blocks (rows = 24).
+
+    A CUDA tensor goes to the kernel (or raises); a CPU tensor goes to the
+    plain version; any other device raises.
+    """
+    rows = COMP_ROWS if compressed else ROWS
+    planar = a.ndim == 3 and tuple(a.shape[:2]) == (2, rows)
+    tiled = a.ndim == 4 and tuple(a.shape[1:3]) == (2, rows)
+    if not (planar or tiled):
+        raise ValueError(f"a must be (2, {rows}, S) or (tiles, 2, {rows}, T), got {tuple(a.shape)}")
+    if tuple(b.shape) != (2, ROWS):
+        raise ValueError(f"b must be (2, {ROWS}), got {tuple(b.shape)}")
+    if k_iters < 1:
+        raise ValueError(f"k_iters must be >= 1, got {k_iters}")
+    n_sites = a.shape[0] * a.shape[3] if tiled else a.shape[2]
+    if n_sites % tile:
+        raise ValueError(f"site count {n_sites} is not a multiple of tile {tile}")
+    _mode(a.dtype, accum_dtype)  # validates the storage dtype
+
+    if a.device.type == "cuda":
+        out = a if alias else torch.empty_like(a)
+        _launch(a, b, out, k_iters, accum_dtype, compressed)
+        return out
+    if a.device.type != "cpu":
+        raise ValueError(f"su3_mult_planar runs on cuda or cpu tensors, got {a.device}")
+    if tiled:  # the plain version works on the flattened planar view
+        view = torch.movedim(a, 0, 2).reshape(2, rows, -1)
+        c = su3_mult_planar_plain(view, b, k_iters=k_iters, accum_dtype=accum_dtype,
+                                  compressed=compressed)
+        c = torch.movedim(c.reshape(2, rows, a.shape[0], a.shape[3]), 2, 0)
+    else:
+        c = su3_mult_planar_plain(a, b, k_iters=k_iters, accum_dtype=accum_dtype,
+                                  compressed=compressed)
+    if alias:
+        return a.copy_(c)
+    return c.contiguous()
