@@ -4,14 +4,24 @@
     python3 chip_smoke.py [--seed N]
 
 Run from the root of a checkout; it needs one CUDA device and nvcc.  It
-builds every CUDA source of the port (``build/repro_torch/``), holds the
-kernel against its plain PyTorch version on random SU(3) links at L=32,
-drives ``SU3Engine.run()`` and ``run_fused(8)`` at the paper's L=32 lattice
-with the launch counter reset around them, times the kernel against its
-bound, its plain version and one ``torch.matmul`` yardstick, and prints:
+builds every CUDA source of the port (``build/repro_torch/``, one nvcc per
+source, started together) and, at the paper's L=32 lattice:
+
+  * holds each kernel (the multiply, the stencil, the fused CG body)
+    against its plain PyTorch version on random SU(3) links and random
+    vectors, in every storage form;
+  * drives the main paths with the launch counters set to 0 just before
+    each and read just after: ``SU3Engine.run()`` / ``run_fused(8)``,
+    ``ExecutionPlan.stencil_step()`` (and ``depth=2``) on the stencil's
+    fixed point, and ``ExecutionPlan.cg_solve`` fused and composed on the
+    CG measurement problem, held against the plain ``cg_reference_solve``;
+  * times each kernel against its bound, its plain version and, where one
+    PyTorch call computes the same function, that call.
+
+It prints:
 
   * the card's name and power limit (nvidia-smi) and the tool versions;
-  * one JSON line per check, per engine row and per yardstick;
+  * one JSON line per check, per main-path row and per yardstick;
   * a ``{"kernels": [...]}`` line with each ported kernel's numbers;
   * last, ``{"ok": true, "device": {...}}`` — only if every phase passed.
 
@@ -33,8 +43,14 @@ sys.path.insert(0, str(ROOT / "src"))
 
 KERNEL_SOURCE = "src/repro_torch/csrc/su3_mult.cu"
 REPLACES = "src/repro/kernels/su3_matmul.py:199"  # su3_mult_planar (pallas_call at :229)
+STENCIL_SOURCE = "src/repro_torch/csrc/su3_stencil.cu"
+STENCIL_REPLACES = "src/repro/kernels/su3_stencil.py:136"  # su3_stencil_planar (pallas_call :159)
+CG_REPLACES = "src/repro/kernels/su3_stencil.py:240"  # su3_cg_fused_planar (pallas_call :276)
 FUSED_K = 8
 FUSED_REPS = 3  # SU3Engine.run_fused's default
+STENCIL_REPS = 20  # timed stencil steps per main-path row
+CG_TIMED_ITERS = 20
+BETA = 0.3718  # the CG body's beta in the kernel checks (nonzero)
 
 
 def _emit(obj: dict) -> None:
@@ -75,6 +91,43 @@ def _time_ms(fn, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _best_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Best ms of one call over ``reps`` calls, each between two CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    pairs = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return min(a.elapsed_time(b) for a, b in pairs)
+
+
+def _bits(x):
+    import torch
+
+    return x.view(torch.int16 if x.dtype == torch.bfloat16 else torch.int32)
+
+
+def _reset_counts() -> None:
+    from repro_torch.kernels import su3_matmul, su3_stencil
+
+    for counter in (su3_matmul.LAUNCHES, su3_stencil.STENCIL_LAUNCHES, su3_stencil.CG_LAUNCHES):
+        counter.count = 0
+
+
+def _counts() -> dict[str, int]:
+    from repro_torch.kernels import su3_matmul, su3_stencil
+
+    return {c.name: c.count for c in (su3_matmul.LAUNCHES, su3_stencil.STENCIL_LAUNCHES,
+                                      su3_stencil.CG_LAUNCHES)}
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the random SU(3) data")
@@ -94,7 +147,7 @@ def main(argv: list[str] | None = None) -> int:
     from repro_torch.core.su3.engine import SU3Engine
     from repro_torch.core.su3.layouts import Layout
     from repro_torch.core.su3.plan import verify_tolerance
-    from repro_torch.kernels import _build, su3_matmul
+    from repro_torch.kernels import _build, su3_matmul, su3_stencil
 
     failures: list[str] = []
     dev = torch.device("cuda")
@@ -103,7 +156,8 @@ def main(argv: list[str] | None = None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # the yardstick runs in full f32
 
     # -- 1. the card and the tools ---------------------------------------------
-    print(_tool_line(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]))
+    card = _tool_line(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
+    print(card)
     _emit({"torch": torch.__version__, "cuda": torch.version.cuda,
            "nvcc": _tool_line([_build.nvcc_path(), "--version"]),
            "device": name, "count": torch.cuda.device_count(),
@@ -113,11 +167,14 @@ def main(argv: list[str] | None = None) -> int:
     t0 = time.perf_counter()
     logs = _build.build_all()
     _build.load("su3_mult")
+    _build.load("su3_stencil")
     _emit({"phase": "build", "seconds": time.perf_counter() - t0, "sources": sorted(logs)})
-    for src, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"ptxas[{src}]: {line.strip()}")
+    for src, log in logs.items():  # one line per source: registers and spills per kernel
+        regs = [int(w) for line in log.splitlines() if "registers" in line
+                for w, nxt in zip(line.split(), line.split()[1:]) if nxt == "registers,"]
+        spills = sorted({line.strip() for line in log.splitlines() if "spill" in line})
+        print(f"ptxas[{src}]: registers per kernel {regs}; {' | '.join(spills)}")
+    budgets: dict[str, list] = {}
     for mode, (dtype, accum) in {"f32": (torch.float32, None),
                                  "bf16": (torch.bfloat16, None),
                                  "bf16+acc-f32": (torch.bfloat16, "float32")}.items():
@@ -126,6 +183,16 @@ def main(argv: list[str] | None = None) -> int:
                 budget = su3_matmul.kernel_budget(dtype, accum, compressed, aosoa)
                 _emit({"kernel_budget": "su3_mult_planar", "mode": mode,
                        "two_row": compressed, "aosoa": aosoa, **budget})
+                for which, kname in (("stencil", "su3_stencil_planar"),
+                                     ("cg", "su3_cg_fused_planar")):
+                    b = su3_stencil.kernel_budget(which, dtype, accum, compressed, aosoa)
+                    budgets.setdefault(kname, []).append(
+                        [mode, compressed, aosoa, b["num_regs"], b["local_bytes"],
+                         b["threads_per_block"], b["blocks_per_sm"], b["occupancy"]])
+    for kname, forms in budgets.items():
+        _emit({"kernel_budget": kname,
+               "columns": ["mode", "two_row", "aosoa", "num_regs", "local_bytes",
+                           "threads_per_block", "blocks_per_sm", "occupancy"], "forms": forms})
 
     # -- 3. kernel vs plain version on random SU(3) links, L=32 --------------------
     n_sites = PAPER_L32.shape.n_sites
@@ -188,7 +255,7 @@ def main(argv: list[str] | None = None) -> int:
         ("soa f32 two-row", dataclasses.replace(PAPER_L32, compression="two_row")),
         ("soa f32 host_scatter", dataclasses.replace(PAPER_L32, placement="host_scatter")),
     ]
-    su3_matmul.LAUNCHES.count = 0
+    _reset_counts()
     for label, cfg in rows:
         engine = SU3Engine(cfg)
         modes = [("run", lambda: engine.run(), cfg.warmups + cfg.iterations)]
@@ -224,6 +291,21 @@ def main(argv: list[str] | None = None) -> int:
     if main_path_launches == 0:
         failures.append("the main path never launched su3_mult_planar")
 
+    # -- 4b. stencil and CG kernels vs their plain versions, L=32 ------------------
+    vecs = _stencil_data(rng, n_sites, dev)
+    _emit({"phase": "stencil data", "sites": n_sites})
+    stencil_err, cg_err = _stencil_kernel_checks(u, vecs, failures)
+
+    # -- 4c. the main path: stencil_step at PAPER_L32 ---------------------------------
+    stencil_rows = _stencil_main_path(hw, failures)
+    # -- 4d. the main path: cg_solve at PAPER_L32 -------------------------------------
+    cg_launches, stencil_cg_launches = _cg_main_path(hw, failures)
+    stencil_launches = sum(r["launches"] for r in stencil_rows) + stencil_cg_launches
+    if stencil_launches == 0:
+        failures.append("the main path never launched su3_stencil_planar")
+    if cg_launches == 0:
+        failures.append("the main path never launched su3_cg_fused_planar")
+
     # -- 5. yardsticks at the main path's shape (SoA f32, k=1, L=32) ----------------
     codec = layouts.make_codec(Layout.SOA, tile=PAPER_L32.tile)
     a, b = codec.pack(u).contiguous(), codec.pack_b(b_c).contiguous()
@@ -244,14 +326,37 @@ def main(argv: list[str] | None = None) -> int:
            "kernel_GBps": bytes_moved / kernel_ms / 1e6,
            "bound_share": None if bound_ms is None else bound_ms / kernel_ms})
 
+    # pure bf16 rounds after every operation (as the reference does): time
+    # what that costs the multiply, at k=1 and in an 8-chain
+    codec = layouts.make_codec(Layout.SOA, tile=PAPER_L32.tile, dtype="bfloat16")
+    a16, b16 = codec.pack(u).contiguous(), codec.pack_b(b_c).contiguous()
+    bf16_ms = {k: _time_ms(lambda: su3_matmul.su3_mult_planar(a16, b16, k_iters=k), reps=20)
+               for k in (1, FUSED_K)}
+    bf16_bytes = 2 * a16.numel() * a16.element_size()
+    _emit({"yardstick": "su3_mult_planar soa pure bf16 L=32", "k1_ms": bf16_ms[1],
+           f"k{FUSED_K}_ms": bf16_ms[FUSED_K],
+           "k1_bound_ms": None if hw is None else bf16_bytes / hw.hbm_bw * 1e3,
+           "note": "every product, sum and difference rounds to bf16"})
+    del a16
+
+    st, cg = _stencil_yardsticks(u, vecs, hw, failures)
+
     # -- 6. the kernels line -----------------------------------------------------------
     _emit({"kernels": [{
         "name": "su3_mult_planar", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES, "launches": main_path_launches, "max_abs_err": max_err,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_ms,
+    }, {
+        "name": "su3_stencil_planar", "route": "cuda", "source": STENCIL_SOURCE,
+        "replaces": STENCIL_REPLACES, "launches": stencil_launches, "max_abs_err": stencil_err,
+        **st,
+    }, {
+        "name": "su3_cg_fused_planar", "route": "cuda", "source": STENCIL_SOURCE,
+        "replaces": CG_REPLACES, "launches": cg_launches, "max_abs_err": cg_err, **cg,
     }]})
 
+    print(card)  # again, next to the results (the first lines may scroll away)
     if failures:
         for f in failures:
             print(f"FAILED: {f}", file=sys.stderr)
@@ -259,6 +364,321 @@ def main(argv: list[str] | None = None) -> int:
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+STENCIL_FORMS = [  # (label, layout, dtype, accum, compression)
+    ("soa f32", "soa", "float32", "", "none"),
+    ("aosoa f32", "aosoa", "float32", "", "none"),
+    ("soa bf16+acc-f32", "soa", "bfloat16", "float32", "none"),
+    ("soa bf16", "soa", "bfloat16", "", "none"),
+    ("soa f32 two-row", "soa", "float32", "", "two_row"),
+    ("soa bf16 two-row", "soa", "bfloat16", "", "two_row"),
+]
+
+
+def _stencil_data(rng, n_sites: int, dev) -> dict:
+    """Random f32 neighbour blocks and vectors on the card, from the seed."""
+    import numpy as np
+    import torch
+
+    def normal(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev)
+
+    return {"v_nbr": normal(8, 2, 3, n_sites), "r_nbr": normal(8, 2, 3, n_sites),
+            "p_nbr": normal(8, 2, 3, n_sites), "r": normal(2, 3, n_sites),
+            "p": normal(2, 3, n_sites),
+            "coefs": torch.tensor([[BETA, 16.0]], dtype=torch.float32, device=dev)}
+
+
+def _stencil_kernel_checks(u, vecs: dict, failures: list[str]) -> tuple[float, float]:
+    """Both kernels against their plain versions in every form: bitwise at
+    f32 storage, within ``verify_tolerance`` otherwise.  Returns the largest
+    error of each kernel."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.su3_bench import PAPER_L32
+    from repro_torch.core.su3 import layouts
+    from repro_torch.core.su3.plan import verify_tolerance
+    from repro_torch.kernels import su3_stencil
+
+    worst = {"su3_stencil_planar": 0.0, "su3_cg_fused_planar": 0.0}
+    for label, layout, dtype, accum, comp in STENCIL_FORMS:
+        codec = layouts.make_codec(layout, tile=PAPER_L32.tile, dtype=dtype, accum_dtype=accum,
+                                   compression=comp)
+        u_phys = codec.pack(u).contiguous()
+        u_plain = codec.planar_view(u_phys)
+        w = {k: (t if k == "coefs" else t.to(codec.word_dtype)) for k, t in vecs.items()}
+        kw = {"accum_dtype": accum or None, "compressed": codec.is_compressed}
+        got = {"su3_stencil_planar": [su3_stencil.su3_stencil_planar(u_phys, w["v_nbr"], **kw)],
+               "su3_cg_fused_planar": list(su3_stencil.su3_cg_fused_planar(
+                   u_phys, w["r_nbr"], w["p_nbr"], w["r"], w["p"], w["coefs"], **kw))}
+        want = {"su3_stencil_planar": [su3_stencil.su3_stencil_planar_plain(
+                    u_plain, w["v_nbr"], **kw)],
+                "su3_cg_fused_planar": list(su3_stencil.su3_cg_fused_planar_plain(
+                    u_plain, w["r_nbr"], w["p_nbr"], w["r"], w["p"], w["coefs"], **kw))}
+        torch.cuda.synchronize()
+        tol = verify_tolerance(dtype, accum, codec.is_compressed)
+        for name in got:
+            err = max(torch.max(torch.abs(g.float() - x.float())).item()
+                      for g, x in zip(got[name], want[name]))
+            bitwise = all(torch.equal(_bits(g), _bits(x)) for g, x in zip(got[name], want[name]))
+            finite = all(bool(torch.isfinite(g.float()).all()) for g in got[name])
+            ok = finite and (bitwise if dtype == "float32" else err <= tol)
+            worst[name] = max(worst[name], err)
+            _emit({"check": "kernel_vs_plain", "kernel": name, "form": label,
+                   "max_abs_err": err, "tol": 0.0 if dtype == "float32" else tol,
+                   "bitwise": bitwise, "ok": ok})
+            if not ok:
+                failures.append(f"{name} vs plain {label}: err {err}, bitwise {bitwise}")
+
+    # a random site subset (links and neighbours gathered there) gives the
+    # full pass's bits at those sites
+    codec = layouts.make_codec("soa", tile=PAPER_L32.tile)
+    u_soa = codec.pack(u).contiguous()
+    full = su3_stencil.su3_stencil_planar(u_soa, vecs["v_nbr"])
+    gen = np.random.default_rng(1)
+    idx = torch.from_numpy(gen.permutation(u.shape[0])[: 1 << 18]).to(u.device)
+    sub = su3_stencil.su3_stencil_planar(u_soa[:, :, idx].contiguous(),
+                                         vecs["v_nbr"][..., idx].contiguous())
+    torch.cuda.synchronize()
+    subset_ok = torch.equal(_bits(sub), _bits(full[:, :, idx]))
+    _emit({"check": "stencil on a random 2^18-site subset equals the full pass (f32)",
+           "bitwise": subset_ok, "ok": subset_ok})
+    if not subset_ok:
+        failures.append("stencil site-subset check")
+    return worst["su3_stencil_planar"], worst["su3_cg_fused_planar"]
+
+
+def _stencil_main_path(hw, failures: list[str]) -> list[dict]:
+    """``build_plan`` -> ``init_stencil_data`` -> ``stencil_step`` at
+    PAPER_L32 in four forms: counted launches, the fixed point, depth 2
+    against two single steps, and the step / gather / kernel times."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.su3_bench import PAPER_L32
+    from repro_torch.core import roofline
+    from repro_torch.core.su3.layouts import Layout
+    from repro_torch.core.su3.plan import build_plan
+    from repro_torch.kernels import su3_stencil
+
+    rows = [
+        ("soa f32", PAPER_L32),
+        ("aosoa f32", dataclasses.replace(PAPER_L32, layout=Layout.AOSOA)),
+        ("soa bf16+acc-f32", dataclasses.replace(PAPER_L32, dtype="bfloat16",
+                                                 accum_dtype="float32")),
+        ("soa f32 two-row", dataclasses.replace(PAPER_L32, compression="two_row")),
+    ]
+    out_rows = []
+    for label, cfg in rows:
+        plan = build_plan(cfg)
+        u_phys, v_p = plan.init_stencil_data()
+        step, step2 = plan.stencil_step(), plan.stencil_step(depth=2)
+        torch.cuda.synchronize()
+        _reset_counts()
+        out = step(u_phys, v_p)
+        twice = step(u_phys, step(u_phys, v_p))
+        depth2 = step2(u_phys, v_p)
+        step_ms = _best_ms(lambda: step(u_phys, v_p), STENCIL_REPS)
+        calls = 1 + 2 + 2 + 2 + STENCIL_REPS  # single, two singles, depth 2, warmup, timed
+        counts = _counts()
+        verified = plan.verify_stencil(out)
+        depth2_ok = torch.equal(_bits(depth2), _bits(twice))
+        # the split, outside the counted window: the gather alone, the kernel alone
+        gather_ms = _best_ms(lambda: plan.gather_neighbors(v_p), STENCIL_REPS)
+        kernel, kw = plan._stencil_kernel_kwargs()
+        v_nbr = plan.gather_neighbors(v_p)
+        kernel_ms = _best_ms(lambda: kernel.fn(u_phys, v_nbr, **kw), STENCIL_REPS)
+        bound = roofline.stencil_bound(cfg, hw) if hw is not None else None
+        gather_bytes = roofline.GATHER_WORDS_PER_SITE * cfg.word_bytes * cfg.shape.n_sites
+        row = {"row": label, "mode": "stencil_step", "verified": verified,
+               "depth2_equals_two_steps": depth2_ok, "step_ms": step_ms,
+               "gather_ms": gather_ms, "kernel_ms": kernel_ms,
+               "kernel_GBps": None if bound is None else bound.bytes / kernel_ms / 1e6,
+               "bound_ms": None if bound is None else bound.bound_s * 1e3,
+               "bound_share": None if bound is None else bound.bound_s * 1e3 / kernel_ms,
+               "step_bound_ms": None if bound is None else
+               (bound.bytes + gather_bytes) / hw.hbm_bw * 1e3,
+               "launches": counts[su3_stencil.STENCIL_LAUNCHES.name],
+               "expected_launches": calls, "plan": plan.describe()}
+        row["step_bound_share"] = (None if bound is None else row["step_bound_ms"] / step_ms)
+        row["ok"] = verified and depth2_ok and row["launches"] == calls and \
+            counts[su3_stencil.CG_LAUNCHES.name] == 0
+        _emit(row)
+        if not row["ok"]:
+            failures.append(f"stencil main path {label}: {row}")
+        out_rows.append(row)
+        del plan, u_phys, v_p, out, twice, depth2, v_nbr
+    return out_rows
+
+
+def _cg_main_path(hw, failures: list[str]) -> tuple[int, int]:
+    """``cg_solve`` at PAPER_L32 on the CG measurement problem, fused and
+    composed; the oracle on the card; the per-iteration split; one bf16 +
+    f32-accumulation row.  Returns the counted fused-kernel launches and the
+    stencil launches of the composed solve."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.su3_bench import PAPER_L32
+    from repro_torch.core import roofline
+    from repro_torch.core.autotune import _cg_measure_problem
+    from repro_torch.core.su3.plan import build_plan, cg_reference_solve
+    from repro_torch.kernels import su3_stencil
+
+    L, max_iters = PAPER_L32.L, 200
+    t0 = time.perf_counter()
+    u_np, b_np = _cg_measure_problem(L)
+    _emit({"phase": "cg data", "L": L, "seconds": time.perf_counter() - t0})
+    plan = build_plan(PAPER_L32)
+    u_phys, b_p = plan.pack_gauge(u_np), plan.pack_rhs(b_np)
+
+    solves, counts = {}, {}
+    for fused in (True, False):
+        torch.cuda.synchronize()
+        _reset_counts()
+        solves[fused] = plan.cg_solve(u_phys, b_p, fused=fused, max_iters=max_iters)
+        torch.cuda.synchronize()
+        counts[fused] = _counts()
+    res, comp = solves[True], solves[False]
+    dispatched = res.iterations + (1 if res.iterations < max_iters else 0)
+    fused_launches = counts[True][su3_stencil.CG_LAUNCHES.name]
+    composed_launches = counts[False][su3_stencil.STENCIL_LAUNCHES.name]
+    bitwise = (res.residuals == comp.residuals and res.iterations == comp.iterations
+               and torch.equal(_bits(res.x_p), _bits(comp.x_p)))
+
+    u_c = torch.from_numpy(u_np).to(plan.device)
+    b_c = torch.from_numpy(b_np).to(plan.device)
+    _x, oracle, oracle_conv = cg_reference_solve(u_c, b_c, L, max_iters=max_iters)
+    close = abs(len(oracle) - res.iterations) <= 1 and all(
+        abs(g - w) <= 1e-2 * w for g, w in zip(res.residuals, oracle) if w > 1e-5)
+    del u_c, b_c, _x
+    row = {"row": "cg soa f32", "mode": "cg_solve", "converged": res.converged,
+           "iterations": res.iterations, "residuals": res.residuals,
+           "fused_equals_composed_bitwise": bitwise,
+           "oracle_iterations": len(oracle), "oracle_residuals": oracle,
+           "oracle_converged": oracle_conv, "matches_oracle": close,
+           "launches": fused_launches, "expected_launches": dispatched,
+           "composed_stencil_launches": composed_launches, "wall_s": res.wall_s}
+    row["ok"] = (res.converged and bitwise and close and fused_launches == dispatched
+                 and composed_launches == dispatched
+                 and counts[True][su3_stencil.STENCIL_LAUNCHES.name] == 0
+                 and counts[False][su3_stencil.CG_LAUNCHES.name] == 0)
+    _emit(row)
+    if not row["ok"]:
+        failures.append(f"cg main path: {row}")
+
+    # per-iteration split, outside the counted windows
+    state = plan.cg_state_init(b_p)
+    for _ in range(2):
+        state = plan.cg_iterate(u_phys, state)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(CG_TIMED_ITERS):
+        state = plan.cg_iterate(u_phys, state)
+    end.record()
+    torch.cuda.synchronize()
+    iter_ms = start.elapsed_time(end) / CG_TIMED_ITERS
+    r, p = state["r"], state["p"]
+    coefs = plan._cg_helpers()["coef"](state["beta"], 16.0)
+    gathers_ms = _best_ms(lambda: (plan.gather_neighbors(r, "r"), plan.gather_neighbors(p, "p")),
+                          STENCIL_REPS)
+    kernel, kw = plan._stencil_kernel_kwargs("cuda_cg")
+    r_nbr, p_nbr = plan.gather_neighbors(r, "r"), plan.gather_neighbors(p, "p")
+    kernel_ms = _best_ms(lambda: kernel.fn(u_phys, r_nbr, p_nbr, r, p, coefs, **kw),
+                         STENCIL_REPS)
+    split = {"row": "cg soa f32", "mode": "cg_iterate split", "iteration_ms": iter_ms,
+             "kernel_ms": kernel_ms, "gathers_ms": gathers_ms,
+             "rest_ms": iter_ms - kernel_ms - gathers_ms}
+    if hw is not None:
+        terms = roofline.cg_iteration_bound(PAPER_L32, hw)
+        split.update({f"bound_{k}_ms": t.bound_s * 1e3 for k, t in terms.items()})
+        split["bound_share"] = terms["total"].bound_s * 1e3 / iter_ms
+        split["kernel_bound_share"] = terms["kernel"].bound_s * 1e3 / kernel_ms
+    _emit(split)
+    del plan, u_phys, b_p, state, r_nbr, p_nbr
+
+    # bf16 storage with f32 accumulation, held to benchmarks/cg_solve.py's TOL_BF16
+    cfg = dataclasses.replace(PAPER_L32, dtype="bfloat16", accum_dtype="float32")
+    plan = build_plan(cfg)
+    torch.cuda.synchronize()
+    _reset_counts()
+    bf = plan.cg_solve(plan.pack_gauge(u_np), plan.pack_rhs(b_np), tol=2e-2, max_iters=max_iters)
+    torch.cuda.synchronize()
+    bf_launches = _counts()[su3_stencil.CG_LAUNCHES.name]
+    bf_dispatched = bf.iterations + (1 if bf.iterations < max_iters else 0)
+    bf_row = {"row": "cg soa bf16+acc-f32", "mode": "cg_solve", "tol": 2e-2,
+              "converged": bf.converged, "iterations": bf.iterations,
+              "residuals": bf.residuals, "launches": bf_launches,
+              "expected_launches": bf_dispatched,
+              "ok": bf.converged and bf_launches == bf_dispatched}
+    _emit(bf_row)
+    if not bf_row["ok"]:
+        failures.append(f"cg bf16 row: {bf_row}")
+    return fused_launches + bf_launches, composed_launches
+
+
+def _stencil_yardsticks(u, vecs: dict, hw, failures: list[str]) -> tuple[dict, dict]:
+    """Kernel, plain-version and library times of both kernels at SoA f32,
+    L=32, on the random data; the entries of the kernels line."""
+    import torch
+
+    from repro_torch.configs.su3_bench import PAPER_L32
+    from repro_torch.core import roofline
+    from repro_torch.core.su3 import layouts
+    from repro_torch.kernels import su3_stencil
+
+    codec = layouts.make_codec("soa", tile=PAPER_L32.tile)
+    u_soa = codec.pack(u).contiguous()
+    v_nbr, r_nbr, p_nbr = vecs["v_nbr"], vecs["r_nbr"], vecs["p_nbr"]
+    r, p, coefs = vecs["r"], vecs["p"], vecs["coefs"]
+    st_ms = _time_ms(lambda: su3_stencil.su3_stencil_planar(u_soa, v_nbr), reps=50)
+    st_plain = _time_ms(lambda: su3_stencil.su3_stencil_planar_plain(u_soa, v_nbr), reps=3,
+                        warmup=1)
+    # the library yardstick: [U_mu ; U_mu^dagger] and the 8 neighbour vectors
+    # as complex64, contracted by one einsum (the same function of the
+    # gathered inputs; the port never calls it)
+    ut = u.transpose(0, 1)  # (4, S, 3, 3)
+    w = torch.cat([ut, ut.conj_physical().transpose(-1, -2)]).contiguous()
+    vc = torch.complex(v_nbr[:, 0], v_nbr[:, 1]).transpose(1, 2).contiguous()  # (8, S, 3)
+    lib = torch.einsum("dskl,dsl->sk", w, vc)
+    st_lib = _time_ms(lambda: torch.einsum("dskl,dsl->sk", w, vc), reps=10)
+    kern = su3_stencil.su3_stencil_planar(u_soa, v_nbr)
+    lib_err = torch.max(torch.abs(torch.complex(kern[0], kern[1]).T - lib)).item()
+    del w, vc, lib
+    cg_ms = _time_ms(lambda: su3_stencil.su3_cg_fused_planar(u_soa, r_nbr, p_nbr, r, p, coefs),
+                     reps=50)
+    cg_plain = _time_ms(lambda: su3_stencil.su3_cg_fused_planar_plain(
+        u_soa, r_nbr, p_nbr, r, p, coefs), reps=3, warmup=1)
+    st_bound = cg_bound = None
+    if hw is not None:
+        st_bound = roofline.stencil_bound(PAPER_L32, hw)
+        cg_bound = roofline.cg_iteration_bound(PAPER_L32, hw)["kernel"]
+    out = {"yardstick": "su3_stencil_planar / su3_cg_fused_planar soa f32 L=32",
+           "stencil_ms": st_ms, "stencil_plain_ms": st_plain, "stencil_library_ms": st_lib,
+           "library_call": 'torch.einsum("dskl,dsl->sk", W (8,S,3,3) c64, V (8,S,3) c64)',
+           "library_max_abs_diff": lib_err, "cg_ms": cg_ms, "cg_plain_ms": cg_plain,
+           "cg_library_ms": None}
+    if hw is not None:
+        out.update(stencil_bound_ms=st_bound.bound_s * 1e3,
+                   stencil_bound_share=st_bound.bound_s * 1e3 / st_ms,
+                   stencil_GBps=st_bound.bytes / st_ms / 1e6,
+                   cg_bound_ms=cg_bound.bound_s * 1e3,
+                   cg_bound_share=cg_bound.bound_s * 1e3 / cg_ms,
+                   cg_GBps=cg_bound.bytes / cg_ms / 1e6)
+    _emit(out)
+    if not lib_err <= 1e-4:
+        failures.append(f"library yardstick disagrees with the stencil kernel: {lib_err}")
+
+    def entry(ms, plain_ms, bound, library_ms):
+        return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                "bound_ms": None if bound is None else bound.bound_s * 1e3,
+                "bound_by": None if bound is None else bound.bound_by}
+
+    return entry(st_ms, st_plain, st_bound, st_lib), entry(cg_ms, cg_plain, cg_bound, None)
 
 
 def _drift_matches(engine, k: int, launches: int) -> bool:

@@ -1,5 +1,6 @@
-"""Roofline bound of the SU3 multiply on a Hopper card (port of the part of
-``repro.core.roofline`` that needs no compiled program).
+"""Roofline bounds of the SU3 kernels on a Hopper card (port of the part of
+``repro.core.roofline`` that needs no compiled program): the multiply, the
+stencil and one CG iteration.
 
 The reference derives its terms from XLA's HLO and carries TPU constants;
 neither applies here.  The port's bound is analytic: the bytes the multiply
@@ -14,8 +15,11 @@ limit).  A card this module does not know has no spec, and its bound is
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
+
+from repro_torch.kernels import su3_stencil
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,3 +114,73 @@ def analytic_su3_report(
         flops=864.0 * n_sites * k,
         bytes=float(bytes_per_site_rw) * n_sites,
     )
+
+
+def _stencil_kernel_words(cfg: Any) -> int:
+    if cfg.is_compressed:
+        return su3_stencil.STENCIL_COMP_WORDS_PER_SITE
+    return su3_stencil.STENCIL_WORDS_PER_SITE
+
+
+def stencil_bound(cfg: Any, hw: HardwareSpec | None = None) -> SU3Roofline:
+    """Bound of one stencil kernel launch over ``cfg``'s lattice: its words
+    per site (126, or 102 two-row) at the storage width, each read or
+    written once, against 576 flops/site.  The neighbour gather before it
+    is not counted (see :func:`cg_iteration_bound` for that term).
+
+    Raises:
+        LookupError: when no spec is given and the card is unknown.
+    """
+    hw = hw if hw is not None else current_hardware()
+    if hw is None:
+        raise LookupError("no Hopper spec for this device; pass hw= explicitly")
+    n = cfg.shape.n_sites
+    return SU3Roofline(
+        name=f"su3_stencil_L{cfg.L}",
+        hw=hw,
+        flops=float(su3_stencil.STENCIL_FLOPS_PER_SITE) * n,
+        bytes=float(_stencil_kernel_words(cfg) * cfg.word_bytes) * n,
+    )
+
+
+# one gather of a vector field: 8 directions x 6 words read and written
+GATHER_WORDS_PER_SITE = 2 * 8 * 6
+# the CG epilogue's vector passes per site: shift (read p', S; write ap: 18),
+# <p, ap> (12), the x/r update (read x, r, p, ap; write x, r: 36), <r, r> (6)
+CG_EPILOGUE_WORDS_PER_SITE = 18 + 12 + 36 + 6
+
+
+def cg_iteration_bound(cfg: Any, hw: HardwareSpec | None = None) -> dict[str, SU3Roofline]:
+    """Bound of one fused CG iteration over ``cfg``'s lattice, term by term.
+
+    Returns:
+        ``{"kernel", "gathers", "epilogue", "total"}``: the fused kernel
+        (192 words/site, 168 two-row), the two neighbour gathers (96 words
+        each: the index tables are not counted), the epilogue's vector
+        passes (72 words), all at the storage width, and their sum with the
+        iteration's 648 flops/site.
+
+    Raises:
+        LookupError: when no spec is given and the card is unknown.
+    """
+    hw = hw if hw is not None else current_hardware()
+    if hw is None:
+        raise LookupError("no Hopper spec for this device; pass hw= explicitly")
+    n, wb = cfg.shape.n_sites, cfg.word_bytes
+    kernel_words = _stencil_kernel_words(cfg) + su3_stencil.CG_EXTRA_WORDS_PER_SITE
+    stencil_flops = float(su3_stencil.STENCIL_FLOPS_PER_SITE) * n
+    terms = {
+        "kernel": SU3Roofline(f"su3_cg_fused_L{cfg.L}", hw, stencil_flops,
+                              float(kernel_words * wb) * n),
+        "gathers": SU3Roofline(f"cg_gathers_L{cfg.L}", hw, 0.0,
+                               float(2 * GATHER_WORDS_PER_SITE * wb) * n),
+        "epilogue": SU3Roofline(
+            f"cg_epilogue_L{cfg.L}", hw,
+            float(su3_stencil.CG_ITER_FLOPS_PER_SITE - su3_stencil.STENCIL_FLOPS_PER_SITE) * n,
+            float(CG_EPILOGUE_WORDS_PER_SITE * wb) * n),
+    }
+    terms["total"] = SU3Roofline(
+        f"cg_iteration_L{cfg.L}", hw,
+        sum(t.flops for t in terms.values()), sum(t.bytes for t in terms.values()),
+    )
+    return terms

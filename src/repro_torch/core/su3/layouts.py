@@ -301,6 +301,25 @@ class LayoutCodec:
     def unpack_b(self, b_p: torch.Tensor) -> torch.Tensor:
         return from_planar(b_p.to(torch.float32).reshape(2, LINKS, SU3, SU3))
 
+    # -- color-vector fields (the stencil workload's v) ------------------------
+    #
+    # The vector field is planar (2, 3, S) in every layout: it has no AoS
+    # metadata and no per-layout physical form; only the word dtype and the
+    # site padding vary.  Site order is the lattice's linear site id.
+
+    def pack_vec(self, v: torch.Tensor, padded_sites: int | None = None) -> torch.Tensor:
+        """Canonical vector field (n_sites, 3) complex -> planar (2, 3, S)
+        in the word dtype, zero-padded to ``padded_sites`` when given."""
+        p = to_planar(torch.movedim(v, 0, -1))  # (2, 3, n_sites)
+        if padded_sites is not None and padded_sites > v.shape[0]:
+            p = torch.nn.functional.pad(p, (0, padded_sites - v.shape[0]))
+        return p.to(self.word_dtype).contiguous()
+
+    def unpack_vec(self, v_p: torch.Tensor, n_sites: int | None = None) -> torch.Tensor:
+        """Planar (2, 3, S) -> canonical complex (n_sites, 3)."""
+        c = torch.movedim(from_planar(v_p.to(torch.float32)), -1, 0)
+        return c if n_sites is None else c[:n_sites]
+
     # -- the planar view --------------------------------------------------------
 
     @property

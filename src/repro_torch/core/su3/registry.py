@@ -11,10 +11,13 @@ wires a kernel by:
       compressed?) on the PHYSICAL planar layout — SoA (2, rows, S) or AoSoA
       (tiles, 2, rows, tile) — with b_p: (2, 36).  The CUDA kernel reads both
       layouts in place through their strides.
-      ``"batched"``, ``"stencil"``, ``"stencil_axpy"`` — the slot-batched
-      megakernel, the nearest-neighbour stencil and the fused CG body.  No
-      kernel of these forms is ported yet; the forms stay so a plan rejects
-      them with the reference's messages.
+      ``"stencil"`` — fn(u_phys, v_nbr, *, tile, accum_dtype?, compressed?):
+      the nearest-neighbour stencil over gathered neighbours (8, 2, 3, S).
+      ``"stencil_axpy"`` — fn(u_phys, r_nbr, p_nbr, r, p, coefs, ...): the
+      fused CG body.  Both dispatch through ``ExecutionPlan.stencil_step`` /
+      ``cg_solve``.
+      ``"batched"`` — the slot-batched megakernel; not ported yet, the form
+      stays so a plan rejects it with the reference's message.
   ``layouts``
       which physical layouts the kernel can be planned with.
   ``backends``
@@ -42,7 +45,7 @@ STENCIL = "stencil"
 STENCIL_AXPY = "stencil_axpy"
 
 # reference variant name -> port variant name (names not listed are equal)
-REFERENCE_NAMES = {"pallas": "cuda"}
+REFERENCE_NAMES = {"pallas": "cuda", "pallas_stencil": "cuda_stencil", "pallas_cg": "cuda_cg"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,7 +57,8 @@ class KernelEntry:
         fn: the kernel callable (signature per ``form``, module docstring).
         layouts: physical layouts the kernel can be planned with.
         backends: ``"torch"`` / ``"cuda"`` — what runs the body.
-        form: ``"canonical"`` or ``"planar"`` (module constants).
+        form: one of the module constants (``"canonical"``, ``"planar"``,
+            ``"stencil"``, ...).
         supports_fused: fn accepts ``k_iters``.
         supports_accum: fn accepts ``accum_dtype`` (planar mixed precision).
         supports_compressed: fn accepts ``compressed`` (two-row gauge).

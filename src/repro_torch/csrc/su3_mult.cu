@@ -30,9 +30,11 @@
 //    plain PyTorch version (repro_torch/kernels/su3_matmul.py), and a k-chain
 //    equals k single launches bit for bit at f32.
 //  * bf16 storage: words widen with __bfloat162float on load.  Pure bf16
-//    rounds every entry to bf16 (__float2bfloat16_rn) after each multiply of
-//    the chain; bf16 storage with f32 accumulation keeps the chain in f32 and
-//    narrows once on store.
+//    rounds to bf16 (__float2bfloat16_rn) after every product, sum and
+//    difference, as the reference's bf16 _mult_tile does (each jnp op on
+//    bf16 operands rounds its result), so the two agree bit for bit; bf16
+//    storage with f32 accumulation keeps the chain in f32 and narrows once
+//    on store.
 //  * Two-row storage: rows 0/1 of C depend only on rows 0/1 of A, so a chain
 //    over the two stored rows never reads row 2, and the thread computes the
 //    stored rows only.  (The TPU kernel rebuilds row 2 on load and drops it
@@ -53,7 +55,7 @@ constexpr int kFullRows = 36;  // planar rows of B (and of full storage)
 
 // storage / arithmetic modes, as passed from Python
 constexpr int kModeF32 = 0;        // f32 words, f32 chain
-constexpr int kModeBF16 = 1;       // bf16 words, rounded to bf16 per multiply
+constexpr int kModeBF16 = 1;       // bf16 words, rounded to bf16 per operation
 constexpr int kModeBF16AccF32 = 2; // bf16 words, f32 chain, rounded on store
 
 __device__ __forceinline__ float widen(float x) { return x; }
@@ -68,12 +70,20 @@ __device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
+// R: round the result to bf16 (pure bf16), else keep the f32 result.
+template <bool R>
+__device__ __forceinline__ float rnd(float x) {
+  return R ? __bfloat162float(__float2bfloat16_rn(x)) : x;
 }
+template <bool R>
+__device__ __forceinline__ float mul(float a, float b) { return rnd<R>(__fmul_rn(a, b)); }
+template <bool R>
+__device__ __forceinline__ float add(float a, float b) { return rnd<R>(__fadd_rn(a, b)); }
+template <bool R>
+__device__ __forceinline__ float sub(float a, float b) { return rnd<R>(__fsub_rn(a, b)); }
 
 // T: storage word; NR: stored rows per link (3 full, 2 two-row);
-// ROUND_EACH: round to bf16 after every multiply (pure bf16);
+// ROUND_EACH: round to bf16 after every operation (pure bf16);
 // AOSOA: (tiles, 2, rows, lane) physical layout, else SoA (2, rows, S).
 template <typename T, int NR, bool ROUND_EACH, bool AOSOA>
 __global__ void __launch_bounds__(kThreads)
@@ -133,17 +143,18 @@ su3_mult_kernel(const void* a_words, void* c_words, const void* b_words,
       for (int m = 0; m < 3; ++m) {
         // c[k][m] = sum_l x[k][l] * b[l][m], in _mult_tile's order:
         //   cr = (cr + xr*br) - xi*bi ;  ci = (ci + xr*bi) + xi*br
-        float cr = __fsub_rn(__fmul_rn(xr[k][0], br[m]), __fmul_rn(xi[k][0], bi[m]));
-        float ci = __fadd_rn(__fmul_rn(xr[k][0], bi[m]), __fmul_rn(xi[k][0], br[m]));
+        constexpr bool R = ROUND_EACH;
+        float cr = sub<R>(mul<R>(xr[k][0], br[m]), mul<R>(xi[k][0], bi[m]));
+        float ci = add<R>(mul<R>(xr[k][0], bi[m]), mul<R>(xi[k][0], br[m]));
 #pragma unroll
         for (int l = 1; l < 3; ++l) {
-          cr = __fsub_rn(__fadd_rn(cr, __fmul_rn(xr[k][l], br[l * 3 + m])),
-                         __fmul_rn(xi[k][l], bi[l * 3 + m]));
-          ci = __fadd_rn(__fadd_rn(ci, __fmul_rn(xr[k][l], bi[l * 3 + m])),
-                         __fmul_rn(xi[k][l], br[l * 3 + m]));
+          cr = sub<R>(add<R>(cr, mul<R>(xr[k][l], br[l * 3 + m])),
+                      mul<R>(xi[k][l], bi[l * 3 + m]));
+          ci = add<R>(add<R>(ci, mul<R>(xr[k][l], bi[l * 3 + m])),
+                      mul<R>(xi[k][l], br[l * 3 + m]));
         }
-        yr[k][m] = ROUND_EACH ? round_bf16(cr) : cr;
-        yi[k][m] = ROUND_EACH ? round_bf16(ci) : ci;
+        yr[k][m] = cr;
+        yi[k][m] = ci;
       }
     }
 #pragma unroll

@@ -12,7 +12,7 @@ import torch
 from repro_torch.core.su3 import layouts, registry
 from repro_torch.core.su3.layouts import Layout
 from repro_torch.kernels import ref as kref
-from repro_torch.kernels import su3_matmul
+from repro_torch.kernels import su3_matmul, su3_stencil
 
 DEFAULT_TILE = su3_matmul.DEFAULT_TILE
 
@@ -45,6 +45,58 @@ def su3_mult_planar(
     """
     return su3_matmul.su3_mult_planar(
         a, b, tile=tile, k_iters=k_iters, alias=alias, accum_dtype=accum_dtype,
+        compressed=compressed,
+    )
+
+
+@registry.register_kernel(
+    "cuda_stencil",
+    layouts=(Layout.SOA, Layout.AOSOA),
+    backends=("cuda",),
+    form=registry.STENCIL,
+    supports_accum=True,
+    supports_compressed=True,
+)
+def su3_stencil_planar(
+    u: torch.Tensor,
+    v_nbr: torch.Tensor,
+    *,
+    tile: int = DEFAULT_TILE,
+    accum_dtype: str | None = None,
+    compressed: bool = False,
+) -> torch.Tensor:
+    """Stencil entry: u SoA (2, 36|24, S) or AoSoA (S//T, 2, 36|24, T),
+    v_nbr (8, 2, 3, S) direction-major gathered neighbours -> (2, 3, S)."""
+    return su3_stencil.su3_stencil_planar(
+        u, v_nbr, tile=tile, accum_dtype=accum_dtype, compressed=compressed
+    )
+
+
+@registry.register_kernel(
+    "cuda_cg",
+    layouts=(Layout.SOA, Layout.AOSOA),
+    backends=("cuda",),
+    form=registry.STENCIL_AXPY,
+    supports_accum=True,
+    supports_compressed=True,
+)
+def su3_cg_fused_planar(
+    u: torch.Tensor,
+    r_nbr: torch.Tensor,
+    p_nbr: torch.Tensor,
+    r: torch.Tensor,
+    p: torch.Tensor,
+    coefs: torch.Tensor,
+    *,
+    tile: int = DEFAULT_TILE,
+    accum_dtype: str | None = None,
+    compressed: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused CG body entry: u as above, (r_nbr, p_nbr) (8, 2, 3, S), (r, p)
+    (2, 3, S), coefs (1, 2) [beta, sigma] -> (p', S(p')); the sigma shift
+    runs in the plan's shared epilogue."""
+    return su3_stencil.su3_cg_fused_planar(
+        u, r_nbr, p_nbr, r, p, coefs, tile=tile, accum_dtype=accum_dtype,
         compressed=compressed,
     )
 

@@ -7,7 +7,7 @@ kernel is ``repro_torch/csrc/su3_mult.cu``; this module holds:
     expand (two-row), the fixed-order multiply chain, compress, with the
     rounding of the reference's ``_expand_tile`` / ``_mult_tile`` /
     ``_compress_tile`` and of the CUDA kernel (every product, sum and
-    difference rounds on its own; pure bf16 rounds after each multiply).
+    difference rounds on its own, to bf16 as well under pure bf16).
   * :func:`su3_mult_planar` — the wrapper: for a CUDA tensor it checks the
     arguments, launches the kernel on the current stream and counts the
     launch in :data:`LAUNCHES`; for a CPU tensor it runs the plain version;
@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+from typing import Callable
 
 import torch
 
@@ -87,23 +88,40 @@ def compress_tile(c: torch.Tensor) -> torch.Tensor:
     return _rows(c, _COMP_TO_FULL)
 
 
-def mult_tile(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """Round f32 values to bf16 (nearest even) and widen them back."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _keep(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+def rounding(round_each: bool) -> Callable[[torch.Tensor], torch.Tensor]:
+    """What follows every operation: bf16 rounding under pure bf16, else
+    nothing (the f32 result stands)."""
+    return round_bf16 if round_each else _keep
+
+
+def mult_tile(a: torch.Tensor, b: torch.Tensor, round_each: bool = False) -> torch.Tensor:
     """C = A (x) B on a (2, 36, T) f32 tile with a (2, 36) f32 B.
 
     Per output entry, in the reference's ``_mult_tile`` order:
     ``cr = ar*br - ai*bi`` then ``cr = (cr + ar*br) - ai*bi`` for l = 1, 2
-    (and ``ci = (ci + ar*bi) + ai*br``); each op rounds on its own.
+    (and ``ci = (ci + ar*bi) + ai*br``); each op rounds on its own, and
+    ``round_each`` (pure bf16) rounds each op's result to bf16 as well.
     """
+    r = rounding(round_each)
     cr = ci = None
     for l in range(SU3):
         ar, ai = _rows(a, _A_ROWS[l])
         br, bi = (b[:, list(_B_ROWS[l])][..., None]).unbind(0)
         if cr is None:
-            cr = ar * br - ai * bi
-            ci = ar * bi + ai * br
+            cr = r(r(ar * br) - r(ai * bi))
+            ci = r(r(ar * bi) + r(ai * br))
         else:
-            cr = cr + ar * br - ai * bi
-            ci = ci + ar * bi + ai * br
+            cr = r(r(cr + r(ar * br)) - r(ai * bi))
+            ci = r(r(ci + r(ar * bi)) + r(ai * br))
     return torch.stack([cr, ci], dim=0)
 
 
@@ -117,18 +135,18 @@ def su3_mult_planar_plain(
 ) -> torch.Tensor:
     """The plain PyTorch version of the kernel on a planar (2, rows, S) tile.
 
-    Works at f32 on every storage dtype.  Pure bf16 storage rounds the tile
-    to bf16 after each multiply of the chain; bf16 storage with
-    ``accum_dtype="float32"`` rounds once, on the way out.
+    Works at f32 on every storage dtype.  Pure bf16 storage rounds to bf16
+    after every operation of the chain; bf16 storage with
+    ``accum_dtype="float32"`` rounds once, on the way out.  Two-row storage
+    rebuilds row 2 but never reads it: rows 0/1 of C depend only on rows 0/1
+    of A.
     """
     round_each = a.dtype == torch.bfloat16 and accum_dtype != "float32"
     x, bw = a.to(torch.float32), b.to(torch.float32)
     if compressed:
         x = expand_tile(x)
     for _ in range(k_iters):
-        x = mult_tile(x, bw)
-        if round_each:
-            x = x.to(torch.bfloat16).to(torch.float32)
+        x = mult_tile(x, bw, round_each)
     if compressed:
         x = compress_tile(x)
     return x.to(a.dtype)
@@ -168,15 +186,19 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _mode(dtype: torch.dtype, accum_dtype: str | None) -> int:
+def _mode(dtype: torch.dtype, accum_dtype: str | None, kernel: str = "su3_mult_planar") -> int:
+    """The kernel mode of a storage dtype and accumulation width (the
+    numbering every ``csrc`` source shares)."""
     if dtype == torch.float32:
         return _MODE_F32
     if dtype == torch.bfloat16:
         return _MODE_BF16_ACC_F32 if accum_dtype == "float32" else _MODE_BF16
-    raise ValueError(f"su3_mult_planar stores float32 or bfloat16 words, got {dtype}")
+    raise ValueError(f"{kernel} stores float32 or bfloat16 words, got {dtype}")
 
 
 def _check_error(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise on a nonzero cudaError_t; every ``csrc`` library exports
+    ``su3_error_string`` to name it."""
     if rc != 0:
         msg = lib.su3_error_string(rc).decode()
         raise RuntimeError(f"{what} failed: CUDA error {rc} ({msg})")

@@ -97,3 +97,78 @@ def test_cuda_wrapper_rejects_mismatched_operands(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         ops.su3_mult_planar(a.transpose(1, 2).contiguous().transpose(1, 2),
                             tb.to(cuda_device), tile=S)
+
+
+# -- the stencil and the fused CG body --------------------------------------------
+
+
+def _stencil_inputs(dtype: str, compressed: bool, seed: int):
+    """Random SU(3) links (2, rows, S) and random neighbour blocks and
+    vectors, in the storage dtype, on the CPU."""
+    u, _ = _inputs(dtype, compressed, seed)
+    rng = np.random.default_rng(seed + 100)
+    tdt = getattr(torch, dtype)
+
+    def vec(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(tdt)
+
+    return u, vec(8, 2, 3, S), vec(8, 2, 3, S), vec(2, 3, S), vec(2, 3, S)
+
+
+def _to_aosoa(u: torch.Tensor, lane: int) -> torch.Tensor:
+    return torch.movedim(u.reshape(2, u.shape[1], S // lane, lane), 2, 0).contiguous()
+
+
+def _same(got: torch.Tensor, want: torch.Tensor, dtype: str, accum, compressed) -> None:
+    got = got.cpu()
+    if dtype == "float32":  # bitwise, -0.0 against +0.0 included
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    else:
+        err = torch.max(torch.abs(got.float() - want.float())).item()
+        assert err <= verify_tolerance(dtype, accum or "", compressed), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,accum,compressed", FORMS)
+@pytest.mark.parametrize("aosoa", [False, True])
+def test_cuda_stencil_and_cg_kernels_match_plain_versions(cuda_device, dtype, accum, compressed,
+                                                          aosoa):
+    from repro_torch.kernels import su3_stencil
+
+    u, v, rn, r, p = _stencil_inputs(dtype, compressed, seed=11)
+    coefs = torch.tensor([[0.37, 16.0]], dtype=torch.float32)
+    kw = {"tile": 64, "accum_dtype": accum, "compressed": compressed}
+    want_s = ops.su3_stencil_planar(u, v, **kw)
+    want_p, want_cg = ops.su3_cg_fused_planar(u, v, rn, r, p, coefs, **kw)
+    ud = (_to_aosoa(u, 64) if aosoa else u).to(cuda_device)
+    dev = [t.to(cuda_device) for t in (v, rn, r, p, coefs)]
+    before = (su3_stencil.STENCIL_LAUNCHES.count, su3_stencil.CG_LAUNCHES.count)
+    got_s = ops.su3_stencil_planar(ud, dev[0], **kw)
+    got_p, got_cg = ops.su3_cg_fused_planar(ud, *dev, **kw)
+    torch.cuda.synchronize()
+    assert (su3_stencil.STENCIL_LAUNCHES.count, su3_stencil.CG_LAUNCHES.count) == (
+        before[0] + 1, before[1] + 1)
+    for got, want in ((got_s, want_s), (got_p, want_p), (got_cg, want_cg)):
+        assert got.dtype == want.dtype and tuple(got.shape) == (2, 3, S)
+        _same(got, want, dtype, accum, compressed)
+
+
+@pytest.mark.cuda
+def test_cuda_stencil_site_subset_equals_full_pass(cuda_device):
+    u, v, _, _, _ = _stencil_inputs("float32", False, seed=12)
+    u, v = u.to(cuda_device), v.to(cuda_device)
+    full = ops.su3_stencil_planar(u, v, tile=64)
+    idx = torch.from_numpy(np.random.default_rng(3).permutation(S)[:128]).to(cuda_device)
+    sub = ops.su3_stencil_planar(u[:, :, idx].contiguous(), v[..., idx].contiguous(), tile=64)
+    assert torch.equal(sub.view(torch.int32), full[:, :, idx].view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_cuda_stencil_wrappers_reject_bad_operands(cuda_device):
+    u, v, rn, r, p = (t.to(cuda_device) for t in _stencil_inputs("float32", False, seed=13))
+    with pytest.raises(ValueError, match="match u's device and dtype"):
+        ops.su3_stencil_planar(u, v.cpu(), tile=64)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.su3_stencil_planar(u, v.transpose(2, 3).contiguous().transpose(2, 3), tile=64)
+    with pytest.raises(ValueError, match="coefs"):
+        ops.su3_cg_fused_planar(u, v, rn, r, p, torch.zeros(1, 2), tile=64)

@@ -60,6 +60,6 @@ def test_variant_registry_matches_reference():
         entry = registry.get_kernel(name)
         assert entry.form == registry.CANONICAL and entry.backends == ("torch",)
         assert entry.supports_accum_dtype() and entry.supports_compression()
-    assert registry.kernel_names(backend="cuda") == ["cuda"]
+    assert registry.kernel_names(backend="cuda") == ["cuda", "cuda_cg", "cuda_stencil"]
     with pytest.raises(KeyError, match="not a canonical"):
         variants.get_variant("cuda")
