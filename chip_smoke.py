@@ -7,14 +7,17 @@ Run from the root of a checkout; it needs one CUDA device and nvcc.  It
 builds every CUDA source of the port (``build/repro_torch/``, one nvcc per
 source, started together) and, at the paper's L=32 lattice:
 
-  * holds each kernel (the multiply, the stencil, the fused CG body)
-    against its plain PyTorch version on random SU(3) links and random
-    vectors, in every storage form;
+  * holds each kernel (the multiply, the slot-batched serving megakernel,
+    the stencil, the fused CG body) against its plain PyTorch version on
+    random SU(3) links and random vectors, in every storage form;
   * drives the main paths with the launch counters set to 0 just before
     each and read just after: ``SU3Engine.run()`` / ``run_fused(8)``,
     ``ExecutionPlan.stencil_step()`` (and ``depth=2``) on the stencil's
-    fixed point, and ``ExecutionPlan.cg_solve`` fused and composed on the
-    CG measurement problem, held against the plain ``cg_reference_solve``;
+    fixed point, ``ExecutionPlan.cg_solve`` fused and composed on the CG
+    measurement problem, held against the plain ``cg_reference_solve``,
+    and ``SU3Service`` in its batch, continuous and megakernel modes on one
+    seeded request stream (multiplies at L=16 and L=32, then a stencil
+    batch and a solve), autotuned against a fresh cache under ``build/``;
   * times each kernel against its bound, its plain version and, where one
     PyTorch call computes the same function, that call.
 
@@ -25,8 +28,10 @@ It prints:
   * a ``{"kernels": [...]}`` line with each ported kernel's numbers;
   * last, ``{"ok": true, "device": {...}}`` — only if every phase passed.
 
-Without CUDA, or without the rest of the repository, it exits non-zero and
-prints no result.
+The whole output is over 20 KB; where only the end of a log is kept, run
+``mkdir -p build && python3 chip_smoke.py | tee build/chip_smoke.log`` to
+keep all of it.  Without CUDA, or without the rest of the repository, it
+exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -46,6 +51,12 @@ REPLACES = "src/repro/kernels/su3_matmul.py:199"  # su3_mult_planar (pallas_call
 STENCIL_SOURCE = "src/repro_torch/csrc/su3_stencil.cu"
 STENCIL_REPLACES = "src/repro/kernels/su3_stencil.py:136"  # su3_stencil_planar (pallas_call :159)
 CG_REPLACES = "src/repro/kernels/su3_stencil.py:240"  # su3_cg_fused_planar (pallas_call :276)
+MEGA_REPLACES = "src/repro/kernels/su3_matmul.py:292"  # su3_mult_planar_batched (pallas_call :340)
+SLOT_K = [0, 1, 3, 8, 13]  # dead, single, deep, max_k, above max_k (clamped to max_k)
+MAX_K = 8
+SERVICE_LS = (16, 32)  # the stream's lattice sizes: the small one arrives first
+SERVICE_STREAM = [(0, 3), (0, 8), (0, 1), (0, 5), (1, 2), (1, 7), (1, 4), (1, 6)]  # (L index, k)
+TABLE_SLOTS = 8
 FUSED_K = 8
 FUSED_REPS = 3  # SU3Engine.run_fused's default
 STENCIL_REPS = 20  # timed stencil steps per main-path row
@@ -114,18 +125,20 @@ def _bits(x):
     return x.view(torch.int16 if x.dtype == torch.bfloat16 else torch.int32)
 
 
-def _reset_counts() -> None:
+def _counters() -> tuple:
     from repro_torch.kernels import su3_matmul, su3_stencil
 
-    for counter in (su3_matmul.LAUNCHES, su3_stencil.STENCIL_LAUNCHES, su3_stencil.CG_LAUNCHES):
+    return (su3_matmul.LAUNCHES, su3_matmul.MEGA_LAUNCHES, su3_stencil.STENCIL_LAUNCHES,
+            su3_stencil.CG_LAUNCHES)
+
+
+def _reset_counts() -> None:
+    for counter in _counters():
         counter.count = 0
 
 
 def _counts() -> dict[str, int]:
-    from repro_torch.kernels import su3_matmul, su3_stencil
-
-    return {c.name: c.count for c in (su3_matmul.LAUNCHES, su3_stencil.STENCIL_LAUNCHES,
-                                      su3_stencil.CG_LAUNCHES)}
+    return {c.name: c.count for c in _counters()}
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -180,12 +193,16 @@ def main(argv: list[str] | None = None) -> int:
                                  "bf16+acc-f32": (torch.bfloat16, "float32")}.items():
         for compressed in (False, True):
             for aosoa in (False, True):
-                budget = su3_matmul.kernel_budget(dtype, accum, compressed, aosoa)
-                _emit({"kernel_budget": "su3_mult_planar", "mode": mode,
-                       "two_row": compressed, "aosoa": aosoa, **budget})
-                for which, kname in (("stencil", "su3_stencil_planar"),
-                                     ("cg", "su3_cg_fused_planar")):
-                    b = su3_stencil.kernel_budget(which, dtype, accum, compressed, aosoa)
+                found = {
+                    "su3_mult_planar": su3_matmul.kernel_budget(dtype, accum, compressed, aosoa),
+                    "su3_mult_planar_batched": su3_matmul.kernel_budget(
+                        dtype, accum, compressed, aosoa, megakernel=True),
+                    "su3_stencil_planar": su3_stencil.kernel_budget(
+                        "stencil", dtype, accum, compressed, aosoa),
+                    "su3_cg_fused_planar": su3_stencil.kernel_budget(
+                        "cg", dtype, accum, compressed, aosoa),
+                }
+                for kname, b in found.items():
                     budgets.setdefault(kname, []).append(
                         [mode, compressed, aosoa, b["num_regs"], b["local_bytes"],
                          b["threads_per_block"], b["blocks_per_sm"], b["occupancy"]])
@@ -306,6 +323,15 @@ def main(argv: list[str] | None = None) -> int:
     if cg_launches == 0:
         failures.append("the main path never launched su3_cg_fused_planar")
 
+    # -- 4e. the serving megakernel vs its plain version, L=32 slot tables ----------
+    mega_err = _megakernel_checks(u, rng, failures)
+    # -- 4f. the main path: SU3Service in its three dispatch modes --------------------
+    mega_launches, svc_counts = _service_main_path(u, rng, failures)
+    if mega_launches == 0:
+        failures.append("the main path never launched su3_mult_planar_batched")
+    stencil_launches += svc_counts["su3_stencil_planar"]
+    cg_launches += svc_counts["su3_cg_fused_planar"]
+
     # -- 5. yardsticks at the main path's shape (SoA f32, k=1, L=32) ----------------
     codec = layouts.make_codec(Layout.SOA, tile=PAPER_L32.tile)
     a, b = codec.pack(u).contiguous(), codec.pack_b(b_c).contiguous()
@@ -340,6 +366,7 @@ def main(argv: list[str] | None = None) -> int:
     del a16
 
     st, cg = _stencil_yardsticks(u, vecs, hw, failures)
+    mega = _megakernel_yardsticks(u, rng, hw)
 
     # -- 6. the kernels line -----------------------------------------------------------
     _emit({"kernels": [{
@@ -347,6 +374,9 @@ def main(argv: list[str] | None = None) -> int:
         "replaces": REPLACES, "launches": main_path_launches, "max_abs_err": max_err,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_ms,
+    }, {
+        "name": "su3_mult_planar_batched", "route": "cuda", "source": KERNEL_SOURCE,
+        "replaces": MEGA_REPLACES, "launches": mega_launches, "max_abs_err": mega_err, **mega,
     }, {
         "name": "su3_stencil_planar", "route": "cuda", "source": STENCIL_SOURCE,
         "replaces": STENCIL_REPLACES, "launches": stencil_launches, "max_abs_err": stencil_err,
@@ -679,6 +709,278 @@ def _stencil_yardsticks(u, vecs: dict, hw, failures: list[str]) -> tuple[dict, d
                 "bound_by": None if bound is None else bound.bound_by}
 
     return entry(st_ms, st_plain, st_bound, st_lib), entry(cg_ms, cg_plain, cg_bound, None)
+
+
+MEGA_FORMS = [  # (label, layout, dtype, accum, compression)
+    ("soa f32", "soa", "float32", "", "none"),
+    ("aosoa f32", "aosoa", "float32", "", "none"),
+    ("soa bf16+acc-f32", "soa", "bfloat16", "float32", "none"),
+    ("soa bf16", "soa", "bfloat16", "", "none"),
+    ("soa f32 two-row", "soa", "float32", "", "two_row"),
+    ("soa bf16 two-row", "soa", "bfloat16", "", "two_row"),
+]
+
+
+def _slot_lattices(u, n: int):
+    """``n`` distinct random SU(3) lattices from ``u`` (S, 4, 3, 3): slot s
+    holds ``u`` rolled by s * 997 sites, made on the card."""
+    import torch
+
+    return [torch.roll(u, s * 997, 0) for s in range(n)]
+
+
+def _megakernel_checks(u, rng, failures: list[str]) -> float:
+    """The megakernel against its plain version in every form at L=32 on a
+    slot table with mixed depths ``SLOT_K`` (bitwise), a slot's chain
+    against single launches, in place against out of place, and the
+    multiply's batch axis (``BatchedLatticeRunner.run``) against per-lattice
+    launches.  Returns the largest error."""
+    import torch
+
+    from repro_torch.configs.su3_bench import PAPER_L32
+    from repro_torch.core.su3 import layouts
+    from repro_torch.core.su3.plan import BatchedLatticeRunner
+    from repro_torch.kernels import su3_matmul
+
+    slots = len(SLOT_K)
+    lattices = _slot_lattices(u, slots)
+    b_c = torch.from_numpy(random_su3(rng, (slots, layouts.LINKS))).to(u.device)
+    ks = torch.tensor(SLOT_K, dtype=torch.int32, device=u.device)
+    worst = 0.0
+    for label, layout, dtype, accum, comp in MEGA_FORMS:
+        codec = layouts.make_codec(layout, tile=PAPER_L32.tile, dtype=dtype, accum_dtype=accum,
+                                   compression=comp)
+        a = torch.stack([codec.pack(x) for x in lattices]).contiguous()
+        b = torch.stack([codec.pack_b(x) for x in b_c]).contiguous()
+        kw = {"max_k": MAX_K, "accum_dtype": accum or None, "compressed": codec.is_compressed}
+        got = su3_matmul.su3_mult_planar_batched(a, b, ks, tile=codec.tile, **kw)
+        want = su3_matmul.su3_mult_planar_batched_plain(a, b, ks, **kw)
+        in_place = a.clone()
+        su3_matmul.su3_mult_planar_batched(in_place, b, ks, tile=codec.tile, alias=True, **kw)
+        torch.cuda.synchronize()
+        err = torch.max(torch.abs(got.float() - want.float())).item()
+        bitwise = torch.equal(_bits(got), _bits(want))
+        alias_ok = torch.equal(_bits(in_place), _bits(got))
+        row = {"check": "megakernel_vs_plain", "form": label, "slot_k": SLOT_K,
+               "max_abs_err": err, "bitwise": bitwise, "in_place_equals": alias_ok}
+        if label == "soa f32":  # slot chains against single launches
+            chains_ok = True
+            for s, k in enumerate(SLOT_K):
+                x = a[s]
+                for _ in range(min(k, MAX_K)):
+                    x = su3_matmul.su3_mult_planar(x, b[s], tile=codec.tile)
+                chains_ok = chains_ok and torch.equal(_bits(x), _bits(got[s]))
+            row["chains_equal_single_launches"] = chains_ok
+            bitwise = bitwise and chains_ok
+        row["ok"] = bitwise and alias_ok
+        worst = max(worst, err)
+        _emit(row)
+        if not row["ok"]:
+            failures.append(f"megakernel vs plain {label}: {row}")
+        del a, b, got, want, in_place
+
+    runner = BatchedLatticeRunner(PAPER_L32, u.device)
+    a = runner.pack_batch(torch.stack(lattices[:4]))
+    b = runner.pack_b_batch(b_c[:4])
+    before = su3_matmul.LAUNCHES.count
+    batch = runner.run(a, b, k=3)
+    one_launch = su3_matmul.LAUNCHES.count - before == 1
+    singles = [runner.plan.fused_step(3)(a[s].clone(), b[s]) for s in range(4)]
+    torch.cuda.synchronize()
+    ok = one_launch and all(torch.equal(_bits(batch[s]), _bits(x)) for s, x in enumerate(singles))
+    _emit({"check": "BatchedLatticeRunner.run (one launch, k=3) equals per-lattice launches",
+           "one_launch": one_launch, "ok": ok})
+    if not ok:
+        failures.append("batch-axis run vs per-lattice launches")
+    return worst
+
+
+def _service_main_path(u, rng, failures: list[str]) -> tuple[int, dict[str, int]]:
+    """``SU3Service`` on one seeded stream in each dispatch mode: 8
+    multiplies (L=16 first, then L=32 while those are in flight), then a
+    stencil batch and a CG solve at L=32.  Autotuned against a fresh cache
+    under ``build/`` (the first mode sweeps, the others read the cache).
+    Returns the megakernel's launches in the megakernel mode's multiply
+    window, and the stencil and CG launches of the three stencil+solve
+    windows."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import autotune
+    from repro_torch.core.su3 import layouts
+    from repro_torch.serve.su3 import BatcherConfig, ServiceConfig, SU3Service
+
+    small_L, big_L = SERVICE_LS  # u holds big_L**4 sites
+    cache = ROOT / "build" / "chip_smoke_autotune"
+    shutil.rmtree(cache, ignore_errors=True)
+    big = _slot_lattices(u, 4)
+    small = [x[: small_L**4].contiguous() for x in _slot_lattices(u, 4)]
+    lattices = [iter(small), iter(big)]
+    requests = [(next(lattices[i]), SERVICE_LS[i], k) for i, k in SERVICE_STREAM]
+    b_c = torch.from_numpy(random_su3(rng, (len(requests), layouts.LINKS))).to(u.device)
+    u_cg, rhs_cg = (torch.from_numpy(x).to(u.device)
+                    for x in autotune._cg_measure_problem(big_L))
+    v_st = [torch.from_numpy((rng.standard_normal((big_L**4, 3))
+                              + 1j * rng.standard_normal((big_L**4, 3))).astype(np.complex64)
+                             ).to(u.device) for _ in range(2)]
+    modes = {"batch": {}, "continuous": {"continuous": True},
+             "megakernel": {"continuous": True, "megakernel": True}}
+    mega_launches = 0
+    side = {"su3_stencil_planar": 0, "su3_cg_fused_planar": 0}
+    tuned = {}
+    for mode, flags in modes.items():
+        svc = SU3Service(ServiceConfig(
+            autotune=True, cache_directory=str(cache), chain_slots=TABLE_SLOTS,
+            batcher=BatcherConfig(max_batch=TABLE_SLOTS, warm_batch_sizes=(1, 2, 4, 8)),
+            **flags), device=u.device)
+        swept = not autotune.load_cache(str(cache))
+        t0 = time.perf_counter()
+        svc.warm(SERVICE_LS)  # set-up: the autotune sweep (first mode) and first touch
+        tuned[mode] = {"warm_s": time.perf_counter() - t0, "swept": swept, **{
+            f"L{L}": {k: autotune.best_config(L=L, cache_directory=str(cache), device=u.device)[k]
+                      for k in ("tile", "fused_k")} for L in SERVICE_LS}}
+        torch.cuda.synchronize()
+        # -- the multiply stream: counts from 0 --------------------------------
+        _reset_counts()
+        t0 = time.perf_counter()
+        ids = [svc.submit(a, b_c[i], k=k) for i, (a, L, k) in enumerate(requests)
+               if L == small_L]
+        svc.step()
+        ids += [svc.submit(a, b_c[i], k=k) for i, (a, L, k) in enumerate(requests)
+                if L == big_L]
+        grew = None
+        if mode == "megakernel":
+            svc.step()
+            table, arrays = svc._tables[0]
+            grew = arrays.cap_L == big_L and any(
+                r.L == small_L for _s, r, _k in table.occupants())
+        svc.run_until_drained()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = _counts()
+        snap = svc.metrics.snapshot()
+        results = [svc.pop_result(i) for i in ids]
+        # -- held against the chained single-step path (outside the window) ----
+        bitwise = True
+        for i, ((a, L, k), got) in enumerate(zip(requests, results)):
+            runner = svc.runner_for(L)
+            x = runner.pack_batch(a[None])[0]
+            b_p = runner.plan.codec.pack_b(b_c[i])
+            for _ in range(k):
+                x = runner.plan.step(x, b_p)
+            want = runner.plan.unpack(x)
+            bitwise = bitwise and got.shape == want.shape and torch.equal(
+                torch.view_as_real(got).view(torch.int32),
+                torch.view_as_real(want).view(torch.int32))
+        row = {"row": "service", "mode": mode, "completed": snap["completed"],
+               "dispatches": snap["dispatches"], "iterations": snap["iterations"],
+               "midchain_admits": snap["midchain_admits"], "launches": counts,
+               "dispatch_wall_ms": snap["busy_s"] / max(1, snap["dispatches"]) * 1e3,
+               "stream_wall_ms": wall_s * 1e3, "bitwise_vs_chained_steps": bitwise}
+        expected = {"batch": "su3_mult_planar", "continuous": "su3_mult_planar",
+                    "megakernel": "su3_mult_planar_batched"}[mode]
+        ok = (snap["completed"] == len(requests) and bitwise
+              and counts[expected] == snap["dispatches"]
+              and sum(counts.values()) == counts[expected])
+        if mode == "megakernel":
+            mega_launches = counts["su3_mult_planar_batched"]
+            row["table_grew_in_flight"] = grew
+            ok = ok and grew
+            table = svc._tables[0][1]
+            ks1 = [1] * table.slots
+            row["megakernel_ms_per_launch"] = _time_ms(lambda: table.advance(ks1), reps=20)
+        # -- a stencil batch and a solve at L=32: counts from 0 ------------------
+        torch.cuda.synchronize()
+        _reset_counts()
+        before_iters = snap["kind_iterations"].get("solve", 0)
+        st_ids = [svc.submit_stencil(big[i], v_st[i]) for i in range(2)]
+        cg_id = svc.submit_solve(u_cg, rhs_cg, tol=1e-6, max_iters=200)
+        svc.run_until_drained()
+        torch.cuda.synchronize()
+        c2 = _counts()
+        iters = svc.metrics.snapshot()["kind_iterations"]["solve"] - before_iters
+        for name in side:
+            side[name] += c2[name]
+        plan = svc.runner_for(big_L).plan
+        st_ok = all(torch.equal(
+            torch.view_as_real(svc.pop_result(sid)).view(torch.int32),
+            torch.view_as_real(plan.unpack_vec(plan.stencil_step()(
+                plan.pack_gauge(big[i]), plan.pack_rhs(v_st[i])))).view(torch.int32))
+            for i, sid in enumerate(st_ids))
+        x_svc = svc.pop_result(cg_id)
+        ref = plan.cg_solve(plan.pack_gauge(u_cg), plan.pack_rhs(rhs_cg), tol=1e-6)
+        x_ref = plan.unpack_vec(ref.x_p)
+        rel = (torch.linalg.vector_norm(x_svc - x_ref) / torch.linalg.vector_norm(x_ref)).item()
+        row.update({"stencil_launches": c2["su3_stencil_planar"], "stencil_bitwise": st_ok,
+                    "solve_iterations": iters, "cg_launches": c2["su3_cg_fused_planar"],
+                    "cg_solve_iterations": ref.iterations, "solve_rel_diff": rel})
+        ok = ok and st_ok and c2["su3_stencil_planar"] == 2 and \
+            c2["su3_cg_fused_planar"] == iters and rel <= 1e-5
+        row["ok"] = ok
+        _emit(row)
+        if not ok:
+            failures.append(f"service {mode}: {row}")
+        del svc, results
+    _emit({"autotune": tuned, "cache": str(cache.relative_to(ROOT))})
+    return mega_launches, side
+
+
+def _megakernel_yardsticks(u, rng, hw) -> dict:
+    """The megakernel on a full table of TABLE_SLOTS L=32 slots (SoA f32),
+    in place, at uniform k=1 and k=8; its plain version and one batched
+    complex64 ``torch.matmul`` step at k=1; the bound of each launch; and
+    the cost of one small launch (the autotune model's launch term)."""
+    import torch
+
+    from repro_torch.configs.su3_bench import PAPER_L32
+    from repro_torch.core import roofline
+    from repro_torch.core.su3 import layouts
+    from repro_torch.kernels import su3_matmul
+
+    codec = layouts.make_codec("soa", tile=PAPER_L32.tile)
+    lattices = _slot_lattices(u, TABLE_SLOTS)
+    b_c = torch.from_numpy(random_su3(rng, (TABLE_SLOTS, layouts.LINKS))).to(u.device)
+    a = torch.stack([codec.pack(x) for x in lattices]).contiguous()
+    b = torch.stack([codec.pack_b(x) for x in b_c]).contiguous()
+    dev, n = u.device, u.shape[0]
+    ks = {k: torch.full((TABLE_SLOTS,), k, dtype=torch.int32, device=dev) for k in (1, 8)}
+    ms = {k: _time_ms(lambda k=k: su3_matmul.su3_mult_planar_batched(
+        a, b, ks[k], tile=codec.tile, alias=True), reps=20) for k in (1, 8)}
+    plain_ms = _time_ms(lambda: su3_matmul.su3_mult_planar_batched_plain(a, b, ks[1]), reps=2,
+                        warmup=1)
+    del a
+    a_c = torch.stack(lattices)  # (slots, S, 4, 3, 3) complex64
+    b_m = b_c[:, None].contiguous()  # (slots, 1, 4, 3, 3)
+    library_ms = _time_ms(lambda: torch.matmul(a_c, b_m), reps=3, warmup=1)
+    del a_c, lattices
+    # the launch cost: one 256-site slot, in place, host clock and events
+    a_t = torch.zeros((1, 2, 36, 256), device=dev)
+    b_t, k_t = torch.zeros((1, 2, 36), device=dev), torch.ones(1, dtype=torch.int32, device=dev)
+    launch = lambda: su3_matmul.su3_mult_planar_batched(a_t, b_t, k_t, tile=256, alias=True)  # noqa: E731
+    event_us = _time_ms(launch, reps=200, warmup=20) * 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        launch()
+    torch.cuda.synchronize()
+    host_us = (time.perf_counter() - t0) / 200 * 1e6
+    bounds = {k: roofline.megakernel_bound([k] * TABLE_SLOTS, n_sites=n, hw=hw) if hw else None
+              for k in (1, 8)}
+    out = {"yardstick": f"su3_mult_planar_batched soa f32 L=32, {TABLE_SLOTS} slots, in place",
+           "k1_ms": ms[1], "k8_ms": ms[8], "plain_k1_ms": plain_ms, "library_k1_ms": library_ms,
+           "library_call": "torch.matmul((8,S,4,3,3) c64, (8,1,4,3,3) c64)",
+           "launch_cost_us": {"host": host_us, "events": event_us}}
+    if hw is not None:
+        out.update({f"k{k}_bound_ms": bnd.bound_s * 1e3 for k, bnd in bounds.items()})
+        out.update({f"k{k}_bound_by": bnd.bound_by for k, bnd in bounds.items()})
+        out.update({f"k{k}_bound_share": bounds[k].bound_s * 1e3 / ms[k] for k in ms})
+    _emit(out)
+    bound = bounds[1]
+    return {"ms": ms[1], "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": None if bound is None else bound.bound_s * 1e3,
+            "bound_by": None if bound is None else bound.bound_by}
 
 
 def _drift_matches(engine, k: int, launches: int) -> bool:

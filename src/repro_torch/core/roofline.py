@@ -1,6 +1,6 @@
 """Roofline bounds of the SU3 kernels on a Hopper card (port of the part of
 ``repro.core.roofline`` that needs no compiled program): the multiply, the
-stencil and one CG iteration.
+serving megakernel over a slot table, the stencil and one CG iteration.
 
 The reference derives its terms from XLA's HLO and carries TPU constants;
 neither applies here.  The port's bound is analytic: the bytes the multiply
@@ -113,6 +113,53 @@ def analytic_su3_report(
         hw=hw,
         flops=864.0 * n_sites * k,
         bytes=float(bytes_per_site_rw) * n_sites,
+    )
+
+
+def megakernel_bound(
+    slot_k: list[int],
+    *,
+    n_sites: int,
+    rows: int = 36,
+    word_bytes: int = 4,
+    max_k: int = 8,
+    in_place: bool = True,
+    hw: HardwareSpec | None = None,
+) -> SU3Roofline:
+    """Bound of one megakernel launch over a slot table, from the depths
+    this launch runs.
+
+    A live slot (depth ``clamp(k, 0, max_k) > 0``) reads A and writes C
+    once (``2 x 2 x rows`` words per site) and reads its B (72 words); its
+    flops are 864 per site per multiply.  A dead slot is counted as the
+    kernel treats it: nothing in place, a read and a write of its words out
+    of place (a copy, no flops).
+
+    Args:
+        slot_k: the per-slot depths of the launch.
+        n_sites: sites per slot (padded: what the kernel runs).
+        rows: planar rows of the stored form (36, or 24 two-row).
+        word_bytes: 4 for f32 words, 2 for bf16.
+        max_k: the launch's clamp.
+        in_place: whether the table is written in place.
+        hw: the card; defaults to CUDA device 0's spec.
+
+    Raises:
+        LookupError: when no spec is given and the card is unknown.
+    """
+    hw = hw if hw is not None else current_hardware()
+    if hw is None:
+        raise LookupError("no Hopper spec for this device; pass hw= explicitly")
+    slot_bytes = 2 * 2 * rows * word_bytes * n_sites  # read A, write C
+    depths = [min(max(int(k), 0), max_k) for k in slot_k]
+    live = sum(1 for k in depths if k)
+    dead = len(depths) - live
+    return SU3Roofline(
+        name=f"su3_megakernel_{len(depths)}slots",
+        hw=hw,
+        flops=864.0 * n_sites * sum(depths),
+        bytes=float(live * (slot_bytes + 2 * 36 * word_bytes)
+                    + (0 if in_place else dead * slot_bytes)),
     )
 
 

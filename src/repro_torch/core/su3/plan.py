@@ -10,6 +10,8 @@ slab).
       kernel        KernelEntry   unified registry (torch variants + CUDA kernels)
       step          (a_phys, b_planar) -> c_phys, one launch, fresh output
       fused(k)      one launch chaining k multiplies
+      fused_batched_step(slots, max_k)
+                    one megakernel launch over a slot table, per-slot depths
       stencil_step  gather the 8 neighbours (index_select), one stencil launch
       cg_solve      CG on sigma I + S: per iteration two gathers, one fused
                     stencil+axpy launch, the shared epilogue
@@ -29,11 +31,14 @@ reference: ``torch.index_select`` fills a preallocated direction-major
 (beta and sigma travel in a (1, 2) tensor) and fetches one residual per
 iteration, one iteration late.
 
+:class:`BatchedLatticeRunner` serves B independent lattices through one
+plan: one launch of the multiply kernel over the whole batch (the kernel's
+batch axis stands in for the reference's ``vmap``).
+
 Not here yet: meshes and multi-host first-touch init, the multi-slab stencil
-and CG schedules (exchange / interior / boundary, the depth-2 ring), the
-tracer and fault hooks, the slot-batched megakernel step and
-``BatchedLatticeRunner``.  On one card there is one slab, and the
-reference's single-host paths are the ones ported.
+and CG schedules (exchange / interior / boundary, the depth-2 ring), and the
+plan's tracer and halo-fault hooks.  On one card there is one slab and one
+device, and the reference's single-host paths are the ones ported.
 """
 from __future__ import annotations
 
@@ -214,6 +219,61 @@ def make_raw_step(
     return raw_step
 
 
+def make_raw_batched_step(
+    codec: LayoutCodec,
+    kernel: registry.KernelEntry,
+    *,
+    tile: int,
+    max_k: int,
+    alias: bool = False,
+) -> Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]:
+    """Slot-batched step ``(a_batch, b_batch, slot_k) -> c_batch``.
+
+    The megakernel analogue of :func:`make_raw_step`: the physical slot
+    table ``a_batch (slots, ...)`` advances by ``slot_k`` chained
+    multiplies per slot in ONE kernel launch.  The CUDA kernel reads SoA and
+    AoSoA tables in place, so no planar view is formed.
+    """
+    if kernel.form != registry.BATCHED:
+        raise ValueError(
+            f"kernel {kernel.name!r} has form {kernel.form!r}; the batched "
+            f"step needs a {registry.BATCHED!r}-form kernel"
+        )
+    if not kernel.supports_layout(codec.layout):
+        raise ValueError(
+            f"kernel {kernel.name!r} does not support layout {codec.layout.value!r} "
+            f"(supported: {[l.value for l in kernel.layouts]})"
+        )
+    if not codec.supports_planar_view:
+        raise ValueError(
+            f"batched kernel {kernel.name!r} needs a planar-view layout, "
+            f"got {codec.layout.value!r}"
+        )
+    if codec.is_mixed_precision and not kernel.supports_accum_dtype():
+        raise ValueError(
+            f"kernel {kernel.name!r} cannot accumulate at {codec.accum_dtype!r} "
+            f"over {codec.dtype!r} storage (no accum_dtype support)"
+        )
+    if codec.is_compressed and not kernel.supports_compression():
+        raise ValueError(
+            f"kernel {kernel.name!r} cannot stream two-row compressed gauge "
+            f"(no reconstruct-on-load path)"
+        )
+    kw: dict[str, Any] = {"tile": tile, "max_k": max_k, "alias": alias}
+    if codec.is_mixed_precision:
+        kw["accum_dtype"] = codec.accum_dtype
+    if codec.is_compressed:
+        kw["compressed"] = True
+
+    def raw_batched(
+        a_batch: torch.Tensor, b_batch: torch.Tensor, slot_k: torch.Tensor
+    ) -> torch.Tensor:
+        return kernel.fn(a_batch, b_batch, slot_k, **kw)
+
+    return raw_batched
+
+
+MEGAKERNEL_VARIANT = "cuda_megakernel"  # the reference's "pallas_megakernel"
 STENCIL_VARIANT = "cuda_stencil"  # the reference's "pallas_stencil"
 CG_VARIANT = "cuda_cg"  # the reference's "pallas_cg"
 
@@ -474,6 +534,7 @@ class ExecutionPlan:
         self.padded_sites = ((n + chunk - 1) // chunk) * chunk
         self.step = make_raw_step(self.codec, self.kernel, tile=cfg.tile)
         self._fused_steps: dict[int, Step] = {}
+        self._batched_steps: dict[tuple[int, int, bool], Callable[..., torch.Tensor]] = {}
         self._stencil_steps: dict[tuple[bool, int], Step] = {}
         self._stencil_tables: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None
         self._nbr_bufs: dict[str, torch.Tensor] = {}
@@ -498,6 +559,43 @@ class ExecutionPlan:
                 alias=self.kernel.form == registry.PLANAR and self.device.type == "cuda",
             )
         return self._fused_steps[k]
+
+    def fused_batched_step(
+        self, slots: int, max_k: int = 8, alias: bool | None = None
+    ) -> Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]:
+        """ONE megakernel launch advancing a whole slot table.
+
+        ``fused_batched_step(slots, max_k)(a_batch, b_batch, slot_k)`` equals
+        applying ``step`` ``slot_k[s]`` times to slot ``s`` independently —
+        bit for bit, since both kernels run one chain body — but every
+        slot's chain runs in one launch over (slots x sites), so a serving
+        iteration costs one launch however many chains are in flight.
+        Per-slot depths are data (an int32 tensor on the plan's device, read
+        by the kernel), clamped to ``max_k``; depth 0 passes a slot through.
+
+        ``alias`` writes the table in place: ``None`` means in place on the
+        card (the reference donates the table on the TPU) and out of place
+        on the CPU.  A caller that must keep the old table — to roll back
+        after a poisoned or non-finite dispatch — passes ``alias=False``.
+
+        Args:
+            slots: slot-table size (the leading axis of ``a_batch``).
+            max_k: in-kernel chain bound; every per-slot depth in
+                ``[0, max_k]`` runs in the same launch.
+        """
+        if slots < 1:
+            raise ValueError(f"slots must be >= 1, got {slots}")
+        if max_k < 1:
+            raise ValueError(f"max_k must be >= 1, got {max_k}")
+        if alias is None:
+            alias = self.device.type == "cuda"
+        key = (slots, max_k, bool(alias))
+        if key not in self._batched_steps:
+            kernel = registry.get_kernel(MEGAKERNEL_VARIANT)
+            self._batched_steps[key] = make_raw_batched_step(
+                self.codec, kernel, tile=self.cfg.tile, max_k=max_k, alias=bool(alias)
+            )
+        return self._batched_steps[key]
 
     # -- nearest-neighbour stencil (Dslash-style) -------------------------------
 
@@ -984,6 +1082,81 @@ def build_plan(cfg: EngineConfig, device: torch.device | str | None = None) -> E
             explicit device such as ``"cpu"``.
     """
     return ExecutionPlan(cfg, resolve_device(device))
+
+
+class BatchedLatticeRunner:
+    """Serve B independent lattices through one plan step.
+
+    The "many users" scenario: each request carries its own (A, B) lattice
+    pair, and the whole batch runs through the plan's kernel in ONE launch
+    (the multiply kernel's batch axis, one B per lattice), with no
+    per-request wiring.  The reference shards the batch over a mesh and pads
+    it to a device multiple; on one card ``n_devices`` is 1, so nothing is
+    padded.
+
+    Args:
+        cfg: the plan tuple every lattice of the batch shares.
+        device: ``None`` (the CUDA device; raises without CUDA) or an
+            explicit device such as ``"cpu"``.
+    """
+
+    n_devices = 1
+
+    def __init__(self, cfg: EngineConfig, device: torch.device | str | None = None):
+        self.plan = build_plan(cfg, device)
+        self.cfg = cfg
+        self.device = self.plan.device
+        self._steps: dict[int, Step] = {}
+
+    def _batched_step(self, k: int) -> Step:
+        if k not in self._steps:
+            raw = make_raw_step(self.plan.codec, self.plan.kernel, tile=self.cfg.tile,
+                                k_iters=k)
+            if self.plan.kernel.form == registry.PLANAR:
+                self._steps[k] = raw  # the kernel takes the batch axis itself
+            else:  # a plain torch variant: one call per lattice, no kernel
+                self._steps[k] = lambda a, b: torch.stack([raw(x, y) for x, y in zip(a, b)])
+        return self._steps[k]
+
+    def pack_batch(self, a: torch.Tensor) -> torch.Tensor:
+        """Canonical (B, n_sites, 4, 3, 3) complex -> batched physical form,
+        each lattice zero-padded to the plan's site capacity.
+
+        Raises:
+            ValueError: when a lattice carries more sites than the plan holds.
+        """
+        if a.shape[1] > self.plan.padded_sites:
+            raise ValueError(
+                f"batch carries {a.shape[1]} sites > plan capacity "
+                f"{self.plan.padded_sites} (L={self.cfg.L}, tile={self.cfg.tile})"
+            )
+        a = torch.as_tensor(a).to(self.device)
+        pad = self.plan.padded_sites - a.shape[1]
+        if pad:
+            a = torch.cat([a, a.new_zeros((a.shape[0], pad) + tuple(a.shape[2:]))], dim=1)
+        return torch.stack([self.plan.codec.pack(x) for x in a]).contiguous()
+
+    def pack_b_batch(self, b: torch.Tensor) -> torch.Tensor:
+        """Canonical (B, 4, 3, 3) complex -> planar (B, 2, 36) words."""
+        b = torch.as_tensor(b).to(self.device)
+        return torch.stack([self.plan.codec.pack_b(x) for x in b]).contiguous()
+
+    def unpack_batch(self, c_phys: torch.Tensor, n_sites: int | None = None) -> torch.Tensor:
+        """Batched physical -> canonical complex (B, n_sites, 4, 3, 3), a new
+        tensor (never a view of ``c_phys``)."""
+        n = n_sites if n_sites is not None else self.cfg.shape.n_sites
+        return torch.stack([self.plan.codec.unpack(x, n) for x in c_phys])
+
+    def run(self, a_batch: torch.Tensor, b_batch: torch.Tensor, k: int = 1) -> torch.Tensor:
+        """Batched physical (B, ...) x planar B (B, 2, 36) -> physical C
+        batch: one kernel launch chaining ``k`` multiplies per lattice."""
+        return self._batched_step(k)(a_batch, b_batch)
+
+    def multiply(self, a: torch.Tensor, b: torch.Tensor, k: int = 1) -> torch.Tensor:
+        """Canonical batched entry: a (B, S, 4, 3, 3), b (B, 4, 3, 3) complex."""
+        n_sites = a.shape[1]
+        c_phys = self.run(self.pack_batch(a), self.pack_b_batch(b), k=k)
+        return self.unpack_batch(c_phys, n_sites)
 
 
 def _tensor_from_numpy(arr: np.ndarray, dtype: str, what: str) -> torch.Tensor:

@@ -16,8 +16,11 @@ wires a kernel by:
       ``"stencil_axpy"`` — fn(u_phys, r_nbr, p_nbr, r, p, coefs, ...): the
       fused CG body.  Both dispatch through ``ExecutionPlan.stencil_step`` /
       ``cg_solve``.
-      ``"batched"`` — the slot-batched megakernel; not ported yet, the form
-      stays so a plan rejects it with the reference's message.
+      ``"batched"`` — fn(a_batch, b_batch, slot_k, *, tile, max_k, alias,
+      accum_dtype?, compressed?): the slot-batched megakernel over a
+      physical slot table (slots, ...) with per-slot B (slots, 2, 36) and
+      per-slot chain depths; dispatches through
+      ``ExecutionPlan.fused_batched_step``.
   ``layouts``
       which physical layouts the kernel can be planned with.
   ``backends``
@@ -45,7 +48,12 @@ STENCIL = "stencil"
 STENCIL_AXPY = "stencil_axpy"
 
 # reference variant name -> port variant name (names not listed are equal)
-REFERENCE_NAMES = {"pallas": "cuda", "pallas_stencil": "cuda_stencil", "pallas_cg": "cuda_cg"}
+REFERENCE_NAMES = {
+    "pallas": "cuda",
+    "pallas_megakernel": "cuda_megakernel",
+    "pallas_stencil": "cuda_stencil",
+    "pallas_cg": "cuda_cg",
+}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -50,6 +50,36 @@ def su3_mult_planar(
 
 
 @registry.register_kernel(
+    "cuda_megakernel",
+    layouts=(Layout.SOA, Layout.AOSOA),
+    backends=("cuda",),
+    form=registry.BATCHED,
+    supports_fused=True,
+    supports_accum=True,
+    supports_compressed=True,
+)
+def su3_mult_planar_batched(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    slot_k: torch.Tensor,
+    *,
+    tile: int = DEFAULT_TILE,
+    max_k: int = 8,
+    alias: bool = False,
+    accum_dtype: str | None = None,
+    compressed: bool = False,
+) -> torch.Tensor:
+    """Slot-batched entry: a physical slot table SoA (slots, 2, 36|24, S) or
+    AoSoA (slots, S//T, 2, 36|24, T), b (slots, 2, 36), slot_k (slots,)
+    int32 on a's device; slot s chains clamp(slot_k[s], 0, max_k)
+    multiplies in ONE launch (0 = pass-through)."""
+    return su3_matmul.su3_mult_planar_batched(
+        a, b, slot_k, tile=tile, max_k=max_k, alias=alias, accum_dtype=accum_dtype,
+        compressed=compressed,
+    )
+
+
+@registry.register_kernel(
     "cuda_stencil",
     layouts=(Layout.SOA, Layout.AOSOA),
     backends=("cuda",),

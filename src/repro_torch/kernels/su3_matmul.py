@@ -1,7 +1,8 @@
-"""The SU3_Bench planar multiply: CUDA kernel wrapper and its plain version.
+"""The SU3_Bench planar multiply: CUDA kernel wrappers and their plain versions.
 
-Port of ``repro.kernels.su3_matmul.su3_mult_planar`` (Pallas, TPU).  The
-kernel is ``repro_torch/csrc/su3_mult.cu``; this module holds:
+Port of ``repro.kernels.su3_matmul.su3_mult_planar`` and of the serving
+megakernel ``su3_mult_planar_batched`` (Pallas, TPU).  Both kernels are in
+``repro_torch/csrc/su3_mult.cu`` and share one chain body; this module holds:
 
   * :func:`su3_mult_planar_plain` — the same computation in plain PyTorch:
     expand (two-row), the fixed-order multiply chain, compress, with the
@@ -12,14 +13,21 @@ kernel is ``repro_torch/csrc/su3_mult.cu``; this module holds:
     arguments, launches the kernel on the current stream and counts the
     launch in :data:`LAUNCHES`; for a CPU tensor it runs the plain version;
     any other device raises.
-  * :func:`kernel_budget` — the kernel's registers, shared memory and
+  * :func:`su3_mult_planar_batched_plain` / :func:`su3_mult_planar_batched`
+    — the same for the slot-batched megakernel (counted in
+    :data:`MEGA_LAUNCHES`): slot ``s`` chains ``clamp(slot_k[s], 0, max_k)``
+    multiplies; depth 0 passes the slot through.
+  * :func:`kernel_budget` — a kernel's registers, shared memory and
     occupancy per thread block, from ``cudaFuncGetAttributes`` (the port's
     counterpart of the reference's VMEM estimate ``vmem_bytes``).
 
-Layout contract (the physical planar layouts, read in place by the kernel):
+Layout contract (the physical planar layouts, read in place by the kernels):
   a: SoA (2, rows, S) or AoSoA (S // T, 2, rows, T); rows = 36, or 24 for
-     two-row storage; words f32 or bf16
-  b: (2, 36), the same word dtype
+     two-row storage; words f32 or bf16.  A batch of lattices (or a slot
+     table) puts one more axis in front: (B, 2, rows, S) / (B, S//T, 2,
+     rows, T).
+  b: (2, 36) for one lattice, (B, 2, 36) for a batch; the same word dtype
+  slot_k (megakernel): (B,) int32, on a's device
   -> c shaped like a
 """
 from __future__ import annotations
@@ -166,6 +174,7 @@ class LaunchCounter:
 
 
 LAUNCHES = LaunchCounter("su3_mult_planar")
+MEGA_LAUNCHES = LaunchCounter("su3_mult_planar_batched")
 
 
 def _library() -> ctypes.CDLL:
@@ -173,11 +182,19 @@ def _library() -> ctypes.CDLL:
     if not getattr(lib, "_repro_typed", False):
         lib.su3_mult_planar.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p,
         ]
         lib.su3_mult_planar.restype = ctypes.c_int
+        lib.su3_mult_planar_batched.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p,
+        ]
+        lib.su3_mult_planar_batched.restype = ctypes.c_int
         lib.su3_mult_planar_attributes.argtypes = [
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_int),
         ]
         lib.su3_mult_planar_attributes.restype = ctypes.c_int
         lib.su3_error_string.argtypes = [ctypes.c_int]
@@ -209,10 +226,11 @@ def kernel_budget(
     accum_dtype: str | None = None,
     compressed: bool = False,
     aosoa: bool = False,
+    megakernel: bool = False,
 ) -> dict[str, int | float | None]:
     """One instantiation's per-block budget, from ``cudaFuncGetAttributes``
     and ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` on the current
-    CUDA device.
+    CUDA device; ``megakernel`` picks the slot-batched kernel.
 
     Returns:
         ``num_regs`` per thread, ``shared_bytes`` (static) and
@@ -222,7 +240,8 @@ def kernel_budget(
     """
     lib = _library()
     out = (ctypes.c_int * 6)()
-    rc = lib.su3_mult_planar_attributes(_mode(dtype, accum_dtype), int(compressed), int(aosoa), out)
+    rc = lib.su3_mult_planar_attributes(_mode(dtype, accum_dtype), int(compressed), int(aosoa),
+                                        int(megakernel), out)
     _check_error(lib, rc, "cudaFuncGetAttributes")
     regs, shared, local, max_threads, threads, blocks = list(out)
     props = torch.cuda.get_device_properties(torch.cuda.current_device())
@@ -238,28 +257,50 @@ def kernel_budget(
     }
 
 
-def _launch(
-    a: torch.Tensor, b: torch.Tensor, out: torch.Tensor, k_iters: int,
-    accum_dtype: str | None, compressed: bool,
-) -> None:
+def _geometry(a: torch.Tensor, rows: int, batched: bool) -> tuple[int, int]:
+    """``(n_sites, lane)`` of a physical tensor (one lattice, or a batch of
+    them when ``batched``): lane 0 is SoA, else the AoSoA tile width.
+
+    Raises:
+        ValueError: on any other shape.
+    """
+    shape = tuple(a.shape[1:] if batched else a.shape)
+    lead = "(B, " if batched else "("
+    if len(shape) == 3 and shape[:2] == (2, rows):
+        return shape[2], 0
+    if len(shape) == 4 and shape[1:3] == (2, rows):
+        return shape[0] * shape[3], shape[3]
+    raise ValueError(
+        f"a must be {lead}2, {rows}, S) or {lead}tiles, 2, {rows}, T), got {tuple(a.shape)}"
+    )
+
+
+def _check_b(a: torch.Tensor, b: torch.Tensor) -> None:
     if b.device != a.device or b.dtype != a.dtype:
         raise ValueError(
             f"b must match a's device and dtype: a {a.device}/{a.dtype}, b {b.device}/{b.dtype}"
         )
-    if not (a.is_contiguous() and b.is_contiguous()):
-        raise ValueError("su3_mult_planar needs contiguous a and b")
-    lane = a.shape[3] if a.ndim == 4 else 0
-    n_sites = a.shape[0] * a.shape[3] if a.ndim == 4 else a.shape[2]
-    mode = _mode(a.dtype, accum_dtype)
-    lib = _library()
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = lib.su3_mult_planar(
-            a.data_ptr(), out.data_ptr(), b.data_ptr(), n_sites, lane, k_iters,
-            mode, int(compressed), stream,
-        )
-    _check_error(lib, rc, "su3_mult_planar launch")
-    LAUNCHES.count += 1
+
+
+def _check_contiguous(*operands: torch.Tensor) -> None:
+    if not all(x.is_contiguous() for x in operands):
+        raise ValueError("the SU3 multiply kernels need contiguous operands")
+
+
+def _plain_physical(
+    a: torch.Tensor, b: torch.Tensor, k_iters: int, lane: int,
+    accum_dtype: str | None, compressed: bool,
+) -> torch.Tensor:
+    """The plain version on ONE physical lattice (SoA, or AoSoA with tile
+    width ``lane``), through the flattened planar view."""
+    rows = COMP_ROWS if compressed else ROWS
+    if not lane:
+        return su3_mult_planar_plain(a, b, k_iters=k_iters, accum_dtype=accum_dtype,
+                                     compressed=compressed)
+    view = torch.movedim(a, 0, 2).reshape(2, rows, -1)
+    c = su3_mult_planar_plain(view, b, k_iters=k_iters, accum_dtype=accum_dtype,
+                              compressed=compressed)
+    return torch.movedim(c.reshape(2, rows, a.shape[0], lane), 2, 0)
 
 
 def su3_mult_planar(
@@ -276,7 +317,10 @@ def su3_mult_planar(
 
     ``a`` is the physical SoA ``(2, rows, S)`` or AoSoA ``(S//T, 2, rows, T)``
     tensor, ``b`` the planar ``(2, 36)`` B; ``S`` must be a multiple of
-    ``tile``.  ``alias`` writes C into A's storage and returns A.
+    ``tile``.  A batch of lattices — ``a`` with a leading batch axis and
+    ``b`` of shape ``(B, 2, 36)``, one B per lattice — runs in ONE launch
+    (the counterpart of the reference's ``vmap`` over this kernel).
+    ``alias`` writes C into A's storage and returns A.
     ``accum_dtype="float32"`` runs the chain at f32 over bf16 words;
     ``compressed`` streams two-row gauge blocks (rows = 24).
 
@@ -284,33 +328,122 @@ def su3_mult_planar(
     plain version; any other device raises.
     """
     rows = COMP_ROWS if compressed else ROWS
-    planar = a.ndim == 3 and tuple(a.shape[:2]) == (2, rows)
-    tiled = a.ndim == 4 and tuple(a.shape[1:3]) == (2, rows)
-    if not (planar or tiled):
-        raise ValueError(f"a must be (2, {rows}, S) or (tiles, 2, {rows}, T), got {tuple(a.shape)}")
-    if tuple(b.shape) != (2, ROWS):
-        raise ValueError(f"b must be (2, {ROWS}), got {tuple(b.shape)}")
+    batched = b.ndim == 3
+    if b.shape[-2:] != (2, ROWS) or (batched and b.shape[0] != a.shape[0]):
+        raise ValueError(f"b must be (2, {ROWS}) or (B, 2, {ROWS}) matching a's batch, "
+                         f"got {tuple(b.shape)}")
+    n_sites, lane = _geometry(a, rows, batched)
     if k_iters < 1:
         raise ValueError(f"k_iters must be >= 1, got {k_iters}")
-    n_sites = a.shape[0] * a.shape[3] if tiled else a.shape[2]
     if n_sites % tile:
         raise ValueError(f"site count {n_sites} is not a multiple of tile {tile}")
-    _mode(a.dtype, accum_dtype)  # validates the storage dtype
+    mode = _mode(a.dtype, accum_dtype)  # validates the storage dtype
+    _check_b(a, b)
 
     if a.device.type == "cuda":
+        _check_contiguous(a, b)
         out = a if alias else torch.empty_like(a)
-        _launch(a, b, out, k_iters, accum_dtype, compressed)
+        lib = _library()
+        with torch.cuda.device(a.device):
+            stream = torch.cuda.current_stream(a.device).cuda_stream
+            rc = lib.su3_mult_planar(
+                a.data_ptr(), out.data_ptr(), b.data_ptr(), n_sites, lane, k_iters,
+                mode, int(compressed), a.shape[0] if batched else 1, stream,
+            )
+        _check_error(lib, rc, "su3_mult_planar launch")
+        LAUNCHES.count += 1
         return out
     if a.device.type != "cpu":
         raise ValueError(f"su3_mult_planar runs on cuda or cpu tensors, got {a.device}")
-    if tiled:  # the plain version works on the flattened planar view
-        view = torch.movedim(a, 0, 2).reshape(2, rows, -1)
-        c = su3_mult_planar_plain(view, b, k_iters=k_iters, accum_dtype=accum_dtype,
-                                  compressed=compressed)
-        c = torch.movedim(c.reshape(2, rows, a.shape[0], a.shape[3]), 2, 0)
+    if batched:
+        c = torch.stack([_plain_physical(x, y, k_iters, lane, accum_dtype, compressed)
+                         for x, y in zip(a, b)])
     else:
-        c = su3_mult_planar_plain(a, b, k_iters=k_iters, accum_dtype=accum_dtype,
-                                  compressed=compressed)
+        c = _plain_physical(a, b, k_iters, lane, accum_dtype, compressed)
     if alias:
         return a.copy_(c)
     return c.contiguous()
+
+
+def su3_mult_planar_batched_plain(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    slot_k: torch.Tensor,
+    *,
+    max_k: int = 8,
+    accum_dtype: str | None = None,
+    compressed: bool = False,
+) -> torch.Tensor:
+    """The plain PyTorch version of the megakernel on a physical slot table:
+    the :func:`su3_mult_planar_plain` chain per slot at depth
+    ``clamp(slot_k[s], 0, max_k)``; a depth-0 slot is returned unchanged."""
+    rows = COMP_ROWS if compressed else ROWS
+    _n_sites, lane = _geometry(a, rows, True)
+    depths = [min(max(k, 0), max_k) for k in slot_k.tolist()]  # the kernel's clamp
+    return torch.stack([
+        x.clone() if k == 0 else _plain_physical(x, y, k, lane, accum_dtype, compressed)
+        for x, y, k in zip(a, b, depths)
+    ]).contiguous()
+
+
+def su3_mult_planar_batched(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    slot_k: torch.Tensor,
+    *,
+    tile: int = DEFAULT_TILE,
+    max_k: int = 8,
+    alias: bool = False,
+    accum_dtype: str | None = None,
+    compressed: bool = False,
+) -> torch.Tensor:
+    """The serving megakernel: ONE launch over a whole slot table.
+
+    ``a`` is the physical slot table ``(slots, 2, rows, S)`` (SoA) or
+    ``(slots, S//T, 2, rows, T)`` (AoSoA), ``b`` the per-slot planar B
+    ``(slots, 2, 36)``, ``slot_k`` the ``(slots,)`` int32 chain depths on
+    a's device.  Slot ``s`` chains ``clamp(slot_k[s], 0, max_k)``
+    multiplies; depth 0 passes it through.  The kernel reads ``slot_k`` on
+    the device, so a launch costs no host round trip.  ``alias`` writes C
+    into A's storage (a dead slot is then not touched at all).
+
+    A CUDA tensor goes to the kernel (or raises); a CPU tensor goes to the
+    plain version; any other device raises.
+    """
+    rows = COMP_ROWS if compressed else ROWS
+    n_sites, lane = _geometry(a, rows, True)
+    slots = a.shape[0]
+    if tuple(b.shape) != (slots, 2, ROWS):
+        raise ValueError(f"b must be ({slots}, 2, {ROWS}), got {tuple(b.shape)}")
+    if tuple(slot_k.shape) != (slots,):
+        raise ValueError(f"slot_k must be ({slots},), got {tuple(slot_k.shape)}")
+    if n_sites % tile:
+        raise ValueError(f"site count {n_sites} is not a multiple of tile {tile}")
+    if max_k < 1:
+        raise ValueError(f"max_k must be >= 1, got {max_k}")
+    mode = _mode(a.dtype, accum_dtype, "su3_mult_planar_batched")
+    _check_b(a, b)
+
+    if a.device.type == "cuda":
+        if slot_k.dtype != torch.int32 or slot_k.device != a.device:
+            raise ValueError(f"slot_k must be int32 on {a.device}, got {slot_k.dtype} "
+                             f"on {slot_k.device}")
+        _check_contiguous(a, b, slot_k)
+        out = a if alias else torch.empty_like(a)
+        lib = _library()
+        with torch.cuda.device(a.device):
+            stream = torch.cuda.current_stream(a.device).cuda_stream
+            rc = lib.su3_mult_planar_batched(
+                a.data_ptr(), out.data_ptr(), b.data_ptr(), slot_k.data_ptr(), n_sites, lane,
+                max_k, mode, int(compressed), slots, stream,
+            )
+        _check_error(lib, rc, "su3_mult_planar_batched launch")
+        MEGA_LAUNCHES.count += 1
+        return out
+    if a.device.type != "cpu":
+        raise ValueError(f"su3_mult_planar_batched runs on cuda or cpu tensors, got {a.device}")
+    c = su3_mult_planar_batched_plain(a, b, slot_k, max_k=max_k, accum_dtype=accum_dtype,
+                                      compressed=compressed)
+    if alias:
+        return a.copy_(c)
+    return c

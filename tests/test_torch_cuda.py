@@ -99,6 +99,78 @@ def test_cuda_wrapper_rejects_mismatched_operands(cuda_device):
                             tb.to(cuda_device), tile=S)
 
 
+# -- the slot-batched megakernel and the multiply's batch axis -------------------
+
+SLOT_K = [0, 1, 3, 4, 9]  # dead, single, deep, max_k, above max_k (clamped)
+MAX_K = 4
+
+
+def _table(dtype: str, compressed: bool, aosoa: bool, seed: int):
+    """A slot table of len(SLOT_K) random lattices and per-slot B, on the CPU."""
+    pairs = [_inputs(dtype, compressed, seed + 2 * s) for s in range(len(SLOT_K))]
+    a = torch.stack([_to_aosoa(x, 64) if aosoa else x for x, _ in pairs]).contiguous()
+    return a, torch.stack([y for _, y in pairs]).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,accum,compressed", FORMS)
+@pytest.mark.parametrize("aosoa", [False, True])
+def test_cuda_megakernel_matches_plain_version(cuda_device, dtype, accum, compressed, aosoa):
+    a, b = _table(dtype, compressed, aosoa, seed=20)
+    ks = torch.tensor(SLOT_K, dtype=torch.int32)
+    kw = {"tile": 64, "max_k": MAX_K, "accum_dtype": accum, "compressed": compressed}
+    want = ops.su3_mult_planar_batched(a, b, ks, **kw)
+    before = su3_matmul.MEGA_LAUNCHES.count
+    ad, bd, kd = a.to(cuda_device), b.to(cuda_device), ks.to(cuda_device)
+    got = ops.su3_mult_planar_batched(ad, bd, kd, **kw)
+    aliased = ad.clone()
+    assert ops.su3_mult_planar_batched(aliased, bd, kd, alias=True, **kw) is aliased
+    torch.cuda.synchronize()
+    assert su3_matmul.MEGA_LAUNCHES.count == before + 2
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got.cpu(), want)  # bitwise in every form
+    assert torch.equal(aliased, got)  # in place equals out of place
+    assert torch.equal(got[0].cpu(), a[0])  # depth 0 passes through
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,accum", [("float32", None), ("bfloat16", None)])
+def test_cuda_megakernel_slot_chain_equals_single_launches(cuda_device, dtype, accum):
+    a, b = _table(dtype, False, False, seed=30)
+    a, b = a.to(cuda_device), b.to(cuda_device)
+    ks = torch.tensor(SLOT_K, dtype=torch.int32, device=cuda_device)
+    got = ops.su3_mult_planar_batched(a, b, ks, tile=64, max_k=MAX_K, accum_dtype=accum)
+    for s, k in enumerate(SLOT_K):
+        x = a[s]
+        for _ in range(min(k, MAX_K)):
+            x = ops.su3_mult_planar(x, b[s], tile=64, accum_dtype=accum)
+        assert torch.equal(got[s], x), s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aosoa", [False, True])
+def test_cuda_batch_axis_equals_per_lattice_launches(cuda_device, aosoa):
+    a, b = _table("float32", False, aosoa, seed=40)
+    a, b = a.to(cuda_device), b.to(cuda_device)
+    before = su3_matmul.LAUNCHES.count
+    got = ops.su3_mult_planar(a, b, tile=64, k_iters=3)
+    assert su3_matmul.LAUNCHES.count == before + 1  # one launch for the batch
+    for s in range(a.shape[0]):
+        assert torch.equal(got[s], ops.su3_mult_planar(a[s], b[s], tile=64, k_iters=3))
+
+
+@pytest.mark.cuda
+def test_cuda_megakernel_rejects_bad_operands(cuda_device):
+    a, b = (t.to(cuda_device) for t in _table("float32", False, False, seed=50))
+    ks = torch.tensor(SLOT_K, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="slot_k must be int32"):
+        ops.su3_mult_planar_batched(a, b, ks.long(), tile=64)
+    with pytest.raises(ValueError, match="slot_k must be int32"):
+        ops.su3_mult_planar_batched(a, b, ks.cpu(), tile=64)
+    with pytest.raises(ValueError, match="match a's device and dtype"):
+        ops.su3_mult_planar_batched(a, b.cpu(), ks, tile=64)
+
+
 # -- the stencil and the fused CG body --------------------------------------------
 
 
