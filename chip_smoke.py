@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of SU3_Bench on one NVIDIA card and check it.
+"""Drive the PyTorch/CUDA port of SU3_Bench and its LM serving path on one
+NVIDIA card and check it.
 
     python3 chip_smoke.py [--seed N]
 
@@ -18,6 +19,15 @@ source, started together) and, at the paper's L=32 lattice:
     and ``SU3Service`` in its batch, continuous and megakernel modes on one
     seeded request stream (multiplies at L=16 and L=32, then a stencil
     batch and a solve), autotuned against a fresh cache under ``build/``;
+  * the LM phase: holds the flash-attention kernel against its plain
+    version in nine forms (f32 and bf16, causal and not, G in {1, 4, 8},
+    D in {32, 64, 128}, ragged lengths, Sq != Skv, q_offset); drives
+    ``ServeEngine`` on full-width qwen3-4b (random bf16 weights from
+    ``--seed``) over 4 prompts of 1,024 tokens plus 32 greedy tokens, with
+    the counters set to 0 just before and read just after (36 flash launches
+    in prefill, none in decode); holds the decode logits against a
+    teacher-forced prefill, and the card against the port's CPU path at 2
+    layers in f32;
   * times each kernel against its bound, its plain version and, where one
     PyTorch call computes the same function, that call.
 
@@ -62,6 +72,31 @@ FUSED_REPS = 3  # SU3Engine.run_fused's default
 STENCIL_REPS = 20  # timed stencil steps per main-path row
 CG_TIMED_ITERS = 20
 BETA = 0.3718  # the CG body's beta in the kernel checks (nonzero)
+FLASH_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
+FLASH_REPLACES = "src/repro/kernels/flash_attention.py:69"  # flash_attention_tpu (pallas_call :92)
+LM_ARCH = "qwen3-4b"  # full width: 36 layers, d_model 2560, 32/8 heads of 128, vocab 151,936
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 1024, 32  # 4 prompts of 1,024 tokens, 32 greedy tokens
+LM_MAX_LEN = 1064
+# decode logits against a teacher-forced prefill, bf16 at full depth: every
+# op rounds to bf16 (2^-9 relative), the two paths round in other places and
+# other matmul shapes over 36 residual layers; logits are O(1), so a wrong
+# cache row or position moves them by O(1), far past 0.1 of their range
+LM_TEACHER_TOL = 0.1
+# the card against the port's CPU path at 2 layers in f32, TF32 off: sums in
+# another order (cuBLAS against the CPU's BLAS, the kernel's 64-key tiles
+# against 1,024-key chunks), ~1e-6 relative per op on O(1) logits
+LM_CROSS_TOL = 1e-3
+FLASH_FORMS = [  # (label, batch, sq, skv, hq, hkv, d, causal, q_offset, dtype)
+    ("main path bf16 causal", 4, 1024, 1024, 32, 8, 128, True, 0, "bfloat16"),
+    ("main path f32 causal", 4, 1024, 1024, 32, 8, 128, True, 0, "float32"),
+    ("main path bf16 non-causal", 4, 1024, 1024, 32, 8, 128, False, 0, "bfloat16"),
+    ("G=1 D=64 f32", 2, 512, 512, 8, 8, 64, True, 0, "float32"),
+    ("G=8 D=32 bf16", 2, 512, 512, 16, 2, 32, True, 0, "bfloat16"),
+    ("G=8 D=128 f32 ragged 333", 1, 333, 333, 32, 4, 128, True, 0, "float32"),
+    ("ragged 1000 bf16", 1, 1000, 1000, 32, 8, 128, True, 0, "bfloat16"),
+    ("Sq!=Skv non-causal f32 D=64", 2, 300, 700, 16, 4, 64, False, 0, "float32"),
+    ("q_offset 1024 bf16", 2, 64, 1088, 32, 8, 128, True, 1024, "bfloat16"),
+]
 
 
 def _emit(obj: dict) -> None:
@@ -126,10 +161,10 @@ def _bits(x):
 
 
 def _counters() -> tuple:
-    from repro_torch.kernels import su3_matmul, su3_stencil
+    from repro_torch.kernels import flash_attention, su3_matmul, su3_stencil
 
     return (su3_matmul.LAUNCHES, su3_matmul.MEGA_LAUNCHES, su3_stencil.STENCIL_LAUNCHES,
-            su3_stencil.CG_LAUNCHES)
+            su3_stencil.CG_LAUNCHES, flash_attention.LAUNCHES)
 
 
 def _reset_counts() -> None:
@@ -160,7 +195,7 @@ def main(argv: list[str] | None = None) -> int:
     from repro_torch.core.su3.engine import SU3Engine
     from repro_torch.core.su3.layouts import Layout
     from repro_torch.core.su3.plan import verify_tolerance
-    from repro_torch.kernels import _build, su3_matmul, su3_stencil
+    from repro_torch.kernels import _build, flash_attention, su3_matmul, su3_stencil
 
     failures: list[str] = []
     dev = torch.device("cuda")
@@ -181,6 +216,7 @@ def main(argv: list[str] | None = None) -> int:
     logs = _build.build_all()
     _build.load("su3_mult")
     _build.load("su3_stencil")
+    _build.load("flash_attention")
     _emit({"phase": "build", "seconds": time.perf_counter() - t0, "sources": sorted(logs)})
     for src, log in logs.items():  # one line per source: registers and spills per kernel
         regs = [int(w) for line in log.splitlines() if "registers" in line
@@ -210,6 +246,18 @@ def main(argv: list[str] | None = None) -> int:
         _emit({"kernel_budget": kname,
                "columns": ["mode", "two_row", "aosoa", "num_regs", "local_bytes",
                            "threads_per_block", "blocks_per_sm", "occupancy"], "forms": forms})
+    flash_forms = []
+    for dtype in ("float32", "bfloat16"):
+        for d in flash_attention.HEAD_DIMS:
+            for causal in (True, False):
+                b = flash_attention.kernel_budget(getattr(torch, dtype), d, causal)
+                flash_forms.append([dtype, d, causal, b["num_regs"], b["local_bytes"],
+                                    b["shared_bytes"], b["threads_per_block"],
+                                    b["blocks_per_sm"], b["occupancy"]])
+    _emit({"kernel_budget": "flash_attention",
+           "columns": ["dtype", "head_dim", "causal", "num_regs", "local_bytes",
+                       "shared_bytes", "threads_per_block", "blocks_per_sm", "occupancy"],
+           "forms": flash_forms})
 
     # -- 3. kernel vs plain version on random SU(3) links, L=32 --------------------
     n_sites = PAPER_L32.shape.n_sites
@@ -367,6 +415,10 @@ def main(argv: list[str] | None = None) -> int:
 
     st, cg = _stencil_yardsticks(u, vecs, hw, failures)
     mega = _megakernel_yardsticks(u, rng, hw)
+    torch.cuda.empty_cache()
+
+    # -- 5b. the LM phase: the flash kernel, ServeEngine on qwen3-4b -----------------
+    flash = _lm_phase(args.seed, hw, failures)
 
     # -- 6. the kernels line -----------------------------------------------------------
     _emit({"kernels": [{
@@ -384,6 +436,9 @@ def main(argv: list[str] | None = None) -> int:
     }, {
         "name": "su3_cg_fused_planar", "route": "cuda", "source": STENCIL_SOURCE,
         "replaces": CG_REPLACES, "launches": cg_launches, "max_abs_err": cg_err, **cg,
+    }, {
+        "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
+        "replaces": FLASH_REPLACES, **flash,
     }]})
 
     print(card)  # again, next to the results (the first lines may scroll away)
@@ -981,6 +1036,242 @@ def _megakernel_yardsticks(u, rng, hw) -> dict:
     return {"ms": ms[1], "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": None if bound is None else bound.bound_s * 1e3,
             "bound_by": None if bound is None else bound.bound_by}
+
+
+def _flash_checks(rng, failures: list[str]) -> float:
+    """The flash kernel against its plain version on the card in every form
+    of FLASH_FORMS, within ``kernel_tolerance`` (f32 summation order; one
+    bf16 output rounding).  Returns the largest absolute error."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    dev, worst = torch.device("cuda"), 0.0
+    for label, b, sq, skv, hq, hkv, d, causal, q_offset, dtype in FLASH_FORMS:
+        dt = getattr(torch, dtype)
+        q, k, v = (torch.from_numpy(rng.standard_normal(shp, dtype=np.float32)).to(dev, dt)
+                   for shp in ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d)))
+        got = fa.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+        want = fa.flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset)
+        torch.cuda.synchronize()
+        atol, rtol = fa.kernel_tolerance(dt)
+        diff = torch.abs(got.float() - want.float())
+        err = diff.max().item()
+        ok = bool(torch.isfinite(got.float()).all()) and bool(
+            (diff <= atol + rtol * torch.abs(want.float())).all())
+        worst = max(worst, err)
+        _emit({"check": "kernel_vs_plain", "kernel": "flash_attention", "form": label,
+               "shape": [b, sq, skv, hq, hkv, d], "causal": causal, "q_offset": q_offset,
+               "dtype": dtype, "max_abs_err": err, "atol": atol, "rtol": rtol, "ok": ok})
+        if not ok:
+            failures.append(f"flash_attention vs plain {label}: err {err}")
+        del q, k, v, got, want, diff
+    return worst
+
+
+def _profile(fn, top: int = 6) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: its wall time between
+    CUDA events, the device time summed over its kernels, the device's idle
+    share of the wall, and the kernels that took the most device time (by
+    name, ms).  Device time is None where the profiler records none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+    wall_ms = start.elapsed_time(end)
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev = lambda e: getattr(e, "self_device_time_total", 0.0) / 1e3  # noqa: E731  (us -> ms)
+    device_ms = sum(dev(e) for e in kernels) or None
+    ranked = sorted(kernels, key=dev, reverse=True)[:top]
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "idle_share": None if device_ms is None else max(0.0, 1.0 - device_ms / wall_ms),
+            "kernel_launches": sum(e.count for e in kernels),
+            "top_kernels": [[e.key[:60], dev(e), e.count] for e in ranked]}
+
+
+def _lm_phase(seed: int, hw, failures: list[str]) -> dict:
+    """The LM serving path on the card: the flash kernel's forms, then
+    ``ServeEngine`` on full-width qwen3-4b (random bf16 weights from the
+    seed) serving 4 x 1,024-token prompts + 32 greedy tokens, with the
+    flash counter set to 0 just before and read just after; decode logits
+    against a teacher-forced prefill; the card against the port's CPU path
+    at 2 layers in f32; the kernel's yardsticks at the prefill shape.
+    Returns the flash entry of the kernels line."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import roofline
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import common, registry, transformer
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    rng = np.random.default_rng(seed + 14)
+    max_err = _flash_checks(rng, failures)
+    dev = torch.device("cuda")
+
+    # -- the main path ------------------------------------------------------------
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    model = registry.get(cfg).init(torch.Generator(device=dev).manual_seed(seed), cfg,
+                                   torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    engine = ServeEngine(cfg, model, ServeConfig(max_len=LM_MAX_LEN), device=dev)
+    prompts = rng.integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), dtype=np.int32)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    tokens = engine.generate(prompts, LM_NEW)
+    first_s = time.perf_counter() - t0
+    counts = _counts()
+    launches = counts[fa.LAUNCHES.name]
+    # the same call again, timed in steady state, with the peak memory
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    again = engine.generate(prompts, LM_NEW)
+    wall_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    tm = engine.last_timings
+    # prefill alone, then the 31 decode steps on the served tokens, through
+    # the engine's own calls, each counted from 0
+    toks_d = torch.from_numpy(tokens).to(dev)
+    state = engine.init_state(LM_BATCH)
+    _reset_counts()
+    logits_p, state = engine.prefill({"tokens": toks_d[:, :LM_PROMPT]}, state)
+    torch.cuda.synchronize()
+    prefill_launches = _counts()[fa.LAUNCHES.name]
+    step_logits = [logits_p]
+    _reset_counts()
+    for t in range(LM_NEW - 1):
+        lg, state = engine.decode(toks_d[:, LM_PROMPT + t:LM_PROMPT + t + 1], state,
+                                  LM_PROMPT + t)
+        step_logits.append(lg)
+    torch.cuda.synchronize()
+    decode_launches = _counts()[fa.LAUNCHES.name]
+    # where the time goes: one prefill, and 4 decode steps from the filled cache
+    prof_state = engine.init_state(LM_BATCH)
+    prof_prefill = _profile(lambda: engine.prefill({"tokens": toks_d[:, :LM_PROMPT]}, prof_state))
+
+    def four_steps():
+        for t in range(4):
+            engine.decode(toks_d[:, LM_PROMPT + t:LM_PROMPT + t + 1], prof_state, LM_PROMPT + t)
+
+    prof_decode = _profile(four_steps)
+    _emit({"profile": "lm prefill (4 x 1,024 tokens)", **prof_prefill})
+    _emit({"profile": "lm decode (4 steps)", **prof_decode})
+    del prof_state
+    served = torch.cat(step_logits, dim=1).float()  # (B, 32, V): positions 1023 .. 1054
+    # teacher forcing: one prefill-style forward over prompt + generated tokens
+    x, _, _ = transformer.forward(engine.params, {"tokens": toks_d[:, :-1]}, cfg,
+                                  q_chunk=512, kv_chunk=1024)
+    teacher = transformer._logits(engine.params, x[:, LM_PROMPT - 1:], cfg).float()
+    torch.cuda.synchronize()
+    diff = torch.abs(served - teacher)
+    scale = torch.abs(teacher).max().item()
+    teacher_err = diff.max().item()
+    token_agree = float((served.argmax(-1) == teacher.argmax(-1)).float().mean().item())
+    finite = bool(torch.isfinite(served).all()) and bool(torch.isfinite(teacher).all())
+    new_tok = LM_BATCH * LM_NEW
+    row = {"row": "lm serve", "arch": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+           "params": common.count_params(engine.params), "dtype": cfg.dtype,
+           "batch": LM_BATCH, "prompt": LM_PROMPT, "new_tokens": LM_NEW,
+           "max_len": LM_MAX_LEN, "init_s": init_s, "first_generate_s": first_s,
+           "flash_launches": launches, "expected_launches": cfg.n_layers,
+           "prefill_launches": prefill_launches, "decode_launches": decode_launches,
+           "other_launches": sum(counts.values()) - launches,
+           "prefill_ms": tm["prefill_s"] * 1e3,
+           "decode_ms_per_token": tm["decode_s"] * 1e3 / tm["decode_steps"],
+           "generate_wall_ms": wall_s * 1e3, "new_tokens_per_s": new_tok / wall_s,
+           "decode_tokens_per_s": LM_BATCH * tm["decode_steps"] / tm["decode_s"],
+           "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / tm["prefill_s"],
+           "peak_memory_GB": peak_gb, "same_tokens_twice": bool(np.array_equal(tokens, again)),
+           "prefill_idle_share": prof_prefill["idle_share"],
+           "decode_idle_share": prof_decode["idle_share"],
+           "logits_finite": finite, "teacher_max_abs_diff": teacher_err,
+           "teacher_mean_abs_diff": diff.mean().item(), "teacher_logit_scale": scale,
+           "teacher_tol": LM_TEACHER_TOL * scale, "teacher_token_agreement": token_agree}
+    row["ok"] = (launches == cfg.n_layers and prefill_launches == cfg.n_layers
+                 and decode_launches == 0 and row["other_launches"] == 0 and finite
+                 and tokens.shape == (LM_BATCH, LM_PROMPT + LM_NEW)
+                 and teacher_err <= LM_TEACHER_TOL * scale)
+    _emit(row)
+    if not row["ok"]:
+        failures.append(f"lm serve main path: {row}")
+    del engine, model, state, x, teacher, served, step_logits, logits_p, diff
+    torch.cuda.empty_cache()
+
+    # -- the card against the port's CPU path: full width, 2 layers, f32 ----------
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    model2 = registry.get(cfg2).init(torch.Generator().manual_seed(seed), cfg2)
+    cpu = ServeEngine(cfg2, copy.deepcopy(model2), ServeConfig(max_len=80), device="cpu")
+    card = ServeEngine(cfg2, model2, ServeConfig(max_len=80), device=dev)
+    prompt2 = rng.integers(0, cfg.vocab_size, (1, 64), dtype=np.int32)
+    cpu_tokens = cpu.generate(prompt2, 8)
+    card_tokens = card.generate(prompt2, 8)
+    errs = []
+    for eng in (cpu, card):
+        t = torch.from_numpy(cpu_tokens).to(eng.device)
+        st = eng.init_state(1)
+        lg, st = eng.prefill({"tokens": t[:, :64]}, st)
+        out = [lg]
+        for i in range(7):
+            lg, st = eng.decode(t[:, 64 + i:65 + i], st, 64 + i)
+            out.append(lg)
+        errs.append(torch.cat(out, dim=1).float().cpu())
+    cross_err = torch.abs(errs[0] - errs[1]).max().item()
+    cross = {"row": "lm cross-device", "arch": cfg.name, "n_layers": 2, "dtype": "float32",
+             "tf32": torch.backends.cuda.matmul.allow_tf32, "prompt": 64, "new_tokens": 8,
+             "max_abs_logit_diff": cross_err, "tol": LM_CROSS_TOL,
+             "logit_scale": errs[0].abs().max().item(),
+             "same_tokens": bool(np.array_equal(cpu_tokens, card_tokens))}
+    cross["ok"] = cross_err <= LM_CROSS_TOL and not cross["tf32"]
+    _emit(cross)
+    if not cross["ok"]:
+        failures.append(f"lm cross-device: {cross}")
+    del cpu, card, model2, errs
+
+    # -- yardsticks at the prefill shape ------------------------------------------------
+    b, s, hq, hkv, d = LM_BATCH, LM_PROMPT, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = (torch.from_numpy(rng.standard_normal(shp, dtype=np.float32)).to(dev, torch.bfloat16)
+               for shp in ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d)))
+    kernel_ms = _time_ms(lambda: fa.flash_attention(q, k, v), reps=20)
+    plain_ms = _time_ms(lambda: fa.flash_attention_plain(q, k, v), reps=5, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    library_ms = _time_ms(sdpa, reps=20)
+    lib_err = torch.abs(sdpa().transpose(1, 2).float() - fa.flash_attention(q, k, v).float())
+    bound = roofline.attention_bound(batch=b, sq=s, skv=s, hq=hq, hkv=hkv, d=d,
+                                     dtype=torch.bfloat16, hw=hw) if hw is not None else None
+    bound_f32 = roofline.attention_bound(batch=b, sq=s, skv=s, hq=hq, hkv=hkv, d=d,
+                                         dtype=torch.float32, hw=hw) if hw is not None else None
+    _emit({"yardstick": f"flash_attention bf16 causal B={b} S={s} Hq={hq} Hkv={hkv} D={d}",
+           "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "library_call": "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)",
+           "library_max_abs_diff": lib_err.max().item(),
+           "flops": None if bound is None else bound.flops,
+           "bytes": None if bound is None else bound.bytes,
+           "bound_ms": None if bound is None else bound.bound_s * 1e3,
+           "bound_by": None if bound is None else bound.bound_by,
+           "fp32_core_bound_ms": None if bound_f32 is None else bound_f32.compute_s * 1e3,
+           "kernel_TFLOPs": None if bound is None else bound.flops / kernel_ms / 1e9,
+           "bound_share": None if bound is None else bound.bound_s * 1e3 / kernel_ms})
+    return {"launches": launches, "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": None if bound is None else bound.bound_s * 1e3,
+            "bound_by": None if bound is None else bound.bound_by, "library_ms": library_ms}
 
 
 def _drift_matches(engine, k: int, launches: int) -> bool:

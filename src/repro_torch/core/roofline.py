@@ -1,12 +1,15 @@
-"""Roofline bounds of the SU3 kernels on a Hopper card (port of the part of
-``repro.core.roofline`` that needs no compiled program): the multiply, the
-serving megakernel over a slot table, the stencil and one CG iteration.
+"""Roofline bounds of the port's kernels on a Hopper card (port of the part
+of ``repro.core.roofline`` that needs no compiled program): the multiply, the
+serving megakernel over a slot table, the stencil, one CG iteration and the
+prefill attention.
 
 The reference derives its terms from XLA's HLO and carries TPU constants;
 neither applies here.  The port's bound is analytic: the bytes the multiply
 must move (the port's ``TrafficModel``) over the card's HBM rate, and its
 flops over the card's FP32 CUDA-core rate (the SU3 product is a K=3
 complex contraction that tensor cores cannot use), whichever is larger.
+The attention bound counts its flops at the peak of its operands' type:
+the bf16 tensor-core rate for bf16, the FP32 CUDA-core rate for f32.
 
 Constants are NVIDIA's H100 datasheet figures (dense, at the full power
 limit).  A card this module does not know has no spec, and its bound is
@@ -28,12 +31,16 @@ class HardwareSpec:
     peak_flops_fp32: float  # FP32 on the CUDA cores, flop/s
     hbm_bw: float  # bytes/s
     hbm_bytes: float  # device memory
+    peak_flops_bf16: float  # bf16 on the tensor cores, dense, flop/s
 
 
-# NVIDIA H100 datasheet: SXM5 67 TFLOP/s FP32, 3.35 TB/s HBM3, 80 GB;
-# PCIe 51 TFLOP/s FP32, 2.0 TB/s HBM2e, 80 GB.
-H100_SXM = HardwareSpec("h100_sxm", peak_flops_fp32=67e12, hbm_bw=3.35e12, hbm_bytes=80e9)
-H100_PCIE = HardwareSpec("h100_pcie", peak_flops_fp32=51e12, hbm_bw=2.0e12, hbm_bytes=80e9)
+# NVIDIA H100 datasheet: SXM5 67 TFLOP/s FP32, 989 TFLOP/s bf16 dense,
+# 3.35 TB/s HBM3, 80 GB; PCIe 51 TFLOP/s FP32, 756 TFLOP/s bf16 dense,
+# 2.0 TB/s HBM2e, 80 GB.
+H100_SXM = HardwareSpec("h100_sxm", peak_flops_fp32=67e12, hbm_bw=3.35e12, hbm_bytes=80e9,
+                        peak_flops_bf16=989e12)
+H100_PCIE = HardwareSpec("h100_pcie", peak_flops_fp32=51e12, hbm_bw=2.0e12, hbm_bytes=80e9,
+                         peak_flops_bf16=756e12)
 
 HARDWARE = {h.name: h for h in (H100_SXM, H100_PCIE)}
 
@@ -68,10 +75,11 @@ class SU3Roofline:
     hw: HardwareSpec
     flops: float  # useful flops of the whole chain
     bytes: float  # bytes the launch must move
+    peak_flops: float | None = None  # the rate of the operands' type; None: FP32
 
     @property
     def compute_s(self) -> float:
-        return self.flops / self.hw.peak_flops_fp32
+        return self.flops / (self.peak_flops or self.hw.peak_flops_fp32)
 
     @property
     def memory_s(self) -> float:
@@ -231,3 +239,53 @@ def cg_iteration_bound(cfg: Any, hw: HardwareSpec | None = None) -> dict[str, SU
         sum(t.flops for t in terms.values()), sum(t.bytes for t in terms.values()),
     )
     return terms
+
+
+def visible_pairs(sq: int, skv: int, *, causal: bool, q_offset: int = 0) -> int:
+    """(query, key) pairs that attention scores: all ``sq * skv``, or under
+    the causal mask those with key j <= i + q_offset."""
+    if not causal:
+        return sq * skv
+    # query i sees min(skv, max(0, i + q_offset + 1)) keys
+    total = 0
+    lo = max(0, -q_offset)  # first query that sees any key
+    full = max(lo, min(sq, skv - q_offset))  # from here on a query sees all skv keys
+    if full > lo:  # queries lo .. full-1 see i + q_offset + 1 keys
+        a, z = lo + q_offset + 1, full - 1 + q_offset + 1
+        total += (a + z) * (full - lo) // 2
+    return total + (sq - full) * skv
+
+
+def attention_bound(
+    *,
+    batch: int,
+    sq: int,
+    skv: int,
+    hq: int,
+    hkv: int,
+    d: int,
+    causal: bool = True,
+    q_offset: int = 0,
+    dtype: torch.dtype = torch.bfloat16,
+    hw: HardwareSpec | None = None,
+) -> SU3Roofline:
+    """Bound of one attention call: q, k, v read and o written once each,
+    against 4 * D flops (QK^T and PV, a multiply and an add each) for every
+    visible (query, key) pair of every query head, at the peak of ``dtype``
+    (bf16: tensor cores; f32: CUDA cores).
+
+    Raises:
+        LookupError: when no spec is given and the card is unknown.
+    """
+    hw = hw if hw is not None else current_hardware()
+    if hw is None:
+        raise LookupError("no Hopper spec for this device; pass hw= explicitly")
+    word = torch.empty((), dtype=dtype).element_size()
+    pairs = visible_pairs(sq, skv, causal=causal, q_offset=q_offset)
+    return SU3Roofline(
+        name=f"attention_b{batch}_q{sq}_k{skv}_h{hq}/{hkv}_d{d}",
+        hw=hw,
+        flops=4.0 * batch * hq * d * pairs,
+        bytes=float(word * batch * (2 * sq * hq * d + 2 * skv * hkv * d)),
+        peak_flops=hw.peak_flops_bf16 if dtype == torch.bfloat16 else hw.peak_flops_fp32,
+    )

@@ -1,2 +1,2 @@
-"""Hand-written CUDA kernels for the SU3 hot spot, their plain PyTorch
-versions, and torch oracles (ref.py)."""
+"""Hand-written CUDA kernels (the SU3 hot spot and prefill attention), their
+plain PyTorch versions, and torch oracles (ref.py)."""

@@ -1,0 +1,262 @@
+"""GQA prefill attention with an online softmax: the CUDA kernel's wrapper
+and its plain version.
+
+Port of ``repro.kernels.flash_attention.flash_attention_tpu`` (Pallas, TPU),
+which the reference documents as the prefill attention on the accelerator;
+what it computes is the reference's chunked ``models/attention.py``
+``flash_attention``.  The kernel is ``repro_torch/csrc/flash_attention.cu``;
+this module holds:
+
+  * :func:`flash_attention_plain` — the chunked online-softmax attention in
+    plain PyTorch, the reference's ``models/attention.py`` ``flash_attention``
+    with the same chunking and padding (``Dv != D`` included);
+  * :func:`flash_attention` — the wrapper: for CUDA tensors it checks the
+    arguments, launches the kernel on the current stream and counts the
+    launch in :data:`LAUNCHES`; for CPU tensors it runs the plain version;
+    any other device raises;
+  * :func:`smem_bytes` and :func:`kernel_budget` — the kernel's shared memory
+    per block (the counterpart of the reference's ``vmem_bytes``), registers
+    and occupancy.
+
+Layout contract (the reference's, at the public functions):
+  q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D), Hq a multiple of Hkv; the G =
+  Hq / Hkv query heads of a kv head are read in place through the strides.
+  Causal masking is on absolute positions: query i sits at i + q_offset,
+  key j at j.  Scale D^-1/2 on q in f32, f32 statistics, masked scores
+  -1e30, out = acc / max(l, 1e-37) in q's dtype -> (B, Sq, Hq, D).
+
+The kernel takes f32 or bf16, D in {32, 64, 128}, any Sq and Skv (the
+ragged edge is masked in the kernel) and ignores ``q_chunk`` / ``kv_chunk``
+(its tiles are 64 rows by 64 keys); those shape the plain version's
+chunking only.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.su3_matmul import LaunchCounter, _check_error
+
+NEG_INF = -1e30
+HEAD_DIMS = (32, 64, 128)  # the kernel's instantiations
+BLOCK_ROWS = 64  # folded query rows per block
+BLOCK_KEYS = 64  # keys per tile
+MAX_BATCH_HEADS = 65535  # B * Hkv rides on gridDim.y
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # as flash_attention.cu numbers them
+
+LAUNCHES = LaunchCounter("flash_attention")
+
+
+def flash_attention_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    q_chunk: int = 512,
+    kv_chunk: int = 1024,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """Online-softmax chunked attention in plain PyTorch.
+
+    q: (B, Sq, Hq, D); k: (B, Skv, Hkv, D); v: (B, Skv, Hkv, Dv).  Ragged
+    lengths are padded to whole chunks and the padded keys masked, as the
+    reference does; every chunk pair runs (no causal skip).
+    """
+    b, sq, hq, d = q.shape
+    _, skv, hkv, _ = k.shape
+    dv = v.shape[-1]
+    g = hq // hkv
+    sq_orig, skv_orig = sq, skv
+    q_chunk = min(q_chunk, sq)
+    kv_chunk = min(kv_chunk, skv)
+    if sq % q_chunk:  # pad ragged lengths; padded keys masked out below
+        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, (-sq) % q_chunk))
+        sq = q.shape[1]
+    if skv % kv_chunk:
+        pad = (0, 0, 0, 0, 0, (-skv) % kv_chunk)
+        k, v = torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad)
+        skv = k.shape[1]
+    nq, nk = sq // q_chunk, skv // kv_chunk
+    scale = d**-0.5
+    f32, dev = torch.float32, q.device
+
+    qc = q.reshape(b, nq, q_chunk, hkv, g, d)
+    kc = k.reshape(b, nk, kv_chunk, hkv, d)
+    vc = v.reshape(b, nk, kv_chunk, hkv, dv)
+    outs = []
+    for iq in range(nq):
+        qf = qc[:, iq].to(f32) * scale  # (b, cq, hkv, g, d)
+        q_pos = iq * q_chunk + torch.arange(q_chunk, device=dev) + q_offset
+        acc = torch.zeros((b, hkv, g, q_chunk, dv), dtype=f32, device=dev)
+        m = torch.full((b, hkv, g, q_chunk), NEG_INF, dtype=f32, device=dev)
+        l = torch.zeros((b, hkv, g, q_chunk), dtype=f32, device=dev)
+        for ik in range(nk):
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kc[:, ik].to(f32))
+            k_pos = ik * kv_chunk + torch.arange(kv_chunk, device=dev)
+            penalty = torch.zeros((q_chunk, kv_chunk), dtype=f32, device=dev)
+            if causal:
+                penalty = torch.where(k_pos[None, :] <= q_pos[:, None], 0.0, NEG_INF)
+            if skv != skv_orig:
+                penalty = penalty + torch.where(k_pos[None, :] < skv_orig, 0.0, NEG_INF)
+            s = s + penalty.to(f32)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhgqk,bkhd->bhgqd", p, vc[:, ik].to(f32))
+            m = m_new
+        out = acc / torch.clamp_min(l[..., None], 1e-37)  # (b, hkv, g, cq, dv)
+        outs.append(out.permute(0, 3, 1, 2, 4))  # (b, cq, hkv, g, dv)
+    out = torch.cat(outs, dim=1).reshape(b, sq, hq, dv)
+    return out[:, :sq_orig].to(q.dtype)
+
+
+def kernel_tolerance(dtype: torch.dtype) -> tuple[float, float]:
+    """``(atol, rtol)`` of the kernel against its plain version on the same
+    inputs.  f32: both sum in f32 in another order (dot products, tiles of
+    64 keys against chunks of up to 1024); 2e-5 is the reference's own
+    tolerance for its kernel.  bf16: the same f32 values, each rounded once
+    to bf16, may land one bf16 ulp apart (2^-8 to 2^-7 of the value)."""
+    if dtype == torch.bfloat16:
+        return 1e-5, 2.0**-7
+    return 2e-5, 2e-5
+
+
+def smem_bytes(d: int) -> int:
+    """Dynamic shared memory of one block: q * scale and a K tile (both
+    transposed), a V tile and the probabilities, all f32."""
+    return 4 * (d * BLOCK_ROWS + d * BLOCK_KEYS + BLOCK_KEYS * d + BLOCK_ROWS * BLOCK_KEYS)
+
+
+def _library() -> ctypes.CDLL:
+    lib = _build.load("flash_attention")
+    if not getattr(lib, "_repro_typed", False):
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.flash_attention_fwd.argtypes = [
+            ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
+            ctypes.POINTER(ctypes.c_longlong), i32, i32, ctypes.c_float, i32, ptr,
+        ]
+        lib.flash_attention_fwd.restype = i32
+        lib.flash_attention_attributes.argtypes = [i32, i32, i32, ctypes.POINTER(i32)]
+        lib.flash_attention_attributes.restype = i32
+        lib.su3_error_string.argtypes = [i32]
+        lib.su3_error_string.restype = ctypes.c_char_p
+        lib._repro_typed = True
+    return lib
+
+
+def kernel_budget(
+    dtype: torch.dtype = torch.bfloat16, d: int = 128, causal: bool = True,
+) -> dict[str, int | float | None]:
+    """One instantiation's per-block budget on the current CUDA device.
+
+    Returns:
+        The keys of :func:`repro_torch.kernels.su3_matmul.kernel_budget`:
+        ``num_regs``, ``shared_bytes`` (dynamic), ``local_bytes`` (spills),
+        ``max_threads_per_block``, ``threads_per_block``, ``blocks_per_sm``
+        and ``occupancy``.
+    """
+    lib = _library()
+    out = (ctypes.c_int * 6)()
+    rc = lib.flash_attention_attributes(_DTYPES[dtype], d, int(causal), out)
+    _check_error(lib, rc, "cudaFuncGetAttributes")
+    regs, shared, local, max_threads, threads, blocks = list(out)
+    props = torch.cuda.get_device_properties(torch.cuda.current_device())
+    per_sm = getattr(props, "max_threads_per_multi_processor", None)
+    return {
+        "num_regs": regs,
+        "shared_bytes": shared,
+        "local_bytes": local,
+        "max_threads_per_block": max_threads,
+        "threads_per_block": threads,
+        "blocks_per_sm": blocks,
+        "occupancy": blocks * threads / per_sm if per_sm else None,
+    }
+
+
+def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    what = "flash_attention"
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        raise ValueError(f"{what}: q, k, v must be (B, S, H, D), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, _, hq, d = q.shape
+    if k.shape[0] != b or v.shape[0] != b or k.shape[1] != v.shape[1] or k.shape[2] != v.shape[2]:
+        raise ValueError(f"{what}: batch, key length or kv heads differ: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if k.shape[-1] != d or k.shape[2] == 0 or hq % k.shape[2]:
+        raise ValueError(f"{what}: k must be (B, Skv, Hkv, {d}) with Hkv dividing {hq}, "
+                         f"got {tuple(k.shape)}")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"{what}: q, k, v lie on {q.device}, {k.device}, {v.device}")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise ValueError(f"{what}: q, k, v are {q.dtype}, {k.dtype}, {v.dtype}")
+
+
+def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int) -> None:
+    """What the kernel takes beyond the shapes the plain version takes."""
+    what = "flash_attention"
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    if v.shape[-1] != d:
+        raise NotImplementedError(
+            f"{what}: the kernel needs Dv == D, got Dv={v.shape[-1]}, D={d}; a value head "
+            "wider or narrower than the key head is MLA's (ROADMAP Queue 1, the MLA item)")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{what}: the kernel is built for D in {HEAD_DIMS}, got {d}")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"{what}: the kernel takes float32 or bfloat16, got {q.dtype}")
+    if min(b, sq, skv) == 0:
+        raise ValueError(f"{what}: empty operands {tuple(q.shape)}, {tuple(k.shape)}")
+    if q_offset < 0:
+        raise ValueError(f"{what}: q_offset must be >= 0, got {q_offset}")
+    if b * hkv > MAX_BATCH_HEADS:
+        raise ValueError(f"{what}: B * Hkv = {b * hkv} exceeds {MAX_BATCH_HEADS}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        # 16-byte vector loads: the head dim contiguous, the other strides and
+        # the base address on 4-element boundaries
+        if t.stride(-1) != 1 or any(s % 4 for s in t.stride()[:3]) or t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} needs a contiguous, 16-byte aligned head dim "
+                             f"and strides in multiples of 4, got {t.stride()}")
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    q_chunk: int = 512,
+    kv_chunk: int = 1024,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """GQA attention: q (B, Sq, Hq, D), k/v (B, Skv, Hkv, D) -> (B, Sq, Hq, D).
+
+    A CUDA tensor goes to the kernel (or raises); a CPU tensor goes to
+    :func:`flash_attention_plain` with ``q_chunk`` / ``kv_chunk``; any other
+    device raises.
+    """
+    _check_shapes(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, q_chunk=q_chunk,
+                                     kv_chunk=kv_chunk, q_offset=q_offset)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu tensors, got {q.device}")
+    _check_cuda(q, k, v, q_offset)
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
+    strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out) for s in t.stride()[:3]))
+    lib = _library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, skv, hq, hkv, d,
+            strides, int(causal), q_offset, d**-0.5, _DTYPES[q.dtype], stream)
+    _check_error(lib, rc, "flash_attention launch")
+    LAUNCHES.count += 1
+    return out

@@ -6,13 +6,19 @@ without JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.core.su3.layouts import COMP_ROW_INDICES
 from repro_torch.core.su3.plan import verify_tolerance
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, su3_matmul
+from repro_torch.models import registry
+from repro_torch.serve.engine import ServeConfig, ServeEngine
 
 S = 256
 
@@ -244,3 +250,92 @@ def test_cuda_stencil_wrappers_reject_bad_operands(cuda_device):
         ops.su3_stencil_planar(u, v.transpose(2, 3).contiguous().transpose(2, 3), tile=64)
     with pytest.raises(ValueError, match="coefs"):
         ops.su3_cg_fused_planar(u, v, rn, r, p, torch.zeros(1, 2), tile=64)
+
+
+# -- the prefill attention kernel ------------------------------------------------
+
+FLASH_SHAPES = [  # (batch, sq, skv, hq, hkv, d, causal, q_offset)
+    (2, 128, 128, 4, 4, 128, True, 0),  # G=1
+    (2, 128, 128, 8, 2, 64, True, 0),  # G=4
+    (1, 96, 96, 8, 1, 32, True, 0),  # G=8
+    (1, 1000, 1000, 32, 8, 128, True, 0),  # a ragged length at the full widths
+    (2, 77, 200, 4, 2, 64, False, 0),  # Sq != Skv, non-causal
+    (1, 40, 104, 4, 1, 128, True, 64),  # queries that continue a 64-token prefix
+    (2, 64, 64, 4, 2, 32, False, 0),  # non-causal, square
+]
+
+
+def _qkv(shape, dtype, seed):
+    b, sq, skv, hq, hkv, d = shape[:6]
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(dtype)
+            for s in ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_matches_plain_version(cuda_device, shape, dtype):
+    *_, causal, q_offset = shape
+    q, k, v = (t.to(cuda_device) for t in _qkv(shape, dtype, seed=50))
+    want = fa.flash_attention_plain(q, k, v, causal=causal, q_chunk=64, kv_chunk=128,
+                                    q_offset=q_offset)
+    before = fa.LAUNCHES.count
+    got = fa.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES.count == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    atol, rtol = fa.kernel_tolerance(dtype)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_reads_strided_heads(cuda_device):
+    """q, k, v sliced out of one fused (B, S, H, 3, D) projection."""
+    gen = torch.Generator(device=cuda_device).manual_seed(53)
+    fused = torch.randn((2, 80, 4, 3, 64), generator=gen, device=cuda_device)
+    q, k, v = fused.unbind(3)
+    want = fa.flash_attention_plain(q.contiguous(), k.contiguous(), v.contiguous())
+    got = fa.flash_attention(q, k, v)
+    atol, rtol = fa.kernel_tolerance(torch.float32)
+    torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_rejects_what_the_kernel_does_not_take(cuda_device):
+    q, k, v = _qkv((1, 16, 16, 4, 2, 64), torch.float32, seed=51)
+    with pytest.raises(ValueError, match="lie on"):
+        fa.flash_attention(q.to(cuda_device), k, v.to(cuda_device))
+    q96, k96, v96 = (t.to(cuda_device) for t in _qkv((1, 16, 16, 4, 2, 96), torch.float32, 52))
+    with pytest.raises(ValueError, match="built for D"):
+        fa.flash_attention(q96, k96, v96)
+    with pytest.raises(NotImplementedError, match="MLA"):
+        fa.flash_attention(q.to(cuda_device), k.to(cuda_device), v.to(cuda_device)[..., :32])
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa.flash_attention(*(t.to(cuda_device, torch.float16) for t in (q, k, v)))
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_shared_memory_budget(cuda_device):
+    for d in fa.HEAD_DIMS:
+        budget = fa.kernel_budget(torch.bfloat16, d, causal=True)
+        assert budget["shared_bytes"] == fa.smem_bytes(d)
+        assert budget["local_bytes"] == 0 and budget["blocks_per_sm"] >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-4b", "yi-6b"])
+def test_cuda_reduced_prefill_launches_once_per_layer(cuda_device, arch):
+    cfg = get_config(arch).reduced()
+    model = registry.get(cfg).init(torch.Generator().manual_seed(0), cfg)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 20), dtype=np.int32)
+    cpu = ServeEngine(cfg, copy.deepcopy(model), ServeConfig(max_len=32), device="cpu")
+    card = ServeEngine(cfg, model, ServeConfig(max_len=32), device=cuda_device)
+    before = fa.LAUNCHES.count
+    toks = card.generate(prompts, 6)
+    assert fa.LAUNCHES.count - before == cfg.n_layers  # prefill only; decode is plain
+    batch = {"tokens": torch.from_numpy(prompts)}
+    want, _ = cpu.prefill(batch, cpu.init_state(2))
+    got, _ = card.prefill({"tokens": batch["tokens"].to(cuda_device)}, card.init_state(2))
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    assert toks.shape == (2, 26)
