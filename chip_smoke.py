@@ -29,11 +29,16 @@ source, started together) and, at the paper's L=32 lattice:
     teacher-forced prefill, and the card against the port's CPU path at 2
     layers in f32;
   * times each kernel against its bound, its plain version and, where one
-    PyTorch call computes the same function, that call.
+    PyTorch call computes the same function, that call (every time in the
+    kernels line from eager calls; the flash kernel and SDPA also in a CUDA
+    graph of back-to-back calls, printed beside them, where the wrapper's
+    host cost does not show).
 
 It prints:
 
   * the card's name and power limit (nvidia-smi) and the tool versions;
+  * the HGMMA, UTMALDG and HMMA counts of the built flash-attention library
+    (``cuobjdump -sass``): its bf16 body must run wgmma fed by TMA;
   * one JSON line per check, per main-path row and per yardstick;
   * a ``{"kernels": [...]}`` line with each ported kernel's numbers;
   * last, ``{"ok": true, "device": {...}}`` — only if every phase passed.
@@ -49,6 +54,7 @@ import argparse
 import dataclasses
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -104,8 +110,12 @@ def _emit(obj: dict) -> None:
 
 
 def _tool_line(cmd: list[str]) -> str:
-    out = subprocess.run(cmd, capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[-1] if out.stdout.strip() else ""
+    out = _tool_output(cmd).strip()
+    return out.splitlines()[-1] if out else ""
+
+
+def _tool_output(cmd: list[str]) -> str:
+    return subprocess.run(cmd, capture_output=True, text=True, timeout=60, check=True).stdout
 
 
 def random_su3(rng, shape: tuple[int, ...]):
@@ -135,6 +145,32 @@ def _time_ms(fn, reps: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _graph_ms(fn, calls: int = 20, reps: int = 10) -> float:
+    """Mean device ms per call: ``calls`` back-to-back calls captured in one
+    CUDA graph, replayed ``reps`` times between two CUDA events, so that
+    the host's cost per call does not show."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up outside the capture
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * calls)
 
 
 def _best_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -247,17 +283,24 @@ def main(argv: list[str] | None = None) -> int:
                "columns": ["mode", "two_row", "aosoa", "num_regs", "local_bytes",
                            "threads_per_block", "blocks_per_sm", "occupancy"], "forms": forms})
     flash_forms = []
-    for dtype in ("float32", "bfloat16"):
+    for dtype, body in (("float32", "cuda cores"), ("bfloat16", "tensor cores")):
         for d in flash_attention.HEAD_DIMS:
             for causal in (True, False):
                 b = flash_attention.kernel_budget(getattr(torch, dtype), d, causal)
-                flash_forms.append([dtype, d, causal, b["num_regs"], b["local_bytes"],
+                flash_forms.append([body, dtype, d, causal, b["num_regs"], b["local_bytes"],
                                     b["shared_bytes"], b["threads_per_block"],
                                     b["blocks_per_sm"], b["occupancy"]])
     _emit({"kernel_budget": "flash_attention",
-           "columns": ["dtype", "head_dim", "causal", "num_regs", "local_bytes",
+           "columns": ["body", "dtype", "head_dim", "causal", "num_regs", "local_bytes",
                        "shared_bytes", "threads_per_block", "blocks_per_sm", "occupancy"],
            "forms": flash_forms})
+    # the bf16 body runs on the tensor cores: wgmma (HGMMA) fed by TMA (UTMALDG)
+    sass = _tool_output([str(pathlib.Path(_build.nvcc_path()).parent / "cuobjdump"), "-sass",
+                           str(_build.library_path("flash_attention"))])
+    counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG", "HMMA")}
+    _emit({"sass": "flash_attention", "instructions": counts})
+    if not (counts["HGMMA"] and counts["UTMALDG"]):
+        failures.append(f"flash_attention: no HGMMA or UTMALDG in the built library: {counts}")
 
     # -- 3. kernel vs plain version on random SU(3) links, L=32 --------------------
     n_sites = PAPER_L32.shape.n_sites
@@ -1247,19 +1290,26 @@ def _lm_phase(seed: int, hw, failures: list[str]) -> dict:
     b, s, hq, hkv, d = LM_BATCH, LM_PROMPT, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, k, v = (torch.from_numpy(rng.standard_normal(shp, dtype=np.float32)).to(dev, torch.bfloat16)
                for shp in ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d)))
+    # eager calls, as for every other kernel; a CUDA graph of back-to-back
+    # calls beside them, where the wrapper's host cost per call does not show
     kernel_ms = _time_ms(lambda: fa.flash_attention(q, k, v), reps=20)
+    kernel_graph_ms = _graph_ms(lambda: fa.flash_attention(q, k, v))
     plain_ms = _time_ms(lambda: fa.flash_attention_plain(q, k, v), reps=5, warmup=1)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
         qt, kt, vt, is_causal=True, enable_gqa=True)
     library_ms = _time_ms(sdpa, reps=20)
+    library_graph_ms = _graph_ms(sdpa)
     lib_err = torch.abs(sdpa().transpose(1, 2).float() - fa.flash_attention(q, k, v).float())
     bound = roofline.attention_bound(batch=b, sq=s, skv=s, hq=hq, hkv=hkv, d=d,
                                      dtype=torch.bfloat16, hw=hw) if hw is not None else None
     bound_f32 = roofline.attention_bound(batch=b, sq=s, skv=s, hq=hq, hkv=hkv, d=d,
                                          dtype=torch.float32, hw=hw) if hw is not None else None
+    executed = fa.executed_flops(b, s, s, hq, hkv, d)  # split PV and causal tile waste included
     _emit({"yardstick": f"flash_attention bf16 causal B={b} S={s} Hq={hq} Hkv={hkv} D={d}",
-           "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "kernel_ms": kernel_ms, "kernel_graph_ms": kernel_graph_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "library_graph_ms": library_graph_ms,
+           "timing": "*_ms: eager calls; *_graph_ms: CUDA graph of 20 calls",
            "library_call": "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)",
            "library_max_abs_diff": lib_err.max().item(),
            "flops": None if bound is None else bound.flops,
@@ -1268,7 +1318,10 @@ def _lm_phase(seed: int, hw, failures: list[str]) -> dict:
            "bound_by": None if bound is None else bound.bound_by,
            "fp32_core_bound_ms": None if bound_f32 is None else bound_f32.compute_s * 1e3,
            "kernel_TFLOPs": None if bound is None else bound.flops / kernel_ms / 1e9,
-           "bound_share": None if bound is None else bound.bound_s * 1e3 / kernel_ms})
+           "bound_share": None if bound is None else bound.bound_s * 1e3 / kernel_ms,
+           "executed_flops": executed,
+           "executed_TFLOPs": executed / kernel_ms / 1e9,
+           "own_floor_ms": None if hw is None else executed / hw.peak_flops_bf16 * 1e3})
     return {"launches": launches, "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
             "bound_ms": None if bound is None else bound.bound_s * 1e3,
             "bound_by": None if bound is None else bound.bound_by, "library_ms": library_ms}

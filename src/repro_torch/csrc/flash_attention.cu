@@ -16,34 +16,63 @@
 // visible (query, key) pair, 34.4 GFLOP: 0.035 ms at the bf16 tensor-core
 // rate (989 TFLOP/s, H100 SXM) and 0.51 ms at the FP32 CUDA-core rate
 // (67 TFLOP/s), against 84 MB of q, k, v and o (0.025 ms at 3.35 TB/s).
-// This kernel runs on the CUDA cores in f32 (FMAs), so 0.51 ms is its own
-// floor; tensor cores (wgmma over bf16 tiles) are a later step.
 //
-// Design:
-//  * One block per (batch * kv head, tile of 64 folded rows).  Folded row f
-//    of a kv head is query f / G, head hk * G + f % G: the GQA group is
-//    indexed in place through the strides of the (B, S, H, D) tensors, so
-//    the reference's transposed fold is never materialised.
-//  * 256 threads as 16 x 16; thread (ty, tx) owns rows 4ty..4ty+3 of the
-//    score tile (keys 4tx..4tx+3) and of the output (D/16 columns), so the
-//    row statistics and the rescaling of the accumulators stay in its
-//    registers; a row's max and sum are reduced over its 16 threads with
-//    warp shuffles.
+// Two bodies, chosen by the storage type:
+//
+// bf16 (the prefill path): tensor cores, flash_attention_tc.  Its bound is
+// the bf16 tensor-core rate (989 TFLOP/s, against 67 for FP32).
+//  * One block per (batch * kv head, tile of 128 folded rows), launched
+//    heaviest row tile first so that the causal tail is short.  Folded row f
+//    of a kv head is query f / G, head hk * G + f % G, read in place through
+//    the (B, S, H) strides: the GQA group is never copied.
+//  * Three warpgroups: a producer that keeps K and V tiles of 128 keys
+//    coming by TMA into a ring of three shared-memory stages (full and
+//    empty mbarriers; 230,448 B at D=128 with Q, one block per SM), and two
+//    consumers of 64 rows each (wgmma's M), which take the producer's
+//    registers (setmaxnreg).  The consumers bring Q in once by cp.async
+//    into the same 128-byte swizzle.
+//  * Per key tile, each consumer issues one batch: O += P V of the previous
+//    tile, then S = Q K^T (wgmma, bf16 operands from shared memory, f32
+//    accumulators), then runs the online softmax of S while the other
+//    consumer's batch runs: named barriers hand the tensor cores from one
+//    warpgroup to the other.  P comes from registers (the S accumulator's
+//    layout is the A fragment's) and V from shared memory as stored
+//    (MN-major).  The mask runs only on tiles that hold an invisible key.
+//  * Precision.  The products of bf16 q and k are exact and summed in f32;
+//    D^-1/2 scales the f32 score inside the exponent, p = 2^(s c - m c)
+//    with c = D^-1/2 log2(e), so q * D^-1/2 is never rounded to bf16.  p is
+//    split into p_hi = bf16(p) and p_lo = bf16(p - p_hi) and both are
+//    multiplied into V: p_hi + p_lo holds p to ~2^-16, where one bf16 p
+//    would put ~10% of the outputs more than a bf16 ulp from the plain
+//    version.  So the kernel still differs from its plain version by about
+//    one output rounding, at 1.5x the counted flops (PV twice); its own
+//    floor is the flops it executes at 989 TFLOP/s.
+//  * Keys past Skv arrive as zeros (TMA's out-of-bounds fill) and are
+//    masked; rows past Sq * G are computed on zero q and never stored.
+//
+// f32: CUDA cores, flash_attention_kernel, in f32 FMAs (0.51 ms is its own
+// floor at the prefill shape).
+//  * One block per (batch * kv head, tile of 64 folded rows), 256 threads as
+//    16 x 16; thread (ty, tx) owns rows 4ty..4ty+3 of the score tile (keys
+//    4tx..4tx+3) and of the output (D/16 columns), so the row statistics and
+//    the rescaling of the accumulators stay in its registers; a row's max
+//    and sum are reduced over its 16 threads with warp shuffles.
 //  * Shared memory, all f32: q * scale transposed (D x 64), one K tile
 //    transposed (D x 64), one V tile (64 x D) and the probabilities
-//    (64 x 64): 112 KB at D=128, two blocks per SM.  Each operand is widened
-//    to f32 once on load (bf16 storage), as the reference upcasts.
-//  * Tiles of 64 keys; causal blocks stop at the last tile that holds a
-//    visible key.  A skipped tile would add exp(-1e30 - m) = 0 to every row,
-//    so skipping changes no bit.  Key 0 lies in the first tile and is seen
-//    by every row, so the masked value -1e30 never leaks into a sum.
-//  * Keys past Skv and rows past Sq * G are masked here (the ragged edge):
-//    any Sq, Skv, q_offset >= 0 and non-causal Sq != Skv are served.
+//    (64 x 64): 112 KB at D=128, two blocks per SM.
+//
+// Both: causal blocks stop at the last tile that holds a visible key.  A
+// skipped tile would add exp(-1e30 - m) = 0 to every row, so skipping
+// changes no bit.  Key 0 lies in the first tile and is seen by every row, so
+// the masked value -1e30 never leaks into a sum.  Any Sq, Skv, q_offset >= 0
+// and non-causal Sq != Skv are served.
 
 #include <cstdint>
 
+#include <cuda.h>  // CUtensorMap and its enums; the driver is reached at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
 
 namespace {
 
@@ -69,15 +98,8 @@ constexpr int smem_floats() {
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
 
 __device__ __forceinline__ void store1(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
 // Output column c (0 <= c < D/16) of thread tx: groups of 4 at 64-column
 // strides, so the 16 threads of a row read 256 contiguous bytes of V.
@@ -278,41 +300,483 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// -- bf16: tensor cores ---------------------------------------------------------
+
+namespace tc {
+
+constexpr int kRows = 128;     // folded query rows per block: 64 per consumer warpgroup
+constexpr int kKeys = 128;     // keys per K/V tile
+constexpr int kStages = 3;     // K/V tiles in flight
+constexpr int kThreads = 384;  // one producer and two consumer warpgroups
+constexpr int kAlign = 1024;   // a 128-byte swizzle repeats every 8 rows of 128 bytes
+
+template <int D>
+struct Tile {
+  static constexpr int kSwizzle = D >= 64 ? 128 : 64;  // bytes of one swizzled shared row
+  static constexpr int kBoxCols = kSwizzle / 2;        // bf16 of one row of a TMA box
+  static constexpr int kBoxes = D / kBoxCols;          // boxes across the head dim
+  static constexpr int kBoxBytes = kKeys * kSwizzle;   // one box of 128 rows (Q, K or V)
+  static constexpr int kTileBytes = kBoxes * kBoxBytes;  // Q, or one K or V tile
+  static constexpr uint64_t kLayout = kSwizzle == 128 ? 1 : 2;  // wgmma's swizzle code
+  // aligned Q, K and V stages, then the full and empty barriers
+  static constexpr int kSmem = kAlign + (1 + 2 * kStages) * kTileBytes + 16 * kStages;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One box of the (D, Hkv, Skv, B) view into shared memory, counted on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int d0, int head, int key0, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d0), "r"(head), "r"(key0), "r"(batch)
+      : "memory");
+}
+
+// 16 bytes from global to shared memory without a register; zeros past
+// `bytes` (0 or 16).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// wgmma's shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units), swizzle code.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 | layout << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most N committed groups are still running.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// The accumulator is written asynchronously: no read of it may move above
+// the wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= A B: A (64 x 16) and B (128 x 16) from shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d += A B: A (64 x 16) from registers, B (16 x 32) from shared memory, MN-major.
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d += A B: A (64 x 16) from registers, B (16 x 64) from shared memory, MN-major.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d += A B: A (64 x 16) from registers, B (16 x 128) from shared memory, MN-major.
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Named barriers 3 and 4 order the two consumer warpgroups' products on the
+// tensor cores: each issues its batch in its turn, then passes the turn, so
+// one warpgroup's softmax runs under the other's products.
+__device__ __forceinline__ void turn_wait(int c) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(3 + c) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int c) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(4 - c) : "memory");
+}
+
+// One consumer warpgroup's view of a block: its Q rows, the K/V ring, and
+// this thread's two accumulator rows (r and r + 8 of the warpgroup's 64).
+// Value i of an accumulator lies in row r + 8 * (i / 2 % 2), column
+// 8 * (i / 4) + 2 * (lane % 4) + i % 2.
+template <int D>
+struct Tc {
+  using T = Tile<D>;
+  uint32_t q_wg, k_s, v_s;
+  int lim[2];   // keys visible to each row: those below lim
+  int min_lim;  // the least lim of the warpgroup's rows
+  int lane;
+  float c;      // D^-1/2 log2(e): p = 2^(s c - m c)
+
+  // K-major operands (Q, K): 8-row groups 8 * kSwizzle apart; a k-slice of
+  // 16 columns is 32 bytes inside a swizzled row.
+  static __device__ __forceinline__ uint64_t kmajor(uint32_t tile, int kk) {
+    return smem_desc(tile + (16 * kk / T::kBoxCols) * T::kBoxBytes + (16 * kk % T::kBoxCols) * 2,
+                     16, 8 * T::kSwizzle, T::kLayout);
+  }
+  // V as stored, (key, D) in boxes: MN-major, 8 keys 8 * kSwizzle apart,
+  // boxes across D kBoxBytes apart; a k-slice is 16 keys.
+  static __device__ __forceinline__ uint64_t vdesc(uint32_t tile, int kk) {
+    return smem_desc(tile + 16 * kk * T::kSwizzle, T::kBoxBytes, 8 * T::kSwizzle, T::kLayout);
+  }
+
+  // S = Q K^T of stage s
+  __device__ __forceinline__ void issue_qk(float (&sc)[kKeys / 2], int s) const {
+    const uint32_t k_t = k_s + s * T::kTileBytes;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) wgmma_ss(sc, kmajor(q_wg, kk), kmajor(k_t, kk), kk > 0);
+  }
+
+  // O += P_hi V + P_lo V of stage s
+  __device__ __forceinline__ void issue_pv(float (&acc)[D / 2], const uint32_t (&hi)[kKeys / 16][4],
+                                           const uint32_t (&lo)[kKeys / 16][4], int s) const {
+    const uint32_t v_t = v_s + s * T::kTileBytes;
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk) wgmma_rs(acc, hi[kk], vdesc(v_t, kk));
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk) wgmma_rs(acc, lo[kk], vdesc(v_t, kk));
+  }
+
+  // The online-softmax step of the tile at key0 on raw scores: mask (only
+  // where the tile holds an invisible key), update the row max m and this
+  // thread's share of the row sum l, set alpha (the rescale of the
+  // accumulator), and write p = hi + lo (both bf16) as A fragments:
+  // register j of k-slice kk holds values 8kk + 2j and 8kk + 2j + 1.
+  template <bool kMask>
+  __device__ __forceinline__ void softmax(float (&sc)[kKeys / 2], float (&m)[2], float (&l)[2],
+                                          float (&alpha)[2], uint32_t (&hi)[kKeys / 16][4],
+                                          uint32_t (&lo)[kKeys / 16][4], int key0) const {
+    // the row max and sum over 4 partial values each, to shorten the chains
+    float mx[2][4], sum[2][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) mx[h][u] = kNegInf, sum[h][u] = 0.f;
+    int rel[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) rel[h] = lim[h] - key0 - 2 * (lane % 4);
+#pragma unroll
+    for (int i = 0; i < kKeys / 2; ++i) {
+      const int h = i / 2 % 2;
+      if (kMask && 8 * (i / 4) + i % 2 >= rel[h]) sc[i] = kNegInf;
+      mx[h][i / 4 % 4] = fmaxf(mx[h][i / 4 % 4], sc[i]);
+    }
+    float mc[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float x = fmaxf(fmaxf(mx[h][0], mx[h][1]), fmaxf(mx[h][2], mx[h][3]));
+      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+      const float m_new = fmaxf(m[h], x);
+      alpha[h] = exp2_approx((m[h] - m_new) * c);
+      mc[h] = m_new * c;
+      m[h] = m_new;
+    }
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int i = 8 * kk + 2 * j, h = j % 2;
+        const float p0 = exp2_approx(fmaf(sc[i], c, -mc[h]));
+        const float p1 = exp2_approx(fmaf(sc[i + 1], c, -mc[h]));
+        sum[h][kk % 4] += p0 + p1;
+        const uint32_t ph = bf16x2_bits(__floats2bfloat162_rn(p0, p1));
+        hi[kk][j] = ph;  // its halves widen to f32 by a shift and a mask
+        lo[kk][j] = bf16x2_bits(__floats2bfloat162_rn(p0 - __uint_as_float(ph << 16),
+                                                      p1 - __uint_as_float(ph & 0xffff0000u)));
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] = l[h] * alpha[h] + ((sum[h][0] + sum[h][1]) + (sum[h][2] + sum[h][3]));
+    }
+  }
+};
+
+template <int D, bool kCausal>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attention_tc(const __grid_constant__ CUtensorMap tmk, const __grid_constant__ CUtensorMap tmv,
+                   const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ o,
+                   const Params p) {
+  using T = Tile<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + kAlign - 1) & ~static_cast<uint32_t>(kAlign - 1);
+  const uint32_t q_s = base;
+  const uint32_t k_s = q_s + T::kTileBytes;             // kStages K tiles
+  const uint32_t v_s = k_s + kStages * T::kTileBytes;   // kStages V tiles
+  const uint32_t full = v_s + kStages * T::kTileBytes;  // kStages barriers, then
+  const uint32_t empty = full + 8 * kStages;            // kStages more
+
+  const int b = blockIdx.x / p.hkv, hk = blockIdx.x % p.hkv;
+  const int rows = p.sq * p.g;  // < 2^23: the launch holds row tiles to 65535
+  const int row0 = (gridDim.y - 1 - blockIdx.y) * kRows;
+  int n_tiles = (p.skv + kKeys - 1) / kKeys;
+  if (kCausal) {
+    const int last_row = min(row0 + kRows, rows) - 1;
+    n_tiles = min(n_tiles, (last_row / p.g + p.q_offset) / kKeys + 1);
+  }
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);   // the producer's arrival, plus the bytes
+      mbar_init(empty + 8 * s, 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // -- producer: K and V tiles by TMA ------------------------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kStages;
+        mbar_wait(empty + 8 * s, ((t / kStages) & 1) ^ 1);  // stage released
+        mbar_expect_tx(full + 8 * s, 2 * T::kTileBytes);
+#pragma unroll
+        for (int i = 0; i < T::kBoxes; ++i) {
+          const uint32_t off = s * T::kTileBytes + i * T::kBoxBytes;
+          tma_load(k_s + off, &tmk, full + 8 * s, i * T::kBoxCols, hk, t * kKeys, b);
+          tma_load(v_s + off, &tmv, full + 8 * s, i * T::kBoxCols, hk, t * kKeys, b);
+        }
+      }
+    }
+  } else {
+    // -- consumer c: folded rows row0 + 64c .. row0 + 64c + 63 -------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int c = threadIdx.x / 128 - 1, tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int wg_row0 = row0 + 64 * c;
+
+    // Q, once: 16-byte cp.async copies into the swizzle TMA would give
+    // (16-byte chunk j of shared row r at chunk j ^ (r % 8) for 128 bytes,
+    // j ^ (r / 2 % 4) for 64), zeros past the last row
+    {
+      constexpr int kChunks = D / 8, kRowChunks = T::kSwizzle / 16;
+      for (int idx = tid; idx < 64 * kChunks; idx += 128) {
+        const int r = idx / kChunks, ch = idx % kChunks;
+        const int f = wg_row0 + r;
+        const __nv_bfloat16* src = q;
+        if (f < rows) {
+          const int i = f / p.g, h = hk * p.g + f % p.g;
+          src = q + b * p.qs[0] + i * p.qs[1] + h * p.qs[2] + ch * 8;
+        }
+        const int row = 64 * c + r, j = ch % kRowChunks;
+        const int swz = T::kSwizzle == 128 ? (row & 7) : ((row >> 1) & 3);
+        cp_async16(q_s + (ch / kRowChunks) * T::kBoxBytes + row * T::kSwizzle + (j ^ swz) * 16,
+                   src, f < rows ? 16 : 0);
+      }
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
+    }
+
+    // this thread's rows of the accumulators: r and r + 8 of the warpgroup's 64;
+    // a row sees keys below min(Skv, its position + 1) (causal) or Skv.
+    // Rows past the end take the last row's position.
+    const int r = 16 * warp + lane / 4;
+    auto lim_of = [&](int f) {
+      const int pos = min(f, rows - 1) / p.g + p.q_offset;
+      return kCausal ? min(p.skv, pos + 1) : p.skv;
+    };
+    const Tc<D> tcx{q_s + 64 * c * T::kSwizzle, k_s, v_s,
+                    {lim_of(wg_row0 + r), lim_of(wg_row0 + r + 8)}, lim_of(wg_row0), lane,
+                    p.scale * 1.4426950408889634f};
+
+    float acc[D / 2], sc[kKeys / 2], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kKeys / 2; ++i) sc[i] = 0.f;
+    uint32_t hi[kKeys / 16][4], lo[kKeys / 16][4];  // p of the previous tile
+    auto softmax = [&](int key0) {
+      if (key0 + kKeys > tcx.min_lim) {
+        tcx.template softmax<true>(sc, m, l, alpha, hi, lo, key0);
+      } else {
+        tcx.template softmax<false>(sc, m, l, alpha, hi, lo, key0);
+      }
+    };
+
+    // Tile 0: S_0 and its softmax.  Tile t: P_{t-1} V_{t-1} and S_t in one
+    // batch; then the softmax of S_t, and the accumulator rescaled.
+    if (c == 1) turn_pass(1);  // warpgroup 0 takes the first turn
+    mbar_wait(full, 0);
+    turn_wait(c);
+    wgmma_fence();
+    tcx.issue_qk(sc, 0);
+    wgmma_commit();
+    turn_pass(c);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    softmax(0);
+    for (int t = 1; t < n_tiles; ++t) {
+      const int s = t % kStages, prev = (t - 1) % kStages;
+      mbar_wait(full + 8 * s, (t / kStages) & 1);
+      turn_wait(c);
+      wgmma_fence();
+      tcx.issue_pv(acc, hi, lo, prev);
+      tcx.issue_qk(sc, s);
+      wgmma_commit();
+      turn_pass(c);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(sc);
+      if (lane == 0) mbar_arrive(empty + 8 * prev);  // this warp is done with the stage
+      softmax(t * kKeys);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[i / 2 % 2];
+    }
+    turn_wait(c);
+    wgmma_fence();
+    tcx.issue_pv(acc, hi, lo, (n_tiles - 1) % kStages);
+    wgmma_commit();
+    if (c == 0) turn_pass(c);  // the last turn of warpgroup 1 has no taker
+    wgmma_wait<0>();
+    fence_regs(acc);
+
+    // out = acc / max(l, 1e-37), rounded once to bf16; rows past Sq * G unstored
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+      const int f = wg_row0 + r + 8 * h;
+      if (f >= rows) continue;
+      const int qi = f / p.g, head = hk * p.g + f % p.g;
+      __nv_bfloat16* orow = o + b * p.os[0] + qi * p.os[1] + head * p.os[2] + 2 * (lane % 4);
+      const float inv = 1.f / fmaxf(l[h], 1e-37f);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * h] * inv, acc[4 * j + 2 * h + 1] * inv);
+      }
+    }
+  }
+}
+
+}  // namespace tc
+
+// -- host ---------------------------------------------------------------------------
+
 template <typename T, int D>
 const void* pick_causal(bool causal) {
   return causal ? reinterpret_cast<const void*>(&flash_attention_kernel<T, D, true>)
                 : reinterpret_cast<const void*>(&flash_attention_kernel<T, D, false>);
 }
 
-template <typename T>
-const void* pick_d(int d, bool causal) {
-  switch (d) {
-    case 32: return pick_causal<T, 32>(causal);
-    case 64: return pick_causal<T, 64>(causal);
-    case 128: return pick_causal<T, 128>(causal);
-    default: return nullptr;
-  }
+template <int D>
+const void* pick_tc(bool causal) {
+  return causal ? reinterpret_cast<const void*>(&tc::flash_attention_tc<D, true>)
+                : reinterpret_cast<const void*>(&tc::flash_attention_tc<D, false>);
 }
 
-const void* pick(int dtype, int d, bool causal) {
-  switch (dtype) {
-    case kF32: return pick_d<float>(d, causal);
-    case kBF16: return pick_d<__nv_bfloat16>(d, causal);
-    default: return nullptr;
+// One instantiation with its block: function, threads, dynamic shared
+// bytes, its tiling (folded rows per block, keys per tile, K/V tiles in
+// flight) and, for the tensor-core body, the swizzle (bytes) of its K/V boxes.
+struct Body {
+  const void* fn = nullptr;
+  int threads = 0, smem = 0, rows = 0, keys = 0, stages = 0, swizzle = 0;
+};
+
+template <int D>
+Body body_d(int dtype, bool causal) {
+  if (dtype == kBF16) {
+    return {pick_tc<D>(causal), tc::kThreads, tc::Tile<D>::kSmem, tc::kRows, tc::kKeys,
+            tc::kStages, tc::Tile<D>::kSwizzle};
   }
+  if (dtype == kF32) {
+    return {pick_causal<float, D>(causal), kThreads, 4 * smem_floats<D>(), kRows, kKeys, 1, 0};
+  }
+  return {};
 }
 
-int smem_bytes(int d) {
+Body pick(int dtype, int d, bool causal) {
   switch (d) {
-    case 32: return 4 * smem_floats<32>();
-    case 64: return 4 * smem_floats<64>();
-    case 128: return 4 * smem_floats<128>();
-    default: return -1;
+    case 32: return body_d<32>(dtype, causal);
+    case 64: return body_d<64>(dtype, causal);
+    case 128: return body_d<128>(dtype, causal);
+    default: return {};
   }
 }
 
 // Dynamic shared memory above 48 KB must be allowed per kernel; ask for the
-// largest carveout so that two 112 KB blocks fit on one SM.
+// largest carveout so that two f32 blocks fit on one SM.
 cudaError_t prepare(const void* fn, int bytes) {
   cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
@@ -320,18 +784,63 @@ cudaError_t prepare(const void* fn, int bytes) {
                               cudaSharedmemCarveoutMaxShared);
 }
 
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded, so the
+// library links no -lcuda.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found{};
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                             cudaEnableDefault, &found);
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(ptr)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The (D, Hkv, Skv, B) view of k or v, cut into boxes of (swizzle / 2, 1,
+// 128, 1) under that swizzle.  strides: elements of (batch, seq, head).
+cudaError_t kv_map(CUtensorMap* map, const void* base, int d, int hkv, int skv, int batch,
+                   const long long* strides, int swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(hkv),
+                              static_cast<cuuint64_t>(skv), static_cast<cuuint64_t>(batch)};
+  cuuint64_t bytes[3] = {static_cast<cuuint64_t>(strides[2]) * 2,
+                         static_cast<cuuint64_t>(strides[1]) * 2,
+                         static_cast<cuuint64_t>(strides[0]) * 2};
+  for (int i = 0; i < 3; ++i) {  // an extent of 1 is never stepped: any valid stride
+    if (dims[i + 1] == 1) bytes[i] = i == 0 ? dims[0] * 2 : bytes[i - 1] * dims[i];
+  }
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(swizzle / 2), 1, tc::kKeys, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult rc = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, bytes, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      swizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // Attention on `stream`.  q (batch, sq, hq, d), k and v (batch, skv, hkv,
 // d), o like q; strides[12] holds the element strides of (batch, seq,
 // head) for q, k, v and o in that order (the last dim is contiguous).
-// dtype: 0 f32, 1 bf16.  Returns the launch's cudaError_t (0 = queued).
+// dtype: 0 f32, 1 bf16 (strides in multiples of 8, 16-byte aligned bases).
+// Returns the launch's cudaError_t (0 = queued).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    int batch, int sq, int skv, int hq, int hkv, int d,
                                    const long long* strides, int causal, int q_offset,
                                    float scale, int dtype, void* stream) {
-  const void* fn = pick(dtype, d, causal != 0);
-  if (fn == nullptr || batch <= 0 || sq <= 0 || skv <= 0 || hkv <= 0 || hq % hkv != 0 ||
+  const Body body = pick(dtype, d, causal != 0);
+  if (body.fn == nullptr || batch <= 0 || sq <= 0 || skv <= 0 || hkv <= 0 || hq % hkv != 0 ||
       q_offset < 0 || static_cast<long long>(batch) * hkv > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -348,38 +857,53 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     p.vs[i] = strides[6 + i];
     p.os[i] = strides[9 + i];
   }
-  const int bytes = smem_bytes(d);
-  cudaError_t err = prepare(fn, bytes);
+  cudaError_t err = prepare(body.fn, body.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long row_tiles = (static_cast<long long>(sq) * p.g + kRows - 1) / kRows;
-  const dim3 grid(static_cast<unsigned>(row_tiles), static_cast<unsigned>(batch * hkv));
-  void* args[] = {const_cast<void**>(&q), const_cast<void**>(&k), const_cast<void**>(&v), &o, &p};
-  err = cudaLaunchKernel(fn, grid, dim3(kThreads), args, bytes, static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long row_tiles = (static_cast<long long>(sq) * p.g + body.rows - 1) / body.rows;
+  if (dtype == kBF16) {
+    if (row_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+    CUtensorMap tmk, tmv;
+    err = kv_map(&tmk, k, d, hkv, skv, batch, strides + 3, body.swizzle);
+    if (err == cudaSuccess) err = kv_map(&tmv, v, d, hkv, skv, batch, strides + 6, body.swizzle);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid(static_cast<unsigned>(batch * hkv), static_cast<unsigned>(row_tiles));
+    void* args[] = {&tmk, &tmv, const_cast<void**>(&q), &o, &p};
+    err = cudaLaunchKernel(body.fn, grid, dim3(body.threads), args, body.smem, st);
+  } else {
+    const dim3 grid(static_cast<unsigned>(row_tiles), static_cast<unsigned>(batch * hkv));
+    void* args[] = {const_cast<void**>(&q), const_cast<void**>(&k), const_cast<void**>(&v), &o,
+                    &p};
+    err = cudaLaunchKernel(body.fn, grid, dim3(body.threads), args, body.smem, st);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 // One instantiation's per-block budget: out = {numRegs, dynamic shared
 // bytes, local (spill) bytes, maxThreadsPerBlock, threads per block,
-// resident blocks/SM}.
+// resident blocks/SM, folded rows per block, keys per tile, K/V tiles in
+// flight}.
 extern "C" int flash_attention_attributes(int dtype, int d, int causal, int* out) {
-  const void* fn = pick(dtype, d, causal != 0);
-  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const int bytes = smem_bytes(d);
-  cudaError_t err = prepare(fn, bytes);
+  const Body body = pick(dtype, d, causal != 0);
+  if (body.fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = prepare(body.fn, body.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, fn);
+  err = cudaFuncGetAttributes(&attr, body.fn);
   if (err != cudaSuccess) return static_cast<int>(err);
   int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreads, bytes);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, body.fn, body.threads, body.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = attr.numRegs;
-  out[1] = bytes;
+  out[1] = body.smem;
   out[2] = static_cast<int>(attr.localSizeBytes);
   out[3] = attr.maxThreadsPerBlock;
-  out[4] = kThreads;
+  out[4] = body.threads;
   out[5] = blocks;
+  out[6] = body.rows;
+  out[7] = body.keys;
+  out[8] = body.stages;
   return 0;
 }
 

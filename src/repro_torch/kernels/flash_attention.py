@@ -14,9 +14,10 @@ this module holds:
     arguments, launches the kernel on the current stream and counts the
     launch in :data:`LAUNCHES`; for CPU tensors it runs the plain version;
     any other device raises;
-  * :func:`smem_bytes` and :func:`kernel_budget` — the kernel's shared memory
-    per block (the counterpart of the reference's ``vmem_bytes``), registers
-    and occupancy.
+  * :func:`smem_bytes`, :func:`executed_flops` and :func:`kernel_budget` —
+    each body's shared memory per block (the counterpart of the reference's
+    ``vmem_bytes``), the flops its tiles execute, its registers and
+    occupancy.
 
 Layout contract (the reference's, at the public functions):
   q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D), Hq a multiple of Hkv; the G =
@@ -26,9 +27,17 @@ Layout contract (the reference's, at the public functions):
   -1e30, out = acc / max(l, 1e-37) in q's dtype -> (B, Sq, Hq, D).
 
 The kernel takes f32 or bf16, D in {32, 64, 128}, any Sq and Skv (the
-ragged edge is masked in the kernel) and ignores ``q_chunk`` / ``kv_chunk``
-(its tiles are 64 rows by 64 keys); those shape the plain version's
-chunking only.
+ragged edge is masked in the kernel) and ignores ``q_chunk`` / ``kv_chunk``,
+which shape the plain version's chunking only.  It has two bodies:
+
+  * bf16, on the tensor cores: blocks of 128 folded rows (two consumer
+    warpgroups of 64) against K/V tiles of 128 keys brought by TMA into a
+    ring of three stages.  q . k is summed in f32 from the bf16 operands and
+    scaled in f32 inside the exponent; p is split into two bf16 parts, so
+    P V runs twice.  TMA
+    needs k and v strides in multiples of 8 elements (16 bytes).
+  * f32, on the CUDA cores: blocks of 64 rows against tiles of 64 keys, all
+    in f32 FMAs.
 """
 from __future__ import annotations
 
@@ -41,9 +50,15 @@ from repro_torch.kernels.su3_matmul import LaunchCounter, _check_error
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)  # the kernel's instantiations
-BLOCK_ROWS = 64  # folded query rows per block
-BLOCK_KEYS = 64  # keys per tile
-MAX_BATCH_HEADS = 65535  # B * Hkv rides on gridDim.y
+# Each body's tiling as flash_attention.cu fixes it; kernel_budget raises if
+# the built library reports another.
+BLOCK_ROWS = 64  # f32 body: folded query rows per block
+BLOCK_KEYS = 64  # f32 body: keys per tile
+TC_ROWS = 128  # bf16 body: folded query rows per block (two warpgroups of 64)
+TC_KEYS = 128  # bf16 body: keys per K/V tile
+TC_STAGES = 3  # bf16 body: K/V tiles in flight
+MAX_BATCH_HEADS = 65535  # B * Hkv rides on a grid dimension (gridDim.y in the f32 body)
+MAX_ROW_TILES = 65535  # bf16 body: row tiles ride on gridDim.y
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # as flash_attention.cu numbers them
 
@@ -127,10 +142,48 @@ def kernel_tolerance(dtype: torch.dtype) -> tuple[float, float]:
     return 2e-5, 2e-5
 
 
-def smem_bytes(d: int) -> int:
-    """Dynamic shared memory of one block: q * scale and a K tile (both
-    transposed), a V tile and the probabilities, all f32."""
-    return 4 * (d * BLOCK_ROWS + d * BLOCK_KEYS + BLOCK_KEYS * d + BLOCK_ROWS * BLOCK_KEYS)
+def tiling(dtype: torch.dtype) -> tuple[int, int, int]:
+    """``(rows, keys, stages)`` of the body that serves ``dtype``: folded
+    query rows per block, keys per K/V tile and K/V tiles in flight."""
+    if dtype == torch.bfloat16:
+        return TC_ROWS, TC_KEYS, TC_STAGES
+    return BLOCK_ROWS, BLOCK_KEYS, 1
+
+
+def smem_bytes(d: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Dynamic shared memory of one block of the body that serves ``dtype``.
+
+    bf16: the Q tile and ``TC_STAGES`` K and V tiles in bf16, 1 KB to align
+    them to their swizzle, and a full and an empty barrier per stage.  f32:
+    q * scale and a K tile (both transposed), a V tile and the
+    probabilities, all f32.
+    """
+    rows, keys, stages = tiling(dtype)
+    if dtype == torch.bfloat16:
+        return 1024 + 2 * d * (rows + 2 * stages * keys) + 16 * stages
+    return 4 * (d * rows + 2 * d * keys + rows * keys)
+
+
+def executed_flops(
+    batch: int, sq: int, skv: int, hq: int, hkv: int, d: int, *, causal: bool = True,
+    q_offset: int = 0, dtype: torch.dtype = torch.bfloat16,
+) -> int:
+    """Flops the kernel's tiles execute, masked entries included: each block
+    of folded rows visits key tiles up to the last one that holds a key
+    visible to its last row.  Per (row, key) of a visited tile: 2D for QK^T
+    and 2D for PV, which the bf16 body runs twice (p_hi and p_lo)."""
+    g = hq // hkv
+    rows, keys, _ = tiling(dtype)
+    per_pair = (6 if dtype == torch.bfloat16 else 4) * d
+    key_tiles = -(-skv // keys)
+    visited = 0
+    for row0 in range(0, sq * g, rows):
+        n = key_tiles
+        if causal:
+            last = min(row0 + rows, sq * g) - 1
+            n = min(n, (last // g + q_offset) // keys + 1)
+        visited += n
+    return batch * hkv * visited * rows * keys * per_pair
 
 
 def _library() -> ctypes.CDLL:
@@ -160,12 +213,18 @@ def kernel_budget(
         ``num_regs``, ``shared_bytes`` (dynamic), ``local_bytes`` (spills),
         ``max_threads_per_block``, ``threads_per_block``, ``blocks_per_sm``
         and ``occupancy``.
+
+    Raises:
+        RuntimeError: the library's tiling is not :func:`tiling`'s.
     """
     lib = _library()
-    out = (ctypes.c_int * 6)()
+    out = (ctypes.c_int * 9)()
     rc = lib.flash_attention_attributes(_DTYPES[dtype], d, int(causal), out)
     _check_error(lib, rc, "cudaFuncGetAttributes")
-    regs, shared, local, max_threads, threads, blocks = list(out)
+    regs, shared, local, max_threads, threads, blocks, *built = list(out)
+    if tuple(built) != tiling(dtype):
+        raise RuntimeError(f"flash_attention: the {dtype} body is built with (rows, keys, "
+                           f"stages) = {tuple(built)}, this module assumes {tiling(dtype)}")
     props = torch.cuda.get_device_properties(torch.cuda.current_device())
     per_sm = getattr(props, "max_threads_per_multi_processor", None)
     return {
@@ -216,12 +275,18 @@ def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int
         raise ValueError(f"{what}: q_offset must be >= 0, got {q_offset}")
     if b * hkv > MAX_BATCH_HEADS:
         raise ValueError(f"{what}: B * Hkv = {b * hkv} exceeds {MAX_BATCH_HEADS}")
+    rows = tiling(q.dtype)[0]
+    if q.dtype == torch.bfloat16 and -(-sq * (hq // hkv) // rows) > MAX_ROW_TILES:
+        raise ValueError(f"{what}: Sq * G = {sq * (hq // hkv)} exceeds "
+                         f"{MAX_ROW_TILES * rows} rows")
+    # 16-byte vector loads (and TMA boxes for bf16 k and v): the head dim
+    # contiguous, the other strides and the base address on 16-byte boundaries
+    unit = 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
-        # 16-byte vector loads: the head dim contiguous, the other strides and
-        # the base address on 4-element boundaries
-        if t.stride(-1) != 1 or any(s % 4 for s in t.stride()[:3]) or t.data_ptr() % 16:
+        if t.stride(-1) != 1 or any(s % unit for s in t.stride()[:3]) or t.data_ptr() % 16:
             raise ValueError(f"{what}: {name} needs a contiguous, 16-byte aligned head dim "
-                             f"and strides in multiples of 4, got {t.stride()}")
+                             f"and strides in multiples of {unit} ({q.dtype}), "
+                             f"got {t.stride()}")
 
 
 def flash_attention(

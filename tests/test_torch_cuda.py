@@ -302,6 +302,25 @@ def test_cuda_flash_attention_reads_strided_heads(cuda_device):
 
 
 @pytest.mark.cuda
+def test_cuda_flash_attention_reads_strided_bf16_projection(cuda_device):
+    """bf16 q, k, v sliced out of one fused (B, S, (Hq + 2 Hkv) D) projection,
+    as a fused QKV matmul leaves them: the tensor-core body's TMA reads k and
+    v through those strides."""
+    b, s, hq, hkv, d = 2, 200, 8, 2, 128
+    gen = torch.Generator(device=cuda_device).manual_seed(54)
+    fused = torch.randn((b, s, (hq + 2 * hkv) * d), generator=gen, device=cuda_device)
+    fused = fused.to(torch.bfloat16)
+    q = fused[..., :hq * d].unflatten(-1, (hq, d))
+    k = fused[..., hq * d:(hq + hkv) * d].unflatten(-1, (hkv, d))
+    v = fused[..., (hq + hkv) * d:].unflatten(-1, (hkv, d))
+    assert not k.is_contiguous()
+    want = fa.flash_attention_plain(q.contiguous(), k.contiguous(), v.contiguous())
+    got = fa.flash_attention(q, k, v)
+    atol, rtol = fa.kernel_tolerance(torch.bfloat16)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
 def test_cuda_flash_attention_rejects_what_the_kernel_does_not_take(cuda_device):
     q, k, v = _qkv((1, 16, 16, 4, 2, 64), torch.float32, seed=51)
     with pytest.raises(ValueError, match="lie on"):
@@ -316,11 +335,18 @@ def test_cuda_flash_attention_rejects_what_the_kernel_does_not_take(cuda_device)
 
 
 @pytest.mark.cuda
-def test_cuda_flash_attention_shared_memory_budget(cuda_device):
+@pytest.mark.parametrize("dtype,threads", [(torch.bfloat16, 384), (torch.float32, 256)])
+def test_cuda_flash_attention_shared_memory_budget(cuda_device, dtype, threads):
+    """Each body's real budget: within 227 KB a block, no spills, one block
+    per SM or more (the bf16 body holds one: 230,448 bytes at D=128, Q and
+    three stages of K and V, and three warpgroups), and the tiling the
+    Python side assumes (kernel_budget raises otherwise)."""
     for d in fa.HEAD_DIMS:
-        budget = fa.kernel_budget(torch.bfloat16, d, causal=True)
-        assert budget["shared_bytes"] == fa.smem_bytes(d)
-        assert budget["local_bytes"] == 0 and budget["blocks_per_sm"] >= 1
+        for causal in (True, False):
+            budget = fa.kernel_budget(dtype, d, causal=causal)
+            assert budget["shared_bytes"] == fa.smem_bytes(d, dtype) <= 232448
+            assert budget["threads_per_block"] == threads
+            assert budget["local_bytes"] == 0 and budget["blocks_per_sm"] >= 1
 
 
 @pytest.mark.cuda

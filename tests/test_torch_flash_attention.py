@@ -9,6 +9,8 @@ bf16 case and their tolerances (2e-5 at f32, 5e-2 at bf16) mirror
 ``tests/test_flash_kernel.py``; the ragged case mirrors
 ``tests/test_attention_and_mla.py::test_flash_ragged_lengths``.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -122,14 +124,120 @@ def test_rmsnorm_oracle_vs_reference_oracle():
                                rtol=1e-6, atol=1e-6)
 
 
-def test_smem_budget_at_the_main_path_shape():
-    """The kernel's shared memory per block fits Hopper's 227 KB per block
-    (232,448 bytes), twice per SM (228 KB less 1 KB reserved per block) at
-    the prefill shape's D=128."""
-    per_block = fa.smem_bytes(128)
+@pytest.mark.parametrize("dtype,blocks_per_sm", [(torch.bfloat16, 1), (torch.float32, 2)])
+def test_smem_budget_at_the_main_path_shape(dtype, blocks_per_sm):
+    """Each body's shared memory per block fits Hopper's 227 KB per block
+    (232,448 bytes) at the prefill shape's D=128, ``blocks_per_sm`` times
+    per SM (228 KB less 1 KB reserved per block): the bf16 body's Q tile
+    and three stages of K and V (230,448 bytes) once, the f32 body's 112 KB
+    twice."""
+    per_block = fa.smem_bytes(128, dtype)
     assert per_block <= 232448
-    assert 2 * (per_block + 1024) <= 228 * 1024
-    assert fa.smem_bytes(32) < fa.smem_bytes(64) < per_block
+    assert blocks_per_sm * (per_block + 1024) <= 228 * 1024
+    assert fa.smem_bytes(32, dtype) < fa.smem_bytes(64, dtype) < per_block
+    if dtype == torch.bfloat16:
+        assert per_block >= 2 * 128 * (128 + 2 * fa.TC_STAGES * 128)  # Q, K and V tiles in bf16
+
+
+def _tensor_core_body(q, k, v, *, causal, split=True):
+    """The bf16 body's arithmetic, emulated on the CPU: tiles of 128 keys;
+    q . k from the bf16 operands (exact products, f32 sums); the mask and
+    the online softmax in f32 on these raw scores, with D^-1/2 applied in
+    f32 inside the exponent, p = 2^(s c - m c), c = D^-1/2 log2(e); p as
+    bf16(p) + bf16(p - bf16(p)) (or one bf16 p), each part multiplied into
+    V in f32; one output rounding."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    c = d**-0.5 * math.log2(math.e)
+    qf = q.float().reshape(b, sq, hkv, g, d)
+    pos = torch.arange(sq)
+    m = torch.full((b, hkv, g, sq), fa.NEG_INF)
+    l = torch.zeros((b, hkv, g, sq))
+    acc = torch.zeros((b, hkv, g, sq, d))
+    for key0 in range(0, skv, fa.TC_KEYS):
+        kt, vt = k[:, key0:key0 + fa.TC_KEYS].float(), v[:, key0:key0 + fa.TC_KEYS].float()
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kt)
+        if causal:
+            keys = key0 + torch.arange(kt.shape[1])
+            s = s.masked_fill(keys[None, :] > pos[:, None], fa.NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp2((m - m_new) * c)
+        p = torch.exp2(s * c - (m_new * c)[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        hi = p.to(torch.bfloat16).float()
+        parts = (hi, (p - hi).to(torch.bfloat16).float()) if split else (hi,)
+        acc = acc * alpha[..., None]
+        for part in parts:
+            acc = acc + torch.einsum("bhgqk,bkhd->bhgqd", part, vt)
+        m = m_new
+    out = acc / torch.clamp_min(l[..., None], 1e-37)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d).to(torch.bfloat16)
+
+
+ROUNDING_FORMS = [  # (batch, seq, hq, hkv, d, causal)
+    (1, 256, 8, 2, 128, True),
+    (1, 512, 8, 2, 64, False),
+    (2, 300, 16, 2, 32, True),
+]
+
+
+def _bf16_qkv(form, seed):
+    b, s, hq, hkv, d, _ = form
+    return [torch.from_numpy(x).to(torch.bfloat16) for x in _qkv(b, s, s, hq, hkv, d, seed)]
+
+
+@pytest.mark.parametrize("form", ROUNDING_FORMS)
+def test_split_probabilities_keep_the_kernel_tolerance(form):
+    """The bf16 body's design (scale after the product, p split in two bf16
+    parts) stays within ``kernel_tolerance(bf16)`` of the plain version."""
+    q, k, v = _bf16_qkv(form, seed=sum(form[:5]))
+    got = _tensor_core_body(q, k, v, causal=form[-1])
+    want = fa.flash_attention_plain(q, k, v, causal=form[-1])
+    atol, rtol = fa.kernel_tolerance(torch.bfloat16)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+def test_one_bf16_probability_breaks_the_kernel_tolerance():
+    """Why p is split: with one bf16 p, many outputs land more than the
+    tolerance away from the plain version."""
+    form = ROUNDING_FORMS[0]
+    q, k, v = _bf16_qkv(form, seed=sum(form[:5]))
+    got = _tensor_core_body(q, k, v, causal=form[-1], split=False).float()
+    want = fa.flash_attention_plain(q, k, v, causal=form[-1]).float()
+    atol, rtol = fa.kernel_tolerance(torch.bfloat16)
+    outside = (torch.abs(got - want) > atol + rtol * torch.abs(want)).float().mean().item()
+    assert outside > 0.01
+
+
+def test_executed_flops_count_the_tiles_each_body_visits():
+    # prefill shape: blocks of 32 queries (G=4); block i visits i // 4 + 1 tiles
+    # of 128 keys: 4 * (1 + ... + 8) = 144 per (batch, kv head)
+    flops = fa.executed_flops(4, 1024, 1024, 32, 8, 128)
+    assert flops == 4 * 8 * 144 * 128 * 128 * 6 * 128
+    counted = roofline.attention_bound(batch=4, sq=1024, skv=1024, hq=32, hkv=8, d=128,
+                                       hw=roofline.H100_SXM).flops
+    assert 1.5 * counted < flops < 1.75 * counted
+    assert fa.executed_flops(2, 300, 700, 16, 4, 64, causal=False) == (
+        2 * 4 * 10 * 6 * 128 * 128 * 6 * 64)  # 1,200 rows in 10 blocks, 6 key tiles each
+    assert fa.executed_flops(1, 64, 1088, 32, 8, 128, q_offset=1024) == (
+        8 * 2 * 9 * 128 * 128 * 6 * 128)  # 256 rows, every block sees all 9 tiles
+    assert fa.executed_flops(4, 1024, 1024, 32, 8, 128, dtype=torch.float32) == (
+        4 * 8 * sum(i // 4 + 1 for i in range(64)) * 64 * 64 * 4 * 128)
+
+
+def test_cuda_checks_reject_bf16_strides_off_16_bytes():
+    """TMA needs k and v strides of 16 bytes: multiples of 8 bf16 elements.
+    The checks read shapes, strides and addresses only, so they run here."""
+    fused = torch.zeros((1, 8, 4, 100), dtype=torch.bfloat16)  # a head stride of 100
+    q, k, v = (fused[..., i * 32:(i + 1) * 32] for i in range(3))
+    assert all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fa._check_cuda(q, k, v, 0)
+    f32 = torch.zeros((1, 8, 4, 100))
+    fa._check_cuda(*(f32[..., i * 32:(i + 1) * 32] for i in range(3)), 0)  # multiples of 4
+    ok = torch.zeros((1, 8, 4, 96), dtype=torch.bfloat16)
+    fa._check_cuda(*(ok[..., i * 32:(i + 1) * 32] for i in range(3)), 0)
 
 
 def test_wrapper_rejects_other_devices_and_mismatched_operands():
