@@ -16,9 +16,16 @@ source, started together) and, at the paper's L=32 lattice:
     ``ExecutionPlan.stencil_step()`` (and ``depth=2``) on the stencil's
     fixed point, ``ExecutionPlan.cg_solve`` fused and composed on the CG
     measurement problem, held against the plain ``cg_reference_solve``,
-    and ``SU3Service`` in its batch, continuous and megakernel modes on one
-    seeded request stream (multiplies at L=16 and L=32, then a stencil
-    batch and a solve), autotuned against a fresh cache under ``build/``;
+    the same lattice split into 2 and 4 t-slabs (``MeshSpec`` plans):
+    first-touch init and ``step``, the overlapped ``stencil_step`` at depth
+    1 and 2, and ``cg_solve(fused=True, overlap=True)``, each bitwise
+    against the serial and one-slab paths, with the kernels' boundary and
+    ring launches held against their plain versions, the halo faults, the
+    times and phase split, the stencil and CG tuners at 2 slabs and the
+    attribution of the traced steps; and ``SU3Service`` in its batch,
+    continuous and megakernel modes on one seeded request stream
+    (multiplies at L=16 and L=32, then a stencil batch and a solve),
+    autotuned against a fresh cache under ``build/``;
   * the LM phase: holds the flash-attention kernel against its plain
     version in nine forms (f32 and bf16, causal and not, G in {1, 4, 8},
     D in {32, 64, 128}, ragged lengths, Sq != Skv, q_offset); drives
@@ -51,6 +58,7 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import pathlib
@@ -414,9 +422,17 @@ def main(argv: list[str] | None = None) -> int:
     if cg_launches == 0:
         failures.append("the main path never launched su3_cg_fused_planar")
 
-    # -- 4e. the serving megakernel vs its plain version, L=32 slot tables ----------
+    # -- 4e. the main path on 2 and 4 slabs: MeshSpec plans at PAPER_L32 -------------
+    slabs = _multislab_phase(u, args.seed, hw, failures)
+    main_path_launches += slabs[su3_matmul.LAUNCHES.name]
+    stencil_launches += slabs[su3_stencil.STENCIL_LAUNCHES.name]
+    cg_launches += slabs[su3_stencil.CG_LAUNCHES.name]
+    if not all(slabs.values()):
+        failures.append(f"the multi-slab main path left a kernel unlaunched: {slabs}")
+
+    # -- 4f. the serving megakernel vs its plain version, L=32 slot tables ----------
     mega_err = _megakernel_checks(u, rng, failures)
-    # -- 4f. the main path: SU3Service in its three dispatch modes --------------------
+    # -- 4g. the main path: SU3Service in its three dispatch modes --------------------
     mega_launches, svc_counts = _service_main_path(u, rng, failures)
     if mega_launches == 0:
         failures.append("the main path never launched su3_mult_planar_batched")
@@ -1325,6 +1341,317 @@ def _lm_phase(seed: int, hw, failures: list[str]) -> dict:
     return {"launches": launches, "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
             "bound_ms": None if bound is None else bound.bound_s * 1e3,
             "bound_by": None if bound is None else bound.bound_by, "library_ms": library_ms}
+
+
+MULTISLAB_FORMS = [  # (label, hosts, layout, dtype, accum, compression)
+    ("soa f32", 2, "soa", "float32", "", "none"),
+    ("aosoa f32", 2, "aosoa", "float32", "", "none"),
+    ("soa bf16+acc-f32", 2, "soa", "bfloat16", "float32", "none"),
+    ("soa f32 two-row", 2, "soa", "float32", "", "two_row"),
+    ("soa f32", 4, "soa", "float32", "", "none"),
+    ("aosoa bf16 two-row", 4, "aosoa", "bfloat16", "", "two_row"),
+]
+MULTISLAB_TRACED_STEPS = 5  # traced steps per depth for the phase split
+TUNE_TILES = (256, 512)  # the tuners' pruned tile grid
+
+
+@contextlib.contextmanager
+def _recording(name: str, sink: list, u_phys, keep: int = 4):
+    """Record (cloned) the inputs of up to ``keep`` launches of stencil
+    kernel ``name`` on links other than ``u_phys`` (the boundary and ring
+    passes of the multi-slab schedules); every launch still runs."""
+    from repro_torch.kernels import su3_stencil
+
+    orig = getattr(su3_stencil, name)
+
+    def rec(*args, **kw):
+        if args[0].data_ptr() != u_phys.data_ptr() and len(sink) < keep:
+            sink.append(([a.clone() for a in args], dict(kw)))
+        return orig(*args, **kw)
+
+    setattr(su3_stencil, name, rec)
+    try:
+        yield sink
+    finally:
+        setattr(su3_stencil, name, orig)
+
+
+def _counted(fn, totals: dict[str, int]):
+    """Run ``fn`` with every launch counter set to 0 just before and read
+    just after; add the counts to ``totals``.  Returns (result, counts)."""
+    import torch
+
+    torch.cuda.synchronize()
+    _reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = _counts()
+    for k in totals:
+        totals[k] += counts[k]
+    return out, counts
+
+
+def _recorded_vs_plain(name: str, records: list, dtype: str, accum: str, comp: str) -> dict:
+    """Each recorded launch's inputs through the kernel and its plain
+    version: bitwise at f32, within ``verify_tolerance`` otherwise."""
+    import torch
+
+    from repro_torch.core.su3.plan import verify_tolerance
+    from repro_torch.kernels import su3_stencil
+
+    kernel = getattr(su3_stencil, name)
+    plain = getattr(su3_stencil, f"{name}_plain")
+    err, bitwise, shapes = 0.0, True, []
+    for args, kw in records:
+        got = kernel(*args, **kw)
+        want = plain(*args, accum_dtype=kw.get("accum_dtype"),
+                     compressed=kw.get("compressed", False))
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        torch.cuda.synchronize()
+        shapes.append(list(args[0].shape))
+        err = max(err, max(torch.max(torch.abs(g.float() - w.float())).item()
+                           for g, w in zip(got, want)))
+        bitwise &= all(torch.equal(_bits(g), _bits(w)) for g, w in zip(got, want))
+    tol = verify_tolerance(dtype, accum, comp == "two_row")
+    ok = bool(records) and (bitwise if dtype == "float32" else err <= tol)
+    return {"kernel": name, "launches_checked": len(records), "link_shapes": shapes,
+            "max_abs_err": err, "bitwise": bitwise, "ok": ok}
+
+
+def _host_wall_ms(fn, reps: int) -> float:
+    """Best host-clock ms of ``fn`` followed by a synchronize."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best, (time.perf_counter() - t0) * 1e3)
+    return best
+
+
+def _multislab_phase(u, seed: int, hw, failures: list[str]) -> dict[str, int]:
+    """The lattice split into 2 and 4 t-slabs of PAPER_L32 on the card:
+    first-touch init and the multiply against one slab; the overlapped
+    stencil (depth 1 and 2) and the overlapped fused CG against the serial
+    and one-slab paths, bitwise, with their boundary and ring launches held
+    against the plain versions; the halo faults; the times and the phase
+    split; the stencil and CG tuners at 2 slabs; attribution; provenance.
+    Returns the counted main-path launches per kernel."""
+    import numpy as np
+    import torch
+
+    from repro_torch.chaos import NULL_FAULT_PLAN, FaultPlan, FaultSpec
+    from repro_torch.configs.su3_bench import PAPER_L32
+    from repro_torch.core import autotune
+    from repro_torch.core.autotune import _cg_measure_problem
+    from repro_torch.core.su3.layouts import Layout
+    from repro_torch.core.su3.plan import build_plan
+    from repro_torch.kernels import su3_matmul, su3_stencil
+    from repro_torch.launch.mesh import MeshSpec
+    from repro_torch.obs import (NULL_TRACER, Tracer, attribution_report, overlap_efficiency,
+                                 overlap_efficiency_from_spans, provenance_block,
+                                 render_attribution)
+
+    mult, sten, cgk = (su3_matmul.LAUNCHES.name, su3_stencil.STENCIL_LAUNCHES.name,
+                       su3_stencil.CG_LAUNCHES.name)
+    totals = {mult: 0, sten: 0, cgk: 0}
+
+    def fail(what: str, row: dict) -> None:
+        _emit(row)
+        if not row["ok"]:
+            failures.append(f"multislab {what}: {row}")
+
+    # -- init and the multiply ----------------------------------------------------
+    one = build_plan(PAPER_L32)
+    a1, b1, init1, _ = one.init_data()
+    c1 = one.step(a1, b1)
+    for hosts in (2, 4):
+        many = build_plan(PAPER_L32, MeshSpec(hosts=hosts))
+        a2, b2, init2, _ = many.init_data()
+        c2, counts = _counted(lambda: many.step(a2, b2), totals)
+        row = {"row": "multislab init + step", "hosts": hosts, "plan": many.describe(),
+               "first_touch_equals_one_slab": torch.equal(_bits(a2), _bits(a1)),
+               "step_equals_one_slab": torch.equal(_bits(c2), _bits(c1)),
+               "verified": many.verify(c2), "init_s": init2, "one_slab_init_s": init1,
+               "launches": counts[mult], "expected_launches": 1}
+        row["ok"] = (row["first_touch_equals_one_slab"] and row["step_equals_one_slab"]
+                     and row["verified"] and counts[mult] == 1)
+        fail("init", row)
+        del many, a2, c2
+    del one, a1, c1
+
+    # -- the stencil schedules ------------------------------------------------------
+    rng = np.random.default_rng(seed + 16)
+    n_sites = PAPER_L32.shape.n_sites
+    v_c = torch.from_numpy((rng.standard_normal((n_sites, 3))
+                            + 1j * rng.standard_normal((n_sites, 3))).astype(np.complex64)).cuda()
+    timing_plans = {}
+    for label, hosts, layout, dtype, accum, comp in MULTISLAB_FORMS:
+        cfg = dataclasses.replace(PAPER_L32, layout=Layout(layout), dtype=dtype,
+                                  accum_dtype=accum, compression=comp)
+        one, many = build_plan(cfg), build_plan(cfg, MeshSpec(hosts=hosts))
+        u_phys, v_p = many.pack_gauge(u), many.pack_rhs(v_c)
+        step, step2 = many.stencil_step(), many.stencil_step(depth=2)
+        with _recording("su3_stencil_planar", [], u_phys) as records:
+            (o1, o2), counts = _counted(lambda: (step(u_phys, v_p), step2(u_phys, v_p)), totals)
+        s1 = one.stencil_step()(u_phys, v_p)
+        s2 = one.stencil_step()(u_phys, s1)
+        serial = many.stencil_step(overlap=False)(u_phys, v_p)
+        row = {"row": "multislab stencil_step", "form": label, "hosts": hosts,
+               "plan": many.describe(), "boundary_sites": many.stencil_halo().boundary_sites * hosts,
+               "overlap_equals_serial": torch.equal(_bits(o1), _bits(serial)),
+               "overlap_equals_one_slab": torch.equal(_bits(o1), _bits(s1)),
+               "depth2_equals_two_steps": torch.equal(_bits(o2), _bits(s2)),
+               "launches": counts[sten], "expected_launches": 2 + 5,
+               "kernels_on_new_shapes": _recorded_vs_plain("su3_stencil_planar", records,
+                                                           dtype, accum, comp)}
+        row["ok"] = (row["overlap_equals_serial"] and row["overlap_equals_one_slab"]
+                     and row["depth2_equals_two_steps"] and counts[sten] == 7
+                     and counts[cgk] == 0 and row["kernels_on_new_shapes"]["ok"]
+                     and len(records) == 4)
+        fail("stencil", row)
+        if label == "soa f32":
+            timing_plans[hosts] = (one, many, u_phys, v_p)
+        del records, o1, o2, s1, s2, serial
+
+    # -- times, the phase split, overlap efficiency, the ghost copy -------------------
+    card = _tool_line(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
+    tracer = Tracer()  # one tracer, so that span ids stay unique across the runs
+    for hosts, (one, many, u_phys, v_p) in timing_plans.items():
+        step, step2 = many.stencil_step(), many.stencil_step(depth=2)
+        serial_one = one.stencil_step()
+        parts = many._stencil_overlap_parts()
+        halo = many.stencil_halo()
+        ghost_bytes = autotune._exchange_bytes(halo, hosts, 1, 1)
+        ghost_ms = _time_ms(lambda: parts["exchange"](v_p), reps=50)
+        times = {
+            "serial_ms": _best_ms(lambda: serial_one(u_phys, v_p), STENCIL_REPS),
+            "overlapped_ms": _best_ms(lambda: step(u_phys, v_p), STENCIL_REPS),
+            "depth2_ms_per_application": _best_ms(lambda: step2(u_phys, v_p), STENCIL_REPS) / 2,
+            "serial_wall_ms": _host_wall_ms(lambda: serial_one(u_phys, v_p), STENCIL_REPS),
+            "overlapped_wall_ms": _host_wall_ms(lambda: step(u_phys, v_p), STENCIL_REPS),
+            "depth2_wall_ms_per_application":
+                _host_wall_ms(lambda: step2(u_phys, v_p), STENCIL_REPS) / 2,
+        }
+        split = {}
+        for depth, fn in ((1, step), (2, step2)):
+            many.tracer = tracer
+            for _ in range(MULTISLAB_TRACED_STEPS):
+                fn(u_phys, v_p)
+            many.tracer = NULL_TRACER
+            spans = tracer.spans()
+            steps = {x.span_id for x in spans if x.name == "stencil.step"
+                     and (x.attrs["hosts"], x.attrs["depth"]) == (hosts, depth)}
+            acct = overlap_efficiency_from_spans(
+                [x for x in spans if x.span_id in steps or x.parent_id in steps])
+            wall_s = times["overlapped_wall_ms" if depth == 1 else
+                           "depth2_wall_ms_per_application"] * depth / 1e3
+            split[f"depth{depth}"] = {
+                "phase_ms": {k: v * 1e3 for k, v in acct["phase_s"].items()},
+                "sum_phases_ms": acct["sum_phases_s"] * 1e3,
+                "traced_wall_ms": acct["traced_wall_s"] * 1e3,
+                "overlap_efficiency": overlap_efficiency(acct["sum_phases_s"], wall_s)}
+        _emit({"row": "multislab times", "hosts": hosts, "card": card, "form": "soa f32 L=32",
+               **times, "ghost_copy_ms": ghost_ms, "ghost_copy_bytes": ghost_bytes,
+               "ghost_copy_bytes_ms": None if hw is None else ghost_bytes / hw.hbm_bw * 1e3,
+               "exchange_latency_s": None if hw is None else
+               ghost_ms / 1e3 - ghost_bytes / hw.hbm_bw,
+               "boundary_sites": halo.boundary_sites * hosts, **split,
+               "timing": "*_ms: CUDA events on the main stream, best of "
+                         f"{STENCIL_REPS}; *_wall_ms: host clock to a synchronize"})
+    del timing_plans
+
+    # -- attribution of the traced steps ------------------------------------------------
+    if hw is not None:
+        rows = attribution_report(tracer.spans(), hw=hw)
+        for r in rows:
+            _emit({"attribution": r})
+        print(render_attribution(rows))
+
+    # -- the fused CG, overlapped ---------------------------------------------------------
+    u_np, b_np = _cg_measure_problem(PAPER_L32.L)
+    one = build_plan(PAPER_L32)
+    u1, b1 = one.pack_gauge(u_np), one.pack_rhs(b_np)
+    ref = one.cg_solve(u1, b1)
+    for hosts in (2, 4):
+        many = build_plan(PAPER_L32, MeshSpec(hosts=hosts))
+        with _recording("su3_cg_fused_planar", [], u1, keep=2) as records:
+            res, counts = _counted(lambda: many.cg_solve(u1, b1, fused=True, overlap=True),
+                                   totals)
+        comp = many.cg_solve(u1, b1, fused=False, overlap=True)
+        dispatched = res.iterations + 1
+        timed = {}
+        for name, plan in (("one_slab", one), ("overlapped", many)):
+            state = plan.cg_state_init(b1)
+            for _ in range(2):
+                state = plan.cg_iterate(u1, state)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(CG_TIMED_ITERS):
+                state = plan.cg_iterate(u1, state)
+            end.record()
+            torch.cuda.synchronize()
+            timed[f"{name}_iteration_ms"] = start.elapsed_time(end) / CG_TIMED_ITERS
+        row = {"row": "multislab cg_solve fused overlapped", "hosts": hosts,
+               "iterations": res.iterations, "one_slab_iterations": ref.iterations,
+               "converged": res.converged,
+               "residuals_equal_one_slab": res.residuals == ref.residuals,
+               "x_equals_one_slab_bitwise": torch.equal(_bits(res.x_p), _bits(ref.x_p)),
+               "composed_equals_fused_bitwise": comp.residuals == res.residuals
+               and torch.equal(_bits(comp.x_p), _bits(res.x_p)),
+               "launches": counts[cgk], "expected_launches": 2 * dispatched, **timed,
+               "kernels_on_new_shapes": _recorded_vs_plain("su3_cg_fused_planar", records,
+                                                           "float32", "", "none")}
+        row["ok"] = (res.converged and res.iterations == ref.iterations
+                     and row["residuals_equal_one_slab"] and row["x_equals_one_slab_bitwise"]
+                     and row["composed_equals_fused_bitwise"]
+                     and counts[cgk] == 2 * dispatched and counts[sten] == 0
+                     and row["kernels_on_new_shapes"]["ok"])
+        fail("cg", row)
+        del many, records, res, comp
+    del one, u1, b1
+
+    # -- the halo seam --------------------------------------------------------------------
+    many = build_plan(PAPER_L32, MeshSpec(hosts=2))
+    u_phys, v_p = many.pack_gauge(u), many.pack_rhs(v_c)
+    step = many.stencil_step()
+    clean = step(u_phys, v_p).clone()
+    many.faults = FaultPlan(seed, {"halo": FaultSpec(probability=1.0, actions=("drop",))})
+    dropped = step(u_phys, v_p)
+    fired = many.faults.fired
+    drop_changes = not torch.equal(dropped, clean)
+    many.faults = FaultPlan(seed, {"halo": FaultSpec(probability=1.0, actions=("corrupt",))})
+    poisoned = not bool(torch.isfinite(step(u_phys, v_p)).all())
+    many.faults = NULL_FAULT_PLAN
+    restored = torch.equal(_bits(step(u_phys, v_p)), _bits(clean))
+    row = {"row": "multislab halo faults", "hosts": 2, "drop_fired": fired,
+           "drop_changes_result": drop_changes, "corrupt_non_finite": poisoned,
+           "null_plan_bitwise_clean": restored}
+    row["ok"] = fired == 1 and drop_changes and poisoned and restored
+    fail("halo", row)
+    del many, u_phys, v_p, clean, dropped, v_c
+    torch.cuda.empty_cache()
+
+    # -- the tuners at 2 slabs, on a pruned grid ----------------------------------------------
+    cache = str(ROOT / "build" / "chip_smoke_autotune")
+    t0 = time.perf_counter()
+    st = autotune.best_stencil_config(L=PAPER_L32.L, hosts=2, tiles=TUNE_TILES, refresh=True,
+                                      cache_directory=cache, hw=hw)
+    cg = autotune.best_cg_config(L=PAPER_L32.L, hosts=2, tiles=TUNE_TILES, refresh=True,
+                                 cache_directory=cache, hw=hw)
+    again = autotune.best_stencil_config(L=PAPER_L32.L, hosts=2, tiles=TUNE_TILES,
+                                         cache_directory=cache, hw=hw)
+    row = {"row": "multislab tuners", "hosts": 2, "stencil": st, "cg": cg,
+           "stencil_cached_again": again["cached"], "seconds": time.perf_counter() - t0}
+    row["ok"] = again["cached"] and again["tile"] == st["tile"] and not st["cached"]
+    fail("tuners", row)
+
+    _emit({"provenance": provenance_block(str(ROOT))})
+    return totals
 
 
 def _drift_matches(engine, k: int, launches: int) -> bool:

@@ -1,9 +1,9 @@
 """repro_torch.chaos — seeded fault injection (see :mod:`repro_torch.chaos.faults`).
 
 ``FaultPlan`` decides, deterministically per seed, whether each consulted
-seam (host dispatch, kernel output, warm-pool build) fails and how;
-``NULL_FAULT_PLAN`` is the shared disabled instance every hot path defaults
-to (one ``if faults.enabled`` branch, zero cost).
+seam (host dispatch, stencil halo, kernel output, warm-pool build) fails
+and how; ``NULL_FAULT_PLAN`` is the shared disabled instance every hot path
+defaults to (one ``if faults.enabled`` branch, zero cost).
 """
 from repro_torch.chaos.faults import (
     NULL_FAULT_PLAN,
@@ -12,6 +12,7 @@ from repro_torch.chaos.faults import (
     Fault,
     FaultPlan,
     FaultSpec,
+    corrupt_ghosts,
     poison_array,
     storm,
 )
@@ -23,6 +24,7 @@ __all__ = [
     "Fault",
     "FaultPlan",
     "FaultSpec",
+    "corrupt_ghosts",
     "poison_array",
     "storm",
 ]

@@ -13,9 +13,8 @@ and how:
                  hits (one stalled rank stalls the solve);
   ``halo``       a ghost slab of the stencil exchange is dropped (zeros)
                  or corrupted (NaN) before the boundary pass consumes it
-                 (kept in the vocabulary so fault logs compare with the
-                 JAX package's; the port runs one slab, so nothing asks
-                 this site yet);
+                 (a multi-slab plan's overlapped stencil asks it after
+                 every exchange; :func:`corrupt_ghosts` applies it);
   ``kernel``     a kernel's output is poisoned with NaN/Inf — the silent
                  numerical corruption the CG residual guards must catch;
   ``pool``       warm-pool runner construction fails (the cold-build seam:
@@ -230,3 +229,14 @@ def poison_array(x, action: str):
     out = x.flatten().clone()
     out[0] = bad
     return out.view(x.shape)
+
+
+def corrupt_ghosts(ghosts: tuple, action: str) -> tuple:
+    """Apply a ``halo``-site fault to an exchanged ghost tuple: "drop"
+    zeroes every tensor (a lost message), "corrupt" fills it with NaN (a
+    mangled one).  New tensors; the exchanged ones are left as they were."""
+    import torch
+
+    if action == "drop":
+        return tuple(torch.zeros_like(g) for g in ghosts)
+    return tuple(torch.full_like(g, float("nan")) for g in ghosts)

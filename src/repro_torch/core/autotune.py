@@ -1,10 +1,11 @@
 """SU3 autotune for the port: the multiply's roofline-pruned pipeline sweep,
-its cache, and the CG measurement problem.
+the stencil's (tile, overlap, depth) sweep, the CG iteration's (tile,
+fused) sweep, and their cache.
 
-Port of the multiply half of ``repro.core.autotune``: enumerate the joint
-(tile, fused_k) grid, rank it with a three-term model, MEASURE only the top
-``prune`` fraction, keep the best measured candidate and persist it, so the
-engine and the serving stack start from the tuned tuple for free.
+Port of ``repro.core.autotune``: enumerate a candidate grid, rank it with a
+roofline model, MEASURE only the top ``prune`` fraction, keep the best
+measured candidate and persist it, so the engine, the serving stack and
+the solvers start from the tuned tuple for free.
 
 What changed for Hopper:
 
@@ -31,7 +32,23 @@ What changed for Hopper:
     checkout by default), and a device identity of the torch and CUDA
     versions, the card's name and its SM count.
 
-The stencil and CG sweeps are not ported yet.
+The stencil and CG tuners follow the same pattern, on the plan's slabs:
+
+  * **The gate** is the stencil or CG kernel's register budget
+    (:func:`repro_torch.kernels.su3_stencil.kernel_budget`), where the
+    reference has the stencil's and CG body's VMEM working sets.
+  * **The issue term** is each kernel's own FP32 operation count per site
+    (:func:`stencil_ops_per_site`), where the reference lowers the Pallas
+    kernel and counts the instructions of its HLO.
+  * **The bytes** of the stencil are those of
+    :func:`repro_torch.core.roofline.stencil_bound`, of one CG iteration
+    those of :func:`repro_torch.core.roofline.cg_iteration_bound`.
+  * **The slabs** are real: ``hosts`` slabs of one tensor on one card, so a
+    candidate is measured on a ``hosts``-slab plan, overlapped schedules
+    included.  The model is of that card: the exchange is a copy of the
+    ghost faces in device memory on a side stream, hidden under the
+    interior pass when it is shorter; the serial path reads every
+    neighbour in place and pays no exchange (see :func:`predict_stencil`).
 
 Cache location: ``$REPRO_TORCH_SU3_CACHE_DIR`` or ``build/repro_torch/autotune``
 at the root of the checkout.
@@ -44,6 +61,7 @@ import math
 import os
 import pathlib
 import tempfile
+import time
 from typing import Any, Callable
 
 import numpy as np
@@ -53,8 +71,10 @@ from repro_torch.core import roofline
 from repro_torch.core.su3 import layouts
 from repro_torch.core.su3.engine import SU3Engine
 from repro_torch.core.su3.layouts import Layout
-from repro_torch.core.su3.plan import EngineConfig, resolve_device
-from repro_torch.kernels import su3_matmul
+from repro_torch.core.su3.plan import EngineConfig, build_plan, resolve_device, verify_tolerance
+from repro_torch.distributed import sharding as dist_sharding
+from repro_torch.kernels import su3_matmul, su3_stencil
+from repro_torch.launch.mesh import MeshSpec
 
 CACHE_ENV = "REPRO_TORCH_SU3_CACHE_DIR"
 CACHE_FILE = "su3_autotune.json"
@@ -75,6 +95,26 @@ LAUNCH_OVERHEAD_S = 33e-6
 OPS_PER_ENTRY = 22
 # under pure bf16 every operation is followed by a round to bf16 and back
 BF16_ROUND_OPS = 2
+DEFAULT_DEPTHS = (1, 2)  # halo exchange depths the stencil sweep considers
+# FP32 operations of the stencil kernel per site: per colour k and (mu, l)
+# a forward and a backward complex product (2 multiplies and 1 add each,
+# per part) and 2 + 2 accumulating adds; each colour's sum starts from its
+# first term: 3 x (12 x 16 - 2)
+STENCIL_OPS_PER_SITE = 3 * (12 * 16 - 2)
+# two-row links: row 2 rebuilt per link, 3 entries of 2 parts x (4
+# multiplies + 3 adds), in f32 (narrowed after, under pure bf16)
+REBUILD_OPS_PER_SITE = 4 * 3 * 2 * 7
+# the fused CG body's p' = r + beta p at the centre and the 8 neighbours
+CG_AXPY_OPS_PER_SITE = 9 * 6 * 2
+# Fixed cost of one ghost exchange of the multi-slab schedules on the card:
+# chip_smoke.py's "multislab times" row measured the exchange of PAPER_L32
+# on 2 slabs (two index_selects of 131,072 sites) at 0.01835 ms between
+# CUDA events, of which 12.6 MB at the HBM rate are 0.00376 ms; the rest,
+# 1.459e-5 s (1.466e-5 on 4 slabs), is this constant (an H100 80GB HBM3 at
+# 700 W).  A run on another machine gave 2.436e-5: it is launch cost, and
+# moves with the host.  The exchange's bytes are charged on top at the HBM
+# rate.
+HALO_EXCHANGE_LATENCY_S = 1.459e-5
 
 
 # ---------------------------------------------------------------------------
@@ -234,25 +274,29 @@ def pipeline_sweep(
         raise RuntimeError("no pipeline candidate fits the kernel's register budget")
     preds = [predict_pipeline(c, L, dtype, accum_dtype, hw, compression=compression)
              for c in cands]
-    order = sorted(range(len(cands)), key=lambda i: -preds[i]["predicted_gflops"])
-    n_meas = len(cands) if prune >= 1 else max(1, math.ceil(prune * len(cands)))
     if measure_fn is None:
         measure_fn = lambda c: measure_candidate(  # noqa: E731
             c, L=L, dtype=dtype, accum_dtype=accum_dtype, compression=compression,
             device=device,
         )
+    return _ranked_sweep(cands, preds, prune, measure_fn)
+
+
+def _ranked_sweep(cands: list, preds: list[dict[str, Any]], prune: float,
+                  measure_fn: Callable[[Any], dict[str, Any]]) -> dict[str, Any]:
+    """Measure the top ``prune`` fraction of ``cands`` by predicted GFLOPS
+    (at least one); each row joins the prediction, the measurement and the
+    candidate's predicted rank."""
+    order = sorted(range(len(cands)), key=lambda i: -preds[i]["predicted_gflops"])
+    n_meas = len(cands) if prune >= 1 else max(1, math.ceil(prune * len(cands)))
     rows = []
     for rank, i in enumerate(order[:n_meas]):
         row = dict(preds[i])
         row.update(measure_fn(cands[i]))
         row["predicted_rank"] = rank
         rows.append(row)
-    return {
-        "rows": rows,
-        "candidates_total": len(cands),
-        "candidates_measured": n_meas,
-        "prune": prune,
-    }
+    return {"rows": rows, "candidates_total": len(cands), "candidates_measured": n_meas,
+            "prune": prune}
 
 
 # ---------------------------------------------------------------------------
@@ -380,12 +424,7 @@ def best_config(
     Raises:
         RuntimeError: no candidate fits, or none of the measured verified.
     """
-    backend, device_kind, n_devices = _device_identity(device)
-    dtype_key = f"{dtype}+acc-{accum_dtype}" if accum_dtype else dtype
-    key = cache_key(
-        backend=backend, device_kind=device_kind, layout="soa",
-        dtype=dtype_key, L=L, n_devices=n_devices, compression=compression,
-    )
+    key = _keyed("soa", L, dtype, accum_dtype, compression, device)
     if cache and not refresh:
         config = _valid_cache_hit(load_cache(cache_directory).get(key))
         if config is not None:
@@ -395,30 +434,51 @@ def best_config(
         L=L, dtype=dtype, accum_dtype=accum_dtype, compression=compression,
         prune=prune, measure_fn=measure_fn, hw=hw, device=device,
     )
+
+    def config(w: dict) -> dict:
+        return {
+            "layout": "soa", "variant": "cuda",
+            "tile": w["tile"], "fused_k": w["fused_k"],
+            "compression": compression,
+            "pipeline": {
+                "schema": SCHEMA_VERSION,
+                "prune": sweep["prune"],
+                "candidates_total": sweep["candidates_total"],
+                "candidates_measured": sweep["candidates_measured"],
+                "predicted_gflops": w.get("predicted_gflops", 0.0),
+                "predicted_rank": w.get("predicted_rank", 0),
+            },
+        }
+
+    return _tuned(key, sweep, lambda rows: max(rows, key=lambda r: r["measured_gflops"]),
+                  config, cache, cache_directory)
+
+
+def _keyed(layout: str, L: int, dtype: str, accum_dtype: str, compression: str,
+           device: torch.device | str | None) -> str:
+    """The cache key of a tuned decision on the measuring device."""
+    backend, device_kind, n_devices = _device_identity(device)
+    dtype_key = f"{dtype}+acc-{accum_dtype}" if accum_dtype else dtype
+    return cache_key(backend=backend, device_kind=device_kind, layout=layout,
+                     dtype=dtype_key, L=L, n_devices=n_devices, compression=compression)
+
+
+def _tuned(key: str, sweep: dict[str, Any], pick: Callable[[list[dict]], dict],
+           config: Callable[[dict], dict], cache: bool,
+           cache_directory: str | None) -> dict[str, Any]:
+    """Pick the winner among a sweep's verified rows and persist its
+    config (with its measured GFLOPS) under ``key``."""
     rows = [r for r in sweep["rows"] if r["verified"]]
     if not rows:
-        raise RuntimeError("no verified pipeline candidate in the measured set")
-    winner = max(rows, key=lambda r: r["measured_gflops"])
-    config = {
-        "layout": "soa", "variant": "cuda",
-        "tile": winner["tile"], "fused_k": winner["fused_k"],
-        "compression": compression,
-        "pipeline": {
-            "schema": SCHEMA_VERSION,
-            "prune": sweep["prune"],
-            "candidates_total": sweep["candidates_total"],
-            "candidates_measured": sweep["candidates_measured"],
-            "predicted_gflops": winner.get("predicted_gflops", 0.0),
-            "predicted_rank": winner.get("predicted_rank", 0),
-        },
-    }
+        raise RuntimeError("no verified candidate in the measured set")
+    winner = pick(rows)
+    cfg = config(winner)
     if cache:
         store_cache_entry(
-            key,
-            {"config": config, "measured_gflops": winner["measured_gflops"], "key": key},
+            key, {"config": cfg, "measured_gflops": winner["measured_gflops"], "key": key},
             cache_directory,
         )
-    return dict(config, cached=False)
+    return dict(cfg, cached=False)
 
 
 def tuned_engine_config(
@@ -477,3 +537,569 @@ def _cg_measure_problem(L: int, seed: int = 7) -> tuple[np.ndarray, np.ndarray]:
     u = np.broadcast_to(q, (n, 4, 3, 3)).astype(np.complex64)
     b = (rng.normal(size=(n, 3)) + 1j * rng.normal(size=(n, 3))).astype(np.complex64)
     return u, b
+
+
+# ---------------------------------------------------------------------------
+# The stencil sweep: rank (tile, overlap, depth) with a model whose
+# bandwidth term includes the exchange, measure the top fraction.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class StencilCandidate:
+    """One point of the stencil grid: the site tile x whether the
+    exchange / interior / boundary schedule runs x the exchange depth (a
+    depth-2 exchange feeds two applications and recomputes the ring)."""
+
+    tile: int
+    overlap: bool
+    depth: int = 1
+
+
+def _stencil_budget_fits(kernel: str, dtype: str, accum_dtype: str, compression: str) -> bool:
+    """The register gate of the stencil (or CG) kernel for these dtypes:
+    nothing spilled and at least one block per SM."""
+    budget = su3_stencil.kernel_budget(
+        kernel, torch.float32 if dtype == "float32" else torch.bfloat16,
+        accum_dtype or None, compression == "two_row",
+    )
+    return budget["local_bytes"] == 0 and budget["blocks_per_sm"] >= 1
+
+
+def enumerate_stencil_candidates(
+    tiles: tuple[int, ...] = DEFAULT_TILES,
+    overlaps: tuple[bool, ...] = (False, True),
+    dtype: str = "float32",
+    accum_dtype: str = "",
+    compression: str = "none",
+    device: torch.device | str | None = None,
+    depths: tuple[int, ...] = DEFAULT_DEPTHS,
+) -> list[StencilCandidate]:
+    """The (tile, overlap, depth) grid the stencil pruner ranks; empty on
+    the card when the stencil kernel for these dtypes fails its register
+    gate.  Depth 2 exists only on the overlap schedule (the ring is built
+    from it), so (overlap=False, depth=2) is never a candidate."""
+    if resolve_device(device).type == "cuda" and not _stencil_budget_fits(
+            "stencil", dtype, accum_dtype, compression):
+        return []
+    return [StencilCandidate(tile, ov, d) for tile in tiles for ov in overlaps
+            for d in depths if ov or d == 1]
+
+
+def stencil_ops_per_site(dtype: str = "float32", accum_dtype: str = "",
+                         compression: str = "none", cg: bool = False) -> int:
+    """FP32 operations the stencil kernel (``cg=True``: the fused CG body)
+    issues per site: 570 (678 with the CG axpys), three times that under
+    pure bf16 (a round to bf16 and back after every operation), plus the
+    two-row rebuild of row 2 (168, and 2 rounds per rebuilt entry under
+    pure bf16)."""
+    pure = dtype == "bfloat16" and accum_dtype != "float32"
+    ops = STENCIL_OPS_PER_SITE + (CG_AXPY_OPS_PER_SITE if cg else 0)
+    if pure:
+        ops *= 1 + BF16_ROUND_OPS
+        if cg:
+            ops += BF16_ROUND_OPS  # beta
+    if compression == "two_row":
+        ops += REBUILD_OPS_PER_SITE + (4 * 3 * 2 * BF16_ROUND_OPS if pure else 0)
+    return ops
+
+
+def _stencil_halo_spec(L: int, hosts: int, word_bytes: int,
+                       depth: int = 1) -> dist_sharding.HaloSpec:
+    """Vector-field HaloSpec for ``hosts`` slabs (no halo on one)."""
+    return dist_sharding.HaloSpec(
+        L=L, n_shards=max(hosts, 1), word_bytes=word_bytes,
+        words_per_site=dist_sharding.VECTOR_WORDS_PER_SITE, depth=depth,
+    )
+
+
+def _exchange_bytes(halo: dist_sharding.HaloSpec, hosts: int, fields: int,
+                    depth: int) -> int:
+    """Bytes one exchange moves on the card: the +-t ghosts of every
+    boundary site of every slab (and, at depth 2, the ring's 8-direction
+    neighbourhoods, 8 values per ghost), for each exchanged field, each
+    value read and written once."""
+    ghosts = 2 * hosts * halo.boundary_sites
+    values = ghosts * (1 if depth == 1 else 1 + 8)
+    return 2 * fields * values * halo.words_per_site * halo.word_bytes
+
+
+def _exchange_seconds(exchange_bytes: int, hw: roofline.HardwareSpec) -> float:
+    return HALO_EXCHANGE_LATENCY_S + exchange_bytes / hw.hbm_bw
+
+
+def predict_stencil(
+    cand: StencilCandidate,
+    L: int,
+    dtype: str = "float32",
+    accum_dtype: str = "",
+    hosts: int = 1,
+    hw: roofline.HardwareSpec | None = None,
+    compression: str = "none",
+) -> dict[str, Any]:
+    """Roofline prediction of one stencil application under ``cand`` on a
+    ``hosts``-slab plan on one card.
+
+    Every quantity is per application, so depth-1 and depth-2 rows compare
+    directly.  The core terms are the kernel's: compute (576 flops/site at
+    the FP32 rate), memory (:func:`roofline.stencil_bound`'s bytes), issue
+    (:func:`stencil_ops_per_site` over the padded sites at the FP32 issue
+    rate, plus :data:`LAUNCH_OVERHEAD_S` per kernel launch: 1 serial, 2 per
+    split application, 5 per depth-2 pair).  The halo term is the
+    exchange: its bytes (:func:`_exchange_bytes`) at the HBM rate plus
+    :data:`HALO_EXCHANGE_LATENCY_S`, over ``depth`` applications.
+
+    Schedules, on one card, where every slab runs in one launch:
+
+    * serial (or one slab): the periodic gather reads every neighbour in
+      place; no exchange: ``bound = core``;
+    * split (``overlap`` on several slabs): the exchange runs on a side
+      stream under the interior pass, then the boundary sites (a share
+      ``boundary_fraction`` of every slab) are recomputed, ``depth`` times
+      per application at depth 2 counting the ring:
+      ``bound = max(core, halo) + depth * boundary_fraction * core``.
+
+    Raises:
+        LookupError: when no ``hw`` is given and the card is unknown.
+    """
+    hw = hw if hw is not None else roofline.current_hardware()
+    if hw is None:
+        raise LookupError("no Hopper spec for this device; pass hw= explicitly")
+    n_sites = L**4
+    padded = ((n_sites + cand.tile - 1) // cand.tile) * cand.tile
+    cfg = EngineConfig(L=L, dtype=dtype, accum_dtype=accum_dtype, compression=compression,
+                       tile=cand.tile)
+    kernel = roofline.stencil_bound(cfg, hw)
+    split = cand.overlap and hosts > 1
+    launches = (2.5 if cand.depth == 2 else 2.0) if split else 1.0
+    issue_rate = hw.peak_flops_fp32 / 2  # one FP32 operation per lane per clock
+    issue_s = (float(stencil_ops_per_site(dtype, accum_dtype, compression)) * padded / issue_rate
+               + LAUNCH_OVERHEAD_S * launches)
+    core_s = max(kernel.compute_s, kernel.memory_s, issue_s)
+    halo = _stencil_halo_spec(L, hosts, cfg.word_bytes, depth=cand.depth)
+    exchange_bytes = _exchange_bytes(halo, hosts, 1, cand.depth) if split else 0
+    halo_s = _exchange_seconds(exchange_bytes, hw) / cand.depth if split else 0.0
+    boundary_frac = halo.boundary_sites / halo.sites_per_shard if hosts > 1 else 0.0
+    if split:
+        bound_s = max(core_s, halo_s) + cand.depth * boundary_frac * core_s
+    else:
+        bound_s = core_s
+    terms = {"compute": kernel.compute_s, "memory": kernel.memory_s, "issue": issue_s,
+             "halo": halo_s}
+    return {
+        "tile": cand.tile,
+        "overlap": cand.overlap,
+        "depth": cand.depth,
+        "compression": compression,
+        "hosts": hosts,
+        "compute_s": kernel.compute_s,
+        "memory_s": kernel.memory_s,
+        "issue_s": issue_s,
+        "core_s": core_s,
+        "halo_s": halo_s,
+        "bound_s": bound_s,
+        "dominant": max(terms, key=terms.get),
+        "halo_bytes_per_exchange": halo.halo_bytes_per_exchange,
+        "exchange_bytes": exchange_bytes,
+        "bandwidth_bytes": kernel.bytes + exchange_bytes / cand.depth,
+        "boundary_fraction": round(boundary_frac, 4),
+        "predicted_gflops": round(kernel.flops / bound_s / 1e9, 3),
+    }
+
+
+def _best_seconds(fn: Callable[[], Any], device: torch.device, reps: int = 2) -> float:
+    """Best seconds of ``fn`` over ``reps`` calls after one warm call:
+    CUDA events around each call on the card, the host clock on the CPU."""
+    fn()
+    best = math.inf
+    for _ in range(reps):
+        if device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            best = min(best, start.elapsed_time(end) / 1e3)
+        else:
+            t0 = time.perf_counter()
+            fn()
+            best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def measure_stencil_candidate(
+    cand: StencilCandidate, L: int = 8, dtype: str = "float32",
+    accum_dtype: str = "", compression: str = "none", hosts: int = 1,
+    device: torch.device | str | None = None,
+) -> dict[str, Any]:
+    """Measured per-application GFLOPS of one stencil variant on a
+    ``hosts``-slab plan (useful flops 576/site; a depth-d step runs d
+    applications).  Verified when the step's output equals ``depth``
+    serial steps bit for bit (and, at depth 1, holds the fixed point)."""
+    cfg = EngineConfig(
+        L=L, dtype=dtype, variant="cuda", layout=Layout.SOA, tile=cand.tile,
+        accum_dtype=accum_dtype, iterations=2, warmups=1, compression=compression,
+    )
+    plan = build_plan(cfg, MeshSpec(hosts=hosts).resolve(device))
+    step = plan.stencil_step(overlap=cand.overlap, depth=cand.depth)
+    serial = plan.stencil_step(overlap=False)
+    u, v = plan.init_stencil_data()
+    out = step(u, v)
+    want = serial(u, v) if cand.depth == 1 else serial(u, serial(u, v))
+    verified = torch.equal(out, want) and (cand.depth == 2 or plan.verify_stencil(out))
+    best = _best_seconds(lambda: step(u, v), plan.device)
+    gf = cand.depth * su3_stencil.STENCIL_FLOPS_PER_SITE * L**4 / best / 1e9
+    return {"tile": cand.tile, "overlap": cand.overlap, "depth": cand.depth,
+            "measured_gflops": round(gf, 3), "verified": verified}
+
+
+def stencil_sweep(
+    L: int = 8,
+    dtype: str = "float32",
+    accum_dtype: str = "",
+    *,
+    hosts: int = 1,
+    compression: str = "none",
+    prune: float = DEFAULT_PRUNE,
+    tiles: tuple[int, ...] = DEFAULT_TILES,
+    overlaps: tuple[bool, ...] = (False, True),
+    depths: tuple[int, ...] = DEFAULT_DEPTHS,
+    measure_fn: Callable[[StencilCandidate], dict[str, Any]] | None = None,
+    hw: roofline.HardwareSpec | None = None,
+    device: torch.device | str | None = None,
+) -> dict[str, Any]:
+    """Rank the stencil grid with :func:`predict_stencil`; measure the top
+    ``prune`` fraction (same return structure as :func:`pipeline_sweep`).
+
+    Raises:
+        RuntimeError: no candidate passes the kernel's register gate.
+    """
+    cands = enumerate_stencil_candidates(tiles, overlaps, dtype, accum_dtype, compression,
+                                         device, depths)
+    if not cands:
+        raise RuntimeError("no stencil candidate fits the kernel's register budget")
+    preds = [predict_stencil(c, L, dtype, accum_dtype, hosts, hw, compression=compression)
+             for c in cands]
+    if measure_fn is None:
+        measure_fn = lambda c: measure_stencil_candidate(  # noqa: E731
+            c, L=L, dtype=dtype, accum_dtype=accum_dtype, compression=compression,
+            hosts=hosts, device=device,
+        )
+    return _ranked_sweep(cands, preds, prune, measure_fn)
+
+
+def _provenance(sweep: dict[str, Any], winner: dict, hosts: int,
+                compression: str) -> dict[str, Any]:
+    return {
+        "schema": SCHEMA_VERSION,
+        "prune": sweep["prune"],
+        "hosts": hosts,
+        "compression": compression,
+        "candidates_total": sweep["candidates_total"],
+        "candidates_measured": sweep["candidates_measured"],
+        "predicted_gflops": winner.get("predicted_gflops", 0.0),
+        "predicted_rank": winner.get("predicted_rank", 0),
+    }
+
+
+# stencil entries carry (tile, overlap, depth, stencil provenance) under
+# their own layout key ("soa-stencil-h{hosts}"), so they never alias the
+# multiply's (tile, fused_k, pipeline)
+_REQUIRED_STENCIL_KEYS = frozenset({"layout", "variant", "tile", "overlap", "depth", "stencil"})
+
+
+def _valid_stencil_hit(hit: Any) -> dict[str, Any] | None:
+    if not isinstance(hit, dict):
+        return None
+    config = hit.get("config")
+    if not isinstance(config, dict) or not _REQUIRED_STENCIL_KEYS <= config.keys():
+        return None
+    return config
+
+
+def best_stencil_config(
+    L: int = 8,
+    dtype: str = "float32",
+    *,
+    accum_dtype: str = "",
+    compression: str = "none",
+    hosts: int = 1,
+    cache: bool = True,
+    cache_directory: str | None = None,
+    refresh: bool = False,
+    prune: float = DEFAULT_PRUNE,
+    tiles: tuple[int, ...] = DEFAULT_TILES,
+    measure_fn: Callable[[StencilCandidate], dict[str, Any]] | None = None,
+    hw: roofline.HardwareSpec | None = None,
+    device: torch.device | str | None = None,
+) -> dict[str, Any]:
+    """The tuned stencil variant for ``hosts`` slabs, persisted under the
+    key layout ``soa-stencil-h{hosts}``.
+
+    As in the reference, the TILE is decided by measurement and the
+    SCHEDULE (overlap, depth) by the model among the best tile's measured
+    rows: on one slab the schedules are the same program, so measured
+    jitter must not pick the flags; ties go to the serial, shallower
+    schedule.  A later call with the same key measures nothing.
+
+    Raises:
+        RuntimeError: no candidate fits, or none of the measured verified.
+    """
+    key = _keyed(f"soa-stencil-h{hosts}", L, dtype, accum_dtype, compression, device)
+    if cache and not refresh:
+        config = _valid_stencil_hit(load_cache(cache_directory).get(key))
+        if config is not None:
+            return dict(config, cached=True)
+    sweep = stencil_sweep(L=L, dtype=dtype, accum_dtype=accum_dtype, hosts=hosts,
+                          compression=compression, prune=prune, tiles=tiles,
+                          measure_fn=measure_fn, hw=hw, device=device)
+
+    def pick(rows: list[dict]) -> dict:
+        best_tile = max(rows, key=lambda r: r["measured_gflops"])["tile"]
+        return max((r for r in rows if r["tile"] == best_tile),
+                   key=lambda r: (r["predicted_gflops"], not r["overlap"], -r["depth"]))
+
+    def config(w: dict) -> dict:
+        prov = _provenance(sweep, w, hosts, compression)
+        prov["halo_bytes_per_exchange"] = w.get("halo_bytes_per_exchange", 0)
+        return {"layout": "soa", "variant": "cuda_stencil", "tile": w["tile"],
+                "overlap": w["overlap"], "depth": w["depth"], "stencil": prov}
+
+    return _tuned(key, sweep, pick, config, cache, cache_directory)
+
+
+# ---------------------------------------------------------------------------
+# CG iteration tuning: (tile, fused).  The fused pass saves the standalone
+# p' round trip but gathers a second field; which side wins is measured.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class CGCandidate:
+    """One point of the CG grid: the site tile x the fused stencil+axpy
+    kernel or the composed (axpy, stencil, shift) path."""
+
+    tile: int
+    fused: bool = True
+
+
+def enumerate_cg_candidates(
+    tiles: tuple[int, ...] = DEFAULT_TILES,
+    fused: tuple[bool, ...] = (True, False),
+    dtype: str = "float32",
+    accum_dtype: str = "",
+    compression: str = "none",
+    device: torch.device | str | None = None,
+) -> list[CGCandidate]:
+    """The (tile, fused) grid; on the card a form whose kernel (the CG body
+    when fused, the stencil when composed) fails its register gate gives
+    no candidate."""
+    on_card = resolve_device(device).type == "cuda"
+    keep = {f: not on_card or _stencil_budget_fits("cg" if f else "stencil", dtype,
+                                                   accum_dtype, compression)
+            for f in fused}
+    return [CGCandidate(tile, f) for tile in tiles for f in fused if keep[f]]
+
+
+# words per site of the composed iteration's own axpy pass: read r and p,
+# write p'
+_AXPY_WORDS_PER_SITE = 18
+
+
+def predict_cg(
+    cand: CGCandidate,
+    L: int,
+    dtype: str = "float32",
+    accum_dtype: str = "",
+    hosts: int = 1,
+    hw: roofline.HardwareSpec | None = None,
+    compression: str = "none",
+) -> dict[str, Any]:
+    """Roofline prediction of one CG iteration under ``cand`` on a
+    ``hosts``-slab plan (where ``cg_solve`` splits the pass by default).
+
+    Bytes: :func:`roofline.cg_iteration_bound` (fused kernel, two gathers,
+    the epilogue of ``CG_EPILOGUE_WORDS_PER_SITE``); composed swaps the
+    fused kernel and one gather for the axpy pass and the stencil kernel.
+    Compute: 648 flops/site at the FP32 rate.  Issue: the kernel's FP32
+    operations plus its launches.  On several slabs the exchange copies the
+    ghosts of r and p (fused) or of p' (composed) under the interior pass,
+    and the boundary recompute adds ``boundary_fraction`` of a kernel pass:
+    ``bound = max(core, halo) + boundary_fraction * kernel``.
+
+    Raises:
+        LookupError: when no ``hw`` is given and the card is unknown.
+    """
+    hw = hw if hw is not None else roofline.current_hardware()
+    if hw is None:
+        raise LookupError("no Hopper spec for this device; pass hw= explicitly")
+    n_sites = L**4
+    padded = ((n_sites + cand.tile - 1) // cand.tile) * cand.tile
+    cfg = EngineConfig(L=L, dtype=dtype, accum_dtype=accum_dtype, compression=compression,
+                       tile=cand.tile)
+    terms = roofline.cg_iteration_bound(cfg, hw)
+    if cand.fused:
+        kernel, stream_bytes = terms["kernel"], terms["total"].bytes
+        ops = stencil_ops_per_site(dtype, accum_dtype, compression, cg=True)
+    else:
+        kernel = roofline.stencil_bound(cfg, hw)
+        extra = _AXPY_WORDS_PER_SITE * cfg.word_bytes * n_sites
+        stream_bytes = terms["total"].bytes - terms["kernel"].bytes + kernel.bytes + extra
+        stream_bytes -= terms["gathers"].bytes / 2  # one gathered field, not two
+        ops = stencil_ops_per_site(dtype, accum_dtype, compression) + 12  # + the axpy
+    flops = float(su3_stencil.CG_ITER_FLOPS_PER_SITE) * n_sites
+    compute_s = flops / hw.peak_flops_fp32
+    memory_s = stream_bytes / hw.hbm_bw
+    split = hosts > 1
+    issue_rate = hw.peak_flops_fp32 / 2
+    issue_s = float(ops) * padded / issue_rate + LAUNCH_OVERHEAD_S * (2 if split else 1)
+    core_s = max(compute_s, memory_s, issue_s)
+    halo = _stencil_halo_spec(L, hosts, cfg.word_bytes)
+    exchange_bytes = _exchange_bytes(halo, hosts, 2 if cand.fused else 1, 1) if split else 0
+    halo_s = _exchange_seconds(exchange_bytes, hw) if split else 0.0
+    boundary_frac = halo.boundary_sites / halo.sites_per_shard if split else 0.0
+    bound_s = max(core_s, halo_s) + boundary_frac * kernel.bound_s if split else core_s
+    return {
+        "tile": cand.tile,
+        "fused": cand.fused,
+        "compression": compression,
+        "hosts": hosts,
+        "compute_s": compute_s,
+        "memory_s": memory_s,
+        "issue_s": issue_s,
+        "halo_s": halo_s,
+        "bound_s": bound_s,
+        "exchange_bytes": exchange_bytes,
+        "bandwidth_bytes": stream_bytes + exchange_bytes,
+        "predicted_gflops": round(flops / bound_s / 1e9, 3),
+    }
+
+
+def measure_cg_candidate(
+    cand: CGCandidate, L: int = 8, dtype: str = "float32", accum_dtype: str = "",
+    compression: str = "none", iters: int = 4, hosts: int = 1,
+    device: torch.device | str | None = None,
+) -> dict[str, Any]:
+    """Measured per-iteration GFLOPS of one CG variant on a ``hosts``-slab
+    plan (useful flops ``CG_ITER_FLOPS_PER_SITE``/site/iteration).  A fused
+    candidate is verified against the composed path: bitwise at f32
+    storage, within ``verify_tolerance`` of the relative residual
+    otherwise; the composed candidate by its residual shrinking."""
+    cfg = EngineConfig(
+        L=L, dtype=dtype, variant="cuda", layout=Layout.SOA, tile=cand.tile,
+        accum_dtype=accum_dtype, iterations=2, warmups=1, compression=compression,
+    )
+    plan = build_plan(cfg, MeshSpec(hosts=hosts).resolve(device))
+    u, b = _cg_measure_problem(L)
+    u_phys, b_p = plan.pack_gauge(u), plan.pack_rhs(b)
+
+    def run(fused: bool) -> dict[str, Any]:
+        state = plan.cg_state_init(b_p)
+        for _ in range(iters):
+            state = plan.cg_iterate(u_phys, state, fused=fused)
+        return state
+
+    state = run(cand.fused)
+    best = _best_seconds(lambda: run(cand.fused), plan.device)
+    b_rs = float(plan.cg_state_init(b_p)["rs"])
+    rs = float(state["rs"])
+    if cand.fused:
+        oracle = run(False)
+        if dtype == "float32":
+            verified = torch.equal(state["x"], oracle["x"]) and torch.equal(state["r"],
+                                                                            oracle["r"])
+        else:
+            tol = verify_tolerance(dtype, accum_dtype, compression == "two_row")
+            verified = abs((rs / b_rs) ** 0.5 - (float(oracle["rs"]) / b_rs) ** 0.5) <= tol
+    else:
+        verified = rs < b_rs
+    gf = su3_stencil.CG_ITER_FLOPS_PER_SITE * L**4 * iters / best / 1e9
+    return {"tile": cand.tile, "fused": cand.fused, "measured_gflops": round(gf, 3),
+            "verified": bool(verified)}
+
+
+def cg_sweep(
+    L: int = 8,
+    dtype: str = "float32",
+    accum_dtype: str = "",
+    *,
+    hosts: int = 1,
+    compression: str = "none",
+    prune: float = DEFAULT_PRUNE,
+    tiles: tuple[int, ...] = DEFAULT_TILES,
+    fused: tuple[bool, ...] = (True, False),
+    measure_fn: Callable[[CGCandidate], dict[str, Any]] | None = None,
+    hw: roofline.HardwareSpec | None = None,
+    device: torch.device | str | None = None,
+) -> dict[str, Any]:
+    """Rank the CG (tile, fused) grid with :func:`predict_cg`; measure the
+    top ``prune`` fraction.
+
+    Raises:
+        RuntimeError: no candidate passes the kernels' register gates.
+    """
+    cands = enumerate_cg_candidates(tiles, fused, dtype, accum_dtype, compression, device)
+    if not cands:
+        raise RuntimeError("no CG candidate fits the kernels' register budgets")
+    preds = [predict_cg(c, L, dtype, accum_dtype, hosts, hw, compression=compression)
+             for c in cands]
+    if measure_fn is None:
+        measure_fn = lambda c: measure_cg_candidate(  # noqa: E731
+            c, L=L, dtype=dtype, accum_dtype=accum_dtype, compression=compression,
+            hosts=hosts, device=device,
+        )
+    return _ranked_sweep(cands, preds, prune, measure_fn)
+
+
+# CG entries carry (tile, fused, cg provenance) under "soa-cg-h{hosts}"
+_REQUIRED_CG_KEYS = frozenset({"layout", "variant", "tile", "fused", "cg"})
+
+
+def _valid_cg_hit(hit: Any) -> dict[str, Any] | None:
+    if not isinstance(hit, dict):
+        return None
+    config = hit.get("config")
+    if not isinstance(config, dict) or not _REQUIRED_CG_KEYS <= config.keys():
+        return None
+    return config
+
+
+def best_cg_config(
+    L: int = 8,
+    dtype: str = "float32",
+    *,
+    accum_dtype: str = "",
+    compression: str = "none",
+    hosts: int = 1,
+    cache: bool = True,
+    cache_directory: str | None = None,
+    refresh: bool = False,
+    prune: float = DEFAULT_PRUNE,
+    tiles: tuple[int, ...] = DEFAULT_TILES,
+    measure_fn: Callable[[CGCandidate], dict[str, Any]] | None = None,
+    hw: roofline.HardwareSpec | None = None,
+    device: torch.device | str | None = None,
+) -> dict[str, Any]:
+    """The tuned CG iteration for ``hosts`` slabs: the (tile, fused) point
+    with the best MEASURED GFLOPS among the verified candidates, persisted
+    under the key layout ``soa-cg-h{hosts}``.
+
+    Raises:
+        RuntimeError: no candidate fits, or none of the measured verified.
+    """
+    key = _keyed(f"soa-cg-h{hosts}", L, dtype, accum_dtype, compression, device)
+    if cache and not refresh:
+        config = _valid_cg_hit(load_cache(cache_directory).get(key))
+        if config is not None:
+            return dict(config, cached=True)
+    sweep = cg_sweep(L=L, dtype=dtype, accum_dtype=accum_dtype, hosts=hosts,
+                     compression=compression, prune=prune, tiles=tiles,
+                     measure_fn=measure_fn, hw=hw, device=device)
+
+    def config(w: dict) -> dict:
+        return {"layout": "soa", "variant": "cuda_cg", "tile": w["tile"],
+                "fused": w["fused"], "cg": _provenance(sweep, w, hosts, compression)}
+
+    return _tuned(key, sweep, lambda rows: max(rows, key=lambda r: r["measured_gflops"]),
+                  config, cache, cache_directory)

@@ -1,9 +1,9 @@
 """ExecutionPlan: the one dispatch path for SU3 work (port of
-``repro.core.su3.plan``: the multiply, the stencil and the CG solver on one
-slab).
+``repro.core.su3.plan``: the multiply, the stencil and the CG solver, on one
+slab or on a lattice split into host slabs).
 
     EngineConfig (L, dtype, layout, variant, tile, placement)
-          │  build_plan(cfg, device) — single construction site
+          │  build_plan(cfg, device | MeshSpec | SlabMesh) — single construction site
           ▼
     ExecutionPlan
       codec         LayoutCodec   pack / unpack / physical shapes
@@ -12,14 +12,18 @@ slab).
       fused(k)      one launch chaining k multiplies
       fused_batched_step(slots, max_k)
                     one megakernel launch over a slot table, per-slot depths
-      stencil_step  gather the 8 neighbours (index_select), one stencil launch
-      cg_solve      CG on sigma I + S: per iteration two gathers, one fused
-                    stencil+axpy launch, the shared epilogue
+      stencil_step  serial: gather the 8 neighbours (index_select), one
+                    stencil launch; overlapped: exchange / interior / boundary
+      cg_solve      CG on sigma I + S: per iteration one fused stencil+axpy
+                    pass (two gathers, one launch; split like the stencil on
+                    several slabs) and the shared epilogue
 
 The plan lives on one device, ``"cuda"`` unless the caller asks for
 ``"cpu"``.  Placement on one card:
 
-  * ``sharded``      — the lattice is built directly on the device;
+  * ``sharded``      — the lattice is built directly on the device; on
+                       several slabs each slab is built from numpy and
+                       copied straight into its range (first touch);
   * ``host_scatter`` — built on the CPU, then copied with ``.to(device)``;
                        the copy is timed as ``scatter_s``;
   * ``replicated``   — the same as ``sharded`` on one device (``describe``
@@ -31,14 +35,40 @@ reference: ``torch.index_select`` fills a preallocated direction-major
 (beta and sigma travel in a (1, 2) tensor) and fetches one residual per
 iteration, one iteration late.
 
+Slabs
+-----
+Given a :class:`~repro_torch.launch.mesh.MeshSpec` (or the
+:class:`~repro_torch.launch.mesh.SlabMesh` it resolves to), the lattice
+splits along t into ``hosts`` contiguous slabs of one tensor on the one
+card; sites are t-major, so slab ``h`` is ``host_site_ranges(...)[h]``.
+The lattice pads to a whole number of tiles per (simulated) device, as in
+the reference, so every slab's range is whole tiles; the stencil's slabs
+are the live L^4 sites split evenly, with the padding after the last.
+Where the reference shards with ``NamedSharding``, the port indexes the
+slab ranges and the boundary sets directly.  On several slabs:
+
+  * ``sharded`` init builds each slab host-locally (numpy) and copies it
+    into its range of the device tensor; no global host array exists;
+  * ``stencil_step(overlap=True)`` (the default there) runs the
+    reference's split schedule: the +-t ghost faces of every slab are
+    copied into their own buffers on a side CUDA stream (the exchange),
+    the interior pass runs over every site through the slab-local table on
+    the main stream meanwhile, and the boundary pass waits on the
+    exchange's event, recomputes the 2 L^3 boundary sites of each slab from
+    the true ghosts and writes them over the interior output.  Same kernel,
+    same per-site inputs: the serial step's bits.  ``depth=2`` is the
+    communication-avoiding ring: one exchange feeds two applications;
+  * ``cg_solve(fused=True, overlap=True)`` splits the fused pass the same
+    way (ghosts of r and p; only S(p') is scattered).
+
+On the CPU the same schedules run in program order, with no side stream,
+and give the same bits.  ``plan.tracer`` (spans per phase) and
+``plan.faults`` (the ``halo`` seam after each exchange) are off by default;
+each costs one ``if ...enabled`` branch.
+
 :class:`BatchedLatticeRunner` serves B independent lattices through one
 plan: one launch of the multiply kernel over the whole batch (the kernel's
 batch axis stands in for the reference's ``vmap``).
-
-Not here yet: meshes and multi-host first-touch init, the multi-slab stencil
-and CG schedules (exchange / interior / boundary, the depth-2 ring), and the
-plan's tracer and halo-fault hooks.  On one card there is one slab and one
-device, and the reference's single-host paths are the ones ported.
 """
 from __future__ import annotations
 
@@ -50,11 +80,15 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch.chaos.faults import NULL_FAULT_PLAN, corrupt_ghosts
 from repro_torch.core.su3 import layouts, registry
 from repro_torch.core.su3 import variants as _variants  # noqa: F401  (registers torch variants)
 from repro_torch.core.su3.layouts import Layout, LatticeShape, LayoutCodec
 from repro_torch.distributed import sharding as dist_sharding
 from repro_torch.kernels import ops as _kops  # noqa: F401  (registers the CUDA kernels)
+from repro_torch.kernels.su3_stencil import STENCIL_FLOPS_PER_SITE
+from repro_torch.launch.mesh import MeshSpec, SlabMesh
+from repro_torch.obs.tracer import NULL_TRACER
 
 PLACEMENTS = ("sharded", "host_scatter", "replicated")
 
@@ -142,6 +176,77 @@ def init_canonical(
         dtype=torch.complex64, device=device,
     )
     return a, b
+
+
+def resolve_mesh(mesh: MeshSpec | SlabMesh | torch.device | str | None) -> SlabMesh:
+    """A plan's mesh argument as a :class:`SlabMesh`: a ``MeshSpec`` is
+    resolved on the CUDA device, a ``SlabMesh`` is taken as it is, and a
+    bare device (or ``None``, the CUDA device) is one slab."""
+    if isinstance(mesh, SlabMesh):
+        return mesh
+    if isinstance(mesh, MeshSpec):
+        return mesh.resolve()
+    return SlabMesh(1, 1, resolve_device(mesh))
+
+
+# -- per-slab first-touch init ---------------------------------------------------
+#
+# The canonical benchmark lattice is uniform, so a slab's physical words can
+# be built host-locally without the global array: each slab is made in numpy
+# and copied straight into its range of the device tensor.  Only AOS carries
+# position-dependent words (the metadata block), offset to global site ids,
+# so the result equals the one-slab initializer bit for bit.
+
+_SITE_DIM = {Layout.AOS: 0, Layout.SOA: 2, Layout.AOSOA: 0}  # physical site axis
+
+
+def _uniform_phys_shard(codec: LayoutCodec, n_sites: int, site_offset: int) -> np.ndarray:
+    """The packed physical form of ``n_sites`` canonical A=(1,0) sites, in
+    float32 words (the copy narrows them to the storage dtype, as ``pack``
+    does).  ``site_offset`` is the slab's first global site id."""
+    if codec.layout == Layout.AOS:
+        out = np.zeros((n_sites, layouts.SITE_WORDS_AOS), np.float32)
+        out[:, 0:layouts.GAUGE_WORDS:2] = 1.0  # re words; im words stay 0
+        idx = np.arange(site_offset, site_offset + n_sites, dtype=np.float32)
+        for col in range(5):  # x, y, z, t, index: pack_aos carries the id in all
+            out[:, layouts.GAUGE_WORDS + col] = idx
+        out[:, layouts.GAUGE_WORDS + 5] = idx % 2  # parity
+        return out
+    if codec.layout == Layout.SOA:
+        # planar_rows: 36, or 24 two-row; every stored row of the uniform
+        # lattice is (1, 0)
+        out = np.zeros((2, codec.planar_rows, n_sites), np.float32)
+        out[0] = 1.0
+        return out
+    out = np.zeros((n_sites // codec.tile, 2, codec.planar_rows, codec.tile), np.float32)
+    out[:, 0] = 1.0
+    return out
+
+
+def first_touch_init(
+    codec: LayoutCodec, padded_sites: int, ranges: list[tuple[int, int]],
+    device: torch.device,
+) -> torch.Tensor:
+    """The canonical lattice, built slab by slab: each of ``ranges`` is
+    made host-locally and copied into its range of one device tensor; no
+    global host array is built.
+
+    Args:
+        codec: the plan's layout codec (decides the physical form).
+        padded_sites: the lattice's site count, padded to whole tiles.
+        ranges: the slabs' ``[lo, hi)`` site ranges (whole tiles each).
+        device: where the lattice lives.
+
+    Returns:
+        The physical A, equal to ``codec.pack(init_canonical(padded_sites))``.
+    """
+    phys = torch.empty(codec.phys_shape(padded_sites), dtype=codec.word_dtype, device=device)
+    dim = _SITE_DIM[codec.layout]
+    per_index = codec.tile if codec.layout == Layout.AOSOA else 1
+    for lo, hi in ranges:
+        shard = torch.from_numpy(_uniform_phys_shard(codec, hi - lo, lo))
+        phys.narrow(dim, lo // per_index, (hi - lo) // per_index).copy_(shard)
+    return phys
 
 
 def make_raw_step(
@@ -497,8 +602,16 @@ def _synchronize(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _pad_to_tile(idx: torch.Tensor, tile: int) -> torch.Tensor:
+    """Site indices (last axis) padded to a whole number of tiles by
+    repeating the first: the kernels need whole tiles, a site's bits depend
+    on its own inputs only, and the padding's outputs are dropped."""
+    pad = (-idx.shape[-1]) % tile
+    return torch.cat([idx, idx[..., :1].expand(*idx.shape[:-1], pad)], dim=-1)
+
+
 class ExecutionPlan:
-    """Execution of one EngineConfig tuple on one device.
+    """Execution of one EngineConfig tuple on one slab mesh.
 
     Construct via :func:`build_plan` — the single construction site for every
     layout x variant x placement combination.
@@ -506,17 +619,32 @@ class ExecutionPlan:
     Attributes:
         codec: canonical (S, 4, 3, 3) complex <-> physical layout conversions.
         kernel: the resolved :class:`~repro_torch.core.su3.registry.KernelEntry`.
-        device: the plan's device.
-        padded_sites: site count padded to a whole number of tiles.
+        mesh: the :class:`~repro_torch.launch.mesh.SlabMesh` (slab count,
+            devices per slab, the device).
+        device: the plan's device (every slab lives there).
+        n_devices: hosts x devices per host (simulated devices share the
+            card); the padding unit is ``n_devices * tile`` sites.
+        site_axes: the mesh axes the sites run over, host-major.
+        is_multi_host: the lattice splits into more than one slab.
+        padded_sites: site count padded so every device's share is whole tiles.
         step: ``(a_phys, b_planar) -> c_phys`` — one launch into a fresh
             output; the input is left intact (``SU3Engine.run`` reuses it).
+        tracer: phase spans of the stencil and CG schedules; off
+            (``NULL_TRACER``) by default.  When on, each phase synchronizes
+            the device at its end so its span measures it: the hidden-vs-
+            exposed wall comes from an untraced run of the same step.
+        faults: the chaos plan; off (``NULL_FAULT_PLAN``) by default.  When
+            armed, the overlapped stencil asks its ``halo`` site after each
+            exchange and applies the drawn fault to the ghosts.
     """
 
-    n_devices = 1
-
-    def __init__(self, cfg: EngineConfig, device: torch.device | str):
+    def __init__(self, cfg: EngineConfig, mesh: MeshSpec | SlabMesh | torch.device | str):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.mesh = resolve_mesh(mesh)
+        self.device = self.mesh.device
+        self.n_devices = self.mesh.n_devices
+        self.site_axes = dist_sharding.lattice_site_axes(self.mesh)
+        self.is_multi_host = dist_sharding.lattice_is_multi_host(self.mesh)
         if cfg.placement not in PLACEMENTS:
             raise ValueError(f"unknown placement {cfg.placement!r}; one of {PLACEMENTS}")
         self.codec = layouts.make_codec(
@@ -527,8 +655,7 @@ class ExecutionPlan:
             compression=layouts.GaugeCompression(cfg.compression),
         )
         self.kernel = registry.get_kernel(cfg.variant)
-        # Lattice padded to a whole number of tiles (the reference pads to
-        # n_devices * tile; here n_devices is 1).
+        # Lattice padded so every (simulated) device's share is whole tiles.
         n = cfg.shape.n_sites
         chunk = self.n_devices * cfg.tile
         self.padded_sites = ((n + chunk - 1) // chunk) * chunk
@@ -537,9 +664,26 @@ class ExecutionPlan:
         self._batched_steps: dict[tuple[int, int, bool], Callable[..., torch.Tensor]] = {}
         self._stencil_steps: dict[tuple[bool, int], Step] = {}
         self._stencil_tables: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None
+        self._boundary: dict[str, Any] | None = None
+        self._stencil_parts: dict[str, Any] | None = None
         self._nbr_bufs: dict[str, torch.Tensor] = {}
+        self._side: torch.cuda.Stream | None = None
         self._cg_help: dict[str, Callable[..., Any]] | None = None
         self._cg_applies: dict[tuple[bool, bool], Callable[..., Any]] = {}
+        self.tracer = NULL_TRACER
+        self.faults = NULL_FAULT_PLAN
+
+    @property
+    def n_hosts(self) -> int:
+        """The number of slabs (1 on a single-slab plan)."""
+        return self.mesh.hosts
+
+    def halo(self) -> dist_sharding.HaloSpec:
+        """Boundary geometry of the plan's slabs (gauge words at storage
+        width); n_shards = n_hosts."""
+        return dist_sharding.HaloSpec(
+            L=self.cfg.L, n_shards=self.n_hosts, word_bytes=self.cfg.word_bytes
+        )
 
     # -- fused multi-iteration stepping ---------------------------------------
 
@@ -600,26 +744,37 @@ class ExecutionPlan:
     # -- nearest-neighbour stencil (Dslash-style) -------------------------------
 
     def stencil_halo(self, depth: int = 1) -> dist_sharding.HaloSpec:
-        """Halo spec of the stencil's vector-field exchange: 6 words per site
-        at the plan's storage width; ``depth=2`` prices the exchange that
-        feeds two applications.  One slab on one card: nothing is sent."""
+        """Halo spec of the stencil's vector-field exchange: the slabs'
+        boundary geometry at 6 words per site and the plan's storage width;
+        ``depth=2`` prices the exchange that feeds two applications."""
         return dist_sharding.HaloSpec(
             L=self.cfg.L,
-            n_shards=1,
+            n_shards=self.n_hosts,
             word_bytes=self.cfg.word_bytes,
             words_per_site=dist_sharding.VECTOR_WORDS_PER_SITE,
             depth=depth,
         )
 
     def _stencil_geometry(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """The neighbour tables of one slab as int64 tensors on the plan's
-        device, built once per plan."""
+        """The neighbour tables of the plan's slabs as int64 tensors on its
+        device (periodic, slab-local, boundary sites), built once per plan."""
         if self._stencil_tables is None:
-            tables = stencil_neighbor_tables(self.cfg.L, self.padded_sites, 1)
+            tables = stencil_neighbor_tables(self.cfg.L, self.padded_sites, self.n_hosts)
             self._stencil_tables = tuple(
                 torch.from_numpy(t.astype(np.int64)).to(self.device) for t in tables
             )
         return self._stencil_tables
+
+    def _buffer(self, slot: str, shape: tuple[int, ...], zero: bool = False) -> torch.Tensor:
+        """The plan's reusable block ``slot``, allocated once on the main
+        stream; every reuse is ordered by the main stream (the exchange's
+        side stream waits on it first, see :meth:`_issue_exchange`)."""
+        buf = self._nbr_bufs.get(slot)
+        if buf is None:
+            make = torch.zeros if zero else torch.empty
+            buf = make(shape, dtype=self.codec.word_dtype, device=self.device)
+            self._nbr_bufs[slot] = buf
+        return buf
 
     def gather_neighbors(
         self, v_p: torch.Tensor, slot: str = "v", overlap: bool = False
@@ -629,15 +784,11 @@ class ExecutionPlan:
         return it: one ``index_select`` per direction, straight into the
         block.  The block is reused by the next gather into the same slot
         (stream order makes that safe for the kernel that reads it).
-        ``overlap`` takes the slab-local table, which on one slab is the
-        periodic table."""
+        ``overlap`` takes the slab-local table (+-t wrap inside each slab),
+        which on one slab is the periodic table."""
         glob, local, _bidx = self._stencil_geometry()
         table = local if overlap else glob
-        buf = self._nbr_bufs.get(slot)
-        if buf is None:
-            buf = torch.empty((8, 2, layouts.SU3, self.padded_sites),
-                              dtype=self.codec.word_dtype, device=self.device)
-            self._nbr_bufs[slot] = buf
+        buf = self._buffer(slot, (8, 2, layouts.SU3, self.padded_sites))
         for d in range(8):
             torch.index_select(v_p, 2, table[d], out=buf[d])
         return buf
@@ -668,14 +819,15 @@ class ExecutionPlan:
             kw["compressed"] = True
         return kernel, kw
 
-    def raw_stencil_reference(self, overlap: bool = False) -> Step:
-        """``(u_phys, v_p) -> out_p``: gather all 8 neighbour fields, then ONE
-        kernel pass over every site (the physical links are read in place,
-        AoSoA included)."""
+    def raw_stencil_reference(self) -> Step:
+        """``(u_phys, v_p) -> out_p``: gather all 8 neighbour fields through
+        the periodic table, then ONE kernel pass over every site (the
+        physical links are read in place, AoSoA included).  The serial step
+        and the bit-identity oracle of the overlapped schedules."""
         kernel, kw = self._stencil_kernel_kwargs()
 
         def reference(u_phys: torch.Tensor, v_p: torch.Tensor) -> torch.Tensor:
-            return kernel.fn(u_phys, self.gather_neighbors(v_p, "v", overlap), **kw)
+            return kernel.fn(u_phys, self.gather_neighbors(v_p, "v"), **kw)
 
         return reference
 
@@ -689,24 +841,311 @@ class ExecutionPlan:
         ``u_phys`` is the plan's physical gauge lattice, ``v_p`` the planar
         (2, 3, padded_sites) vector field (``codec.pack_vec``); the result
         is the planar output field.  ``depth`` applications run per call
-        (depth=2 equals two depth-1 steps).
+        (depth=2 equals two depth-1 steps, bit for bit).
 
         overlap=False is the serial path: the periodic gather, then the
-        kernel over all sites.  overlap=True is the reference's split
-        schedule; on one slab it has no boundary, so it is the single
-        slab-local pass (the reference's ``local_only`` path), which gives
-        the serial path's bits.  ``None`` means False: one card is one host.
+        kernel over all sites.  overlap=True (the default on several slabs)
+        is the reference's split schedule:
+
+        1. **exchange** — copy the +-t ghost faces of every slab (the true
+           neighbours of its boundary sites) into their own buffers, on a
+           side CUDA stream;
+        2. **interior** — meanwhile, on the main stream, the kernel over
+           every site with the +-t gathers wrapped inside each slab: every
+           interior site is already exact;
+        3. **boundary** — after the exchange's event, recompute the boundary
+           sites (2 L^3 per slab, padded to the tile) from the true ghosts
+           and copy them over the interior output.
+
+        The boundary sites are computed twice (the classic overlap trade);
+        the bits are the serial step's: same kernel, same per-site inputs.
+        On one slab there is no boundary and overlap=True is the single
+        slab-local pass.  depth=2 with overlap runs the communication-
+        avoiding ring (:meth:`_build_stencil_step2`).
         """
         if depth not in (1, 2):
             raise ValueError(f"stencil exchange depth must be 1 or 2, got {depth}")
+        if overlap is None:
+            overlap = self.is_multi_host
         key = (bool(overlap), depth)
         if key not in self._stencil_steps:
-            one = self.raw_stencil_reference(overlap=bool(overlap))
-            if depth == 1:
-                self._stencil_steps[key] = one
-            else:
-                self._stencil_steps[key] = lambda u_phys, v_p: one(u_phys, one(u_phys, v_p))
+            self._stencil_steps[key] = self._build_stencil_step(*key)
         return self._stencil_steps[key]
+
+    # -- the multi-slab schedules -------------------------------------------------
+
+    def _sync(self) -> None:
+        _synchronize(self.device)
+
+    def _issue_exchange(
+        self, copy: Callable[[], tuple[torch.Tensor, ...]]
+    ) -> tuple[tuple[torch.Tensor, ...], torch.cuda.Event | None]:
+        """Run ``copy`` (the ghost copies) on the plan's side stream and
+        return its tensors and the event the boundary pass waits on.
+
+        The side stream first waits on everything queued on the main stream
+        so far: the fields it reads are ready, and the last boundary pass
+        has finished reading the ghost buffers this copy refills.  Work the
+        caller queues on the main stream afterwards (the interior pass)
+        runs alongside.  On the CPU: ``copy()`` in program order, no event.
+        """
+        if self.device.type != "cuda":
+            return copy(), None
+        main = torch.cuda.current_stream(self.device)
+        if self._side is None:
+            self._side = torch.cuda.Stream(self.device)
+        self._side.wait_stream(main)
+        with torch.cuda.stream(self._side):
+            ghosts = copy()
+            done = torch.cuda.Event()
+            done.record(self._side)
+        return ghosts, done
+
+    def _await_exchange(self, done: torch.cuda.Event | None) -> None:
+        if done is not None:
+            torch.cuda.current_stream(self.device).wait_event(done)
+
+    def _halo_fault(self, ghosts: tuple[torch.Tensor, ...], depth: int) -> tuple[torch.Tensor, ...]:
+        """The ``halo`` chaos seam after an exchange (callers guard it with
+        ``if self.faults.enabled``)."""
+        f = self.faults.ask("halo", depth=depth)
+        return ghosts if f is None else corrupt_ghosts(ghosts, f.action)
+
+    def _site_links(self, u_phys: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        """The links at sites ``idx`` as planar SoA (2, rows, len(idx)),
+        which the kernels take whatever the plan's layout; AoSoA is read
+        through its tiles."""
+        if self.codec.layout == Layout.AOSOA:
+            t = self.cfg.tile
+            return torch.movedim(u_phys[idx // t, :, :, idx % t], 0, 2).contiguous()
+        return u_phys.index_select(2, idx)
+
+    def _boundary_geometry(self) -> dict[str, Any]:
+        """Index sets of the boundary passes, shared by the stencil and CG
+        schedules: the boundary sites ``bidx`` (B), their +-t true
+        neighbours (the ghosts), and, padded to Bp sites by
+        :func:`_pad_to_tile`, the site list ``bidx_pad`` and the in-slab
+        neighbours ``xyz`` (6, Bp)."""
+        if self._boundary is None:
+            glob, _local, bidx = self._stencil_geometry()
+            tile = self.cfg.tile
+            self._boundary = {
+                "n": bidx.numel(),
+                "bidx": bidx,
+                "bidx_pad": _pad_to_tile(bidx, tile),
+                "fwd": glob[3][bidx],
+                "bwd": glob[7][bidx],
+                "xyz": _pad_to_tile(glob[[0, 1, 2, 4, 5, 6]][:, bidx], tile),
+            }
+        return self._boundary
+
+    def _boundary_nbr(self, v_p: torch.Tensor, ghost_fwd: torch.Tensor,
+                      ghost_bwd: torch.Tensor, slot: str) -> torch.Tensor:
+        """The (8, 2, 3, Bp) neighbour block of the boundary sites: the six
+        in-slab directions gathered from ``v_p``, +-t from the ghosts (whose
+        padding columns stay the zeros the block was made with)."""
+        g = self._boundary_geometry()
+        n = g["n"]
+        buf = self._buffer(slot, (8, 2, layouts.SU3, g["bidx_pad"].numel()), zero=True)
+        for j, d in enumerate((0, 1, 2, 4, 5, 6)):
+            torch.index_select(v_p, 2, g["xyz"][j], out=buf[d])
+        buf[3, :, :, :n].copy_(ghost_fwd)
+        buf[7, :, :, :n].copy_(ghost_bwd)
+        return buf
+
+    def _stencil_overlap_parts(self) -> dict[str, Any]:
+        """The pieces every overlapped stencil schedule shares, built once,
+        so the depth-2 ring reuses the depth-1 interior and boundary passes
+        and its bit-identity needs to cover only the ring recompute."""
+        if self._stencil_parts is not None:
+            return self._stencil_parts
+        kernel, kw = self._stencil_kernel_kwargs()
+
+        def interior(u_phys: torch.Tensor, v_p: torch.Tensor) -> torch.Tensor:
+            # slab-local gathers only: independent of the exchange in flight
+            return kernel.fn(u_phys, self.gather_neighbors(v_p, "v", overlap=True), **kw)
+
+        parts: dict[str, Any] = {"interior": interior,
+                                 "n_boundary": self._stencil_geometry()[2].numel()}
+        if parts["n_boundary"]:
+            g = self._boundary_geometry()
+            n = g["n"]
+            g_fwd = self._buffer("ghost_fwd", (2, layouts.SU3, n))
+            g_bwd = self._buffer("ghost_bwd", (2, layouts.SU3, n))
+
+            def exchange(v_p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+                torch.index_select(v_p, 2, g["fwd"], out=g_fwd)
+                torch.index_select(v_p, 2, g["bwd"], out=g_bwd)
+                return g_fwd, g_bwd
+
+            def boundary(u_phys: torch.Tensor, v_p: torch.Tensor, ghost_fwd: torch.Tensor,
+                         ghost_bwd: torch.Tensor, out_interior: torch.Tensor) -> torch.Tensor:
+                v_nbr = self._boundary_nbr(v_p, ghost_fwd, ghost_bwd, "v_boundary")
+                out_b = kernel.fn(self._site_links(u_phys, g["bidx_pad"]), v_nbr, **kw)
+                # an indexed copy: the boundary kernel's bits, unchanged
+                return out_interior.index_copy_(2, g["bidx"], out_b[:, :, :n])
+
+            parts.update(exchange=exchange, boundary=boundary)
+        self._stencil_parts = parts
+        return parts
+
+    def _stencil_trace_attrs(self, overlap: bool, depth: int) -> dict[str, Any]:
+        """Attrs every ``stencil.step`` span carries: the key the
+        attribution report joins against ``autotune.predict_stencil``."""
+        cfg = self.cfg
+        return {
+            "L": cfg.L, "tile": cfg.tile, "dtype": cfg.dtype,
+            "compression": cfg.compression, "hosts": self.n_hosts,
+            "overlap": bool(overlap), "depth": depth,
+            "flops": float(STENCIL_FLOPS_PER_SITE) * cfg.shape.n_sites * depth,
+        }
+
+    def _build_stencil_step(self, overlap: bool, depth: int = 1) -> Step:
+        plan = self  # the closures read plan.tracer / plan.faults at call time
+        if not overlap:
+            ref = self.raw_stencil_reference()
+            attrs = self._stencil_trace_attrs(False, depth)
+
+            def serial(u_phys: torch.Tensor, v_p: torch.Tensor) -> torch.Tensor:
+                tr = plan.tracer
+                if not tr.enabled:
+                    if depth == 1:
+                        return ref(u_phys, v_p)
+                    return ref(u_phys, ref(u_phys, v_p))
+                with tr.span("stencil.step", **attrs):
+                    out = ref(u_phys, v_p)
+                    if depth == 2:
+                        out = ref(u_phys, out)
+                    plan._sync()
+                return out
+
+            return serial
+
+        parts = self._stencil_overlap_parts()
+        interior = parts["interior"]
+        attrs = self._stencil_trace_attrs(True, depth)
+        if parts["n_boundary"] == 0:
+            # one slab: the local wrap is the periodic wrap and there is no
+            # exchange; depth composes the interior pass
+
+            def local_only(u_phys: torch.Tensor, v_p: torch.Tensor) -> torch.Tensor:
+                tr = plan.tracer
+                if not tr.enabled:
+                    if depth == 1:
+                        return interior(u_phys, v_p)
+                    return interior(u_phys, interior(u_phys, v_p))
+                with tr.span("stencil.step", **attrs):
+                    for _ in range(depth):
+                        with tr.span("stencil.interior"):
+                            v_p = interior(u_phys, v_p)
+                            plan._sync()
+                return v_p
+
+            return local_only
+
+        exchange, boundary = parts["exchange"], parts["boundary"]
+        if depth == 2:
+            return self._build_stencil_step2(parts)
+
+        def overlapped(u_phys: torch.Tensor, v_p: torch.Tensor) -> torch.Tensor:
+            tr = plan.tracer
+            if not tr.enabled:
+                ghosts, done = plan._issue_exchange(lambda: exchange(v_p))  # issued first
+                if plan.faults.enabled:
+                    ghosts = plan._halo_fault(ghosts, 1)
+                out_i = interior(u_phys, v_p)  # alongside the exchange
+                plan._await_exchange(done)
+                return boundary(u_phys, v_p, *ghosts, out_i)
+            # traced: each phase synchronizes so its span is a measurement
+            with tr.span("stencil.step", **attrs):
+                with tr.span("stencil.exchange"):
+                    ghosts, _done = plan._issue_exchange(lambda: exchange(v_p))
+                    plan._sync()
+                if plan.faults.enabled:
+                    ghosts = plan._halo_fault(ghosts, 1)
+                with tr.span("stencil.interior"):
+                    out_i = interior(u_phys, v_p)
+                    plan._sync()
+                with tr.span("stencil.boundary"):
+                    out = boundary(u_phys, v_p, *ghosts, out_i)
+                    plan._sync()
+            return out
+
+        return overlapped
+
+    def _build_stencil_step2(self, parts: dict[str, Any]) -> Step:
+        """The communication-avoiding double step (overlap, depth=2).
+
+        The ring is the (+t, -t) neighbours of the boundary sites: exactly
+        the sites whose step-1 results step 2's boundary pass reads as
+        ghosts.  ``exchange2`` copies the whole depth-2 payload at once (the
+        depth-1 ghosts, and the 8-direction ``v`` neighbourhoods of the
+        ring); ``ring`` then recomputes step 1's output at the ring from it,
+        so step 2 never exchanges.  A ring site is either interior to its
+        slab (step 1 computed it through the local table, which equals the
+        periodic table there) or a boundary site (step 1 computed it from
+        the periodic ghosts): either way the recompute feeds the kernel the
+        same per-site inputs, hence the bits of two depth-1 steps.
+        """
+        plan = self
+        kernel, kw = self._stencil_kernel_kwargs()
+        glob, _local, _bidx = self._stencil_geometry()
+        g = self._boundary_geometry()
+        interior, boundary, exchange = parts["interior"], parts["boundary"], parts["exchange"]
+        n = g["n"]
+        ridx = _pad_to_tile(torch.cat([g["fwd"], g["bwd"]]), self.cfg.tile)  # (2B + pad)
+        ring_nbr_idx = glob[:, ridx]  # (8, 2B + pad): every v site the ring reads
+        ring_buf = self._buffer("ring", (8, 2, layouts.SU3, ridx.numel()))
+        attrs = self._stencil_trace_attrs(True, 2)
+
+        def exchange2(v_p: torch.Tensor) -> tuple[torch.Tensor, ...]:
+            for d in range(8):
+                torch.index_select(v_p, 2, ring_nbr_idx[d], out=ring_buf[d])
+            return (*exchange(v_p), ring_buf)
+
+        def ring(u_phys: torch.Tensor, ring_vnbr: torch.Tensor) -> tuple[torch.Tensor, ...]:
+            w_r = kernel.fn(self._site_links(u_phys, ridx), ring_vnbr, **kw)
+            # step 1's output at the (+t, -t) neighbours of the boundary:
+            # the ghosts step 2's boundary pass would otherwise exchange
+            return w_r[:, :, :n], w_r[:, :, n:2 * n]
+
+        def overlapped2(u_phys: torch.Tensor, v_p: torch.Tensor) -> torch.Tensor:
+            tr = plan.tracer
+            if not tr.enabled:
+                (g_fwd, g_bwd, ring_vnbr), done = plan._issue_exchange(lambda: exchange2(v_p))
+                if plan.faults.enabled:
+                    g_fwd, g_bwd, ring_vnbr = plan._halo_fault((g_fwd, g_bwd, ring_vnbr), 2)
+                out_1i = interior(u_phys, v_p)  # alongside the exchange
+                plan._await_exchange(done)
+                w = boundary(u_phys, v_p, g_fwd, g_bwd, out_1i)
+                ring_w = ring(u_phys, ring_vnbr)  # recompute, don't re-exchange
+                out_2i = interior(u_phys, w)
+                return boundary(u_phys, w, *ring_w, out_2i)
+            with tr.span("stencil.step", **attrs):
+                with tr.span("stencil.exchange"):
+                    (g_fwd, g_bwd, ring_vnbr), _done = plan._issue_exchange(
+                        lambda: exchange2(v_p))
+                    plan._sync()
+                if plan.faults.enabled:
+                    g_fwd, g_bwd, ring_vnbr = plan._halo_fault((g_fwd, g_bwd, ring_vnbr), 2)
+                with tr.span("stencil.interior"):
+                    out_1i = interior(u_phys, v_p)
+                    plan._sync()
+                with tr.span("stencil.boundary"):
+                    w = boundary(u_phys, v_p, g_fwd, g_bwd, out_1i)
+                    plan._sync()
+                with tr.span("stencil.ring"):
+                    ring_w = ring(u_phys, ring_vnbr)
+                    plan._sync()
+                with tr.span("stencil.interior"):
+                    out_2i = interior(u_phys, w)
+                    plan._sync()
+                with tr.span("stencil.boundary"):
+                    out = boundary(u_phys, w, *ring_w, out_2i)
+                    plan._sync()
+            return out
+
+        return overlapped2
 
     def init_stencil_data(self) -> tuple[torch.Tensor, torch.Tensor]:
         """The canonical stencil inputs ``(u_phys, v_p)`` under the plan's
@@ -818,14 +1257,19 @@ class ExecutionPlan:
 
         fused=True: gather r and p, then ONE fused kernel launch forms p' at
         the centre and the neighbours and writes ``(p', S(p'))``; the sigma
-        shift runs in the shared epilogue.  fused=False: the shared axpy,
-        then ``stencil_step(overlap)``, then the same epilogue.  On one slab
-        ``overlap`` only picks the slab-local table, which is the periodic
-        one.
+        shift runs in the shared epilogue.  On several slabs with
+        ``overlap`` the pass splits like :meth:`stencil_step`: the +-t
+        ghosts of BOTH r and p are copied on the side stream, the fused pass
+        runs over every site through the slab-local tables meanwhile (p' is
+        elementwise, so its p' is already exact everywhere), and a boundary
+        pass recomputes S(p') at the boundary sites and copies only that
+        over.  fused=False: the shared axpy, then ``stencil_step(overlap)``,
+        then the same epilogue.
         """
         key = (bool(fused), bool(overlap))
         if key in self._cg_applies:
             return self._cg_applies[key]
+        plan = self
         h = self._cg_helpers()
 
         if not fused:
@@ -841,14 +1285,70 @@ class ExecutionPlan:
 
         kernel, kw = self._stencil_kernel_kwargs(CG_VARIANT)
 
-        def fused_whole(u_phys, r_p, p_p, coefs):
+        def whole(u_phys, r_p, p_p, coefs):
             r_nbr = self.gather_neighbors(r_p, "r", overlap)
             p_nbr = self.gather_neighbors(p_p, "p", overlap)
-            p_new, s = kernel.fn(u_phys, r_nbr, p_nbr, r_p, p_p, coefs, **kw)
+            return kernel.fn(u_phys, r_nbr, p_nbr, r_p, p_p, coefs, **kw)
+
+        if not (overlap and self.is_multi_host):
+            # one slab (or overlap off): one fused pass, nothing to exchange
+
+            def fused_whole(u_phys, r_p, p_p, coefs):
+                tr = plan.tracer
+                if not tr.enabled:
+                    p_new, s = whole(u_phys, r_p, p_p, coefs)
+                    return p_new, h["shift"](p_new, coefs[0, 1], s)
+                with tr.span("cg.interior"):
+                    p_new, s = whole(u_phys, r_p, p_p, coefs)
+                    plan._sync()
+                return p_new, h["shift"](p_new, coefs[0, 1], s)
+
+            self._cg_applies[key] = fused_whole
+            return fused_whole
+
+        # the overlap schedule: the stencil's geometry, but the exchange
+        # copies the ghosts of both fields (p' at a ghost site is r + beta p,
+        # formed in the kernel, never exchanged); the boundary pass writes
+        # the raw S(p') and the sigma shift runs once on the merged field
+        g = self._boundary_geometry()
+        n, wd = g["n"], (2, layouts.SU3, g["n"])
+        gh = {k: self._buffer(f"cg_{k}", wd) for k in ("r_gf", "r_gb", "p_gf", "p_gb")}
+
+        def exchange(r_p, p_p):
+            for k, v in (("r", r_p), ("p", p_p)):
+                torch.index_select(v, 2, g["fwd"], out=gh[f"{k}_gf"])
+                torch.index_select(v, 2, g["bwd"], out=gh[f"{k}_gb"])
+            return gh["r_gf"], gh["r_gb"], gh["p_gf"], gh["p_gb"]
+
+        def boundary(u_phys, r_p, p_p, r_gf, r_gb, p_gf, p_gb, coefs, s_i):
+            r_nbr = self._boundary_nbr(r_p, r_gf, r_gb, "r_boundary")
+            p_nbr = self._boundary_nbr(p_p, p_gf, p_gb, "p_boundary")
+            r_b, p_b = r_p.index_select(2, g["bidx_pad"]), p_p.index_select(2, g["bidx_pad"])
+            _p_new_b, s_b = kernel.fn(self._site_links(u_phys, g["bidx_pad"]), r_nbr, p_nbr,
+                                      r_b, p_b, coefs, **kw)
+            return s_i.index_copy_(2, g["bidx"], s_b[:, :, :n])
+
+        def fused_overlapped(u_phys, r_p, p_p, coefs):
+            tr = plan.tracer
+            if not tr.enabled:
+                ghosts, done = plan._issue_exchange(lambda: exchange(r_p, p_p))
+                p_new, s_i = whole(u_phys, r_p, p_p, coefs)  # slab-local, alongside
+                plan._await_exchange(done)
+                s = boundary(u_phys, r_p, p_p, *ghosts, coefs, s_i)
+                return p_new, h["shift"](p_new, coefs[0, 1], s)
+            with tr.span("cg.exchange"):
+                ghosts, _done = plan._issue_exchange(lambda: exchange(r_p, p_p))
+                plan._sync()
+            with tr.span("cg.interior"):
+                p_new, s_i = whole(u_phys, r_p, p_p, coefs)
+                plan._sync()
+            with tr.span("cg.boundary"):
+                s = boundary(u_phys, r_p, p_p, *ghosts, coefs, s_i)
+                plan._sync()
             return p_new, h["shift"](p_new, coefs[0, 1], s)
 
-        self._cg_applies[key] = fused_whole
-        return fused_whole
+        self._cg_applies[key] = fused_overlapped
+        return fused_overlapped
 
     def cg_state_init(
         self,
@@ -880,6 +1380,8 @@ class ExecutionPlan:
         if u_phys is None:
             raise ValueError("resuming cg_state_init from x0_p needs u_phys "
                              "to form r0 = b - A x0")
+        if overlap is None:
+            overlap = self.is_multi_host
         apply_fn = self._cg_apply(fused, bool(overlap))
         zeros, _r, _p = h["init"](b_p)
         # beta = 0 makes the apply's p' = x0 exactly, so ap = A x0
@@ -900,7 +1402,10 @@ class ExecutionPlan:
     ) -> dict[str, Any]:
         """Advance the CG state by ONE iteration.  Everything stays on the
         device (beta and sigma travel in ``coefs``, nothing is fetched); the
-        caller decides when to read ``state["rs"]``."""
+        caller decides when to read ``state["rs"]``.  ``overlap=None`` is
+        the overlap schedule on several slabs, the single pass on one."""
+        if overlap is None:
+            overlap = self.is_multi_host
         h = self._cg_helpers()
         apply_fn = self._cg_apply(fused, bool(overlap))
         coefs = h["coef"](state["beta"], sigma)
@@ -934,7 +1439,9 @@ class ExecutionPlan:
         Convergence is checked one iteration LATE: iteration ``i+1`` is
         issued before iteration ``i``'s residual reaches the host (a copy
         that waits for iteration ``i`` only), so at most one extra iteration
-        runs past convergence.
+        runs past convergence.  With the tracer on, each iteration is a
+        ``cg.iter`` span that synchronizes at its end and each residual
+        fetch a ``cg.reduce`` span.
 
         Args:
             u_phys: the plan's physical gauge lattice (``pack_gauge`` form).
@@ -952,6 +1459,7 @@ class ExecutionPlan:
                 :data:`CG_DIVERGENCE_FACTOR` x ``||b||^2``, with the best
                 iterate.
         """
+        tr = self.tracer
         h = self._cg_helpers()
         t0 = time.perf_counter()
         b_rs = float(h["rr"](b_p))
@@ -986,10 +1494,21 @@ class ExecutionPlan:
                 best = (x, rs_host, it)
 
         for i in range(1, max_iters + 1):
-            state = self.cg_iterate(u_phys, state, sigma=sigma, fused=fused, overlap=overlap)
+            if tr.enabled:
+                with tr.span("cg.iter", it=i, fused=bool(fused)):
+                    state = self.cg_iterate(u_phys, state, sigma=sigma, fused=fused,
+                                            overlap=overlap)
+                    self._sync()
+            else:
+                state = self.cg_iterate(u_phys, state, sigma=sigma, fused=fused,
+                                        overlap=overlap)
             if prev is not None:
                 # lagged check: iteration i is already issued
-                rs_host = prev[1]()
+                if tr.enabled:
+                    with tr.span("cg.reduce", it=i - 1):
+                        rs_host = prev[1]()
+                else:
+                    rs_host = prev[1]()
                 residuals.append((rs_host / b_rs) ** 0.5)
                 if rs_host <= stop2:
                     return CGResult(x_p=prev[0], iterations=i - 1, residuals=residuals,
@@ -1014,6 +1533,10 @@ class ExecutionPlan:
             physical A lattice on the plan's device, the planar B (2, 36),
             seconds of initialization, and the host-to-device copy seconds
             (``host_scatter`` only; 0.0 otherwise).
+
+        On several slabs the ``sharded`` policy goes through
+        :func:`first_touch_init`: each slab is built host-locally and copied
+        into its own range, never the whole lattice at once.
         """
 
         def build(device: torch.device) -> torch.Tensor:
@@ -1030,7 +1553,11 @@ class ExecutionPlan:
             a_phys = a_host.to(self.device)
             _synchronize(self.device)
             scatter_s = time.perf_counter() - t1
-        else:  # sharded, and replicated (one device holds the whole lattice)
+        elif self.cfg.placement == "sharded" and self.is_multi_host:
+            ranges = dist_sharding.host_site_ranges(self.padded_sites, self.mesh)
+            a_phys = first_touch_init(self.codec, self.padded_sites, ranges, self.device)
+            _synchronize(self.device)
+        else:  # sharded on one slab, and replicated (one device holds the lattice)
             a_phys = build(self.device)
             _synchronize(self.device)
         init_s = time.perf_counter() - t0
@@ -1067,21 +1594,28 @@ class ExecutionPlan:
         placement = c.placement
         if placement == "replicated":
             placement = "replicated(=sharded on 1 device)"
+        hosts = f"x{self.n_hosts}h" if self.is_multi_host else ""
         return (
             f"{self.codec.layout.value}/{c.variant}/t{c.tile}/{placement}"
-            f"@{self.n_devices}dev:{self.device}/{c.dtype}{acc}{comp}"
+            f"@{self.n_devices}dev{hosts}:{self.device}/{c.dtype}{acc}{comp}"
         )
 
 
-def build_plan(cfg: EngineConfig, device: torch.device | str | None = None) -> ExecutionPlan:
+def build_plan(
+    cfg: EngineConfig, device: MeshSpec | SlabMesh | torch.device | str | None = None
+) -> ExecutionPlan:
     """THE construction site: config tuple -> ExecutionPlan.
 
     Args:
         cfg: the tunable tuple (layout, variant, tile, placement, dtypes, L).
-        device: ``None`` (the CUDA device; raises without CUDA) or an
-            explicit device such as ``"cpu"``.
+        device: ``None`` (the CUDA device; raises without CUDA), an explicit
+            device such as ``"cpu"`` (one slab), a
+            :class:`~repro_torch.launch.mesh.MeshSpec` (its slabs on the
+            CUDA device) or a resolved
+            :class:`~repro_torch.launch.mesh.SlabMesh` (its slabs on its
+            device, e.g. ``MeshSpec(hosts=2).resolve("cpu")``).
     """
-    return ExecutionPlan(cfg, resolve_device(device))
+    return ExecutionPlan(cfg, resolve_mesh(device))
 
 
 class BatchedLatticeRunner:

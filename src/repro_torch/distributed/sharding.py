@@ -6,8 +6,14 @@ into ``n_shards`` contiguous slabs, and a nearest-neighbour stencil needs
 the +-t faces of each slab from its neighbours.  The stencil's neighbour
 tables (``plan.stencil_neighbor_tables``) read the boundary ranges from
 here, and ``ExecutionPlan.stencil_halo`` prices the vector-field exchange.
-The port runs one slab on one card; the meshes that make more than one
-slab are not ported yet.
+
+Where the reference shards arrays with ``NamedSharding`` over a
+``jax.sharding.Mesh``, the port keeps every slab in one tensor on one card:
+a :class:`repro_torch.launch.mesh.SlabMesh` names the slab count, and
+:func:`host_site_ranges` gives each slab's contiguous site range, which the
+plan's first-touch init and its multi-slab schedules index directly.  The
+reference's ``lattice_site_spec`` (a ``PartitionSpec``) has no counterpart:
+nothing here partitions a tensor.
 """
 from __future__ import annotations
 
@@ -18,6 +24,57 @@ _GAUGE_WORDS_PER_SITE = 72  # 4 links x 3x3 complex = 36 complex entries = 72 wo
 VECTOR_WORDS_PER_SITE = 6  # one color 3-vector, planar re+im: the stencil halo
 
 _WORD_BYTES = {"float32": 4, "bfloat16": 2, "float64": 8}
+
+# Axis names of the slab mesh (``repro_torch.launch.mesh``): a one-slab mesh
+# has the single "sites" axis, a multi-slab mesh ("hosts", "devices").
+LATTICE_SITE_AXIS = "sites"
+LATTICE_HOST_AXIS = "hosts"
+LATTICE_DEVICE_AXIS = "devices"
+
+
+def lattice_site_axes(mesh: Any) -> tuple[str, ...]:
+    """The mesh axes the lattice's site dimension runs over, major first:
+    ``("sites",)`` on one slab, ``("hosts", "devices")`` host-major on
+    several (one host's sites are contiguous), else every axis in order.
+
+    Args:
+        mesh: anything with ``axis_names`` (a ``SlabMesh``).
+    """
+    names = tuple(mesh.axis_names)
+    if LATTICE_SITE_AXIS in names:
+        return (LATTICE_SITE_AXIS,)
+    if LATTICE_HOST_AXIS in names and LATTICE_DEVICE_AXIS in names:
+        return (LATTICE_HOST_AXIS, LATTICE_DEVICE_AXIS)
+    return names
+
+
+def _hosts(mesh: Any) -> int:
+    if LATTICE_HOST_AXIS in mesh.axis_names:
+        return int(mesh.shape[LATTICE_HOST_AXIS])
+    return 1
+
+
+def lattice_is_multi_host(mesh: Any) -> bool:
+    """True when ``mesh`` carries a host axis of size > 1."""
+    return _hosts(mesh) > 1
+
+
+def host_site_ranges(n_sites: int, mesh: Any) -> list[tuple[int, int]]:
+    """Each host's contiguous site range ``[(lo, hi), ...]``; one range
+    covering everything on a single-slab mesh.
+
+    Raises:
+        ValueError: ``n_sites`` does not divide over the hosts (plans pad
+            the lattice to a whole number of tiles per device first).
+    """
+    hosts = _hosts(mesh)
+    if n_sites % hosts:
+        raise ValueError(
+            f"{n_sites} sites do not divide over {hosts} hosts; pad the "
+            f"lattice (plans do this) before asking for host ranges"
+        )
+    per = n_sites // hosts
+    return [(h * per, (h + 1) * per) for h in range(hosts)]
 
 
 @dataclasses.dataclass(frozen=True)

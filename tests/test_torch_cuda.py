@@ -252,6 +252,106 @@ def test_cuda_stencil_wrappers_reject_bad_operands(cuda_device):
         ops.su3_cg_fused_planar(u, v, rn, r, p, torch.zeros(1, 2), tile=64)
 
 
+# -- the multi-slab schedules ------------------------------------------------------
+
+
+def _slab_plans(cuda_device, hosts: int, L: int = 16, **fields):
+    from repro_torch.core.su3.plan import EngineConfig, build_plan
+    from repro_torch.launch.mesh import MeshSpec
+
+    cfg = EngineConfig(L=L, tile=128, **fields)
+    return build_plan(cfg, cuda_device), build_plan(cfg, MeshSpec(hosts=hosts).resolve(cuda_device))
+
+
+def _slab_field(plan, seed: int):
+    rng = np.random.default_rng(seed)
+    n = plan.cfg.shape.n_sites
+    u = _su3_planar(n, seed)  # (2, 36, n)
+    u_c = torch.complex(*torch.from_numpy(u.astype(np.float32))).T.reshape(n, 4, 3, 3)
+    v = torch.from_numpy((rng.standard_normal((n, 3)) + 1j * rng.standard_normal((n, 3)))
+                         .astype(np.complex64))
+    return plan.pack_gauge(u_c), plan.pack_rhs(v)
+
+
+def _recording(monkeypatch, name: str, sink: list, u_phys: torch.Tensor):
+    """Record the inputs of every launch of kernel ``name`` on links other
+    than the lattice's own (the boundary and ring passes), then launch."""
+    from repro_torch.kernels import su3_stencil
+
+    orig = getattr(su3_stencil, name)
+
+    def rec(*args, **kw):
+        if args[0].data_ptr() != u_phys.data_ptr():
+            sink.append(([a.clone() for a in args], dict(kw)))
+        return orig(*args, **kw)
+
+    monkeypatch.setattr(su3_stencil, name, rec)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hosts", [2, 4])
+def test_cuda_multislab_stencil_chain_equals_serial(cuda_device, hosts):
+    """Twenty chained overlapped steps (each one's output the next one's
+    input) equal the serial chain bit for bit: the side-stream exchange
+    never reads a field before the main stream made it, and never refills
+    the ghost buffers while a boundary pass still reads them."""
+    one, many = _slab_plans(cuda_device, hosts)
+    u, v = _slab_field(many, 5)
+    serial, ovl, ovl2 = one.stencil_step(), many.stencil_step(), many.stencil_step(depth=2)
+    a = b = c = v
+    for _ in range(20):
+        a, b = serial(u, a), ovl(u, b)
+    for _ in range(10):
+        c = ovl2(u, c)
+    torch.cuda.synchronize()
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert torch.equal(a.view(torch.int32), c.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hosts", [2, 4])
+def test_cuda_boundary_and_ring_shapes_match_plain(cuda_device, monkeypatch, hosts):
+    from repro_torch.kernels import su3_stencil
+
+    _one, many = _slab_plans(cuda_device, hosts)
+    u, v = _slab_field(many, 6)
+    st, cg = [], []
+    _recording(monkeypatch, "su3_stencil_planar", st, u)
+    _recording(monkeypatch, "su3_cg_fused_planar", cg, u)
+    many.stencil_step(depth=2)(u, v)
+    many.cg_iterate(u, many.cg_state_init(v))
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    b = 2 * 16**3 * hosts  # boundary sites of every slab
+    assert sorted(args[0].shape[-1] for args, _ in st) == [b, b, 2 * b]
+    assert [args[0].shape[-1] for args, _ in cg] == [b]
+    for args, kw in st:
+        got = su3_stencil.su3_stencil_planar(*args, **kw).cpu()
+        want = su3_stencil.su3_stencil_planar_plain(*(a.cpu() for a in args))
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    for args, kw in cg:
+        got = su3_stencil.su3_cg_fused_planar(*args, **kw)
+        want = su3_stencil.su3_cg_fused_planar_plain(*(a.cpu() for a in args))
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu().view(torch.int32), w.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hosts", [2, 4])
+def test_cuda_overlapped_cg_equals_one_slab(cuda_device, hosts):
+    from repro_torch.core.autotune import _cg_measure_problem
+
+    one, many = _slab_plans(cuda_device, hosts)
+    u_np, b_np = _cg_measure_problem(16)
+    r1 = one.cg_solve(one.pack_gauge(u_np), one.pack_rhs(b_np))
+    r2 = many.cg_solve(many.pack_gauge(u_np), many.pack_rhs(b_np), fused=True, overlap=True)
+    r3 = many.cg_solve(many.pack_gauge(u_np), many.pack_rhs(b_np), fused=False, overlap=True)
+    assert r1.converged and r2.iterations == r1.iterations == r3.iterations
+    assert r2.residuals == r1.residuals == r3.residuals
+    assert torch.equal(r2.x_p.view(torch.int32), r1.x_p.view(torch.int32))
+    assert torch.equal(r3.x_p.view(torch.int32), r1.x_p.view(torch.int32))
+
+
 # -- the prefill attention kernel ------------------------------------------------
 
 FLASH_SHAPES = [  # (batch, sq, skv, hq, hkv, d, causal, q_offset)
