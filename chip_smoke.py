@@ -35,6 +35,16 @@ source, started together) and, at the paper's L=32 lattice:
     in prefill, none in decode); holds the decode logits against a
     teacher-forced prefill, and the card against the port's CPU path at 2
     layers in f32;
+  * the training phase: holds the flash backward kernel against its plain
+    version in eight forms (and twice bitwise), and the forward's ``out``
+    with and without lse; trains full-width qwen3-4b (36 layers, f32 master
+    weights and AdamW moments, bf16 compute, remat) through
+    ``train.loop.train`` for 5 steps on 2 x 1,024 tokens from the seeded
+    ``TokenPipeline``, with the counters set to 0 just before and read just
+    after (72 flash forward launches a step, 36 in the remat recompute; 36
+    backward calls); profiles one more step; holds one step's loss and
+    gradients on the card against the CPU at 2 layers in f32, and 4 steps
+    straight against 2 + checkpoint + restore + 2, bitwise, on the card;
   * times each kernel against its bound, its plain version and, where one
     PyTorch call computes the same function, that call (every time in the
     kernels line from eager calls; the flash kernel and SDPA also in a CUDA
@@ -47,7 +57,8 @@ It prints:
   * the HGMMA, UTMALDG and HMMA counts of the built flash-attention library
     (``cuobjdump -sass``): its bf16 body must run wgmma fed by TMA;
   * one JSON line per check, per main-path row and per yardstick;
-  * a ``{"kernels": [...]}`` line with each ported kernel's numbers;
+  * a ``{"kernels": [...]}`` line with each ported kernel's numbers (the
+    flash backward beside the forward);
   * last, ``{"ok": true, "device": {...}}`` — only if every phase passed.
 
 The whole output is over 20 KB; where only the end of a log is kept, run
@@ -100,6 +111,31 @@ LM_TEACHER_TOL = 0.1
 # another order (cuBLAS against the CPU's BLAS, the kernel's 64-key tiles
 # against 1,024-key chunks), ~1e-6 relative per op on O(1) logits
 LM_CROSS_TOL = 1e-3
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 1024, 5  # 2 x 1,024 tokens a step, 5 steps
+# step 1's loss against ln(vocab): the init's 0.02 embedding (tied) gives
+# logits of ~1e-2, a near-uniform softmax
+TRAIN_START_TOL = 1.0
+# one train step's loss and gradients, the card against the CPU at 2 layers
+# in f32, TF32 off: sums in another order (cuBLAS and the kernels' tiles
+# against the CPU's BLAS and 512 / 1,024-row chunks), ~1e-6 relative per op;
+# an element near zero carries the rounding of the terms that cancelled in
+# it, so each gradient is held against its largest magnitude
+TRAIN_CROSS_LOSS_TOL = 1e-4
+TRAIN_CROSS_GRAD_TOL = 1e-3
+TRAIN_CROSS_SEQ = 128
+# the backward replaces the reference's autodiff of its chunked attention:
+# flash_attention_tpu (FLASH_REPLACES) has no backward
+BWD_SOURCE_LINE = "src/repro/models/attention.py:52"
+BWD_FORMS = [  # (label, batch, sq, skv, hq, hkv, d, causal, q_offset, dtype)
+    ("training shape bf16 causal", 2, 1024, 1024, 32, 8, 128, True, 0, "bfloat16"),
+    ("training shape f32 causal", 2, 1024, 1024, 32, 8, 128, True, 0, "float32"),
+    ("ragged 100 G=4 D=64 bf16", 1, 100, 100, 4, 1, 64, True, 0, "bfloat16"),
+    ("ragged 100 G=1 D=32 f32 non-causal", 1, 100, 100, 4, 4, 32, False, 0, "float32"),
+    ("Sq<Skv q_offset 136 G=4 D=64 f32", 2, 64, 200, 8, 2, 64, True, 136, "float32"),
+    ("Sq<Skv q_offset 136 G=4 D=32 bf16", 2, 64, 200, 8, 2, 32, True, 136, "bfloat16"),
+    ("Sq<Skv G=1 D=64 bf16 non-causal", 1, 64, 200, 4, 4, 64, False, 0, "bfloat16"),
+    ("ragged 130 G=4 D=128 f32", 1, 130, 130, 8, 2, 128, True, 0, "float32"),
+]
 FLASH_FORMS = [  # (label, batch, sq, skv, hq, hkv, d, causal, q_offset, dtype)
     ("main path bf16 causal", 4, 1024, 1024, 32, 8, 128, True, 0, "bfloat16"),
     ("main path f32 causal", 4, 1024, 1024, 32, 8, 128, True, 0, "float32"),
@@ -208,7 +244,7 @@ def _counters() -> tuple:
     from repro_torch.kernels import flash_attention, su3_matmul, su3_stencil
 
     return (su3_matmul.LAUNCHES, su3_matmul.MEGA_LAUNCHES, su3_stencil.STENCIL_LAUNCHES,
-            su3_stencil.CG_LAUNCHES, flash_attention.LAUNCHES)
+            su3_stencil.CG_LAUNCHES, flash_attention.LAUNCHES, flash_attention.BWD_LAUNCHES)
 
 
 def _reset_counts() -> None:
@@ -302,6 +338,21 @@ def main(argv: list[str] | None = None) -> int:
            "columns": ["body", "dtype", "head_dim", "causal", "num_regs", "local_bytes",
                        "shared_bytes", "threads_per_block", "blocks_per_sm", "occupancy"],
            "forms": flash_forms})
+    bwd_forms = []
+    for dtype in ("float32", "bfloat16"):
+        for d in flash_attention.HEAD_DIMS:
+            for causal in (True, False):
+                for kname, b in flash_attention.bwd_budget(getattr(torch, dtype), d,
+                                                            causal).items():
+                    bwd_forms.append([kname, dtype, d, causal, b["num_regs"], b["local_bytes"],
+                                      b["shared_bytes"], b["threads_per_block"],
+                                      b["blocks_per_sm"]])
+                    if b["local_bytes"] or b["blocks_per_sm"] < 1:
+                        failures.append(f"flash_attention_bwd {kname} {dtype} D={d}: {b}")
+    _emit({"kernel_budget": "flash_attention_bwd",
+           "columns": ["kernel", "dtype", "head_dim", "causal", "num_regs", "local_bytes",
+                       "shared_bytes", "threads_per_block", "blocks_per_sm"],
+           "forms": bwd_forms})
     # the bf16 body runs on the tensor cores: wgmma (HGMMA) fed by TMA (UTMALDG)
     sass = _tool_output([str(pathlib.Path(_build.nvcc_path()).parent / "cuobjdump"), "-sass",
                            str(_build.library_path("flash_attention"))])
@@ -479,6 +530,15 @@ def main(argv: list[str] | None = None) -> int:
     # -- 5b. the LM phase: the flash kernel, ServeEngine on qwen3-4b -----------------
     flash = _lm_phase(args.seed, hw, failures)
 
+    # -- 5c. the training phase: the flash backward, training qwen3-4b -------------
+    # full-width training needs ~70 GB of the card: free the SU3 phases' data
+    del u, b_c, a, b, got, plain, vecs, codec, chained, x, in_place, aliased, b_mat, b16
+    del engine
+    torch.cuda.empty_cache()
+    flash_bwd, train_fwd_launches = _train_phase(args.seed, hw, failures)
+    flash["serve_launches"], flash["train_launches"] = flash["launches"], train_fwd_launches
+    flash["launches"] += train_fwd_launches
+
     # -- 6. the kernels line -----------------------------------------------------------
     _emit({"kernels": [{
         "name": "su3_mult_planar", "route": "cuda", "source": KERNEL_SOURCE,
@@ -498,6 +558,9 @@ def main(argv: list[str] | None = None) -> int:
     }, {
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES, **flash,
+    }, {
+        "name": "flash_attention_bwd", "route": "cuda", "source": FLASH_SOURCE,
+        "replaces": BWD_SOURCE_LINE, **flash_bwd,
     }]})
 
     print(card)  # again, next to the results (the first lines may scroll away)
@@ -1150,10 +1213,27 @@ def _profile(fn, top: int = 6) -> dict:
     dev = lambda e: getattr(e, "self_device_time_total", 0.0) / 1e3  # noqa: E731  (us -> ms)
     device_ms = sum(dev(e) for e in kernels) or None
     ranked = sorted(kernels, key=dev, reverse=True)[:top]
+    by_class: dict[str, float] = {}
+    for e in kernels:
+        by_class[_kernel_class(e.key)] = by_class.get(_kernel_class(e.key), 0.0) + dev(e)
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "idle_share": None if device_ms is None else max(0.0, 1.0 - device_ms / wall_ms),
             "kernel_launches": sum(e.count for e in kernels),
+            "device_ms_by_class": by_class,
             "top_kernels": [[e.key[:60], dev(e), e.count] for e in ranked]}
+
+
+def _kernel_class(name: str) -> str:
+    """The port's kernels by name; cuBLAS's matrix products (``nvjet``,
+    ``gemm``, ``cutlass``); every other kernel (elementwise passes,
+    reductions, copies) as ``other``."""
+    if "flash_bwd" in name:
+        return "flash_attention_bwd"
+    if "flash_attention" in name:
+        return "flash_attention"
+    if any(tag in name.lower() for tag in ("nvjet", "gemm", "cutlass", "xmma")):
+        return "matmul"
+    return "other"
 
 
 def _lm_phase(seed: int, hw, failures: list[str]) -> dict:
@@ -1341,6 +1421,267 @@ def _lm_phase(seed: int, hw, failures: list[str]) -> dict:
     return {"launches": launches, "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
             "bound_ms": None if bound is None else bound.bound_s * 1e3,
             "bound_by": None if bound is None else bound.bound_by, "library_ms": library_ms}
+
+
+def _bwd_checks(rng, failures: list[str]) -> float:
+    """The flash backward kernel against its plain version on the card in
+    every form of BWD_FORMS, within ``kernel_tolerance`` scaled to each
+    gradient's largest magnitude (``flash_attention.kernel_tolerance``
+    states the rule); each form twice, bitwise; the forward's ``out`` with
+    lse against without it (bitwise) and its lse against the plain
+    version's (within 1e-5 + 1e-5 relative: f32 sums in another order).
+    Returns the largest absolute error of dq, dk and dv."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    dev, worst = torch.device("cuda"), 0.0
+    for label, b, sq, skv, hq, hkv, d, causal, q_offset, dtype in BWD_FORMS:
+        dt = getattr(torch, dtype)
+        q, k, v, dout = (torch.from_numpy(rng.standard_normal(shp, dtype=np.float32)).to(dev, dt)
+                         for shp in ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d),
+                                     (b, sq, hq, d)))
+        kw = dict(causal=causal, q_chunk=512, kv_chunk=1024, q_offset=q_offset)
+        bare, _ = fa._forward(q, k, v, with_lse=False, **kw)
+        out, lse = fa._forward(q, k, v, with_lse=True, **kw)
+        _, lse_plain = fa.flash_attention_plain(q, k, v, return_lse=True, **kw)
+        got = fa.flash_attention_bwd(q, k, v, out, dout, lse, causal=causal, q_offset=q_offset)
+        again = fa.flash_attention_bwd(q, k, v, out, dout, lse, causal=causal, q_offset=q_offset)
+        want = fa.flash_attention_bwd_plain(q, k, v, out, dout, lse, **kw)
+        torch.cuda.synchronize()
+        atol, rtol = fa.kernel_tolerance(dt)
+        row = {"check": "kernel_vs_plain", "kernel": "flash_attention_bwd", "form": label,
+               "shape": [b, sq, skv, hq, hkv, d], "causal": causal, "q_offset": q_offset,
+               "dtype": dtype, "atol": atol, "rtol_of_max": rtol}
+        ok = True
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            err, scale = (g.float() - w.float()).abs().max().item(), w.float().abs().max().item()
+            row[f"{name}_max_abs_err"], row[f"{name}_max"] = err, scale
+            ok = ok and err <= atol + rtol * scale and bool(torch.isfinite(g.float()).all())
+            worst = max(worst, err)
+        row["bitwise_twice"] = all(torch.equal(x, y) for x, y in zip(got, again))
+        row["out_bitwise_with_lse"] = torch.equal(out, bare)
+        lse_diff = (lse - lse_plain).abs()
+        row["lse_max_abs_err"] = lse_diff.max().item()
+        lse_ok = bool((lse_diff <= 1e-5 + 1e-5 * lse_plain.abs()).all())
+        row["ok"] = ok and row["bitwise_twice"] and row["out_bitwise_with_lse"] and lse_ok
+        _emit(row)
+        if not row["ok"]:
+            failures.append(f"flash_attention_bwd vs plain {label}: {row}")
+        del q, k, v, dout, bare, out, lse, lse_plain, got, again, want
+    return worst
+
+
+def _train_phase(seed: int, hw, failures: list[str]) -> tuple[dict, int]:
+    """The training path on the card: the backward kernel's checks; then
+    ``train.loop.train`` on full-width, full-depth qwen3-4b (f32 master
+    weights and moments, bf16 compute, remat; ~68 GB of the card) for
+    TRAIN_STEPS steps with the counters set to 0 just before and read just
+    after; one more step profiled, and one split into gradients and
+    optimizer; one step's
+    loss and gradients, the card against the CPU, at 2 layers in f32; 4
+    steps straight against 2 + checkpoint + restore + 2, bitwise, on the
+    card; the backward's yardsticks at the training shape.  Returns the
+    backward's entry of the kernels line and the forward launches of the
+    training run."""
+    import copy
+    import dataclasses
+    import math
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import roofline
+    from repro_torch.data.pipeline import DataConfig, PipelineState, TokenPipeline, make_train_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import common, registry
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import loop, train_step
+
+    rng = np.random.default_rng(seed + 17)
+    max_err = _bwd_checks(rng, failures)
+    dev = torch.device("cuda")
+    base = get_config(LM_ARCH)
+    opt = AdamWConfig(peak_lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+    tcfg = loop.TrainConfig(steps=TRAIN_STEPS, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                            log_every=1, seed=seed, opt=opt)
+
+    # -- the main path: full width and depth ----------------------------------------------
+    cfg, log_lines = base, []
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = loop.train(cfg, tcfg, log=log_lines.append, device=dev)
+    wall_s = time.perf_counter() - t0
+    counts = _counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    fwd, bwd = counts[fa.LAUNCHES.name], counts[fa.BWD_LAUNCHES.name]
+    for line in log_lines:
+        print(f"train: {line}")
+    hist, step_ms = out["history"], out["step_ms"]
+    for h, ms in zip(hist, step_ms):
+        _emit({"train_step": h["step"], "loss": h["loss"], "grad_norm": h["grad_norm"],
+               "lr": h["lr"], "step_ms": ms})
+    params, opt_state = out["params"], out["opt_state"]
+    del out
+    n_params = common.count_params(params)
+    # where the time goes: one more step under the profiler
+    step_fn = train_step.make_train_step(cfg, opt, q_chunk=512, kv_chunk=1024)
+    pipe = TokenPipeline(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=seed))
+    batch, _ = make_train_batch(pipe, PipelineState(step=TRAIN_STEPS), cfg, device=dev)
+    prof = _profile(lambda: step_fn(params, opt_state, batch), top=10)
+    _emit({"profile": f"lm train step ({TRAIN_BATCH} x {TRAIN_SEQ} tokens)", **prof})
+    # the step split, unprofiled: gradients (forward, remat recompute, backward)
+    # and then the optimizer, between CUDA events
+    grad_fn = train_step.make_grad_fn(cfg, q_chunk=512, kv_chunk=1024)
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    marks[0].record()
+    grads, _ = grad_fn(params, batch)
+    marks[1].record()
+    adamw.update(grads, opt_state, params, opt)
+    marks[2].record()
+    torch.cuda.synchronize()
+    grad_ms, opt_ms = marks[0].elapsed_time(marks[1]), marks[1].elapsed_time(marks[2])
+    del params, opt_state, batch, step_fn, grads
+    torch.cuda.empty_cache()
+
+    losses, gnorms = [h["loss"] for h in hist], [h["grad_norm"] for h in hist]
+    start = math.log(cfg.vocab_size)
+    median_ms = float(np.median(step_ms[1:]))
+    steps = len(hist)
+    row = {"row": "lm train", "arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model, "vocab": cfg.vocab_size, "params": n_params,
+           "master_dtype": "float32", "moment_dtype": opt.moment_dtype,
+           "compute_dtype": cfg.dtype, "remat": True, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "steps": steps, "losses": losses, "grad_norms": gnorms, "step_ms": step_ms,
+           "step_ms_median_2_5": median_ms,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / median_ms * 1e3,
+           "split_grad_ms": grad_ms, "split_optimizer_ms": opt_ms,
+           "peak_memory_GB": peak_gb, "wall_s": wall_s,
+           "flash_launches": fwd, "flash_bwd_launches": bwd,
+           "flash_launches_per_step": fwd / steps, "flash_bwd_launches_per_step": bwd / steps,
+           "expected_per_step": [2 * cfg.n_layers, cfg.n_layers],
+           "other_launches": sum(counts.values()) - fwd - bwd,
+           "idle_share": prof["idle_share"], "start_loss_target": start,
+           "start_loss_tol": TRAIN_START_TOL}
+    row["ok"] = (steps == TRAIN_STEPS and all(math.isfinite(x) for x in losses + gnorms)
+                 and abs(losses[0] - start) <= TRAIN_START_TOL
+                 and fwd == 2 * cfg.n_layers * steps and bwd == cfg.n_layers * steps
+                 and row["other_launches"] == 0)
+    _emit(row)
+    if not row["ok"]:
+        failures.append(f"lm train main path: {row}")
+
+    # -- one step's loss and gradients: the card against the CPU, 2 layers, f32 -------
+    cfg2 = dataclasses.replace(base, n_layers=2, dtype="float32")
+    model = common.trainable(registry.get(cfg2).init(torch.Generator().manual_seed(seed), cfg2))
+    card_model = copy.deepcopy(model).to(dev)
+    cross_pipe = TokenPipeline(DataConfig(cfg2.vocab_size, TRAIN_CROSS_SEQ, TRAIN_BATCH, seed=seed))
+    found = {}
+    for name, m, where in (("cpu", model, "cpu"), ("card", card_model, dev)):
+        batch, _ = make_train_batch(cross_pipe, PipelineState(), cfg2, device=where)
+        grads, metrics = train_step.make_grad_fn(cfg2, q_chunk=TRAIN_CROSS_SEQ,
+                                                 kv_chunk=TRAIN_CROSS_SEQ)(m, batch)
+        found[name] = ({n: g.cpu() for n, g in grads.items()},
+                       {k: v.item() for k, v in metrics.items()})
+        del grads
+    del model, card_model
+    (g_cpu, m_cpu), (g_card, m_card) = found["cpu"], found["card"]
+    loss_rel = abs(m_card["loss"] - m_cpu["loss"]) / abs(m_cpu["loss"])
+    leaf_errs = {n: (g_card[n] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
+                 for n, g in g_cpu.items()}
+    worst_leaf = max(leaf_errs, key=leaf_errs.get)
+    cross = {"row": "lm train cross-device", "arch": cfg2.name, "n_layers": 2, "dtype": "float32",
+             "tf32": torch.backends.cuda.matmul.allow_tf32, "batch": TRAIN_BATCH,
+             "seq": TRAIN_CROSS_SEQ, "loss_cpu": m_cpu["loss"], "loss_card": m_card["loss"],
+             "loss_rel_diff": loss_rel, "loss_tol": TRAIN_CROSS_LOSS_TOL, "leaves": len(leaf_errs),
+             "worst_leaf": worst_leaf, "worst_leaf_err_of_max": leaf_errs[worst_leaf],
+             "grad_tol_of_max": TRAIN_CROSS_GRAD_TOL}
+    cross["ok"] = (loss_rel <= TRAIN_CROSS_LOSS_TOL and not cross["tf32"]
+                   and leaf_errs[worst_leaf] <= TRAIN_CROSS_GRAD_TOL)
+    _emit(cross)
+    if not cross["ok"]:
+        failures.append(f"lm train cross-device: {cross}")
+    del found, g_cpu, g_card
+
+    # -- resume: 4 steps straight against 2 + checkpoint + restore + 2, on the card ----
+    ckpt_dir = ROOT / "build" / "chip_smoke_checkpoints"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    quiet = lambda line: None  # noqa: E731
+
+    def resume_cfg(n: int, directory: str | None):
+        return loop.TrainConfig(steps=n, seq_len=TRAIN_CROSS_SEQ, global_batch=TRAIN_BATCH,
+                                log_every=1, seed=seed, checkpoint_dir=directory,
+                                checkpoint_every=100,
+                                opt=AdamWConfig(peak_lr=3e-4, warmup_steps=2, total_steps=4))
+
+    t0 = time.perf_counter()
+    straight = loop.train(cfg2, resume_cfg(4, None), log=quiet, device=dev)
+    first = loop.train(cfg2, resume_cfg(2, str(ckpt_dir)), log=quiet, device=dev)
+    first_hist = first["history"]
+    del first
+    torch.cuda.empty_cache()
+    resumed = loop.train(cfg2, resume_cfg(4, str(ckpt_dir)), log=quiet, device=dev)
+    same_params = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        straight["params"].named_parameters(), resumed["params"].named_parameters()))
+    same_moments = all(torch.equal(straight["opt_state"][k][n], resumed["opt_state"][k][n])
+                       for k in ("m", "v") for n in straight["opt_state"][k])
+    losses_straight = [h["loss"] for h in straight["history"]]
+    losses_resumed = [h["loss"] for h in first_hist + resumed["history"]]
+    resume = {"row": "lm train resume", "arch": cfg2.name, "n_layers": 2, "dtype": "float32",
+              "losses_straight": losses_straight, "losses_resumed": losses_resumed,
+              "params_bitwise": same_params, "moments_bitwise": same_moments,
+              "seconds": time.perf_counter() - t0}
+    resume["ok"] = same_params and same_moments and losses_straight == losses_resumed
+    _emit(resume)
+    if not resume["ok"]:
+        failures.append(f"lm train resume: {resume}")
+    del straight, resumed
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # -- yardsticks at the training shape ------------------------------------------------
+    b, s, hq, hkv, d = TRAIN_BATCH, TRAIN_SEQ, base.n_heads, base.n_kv_heads, base.head_dim
+    q, k, v, dout = (torch.from_numpy(rng.standard_normal(shp, dtype=np.float32)).to(
+        dev, torch.bfloat16) for shp in ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d),
+                                         (b, s, hq, d)))
+    o, lse = fa._forward(q, k, v, causal=True, q_chunk=512, kv_chunk=1024, q_offset=0,
+                         with_lse=True)
+    kernel_ms = _time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, dout, lse), reps=10)
+    plain_ms = _time_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, o, dout, lse), reps=3,
+                        warmup=1)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    o_lib = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                             enable_gqa=True)
+    sdpa_bwd = lambda: torch.autograd.grad(o_lib, (qt, kt, vt), dout.transpose(1, 2),  # noqa: E731
+                                           retain_graph=True)
+    library_ms = _time_ms(sdpa_bwd, reps=10)
+    lib_dq = sdpa_bwd()[0].transpose(1, 2).float()
+    lib_diff = (lib_dq - fa.flash_attention_bwd(q, k, v, o, dout, lse)[0].float()).abs().max()
+    bound = roofline.attention_bwd_bound(batch=b, sq=s, skv=s, hq=hq, hkv=hkv, d=d,
+                                         dtype=torch.bfloat16, hw=hw) if hw is not None else None
+    fp32_bound = roofline.attention_bwd_bound(batch=b, sq=s, skv=s, hq=hq, hkv=hkv, d=d,
+                                              dtype=torch.float32, hw=hw) if hw else None
+    _emit({"yardstick": f"flash_attention_bwd bf16 causal B={b} S={s} Hq={hq} Hkv={hkv} D={d}",
+           "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "library_call": "backward of F.scaled_dot_product_attention(is_causal=True, "
+                           "enable_gqa=True) (torch.autograd.grad)",
+           "library_dq_max_abs_diff": lib_diff.item(),
+           "flops": None if bound is None else bound.flops,
+           "bytes": None if bound is None else bound.bytes,
+           "bound_ms": None if bound is None else bound.bound_s * 1e3,
+           "bound_by": None if bound is None else bound.bound_by,
+           "fp32_core_bound_ms": None if fp32_bound is None else fp32_bound.compute_s * 1e3,
+           "kernel_TFLOPs": None if bound is None else bound.flops / kernel_ms / 1e9,
+           "bound_share": None if bound is None else bound.bound_s * 1e3 / kernel_ms})
+    return ({"launches": bwd, "launches_per_step": bwd / steps, "max_abs_err": max_err,
+             "ms": kernel_ms, "plain_ms": plain_ms,
+             "bound_ms": None if bound is None else bound.bound_s * 1e3,
+             "bound_by": None if bound is None else bound.bound_by,
+             "library_ms": library_ms}, fwd)
 
 
 MULTISLAB_FORMS = [  # (label, hosts, layout, dtype, accum, compression)

@@ -289,3 +289,39 @@ def attention_bound(
         bytes=float(word * batch * (2 * sq * hq * d + 2 * skv * hkv * d)),
         peak_flops=hw.peak_flops_bf16 if dtype == torch.bfloat16 else hw.peak_flops_fp32,
     )
+
+
+def attention_bwd_bound(
+    *,
+    batch: int,
+    sq: int,
+    skv: int,
+    hq: int,
+    hkv: int,
+    d: int,
+    causal: bool = True,
+    q_offset: int = 0,
+    dtype: torch.dtype = torch.bfloat16,
+    hw: HardwareSpec | None = None,
+) -> SU3Roofline:
+    """Bound of one attention backward: q, k, v, out, dout and the f32 lse
+    read once, dq, dk and dv written once, against five products (S = Q K^T
+    recomputed, dP = dO V^T, dV = P^T dO, dQ = dS K, dK = dS^T Q) of 2 D
+    flops each per visible (query, key) pair of every query head, at the
+    peak of ``dtype``.
+
+    Raises:
+        LookupError: when no spec is given and the card is unknown.
+    """
+    hw = hw if hw is not None else current_hardware()
+    if hw is None:
+        raise LookupError("no Hopper spec for this device; pass hw= explicitly")
+    word = torch.empty((), dtype=dtype).element_size()
+    pairs = visible_pairs(sq, skv, causal=causal, q_offset=q_offset)
+    return SU3Roofline(
+        name=f"attention_bwd_b{batch}_q{sq}_k{skv}_h{hq}/{hkv}_d{d}",
+        hw=hw,
+        flops=10.0 * batch * hq * d * pairs,
+        bytes=float(word * batch * (4 * sq * hq * d + 4 * skv * hkv * d) + 4 * batch * hq * sq),
+        peak_flops=hw.peak_flops_bf16 if dtype == torch.bfloat16 else hw.peak_flops_fp32,
+    )

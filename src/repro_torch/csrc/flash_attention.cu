@@ -65,7 +65,11 @@
 // skipped tile would add exp(-1e30 - m) = 0 to every row, so skipping
 // changes no bit.  Key 0 lies in the first tile and is seen by every row, so
 // the masked value -1e30 never leaks into a sum.  Any Sq, Skv, q_offset >= 0
-// and non-causal Sq != Skv are served.
+// and non-causal Sq != Skv are served.  Given an lse buffer, both bodies
+// also store each row's log-sum-exp for the backward, after `out`.
+//
+// The backward (flash_attention_bwd, namespace bwd below) is the gradient
+// the reference takes by autodiff: three kernels on the CUDA cores.
 
 #include <cstdint>
 
@@ -88,7 +92,15 @@ struct Params {
   int sq, skv, g, hkv, q_offset;
   float scale;
   long long qs[3], ks[3], vs[3], os[3];  // element strides of (batch, seq, head)
+  float* lse;  // (batch, hq, sq) f32 log-sum-exp of the scaled scores, or null
 };
+
+// lse of folded row (query qi, head h): m + log(l) in units of the scaled
+// score, where m is the row max and l = sum exp(score - m).
+__device__ __forceinline__ void store_lse(const Params& p, int b, long long qi, int h, float m,
+                                          float l) {
+  p.lse[(static_cast<long long>(b) * p.hkv * p.g + h) * p.sq + qi] = m + logf(l);
+}
 
 template <int D>
 constexpr int smem_floats() {
@@ -297,6 +309,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float den = fmaxf(l[i], 1e-37f);
 #pragma unroll
     for (int c = 0; c < kCols; ++c) store1(orow + out_col<D>(tx, c), acc[i][c] / den);
+    if (p.lse != nullptr && tx == 0) store_lse(p, b, qi, h, m[i], l[i]);
   }
 }
 
@@ -726,11 +739,351 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tmk, const __grid_constan
         *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
             __floats2bfloat162_rn(acc[4 * j + 2 * h] * inv, acc[4 * j + 2 * h + 1] * inv);
       }
+      // m is a max of raw q . k: scaled here, as the exponent scales it
+      if (p.lse != nullptr && lane % 4 == 0) store_lse(p, b, qi, head, m[h] * p.scale, l[h]);
     }
   }
 }
 
 }  // namespace tc
+
+// -- backward: CUDA cores ----------------------------------------------------------
+//
+// The gradient of the forward above, which the reference takes by autodiff
+// of its chunked flash_attention (it has no Pallas backward).  With P the
+// softmax probabilities recomputed from q . k and the forward's lse:
+//   delta = rowsum(dO o O)         (f32, one warp per row: flash_bwd_delta)
+//   dV = P^T dO,  dS = P o (dO V^T - delta),  dK = scale dS^T Q
+//                                   (flash_bwd_dkdv: one block per (batch *
+//                                    kv head, tile of 64 keys))
+//   dQ = scale dS K                 (flash_bwd_dq: one block per (batch * kv
+//                                    head, tile of 64 folded rows))
+// No atomics: a dkdv block loops over every folded row tile (all G query
+// heads of its group, read in place through the strides) that sees its keys
+// and writes its dK and dV rows once; a dq block loops over the key tiles
+// its rows see and writes its dQ rows once.  So two calls give the same bits.
+//
+// What bounds it on this card: operations, here on the CUDA cores in f32
+// (67 TFLOP/s), against the tensor cores' 989 TFLOP/s that its bound takes:
+// five products of 2 D flops per visible (query, key) pair and query head,
+// seven here (dq recomputes S and dP).  The design keeps every operand of a
+// tile in shared memory as f32 rows of D + 1 words, so that each inner
+// product reads one word per lane from distinct banks: thread (ty, tx) of
+// 16 x 16 owns score rows tx + 16a and keys ty + 16b (a, b < 4), and output
+// rows ty + 16b, columns tx + 16c.  Storage f32 or bf16, math in f32.
+
+namespace bwd {
+
+constexpr int kRows = 64;      // folded query rows per tile
+constexpr int kKeys = 64;      // keys per tile
+constexpr int kThreads = 256;  // 16 x 16
+constexpr int kDeltaRows = kThreads / 32;  // delta pass: one warp per row
+
+struct Params {
+  int batch, sq, skv, g, hkv, q_offset;
+  float scale;
+  // element strides of (batch, seq, head): q k v o dout dq dk dv
+  long long qs[3], ks[3], vs[3], os[3], dos[3], dqs[3], dks[3], dvs[3];
+  const float* lse;  // (batch, hq, sq), the forward's
+  float* delta;      // (batch, hq, sq), written by flash_bwd_delta
+};
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void put(float* p, float x) { *p = x; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
+
+template <int D>
+constexpr int smem_floats_dkdv() {  // K, V, Q * scale, dO, P, dS, lse, delta
+  return 2 * kKeys * (D + 1) + 2 * kRows * (D + 1) + 2 * kRows * (kKeys + 1) + 2 * kRows;
+}
+template <int D>
+constexpr int smem_floats_dq() {  // Q * scale, dO, K, V, dS, lse, delta
+  return 2 * kRows * (D + 1) + 2 * kKeys * (D + 1) + kRows * (kKeys + 1) + 2 * kRows;
+}
+
+// delta of each (batch, query, head) row: sum over d of dO * O, in f32.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout, const Params p) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, hq = p.g * p.hkv;
+  const long long per_batch = static_cast<long long>(p.sq) * hq;
+  const long long row = static_cast<long long>(blockIdx.x) * kDeltaRows + warp;  // head fastest
+  if (row >= per_batch * p.batch) return;  // the whole warp leaves together
+  const int b = static_cast<int>(row / per_batch);
+  const long long i = row % per_batch / hq;
+  const int h = static_cast<int>(row % hq);
+  const T* orow = o + b * p.os[0] + i * p.os[1] + h * p.os[2];
+  const T* drow = dout + b * p.dos[0] + i * p.dos[1] + h * p.dos[2];
+  float acc = 0.f;
+#pragma unroll
+  for (int c = lane; c < D; c += 32) acc = fmaf(to_f(drow[c]), to_f(orow[c]), acc);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) p.delta[(static_cast<long long>(b) * hq + h) * p.sq + i] = acc;
+}
+
+// Folded rows row0 .. row0 + kRows - 1 of a (B, S, H, D) tensor (row f:
+// sequence f / G, head hk * G + f % G) as f32 rows of D + 1, times mul;
+// zeros past `rows`.
+template <typename T, int D>
+__device__ __forceinline__ void load_rows(float* dst, const T* base, const long long (&st)[3],
+                                          int b, int hk, int g, long long row0, long long rows,
+                                          float mul) {
+  for (int idx = threadIdx.x; idx < kRows * D; idx += kThreads) {
+    const int r = idx / D, c = idx % D;
+    const long long f = row0 + r;
+    float x = 0.f;
+    if (f < rows) {
+      const long long i = f / g;
+      const int h = hk * g + static_cast<int>(f % g);
+      x = to_f(base[b * st[0] + i * st[1] + h * st[2] + c]) * mul;
+    }
+    dst[r * (D + 1) + c] = x;
+  }
+}
+
+// lse and delta of the same folded rows (zeros past `rows`).
+__device__ __forceinline__ void load_stats(float* lse_s, float* del_s, const Params& p, int b,
+                                           int hk, long long row0, long long rows) {
+  for (int r = threadIdx.x; r < kRows; r += kThreads) {
+    const long long f = row0 + r;
+    float l = 0.f, dl = 0.f;
+    if (f < rows) {
+      const long long i = f / p.g;
+      const int h = hk * p.g + static_cast<int>(f % p.g);
+      const long long at = (static_cast<long long>(b) * p.hkv * p.g + h) * p.sq + i;
+      l = p.lse[at];
+      dl = p.delta[at];
+    }
+    lse_s[r] = l;
+    del_s[r] = dl;
+  }
+}
+
+// Keys key0 .. key0 + kKeys - 1 of one (batch, kv head) as f32 rows of
+// D + 1; zeros past skv.
+template <typename T, int D>
+__device__ __forceinline__ void load_keys(float* dst, const T* base, long long key_stride,
+                                          int key0, int skv) {
+  for (int idx = threadIdx.x; idx < kKeys * D; idx += kThreads) {
+    const int j = idx / D, c = idx % D, key = key0 + j;
+    dst[j * (D + 1) + c] = key < skv ? to_f(base[key * key_stride + c]) : 0.f;
+  }
+}
+
+// This thread's 4 x 4 of S = (Q * scale) K^T and dP = dO V^T (rows tx + 16a,
+// keys ty + 16b), then P = exp(S - lse) where the key is visible to the row
+// (else 0) in s, and dS = P (dP - delta) in dp.
+template <int D, bool kCausal>
+__device__ __forceinline__ void probabilities(const float* qs, const float* dos, const float* ks,
+                                              const float* vs, const float* lse_s,
+                                              const float* del_s, const Params& p, long long row0,
+                                              long long rows, int key0, int tx, int ty,
+                                              float (&s)[4][4], float (&dp)[4][4]) {
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) s[a][b] = 0.f, dp[a][b] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < D; ++d) {
+    float qa[4], oa[4], kb[4], vb[4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      qa[a] = qs[(tx + 16 * a) * (D + 1) + d];
+      oa[a] = dos[(tx + 16 * a) * (D + 1) + d];
+    }
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      kb[b] = ks[(ty + 16 * b) * (D + 1) + d];
+      vb[b] = vs[(ty + 16 * b) * (D + 1) + d];
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        s[a][b] = fmaf(qa[a], kb[b], s[a][b]);
+        dp[a][b] = fmaf(oa[a], vb[b], dp[a][b]);
+      }
+  }
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const long long f = row0 + tx + 16 * a;
+    const int pos = static_cast<int>((f < rows ? f : rows - 1) / p.g) + p.q_offset;
+    const float lse = lse_s[tx + 16 * a], delta = del_s[tx + 16 * a];
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int key = key0 + ty + 16 * b;
+      const bool visible = f < rows && key < p.skv && (!kCausal || key <= pos);
+      const float pr = visible ? expf(s[a][b] - lse) : 0.f;
+      s[a][b] = pr;
+      dp[a][b] = pr * (dp[a][b] - delta);
+    }
+  }
+}
+
+template <typename T, int D, bool kCausal>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+               const T* __restrict__ dout, T* __restrict__ dk, T* __restrict__ dv,
+               const Params p) {
+  constexpr int kP = D + 1, kS = kKeys + 1, kC = D / 16;
+  extern __shared__ float4 smem4[];
+  float* ks_ = reinterpret_cast<float*>(smem4);  // [kKeys][kP]
+  float* vs_ = ks_ + kKeys * kP;                  // [kKeys][kP]
+  float* qs_ = vs_ + kKeys * kP;                  // [kRows][kP] q * scale
+  float* dos_ = qs_ + kRows * kP;                 // [kRows][kP]
+  float* ps_ = dos_ + kRows * kP;                 // [kRows][kS] P
+  float* dss_ = ps_ + kRows * kS;                 // [kRows][kS] dS
+  float* lse_s = dss_ + kRows * kS;
+  float* del_s = lse_s + kRows;
+
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int bi = blockIdx.x / p.hkv, hk = blockIdx.x % p.hkv;
+  const int key0 = blockIdx.y * kKeys;  // the heaviest (causal) tiles come first
+  const long long rows = static_cast<long long>(p.sq) * p.g;
+  load_keys<T, D>(ks_, k + bi * p.ks[0] + hk * p.ks[2], p.ks[1], key0, p.skv);
+  load_keys<T, D>(vs_, v + bi * p.vs[0] + hk * p.vs[2], p.vs[1], key0, p.skv);
+
+  // causal: the first folded row whose position reaches key0
+  const long long first = kCausal ? static_cast<long long>(max(key0 - p.q_offset, 0)) * p.g : 0;
+  const long long n_tiles = (rows + kRows - 1) / kRows;
+  float dkv[4][kC], dvv[4][kC];
+#pragma unroll
+  for (int b = 0; b < 4; ++b)
+#pragma unroll
+    for (int c = 0; c < kC; ++c) dkv[b][c] = 0.f, dvv[b][c] = 0.f;
+
+  for (long long t = first / kRows; t < n_tiles; ++t) {
+    const long long row0 = t * kRows;
+    __syncthreads();  // the previous tile's readers are done
+    load_rows<T, D>(qs_, q, p.qs, bi, hk, p.g, row0, rows, p.scale);
+    load_rows<T, D>(dos_, dout, p.dos, bi, hk, p.g, row0, rows, 1.f);
+    load_stats(lse_s, del_s, p, bi, hk, row0, rows);
+    __syncthreads();
+    float s[4][4], dp[4][4];
+    probabilities<D, kCausal>(qs_, dos_, ks_, vs_, lse_s, del_s, p, row0, rows, key0, tx, ty, s,
+                              dp);
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        ps_[(tx + 16 * a) * kS + ty + 16 * b] = s[a][b];
+        dss_[(tx + 16 * a) * kS + ty + 16 * b] = dp[a][b];
+      }
+    __syncthreads();
+    // dV += P^T dO, dK += dS^T (Q * scale) over the tile's rows, in order
+#pragma unroll 2
+    for (int r = 0; r < kRows; ++r) {
+      float pb[4], sb[4];
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        pb[b] = ps_[r * kS + ty + 16 * b];
+        sb[b] = dss_[r * kS + ty + 16 * b];
+      }
+#pragma unroll
+      for (int c = 0; c < kC; ++c) {
+        const float o = dos_[r * kP + tx + 16 * c], qv = qs_[r * kP + tx + 16 * c];
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          dvv[b][c] = fmaf(pb[b], o, dvv[b][c]);
+          dkv[b][c] = fmaf(sb[b], qv, dkv[b][c]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    const int key = key0 + ty + 16 * b;
+    if (key >= p.skv) continue;
+    T* krow = dk + bi * p.dks[0] + key * p.dks[1] + hk * p.dks[2];
+    T* vrow = dv + bi * p.dvs[0] + key * p.dvs[1] + hk * p.dvs[2];
+#pragma unroll
+    for (int c = 0; c < kC; ++c) {
+      put(krow + tx + 16 * c, dkv[b][c]);
+      put(vrow + tx + 16 * c, dvv[b][c]);
+    }
+  }
+}
+
+template <typename T, int D, bool kCausal>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+             const T* __restrict__ dout, T* __restrict__ dq, const Params p) {
+  constexpr int kP = D + 1, kS = kKeys + 1, kC = D / 16;
+  extern __shared__ float4 smem4[];
+  float* qs_ = reinterpret_cast<float*>(smem4);  // [kRows][kP] q * scale
+  float* dos_ = qs_ + kRows * kP;                 // [kRows][kP]
+  float* ks_ = dos_ + kRows * kP;                 // [kKeys][kP]
+  float* vs_ = ks_ + kKeys * kP;                  // [kKeys][kP]
+  float* dss_ = vs_ + kKeys * kP;                 // [kRows][kS] dS
+  float* lse_s = dss_ + kRows * kS;
+  float* del_s = lse_s + kRows;
+
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int bi = blockIdx.x / p.hkv, hk = blockIdx.x % p.hkv;
+  const long long rows = static_cast<long long>(p.sq) * p.g;
+  const long long row0 = static_cast<long long>(gridDim.y - 1 - blockIdx.y) * kRows;  // heaviest first
+  load_rows<T, D>(qs_, q, p.qs, bi, hk, p.g, row0, rows, p.scale);
+  load_rows<T, D>(dos_, dout, p.dos, bi, hk, p.g, row0, rows, 1.f);
+  load_stats(lse_s, del_s, p, bi, hk, row0, rows);
+  int n_tiles = (p.skv + kKeys - 1) / kKeys;
+  if (kCausal) {
+    const long long last_row = (row0 + kRows < rows ? row0 + kRows : rows) - 1;
+    n_tiles = min(n_tiles, static_cast<int>(last_row / p.g + p.q_offset) / kKeys + 1);
+  }
+  const T* kb = k + bi * p.ks[0] + hk * p.ks[2];
+  const T* vb = v + bi * p.vs[0] + hk * p.vs[2];
+
+  float dqv[4][kC];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int c = 0; c < kC; ++c) dqv[a][c] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int key0 = t * kKeys;
+    __syncthreads();  // the previous tile's readers are done
+    load_keys<T, D>(ks_, kb, p.ks[1], key0, p.skv);
+    load_keys<T, D>(vs_, vb, p.vs[1], key0, p.skv);
+    __syncthreads();
+    float s[4][4], dp[4][4];
+    probabilities<D, kCausal>(qs_, dos_, ks_, vs_, lse_s, del_s, p, row0, rows, key0, tx, ty, s,
+                              dp);
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) dss_[(tx + 16 * a) * kS + ty + 16 * b] = dp[a][b];
+    __syncthreads();
+    // dQ += dS K over the tile's keys, in order (rows ty + 16a here)
+#pragma unroll 2
+    for (int j = 0; j < kKeys; ++j) {
+      float sa[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) sa[a] = dss_[(ty + 16 * a) * kS + j];
+#pragma unroll
+      for (int c = 0; c < kC; ++c) {
+        const float kv = ks_[j * kP + tx + 16 * c];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) dqv[a][c] = fmaf(sa[a], kv, dqv[a][c]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const long long f = row0 + ty + 16 * a;
+    if (f >= rows) continue;
+    const long long i = f / p.g;
+    const int h = hk * p.g + static_cast<int>(f % p.g);
+    T* qrow = dq + bi * p.dqs[0] + i * p.dqs[1] + h * p.dqs[2];
+#pragma unroll
+    for (int c = 0; c < kC; ++c) put(qrow + tx + 16 * c, dqv[a][c] * p.scale);
+  }
+}
+
+}  // namespace bwd
 
 // -- host ---------------------------------------------------------------------------
 
@@ -828,15 +1181,55 @@ cudaError_t kv_map(CUtensorMap* map, const void* base, int d, int hkv, int skv, 
   return rc == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// The backward's three kernels of one (dtype, d, causal) and their dynamic
+// shared bytes.
+struct BwdBody {
+  const void* delta = nullptr;
+  const void* dkdv = nullptr;
+  const void* dq = nullptr;
+  int smem_dkdv = 0, smem_dq = 0;
+};
+
+template <typename T, int D>
+BwdBody bwd_body(bool causal) {
+  BwdBody body;
+  body.delta = reinterpret_cast<const void*>(&bwd::flash_bwd_delta<T, D>);
+  body.dkdv = causal ? reinterpret_cast<const void*>(&bwd::flash_bwd_dkdv<T, D, true>)
+                     : reinterpret_cast<const void*>(&bwd::flash_bwd_dkdv<T, D, false>);
+  body.dq = causal ? reinterpret_cast<const void*>(&bwd::flash_bwd_dq<T, D, true>)
+                   : reinterpret_cast<const void*>(&bwd::flash_bwd_dq<T, D, false>);
+  body.smem_dkdv = 4 * bwd::smem_floats_dkdv<D>();
+  body.smem_dq = 4 * bwd::smem_floats_dq<D>();
+  return body;
+}
+
+template <int D>
+BwdBody bwd_body_d(int dtype, bool causal) {
+  if (dtype == kBF16) return bwd_body<__nv_bfloat16, D>(causal);
+  if (dtype == kF32) return bwd_body<float, D>(causal);
+  return {};
+}
+
+BwdBody pick_bwd(int dtype, int d, bool causal) {
+  switch (d) {
+    case 32: return bwd_body_d<32>(dtype, causal);
+    case 64: return bwd_body_d<64>(dtype, causal);
+    case 128: return bwd_body_d<128>(dtype, causal);
+    default: return {};
+  }
+}
+
 }  // namespace
 
 // Attention on `stream`.  q (batch, sq, hq, d), k and v (batch, skv, hkv,
 // d), o like q; strides[12] holds the element strides of (batch, seq,
 // head) for q, k, v and o in that order (the last dim is contiguous).
+// lse: null, or (batch, hq, sq) f32 that receives each row's log-sum-exp
+// (the backward's input; o is the same bits either way).
 // dtype: 0 f32, 1 bf16 (strides in multiples of 8, 16-byte aligned bases).
 // Returns the launch's cudaError_t (0 = queued).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   int batch, int sq, int skv, int hq, int hkv, int d,
+                                   void* lse, int batch, int sq, int skv, int hq, int hkv, int d,
                                    const long long* strides, int causal, int q_offset,
                                    float scale, int dtype, void* stream) {
   const Body body = pick(dtype, d, causal != 0);
@@ -857,6 +1250,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     p.vs[i] = strides[6 + i];
     p.os[i] = strides[9 + i];
   }
+  p.lse = static_cast<float*>(lse);
   cudaError_t err = prepare(body.fn, body.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -904,6 +1298,87 @@ extern "C" int flash_attention_attributes(int dtype, int d, int causal, int* out
   out[6] = body.rows;
   out[7] = body.keys;
   out[8] = body.stages;
+  return 0;
+}
+
+// The gradient of flash_attention_fwd on `stream`: q, k, v, o (the
+// forward's output), dout and lse (the forward's, (batch, hq, sq) f32) in;
+// dq, dk, dv out, in the operands' dtype; delta: (batch, hq, sq) f32
+// scratch.  strides[24] holds the element strides of (batch, seq, head) for
+// q, k, v, o, dout, dq, dk and dv in that order (the last dim contiguous).
+// Three launches: delta, then dK/dV and dQ.  Returns the first failing
+// launch's cudaError_t (0 = all queued).
+extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
+                                   const void* dout, const void* lse, void* delta, void* dq,
+                                   void* dk, void* dv, int batch, int sq, int skv, int hq,
+                                   int hkv, int d, const long long* strides, int causal,
+                                   int q_offset, float scale, int dtype, void* stream) {
+  const BwdBody body = pick_bwd(dtype, d, causal != 0);
+  const long long rows = static_cast<long long>(sq) * (hkv > 0 ? hq / hkv : 0);
+  if (body.delta == nullptr || batch <= 0 || sq <= 0 || skv <= 0 || hkv <= 0 ||
+      hq % hkv != 0 || q_offset < 0 || (rows + bwd::kRows - 1) / bwd::kRows > 65535 ||
+      (skv + bwd::kKeys - 1) / bwd::kKeys > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  bwd::Params p;
+  p.batch = batch;
+  p.sq = sq;
+  p.skv = skv;
+  p.g = hq / hkv;
+  p.hkv = hkv;
+  p.q_offset = q_offset;
+  p.scale = scale;
+  long long* dst[8] = {p.qs, p.ks, p.vs, p.os, p.dos, p.dqs, p.dks, p.dvs};
+  for (int t = 0; t < 8; ++t)
+    for (int i = 0; i < 3; ++i) dst[t][i] = strides[3 * t + i];
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<float*>(delta);
+  cudaError_t err = prepare(body.dkdv, body.smem_dkdv);
+  if (err == cudaSuccess) err = prepare(body.dq, body.smem_dq);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long n_rows = static_cast<long long>(batch) * sq * hq;
+  void* delta_args[] = {const_cast<void**>(&o), const_cast<void**>(&dout), &p};
+  err = cudaLaunchKernel(
+      body.delta, dim3(static_cast<unsigned>((n_rows + bwd::kDeltaRows - 1) / bwd::kDeltaRows)),
+      dim3(bwd::kThreads), delta_args, 0, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void* dkdv_args[] = {const_cast<void**>(&q), const_cast<void**>(&k), const_cast<void**>(&v),
+                       const_cast<void**>(&dout), &dk, &dv, &p};
+  const dim3 kv_grid(static_cast<unsigned>(batch * hkv),
+                     static_cast<unsigned>((skv + bwd::kKeys - 1) / bwd::kKeys));
+  err = cudaLaunchKernel(body.dkdv, kv_grid, dim3(bwd::kThreads), dkdv_args, body.smem_dkdv, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void* dq_args[] = {const_cast<void**>(&q), const_cast<void**>(&k), const_cast<void**>(&v),
+                     const_cast<void**>(&dout), &dq, &p};
+  const dim3 q_grid(static_cast<unsigned>(batch * hkv),
+                    static_cast<unsigned>((rows + bwd::kRows - 1) / bwd::kRows));
+  err = cudaLaunchKernel(body.dq, q_grid, dim3(bwd::kThreads), dq_args, body.smem_dq, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The backward's budget: out = {numRegs, dynamic shared bytes, local
+// (spill) bytes, threads per block, resident blocks/SM} of the dK/dV kernel
+// (which = 0) or the dQ kernel (which = 1).
+extern "C" int flash_attention_bwd_attributes(int dtype, int d, int causal, int which, int* out) {
+  const BwdBody body = pick_bwd(dtype, d, causal != 0);
+  const void* fn = which == 0 ? body.dkdv : body.dq;
+  const int smem = which == 0 ? body.smem_dkdv : body.smem_dq;
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = prepare(fn, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, bwd::kThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = attr.numRegs;
+  out[1] = smem;
+  out[2] = static_cast<int>(attr.localSizeBytes);
+  out[3] = bwd::kThreads;
+  out[4] = blocks;
   return 0;
 }
 

@@ -1,1 +1,2 @@
-"""Lattice sharding arithmetic (the halo and boundary geometry)."""
+"""Lattice sharding arithmetic (the halo and boundary geometry) and the
+training loop's fault-tolerance pieces."""

@@ -13,11 +13,21 @@ this module holds:
   * :func:`flash_attention` — the wrapper: for CUDA tensors it checks the
     arguments, launches the kernel on the current stream and counts the
     launch in :data:`LAUNCHES`; for CPU tensors it runs the plain version;
-    any other device raises;
-  * :func:`smem_bytes`, :func:`executed_flops` and :func:`kernel_budget` —
-    each body's shared memory per block (the counterpart of the reference's
-    ``vmem_bytes``), the flops its tiles execute, its registers and
-    occupancy.
+    any other device raises.  When grad is enabled and q, k or v requires
+    it, the call goes through :class:`FlashAttention`;
+  * :class:`FlashAttention` — the autograd function: its forward keeps the
+    log-sum-exp of each row (the kernel writes it beside ``out``, the plain
+    version returns it), its backward is :func:`flash_attention_bwd`;
+  * :func:`flash_attention_bwd` — the backward's wrapper: dq, dk, dv from
+    q, k, v, out, dout and lse, by the kernel for CUDA tensors (counted in
+    :data:`BWD_LAUNCHES`) or :func:`flash_attention_bwd_plain` for CPU
+    tensors.  The reference differentiates its chunked attention by
+    autodiff; the kernel computes that gradient FA2-style (see
+    ``flash_attention.cu``), deterministically;
+  * :func:`smem_bytes`, :func:`executed_flops`, :func:`kernel_budget` and
+    :func:`bwd_budget` — each body's shared memory per block (the
+    counterpart of the reference's ``vmem_bytes``), the flops its tiles
+    execute, its registers and occupancy.
 
 Layout contract (the reference's, at the public functions):
   q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D), Hq a multiple of Hkv; the G =
@@ -63,6 +73,9 @@ MAX_ROW_TILES = 65535  # bf16 body: row tiles ride on gridDim.y
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # as flash_attention.cu numbers them
 
 LAUNCHES = LaunchCounter("flash_attention")
+BWD_LAUNCHES = LaunchCounter("flash_attention_bwd")  # one per backward call (three kernels)
+BWD_ROWS = 64  # backward: folded query rows per tile
+BWD_KEYS = 64  # backward: keys per tile
 
 
 def flash_attention_plain(
@@ -74,12 +87,15 @@ def flash_attention_plain(
     q_chunk: int = 512,
     kv_chunk: int = 1024,
     q_offset: int = 0,
-) -> torch.Tensor:
+    return_lse: bool = False,
+) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
     """Online-softmax chunked attention in plain PyTorch.
 
     q: (B, Sq, Hq, D); k: (B, Skv, Hkv, D); v: (B, Skv, Hkv, Dv).  Ragged
     lengths are padded to whole chunks and the padded keys masked, as the
-    reference does; every chunk pair runs (no causal skip).
+    reference does; every chunk pair runs (no causal skip).  With
+    ``return_lse`` it also returns each row's log-sum-exp of the scaled
+    scores, ``m + log(l)``, f32 (B, Hq, Sq): the backward's input.
     """
     b, sq, hq, d = q.shape
     _, skv, hkv, _ = k.shape
@@ -102,7 +118,7 @@ def flash_attention_plain(
     qc = q.reshape(b, nq, q_chunk, hkv, g, d)
     kc = k.reshape(b, nk, kv_chunk, hkv, d)
     vc = v.reshape(b, nk, kv_chunk, hkv, dv)
-    outs = []
+    outs, lses = [], []
     for iq in range(nq):
         qf = qc[:, iq].to(f32) * scale  # (b, cq, hkv, g, d)
         q_pos = iq * q_chunk + torch.arange(q_chunk, device=dev) + q_offset
@@ -127,8 +143,92 @@ def flash_attention_plain(
             m = m_new
         out = acc / torch.clamp_min(l[..., None], 1e-37)  # (b, hkv, g, cq, dv)
         outs.append(out.permute(0, 3, 1, 2, 4))  # (b, cq, hkv, g, dv)
-    out = torch.cat(outs, dim=1).reshape(b, sq, hq, dv)
-    return out[:, :sq_orig].to(q.dtype)
+        lses.append((m + torch.log(l)).reshape(b, hq, q_chunk))
+    out = torch.cat(outs, dim=1).reshape(b, sq, hq, dv)[:, :sq_orig].to(q.dtype)
+    if return_lse:
+        return out, torch.cat(lses, dim=-1)[..., :sq_orig]
+    return out
+
+
+def flash_attention_bwd_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    dout: torch.Tensor,
+    lse: torch.Tensor,
+    *,
+    causal: bool = True,
+    q_chunk: int = 512,
+    kv_chunk: int = 1024,
+    q_offset: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward's formulas in chunked plain PyTorch, all in f32:
+    ``delta = rowsum(dout * out)``; per chunk pair ``P = exp(S - lse)`` on
+    visible (query, key) pairs (else 0), ``dV += P^T dout``,
+    ``dS = P (dout V^T - delta)``, ``dQ += scale dS K``,
+    ``dK += scale dS^T Q`` (S scaled as the forward scales it).
+
+    Shapes as :func:`flash_attention_plain`'s, ``out`` and ``dout`` like q,
+    ``lse`` (B, Hq, Sq) f32 from the forward.  Returns (dq, dk, dv) in q's,
+    k's and v's dtypes.
+    """
+    b, sq, hq, d = q.shape
+    _, skv, hkv, _ = k.shape
+    dv_dim = v.shape[-1]
+    g = hq // hkv
+    sq_orig, skv_orig = sq, skv
+    q_chunk = min(q_chunk, sq)
+    kv_chunk = min(kv_chunk, skv)
+    f32, dev = torch.float32, q.device
+    delta = (dout.to(f32) * out.to(f32)).sum(dim=-1).permute(0, 2, 1)  # (b, hq, sq)
+    lse = lse.to(f32)
+    if sq % q_chunk:  # pad ragged lengths; padded rows and keys are masked below
+        pad = (-sq) % q_chunk
+        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pad))
+        dout = torch.nn.functional.pad(dout, (0, 0, 0, 0, 0, pad))
+        delta = torch.nn.functional.pad(delta, (0, pad))
+        lse = torch.nn.functional.pad(lse, (0, pad))
+        sq = q.shape[1]
+    if skv % kv_chunk:
+        pad = (0, 0, 0, 0, 0, (-skv) % kv_chunk)
+        k, v = torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad)
+        skv = k.shape[1]
+    nq, nk = sq // q_chunk, skv // kv_chunk
+    scale = d**-0.5
+
+    qc = q.reshape(b, nq, q_chunk, hkv, g, d)
+    doc = dout.reshape(b, nq, q_chunk, hkv, g, dv_dim)
+    lsec = lse.reshape(b, hkv, g, nq, q_chunk)
+    delc = delta.reshape(b, hkv, g, nq, q_chunk)
+    kc = k.reshape(b, nk, kv_chunk, hkv, d)
+    vc = v.reshape(b, nk, kv_chunk, hkv, dv_dim)
+    dk = torch.zeros((b, nk, kv_chunk, hkv, d), dtype=f32, device=dev)
+    dv = torch.zeros((b, nk, kv_chunk, hkv, dv_dim), dtype=f32, device=dev)
+    dqs = []
+    for iq in range(nq):
+        qf = qc[:, iq].to(f32) * scale  # (b, cq, hkv, g, d)
+        do = doc[:, iq].to(f32)
+        rows = iq * q_chunk + torch.arange(q_chunk, device=dev)
+        lse_i, del_i = lsec[:, :, :, iq, :, None], delc[:, :, :, iq, :, None]
+        dq_i = torch.zeros((b, hkv, g, q_chunk, d), dtype=f32, device=dev)
+        for ik in range(nk):
+            kf, vf = kc[:, ik].to(f32), vc[:, ik].to(f32)
+            keys = ik * kv_chunk + torch.arange(kv_chunk, device=dev)
+            visible = (rows[:, None] < sq_orig) & (keys[None, :] < skv_orig)
+            if causal:
+                visible = visible & (keys[None, :] <= rows[:, None] + q_offset)
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf)
+            p = torch.where(visible, torch.exp(s - lse_i), 0.0)
+            dv[:, ik] += torch.einsum("bhgqk,bqhgd->bkhd", p, do)
+            ds = p * (torch.einsum("bqhgd,bkhd->bhgqk", do, vf) - del_i)
+            dq_i += torch.einsum("bhgqk,bkhd->bhgqd", ds, kf)
+            dk[:, ik] += torch.einsum("bhgqk,bqhgd->bkhd", ds, qf)
+        dqs.append((dq_i * scale).permute(0, 3, 1, 2, 4))  # (b, cq, hkv, g, d)
+    dq = torch.cat(dqs, dim=1).reshape(b, sq, hq, d)[:, :sq_orig]
+    dk = dk.reshape(b, skv, hkv, d)[:, :skv_orig]
+    dv = dv.reshape(b, skv, hkv, dv_dim)[:, :skv_orig]
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def kernel_tolerance(dtype: torch.dtype) -> tuple[float, float]:
@@ -136,7 +236,14 @@ def kernel_tolerance(dtype: torch.dtype) -> tuple[float, float]:
     inputs.  f32: both sum in f32 in another order (dot products, tiles of
     64 keys against chunks of up to 1024); 2e-5 is the reference's own
     tolerance for its kernel.  bf16: the same f32 values, each rounded once
-    to bf16, may land one bf16 ulp apart (2^-8 to 2^-7 of the value)."""
+    to bf16, may land one bf16 ulp apart (2^-8 to 2^-7 of the value).
+
+    The backward (:func:`flash_attention_bwd`) is held to the same pair,
+    scaled to each gradient's largest magnitude: ``max|got - want| <= atol
+    + rtol * max|want|`` for dq, dk and dv each.  Its f32 sums run over up
+    to Sq * G rows per key, so an element near zero carries the rounding of
+    the large terms that cancelled in it; the gradient's max is the scale
+    of that rounding, not the element."""
     if dtype == torch.bfloat16:
         return 1e-5, 2.0**-7
     return 2e-5, 2e-5
@@ -190,13 +297,21 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     if not getattr(lib, "_repro_typed", False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        strides = ctypes.POINTER(ctypes.c_longlong)
         lib.flash_attention_fwd.argtypes = [
-            ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
-            ctypes.POINTER(ctypes.c_longlong), i32, i32, ctypes.c_float, i32, ptr,
+            ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
+            strides, i32, i32, ctypes.c_float, i32, ptr,
         ]
         lib.flash_attention_fwd.restype = i32
+        lib.flash_attention_bwd.argtypes = [
+            ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
+            strides, i32, i32, ctypes.c_float, i32, ptr,
+        ]
+        lib.flash_attention_bwd.restype = i32
         lib.flash_attention_attributes.argtypes = [i32, i32, i32, ctypes.POINTER(i32)]
         lib.flash_attention_attributes.restype = i32
+        lib.flash_attention_bwd_attributes.argtypes = [i32, i32, i32, i32, ctypes.POINTER(i32)]
+        lib.flash_attention_bwd_attributes.restype = i32
         lib.su3_error_string.argtypes = [i32]
         lib.su3_error_string.restype = ctypes.c_char_p
         lib._repro_typed = True
@@ -236,6 +351,32 @@ def kernel_budget(
         "blocks_per_sm": blocks,
         "occupancy": blocks * threads / per_sm if per_sm else None,
     }
+
+
+def bwd_smem_bytes(d: int) -> tuple[int, int]:
+    """Dynamic shared memory of one block of the backward's dK/dV and dQ
+    kernels: f32 rows of D + 1 words (K, V, q * scale and dO tiles), the
+    probabilities and dS (dK/dV) or dS alone (dQ) in rows of 65, and the
+    tile's lse and delta."""
+    tile = 2 * BWD_KEYS * (d + 1) + 2 * BWD_ROWS * (d + 1) + 2 * BWD_ROWS
+    return 4 * (tile + 2 * BWD_ROWS * (BWD_KEYS + 1)), 4 * (tile + BWD_ROWS * (BWD_KEYS + 1))
+
+
+def bwd_budget(dtype: torch.dtype = torch.bfloat16, d: int = 128,
+               causal: bool = True) -> dict[str, dict[str, int]]:
+    """The backward kernels' per-block budget on the current CUDA device:
+    ``{"dkdv": {...}, "dq": {...}}``, each with ``num_regs``,
+    ``shared_bytes`` (dynamic), ``local_bytes`` (spills),
+    ``threads_per_block`` and ``blocks_per_sm``."""
+    lib = _library()
+    found = {}
+    for which, name in enumerate(("dkdv", "dq")):
+        out = (ctypes.c_int * 5)()
+        rc = lib.flash_attention_bwd_attributes(_DTYPES[dtype], d, int(causal), which, out)
+        _check_error(lib, rc, "cudaFuncGetAttributes")
+        found[name] = dict(zip(("num_regs", "shared_bytes", "local_bytes", "threads_per_block",
+                                "blocks_per_sm"), list(out)))
+    return found
 
 
 def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -289,6 +430,122 @@ def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int
                              f"got {t.stride()}")
 
 
+def _strides(*ts: torch.Tensor):
+    return (ctypes.c_longlong * (3 * len(ts)))(*(st for t in ts for st in t.stride()[:3]))
+
+
+def _forward(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool, q_chunk: int,
+    kv_chunk: int, q_offset: int, with_lse: bool,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """(out, lse or None): the kernel for CUDA tensors (one launch, counted),
+    the plain version for CPU tensors; any other device raises."""
+    if q.device.type == "cpu":
+        res = flash_attention_plain(q, k, v, causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk,
+                                    q_offset=q_offset, return_lse=with_lse)
+        return res if with_lse else (res, None)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu tensors, got {q.device}")
+    _check_cuda(q, k, v, q_offset)
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) if with_lse else None
+    lib = _library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), b, sq, skv, hq, hkv, d,
+            _strides(q, k, v, out), int(causal), q_offset, d**-0.5, _DTYPES[q.dtype], stream)
+    _check_error(lib, rc, "flash_attention launch")
+    LAUNCHES.count += 1
+    return out, lse
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    dout: torch.Tensor,
+    lse: torch.Tensor,
+    *,
+    causal: bool = True,
+    q_chunk: int = 512,
+    kv_chunk: int = 1024,
+    q_offset: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of :func:`flash_attention` at (q, k, v), given its
+    ``out``, the gradient ``dout`` of out and the forward's ``lse``
+    (B, Hq, Sq) f32.
+
+    CUDA tensors go to the backward kernel (one call of three launches,
+    counted once in :data:`BWD_LAUNCHES`) or raise; CPU tensors go to
+    :func:`flash_attention_bwd_plain` with ``q_chunk`` / ``kv_chunk``; any
+    other device raises.
+    """
+    _check_shapes(q, k, v)
+    b, sq, hq, _ = q.shape
+    if out.shape != q.shape or dout.shape != q.shape or lse.shape != (b, hq, sq):
+        raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)} and dout "
+                         f"{tuple(dout.shape)} must be q's {tuple(q.shape)}, lse "
+                         f"{tuple(lse.shape)} must be {(b, hq, sq)}")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, dout, lse, causal=causal, q_chunk=q_chunk,
+                                         kv_chunk=kv_chunk, q_offset=q_offset)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd runs on cuda or cpu tensors, got {q.device}")
+    _check_cuda(q, k, v, q_offset)
+    if not (out.device == dout.device == lse.device == q.device):
+        raise ValueError("flash_attention_bwd: out, dout and lse must lie on q's device")
+    if lse.dtype != torch.float32 or out.dtype != q.dtype or dout.dtype != q.dtype:
+        raise ValueError(f"flash_attention_bwd: out and dout must be q's {q.dtype} and lse "
+                         f"float32, got {out.dtype}, {dout.dtype}, {lse.dtype}")
+    # the kernel reads these element by element: only the head dim must be contiguous
+    out, dout = (t if t.stride(-1) == 1 else t.contiguous() for t in (out, dout))
+    lse = lse.contiguous()
+    skv, hkv, d = k.shape[1], k.shape[2], q.shape[-1]
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    lib = _library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, sq, skv, hq, hkv, d, _strides(q, k, v, out, dout, dq, dk, dv), int(causal),
+            q_offset, d**-0.5, _DTYPES[q.dtype], stream)
+    _check_error(lib, rc, "flash_attention_bwd launch")
+    BWD_LAUNCHES.count += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """:func:`flash_attention` with a gradient: the forward keeps each row's
+    lse beside ``out`` (the same bits as without it), the backward is
+    :func:`flash_attention_bwd`.  On CUDA tensors both directions are the
+    kernels, and a failure to build or launch raises; on CPU tensors they
+    are the plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_chunk, kv_chunk, q_offset):
+        out, lse = _forward(q, k, v, causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk,
+                            q_offset=q_offset, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.options = {"causal": causal, "q_chunk": q_chunk, "kv_chunk": kv_chunk,
+                       "q_offset": q_offset}
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lse, **ctx.options)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -303,25 +560,13 @@ def flash_attention(
 
     A CUDA tensor goes to the kernel (or raises); a CPU tensor goes to
     :func:`flash_attention_plain` with ``q_chunk`` / ``kv_chunk``; any other
-    device raises.
+    device raises.  When grad is enabled and q, k or v requires grad, the
+    call goes through :class:`FlashAttention`, which also keeps the lse for
+    the backward; otherwise (serving: no tensor requires grad) it is the
+    forward alone, one launch and no lse.
     """
     _check_shapes(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, q_chunk=q_chunk,
-                                     kv_chunk=kv_chunk, q_offset=q_offset)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu tensors, got {q.device}")
-    _check_cuda(q, k, v, q_offset)
-    b, sq, hq, d = q.shape
-    skv, hkv = k.shape[1], k.shape[2]
-    out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
-    strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out) for s in t.stride()[:3]))
-    lib = _library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, skv, hq, hkv, d,
-            strides, int(causal), q_offset, d**-0.5, _DTYPES[q.dtype], stream)
-    _check_error(lib, rc, "flash_attention launch")
-    LAUNCHES.count += 1
-    return out
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, q_chunk, kv_chunk, q_offset)
+    return _forward(q, k, v, causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk,
+                    q_offset=q_offset, with_lse=False)[0]

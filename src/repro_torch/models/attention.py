@@ -5,9 +5,11 @@ Prefill attention goes through :func:`flash_attention`, whose tensor decides
 the path: on the card the hand-written kernel
 (``repro_torch/csrc/flash_attention.cu``, the counterpart of the Pallas
 ``flash_attention_tpu`` that the reference selects on its accelerator), on
-the CPU the chunked online-softmax plain version.  Decode is one query
-against the cache in plain PyTorch, as in the reference (no Pallas kernel
-there either).  The KV cache is written in place.
+the CPU the chunked online-softmax plain version; in training (q, k or v
+requiring grad) the same call goes through the kernel's autograd function,
+whose backward is the hand-written backward kernel on the card.  Decode
+is one query against the cache in plain PyTorch, as in the reference (no
+Pallas kernel there either).  The KV cache is written in place.
 """
 from __future__ import annotations
 
@@ -74,7 +76,8 @@ def flash_attention(
     """Online-softmax attention. q: (B,Sq,Hq,D); k,v: (B,Skv,Hkv,D).
 
     CUDA tensors run the kernel (one launch); CPU tensors run the chunked
-    plain version with ``q_chunk`` / ``kv_chunk``.
+    plain version with ``q_chunk`` / ``kv_chunk``.  Under grad the call is
+    differentiable (``kernels.flash_attention.FlashAttention``).
     """
     return fa.flash_attention(q, k, v, causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk,
                               q_offset=q_offset)

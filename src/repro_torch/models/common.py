@@ -1,15 +1,16 @@
-"""Shared model machinery (port of ``repro.models.common``, forward only):
-parameter specs and their initialisation, the parameter container, norms,
-RoPE, embeddings and the loss.
+"""Shared model machinery (port of ``repro.models.common``): parameter
+specs and their initialisation, the parameter container, norms, RoPE,
+embeddings and the loss.
 
 Every module defines a ``spec(cfg) -> {name: ParamSpec | nested dict}``;
 :func:`init_params` materialises it from a ``torch.Generator``, leaf by
 leaf with the reference's rule, and :class:`ParamTree` holds the result as
 an ``nn.Module`` whose entries read as ``params["attn"]["wq"]``, so the
-model code reads like the reference's.  The reference's custom VJPs
-(``rmsnorm``'s backward, ``grad_safe_barrier``) are training machinery and
-are not ported; ``shape_tree``/``axes_tree`` serve the TPU dry-run and
-sharding resolver, which the port does not have.
+model code reads like the reference's.  Of the reference's custom VJPs,
+``rmsnorm``'s backward is ported (:class:`RMSNorm`) and
+``grad_safe_barrier`` is an identity (see its docstring);
+``shape_tree``/``axes_tree`` serve the TPU dry-run and sharding resolver,
+which the port does not have.
 """
 from __future__ import annotations
 
@@ -111,7 +112,10 @@ def unstack(tree: dict[str, Any], n: int) -> list[dict[str, Any]]:
 class ParamTree(nn.Module):
     """A tree of parameters: tensors become (frozen) ``nn.Parameter``\\ s,
     dicts become sub-trees, lists become ``nn.ModuleList``\\ s of sub-trees.
-    ``params["name"]`` reads an entry, as the reference indexes its dicts."""
+    ``params["name"]`` reads an entry, as the reference indexes its dicts.
+
+    Serving leaves every parameter frozen, so no forward records a graph;
+    training turns ``requires_grad`` on for every leaf (:func:`trainable`)."""
 
     def __init__(self, tree: dict[str, Any]):
         super().__init__()
@@ -127,6 +131,14 @@ class ParamTree(nn.Module):
         return getattr(self, name)
 
 
+def trainable(params: nn.Module) -> nn.Module:
+    """Turn ``requires_grad`` on for every parameter (each per-layer view of a
+    stacked tensor is its own autograd leaf); returns ``params``."""
+    for p in params.parameters():
+        p.requires_grad_(True)
+    return params
+
+
 def count_params(params: nn.Module) -> int:
     return sum(p.numel() for p in params.parameters())
 
@@ -136,14 +148,57 @@ def count_params(params: nn.Module) -> int:
 # ---------------------------------------------------------------------------
 
 
+def grad_safe_barrier(x: torch.Tensor) -> torch.Tensor:
+    """The identity.  The reference pins each layer's residual with an
+    ``optimization_barrier`` (forward and cotangent) so that XLA cannot
+    hoist its f32 upcast out of the backward layer scan as a stack-wide
+    copy; eager PyTorch runs each op where it is written and hoists
+    nothing, so there is nothing to pin."""
+    return x
+
+
+def _rmsnorm_fwd(x: torch.Tensor, w: torch.Tensor, eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    xf = x.to(torch.float32)
+    var = (xf * xf).sum(dim=-1) / x.shape[-1]
+    inv32 = torch.rsqrt(var + eps)  # (...,) f32 row statistics
+    return (x * inv32[..., None].to(x.dtype)) * w.to(x.dtype), inv32
+
+
+class RMSNorm(torch.autograd.Function):
+    """:func:`rmsnorm` with the reference's custom backward
+    (``_rmsnorm_bwd``): it keeps x in its own dtype and the f32 row
+    statistics, and computes ``gw = g w``, ``s = sum(gw x)``,
+    ``dx = gw inv - x inv^3 s / d`` and ``dw = sum(g x inv)`` in f32,
+    narrowing dx to x's dtype and dw to w's, as the reference does."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        out, inv32 = _rmsnorm_fwd(x, w, eps)
+        ctx.save_for_backward(x, inv32, w)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, inv32, w = ctx.saved_tensors
+        f32, d = torch.float32, x.shape[-1]
+        xf = x.to(f32)
+        gw = g.to(f32) * w.to(f32)
+        s = torch.sum(gw * xf, dim=-1)
+        inv = inv32[..., None]
+        dx = (gw * inv - xf * (inv**3) * (s / d)[..., None]).to(x.dtype)
+        dw = (g.to(f32) * xf * inv).reshape(-1, d).sum(dim=0).to(w.dtype)
+        return dx, dw, None
+
+
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm with f32 row statistics: the variance of x in f32, its
     inverse square root narrowed to x's dtype, then ``x * inv * w``, as the
-    reference's forward does."""
-    xf = x.to(torch.float32)
-    var = (xf * xf).sum(dim=-1) / x.shape[-1]
-    inv32 = torch.rsqrt(var + eps)
-    return (x * inv32[..., None].to(x.dtype)) * w.to(x.dtype)
+    reference's forward does.  Under grad, with x or w requiring it, the
+    same forward runs inside :class:`RMSNorm` (the reference's backward);
+    serving calls the forward alone."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return RMSNorm.apply(x, w, eps)
+    return _rmsnorm_fwd(x, w, eps)[0]
 
 
 def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -188,5 +243,7 @@ def softmax_cross_entropy(
 
 
 def embed_lookup(embedding: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """Token embedding rows (a gather)."""
-    return embedding[tokens.long()]
+    """Token embedding rows (a gather).  Its gradient sums each token's rows
+    into the embedding's (``F.embedding``'s backward, which sorts the
+    tokens: the same bits on every run, on the card too)."""
+    return torch.nn.functional.embedding(tokens.long(), embedding)

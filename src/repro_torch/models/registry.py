@@ -123,3 +123,46 @@ def params_from_reference(
         t = torch.from_numpy(np.array(x)).to(device=device)  # a writable copy
         common.tree_set(out, path, t if dtype is None else t.to(dtype))
     return transformer.from_tree(cfg, out)
+
+
+def params_to_reference(
+    cfg: ModelConfig, params: torch.nn.Module | dict[str, torch.Tensor],
+) -> dict[str, Any]:
+    """The inverse of :func:`params_from_reference`: the reference's tree
+    (``transformer.spec``'s nested dict, the per-layer leaves stacked over a
+    leading ``(n_layers,)`` dim in layer order) with numpy arrays at the
+    leaves.
+
+    Args:
+        cfg: the architecture.
+        params: the port's model, or a mapping from its parameter names
+            (``named_parameters()``: ``"layers.3.attn.wq"``) to tensors,
+            such as the gradients a train step returns.  bf16 leaves come
+            out as f32 (numpy has no bf16).
+
+    Raises:
+        ValueError: when a name the spec needs is missing or one is left
+            over.
+    """
+    named = dict(params.named_parameters()) if isinstance(params, torch.nn.Module) else dict(params)
+    out: dict[str, Any] = {}
+    used = set()
+    for path, s in common.tree_leaves(get(cfg).spec(cfg)):
+        if path[0] == "layers":
+            names = [".".join(("layers", str(i)) + path[1:]) for i in range(cfg.n_layers)]
+        else:
+            names = [".".join(path)]
+        missing = [n for n in names if n not in named]
+        if missing:
+            raise ValueError(f"{cfg.name}: no leaf named {missing[0]}")
+        leaves = [named[n].detach().to("cpu", torch.float32 if named[n].dtype == torch.bfloat16
+                                       else named[n].dtype).numpy() for n in names]
+        x = np.stack(leaves) if path[0] == "layers" else leaves[0]
+        if tuple(x.shape) != s.shape:
+            raise ValueError(f"{'/'.join(path)}: port shape {x.shape}, spec {s.shape}")
+        common.tree_set(out, path, x)
+        used.update(names)
+    extra = sorted(set(named) - used)
+    if extra:
+        raise ValueError(f"{cfg.name}: leaves the spec does not know: {extra}")
+    return out

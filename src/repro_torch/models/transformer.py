@@ -4,12 +4,16 @@
 The reference stacks each parameter over the layers and drives the stack
 with ``lax.scan``; here the layers are an ``nn.ModuleList`` of per-layer
 parameter trees walked by a Python loop, and the decode state is a list of
-per-layer KV caches updated in place.  MoE FFNs and MLA attention raise
-``NotImplementedError`` (ROADMAP Queue 1, the MoE and MLA items), and
-``loss_fn`` waits for the training item.
+per-layer KV caches updated in place.  Training remats each layer with
+``torch.utils.checkpoint`` (non-reentrant), the counterpart of the
+reference's ``jax.checkpoint(..., nothing_saveable)`` scan body: a layer
+keeps only its input and recomputes the rest in the backward.  MoE FFNs and
+MLA attention raise ``NotImplementedError`` (ROADMAP Queue 1, the MoE and
+MLA items).
 
 API (uniform across families via models.registry):
   spec(cfg) / init(generator, cfg)       params
+  loss_fn(params, batch, cfg)            train forward -> (loss, metrics)
   prefill(params, batch, state, cfg)     -> (logits, state)
   decode_step(params, batch, state, cur_len, cfg) -> (logits, state)
   init_state(cfg, batch, max_len)        per-layer KV caches
@@ -19,6 +23,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, common, ffn
@@ -26,7 +31,6 @@ from repro_torch.models.common import ParamSpec, ParamTree
 
 MOE_TODO = "MoE FFN layers are not ported yet (ROADMAP Queue 1, the MoE item: granite-moe-1b)"
 MLA_TODO = "MLA attention is not ported yet (ROADMAP Queue 1, the MLA item: deepseek-v3)"
-TRAIN_TODO = "the training loss is not ported yet (ROADMAP Queue 1, the training item)"
 
 
 def _check_dense(cfg: ModelConfig) -> None:
@@ -92,8 +96,13 @@ def spec(cfg: ModelConfig) -> common.SpecTree:
     }
     if not cfg.tie_embeddings:
         s["lm_head"] = ParamSpec((d, v), ("embed", "vocab"), scale=0.02)
-    if cfg.mtp_depth:  # the multi-token-prediction head comes with MoE + MLA
-        raise NotImplementedError(MOE_TODO)
+    if cfg.mtp_depth:
+        s["mtp"] = {
+            "proj": ParamSpec((2 * d, d), ("embed", None)),
+            "norm_h": ParamSpec((d,), ("embed",), init="ones"),
+            "norm_e": ParamSpec((d,), ("embed",), init="ones"),
+            "layer": layer_spec(cfg),
+        }
     return s
 
 
@@ -139,12 +148,14 @@ def forward(
     *,
     state: dict[str, Any] | None = None,
     cur_len: int | None = None,
+    remat: bool = False,
     q_chunk: int = 512,
     kv_chunk: int = 1024,
 ) -> tuple[torch.Tensor, dict[str, Any] | None, torch.Tensor]:
     """Returns (hidden (B,S,d), state, aux).  With a state, each layer's
     cache is written in place at ``cur_len`` and the same state returned;
-    aux is the MoE balance loss, 0 on the dense path."""
+    aux is the MoE balance loss, 0 on the dense path.  ``remat`` (training,
+    no state) recomputes each layer in the backward from its input."""
     b, s = batch["tokens"].shape
     dev = batch["tokens"].device
     start = 0 if cur_len is None else int(cur_len)
@@ -152,18 +163,70 @@ def forward(
     x = _embed_inputs(params, batch, cfg)
     caches = state["dense"] if state is not None else [None] * cfg.n_layers
     for lp, cache in zip(params["layers"], caches):
-        x, _ = layer_apply(lp, x, cfg, positions=positions, cache=cache, cur_len=cur_len,
-                           q_chunk=q_chunk, kv_chunk=kv_chunk)
+        x = common.grad_safe_barrier(x)
+        if remat:
+            x = checkpoint(_layer_out, lp, x, cfg, positions, q_chunk, kv_chunk,
+                           use_reentrant=False)
+        else:
+            x, _ = layer_apply(lp, x, cfg, positions=positions, cache=cache, cur_len=cur_len,
+                               q_chunk=q_chunk, kv_chunk=kv_chunk)
     return x, state, torch.zeros((), dtype=torch.float32, device=dev)
 
 
+def _layer_out(lp, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor, q_chunk: int,
+               kv_chunk: int) -> torch.Tensor:
+    """One cache-less layer's output: the unit that remat recomputes."""
+    return layer_apply(lp, x, cfg, positions=positions, q_chunk=q_chunk, kv_chunk=kv_chunk)[0]
+
+
 # ---------------------------------------------------------------------------
-# Serve entry points
+# Train / serve entry points
 # ---------------------------------------------------------------------------
 
 
-def loss_fn(*args: Any, **kwargs: Any) -> Any:
-    raise NotImplementedError(TRAIN_TODO)
+def loss_fn(
+    params,
+    batch: dict[str, torch.Tensor],
+    cfg: ModelConfig,
+    *,
+    remat: bool = True,
+    aux_weight: float = 0.01,
+    mtp_weight: float = 0.3,
+    q_chunk: int = 512,
+    kv_chunk: int = 1024,
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """The training loss, as the reference's: mean next-token NLL over
+    ``batch["labels"]`` plus ``aux_weight * aux`` (0 on the dense path)
+    and, with ``cfg.mtp_depth`` and ``batch["labels2"]``, ``mtp_weight``
+    times the MTP head's NLL on the token after next.
+
+    Returns (total, metrics) with metrics ``nll``, ``aux``, ``loss`` and
+    ``mtp_nll`` where the head runs; each is a 0-dim f32 tensor in the
+    graph (the caller detaches).
+    """
+    _check_dense(cfg)
+    x, _, aux = forward(params, batch, cfg, remat=remat, q_chunk=q_chunk, kv_chunk=kv_chunk)
+    logits = _logits(params, x, cfg)
+    loss = common.softmax_cross_entropy(logits, batch["labels"])
+    del logits
+    metrics = {"nll": loss, "aux": aux}
+    total = loss + aux_weight * aux
+    if cfg.mtp_depth and "labels2" in batch:
+        # DeepSeek-V3 MTP: predict t+2 from h_t and embed(label_t (=token t+1))
+        m = params["mtp"]
+        e_next = common.embed_lookup(params["embed"], batch["labels"]).to(x.dtype)
+        h_in = torch.cat([common.rmsnorm(x, m["norm_h"], cfg.norm_eps),
+                          common.rmsnorm(e_next, m["norm_e"], cfg.norm_eps)], dim=-1)
+        h_in = torch.matmul(h_in, m["proj"].to(x.dtype))
+        b, s = batch["tokens"].shape
+        positions = torch.arange(s, device=x.device).expand(b, s)
+        h_mtp, _ = layer_apply(m["layer"], h_in, cfg, positions=positions, q_chunk=q_chunk,
+                               kv_chunk=kv_chunk)
+        mtp_loss = common.softmax_cross_entropy(_logits(params, h_mtp, cfg), batch["labels2"])
+        metrics["mtp_nll"] = mtp_loss
+        total = total + mtp_weight * mtp_loss
+    metrics["loss"] = total
+    return total, metrics
 
 
 def init_state(

@@ -465,3 +465,166 @@ def test_cuda_reduced_prefill_launches_once_per_layer(cuda_device, arch):
     got, _ = card.prefill({"tokens": batch["tokens"].to(cuda_device)}, card.init_state(2))
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
     assert toks.shape == (2, 26)
+
+
+# -- the flash backward -------------------------------------------------------------
+
+BWD_SHAPES = [  # (B, Sq, Skv, Hq, Hkv, D, causal, q_offset)
+    (2, 1024, 1024, 32, 8, 128, True, 0),  # the training shape (qwen3-4b)
+    (1, 100, 100, 4, 1, 64, True, 0),  # ragged, G=4
+    (1, 100, 100, 4, 4, 32, False, 0),  # ragged, G=1, non-causal
+    (2, 64, 200, 8, 2, 64, True, 136),  # Sq < Skv, queries continuing a prefix
+    (1, 64, 200, 4, 4, 32, False, 0),  # Sq < Skv, non-causal
+    (1, 130, 130, 8, 2, 128, True, 0),  # a ragged second tile at D=128
+]
+
+
+def _bwd_inputs(shape, dtype, device, seed):
+    """q, k, v, dout on the card (bf16 or f32) and the forward's out, lse."""
+    b, sq, skv, hq, hkv, d, causal, q_offset = shape
+    q, k, v = (t.to(device) for t in _qkv(shape, dtype, seed))
+    dout = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
+        (b, sq, hq, d), dtype=np.float32)).to(device, dtype)
+    out, lse = fa._forward(q, k, v, causal=causal, q_chunk=512, kv_chunk=1024,
+                           q_offset=q_offset, with_lse=True)
+    return q, k, v, dout, out, lse
+
+
+def _within_max(got, want, dtype):
+    """kernel_tolerance scaled to the gradient's largest magnitude."""
+    atol, rtol = fa.kernel_tolerance(dtype)
+    err = (got.float() - want.float()).abs().max().item()
+    return err <= atol + rtol * want.float().abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_backward_matches_plain_version(cuda_device, shape, dtype):
+    *_, causal, q_offset = shape
+    q, k, v, dout, out, lse = _bwd_inputs(shape, dtype, cuda_device, seed=60)
+    want = fa.flash_attention_bwd_plain(q, k, v, out, dout, lse, causal=causal,
+                                        q_chunk=64, kv_chunk=128, q_offset=q_offset)
+    before = fa.BWD_LAUNCHES.count
+    got = fa.flash_attention_bwd(q, k, v, out, dout, lse, causal=causal, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert fa.BWD_LAUNCHES.count == before + 1
+    for name, g, w, t in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
+        assert g.dtype == dtype and g.shape == t.shape and bool(torch.isfinite(g.float()).all())
+        ok, err = _within_max(g, w, dtype)
+        assert ok, (name, err, w.float().abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_backward_is_deterministic(cuda_device, dtype):
+    shape = BWD_SHAPES[0]
+    q, k, v, dout, out, lse = _bwd_inputs(shape, dtype, cuda_device, seed=61)
+    first = fa.flash_attention_bwd(q, k, v, out, dout, lse)
+    again = fa.flash_attention_bwd(q, k, v, out, dout, lse)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_forward_with_lse_keeps_out(cuda_device, dtype):
+    """out is the same bits with and without lse; lse against the plain
+    version's within 1e-5 (f32 sums in another order)."""
+    for shape in BWD_SHAPES[1:]:
+        b, sq, skv, hq, hkv, d, causal, q_offset = shape
+        q, k, v = (t.to(cuda_device) for t in _qkv(shape, dtype, seed=62))
+        kw = dict(causal=causal, q_chunk=512, kv_chunk=1024, q_offset=q_offset)
+        bare, none = fa._forward(q, k, v, with_lse=False, **kw)
+        out, lse = fa._forward(q, k, v, with_lse=True, **kw)
+        _, want = fa.flash_attention_plain(q, k, v, return_lse=True, **kw)
+        torch.cuda.synchronize()
+        assert none is None and torch.equal(out, bare)
+        assert lse.shape == (b, hq, sq) and lse.dtype == torch.float32
+        torch.testing.assert_close(lse, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_q_k_v_get_gradients_through_the_kernels(cuda_device):
+    """Through the autograd function on the card: one forward and one
+    backward launch, and gradients equal to the kernels' own call."""
+    shape = (2, 200, 200, 8, 2, 64, True, 0)
+    q, k, v = (t.to(cuda_device).requires_grad_() for t in _qkv(shape, torch.bfloat16, 63))
+    dout = torch.randn(q.shape, generator=torch.Generator(device=cuda_device).manual_seed(3),
+                       device=cuda_device).to(torch.bfloat16)
+    fwd, bwd = fa.LAUNCHES.count, fa.BWD_LAUNCHES.count
+    out = fa.flash_attention(q, k, v)
+    assert out.grad_fn is not None
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES.count - fwd, fa.BWD_LAUNCHES.count - bwd) == (1, 1)
+    qd, kd, vd = (t.detach() for t in (q, k, v))
+    o, lse = fa._forward(qd, kd, vd, causal=True, q_chunk=512, kv_chunk=1024, q_offset=0,
+                         with_lse=True)
+    want = fa.flash_attention_bwd(qd, kd, vd, o, dout, lse)
+    for t, w in zip((q, k, v), want):
+        assert t.grad is not None and torch.equal(t.grad, w)
+    with torch.no_grad():  # serving: the forward alone
+        assert fa.flash_attention(q, k, v).grad_fn is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_backward_budget(cuda_device, dtype):
+    """Within 227 KB a block, no spills, at least one block per SM."""
+    for d in fa.HEAD_DIMS:
+        budget = fa.bwd_budget(dtype, d)
+        for name, smem in zip(("dkdv", "dq"), fa.bwd_smem_bytes(d)):
+            assert budget[name]["shared_bytes"] == smem <= 232448
+            assert budget[name]["local_bytes"] == 0 and budget[name]["blocks_per_sm"] >= 1
+
+
+@pytest.mark.cuda
+def test_cuda_reduced_train_step_matches_the_cpu(cuda_device):
+    """One step's loss and gradients through the kernels (forward, its
+    remat recompute and the backward) against the CPU's plain versions, f32,
+    TF32 off: within 1e-4 (loss, relative) and 1e-3 of each leaf's max."""
+    from repro_torch.data.pipeline import DataConfig, PipelineState, TokenPipeline, make_train_batch
+    from repro_torch.models import common
+    from repro_torch.train import train_step
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = get_config("qwen3-4b").reduced()
+    model = common.trainable(registry.get(cfg).init(torch.Generator().manual_seed(0), cfg))
+    card = copy.deepcopy(model).to(cuda_device)
+    pipe = TokenPipeline(DataConfig(cfg.vocab_size, 96, 2, seed=1))
+    grad_fn = train_step.make_grad_fn(cfg, q_chunk=64, kv_chunk=64)
+    grads, metrics = grad_fn(model, make_train_batch(pipe, PipelineState(), cfg)[0])
+    fwd, bwd = fa.LAUNCHES.count, fa.BWD_LAUNCHES.count
+    cgrads, cmetrics = grad_fn(card, make_train_batch(pipe, PipelineState(), cfg,
+                                                      device=cuda_device)[0])
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES.count - fwd, fa.BWD_LAUNCHES.count - bwd) == (2 * cfg.n_layers,
+                                                                      cfg.n_layers)
+    assert abs(cmetrics["loss"].item() - metrics["loss"].item()) <= 1e-4 * metrics["loss"].item()
+    for name, g in grads.items():
+        err = (cgrads[name].cpu() - g).abs().max().item()
+        assert err <= 1e-3 * g.abs().max().item(), name
+
+
+@pytest.mark.cuda
+def test_cuda_train_loop_resumes_bitwise(cuda_device, tmp_path):
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import loop
+
+    cfg = get_config("qwen3-4b").reduced()
+
+    def tcfg(steps, directory):
+        return loop.TrainConfig(steps=steps, seq_len=64, global_batch=2, log_every=1,
+                                checkpoint_dir=directory,
+                                opt=AdamWConfig(peak_lr=1e-3, warmup_steps=1, total_steps=4))
+
+    quiet = lambda line: None  # noqa: E731
+    straight = loop.train(cfg, tcfg(4, None), log=quiet, device=cuda_device)
+    loop.train(cfg, tcfg(2, str(tmp_path)), log=quiet, device=cuda_device)
+    resumed = loop.train(cfg, tcfg(4, str(tmp_path)), log=quiet, device=cuda_device)
+    assert [h["loss"] for h in straight["history"][2:]] == [h["loss"] for h in resumed["history"]]
+    for (n, a), (_, b) in zip(straight["params"].named_parameters(),
+                              resumed["params"].named_parameters()):
+        assert a.is_cuda and torch.equal(a, b), n
