@@ -36,9 +36,10 @@ source, started together) and, at the paper's L=32 lattice:
     teacher-forced prefill, and the card against the port's CPU path at 2
     layers in f32;
   * the training phase: holds the flash backward kernel against its plain
-    version in eight forms (and twice bitwise), and the forward's ``out``
-    with and without lse; trains full-width qwen3-4b (36 layers, f32 master
-    weights and AdamW moments, bf16 compute, remat) through
+    version in nine forms (and twice bitwise; one reads a strided dout in
+    place), and the forward's ``out`` with and without lse; trains
+    full-width qwen3-4b (36 layers, f32 master weights and AdamW moments,
+    bf16 compute, remat) through
     ``train.loop.train`` for 5 steps on 2 x 1,024 tokens from the seeded
     ``TokenPipeline``, with the counters set to 0 just before and read just
     after (72 flash forward launches a step, 36 in the remat recompute; 36
@@ -55,7 +56,9 @@ It prints:
 
   * the card's name and power limit (nvidia-smi) and the tool versions;
   * the HGMMA, UTMALDG and HMMA counts of the built flash-attention library
-    (``cuobjdump -sass``): its bf16 body must run wgmma fed by TMA;
+    (``cuobjdump -sass``): its bf16 body must run wgmma fed by TMA; and the
+    HGMMA count of each bf16 backward kernel (dK/dV and dQ, every head dim
+    and mask), which must run wgmma too;
   * one JSON line per check, per main-path row and per yardstick;
   * a ``{"kernels": [...]}`` line with each ported kernel's numbers (the
     flash backward beside the forward);
@@ -135,7 +138,10 @@ BWD_FORMS = [  # (label, batch, sq, skv, hq, hkv, d, causal, q_offset, dtype)
     ("Sq<Skv q_offset 136 G=4 D=32 bf16", 2, 64, 200, 8, 2, 32, True, 136, "bfloat16"),
     ("Sq<Skv G=1 D=64 bf16 non-causal", 1, 64, 200, 4, 4, 64, False, 0, "bfloat16"),
     ("ragged 130 G=4 D=128 f32", 1, 130, 130, 8, 2, 128, True, 0, "float32"),
+    # dout a slice of a (B, S, Hq, 2 D) tensor: 16-byte rows, read in place
+    ("G=4 D=128 bf16 causal dout strided", 1, 512, 512, 16, 4, 128, True, 0, "bfloat16"),
 ]
+BWD_TC_KERNELS = ("flash_bwd_dkdv_tc", "flash_bwd_dq_tc")  # the bf16 backward's wgmma kernels
 FLASH_FORMS = [  # (label, batch, sq, skv, hq, hkv, d, causal, q_offset, dtype)
     ("main path bf16 causal", 4, 1024, 1024, 32, 8, 128, True, 0, "bfloat16"),
     ("main path f32 causal", 4, 1024, 1024, 32, 8, 128, True, 0, "float32"),
@@ -160,6 +166,21 @@ def _tool_line(cmd: list[str]) -> str:
 
 def _tool_output(cmd: list[str]) -> str:
     return subprocess.run(cmd, capture_output=True, text=True, timeout=60, check=True).stdout
+
+
+def _sass_per_function(listing: str, op: str) -> dict[str, int]:
+    """The count of instruction ``op`` in each function of a ``cuobjdump
+    -sass`` listing, keyed by the function's (mangled) name."""
+    counts: dict[str, int] = {}
+    name = None
+    for line in listing.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            name = found.group(1)
+            counts[name] = 0
+        elif name is not None and re.search(rf"\b{op}\b", line):
+            counts[name] += 1
+    return counts
 
 
 def random_su3(rng, shape: tuple[int, ...]):
@@ -360,6 +381,15 @@ def main(argv: list[str] | None = None) -> int:
     _emit({"sass": "flash_attention", "instructions": counts})
     if not (counts["HGMMA"] and counts["UTMALDG"]):
         failures.append(f"flash_attention: no HGMMA or UTMALDG in the built library: {counts}")
+    # the bf16 backward on the tensor cores: HGMMA in each of its kernels
+    per_fn = _sass_per_function(sass, "HGMMA")
+    bwd_hgmma = {kname: {fn: n for fn, n in per_fn.items() if kname in fn}
+                 for kname in BWD_TC_KERNELS}
+    _emit({"sass": "flash_attention_bwd bf16", "HGMMA_per_function": {
+        kname: sorted(found.values()) for kname, found in bwd_hgmma.items()}})
+    for kname, found in bwd_hgmma.items():
+        if len(found) != 2 * len(flash_attention.HEAD_DIMS) or not all(found.values()):
+            failures.append(f"flash_attention_bwd: {kname} lacks HGMMA or instantiations: {found}")
 
     # -- 3. kernel vs plain version on random SU(3) links, L=32 --------------------
     n_sites = PAPER_L32.shape.n_sites
@@ -1442,6 +1472,10 @@ def _bwd_checks(rng, failures: list[str]) -> float:
         q, k, v, dout = (torch.from_numpy(rng.standard_normal(shp, dtype=np.float32)).to(dev, dt)
                          for shp in ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d),
                                      (b, sq, hq, d)))
+        if label.endswith("dout strided"):
+            wide = torch.zeros((b, sq, hq, 2 * d), dtype=dt, device=dev)
+            wide[..., :d] = dout
+            dout = wide[..., :d]
         kw = dict(causal=causal, q_chunk=512, kv_chunk=1024, q_offset=q_offset)
         bare, _ = fa._forward(q, k, v, with_lse=False, **kw)
         out, lse = fa._forward(q, k, v, with_lse=True, **kw)
@@ -1453,11 +1487,13 @@ def _bwd_checks(rng, failures: list[str]) -> float:
         atol, rtol = fa.kernel_tolerance(dt)
         row = {"check": "kernel_vs_plain", "kernel": "flash_attention_bwd", "form": label,
                "shape": [b, sq, skv, hq, hkv, d], "causal": causal, "q_offset": q_offset,
-               "dtype": dtype, "atol": atol, "rtol_of_max": rtol}
+               "dtype": dtype, "dout_strides": list(dout.stride()), "atol": atol,
+               "rtol_of_max": rtol}
         ok = True
         for name, g, w in zip(("dq", "dk", "dv"), got, want):
             err, scale = (g.float() - w.float()).abs().max().item(), w.float().abs().max().item()
             row[f"{name}_max_abs_err"], row[f"{name}_max"] = err, scale
+            row[f"{name}_share_of_limit"] = err / (atol + rtol * scale)
             ok = ok and err <= atol + rtol * scale and bool(torch.isfinite(g.float()).all())
             worst = max(worst, err)
         row["bitwise_twice"] = all(torch.equal(x, y) for x, y in zip(got, again))
@@ -1650,7 +1686,7 @@ def _train_phase(seed: int, hw, failures: list[str]) -> tuple[dict, int]:
                                          (b, s, hq, d)))
     o, lse = fa._forward(q, k, v, causal=True, q_chunk=512, kv_chunk=1024, q_offset=0,
                          with_lse=True)
-    kernel_ms = _time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, dout, lse), reps=10)
+    kernel_ms = _time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, dout, lse), reps=50)
     plain_ms = _time_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, o, dout, lse), reps=3,
                         warmup=1)
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
@@ -1658,13 +1694,18 @@ def _train_phase(seed: int, hw, failures: list[str]) -> tuple[dict, int]:
                                                              enable_gqa=True)
     sdpa_bwd = lambda: torch.autograd.grad(o_lib, (qt, kt, vt), dout.transpose(1, 2),  # noqa: E731
                                            retain_graph=True)
-    library_ms = _time_ms(sdpa_bwd, reps=10)
+    library_ms = _time_ms(sdpa_bwd, reps=50)
     lib_dq = sdpa_bwd()[0].transpose(1, 2).float()
     lib_diff = (lib_dq - fa.flash_attention_bwd(q, k, v, o, dout, lse)[0].float()).abs().max()
     bound = roofline.attention_bwd_bound(batch=b, sq=s, skv=s, hq=hq, hkv=hkv, d=d,
                                          dtype=torch.bfloat16, hw=hw) if hw is not None else None
     fp32_bound = roofline.attention_bwd_bound(batch=b, sq=s, skv=s, hq=hq, hkv=hkv, d=d,
                                               dtype=torch.float32, hw=hw) if hw else None
+    # the three kernels of a call (delta, dK/dV, dQ): device ms per call by
+    # name, over 10 calls
+    split = _profile(lambda: [fa.flash_attention_bwd(q, k, v, o, dout, lse) for _ in range(10)],
+                     top=3)["top_kernels"]
+    executed = fa.bwd_executed_flops(b, s, s, hq, hkv, d)  # 10 products, causal tile waste
     _emit({"yardstick": f"flash_attention_bwd bf16 causal B={b} S={s} Hq={hq} Hkv={hkv} D={d}",
            "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
            "library_call": "backward of F.scaled_dot_product_attention(is_causal=True, "
@@ -1676,7 +1717,12 @@ def _train_phase(seed: int, hw, failures: list[str]) -> tuple[dict, int]:
            "bound_by": None if bound is None else bound.bound_by,
            "fp32_core_bound_ms": None if fp32_bound is None else fp32_bound.compute_s * 1e3,
            "kernel_TFLOPs": None if bound is None else bound.flops / kernel_ms / 1e9,
-           "bound_share": None if bound is None else bound.bound_s * 1e3 / kernel_ms})
+           "bound_share": None if bound is None else bound.bound_s * 1e3 / kernel_ms,
+           "kernel_vs_library": kernel_ms / library_ms,
+           "executed_flops": executed,
+           "executed_TFLOPs": executed / kernel_ms / 1e9,
+           "own_floor_ms": None if hw is None else executed / hw.peak_flops_bf16 * 1e3,
+           "kernel_split_ms": {name: ms / count for name, ms, count in split}})
     return ({"launches": bwd, "launches_per_step": bwd / steps, "max_abs_err": max_err,
              "ms": kernel_ms, "plain_ms": plain_ms,
              "bound_ms": None if bound is None else bound.bound_s * 1e3,

@@ -68,8 +68,10 @@
 // and non-causal Sq != Skv are served.  Given an lse buffer, both bodies
 // also store each row's log-sum-exp for the backward, after `out`.
 //
-// The backward (flash_attention_bwd, namespace bwd below) is the gradient
-// the reference takes by autodiff: three kernels on the CUDA cores.
+// The backward (flash_attention_bwd) is the gradient the reference takes by
+// autodiff, in three kernels: a delta pass, then dK/dV and dQ, without
+// atomics.  bf16 runs on the tensor cores (namespace tcb), f32 on the CUDA
+// cores (namespace bwd).
 
 #include <cstdint>
 
@@ -423,6 +425,19 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// d (+)= A B: A (64 x 16) and B (64 x 16) from shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // d += A B: A (64 x 16) from registers, B (16 x 32) from shared memory, MN-major.
 __device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
@@ -484,6 +499,54 @@ __device__ __forceinline__ void turn_pass(int c) {
   asm volatile("bar.arrive %0, 256;\n" ::"r"(4 - c) : "memory");
 }
 
+// wgmma descriptors of a bf16 operand stored as rows of D in boxes of
+// `box` bytes under Tile<D>'s swizzle: K-major when the reduction runs
+// along D (a k-slice is 16 columns), MN-major when it runs down the rows (a
+// k-slice is 16 rows; boxes across D `box` apart).
+template <int D>
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk, uint32_t box) {
+  using T = Tile<D>;
+  return smem_desc(tile + (16 * kk / T::kBoxCols) * box + (16 * kk % T::kBoxCols) * 2, 16,
+                   8 * T::kSwizzle, T::kLayout);
+}
+template <int D>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk, uint32_t box) {
+  using T = Tile<D>;
+  return smem_desc(tile + 16 * kk * T::kSwizzle, box, 8 * T::kSwizzle, T::kLayout);
+}
+
+// Folded rows row0 .. row0 + n - 1 of a (B, S, H, D) bf16 tensor (row f:
+// sequence f / g, head hk * g + f % g; g = 1 reads keys of kv head hk) by
+// 16-byte cp.async from thread `tid` of `nthreads` into the swizzle TMA
+// would give (16-byte chunk j of row r at j ^ (r % 8) for 128 bytes,
+// j ^ (r / 2 % 4) for 64), boxes `box` bytes apart; zeros past `rows`.
+template <int D>
+__device__ __forceinline__ void load_rows(uint32_t dst, uint32_t box,
+                                          const __nv_bfloat16* base, const long long (&st)[3],
+                                          int b, int hk, int g, int row0, int n, int rows,
+                                          int tid, int nthreads) {
+  using T = Tile<D>;
+  constexpr int kChunks = D / 8, kRowChunks = T::kSwizzle / 16;
+  for (int idx = tid; idx < n * kChunks; idx += nthreads) {
+    const int r = idx / kChunks, ch = idx % kChunks, f = row0 + r;
+    const __nv_bfloat16* src = base;
+    if (f < rows) {
+      const int i = f / g, h = hk * g + f % g;
+      src = base + b * st[0] + i * st[1] + h * st[2] + ch * 8;
+    }
+    const int j = ch % kRowChunks;
+    const int swz = T::kSwizzle == 128 ? (r & 7) : ((r >> 1) & 3);
+    cp_async16(dst + (ch / kRowChunks) * box + r * T::kSwizzle + (j ^ swz) * 16, src,
+               f < rows ? 16 : 0);
+  }
+}
+
+// The thread's cp.async copies have landed and are visible to wgmma.
+__device__ __forceinline__ void cp_async_publish() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // One consumer warpgroup's view of a block: its Q rows, the K/V ring, and
 // this thread's two accumulator rows (r and r + 8 of the warpgroup's 64).
 // Value i of an accumulator lies in row r + 8 * (i / 2 % 2), column
@@ -497,16 +560,12 @@ struct Tc {
   int lane;
   float c;      // D^-1/2 log2(e): p = 2^(s c - m c)
 
-  // K-major operands (Q, K): 8-row groups 8 * kSwizzle apart; a k-slice of
-  // 16 columns is 32 bytes inside a swizzled row.
+  // K-major operands (Q, K) and V as stored (MN-major), in boxes of 128 rows
   static __device__ __forceinline__ uint64_t kmajor(uint32_t tile, int kk) {
-    return smem_desc(tile + (16 * kk / T::kBoxCols) * T::kBoxBytes + (16 * kk % T::kBoxCols) * 2,
-                     16, 8 * T::kSwizzle, T::kLayout);
+    return desc_k<D>(tile, kk, T::kBoxBytes);
   }
-  // V as stored, (key, D) in boxes: MN-major, 8 keys 8 * kSwizzle apart,
-  // boxes across D kBoxBytes apart; a k-slice is 16 keys.
   static __device__ __forceinline__ uint64_t vdesc(uint32_t tile, int kk) {
-    return smem_desc(tile + 16 * kk * T::kSwizzle, T::kBoxBytes, 8 * T::kSwizzle, T::kLayout);
+    return desc_mn<D>(tile, kk, T::kBoxBytes);
   }
 
   // S = Q K^T of stage s
@@ -638,28 +697,12 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tmk, const __grid_constan
     const int warp = tid / 32, lane = tid % 32;
     const int wg_row0 = row0 + 64 * c;
 
-    // Q, once: 16-byte cp.async copies into the swizzle TMA would give
-    // (16-byte chunk j of shared row r at chunk j ^ (r % 8) for 128 bytes,
-    // j ^ (r / 2 % 4) for 64), zeros past the last row
-    {
-      constexpr int kChunks = D / 8, kRowChunks = T::kSwizzle / 16;
-      for (int idx = tid; idx < 64 * kChunks; idx += 128) {
-        const int r = idx / kChunks, ch = idx % kChunks;
-        const int f = wg_row0 + r;
-        const __nv_bfloat16* src = q;
-        if (f < rows) {
-          const int i = f / p.g, h = hk * p.g + f % p.g;
-          src = q + b * p.qs[0] + i * p.qs[1] + h * p.qs[2] + ch * 8;
-        }
-        const int row = 64 * c + r, j = ch % kRowChunks;
-        const int swz = T::kSwizzle == 128 ? (row & 7) : ((row >> 1) & 3);
-        cp_async16(q_s + (ch / kRowChunks) * T::kBoxBytes + row * T::kSwizzle + (j ^ swz) * 16,
-                   src, f < rows ? 16 : 0);
-      }
-      asm volatile("cp.async.wait_all;\n" ::: "memory");
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
-      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
-    }
+    // Q, once, by cp.async into the swizzle TMA would give; zeros past the
+    // last row
+    load_rows<D>(q_s + 64 * c * T::kSwizzle, T::kBoxBytes, q, p.qs, b, hk, p.g, wg_row0, 64, rows,
+                 tid, 128);
+    cp_async_publish();
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
 
     // this thread's rows of the accumulators: r and r + 8 of the warpgroup's 64;
     // a row sees keys below min(Skv, its position + 1) (causal) or Skv.
@@ -763,14 +806,15 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tmk, const __grid_constan
 // and writes its dK and dV rows once; a dq block loops over the key tiles
 // its rows see and writes its dQ rows once.  So two calls give the same bits.
 //
-// What bounds it on this card: operations, here on the CUDA cores in f32
-// (67 TFLOP/s), against the tensor cores' 989 TFLOP/s that its bound takes:
-// five products of 2 D flops per visible (query, key) pair and query head,
-// seven here (dq recomputes S and dP).  The design keeps every operand of a
-// tile in shared memory as f32 rows of D + 1 words, so that each inner
-// product reads one word per lane from distinct banks: thread (ty, tx) of
-// 16 x 16 owns score rows tx + 16a and keys ty + 16b (a, b < 4), and output
-// rows ty + 16b, columns tx + 16c.  Storage f32 or bf16, math in f32.
+// What bounds it on this card: operations.  Its bound takes the tensor
+// cores' 989 TFLOP/s: five products of 2 D flops per visible (query, key)
+// pair and query head, seven executed (dq recomputes S and dP).  This body
+// serves f32 on the CUDA cores (67 TFLOP/s); bf16 goes to the tensor cores
+// (namespace tcb below).  The design keeps every operand of a tile in shared
+// memory as f32 rows of D + 1 words, so that each inner product reads one
+// word per lane from distinct banks: thread (ty, tx) of 16 x 16 owns score
+// rows tx + 16a and keys ty + 16b (a, b < 4), and output rows ty + 16b,
+// columns tx + 16c.
 
 namespace bwd {
 
@@ -785,13 +829,25 @@ struct Params {
   // element strides of (batch, seq, head): q k v o dout dq dk dv
   long long qs[3], ks[3], vs[3], os[3], dos[3], dqs[3], dks[3], dvs[3];
   const float* lse;  // (batch, hq, sq), the forward's
-  float* delta;      // (batch, hq, sq), written by flash_bwd_delta
+  // f32 body: (batch, hq, sq), written by flash_bwd_delta.  bf16 body: two
+  // planes of (batch * hkv, rows_pad) f32, lse * log2(e) then delta, each
+  // row tile of tile_rows folded rows in kTileSlots slots (zeros past its
+  // rows and past sq * g; flash_bwd_delta<..., true>)
+  float* delta;
+  int rows_pad;   // bf16 body: slots per (batch, kv head) of the planes
+  int tile_rows;  // bf16 body: folded rows of a row tile, g * (kTileSlots / g)
 };
+
+constexpr int kTileSlots = 64;  // bf16 body: slots of a row tile (tcb::kRows)
+
+// The slot of folded row f in the bf16 body's planes.
+__device__ __forceinline__ int slot_of(const Params& p, int f) {
+  return f / p.tile_rows * kTileSlots + f % p.tile_rows;
+}
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void put(float* p, float x) { *p = x; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
 template <int D>
 constexpr int smem_floats_dkdv() {  // K, V, Q * scale, dO, P, dS, lse, delta
@@ -802,17 +858,36 @@ constexpr int smem_floats_dq() {  // Q * scale, dO, K, V, dS, lse, delta
   return 2 * kRows * (D + 1) + 2 * kKeys * (D + 1) + kRows * (kKeys + 1) + 2 * kRows;
 }
 
-// delta of each (batch, query, head) row: sum over d of dO * O, in f32.
-template <typename T, int D>
+// delta of each (batch, query, head) row: sum over d of dO * O, in f32,
+// one warp per row.  kFolded (the bf16 body): one warp per slot of the two
+// planes of p.delta, writing its folded row's lse * log2(e) and delta (zeros
+// for slots that hold no row).
+template <typename T, int D, bool kFolded>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout, const Params p) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, hq = p.g * p.hkv;
-  const long long per_batch = static_cast<long long>(p.sq) * hq;
-  const long long row = static_cast<long long>(blockIdx.x) * kDeltaRows + warp;  // head fastest
-  if (row >= per_batch * p.batch) return;  // the whole warp leaves together
-  const int b = static_cast<int>(row / per_batch);
-  const long long i = row % per_batch / hq;
-  const int h = static_cast<int>(row % hq);
+  const long long row = static_cast<long long>(blockIdx.x) * kDeltaRows + warp;
+  const long long plane = static_cast<long long>(p.batch) * p.hkv * p.rows_pad;
+  int b, h;
+  long long i;
+  if constexpr (kFolded) {
+    if (row >= plane) return;  // the whole warp leaves together
+    const int slot = static_cast<int>(row % p.rows_pad), bh = static_cast<int>(row / p.rows_pad);
+    const int f = slot / kTileSlots * p.tile_rows + slot % kTileSlots;
+    if (slot % kTileSlots >= p.tile_rows || f >= p.sq * p.g) {
+      if (lane == 0) p.delta[row] = 0.f, p.delta[plane + row] = 0.f;
+      return;
+    }
+    b = bh / p.hkv;
+    i = f / p.g;
+    h = bh % p.hkv * p.g + f % p.g;
+  } else {
+    const long long per_batch = static_cast<long long>(p.sq) * hq;  // head fastest
+    if (row >= per_batch * p.batch) return;  // the whole warp leaves together
+    b = static_cast<int>(row / per_batch);
+    i = row % per_batch / hq;
+    h = static_cast<int>(row % hq);
+  }
   const T* orow = o + b * p.os[0] + i * p.os[1] + h * p.os[2];
   const T* drow = dout + b * p.dos[0] + i * p.dos[1] + h * p.dos[2];
   float acc = 0.f;
@@ -820,7 +895,14 @@ flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout, const Param
   for (int c = lane; c < D; c += 32) acc = fmaf(to_f(drow[c]), to_f(orow[c]), acc);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) p.delta[(static_cast<long long>(b) * hq + h) * p.sq + i] = acc;
+  if (lane != 0) return;
+  const long long at = (static_cast<long long>(b) * hq + h) * p.sq + i;
+  if constexpr (kFolded) {
+    p.delta[row] = p.lse[at] * 1.4426950408889634f;
+    p.delta[plane + row] = acc;
+  } else {
+    p.delta[at] = acc;
+  }
 }
 
 // Folded rows row0 .. row0 + kRows - 1 of a (B, S, H, D) tensor (row f:
@@ -1085,6 +1167,535 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 
 }  // namespace bwd
 
+// -- backward, bf16: tensor cores -------------------------------------------------
+//
+// The same gradient as namespace bwd, on the tensor cores: wgmma with bf16
+// operands and f32 accumulators, warp-specialised like the forward.  Its
+// bound is the bf16 tensor-core rate (989 TFLOP/s); it executes ten
+// products per visible pair where the bound counts five (dQ recomputes S
+// and dP; dV, dK and dQ run twice, on the two bf16 parts of P and dS), plus
+// the causal tiles' masked entries: 2.17x the counted flops at the
+// training shape.
+//
+//  * A row tile is G * (64 / G) folded rows (f = query * G + head within
+//    the kv group): whole query groups, all 64 when G divides 64.
+//    flash_bwd_delta<bf16, D, true> writes lse * log2(e) and delta of every
+//    folded row into two planes, a row tile in 64 slots (zeros past its
+//    rows), so a tile finds its statistics in 256 contiguous bytes.
+//  * flash_bwd_dkdv_tc: one block per (batch, kv head, pair of key tiles of
+//    64).  Consumer warpgroup 0 owns key tile j, consumer 1 key tile
+//    n - 1 - j (none if that is j or less): both read one stream of row
+//    tiles, which starts where tile j's keys are first seen, so a Q/dO tile
+//    loaded serves up to 128 keys, and under the causal mask every block
+//    multiplies the same number of row tiles (68 at the training shape;
+//    consumer 1 waits out the first ones).  K and V of a consumer's 64 keys
+//    stay in shared memory (cp.async at the start).  The producer
+//    warpgroup streams row tiles of Q and dO with their statistics through
+//    kStages stages, one producer warp per stage, by TMA from a
+//    (D, G, Hkv, S, B) view (64 / G queries of G heads are the tile's folded
+//    rows in order; a shorter tile's last rows stay zero, written once) and
+//    bulk copies: the GQA group is read in place through the strides, never
+//    copied.  Loads bounded this kernel while threads issued them by
+//    cp.async (PERF.md); TMA issues them from one lane per stage.  Per row
+//    tile a consumer computes S^T = K Q^T
+//    and dP^T = V dO^T (wgmma_ss, m64n64, K-major, D the reduction);
+//    P^T = 2^(S^T c - lse log2 e) and dS^T = P^T (dP^T - delta) in f32
+//    registers, masked only on tiles that hold an invisible pair; then
+//    dV += P^T dO and dK += dS^T Q (wgmma_rs: P^T and dS^T from registers
+//    as bf16 parts, as the forward's P; dO and Q MN-major, N = D).  The
+//    loop over row tiles replaces the sum across blocks: no atomics.
+//    Registers: the producer keeps 24, the consumers take 240 (dK and dV
+//    128 accumulators at D=128, S^T and dP^T 64, the bf16 parts of P^T and
+//    dS^T 64).
+//  * flash_bwd_dq_tc: one block per (batch * kv head, 128 folded rows),
+//    heaviest first; Q and dO by cp.async once, K and V tiles of 128 keys
+//    by TMA into a ring (the forward's maps); per tile S = Q K^T and
+//    dP = dO V^T (wgmma_ss, m64n128), dS in registers, dQ += dS K
+//    (wgmma_rs on both parts of dS, K MN-major).
+//  * Precision: the products of bf16 operands are exact and summed in f32;
+//    D^-1/2 scales the f32 score inside the exponent (c = D^-1/2 log2 e) and
+//    dK, dQ in f32 at the end; P and dS are each split into hi = bf16(x)
+//    and lo = bf16(x - hi), both multiplied in (hi + lo holds x to ~2^-16),
+//    and each output is rounded once to bf16.  One bf16 rounding of P and
+//    dS stays within kernel_tolerance(bf16) but put a form at 0.91 of the
+//    limit on the card; the split keeps every form under half of it.  The
+//    CPU test test_torch_flash_backward.py emulates this arithmetic against
+//    the plain version.
+//  * Deterministic: every sum runs in a fixed order in one block.
+
+namespace tcb {
+
+using tc::Tile;
+
+constexpr int kKeys = 64;              // dK/dV: keys per consumer warpgroup (wgmma's M)
+constexpr int kRows = bwd::kTileSlots; // dK/dV: rows of a streamed Q/dO tile (tile_rows used)
+constexpr int kStages = 4;             // dK/dV: row tiles in flight, one producer warp each
+constexpr int kDqRows = tc::kRows;     // dQ: folded rows per block, 64 per consumer
+constexpr int kDqKeys = tc::kKeys;     // dQ: keys per K/V tile (the forward's TMA box)
+constexpr int kDqStages = 2;           // dQ: K/V tiles in flight
+constexpr int kThreads = 384;          // one producer and two consumer warpgroups
+constexpr int kPad = 128;              // the statistics planes pad folded rows to this
+static_assert(kPad % kRows == 0, "row tiles must not overrun the planes");
+static_assert(kStages == 4, "one producer warp per stage");
+
+// Folded rows of a row tile: whole query groups of g heads (g <= kRows).
+__host__ __device__ constexpr int tile_rows(int g) { return kRows / g * g; }
+
+// Slots per (batch, kv head) of the statistics planes: kRows a row tile.
+__host__ __device__ constexpr long long plane_slots(long long rows, int g) {
+  return ((rows + tile_rows(g) - 1) / tile_rows(g) * kRows + kPad - 1) / kPad * kPad;
+}
+
+// Shared memory of a dK/dV block: aligned K and V of both consumers, kStages
+// Q and dO tiles, their lse and delta, then the full and empty barriers.
+template <int D>
+struct Dkdv {
+  using T = Tile<D>;
+  static constexpr int kBox = kRows * T::kSwizzle;      // one box of 64 rows
+  static constexpr int kTile = T::kBoxes * kBox;         // 64 rows of D bf16
+  static constexpr int kStats = 2 * kRows * 4;           // lse * log2 e and delta, f32
+  static constexpr int kSmem = tc::kAlign + 4 * kTile + 2 * kStages * kTile + kStages * kStats +
+                               16 * kStages;
+};
+
+// Shared memory of a dQ block: aligned Q and dO (128 rows each), kDqStages
+// K and V tiles, the full and empty barriers.
+template <int D>
+struct Dq {
+  using T = Tile<D>;
+  static constexpr int kSmem = tc::kAlign + (2 + 2 * kDqStages) * T::kTileBytes + 16 * kDqStages;
+};
+
+// One box of the (D, G, Hkv, S, B) view of q or dout into shared memory,
+// counted on `bar`: 64 / G queries of G heads are tile_rows folded rows in
+// order.
+__device__ __forceinline__ void tma_load_rows(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                             int d0, int hk, int i0, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d0), "r"(0), "r"(hk), "r"(i0),
+      "r"(batch)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) from global to shared memory, counted on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// p = 2^(s c - lse2): the probability of raw score s, c = D^-1/2 log2(e),
+// lse2 = lse log2(e).
+__device__ __forceinline__ float prob(float s, float c, float lse2) {
+  return tc::exp2_approx(fmaf(s, c, -lse2));
+}
+
+// (x, y) as two bf16x2 parts: hi = bf16(x, y), lo = bf16 of what hi misses;
+// hi + lo holds each value to ~2^-16 of itself.
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi, uint32_t& lo) {
+  hi = tc::bf16x2_bits(__floats2bfloat162_rn(x, y));  // its halves widen by a shift and a mask
+  lo = tc::bf16x2_bits(__floats2bfloat162_rn(x - __uint_as_float(hi << 16),
+                                             y - __uint_as_float(hi & 0xffff0000u)));
+}
+
+// The first folded row that sees key `key` (rows if none): causal, the
+// first whose position reaches it.
+__device__ __forceinline__ int first_row(const bwd::Params& p, bool causal, int key) {
+  return causal ? min(max(key - p.q_offset, 0), p.sq) * p.g : 0;
+}
+
+// The first row tile that sees key `key` (n_rt if none does).
+__device__ __forceinline__ int first_tile(const bwd::Params& p, bool causal, int key, int n_rt) {
+  const int f = first_row(p, causal, key);
+  return f < p.sq * p.g ? f / p.tile_rows : n_rt;
+}
+
+// P^T and dS^T = P^T (dP^T - delta) of one row tile, each split into two
+// bf16 parts (hi, lo), as A fragments (register j of k-slice kk holds
+// accumulator values 8kk + 2j and 8kk + 2j + 1, as in the forward).
+// Accumulator value i lies in key row r + 8 * (i / 2 % 2) and column
+// (folded row of the tile) 8 * (i / 4) + 2 * (lane % 4) + i % 2.  With
+// kMask, a probability is kept where its column lies in [lo[h], hi_col)
+// (relative to the thread's first column), else 0.
+struct Frags {
+  uint32_t hi[4][4], lo[4][4];
+};
+
+template <bool kMask>
+__device__ __forceinline__ void tile_grads(const float (&st)[32], const float (&dpt)[32],
+                                           Frags& pf, Frags& dsf, const float* lse2,
+                                           const float* dl, float c, int lane,
+                                           const int (&lo)[2], int hi_col) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {  // columns 16kk + 8 half + 2 (lane % 4) + {0, 1}
+      const int col = 16 * kk + 8 * half + 2 * (lane % 4);
+      const float2 l2 = *reinterpret_cast<const float2*>(lse2 + col);
+      const float2 de = *reinterpret_cast<const float2*>(dl + col);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int j = 2 * half + h, i = 8 * kk + 2 * j, e = 16 * kk + 8 * half;
+        float p0 = prob(st[i], c, l2.x), p1 = prob(st[i + 1], c, l2.y);
+        if (kMask) {
+          p0 = e >= lo[h] && e < hi_col ? p0 : 0.f;
+          p1 = e + 1 >= lo[h] && e + 1 < hi_col ? p1 : 0.f;
+        }
+        split_bf16(p0, p1, pf.hi[kk][j], pf.lo[kk][j]);
+        split_bf16(p0 * (dpt[i] - de.x), p1 * (dpt[i + 1] - de.y), dsf.hi[kk][j], dsf.lo[kk][j]);
+      }
+    }
+  }
+}
+
+template <int D, bool kCausal>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkdv_tc(const __grid_constant__ CUtensorMap tmq,
+                  const __grid_constant__ CUtensorMap tmdo, const __nv_bfloat16* __restrict__ q,
+                  const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
+                  const __nv_bfloat16* __restrict__ dout, __nv_bfloat16* __restrict__ dk,
+                  __nv_bfloat16* __restrict__ dv, const bwd::Params p) {
+  using S = Dkdv<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = tc::smem_addr(smem_raw);
+  const uint32_t base = (raw + tc::kAlign - 1) & ~static_cast<uint32_t>(tc::kAlign - 1);
+  const uint32_t k_s = base;                            // two K tiles (one per consumer)
+  const uint32_t v_s = k_s + 2 * S::kTile;              // two V tiles
+  const uint32_t q_s = v_s + 2 * S::kTile;              // kStages Q tiles
+  const uint32_t do_s = q_s + kStages * S::kTile;       // kStages dO tiles
+  const uint32_t st_s = do_s + kStages * S::kTile;      // kStages (lse2, delta) of 64 rows
+  const uint32_t full = st_s + kStages * S::kStats;     // kStages barriers, then
+  const uint32_t empty = full + 8 * kStages;            // kStages more
+  const float* stats = reinterpret_cast<const float*>(smem_raw + (st_s - raw));
+
+  const int b = blockIdx.x / p.hkv, hk = blockIdx.x % p.hkv, pair = blockIdx.y;
+  const int rows = p.sq * p.g;  // < 2^23: the launch holds row tiles to 65535
+  const int n_rt = (rows + p.tile_rows - 1) / p.tile_rows;
+  const int n_kt = (p.skv + kKeys - 1) / kKeys;
+  // the stream starts at the first row tile that sees consumer 0's keys,
+  // the lower of the pair
+  const int t0 = first_tile(p, kCausal, pair * kKeys, n_rt);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      tc::mbar_init(full + 8 * s, 1);   // the producer's arrival, plus the bytes
+      tc::mbar_init(empty + 8 * s, 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (p.tile_rows < kRows) {
+    // rows tile_rows .. kRows - 1 of every Q and dO stage: TMA never writes
+    // them, so zeros once make them add nothing to dV and dK
+    constexpr int kChunks = Tile<D>::kSwizzle / 16;  // of 16 bytes in a row
+    const int tail = (kRows - p.tile_rows) * kChunks;
+    uint4* tiles = reinterpret_cast<uint4*>(smem_raw + (q_s - raw));
+    for (int idx = threadIdx.x; idx < 2 * kStages * Tile<D>::kBoxes * tail; idx += kThreads) {
+      tiles[idx / tail * (S::kBox / 16) + p.tile_rows * kChunks + idx % tail] =
+          make_uint4(0, 0, 0, 0);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // -- producer: warp w fills stage w with row tiles t0 + w, t0 + w + 4, ... ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    const int w = threadIdx.x / 32;
+    if (threadIdx.x % 32 == 0) {
+      const float* stat = p.delta + static_cast<long long>(blockIdx.x) * p.rows_pad;
+      const long long plane = static_cast<long long>(p.batch) * p.hkv * p.rows_pad;
+      for (int t = t0 + w, u = 0; t < n_rt; t += kStages, ++u) {
+        tc::mbar_wait(empty + 8 * w, (u & 1) ^ 1);  // stage released
+        tc::mbar_expect_tx(full + 8 * w, 2 * p.tile_rows * D * 2 + S::kStats);
+        const int i0 = t * (p.tile_rows / p.g);
+#pragma unroll
+        for (int i = 0; i < Tile<D>::kBoxes; ++i) {
+          const int col = i * Tile<D>::kBoxCols;
+          tma_load_rows(q_s + w * S::kTile + i * S::kBox, &tmq, full + 8 * w, col, hk, i0, b);
+          tma_load_rows(do_s + w * S::kTile + i * S::kBox, &tmdo, full + 8 * w, col, hk, i0, b);
+        }
+        bulk_load(st_s + w * S::kStats, stat + t * kRows, kRows * 4, full + 8 * w);
+        bulk_load(st_s + w * S::kStats + kRows * 4, stat + plane + t * kRows, kRows * 4,
+                  full + 8 * w);
+      }
+    }
+  } else {
+    // -- consumer c: keys of tile j (c = 0) or n - 1 - j (c = 1) --------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int c = threadIdx.x / 128 - 1, tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int jt = c == 0 ? pair : n_kt - 1 - pair;
+    const bool active = c == 0 || jt > pair;
+    const int key0 = jt * kKeys;
+    const uint32_t k_wg = k_s + c * S::kTile, v_wg = v_s + c * S::kTile;
+    if (active) {
+      tc::load_rows<D>(k_wg, S::kBox, k, p.ks, b, hk, 1, key0, kKeys, p.skv, tid, 128);
+      tc::load_rows<D>(v_wg, S::kBox, v, p.vs, b, hk, 1, key0, kKeys, p.skv, tid, 128);
+      tc::cp_async_publish();
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
+    }
+    const int my_t0 = active ? first_tile(p, kCausal, key0, n_rt) : n_rt;
+    // this thread's keys (accumulator rows r and r + 8) and the first folded
+    // row each sees; rows at or past `full_from` see every key of the tile.
+    // A tile of fewer than kRows rows is masked past them.
+    const int r = 16 * warp + lane / 4;
+    int first[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int key = key0 + r + 8 * h;
+      first[h] = key < p.skv ? first_row(p, kCausal, key) : rows;
+    }
+    const int full_from = first_row(p, kCausal, key0 + kKeys - 1);
+    const bool ragged = key0 + kKeys > p.skv || p.tile_rows < kRows;
+    const float cexp = p.scale * 1.4426950408889634f;
+
+    float dkv[D / 2], dvv[D / 2], st[32], dpt[32];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dkv[i] = 0.f, dvv[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) st[i] = 0.f, dpt[i] = 0.f;
+    Frags pf, dsf;
+
+    for (int t = t0, u = 0; t < n_rt; ++t, ++u) {
+      const int s = u % kStages;
+      tc::mbar_wait(full + 8 * s, (u / kStages) & 1);
+      if (t >= my_t0) {
+        const uint32_t q_t = q_s + s * S::kTile, do_t = do_s + s * S::kTile;
+        // S^T = K Q^T and dP^T = V dO^T
+        tc::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          tc::wgmma_ss(st, tc::desc_k<D>(k_wg, kk, S::kBox), tc::desc_k<D>(q_t, kk, S::kBox),
+                       kk > 0);
+        }
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          tc::wgmma_ss(dpt, tc::desc_k<D>(v_wg, kk, S::kBox), tc::desc_k<D>(do_t, kk, S::kBox),
+                       kk > 0);
+        }
+        tc::wgmma_commit();
+        tc::wgmma_wait<0>();
+        tc::fence_regs(st);
+        tc::fence_regs(dpt);
+        const int row0 = t * p.tile_rows, col0 = row0 + 2 * (lane % 4);
+        const float* lse2 = stats + s * (S::kStats / 4);
+        if (ragged || row0 + kRows > rows || row0 < full_from) {
+          const int lo[2] = {first[0] - col0, first[1] - col0};
+          tile_grads<true>(st, dpt, pf, dsf, lse2, lse2 + kRows, cexp, lane, lo,
+                           min(rows, row0 + p.tile_rows) - col0);
+        } else {
+          const int none[2] = {0, 0};
+          tile_grads<false>(st, dpt, pf, dsf, lse2, lse2 + kRows, cexp, lane, none, 0);
+        }
+        // dV += P^T dO and dK += dS^T Q, each part in turn
+        tc::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kRows / 16; ++kk) {
+          tc::wgmma_rs(dvv, pf.hi[kk], tc::desc_mn<D>(do_t, kk, S::kBox));
+          tc::wgmma_rs(dkv, dsf.hi[kk], tc::desc_mn<D>(q_t, kk, S::kBox));
+        }
+#pragma unroll
+        for (int kk = 0; kk < kRows / 16; ++kk) {
+          tc::wgmma_rs(dvv, pf.lo[kk], tc::desc_mn<D>(do_t, kk, S::kBox));
+          tc::wgmma_rs(dkv, dsf.lo[kk], tc::desc_mn<D>(q_t, kk, S::kBox));
+        }
+        tc::wgmma_commit();
+        tc::wgmma_wait<0>();
+        tc::fence_regs(dvv);
+        tc::fence_regs(dkv);
+      }
+      if (lane == 0) tc::mbar_arrive(empty + 8 * s);  // this warp is done with the stage
+    }
+
+    // dK = D^-1/2 dS^T Q and dV, rounded once to bf16; keys past Skv unstored
+    if (active) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int key = key0 + r + 8 * h;
+        if (key >= p.skv) continue;
+        __nv_bfloat16* krow = dk + b * p.dks[0] + key * p.dks[1] + hk * p.dks[2] + 2 * (lane % 4);
+        __nv_bfloat16* vrow = dv + b * p.dvs[0] + key * p.dvs[1] + hk * p.dvs[2] + 2 * (lane % 4);
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          *reinterpret_cast<__nv_bfloat162*>(krow + 8 * j) = __floats2bfloat162_rn(
+              dkv[4 * j + 2 * h] * p.scale, dkv[4 * j + 2 * h + 1] * p.scale);
+          *reinterpret_cast<__nv_bfloat162*>(vrow + 8 * j) =
+              __floats2bfloat162_rn(dvv[4 * j + 2 * h], dvv[4 * j + 2 * h + 1]);
+        }
+      }
+    }
+  }
+}
+
+template <int D, bool kCausal>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tmk, const __grid_constant__ CUtensorMap tmv,
+                const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ dout,
+                __nv_bfloat16* __restrict__ dq, const bwd::Params p) {
+  using T = Tile<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = tc::smem_addr(smem_raw);
+  const uint32_t base = (raw + tc::kAlign - 1) & ~static_cast<uint32_t>(tc::kAlign - 1);
+  const uint32_t q_s = base;                              // 128 rows of Q
+  const uint32_t do_s = q_s + T::kTileBytes;              // and of dO
+  const uint32_t k_s = do_s + T::kTileBytes;              // kDqStages K tiles
+  const uint32_t v_s = k_s + kDqStages * T::kTileBytes;   // kDqStages V tiles
+  const uint32_t full = v_s + kDqStages * T::kTileBytes;  // kDqStages barriers, then
+  const uint32_t empty = full + 8 * kDqStages;            // kDqStages more
+
+  const int b = blockIdx.x / p.hkv, hk = blockIdx.x % p.hkv;
+  const int rows = p.sq * p.g;  // < 2^23: the launch holds row tiles to 65535
+  const int row0 = (gridDim.y - 1 - blockIdx.y) * kDqRows;  // heaviest first
+  int n_tiles = (p.skv + kDqKeys - 1) / kDqKeys;
+  if (kCausal) {
+    const int last_row = min(row0 + kDqRows, rows) - 1;
+    n_tiles = min(n_tiles, (last_row / p.g + p.q_offset) / kDqKeys + 1);
+  }
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kDqStages; ++s) {
+      tc::mbar_init(full + 8 * s, 1);   // the producer's arrival, plus the bytes
+      tc::mbar_init(empty + 8 * s, 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // -- producer: K and V tiles by TMA, as the forward's ------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kDqStages;
+        tc::mbar_wait(empty + 8 * s, ((t / kDqStages) & 1) ^ 1);  // stage released
+        tc::mbar_expect_tx(full + 8 * s, 2 * T::kTileBytes);
+#pragma unroll
+        for (int i = 0; i < T::kBoxes; ++i) {
+          const uint32_t off = s * T::kTileBytes + i * T::kBoxBytes;
+          tc::tma_load(k_s + off, &tmk, full + 8 * s, i * T::kBoxCols, hk, t * kDqKeys, b);
+          tc::tma_load(v_s + off, &tmv, full + 8 * s, i * T::kBoxCols, hk, t * kDqKeys, b);
+        }
+      }
+    }
+  } else {
+    // -- consumer c: folded rows row0 + 64c .. row0 + 64c + 63 -------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int c = threadIdx.x / 128 - 1, tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int wg_row0 = row0 + 64 * c;
+    const uint32_t q_wg = q_s + 64 * c * T::kSwizzle, do_wg = do_s + 64 * c * T::kSwizzle;
+    tc::load_rows<D>(q_wg, T::kBoxBytes, q, p.qs, b, hk, p.g, wg_row0, 64, rows, tid, 128);
+    tc::load_rows<D>(do_wg, T::kBoxBytes, dout, p.dos, b, hk, p.g, wg_row0, 64, rows, tid, 128);
+    tc::cp_async_publish();
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
+
+    // this thread's rows r and r + 8: their statistics (zeros past the end)
+    // and the keys they see (below lim); rows past the end take the last
+    // row's position and are never stored
+    const int r = 16 * warp + lane / 4;
+    const long long plane = static_cast<long long>(p.batch) * p.hkv * p.rows_pad;
+    const float* stat = p.delta + static_cast<long long>(blockIdx.x) * p.rows_pad;
+    float lse2[2] = {0.f, 0.f}, del[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int f = wg_row0 + r + 8 * h;
+      if (f < rows) {
+        lse2[h] = stat[bwd::slot_of(p, f)];
+        del[h] = stat[plane + bwd::slot_of(p, f)];
+      }
+    }
+    auto lim_of = [&](int f) {
+      const int pos = min(f, rows - 1) / p.g + p.q_offset;
+      return kCausal ? min(p.skv, pos + 1) : p.skv;
+    };
+    const int lim[2] = {lim_of(wg_row0 + r), lim_of(wg_row0 + r + 8)};
+    const int min_lim = lim_of(wg_row0);
+    const float cexp = p.scale * 1.4426950408889634f;
+
+    float dqv[D / 2], sc[kDqKeys / 2], dp[kDqKeys / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dqv[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kDqKeys / 2; ++i) sc[i] = 0.f, dp[i] = 0.f;
+    uint32_t ds_hi[kDqKeys / 16][4], ds_lo[kDqKeys / 16][4];
+
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % kDqStages, key0 = t * kDqKeys;
+      const uint32_t k_t = k_s + s * T::kTileBytes, v_t = v_s + s * T::kTileBytes;
+      tc::mbar_wait(full + 8 * s, (t / kDqStages) & 1);
+      tc::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        tc::wgmma_ss(sc, tc::desc_k<D>(q_wg, kk, T::kBoxBytes),
+                     tc::desc_k<D>(k_t, kk, T::kBoxBytes), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        tc::wgmma_ss(dp, tc::desc_k<D>(do_wg, kk, T::kBoxBytes),
+                     tc::desc_k<D>(v_t, kk, T::kBoxBytes), kk > 0);
+      }
+      tc::wgmma_commit();
+      tc::wgmma_wait<0>();
+      tc::fence_regs(sc);
+      tc::fence_regs(dp);
+      // dS = P (dP - delta), P = 2^(S c - lse log2 e) where the key is
+      // visible (masked only on tiles that hold an invisible key)
+      const bool mask = key0 + kDqKeys > min_lim;
+      int rel[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) rel[h] = lim[h] - key0 - 2 * (lane % 4);
+#pragma unroll
+      for (int kk = 0; kk < kDqKeys / 16; ++kk) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int i = 8 * kk + 2 * j, h = j % 2, e = 8 * (i / 4);
+          float p0 = prob(sc[i], cexp, lse2[h]);
+          float p1 = prob(sc[i + 1], cexp, lse2[h]);
+          if (mask) {
+            p0 = e < rel[h] ? p0 : 0.f;
+            p1 = e + 1 < rel[h] ? p1 : 0.f;
+          }
+          split_bf16(p0 * (dp[i] - del[h]), p1 * (dp[i + 1] - del[h]), ds_hi[kk][j],
+                     ds_lo[kk][j]);
+        }
+      }
+      tc::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kDqKeys / 16; ++kk) {
+        tc::wgmma_rs(dqv, ds_hi[kk], tc::desc_mn<D>(k_t, kk, T::kBoxBytes));
+      }
+#pragma unroll
+      for (int kk = 0; kk < kDqKeys / 16; ++kk) {
+        tc::wgmma_rs(dqv, ds_lo[kk], tc::desc_mn<D>(k_t, kk, T::kBoxBytes));
+      }
+      tc::wgmma_commit();
+      tc::wgmma_wait<0>();
+      tc::fence_regs(dqv);
+      if (lane == 0) tc::mbar_arrive(empty + 8 * s);  // this warp is done with the stage
+    }
+
+    // dQ = D^-1/2 dS K, rounded once to bf16; rows past Sq * G unstored
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int f = wg_row0 + r + 8 * h;
+      if (f >= rows) continue;
+      const int qi = f / p.g, head = hk * p.g + f % p.g;
+      __nv_bfloat16* qrow = dq + b * p.dqs[0] + qi * p.dqs[1] + head * p.dqs[2] + 2 * (lane % 4);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(qrow + 8 * j) = __floats2bfloat162_rn(
+            dqv[4 * j + 2 * h] * p.scale, dqv[4 * j + 2 * h + 1] * p.scale);
+      }
+    }
+  }
+}
+
+}  // namespace tcb
+
 // -- host ---------------------------------------------------------------------------
 
 template <typename T, int D>
@@ -1181,32 +1792,85 @@ cudaError_t kv_map(CUtensorMap* map, const void* base, int d, int hkv, int skv, 
   return rc == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// The backward's three kernels of one (dtype, d, causal) and their dynamic
-// shared bytes.
-struct BwdBody {
-  const void* delta = nullptr;
-  const void* dkdv = nullptr;
-  const void* dq = nullptr;
-  int smem_dkdv = 0, smem_dq = 0;
+// The (D, G, Hkv, S, B) view of q or dout (element strides of (batch, seq,
+// head)), cut into boxes of (swizzle / 2, G, 1, 64 / G, 1): tcb::tile_rows(G)
+// folded rows of one kv head (query f / G, head f % G of its group) under
+// that swizzle.  G <= 64.
+cudaError_t row_map(CUtensorMap* map, const void* base, int d, int g, int hkv, int sq, int batch,
+                    const long long* strides, int swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[5] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(g),
+                              static_cast<cuuint64_t>(hkv), static_cast<cuuint64_t>(sq),
+                              static_cast<cuuint64_t>(batch)};
+  cuuint64_t bytes[4] = {static_cast<cuuint64_t>(strides[2]) * 2,
+                         static_cast<cuuint64_t>(strides[2]) * g * 2,
+                         static_cast<cuuint64_t>(strides[1]) * 2,
+                         static_cast<cuuint64_t>(strides[0]) * 2};
+  for (int i = 0; i < 4; ++i) {  // an extent of 1 is never stepped: any valid stride
+    if (dims[i + 1] == 1) bytes[i] = i == 0 ? dims[0] * 2 : bytes[i - 1] * dims[i];
+  }
+  const cuuint32_t box[5] = {static_cast<cuuint32_t>(swizzle / 2), static_cast<cuuint32_t>(g), 1,
+                             static_cast<cuuint32_t>(tcb::kRows / g), 1};
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  const CUresult rc = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(base), dims, bytes, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      swizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// One kernel of the backward: function, dynamic shared bytes and its tiling
+// (folded rows per tile, keys per tile, tiles in flight).
+struct BwdKernel {
+  const void* fn = nullptr;
+  int smem = 0, rows = 0, keys = 0, stages = 0;
 };
 
-template <typename T, int D>
-BwdBody bwd_body(bool causal) {
+// The backward of one (dtype, d, causal): the delta pass, the dK/dV and dQ
+// kernels, their threads per block, and whether it is the tensor-core body
+// (folded statistics planes, paired key tiles, TMA maps).
+struct BwdBody {
+  const void* delta = nullptr;
+  BwdKernel dkdv, dq;
+  int threads = 0;
+  bool tc = false;
+};
+
+template <int D>
+BwdBody bwd_body_f32(bool causal) {
   BwdBody body;
-  body.delta = reinterpret_cast<const void*>(&bwd::flash_bwd_delta<T, D>);
-  body.dkdv = causal ? reinterpret_cast<const void*>(&bwd::flash_bwd_dkdv<T, D, true>)
-                     : reinterpret_cast<const void*>(&bwd::flash_bwd_dkdv<T, D, false>);
-  body.dq = causal ? reinterpret_cast<const void*>(&bwd::flash_bwd_dq<T, D, true>)
-                   : reinterpret_cast<const void*>(&bwd::flash_bwd_dq<T, D, false>);
-  body.smem_dkdv = 4 * bwd::smem_floats_dkdv<D>();
-  body.smem_dq = 4 * bwd::smem_floats_dq<D>();
+  body.delta = reinterpret_cast<const void*>(&bwd::flash_bwd_delta<float, D, false>);
+  body.dkdv = {causal ? reinterpret_cast<const void*>(&bwd::flash_bwd_dkdv<float, D, true>)
+                      : reinterpret_cast<const void*>(&bwd::flash_bwd_dkdv<float, D, false>),
+               4 * bwd::smem_floats_dkdv<D>(), bwd::kRows, bwd::kKeys, 1};
+  body.dq = {causal ? reinterpret_cast<const void*>(&bwd::flash_bwd_dq<float, D, true>)
+                    : reinterpret_cast<const void*>(&bwd::flash_bwd_dq<float, D, false>),
+             4 * bwd::smem_floats_dq<D>(), bwd::kRows, bwd::kKeys, 1};
+  body.threads = bwd::kThreads;
+  return body;
+}
+
+template <int D>
+BwdBody bwd_body_tc(bool causal) {
+  BwdBody body;
+  body.delta = reinterpret_cast<const void*>(&bwd::flash_bwd_delta<__nv_bfloat16, D, true>);
+  body.dkdv = {causal ? reinterpret_cast<const void*>(&tcb::flash_bwd_dkdv_tc<D, true>)
+                      : reinterpret_cast<const void*>(&tcb::flash_bwd_dkdv_tc<D, false>),
+               tcb::Dkdv<D>::kSmem, tcb::kRows, tcb::kKeys, tcb::kStages};
+  body.dq = {causal ? reinterpret_cast<const void*>(&tcb::flash_bwd_dq_tc<D, true>)
+                    : reinterpret_cast<const void*>(&tcb::flash_bwd_dq_tc<D, false>),
+             tcb::Dq<D>::kSmem, tcb::kDqRows, tcb::kDqKeys, tcb::kDqStages};
+  body.threads = tcb::kThreads;
+  body.tc = true;
   return body;
 }
 
 template <int D>
 BwdBody bwd_body_d(int dtype, bool causal) {
-  if (dtype == kBF16) return bwd_body<__nv_bfloat16, D>(causal);
-  if (dtype == kF32) return bwd_body<float, D>(causal);
+  if (dtype == kBF16) return bwd_body_tc<D>(causal);
+  if (dtype == kF32) return bwd_body_f32<D>(causal);
   return {};
 }
 
@@ -1301,13 +1965,26 @@ extern "C" int flash_attention_attributes(int dtype, int d, int causal, int* out
   return 0;
 }
 
+// f32 words of the backward's `delta` scratch for one call: (batch, hq, sq)
+// for the f32 body, two folded planes of (batch * hkv, padded rows) for the
+// bf16 body.
+extern "C" long long flash_attention_bwd_scratch(int dtype, int batch, int sq, int hq, int hkv) {
+  if (batch <= 0 || sq <= 0 || hkv <= 0 || hq % hkv != 0) return 0;
+  if (dtype == kBF16) {
+    return 2LL * batch * hkv * tcb::plane_slots(static_cast<long long>(sq) * (hq / hkv), hq / hkv);
+  }
+  return static_cast<long long>(batch) * hq * sq;
+}
+
 // The gradient of flash_attention_fwd on `stream`: q, k, v, o (the
 // forward's output), dout and lse (the forward's, (batch, hq, sq) f32) in;
-// dq, dk, dv out, in the operands' dtype; delta: (batch, hq, sq) f32
-// scratch.  strides[24] holds the element strides of (batch, seq, head) for
-// q, k, v, o, dout, dq, dk and dv in that order (the last dim contiguous).
-// Three launches: delta, then dK/dV and dQ.  Returns the first failing
-// launch's cudaError_t (0 = all queued).
+// dq, dk, dv out, in the operands' dtype; delta: f32 scratch of
+// flash_attention_bwd_scratch words.  strides[24] holds the element
+// strides of (batch, seq, head) for q, k, v, o, dout, dq, dk and dv in that
+// order (the last dim contiguous; bf16: q, k, v and dout in multiples of 8
+// from 16-byte aligned bases, as cp.async and TMA read them).  Three
+// launches: delta, then dK/dV and dQ.  Returns the first failing launch's
+// cudaError_t (0 = all queued).
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, const void* lse, void* delta, void* dq,
                                    void* dk, void* dv, int batch, int sq, int skv, int hq,
@@ -1316,8 +1993,9 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
   const BwdBody body = pick_bwd(dtype, d, causal != 0);
   const long long rows = static_cast<long long>(sq) * (hkv > 0 ? hq / hkv : 0);
   if (body.delta == nullptr || batch <= 0 || sq <= 0 || skv <= 0 || hkv <= 0 ||
-      hq % hkv != 0 || q_offset < 0 || (rows + bwd::kRows - 1) / bwd::kRows > 65535 ||
-      (skv + bwd::kKeys - 1) / bwd::kKeys > 65535) {
+      hq % hkv != 0 || q_offset < 0 || (rows + body.dq.rows - 1) / body.dq.rows > 65535 ||
+      (skv + body.dkdv.keys - 1) / body.dkdv.keys > 65535 ||
+      (body.tc && hq / hkv > tcb::kRows)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   bwd::Params p;
@@ -1333,52 +2011,85 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
     for (int i = 0; i < 3; ++i) dst[t][i] = strides[3 * t + i];
   p.lse = static_cast<const float*>(lse);
   p.delta = static_cast<float*>(delta);
-  cudaError_t err = prepare(body.dkdv, body.smem_dkdv);
-  if (err == cudaSuccess) err = prepare(body.dq, body.smem_dq);
+  p.rows_pad = body.tc ? static_cast<int>(tcb::plane_slots(rows, p.g)) : 0;
+  p.tile_rows = body.tc ? tcb::tile_rows(p.g) : 0;
+  const int swizzle = d >= 64 ? 128 : 64;  // tc::Tile<D>::kSwizzle
+  cudaError_t err = prepare(body.dkdv.fn, body.dkdv.smem);
+  if (err == cudaSuccess) err = prepare(body.dq.fn, body.dq.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long n_rows = static_cast<long long>(batch) * sq * hq;
+  const long long n_rows = body.tc ? static_cast<long long>(batch) * hkv * p.rows_pad
+                                   : static_cast<long long>(batch) * sq * hq;
   void* delta_args[] = {const_cast<void**>(&o), const_cast<void**>(&dout), &p};
   err = cudaLaunchKernel(
       body.delta, dim3(static_cast<unsigned>((n_rows + bwd::kDeltaRows - 1) / bwd::kDeltaRows)),
       dim3(bwd::kThreads), delta_args, 0, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  void* dkdv_args[] = {const_cast<void**>(&q), const_cast<void**>(&k), const_cast<void**>(&v),
-                       const_cast<void**>(&dout), &dk, &dv, &p};
+  // dK/dV: one block per (batch * kv head, key tile), or pair of key tiles
+  // in the tensor-core body
+  const int key_tiles = (skv + body.dkdv.keys - 1) / body.dkdv.keys;
   const dim3 kv_grid(static_cast<unsigned>(batch * hkv),
-                     static_cast<unsigned>((skv + bwd::kKeys - 1) / bwd::kKeys));
-  err = cudaLaunchKernel(body.dkdv, kv_grid, dim3(bwd::kThreads), dkdv_args, body.smem_dkdv, st);
+                     static_cast<unsigned>(body.tc ? (key_tiles + 1) / 2 : key_tiles));
+  if (body.tc) {
+    CUtensorMap tmq, tmdo;
+    err = row_map(&tmq, q, d, p.g, hkv, sq, batch, strides, swizzle);
+    if (err == cudaSuccess) {
+      err = row_map(&tmdo, dout, d, p.g, hkv, sq, batch, strides + 12, swizzle);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    void* dkdv_args[] = {&tmq, &tmdo, const_cast<void**>(&q), const_cast<void**>(&k),
+                         const_cast<void**>(&v), const_cast<void**>(&dout), &dk, &dv, &p};
+    err = cudaLaunchKernel(body.dkdv.fn, kv_grid, dim3(body.threads), dkdv_args, body.dkdv.smem,
+                           st);
+  } else {
+    void* dkdv_args[] = {const_cast<void**>(&q), const_cast<void**>(&k), const_cast<void**>(&v),
+                         const_cast<void**>(&dout), &dk, &dv, &p};
+    err = cudaLaunchKernel(body.dkdv.fn, kv_grid, dim3(body.threads), dkdv_args, body.dkdv.smem,
+                           st);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
-  void* dq_args[] = {const_cast<void**>(&q), const_cast<void**>(&k), const_cast<void**>(&v),
-                     const_cast<void**>(&dout), &dq, &p};
   const dim3 q_grid(static_cast<unsigned>(batch * hkv),
-                    static_cast<unsigned>((rows + bwd::kRows - 1) / bwd::kRows));
-  err = cudaLaunchKernel(body.dq, q_grid, dim3(bwd::kThreads), dq_args, body.smem_dq, st);
+                    static_cast<unsigned>((rows + body.dq.rows - 1) / body.dq.rows));
+  if (body.tc) {
+    CUtensorMap tmk, tmv;
+    err = kv_map(&tmk, k, d, hkv, skv, batch, strides + 3, swizzle);
+    if (err == cudaSuccess) err = kv_map(&tmv, v, d, hkv, skv, batch, strides + 6, swizzle);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    void* dq_args[] = {&tmk, &tmv, const_cast<void**>(&q), const_cast<void**>(&dout), &dq, &p};
+    err = cudaLaunchKernel(body.dq.fn, q_grid, dim3(body.threads), dq_args, body.dq.smem, st);
+  } else {
+    void* dq_args[] = {const_cast<void**>(&q), const_cast<void**>(&k), const_cast<void**>(&v),
+                       const_cast<void**>(&dout), &dq, &p};
+    err = cudaLaunchKernel(body.dq.fn, q_grid, dim3(body.threads), dq_args, body.dq.smem, st);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The backward's budget: out = {numRegs, dynamic shared bytes, local
-// (spill) bytes, threads per block, resident blocks/SM} of the dK/dV kernel
-// (which = 0) or the dQ kernel (which = 1).
+// (spill) bytes, threads per block, resident blocks/SM, folded rows per
+// tile, keys per tile, tiles in flight} of the dK/dV kernel (which = 0) or
+// the dQ kernel (which = 1).
 extern "C" int flash_attention_bwd_attributes(int dtype, int d, int causal, int which, int* out) {
   const BwdBody body = pick_bwd(dtype, d, causal != 0);
-  const void* fn = which == 0 ? body.dkdv : body.dq;
-  const int smem = which == 0 ? body.smem_dkdv : body.smem_dq;
-  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = prepare(fn, smem);
+  const BwdKernel& kern = which == 0 ? body.dkdv : body.dq;
+  if (kern.fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = prepare(kern.fn, kern.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, fn);
+  err = cudaFuncGetAttributes(&attr, kern.fn);
   if (err != cudaSuccess) return static_cast<int>(err);
   int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, bwd::kThreads, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern.fn, body.threads, kern.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = attr.numRegs;
-  out[1] = smem;
+  out[1] = kern.smem;
   out[2] = static_cast<int>(attr.localSizeBytes);
-  out[3] = bwd::kThreads;
+  out[3] = body.threads;
   out[4] = blocks;
+  out[5] = kern.rows;
+  out[6] = kern.keys;
+  out[7] = kern.stages;
   return 0;
 }
 

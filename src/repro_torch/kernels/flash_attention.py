@@ -24,8 +24,10 @@ this module holds:
     tensors.  The reference differentiates its chunked attention by
     autodiff; the kernel computes that gradient FA2-style (see
     ``flash_attention.cu``), deterministically;
-  * :func:`smem_bytes`, :func:`executed_flops`, :func:`kernel_budget` and
-    :func:`bwd_budget` — each body's shared memory per block (the
+  * :func:`tiling`, :func:`smem_bytes`, :func:`executed_flops`,
+    :func:`kernel_budget` and their backward counterparts
+    :func:`bwd_tiling`, :func:`bwd_smem_bytes`, :func:`bwd_executed_flops`,
+    :func:`bwd_budget` — each body's tiling, shared memory per block (the
     counterpart of the reference's ``vmem_bytes``), the flops its tiles
     execute, its registers and occupancy.
 
@@ -48,6 +50,17 @@ which shape the plain version's chunking only.  It has two bodies:
     needs k and v strides in multiples of 8 elements (16 bytes).
   * f32, on the CUDA cores: blocks of 64 rows against tiles of 64 keys, all
     in f32 FMAs.
+
+The backward has the same two bodies.  bf16, on the tensor cores: a dK/dV
+kernel whose two consumer warpgroups own a pair of key tiles of 64 (tile j
+and tile n - 1 - j, so that causal blocks carry equal work) and share one
+stream of row tiles of q and dout (G * (64 // G) folded rows each, G <= 64)
+through four stages by TMA; a dQ kernel of blocks of 128 folded rows
+against K/V tiles of 128 keys by TMA (two stages).  P and dS are each
+split into two bf16 parts before their products, as the forward splits p,
+so dV, dK and dQ run twice.  q, k, v and dout need 16-byte rows, as
+in the forward; a dout without them is copied.  f32, on the CUDA cores:
+tiles of 64 rows and 64 keys in f32 FMAs.
 """
 from __future__ import annotations
 
@@ -74,8 +87,15 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # as flash_attention.cu numbers
 
 LAUNCHES = LaunchCounter("flash_attention")
 BWD_LAUNCHES = LaunchCounter("flash_attention_bwd")  # one per backward call (three kernels)
-BWD_ROWS = 64  # backward: folded query rows per tile
-BWD_KEYS = 64  # backward: keys per tile
+# The backward's tiling per body, (folded rows per tile, keys per tile, tiles
+# in flight) of each kernel; bwd_budget raises if the built library reports
+# another.  bf16 dK/dV: rows of a streamed Q/dO tile, keys of one consumer
+# warpgroup (a block holds two such tiles); dQ: rows of a block, keys of a
+# K/V tile.
+BWD_TILING = {
+    torch.bfloat16: {"dkdv": (64, 64, 4), "dq": (128, 128, 2)},
+    torch.float32: {"dkdv": (64, 64, 1), "dq": (64, 64, 1)},
+}
 
 
 def flash_attention_plain(
@@ -312,6 +332,8 @@ def _library() -> ctypes.CDLL:
         lib.flash_attention_attributes.restype = i32
         lib.flash_attention_bwd_attributes.argtypes = [i32, i32, i32, i32, ctypes.POINTER(i32)]
         lib.flash_attention_bwd_attributes.restype = i32
+        lib.flash_attention_bwd_scratch.argtypes = [i32, i32, i32, i32, i32]
+        lib.flash_attention_bwd_scratch.restype = ctypes.c_longlong
         lib.su3_error_string.argtypes = [i32]
         lib.su3_error_string.restype = ctypes.c_char_p
         lib._repro_typed = True
@@ -353,13 +375,75 @@ def kernel_budget(
     }
 
 
-def bwd_smem_bytes(d: int) -> tuple[int, int]:
+def bwd_tiling(dtype: torch.dtype) -> dict[str, tuple[int, int, int]]:
+    """``{"dkdv": (rows, keys, stages), "dq": (rows, keys, stages)}`` of the
+    backward body that serves ``dtype`` (see :data:`BWD_TILING`)."""
+    return BWD_TILING[torch.bfloat16 if dtype == torch.bfloat16 else torch.float32]
+
+
+def bwd_smem_bytes(d: int, dtype: torch.dtype = torch.bfloat16) -> tuple[int, int]:
     """Dynamic shared memory of one block of the backward's dK/dV and dQ
-    kernels: f32 rows of D + 1 words (K, V, q * scale and dO tiles), the
+    kernels of the body that serves ``dtype``.
+
+    bf16: 1 KB to align the tiles to their swizzle; dK/dV: K and V of the
+    block's two key tiles and, per stage, a Q and a dO tile of 64 rows with
+    their lse and delta (f32), and a full and an empty barrier; dQ: Q and dO
+    of the block's rows and, per stage, a K and a V tile, and two barriers.
+    f32: rows of D + 1 f32 words (K, V, q * scale and dO tiles), the
     probabilities and dS (dK/dV) or dS alone (dQ) in rows of 65, and the
     tile's lse and delta."""
-    tile = 2 * BWD_KEYS * (d + 1) + 2 * BWD_ROWS * (d + 1) + 2 * BWD_ROWS
-    return 4 * (tile + 2 * BWD_ROWS * (BWD_KEYS + 1)), 4 * (tile + BWD_ROWS * (BWD_KEYS + 1))
+    t = bwd_tiling(dtype)
+    if dtype == torch.bfloat16:
+        rows, keys, stages = t["dkdv"]
+        dkdv = 1024 + 2 * d * (4 * keys + 2 * stages * rows) + stages * (8 * rows + 16)
+        rows, keys, stages = t["dq"]
+        dq = 1024 + 2 * d * (2 * rows + 2 * stages * keys) + 16 * stages
+        return dkdv, dq
+    rows, keys, _ = t["dkdv"]
+    tile = 2 * keys * (d + 1) + 2 * rows * (d + 1) + 2 * rows
+    return 4 * (tile + 2 * rows * (keys + 1)), 4 * (tile + rows * (keys + 1))
+
+
+def bwd_executed_flops(
+    batch: int, sq: int, skv: int, hq: int, hkv: int, d: int, *, causal: bool = True,
+    q_offset: int = 0, dtype: torch.dtype = torch.bfloat16,
+) -> int:
+    """Flops the backward's tiles execute, masked entries included.
+
+    dK/dV: each key tile visits the row tiles from the first that holds a
+    row seeing its first key to the last (bf16: tiles of G * (64 // G) rows
+    computed 64 wide); per (row, key) of a visited tile,
+    products of 2D: S^T, dP^T, dV and dK, where the bf16 body runs dV and
+    dK twice (P and dS in two bf16 parts).  The bf16 body visits none where
+    no row sees the tile's first key; the f32 body starts at that row's
+    tile even past the end.  dQ: each block of folded rows visits key tiles
+    up to the last one that holds a key visible to its last row; S, dP and
+    dQ, dQ twice in the bf16 body."""
+    g = hq // hkv
+    rows = sq * g
+    t = bwd_tiling(dtype)
+    kv_rows, kv_keys, _ = t["dkdv"]
+    q_rows, q_keys, _ = t["dq"]
+    # rows of a dK/dV row tile: whole query groups in the bf16 body
+    tile = kv_rows // g * g if dtype == torch.bfloat16 else kv_rows
+    n_rt = -(-rows // tile)
+    kv_visited = 0
+    for key0 in range(0, skv, kv_keys):
+        first = max(key0 - q_offset, 0) * g if causal else 0
+        if dtype == torch.bfloat16 and first >= rows:
+            continue
+        kv_visited += max(n_rt - first // tile, 0)
+    key_tiles = -(-skv // q_keys)
+    q_visited = 0
+    for row0 in range(0, rows, q_rows):
+        n = key_tiles
+        if causal:
+            last = min(row0 + q_rows, rows) - 1
+            n = min(n, (last // g + q_offset) // q_keys + 1)
+        q_visited += n
+    kv_products, q_products = (6, 4) if dtype == torch.bfloat16 else (4, 3)
+    return batch * hkv * (kv_visited * kv_rows * kv_keys * kv_products * 2 * d
+                          + q_visited * q_rows * q_keys * q_products * 2 * d)
 
 
 def bwd_budget(dtype: torch.dtype = torch.bfloat16, d: int = 128,
@@ -367,15 +451,24 @@ def bwd_budget(dtype: torch.dtype = torch.bfloat16, d: int = 128,
     """The backward kernels' per-block budget on the current CUDA device:
     ``{"dkdv": {...}, "dq": {...}}``, each with ``num_regs``,
     ``shared_bytes`` (dynamic), ``local_bytes`` (spills),
-    ``threads_per_block`` and ``blocks_per_sm``."""
+    ``threads_per_block`` and ``blocks_per_sm``.
+
+    Raises:
+        RuntimeError: the library's tiling is not :func:`bwd_tiling`'s.
+    """
     lib = _library()
     found = {}
     for which, name in enumerate(("dkdv", "dq")):
-        out = (ctypes.c_int * 5)()
+        out = (ctypes.c_int * 8)()
         rc = lib.flash_attention_bwd_attributes(_DTYPES[dtype], d, int(causal), which, out)
         _check_error(lib, rc, "cudaFuncGetAttributes")
+        *budget, rows, keys, stages = list(out)
+        if (rows, keys, stages) != bwd_tiling(dtype)[name]:
+            raise RuntimeError(f"flash_attention_bwd: the {dtype} {name} kernel is built with "
+                               f"(rows, keys, stages) = {(rows, keys, stages)}, this module "
+                               f"assumes {bwd_tiling(dtype)[name]}")
         found[name] = dict(zip(("num_regs", "shared_bytes", "local_bytes", "threads_per_block",
-                                "blocks_per_sm"), list(out)))
+                                "blocks_per_sm"), budget))
     return found
 
 
@@ -420,14 +513,21 @@ def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int
     if q.dtype == torch.bfloat16 and -(-sq * (hq // hkv) // rows) > MAX_ROW_TILES:
         raise ValueError(f"{what}: Sq * G = {sq * (hq // hkv)} exceeds "
                          f"{MAX_ROW_TILES * rows} rows")
-    # 16-byte vector loads (and TMA boxes for bf16 k and v): the head dim
-    # contiguous, the other strides and the base address on 16-byte boundaries
-    unit = 16 // q.element_size()
+    # 16-byte vector loads (cp.async, and TMA boxes for bf16 k and v): the
+    # head dim contiguous, the other strides and the base on 16-byte boundaries
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(-1) != 1 or any(s % unit for s in t.stride()[:3]) or t.data_ptr() % 16:
+        if not _rows_aligned(t):
             raise ValueError(f"{what}: {name} needs a contiguous, 16-byte aligned head dim "
-                             f"and strides in multiples of {unit} ({q.dtype}), "
-                             f"got {t.stride()}")
+                             f"and strides in multiples of {16 // t.element_size()} "
+                             f"({q.dtype}), got {t.stride()}")
+
+
+def _rows_aligned(t: torch.Tensor) -> bool:
+    """Whether the kernels can read ``t``'s rows by 16-byte copies: the last
+    dim contiguous, the other strides and the base on 16-byte boundaries."""
+    unit = 16 // t.element_size()
+    return (t.stride(-1) == 1 and not any(s % unit for s in t.stride()[:3])
+            and t.data_ptr() % 16 == 0)
 
 
 def _strides(*ts: torch.Tensor):
@@ -499,18 +599,30 @@ def flash_attention_bwd(
     _check_cuda(q, k, v, q_offset)
     if not (out.device == dout.device == lse.device == q.device):
         raise ValueError("flash_attention_bwd: out, dout and lse must lie on q's device")
+    if q.dtype == torch.bfloat16 and hq // k.shape[2] > BWD_TILING[torch.bfloat16]["dkdv"][0]:
+        raise ValueError(f"flash_attention_bwd: the bf16 body's row tiles hold whole query "
+                         f"groups of at most 64 heads, got G = {hq // k.shape[2]}")
     if lse.dtype != torch.float32 or out.dtype != q.dtype or dout.dtype != q.dtype:
         raise ValueError(f"flash_attention_bwd: out and dout must be q's {q.dtype} and lse "
                          f"float32, got {out.dtype}, {dout.dtype}, {lse.dtype}")
-    # the kernel reads these element by element: only the head dim must be contiguous
-    out, dout = (t if t.stride(-1) == 1 else t.contiguous() for t in (out, dout))
+    # out is read element by element (the delta pass): only its head dim must
+    # be contiguous.  dout too in the f32 body; the bf16 body reads its rows
+    # by TMA and cp.async, as q's, so a dout off 16 bytes is copied (it is
+    # the caller's gradient, whose strides no check can promise).
+    out = out if out.stride(-1) == 1 else out.contiguous()
+    if dout.dtype == torch.bfloat16 and not _rows_aligned(dout):
+        dout = dout.clone(memory_format=torch.contiguous_format)
+    elif dout.stride(-1) != 1:
+        dout = dout.contiguous()
     lse = lse.contiguous()
     skv, hkv, d = k.shape[1], k.shape[2], q.shape[-1]
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     lib = _library()
+    # delta (f32 body) or the folded lse/delta planes (bf16 body)
+    words = lib.flash_attention_bwd_scratch(_DTYPES[q.dtype], b, sq, hq, hkv)
+    delta = torch.empty(words, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_attention_bwd(

@@ -476,6 +476,7 @@ BWD_SHAPES = [  # (B, Sq, Skv, Hq, Hkv, D, causal, q_offset)
     (2, 64, 200, 8, 2, 64, True, 136),  # Sq < Skv, queries continuing a prefix
     (1, 64, 200, 4, 4, 32, False, 0),  # Sq < Skv, non-causal
     (1, 130, 130, 8, 2, 128, True, 0),  # a ragged second tile at D=128
+    (1, 77, 77, 12, 4, 128, True, 0),  # G=3: Sq * G = 231, no multiple of any row tile
 ]
 
 
@@ -570,14 +571,45 @@ def test_cuda_q_k_v_get_gradients_through_the_kernels(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_flash_backward_budget(cuda_device, dtype):
-    """Within 227 KB a block, no spills, at least one block per SM."""
+def test_cuda_flash_backward_reads_strided_out_and_dout(cuda_device):
+    """bf16 out and dout that are views, as autograd may hand them over: out
+    with its heads ahead of the sequence in memory, dout a slice of a wider
+    tensor (16-byte rows, read in place) and a slice off 16 bytes (copied
+    by the wrapper).  The gradients are those of contiguous copies."""
+    shape = (2, 200, 200, 8, 2, 128, True, 0)
+    q, k, v, dout, out, lse = _bwd_inputs(shape, torch.bfloat16, cuda_device, seed=64)
+    d = dout.shape[-1]
+    out_t = out.transpose(1, 2).contiguous().transpose(1, 2)
+    aligned = torch.zeros((*dout.shape[:3], 2 * d), dtype=dout.dtype, device=cuda_device)
+    aligned[..., :d] = dout
+    offset = torch.zeros((*dout.shape[:3], 2 * d), dtype=dout.dtype, device=cuda_device)
+    offset[..., 1:d + 1] = dout
+    assert not out_t.is_contiguous() and fa._rows_aligned(aligned[..., :d])
+    assert not fa._rows_aligned(offset[..., 1:d + 1])
+    want = fa.flash_attention_bwd(q, k, v, out, dout, lse)
+    in_place = fa.flash_attention_bwd(q, k, v, out_t, aligned[..., :d], lse)
+    copied = fa.flash_attention_bwd(q, k, v, out_t, offset[..., 1:d + 1], lse)
+    torch.cuda.synchronize()
+    for g, h, w in zip(in_place, copied, want):
+        assert torch.equal(g, w) and torch.equal(h, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,threads", [(torch.float32, 256), (torch.bfloat16, 384)])
+def test_cuda_flash_backward_budget(cuda_device, dtype, threads):
+    """Within 227 KB a block, no spills, at least one block per SM, and the
+    tiling the Python side assumes (bwd_budget raises otherwise).  The bf16
+    kernels are warp-specialised: 168 registers a thread at launch, the pool
+    that setmaxnreg hands from the producer to the consumers."""
     for d in fa.HEAD_DIMS:
-        budget = fa.bwd_budget(dtype, d)
-        for name, smem in zip(("dkdv", "dq"), fa.bwd_smem_bytes(d)):
-            assert budget[name]["shared_bytes"] == smem <= 232448
-            assert budget[name]["local_bytes"] == 0 and budget[name]["blocks_per_sm"] >= 1
+        for causal in (True, False):
+            budget = fa.bwd_budget(dtype, d, causal=causal)
+            for name, smem in zip(("dkdv", "dq"), fa.bwd_smem_bytes(d, dtype)):
+                assert budget[name]["shared_bytes"] == smem <= 232448
+                assert budget[name]["local_bytes"] == 0 and budget[name]["blocks_per_sm"] >= 1
+                assert budget[name]["threads_per_block"] == threads
+                if dtype == torch.bfloat16:
+                    assert budget[name]["num_regs"] == 168
 
 
 @pytest.mark.cuda
