@@ -46,6 +46,19 @@ source, started together) and, at the paper's L=32 lattice:
     backward calls); profiles one more step; holds one step's loss and
     gradients on the card against the CPU at 2 layers in f32, and 4 steps
     straight against 2 + checkpoint + restore + 2, bitwise, on the card;
+  * the MoE phase, after the qwen3-4b phases have freed the card: on
+    full-width, full-depth granite-moe-1b-a400m (24 layers, 32 experts
+    top-8, 16/8 heads of 64), ``ServeEngine`` as above (24 flash launches in
+    prefill, none in decode; decode against a teacher-forced forward with
+    capacity for every assignment and expert choices pinned to the
+    teacher's, the served config's drops, flips and difference printed;
+    the card against the CPU at 2 layers in f32 with equal routing;
+    matrices at std 0.02, see ``_matrices_at``) and ``train.loop.train`` as above (48
+    flash forward and 24 backward launches a step; ``nll`` and ``aux`` per
+    step; one step twice from one state, bitwise; card against CPU at 2
+    layers with equal routing; resume bitwise); then the flash forward and
+    backward at its head dim 64 and G = 2 against their plain versions,
+    timed beside SDPA and their bounds;
   * times each kernel against its bound, its plain version and, where one
     PyTorch call computes the same function, that call (every time in the
     kernels line from eager calls; the flash kernel and SDPA also in a CUDA
@@ -115,6 +128,10 @@ LM_TEACHER_TOL = 0.1
 # against 1,024-key chunks), ~1e-6 relative per op on O(1) logits
 LM_CROSS_TOL = 1e-3
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 1024, 5  # 2 x 1,024 tokens a step, 5 steps
+# the MoE phase, served and trained at the LM and training shapes above: full
+# width, 24 layers, d_model 1,024, 16/8 heads of 64, 32 experts top-8 (d_ff
+# 512), vocab 49,155, tied embeddings; 1.33 B parameters, 0.40 B active
+MOE_ARCH = "granite-moe-1b-a400m"
 # step 1's loss against ln(vocab): the init's 0.02 embedding (tied) gives
 # logits of ~1e-2, a near-uniform softmax
 TRAIN_START_TOL = 1.0
@@ -568,6 +585,15 @@ def main(argv: list[str] | None = None) -> int:
     flash_bwd, train_fwd_launches = _train_phase(args.seed, hw, failures)
     flash["serve_launches"], flash["train_launches"] = flash["launches"], train_fwd_launches
     flash["launches"] += train_fwd_launches
+
+    # -- 5d. the MoE phase: granite-moe served and trained, the kernels at D=64 ------
+    torch.cuda.empty_cache()
+    moe_launches = _moe_phase(args.seed, hw, failures)
+    flash["moe_serve_launches"] = moe_launches["serve"]
+    flash["moe_train_launches"] = moe_launches["train_fwd"]
+    flash["launches"] += moe_launches["serve"] + moe_launches["train_fwd"]
+    flash_bwd["moe_train_launches"] = moe_launches["train_bwd"]
+    flash_bwd["launches"] += moe_launches["train_bwd"]
 
     # -- 6. the kernels line -----------------------------------------------------------
     _emit({"kernels": [{
@@ -1225,8 +1251,9 @@ def _flash_checks(rng, failures: list[str]) -> float:
 def _profile(fn, top: int = 6) -> dict:
     """One call of ``fn`` under ``torch.profiler``: its wall time between
     CUDA events, the device time summed over its kernels, the device's idle
-    share of the wall, and the kernels that took the most device time (by
-    name, ms).  Device time is None where the profiler records none."""
+    share of the wall, device ms and launches by kernel class, and the
+    kernels that took the most device time (by name, ms).  Device time is
+    None where the profiler records none."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1244,12 +1271,15 @@ def _profile(fn, top: int = 6) -> dict:
     device_ms = sum(dev(e) for e in kernels) or None
     ranked = sorted(kernels, key=dev, reverse=True)[:top]
     by_class: dict[str, float] = {}
+    launches_by_class: dict[str, int] = {}
     for e in kernels:
         by_class[_kernel_class(e.key)] = by_class.get(_kernel_class(e.key), 0.0) + dev(e)
+        launches_by_class[_kernel_class(e.key)] = \
+            launches_by_class.get(_kernel_class(e.key), 0) + e.count
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "idle_share": None if device_ms is None else max(0.0, 1.0 - device_ms / wall_ms),
             "kernel_launches": sum(e.count for e in kernels),
-            "device_ms_by_class": by_class,
+            "device_ms_by_class": by_class, "launches_by_class": launches_by_class,
             "top_kernels": [[e.key[:60], dev(e), e.count] for e in ranked]}
 
 
@@ -1274,7 +1304,6 @@ def _lm_phase(seed: int, hw, failures: list[str]) -> dict:
     against a teacher-forced prefill; the card against the port's CPU path
     at 2 layers in f32; the kernel's yardsticks at the prefill shape.
     Returns the flash entry of the kernels line."""
-    import copy
     import dataclasses
 
     import numpy as np
@@ -1384,33 +1413,9 @@ def _lm_phase(seed: int, hw, failures: list[str]) -> dict:
 
     # -- the card against the port's CPU path: full width, 2 layers, f32 ----------
     cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
-    model2 = registry.get(cfg2).init(torch.Generator().manual_seed(seed), cfg2)
-    cpu = ServeEngine(cfg2, copy.deepcopy(model2), ServeConfig(max_len=80), device="cpu")
-    card = ServeEngine(cfg2, model2, ServeConfig(max_len=80), device=dev)
-    prompt2 = rng.integers(0, cfg.vocab_size, (1, 64), dtype=np.int32)
-    cpu_tokens = cpu.generate(prompt2, 8)
-    card_tokens = card.generate(prompt2, 8)
-    errs = []
-    for eng in (cpu, card):
-        t = torch.from_numpy(cpu_tokens).to(eng.device)
-        st = eng.init_state(1)
-        lg, st = eng.prefill({"tokens": t[:, :64]}, st)
-        out = [lg]
-        for i in range(7):
-            lg, st = eng.decode(t[:, 64 + i:65 + i], st, 64 + i)
-            out.append(lg)
-        errs.append(torch.cat(out, dim=1).float().cpu())
-    cross_err = torch.abs(errs[0] - errs[1]).max().item()
-    cross = {"row": "lm cross-device", "arch": cfg.name, "n_layers": 2, "dtype": "float32",
-             "tf32": torch.backends.cuda.matmul.allow_tf32, "prompt": 64, "new_tokens": 8,
-             "max_abs_logit_diff": cross_err, "tol": LM_CROSS_TOL,
-             "logit_scale": errs[0].abs().max().item(),
-             "same_tokens": bool(np.array_equal(cpu_tokens, card_tokens))}
-    cross["ok"] = cross_err <= LM_CROSS_TOL and not cross["tf32"]
-    _emit(cross)
-    if not cross["ok"]:
-        failures.append(f"lm cross-device: {cross}")
-    del cpu, card, model2, errs
+    _serve_cross_device("lm cross-device", cfg2,
+                        registry.get(cfg2).init(torch.Generator().manual_seed(seed), cfg2), rng,
+                        failures)
 
     # -- yardsticks at the prefill shape ------------------------------------------------
     b, s, hq, hkv, d = LM_BATCH, LM_PROMPT, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -1451,6 +1456,152 @@ def _lm_phase(seed: int, hw, failures: list[str]) -> dict:
     return {"launches": launches, "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
             "bound_ms": None if bound is None else bound.bound_s * 1e3,
             "bound_by": None if bound is None else bound.bound_by, "library_ms": library_ms}
+
+
+def _serve_cross_device(row_name: str, cfg2, model2, rng, failures: list[str]) -> None:
+    """The card against the port's CPU path on ``model2`` (``cfg2`` in f32,
+    TF32 off): 8 greedy tokens after a 64-token prompt on each, then the
+    CPU's tokens prefilled and decoded on both: logits within LM_CROSS_TOL
+    and every MoE layer's expert choices (``moe._route``) equal."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models import moe, transformer
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    cpu = ServeEngine(cfg2, copy.deepcopy(model2), ServeConfig(max_len=80), device="cpu")
+    card = ServeEngine(cfg2, model2, ServeConfig(max_len=80), device=torch.device("cuda"))
+    prompt2 = rng.integers(0, cfg2.vocab_size, (1, 64), dtype=np.int32)
+    cpu_tokens = cpu.generate(prompt2, 8)
+    card_tokens = card.generate(prompt2, 8)
+    logits, routes = [], []
+    for eng in (cpu, card):
+        t = torch.from_numpy(cpu_tokens).to(eng.device)
+        st = eng.init_state(1)
+        routes.append([])
+        with _wrapped(moe, "_route", _recording_routes(routes[-1])):
+            lg, st = eng.prefill({"tokens": t[:, :64]}, st)
+            out = [lg]
+            for i in range(7):
+                lg, st = eng.decode(t[:, 64 + i:65 + i], st, 64 + i)
+                out.append(lg)
+        logits.append(torch.cat(out, dim=1).float().cpu())
+    err = torch.abs(logits[0] - logits[1]).max().item()
+    n_moe = transformer.stack_sizes(cfg2).get("moe_layers", 0)
+    same_routes = len(routes[0]) == len(routes[1]) == 8 * n_moe and all(
+        torch.equal(a.cpu(), b.cpu()) for a, b in zip(*routes))
+    row = {"row": row_name, "arch": cfg2.name, "n_layers": cfg2.n_layers, "dtype": cfg2.dtype,
+           "tf32": torch.backends.cuda.matmul.allow_tf32, "prompt": 64, "new_tokens": 8,
+           "max_abs_logit_diff": err, "tol": LM_CROSS_TOL,
+           "logit_scale": logits[0].abs().max().item(), "routes_compared": len(routes[0]),
+           "same_routes": same_routes, "same_tokens": bool(np.array_equal(cpu_tokens, card_tokens))}
+    row["ok"] = err <= LM_CROSS_TOL and same_routes and not row["tf32"]
+    _emit(row)
+    if not row["ok"]:
+        failures.append(f"{row_name}: {row}")
+
+
+def _train_cross_device(row_name: str, cfg2, model, seed: int, failures: list[str]) -> None:
+    """One step's loss and gradients on ``model`` (trainable, on the CPU;
+    ``cfg2`` in f32), the card against the CPU on TRAIN_BATCH x
+    TRAIN_CROSS_SEQ seeded tokens, TF32 off: the loss within
+    TRAIN_CROSS_LOSS_TOL (relative), each gradient within
+    TRAIN_CROSS_GRAD_TOL of its leaf's largest magnitude (an element near
+    zero carries the rounding of the terms that cancelled in it), and every
+    MoE layer's expert choices (forward and remat recompute) equal."""
+    import copy
+
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig, PipelineState, TokenPipeline, make_train_batch
+    from repro_torch.models import moe, transformer
+    from repro_torch.train import train_step
+
+    card_model = copy.deepcopy(model).to(torch.device("cuda"))
+    pipe = TokenPipeline(DataConfig(cfg2.vocab_size, TRAIN_CROSS_SEQ, TRAIN_BATCH, seed=seed))
+    found, routes = {}, {}
+    for name, m in (("cpu", model), ("card", card_model)):
+        batch, _ = make_train_batch(pipe, PipelineState(), cfg2, device=next(m.parameters()).device)
+        routes[name] = []
+        with _wrapped(moe, "_route", _recording_routes(routes[name])):
+            grads, metrics = train_step.make_grad_fn(cfg2, q_chunk=TRAIN_CROSS_SEQ,
+                                                     kv_chunk=TRAIN_CROSS_SEQ)(m, batch)
+        found[name] = ({n: g.cpu() for n, g in grads.items()},
+                       {k: v.item() for k, v in metrics.items()})
+        del grads
+    del model, card_model
+    (g_cpu, m_cpu), (g_card, m_card) = found["cpu"], found["card"]
+    loss_rel = abs(m_card["loss"] - m_cpu["loss"]) / abs(m_cpu["loss"])
+    leaf_errs = {n: (g_card[n] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
+                 for n, g in g_cpu.items()}
+    worst_leaf = max(leaf_errs, key=leaf_errs.get)
+    router_errs = [e for n, e in leaf_errs.items() if n.endswith("moe.router")]
+    n_moe = transformer.stack_sizes(cfg2).get("moe_layers", 0)
+    same_routes = len(routes["cpu"]) == len(routes["card"]) == 2 * n_moe and all(
+        torch.equal(a.cpu(), b.cpu()) for a, b in zip(routes["cpu"], routes["card"]))
+    row = {"row": row_name, "arch": cfg2.name, "n_layers": cfg2.n_layers, "dtype": cfg2.dtype,
+           "tf32": torch.backends.cuda.matmul.allow_tf32, "batch": TRAIN_BATCH,
+           "seq": TRAIN_CROSS_SEQ, "loss_cpu": m_cpu["loss"], "loss_card": m_card["loss"],
+           "aux_cpu": m_cpu["aux"], "aux_card": m_card["aux"], "loss_rel_diff": loss_rel,
+           "loss_tol": TRAIN_CROSS_LOSS_TOL, "leaves": len(leaf_errs), "worst_leaf": worst_leaf,
+           "worst_leaf_err_of_max": leaf_errs[worst_leaf],
+           "router_err_of_max": max(router_errs) if router_errs else None,
+           "grad_tol_of_max": TRAIN_CROSS_GRAD_TOL, "routes_compared": len(routes["cpu"]),
+           "same_routes": same_routes}
+    row["ok"] = (loss_rel <= TRAIN_CROSS_LOSS_TOL and not row["tf32"] and same_routes
+                 and leaf_errs[worst_leaf] <= TRAIN_CROSS_GRAD_TOL)
+    _emit(row)
+    if not row["ok"]:
+        failures.append(f"{row_name}: {row}")
+
+
+def _resume_check(row_name: str, cfg2, seed: int, failures: list[str]) -> None:
+    """``train.loop.train`` on ``cfg2`` on the card: 4 steps straight
+    against 2 steps + checkpoint (under ``build/``) + restore + 2: losses,
+    aux, parameters and moments bitwise."""
+    import shutil
+
+    import torch
+
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import loop
+
+    dev = torch.device("cuda")
+    ckpt_dir = ROOT / "build" / "chip_smoke_checkpoints"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    quiet = lambda line: None  # noqa: E731
+
+    def resume_cfg(n: int, directory: str | None):
+        return loop.TrainConfig(steps=n, seq_len=TRAIN_CROSS_SEQ, global_batch=TRAIN_BATCH,
+                                log_every=1, seed=seed, checkpoint_dir=directory,
+                                checkpoint_every=100,
+                                opt=AdamWConfig(peak_lr=3e-4, warmup_steps=2, total_steps=4))
+
+    t0 = time.perf_counter()
+    straight = loop.train(cfg2, resume_cfg(4, None), log=quiet, device=dev)
+    first_hist = loop.train(cfg2, resume_cfg(2, str(ckpt_dir)), log=quiet, device=dev)["history"]
+    torch.cuda.empty_cache()
+    resumed = loop.train(cfg2, resume_cfg(4, str(ckpt_dir)), log=quiet, device=dev)
+    same_params = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        straight["params"].named_parameters(), resumed["params"].named_parameters()))
+    same_moments = all(torch.equal(straight["opt_state"][k][n], resumed["opt_state"][k][n])
+                       for k in ("m", "v") for n in straight["opt_state"][k])
+    curves = {key: ([h[key] for h in straight["history"]],
+                    [h[key] for h in first_hist + resumed["history"]]) for key in ("loss", "aux")}
+    row = {"row": row_name, "arch": cfg2.name, "n_layers": cfg2.n_layers, "dtype": cfg2.dtype,
+           "losses_straight": curves["loss"][0], "losses_resumed": curves["loss"][1],
+           "aux_straight": curves["aux"][0], "aux_resumed": curves["aux"][1],
+           "params_bitwise": same_params, "moments_bitwise": same_moments,
+           "seconds": time.perf_counter() - t0}
+    row["ok"] = same_params and same_moments and all(a == b for a, b in curves.values())
+    _emit(row)
+    if not row["ok"]:
+        failures.append(f"{row_name}: {row}")
+    del straight, resumed
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
 
 
 def _bwd_checks(rng, failures: list[str]) -> float:
@@ -1521,10 +1672,8 @@ def _train_phase(seed: int, hw, failures: list[str]) -> tuple[dict, int]:
     card; the backward's yardsticks at the training shape.  Returns the
     backward's entry of the kernels line and the forward launches of the
     training run."""
-    import copy
     import dataclasses
     import math
-    import shutil
 
     import numpy as np
     import torch
@@ -1613,71 +1762,11 @@ def _train_phase(seed: int, hw, failures: list[str]) -> tuple[dict, int]:
 
     # -- one step's loss and gradients: the card against the CPU, 2 layers, f32 -------
     cfg2 = dataclasses.replace(base, n_layers=2, dtype="float32")
-    model = common.trainable(registry.get(cfg2).init(torch.Generator().manual_seed(seed), cfg2))
-    card_model = copy.deepcopy(model).to(dev)
-    cross_pipe = TokenPipeline(DataConfig(cfg2.vocab_size, TRAIN_CROSS_SEQ, TRAIN_BATCH, seed=seed))
-    found = {}
-    for name, m, where in (("cpu", model, "cpu"), ("card", card_model, dev)):
-        batch, _ = make_train_batch(cross_pipe, PipelineState(), cfg2, device=where)
-        grads, metrics = train_step.make_grad_fn(cfg2, q_chunk=TRAIN_CROSS_SEQ,
-                                                 kv_chunk=TRAIN_CROSS_SEQ)(m, batch)
-        found[name] = ({n: g.cpu() for n, g in grads.items()},
-                       {k: v.item() for k, v in metrics.items()})
-        del grads
-    del model, card_model
-    (g_cpu, m_cpu), (g_card, m_card) = found["cpu"], found["card"]
-    loss_rel = abs(m_card["loss"] - m_cpu["loss"]) / abs(m_cpu["loss"])
-    leaf_errs = {n: (g_card[n] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
-                 for n, g in g_cpu.items()}
-    worst_leaf = max(leaf_errs, key=leaf_errs.get)
-    cross = {"row": "lm train cross-device", "arch": cfg2.name, "n_layers": 2, "dtype": "float32",
-             "tf32": torch.backends.cuda.matmul.allow_tf32, "batch": TRAIN_BATCH,
-             "seq": TRAIN_CROSS_SEQ, "loss_cpu": m_cpu["loss"], "loss_card": m_card["loss"],
-             "loss_rel_diff": loss_rel, "loss_tol": TRAIN_CROSS_LOSS_TOL, "leaves": len(leaf_errs),
-             "worst_leaf": worst_leaf, "worst_leaf_err_of_max": leaf_errs[worst_leaf],
-             "grad_tol_of_max": TRAIN_CROSS_GRAD_TOL}
-    cross["ok"] = (loss_rel <= TRAIN_CROSS_LOSS_TOL and not cross["tf32"]
-                   and leaf_errs[worst_leaf] <= TRAIN_CROSS_GRAD_TOL)
-    _emit(cross)
-    if not cross["ok"]:
-        failures.append(f"lm train cross-device: {cross}")
-    del found, g_cpu, g_card
+    _train_cross_device("lm train cross-device", cfg2, common.trainable(
+        registry.get(cfg2).init(torch.Generator().manual_seed(seed), cfg2)), seed, failures)
 
     # -- resume: 4 steps straight against 2 + checkpoint + restore + 2, on the card ----
-    ckpt_dir = ROOT / "build" / "chip_smoke_checkpoints"
-    shutil.rmtree(ckpt_dir, ignore_errors=True)
-    quiet = lambda line: None  # noqa: E731
-
-    def resume_cfg(n: int, directory: str | None):
-        return loop.TrainConfig(steps=n, seq_len=TRAIN_CROSS_SEQ, global_batch=TRAIN_BATCH,
-                                log_every=1, seed=seed, checkpoint_dir=directory,
-                                checkpoint_every=100,
-                                opt=AdamWConfig(peak_lr=3e-4, warmup_steps=2, total_steps=4))
-
-    t0 = time.perf_counter()
-    straight = loop.train(cfg2, resume_cfg(4, None), log=quiet, device=dev)
-    first = loop.train(cfg2, resume_cfg(2, str(ckpt_dir)), log=quiet, device=dev)
-    first_hist = first["history"]
-    del first
-    torch.cuda.empty_cache()
-    resumed = loop.train(cfg2, resume_cfg(4, str(ckpt_dir)), log=quiet, device=dev)
-    same_params = all(torch.equal(a, b) for (_, a), (_, b) in zip(
-        straight["params"].named_parameters(), resumed["params"].named_parameters()))
-    same_moments = all(torch.equal(straight["opt_state"][k][n], resumed["opt_state"][k][n])
-                       for k in ("m", "v") for n in straight["opt_state"][k])
-    losses_straight = [h["loss"] for h in straight["history"]]
-    losses_resumed = [h["loss"] for h in first_hist + resumed["history"]]
-    resume = {"row": "lm train resume", "arch": cfg2.name, "n_layers": 2, "dtype": "float32",
-              "losses_straight": losses_straight, "losses_resumed": losses_resumed,
-              "params_bitwise": same_params, "moments_bitwise": same_moments,
-              "seconds": time.perf_counter() - t0}
-    resume["ok"] = same_params and same_moments and losses_straight == losses_resumed
-    _emit(resume)
-    if not resume["ok"]:
-        failures.append(f"lm train resume: {resume}")
-    del straight, resumed
-    shutil.rmtree(ckpt_dir, ignore_errors=True)
-    torch.cuda.empty_cache()
+    _resume_check("lm train resume", cfg2, seed, failures)
 
     # -- yardsticks at the training shape ------------------------------------------------
     b, s, hq, hkv, d = TRAIN_BATCH, TRAIN_SEQ, base.n_heads, base.n_kv_heads, base.head_dim
@@ -1728,6 +1817,526 @@ def _train_phase(seed: int, hw, failures: list[str]) -> tuple[dict, int]:
              "bound_ms": None if bound is None else bound.bound_s * 1e3,
              "bound_by": None if bound is None else bound.bound_by,
              "library_ms": library_ms}, fwd)
+
+
+@contextlib.contextmanager
+def _wrapped(owner, name: str, make):
+    """Within the block ``owner.name`` is ``make(original)``."""
+    original = getattr(owner, name)
+    setattr(owner, name, make(original))
+    try:
+        yield
+    finally:
+        setattr(owner, name, original)
+
+
+def _counting_drops(sink: list):
+    """A wrapper of ``moe._dispatch_indices`` that appends each call's count
+    of dropped assignments (past their expert's capacity) to ``sink``, as a
+    device tensor."""
+    def make(inner):
+        def counted(idx, n_tokens, cfg, cap):
+            tok, ks = inner(idx, n_tokens, cfg, cap)
+            sink.append(idx.numel() - (tok < n_tokens).sum())
+            return tok, ks
+        return counted
+    return make
+
+
+def _recording_routes(sink: list):
+    """A wrapper of ``moe._route`` that appends each call's top-k indices
+    to ``sink``."""
+    def make(inner):
+        def recorded(params, x, cfg):
+            out = inner(params, x, cfg)
+            sink.append(out[1])
+            return out
+        return recorded
+    return make
+
+
+def _matrices_at(model, std: float, seed: int):
+    """Redraw every matrix of ``model`` (each parameter of 2 or more dims)
+    from N(0, std^2), in place, from a generator on its device seeded by
+    ``seed``; norms and biases keep their values.  Returns ``model``.
+
+    The MoE phase's checks run granite-moe at std 0.02 (GPT-2's rule, which
+    the reference's embeddings and router already follow).  The reference's
+    rule, 1/sqrt(shape[0]) (the layer count for a stacked leaf), gives
+    granite-moe, which has no qk-norm, attention logits of std ~d_model
+    std^2 (~40 at full depth, ~500 at a 2-layer cut): a saturated softmax
+    whose near-ties amplify rounding, so that the card and the CPU (f32)
+    and two bf16 passes part by more than the rounding of one op."""
+    import torch
+
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.dim() >= 2:
+                gen = torch.Generator(device=p.device).manual_seed(seed)
+                p.copy_(torch.randn(p.shape, generator=gen, device=p.device) * std)
+                seed += 1
+    return model
+
+
+def _pinned_routes(routes: list, n_layers: int, flips: list):
+    """A wrapper of ``moe._route`` (softmax routing) that takes each call's
+    expert choices from ``routes``, a teacher-forced pass's (B, S, k)
+    indices per layer: the calls run layer by layer, first a prefill of
+    LM_PROMPT tokens, then one token a step.  The weights are the call's
+    own router probabilities at those choices; ``flips`` gets each call's
+    count of tokens whose own top-k differs."""
+    import itertools
+
+    import torch
+
+    def make(inner):
+        calls = itertools.count()
+
+        def pinned(params, x, cfg):
+            _, idx, aux = inner(params, x, cfg)
+            step, layer = divmod(next(calls), n_layers)
+            start = 0 if step == 0 else LM_PROMPT + step - 1
+            want = routes[layer][:, start:start + x.shape[1]]
+            flips.append((idx != want).any(-1).sum())
+            probs = torch.softmax(torch.matmul(x.float(), params["router"].float()), dim=-1)
+            top = torch.gather(probs, -1, want)
+            w = top / torch.clamp_min(torch.sum(top, dim=-1, keepdim=True), 1e-9)
+            return w.to(x.dtype), want, aux
+        return pinned
+    return make
+
+
+def _moe_phase(seed: int, hw, failures: list[str]) -> dict[str, int]:
+    """The MoE family on the card at granite-moe-1b-a400m's full width and
+    depth: serving (``_moe_serve``), training (``_moe_train``) and the flash
+    kernels at its head dim 64, G = 2 (``_moe_yardsticks``).  Returns the
+    flash launches of its main paths: ``serve``, ``train_fwd``, ``train_bwd``."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed + 19)
+    serve = _moe_serve(seed, rng, failures)
+    torch.cuda.empty_cache()
+    train_fwd, train_bwd = _moe_train(seed, failures)
+    torch.cuda.empty_cache()
+    _moe_yardsticks(rng, hw, failures)
+    return {"serve": serve, "train_fwd": train_fwd, "train_bwd": train_bwd}
+
+
+def _moe_serve(seed: int, rng, failures: list[str]) -> int:
+    """``ServeEngine`` on full-width granite-moe (random bf16 weights from
+    the seed, f32 KV cache) over 4 x 1,024-token prompts + 32 greedy tokens,
+    the flash counter set to 0 just before and read just after (24 launches
+    in prefill, 0 in decode); decode logits against a teacher-forced
+    forward on the same weights with capacity for every assignment and the
+    decode path's expert choices pinned to the teacher's (the served
+    config's difference, the capacity drops of both passes and the routing
+    flips printed beside it); the card against the port's CPU path at 2
+    layers in f32, routing equal.  Matrices at std 0.02 (``_matrices_at``).
+    Returns the flash launches of the served generate."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import common, moe, registry, transformer
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    dev = torch.device("cuda")
+    cfg = get_config(MOE_ARCH)
+    t0 = time.perf_counter()
+    model = _matrices_at(registry.get(cfg).init(torch.Generator(device=dev).manual_seed(seed),
+                                                cfg, torch.bfloat16), 0.02, seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    engine = ServeEngine(cfg, model, ServeConfig(max_len=LM_MAX_LEN), device=dev)
+    prompts = rng.integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), dtype=np.int32)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    tokens = engine.generate(prompts, LM_NEW)
+    first_s = time.perf_counter() - t0
+    counts = _counts()
+    launches = counts[fa.LAUNCHES.name]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    again = engine.generate(prompts, LM_NEW)
+    wall_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    tm = engine.last_timings
+    # decode logits against a teacher-forced forward over prompt + generated
+    # tokens, through the engine's own calls (prefill, then the 31 decode
+    # steps, each counted from 0), with the capacity drops of both passes
+    # counted.  Two things differ between the paths besides what the check
+    # is for (the cache, the positions, the kernels):
+    # * capacity is per group: 320 slots an expert in the 1,024-token
+    #   prefill, 330 in the 1,055-token teacher pass, 1 (never full) in
+    #   decode, so wherever an expert overflows the paths drop different
+    #   assignments;
+    # * bf16 rounds the router's inputs otherwise in the two paths, and a
+    #   token whose 8th and 9th experts nearly tie changes expert.
+    # The check is held on the same weights with capacity for every
+    # assignment (capacity factor E / k: no pass drops one) and each decode
+    # call's expert choices pinned to the teacher pass's (weights from its
+    # own router); the flips that pinning undid, and the served config's
+    # own difference, are printed beside it.
+    toks_d = torch.from_numpy(tokens).to(dev)
+    dropless = ServeEngine(dataclasses.replace(cfg, capacity_factor=cfg.n_experts
+                                               / cfg.experts_per_token),
+                           engine.params, ServeConfig(max_len=LM_MAX_LEN), device=dev)
+    found = {}
+    for name, eng in (("served", engine), ("dropless pinned", dropless)):
+        drops: dict[str, list] = {"prefill": [], "teacher": []}
+        routes: list = []
+        with _wrapped(moe, "_dispatch_indices", _counting_drops(drops["teacher"])), \
+                _wrapped(moe, "_route", _recording_routes(routes)):
+            x, _, _ = transformer.forward(eng.params, {"tokens": toks_d[:, :-1]}, eng.cfg,
+                                          q_chunk=512, kv_chunk=1024)
+        teacher = transformer._logits(eng.params, x[:, LM_PROMPT - 1:], eng.cfg).float()
+        del x
+        flips: list = []
+        pin = (_wrapped(moe, "_route", _pinned_routes(routes, cfg.n_layers, flips))
+               if eng is dropless else contextlib.nullcontext())
+        state = eng.init_state(LM_BATCH)
+        with pin:
+            _reset_counts()
+            with _wrapped(moe, "_dispatch_indices", _counting_drops(drops["prefill"])):
+                lg, state = eng.prefill({"tokens": toks_d[:, :LM_PROMPT]}, state)
+            torch.cuda.synchronize()
+            prefill_launches = _counts()[fa.LAUNCHES.name]
+            step_logits = [lg]
+            _reset_counts()
+            for t in range(LM_NEW - 1):
+                lg, state = eng.decode(toks_d[:, LM_PROMPT + t:LM_PROMPT + t + 1], state,
+                                       LM_PROMPT + t)
+                step_logits.append(lg)
+            torch.cuda.synchronize()
+            decode_launches = _counts()[fa.LAUNCHES.name]
+        served = torch.cat(step_logits, dim=1).float()  # (B, 32, V): positions 1023 .. 1054
+        diff = torch.abs(served - teacher)
+        found[name] = {
+            "prefill_launches": prefill_launches, "decode_launches": decode_launches,
+            "finite": bool(torch.isfinite(served).all()) and bool(torch.isfinite(teacher).all()),
+            "max_abs_diff": diff.max().item(), "mean_abs_diff": diff.mean().item(),
+            "scale": torch.abs(teacher).max().item(),
+            "token_agreement": float((served.argmax(-1) == teacher.argmax(-1)).float().mean()),
+            "dropped": {k: int(sum(d.item() for d in v)) for k, v in drops.items()},
+            "pinned_calls": len(flips),
+            "routing_flips": {"prefill": int(sum(f.item() for f in flips[:cfg.n_layers])),
+                              "decode": int(sum(f.item() for f in flips[cfg.n_layers:]))}}
+        del state, step_logits, served, teacher, diff, routes
+    del dropless
+    prof_state = engine.init_state(LM_BATCH)
+    prof_prefill = _profile(lambda: engine.prefill({"tokens": toks_d[:, :LM_PROMPT]}, prof_state))
+
+    def four_steps():
+        for t in range(4):
+            engine.decode(toks_d[:, LM_PROMPT + t:LM_PROMPT + t + 1], prof_state, LM_PROMPT + t)
+
+    prof_decode = _profile(four_steps)
+    _emit({"profile": "moe prefill (4 x 1,024 tokens)", **prof_prefill})
+    _emit({"profile": "moe decode (4 steps)", **prof_decode})
+    del prof_state
+    served, free = found["served"], found["dropless pinned"]
+    prefill_launches, decode_launches = served["prefill_launches"], served["decode_launches"]
+    scale, teacher_err = free["scale"], free["max_abs_diff"]
+    finite = served["finite"] and free["finite"]
+    new_tok = LM_BATCH * LM_NEW
+    assignments = LM_BATCH * cfg.experts_per_token * cfg.n_layers
+    row = {"row": "moe serve", "arch": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+           "experts": [cfg.n_experts, cfg.experts_per_token, cfg.d_ff_expert],
+           "vocab": cfg.vocab_size, "params": common.count_params(engine.params),
+           "active_params": cfg.active_params(), "dtype": "bfloat16", "cache_dtype": "float32",
+           "batch": LM_BATCH, "prompt": LM_PROMPT, "new_tokens": LM_NEW,
+           "capacity": [moe.capacity(LM_PROMPT, cfg), moe.capacity(1, cfg)],
+           "init_s": init_s, "first_generate_s": first_s,
+           "flash_launches": launches, "expected_launches": cfg.n_layers,
+           "prefill_launches": prefill_launches, "decode_launches": decode_launches,
+           "other_launches": sum(counts.values()) - launches,
+           "prefill_kernel_launches": prof_prefill["kernel_launches"],
+           "decode_kernel_launches_per_step": prof_decode["kernel_launches"] / 4,
+           "prefill_ms": tm["prefill_s"] * 1e3,
+           "decode_ms_per_token": tm["decode_s"] * 1e3 / tm["decode_steps"],
+           "generate_wall_ms": wall_s * 1e3, "new_tokens_per_s": new_tok / wall_s,
+           "decode_tokens_per_s": LM_BATCH * tm["decode_steps"] / tm["decode_s"],
+           "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / tm["prefill_s"],
+           "peak_memory_GB": peak_gb, "same_tokens_twice": bool(np.array_equal(tokens, again)),
+           "prefill_idle_share": prof_prefill["idle_share"],
+           "decode_idle_share": prof_decode["idle_share"],
+           "assignments": {"prefill": assignments * LM_PROMPT,
+                           "teacher": assignments * (LM_PROMPT + LM_NEW - 1)},
+           "dropped_assignments": served["dropped"],
+           "dropless_dropped_assignments": free["dropped"],
+           "pinned_calls": free["pinned_calls"], "routing_flips_pinned": free["routing_flips"],
+           "logits_finite": finite,
+           "teacher_max_abs_diff": teacher_err, "teacher_mean_abs_diff": free["mean_abs_diff"],
+           "teacher_logit_scale": scale, "teacher_tol": LM_TEACHER_TOL * scale,
+           "teacher_token_agreement": free["token_agreement"],
+           "served_config_teacher": {k: served[k] for k in (
+               "max_abs_diff", "mean_abs_diff", "scale", "token_agreement")},
+           "pinned_launches": [free["prefill_launches"], free["decode_launches"]]}
+    row["ok"] = (launches == cfg.n_layers and prefill_launches == cfg.n_layers
+                 and decode_launches == 0 and row["other_launches"] == 0 and finite
+                 and tokens.shape == (LM_BATCH, LM_PROMPT + LM_NEW)
+                 and free["dropped"] == {"prefill": 0, "teacher": 0}
+                 and free["pinned_calls"] == cfg.n_layers * LM_NEW
+                 and teacher_err <= LM_TEACHER_TOL * scale)
+    _emit(row)
+    if not row["ok"]:
+        failures.append(f"moe serve main path: {row}")
+    del engine, model, toks_d
+    torch.cuda.empty_cache()
+
+    # -- the card against the port's CPU path: full width, 2 layers, f32 ----------
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    _serve_cross_device("moe cross-device", cfg2, _matrices_at(
+        registry.get(cfg2).init(torch.Generator().manual_seed(seed), cfg2), 0.02, seed), rng,
+        failures)
+    return launches
+
+
+def _snapshot(params, opt_state) -> list:
+    """Copies of every parameter, moment and the step count, on the card."""
+    return ([p.detach().clone() for p in params.parameters()]
+            + [t.clone() for k in ("m", "v") for t in opt_state[k].values()]
+            + [opt_state["count"].clone()])
+
+
+def _live(params, opt_state) -> list:
+    return ([p.detach() for p in params.parameters()]
+            + [t for k in ("m", "v") for t in opt_state[k].values()] + [opt_state["count"]])
+
+
+def _moe_train(seed: int, failures: list[str]) -> tuple[int, int]:
+    """``train.loop.train`` on full-width, full-depth granite-moe (f32
+    master weights and moments, bf16 compute, remat) for TRAIN_STEPS steps,
+    the counters set to 0 just before and read just after (48 flash forward
+    launches a step, half of them the remat recompute; 24 backward calls);
+    one more step twice from one state, bitwise; a profiled step and the
+    gradient / optimizer split; one step's loss and gradients, the card
+    against the CPU at 2 layers in f32 (matrices at std 0.02), routing
+    equal; 4 steps straight
+    against 2 + checkpoint + restore + 2, bitwise.  Returns the flash
+    forward and backward launches of the training run."""
+    import dataclasses
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, PipelineState, TokenPipeline, make_train_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import common, moe, registry
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import loop, train_step
+
+    dev = torch.device("cuda")
+    cfg = get_config(MOE_ARCH)
+    opt = AdamWConfig(peak_lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+    tcfg = loop.TrainConfig(steps=TRAIN_STEPS, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                            log_every=1, seed=seed, opt=opt)
+    log_lines: list[str] = []
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = loop.train(cfg, tcfg, log=log_lines.append, device=dev)
+    wall_s = time.perf_counter() - t0
+    counts = _counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    fwd, bwd = counts[fa.LAUNCHES.name], counts[fa.BWD_LAUNCHES.name]
+    for line in log_lines:
+        print(f"moe train: {line}")
+    hist, step_ms = out["history"], out["step_ms"]
+    for h, ms in zip(hist, step_ms):
+        _emit({"moe_train_step": h["step"], "loss": h["loss"], "nll": h["nll"], "aux": h["aux"],
+               "grad_norm": h["grad_norm"], "lr": h["lr"], "step_ms": ms})
+    params, opt_state = out["params"], out["opt_state"]
+    del out
+    n_params = common.count_params(params)
+
+    # one more step twice from the same state: the same bits
+    step_fn = train_step.make_train_step(cfg, opt, q_chunk=512, kv_chunk=1024)
+    pipe = TokenPipeline(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=seed))
+    batch, _ = make_train_batch(pipe, PipelineState(step=TRAIN_STEPS), cfg, device=dev)
+    start = _snapshot(params, opt_state)
+    _, _, m1 = step_fn(params, opt_state, batch)
+    first = _snapshot(params, opt_state)
+    with torch.no_grad():
+        for t, s in zip(_live(params, opt_state), start):
+            t.copy_(s)
+    _, _, m2 = step_fn(params, opt_state, batch)
+    twice = (all(torch.equal(a, b) for a, b in zip(first, _live(params, opt_state)))
+             and all(torch.equal(m1[k], m2[k]) for k in m1))
+    _emit({"row": "moe train same bits twice", "arch": cfg.name, "tensors": len(first),
+           "loss": m1["loss"].item(), "bitwise": twice})
+    if not twice:
+        failures.append("moe train: one step twice from one state differs")
+    del start, first
+    torch.cuda.empty_cache()
+    # where the time goes: one more step under the profiler, then the split
+    prof = _profile(lambda: step_fn(params, opt_state, batch), top=10)
+    _emit({"profile": f"moe train step ({TRAIN_BATCH} x {TRAIN_SEQ} tokens)", **prof})
+    grad_fn = train_step.make_grad_fn(cfg, q_chunk=512, kv_chunk=1024)
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    marks[0].record()
+    grads, _ = grad_fn(params, batch)
+    marks[1].record()
+    adamw.update(grads, opt_state, params, opt)
+    marks[2].record()
+    torch.cuda.synchronize()
+    grad_ms, opt_ms = marks[0].elapsed_time(marks[1]), marks[1].elapsed_time(marks[2])
+    del params, opt_state, batch, step_fn, grads, grad_fn
+    torch.cuda.empty_cache()
+
+    losses, gnorms = [h["loss"] for h in hist], [h["grad_norm"] for h in hist]
+    nlls, auxs = [h["nll"] for h in hist], [h["aux"] for h in hist]
+    start_nll = math.log(cfg.vocab_size)
+    median_ms = float(np.median(step_ms[1:]))
+    steps = len(hist)
+    row = {"row": "moe train", "arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab_size, "params": n_params, "master_dtype": "float32",
+           "moment_dtype": opt.moment_dtype, "compute_dtype": cfg.dtype, "remat": True,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "capacity": moe.capacity(TRAIN_SEQ, cfg),
+           "steps": steps, "losses": losses, "nlls": nlls, "auxs": auxs, "grad_norms": gnorms,
+           "step_ms": step_ms, "step_ms_median_2_5": median_ms,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / median_ms * 1e3,
+           "split_grad_ms": grad_ms, "split_optimizer_ms": opt_ms,
+           "peak_memory_GB": peak_gb, "wall_s": wall_s,
+           "flash_launches": fwd, "flash_bwd_launches": bwd,
+           "flash_launches_per_step": fwd / steps, "flash_bwd_launches_per_step": bwd / steps,
+           "expected_per_step": [2 * cfg.n_layers, cfg.n_layers],
+           "other_launches": sum(counts.values()) - fwd - bwd,
+           "profiled_kernel_launches": prof["kernel_launches"],
+           "profiled_launches_by_class": prof["launches_by_class"],
+           "idle_share": prof["idle_share"], "start_nll_target": start_nll,
+           "start_nll_tol": TRAIN_START_TOL}
+    row["ok"] = (steps == TRAIN_STEPS and all(math.isfinite(x) for x in losses + gnorms + auxs)
+                 and abs(nlls[0] - start_nll) <= TRAIN_START_TOL
+                 and fwd == 2 * cfg.n_layers * steps and bwd == cfg.n_layers * steps
+                 and row["other_launches"] == 0)
+    _emit(row)
+    if not row["ok"]:
+        failures.append(f"moe train main path: {row}")
+
+    # -- one step's loss and gradients: the card against the CPU, 2 layers, f32 -------
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    _train_cross_device("moe train cross-device", cfg2, common.trainable(_matrices_at(
+        registry.get(cfg2).init(torch.Generator().manual_seed(seed), cfg2), 0.02, seed)), seed,
+        failures)
+
+    # -- resume: 4 steps straight against 2 + checkpoint + restore + 2, on the card ----
+    _resume_check("moe train resume", cfg2, seed, failures)
+    return fwd, bwd
+
+
+def _moe_yardsticks(rng, hw, failures: list[str]) -> None:
+    """The flash forward and backward at granite-moe's shapes (bf16, causal,
+    16/8 heads of 64): each against its plain version within
+    ``kernel_tolerance`` (the backward against each gradient's max, and
+    twice bitwise), then timed (eager calls; the kernels also in a CUDA
+    graph, where the wrapper's host cost does not show: at D=64 it is a
+    large part of an eager call) beside the plain version, SDPA (its
+    backward) and the bound."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import roofline
+    from repro_torch.kernels import flash_attention as fa
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    cfg = get_config(MOE_ARCH)
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    atol, rtol = fa.kernel_tolerance(bf16)
+
+    def normal(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev, bf16)
+
+    # the forward at the prefill shape
+    b, s = LM_BATCH, LM_PROMPT
+    q, k, v = normal(b, s, hq, d), normal(b, s, hkv, d), normal(b, s, hkv, d)
+    got, want = fa.flash_attention(q, k, v), fa.flash_attention_plain(q, k, v)
+    diff = (got.float() - want.float()).abs()
+    ok = bool(torch.isfinite(got.float()).all()) and bool(
+        (diff <= atol + rtol * want.float().abs()).all())
+    kernel_ms = _time_ms(lambda: fa.flash_attention(q, k, v), reps=20)
+    kernel_graph_ms = _graph_ms(lambda: fa.flash_attention(q, k, v))
+    plain_ms = _time_ms(lambda: fa.flash_attention_plain(q, k, v), reps=5, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    library_ms = _time_ms(sdpa, reps=20)
+    library_graph_ms = _graph_ms(sdpa)
+    bound = roofline.attention_bound(batch=b, sq=s, skv=s, hq=hq, hkv=hkv, d=d, dtype=bf16,
+                                     hw=hw) if hw is not None else None
+    executed = fa.executed_flops(b, s, s, hq, hkv, d)
+    _emit({"yardstick": f"flash_attention bf16 causal B={b} S={s} Hq={hq} Hkv={hkv} D={d}",
+           "max_abs_err": diff.max().item(), "atol": atol, "rtol": rtol, "ok": ok,
+           "kernel_ms": kernel_ms, "kernel_graph_ms": kernel_graph_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "library_graph_ms": library_graph_ms,
+           "library_call": "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)",
+           "flops": None if bound is None else bound.flops,
+           "bound_ms": None if bound is None else bound.bound_s * 1e3,
+           "bound_by": None if bound is None else bound.bound_by,
+           "kernel_TFLOPs": None if bound is None else bound.flops / kernel_ms / 1e9,
+           "bound_share": None if bound is None else bound.bound_s * 1e3 / kernel_ms,
+           "kernel_vs_library": kernel_ms / library_ms, "executed_flops": executed,
+           "executed_TFLOPs": executed / kernel_ms / 1e9})
+    if not ok:
+        failures.append(f"flash_attention vs plain at D={d} G={hq // hkv}: {diff.max().item()}")
+    del q, k, v, got, want, diff, qt, kt, vt
+
+    # the backward at the training shape
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    q, k, v, dout = normal(b, s, hq, d), normal(b, s, hkv, d), normal(b, s, hkv, d), \
+        normal(b, s, hq, d)
+    o, lse = fa._forward(q, k, v, causal=True, q_chunk=512, kv_chunk=1024, q_offset=0,
+                         with_lse=True)
+    got = fa.flash_attention_bwd(q, k, v, o, dout, lse)
+    again = fa.flash_attention_bwd(q, k, v, o, dout, lse)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, dout, lse, causal=True, q_chunk=512,
+                                        kv_chunk=1024)
+    shares = {}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        err, scale = (g.float() - w.float()).abs().max().item(), w.float().abs().max().item()
+        shares[name] = err / (atol + rtol * scale)
+    ok = (max(shares.values()) <= 1.0 and all(torch.equal(x, y) for x, y in zip(got, again))
+          and all(bool(torch.isfinite(g.float()).all()) for g in got))
+    kernel_ms = _time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, dout, lse), reps=50)
+    kernel_graph_ms = _graph_ms(lambda: fa.flash_attention_bwd(q, k, v, o, dout, lse))
+    plain_ms = _time_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, o, dout, lse), reps=3,
+                        warmup=1)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    o_lib = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                             enable_gqa=True)
+    sdpa_bwd = lambda: torch.autograd.grad(o_lib, (qt, kt, vt), dout.transpose(1, 2),  # noqa: E731
+                                           retain_graph=True)
+    library_ms = _time_ms(sdpa_bwd, reps=50)
+    bound = roofline.attention_bwd_bound(batch=b, sq=s, skv=s, hq=hq, hkv=hkv, d=d, dtype=bf16,
+                                         hw=hw) if hw is not None else None
+    executed = fa.bwd_executed_flops(b, s, s, hq, hkv, d)
+    _emit({"yardstick": f"flash_attention_bwd bf16 causal B={b} S={s} Hq={hq} Hkv={hkv} D={d}",
+           "share_of_limit": shares, "bitwise_twice": all(
+               torch.equal(x, y) for x, y in zip(got, again)), "ok": ok,
+           "kernel_ms": kernel_ms, "kernel_graph_ms": kernel_graph_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms,
+           "timing": "*_ms: eager calls; kernel_graph_ms: CUDA graph of 20 calls",
+           "library_call": "backward of F.scaled_dot_product_attention(is_causal=True, "
+                           "enable_gqa=True) (torch.autograd.grad)",
+           "flops": None if bound is None else bound.flops,
+           "bound_ms": None if bound is None else bound.bound_s * 1e3,
+           "bound_by": None if bound is None else bound.bound_by,
+           "kernel_TFLOPs": None if bound is None else bound.flops / kernel_ms / 1e9,
+           "bound_share": None if bound is None else bound.bound_s * 1e3 / kernel_ms,
+           "kernel_vs_library": kernel_ms / library_ms, "executed_flops": executed,
+           "executed_TFLOPs": executed / kernel_ms / 1e9})
+    if not ok:
+        failures.append(f"flash_attention_bwd vs plain at D={d} G={hq // hkv}: {shares}")
 
 
 MULTISLAB_FORMS = [  # (label, hosts, layout, dtype, accum, compression)

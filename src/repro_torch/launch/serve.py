@@ -2,7 +2,12 @@
 config of an architecture with random weights:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b --device cuda
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-1b-a400m --device cuda
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --device cpu
+
+The dense and MoE families run (granite-moe-1b-a400m: 32 experts, top-8
+softmax routing); MLA (deepseek-v3) and the hybrid, SSM and whisper
+families raise, naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 

@@ -2,10 +2,13 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b --steps 300 \\
         --checkpoint-dir /tmp/ckpt
+    PYTHONPATH=src python -m repro_torch.launch.train --arch granite-moe-1b-a400m \\
+        --full-config --steps 5 --seq-len 1024 --global-batch 2
 
 Single-process entry point around ``train.loop`` on one card (``--device cpu``
 runs the plain versions on the CPU); without ``--full-config`` it trains
-the architecture's reduced config.
+the architecture's reduced config.  The dense and MoE families train (the
+MoE balance loss enters the loss with weight 0.01, as in the reference).
 """
 from __future__ import annotations
 

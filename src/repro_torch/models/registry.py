@@ -3,8 +3,9 @@ of reference weights (port of ``repro.models.registry``).
 
 ``registry.get(cfg)`` returns a :class:`ModelApi` with
 spec/init/loss_fn/prefill/decode_step/init_state.  The decoder-only
-transformer families are served; whisper, zamba and xlstm raise, naming
-the ROADMAP item that brings them.
+transformer families (dense, MoE, the VLM stub) are served and trained;
+MLA attention (deepseek-v3), whisper, zamba and xlstm raise, naming the
+ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -99,7 +100,7 @@ def params_from_reference(
         cfg: the architecture.
         tree: the reference's parameter tree (``transformer.init``'s nested
             dict) with numpy arrays at the leaves; the stacked ``layers``
-            leaves are split per layer.
+            and ``moe_layers`` leaves are split per layer.
         dtype: the port's parameter dtype; None keeps each array's dtype.
         device: where the port's parameters live.
 
@@ -129,9 +130,9 @@ def params_to_reference(
     cfg: ModelConfig, params: torch.nn.Module | dict[str, torch.Tensor],
 ) -> dict[str, Any]:
     """The inverse of :func:`params_from_reference`: the reference's tree
-    (``transformer.spec``'s nested dict, the per-layer leaves stacked over a
-    leading ``(n_layers,)`` dim in layer order) with numpy arrays at the
-    leaves.
+    (``transformer.spec``'s nested dict, each stack's per-layer leaves,
+    ``layers`` and ``moe_layers``, stacked over a leading layer dim in
+    layer order) with numpy arrays at the leaves.
 
     Args:
         cfg: the architecture.
@@ -147,9 +148,11 @@ def params_to_reference(
     named = dict(params.named_parameters()) if isinstance(params, torch.nn.Module) else dict(params)
     out: dict[str, Any] = {}
     used = set()
+    stacks = transformer.stack_sizes(cfg)
     for path, s in common.tree_leaves(get(cfg).spec(cfg)):
-        if path[0] == "layers":
-            names = [".".join(("layers", str(i)) + path[1:]) for i in range(cfg.n_layers)]
+        stacked = path[0] in stacks
+        if stacked:
+            names = [".".join((path[0], str(i)) + path[1:]) for i in range(stacks[path[0]])]
         else:
             names = [".".join(path)]
         missing = [n for n in names if n not in named]
@@ -157,7 +160,7 @@ def params_to_reference(
             raise ValueError(f"{cfg.name}: no leaf named {missing[0]}")
         leaves = [named[n].detach().to("cpu", torch.float32 if named[n].dtype == torch.bfloat16
                                        else named[n].dtype).numpy() for n in names]
-        x = np.stack(leaves) if path[0] == "layers" else leaves[0]
+        x = np.stack(leaves) if stacked else leaves[0]
         if tuple(x.shape) != s.shape:
             raise ValueError(f"{'/'.join(path)}: port shape {x.shape}, spec {s.shape}")
         common.tree_set(out, path, x)

@@ -51,8 +51,8 @@ def train(
 
     Returns ``params`` and ``opt_state`` (on the device), ``losses`` (the
     loss at each logged step, as the reference), ``final_loss``, and the
-    steps this call ran: ``history`` (per step: ``step``, ``loss``,
-    ``grad_norm``, ``lr``) and ``step_ms`` (between CUDA events on the
+    steps this call ran: ``history`` (per step: ``step``, ``loss``, ``nll``,
+    ``aux``, ``grad_norm``, ``lr``) and ``step_ms`` (between CUDA events on the
     card, the host clock on the CPU).
     """
     dev = resolve_device(device)
@@ -85,7 +85,7 @@ def train(
         t0 = _clock(dev)
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         clocks.append((t0, _clock(dev)))
-        steps.append((step + 1, {k: metrics[k] for k in ("loss", "grad_norm", "lr")}))
+        steps.append((step + 1, {k: metrics[k] for k in ("loss", "nll", "aux", "grad_norm", "lr")}))
         if (step + 1) % tcfg.log_every == 0 or step == tcfg.steps - 1:
             loss = float(metrics["loss"])
             losses.append(loss)
