@@ -59,6 +59,16 @@ source, started together) and, at the paper's L=32 lattice:
     layers with equal routing; resume bitwise); then the flash forward and
     backward at its head dim 64 and G = 2 against their plain versions,
     timed beside SDPA and their bounds;
+  * the MLA phase, last: the flash kernel at (D, Dv) = (192, 128) against
+    its plain version in six forms (bf16 and f32, causal and not, ragged,
+    q_offset); ``ServeEngine`` on full-width deepseek-v3-671b cut to its 3
+    leading dense layers and 1 MoE layer (+ MTP; 15.8 B parameters, bf16,
+    matrices at std 0.02) over 4 x 1,024 prompt tokens + 32 greedy tokens
+    (4 flash launches in prefill, none in decode; decode against a
+    dropless teacher-forced forward with expert choices pinned); the card
+    against the CPU at 2 dense layers of full width in f32 and at the
+    reduced config with deepseek-v3's head dims (routing equal); the
+    kernel at the prefill shape beside SDPA and its bound;
   * times each kernel against its bound, its plain version and, where one
     PyTorch call computes the same function, that call (every time in the
     kernels line from eager calls; the flash kernel and SDPA also in a CUDA
@@ -74,7 +84,8 @@ It prints:
     and mask), which must run wgmma too;
   * one JSON line per check, per main-path row and per yardstick;
   * a ``{"kernels": [...]}`` line with each ported kernel's numbers (the
-    flash backward beside the forward);
+    flash backward beside the forward, and the forward's (192, 128)
+    instantiation with its own launches) and the total wall time;
   * last, ``{"ok": true, "device": {...}}`` — only if every phase passed.
 
 The whole output is over 20 KB; where only the end of a log is kept, run
@@ -159,6 +170,21 @@ BWD_FORMS = [  # (label, batch, sq, skv, hq, hkv, d, causal, q_offset, dtype)
     ("G=4 D=128 bf16 causal dout strided", 1, 512, 512, 16, 4, 128, True, 0, "bfloat16"),
 ]
 BWD_TC_KERNELS = ("flash_bwd_dkdv_tc", "flash_bwd_dq_tc")  # the bf16 backward's wgmma kernels
+# the MLA phase: deepseek-v3 at full width (d_model 7,168, 128 heads, q_lora
+# 1,536, kv_lora 512, qk head 128 + 64, v head 128, 256 experts top-8 sigmoid
+# aux-free + 1 shared of d_ff 2,048, dense d_ff 18,432, vocab 129,280),
+# cut from 61 layers to its 3 leading dense layers and 1 MoE layer (+ MTP)
+MLA_ARCH = "deepseek-v3-671b"
+MLA_LAYERS = 4
+MLA_REDUCED = {"n_layers": "61 -> 4: 671 B parameters do not fit one card"}
+MLA_FORMS = [  # (label, batch, sq, skv, heads, causal, q_offset, dtype): D=192, Dv=128, G=1
+    ("prefill shape bf16 causal", 4, 1024, 1024, 128, True, 0, "bfloat16"),
+    ("f32 causal", 1, 512, 512, 16, True, 0, "float32"),
+    ("ragged Sq<Skv bf16 non-causal", 2, 200, 333, 8, False, 0, "bfloat16"),
+    ("ragged 333 f32 non-causal", 1, 333, 333, 8, False, 0, "float32"),
+    ("q_offset 1024 bf16", 2, 64, 1088, 16, True, 1024, "bfloat16"),
+    ("ragged q_offset 200 f32", 1, 100, 300, 8, True, 200, "float32"),
+]
 FLASH_FORMS = [  # (label, batch, sq, skv, hq, hkv, d, causal, q_offset, dtype)
     ("main path bf16 causal", 4, 1024, 1024, 32, 8, 128, True, 0, "bfloat16"),
     ("main path f32 causal", 4, 1024, 1024, 32, 8, 128, True, 0, "float32"),
@@ -315,6 +341,7 @@ def main(argv: list[str] | None = None) -> int:
     from repro_torch.core.su3.plan import verify_tolerance
     from repro_torch.kernels import _build, flash_attention, su3_matmul, su3_stencil
 
+    t_start = time.perf_counter()
     failures: list[str] = []
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -366,19 +393,24 @@ def main(argv: list[str] | None = None) -> int:
                            "threads_per_block", "blocks_per_sm", "occupancy"], "forms": forms})
     flash_forms = []
     for dtype, body in (("float32", "cuda cores"), ("bfloat16", "tensor cores")):
-        for d in flash_attention.HEAD_DIMS:
+        for d, dv in flash_attention.HEAD_DIMS:
             for causal in (True, False):
-                b = flash_attention.kernel_budget(getattr(torch, dtype), d, causal)
-                flash_forms.append([body, dtype, d, causal, b["num_regs"], b["local_bytes"],
+                dt = getattr(torch, dtype)
+                b = flash_attention.kernel_budget(dt, d, causal, dv=dv)
+                flash_forms.append([body, dtype, d, dv, causal, b["num_regs"], b["local_bytes"],
                                     b["shared_bytes"], b["threads_per_block"],
-                                    b["blocks_per_sm"], b["occupancy"]])
+                                    b["blocks_per_sm"], b["occupancy"],
+                                    list(flash_attention.tiling(dt, d, dv))])
+                if b["local_bytes"] or b["blocks_per_sm"] < 1:
+                    failures.append(f"flash_attention {dtype} (D, Dv) = ({d}, {dv}): {b}")
     _emit({"kernel_budget": "flash_attention",
-           "columns": ["body", "dtype", "head_dim", "causal", "num_regs", "local_bytes",
-                       "shared_bytes", "threads_per_block", "blocks_per_sm", "occupancy"],
+           "columns": ["body", "dtype", "head_dim", "v_head_dim", "causal", "num_regs",
+                       "local_bytes", "shared_bytes", "threads_per_block", "blocks_per_sm",
+                       "occupancy", "tiling_rows_keys_stages"],
            "forms": flash_forms})
     bwd_forms = []
     for dtype in ("float32", "bfloat16"):
-        for d in flash_attention.HEAD_DIMS:
+        for d in flash_attention.BWD_HEAD_DIMS:
             for causal in (True, False):
                 for kname, b in flash_attention.bwd_budget(getattr(torch, dtype), d,
                                                             causal).items():
@@ -405,7 +437,7 @@ def main(argv: list[str] | None = None) -> int:
     _emit({"sass": "flash_attention_bwd bf16", "HGMMA_per_function": {
         kname: sorted(found.values()) for kname, found in bwd_hgmma.items()}})
     for kname, found in bwd_hgmma.items():
-        if len(found) != 2 * len(flash_attention.HEAD_DIMS) or not all(found.values()):
+        if len(found) != 2 * len(flash_attention.BWD_HEAD_DIMS) or not all(found.values()):
             failures.append(f"flash_attention_bwd: {kname} lacks HGMMA or instantiations: {found}")
 
     # -- 3. kernel vs plain version on random SU(3) links, L=32 --------------------
@@ -595,6 +627,10 @@ def main(argv: list[str] | None = None) -> int:
     flash_bwd["moe_train_launches"] = moe_launches["train_bwd"]
     flash_bwd["launches"] += moe_launches["train_bwd"]
 
+    # -- 5e. the MLA phase: deepseek-v3 served, the kernel at (D, Dv) = (192, 128) ------
+    torch.cuda.empty_cache()
+    flash_mla = _mla_phase(args.seed, hw, failures)
+
     # -- 6. the kernels line -----------------------------------------------------------
     _emit({"kernels": [{
         "name": "su3_mult_planar", "route": "cuda", "source": KERNEL_SOURCE,
@@ -617,7 +653,11 @@ def main(argv: list[str] | None = None) -> int:
     }, {
         "name": "flash_attention_bwd", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": BWD_SOURCE_LINE, **flash_bwd,
+    }, {
+        "name": "flash_attention (D=192, Dv=128)", "route": "cuda", "source": FLASH_SOURCE,
+        "replaces": FLASH_REPLACES, **flash_mla,
     }]})
+    _emit({"phase": "total", "seconds": time.perf_counter() - t_start})
 
     print(card)  # again, next to the results (the first lines may scroll away)
     if failures:
@@ -1873,18 +1913,20 @@ def _matrices_at(model, std: float, seed: int):
         for p in model.parameters():
             if p.dim() >= 2:
                 gen = torch.Generator(device=p.device).manual_seed(seed)
-                p.copy_(torch.randn(p.shape, generator=gen, device=p.device) * std)
+                p.copy_(torch.randn(p.shape, generator=gen, device=p.device).mul_(std))
                 seed += 1
     return model
 
 
 def _pinned_routes(routes: list, n_layers: int, flips: list):
-    """A wrapper of ``moe._route`` (softmax routing) that takes each call's
-    expert choices from ``routes``, a teacher-forced pass's (B, S, k)
-    indices per layer: the calls run layer by layer, first a prefill of
+    """A wrapper of ``moe._route`` that takes each call's expert choices
+    from ``routes``, a teacher-forced pass's (B, S, k) indices per MoE layer
+    (``n_layers`` of them): the calls run layer by layer, first a prefill of
     LM_PROMPT tokens, then one token a step.  The weights are the call's
-    own router probabilities at those choices; ``flips`` gets each call's
-    count of tokens whose own top-k differs."""
+    own router's at those choices (softmax probabilities, or sigmoid scores
+    under aux-free routing), normalized over the k, as ``moe._route``
+    weighs its own; ``flips`` gets each call's count of tokens whose own
+    top-k differs."""
     import itertools
 
     import torch
@@ -1898,8 +1940,9 @@ def _pinned_routes(routes: list, n_layers: int, flips: list):
             start = 0 if step == 0 else LM_PROMPT + step - 1
             want = routes[layer][:, start:start + x.shape[1]]
             flips.append((idx != want).any(-1).sum())
-            probs = torch.softmax(torch.matmul(x.float(), params["router"].float()), dim=-1)
-            top = torch.gather(probs, -1, want)
+            logits = torch.matmul(x.float(), params["router"].float())
+            scores = torch.sigmoid(logits) if cfg.router_aux_free else torch.softmax(logits, -1)
+            top = torch.gather(scores, -1, want)
             w = top / torch.clamp_min(torch.sum(top, dim=-1, keepdim=True), 1e-9)
             return w.to(x.dtype), want, aux
         return pinned
@@ -1925,24 +1968,17 @@ def _moe_phase(seed: int, hw, failures: list[str]) -> dict[str, int]:
 
 def _moe_serve(seed: int, rng, failures: list[str]) -> int:
     """``ServeEngine`` on full-width granite-moe (random bf16 weights from
-    the seed, f32 KV cache) over 4 x 1,024-token prompts + 32 greedy tokens,
-    the flash counter set to 0 just before and read just after (24 launches
-    in prefill, 0 in decode); decode logits against a teacher-forced
-    forward on the same weights with capacity for every assignment and the
-    decode path's expert choices pinned to the teacher's (the served
-    config's difference, the capacity drops of both passes and the routing
-    flips printed beside it); the card against the port's CPU path at 2
-    layers in f32, routing equal.  Matrices at std 0.02 (``_matrices_at``).
-    Returns the flash launches of the served generate."""
+    the seed, matrices at std 0.02 (``_matrices_at``), f32 KV cache) through
+    ``_serve_routed``, the dropless teacher at capacity factor E/k (every
+    expert holds a whole group); then the card against the port's CPU path
+    at 2 layers in f32, routing equal.  Returns the flash launches of the
+    served generate."""
     import dataclasses
 
-    import numpy as np
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.models import common, moe, registry, transformer
-    from repro_torch.serve.engine import ServeConfig, ServeEngine
+    from repro_torch.models import registry
 
     dev = torch.device("cuda")
     cfg = get_config(MOE_ARCH)
@@ -1950,7 +1986,56 @@ def _moe_serve(seed: int, rng, failures: list[str]) -> int:
     model = _matrices_at(registry.get(cfg).init(torch.Generator(device=dev).manual_seed(seed),
                                                 cfg, torch.bfloat16), 0.02, seed)
     torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+    launches, _ = _serve_routed(
+        "moe", cfg, model, rng, failures,
+        lambda routes: cfg.n_experts / cfg.experts_per_token,
+        {"heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+         "init_s": time.perf_counter() - t0})
+    del model
+    torch.cuda.empty_cache()
+
+    # -- the card against the port's CPU path: full width, 2 layers, f32 ----------
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    _serve_cross_device("moe cross-device", cfg2, _matrices_at(
+        registry.get(cfg2).init(torch.Generator().manual_seed(seed), cfg2), 0.02, seed), rng,
+        failures)
+    return launches
+
+
+def _busiest_expert(routes: list, cfg) -> int:
+    """The most assignments any expert takes in any group (batch row) of
+    any MoE layer, over ``routes`` ((B, S, k) choices per layer)."""
+    import torch
+
+    return max(int(torch.stack([torch.bincount(row.reshape(-1), minlength=cfg.n_experts)
+                                for row in r]).max()) for r in routes)
+
+
+def _serve_routed(tag: str, cfg, model, rng, failures: list[str], free_factor,
+                  extra: dict) -> tuple[int, dict]:
+    """``ServeEngine`` on ``model`` (an MoE model on the card; ``cfg`` with its
+    served capacity factor) over 4 x 1,024-token prompts + 32 greedy
+    tokens, the flash counter set to 0 just before and read just after
+    (one launch per layer in prefill, 0 in decode); decode logits against a
+    teacher-forced forward on the same weights, with capacity for every
+    assignment and the decode path's expert choices pinned to the
+    teacher's (the served config's difference, the capacity drops of both
+    passes and the routing flips printed beside it); a profile of one
+    prefill and 4 decode steps.  ``free_factor(routes)`` gives the
+    dropless capacity factor from the served teacher pass's routes.
+    Emits the ``"{tag} serve"`` row (``extra`` merged in) and returns
+    (flash launches of the served generate, the row)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import common, moe, transformer
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    dev = torch.device("cuda")
+    n_moe = transformer.stack_sizes(cfg)["moe_layers"]
     engine = ServeEngine(cfg, model, ServeConfig(max_len=LM_MAX_LEN), device=dev)
     prompts = rng.integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), dtype=np.int32)
     torch.cuda.synchronize()
@@ -1971,25 +2056,29 @@ def _moe_serve(seed: int, rng, failures: list[str]) -> int:
     # steps, each counted from 0), with the capacity drops of both passes
     # counted.  Two things differ between the paths besides what the check
     # is for (the cache, the positions, the kernels):
-    # * capacity is per group: 320 slots an expert in the 1,024-token
-    #   prefill, 330 in the 1,055-token teacher pass, 1 (never full) in
-    #   decode, so wherever an expert overflows the paths drop different
-    #   assignments;
+    # * capacity is per group: at the served factor 1.25 the 1,024-token
+    #   prefill, the 1,055-token teacher pass and decode (1 slot, never
+    #   full) hold different slots per expert, so wherever an expert
+    #   overflows the paths drop different assignments;
     # * bf16 rounds the router's inputs otherwise in the two paths, and a
-    #   token whose 8th and 9th experts nearly tie changes expert.
+    #   token whose k-th and (k+1)-th experts nearly tie changes expert.
     # The check is held on the same weights with capacity for every
-    # assignment (capacity factor E / k: no pass drops one) and each decode
-    # call's expert choices pinned to the teacher pass's (weights from its
-    # own router); the flips that pinning undid, and the served config's
-    # own difference, are printed beside it.
+    # assignment (``free_factor``: no pass drops one) and each decode call's
+    # expert choices pinned to the teacher pass's (weights from its own
+    # router); the flips that pinning undid, and the served config's own
+    # difference, are printed beside it.
     toks_d = torch.from_numpy(tokens).to(dev)
-    dropless = ServeEngine(dataclasses.replace(cfg, capacity_factor=cfg.n_experts
-                                               / cfg.experts_per_token),
-                           engine.params, ServeConfig(max_len=LM_MAX_LEN), device=dev)
-    found = {}
-    for name, eng in (("served", engine), ("dropless pinned", dropless)):
+    found: dict = {}
+    served_routes: list = []
+    for name in ("served", "dropless pinned"):
+        if name == "served":
+            eng = engine
+        else:
+            free_cfg = dataclasses.replace(cfg, capacity_factor=free_factor(served_routes))
+            eng = ServeEngine(free_cfg, engine.params, ServeConfig(max_len=LM_MAX_LEN),
+                              device=dev)
         drops: dict[str, list] = {"prefill": [], "teacher": []}
-        routes: list = []
+        routes: list = served_routes if name == "served" else []
         with _wrapped(moe, "_dispatch_indices", _counting_drops(drops["teacher"])), \
                 _wrapped(moe, "_route", _recording_routes(routes)):
             x, _, _ = transformer.forward(eng.params, {"tokens": toks_d[:, :-1]}, eng.cfg,
@@ -1997,8 +2086,8 @@ def _moe_serve(seed: int, rng, failures: list[str]) -> int:
         teacher = transformer._logits(eng.params, x[:, LM_PROMPT - 1:], eng.cfg).float()
         del x
         flips: list = []
-        pin = (_wrapped(moe, "_route", _pinned_routes(routes, cfg.n_layers, flips))
-               if eng is dropless else contextlib.nullcontext())
+        pin = (_wrapped(moe, "_route", _pinned_routes(routes, n_moe, flips))
+               if eng is not engine else contextlib.nullcontext())
         state = eng.init_state(LM_BATCH)
         with pin:
             _reset_counts()
@@ -2017,6 +2106,9 @@ def _moe_serve(seed: int, rng, failures: list[str]) -> int:
         served = torch.cat(step_logits, dim=1).float()  # (B, 32, V): positions 1023 .. 1054
         diff = torch.abs(served - teacher)
         found[name] = {
+            "capacity_factor": eng.cfg.capacity_factor,
+            "capacity": [moe.capacity(LM_PROMPT, eng.cfg),
+                         moe.capacity(LM_PROMPT + LM_NEW - 1, eng.cfg), moe.capacity(1, eng.cfg)],
             "prefill_launches": prefill_launches, "decode_launches": decode_launches,
             "finite": bool(torch.isfinite(served).all()) and bool(torch.isfinite(teacher).all()),
             "max_abs_diff": diff.max().item(), "mean_abs_diff": diff.mean().item(),
@@ -2024,10 +2116,11 @@ def _moe_serve(seed: int, rng, failures: list[str]) -> int:
             "token_agreement": float((served.argmax(-1) == teacher.argmax(-1)).float().mean()),
             "dropped": {k: int(sum(d.item() for d in v)) for k, v in drops.items()},
             "pinned_calls": len(flips),
-            "routing_flips": {"prefill": int(sum(f.item() for f in flips[:cfg.n_layers])),
-                              "decode": int(sum(f.item() for f in flips[cfg.n_layers:]))}}
-        del state, step_logits, served, teacher, diff, routes
-    del dropless
+            "routing_flips": {"prefill": int(sum(f.item() for f in flips[:n_moe])),
+                              "decode": int(sum(f.item() for f in flips[n_moe:]))}}
+        del state, step_logits, served, teacher, diff, eng
+    del served_routes
+    torch.cuda.empty_cache()
     prof_state = engine.init_state(LM_BATCH)
     prof_prefill = _profile(lambda: engine.prefill({"tokens": toks_d[:, :LM_PROMPT]}, prof_state))
 
@@ -2036,23 +2129,23 @@ def _moe_serve(seed: int, rng, failures: list[str]) -> int:
             engine.decode(toks_d[:, LM_PROMPT + t:LM_PROMPT + t + 1], prof_state, LM_PROMPT + t)
 
     prof_decode = _profile(four_steps)
-    _emit({"profile": "moe prefill (4 x 1,024 tokens)", **prof_prefill})
-    _emit({"profile": "moe decode (4 steps)", **prof_decode})
+    _emit({"profile": f"{tag} prefill (4 x 1,024 tokens)", **prof_prefill})
+    _emit({"profile": f"{tag} decode (4 steps)", **prof_decode})
     del prof_state
     served, free = found["served"], found["dropless pinned"]
     prefill_launches, decode_launches = served["prefill_launches"], served["decode_launches"]
     scale, teacher_err = free["scale"], free["max_abs_diff"]
     finite = served["finite"] and free["finite"]
     new_tok = LM_BATCH * LM_NEW
-    assignments = LM_BATCH * cfg.experts_per_token * cfg.n_layers
-    row = {"row": "moe serve", "arch": cfg.name, "n_layers": cfg.n_layers,
-           "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+    assignments = LM_BATCH * cfg.experts_per_token * n_moe
+    row = {"row": f"{tag} serve", "arch": cfg.name, "n_layers": cfg.n_layers,
+           "moe_layers": n_moe, "d_model": cfg.d_model, **extra,
            "experts": [cfg.n_experts, cfg.experts_per_token, cfg.d_ff_expert],
            "vocab": cfg.vocab_size, "params": common.count_params(engine.params),
            "active_params": cfg.active_params(), "dtype": "bfloat16", "cache_dtype": "float32",
            "batch": LM_BATCH, "prompt": LM_PROMPT, "new_tokens": LM_NEW,
            "capacity": [moe.capacity(LM_PROMPT, cfg), moe.capacity(1, cfg)],
-           "init_s": init_s, "first_generate_s": first_s,
+           "first_generate_s": first_s,
            "flash_launches": launches, "expected_launches": cfg.n_layers,
            "prefill_launches": prefill_launches, "decode_launches": decode_launches,
            "other_launches": sum(counts.values()) - launches,
@@ -2069,6 +2162,8 @@ def _moe_serve(seed: int, rng, failures: list[str]) -> int:
            "assignments": {"prefill": assignments * LM_PROMPT,
                            "teacher": assignments * (LM_PROMPT + LM_NEW - 1)},
            "dropped_assignments": served["dropped"],
+           "dropless_capacity_factor": free["capacity_factor"],
+           "dropless_capacity": free["capacity"],
            "dropless_dropped_assignments": free["dropped"],
            "pinned_calls": free["pinned_calls"], "routing_flips_pinned": free["routing_flips"],
            "logits_finite": finite,
@@ -2082,20 +2177,14 @@ def _moe_serve(seed: int, rng, failures: list[str]) -> int:
                  and decode_launches == 0 and row["other_launches"] == 0 and finite
                  and tokens.shape == (LM_BATCH, LM_PROMPT + LM_NEW)
                  and free["dropped"] == {"prefill": 0, "teacher": 0}
-                 and free["pinned_calls"] == cfg.n_layers * LM_NEW
+                 and free["pinned_calls"] == n_moe * LM_NEW
                  and teacher_err <= LM_TEACHER_TOL * scale)
     _emit(row)
     if not row["ok"]:
-        failures.append(f"moe serve main path: {row}")
-    del engine, model, toks_d
+        failures.append(f"{tag} serve main path: {row}")
+    del engine, toks_d
     torch.cuda.empty_cache()
-
-    # -- the card against the port's CPU path: full width, 2 layers, f32 ----------
-    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
-    _serve_cross_device("moe cross-device", cfg2, _matrices_at(
-        registry.get(cfg2).init(torch.Generator().manual_seed(seed), cfg2), 0.02, seed), rng,
-        failures)
-    return launches
+    return launches, row
 
 
 def _snapshot(params, opt_state) -> list:
@@ -2337,6 +2426,136 @@ def _moe_yardsticks(rng, hw, failures: list[str]) -> None:
            "executed_TFLOPs": executed / kernel_ms / 1e9})
     if not ok:
         failures.append(f"flash_attention_bwd vs plain at D={d} G={hq // hkv}: {shares}")
+
+
+def _mla_phase(seed: int, hw, failures: list[str]) -> dict:
+    """MLA on the card.  The flash kernel at (D, Dv) = (192, 128) against its
+    plain version in MLA_FORMS; ``ServeEngine`` on full-width deepseek-v3
+    cut to MLA_LAYERS layers (``_serve_routed``: 4 flash launches in
+    prefill, 0 in decode; the dropless teacher at the least capacity factor
+    that holds the busiest expert of the served teacher pass, whose one MoE
+    layer routes alike at any capacity; E/k would give every expert 1,055
+    slots a group, a 15 GB dispatch buffer); the card against the CPU at 2
+    dense layers of full width in f32, and on the reduced config with
+    deepseek-v3's head dims (MLA, sigmoid routing, a shared expert),
+    routing equal; the kernel's yardsticks at the prefill shape.  Returns
+    the instantiation's entry of the kernels line."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import roofline
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import mla, registry
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 20)
+
+    def normal(shape, dt):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev, dt)
+
+    # -- the kernel against its plain version -------------------------------------------
+    worst = 0.0
+    for label, b, sq, skv, h, causal, q_offset, dtype in MLA_FORMS:
+        dt = getattr(torch, dtype)
+        q, k, v = normal((b, sq, h, 192), dt), normal((b, skv, h, 192), dt), \
+            normal((b, skv, h, 128), dt)
+        got = fa.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+        want = fa.flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset)
+        torch.cuda.synchronize()
+        atol, rtol = fa.kernel_tolerance(dt)
+        diff = torch.abs(got.float() - want.float())
+        err = diff.max().item()
+        ok = (got.shape == (b, sq, h, 128) and bool(torch.isfinite(got.float()).all())
+              and bool((diff <= atol + rtol * torch.abs(want.float())).all()))
+        worst = max(worst, err)
+        _emit({"check": "kernel_vs_plain", "kernel": "flash_attention", "form": f"mla {label}",
+               "shape": [b, sq, skv, h, h, 192, 128], "causal": causal, "q_offset": q_offset,
+               "dtype": dtype, "max_abs_err": err, "atol": atol, "rtol": rtol, "ok": ok})
+        if not ok:
+            failures.append(f"flash_attention (192, 128) vs plain {label}: err {err}")
+        del q, k, v, got, want, diff
+
+    # -- the main path: full width, 3 dense + 1 MoE layer -----------------------------------
+    cfg = dataclasses.replace(get_config(MLA_ARCH), n_layers=MLA_LAYERS)
+    print(f"reduced: {json.dumps(MLA_REDUCED)}")
+    t0 = time.perf_counter()
+    model = _matrices_at(registry.get(cfg).init(torch.Generator(device=dev).manual_seed(seed),
+                                                cfg, torch.bfloat16), 0.02, seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    launches, _ = _serve_routed(
+        "mla", cfg, model, rng, failures,
+        lambda routes: _busiest_expert(routes, cfg) * cfg.n_experts
+        / (LM_PROMPT * cfg.experts_per_token),
+        {"mla": {"q_lora": cfg.q_lora_rank, "kv_lora": cfg.kv_lora_rank,
+                 "qk_head": [cfg.qk_nope_head_dim, cfg.qk_rope_head_dim],
+                 "v_head": cfg.v_head_dim, "heads": cfg.n_heads},
+         "dense_layers": cfg.n_dense_layers, "d_ff": cfg.d_ff, "reduced": MLA_REDUCED,
+         "init_s": init_s})
+    del model
+    torch.cuda.empty_cache()
+
+    # -- the card against the port's CPU path: full width, 2 dense layers, f32 ----------
+    # (the weights are drawn on the card, which is fast, and copied to the CPU)
+    cfg2 = dataclasses.replace(cfg, n_layers=2, n_dense_layers=2, dtype="float32")
+    _serve_cross_device("mla cross-device", cfg2, _matrices_at(
+        registry.get(cfg2).init(torch.Generator(device=dev).manual_seed(seed), cfg2), 0.02, seed),
+        rng, failures)
+    torch.cuda.empty_cache()
+    # and the MoE structure (MLA + a dense layer + 3 sigmoid-routed MoE layers with
+    # a shared expert) at the reduced widths with the kernel's head dims
+    cfg3 = mla.with_kernel_heads(get_config(MLA_ARCH).reduced())
+    _serve_cross_device("mla cross-device reduced", cfg3, _matrices_at(
+        registry.get(cfg3).init(torch.Generator().manual_seed(seed), cfg3), 0.02, seed), rng,
+        failures)
+
+    # -- yardsticks at the prefill shape ------------------------------------------------
+    b, s, h = LM_BATCH, LM_PROMPT, cfg.n_heads
+    d, dv = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, cfg.v_head_dim
+    bf16 = torch.bfloat16
+    q, k, v = normal((b, s, h, d), bf16), normal((b, s, h, d), bf16), normal((b, s, h, dv), bf16)
+    kernel_ms = _time_ms(lambda: fa.flash_attention(q, k, v), reps=20)
+    kernel_graph_ms = _graph_ms(lambda: fa.flash_attention(q, k, v))
+    plain_ms = _time_ms(lambda: fa.flash_attention_plain(q, k, v), reps=3, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=True)
+    library = {"library_ms": None, "library_graph_ms": None, "library_backend": None,
+               "library_max_abs_diff": None, "library_refused": None}
+    try:
+        out_lib = sdpa()
+    except RuntimeError as e:  # SDPA may refuse a value head other than the key head's
+        library["library_refused"] = str(e)[:300]
+    else:
+        # the backend SDPA dispatches these inputs to (PyTorch's own choice)
+        backend = torch._fused_sdp_choice(qt, kt, vt, None, 0.0, True)
+        library.update(
+            library_ms=_time_ms(sdpa, reps=20), library_graph_ms=_graph_ms(sdpa),
+            library_backend=torch.nn.attention.SDPBackend(backend).name,
+            library_max_abs_diff=torch.abs(out_lib.transpose(1, 2).float()
+                                           - fa.flash_attention(q, k, v).float()).max().item())
+        del out_lib
+    bound = roofline.attention_bound(batch=b, sq=s, skv=s, hq=h, hkv=h, d=d, dv=dv, dtype=bf16,
+                                     hw=hw) if hw is not None else None
+    executed = fa.executed_flops(b, s, s, h, h, d, dv=dv)
+    _emit({"yardstick": f"flash_attention bf16 causal B={b} S={s} H={h} G=1 D={d} Dv={dv}",
+           "kernel_ms": kernel_ms, "kernel_graph_ms": kernel_graph_ms, "plain_ms": plain_ms,
+           **library, "timing": "*_ms: eager calls; *_graph_ms: CUDA graph of 20 calls",
+           "library_call": "F.scaled_dot_product_attention(is_causal=True) on (B, H, S, D|Dv)",
+           "flops": None if bound is None else bound.flops,
+           "bytes": None if bound is None else bound.bytes,
+           "bound_ms": None if bound is None else bound.bound_s * 1e3,
+           "bound_by": None if bound is None else bound.bound_by,
+           "ops_bound_ms": None if bound is None else bound.compute_s * 1e3,
+           "bound_share": None if bound is None else bound.bound_s * 1e3 / kernel_ms,
+           "executed_flops": executed, "executed_TFLOPs": executed / kernel_ms / 1e9})
+    return {"launches": launches, "max_abs_err": worst, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": None if bound is None else bound.bound_s * 1e3,
+            "bound_by": None if bound is None else bound.bound_by,
+            "library_ms": library["library_ms"]}
 
 
 MULTISLAB_FORMS = [  # (label, hosts, layout, dtype, accum, compression)

@@ -268,11 +268,13 @@ def attention_bound(
     q_offset: int = 0,
     dtype: torch.dtype = torch.bfloat16,
     hw: HardwareSpec | None = None,
+    dv: int | None = None,
 ) -> SU3Roofline:
-    """Bound of one attention call: q, k, v read and o written once each,
-    against 4 * D flops (QK^T and PV, a multiply and an add each) for every
-    visible (query, key) pair of every query head, at the peak of ``dtype``
-    (bf16: tensor cores; f32: CUDA cores).
+    """Bound of one attention call: q, k (head dim D), v and o (Dv; None:
+    D) read and written once each, against 2 (D + Dv) flops (QK^T and PV, a
+    multiply and an add each) for every visible (query, key) pair of every
+    query head, at the peak of ``dtype`` (bf16: tensor cores; f32: CUDA
+    cores).
 
     Raises:
         LookupError: when no spec is given and the card is unknown.
@@ -280,13 +282,14 @@ def attention_bound(
     hw = hw if hw is not None else current_hardware()
     if hw is None:
         raise LookupError("no Hopper spec for this device; pass hw= explicitly")
+    dv = d if dv is None else dv
     word = torch.empty((), dtype=dtype).element_size()
     pairs = visible_pairs(sq, skv, causal=causal, q_offset=q_offset)
     return SU3Roofline(
-        name=f"attention_b{batch}_q{sq}_k{skv}_h{hq}/{hkv}_d{d}",
+        name=f"attention_b{batch}_q{sq}_k{skv}_h{hq}/{hkv}_d{d}" + ("" if dv == d else f"_dv{dv}"),
         hw=hw,
-        flops=4.0 * batch * hq * d * pairs,
-        bytes=float(word * batch * (2 * sq * hq * d + 2 * skv * hkv * d)),
+        flops=2.0 * batch * hq * (d + dv) * pairs,
+        bytes=float(word * batch * (sq * hq * (d + dv) + skv * hkv * (d + dv))),
         peak_flops=hw.peak_flops_bf16 if dtype == torch.bfloat16 else hw.peak_flops_fp32,
     )
 

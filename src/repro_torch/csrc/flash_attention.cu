@@ -5,17 +5,22 @@
 // flash_attention_tpu (body _flash_kernel), which the reference documents as
 // the prefill attention on the accelerator.  It computes what the chunked
 // src/repro/models/attention.py flash_attention computes:
-//   q (B, Sq, Hq, D), k and v (B, Skv, Hkv, D), G = Hq / Hkv query heads per
-//   kv head; scores (q * D^-1/2) . k in f32, masked to -1e30 where a key lies
+//   q and k (B, Sq|Skv, Hq|Hkv, D), v (B, Skv, Hkv, Dv), G = Hq / Hkv query
+//   heads per kv head; scores (q * D^-1/2) . k in f32, masked to -1e30 where a key lies
 //   past Skv or, if causal, past the query's absolute position (its index +
 //   q_offset); an online softmax with f32 statistics; out = acc / max(l,
-//   1e-37), rounded once to q's type.
+//   1e-37), rounded once to q's type, (B, Sq, Hq, Dv).  Dv = D at D in
+//   {32, 64, 128}; MLA's prefill (src/repro/models/mla.py apply) calls it at
+//   D = 192 (nope 128 + rope 64), Dv = 128, with G = 1 (see tc::Fwd).
 //
 // What bounds it on this card: operations.  At the prefill shape (B=4,
 // Sq=Skv=1024, Hq=32, Hkv=8, D=128, causal) a layer needs 4*B*Hq*D flops per
 // visible (query, key) pair, 34.4 GFLOP: 0.035 ms at the bf16 tensor-core
 // rate (989 TFLOP/s, H100 SXM) and 0.51 ms at the FP32 CUDA-core rate
 // (67 TFLOP/s), against 84 MB of q, k, v and o (0.025 ms at 3.35 TB/s).
+// MLA's prefill (B=4, S=1024, H=128, G=1, D=192, Dv=128) is bound by bytes:
+// 671 MB of q, k, v and o (every head has its own k and v), 0.200 ms at
+// 3.35 TB/s, against 2*(D+Dv) flops a visible pair, 0.174 ms at 989 TFLOP/s.
 //
 // Two bodies, chosen by the storage type:
 //
@@ -27,7 +32,8 @@
 //    the (B, S, H) strides: the GQA group is never copied.
 //  * Three warpgroups: a producer that keeps K and V tiles of 128 keys
 //    coming by TMA into a ring of three shared-memory stages (full and
-//    empty mbarriers; 230,448 B at D=128 with Q, one block per SM), and two
+//    empty mbarriers; 230,448 B at D=128 with Q, one block per SM; two
+//    stages at D=192, Dv=128: 214,048 B, see tc::Fwd), and two
 //    consumers of 64 rows each (wgmma's M), which take the producer's
 //    registers (setmaxnreg).  The consumers bring Q in once by cp.async
 //    into the same 128-byte swizzle.
@@ -59,7 +65,8 @@
 //    and sum are reduced over its 16 threads with warp shuffles.
 //  * Shared memory, all f32: q * scale transposed (D x 64), one K tile
 //    transposed (D x 64), one V tile (64 x D) and the probabilities
-//    (64 x 64): 112 KB at D=128, two blocks per SM.
+//    (64 x 64): 112 KB at D=128, two blocks per SM; with a V tile of
+//    64 x Dv, 144 KB at D=192, Dv=128, one block per SM.
 //
 // Both: causal blocks stop at the last tile that holds a visible key.  A
 // skipped tile would add exp(-1e30 - m) = 0 to every row, so skipping
@@ -104,9 +111,9 @@ __device__ __forceinline__ void store_lse(const Params& p, int b, long long qi, 
   p.lse[(static_cast<long long>(b) * p.hkv * p.g + h) * p.sq + qi] = m + logf(l);
 }
 
-template <int D>
+template <int D, int Dv>
 constexpr int smem_floats() {
-  return D * kRows + D * kKeys + kKeys * D + kRows * kKeys;
+  return D * kRows + D * kKeys + kKeys * Dv + kRows * kKeys;
 }
 
 __device__ __forceinline__ float4 load4(const float* p) {
@@ -155,16 +162,16 @@ __device__ __forceinline__ float group16_sum(float x) {
   return x;
 }
 
-template <typename T, int D, bool kCausal>
+template <typename T, int D, int Dv, bool kCausal>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, const Params p) {
-  constexpr int kCols = D / 16;
+  constexpr int kCols = Dv / 16;
   extern __shared__ float4 smem4[];
   float* qt = reinterpret_cast<float*>(smem4);  // [D][kRows]  q * scale
   float* kt = qt + D * kRows;                   // [D][kKeys]
-  float* vs = kt + D * kKeys;                   // [kKeys][D]
-  float* ps = vs + kKeys * D;                   // [kRows][kKeys]
+  float* vs = kt + D * kKeys;                   // [kKeys][Dv]
+  float* ps = vs + kKeys * Dv;                  // [kRows][kKeys]
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int b = blockIdx.y / p.hkv, hk = blockIdx.y % p.hkv;
@@ -224,10 +231,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       kt[(c + 2) * kKeys + j] = x.z;
       kt[(c + 3) * kKeys + j] = x.w;
     }
-    for (int idx = tid; idx < kKeys * (D / 4); idx += kThreads) {
-      const int j = idx / (D / 4), c = (idx % (D / 4)) * 4, key = key0 + j;
+    for (int idx = tid; idx < kKeys * (Dv / 4); idx += kThreads) {
+      const int j = idx / (Dv / 4), c = (idx % (Dv / 4)) * 4, key = key0 + j;
       const float4 x = key < p.skv ? load4(vb + key * p.vs[1] + c) : make_float4(0.f, 0.f, 0.f, 0.f);
-      *reinterpret_cast<float4*>(vs + j * D + c) = x;
+      *reinterpret_cast<float4*>(vs + j * Dv + c) = x;
     }
     __syncthreads();
 
@@ -291,7 +298,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
         float vv[kCols];
-        load_v_row<D>(vs + (j + jj) * D, tx, vv);
+        load_v_row<Dv>(vs + (j + jj) * Dv, tx, vv);
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -310,7 +317,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* orow = o + b * p.os[0] + qi * p.os[1] + h * p.os[2];
     const float den = fmaxf(l[i], 1e-37f);
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) store1(orow + out_col<D>(tx, c), acc[i][c] / den);
+    for (int c = 0; c < kCols; ++c) store1(orow + out_col<Dv>(tx, c), acc[i][c] / den);
     if (p.lse != nullptr && tx == 0) store_lse(p, b, qi, h, m[i], l[i]);
   }
 }
@@ -321,10 +328,10 @@ namespace tc {
 
 constexpr int kRows = 128;     // folded query rows per block: 64 per consumer warpgroup
 constexpr int kKeys = 128;     // keys per K/V tile
-constexpr int kStages = 3;     // K/V tiles in flight
 constexpr int kThreads = 384;  // one producer and two consumer warpgroups
 constexpr int kAlign = 1024;   // a 128-byte swizzle repeats every 8 rows of 128 bytes
 
+// 128 rows of a head dim D in bf16, as TMA boxes of one swizzled row each
 template <int D>
 struct Tile {
   static constexpr int kSwizzle = D >= 64 ? 128 : 64;  // bytes of one swizzled shared row
@@ -333,8 +340,31 @@ struct Tile {
   static constexpr int kBoxBytes = kKeys * kSwizzle;   // one box of 128 rows (Q, K or V)
   static constexpr int kTileBytes = kBoxes * kBoxBytes;  // Q, or one K or V tile
   static constexpr uint64_t kLayout = kSwizzle == 128 ? 1 : 2;  // wgmma's swizzle code
-  // aligned Q, K and V stages, then the full and empty barriers
-  static constexpr int kSmem = kAlign + (1 + 2 * kStages) * kTileBytes + 16 * kStages;
+};
+
+// The forward's block at (D, Dv): Q and K tiles of D (Tile<D>), V tiles of
+// Dv (Tile<Dv>), K/V tiles in flight, and its shared memory: aligned Q, the
+// K and V stages, then the full and empty barriers.
+//
+// Dv != D is MLA's prefill (D = 192: nope 128 + rope 64; Dv = 128).  At
+// three stages of 128 keys its block would take 1 KB + Q 48 KB + 3 x (K 48
+// KB + V 32 KB) = 289 KB, past the 227 KB a block may have.  It keeps 128
+// keys a tile and takes two stages (209 KB): the tile's products, the
+// consumers' registers (S of 128 keys, P in two bf16 parts, O of Dv = 128)
+// and the online softmax are those of D = 128, and only the QK^T batch
+// grows, to 12 k16 steps.  Three stages of 64 keys (169 KB) would halve
+// each wgmma's N and double the turns and barriers per key.  With two
+// stages the producer loads tile t + 1 while the consumers run the
+// softmax of tile t; K and V of one head are read by every row tile of
+// the head, mostly from L2.
+template <int D, int Dv>
+struct Fwd {
+  using K = Tile<D>;
+  using V = Tile<Dv>;
+  static_assert(K::kSwizzle == V::kSwizzle, "K and V share one TMA swizzle");
+  static constexpr int kStages = D == Dv ? 3 : 2;
+  static constexpr int kSmem =
+      kAlign + K::kTileBytes + kStages * (K::kTileBytes + V::kTileBytes) + 16 * kStages;
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -550,10 +580,12 @@ __device__ __forceinline__ void cp_async_publish() {
 // One consumer warpgroup's view of a block: its Q rows, the K/V ring, and
 // this thread's two accumulator rows (r and r + 8 of the warpgroup's 64).
 // Value i of an accumulator lies in row r + 8 * (i / 2 % 2), column
-// 8 * (i / 4) + 2 * (lane % 4) + i % 2.
-template <int D>
+// 8 * (i / 4) + 2 * (lane % 4) + i % 2.  Q and K have head dim D, V and
+// the output Dv.
+template <int D, int Dv>
 struct Tc {
   using T = Tile<D>;
+  using TV = Tile<Dv>;
   uint32_t q_wg, k_s, v_s;
   int lim[2];   // keys visible to each row: those below lim
   int min_lim;  // the least lim of the warpgroup's rows
@@ -565,7 +597,7 @@ struct Tc {
     return desc_k<D>(tile, kk, T::kBoxBytes);
   }
   static __device__ __forceinline__ uint64_t vdesc(uint32_t tile, int kk) {
-    return desc_mn<D>(tile, kk, T::kBoxBytes);
+    return desc_mn<Dv>(tile, kk, TV::kBoxBytes);
   }
 
   // S = Q K^T of stage s
@@ -576,9 +608,9 @@ struct Tc {
   }
 
   // O += P_hi V + P_lo V of stage s
-  __device__ __forceinline__ void issue_pv(float (&acc)[D / 2], const uint32_t (&hi)[kKeys / 16][4],
+  __device__ __forceinline__ void issue_pv(float (&acc)[Dv / 2], const uint32_t (&hi)[kKeys / 16][4],
                                            const uint32_t (&lo)[kKeys / 16][4], int s) const {
-    const uint32_t v_t = v_s + s * T::kTileBytes;
+    const uint32_t v_t = v_s + s * TV::kTileBytes;
 #pragma unroll
     for (int kk = 0; kk < kKeys / 16; ++kk) wgmma_rs(acc, hi[kk], vdesc(v_t, kk));
 #pragma unroll
@@ -641,20 +673,22 @@ struct Tc {
   }
 };
 
-template <int D, bool kCausal>
+template <int D, int Dv, bool kCausal>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_tc(const __grid_constant__ CUtensorMap tmk, const __grid_constant__ CUtensorMap tmv,
                    const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ o,
                    const Params p) {
   using T = Tile<D>;
+  using TV = Tile<Dv>;
+  constexpr int kStages = Fwd<D, Dv>::kStages;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + kAlign - 1) & ~static_cast<uint32_t>(kAlign - 1);
   const uint32_t q_s = base;
-  const uint32_t k_s = q_s + T::kTileBytes;             // kStages K tiles
-  const uint32_t v_s = k_s + kStages * T::kTileBytes;   // kStages V tiles
-  const uint32_t full = v_s + kStages * T::kTileBytes;  // kStages barriers, then
-  const uint32_t empty = full + 8 * kStages;            // kStages more
+  const uint32_t k_s = q_s + T::kTileBytes;              // kStages K tiles
+  const uint32_t v_s = k_s + kStages * T::kTileBytes;    // kStages V tiles
+  const uint32_t full = v_s + kStages * TV::kTileBytes;  // kStages barriers, then
+  const uint32_t empty = full + 8 * kStages;             // kStages more
 
   const int b = blockIdx.x / p.hkv, hk = blockIdx.x % p.hkv;
   const int rows = p.sq * p.g;  // < 2^23: the launch holds row tiles to 65535
@@ -681,12 +715,16 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tmk, const __grid_constan
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % kStages;
         mbar_wait(empty + 8 * s, ((t / kStages) & 1) ^ 1);  // stage released
-        mbar_expect_tx(full + 8 * s, 2 * T::kTileBytes);
+        mbar_expect_tx(full + 8 * s, T::kTileBytes + TV::kTileBytes);
 #pragma unroll
         for (int i = 0; i < T::kBoxes; ++i) {
-          const uint32_t off = s * T::kTileBytes + i * T::kBoxBytes;
-          tma_load(k_s + off, &tmk, full + 8 * s, i * T::kBoxCols, hk, t * kKeys, b);
-          tma_load(v_s + off, &tmv, full + 8 * s, i * T::kBoxCols, hk, t * kKeys, b);
+          tma_load(k_s + s * T::kTileBytes + i * T::kBoxBytes, &tmk, full + 8 * s,
+                   i * T::kBoxCols, hk, t * kKeys, b);
+        }
+#pragma unroll
+        for (int i = 0; i < TV::kBoxes; ++i) {
+          tma_load(v_s + s * TV::kTileBytes + i * TV::kBoxBytes, &tmv, full + 8 * s,
+                   i * TV::kBoxCols, hk, t * kKeys, b);
         }
       }
     }
@@ -712,13 +750,13 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tmk, const __grid_constan
       const int pos = min(f, rows - 1) / p.g + p.q_offset;
       return kCausal ? min(p.skv, pos + 1) : p.skv;
     };
-    const Tc<D> tcx{q_s + 64 * c * T::kSwizzle, k_s, v_s,
+    const Tc<D, Dv> tcx{q_s + 64 * c * T::kSwizzle, k_s, v_s,
                     {lim_of(wg_row0 + r), lim_of(wg_row0 + r + 8)}, lim_of(wg_row0), lane,
                     p.scale * 1.4426950408889634f};
 
-    float acc[D / 2], sc[kKeys / 2], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
+    float acc[Dv / 2], sc[kKeys / 2], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < Dv / 2; ++i) acc[i] = 0.f;
 #pragma unroll
     for (int i = 0; i < kKeys / 2; ++i) sc[i] = 0.f;
     uint32_t hi[kKeys / 16][4], lo[kKeys / 16][4];  // p of the previous tile
@@ -757,7 +795,7 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tmk, const __grid_constan
       if (lane == 0) mbar_arrive(empty + 8 * prev);  // this warp is done with the stage
       softmax(t * kKeys);
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[i / 2 % 2];
+      for (int i = 0; i < Dv / 2; ++i) acc[i] *= alpha[i / 2 % 2];
     }
     turn_wait(c);
     wgmma_fence();
@@ -778,7 +816,7 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tmk, const __grid_constan
       __nv_bfloat16* orow = o + b * p.os[0] + qi * p.os[1] + head * p.os[2] + 2 * (lane % 4);
       const float inv = 1.f / fmaxf(l[h], 1e-37f);
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < Dv / 8; ++j) {
         *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
             __floats2bfloat162_rn(acc[4 * j + 2 * h] * inv, acc[4 * j + 2 * h + 1] * inv);
       }
@@ -1698,16 +1736,16 @@ flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tmk, const __grid_constant__
 
 // -- host ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <typename T, int D, int Dv>
 const void* pick_causal(bool causal) {
-  return causal ? reinterpret_cast<const void*>(&flash_attention_kernel<T, D, true>)
-                : reinterpret_cast<const void*>(&flash_attention_kernel<T, D, false>);
+  return causal ? reinterpret_cast<const void*>(&flash_attention_kernel<T, D, Dv, true>)
+                : reinterpret_cast<const void*>(&flash_attention_kernel<T, D, Dv, false>);
 }
 
-template <int D>
+template <int D, int Dv>
 const void* pick_tc(bool causal) {
-  return causal ? reinterpret_cast<const void*>(&tc::flash_attention_tc<D, true>)
-                : reinterpret_cast<const void*>(&tc::flash_attention_tc<D, false>);
+  return causal ? reinterpret_cast<const void*>(&tc::flash_attention_tc<D, Dv, true>)
+                : reinterpret_cast<const void*>(&tc::flash_attention_tc<D, Dv, false>);
 }
 
 // One instantiation with its block: function, threads, dynamic shared
@@ -1718,25 +1756,27 @@ struct Body {
   int threads = 0, smem = 0, rows = 0, keys = 0, stages = 0, swizzle = 0;
 };
 
-template <int D>
+template <int D, int Dv>
 Body body_d(int dtype, bool causal) {
   if (dtype == kBF16) {
-    return {pick_tc<D>(causal), tc::kThreads, tc::Tile<D>::kSmem, tc::kRows, tc::kKeys,
-            tc::kStages, tc::Tile<D>::kSwizzle};
+    return {pick_tc<D, Dv>(causal), tc::kThreads, tc::Fwd<D, Dv>::kSmem, tc::kRows, tc::kKeys,
+            tc::Fwd<D, Dv>::kStages, tc::Tile<D>::kSwizzle};
   }
   if (dtype == kF32) {
-    return {pick_causal<float, D>(causal), kThreads, 4 * smem_floats<D>(), kRows, kKeys, 1, 0};
+    return {pick_causal<float, D, Dv>(causal), kThreads, 4 * smem_floats<D, Dv>(), kRows, kKeys,
+            1, 0};
   }
   return {};
 }
 
-Body pick(int dtype, int d, bool causal) {
-  switch (d) {
-    case 32: return body_d<32>(dtype, causal);
-    case 64: return body_d<64>(dtype, causal);
-    case 128: return body_d<128>(dtype, causal);
-    default: return {};
-  }
+// The (D, Dv) pairs the forward is built for: Dv = D at 32, 64 and 128, and
+// MLA's (192, 128).
+Body pick(int dtype, int d, int dv, bool causal) {
+  if (d == 32 && dv == 32) return body_d<32, 32>(dtype, causal);
+  if (d == 64 && dv == 64) return body_d<64, 64>(dtype, causal);
+  if (d == 128 && dv == 128) return body_d<128, 128>(dtype, causal);
+  if (d == 192 && dv == 128) return body_d<192, 128>(dtype, causal);
+  return {};
 }
 
 // Dynamic shared memory above 48 KB must be allowed per kernel; ask for the
@@ -1885,18 +1925,19 @@ BwdBody pick_bwd(int dtype, int d, bool causal) {
 
 }  // namespace
 
-// Attention on `stream`.  q (batch, sq, hq, d), k and v (batch, skv, hkv,
-// d), o like q; strides[12] holds the element strides of (batch, seq,
-// head) for q, k, v and o in that order (the last dim is contiguous).
+// Attention on `stream`.  q (batch, sq, hq, d), k (batch, skv, hkv, d), v
+// (batch, skv, hkv, dv), o (batch, sq, hq, dv); (d, dv) one of pick's pairs;
+// strides[12] holds the element strides of (batch, seq, head) for q, k, v
+// and o in that order (the last dim is contiguous).
 // lse: null, or (batch, hq, sq) f32 that receives each row's log-sum-exp
 // (the backward's input; o is the same bits either way).
 // dtype: 0 f32, 1 bf16 (strides in multiples of 8, 16-byte aligned bases).
 // Returns the launch's cudaError_t (0 = queued).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    void* lse, int batch, int sq, int skv, int hq, int hkv, int d,
-                                   const long long* strides, int causal, int q_offset,
+                                   int dv, const long long* strides, int causal, int q_offset,
                                    float scale, int dtype, void* stream) {
-  const Body body = pick(dtype, d, causal != 0);
+  const Body body = pick(dtype, d, dv, causal != 0);
   if (body.fn == nullptr || batch <= 0 || sq <= 0 || skv <= 0 || hkv <= 0 || hq % hkv != 0 ||
       q_offset < 0 || static_cast<long long>(batch) * hkv > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1923,7 +1964,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     if (row_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
     CUtensorMap tmk, tmv;
     err = kv_map(&tmk, k, d, hkv, skv, batch, strides + 3, body.swizzle);
-    if (err == cudaSuccess) err = kv_map(&tmv, v, d, hkv, skv, batch, strides + 6, body.swizzle);
+    if (err == cudaSuccess) err = kv_map(&tmv, v, dv, hkv, skv, batch, strides + 6, body.swizzle);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid(static_cast<unsigned>(batch * hkv), static_cast<unsigned>(row_tiles));
     void* args[] = {&tmk, &tmv, const_cast<void**>(&q), &o, &p};
@@ -1942,8 +1983,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
 // bytes, local (spill) bytes, maxThreadsPerBlock, threads per block,
 // resident blocks/SM, folded rows per block, keys per tile, K/V tiles in
 // flight}.
-extern "C" int flash_attention_attributes(int dtype, int d, int causal, int* out) {
-  const Body body = pick(dtype, d, causal != 0);
+extern "C" int flash_attention_attributes(int dtype, int d, int dv, int causal, int* out) {
+  const Body body = pick(dtype, d, dv, causal != 0);
   if (body.fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = prepare(body.fn, body.smem);
   if (err != cudaSuccess) return static_cast<int>(err);

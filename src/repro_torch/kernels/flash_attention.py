@@ -32,26 +32,30 @@ this module holds:
     execute, its registers and occupancy.
 
 Layout contract (the reference's, at the public functions):
-  q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D), Hq a multiple of Hkv; the G =
-  Hq / Hkv query heads of a kv head are read in place through the strides.
-  Causal masking is on absolute positions: query i sits at i + q_offset,
-  key j at j.  Scale D^-1/2 on q in f32, f32 statistics, masked scores
-  -1e30, out = acc / max(l, 1e-37) in q's dtype -> (B, Sq, Hq, D).
+  q: (B, Sq, Hq, D); k: (B, Skv, Hkv, D); v: (B, Skv, Hkv, Dv), Hq a
+  multiple of Hkv; the G = Hq / Hkv query heads of a kv head are read in
+  place through the strides.  Causal masking is on absolute positions:
+  query i sits at i + q_offset, key j at j.  Scale D^-1/2 on q in f32, f32
+  statistics, masked scores -1e30, out = acc / max(l, 1e-37) in q's dtype
+  -> (B, Sq, Hq, Dv).
 
-The kernel takes f32 or bf16, D in {32, 64, 128}, any Sq and Skv (the
+The kernel takes f32 or bf16, (D, Dv) in :data:`HEAD_DIMS` (Dv = D at 32,
+64 and 128; MLA's prefill at D = 192, Dv = 128), any Sq and Skv (the
 ragged edge is masked in the kernel) and ignores ``q_chunk`` / ``kv_chunk``,
 which shape the plain version's chunking only.  It has two bodies:
 
   * bf16, on the tensor cores: blocks of 128 folded rows (two consumer
     warpgroups of 64) against K/V tiles of 128 keys brought by TMA into a
-    ring of three stages.  q . k is summed in f32 from the bf16 operands and
+    ring of three stages (two at D = 192, Dv = 128, whose K tiles of 192
+    columns would not fit three; see :func:`smem_bytes`).  q . k is summed
+    in f32 from the bf16 operands and
     scaled in f32 inside the exponent; p is split into two bf16 parts, so
     P V runs twice.  TMA
     needs k and v strides in multiples of 8 elements (16 bytes).
   * f32, on the CUDA cores: blocks of 64 rows against tiles of 64 keys, all
     in f32 FMAs.
 
-The backward has the same two bodies.  bf16, on the tensor cores: a dK/dV
+The backward (Dv = D, D in :data:`BWD_HEAD_DIMS`) has the same two bodies.  bf16, on the tensor cores: a dK/dV
 kernel whose two consumer warpgroups own a pair of key tiles of 64 (tile j
 and tile n - 1 - j, so that causal blocks carry equal work) and share one
 stream of row tiles of q and dout (G * (64 // G) folded rows each, G <= 64)
@@ -72,14 +76,20 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.su3_matmul import LaunchCounter, _check_error
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128)  # the kernel's instantiations
+# The forward's instantiations, (D, Dv): q and k's head dim, v's.  (192,
+# 128) is MLA's prefill (qk head nope 128 + rope 64, v head 128).
+HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (192, 128))
+BWD_HEAD_DIMS = (32, 64, 128)  # the backward's instantiations, Dv = D
+MLA_BWD_TODO = ("the backward kernel needs Dv == D; MLA's (D=192, Dv=128) backward is not "
+                "ported yet (ROADMAP Queue 1, the MLA training item)")
 # Each body's tiling as flash_attention.cu fixes it; kernel_budget raises if
 # the built library reports another.
 BLOCK_ROWS = 64  # f32 body: folded query rows per block
 BLOCK_KEYS = 64  # f32 body: keys per tile
 TC_ROWS = 128  # bf16 body: folded query rows per block (two warpgroups of 64)
 TC_KEYS = 128  # bf16 body: keys per K/V tile
-TC_STAGES = 3  # bf16 body: K/V tiles in flight
+TC_STAGES = 3  # bf16 body: K/V tiles in flight where Dv = D
+TC_STAGES_SPLIT = 2  # bf16 body at Dv != D (192, 128): three stages would not fit
 MAX_BATCH_HEADS = 65535  # B * Hkv rides on a grid dimension (gridDim.y in the f32 body)
 MAX_ROW_TILES = 65535  # bf16 body: row tiles ride on gridDim.y
 
@@ -189,8 +199,8 @@ def flash_attention_bwd_plain(
     ``dS = P (dout V^T - delta)``, ``dQ += scale dS K``,
     ``dK += scale dS^T Q`` (S scaled as the forward scales it).
 
-    Shapes as :func:`flash_attention_plain`'s, ``out`` and ``dout`` like q,
-    ``lse`` (B, Hq, Sq) f32 from the forward.  Returns (dq, dk, dv) in q's,
+    Shapes as :func:`flash_attention_plain`'s, ``out`` and ``dout`` (B, Sq,
+    Hq, Dv), ``lse`` (B, Hq, Sq) f32 from the forward.  Returns (dq, dk, dv) in q's,
     k's and v's dtypes.
     """
     b, sq, hq, d = q.shape
@@ -269,39 +279,46 @@ def kernel_tolerance(dtype: torch.dtype) -> tuple[float, float]:
     return 2e-5, 2e-5
 
 
-def tiling(dtype: torch.dtype) -> tuple[int, int, int]:
-    """``(rows, keys, stages)`` of the body that serves ``dtype``: folded
-    query rows per block, keys per K/V tile and K/V tiles in flight."""
+def tiling(dtype: torch.dtype, d: int = 128, dv: int | None = None) -> tuple[int, int, int]:
+    """``(rows, keys, stages)`` of the body that serves ``dtype`` at head
+    dims (d, dv) (dv None: d): folded query rows per block, keys per K/V
+    tile and K/V tiles in flight."""
     if dtype == torch.bfloat16:
-        return TC_ROWS, TC_KEYS, TC_STAGES
+        return TC_ROWS, TC_KEYS, TC_STAGES if dv in (None, d) else TC_STAGES_SPLIT
     return BLOCK_ROWS, BLOCK_KEYS, 1
 
 
-def smem_bytes(d: int, dtype: torch.dtype = torch.bfloat16) -> int:
-    """Dynamic shared memory of one block of the body that serves ``dtype``.
+def smem_bytes(d: int, dtype: torch.dtype = torch.bfloat16, dv: int | None = None) -> int:
+    """Dynamic shared memory of one block of the body that serves ``dtype``
+    at head dims (d, dv) (dv None: d).
 
-    bf16: the Q tile and ``TC_STAGES`` K and V tiles in bf16, 1 KB to align
-    them to their swizzle, and a full and an empty barrier per stage.  f32:
-    q * scale and a K tile (both transposed), a V tile and the
-    probabilities, all f32.
+    bf16: the Q tile (d wide) and a K (d) and a V tile (dv) per stage in
+    bf16, 1 KB to align them to their swizzle, and a full and an empty
+    barrier per stage: 230,448 bytes at (128, 128) with three stages; at
+    (192, 128) three would take 289 KB, past the 227 KB of a block, so two
+    (214,048).  f32: q * scale and a K tile (both transposed), a V tile and
+    the probabilities, all f32: 144 KB at (192, 128).
     """
-    rows, keys, stages = tiling(dtype)
+    dv = d if dv is None else dv
+    rows, keys, stages = tiling(dtype, d, dv)
     if dtype == torch.bfloat16:
-        return 1024 + 2 * d * (rows + 2 * stages * keys) + 16 * stages
-    return 4 * (d * rows + 2 * d * keys + rows * keys)
+        return 1024 + 2 * d * rows + 2 * stages * keys * (d + dv) + 16 * stages
+    return 4 * (d * rows + d * keys + dv * keys + rows * keys)
 
 
 def executed_flops(
     batch: int, sq: int, skv: int, hq: int, hkv: int, d: int, *, causal: bool = True,
-    q_offset: int = 0, dtype: torch.dtype = torch.bfloat16,
+    q_offset: int = 0, dtype: torch.dtype = torch.bfloat16, dv: int | None = None,
 ) -> int:
     """Flops the kernel's tiles execute, masked entries included: each block
     of folded rows visits key tiles up to the last one that holds a key
     visible to its last row.  Per (row, key) of a visited tile: 2D for QK^T
-    and 2D for PV, which the bf16 body runs twice (p_hi and p_lo)."""
+    and 2Dv for PV (dv None: D), which the bf16 body runs twice (p_hi and
+    p_lo)."""
     g = hq // hkv
-    rows, keys, _ = tiling(dtype)
-    per_pair = (6 if dtype == torch.bfloat16 else 4) * d
+    dv = d if dv is None else dv
+    rows, keys, _ = tiling(dtype, d, dv)
+    per_pair = 2 * d + (4 if dtype == torch.bfloat16 else 2) * dv
     key_tiles = -(-skv // keys)
     visited = 0
     for row0 in range(0, sq * g, rows):
@@ -319,7 +336,7 @@ def _library() -> ctypes.CDLL:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         strides = ctypes.POINTER(ctypes.c_longlong)
         lib.flash_attention_fwd.argtypes = [
-            ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
+            ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32,
             strides, i32, i32, ctypes.c_float, i32, ptr,
         ]
         lib.flash_attention_fwd.restype = i32
@@ -328,7 +345,7 @@ def _library() -> ctypes.CDLL:
             strides, i32, i32, ctypes.c_float, i32, ptr,
         ]
         lib.flash_attention_bwd.restype = i32
-        lib.flash_attention_attributes.argtypes = [i32, i32, i32, ctypes.POINTER(i32)]
+        lib.flash_attention_attributes.argtypes = [i32, i32, i32, i32, ctypes.POINTER(i32)]
         lib.flash_attention_attributes.restype = i32
         lib.flash_attention_bwd_attributes.argtypes = [i32, i32, i32, i32, ctypes.POINTER(i32)]
         lib.flash_attention_bwd_attributes.restype = i32
@@ -342,8 +359,10 @@ def _library() -> ctypes.CDLL:
 
 def kernel_budget(
     dtype: torch.dtype = torch.bfloat16, d: int = 128, causal: bool = True,
+    dv: int | None = None,
 ) -> dict[str, int | float | None]:
-    """One instantiation's per-block budget on the current CUDA device.
+    """One instantiation's per-block budget on the current CUDA device, at
+    head dims (d, dv) (dv None: d).
 
     Returns:
         The keys of :func:`repro_torch.kernels.su3_matmul.kernel_budget`:
@@ -354,14 +373,16 @@ def kernel_budget(
     Raises:
         RuntimeError: the library's tiling is not :func:`tiling`'s.
     """
+    dv = d if dv is None else dv
     lib = _library()
     out = (ctypes.c_int * 9)()
-    rc = lib.flash_attention_attributes(_DTYPES[dtype], d, int(causal), out)
+    rc = lib.flash_attention_attributes(_DTYPES[dtype], d, dv, int(causal), out)
     _check_error(lib, rc, "cudaFuncGetAttributes")
     regs, shared, local, max_threads, threads, blocks, *built = list(out)
-    if tuple(built) != tiling(dtype):
-        raise RuntimeError(f"flash_attention: the {dtype} body is built with (rows, keys, "
-                           f"stages) = {tuple(built)}, this module assumes {tiling(dtype)}")
+    if tuple(built) != tiling(dtype, d, dv):
+        raise RuntimeError(f"flash_attention: the {dtype} body at (D, Dv) = ({d}, {dv}) is built "
+                           f"with (rows, keys, stages) = {tuple(built)}, this module assumes "
+                           f"{tiling(dtype, d, dv)}")
     props = torch.cuda.get_device_properties(torch.cuda.current_device())
     per_sm = getattr(props, "max_threads_per_multi_processor", None)
     return {
@@ -494,13 +515,13 @@ def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int
     """What the kernel takes beyond the shapes the plain version takes."""
     what = "flash_attention"
     b, sq, hq, d = q.shape
-    skv, hkv = k.shape[1], k.shape[2]
-    if v.shape[-1] != d:
+    skv, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
+    if dv != d and (d, dv) not in HEAD_DIMS:
         raise NotImplementedError(
-            f"{what}: the kernel needs Dv == D, got Dv={v.shape[-1]}, D={d}; a value head "
-            "wider or narrower than the key head is MLA's (ROADMAP Queue 1, the MLA item)")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{what}: the kernel is built for D in {HEAD_DIMS}, got {d}")
+            f"{what}: the kernel's only pair with Dv != D is MLA's (D, Dv) = (192, 128), got "
+            f"({d}, {dv})")
+    if (d, dv) not in HEAD_DIMS:
+        raise ValueError(f"{what}: the kernel is built for D, Dv in {HEAD_DIMS}, got ({d}, {dv})")
     if q.dtype not in _DTYPES:
         raise ValueError(f"{what}: the kernel takes float32 or bfloat16, got {q.dtype}")
     if min(b, sq, skv) == 0:
@@ -548,15 +569,15 @@ def _forward(
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, got {q.device}")
     _check_cuda(q, k, v, q_offset)
     b, sq, hq, d = q.shape
-    skv, hkv = k.shape[1], k.shape[2]
-    out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
+    skv, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
+    out = torch.empty((b, sq, hq, dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) if with_lse else None
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr(), b, sq, skv, hq, hkv, d,
+            None if lse is None else lse.data_ptr(), b, sq, skv, hq, hkv, d, dv,
             _strides(q, k, v, out), int(causal), q_offset, d**-0.5, _DTYPES[q.dtype], stream)
     _check_error(lib, rc, "flash_attention launch")
     LAUNCHES.count += 1
@@ -581,21 +602,25 @@ def flash_attention_bwd(
     (B, Hq, Sq) f32.
 
     CUDA tensors go to the backward kernel (one call of three launches,
-    counted once in :data:`BWD_LAUNCHES`) or raise; CPU tensors go to
-    :func:`flash_attention_bwd_plain` with ``q_chunk`` / ``kv_chunk``; any
-    other device raises.
+    counted once in :data:`BWD_LAUNCHES`) or raise (Dv != D raises
+    ``NotImplementedError`` before any launch: :data:`MLA_BWD_TODO`); CPU
+    tensors go to :func:`flash_attention_bwd_plain` with ``q_chunk`` /
+    ``kv_chunk``; any other device raises.
     """
     _check_shapes(q, k, v)
-    b, sq, hq, _ = q.shape
-    if out.shape != q.shape or dout.shape != q.shape or lse.shape != (b, hq, sq):
+    b, sq, hq, d = q.shape
+    want = (b, sq, hq, v.shape[-1])
+    if out.shape != want or dout.shape != want or lse.shape != (b, hq, sq):
         raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)} and dout "
-                         f"{tuple(dout.shape)} must be q's {tuple(q.shape)}, lse "
+                         f"{tuple(dout.shape)} must be {want}, lse "
                          f"{tuple(lse.shape)} must be {(b, hq, sq)}")
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, dout, lse, causal=causal, q_chunk=q_chunk,
                                          kv_chunk=kv_chunk, q_offset=q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd runs on cuda or cpu tensors, got {q.device}")
+    if v.shape[-1] != d:
+        raise NotImplementedError(f"flash_attention_bwd: {MLA_BWD_TODO}")
     _check_cuda(q, k, v, q_offset)
     if not (out.device == dout.device == lse.device == q.device):
         raise ValueError("flash_attention_bwd: out, dout and lse must lie on q's device")
@@ -668,7 +693,8 @@ def flash_attention(
     kv_chunk: int = 1024,
     q_offset: int = 0,
 ) -> torch.Tensor:
-    """GQA attention: q (B, Sq, Hq, D), k/v (B, Skv, Hkv, D) -> (B, Sq, Hq, D).
+    """GQA attention: q (B, Sq, Hq, D), k (B, Skv, Hkv, D), v (B, Skv, Hkv,
+    Dv) -> (B, Sq, Hq, Dv).
 
     A CUDA tensor goes to the kernel (or raises); a CPU tensor goes to
     :func:`flash_attention_plain` with ``q_chunk`` / ``kv_chunk``; any other

@@ -3,11 +3,16 @@ config of an architecture with random weights:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b --device cuda
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-1b-a400m --device cuda
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v3-671b --device cuda
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --device cpu
 
 The dense and MoE families run (granite-moe-1b-a400m: 32 experts, top-8
-softmax routing); MLA (deepseek-v3) and the hybrid, SSM and whisper
-families raise, naming the ROADMAP item that brings them.
+softmax routing; deepseek-v3-671b: MLA, a leading dense layer, sigmoid
+aux-free routing and a shared expert); the hybrid, SSM and whisper
+families raise, naming the ROADMAP item that brings them.  On the card an
+MLA config keeps deepseek-v3's head dims (qk 128 + 64, v 128), the flash
+kernel's one MLA pair (``mla.with_kernel_heads``); on the CPU it is
+reduced like the others.
 """
 from __future__ import annotations
 
@@ -19,7 +24,7 @@ import torch
 
 from repro_torch.configs import ALL_ARCHS, get_config
 from repro_torch.core.su3.plan import resolve_device
-from repro_torch.models import registry
+from repro_torch.models import mla, registry
 from repro_torch.serve.engine import ServeConfig, ServeEngine
 
 
@@ -36,6 +41,8 @@ def main(argv: list[str] | None = None) -> None:
 
     cfg = get_config(args.arch).reduced()
     device = resolve_device(args.device)
+    if cfg.use_mla and device.type == "cuda":
+        cfg = mla.with_kernel_heads(cfg)
     api = registry.get(cfg)
     params = api.init(torch.Generator(device=device).manual_seed(args.seed), cfg)
     engine = ServeEngine(

@@ -3,9 +3,9 @@ of reference weights (port of ``repro.models.registry``).
 
 ``registry.get(cfg)`` returns a :class:`ModelApi` with
 spec/init/loss_fn/prefill/decode_step/init_state.  The decoder-only
-transformer families (dense, MoE, the VLM stub) are served and trained;
-MLA attention (deepseek-v3), whisper, zamba and xlstm raise, naming the
-ROADMAP item that brings them.
+transformer families (dense, MoE, the VLM stub; GQA or MLA attention,
+deepseek-v3's) are served and trained; whisper, zamba and xlstm raise,
+naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
-"""Decoder-only LM assembly, the dense and MoE families (port of
-``repro.models.transformer``).
+"""Decoder-only LM assembly, the dense and MoE families with GQA or MLA
+attention (port of ``repro.models.transformer``).
 
 The reference stacks each parameter over the layers and drives each stack
 (``layers``: dense FFNs, ``moe_layers``: MoE FFNs, in that order) with
@@ -9,15 +9,15 @@ of per-layer KV caches per stack, updated in place.  Training remats each
 layer with ``torch.utils.checkpoint`` (non-reentrant), the counterpart of
 the reference's ``jax.checkpoint(..., nothing_saveable)`` scan body: a
 layer keeps only its input and recomputes the rest, its MoE balance loss
-included, in the backward.  MLA attention raises ``NotImplementedError``
-(ROADMAP Queue 1, the MLA item).
+included, in the backward.  With ``cfg.use_mla`` every layer's attention
+is :mod:`repro_torch.models.mla` and its cache the latent one.
 
 API (uniform across families via models.registry):
   spec(cfg) / init(generator, cfg)       params
   loss_fn(params, batch, cfg)            train forward -> (loss, metrics)
   prefill(params, batch, state, cfg)     -> (logits, state)
   decode_step(params, batch, state, cur_len, cfg) -> (logits, state)
-  init_state(cfg, batch, max_len)        per-layer KV caches
+  init_state(cfg, batch, max_len)        per-layer KV (or MLA latent) caches
 """
 from __future__ import annotations
 
@@ -27,15 +27,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, common, ffn, moe
+from repro_torch.models import attention, common, ffn, mla, moe
 from repro_torch.models.common import ParamSpec, ParamTree
-
-MLA_TODO = "MLA attention is not ported yet (ROADMAP Queue 1, the MLA item: deepseek-v3)"
-
-
-def _check_mla(cfg: ModelConfig) -> None:
-    if cfg.use_mla:
-        raise NotImplementedError(MLA_TODO)
 
 
 # ---------------------------------------------------------------------------
@@ -43,12 +36,16 @@ def _check_mla(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
+def _attn(cfg: ModelConfig):
+    """The attention module of ``cfg``'s layers: MLA or GQA."""
+    return mla if cfg.use_mla else attention
+
+
 def layer_spec(cfg: ModelConfig, *, moe_layer: bool) -> common.SpecTree:
-    _check_mla(cfg)
     d = cfg.d_model
     s: common.SpecTree = {
         "attn_norm": ParamSpec((d,), ("embed",), init="ones"),
-        "attn": attention.spec(cfg),
+        "attn": _attn(cfg).spec(cfg),
         "ffn_norm": ParamSpec((d,), ("embed",), init="ones"),
     }
     if moe_layer:
@@ -72,7 +69,7 @@ def layer_apply(
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor] | None, torch.Tensor]:
     """Pre-norm block. Returns (x, cache, aux_loss); aux is 0 for a dense FFN."""
     h = common.rmsnorm(x, params["attn_norm"], cfg.norm_eps)
-    a, cache = attention.apply(
+    a, cache = _attn(cfg).apply(
         params["attn"], h, cfg, positions=positions, cache=cache, cur_len=cur_len,
         q_chunk=q_chunk, kv_chunk=kv_chunk,
     )
@@ -244,7 +241,6 @@ def loss_fn(
     ``mtp_nll`` where the head runs; each is a 0-dim f32 tensor in the
     graph (the caller detaches).
     """
-    _check_mla(cfg)
     x, _, aux = forward(params, batch, cfg, remat=remat, q_chunk=q_chunk, kv_chunk=kv_chunk)
     logits = _logits(params, x, cfg)
     loss = common.softmax_cross_entropy(logits, batch["labels"])
@@ -273,12 +269,12 @@ def init_state(
     cfg: ModelConfig, batch: int, max_len: int, dtype: torch.dtype = torch.bfloat16,
     device: torch.device | str | None = None,
 ) -> dict[str, Any]:
-    """One KV cache per layer, per stack: ``{"dense": [...], "moe": [...]}``
-    of ``{"k", "v"}`` (B, max_len, Hkv, hd); a stack with no layers is
-    left out, as in the reference."""
-    _check_mla(cfg)
+    """One cache per layer, per stack: ``{"dense": [...], "moe": [...]}``
+    of ``{"k", "v"}`` (B, max_len, Hkv, hd), or with MLA of latents
+    ``{"ckv", "k_rope"}`` (B, max_len, kv_lora_rank | rope_dim); a stack
+    with no layers is left out, as in the reference."""
     sizes = stack_sizes(cfg)
-    return {state_key: [attention.init_cache(cfg, batch, max_len, dtype, device)
+    return {state_key: [_attn(cfg).init_cache(cfg, batch, max_len, dtype, device)
                         for _ in range(sizes[key])]
             for key, state_key, _ in STACKS if key in sizes}
 
@@ -287,7 +283,10 @@ def prefill(
     params, batch: dict[str, torch.Tensor], state: dict[str, Any], cfg: ModelConfig,
     *, q_chunk: int = 512, kv_chunk: int = 1024,
 ) -> tuple[torch.Tensor, dict[str, Any]]:
-    """Prefill writes the cache and returns last-position logits."""
+    """Prefill writes the cache and returns last-position logits.  With MLA
+    each layer writes its latents in the same pass (the reference recomputes
+    them after a cache-less forward, ``_mla_prefill_cache``: the same
+    values, from the same normed inputs)."""
     x, state, _ = forward(params, batch, cfg, state=state, cur_len=0, q_chunk=q_chunk,
                           kv_chunk=kv_chunk)
     return _logits(params, x[:, -1:], cfg), state

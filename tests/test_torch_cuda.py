@@ -17,7 +17,7 @@ from repro_torch.core.su3.layouts import COMP_ROW_INDICES
 from repro_torch.core.su3.plan import verify_tolerance
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, su3_matmul
-from repro_torch.models import registry
+from repro_torch.models import mla, registry
 from repro_torch.serve.engine import ServeConfig, ServeEngine
 
 S = 256
@@ -431,6 +431,13 @@ def test_cuda_flash_attention_rejects_what_the_kernel_does_not_take(cuda_device)
         fa.flash_attention(q96, k96, v96)
     with pytest.raises(NotImplementedError, match="MLA"):
         fa.flash_attention(q.to(cuda_device), k.to(cuda_device), v.to(cuda_device)[..., :32])
+    # (192, 128) is MLA's pair; other Dv != D pairs, and D = 192 alone, are not built
+    q192, k192 = (t.to(cuda_device) for t in _qkv((1, 16, 16, 4, 4, 192), torch.float32, 55)[:2])
+    v192 = k192.clone()
+    with pytest.raises(NotImplementedError, match="MLA"):
+        fa.flash_attention(q192, k192, v192[..., :64].contiguous())
+    with pytest.raises(ValueError, match="built for"):
+        fa.flash_attention(q192, k192, v192)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         fa.flash_attention(*(t.to(cuda_device, torch.float16) for t in (q, k, v)))
 
@@ -438,14 +445,15 @@ def test_cuda_flash_attention_rejects_what_the_kernel_does_not_take(cuda_device)
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,threads", [(torch.bfloat16, 384), (torch.float32, 256)])
 def test_cuda_flash_attention_shared_memory_budget(cuda_device, dtype, threads):
-    """Each body's real budget: within 227 KB a block, no spills, one block
-    per SM or more (the bf16 body holds one: 230,448 bytes at D=128, Q and
-    three stages of K and V, and three warpgroups), and the tiling the
-    Python side assumes (kernel_budget raises otherwise)."""
-    for d in fa.HEAD_DIMS:
+    """Each body's real budget at every (D, Dv) it is built for: within 227
+    KB a block, no spills, one block per SM or more (the bf16 body holds
+    one: 230,448 bytes at D=128, Q and three stages of K and V, and three
+    warpgroups; 214,048 at MLA's (192, 128), two stages), and the tiling
+    the Python side assumes (kernel_budget raises otherwise)."""
+    for d, dv in fa.HEAD_DIMS:
         for causal in (True, False):
-            budget = fa.kernel_budget(dtype, d, causal=causal)
-            assert budget["shared_bytes"] == fa.smem_bytes(d, dtype) <= 232448
+            budget = fa.kernel_budget(dtype, d, causal=causal, dv=dv)
+            assert budget["shared_bytes"] == fa.smem_bytes(d, dtype, dv) <= 232448
             assert budget["threads_per_block"] == threads
             assert budget["local_bytes"] == 0 and budget["blocks_per_sm"] >= 1
 
@@ -466,6 +474,91 @@ def test_cuda_reduced_prefill_launches_once_per_layer(cuda_device, arch):
     got, _ = card.prefill({"tokens": batch["tokens"].to(cuda_device)}, card.init_state(2))
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
     assert toks.shape == (2, 26)
+
+
+MLA_SHAPES = [  # (batch, sq, skv, heads, causal, q_offset): D = 192, Dv = 128, G = 1
+    (2, 256, 256, 8, True, 0),
+    (1, 333, 333, 4, True, 0),  # ragged
+    (1, 100, 300, 4, False, 0),  # Sq != Skv, non-causal
+    (1, 72, 200, 4, True, 128),  # queries that continue a 128-token prefix
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", MLA_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_at_mla_heads_matches_plain_version(cuda_device, shape, dtype):
+    """The (D, Dv) = (192, 128) instantiation of each body against the plain
+    version, one launch, out (B, Sq, H, 128)."""
+    b, sq, skv, h, causal, q_offset = shape
+    rng = np.random.default_rng(sum(shape[:4]))
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(cuda_device, dtype)
+               for s in ((b, sq, h, 192), (b, skv, h, 192), (b, skv, h, 128)))
+    want = fa.flash_attention_plain(q, k, v, causal=causal, q_chunk=64, kv_chunk=128,
+                                    q_offset=q_offset)
+    before = fa.LAUNCHES.count
+    got = fa.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES.count == before + 1
+    assert got.dtype == dtype and got.shape == (b, sq, h, 128)
+    atol, rtol = fa.kernel_tolerance(dtype)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_backward_at_mla_heads_raises_before_launch(cuda_device):
+    """The backward has no (192, 128) instantiation: on the card it raises,
+    naming its ROADMAP item, before any launch; through autograd the
+    forward runs (one launch) and the backward raises."""
+    rng = np.random.default_rng(57)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(cuda_device)
+               for s in ((1, 64, 2, 192), (1, 64, 2, 192), (1, 64, 2, 128)))
+    out, lse = fa._forward(q, k, v, causal=True, q_chunk=64, kv_chunk=64, q_offset=0,
+                           with_lse=True)
+    before = fa.BWD_LAUNCHES.count
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fa.flash_attention_bwd(q, k, v, out, torch.ones_like(out), lse)
+    assert fa.BWD_LAUNCHES.count == before
+    q.requires_grad_()
+    launches = fa.LAUNCHES.count
+    out = fa.flash_attention(q, k, v)
+    assert fa.LAUNCHES.count == launches + 1
+    with pytest.raises(NotImplementedError, match="Dv == D"):
+        out.sum().backward()
+    assert fa.BWD_LAUNCHES.count == before
+
+
+@pytest.mark.cuda
+def test_cuda_mla_reduced_serves_like_the_cpu(cuda_device):
+    """deepseek-v3 reduced with its own head dims (the kernel's MLA pair):
+    one flash launch per layer in prefill, none in decode, the prefill's
+    logits and latent caches and the greedy tokens equal to the CPU's.
+    Matrices at std 0.02, as ``chip_smoke.py`` draws them: the reference's
+    rule (1/sqrt(layer count) for a stacked leaf, 0.58 here) saturates the
+    attention softmax, whose near-ties amplify f32 rounding layer by layer
+    (2.9e-4 in a later layer's latent, against 1e-6 per op)."""
+    cfg = mla.with_kernel_heads(get_config("deepseek-v3-671b").reduced())
+    model = registry.get(cfg).init(torch.Generator().manual_seed(0), cfg)
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.dim() >= 2:
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 20), dtype=np.int32)
+    cpu = ServeEngine(cfg, copy.deepcopy(model), ServeConfig(max_len=32), device="cpu")
+    card = ServeEngine(cfg, model, ServeConfig(max_len=32), device=cuda_device)
+    before = fa.LAUNCHES.count
+    toks = card.generate(prompts, 6)
+    assert fa.LAUNCHES.count - before == cfg.n_layers
+    np.testing.assert_array_equal(toks, cpu.generate(prompts, 6))
+    batch = {"tokens": torch.from_numpy(prompts)}
+    want, cpu_state = cpu.prefill(batch, cpu.init_state(2))
+    got, card_state = card.prefill({"tokens": batch["tokens"].to(cuda_device)}, card.init_state(2))
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    for key in ("dense", "moe"):
+        for a, b in zip(cpu_state[key], card_state[key]):
+            for name in ("ckv", "k_rope"):
+                torch.testing.assert_close(b[name].cpu(), a[name], atol=1e-4, rtol=1e-4)
 
 
 # -- the flash backward -------------------------------------------------------------
@@ -603,7 +696,7 @@ def test_cuda_flash_backward_budget(cuda_device, dtype, threads):
     tiling the Python side assumes (bwd_budget raises otherwise).  The bf16
     kernels are warp-specialised: 168 registers a thread at launch, the pool
     that setmaxnreg hands from the producer to the consumers."""
-    for d in fa.HEAD_DIMS:
+    for d in fa.BWD_HEAD_DIMS:
         for causal in (True, False):
             budget = fa.bwd_budget(dtype, d, causal=causal)
             for name, smem in zip(("dkdv", "dq"), fa.bwd_smem_bytes(d, dtype)):

@@ -139,6 +139,21 @@ def test_smem_budget_at_the_main_path_shape(dtype, blocks_per_sm):
         assert per_block >= 2 * 128 * (128 + 2 * fa.TC_STAGES * 128)  # Q, K and V tiles in bf16
 
 
+def test_smem_budget_at_mla_heads():
+    """At MLA's (D, Dv) = (192, 128) the bf16 body's Q tile and three stages
+    of K (192 columns) and V (128) would take 289 KB; it takes two stages,
+    214,048 bytes, one block per SM.  The f32 body's 144 KB fits once."""
+    bf16 = fa.smem_bytes(192, torch.bfloat16, dv=128)
+    assert fa.tiling(torch.bfloat16, 192, 128) == (128, 128, 2)
+    assert bf16 == 1024 + 2 * 128 * 192 + 2 * 2 * 128 * (192 + 128) + 2 * 16 == 214048
+    assert bf16 + 1024 <= 228 * 1024 and bf16 <= 232448
+    assert 1024 + 2 * 128 * 192 + 3 * 2 * 128 * (192 + 128) > 232448  # three stages do not fit
+    f32 = fa.smem_bytes(192, torch.float32, dv=128)
+    assert f32 == 4 * (192 * 64 + 192 * 64 + 128 * 64 + 64 * 64) == 147456 <= 232448
+    assert fa.smem_bytes(128, torch.bfloat16, dv=128) == fa.smem_bytes(128) == 230448
+    assert [d for d, dv in fa.HEAD_DIMS if d == dv] == list(fa.BWD_HEAD_DIMS)
+
+
 def _tensor_core_body(q, k, v, *, causal, split=True):
     """The bf16 body's arithmetic, emulated on the CPU: tiles of 128 keys;
     q . k from the bf16 operands (exact products, f32 sums); the mask and
@@ -147,14 +162,14 @@ def _tensor_core_body(q, k, v, *, causal, split=True):
     bf16(p) + bf16(p - bf16(p)) (or one bf16 p), each part multiplied into
     V in f32; one output rounding."""
     b, sq, hq, d = q.shape
-    skv, hkv = k.shape[1], k.shape[2]
+    skv, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
     g = hq // hkv
     c = d**-0.5 * math.log2(math.e)
     qf = q.float().reshape(b, sq, hkv, g, d)
     pos = torch.arange(sq)
     m = torch.full((b, hkv, g, sq), fa.NEG_INF)
     l = torch.zeros((b, hkv, g, sq))
-    acc = torch.zeros((b, hkv, g, sq, d))
+    acc = torch.zeros((b, hkv, g, sq, dv))
     for key0 in range(0, skv, fa.TC_KEYS):
         kt, vt = k[:, key0:key0 + fa.TC_KEYS].float(), v[:, key0:key0 + fa.TC_KEYS].float()
         s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kt)
@@ -172,7 +187,7 @@ def _tensor_core_body(q, k, v, *, causal, split=True):
             acc = acc + torch.einsum("bhgqk,bkhd->bhgqd", part, vt)
         m = m_new
     out = acc / torch.clamp_min(l[..., None], 1e-37)
-    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d).to(torch.bfloat16)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, dv).to(torch.bfloat16)
 
 
 ROUNDING_FORMS = [  # (batch, seq, hq, hkv, d, causal)
@@ -194,6 +209,19 @@ def test_split_probabilities_keep_the_kernel_tolerance(form):
     q, k, v = _bf16_qkv(form, seed=sum(form[:5]))
     got = _tensor_core_body(q, k, v, causal=form[-1])
     want = fa.flash_attention_plain(q, k, v, causal=form[-1])
+    atol, rtol = fa.kernel_tolerance(torch.bfloat16)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+def test_split_probabilities_keep_the_kernel_tolerance_at_mla_heads():
+    """The same at MLA's prefill heads, (D, Dv) = (192, 128), G = 1: the
+    bf16 body's arithmetic does not depend on the two widths."""
+    rng = np.random.default_rng(192)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(torch.bfloat16)
+               for s in ((1, 300, 4, 192), (1, 300, 4, 192), (1, 300, 4, 128)))
+    got = _tensor_core_body(q, k, v, causal=True)
+    want = fa.flash_attention_plain(q, k, v, causal=True)
+    assert got.shape == want.shape == (1, 300, 4, 128)
     atol, rtol = fa.kernel_tolerance(torch.bfloat16)
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
 
@@ -224,6 +252,14 @@ def test_executed_flops_count_the_tiles_each_body_visits():
         8 * 2 * 9 * 128 * 128 * 6 * 128)  # 256 rows, every block sees all 9 tiles
     assert fa.executed_flops(4, 1024, 1024, 32, 8, 128, dtype=torch.float32) == (
         4 * 8 * sum(i // 4 + 1 for i in range(64)) * 64 * 64 * 4 * 128)
+    # MLA's prefill, G=1, D=192, Dv=128: block i of 128 rows visits i + 1
+    # tiles of 128 keys, 1 + ... + 8 = 36; per pair 2D + 2 * 2Dv (PV twice)
+    mla = fa.executed_flops(4, 1024, 1024, 128, 128, 192, dv=128)
+    assert mla == 4 * 128 * 36 * 128 * 128 * (2 * 192 + 4 * 128)
+    counted = roofline.attention_bound(batch=4, sq=1024, skv=1024, hq=128, hkv=128, d=192,
+                                       dv=128, hw=roofline.H100_SXM)
+    assert counted.bound_by == "bytes" and counted.bytes == 4 * 2 * 1024 * 128 * 2 * (192 + 128)
+    assert 1.5 * counted.flops < mla < 1.75 * counted.flops
 
 
 def test_cuda_checks_reject_bf16_strides_off_16_bytes():

@@ -11,16 +11,20 @@ multiplied in; D^-1/2 applied to dK and dQ in f32; each output rounded once
 to bf16.  It is held to the unchanged ``kernel_tolerance(bf16)``, scaled to
 each gradient's largest magnitude, as the card tests hold the kernel.  The
 card runs the kernel itself in ``tests/test_torch_cuda.py`` and
-``chip_smoke.py``.
+``chip_smoke.py``.  The plain backward at a value head narrower than the
+key head (MLA's shape) is held against ``jax.grad`` of the reference.
 """
 import importlib.util
 import math
 import pathlib
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.models import attention as jattention
 from repro_torch.core import roofline
 from repro_torch.kernels import flash_attention as fa
 
@@ -132,7 +136,7 @@ def test_bwd_smem_fits_one_block_per_sm(dtype):
     two key tiles of 64 and four stages of Q and dO (199,744 bytes at
     D=128), the dQ block Q and dO of 128 rows and two stages of K and V
     (197,664)."""
-    for d in fa.HEAD_DIMS:
+    for d in fa.BWD_HEAD_DIMS:
         dkdv, dq = fa.bwd_smem_bytes(d, dtype)
         assert max(dkdv, dq) <= 232448
     if dtype == BF16:
@@ -224,3 +228,29 @@ def test_smoke_counts_hgmma_per_function():
                       "_ZN2tc18flash_attention_tcILi128ELb1EEEv": 1}
     assert [n for n in counts if smoke.BWD_TC_KERNELS[0] in n] == [
         "_ZN3tcb17flash_bwd_dkdv_tcILi128ELb1EEEv"]
+
+
+@pytest.mark.parametrize("chunks", [(8, 8), (5, 7)], ids=["8x8", "ragged"])
+def test_gradients_at_a_narrower_value_head_equal_jax_grad(chunks):
+    """``flash_attention`` differentiated on the CPU at D=24, Dv=16 (causal,
+    G=2): dq, dk and dv against ``jax.grad`` of the reference's chunked
+    ``models/attention.py`` ``flash_attention`` on the same numpy inputs and
+    the same cotangent (f32; sums in another order)."""
+    rng = np.random.default_rng(24)
+    q = rng.standard_normal((1, 20, 4, 24), dtype=np.float32)
+    k = rng.standard_normal((1, 20, 2, 24), dtype=np.float32)
+    v = rng.standard_normal((1, 20, 2, 16), dtype=np.float32)
+    g = rng.standard_normal((1, 20, 4, 16), dtype=np.float32)
+    q_chunk, kv_chunk = chunks
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = fa.flash_attention(tq, tk, tv, causal=True, q_chunk=q_chunk, kv_chunk=kv_chunk)
+    assert out.shape == (1, 20, 4, 16)
+    got = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(g))
+
+    def loss(q, k, v):
+        o = jattention.flash_attention(q, k, v, causal=True, q_chunk=q_chunk, kv_chunk=kv_chunk)
+        return jnp.sum(o * g)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4, atol=1e-5, err_msg=name)

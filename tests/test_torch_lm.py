@@ -271,11 +271,15 @@ def test_unported_families_raise_naming_their_item():
     for arch in ("whisper-tiny", "zamba2-1.2b", "xlstm-125m"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             registry.get(get_config(arch).reduced())
+    # deepseek-v3 (MLA) is ported: its spec and its loss build
     cfg = get_config("deepseek-v3-671b").reduced()
-    with pytest.raises(NotImplementedError, match="MLA"):
-        registry.get(cfg).spec(cfg)
-    with pytest.raises(NotImplementedError, match="MLA"):  # the loss waits for it too
-        registry.get(cfg).loss_fn(None, {}, cfg)
+    spec = registry.get(cfg).spec(cfg)
+    assert "w_uk" in spec["layers"]["attn"] and "w_uk" in spec["moe_layers"]["attn"]
+    model = registry.get(cfg).init(torch.Generator().manual_seed(0), cfg)
+    toks = torch.randint(0, cfg.vocab_size, (1, 9), generator=torch.Generator().manual_seed(1))
+    loss, metrics = registry.get(cfg).loss_fn(
+        model, {"tokens": toks[:, :-2], "labels": toks[:, 1:-1], "labels2": toks[:, 2:]}, cfg)
+    assert torch.isfinite(loss) and "mtp_nll" in metrics
 
 
 def test_inputs_match_their_specs():
