@@ -59,7 +59,7 @@ source, started together) and, at the paper's L=32 lattice:
     layers with equal routing; resume bitwise); then the flash forward and
     backward at its head dim 64 and G = 2 against their plain versions,
     timed beside SDPA and their bounds;
-  * the MLA phase, last: the flash kernel at (D, Dv) = (192, 128) against
+  * the MLA phase: the flash kernel at (D, Dv) = (192, 128) against
     its plain version in six forms (bf16 and f32, causal and not, ragged,
     q_offset); ``ServeEngine`` on full-width deepseek-v3-671b cut to its 3
     leading dense layers and 1 MoE layer (+ MTP; 15.8 B parameters, bf16,
@@ -69,6 +69,21 @@ source, started together) and, at the paper's L=32 lattice:
     against the CPU at 2 dense layers of full width in f32 and at the
     reduced config with deepseek-v3's head dims (routing equal); the
     kernel at the prefill shape beside SDPA and its bound;
+  * the zamba phase, last: full-width, full-depth zamba2-1.2b (38 Mamba2
+    layers, one shared attention block applied after every 6: 6
+    applications at 32/32 heads of 64, G = 1; 1.17 B parameters, nothing
+    cut; random weights from the seed, f32 states) through ``ServeEngine``
+    as above (bf16, matrices at std 0.02; 6 flash launches in prefill, none
+    in decode; decode against one cache-less teacher forward over the
+    served tokens padded to a multiple of the SSD's chunk, also at the
+    reference's init rule in f32; the launches of one Mamba2
+    layer and one shared application) and ``train.loop.train`` as above
+    (6 flash forward and 6 backward launches a step; one step twice
+    bitwise); the card against the CPU on a full-width cut of 3 layers
+    (matrices at std 0.02): logits and every state leaf, one step's loss
+    and gradients; resume bitwise; the flash forward (B=4) and backward
+    (B=2, the training shape) at S=1,024, H=32, D=64, G=1 against their
+    plain versions, SDPA and their bounds;
   * times each kernel against its bound, its plain version and, where one
     PyTorch call computes the same function, that call (every time in the
     kernels line from eager calls; the flash kernel and SDPA also in a CUDA
@@ -185,6 +200,15 @@ MLA_FORMS = [  # (label, batch, sq, skv, heads, causal, q_offset, dtype): D=192,
     ("q_offset 1024 bf16", 2, 64, 1088, 16, True, 1024, "bfloat16"),
     ("ragged q_offset 200 f32", 1, 100, 300, 8, True, 200, "float32"),
 ]
+# the zamba phase: zamba2-1.2b at full width and depth (38 Mamba2 layers of
+# d_model 2,048, d_inner 4,096, 64 SSM heads of 64, state 64, conv 4; one
+# shared attention + SwiGLU block of 32/32 heads of 64 and d_ff 8,192 after
+# every 6 layers: 6 applications; vocab 32,000), served and trained at the
+# LM and training shapes above; 1.17 B parameters, nothing cut
+ZAMBA_ARCH = "zamba2-1.2b"
+# the card against the CPU: full width, 2 Mamba2 layers, one shared
+# application and a tail layer, f32
+ZAMBA_CUT = {"n_layers": 3, "hybrid_attn_every": 2}
 FLASH_FORMS = [  # (label, batch, sq, skv, hq, hkv, d, causal, q_offset, dtype)
     ("main path bf16 causal", 4, 1024, 1024, 32, 8, 128, True, 0, "bfloat16"),
     ("main path f32 causal", 4, 1024, 1024, 32, 8, 128, True, 0, "float32"),
@@ -630,6 +654,15 @@ def main(argv: list[str] | None = None) -> int:
     # -- 5e. the MLA phase: deepseek-v3 served, the kernel at (D, Dv) = (192, 128) ------
     torch.cuda.empty_cache()
     flash_mla = _mla_phase(args.seed, hw, failures)
+
+    # -- 5f. the zamba phase: zamba2-1.2b served and trained, the kernels at D=64, G=1 ----
+    torch.cuda.empty_cache()
+    zamba_launches = _zamba_phase(args.seed, hw, failures)
+    flash["zamba_serve_launches"] = zamba_launches["serve"]
+    flash["zamba_train_launches"] = zamba_launches["train_fwd"]
+    flash["launches"] += zamba_launches["serve"] + zamba_launches["train_fwd"]
+    flash_bwd["zamba_train_launches"] = zamba_launches["train_bwd"]
+    flash_bwd["launches"] += zamba_launches["train_bwd"]
 
     # -- 6. the kernels line -----------------------------------------------------------
     _emit({"kernels": [{
@@ -1498,17 +1531,30 @@ def _lm_phase(seed: int, hw, failures: list[str]) -> dict:
             "bound_by": None if bound is None else bound.bound_by, "library_ms": library_ms}
 
 
+def _state_leaves(state, prefix: str = "") -> list:
+    """(path, tensor) of every tensor in a decode state (nested dicts and
+    lists), in a fixed order."""
+    import torch
+
+    if isinstance(state, torch.Tensor):
+        return [(prefix, state)]
+    items = sorted(state.items()) if isinstance(state, dict) else enumerate(state)
+    return [leaf for key, value in items for leaf in _state_leaves(value, f"{prefix}/{key}")]
+
+
 def _serve_cross_device(row_name: str, cfg2, model2, rng, failures: list[str]) -> None:
     """The card against the port's CPU path on ``model2`` (``cfg2`` in f32,
     TF32 off): 8 greedy tokens after a 64-token prompt on each, then the
-    CPU's tokens prefilled and decoded on both: logits within LM_CROSS_TOL
+    CPU's tokens prefilled and decoded on both: logits within LM_CROSS_TOL,
+    every leaf of the state after the last decode step (KV or latent
+    caches, Mamba2 states) within LM_CROSS_TOL of its largest magnitude,
     and every MoE layer's expert choices (``moe._route``) equal."""
     import copy
 
     import numpy as np
     import torch
 
-    from repro_torch.models import moe, transformer
+    from repro_torch.models import moe, registry
     from repro_torch.serve.engine import ServeConfig, ServeEngine
 
     cpu = ServeEngine(cfg2, copy.deepcopy(model2), ServeConfig(max_len=80), device="cpu")
@@ -1516,7 +1562,7 @@ def _serve_cross_device(row_name: str, cfg2, model2, rng, failures: list[str]) -
     prompt2 = rng.integers(0, cfg2.vocab_size, (1, 64), dtype=np.int32)
     cpu_tokens = cpu.generate(prompt2, 8)
     card_tokens = card.generate(prompt2, 8)
-    logits, routes = [], []
+    logits, routes, states = [], [], []
     for eng in (cpu, card):
         t = torch.from_numpy(cpu_tokens).to(eng.device)
         st = eng.init_state(1)
@@ -1528,8 +1574,9 @@ def _serve_cross_device(row_name: str, cfg2, model2, rng, failures: list[str]) -
                 lg, st = eng.decode(t[:, 64 + i:65 + i], st, 64 + i)
                 out.append(lg)
         logits.append(torch.cat(out, dim=1).float().cpu())
+        states.append(_state_leaves(st))
     err = torch.abs(logits[0] - logits[1]).max().item()
-    n_moe = transformer.stack_sizes(cfg2).get("moe_layers", 0)
+    n_moe = registry.get(cfg2).stack_sizes(cfg2).get("moe_layers", 0)
     same_routes = len(routes[0]) == len(routes[1]) == 8 * n_moe and all(
         torch.equal(a.cpu(), b.cpu()) for a, b in zip(*routes))
     row = {"row": row_name, "arch": cfg2.name, "n_layers": cfg2.n_layers, "dtype": cfg2.dtype,
@@ -1537,7 +1584,14 @@ def _serve_cross_device(row_name: str, cfg2, model2, rng, failures: list[str]) -
            "max_abs_logit_diff": err, "tol": LM_CROSS_TOL,
            "logit_scale": logits[0].abs().max().item(), "routes_compared": len(routes[0]),
            "same_routes": same_routes, "same_tokens": bool(np.array_equal(cpu_tokens, card_tokens))}
-    row["ok"] = err <= LM_CROSS_TOL and same_routes and not row["tf32"]
+    shares = {name: (b.cpu().double() - a.double()).abs().max().item()
+              / max(a.double().abs().max().item(), 1e-30)
+              for (name, a), (_, b) in zip(states[0], states[1])}
+    worst = max(shares, key=shares.get)
+    row.update(state_leaves=len(shares), worst_state_leaf=worst,
+               worst_state_err_of_max=shares[worst])
+    row["ok"] = (err <= LM_CROSS_TOL and same_routes and not row["tf32"]
+                 and len(states[0]) == len(states[1]) and shares[worst] <= LM_CROSS_TOL)
     _emit(row)
     if not row["ok"]:
         failures.append(f"{row_name}: {row}")
@@ -1556,7 +1610,7 @@ def _train_cross_device(row_name: str, cfg2, model, seed: int, failures: list[st
     import torch
 
     from repro_torch.data.pipeline import DataConfig, PipelineState, TokenPipeline, make_train_batch
-    from repro_torch.models import moe, transformer
+    from repro_torch.models import moe, registry
     from repro_torch.train import train_step
 
     card_model = copy.deepcopy(model).to(torch.device("cuda"))
@@ -1578,13 +1632,13 @@ def _train_cross_device(row_name: str, cfg2, model, seed: int, failures: list[st
                  for n, g in g_cpu.items()}
     worst_leaf = max(leaf_errs, key=leaf_errs.get)
     router_errs = [e for n, e in leaf_errs.items() if n.endswith("moe.router")]
-    n_moe = transformer.stack_sizes(cfg2).get("moe_layers", 0)
+    n_moe = registry.get(cfg2).stack_sizes(cfg2).get("moe_layers", 0)
     same_routes = len(routes["cpu"]) == len(routes["card"]) == 2 * n_moe and all(
         torch.equal(a.cpu(), b.cpu()) for a, b in zip(routes["cpu"], routes["card"]))
     row = {"row": row_name, "arch": cfg2.name, "n_layers": cfg2.n_layers, "dtype": cfg2.dtype,
            "tf32": torch.backends.cuda.matmul.allow_tf32, "batch": TRAIN_BATCH,
            "seq": TRAIN_CROSS_SEQ, "loss_cpu": m_cpu["loss"], "loss_card": m_card["loss"],
-           "aux_cpu": m_cpu["aux"], "aux_card": m_card["aux"], "loss_rel_diff": loss_rel,
+           "aux_cpu": m_cpu.get("aux"), "aux_card": m_card.get("aux"), "loss_rel_diff": loss_rel,
            "loss_tol": TRAIN_CROSS_LOSS_TOL, "leaves": len(leaf_errs), "worst_leaf": worst_leaf,
            "worst_leaf_err_of_max": leaf_errs[worst_leaf],
            "router_err_of_max": max(router_errs) if router_errs else None,
@@ -1629,10 +1683,12 @@ def _resume_check(row_name: str, cfg2, seed: int, failures: list[str]) -> None:
     same_moments = all(torch.equal(straight["opt_state"][k][n], resumed["opt_state"][k][n])
                        for k in ("m", "v") for n in straight["opt_state"][k])
     curves = {key: ([h[key] for h in straight["history"]],
-                    [h[key] for h in first_hist + resumed["history"]]) for key in ("loss", "aux")}
+                    [h[key] for h in first_hist + resumed["history"]])
+              for key in ("loss", "aux") if key in straight["history"][0]}  # the hybrid has no aux
     row = {"row": row_name, "arch": cfg2.name, "n_layers": cfg2.n_layers, "dtype": cfg2.dtype,
            "losses_straight": curves["loss"][0], "losses_resumed": curves["loss"][1],
-           "aux_straight": curves["aux"][0], "aux_resumed": curves["aux"][1],
+           "aux_straight": curves.get("aux", (None,))[0],
+           "aux_resumed": curves.get("aux", (None, None))[1],
            "params_bitwise": same_params, "moments_bitwise": same_moments,
            "seconds": time.perf_counter() - t0}
     row["ok"] = same_params and same_moments and all(a == b for a, b in curves.values())
@@ -1952,7 +2008,7 @@ def _pinned_routes(routes: list, n_layers: int, flips: list):
 def _moe_phase(seed: int, hw, failures: list[str]) -> dict[str, int]:
     """The MoE family on the card at granite-moe-1b-a400m's full width and
     depth: serving (``_moe_serve``), training (``_moe_train``) and the flash
-    kernels at its head dim 64, G = 2 (``_moe_yardsticks``).  Returns the
+    kernels at its head dim 64, G = 2 (``_head_yardsticks``).  Returns the
     flash launches of its main paths: ``serve``, ``train_fwd``, ``train_bwd``."""
     import numpy as np
     import torch
@@ -1962,7 +2018,7 @@ def _moe_phase(seed: int, hw, failures: list[str]) -> dict[str, int]:
     torch.cuda.empty_cache()
     train_fwd, train_bwd = _moe_train(seed, failures)
     torch.cuda.empty_cache()
-    _moe_yardsticks(rng, hw, failures)
+    _head_yardsticks(MOE_ARCH, rng, hw, failures)
     return {"serve": serve, "train_fwd": train_fwd, "train_bwd": train_bwd}
 
 
@@ -2323,9 +2379,10 @@ def _moe_train(seed: int, failures: list[str]) -> tuple[int, int]:
     return fwd, bwd
 
 
-def _moe_yardsticks(rng, hw, failures: list[str]) -> None:
-    """The flash forward and backward at granite-moe's shapes (bf16, causal,
-    16/8 heads of 64): each against its plain version within
+def _head_yardsticks(arch: str, rng, hw, failures: list[str]) -> None:
+    """The flash forward and backward at ``arch``'s heads (bf16, causal; the
+    forward at the prefill shape, LM_BATCH x LM_PROMPT, the backward at the
+    training shape, TRAIN_BATCH x TRAIN_SEQ): each against its plain version within
     ``kernel_tolerance`` (the backward against each gradient's max, and
     twice bitwise), then timed (eager calls; the kernels also in a CUDA
     graph, where the wrapper's host cost does not show: at D=64 it is a
@@ -2339,7 +2396,7 @@ def _moe_yardsticks(rng, hw, failures: list[str]) -> None:
     from repro_torch.kernels import flash_attention as fa
 
     dev, bf16 = torch.device("cuda"), torch.bfloat16
-    cfg = get_config(MOE_ARCH)
+    cfg = get_config(arch)
     hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     atol, rtol = fa.kernel_tolerance(bf16)
 
@@ -2364,18 +2421,20 @@ def _moe_yardsticks(rng, hw, failures: list[str]) -> None:
     bound = roofline.attention_bound(batch=b, sq=s, skv=s, hq=hq, hkv=hkv, d=d, dtype=bf16,
                                      hw=hw) if hw is not None else None
     executed = fa.executed_flops(b, s, s, hq, hkv, d)
-    _emit({"yardstick": f"flash_attention bf16 causal B={b} S={s} Hq={hq} Hkv={hkv} D={d}",
-           "max_abs_err": diff.max().item(), "atol": atol, "rtol": rtol, "ok": ok,
-           "kernel_ms": kernel_ms, "kernel_graph_ms": kernel_graph_ms, "plain_ms": plain_ms,
-           "library_ms": library_ms, "library_graph_ms": library_graph_ms,
-           "library_call": "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)",
-           "flops": None if bound is None else bound.flops,
-           "bound_ms": None if bound is None else bound.bound_s * 1e3,
-           "bound_by": None if bound is None else bound.bound_by,
-           "kernel_TFLOPs": None if bound is None else bound.flops / kernel_ms / 1e9,
-           "bound_share": None if bound is None else bound.bound_s * 1e3 / kernel_ms,
-           "kernel_vs_library": kernel_ms / library_ms, "executed_flops": executed,
-           "executed_TFLOPs": executed / kernel_ms / 1e9})
+    forward = {"yardstick": f"flash_attention bf16 causal B={b} S={s} Hq={hq} Hkv={hkv} D={d}",
+               "arch": arch, "max_abs_err": diff.max().item(), "atol": atol, "rtol": rtol, "ok": ok,
+               "kernel_ms": kernel_ms, "kernel_graph_ms": kernel_graph_ms, "plain_ms": plain_ms,
+               "library_ms": library_ms, "library_graph_ms": library_graph_ms,
+               "library_call": "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)",
+               "flops": None if bound is None else bound.flops,
+               "bytes": None if bound is None else bound.bytes,
+               "bound_ms": None if bound is None else bound.bound_s * 1e3,
+               "bound_by": None if bound is None else bound.bound_by,
+               "kernel_TFLOPs": None if bound is None else bound.flops / kernel_ms / 1e9,
+               "bound_share": None if bound is None else bound.bound_s * 1e3 / kernel_ms,
+               "kernel_vs_library": kernel_ms / library_ms, "executed_flops": executed,
+               "executed_TFLOPs": executed / kernel_ms / 1e9}
+    _emit(forward)
     if not ok:
         failures.append(f"flash_attention vs plain at D={d} G={hq // hkv}: {diff.max().item()}")
     del q, k, v, got, want, diff, qt, kt, vt
@@ -2409,21 +2468,23 @@ def _moe_yardsticks(rng, hw, failures: list[str]) -> None:
     bound = roofline.attention_bwd_bound(batch=b, sq=s, skv=s, hq=hq, hkv=hkv, d=d, dtype=bf16,
                                          hw=hw) if hw is not None else None
     executed = fa.bwd_executed_flops(b, s, s, hq, hkv, d)
-    _emit({"yardstick": f"flash_attention_bwd bf16 causal B={b} S={s} Hq={hq} Hkv={hkv} D={d}",
-           "share_of_limit": shares, "bitwise_twice": all(
-               torch.equal(x, y) for x, y in zip(got, again)), "ok": ok,
-           "kernel_ms": kernel_ms, "kernel_graph_ms": kernel_graph_ms, "plain_ms": plain_ms,
-           "library_ms": library_ms,
-           "timing": "*_ms: eager calls; kernel_graph_ms: CUDA graph of 20 calls",
-           "library_call": "backward of F.scaled_dot_product_attention(is_causal=True, "
-                           "enable_gqa=True) (torch.autograd.grad)",
-           "flops": None if bound is None else bound.flops,
-           "bound_ms": None if bound is None else bound.bound_s * 1e3,
-           "bound_by": None if bound is None else bound.bound_by,
-           "kernel_TFLOPs": None if bound is None else bound.flops / kernel_ms / 1e9,
-           "bound_share": None if bound is None else bound.bound_s * 1e3 / kernel_ms,
-           "kernel_vs_library": kernel_ms / library_ms, "executed_flops": executed,
-           "executed_TFLOPs": executed / kernel_ms / 1e9})
+    backward = {"yardstick": f"flash_attention_bwd bf16 causal B={b} S={s} Hq={hq} Hkv={hkv} D={d}",
+               "arch": arch, "share_of_limit": shares, "bitwise_twice": all(
+                   torch.equal(x, y) for x, y in zip(got, again)), "ok": ok,
+               "kernel_ms": kernel_ms, "kernel_graph_ms": kernel_graph_ms, "plain_ms": plain_ms,
+               "library_ms": library_ms,
+               "timing": "*_ms: eager calls; kernel_graph_ms: CUDA graph of 20 calls",
+               "library_call": "backward of F.scaled_dot_product_attention(is_causal=True, "
+                               "enable_gqa=True) (torch.autograd.grad)",
+               "flops": None if bound is None else bound.flops,
+               "bytes": None if bound is None else bound.bytes,
+               "bound_ms": None if bound is None else bound.bound_s * 1e3,
+               "bound_by": None if bound is None else bound.bound_by,
+               "kernel_TFLOPs": None if bound is None else bound.flops / kernel_ms / 1e9,
+               "bound_share": None if bound is None else bound.bound_s * 1e3 / kernel_ms,
+               "kernel_vs_library": kernel_ms / library_ms, "executed_flops": executed,
+               "executed_TFLOPs": executed / kernel_ms / 1e9}
+    _emit(backward)
     if not ok:
         failures.append(f"flash_attention_bwd vs plain at D={d} G={hq // hkv}: {shares}")
 
@@ -2556,6 +2617,344 @@ def _mla_phase(seed: int, hw, failures: list[str]) -> dict:
             "bound_ms": None if bound is None else bound.bound_s * 1e3,
             "bound_by": None if bound is None else bound.bound_by,
             "library_ms": library["library_ms"]}
+
+
+def _zamba_phase(seed: int, hw, failures: list[str]) -> dict[str, int]:
+    """The zamba hybrid on the card at zamba2-1.2b's full width and depth:
+    serving (``_zamba_serve``), training (``_zamba_train``) and the flash
+    kernels at its shared block's heads, D=64, G = 1 (``_head_yardsticks``:
+    the forward at the prefill shape, the backward at the training shape).
+    Returns the flash launches of its main paths: ``serve``,
+    ``train_fwd``, ``train_bwd``."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed + 21)
+    serve = _zamba_serve(seed, rng, failures)
+    torch.cuda.empty_cache()
+    train_fwd, train_bwd = _zamba_train(seed, failures)
+    torch.cuda.empty_cache()
+    _head_yardsticks(ZAMBA_ARCH, rng, hw, failures)
+    return {"serve": serve, "train_fwd": train_fwd, "train_bwd": train_bwd}
+
+
+def _zamba_teacher(engine, toks_d) -> dict:
+    """The engine's prefill of the LM_PROMPT-token prompts, then its 31
+    decode steps on the served tokens ``toks_d``, each counted from 0,
+    against one cache-less teacher forward over the 1,055 served tokens
+    padded to 1,152 (9 chunks of 128): every layer is causal, so the
+    padding moves no logit at positions 1,023 .. 1,054.  A prefill with a
+    state over the 31 decoded tokens is no teacher: the shared block's
+    attention given a cache and more than one token attends over those
+    tokens alone (the reference's ``attention.apply`` does the same), and
+    one forward over 1,055 tokens is refused (no multiple of 128)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import mamba2, zamba
+
+    state = engine.init_state(LM_BATCH)
+    _reset_counts()
+    lg, state = engine.prefill({"tokens": toks_d[:, :LM_PROMPT]}, state)
+    torch.cuda.synchronize()
+    prefill_launches = _counts()[fa.LAUNCHES.name]
+    step_logits = [lg]
+    _reset_counts()
+    for t in range(LM_NEW - 1):
+        lg, state = engine.decode(toks_d[:, LM_PROMPT + t:LM_PROMPT + t + 1], state,
+                                  LM_PROMPT + t)
+        step_logits.append(lg)
+    torch.cuda.synchronize()
+    decode_launches = _counts()[fa.LAUNCHES.name]
+    served = torch.cat(step_logits, dim=1).float()  # (B, 32, V): positions 1023 .. 1054
+    del state, step_logits
+    n_real = LM_PROMPT + LM_NEW - 1
+    padded = torch.zeros((LM_BATCH, -(-n_real // mamba2.CHUNK) * mamba2.CHUNK), dtype=torch.int32,
+                         device=toks_d.device)
+    padded[:, :n_real] = toks_d[:, :n_real]
+    x, _ = zamba.forward(engine.params, {"tokens": padded}, engine.cfg)
+    teacher = zamba._logits(engine.params, x[:, LM_PROMPT - 1:n_real], engine.cfg).float()
+    diff = torch.abs(served - teacher)
+    found = {"dtype": engine.cfg.dtype, "teacher": f"one forward over {n_real} tokens padded "
+                                                  f"to {padded.shape[1]}",
+             "prefill_launches": prefill_launches, "decode_launches": decode_launches,
+             "finite": bool(torch.isfinite(served).all()) and bool(torch.isfinite(teacher).all()),
+             "max_abs_diff": diff.max().item(), "mean_abs_diff": diff.mean().item(),
+             "max_abs_diff_by_position": diff.amax(dim=(0, 2)).tolist(),
+             "scale": torch.abs(teacher).max().item(),
+             "token_agreement": float((served.argmax(-1) == teacher.argmax(-1)).float().mean())}
+    del x, served, teacher, diff, padded
+    torch.cuda.empty_cache()
+    return found
+
+
+def _zamba_serve(seed: int, rng, failures: list[str]) -> int:
+    """``ServeEngine`` on full-width, full-depth zamba2-1.2b (random bf16
+    weights from the seed, matrices at std 0.02, f32 Mamba2 states and KV
+    caches) over 4 x 1,024-token prompts + 32 greedy tokens, the counters
+    set to 0 just before and read just after (one flash launch per shared
+    application in prefill, 0 in decode); decode logits against a
+    teacher-forced pass (``_zamba_teacher``); the launches of one Mamba2
+    layer and of one shared application in prefill and in decode; a
+    profile of one prefill and 4 decode steps.  Then the same teacher check
+    at the reference's init rule in f32, held to the same tolerance; then
+    the card against the port's CPU path on ZAMBA_CUT in f32 (matrices at
+    std 0.02), logits and states.  Returns the flash launches of the
+    served generate.
+
+    Why std 0.02 for the served weights, as the MoE and MLA phases draw
+    them: at the reference's rule (1/sqrt(38) on the stacked Mamba2
+    leaves) decode parts from its teacher in bf16 by more than 0.1 of the
+    logits' range at this depth, in the reference as in the port
+    (tests/test_torch_bf16_teacher_gap.py measures both on the CPU at 13
+    of the 38 layers: the port's gap is at most the reference's, and f32
+    closes it in both)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import common, mamba2, registry, zamba
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    dev = torch.device("cuda")
+    cfg = get_config(ZAMBA_ARCH)
+    n_groups, k, tail = zamba._counts(cfg)
+    t0 = time.perf_counter()
+    model = _matrices_at(registry.get(cfg).init(torch.Generator(device=dev).manual_seed(seed),
+                                                cfg, torch.bfloat16), 0.02, seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    engine = ServeEngine(cfg, model, ServeConfig(max_len=LM_MAX_LEN), device=dev)
+    prompts = rng.integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), dtype=np.int32)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    tokens = engine.generate(prompts, LM_NEW)
+    first_s = time.perf_counter() - t0
+    counts = _counts()
+    launches = counts[fa.LAUNCHES.name]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    again = engine.generate(prompts, LM_NEW)
+    wall_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    tm = engine.last_timings
+    toks_d = torch.from_numpy(tokens).to(dev)
+    teacher = _zamba_teacher(engine, toks_d)
+    # the launches of one Mamba2 layer and one shared application, prefill and decode
+    lp, sp = engine.params["mamba_layers"][0], engine.params["shared_attn"]
+    h = torch.randn((LM_BATCH, LM_PROMPT, cfg.d_model), device=dev).to(torch.bfloat16)
+    st = mamba2.init_state(cfg, LM_BATCH, device=dev)
+    cache = engine.init_state(LM_BATCH)["attn"][0]
+    pos = torch.arange(LM_PROMPT, device=dev).expand(LM_BATCH, LM_PROMPT)
+    per_call = {
+        "mamba2_layer": {
+            "prefill": _profile(lambda: zamba._mamba_block(lp, h, cfg, st))["kernel_launches"],
+            "decode": _profile(lambda: zamba._mamba_block(lp, h[:, :1], cfg, st))[
+                "kernel_launches"]},
+        "shared_application": {
+            "prefill": _profile(lambda: zamba._shared_block(sp, h, cfg, pos, cache, 0))[
+                "kernel_launches"],
+            "decode": _profile(lambda: zamba._shared_block(
+                sp, h[:, :1], cfg, pos[:, :1] + LM_PROMPT, cache, LM_PROMPT))["kernel_launches"]}}
+    del h, st, cache, pos
+    # where the time goes: one prefill, and 4 decode steps from the filled state
+    prof_state = engine.init_state(LM_BATCH)
+    prof_prefill = _profile(lambda: engine.prefill({"tokens": toks_d[:, :LM_PROMPT]}, prof_state))
+
+    def four_steps():
+        for t in range(4):
+            engine.decode(toks_d[:, LM_PROMPT + t:LM_PROMPT + t + 1], prof_state, LM_PROMPT + t)
+
+    prof_decode = _profile(four_steps)
+    _emit({"profile": "zamba prefill (4 x 1,024 tokens)", **prof_prefill})
+    _emit({"profile": "zamba decode (4 steps)", **prof_decode})
+    n_params = common.count_params(engine.params)
+    del prof_state, engine, model
+    torch.cuda.empty_cache()
+    # the same teacher check at the reference's init rule in f32, on the served tokens
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    ref32 = _zamba_teacher(ServeEngine(cfg32, registry.get(cfg32).init(
+        torch.Generator(device=dev).manual_seed(seed), cfg32), ServeConfig(max_len=LM_MAX_LEN),
+        device=dev), toks_d)
+    torch.cuda.empty_cache()
+    new_tok = LM_BATCH * LM_NEW
+    row = {"row": "zamba serve", "arch": cfg.name, "n_layers": cfg.n_layers,
+           "groups_size_tail": [n_groups, k, tail], "d_model": cfg.d_model,
+           "mamba2_dims": list(mamba2.dims(cfg)), "ssm_conv": cfg.ssm_conv,
+           "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim], "d_ff": cfg.d_ff,
+           "vocab": cfg.vocab_size, "params": n_params,
+           "reduced": {}, "dtype": "bfloat16", "matrices_std": 0.02, "state_dtype": "float32",
+           "cache_dtype": "float32", "batch": LM_BATCH, "prompt": LM_PROMPT,
+           "new_tokens": LM_NEW, "max_len": LM_MAX_LEN,
+           "init_s": init_s, "first_generate_s": first_s,
+           "flash_launches": launches, "expected_launches": n_groups,
+           "prefill_launches": teacher["prefill_launches"],
+           "decode_launches": teacher["decode_launches"],
+           "other_launches": sum(counts.values()) - launches,
+           "prefill_kernel_launches": prof_prefill["kernel_launches"],
+           "decode_kernel_launches_per_step": prof_decode["kernel_launches"] / 4,
+           "kernel_launches_per_call": per_call,
+           "prefill_ms": tm["prefill_s"] * 1e3,
+           "decode_ms_per_token": tm["decode_s"] * 1e3 / tm["decode_steps"],
+           "generate_wall_ms": wall_s * 1e3, "new_tokens_per_s": new_tok / wall_s,
+           "decode_tokens_per_s": LM_BATCH * tm["decode_steps"] / tm["decode_s"],
+           "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / tm["prefill_s"],
+           "peak_memory_GB": peak_gb, "same_tokens_twice": bool(np.array_equal(tokens, again)),
+           "prefill_idle_share": prof_prefill["idle_share"],
+           "decode_idle_share": prof_decode["idle_share"],
+           "teacher": teacher, "teacher_tol_of_scale": LM_TEACHER_TOL,
+           "reference_rule_f32_teacher": ref32}
+    row["ok"] = (launches == n_groups and teacher["prefill_launches"] == n_groups
+                 and teacher["decode_launches"] == 0 and row["other_launches"] == 0
+                 and tokens.shape == (LM_BATCH, LM_PROMPT + LM_NEW)
+                 and all(t["finite"] and t["max_abs_diff"] <= LM_TEACHER_TOL * t["scale"]
+                         for t in (teacher, ref32)))
+    _emit(row)
+    if not row["ok"]:
+        failures.append(f"zamba serve main path: {row}")
+    del toks_d
+    torch.cuda.empty_cache()
+
+    # -- the card against the port's CPU path: full width, ZAMBA_CUT, f32 ---------------
+    # (the weights are drawn on the card, which is fast, and copied to the CPU)
+    cfg2 = dataclasses.replace(cfg, dtype="float32", **ZAMBA_CUT)
+    _serve_cross_device("zamba cross-device", cfg2, _matrices_at(
+        registry.get(cfg2).init(torch.Generator(device=dev).manual_seed(seed), cfg2), 0.02, seed),
+        rng, failures)
+    return launches
+
+
+def _zamba_train(seed: int, failures: list[str]) -> tuple[int, int]:
+    """``train.loop.train`` on full-width, full-depth zamba2-1.2b (f32 master
+    weights and moments, bf16 compute, each Mamba2 layer rematted) for
+    TRAIN_STEPS steps, the counters set to 0 just before and read just after
+    (one flash forward and one backward launch per shared application a
+    step: the shared block is not rematted, as in the reference); one more
+    step twice from one state, bitwise; a profiled step and the gradient /
+    optimizer split; one step's loss and gradients, the card against the
+    CPU on ZAMBA_CUT in f32 (matrices at std 0.02); 4 steps straight against
+    2 + checkpoint + restore + 2, bitwise.  Returns the flash forward and
+    backward launches of the training run."""
+    import dataclasses
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, PipelineState, TokenPipeline, make_train_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import common, registry, zamba
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import loop, train_step
+
+    dev = torch.device("cuda")
+    cfg = get_config(ZAMBA_ARCH)
+    n_groups = zamba._counts(cfg)[0]
+    opt = AdamWConfig(peak_lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+    tcfg = loop.TrainConfig(steps=TRAIN_STEPS, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                            log_every=1, seed=seed, opt=opt)
+    log_lines: list[str] = []
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = loop.train(cfg, tcfg, log=log_lines.append, device=dev)
+    wall_s = time.perf_counter() - t0
+    counts = _counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    fwd, bwd = counts[fa.LAUNCHES.name], counts[fa.BWD_LAUNCHES.name]
+    for line in log_lines:
+        print(f"zamba train: {line}")
+    hist, step_ms = out["history"], out["step_ms"]
+    for h, ms in zip(hist, step_ms):
+        _emit({"zamba_train_step": h["step"], "loss": h["loss"], "grad_norm": h["grad_norm"],
+               "lr": h["lr"], "step_ms": ms})
+    params, opt_state = out["params"], out["opt_state"]
+    del out
+    n_params = common.count_params(params)
+
+    # one more step twice from the same state: the same bits
+    step_fn = train_step.make_train_step(cfg, opt, q_chunk=512, kv_chunk=1024)
+    pipe = TokenPipeline(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=seed))
+    batch, _ = make_train_batch(pipe, PipelineState(step=TRAIN_STEPS), cfg, device=dev)
+    start = _snapshot(params, opt_state)
+    _, _, m1 = step_fn(params, opt_state, batch)
+    first = _snapshot(params, opt_state)
+    with torch.no_grad():
+        for t, s in zip(_live(params, opt_state), start):
+            t.copy_(s)
+    _, _, m2 = step_fn(params, opt_state, batch)
+    twice = (all(torch.equal(a, b) for a, b in zip(first, _live(params, opt_state)))
+             and all(torch.equal(m1[k], m2[k]) for k in m1))
+    _emit({"row": "zamba train same bits twice", "arch": cfg.name, "tensors": len(first),
+           "loss": m1["loss"].item(), "bitwise": twice})
+    if not twice:
+        failures.append("zamba train: one step twice from one state differs")
+    del start, first
+    torch.cuda.empty_cache()
+    # where the time goes: one more step under the profiler (its flash
+    # launches counted), then the split
+    _reset_counts()
+    prof = _profile(lambda: step_fn(params, opt_state, batch), top=10)
+    prof_counts = _counts()
+    _emit({"profile": f"zamba train step ({TRAIN_BATCH} x {TRAIN_SEQ} tokens)", **prof})
+    grad_fn = train_step.make_grad_fn(cfg, q_chunk=512, kv_chunk=1024)
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    marks[0].record()
+    grads, _ = grad_fn(params, batch)
+    marks[1].record()
+    adamw.update(grads, opt_state, params, opt)
+    marks[2].record()
+    torch.cuda.synchronize()
+    grad_ms, opt_ms = marks[0].elapsed_time(marks[1]), marks[1].elapsed_time(marks[2])
+    del params, opt_state, batch, step_fn, grads, grad_fn
+    torch.cuda.empty_cache()
+
+    losses, gnorms = [h["loss"] for h in hist], [h["grad_norm"] for h in hist]
+    start_nll = math.log(cfg.vocab_size)
+    median_ms = float(np.median(step_ms[1:]))
+    steps = len(hist)
+    row = {"row": "zamba train", "arch": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab_size, "params": n_params, "reduced": {},
+           "master_dtype": "float32", "moment_dtype": opt.moment_dtype,
+           "compute_dtype": cfg.dtype, "remat": "each Mamba2 layer", "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "steps": steps, "losses": losses, "grad_norms": gnorms,
+           "step_ms": step_ms, "step_ms_median_2_5": median_ms,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / median_ms * 1e3,
+           "split_grad_ms": grad_ms, "split_optimizer_ms": opt_ms,
+           "peak_memory_GB": peak_gb, "wall_s": wall_s,
+           "flash_launches": fwd, "flash_bwd_launches": bwd,
+           "flash_launches_per_step": fwd / steps, "flash_bwd_launches_per_step": bwd / steps,
+           "expected_per_step": [n_groups, n_groups],
+           "other_launches": sum(counts.values()) - fwd - bwd,
+           "profiled_step_flash_launches": [prof_counts[fa.LAUNCHES.name],
+                                            prof_counts[fa.BWD_LAUNCHES.name]],
+           "profiled_kernel_launches": prof["kernel_launches"],
+           "profiled_launches_by_class": prof["launches_by_class"],
+           "idle_share": prof["idle_share"], "start_loss_target": start_nll,
+           "start_loss_tol": TRAIN_START_TOL}
+    row["ok"] = (steps == TRAIN_STEPS and all(math.isfinite(x) for x in losses + gnorms)
+                 and abs(losses[0] - start_nll) <= TRAIN_START_TOL
+                 and fwd == n_groups * steps and bwd == n_groups * steps
+                 and row["other_launches"] == 0)
+    _emit(row)
+    if not row["ok"]:
+        failures.append(f"zamba train main path: {row}")
+
+    # -- one step's loss and gradients: the card against the CPU, ZAMBA_CUT, f32 --------
+    cfg2 = dataclasses.replace(cfg, dtype="float32", **ZAMBA_CUT)
+    _train_cross_device("zamba train cross-device", cfg2, common.trainable(_matrices_at(
+        registry.get(cfg2).init(torch.Generator(device=dev).manual_seed(seed), cfg2), 0.02,
+        seed).cpu()), seed, failures)
+
+    # -- resume: 4 steps straight against 2 + checkpoint + restore + 2, on the card ----
+    _resume_check("zamba train resume", cfg2, seed, failures)
+    return fwd, bwd
 
 
 MULTISLAB_FORMS = [  # (label, hosts, layout, dtype, accum, compression)

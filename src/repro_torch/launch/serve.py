@@ -4,12 +4,15 @@ config of an architecture with random weights:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b --device cuda
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-1b-a400m --device cuda
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v3-671b --device cuda
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b --device cuda
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --device cpu
 
 The dense and MoE families run (granite-moe-1b-a400m: 32 experts, top-8
 softmax routing; deepseek-v3-671b: MLA, a leading dense layer, sigmoid
-aux-free routing and a shared expert); the hybrid, SSM and whisper
-families raise, naming the ROADMAP item that brings them.  On the card an
+aux-free routing and a shared expert), and so does the zamba hybrid
+(zamba2-1.2b: Mamba2 layers and one shared attention block; a prompt of at
+most 128 tokens, or a multiple of 128, the SSD's chunk); the SSM and
+whisper families raise, naming the ROADMAP item that brings them.  On the card an
 MLA config keeps deepseek-v3's head dims (qk 128 + 64, v 128), the flash
 kernel's one MLA pair (``mla.with_kernel_heads``); on the CPU it is
 reduced like the others.

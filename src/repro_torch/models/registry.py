@@ -4,8 +4,9 @@ of reference weights (port of ``repro.models.registry``).
 ``registry.get(cfg)`` returns a :class:`ModelApi` with
 spec/init/loss_fn/prefill/decode_step/init_state.  The decoder-only
 transformer families (dense, MoE, the VLM stub; GQA or MLA attention,
-deepseek-v3's) are served and trained; whisper, zamba and xlstm raise,
-naming the ROADMAP item that brings them.
+deepseek-v3's) and the zamba hybrid (Mamba2 layers and one shared
+attention block) are served and trained; whisper and xlstm raise, naming
+the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.models import common, transformer
+from repro_torch.models import common, transformer, zamba
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,6 +28,9 @@ class ModelApi:
     prefill: Callable[..., Any]
     decode_step: Callable[..., Any]
     init_state: Callable[..., Any]
+    # the port's model from the reference's tree, and that tree's stacked keys
+    from_tree: Callable[..., Any]
+    stack_sizes: Callable[..., Any]
 
 
 _TRANSFORMER = ModelApi(
@@ -36,18 +40,26 @@ _TRANSFORMER = ModelApi(
     prefill=transformer.prefill,
     decode_step=transformer.decode_step,
     init_state=transformer.init_state,
+    from_tree=transformer.from_tree,
+    stack_sizes=transformer.stack_sizes,
 )
 
-_LATER = "is not ported yet (ROADMAP Queue 1, the hybrid, SSM and whisper item)"
+_ZAMBA = ModelApi(
+    spec=zamba.spec, init=zamba.init, loss_fn=zamba.loss_fn,
+    prefill=zamba.prefill, decode_step=zamba.decode_step, init_state=zamba.init_state,
+    from_tree=zamba.from_tree, stack_sizes=zamba.stack_sizes,
+)
 
 
 def get(cfg: ModelConfig) -> ModelApi:
     if cfg.is_encoder_decoder:
-        raise NotImplementedError(f"{cfg.name}: the whisper encoder-decoder {_LATER}")
+        raise NotImplementedError(f"{cfg.name}: the whisper encoder-decoder is not ported yet "
+                                  "(ROADMAP Queue 1, the Whisper item)")
     if cfg.hybrid_attn_every:
-        raise NotImplementedError(f"{cfg.name}: the zamba hybrid {_LATER}")
+        return _ZAMBA
     if cfg.family == "ssm":
-        raise NotImplementedError(f"{cfg.name}: the xlstm family {_LATER}")
+        raise NotImplementedError(f"{cfg.name}: the xlstm family is not ported yet "
+                                  "(ROADMAP Queue 1, the xLSTM item)")
     return _TRANSFORMER
 
 
@@ -98,9 +110,10 @@ def params_from_reference(
 
     Args:
         cfg: the architecture.
-        tree: the reference's parameter tree (``transformer.init``'s nested
-            dict) with numpy arrays at the leaves; the stacked ``layers``
-            and ``moe_layers`` leaves are split per layer.
+        tree: the reference's parameter tree (its family's ``init``'s
+            nested dict) with numpy arrays at the leaves; the stacked
+            leaves (``layers`` and ``moe_layers``, or zamba's
+            ``mamba_layers``) are split per layer.
         dtype: the port's parameter dtype; None keeps each array's dtype.
         device: where the port's parameters live.
 
@@ -123,16 +136,16 @@ def params_from_reference(
             raise ValueError(f"{'/'.join(path)}: reference shape {x.shape}, port spec {s.shape}")
         t = torch.from_numpy(np.array(x)).to(device=device)  # a writable copy
         common.tree_set(out, path, t if dtype is None else t.to(dtype))
-    return transformer.from_tree(cfg, out)
+    return get(cfg).from_tree(cfg, out)
 
 
 def params_to_reference(
     cfg: ModelConfig, params: torch.nn.Module | dict[str, torch.Tensor],
 ) -> dict[str, Any]:
     """The inverse of :func:`params_from_reference`: the reference's tree
-    (``transformer.spec``'s nested dict, each stack's per-layer leaves,
-    ``layers`` and ``moe_layers``, stacked over a leading layer dim in
-    layer order) with numpy arrays at the leaves.
+    (its family's ``spec``'s nested dict, each stack's per-layer leaves,
+    ``layers`` and ``moe_layers`` or ``mamba_layers``, stacked over a
+    leading layer dim in layer order) with numpy arrays at the leaves.
 
     Args:
         cfg: the architecture.
@@ -148,7 +161,7 @@ def params_to_reference(
     named = dict(params.named_parameters()) if isinstance(params, torch.nn.Module) else dict(params)
     out: dict[str, Any] = {}
     used = set()
-    stacks = transformer.stack_sizes(cfg)
+    stacks = get(cfg).stack_sizes(cfg)
     for path, s in common.tree_leaves(get(cfg).spec(cfg)):
         stacked = path[0] in stacks
         if stacked:

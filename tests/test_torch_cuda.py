@@ -7,6 +7,7 @@ without JAX:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 import copy
+import dataclasses
 
 import numpy as np
 import pytest
@@ -17,7 +18,7 @@ from repro_torch.core.su3.layouts import COMP_ROW_INDICES
 from repro_torch.core.su3.plan import verify_tolerance
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, su3_matmul
-from repro_torch.models import mla, registry
+from repro_torch.models import common, mamba2, mla, registry, zamba
 from repro_torch.serve.engine import ServeConfig, ServeEngine
 
 S = 256
@@ -363,6 +364,7 @@ FLASH_SHAPES = [  # (batch, sq, skv, hq, hkv, d, causal, q_offset)
     (1, 40, 104, 4, 1, 128, True, 64),  # queries that continue a 64-token prefix
     (2, 64, 64, 4, 2, 32, False, 0),  # non-causal, square
     (4, 1024, 1024, 16, 8, 64, True, 0),  # granite-moe-1b's prefill: D=64, G=2
+    (4, 1024, 1024, 32, 32, 64, True, 0),  # zamba2-1.2b's shared-block prefill: D=64, G=1
 ]
 
 
@@ -572,6 +574,8 @@ BWD_SHAPES = [  # (B, Sq, Skv, Hq, Hkv, D, causal, q_offset)
     (1, 130, 130, 8, 2, 128, True, 0),  # a ragged second tile at D=128
     (1, 77, 77, 12, 4, 128, True, 0),  # G=3: Sq * G = 231, no multiple of any row tile
     (2, 1024, 1024, 16, 8, 64, True, 0),  # granite-moe-1b's training shape: D=64, G=2
+    (4, 1024, 1024, 32, 32, 64, True, 0),  # zamba2-1.2b's shared block: D=64, G=1
+    (2, 1024, 1024, 32, 32, 64, True, 0),  # zamba2-1.2b's training shape: D=64, G=1
 ]
 
 
@@ -893,3 +897,110 @@ def test_cuda_moe_train_loop_resumes_bitwise(cuda_device, tmp_path):
     for (n, a), (_, b) in zip(straight["params"].named_parameters(),
                               resumed["params"].named_parameters()):
         assert a.is_cuda and torch.equal(a, b), n
+
+
+# -- the zamba hybrid ----------------------------------------------------------------
+
+
+def _zamba_reduced():
+    """zamba2-1.2b reduced (5 Mamba2 layers, the shared block after every 2:
+    2 applications, a tail layer; attention D=32, G=2) with matrices at std
+    0.02: the reference's init rule (std 1/sqrt(5) on the stacked Mamba2
+    leaves) drives dt and the SSD's products to magnitudes where f32
+    against f64 on the CPU alone parts by 1e-4 of the logits and 1e-3 of a
+    gradient; at 0.02 by ~1e-6."""
+    cfg = get_config("zamba2-1.2b").reduced()
+    model = registry.get(cfg).init(torch.Generator().manual_seed(0), cfg)
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.dim() >= 2:
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+    return cfg, model
+
+
+def _max_share(got: torch.Tensor, want: torch.Tensor) -> float:
+    return ((got.cpu().double() - want.double()).abs().max() / want.double().abs().max()).item()
+
+
+@pytest.mark.cuda
+def test_cuda_zamba_reduced_serves_like_the_cpu(cuda_device):
+    """A 20-token prefill (one flash launch per shared application) and 5
+    decode steps (none) of the CPU's tokens, on the card and on the CPU, f32,
+    TF32 off: the logits and every state leaf (the Mamba2 layers' ssm and
+    conv, the applications' k and v) within 1e-3 of their max."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg, model = _zamba_reduced()
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 20), dtype=np.int32)
+    cpu = ServeEngine(cfg, copy.deepcopy(model), ServeConfig(max_len=32), device="cpu")
+    card = ServeEngine(cfg, model, ServeConfig(max_len=32), device=cuda_device)
+    toks = torch.from_numpy(cpu.generate(prompts, 6))
+    found = []
+    for eng in (cpu, card):
+        t = toks.to(eng.device)
+        state = eng.init_state(2)
+        before = fa.LAUNCHES.count
+        lg, state = eng.prefill({"tokens": t[:, :20]}, state)
+        prefill_launches = fa.LAUNCHES.count - before
+        out = [lg]
+        for i in range(5):
+            lg, state = eng.decode(t[:, 20 + i:21 + i], state, 20 + i)
+            out.append(lg)
+        found.append((torch.cat(out, 1), state, prefill_launches, fa.LAUNCHES.count - before))
+    (lc, sc, _, _), (lg, sg, pre, total) = found
+    assert (pre, total) == (zamba._counts(cfg)[0], zamba._counts(cfg)[0]) == (2, 2)
+    assert _max_share(lg, lc) <= 1e-3
+    for key, names in (("mamba", ("ssm", "conv")), ("attn", ("k", "v"))):
+        for i, (a, b) in enumerate(zip(sg[key], sc[key])):
+            for name in names:
+                assert a[name].is_cuda and _max_share(a[name], b[name]) <= 1e-3, (key, i, name)
+
+
+@pytest.mark.cuda
+def test_cuda_zamba_reduced_train_step_matches_the_cpu(cuda_device):
+    """One step's loss and gradients through the kernels (the shared block's
+    flash forward and backward once per application; the Mamba2 layers are
+    rematted, the block is not) against the CPU's plain versions, f32, TF32
+    off: within 1e-4 (loss, relative) and 1e-3 of each leaf's max."""
+    from repro_torch.data.pipeline import DataConfig, PipelineState, TokenPipeline, make_train_batch
+    from repro_torch.train import train_step
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg, model = _zamba_reduced()
+    model = common.trainable(model)
+    card = copy.deepcopy(model).to(cuda_device)
+    pipe = TokenPipeline(DataConfig(cfg.vocab_size, 128, 2, seed=1))
+    grad_fn = train_step.make_grad_fn(cfg, q_chunk=64, kv_chunk=64)
+    grads, metrics = grad_fn(model, make_train_batch(pipe, PipelineState(), cfg)[0])
+    fwd, bwd = fa.LAUNCHES.count, fa.BWD_LAUNCHES.count
+    cgrads, cmetrics = grad_fn(card, make_train_batch(pipe, PipelineState(), cfg,
+                                                      device=cuda_device)[0])
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES.count - fwd, fa.BWD_LAUNCHES.count - bwd) == (2, 2)
+    assert abs(cmetrics["loss"].item() - metrics["loss"].item()) <= 1e-4 * metrics["loss"].item()
+    for name, g in grads.items():
+        assert _max_share(cgrads[name], g) <= 1e-3, name
+
+
+@pytest.mark.cuda
+def test_cuda_mamba2_decode_state_matches_the_cpu(cuda_device):
+    """zamba2-1.2b's Mamba2 mixer at full width (d_model 2,048, 64 heads of
+    64, state 64) in f32: a 128-token prefill with a state, then one decode
+    step, on the card and on the CPU: the outputs and the ssm and conv
+    states within 1e-4 of their max (matrices at std 0.02)."""
+    cfg = dataclasses.replace(get_config("zamba2-1.2b"), dtype="float32")
+    params = common.init_params(mamba2.spec(cfg), torch.Generator().manual_seed(2))
+    gen = torch.Generator().manual_seed(3)
+    params = {k: (torch.randn(v.shape, generator=gen) * 0.02 if v.dim() >= 2 else v)
+              for k, v in params.items()}
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (2, 129, cfg.d_model), dtype=np.float32))
+    found = []
+    for dev in ("cpu", cuda_device):
+        p = {k: v.to(dev) for k, v in params.items()}
+        st = mamba2.init_state(cfg, 2, device=dev)
+        y1, st = mamba2.apply(p, x[:, :128].to(dev), cfg, state=st)
+        y2, st = mamba2.apply(p, x[:, 128:].to(dev), cfg, state=st)
+        found.append((y1, y2, st["ssm"], st["conv"]))
+    for name, a, b in zip(("prefill", "decode", "ssm", "conv"), found[1], found[0]):
+        assert a.is_cuda and _max_share(a, b) <= 1e-4, name

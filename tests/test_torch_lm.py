@@ -29,7 +29,7 @@ from repro.serve.engine import ServeEngine as JServeEngine
 from repro_torch.configs import ALL_ARCHS, SHAPES, get_config, shape_applicable
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.launch import serve as serve_cli
-from repro_torch.models import attention, common, ffn, registry, transformer
+from repro_torch.models import attention, common, ffn, registry, transformer, zamba
 from repro_torch.serve.engine import ServeConfig, ServeEngine
 
 ARCHS = ["qwen3-4b", "yi-6b"]
@@ -268,9 +268,12 @@ def test_init_follows_the_reference_rule():
 
 
 def test_unported_families_raise_naming_their_item():
-    for arch in ("whisper-tiny", "zamba2-1.2b", "xlstm-125m"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for arch, item in (("whisper-tiny", "Whisper"), ("xlstm-125m", "xLSTM")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1, the {item} item"):
             registry.get(get_config(arch).reduced())
+    # the zamba hybrid is ported: the registry gives its API
+    assert registry.get(get_config("zamba2-1.2b").reduced()) is registry._ZAMBA
+    assert registry.get(get_config("zamba2-1.2b")).loss_fn is zamba.loss_fn
     # deepseek-v3 (MLA) is ported: its spec and its loss build
     cfg = get_config("deepseek-v3-671b").reduced()
     spec = registry.get(cfg).spec(cfg)
