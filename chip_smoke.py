@@ -69,7 +69,7 @@ source, started together) and, at the paper's L=32 lattice:
     against the CPU at 2 dense layers of full width in f32 and at the
     reduced config with deepseek-v3's head dims (routing equal); the
     kernel at the prefill shape beside SDPA and its bound;
-  * the zamba phase, last: full-width, full-depth zamba2-1.2b (38 Mamba2
+  * the zamba phase: full-width, full-depth zamba2-1.2b (38 Mamba2
     layers, one shared attention block applied after every 6: 6
     applications at 32/32 heads of 64, G = 1; 1.17 B parameters, nothing
     cut; random weights from the seed, f32 states) through ``ServeEngine``
@@ -84,6 +84,29 @@ source, started together) and, at the paper's L=32 lattice:
     and gradients; resume bitwise; the flash forward (B=4) and backward
     (B=2, the training shape) at S=1,024, H=32, D=64, G=1 against their
     plain versions, SDPA and their bounds;
+  * the xLSTM phase: full-width, full-depth xlstm-125m (12 blocks, sLSTM at
+    5 and 11; 212.0 M parameters by the spec, nothing cut; bf16, f32 cells
+    and states; no kernel of the port: both cells step through time in
+    plain PyTorch) through ``ServeEngine`` as above (decode against one
+    state-less teacher forward over the served tokens; the launches of one
+    mLSTM and one sLSTM block per phase) and ``train.loop.train`` as above
+    (each block rematted; one step twice bitwise); the card against the
+    CPU on a full-width cut of one mLSTM and one sLSTM block in f32:
+    logits, every state leaf, one step's loss and gradients; resume
+    bitwise;
+  * the whisper phase, last: the flash forward and backward against their
+    plain versions at whisper-tiny's shapes (D=64, G = 1: non-causal over
+    1,500 frames, cross-attention with Sq != Skv = 1,500, the decoder's
+    causal self-attention); full-width, full-depth whisper-tiny (4 + 4
+    layers, 1,500 stub frames, 56.4 M parameters, nothing cut) through
+    ``ServeEngine`` (4 x (1,500 frames, 16 tokens) + 32 greedy tokens, bf16,
+    matrices at std 0.02; 12 flash launches in prefill, none in decode;
+    decode against one cache-less teacher pass) and ``train.loop.train``
+    (2 x (1,500 frames, 448 tokens), 5 steps; 20 flash forward and 12
+    backward launches a step; one step twice bitwise); the card against the
+    CPU on the whole model in f32; resume bitwise; the kernels' yardsticks
+    at the encoder's and the cross-attention's prefill and at training's
+    three shapes;
   * times each kernel against its bound, its plain version and, where one
     PyTorch call computes the same function, that call (every time in the
     kernels line from eager calls; the flash kernel and SDPA also in a CUDA
@@ -113,6 +136,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import pathlib
 import re
@@ -209,6 +233,43 @@ ZAMBA_ARCH = "zamba2-1.2b"
 # the card against the CPU: full width, 2 Mamba2 layers, one shared
 # application and a tail layer, f32
 ZAMBA_CUT = {"n_layers": 3, "hybrid_attn_every": 2}
+# the xLSTM phase: xlstm-125m at full width and depth (12 blocks of d_model
+# 768, d_inner 1,536, 4 heads of 384, conv 4; sLSTM at blocks 5 and 11; vocab
+# 50,304; 212.0 M parameters by the spec), served and trained at the LM and
+# training shapes above; nothing cut.  It reaches no kernel of the port.
+XLSTM_ARCH = "xlstm-125m"
+# a training step makes ~1 M eager launches (30-50 s); 3 steps instead of 5,
+# and the step twice on a quarter of the tokens, keep the whole smoke inside
+# its time limit
+XLSTM_TRAIN_STEPS = 3
+XLSTM_PROFILE_SEQ = 256  # the tokens a row of the step twice and of the profiled step
+XLSTM_CUTS = {"train_steps": f"{TRAIN_STEPS} -> 3: a step takes tens of seconds (host-bound)",
+              "step_twice_seq": f"{TRAIN_SEQ} -> {XLSTM_PROFILE_SEQ}: the same, a quarter of it"}
+# the card against the CPU: full width, one mLSTM block then one sLSTM block,
+# f32, over 64 tokens
+XLSTM_CUT = {"n_layers": 2, "slstm_layers": (1,)}
+XLSTM_CROSS_SEQ = 64
+# the whisper phase: whisper-tiny at full width and depth (4 encoder layers
+# over 1,500 stub frames, 4 decoder layers; d_model 384, 6 heads of 64, d_ff
+# 1,536, vocab 51,865; 56.4 M parameters), nothing cut
+WHISPER_ARCH = "whisper-tiny"
+WHISPER_PROMPT = 16  # tokens of each served prompt, after its 1,500 frames
+WHISPER_MAX_LEN = 64
+WHISPER_TRAIN_SEQ = 448  # Whisper's published decoder context (max_decode_len)
+WHISPER_FORMS = [  # as FLASH_FORMS: 6 heads of 64, G = 1
+    ("whisper encoder bf16", 4, 1500, 1500, 6, 6, 64, False, 0, "bfloat16"),
+    ("whisper encoder f32", 1, 1500, 1500, 6, 6, 64, False, 0, "float32"),
+    ("whisper cross prefill bf16", 4, 16, 1500, 6, 6, 64, False, 0, "bfloat16"),
+    ("whisper decoder self prefill bf16", 4, 16, 16, 6, 6, 64, True, 0, "bfloat16"),
+    ("whisper cross prefill f32", 1, 64, 1500, 6, 6, 64, False, 0, "float32"),
+    ("whisper encoder training bf16", 2, 1500, 1500, 6, 6, 64, False, 0, "bfloat16"),
+    ("whisper cross training bf16", 2, 448, 1500, 6, 6, 64, False, 0, "bfloat16"),
+    ("whisper decoder self training bf16", 2, 448, 448, 6, 6, 64, True, 0, "bfloat16"),
+    ("whisper cross training f32", 2, 128, 1500, 6, 6, 64, False, 0, "float32"),
+]
+# the forms whose backward is checked too: training's shapes, and the f32
+# ones of the card-against-CPU training check
+WHISPER_BWD_FORMS = [f for f in WHISPER_FORMS if "training" in f[0] or f[0].endswith("encoder f32")]
 FLASH_FORMS = [  # (label, batch, sq, skv, hq, hkv, d, causal, q_offset, dtype)
     ("main path bf16 causal", 4, 1024, 1024, 32, 8, 128, True, 0, "bfloat16"),
     ("main path f32 causal", 4, 1024, 1024, 32, 8, 128, True, 0, "float32"),
@@ -663,6 +724,29 @@ def main(argv: list[str] | None = None) -> int:
     flash["launches"] += zamba_launches["serve"] + zamba_launches["train_fwd"]
     flash_bwd["zamba_train_launches"] = zamba_launches["train_bwd"]
     flash_bwd["launches"] += zamba_launches["train_bwd"]
+
+    # -- 5g. the xLSTM phase: xlstm-125m served and trained (no kernel of the port) -----
+    # its time loops allocate millions of short-lived objects: keep the earlier
+    # phases' survivors out of the collector's scans
+    torch.cuda.empty_cache()
+    gc.collect()
+    gc.freeze()
+    t0 = time.perf_counter()
+    _xlstm_phase(args.seed, hw, failures)
+    _emit({"phase": "xlstm", "seconds": time.perf_counter() - t0})
+
+    # -- 5h. the whisper phase: whisper-tiny served and trained, the kernels at its shapes --
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    whisper = _whisper_phase(args.seed, hw, failures)
+    _emit({"phase": "whisper", "seconds": time.perf_counter() - t0})
+    flash["whisper_serve_launches"] = whisper["serve"]
+    flash["whisper_train_launches"] = whisper["train_fwd"]
+    flash["launches"] += whisper["serve"] + whisper["train_fwd"]
+    flash["max_abs_err"] = max(flash["max_abs_err"], whisper["fwd_err"])
+    flash_bwd["whisper_train_launches"] = whisper["train_bwd"]
+    flash_bwd["launches"] += whisper["train_bwd"]
+    flash_bwd["max_abs_err"] = max(flash_bwd["max_abs_err"], whisper["bwd_err"])
 
     # -- 6. the kernels line -----------------------------------------------------------
     _emit({"kernels": [{
@@ -1289,9 +1373,9 @@ def _megakernel_yardsticks(u, rng, hw) -> dict:
             "bound_by": None if bound is None else bound.bound_by}
 
 
-def _flash_checks(rng, failures: list[str]) -> float:
+def _flash_checks(rng, failures: list[str], forms=FLASH_FORMS) -> float:
     """The flash kernel against its plain version on the card in every form
-    of FLASH_FORMS, within ``kernel_tolerance`` (f32 summation order; one
+    of ``forms``, within ``kernel_tolerance`` (f32 summation order; one
     bf16 output rounding).  Returns the largest absolute error."""
     import numpy as np
     import torch
@@ -1299,7 +1383,7 @@ def _flash_checks(rng, failures: list[str]) -> float:
     from repro_torch.kernels import flash_attention as fa
 
     dev, worst = torch.device("cuda"), 0.0
-    for label, b, sq, skv, hq, hkv, d, causal, q_offset, dtype in FLASH_FORMS:
+    for label, b, sq, skv, hq, hkv, d, causal, q_offset, dtype in forms:
         dt = getattr(torch, dtype)
         q, k, v = (torch.from_numpy(rng.standard_normal(shp, dtype=np.float32)).to(dev, dt)
                    for shp in ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d)))
@@ -1321,19 +1405,22 @@ def _flash_checks(rng, failures: list[str]) -> float:
     return worst
 
 
-def _profile(fn, top: int = 6) -> dict:
+def _profile(fn, top: int = 6, cpu: bool = True) -> dict:
     """One call of ``fn`` under ``torch.profiler``: its wall time between
     CUDA events, the device time summed over its kernels, the device's idle
     share of the wall, device ms and launches by kernel class, and the
     kernels that took the most device time (by name, ms).  Device time is
-    None where the profiler records none."""
+    None where the profiler records none.  ``cpu=False`` records the
+    device's activity alone: a call of a million eager launches (an xLSTM
+    training step) would record several host events for each."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         start.record()
         fn()
         end.record()
@@ -1544,10 +1631,11 @@ def _state_leaves(state, prefix: str = "") -> list:
 
 def _serve_cross_device(row_name: str, cfg2, model2, rng, failures: list[str]) -> None:
     """The card against the port's CPU path on ``model2`` (``cfg2`` in f32,
-    TF32 off): 8 greedy tokens after a 64-token prompt on each, then the
-    CPU's tokens prefilled and decoded on both: logits within LM_CROSS_TOL,
-    every leaf of the state after the last decode step (KV or latent
-    caches, Mamba2 states) within LM_CROSS_TOL of its largest magnitude,
+    TF32 off): 8 greedy tokens after a 64-token prompt on each (an
+    encoder-decoder's on the same seeded frames), then the CPU's tokens
+    prefilled and decoded on both: logits within LM_CROSS_TOL, every leaf
+    of the state after the last decode step (KV or latent caches, Mamba2 or
+    xLSTM states, cross K/V) within LM_CROSS_TOL of its largest magnitude,
     and every MoE layer's expert choices (``moe._route``) equal."""
     import copy
 
@@ -1560,15 +1648,20 @@ def _serve_cross_device(row_name: str, cfg2, model2, rng, failures: list[str]) -
     cpu = ServeEngine(cfg2, copy.deepcopy(model2), ServeConfig(max_len=80), device="cpu")
     card = ServeEngine(cfg2, model2, ServeConfig(max_len=80), device=torch.device("cuda"))
     prompt2 = rng.integers(0, cfg2.vocab_size, (1, 64), dtype=np.int32)
-    cpu_tokens = cpu.generate(prompt2, 8)
-    card_tokens = card.generate(prompt2, 8)
+    extras = {}
+    if cfg2.is_encoder_decoder:
+        extras["frames"] = rng.standard_normal((1, cfg2.encoder_len, cfg2.d_model),
+                                               dtype=np.float32)
+    cpu_tokens = cpu.generate(prompt2, 8, extras=extras or None)
+    card_tokens = card.generate(prompt2, 8, extras=extras or None)
     logits, routes, states = [], [], []
     for eng in (cpu, card):
         t = torch.from_numpy(cpu_tokens).to(eng.device)
         st = eng.init_state(1)
         routes.append([])
         with _wrapped(moe, "_route", _recording_routes(routes[-1])):
-            lg, st = eng.prefill({"tokens": t[:, :64]}, st)
+            lg, st = eng.prefill({"tokens": t[:, :64], **{
+                k: torch.from_numpy(v).to(eng.device) for k, v in extras.items()}}, st)
             out = [lg]
             for i in range(7):
                 lg, st = eng.decode(t[:, 64 + i:65 + i], st, 64 + i)
@@ -1597,14 +1690,16 @@ def _serve_cross_device(row_name: str, cfg2, model2, rng, failures: list[str]) -
         failures.append(f"{row_name}: {row}")
 
 
-def _train_cross_device(row_name: str, cfg2, model, seed: int, failures: list[str]) -> None:
+def _train_cross_device(row_name: str, cfg2, model, seed: int, failures: list[str],
+                        seq: int = TRAIN_CROSS_SEQ) -> None:
     """One step's loss and gradients on ``model`` (trainable, on the CPU;
-    ``cfg2`` in f32), the card against the CPU on TRAIN_BATCH x
-    TRAIN_CROSS_SEQ seeded tokens, TF32 off: the loss within
+    ``cfg2`` in f32), the card against the CPU on TRAIN_BATCH x ``seq``
+    seeded tokens, TF32 off: the loss within
     TRAIN_CROSS_LOSS_TOL (relative), each gradient within
     TRAIN_CROSS_GRAD_TOL of its leaf's largest magnitude (an element near
-    zero carries the rounding of the terms that cancelled in it), and every
-    MoE layer's expert choices (forward and remat recompute) equal."""
+    zero carries the rounding of the terms that cancelled in it), and
+    every MoE layer's expert choices (forward and remat recompute)
+    equal."""
     import copy
 
     import torch
@@ -1614,35 +1709,40 @@ def _train_cross_device(row_name: str, cfg2, model, seed: int, failures: list[st
     from repro_torch.train import train_step
 
     card_model = copy.deepcopy(model).to(torch.device("cuda"))
-    pipe = TokenPipeline(DataConfig(cfg2.vocab_size, TRAIN_CROSS_SEQ, TRAIN_BATCH, seed=seed))
+    pipe = TokenPipeline(DataConfig(cfg2.vocab_size, seq, TRAIN_BATCH, seed=seed))
     found, routes = {}, {}
     for name, m in (("cpu", model), ("card", card_model)):
         batch, _ = make_train_batch(pipe, PipelineState(), cfg2, device=next(m.parameters()).device)
         routes[name] = []
         with _wrapped(moe, "_route", _recording_routes(routes[name])):
-            grads, metrics = train_step.make_grad_fn(cfg2, q_chunk=TRAIN_CROSS_SEQ,
-                                                     kv_chunk=TRAIN_CROSS_SEQ)(m, batch)
+            grads, metrics = train_step.make_grad_fn(cfg2, q_chunk=seq, kv_chunk=seq)(m, batch)
         found[name] = ({n: g.cpu() for n, g in grads.items()},
                        {k: v.item() for k, v in metrics.items()})
         del grads
     del model, card_model
     (g_cpu, m_cpu), (g_card, m_card) = found["cpu"], found["card"]
     loss_rel = abs(m_card["loss"] - m_cpu["loss"]) / abs(m_cpu["loss"])
-    leaf_errs = {n: (g_card[n] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
+    tree_max = max(g.abs().max().item() for g in g_cpu.values())
+    leaf_errs = {n: (g_card[n] - g).abs().max().item()
+                 / max(g.abs().max().item(), 1e-30)
                  for n, g in g_cpu.items()}
     worst_leaf = max(leaf_errs, key=leaf_errs.get)
+    worst5 = [[n, leaf_errs[n], g_cpu[n].abs().max().item() / tree_max]
+              for n in sorted(leaf_errs, key=leaf_errs.get, reverse=True)[:5]]
     router_errs = [e for n, e in leaf_errs.items() if n.endswith("moe.router")]
     n_moe = registry.get(cfg2).stack_sizes(cfg2).get("moe_layers", 0)
     same_routes = len(routes["cpu"]) == len(routes["card"]) == 2 * n_moe and all(
         torch.equal(a.cpu(), b.cpu()) for a, b in zip(routes["cpu"], routes["card"]))
     row = {"row": row_name, "arch": cfg2.name, "n_layers": cfg2.n_layers, "dtype": cfg2.dtype,
            "tf32": torch.backends.cuda.matmul.allow_tf32, "batch": TRAIN_BATCH,
-           "seq": TRAIN_CROSS_SEQ, "loss_cpu": m_cpu["loss"], "loss_card": m_card["loss"],
+           "seq": seq, "loss_cpu": m_cpu["loss"], "loss_card": m_card["loss"],
            "aux_cpu": m_cpu.get("aux"), "aux_card": m_card.get("aux"), "loss_rel_diff": loss_rel,
            "loss_tol": TRAIN_CROSS_LOSS_TOL, "leaves": len(leaf_errs), "worst_leaf": worst_leaf,
            "worst_leaf_err_of_max": leaf_errs[worst_leaf],
+           "worst_leaves_err_and_max_of_tree": worst5,
            "router_err_of_max": max(router_errs) if router_errs else None,
-           "grad_tol_of_max": TRAIN_CROSS_GRAD_TOL, "routes_compared": len(routes["cpu"]),
+           "grad_tol_of_max": TRAIN_CROSS_GRAD_TOL,
+           "routes_compared": len(routes["cpu"]),
            "same_routes": same_routes}
     row["ok"] = (loss_rel <= TRAIN_CROSS_LOSS_TOL and not row["tf32"] and same_routes
                  and leaf_errs[worst_leaf] <= TRAIN_CROSS_GRAD_TOL)
@@ -1700,9 +1800,9 @@ def _resume_check(row_name: str, cfg2, seed: int, failures: list[str]) -> None:
     torch.cuda.empty_cache()
 
 
-def _bwd_checks(rng, failures: list[str]) -> float:
+def _bwd_checks(rng, failures: list[str], forms=BWD_FORMS) -> float:
     """The flash backward kernel against its plain version on the card in
-    every form of BWD_FORMS, within ``kernel_tolerance`` scaled to each
+    every form of ``forms``, within ``kernel_tolerance`` scaled to each
     gradient's largest magnitude (``flash_attention.kernel_tolerance``
     states the rule); each form twice, bitwise; the forward's ``out`` with
     lse against without it (bitwise) and its lse against the plain
@@ -1714,7 +1814,7 @@ def _bwd_checks(rng, failures: list[str]) -> float:
     from repro_torch.kernels import flash_attention as fa
 
     dev, worst = torch.device("cuda"), 0.0
-    for label, b, sq, skv, hq, hkv, d, causal, q_offset, dtype in BWD_FORMS:
+    for label, b, sq, skv, hq, hkv, d, causal, q_offset, dtype in forms:
         dt = getattr(torch, dtype)
         q, k, v, dout = (torch.from_numpy(rng.standard_normal(shp, dtype=np.float32)).to(dev, dt)
                          for shp in ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d),
@@ -2094,19 +2194,8 @@ def _serve_routed(tag: str, cfg, model, rng, failures: list[str], free_factor,
     n_moe = transformer.stack_sizes(cfg)["moe_layers"]
     engine = ServeEngine(cfg, model, ServeConfig(max_len=LM_MAX_LEN), device=dev)
     prompts = rng.integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), dtype=np.int32)
-    torch.cuda.synchronize()
-    _reset_counts()
-    t0 = time.perf_counter()
-    tokens = engine.generate(prompts, LM_NEW)
-    first_s = time.perf_counter() - t0
-    counts = _counts()
+    tokens, counts, speed = _generate_twice(engine, prompts)
     launches = counts[fa.LAUNCHES.name]
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    again = engine.generate(prompts, LM_NEW)
-    wall_s = time.perf_counter() - t0
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    tm = engine.last_timings
     # decode logits against a teacher-forced forward over prompt + generated
     # tokens, through the engine's own calls (prefill, then the 31 decode
     # steps, each counted from 0), with the capacity drops of both passes
@@ -2177,22 +2266,12 @@ def _serve_routed(tag: str, cfg, model, rng, failures: list[str], free_factor,
         del state, step_logits, served, teacher, diff, eng
     del served_routes
     torch.cuda.empty_cache()
-    prof_state = engine.init_state(LM_BATCH)
-    prof_prefill = _profile(lambda: engine.prefill({"tokens": toks_d[:, :LM_PROMPT]}, prof_state))
-
-    def four_steps():
-        for t in range(4):
-            engine.decode(toks_d[:, LM_PROMPT + t:LM_PROMPT + t + 1], prof_state, LM_PROMPT + t)
-
-    prof_decode = _profile(four_steps)
-    _emit({"profile": f"{tag} prefill (4 x 1,024 tokens)", **prof_prefill})
-    _emit({"profile": f"{tag} decode (4 steps)", **prof_decode})
-    del prof_state
+    prof_prefill, prof_decode = _serving_profiles(tag, engine, toks_d, LM_PROMPT,
+                                                  "4 x 1,024 tokens")
     served, free = found["served"], found["dropless pinned"]
     prefill_launches, decode_launches = served["prefill_launches"], served["decode_launches"]
     scale, teacher_err = free["scale"], free["max_abs_diff"]
     finite = served["finite"] and free["finite"]
-    new_tok = LM_BATCH * LM_NEW
     assignments = LM_BATCH * cfg.experts_per_token * n_moe
     row = {"row": f"{tag} serve", "arch": cfg.name, "n_layers": cfg.n_layers,
            "moe_layers": n_moe, "d_model": cfg.d_model, **extra,
@@ -2201,18 +2280,11 @@ def _serve_routed(tag: str, cfg, model, rng, failures: list[str], free_factor,
            "active_params": cfg.active_params(), "dtype": "bfloat16", "cache_dtype": "float32",
            "batch": LM_BATCH, "prompt": LM_PROMPT, "new_tokens": LM_NEW,
            "capacity": [moe.capacity(LM_PROMPT, cfg), moe.capacity(1, cfg)],
-           "first_generate_s": first_s,
            "flash_launches": launches, "expected_launches": cfg.n_layers,
            "prefill_launches": prefill_launches, "decode_launches": decode_launches,
            "other_launches": sum(counts.values()) - launches,
            "prefill_kernel_launches": prof_prefill["kernel_launches"],
-           "decode_kernel_launches_per_step": prof_decode["kernel_launches"] / 4,
-           "prefill_ms": tm["prefill_s"] * 1e3,
-           "decode_ms_per_token": tm["decode_s"] * 1e3 / tm["decode_steps"],
-           "generate_wall_ms": wall_s * 1e3, "new_tokens_per_s": new_tok / wall_s,
-           "decode_tokens_per_s": LM_BATCH * tm["decode_steps"] / tm["decode_s"],
-           "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / tm["prefill_s"],
-           "peak_memory_GB": peak_gb, "same_tokens_twice": bool(np.array_equal(tokens, again)),
+           "decode_kernel_launches_per_step": prof_decode["kernel_launches"] / 4, **speed,
            "prefill_idle_share": prof_prefill["idle_share"],
            "decode_idle_share": prof_decode["idle_share"],
            "assignments": {"prefill": assignments * LM_PROMPT,
@@ -2255,59 +2327,13 @@ def _live(params, opt_state) -> list:
             + [t for k in ("m", "v") for t in opt_state[k].values()] + [opt_state["count"]])
 
 
-def _moe_train(seed: int, failures: list[str]) -> tuple[int, int]:
-    """``train.loop.train`` on full-width, full-depth granite-moe (f32
-    master weights and moments, bf16 compute, remat) for TRAIN_STEPS steps,
-    the counters set to 0 just before and read just after (48 flash forward
-    launches a step, half of them the remat recompute; 24 backward calls);
-    one more step twice from one state, bitwise; a profiled step and the
-    gradient / optimizer split; one step's loss and gradients, the card
-    against the CPU at 2 layers in f32 (matrices at std 0.02), routing
-    equal; 4 steps straight
-    against 2 + checkpoint + restore + 2, bitwise.  Returns the flash
-    forward and backward launches of the training run."""
-    import dataclasses
-    import math
-
-    import numpy as np
+def _same_bits_twice(tag: str, cfg, step_fn, params, opt_state, batch,
+                     failures: list[str]) -> None:
+    """One train step twice from the same parameters and moments: the same
+    bits in the parameters, the moments, the count and the metrics.  The
+    second step's state is left in place."""
     import torch
 
-    from repro_torch.configs import get_config
-    from repro_torch.data.pipeline import DataConfig, PipelineState, TokenPipeline, make_train_batch
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.models import common, moe, registry
-    from repro_torch.optim import adamw
-    from repro_torch.optim.adamw import AdamWConfig
-    from repro_torch.train import loop, train_step
-
-    dev = torch.device("cuda")
-    cfg = get_config(MOE_ARCH)
-    opt = AdamWConfig(peak_lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
-    tcfg = loop.TrainConfig(steps=TRAIN_STEPS, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
-                            log_every=1, seed=seed, opt=opt)
-    log_lines: list[str] = []
-    torch.cuda.reset_peak_memory_stats()
-    _reset_counts()
-    t0 = time.perf_counter()
-    out = loop.train(cfg, tcfg, log=log_lines.append, device=dev)
-    wall_s = time.perf_counter() - t0
-    counts = _counts()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    fwd, bwd = counts[fa.LAUNCHES.name], counts[fa.BWD_LAUNCHES.name]
-    for line in log_lines:
-        print(f"moe train: {line}")
-    hist, step_ms = out["history"], out["step_ms"]
-    for h, ms in zip(hist, step_ms):
-        _emit({"moe_train_step": h["step"], "loss": h["loss"], "nll": h["nll"], "aux": h["aux"],
-               "grad_norm": h["grad_norm"], "lr": h["lr"], "step_ms": ms})
-    params, opt_state = out["params"], out["opt_state"]
-    del out
-    n_params = common.count_params(params)
-
-    # one more step twice from the same state: the same bits
-    step_fn = train_step.make_train_step(cfg, opt, q_chunk=512, kv_chunk=1024)
-    pipe = TokenPipeline(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=seed))
-    batch, _ = make_train_batch(pipe, PipelineState(step=TRAIN_STEPS), cfg, device=dev)
     start = _snapshot(params, opt_state)
     _, _, m1 = step_fn(params, opt_state, batch)
     first = _snapshot(params, opt_state)
@@ -2317,53 +2343,228 @@ def _moe_train(seed: int, failures: list[str]) -> tuple[int, int]:
     _, _, m2 = step_fn(params, opt_state, batch)
     twice = (all(torch.equal(a, b) for a, b in zip(first, _live(params, opt_state)))
              and all(torch.equal(m1[k], m2[k]) for k in m1))
-    _emit({"row": "moe train same bits twice", "arch": cfg.name, "tensors": len(first),
+    _emit({"row": f"{tag} train same bits twice", "arch": cfg.name, "tensors": len(first),
            "loss": m1["loss"].item(), "bitwise": twice})
     if not twice:
-        failures.append("moe train: one step twice from one state differs")
-    del start, first
+        failures.append(f"{tag} train: one step twice from one state differs")
+
+
+def _generate_twice(engine, prompts, extras: dict | None = None) -> tuple:
+    """``engine.generate`` of ``prompts`` and LM_NEW greedy tokens twice:
+    the first with the counters set to 0 just before and read just after,
+    the second timed, with the peak memory.  Returns the tokens, the counts
+    and the served row's speed fields."""
+    import numpy as np
+    import torch
+
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    tokens = engine.generate(prompts, LM_NEW, extras=extras)
+    first_s = time.perf_counter() - t0
+    counts = _counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    again = engine.generate(prompts, LM_NEW, extras=extras)
+    wall_s = time.perf_counter() - t0
+    tm, (batch, prompt) = engine.last_timings, prompts.shape
+    return tokens, counts, {
+        "first_generate_s": first_s, "prefill_ms": tm["prefill_s"] * 1e3,
+        "decode_ms_per_token": tm["decode_s"] * 1e3 / tm["decode_steps"],
+        "generate_wall_ms": wall_s * 1e3, "new_tokens_per_s": batch * LM_NEW / wall_s,
+        "decode_tokens_per_s": batch * tm["decode_steps"] / tm["decode_s"],
+        "prefill_tokens_per_s": batch * prompt / tm["prefill_s"],
+        "peak_memory_GB": torch.cuda.max_memory_allocated() / 1e9,
+        "same_tokens_twice": bool(np.array_equal(tokens, again))}
+
+
+def _served_decode(engine, toks_d, prompt: int, extras: dict | None = None) -> tuple:
+    """The engine's prefill of the first ``prompt`` served tokens (and
+    ``extras``), then its LM_NEW - 1 decode steps on the served tokens
+    after them, the flash launches of each part counted from 0.  Returns
+    the logits of positions ``prompt - 1`` on, (B, LM_NEW, V) in f32, and
+    the flash launches of the prefill and of the decode steps."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    state = engine.init_state(toks_d.shape[0])
+    _reset_counts()
+    lg, state = engine.prefill({"tokens": toks_d[:, :prompt], **(extras or {})}, state)
+    torch.cuda.synchronize()
+    prefill_launches = _counts()[fa.LAUNCHES.name]
+    step_logits = [lg]
+    _reset_counts()
+    for t in range(LM_NEW - 1):
+        lg, state = engine.decode(toks_d[:, prompt + t:prompt + t + 1], state, prompt + t)
+        step_logits.append(lg)
+    torch.cuda.synchronize()
+    return torch.cat(step_logits, dim=1).float(), prefill_launches, _counts()[fa.LAUNCHES.name]
+
+
+def _serving_profiles(tag: str, engine, toks_d, prompt: int, what: str,
+                      extras: dict | None = None, cpu: bool = True) -> tuple[dict, dict]:
+    """Where the serving time goes: one prefill of the first ``prompt``
+    served tokens (``what`` names it in the output), then 4 decode steps
+    from its state, each under the profiler (``cpu`` as ``_profile``
+    takes it).  Both are emitted and returned."""
+    box = {"state": engine.init_state(toks_d.shape[0])}
+
+    def prefill():
+        box["state"] = engine.prefill({"tokens": toks_d[:, :prompt], **(extras or {})},
+                                      box["state"])[1]
+
+    def four_steps():
+        for t in range(4):
+            box["state"] = engine.decode(toks_d[:, prompt + t:prompt + t + 1], box["state"],
+                                         prompt + t)[1]
+
+    prof_prefill = _profile(prefill, cpu=cpu)
+    prof_decode = _profile(four_steps)
+    _emit({"profile": f"{tag} prefill ({what})", **prof_prefill})
+    _emit({"profile": f"{tag} decode (4 steps)", **prof_decode})
+    return prof_prefill, prof_decode
+
+
+def _train_main_path(tag: str, cfg, opt, seed: int, steps: int, seq: int, failures: list[str],
+                     profile_seq: int | None = None) -> tuple[bool, list, dict]:
+    """``train.loop.train`` on ``cfg`` on the card for ``steps`` steps of
+    TRAIN_BATCH x ``seq`` tokens (AdamW ``opt``), the counters set to 0
+    just before and read just after, its log and one line a step printed;
+    one more step twice from the trained state, bitwise
+    (``_same_bits_twice``); one more step under the profiler, its flash
+    launches counted, then the gradient / optimizer split.  With
+    ``profile_seq`` the step twice and the profiled step take the batch's
+    first ``profile_seq`` tokens, the profiler records the device's
+    activity alone, and no split is timed: every xLSTM block steps through
+    time, so a step's time, launches and idle share scale with its length,
+    ~1 M launches of a whole step take the profiler minutes to read, and
+    AdamW's eager passes take ~0.1 s of a step's tens.  Returns whether the run took its steps with
+    finite metrics, a first loss (the NLL, where the family adds an aux
+    loss) within TRAIN_START_TOL of log(vocab) and no launch of the port's
+    but the flash kernels'; its history; and the fields every family's
+    train row carries."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig, PipelineState, TokenPipeline, make_train_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import common
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop, train_step
+
+    dev = torch.device("cuda")
+    tcfg = loop.TrainConfig(steps=steps, seq_len=seq, global_batch=TRAIN_BATCH, log_every=1,
+                            seed=seed, opt=opt)
+    log_lines: list[str] = []
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = loop.train(cfg, tcfg, log=log_lines.append, device=dev)
+    wall_s = time.perf_counter() - t0
+    counts = _counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for line in log_lines:
+        print(f"{tag} train: {line}")
+    hist, step_ms = out["history"], out["step_ms"]
+    for h, ms in zip(hist, step_ms):
+        _emit({f"{tag}_train_step": h["step"], **{k: v for k, v in h.items() if k != "step"},
+               "step_ms": ms})
+    params, opt_state = out["params"], out["opt_state"]
+    del out
+    n_params = common.count_params(params)
+
+    # one more step twice from the same state: the same bits
+    chunks = {"q_chunk": min(512, seq), "kv_chunk": min(1024, seq)}  # as loop.train's
+    step_fn = train_step.make_train_step(cfg, opt, **chunks)
+    pipe = TokenPipeline(DataConfig(cfg.vocab_size, seq, TRAIN_BATCH, seed=seed))
+    batch, _ = make_train_batch(pipe, PipelineState(step=steps), cfg, device=dev)
+    short = batch if profile_seq is None else {k: v[:, :profile_seq] for k, v in batch.items()}
+    _same_bits_twice(tag, cfg, step_fn, params, opt_state, short, failures)
     torch.cuda.empty_cache()
     # where the time goes: one more step under the profiler, then the split
-    prof = _profile(lambda: step_fn(params, opt_state, batch), top=10)
-    _emit({"profile": f"moe train step ({TRAIN_BATCH} x {TRAIN_SEQ} tokens)", **prof})
-    grad_fn = train_step.make_grad_fn(cfg, q_chunk=512, kv_chunk=1024)
-    marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-    marks[0].record()
-    grads, _ = grad_fn(params, batch)
-    marks[1].record()
-    adamw.update(grads, opt_state, params, opt)
-    marks[2].record()
-    torch.cuda.synchronize()
-    grad_ms, opt_ms = marks[0].elapsed_time(marks[1]), marks[1].elapsed_time(marks[2])
-    del params, opt_state, batch, step_fn, grads, grad_fn
+    fields: dict = {}
+    _reset_counts()
+    t0 = time.perf_counter()
+    prof = _profile(lambda: step_fn(params, opt_state, short), top=10, cpu=profile_seq is None)
+    prof_s = time.perf_counter() - t0
+    prof_counts = _counts()
+    what = f"{short['tokens'].shape[1]} tokens"
+    if cfg.is_encoder_decoder:
+        what = f"({cfg.encoder_len} frames, {what})"
+    _emit({"profile": f"{tag} train step ({TRAIN_BATCH} x {what})", **prof})
+    if profile_seq is None:
+        grad_fn = train_step.make_grad_fn(cfg, **chunks)
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        marks[0].record()
+        grads, _ = grad_fn(params, batch)
+        marks[1].record()
+        adamw.update(grads, opt_state, params, opt)
+        marks[2].record()
+        torch.cuda.synchronize()
+        fields.update(split_grad_ms=marks[0].elapsed_time(marks[1]),
+                      split_optimizer_ms=marks[1].elapsed_time(marks[2]))
+        del grads, grad_fn
+    else:
+        fields.update(profiled_seq=profile_seq, profiled_step_with_processing_s=prof_s)
+    del params, opt_state, batch, short, step_fn
     torch.cuda.empty_cache()
 
+    fwd, bwd = counts[fa.LAUNCHES.name], counts[fa.BWD_LAUNCHES.name]
     losses, gnorms = [h["loss"] for h in hist], [h["grad_norm"] for h in hist]
-    nlls, auxs = [h["nll"] for h in hist], [h["aux"] for h in hist]
-    start_nll = math.log(cfg.vocab_size)
+    auxs = [h["aux"] for h in hist if "aux" in h]
+    first, start = hist[0].get("nll", losses[0]), math.log(cfg.vocab_size)
     median_ms = float(np.median(step_ms[1:]))
-    steps = len(hist)
+    n = len(hist)
+    fields.update({
+        "params": n_params, "master_dtype": "float32", "moment_dtype": opt.moment_dtype,
+        "compute_dtype": cfg.dtype, "batch": TRAIN_BATCH, "seq": seq, "steps": n,
+        "losses": losses, "grad_norms": gnorms, "step_ms": step_ms,
+        f"step_ms_median_2_{steps}": median_ms,
+        "tokens_per_s": TRAIN_BATCH * seq / median_ms * 1e3,
+        "peak_memory_GB": peak_gb, "wall_s": wall_s,
+        "flash_launches": fwd, "flash_bwd_launches": bwd,
+        "flash_launches_per_step": fwd / n, "flash_bwd_launches_per_step": bwd / n,
+        "other_launches": sum(counts.values()) - fwd - bwd,
+        "profiled_step_flash_launches": [prof_counts[fa.LAUNCHES.name],
+                                         prof_counts[fa.BWD_LAUNCHES.name]],
+        "profiled_kernel_launches": prof["kernel_launches"],
+        "profiled_launches_by_class": prof["launches_by_class"],
+        "idle_share": prof["idle_share"], "start_loss": first, "start_loss_target": start,
+        "start_loss_tol": TRAIN_START_TOL})
+    ok = (n == steps and all(math.isfinite(x) for x in losses + gnorms + auxs)
+          and abs(first - start) <= TRAIN_START_TOL and fields["other_launches"] == 0)
+    return ok, hist, fields
+
+
+def _moe_train(seed: int, failures: list[str]) -> tuple[int, int]:
+    """``train.loop.train`` on full-width, full-depth granite-moe (f32
+    master weights and moments, bf16 compute, remat) for TRAIN_STEPS steps
+    through ``_train_main_path`` (48 flash forward launches a step, half of
+    them the remat recompute; 24 backward calls); one step's loss and
+    gradients, the card against the CPU at 2 layers in f32 (matrices at std
+    0.02), routing equal; 4 steps straight against 2 + checkpoint +
+    restore + 2, bitwise.  Returns the flash forward and backward launches
+    of the training run."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import common, moe, registry
+    from repro_torch.optim.adamw import AdamWConfig
+
+    cfg = get_config(MOE_ARCH)
+    opt = AdamWConfig(peak_lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+    ok, hist, fields = _train_main_path("moe", cfg, opt, seed, TRAIN_STEPS, TRAIN_SEQ, failures)
+    fwd, bwd = fields["flash_launches"], fields["flash_bwd_launches"]
     row = {"row": "moe train", "arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
-           "vocab": cfg.vocab_size, "params": n_params, "master_dtype": "float32",
-           "moment_dtype": opt.moment_dtype, "compute_dtype": cfg.dtype, "remat": True,
-           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "capacity": moe.capacity(TRAIN_SEQ, cfg),
-           "steps": steps, "losses": losses, "nlls": nlls, "auxs": auxs, "grad_norms": gnorms,
-           "step_ms": step_ms, "step_ms_median_2_5": median_ms,
-           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / median_ms * 1e3,
-           "split_grad_ms": grad_ms, "split_optimizer_ms": opt_ms,
-           "peak_memory_GB": peak_gb, "wall_s": wall_s,
-           "flash_launches": fwd, "flash_bwd_launches": bwd,
-           "flash_launches_per_step": fwd / steps, "flash_bwd_launches_per_step": bwd / steps,
-           "expected_per_step": [2 * cfg.n_layers, cfg.n_layers],
-           "other_launches": sum(counts.values()) - fwd - bwd,
-           "profiled_kernel_launches": prof["kernel_launches"],
-           "profiled_launches_by_class": prof["launches_by_class"],
-           "idle_share": prof["idle_share"], "start_nll_target": start_nll,
-           "start_nll_tol": TRAIN_START_TOL}
-    row["ok"] = (steps == TRAIN_STEPS and all(math.isfinite(x) for x in losses + gnorms + auxs)
-                 and abs(nlls[0] - start_nll) <= TRAIN_START_TOL
-                 and fwd == 2 * cfg.n_layers * steps and bwd == cfg.n_layers * steps
-                 and row["other_launches"] == 0)
+           "vocab": cfg.vocab_size, "remat": True, "capacity": moe.capacity(TRAIN_SEQ, cfg),
+           **fields, "nlls": [h["nll"] for h in hist], "auxs": [h["aux"] for h in hist],
+           "expected_per_step": [2 * cfg.n_layers, cfg.n_layers]}
+    row["ok"] = ok and fwd == 2 * cfg.n_layers * TRAIN_STEPS and bwd == cfg.n_layers * TRAIN_STEPS
     _emit(row)
     if not row["ok"]:
         failures.append(f"moe train main path: {row}")
@@ -2382,111 +2583,145 @@ def _moe_train(seed: int, failures: list[str]) -> tuple[int, int]:
 def _head_yardsticks(arch: str, rng, hw, failures: list[str]) -> None:
     """The flash forward and backward at ``arch``'s heads (bf16, causal; the
     forward at the prefill shape, LM_BATCH x LM_PROMPT, the backward at the
-    training shape, TRAIN_BATCH x TRAIN_SEQ): each against its plain version within
-    ``kernel_tolerance`` (the backward against each gradient's max, and
-    twice bitwise), then timed (eager calls; the kernels also in a CUDA
-    graph, where the wrapper's host cost does not show: at D=64 it is a
-    large part of an eager call) beside the plain version, SDPA (its
-    backward) and the bound."""
+    training shape, TRAIN_BATCH x TRAIN_SEQ): ``_fwd_yardstick`` and
+    ``_bwd_yardstick``."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    _fwd_yardstick(arch, LM_BATCH, LM_PROMPT, LM_PROMPT, hq, hkv, d, True, rng, hw, failures)
+    _bwd_yardstick(arch, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, hq, hkv, d, True, rng, hw, failures)
+
+
+def _yardstick_label(kernel: str, b, sq, skv, hq, hkv, d, causal) -> str:
+    length = f"S={sq}" if sq == skv else f"Sq={sq} Skv={skv}"
+    return (f"{kernel} bf16 {'causal' if causal else 'non-causal'} B={b} {length} "
+            f"Hq={hq} Hkv={hkv} D={d}")
+
+
+def _fwd_yardstick(arch: str, b, sq, skv, hq, hkv, d, causal: bool, rng, hw,
+                   failures: list[str]) -> dict:
+    """The flash forward (bf16) at one shape against its plain version within
+    ``kernel_tolerance``, then timed (eager calls; also in a CUDA graph,
+    where the wrapper's host cost does not show: at D=64 it is a large part
+    of an eager call) beside the plain version, SDPA and the bound.  Emits
+    the row and returns it."""
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.core import roofline
     from repro_torch.kernels import flash_attention as fa
 
     dev, bf16 = torch.device("cuda"), torch.bfloat16
-    cfg = get_config(arch)
-    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     atol, rtol = fa.kernel_tolerance(bf16)
 
     def normal(*shape):
         return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev, bf16)
 
-    # the forward at the prefill shape
-    b, s = LM_BATCH, LM_PROMPT
-    q, k, v = normal(b, s, hq, d), normal(b, s, hkv, d), normal(b, s, hkv, d)
-    got, want = fa.flash_attention(q, k, v), fa.flash_attention_plain(q, k, v)
+    q, k, v = normal(b, sq, hq, d), normal(b, skv, hkv, d), normal(b, skv, hkv, d)
+    got = fa.flash_attention(q, k, v, causal=causal)
+    want = fa.flash_attention_plain(q, k, v, causal=causal)
     diff = (got.float() - want.float()).abs()
     ok = bool(torch.isfinite(got.float()).all()) and bool(
         (diff <= atol + rtol * want.float().abs()).all())
-    kernel_ms = _time_ms(lambda: fa.flash_attention(q, k, v), reps=20)
-    kernel_graph_ms = _graph_ms(lambda: fa.flash_attention(q, k, v))
-    plain_ms = _time_ms(lambda: fa.flash_attention_plain(q, k, v), reps=5, warmup=1)
+    kernel_ms = _time_ms(lambda: fa.flash_attention(q, k, v, causal=causal), reps=20)
+    kernel_graph_ms = _graph_ms(lambda: fa.flash_attention(q, k, v, causal=causal))
+    plain_ms = _time_ms(lambda: fa.flash_attention_plain(q, k, v, causal=causal), reps=5,
+                        warmup=1)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-        qt, kt, vt, is_causal=True, enable_gqa=True)
+        qt, kt, vt, is_causal=causal, enable_gqa=True)
     library_ms = _time_ms(sdpa, reps=20)
     library_graph_ms = _graph_ms(sdpa)
-    bound = roofline.attention_bound(batch=b, sq=s, skv=s, hq=hq, hkv=hkv, d=d, dtype=bf16,
-                                     hw=hw) if hw is not None else None
-    executed = fa.executed_flops(b, s, s, hq, hkv, d)
-    forward = {"yardstick": f"flash_attention bf16 causal B={b} S={s} Hq={hq} Hkv={hkv} D={d}",
-               "arch": arch, "max_abs_err": diff.max().item(), "atol": atol, "rtol": rtol, "ok": ok,
-               "kernel_ms": kernel_ms, "kernel_graph_ms": kernel_graph_ms, "plain_ms": plain_ms,
-               "library_ms": library_ms, "library_graph_ms": library_graph_ms,
-               "library_call": "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)",
-               "flops": None if bound is None else bound.flops,
-               "bytes": None if bound is None else bound.bytes,
-               "bound_ms": None if bound is None else bound.bound_s * 1e3,
-               "bound_by": None if bound is None else bound.bound_by,
-               "kernel_TFLOPs": None if bound is None else bound.flops / kernel_ms / 1e9,
-               "bound_share": None if bound is None else bound.bound_s * 1e3 / kernel_ms,
-               "kernel_vs_library": kernel_ms / library_ms, "executed_flops": executed,
-               "executed_TFLOPs": executed / kernel_ms / 1e9}
-    _emit(forward)
+    bound = roofline.attention_bound(batch=b, sq=sq, skv=skv, hq=hq, hkv=hkv, d=d,
+                                     causal=causal, dtype=bf16, hw=hw) if hw is not None else None
+    executed = fa.executed_flops(b, sq, skv, hq, hkv, d, causal=causal)
+    row = {"yardstick": _yardstick_label("flash_attention", b, sq, skv, hq, hkv, d, causal),
+           "arch": arch, "max_abs_err": diff.max().item(), "atol": atol, "rtol": rtol, "ok": ok,
+           "kernel_ms": kernel_ms, "kernel_graph_ms": kernel_graph_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "library_graph_ms": library_graph_ms,
+           "library_call": f"F.scaled_dot_product_attention(is_causal={causal}, enable_gqa=True)",
+           "flops": None if bound is None else bound.flops,
+           "bytes": None if bound is None else bound.bytes,
+           "bound_ms": None if bound is None else bound.bound_s * 1e3,
+           "bound_by": None if bound is None else bound.bound_by,
+           "kernel_TFLOPs": None if bound is None else bound.flops / kernel_ms / 1e9,
+           "bound_share": None if bound is None else bound.bound_s * 1e3 / kernel_ms,
+           "kernel_vs_library": kernel_ms / library_ms, "executed_flops": executed,
+           "executed_TFLOPs": executed / kernel_ms / 1e9}
+    _emit(row)
     if not ok:
-        failures.append(f"flash_attention vs plain at D={d} G={hq // hkv}: {diff.max().item()}")
-    del q, k, v, got, want, diff, qt, kt, vt
+        failures.append(f"flash_attention vs plain at {row['yardstick']}: {diff.max().item()}")
+    return row
 
-    # the backward at the training shape
-    b, s = TRAIN_BATCH, TRAIN_SEQ
-    q, k, v, dout = normal(b, s, hq, d), normal(b, s, hkv, d), normal(b, s, hkv, d), \
-        normal(b, s, hq, d)
-    o, lse = fa._forward(q, k, v, causal=True, q_chunk=512, kv_chunk=1024, q_offset=0,
+
+def _bwd_yardstick(arch: str, b, sq, skv, hq, hkv, d, causal: bool, rng, hw,
+                   failures: list[str]) -> dict:
+    """The flash backward (bf16) at one shape against its plain version
+    within ``kernel_tolerance`` of each gradient's max, and twice bitwise,
+    then timed (eager calls and a CUDA graph) beside the plain version,
+    SDPA's backward and the bound.  Emits the row and returns it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import roofline
+    from repro_torch.kernels import flash_attention as fa
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    atol, rtol = fa.kernel_tolerance(bf16)
+
+    def normal(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev, bf16)
+
+    q, k, v, dout = normal(b, sq, hq, d), normal(b, skv, hkv, d), normal(b, skv, hkv, d), \
+        normal(b, sq, hq, d)
+    o, lse = fa._forward(q, k, v, causal=causal, q_chunk=512, kv_chunk=1024, q_offset=0,
                          with_lse=True)
-    got = fa.flash_attention_bwd(q, k, v, o, dout, lse)
-    again = fa.flash_attention_bwd(q, k, v, o, dout, lse)
-    want = fa.flash_attention_bwd_plain(q, k, v, o, dout, lse, causal=True, q_chunk=512,
+    got = fa.flash_attention_bwd(q, k, v, o, dout, lse, causal=causal)
+    again = fa.flash_attention_bwd(q, k, v, o, dout, lse, causal=causal)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, dout, lse, causal=causal, q_chunk=512,
                                         kv_chunk=1024)
     shares = {}
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         err, scale = (g.float() - w.float()).abs().max().item(), w.float().abs().max().item()
         shares[name] = err / (atol + rtol * scale)
-    ok = (max(shares.values()) <= 1.0 and all(torch.equal(x, y) for x, y in zip(got, again))
+    twice = all(torch.equal(x, y) for x, y in zip(got, again))
+    ok = (max(shares.values()) <= 1.0 and twice
           and all(bool(torch.isfinite(g.float()).all()) for g in got))
-    kernel_ms = _time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, dout, lse), reps=50)
-    kernel_graph_ms = _graph_ms(lambda: fa.flash_attention_bwd(q, k, v, o, dout, lse))
-    plain_ms = _time_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, o, dout, lse), reps=3,
-                        warmup=1)
+    bwd = lambda: fa.flash_attention_bwd(q, k, v, o, dout, lse, causal=causal)  # noqa: E731
+    kernel_ms = _time_ms(bwd, reps=50)
+    kernel_graph_ms = _graph_ms(bwd)
+    plain_ms = _time_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, o, dout, lse,
+                                                             causal=causal), reps=3, warmup=1)
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-    o_lib = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+    o_lib = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                                              enable_gqa=True)
     sdpa_bwd = lambda: torch.autograd.grad(o_lib, (qt, kt, vt), dout.transpose(1, 2),  # noqa: E731
                                            retain_graph=True)
     library_ms = _time_ms(sdpa_bwd, reps=50)
-    bound = roofline.attention_bwd_bound(batch=b, sq=s, skv=s, hq=hq, hkv=hkv, d=d, dtype=bf16,
+    bound = roofline.attention_bwd_bound(batch=b, sq=sq, skv=skv, hq=hq, hkv=hkv, d=d,
+                                         causal=causal, dtype=bf16,
                                          hw=hw) if hw is not None else None
-    executed = fa.bwd_executed_flops(b, s, s, hq, hkv, d)
-    backward = {"yardstick": f"flash_attention_bwd bf16 causal B={b} S={s} Hq={hq} Hkv={hkv} D={d}",
-               "arch": arch, "share_of_limit": shares, "bitwise_twice": all(
-                   torch.equal(x, y) for x, y in zip(got, again)), "ok": ok,
-               "kernel_ms": kernel_ms, "kernel_graph_ms": kernel_graph_ms, "plain_ms": plain_ms,
-               "library_ms": library_ms,
-               "timing": "*_ms: eager calls; kernel_graph_ms: CUDA graph of 20 calls",
-               "library_call": "backward of F.scaled_dot_product_attention(is_causal=True, "
-                               "enable_gqa=True) (torch.autograd.grad)",
-               "flops": None if bound is None else bound.flops,
-               "bytes": None if bound is None else bound.bytes,
-               "bound_ms": None if bound is None else bound.bound_s * 1e3,
-               "bound_by": None if bound is None else bound.bound_by,
-               "kernel_TFLOPs": None if bound is None else bound.flops / kernel_ms / 1e9,
-               "bound_share": None if bound is None else bound.bound_s * 1e3 / kernel_ms,
-               "kernel_vs_library": kernel_ms / library_ms, "executed_flops": executed,
-               "executed_TFLOPs": executed / kernel_ms / 1e9}
-    _emit(backward)
+    executed = fa.bwd_executed_flops(b, sq, skv, hq, hkv, d, causal=causal)
+    row = {"yardstick": _yardstick_label("flash_attention_bwd", b, sq, skv, hq, hkv, d, causal),
+           "arch": arch, "share_of_limit": shares, "bitwise_twice": twice, "ok": ok,
+           "kernel_ms": kernel_ms, "kernel_graph_ms": kernel_graph_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms,
+           "timing": "*_ms: eager calls; kernel_graph_ms: CUDA graph of 20 calls",
+           "library_call": f"backward of F.scaled_dot_product_attention(is_causal={causal}, "
+                           "enable_gqa=True) (torch.autograd.grad)",
+           "flops": None if bound is None else bound.flops,
+           "bytes": None if bound is None else bound.bytes,
+           "bound_ms": None if bound is None else bound.bound_s * 1e3,
+           "bound_by": None if bound is None else bound.bound_by,
+           "kernel_TFLOPs": None if bound is None else bound.flops / kernel_ms / 1e9,
+           "bound_share": None if bound is None else bound.bound_s * 1e3 / kernel_ms,
+           "kernel_vs_library": kernel_ms / library_ms, "executed_flops": executed,
+           "executed_TFLOPs": executed / kernel_ms / 1e9}
+    _emit(row)
     if not ok:
-        failures.append(f"flash_attention_bwd vs plain at D={d} G={hq // hkv}: {shares}")
+        failures.append(f"flash_attention_bwd vs plain at {row['yardstick']}: {shares}")
+    return row
 
 
 def _mla_phase(seed: int, hw, failures: list[str]) -> dict:
@@ -2638,6 +2873,19 @@ def _zamba_phase(seed: int, hw, failures: list[str]) -> dict[str, int]:
     return {"serve": serve, "train_fwd": train_fwd, "train_bwd": train_bwd}
 
 
+def _teacher_gap(served, teacher) -> dict:
+    """Served decode logits (B, T, V) against a teacher-forced pass's on the
+    same positions."""
+    import torch
+
+    diff = torch.abs(served - teacher)
+    return {"finite": bool(torch.isfinite(served).all()) and bool(torch.isfinite(teacher).all()),
+            "max_abs_diff": diff.max().item(), "mean_abs_diff": diff.mean().item(),
+            "max_abs_diff_by_position": diff.amax(dim=(0, 2)).tolist(),
+            "scale": torch.abs(teacher).max().item(),
+            "token_agreement": float((served.argmax(-1) == teacher.argmax(-1)).float().mean())}
+
+
 def _zamba_teacher(engine, toks_d) -> dict:
     """The engine's prefill of the LM_PROMPT-token prompts, then its 31
     decode steps on the served tokens ``toks_d``, each counted from 0,
@@ -2650,40 +2898,21 @@ def _zamba_teacher(engine, toks_d) -> dict:
     one forward over 1,055 tokens is refused (no multiple of 128)."""
     import torch
 
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import mamba2, zamba
 
-    state = engine.init_state(LM_BATCH)
-    _reset_counts()
-    lg, state = engine.prefill({"tokens": toks_d[:, :LM_PROMPT]}, state)
-    torch.cuda.synchronize()
-    prefill_launches = _counts()[fa.LAUNCHES.name]
-    step_logits = [lg]
-    _reset_counts()
-    for t in range(LM_NEW - 1):
-        lg, state = engine.decode(toks_d[:, LM_PROMPT + t:LM_PROMPT + t + 1], state,
-                                  LM_PROMPT + t)
-        step_logits.append(lg)
-    torch.cuda.synchronize()
-    decode_launches = _counts()[fa.LAUNCHES.name]
-    served = torch.cat(step_logits, dim=1).float()  # (B, 32, V): positions 1023 .. 1054
-    del state, step_logits
+    # (B, 32, V): positions 1023 .. 1054
+    served, prefill_launches, decode_launches = _served_decode(engine, toks_d, LM_PROMPT)
     n_real = LM_PROMPT + LM_NEW - 1
     padded = torch.zeros((LM_BATCH, -(-n_real // mamba2.CHUNK) * mamba2.CHUNK), dtype=torch.int32,
                          device=toks_d.device)
     padded[:, :n_real] = toks_d[:, :n_real]
     x, _ = zamba.forward(engine.params, {"tokens": padded}, engine.cfg)
     teacher = zamba._logits(engine.params, x[:, LM_PROMPT - 1:n_real], engine.cfg).float()
-    diff = torch.abs(served - teacher)
     found = {"dtype": engine.cfg.dtype, "teacher": f"one forward over {n_real} tokens padded "
                                                   f"to {padded.shape[1]}",
              "prefill_launches": prefill_launches, "decode_launches": decode_launches,
-             "finite": bool(torch.isfinite(served).all()) and bool(torch.isfinite(teacher).all()),
-             "max_abs_diff": diff.max().item(), "mean_abs_diff": diff.mean().item(),
-             "max_abs_diff_by_position": diff.amax(dim=(0, 2)).tolist(),
-             "scale": torch.abs(teacher).max().item(),
-             "token_agreement": float((served.argmax(-1) == teacher.argmax(-1)).float().mean())}
-    del x, served, teacher, diff, padded
+             **_teacher_gap(served, teacher)}
+    del x, served, teacher, padded
     torch.cuda.empty_cache()
     return found
 
@@ -2729,19 +2958,8 @@ def _zamba_serve(seed: int, rng, failures: list[str]) -> int:
     init_s = time.perf_counter() - t0
     engine = ServeEngine(cfg, model, ServeConfig(max_len=LM_MAX_LEN), device=dev)
     prompts = rng.integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), dtype=np.int32)
-    torch.cuda.synchronize()
-    _reset_counts()
-    t0 = time.perf_counter()
-    tokens = engine.generate(prompts, LM_NEW)
-    first_s = time.perf_counter() - t0
-    counts = _counts()
+    tokens, counts, speed = _generate_twice(engine, prompts)
     launches = counts[fa.LAUNCHES.name]
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    again = engine.generate(prompts, LM_NEW)
-    wall_s = time.perf_counter() - t0
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    tm = engine.last_timings
     toks_d = torch.from_numpy(tokens).to(dev)
     teacher = _zamba_teacher(engine, toks_d)
     # the launches of one Mamba2 layer and one shared application, prefill and decode
@@ -2761,19 +2979,10 @@ def _zamba_serve(seed: int, rng, failures: list[str]) -> int:
             "decode": _profile(lambda: zamba._shared_block(
                 sp, h[:, :1], cfg, pos[:, :1] + LM_PROMPT, cache, LM_PROMPT))["kernel_launches"]}}
     del h, st, cache, pos
-    # where the time goes: one prefill, and 4 decode steps from the filled state
-    prof_state = engine.init_state(LM_BATCH)
-    prof_prefill = _profile(lambda: engine.prefill({"tokens": toks_d[:, :LM_PROMPT]}, prof_state))
-
-    def four_steps():
-        for t in range(4):
-            engine.decode(toks_d[:, LM_PROMPT + t:LM_PROMPT + t + 1], prof_state, LM_PROMPT + t)
-
-    prof_decode = _profile(four_steps)
-    _emit({"profile": "zamba prefill (4 x 1,024 tokens)", **prof_prefill})
-    _emit({"profile": "zamba decode (4 steps)", **prof_decode})
+    prof_prefill, prof_decode = _serving_profiles("zamba", engine, toks_d, LM_PROMPT,
+                                                  "4 x 1,024 tokens")
     n_params = common.count_params(engine.params)
-    del prof_state, engine, model
+    del engine, model
     torch.cuda.empty_cache()
     # the same teacher check at the reference's init rule in f32, on the served tokens
     cfg32 = dataclasses.replace(cfg, dtype="float32")
@@ -2781,7 +2990,6 @@ def _zamba_serve(seed: int, rng, failures: list[str]) -> int:
         torch.Generator(device=dev).manual_seed(seed), cfg32), ServeConfig(max_len=LM_MAX_LEN),
         device=dev), toks_d)
     torch.cuda.empty_cache()
-    new_tok = LM_BATCH * LM_NEW
     row = {"row": "zamba serve", "arch": cfg.name, "n_layers": cfg.n_layers,
            "groups_size_tail": [n_groups, k, tail], "d_model": cfg.d_model,
            "mamba2_dims": list(mamba2.dims(cfg)), "ssm_conv": cfg.ssm_conv,
@@ -2789,21 +2997,14 @@ def _zamba_serve(seed: int, rng, failures: list[str]) -> int:
            "vocab": cfg.vocab_size, "params": n_params,
            "reduced": {}, "dtype": "bfloat16", "matrices_std": 0.02, "state_dtype": "float32",
            "cache_dtype": "float32", "batch": LM_BATCH, "prompt": LM_PROMPT,
-           "new_tokens": LM_NEW, "max_len": LM_MAX_LEN,
-           "init_s": init_s, "first_generate_s": first_s,
+           "new_tokens": LM_NEW, "max_len": LM_MAX_LEN, "init_s": init_s,
            "flash_launches": launches, "expected_launches": n_groups,
            "prefill_launches": teacher["prefill_launches"],
            "decode_launches": teacher["decode_launches"],
            "other_launches": sum(counts.values()) - launches,
            "prefill_kernel_launches": prof_prefill["kernel_launches"],
            "decode_kernel_launches_per_step": prof_decode["kernel_launches"] / 4,
-           "kernel_launches_per_call": per_call,
-           "prefill_ms": tm["prefill_s"] * 1e3,
-           "decode_ms_per_token": tm["decode_s"] * 1e3 / tm["decode_steps"],
-           "generate_wall_ms": wall_s * 1e3, "new_tokens_per_s": new_tok / wall_s,
-           "decode_tokens_per_s": LM_BATCH * tm["decode_steps"] / tm["decode_s"],
-           "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / tm["prefill_s"],
-           "peak_memory_GB": peak_gb, "same_tokens_twice": bool(np.array_equal(tokens, again)),
+           "kernel_launches_per_call": per_call, **speed,
            "prefill_idle_share": prof_prefill["idle_share"],
            "decode_idle_share": prof_decode["idle_share"],
            "teacher": teacher, "teacher_tol_of_scale": LM_TEACHER_TOL,
@@ -2831,117 +3032,30 @@ def _zamba_serve(seed: int, rng, failures: list[str]) -> int:
 def _zamba_train(seed: int, failures: list[str]) -> tuple[int, int]:
     """``train.loop.train`` on full-width, full-depth zamba2-1.2b (f32 master
     weights and moments, bf16 compute, each Mamba2 layer rematted) for
-    TRAIN_STEPS steps, the counters set to 0 just before and read just after
-    (one flash forward and one backward launch per shared application a
-    step: the shared block is not rematted, as in the reference); one more
-    step twice from one state, bitwise; a profiled step and the gradient /
-    optimizer split; one step's loss and gradients, the card against the
-    CPU on ZAMBA_CUT in f32 (matrices at std 0.02); 4 steps straight against
-    2 + checkpoint + restore + 2, bitwise.  Returns the flash forward and
-    backward launches of the training run."""
+    TRAIN_STEPS steps through ``_train_main_path`` (one flash forward and
+    one backward launch per shared application a step: the shared block is
+    not rematted, as in the reference); one step's loss and gradients, the
+    card against the CPU on ZAMBA_CUT in f32 (matrices at std 0.02); 4
+    steps straight against 2 + checkpoint + restore + 2, bitwise.  Returns
+    the flash forward and backward launches of the training run."""
     import dataclasses
-    import math
 
-    import numpy as np
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.data.pipeline import DataConfig, PipelineState, TokenPipeline, make_train_batch
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import common, registry, zamba
-    from repro_torch.optim import adamw
     from repro_torch.optim.adamw import AdamWConfig
-    from repro_torch.train import loop, train_step
 
     dev = torch.device("cuda")
     cfg = get_config(ZAMBA_ARCH)
     n_groups = zamba._counts(cfg)[0]
     opt = AdamWConfig(peak_lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
-    tcfg = loop.TrainConfig(steps=TRAIN_STEPS, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
-                            log_every=1, seed=seed, opt=opt)
-    log_lines: list[str] = []
-    torch.cuda.reset_peak_memory_stats()
-    _reset_counts()
-    t0 = time.perf_counter()
-    out = loop.train(cfg, tcfg, log=log_lines.append, device=dev)
-    wall_s = time.perf_counter() - t0
-    counts = _counts()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    fwd, bwd = counts[fa.LAUNCHES.name], counts[fa.BWD_LAUNCHES.name]
-    for line in log_lines:
-        print(f"zamba train: {line}")
-    hist, step_ms = out["history"], out["step_ms"]
-    for h, ms in zip(hist, step_ms):
-        _emit({"zamba_train_step": h["step"], "loss": h["loss"], "grad_norm": h["grad_norm"],
-               "lr": h["lr"], "step_ms": ms})
-    params, opt_state = out["params"], out["opt_state"]
-    del out
-    n_params = common.count_params(params)
-
-    # one more step twice from the same state: the same bits
-    step_fn = train_step.make_train_step(cfg, opt, q_chunk=512, kv_chunk=1024)
-    pipe = TokenPipeline(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=seed))
-    batch, _ = make_train_batch(pipe, PipelineState(step=TRAIN_STEPS), cfg, device=dev)
-    start = _snapshot(params, opt_state)
-    _, _, m1 = step_fn(params, opt_state, batch)
-    first = _snapshot(params, opt_state)
-    with torch.no_grad():
-        for t, s in zip(_live(params, opt_state), start):
-            t.copy_(s)
-    _, _, m2 = step_fn(params, opt_state, batch)
-    twice = (all(torch.equal(a, b) for a, b in zip(first, _live(params, opt_state)))
-             and all(torch.equal(m1[k], m2[k]) for k in m1))
-    _emit({"row": "zamba train same bits twice", "arch": cfg.name, "tensors": len(first),
-           "loss": m1["loss"].item(), "bitwise": twice})
-    if not twice:
-        failures.append("zamba train: one step twice from one state differs")
-    del start, first
-    torch.cuda.empty_cache()
-    # where the time goes: one more step under the profiler (its flash
-    # launches counted), then the split
-    _reset_counts()
-    prof = _profile(lambda: step_fn(params, opt_state, batch), top=10)
-    prof_counts = _counts()
-    _emit({"profile": f"zamba train step ({TRAIN_BATCH} x {TRAIN_SEQ} tokens)", **prof})
-    grad_fn = train_step.make_grad_fn(cfg, q_chunk=512, kv_chunk=1024)
-    marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-    marks[0].record()
-    grads, _ = grad_fn(params, batch)
-    marks[1].record()
-    adamw.update(grads, opt_state, params, opt)
-    marks[2].record()
-    torch.cuda.synchronize()
-    grad_ms, opt_ms = marks[0].elapsed_time(marks[1]), marks[1].elapsed_time(marks[2])
-    del params, opt_state, batch, step_fn, grads, grad_fn
-    torch.cuda.empty_cache()
-
-    losses, gnorms = [h["loss"] for h in hist], [h["grad_norm"] for h in hist]
-    start_nll = math.log(cfg.vocab_size)
-    median_ms = float(np.median(step_ms[1:]))
-    steps = len(hist)
+    ok, _, fields = _train_main_path("zamba", cfg, opt, seed, TRAIN_STEPS, TRAIN_SEQ, failures)
+    fwd, bwd = fields["flash_launches"], fields["flash_bwd_launches"]
     row = {"row": "zamba train", "arch": cfg.name, "n_layers": cfg.n_layers,
-           "d_model": cfg.d_model, "vocab": cfg.vocab_size, "params": n_params, "reduced": {},
-           "master_dtype": "float32", "moment_dtype": opt.moment_dtype,
-           "compute_dtype": cfg.dtype, "remat": "each Mamba2 layer", "batch": TRAIN_BATCH,
-           "seq": TRAIN_SEQ, "steps": steps, "losses": losses, "grad_norms": gnorms,
-           "step_ms": step_ms, "step_ms_median_2_5": median_ms,
-           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / median_ms * 1e3,
-           "split_grad_ms": grad_ms, "split_optimizer_ms": opt_ms,
-           "peak_memory_GB": peak_gb, "wall_s": wall_s,
-           "flash_launches": fwd, "flash_bwd_launches": bwd,
-           "flash_launches_per_step": fwd / steps, "flash_bwd_launches_per_step": bwd / steps,
-           "expected_per_step": [n_groups, n_groups],
-           "other_launches": sum(counts.values()) - fwd - bwd,
-           "profiled_step_flash_launches": [prof_counts[fa.LAUNCHES.name],
-                                            prof_counts[fa.BWD_LAUNCHES.name]],
-           "profiled_kernel_launches": prof["kernel_launches"],
-           "profiled_launches_by_class": prof["launches_by_class"],
-           "idle_share": prof["idle_share"], "start_loss_target": start_nll,
-           "start_loss_tol": TRAIN_START_TOL}
-    row["ok"] = (steps == TRAIN_STEPS and all(math.isfinite(x) for x in losses + gnorms)
-                 and abs(losses[0] - start_nll) <= TRAIN_START_TOL
-                 and fwd == n_groups * steps and bwd == n_groups * steps
-                 and row["other_launches"] == 0)
+           "d_model": cfg.d_model, "vocab": cfg.vocab_size, "reduced": {},
+           "remat": "each Mamba2 layer", **fields, "expected_per_step": [n_groups, n_groups]}
+    row["ok"] = ok and fwd == n_groups * TRAIN_STEPS and bwd == n_groups * TRAIN_STEPS
     _emit(row)
     if not row["ok"]:
         failures.append(f"zamba train main path: {row}")
@@ -2954,6 +3068,327 @@ def _zamba_train(seed: int, failures: list[str]) -> tuple[int, int]:
 
     # -- resume: 4 steps straight against 2 + checkpoint + restore + 2, on the card ----
     _resume_check("zamba train resume", cfg2, seed, failures)
+    return fwd, bwd
+
+
+def _xlstm_phase(seed: int, hw, failures: list[str]) -> None:
+    """The xLSTM family on the card at xlstm-125m's full width and depth:
+    serving (``_xlstm_serve``) and training (``_xlstm_train``).  It reaches
+    no kernel of the port: both cells are plain PyTorch, one time step at a
+    time (the reference's ``lax.scan``), so each phase's launches per block
+    and its idle share are what it reports."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed + 22)
+    _xlstm_serve(seed, rng, failures)
+    torch.cuda.empty_cache()
+    _xlstm_train(seed, failures)
+    torch.cuda.empty_cache()
+
+
+def _xlstm_serve(seed: int, rng, failures: list[str]) -> None:
+    """``ServeEngine`` on full-width, full-depth xlstm-125m (random bf16
+    weights by the reference's rule, f32 states) over 4 x 1,024-token
+    prompts + 32 greedy tokens, the counters set to 0 just before and read
+    just after (no kernel of the port launches); decode logits against one
+    state-less teacher forward over the 1,055 served tokens; the launches
+    of one mLSTM and one sLSTM block in prefill and in decode; profiles of
+    one prefill and 4 decode steps; then the card against the port's CPU
+    path on XLSTM_CUT in f32, logits and every state leaf."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import common, registry, xlstm, xlstm_model
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    dev = torch.device("cuda")
+    cfg = get_config(XLSTM_ARCH)
+    t0 = time.perf_counter()
+    model = registry.get(cfg).init(torch.Generator(device=dev).manual_seed(seed), cfg,
+                                   torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    engine = ServeEngine(cfg, model, ServeConfig(max_len=LM_MAX_LEN), device=dev)
+    prompts = rng.integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), dtype=np.int32)
+    tokens, counts, speed = _generate_twice(engine, prompts)
+    toks_d = torch.from_numpy(tokens).to(dev)
+    # the teacher: one state-less forward over the served tokens
+    n_real = LM_PROMPT + LM_NEW - 1
+    served = _served_decode(engine, toks_d, LM_PROMPT)[0]
+    x, _ = xlstm_model.forward(engine.params, {"tokens": toks_d[:, :n_real]}, cfg)
+    teacher = _teacher_gap(served, xlstm_model._logits(engine.params, x[:, LM_PROMPT - 1:],
+                                                       cfg).float())
+    del x, served
+    # the launches of one block of each kind, prefill and decode
+    h = torch.randn((LM_BATCH, LM_PROMPT, cfg.d_model), device=dev).to(torch.bfloat16)
+    per_call = {}
+    for kind, i in (("mlstm_block", 0), ("slstm_block", cfg.slstm_layers[0])):
+        bp = engine.params["blocks"][i]
+        st = (xlstm.slstm_init_state if kind == "slstm_block" else xlstm.mlstm_init_state)(
+            cfg, LM_BATCH, device=dev)
+        per_call[kind] = {
+            "prefill": _profile(lambda: xlstm_model._block(bp, h, cfg, i, st))["kernel_launches"],
+            "decode": _profile(lambda: xlstm_model._block(bp, h[:, :1], cfg, i, st))[
+                "kernel_launches"]}
+    del h
+    prof_prefill, prof_decode = _serving_profiles("xlstm", engine, toks_d, LM_PROMPT,
+                                                  "4 x 1,024 tokens", cpu=False)
+    n_params = common.count_params(engine.params)
+    del engine, model
+    torch.cuda.empty_cache()
+    row = {"row": "xlstm serve", "arch": cfg.name, "n_layers": cfg.n_layers,
+           "slstm_layers": list(cfg.slstm_layers), "d_model": cfg.d_model,
+           "xlstm_dims": list(xlstm._dims(cfg)), "ssm_conv": cfg.ssm_conv,
+           "vocab": cfg.vocab_size, "params": n_params, "reduced": {}, "dtype": "bfloat16",
+           "init": "the reference's rule", "state_dtype": "float32", "batch": LM_BATCH,
+           "prompt": LM_PROMPT, "new_tokens": LM_NEW, "max_len": LM_MAX_LEN, "init_s": init_s,
+           "port_kernel_launches": sum(counts.values()),
+           "prefill_kernel_launches": prof_prefill["kernel_launches"],
+           "decode_kernel_launches_per_step": prof_decode["kernel_launches"] / 4,
+           "kernel_launches_per_call": per_call, **speed,
+           "prefill_idle_share": prof_prefill["idle_share"],
+           "decode_idle_share": prof_decode["idle_share"],
+           "teacher": dict(teacher, against=f"one state-less forward over {n_real} tokens"),
+           "teacher_tol_of_scale": LM_TEACHER_TOL}
+    row["ok"] = (row["port_kernel_launches"] == 0 and row["same_tokens_twice"]
+                 and tokens.shape == (LM_BATCH, LM_PROMPT + LM_NEW) and teacher["finite"]
+                 and teacher["max_abs_diff"] <= LM_TEACHER_TOL * teacher["scale"])
+    _emit(row)
+    if not row["ok"]:
+        failures.append(f"xlstm serve main path: {row}")
+    del toks_d
+    torch.cuda.empty_cache()
+
+    # -- the card against the port's CPU path: full width, XLSTM_CUT, f32 ---------------
+    # (the weights are drawn on the card, which is fast, and copied to the CPU)
+    cfg2 = dataclasses.replace(cfg, dtype="float32", **XLSTM_CUT)
+    _serve_cross_device("xlstm cross-device", cfg2, registry.get(cfg2).init(
+        torch.Generator(device=dev).manual_seed(seed), cfg2), rng, failures)
+
+
+def _xlstm_train(seed: int, failures: list[str]) -> None:
+    """``train.loop.train`` on full-width, full-depth xlstm-125m (f32 master
+    weights and moments, bf16 compute, each block rematted) for
+    XLSTM_TRAIN_STEPS steps (XLSTM_CUTS) through ``_train_main_path`` (no
+    kernel of the port launches), its step twice and its profiled step on
+    2 x XLSTM_PROFILE_SEQ tokens; one step's loss and gradients over
+    XLSTM_CROSS_SEQ tokens, the card against the CPU on XLSTM_CUT in f32; 4
+    steps straight against 2 + checkpoint + restore + 2, bitwise."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import common, registry
+    from repro_torch.optim.adamw import AdamWConfig
+
+    dev = torch.device("cuda")
+    cfg = get_config(XLSTM_ARCH)
+    opt = AdamWConfig(peak_lr=3e-4, warmup_steps=2, total_steps=XLSTM_TRAIN_STEPS)
+    ok, _, fields = _train_main_path("xlstm", cfg, opt, seed, XLSTM_TRAIN_STEPS, TRAIN_SEQ,
+                                     failures, profile_seq=XLSTM_PROFILE_SEQ)
+    row = {"row": "xlstm train", "arch": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab_size, "reduced": {}, "cut": XLSTM_CUTS,
+           "remat": "each block", **fields}
+    row["ok"] = ok and fields["flash_launches"] == fields["flash_bwd_launches"] == 0
+    _emit(row)
+    if not row["ok"]:
+        failures.append(f"xlstm train main path: {row}")
+
+    # -- one step's loss and gradients: the card against the CPU, XLSTM_CUT, f32 --------
+    cfg2 = dataclasses.replace(cfg, dtype="float32", **XLSTM_CUT)
+    _train_cross_device("xlstm train cross-device", cfg2, common.trainable(registry.get(
+        cfg2).init(torch.Generator(device=dev).manual_seed(seed), cfg2).cpu()), seed, failures,
+        seq=XLSTM_CROSS_SEQ)
+
+    # -- resume: 4 steps straight against 2 + checkpoint + restore + 2, on the card ----
+    _resume_check("xlstm train resume", cfg2, seed, failures)
+
+
+def _whisper_phase(seed: int, hw, failures: list[str]) -> dict[str, int]:
+    """The whisper family on the card at whisper-tiny's full width and
+    depth: the flash kernels at its shapes against their plain versions
+    (``_flash_checks`` over WHISPER_FORMS, ``_bwd_checks`` over
+    WHISPER_BWD_FORMS: non-causal over 1,500 frames, a
+    ragged 23 x 64 + 28; cross-attention with Sq != Skv = 1,500; the
+    decoder's causal self-attention; every shape that serving's prefill and
+    training launch; D=64, G = 1), serving
+    (``_whisper_serve``), training (``_whisper_train``), then the kernels'
+    yardsticks at the encoder's and the cross-attention's serving shapes
+    and at the training shapes.  Returns the flash launches of its main
+    paths (``serve``, ``train_fwd``, ``train_bwd``) and the kernels' largest
+    errors against their plain versions (``fwd_err``, ``bwd_err``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+
+    rng = np.random.default_rng(seed + 23)
+    fwd_err = _flash_checks(rng, failures, WHISPER_FORMS)
+    bwd_err = _bwd_checks(rng, failures, WHISPER_BWD_FORMS)
+    torch.cuda.empty_cache()
+    serve = _whisper_serve(seed, rng, failures)
+    torch.cuda.empty_cache()
+    train_fwd, train_bwd = _whisper_train(seed, failures)
+    torch.cuda.empty_cache()
+    cfg = get_config(WHISPER_ARCH)
+    h, d, f = cfg.n_heads, cfg.head_dim, cfg.encoder_len
+    for sq in (f, WHISPER_PROMPT):  # the encoder's and the cross-attention's prefill
+        _fwd_yardstick(WHISPER_ARCH, LM_BATCH, sq, f, h, h, d, False, rng, hw, failures)
+    for sq, skv, causal in ((f, f, False), (WHISPER_TRAIN_SEQ, f, False),
+                            (WHISPER_TRAIN_SEQ, WHISPER_TRAIN_SEQ, True)):  # training's three
+        _bwd_yardstick(WHISPER_ARCH, TRAIN_BATCH, sq, skv, h, h, d, causal, rng, hw, failures)
+    return {"serve": serve, "train_fwd": train_fwd, "train_bwd": train_bwd,
+            "fwd_err": fwd_err, "bwd_err": bwd_err}
+
+
+def _whisper_serve(seed: int, rng, failures: list[str]) -> int:
+    """``ServeEngine`` on full-width, full-depth whisper-tiny (random bf16
+    weights from the seed, matrices at std 0.02 (``_matrices_at``), f32
+    caches) over 4 x (1,500 seeded frames, a WHISPER_PROMPT-token prompt) +
+    32 greedy tokens, the counters set to 0 just before and read just
+    after (prefill: one flash launch per encoder layer and two per decoder
+    layer, self and cross; none in decode); decode logits against one
+    cache-less teacher pass over the served tokens on the same frames; the
+    launches of the encoder and of one decoder layer in prefill; profiles of one prefill and 4 decode steps; then the card
+    against the port's CPU path on the whole model in f32 (matrices at std
+    0.02).  Returns the flash launches of the served generate.
+
+    Why std 0.02, as the MoE, MLA and zamba phases serve: the reference's
+    rule takes 1/sqrt(4) for every stacked matrix (std 0.5 at d_model 384),
+    which saturates the softmax (scores of ~100), whose near-ties two bf16
+    passes break differently."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import common, registry, whisper
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    dev = torch.device("cuda")
+    cfg = get_config(WHISPER_ARCH)
+    n_enc, n_dec = cfg.n_encoder_layers, cfg.n_layers
+    t0 = time.perf_counter()
+    model = _matrices_at(registry.get(cfg).init(torch.Generator(device=dev).manual_seed(seed),
+                                                cfg, torch.bfloat16), 0.02, seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    engine = ServeEngine(cfg, model, ServeConfig(max_len=WHISPER_MAX_LEN), device=dev)
+    prompts = rng.integers(0, cfg.vocab_size, (LM_BATCH, WHISPER_PROMPT), dtype=np.int32)
+    frames = torch.from_numpy(rng.standard_normal((LM_BATCH, cfg.encoder_len, cfg.d_model),
+                                                  dtype=np.float32)).to(dev, torch.bfloat16)
+    extras = {"frames": frames}
+    tokens, counts, speed = _generate_twice(engine, prompts, extras)
+    launches = counts[fa.LAUNCHES.name]
+    toks_d = torch.from_numpy(tokens).to(dev)
+    # the served path again, counted phase by phase, then the teacher
+    served, prefill_launches, decode_launches = _served_decode(engine, toks_d, WHISPER_PROMPT,
+                                                               extras)
+    n_real = WHISPER_PROMPT + LM_NEW - 1
+    x = whisper.forward_train(engine.params, {"tokens": toks_d[:, :n_real], **extras}, cfg)
+    teacher = _teacher_gap(served, whisper._logits(engine.params, x[:, WHISPER_PROMPT - 1:],
+                                                   cfg).float())
+    del x, served
+    # the launches of the encoder (4 layers and its norm) and of one decoder layer
+    enc = whisper.encode(engine.params, frames, cfg)
+    dp = engine.params["dec_layers"][0]
+    per_call = {
+        "encode": _profile(lambda: whisper.encode(engine.params, frames, cfg))["kernel_launches"],
+        "decoder_layer_prefill": _profile(lambda: whisper._dec_layer(
+            dp, enc[:, :WHISPER_PROMPT], enc, cfg, 512, 1024))["kernel_launches"]}
+    del enc
+    prof_prefill, prof_decode = _serving_profiles(
+        "whisper", engine, toks_d, WHISPER_PROMPT,
+        f"4 x ({cfg.encoder_len} frames, {WHISPER_PROMPT} tokens)", extras)
+    n_params = common.count_params(engine.params)
+    del engine, model, frames, extras
+    torch.cuda.empty_cache()
+    expected = n_enc + 2 * n_dec
+    row = {"row": "whisper serve", "arch": cfg.name, "encoder_layers": n_enc,
+           "decoder_layers": n_dec, "d_model": cfg.d_model,
+           "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim], "d_ff": cfg.d_ff,
+           "vocab": cfg.vocab_size, "frames": cfg.encoder_len, "params": n_params,
+           "reduced": {}, "dtype": "bfloat16", "matrices_std": 0.02, "cache_dtype": "float32",
+           "batch": LM_BATCH, "prompt": WHISPER_PROMPT, "new_tokens": LM_NEW,
+           "max_len": WHISPER_MAX_LEN, "init_s": init_s,
+           "flash_launches": launches, "expected_launches": expected,
+           "prefill_launches": prefill_launches, "decode_launches": decode_launches,
+           "other_launches": sum(counts.values()) - launches,
+           "prefill_kernel_launches": prof_prefill["kernel_launches"],
+           "decode_kernel_launches_per_step": prof_decode["kernel_launches"] / 4,
+           "kernel_launches_per_call": per_call, **speed,
+           "prefill_idle_share": prof_prefill["idle_share"],
+           "decode_idle_share": prof_decode["idle_share"],
+           "teacher": dict(teacher, against=f"one cache-less pass over {n_real} tokens"),
+           "teacher_tol_of_scale": LM_TEACHER_TOL}
+    row["ok"] = (launches == expected and prefill_launches == expected and decode_launches == 0
+                 and row["other_launches"] == 0 and row["same_tokens_twice"]
+                 and tokens.shape == (LM_BATCH, WHISPER_PROMPT + LM_NEW) and teacher["finite"]
+                 and teacher["max_abs_diff"] <= LM_TEACHER_TOL * teacher["scale"])
+    _emit(row)
+    if not row["ok"]:
+        failures.append(f"whisper serve main path: {row}")
+    del toks_d
+    torch.cuda.empty_cache()
+
+    # -- the card against the port's CPU path: the whole model, f32 ---------------------
+    cfg2 = dataclasses.replace(cfg, dtype="float32")
+    _serve_cross_device("whisper cross-device", cfg2, _matrices_at(
+        registry.get(cfg2).init(torch.Generator(device=dev).manual_seed(seed), cfg2), 0.02, seed),
+        rng, failures)
+    return launches
+
+
+def _whisper_train(seed: int, failures: list[str]) -> tuple[int, int]:
+    """``train.loop.train`` on full-width, full-depth whisper-tiny (f32 master
+    weights and moments, bf16 compute, each decoder layer rematted; the
+    reference's init rule) for TRAIN_STEPS steps of TRAIN_BATCH x (1,500
+    frames, WHISPER_TRAIN_SEQ tokens) through ``_train_main_path`` (a step:
+    the encoder's 4 flash forwards, the decoder's 8 twice (remat), 12
+    backwards); one step's loss and gradients, the card against the CPU on
+    the whole model in f32 (matrices at std 0.02); 4 steps straight against
+    2 + checkpoint + restore + 2, bitwise.  Returns the flash forward and
+    backward launches of the training run."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import common, registry
+    from repro_torch.optim.adamw import AdamWConfig
+
+    dev = torch.device("cuda")
+    cfg = get_config(WHISPER_ARCH)
+    n_enc, n_dec = cfg.n_encoder_layers, cfg.n_layers
+    opt = AdamWConfig(peak_lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+    ok, _, fields = _train_main_path("whisper", cfg, opt, seed, TRAIN_STEPS, WHISPER_TRAIN_SEQ,
+                                     failures)
+    fwd, bwd = fields["flash_launches"], fields["flash_bwd_launches"]
+    per_step = [n_enc + 4 * n_dec, n_enc + 2 * n_dec]
+    row = {"row": "whisper train", "arch": cfg.name, "encoder_layers": n_enc,
+           "decoder_layers": n_dec, "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+           "frames": cfg.encoder_len, "reduced": {}, "remat": "each decoder layer", **fields,
+           "expected_per_step": per_step}
+    row["ok"] = ok and fwd == per_step[0] * TRAIN_STEPS and bwd == per_step[1] * TRAIN_STEPS
+    _emit(row)
+    if not row["ok"]:
+        failures.append(f"whisper train main path: {row}")
+
+    # -- one step's loss and gradients: the card against the CPU, the whole model, f32 --
+    cfg2 = dataclasses.replace(cfg, dtype="float32")
+    _train_cross_device("whisper train cross-device", cfg2, common.trainable(_matrices_at(
+        registry.get(cfg2).init(torch.Generator(device=dev).manual_seed(seed), cfg2), 0.02,
+        seed).cpu()), seed, failures)
+
+    # -- resume: 4 steps straight against 2 + checkpoint + restore + 2, on the card ----
+    _resume_check("whisper train resume", cfg2, seed, failures)
     return fwd, bwd
 
 

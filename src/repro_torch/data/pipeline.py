@@ -96,7 +96,9 @@ def make_train_batch(
     device: torch.device | str = "cpu",
 ) -> tuple[dict[str, torch.Tensor], PipelineState]:
     """Next batch (int32 tokens and labels on ``device``) + advanced state;
-    adds stub modality inputs when needed."""
+    adds stub modality inputs when needed (patches, frames: drawn by a CPU
+    generator seeded by the step, then moved, so every device gets the same
+    batch)."""
     raw = pipe.batch_at(state.step)
     batch = {"tokens": torch.from_numpy(np.ascontiguousarray(raw["tokens"])).to(device),
              "labels": torch.from_numpy(np.ascontiguousarray(raw["labels"])).to(device)}
@@ -104,12 +106,11 @@ def make_train_batch(
         batch["labels2"] = torch.from_numpy(np.ascontiguousarray(raw["labels2"])).to(device)
     dt = getattr(torch, cfg.dtype)
     if cfg.n_patches:
-        gen = torch.Generator(device=device).manual_seed(extras_seed * 1_000_003 + state.step)
+        gen = torch.Generator().manual_seed(extras_seed * 1_000_003 + state.step)
         batch["patches"] = torch.randn((pipe.local_batch, cfg.n_patches, cfg.d_model),
-                                       generator=gen, device=device).to(dt)
+                                       generator=gen).to(device, dt)
     if cfg.is_encoder_decoder:
-        gen = torch.Generator(device=device).manual_seed(
-            (extras_seed + 1) * 1_000_003 + state.step)
+        gen = torch.Generator().manual_seed((extras_seed + 1) * 1_000_003 + state.step)
         batch["frames"] = torch.randn((pipe.local_batch, cfg.encoder_len, cfg.d_model),
-                                      generator=gen, device=device).to(dt)
+                                      generator=gen).to(device, dt)
     return batch, PipelineState(step=state.step + 1)

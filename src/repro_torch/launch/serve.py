@@ -5,15 +5,19 @@ config of an architecture with random weights:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-1b-a400m --device cuda
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v3-671b --device cuda
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b --device cuda
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m --device cuda
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny --device cuda
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --device cpu
 
-The dense and MoE families run (granite-moe-1b-a400m: 32 experts, top-8
-softmax routing; deepseek-v3-671b: MLA, a leading dense layer, sigmoid
-aux-free routing and a shared expert), and so does the zamba hybrid
+Every family runs: the dense and MoE transformers (granite-moe-1b-a400m:
+32 experts, top-8 softmax routing; deepseek-v3-671b: MLA, a leading dense
+layer, sigmoid aux-free routing and a shared expert), the zamba hybrid
 (zamba2-1.2b: Mamba2 layers and one shared attention block; a prompt of at
-most 128 tokens, or a multiple of 128, the SSD's chunk); the SSM and
-whisper families raise, naming the ROADMAP item that brings them.  On the card an
-MLA config keeps deepseek-v3's head dims (qk 128 + 64, v 128), the flash
+most 128 tokens, or a multiple of 128, the SSD's chunk), the xLSTM stack
+(xlstm-125m: mLSTM and sLSTM blocks, one time step at a time) and the
+whisper encoder-decoder (whisper-tiny: random frame embeddings stand in
+for the stubbed conv front end, as in the reference).  On the card an MLA
+config keeps deepseek-v3's head dims (qk 128 + 64, v 128), the flash
 kernel's one MLA pair (``mla.with_kernel_heads``); on the CPU it is
 reduced like the others.
 """
@@ -57,11 +61,16 @@ def main(argv: list[str] | None = None) -> None:
     prompts = np.random.default_rng(args.seed).integers(
         0, cfg.vocab_size, (args.batch, args.prompt_len), dtype=np.int32
     )
+    # the stub inputs are drawn on the CPU and moved, so both devices serve the same ones
     extras = {}
     if cfg.n_patches:
         extras["patches"] = torch.randn(
             (args.batch, cfg.n_patches, cfg.d_model),
-            generator=torch.Generator(device=device).manual_seed(9), device=device)
+            generator=torch.Generator().manual_seed(9)).to(device)
+    if cfg.is_encoder_decoder:
+        extras["frames"] = torch.randn(
+            (args.batch, cfg.encoder_len, cfg.d_model),
+            generator=torch.Generator().manual_seed(10)).to(device)
     t0 = time.perf_counter()
     out = engine.generate(prompts, args.tokens, extras=extras or None)
     dt = time.perf_counter() - t0

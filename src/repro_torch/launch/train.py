@@ -6,13 +6,19 @@
         --full-config --steps 5 --seq-len 1024 --global-batch 2
     PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b \\
         --full-config --steps 5 --seq-len 1024 --global-batch 2
+    PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m \\
+        --full-config --steps 5 --seq-len 1024 --global-batch 2
+    PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-tiny \\
+        --full-config --steps 5 --seq-len 448 --global-batch 2
 
 Single-process entry point around ``train.loop`` on one card (``--device cpu``
 runs the plain versions on the CPU); without ``--full-config`` it trains
-the architecture's reduced config.  The dense and MoE families train (the
-MoE balance loss enters the loss with weight 0.01, as in the reference),
-and so does the zamba hybrid (a sequence of at most 128 tokens, or a
-multiple of 128: the SSD's chunk).
+the architecture's reduced config.  Every family trains: the dense and
+MoE transformers (the MoE balance loss enters the loss with weight 0.01,
+as in the reference), the zamba hybrid (a sequence of at most 128 tokens,
+or a multiple of 128: the SSD's chunk), the xLSTM stack (each block
+rematted) and the whisper encoder-decoder (random frame embeddings from
+the data pipeline; each decoder layer rematted).
 """
 from __future__ import annotations
 

@@ -37,23 +37,39 @@ class ParamSpec:
 SpecTree = dict[str, Any]  # nested dicts of ParamSpec
 
 
-def tree_leaves(tree: dict[str, Any], prefix: tuple[str, ...] = ()) -> list[tuple[tuple[str, ...], Any]]:
-    """(path, leaf) pairs in the reference's flattening order: sorted keys,
-    depth first (``jax.tree.flatten`` of a dict)."""
+def tree_leaves(tree: dict[str, Any] | list[Any],
+                prefix: tuple[str | int, ...] = ()) -> list[tuple[tuple[str | int, ...], Any]]:
+    """(path, leaf) pairs in the reference's flattening order
+    (``jax.tree.flatten``): a dict's keys sorted, a list's entries in index
+    order (an ``int`` in the path: xLSTM's ``blocks/10`` comes after
+    ``blocks/9``), depth first."""
     out = []
-    for name in sorted(tree):
-        v = tree[name]
-        if isinstance(v, dict):
+    items = enumerate(tree) if isinstance(tree, list) else ((k, tree[k]) for k in sorted(tree))
+    for name, v in items:
+        if isinstance(v, (dict, list)):
             out.extend(tree_leaves(v, prefix + (name,)))
         else:
             out.append((prefix + (name,), v))
     return out
 
 
-def tree_set(tree: dict[str, Any], path: tuple[str, ...], value: Any) -> None:
-    for name in path[:-1]:
-        tree = tree.setdefault(name, {})
-    tree[path[-1]] = value
+def path_name(path: tuple[str | int, ...], sep: str = "/") -> str:
+    """A :func:`tree_leaves` path as text: ``blocks/10/cell/w_up``."""
+    return sep.join(map(str, path))
+
+
+def tree_set(tree: dict[str, Any] | list[Any], path: tuple[str | int, ...], value: Any) -> None:
+    """Put ``value`` at ``path``, making the dicts (a ``str`` key) and lists
+    (an ``int`` index) on the way."""
+    for name, nxt in zip(path, path[1:] + (None,)):
+        new = value if nxt is None else ([] if isinstance(nxt, int) else {})
+        if isinstance(tree, list):
+            tree.extend([None] * (name + 1 - len(tree)))
+            if tree[name] is None or nxt is None:
+                tree[name] = new
+        elif nxt is None or name not in tree:
+            tree[name] = new
+        tree = tree[name]
 
 
 def init_params(
@@ -103,7 +119,7 @@ def unstack(tree: dict[str, Any], n: int) -> list[dict[str, Any]]:
     layers: list[dict[str, Any]] = [{} for _ in range(n)]
     for path, x in tree_leaves(tree):
         if x.shape[0] != n:
-            raise ValueError(f"{'/'.join(path)}: leading dim {x.shape[0]}, expected {n} layers")
+            raise ValueError(f"{path_name(path)}: leading dim {x.shape[0]}, expected {n} layers")
         for i, xi in enumerate(x.unbind(0)):
             tree_set(layers[i], path, xi)
     return layers

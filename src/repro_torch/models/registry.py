@@ -2,11 +2,11 @@
 of reference weights (port of ``repro.models.registry``).
 
 ``registry.get(cfg)`` returns a :class:`ModelApi` with
-spec/init/loss_fn/prefill/decode_step/init_state.  The decoder-only
-transformer families (dense, MoE, the VLM stub; GQA or MLA attention,
-deepseek-v3's) and the zamba hybrid (Mamba2 layers and one shared
-attention block) are served and trained; whisper and xlstm raise, naming
-the ROADMAP item that brings them.
+spec/init/loss_fn/prefill/decode_step/init_state for every family of the
+reference: the decoder-only transformers (dense, MoE, the VLM stub; GQA or
+MLA attention, deepseek-v3's), the zamba hybrid (Mamba2 layers and one
+shared attention block), the xLSTM stack (mLSTM and sLSTM blocks) and the
+whisper encoder-decoder.
 """
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.models import common, transformer, zamba
+from repro_torch.models import common, transformer, whisper, xlstm_model, zamba
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,16 +50,27 @@ _ZAMBA = ModelApi(
     from_tree=zamba.from_tree, stack_sizes=zamba.stack_sizes,
 )
 
+_XLSTM = ModelApi(
+    spec=xlstm_model.spec, init=xlstm_model.init, loss_fn=xlstm_model.loss_fn,
+    prefill=xlstm_model.prefill, decode_step=xlstm_model.decode_step,
+    init_state=xlstm_model.init_state, from_tree=xlstm_model.from_tree,
+    stack_sizes=xlstm_model.stack_sizes,
+)
+
+_WHISPER = ModelApi(
+    spec=whisper.spec, init=whisper.init, loss_fn=whisper.loss_fn,
+    prefill=whisper.prefill, decode_step=whisper.decode_step, init_state=whisper.init_state,
+    from_tree=whisper.from_tree, stack_sizes=whisper.stack_sizes,
+)
+
 
 def get(cfg: ModelConfig) -> ModelApi:
     if cfg.is_encoder_decoder:
-        raise NotImplementedError(f"{cfg.name}: the whisper encoder-decoder is not ported yet "
-                                  "(ROADMAP Queue 1, the Whisper item)")
+        return _WHISPER
     if cfg.hybrid_attn_every:
         return _ZAMBA
     if cfg.family == "ssm":
-        raise NotImplementedError(f"{cfg.name}: the xlstm family is not ported yet "
-                                  "(ROADMAP Queue 1, the xLSTM item)")
+        return _XLSTM
     return _TRANSFORMER
 
 
@@ -112,8 +123,10 @@ def params_from_reference(
         cfg: the architecture.
         tree: the reference's parameter tree (its family's ``init``'s
             nested dict) with numpy arrays at the leaves; the stacked
-            leaves (``layers`` and ``moe_layers``, or zamba's
-            ``mamba_layers``) are split per layer.
+            leaves (``layers`` and ``moe_layers``, zamba's
+            ``mamba_layers``, whisper's ``enc_layers`` and
+            ``dec_layers``) are split per layer; xLSTM's ``blocks`` is a
+            list in both trees.
         dtype: the port's parameter dtype; None keeps each array's dtype.
         device: where the port's parameters live.
 
@@ -124,8 +137,8 @@ def params_from_reference(
     """
     want = dict(common.tree_leaves(get(cfg).spec(cfg)))
     have = dict(common.tree_leaves(tree))
-    missing = sorted("/".join(p) for p in want.keys() - have.keys())
-    extra = sorted("/".join(p) for p in have.keys() - want.keys())
+    missing = sorted(common.path_name(p) for p in want.keys() - have.keys())
+    extra = sorted(common.path_name(p) for p in have.keys() - want.keys())
     if missing or extra:
         raise ValueError(f"{cfg.name}: reference tree and port spec differ: missing {missing}, "
                          f"left over {extra}")
@@ -133,7 +146,7 @@ def params_from_reference(
     for path, s in want.items():
         x = np.asarray(have[path])
         if tuple(x.shape) != s.shape:
-            raise ValueError(f"{'/'.join(path)}: reference shape {x.shape}, port spec {s.shape}")
+            raise ValueError(f"{common.path_name(path)}: reference shape {x.shape}, port spec {s.shape}")
         t = torch.from_numpy(np.array(x)).to(device=device)  # a writable copy
         common.tree_set(out, path, t if dtype is None else t.to(dtype))
     return get(cfg).from_tree(cfg, out)
@@ -143,9 +156,9 @@ def params_to_reference(
     cfg: ModelConfig, params: torch.nn.Module | dict[str, torch.Tensor],
 ) -> dict[str, Any]:
     """The inverse of :func:`params_from_reference`: the reference's tree
-    (its family's ``spec``'s nested dict, each stack's per-layer leaves,
-    ``layers`` and ``moe_layers`` or ``mamba_layers``, stacked over a
-    leading layer dim in layer order) with numpy arrays at the leaves.
+    (its family's ``spec``'s nested dicts and lists, each stack's per-layer
+    leaves (``ModelApi.stack_sizes``) stacked over a leading layer dim in
+    layer order) with numpy arrays at the leaves.
 
     Args:
         cfg: the architecture.
@@ -165,9 +178,10 @@ def params_to_reference(
     for path, s in common.tree_leaves(get(cfg).spec(cfg)):
         stacked = path[0] in stacks
         if stacked:
-            names = [".".join((path[0], str(i)) + path[1:]) for i in range(stacks[path[0]])]
+            names = [common.path_name((path[0], i) + path[1:], ".")
+                     for i in range(stacks[path[0]])]
         else:
-            names = [".".join(path)]
+            names = [common.path_name(path, ".")]
         missing = [n for n in names if n not in named]
         if missing:
             raise ValueError(f"{cfg.name}: no leaf named {missing[0]}")
@@ -175,7 +189,7 @@ def params_to_reference(
                                        else named[n].dtype).numpy() for n in names]
         x = np.stack(leaves) if stacked else leaves[0]
         if tuple(x.shape) != s.shape:
-            raise ValueError(f"{'/'.join(path)}: port shape {x.shape}, spec {s.shape}")
+            raise ValueError(f"{common.path_name(path)}: port shape {x.shape}, spec {s.shape}")
         common.tree_set(out, path, x)
         used.update(names)
     extra = sorted(set(named) - used)

@@ -34,8 +34,8 @@ def make_grad_fn(
     """Returns grad_fn(params, batch) -> (grads, metrics): the gradient of
     the loss with respect to every parameter of ``params`` (the port's
     model, with ``requires_grad`` on) as ``{name: tensor}`` in
-    ``named_parameters()`` order, zeros for a leaf the loss does not reach,
-    and the loss's metrics detached.
+    ``named_parameters()`` order, contiguous, zeros for a leaf the loss does
+    not reach, and the loss's metrics detached.
 
     With ``microbatches`` > 1 the batch is split along its first dim;
     gradients add up in ``grad_acc_dtype`` and metrics in f32, and both are
@@ -49,8 +49,11 @@ def make_grad_fn(
         _, metrics = loss_fn(params, batch)
         grads = torch.autograd.grad(metrics["loss"], list(named.values()), allow_unused=True)
         # a leaf the loss does not reach (the MoE router_bias, read detached)
-        # gets a zero gradient, as jax.grad gives it
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(named.values(), grads)]
+        # gets a zero gradient, as jax.grad gives it; every gradient is
+        # contiguous, as the optimizer's flat chunks need (an einsum's
+        # backward may give a permuted one: the sLSTM's r_gates)
+        grads = [torch.zeros_like(p) if g is None else g.contiguous()
+                 for p, g in zip(named.values(), grads)]
         return dict(zip(named, grads)), {k: v.detach() for k, v in metrics.items()}
 
     def grad_fn(params: Any, batch: dict[str, torch.Tensor]):

@@ -365,6 +365,11 @@ FLASH_SHAPES = [  # (batch, sq, skv, hq, hkv, d, causal, q_offset)
     (2, 64, 64, 4, 2, 32, False, 0),  # non-causal, square
     (4, 1024, 1024, 16, 8, 64, True, 0),  # granite-moe-1b's prefill: D=64, G=2
     (4, 1024, 1024, 32, 32, 64, True, 0),  # zamba2-1.2b's shared-block prefill: D=64, G=1
+    (4, 1500, 1500, 6, 6, 64, False, 0),  # whisper-tiny's encoder: 1,500 = 23 x 64 + 28
+    (4, 16, 1500, 6, 6, 64, False, 0),  # whisper-tiny's cross-attention in serving's prefill
+    (4, 16, 16, 6, 6, 64, True, 0),  # whisper-tiny's decoder self-attention in serving's prefill
+    (2, 448, 1500, 6, 6, 64, False, 0),  # whisper-tiny's cross-attention in training
+    (2, 448, 448, 6, 6, 64, True, 0),  # whisper-tiny's decoder self-attention in training
 ]
 
 
@@ -576,6 +581,10 @@ BWD_SHAPES = [  # (B, Sq, Skv, Hq, Hkv, D, causal, q_offset)
     (2, 1024, 1024, 16, 8, 64, True, 0),  # granite-moe-1b's training shape: D=64, G=2
     (4, 1024, 1024, 32, 32, 64, True, 0),  # zamba2-1.2b's shared block: D=64, G=1
     (2, 1024, 1024, 32, 32, 64, True, 0),  # zamba2-1.2b's training shape: D=64, G=1
+    (4, 1500, 1500, 6, 6, 64, False, 0),  # whisper-tiny's encoder, non-causal, ragged
+    (4, 16, 1500, 6, 6, 64, False, 0),  # whisper-tiny's cross-attention, Sq != Skv
+    (2, 448, 1500, 6, 6, 64, False, 0),  # whisper-tiny's cross-attention in training
+    (2, 448, 448, 6, 6, 64, True, 0),  # whisper-tiny's decoder self-attention in training
 ]
 
 
@@ -1004,3 +1013,101 @@ def test_cuda_mamba2_decode_state_matches_the_cpu(cuda_device):
         found.append((y1, y2, st["ssm"], st["conv"]))
     for name, a, b in zip(("prefill", "decode", "ssm", "conv"), found[1], found[0]):
         assert a.is_cuda and _max_share(a, b) <= 1e-4, name
+
+
+# -- the xLSTM and whisper families -------------------------------------------------------
+
+
+def _reduced_at(arch: str, std: float = 0.02):
+    """``arch``'s reduced config in f32 with its matrices at ``std``."""
+    cfg = get_config(arch).reduced()
+    model = registry.get(cfg).init(torch.Generator().manual_seed(0), cfg)
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.dim() >= 2:
+                p.copy_(torch.randn(p.shape, generator=gen) * std)
+    return cfg, model
+
+
+def _leaves(state):
+    if isinstance(state, torch.Tensor):
+        return [state]
+    items = state.values() if isinstance(state, dict) else state
+    return [x for v in items for x in _leaves(v)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["xlstm-125m", "whisper-tiny"])
+def test_cuda_reduced_serves_like_the_cpu(cuda_device, arch):
+    """A 20-token prefill and 5 decode steps of the CPU's tokens (whisper:
+    after 64 seeded frames), on the card and on the CPU, f32, TF32 off:
+    the logits and every state leaf (xLSTM's cell states, whisper's self and
+    cross K/V) within 1e-3 of their max; whisper's prefill makes one flash
+    launch per encoder layer and two per decoder layer, its decode none;
+    xLSTM none at all."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg, model = _reduced_at(arch)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, (2, 20), dtype=np.int32)
+    extras = {}
+    if cfg.is_encoder_decoder:
+        extras["frames"] = rng.standard_normal((2, cfg.encoder_len, cfg.d_model),
+                                               dtype=np.float32)
+    cpu = ServeEngine(cfg, copy.deepcopy(model), ServeConfig(max_len=32), device="cpu")
+    card = ServeEngine(cfg, model, ServeConfig(max_len=32), device=cuda_device)
+    toks = torch.from_numpy(cpu.generate(prompts, 6, extras=extras or None))
+    found = []
+    for eng in (cpu, card):
+        t = toks.to(eng.device)
+        state = eng.init_state(2)
+        before = fa.LAUNCHES.count
+        lg, state = eng.prefill({"tokens": t[:, :20], **{
+            k: torch.from_numpy(v).to(eng.device) for k, v in extras.items()}}, state)
+        prefill_launches = fa.LAUNCHES.count - before
+        out = [lg]
+        for i in range(5):
+            lg, state = eng.decode(t[:, 20 + i:21 + i], state, 20 + i)
+            out.append(lg)
+        found.append((torch.cat(out, 1), state, prefill_launches, fa.LAUNCHES.count - before))
+    (lc, sc, _, _), (lg, sg, pre, total) = found
+    want = cfg.n_encoder_layers + 2 * cfg.n_layers if cfg.is_encoder_decoder else 0
+    assert pre == total == want
+    assert _max_share(lg, lc) <= 1e-3
+    for i, (a, b) in enumerate(zip(_leaves(sg), _leaves(sc))):
+        assert a.is_cuda and _max_share(a, b) <= 1e-3, i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["xlstm-125m", "whisper-tiny"])
+def test_cuda_reduced_family_train_step_matches_the_cpu(cuda_device, arch):
+    """One step's loss and gradients (whisper: the flash forward and backward
+    kernels, the decoder rematted; xLSTM: plain PyTorch, each block
+    rematted) against the CPU, f32, TF32 off: within 1e-4 (loss, relative)
+    and 1e-3 of each leaf's max, or of 1e-4 of the largest gradient where
+    that is larger (xLSTM's input-gate bias may have a gradient of exactly
+    0, rounding noise on both)."""
+    from repro_torch.data.pipeline import DataConfig, PipelineState, TokenPipeline, make_train_batch
+    from repro_torch.train import train_step
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg, model = _reduced_at(arch)
+    model = common.trainable(model)
+    card = copy.deepcopy(model).to(cuda_device)
+    pipe = TokenPipeline(DataConfig(cfg.vocab_size, 64, 2, seed=1))
+    grad_fn = train_step.make_grad_fn(cfg, q_chunk=32, kv_chunk=32)
+    grads, metrics = grad_fn(model, make_train_batch(pipe, PipelineState(), cfg)[0])
+    fwd, bwd = fa.LAUNCHES.count, fa.BWD_LAUNCHES.count
+    cgrads, cmetrics = grad_fn(card, make_train_batch(pipe, PipelineState(), cfg,
+                                                      device=cuda_device)[0])
+    torch.cuda.synchronize()
+    if cfg.is_encoder_decoder:  # encoder once, the decoder's self + cross twice (remat)
+        want = (cfg.n_encoder_layers + 4 * cfg.n_layers, cfg.n_encoder_layers + 2 * cfg.n_layers)
+    else:
+        want = (0, 0)
+    assert (fa.LAUNCHES.count - fwd, fa.BWD_LAUNCHES.count - bwd) == want
+    assert abs(cmetrics["loss"].item() - metrics["loss"].item()) <= 1e-4 * metrics["loss"].item()
+    floor = 1e-4 * max(g.abs().max().item() for g in grads.values())
+    for name, g in grads.items():
+        err = (cgrads[name].cpu().double() - g.double()).abs().max().item()
+        assert err <= 1e-3 * max(g.abs().max().item(), floor), name

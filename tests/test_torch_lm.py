@@ -29,7 +29,8 @@ from repro.serve.engine import ServeEngine as JServeEngine
 from repro_torch.configs import ALL_ARCHS, SHAPES, get_config, shape_applicable
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.launch import serve as serve_cli
-from repro_torch.models import attention, common, ffn, registry, transformer, zamba
+from repro_torch.models import (attention, common, ffn, registry, transformer, whisper, xlstm_model,
+                                zamba)
 from repro_torch.serve.engine import ServeConfig, ServeEngine
 
 ARCHS = ["qwen3-4b", "yi-6b"]
@@ -268,9 +269,19 @@ def test_init_follows_the_reference_rule():
 
 
 def test_unported_families_raise_naming_their_item():
-    for arch, item in (("whisper-tiny", "Whisper"), ("xlstm-125m", "xLSTM")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1, the {item} item"):
-            registry.get(get_config(arch).reduced())
+    """No family is left unported, so none raises: every arch of ALL_ARCHS
+    gets a ``ModelApi``, the reference's family for it (whisper and xlstm
+    were the last two)."""
+    families = {registry._TRANSFORMER: jregistry._TRANSFORMER, registry._ZAMBA: jregistry._ZAMBA,
+                registry._XLSTM: jregistry._XLSTM, registry._WHISPER: jregistry._WHISPER}
+    for arch in ALL_ARCHS:
+        for cfg, jcfg in ((get_config(arch), jget_config(arch)),
+                          (get_config(arch).reduced(), jget_config(arch).reduced())):
+            api = registry.get(cfg)
+            assert isinstance(api, registry.ModelApi), arch
+            assert families[api] is jregistry.get(jcfg), arch
+    assert registry.get(get_config("whisper-tiny")).loss_fn is whisper.loss_fn
+    assert registry.get(get_config("xlstm-125m")).loss_fn is xlstm_model.loss_fn
     # the zamba hybrid is ported: the registry gives its API
     assert registry.get(get_config("zamba2-1.2b").reduced()) is registry._ZAMBA
     assert registry.get(get_config("zamba2-1.2b")).loss_fn is zamba.loss_fn

@@ -46,6 +46,7 @@ from repro_torch.launch import serve as serve_cli
 from repro_torch.models import common, mla, registry, transformer
 from repro_torch.serve.engine import ServeConfig, ServeEngine
 from repro_torch.train import train_step
+from _torch_threads import one_cpu_thread  # noqa: F401  (autouse)
 
 ARCH = "deepseek-v3-671b"
 SEQ, BATCH = 16, 2

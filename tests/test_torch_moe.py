@@ -52,6 +52,7 @@ from repro_torch.models import common, moe, registry, transformer
 from repro_torch.optim import adamw
 from repro_torch.serve.engine import ServeConfig, ServeEngine
 from repro_torch.train import loop, train_step
+from _torch_threads import one_cpu_thread  # noqa: F401  (autouse)
 
 ARCH = "granite-moe-1b-a400m"
 SEQ, BATCH = 16, 4

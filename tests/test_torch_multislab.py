@@ -31,6 +31,7 @@ from repro_torch.core.su3 import plan as tplan
 from repro_torch.distributed import sharding as tsharding
 from repro_torch.launch.mesh import DEVICE_AXIS, HOST_AXIS, MeshSpec, SlabMesh
 from repro_torch.obs import Tracer
+from _torch_threads import one_cpu_thread  # noqa: F401  (autouse)
 
 
 def _su3(n_sites: int, seed: int) -> np.ndarray:

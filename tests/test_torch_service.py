@@ -28,6 +28,7 @@ from repro_torch.chaos import FaultPlan, FaultSpec
 from repro_torch.core.autotune import _cg_measure_problem
 from repro_torch.core.su3.plan import verify_tolerance
 from repro_torch.serve.su3 import BatcherConfig, RequestFailure, ServiceConfig, SU3Service
+from _torch_threads import one_cpu_thread  # noqa: F401  (autouse)
 
 MODES = {
     "batch": {},

@@ -40,6 +40,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.models import common, registry, transformer
 from repro_torch.optim import adamw
 from repro_torch.train import train_step
+from _torch_threads import one_cpu_thread  # noqa: F401  (autouse)
 
 ARCH = "qwen3-4b"
 SEQ, BATCH = 16, 4

@@ -40,6 +40,7 @@ from repro_torch.distributed.fault_tolerance import (
 from repro_torch.launch import train as train_cli
 from repro_torch.optim import adamw, compression
 from repro_torch.train import loop
+from _torch_threads import one_cpu_thread  # noqa: F401  (autouse)
 
 ARCH = "qwen3-4b"
 SEQ = 16

@@ -60,6 +60,7 @@ from repro_torch.models import common, mamba2, registry, zamba
 from repro_torch.optim import adamw
 from repro_torch.serve.engine import ServeConfig, ServeEngine
 from repro_torch.train import loop, train_step
+from _torch_threads import one_cpu_thread  # noqa: F401  (autouse)
 
 ARCH = "zamba2-1.2b"
 SEQ, BATCH = 16, 2
