@@ -69,6 +69,20 @@ source, started together) and, at the paper's L=32 lattice:
     against the CPU at 2 dense layers of full width in f32 and at the
     reduced config with deepseek-v3's head dims (routing equal); the
     kernel at the prefill shape beside SDPA and its bound;
+  * MLA training: the flash backward at (192, 128) against its plain
+    version in seven forms (bf16 and f32, causal and not, ragged, Sq < Skv,
+    q_offset; each twice bitwise); ``train.loop.train`` on deepseek-v3 at
+    full width cut to its 3 dense layers and the MTP layer (4.29 B
+    parameters, ``MLA_TRAIN_REDUCED``) for 5 steps on 2 x 1,024 tokens (7
+    flash forward and 4 backward launches a step), one step's gradients
+    twice bitwise; the card against the CPU on 2 dense layers + MTP of full
+    width in f32; resume bitwise on the reduced config with deepseek-v3's
+    head dims; the backward at the training shape beside SDPA's backward
+    and its bound;
+  * GPipe: qwen3-4b's 36 layers at full width in 4 logical stages of 9
+    (``distributed.pipeline``), 4 microbatches of 512 tokens in bf16:
+    outputs and gradients of a sum-of-squares loss bitwise against the
+    sequential pass, launches and peak memory;
   * the zamba phase: full-width, full-depth zamba2-1.2b (38 Mamba2
     layers, one shared attention block applied after every 6: 6
     applications at 32/32 heads of 64, G = 1; 1.17 B parameters, nothing
@@ -84,8 +98,8 @@ source, started together) and, at the paper's L=32 lattice:
     and gradients; resume bitwise; the flash forward (B=4) and backward
     (B=2, the training shape) at S=1,024, H=32, D=64, G=1 against their
     plain versions, SDPA and their bounds;
-  * the xLSTM phase: full-width, full-depth xlstm-125m (12 blocks, sLSTM at
-    5 and 11; 212.0 M parameters by the spec, nothing cut; bf16, f32 cells
+  * the xLSTM phase: full-width xlstm-125m cut to its first 6 blocks
+    (sLSTM at 5; ``XLSTM_DEPTH``, for the time limit); bf16, f32 cells
     and states; no kernel of the port: both cells step through time in
     plain PyTorch) through ``ServeEngine`` as above (decode against one
     state-less teacher forward over the served tokens; the launches of one
@@ -94,7 +108,7 @@ source, started together) and, at the paper's L=32 lattice:
     CPU on a full-width cut of one mLSTM and one sLSTM block in f32:
     logits, every state leaf, one step's loss and gradients; resume
     bitwise;
-  * the whisper phase, last: the flash forward and backward against their
+  * the whisper phase: the flash forward and backward against their
     plain versions at whisper-tiny's shapes (D=64, G = 1: non-causal over
     1,500 frames, cross-attention with Sq != Skv = 1,500, the decoder's
     causal self-attention); full-width, full-depth whisper-tiny (4 + 4
@@ -107,6 +121,10 @@ source, started together) and, at the paper's L=32 lattice:
     CPU on the whole model in f32; resume bitwise; the kernels' yardsticks
     at the encoder's and the cross-attention's prefill and at training's
     three shapes;
+  * the dry run, last: the reference's four dry-run cases through
+    ``python -m repro_torch.launch.dryrun`` (``meta`` tensors; at once), and
+    ``--su3-fig7 --L 32 --device-counts 1,2,4 --controllers 2``: two
+    controller processes on the card, no divergence;
   * times each kernel against its bound, its plain version and, where one
     PyTorch call computes the same function, that call (every time in the
     kernels line from eager calls; the flash kernel and SDPA also in a CUDA
@@ -122,8 +140,8 @@ It prints:
     and mask), which must run wgmma too;
   * one JSON line per check, per main-path row and per yardstick;
   * a ``{"kernels": [...]}`` line with each ported kernel's numbers (the
-    flash backward beside the forward, and the forward's (192, 128)
-    instantiation with its own launches) and the total wall time;
+    flash backward beside the forward, and the (192, 128) instantiations
+    of both with their own launches) and the total wall time;
   * last, ``{"ok": true, "device": {...}}`` — only if every phase passed.
 
 The whole output is over 20 KB; where only the end of a log is kept, run
@@ -182,8 +200,8 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 1024, 5  # 2 x 1,024 tokens a step, 5 s
 # width, 24 layers, d_model 1,024, 16/8 heads of 64, 32 experts top-8 (d_ff
 # 512), vocab 49,155, tied embeddings; 1.33 B parameters, 0.40 B active
 MOE_ARCH = "granite-moe-1b-a400m"
-# step 1's loss against ln(vocab): the init's 0.02 embedding (tied) gives
-# logits of ~1e-2, a near-uniform softmax
+# step 1's NLL against ``_start_nll``: ln(vocab) plus the spread of the
+# logits that a 0.02 head gives, which grows with d_model
 TRAIN_START_TOL = 1.0
 # one train step's loss and gradients, the card against the CPU at 2 layers
 # in f32, TF32 off: sums in another order (cuBLAS and the kernels' tiles
@@ -209,6 +227,11 @@ BWD_FORMS = [  # (label, batch, sq, skv, hq, hkv, d, causal, q_offset, dtype)
     ("G=4 D=128 bf16 causal dout strided", 1, 512, 512, 16, 4, 128, True, 0, "bfloat16"),
 ]
 BWD_TC_KERNELS = ("flash_bwd_dkdv_tc", "flash_bwd_dq_tc")  # the bf16 backward's wgmma kernels
+# the one backward kernel that spills: bf16 dK/dV at MLA's (192, 128), whose
+# consumers hold 160 f32 accumulators beside a slice's S^T, dP^T and their
+# bf16 parts (ptxas: 104-112 bytes of stack, 144-172 of spill stores); the
+# spill is recorded (PERF.md, row 5b-mla), and a larger one fails
+BWD_SPILL_LIMITS = {("dkdv", "bfloat16", 192, 128): 128}
 # the MLA phase: deepseek-v3 at full width (d_model 7,168, 128 heads, q_lora
 # 1,536, kv_lora 512, qk head 128 + 64, v head 128, 256 experts top-8 sigmoid
 # aux-free + 1 shared of d_ff 2,048, dense d_ff 18,432, vocab 129,280),
@@ -216,6 +239,30 @@ BWD_TC_KERNELS = ("flash_bwd_dkdv_tc", "flash_bwd_dq_tc")  # the bf16 backward's
 MLA_ARCH = "deepseek-v3-671b"
 MLA_LAYERS = 4
 MLA_REDUCED = {"n_layers": "61 -> 4: 671 B parameters do not fit one card"}
+# the backward at MLA's (D, Dv) = (192, 128), G = 1, as BWD_FORMS (d the pair)
+MLA_BWD_FORMS = [
+    ("mla training shape bf16 causal", 2, 1024, 1024, 128, 128, (192, 128), True, 0, "bfloat16"),
+    ("mla training shape f32 causal", 2, 1024, 1024, 128, 128, (192, 128), True, 0, "float32"),
+    ("mla ragged 333 bf16 causal", 1, 333, 333, 8, 8, (192, 128), True, 0, "bfloat16"),
+    ("mla ragged 100 f32 causal", 1, 100, 100, 4, 4, (192, 128), True, 0, "float32"),
+    ("mla Sq<Skv q_offset 136 f32", 2, 64, 200, 8, 8, (192, 128), True, 136, "float32"),
+    ("mla Sq<Skv q_offset 1024 bf16", 2, 64, 1088, 16, 16, (192, 128), True, 1024, "bfloat16"),
+    ("mla ragged Sq<Skv bf16 non-causal", 2, 200, 333, 8, 8, (192, 128), False, 0, "bfloat16"),
+]
+# deepseek-v3 trained at full width: its 3 dense layers and the dense MTP
+# layer, 4.29 B parameters (f32 master weights and AdamW moments: ~69 GB)
+MLA_TRAIN_LAYERS = 3
+MLA_TRAIN_REDUCED = {"n_layers": "61 -> 3: one MoE layer holds ~180 GB of training state"}
+MLA_CROSS_SEQ = 64  # the card against the CPU: 2 dense layers + MTP of full width, f32
+# GPipe on the card: qwen3-4b's 36 layers at full width in 4 stages of 9, 4
+# microbatches of one 512-token sequence, bf16, matrices at std 0.02
+PIPE_STAGES, PIPE_MICRO, PIPE_SEQ = 4, 4, 512
+# the dry run: the reference's cases (tests/test_dryrun_subprocess.py), and
+# the fig7 launch at PAPER_L32's lattice
+DRYRUN_CASES = [("whisper-tiny", "train_4k", "single"), ("xlstm-125m", "decode_32k", "single"),
+                ("granite-moe-1b-a400m", "prefill_32k", "multi"),
+                ("zamba2-1.2b", "long_500k", "single")]
+DRYRUN_FIG7 = ["--su3-fig7", "--L", "32", "--device-counts", "1,2,4", "--controllers", "2"]
 MLA_FORMS = [  # (label, batch, sq, skv, heads, causal, q_offset, dtype): D=192, Dv=128, G=1
     ("prefill shape bf16 causal", 4, 1024, 1024, 128, True, 0, "bfloat16"),
     ("f32 causal", 1, 512, 512, 16, True, 0, "float32"),
@@ -238,6 +285,10 @@ ZAMBA_CUT = {"n_layers": 3, "hybrid_attn_every": 2}
 # 50,304; 212.0 M parameters by the spec), served and trained at the LM and
 # training shapes above; nothing cut.  It reaches no kernel of the port.
 XLSTM_ARCH = "xlstm-125m"
+# its first 6 blocks (sLSTM at 5, as published): a whole-depth step took
+# 32-54 s, and the smoke gained the MLA training, GPipe and dry-run phases
+XLSTM_DEPTH = {"n_layers": 6, "slstm_layers": (5,)}
+XLSTM_REDUCED = {"n_layers": "12 -> 6 (sLSTM at 5): the smoke's time limit"}
 # a training step makes ~1 M eager launches (30-50 s); 3 steps instead of 5,
 # and the step twice on a quarter of the tokens, keep the whole smoke inside
 # its time limit
@@ -495,18 +546,20 @@ def main(argv: list[str] | None = None) -> int:
            "forms": flash_forms})
     bwd_forms = []
     for dtype in ("float32", "bfloat16"):
-        for d in flash_attention.BWD_HEAD_DIMS:
+        for d, dv in flash_attention.BWD_HEAD_DIMS:
             for causal in (True, False):
-                for kname, b in flash_attention.bwd_budget(getattr(torch, dtype), d,
-                                                            causal).items():
-                    bwd_forms.append([kname, dtype, d, causal, b["num_regs"], b["local_bytes"],
-                                      b["shared_bytes"], b["threads_per_block"],
-                                      b["blocks_per_sm"]])
-                    if b["local_bytes"] or b["blocks_per_sm"] < 1:
-                        failures.append(f"flash_attention_bwd {kname} {dtype} D={d}: {b}")
+                for kname, b in flash_attention.bwd_budget(getattr(torch, dtype), d, causal,
+                                                            dv=dv).items():
+                    bwd_forms.append([kname, dtype, d, dv, causal, b["num_regs"],
+                                      b["local_bytes"], b["shared_bytes"],
+                                      b["threads_per_block"], b["blocks_per_sm"]])
+                    spill_limit = BWD_SPILL_LIMITS.get((kname, dtype, d, dv), 0)
+                    if b["local_bytes"] > spill_limit or b["blocks_per_sm"] < 1:
+                        failures.append(f"flash_attention_bwd {kname} {dtype} (D, Dv) = "
+                                        f"({d}, {dv}): {b}")
     _emit({"kernel_budget": "flash_attention_bwd",
-           "columns": ["kernel", "dtype", "head_dim", "causal", "num_regs", "local_bytes",
-                       "shared_bytes", "threads_per_block", "blocks_per_sm"],
+           "columns": ["kernel", "dtype", "head_dim", "v_head_dim", "causal", "num_regs",
+                       "local_bytes", "shared_bytes", "threads_per_block", "blocks_per_sm"],
            "forms": bwd_forms})
     # the bf16 body runs on the tensor cores: wgmma (HGMMA) fed by TMA (UTMALDG)
     sass = _tool_output([str(pathlib.Path(_build.nvcc_path()).parent / "cuobjdump"), "-sass",
@@ -715,6 +768,23 @@ def main(argv: list[str] | None = None) -> int:
     # -- 5e. the MLA phase: deepseek-v3 served, the kernel at (D, Dv) = (192, 128) ------
     torch.cuda.empty_cache()
     flash_mla = _mla_phase(args.seed, hw, failures)
+    # -- 5e'. MLA training: the backward at (192, 128), deepseek-v3's 3 dense layers ----
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    flash_bwd_mla, mla_train_fwd = _mla_train(args.seed, hw, failures)
+    _emit({"phase": "mla train", "seconds": time.perf_counter() - t0})
+    flash_mla["serve_launches"], flash_mla["train_launches"] = flash_mla["launches"], mla_train_fwd
+    flash_mla["launches"] += mla_train_fwd
+    # -- 5e''. GPipe over 4 logical stages of qwen3-4b's layers ----------------------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    gpipe = _pipeline_phase(args.seed, failures)
+    _emit({"phase": "gpipe", "seconds": time.perf_counter() - t0})
+    flash["gpipe_launches"], flash_bwd["gpipe_launches"] = gpipe["fwd"], gpipe["bwd"]
+    flash["launches"] += gpipe["fwd"]
+    flash_bwd["launches"] += gpipe["bwd"]
+    flash["max_abs_err"] = max(flash["max_abs_err"], gpipe["fwd_err"])
+    flash_bwd["max_abs_err"] = max(flash_bwd["max_abs_err"], gpipe["bwd_err"])
 
     # -- 5f. the zamba phase: zamba2-1.2b served and trained, the kernels at D=64, G=1 ----
     torch.cuda.empty_cache()
@@ -748,6 +818,12 @@ def main(argv: list[str] | None = None) -> int:
     flash_bwd["launches"] += whisper["train_bwd"]
     flash_bwd["max_abs_err"] = max(flash_bwd["max_abs_err"], whisper["bwd_err"])
 
+    # -- 5i. the dry run: the LM cases on meta tensors, the fig7 launch on the card -------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _dryrun_phase(failures)
+    _emit({"phase": "dryrun", "seconds": time.perf_counter() - t0})
+
     # -- 6. the kernels line -----------------------------------------------------------
     _emit({"kernels": [{
         "name": "su3_mult_planar", "route": "cuda", "source": KERNEL_SOURCE,
@@ -773,6 +849,9 @@ def main(argv: list[str] | None = None) -> int:
     }, {
         "name": "flash_attention (D=192, Dv=128)", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES, **flash_mla,
+    }, {
+        "name": "flash_attention_bwd (D=192, Dv=128)", "route": "cuda", "source": FLASH_SOURCE,
+        "replaces": BWD_SOURCE_LINE, **flash_bwd_mla,
     }]})
     _emit({"phase": "total", "seconds": time.perf_counter() - t_start})
 
@@ -1815,10 +1894,11 @@ def _bwd_checks(rng, failures: list[str], forms=BWD_FORMS) -> float:
 
     dev, worst = torch.device("cuda"), 0.0
     for label, b, sq, skv, hq, hkv, d, causal, q_offset, dtype in forms:
+        d, dv = d if isinstance(d, tuple) else (d, d)  # (D, Dv) where they differ
         dt = getattr(torch, dtype)
         q, k, v, dout = (torch.from_numpy(rng.standard_normal(shp, dtype=np.float32)).to(dev, dt)
-                         for shp in ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d),
-                                     (b, sq, hq, d)))
+                         for shp in ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, dv),
+                                     (b, sq, hq, dv)))
         if label.endswith("dout strided"):
             wide = torch.zeros((b, sq, hq, 2 * d), dtype=dt, device=dev)
             wide[..., :d] = dout
@@ -1833,7 +1913,7 @@ def _bwd_checks(rng, failures: list[str], forms=BWD_FORMS) -> float:
         torch.cuda.synchronize()
         atol, rtol = fa.kernel_tolerance(dt)
         row = {"check": "kernel_vs_plain", "kernel": "flash_attention_bwd", "form": label,
-               "shape": [b, sq, skv, hq, hkv, d], "causal": causal, "q_offset": q_offset,
+               "shape": [b, sq, skv, hq, hkv, d, dv], "causal": causal, "q_offset": q_offset,
                "dtype": dtype, "dout_strides": list(dout.stride()), "atol": atol,
                "rtol_of_max": rtol}
         ok = True
@@ -1931,7 +2011,7 @@ def _train_phase(seed: int, hw, failures: list[str]) -> tuple[dict, int]:
     torch.cuda.empty_cache()
 
     losses, gnorms = [h["loss"] for h in hist], [h["grad_norm"] for h in hist]
-    start = math.log(cfg.vocab_size)
+    start = _start_nll(cfg)
     median_ms = float(np.median(step_ms[1:]))
     steps = len(hist)
     row = {"row": "lm train", "arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model, "vocab": cfg.vocab_size, "params": n_params,
@@ -1946,8 +2026,8 @@ def _train_phase(seed: int, hw, failures: list[str]) -> tuple[dict, int]:
            "flash_launches_per_step": fwd / steps, "flash_bwd_launches_per_step": bwd / steps,
            "expected_per_step": [2 * cfg.n_layers, cfg.n_layers],
            "other_launches": sum(counts.values()) - fwd - bwd,
-           "idle_share": prof["idle_share"], "start_loss_target": start,
-           "start_loss_tol": TRAIN_START_TOL}
+           "idle_share": prof["idle_share"], "start_loss": losses[0],
+           "start_loss_target": start, "start_loss_tol": TRAIN_START_TOL}
     row["ok"] = (steps == TRAIN_STEPS and all(math.isfinite(x) for x in losses + gnorms)
                  and abs(losses[0] - start) <= TRAIN_START_TOL
                  and fwd == 2 * cfg.n_layers * steps and bwd == cfg.n_layers * steps
@@ -2349,6 +2429,31 @@ def _same_bits_twice(tag: str, cfg, step_fn, params, opt_state, batch,
         failures.append(f"{tag} train: one step twice from one state differs")
 
 
+def _same_grads_twice(tag: str, cfg, params, batch, failures: list[str]) -> None:
+    """One step's gradients and metrics twice from the same parameters: the
+    same bits.  The first call's gradients wait on the host while the
+    second runs; the optimizer's update is elementwise on those inputs."""
+    import torch
+
+    from repro_torch.train import train_step
+
+    grad_fn = train_step.make_grad_fn(cfg, q_chunk=min(512, batch["tokens"].shape[1]),
+                                      kv_chunk=min(1024, batch["tokens"].shape[1]))
+    grads, m1 = grad_fn(params, batch)
+    first = {n: g.cpu() for n, g in grads.items()}
+    del grads
+    grads, m2 = grad_fn(params, batch)
+    twice = (all(torch.equal(first[n], g.cpu()) for n, g in grads.items())
+             and all(torch.equal(m1[k], m2[k]) for k in m1))
+    _emit({"row": f"{tag} train same bits twice", "arch": cfg.name, "tensors": len(first),
+           "what": "one step's gradients and metrics", "loss": m1["loss"].item(),
+           "bitwise": twice})
+    del grads, first
+    torch.cuda.empty_cache()
+    if not twice:
+        failures.append(f"{tag} train: one step's gradients twice from one state differ")
+
+
 def _generate_twice(engine, prompts, extras: dict | None = None) -> tuple:
     """``engine.generate`` of ``prompts`` and LM_NEW greedy tokens twice:
     the first with the counters set to 0 just before and read just after,
@@ -2427,12 +2532,15 @@ def _serving_profiles(tag: str, engine, toks_d, prompt: int, what: str,
 
 
 def _train_main_path(tag: str, cfg, opt, seed: int, steps: int, seq: int, failures: list[str],
-                     profile_seq: int | None = None) -> tuple[bool, list, dict]:
+                     profile_seq: int | None = None,
+                     grads_twice: bool = False) -> tuple[bool, list, dict]:
     """``train.loop.train`` on ``cfg`` on the card for ``steps`` steps of
     TRAIN_BATCH x ``seq`` tokens (AdamW ``opt``), the counters set to 0
     just before and read just after, its log and one line a step printed;
     one more step twice from the trained state, bitwise
-    (``_same_bits_twice``); one more step under the profiler, its flash
+    (``_same_bits_twice``; with ``grads_twice``, the step's gradients and
+    metrics twice, ``_same_grads_twice``, where copies of the parameters
+    and moments would not fit beside them); one more step under the profiler, its flash
     launches counted, then the gradient / optimizer split.  With
     ``profile_seq`` the step twice and the profiled step take the batch's
     first ``profile_seq`` tokens, the profiler records the device's
@@ -2441,7 +2549,7 @@ def _train_main_path(tag: str, cfg, opt, seed: int, steps: int, seq: int, failur
     ~1 M launches of a whole step take the profiler minutes to read, and
     AdamW's eager passes take ~0.1 s of a step's tens.  Returns whether the run took its steps with
     finite metrics, a first loss (the NLL, where the family adds an aux
-    loss) within TRAIN_START_TOL of log(vocab) and no launch of the port's
+    loss) within TRAIN_START_TOL of ``_start_nll`` and no launch of the port's
     but the flash kernels'; its history; and the fields every family's
     train row carries."""
     import math
@@ -2482,7 +2590,10 @@ def _train_main_path(tag: str, cfg, opt, seed: int, steps: int, seq: int, failur
     pipe = TokenPipeline(DataConfig(cfg.vocab_size, seq, TRAIN_BATCH, seed=seed))
     batch, _ = make_train_batch(pipe, PipelineState(step=steps), cfg, device=dev)
     short = batch if profile_seq is None else {k: v[:, :profile_seq] for k, v in batch.items()}
-    _same_bits_twice(tag, cfg, step_fn, params, opt_state, short, failures)
+    if grads_twice:
+        _same_grads_twice(tag, cfg, params, short, failures)
+    else:
+        _same_bits_twice(tag, cfg, step_fn, params, opt_state, short, failures)
     torch.cuda.empty_cache()
     # where the time goes: one more step under the profiler, then the split
     fields: dict = {}
@@ -2515,7 +2626,7 @@ def _train_main_path(tag: str, cfg, opt, seed: int, steps: int, seq: int, failur
     fwd, bwd = counts[fa.LAUNCHES.name], counts[fa.BWD_LAUNCHES.name]
     losses, gnorms = [h["loss"] for h in hist], [h["grad_norm"] for h in hist]
     auxs = [h["aux"] for h in hist if "aux" in h]
-    first, start = hist[0].get("nll", losses[0]), math.log(cfg.vocab_size)
+    first, start = hist[0].get("nll", losses[0]), _start_nll(cfg)
     median_ms = float(np.median(step_ms[1:]))
     n = len(hist)
     fields.update({
@@ -2537,6 +2648,22 @@ def _train_main_path(tag: str, cfg, opt, seed: int, steps: int, seq: int, failur
     ok = (n == steps and all(math.isfinite(x) for x in losses + gnorms + auxs)
           and abs(first - start) <= TRAIN_START_TOL and fields["other_launches"] == 0)
     return ok, hist, fields
+
+
+def _start_nll(cfg) -> float:
+    """The expected NLL of step 1: ln(vocab) plus half the variance of the
+    logits, which an output head drawn at std 0.02 over RMS-normalised
+    features of width d_model gives as 0.02^2 d_model (E[logsumexp] of V
+    normal logits of variance s^2 is about ln V + s^2 / 2).  deepseek-v3's
+    d_model of 7,168 puts it 1.43 above ln(vocab); xlstm-125m's 768, 0.15.
+    On an H100 (seed 0) each family's first NLL came within 0.04 of it:
+    qwen3-4b 12.428 (12.443), granite-moe 11.014 (11.008), deepseek-v3
+    13.169 (13.203), zamba2 10.767 (10.783), xlstm 10.952 (10.979), whisper
+    10.931 (10.933), where ln(vocab) alone misses by 0.08 to 1.4; the tied
+    and the reference-initialised heads draw at 0.02 too."""
+    import math
+
+    return math.log(cfg.vocab_size) + 0.5 * 0.02**2 * cfg.d_model
 
 
 def _moe_train(seed: int, failures: list[str]) -> tuple[int, int]:
@@ -2593,10 +2720,10 @@ def _head_yardsticks(arch: str, rng, hw, failures: list[str]) -> None:
     _bwd_yardstick(arch, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, hq, hkv, d, True, rng, hw, failures)
 
 
-def _yardstick_label(kernel: str, b, sq, skv, hq, hkv, d, causal) -> str:
+def _yardstick_label(kernel: str, b, sq, skv, hq, hkv, d, causal, dv=None) -> str:
     length = f"S={sq}" if sq == skv else f"Sq={sq} Skv={skv}"
     return (f"{kernel} bf16 {'causal' if causal else 'non-causal'} B={b} {length} "
-            f"Hq={hq} Hkv={hkv} D={d}")
+            f"Hq={hq} Hkv={hkv} D={d}" + ("" if dv in (None, d) else f" Dv={dv}"))
 
 
 def _fwd_yardstick(arch: str, b, sq, skv, hq, hkv, d, causal: bool, rng, hw,
@@ -2656,11 +2783,12 @@ def _fwd_yardstick(arch: str, b, sq, skv, hq, hkv, d, causal: bool, rng, hw,
 
 
 def _bwd_yardstick(arch: str, b, sq, skv, hq, hkv, d, causal: bool, rng, hw,
-                   failures: list[str]) -> dict:
-    """The flash backward (bf16) at one shape against its plain version
-    within ``kernel_tolerance`` of each gradient's max, and twice bitwise,
-    then timed (eager calls and a CUDA graph) beside the plain version,
-    SDPA's backward and the bound.  Emits the row and returns it."""
+                   failures: list[str], dv: int | None = None) -> dict:
+    """The flash backward (bf16) at one shape (v's head dim ``dv``, None:
+    d) against its plain version within ``kernel_tolerance`` of each
+    gradient's max, and twice bitwise, then timed (eager calls and a CUDA
+    graph) beside the plain version, SDPA's backward (the backend it picks,
+    by name) and the bound.  Emits the row and returns it."""
     import numpy as np
     import torch
 
@@ -2673,8 +2801,9 @@ def _bwd_yardstick(arch: str, b, sq, skv, hq, hkv, d, causal: bool, rng, hw,
     def normal(*shape):
         return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev, bf16)
 
-    q, k, v, dout = normal(b, sq, hq, d), normal(b, skv, hkv, d), normal(b, skv, hkv, d), \
-        normal(b, sq, hq, d)
+    dv = d if dv is None else dv
+    q, k, v, dout = normal(b, sq, hq, d), normal(b, skv, hkv, d), normal(b, skv, hkv, dv), \
+        normal(b, sq, hq, dv)
     o, lse = fa._forward(q, k, v, causal=causal, q_chunk=512, kv_chunk=1024, q_offset=0,
                          with_lse=True)
     got = fa.flash_attention_bwd(q, k, v, o, dout, lse, causal=causal)
@@ -2694,22 +2823,26 @@ def _bwd_yardstick(arch: str, b, sq, skv, hq, hkv, d, causal: bool, rng, hw,
     plain_ms = _time_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, o, dout, lse,
                                                              causal=causal), reps=3, warmup=1)
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    backend = torch.nn.attention.SDPBackend(torch._fused_sdp_choice(
+        qt, kt, vt, None, 0.0, causal, enable_gqa=True)).name
     o_lib = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                                              enable_gqa=True)
     sdpa_bwd = lambda: torch.autograd.grad(o_lib, (qt, kt, vt), dout.transpose(1, 2),  # noqa: E731
                                            retain_graph=True)
     library_ms = _time_ms(sdpa_bwd, reps=50)
     bound = roofline.attention_bwd_bound(batch=b, sq=sq, skv=skv, hq=hq, hkv=hkv, d=d,
-                                         causal=causal, dtype=bf16,
-                                         hw=hw) if hw is not None else None
-    executed = fa.bwd_executed_flops(b, sq, skv, hq, hkv, d, causal=causal)
-    row = {"yardstick": _yardstick_label("flash_attention_bwd", b, sq, skv, hq, hkv, d, causal),
+                                         causal=causal, dtype=bf16, hw=hw,
+                                         dv=dv) if hw is not None else None
+    executed = fa.bwd_executed_flops(b, sq, skv, hq, hkv, d, causal=causal, dv=dv)
+    row = {"yardstick": _yardstick_label("flash_attention_bwd", b, sq, skv, hq, hkv, d, causal,
+                                         dv),
            "arch": arch, "share_of_limit": shares, "bitwise_twice": twice, "ok": ok,
            "kernel_ms": kernel_ms, "kernel_graph_ms": kernel_graph_ms, "plain_ms": plain_ms,
            "library_ms": library_ms,
            "timing": "*_ms: eager calls; kernel_graph_ms: CUDA graph of 20 calls",
            "library_call": f"backward of F.scaled_dot_product_attention(is_causal={causal}, "
                            "enable_gqa=True) (torch.autograd.grad)",
+           "library_backend": backend,
            "flops": None if bound is None else bound.flops,
            "bytes": None if bound is None else bound.bytes,
            "bound_ms": None if bound is None else bound.bound_s * 1e3,
@@ -2852,6 +2985,251 @@ def _mla_phase(seed: int, hw, failures: list[str]) -> dict:
             "bound_ms": None if bound is None else bound.bound_s * 1e3,
             "bound_by": None if bound is None else bound.bound_by,
             "library_ms": library["library_ms"]}
+
+
+def _mla_train(seed: int, hw, failures: list[str]) -> tuple[dict, int]:
+    """MLA training on the card.  The flash backward at (D, Dv) = (192, 128)
+    against its plain version in MLA_BWD_FORMS (each twice, bitwise); then
+    ``train.loop.train`` on deepseek-v3 at full width, cut to its 3 dense
+    layers and the MTP layer (MLA_TRAIN_REDUCED; f32 master weights and
+    moments, bf16 compute, remat) through ``_train_main_path`` (7 flash
+    forward launches a step at (192, 128): 3 layers, their remat recompute,
+    the MTP layer's; 4 backward calls), the step's gradients twice
+    bitwise; one step's loss and gradients, the card against the CPU on 2
+    dense layers + MTP of full width in f32 (matrices at std 0.02); 4 steps
+    straight against 2 + checkpoint + restore + 2, bitwise, on the reduced
+    config with deepseek-v3's head dims (two runs' states must fit the card
+    at once); the
+    backward's yardsticks at the training shape.  Returns the (192, 128)
+    backward's entry of the kernels line and the training run's forward
+    launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import common, mla, registry
+    from repro_torch.optim.adamw import AdamWConfig
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 23)
+    max_err = _bwd_checks(rng, failures, forms=MLA_BWD_FORMS)
+    base = get_config(MLA_ARCH)
+    cfg = dataclasses.replace(base, n_layers=MLA_TRAIN_LAYERS, n_dense_layers=MLA_TRAIN_LAYERS)
+    print(f"reduced: {json.dumps(MLA_TRAIN_REDUCED)}")
+    opt = AdamWConfig(peak_lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+    ok, hist, fields = _train_main_path("mla", cfg, opt, seed, TRAIN_STEPS, TRAIN_SEQ, failures,
+                                        grads_twice=True)
+    fwd, bwd = fields["flash_launches"], fields["flash_bwd_launches"]
+    per_step = [2 * cfg.n_layers + cfg.mtp_depth, cfg.n_layers + cfg.mtp_depth]
+    row = {"row": "mla train", "arch": cfg.name, "n_layers": cfg.n_layers,
+           "mtp_depth": cfg.mtp_depth, "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+           "heads": cfg.n_heads, "qk_head": [cfg.qk_nope_head_dim, cfg.qk_rope_head_dim],
+           "v_head": cfg.v_head_dim, "q_lora": cfg.q_lora_rank, "kv_lora": cfg.kv_lora_rank,
+           "remat": True, "reduced": MLA_TRAIN_REDUCED, **fields,
+           "nlls": [h["nll"] for h in hist], "expected_per_step": per_step}
+    row["ok"] = ok and fwd == per_step[0] * TRAIN_STEPS and bwd == per_step[1] * TRAIN_STEPS
+    _emit(row)
+    if not row["ok"]:
+        failures.append(f"mla train main path: {row}")
+    torch.cuda.empty_cache()
+    _emit({"mem": "mla train, after the main path", "allocated_GB":
+           torch.cuda.memory_allocated() / 1e9})
+
+    # -- one step's loss and gradients: the card against the CPU, 2 dense layers + MTP --
+    # (the weights are drawn on the card, which is fast, and moved to the CPU)
+    cfg2 = dataclasses.replace(cfg, n_layers=2, n_dense_layers=2, dtype="float32")
+    model2 = _matrices_at(registry.get(cfg2).init(torch.Generator(device=dev).manual_seed(seed),
+                                                  cfg2), 0.02, seed).cpu()
+    _train_cross_device("mla train cross-device", cfg2, common.trainable(model2), seed, failures,
+                        seq=MLA_CROSS_SEQ)
+    del model2
+    torch.cuda.empty_cache()
+    _emit({"mem": "mla train, after the cross-device check", "allocated_GB":
+           torch.cuda.memory_allocated() / 1e9})
+
+    _emit({"mem": "mla train, before resume", "allocated_GB":
+           torch.cuda.memory_allocated() / 1e9})
+
+    # -- resume: 4 steps straight against 2 + checkpoint + restore + 2, on the card ----
+    # (deepseek-v3's reduced config with its own head dims: MLA at (192, 128), a
+    # dense layer and MoE layers with the sigmoid router and a shared expert;
+    # at full width two runs' states would not fit the card at once)
+    _resume_check("mla train resume", mla.with_kernel_heads(base.reduced()), seed, failures)
+
+    # -- yardsticks at the training shape -----------------------------------------------
+    d, dv = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, cfg.v_head_dim
+    row = _bwd_yardstick(MLA_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, cfg.n_heads, cfg.n_heads,
+                         d, True, rng, hw, failures, dv=dv)
+    return ({"launches": bwd, "launches_per_step": bwd / TRAIN_STEPS, "max_abs_err": max_err,
+             "ms": row["kernel_ms"], "kernel_graph_ms": row["kernel_graph_ms"],
+             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+             "library_backend": row["library_backend"]}, fwd)
+
+
+def _pipeline_phase(seed: int, failures: list[str]) -> dict[str, float]:
+    """GPipe on the card (``distributed.pipeline``): first the flash kernels
+    against their plain versions at the stages' shape (``_flash_checks``,
+    ``_bwd_checks``: one PIPE_SEQ-token sequence, qwen3-4b's heads, bf16,
+    causal), since the pipeline against the sequential pass runs the same
+    kernels on both sides and witnesses the schedule alone; then qwen3-4b's
+    36 layers at full width in PIPE_STAGES stages of 9 (stacked bf16
+    leaves, matrices at std 0.02), PIPE_MICRO microbatches of one
+    PIPE_SEQ-token sequence (bf16); the outputs and the gradient of every
+    leaf of a sum-of-squares loss through ``pipeline_forward`` against
+    ``sequential_reference``, bitwise; the flash launches of each (one
+    forward and one backward a layer and microbatch); peak memory and wall
+    time.  One unmeasured pass of each warms both; each measured pass's
+    outputs and gradients go to the host before the other runs, so neither
+    peak holds the other's.  Returns the pipeline's forward and backward
+    launches (``fwd``, ``bwd``) and the kernels' largest errors against
+    their plain versions (``fwd_err``, ``bwd_err``)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import pipeline
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import common, transformer
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    cfg = dataclasses.replace(get_config(LM_ARCH), dtype="bfloat16")
+    rng = np.random.default_rng(seed + 29)
+    form = [("gpipe stage bf16 causal", 1, PIPE_SEQ, PIPE_SEQ, cfg.n_heads, cfg.n_kv_heads,
+             cfg.head_dim, True, 0, "bfloat16")]
+    fwd_err, bwd_err = _flash_checks(rng, failures, form), _bwd_checks(rng, failures, form)
+    per_stage = cfg.n_layers // PIPE_STAGES
+    spec = common.stack_specs(common.stack_specs(transformer.layer_spec(cfg, moe_layer=False),
+                                                 per_stage), PIPE_STAGES)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params: dict = {}
+    for path, s in common.tree_leaves(spec):
+        x = (torch.ones(s.shape, dtype=bf16, device=dev) if s.init == "ones"
+             else torch.randn(s.shape, generator=gen, device=dev).mul_(0.02).to(bf16))
+        common.tree_set(params, path, x.requires_grad_())
+    leaves = [t for _, t in common.tree_leaves(params)]
+    n_params = sum(t.numel() for t in leaves)
+    x = torch.randn((PIPE_MICRO, 1, PIPE_SEQ, cfg.d_model), generator=gen, device=dev).to(bf16)
+    pos = torch.arange(PIPE_SEQ, device=dev)[None]
+
+    def stage(p, h):
+        for i in range(per_stage):
+            h = transformer.layer_apply(_index_tree(p, i), h, cfg, positions=pos,
+                                        moe_layer=False)[0]
+        return h
+
+    schedules = (("pipeline", pipeline.pipeline_forward, {"stages": PIPE_STAGES}),
+                 ("sequential", pipeline.sequential_reference, {}))
+    for _, fn, kw in schedules:  # warm-up, unmeasured
+        torch.autograd.grad(fn(params, x, stage, **kw).float().square().sum(), leaves)
+    found = {}
+    for name, fn, kw in schedules:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        out = fn(params, x, stage, **kw)
+        grads = torch.autograd.grad(out.float().square().sum(), leaves)
+        torch.cuda.synchronize()
+        wall_s, counts = time.perf_counter() - t0, _counts()
+        found[name] = {"out": out.detach().cpu(), "grads": [g.cpu() for g in grads],
+                       "wall_s": wall_s,
+                       "peak_memory_GB": torch.cuda.max_memory_allocated() / 1e9,
+                       "launches": [counts[fa.LAUNCHES.name], counts[fa.BWD_LAUNCHES.name]]}
+        del out, grads
+    pipe, seq = found["pipeline"], found["sequential"]
+    same_out = torch.equal(pipe["out"], seq["out"])
+    same_grads = all(torch.equal(a, b) for a, b in zip(pipe["grads"], seq["grads"]))
+    expected = PIPE_MICRO * cfg.n_layers
+    row = {"row": "gpipe", "arch": cfg.name, "n_layers": cfg.n_layers, "stages": PIPE_STAGES,
+           "layers_per_stage": per_stage, "microbatches": PIPE_MICRO, "seq": PIPE_SEQ,
+           "dtype": "bfloat16", "params": n_params, "ticks": PIPE_MICRO + PIPE_STAGES - 1,
+           "outputs_bitwise": same_out, "grads_bitwise": same_grads,
+           "finite": bool(torch.isfinite(pipe["out"].float()).all()),
+           "launches": pipe["launches"], "sequential_launches": seq["launches"],
+           "expected_launches": [expected, expected],
+           "peak_memory_GB": pipe["peak_memory_GB"],
+           "sequential_peak_memory_GB": seq["peak_memory_GB"],
+           "wall_s": pipe["wall_s"], "sequential_wall_s": seq["wall_s"]}
+    row["ok"] = (same_out and same_grads and row["finite"]
+                 and pipe["launches"] == seq["launches"] == [expected, expected])
+    _emit(row)
+    if not row["ok"]:
+        failures.append(f"gpipe: {row}")
+    del found, pipe, seq, params, leaves, x
+    torch.cuda.empty_cache()
+    return {"fwd": row["launches"][0], "bwd": row["launches"][1], "fwd_err": fwd_err,
+            "bwd_err": bwd_err}
+
+
+def _index_tree(tree: dict, i: int) -> dict:
+    """Every leaf of a nested dict at index ``i`` of its leading dim."""
+    return {k: _index_tree(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+
+def _dryrun_phase(failures: list[str]) -> None:
+    """The dry run through its CLI on the card's machine: DRYRUN_CASES (the
+    four at once, one process each; ``meta`` tensors, nothing allocated)
+    into ``build/dryrun_torch``, each ``[ok]`` with a JSON of positive flops
+    and bytes and a dominant term; then the fig7 launch (DRYRUN_FIG7: two
+    controller processes on the card over 1, 2 and 4 t-slabs of PAPER_L32's
+    lattice), which exits non-zero on any divergence."""
+    import os
+
+    out_dir = ROOT / "build" / "dryrun_torch"
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    cli = [sys.executable, "-m", "repro_torch.launch.dryrun"]
+    t0 = time.perf_counter()
+    procs = [(case, subprocess.Popen(
+        cli + ["--arch", case[0], "--shape", case[1], "--mesh", case[2], "--results-dir",
+               str(out_dir)], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)) for case in DRYRUN_CASES]
+    for (arch, shape, mesh), proc in procs:
+        try:
+            log, _ = proc.communicate(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        path = out_dir / f"{arch}__{shape}__{mesh}.json"
+        result = json.loads(path.read_text()) if path.is_file() else {}
+        r = result.get("roofline", {})
+        row = {"row": "dryrun cell", "cell": f"{arch}/{shape}/{mesh}", "rc": proc.returncode,
+               "status": result.get("status"), "traced_s": result.get("lower_s"),
+               "traced_ops": result.get("traced_ops"), "device": result.get("device"),
+               "flops_per_device": r.get("flops_per_device"),
+               "bytes_per_device": r.get("bytes_per_device"), "dominant": r.get("dominant"),
+               "compute_ms": None if not r else r["compute_s"] * 1e3,
+               "memory_ms": None if not r else r["memory_s"] * 1e3,
+               "model_flops": r.get("model_flops"),
+               "analytic_GiB": result.get("memory_analytic", {}).get("total_bytes", 0) / 2**30,
+               "fits_h100_80g": result.get("memory_analytic", {}).get("fits_h100_80g")}
+        row["ok"] = (proc.returncode == 0 and "[ok]" in log and row["status"] == "ok"
+                     and (row["flops_per_device"] or 0) > 0 and (row["bytes_per_device"] or 0) > 0
+                     and row["dominant"] in ("compute", "memory", "collective"))
+        _emit(row)
+        if not row["ok"]:
+            failures.append(f"dryrun {row['cell']}: {row} {log[-1500:]}")
+    cells_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proc = subprocess.run(cli + DRYRUN_FIG7, env=env, capture_output=True, text=True, timeout=600)
+    rows = json.loads(proc.stdout) if proc.returncode == 0 else []
+    row = {"row": "dryrun su3 fig7", "args": DRYRUN_FIG7, "rc": proc.returncode,
+           "points": [r["name"] for r in rows], "verified": [r["verified"] for r in rows],
+           "hosts": [r["hosts"] for r in rows], "GBYTES": [r["GBYTES"] for r in rows],
+           "plans": [r["plan"] for r in rows], "devices": sorted({r["device"] for r in rows}),
+           "controllers": sorted({r["controllers"] for r in rows}),
+           "cells_s": cells_s, "fig7_s": time.perf_counter() - t0}
+    row["ok"] = (proc.returncode == 0 and len(rows) == 6 and all(row["verified"])
+                 and row["controllers"] == [2] and "[DIVERGENCE]" not in proc.stderr)
+    _emit(row)
+    if not row["ok"]:
+        failures.append(f"dryrun su3 fig7: {row} {proc.stderr[-1500:]}")
 
 
 def _zamba_phase(seed: int, hw, failures: list[str]) -> dict[str, int]:
@@ -3072,8 +3450,8 @@ def _zamba_train(seed: int, failures: list[str]) -> tuple[int, int]:
 
 
 def _xlstm_phase(seed: int, hw, failures: list[str]) -> None:
-    """The xLSTM family on the card at xlstm-125m's full width and depth:
-    serving (``_xlstm_serve``) and training (``_xlstm_train``).  It reaches
+    """The xLSTM family on the card at xlstm-125m's full width, cut to
+    XLSTM_DEPTH: serving (``_xlstm_serve``) and training (``_xlstm_train``).  It reaches
     no kernel of the port: both cells are plain PyTorch, one time step at a
     time (the reference's ``lax.scan``), so each phase's launches per block
     and its idle share are what it reports."""
@@ -3088,7 +3466,7 @@ def _xlstm_phase(seed: int, hw, failures: list[str]) -> None:
 
 
 def _xlstm_serve(seed: int, rng, failures: list[str]) -> None:
-    """``ServeEngine`` on full-width, full-depth xlstm-125m (random bf16
+    """``ServeEngine`` on full-width xlstm-125m cut to XLSTM_DEPTH (random bf16
     weights by the reference's rule, f32 states) over 4 x 1,024-token
     prompts + 32 greedy tokens, the counters set to 0 just before and read
     just after (no kernel of the port launches); decode logits against one
@@ -3106,7 +3484,8 @@ def _xlstm_serve(seed: int, rng, failures: list[str]) -> None:
     from repro_torch.serve.engine import ServeConfig, ServeEngine
 
     dev = torch.device("cuda")
-    cfg = get_config(XLSTM_ARCH)
+    cfg = dataclasses.replace(get_config(XLSTM_ARCH), **XLSTM_DEPTH)
+    print(f"reduced: {json.dumps(XLSTM_REDUCED)}")
     t0 = time.perf_counter()
     model = registry.get(cfg).init(torch.Generator(device=dev).manual_seed(seed), cfg,
                                    torch.bfloat16)
@@ -3143,7 +3522,8 @@ def _xlstm_serve(seed: int, rng, failures: list[str]) -> None:
     row = {"row": "xlstm serve", "arch": cfg.name, "n_layers": cfg.n_layers,
            "slstm_layers": list(cfg.slstm_layers), "d_model": cfg.d_model,
            "xlstm_dims": list(xlstm._dims(cfg)), "ssm_conv": cfg.ssm_conv,
-           "vocab": cfg.vocab_size, "params": n_params, "reduced": {}, "dtype": "bfloat16",
+           "vocab": cfg.vocab_size, "params": n_params, "reduced": XLSTM_REDUCED,
+           "dtype": "bfloat16",
            "init": "the reference's rule", "state_dtype": "float32", "batch": LM_BATCH,
            "prompt": LM_PROMPT, "new_tokens": LM_NEW, "max_len": LM_MAX_LEN, "init_s": init_s,
            "port_kernel_launches": sum(counts.values()),
@@ -3171,7 +3551,7 @@ def _xlstm_serve(seed: int, rng, failures: list[str]) -> None:
 
 
 def _xlstm_train(seed: int, failures: list[str]) -> None:
-    """``train.loop.train`` on full-width, full-depth xlstm-125m (f32 master
+    """``train.loop.train`` on full-width xlstm-125m cut to XLSTM_DEPTH (f32 master
     weights and moments, bf16 compute, each block rematted) for
     XLSTM_TRAIN_STEPS steps (XLSTM_CUTS) through ``_train_main_path`` (no
     kernel of the port launches), its step twice and its profiled step on
@@ -3187,12 +3567,13 @@ def _xlstm_train(seed: int, failures: list[str]) -> None:
     from repro_torch.optim.adamw import AdamWConfig
 
     dev = torch.device("cuda")
-    cfg = get_config(XLSTM_ARCH)
+    cfg = dataclasses.replace(get_config(XLSTM_ARCH), **XLSTM_DEPTH)
     opt = AdamWConfig(peak_lr=3e-4, warmup_steps=2, total_steps=XLSTM_TRAIN_STEPS)
     ok, _, fields = _train_main_path("xlstm", cfg, opt, seed, XLSTM_TRAIN_STEPS, TRAIN_SEQ,
                                      failures, profile_seq=XLSTM_PROFILE_SEQ)
     row = {"row": "xlstm train", "arch": cfg.name, "n_layers": cfg.n_layers,
-           "d_model": cfg.d_model, "vocab": cfg.vocab_size, "reduced": {}, "cut": XLSTM_CUTS,
+           "d_model": cfg.d_model, "vocab": cfg.vocab_size, "reduced": XLSTM_REDUCED,
+           "cut": XLSTM_CUTS,
            "remat": "each block", **fields}
     row["ok"] = ok and fields["flash_launches"] == fields["flash_bwd_launches"] == 0
     _emit(row)

@@ -306,12 +306,13 @@ def attention_bwd_bound(
     q_offset: int = 0,
     dtype: torch.dtype = torch.bfloat16,
     hw: HardwareSpec | None = None,
+    dv: int | None = None,
 ) -> SU3Roofline:
-    """Bound of one attention backward: q, k, v, out, dout and the f32 lse
-    read once, dq, dk and dv written once, against five products (S = Q K^T
-    recomputed, dP = dO V^T, dV = P^T dO, dQ = dS K, dK = dS^T Q) of 2 D
-    flops each per visible (query, key) pair of every query head, at the
-    peak of ``dtype``.
+    """Bound of one attention backward: q, k (head dim D), v, out, dout (Dv;
+    None: D) and the f32 lse read once, dq, dk (D) and dv (Dv) written once,
+    against five products per visible (query, key) pair of every query
+    head: S = Q K^T recomputed, dQ = dS K and dK = dS^T Q of 2 D flops each,
+    dP = dO V^T and dV = P^T dO of 2 Dv each, at the peak of ``dtype``.
 
     Raises:
         LookupError: when no spec is given and the card is unknown.
@@ -319,12 +320,14 @@ def attention_bwd_bound(
     hw = hw if hw is not None else current_hardware()
     if hw is None:
         raise LookupError("no Hopper spec for this device; pass hw= explicitly")
+    dv = d if dv is None else dv
     word = torch.empty((), dtype=dtype).element_size()
     pairs = visible_pairs(sq, skv, causal=causal, q_offset=q_offset)
     return SU3Roofline(
-        name=f"attention_bwd_b{batch}_q{sq}_k{skv}_h{hq}/{hkv}_d{d}",
+        name=f"attention_bwd_b{batch}_q{sq}_k{skv}_h{hq}/{hkv}_d{d}" + (
+            "" if dv == d else f"_dv{dv}"),
         hw=hw,
-        flops=10.0 * batch * hq * d * pairs,
-        bytes=float(word * batch * (4 * sq * hq * d + 4 * skv * hkv * d) + 4 * batch * hq * sq),
+        flops=2.0 * batch * hq * (3 * d + 2 * dv) * pairs,
+        bytes=float(word * batch * (sq * hq + skv * hkv) * 2 * (d + dv) + 4 * batch * hq * sq),
         peak_flops=hw.peak_flops_bf16 if dtype == torch.bfloat16 else hw.peak_flops_fp32,
     )

@@ -78,7 +78,9 @@
 // The backward (flash_attention_bwd) is the gradient the reference takes by
 // autodiff, in three kernels: a delta pass, then dK/dV and dQ, without
 // atomics.  bf16 runs on the tensor cores (namespace tcb), f32 on the CUDA
-// cores (namespace bwd).
+// cores (namespace bwd).  Both take the forward's (D, Dv) pairs: MLA's
+// training runs them at (192, 128), where Q, K, dQ and dK have width D and
+// V, dO, O and dV width Dv.
 
 #include <cstdint>
 
@@ -468,6 +470,17 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// d (+)= A B: A (64 x 16) and B (32 x 16) from shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // d += A B: A (64 x 16) from registers, B (16 x 32) from shared memory, MN-major.
 __device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
@@ -506,6 +519,27 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d += A B: A (64 x 16) from registers, B (16 x 192) from shared memory, MN-major.
+__device__ __forceinline__ void wgmma_rs(float (&d)[96], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
@@ -846,10 +880,12 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tmk, const __grid_constan
 //
 // What bounds it on this card: operations.  Its bound takes the tensor
 // cores' 989 TFLOP/s: five products of 2 D flops per visible (query, key)
-// pair and query head, seven executed (dq recomputes S and dP).  This body
+// pair and query head, seven executed (dq recomputes S and dP); at Dv != D
+// the products over V, dO and dV take 2 Dv.  This body
 // serves f32 on the CUDA cores (67 TFLOP/s); bf16 goes to the tensor cores
 // (namespace tcb below).  The design keeps every operand of a tile in shared
-// memory as f32 rows of D + 1 words, so that each inner product reads one
+// memory as f32 rows of D + 1 (Q, K) or Dv + 1 (dO, V) words, so that each
+// inner product reads one
 // word per lane from distinct banks: thread (ty, tx) of 16 x 16 owns score
 // rows tx + 16a and keys ty + 16b (a, b < 4), and output rows ty + 16b,
 // columns tx + 16c.
@@ -887,20 +923,21 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void put(float* p, float x) { *p = x; }
 
-template <int D>
+// K and Q * scale in rows of D + 1, V and dO in rows of Dv + 1
+template <int D, int Dv>
 constexpr int smem_floats_dkdv() {  // K, V, Q * scale, dO, P, dS, lse, delta
-  return 2 * kKeys * (D + 1) + 2 * kRows * (D + 1) + 2 * kRows * (kKeys + 1) + 2 * kRows;
+  return (kKeys + kRows) * (D + Dv + 2) + 2 * kRows * (kKeys + 1) + 2 * kRows;
 }
-template <int D>
+template <int D, int Dv>
 constexpr int smem_floats_dq() {  // Q * scale, dO, K, V, dS, lse, delta
-  return 2 * kRows * (D + 1) + 2 * kKeys * (D + 1) + kRows * (kKeys + 1) + 2 * kRows;
+  return (kRows + kKeys) * (D + Dv + 2) + kRows * (kKeys + 1) + 2 * kRows;
 }
 
-// delta of each (batch, query, head) row: sum over d of dO * O, in f32,
-// one warp per row.  kFolded (the bf16 body): one warp per slot of the two
+// delta of each (batch, query, head) row: sum over the Dv columns of dO * O,
+// in f32, one warp per row.  kFolded (the bf16 body): one warp per slot of the two
 // planes of p.delta, writing its folded row's lse * log2(e) and delta (zeros
 // for slots that hold no row).
-template <typename T, int D, bool kFolded>
+template <typename T, int Dv, bool kFolded>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout, const Params p) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, hq = p.g * p.hkv;
@@ -930,7 +967,7 @@ flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout, const Param
   const T* drow = dout + b * p.dos[0] + i * p.dos[1] + h * p.dos[2];
   float acc = 0.f;
 #pragma unroll
-  for (int c = lane; c < D; c += 32) acc = fmaf(to_f(drow[c]), to_f(orow[c]), acc);
+  for (int c = lane; c < Dv; c += 32) acc = fmaf(to_f(drow[c]), to_f(orow[c]), acc);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane != 0) return;
@@ -945,7 +982,7 @@ flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout, const Param
 
 // Folded rows row0 .. row0 + kRows - 1 of a (B, S, H, D) tensor (row f:
 // sequence f / G, head hk * G + f % G) as f32 rows of D + 1, times mul;
-// zeros past `rows`.
+// zeros past `rows`.  D is the tensor's head dim: D for q, Dv for dout.
 template <typename T, int D>
 __device__ __forceinline__ void load_rows(float* dst, const T* base, const long long (&st)[3],
                                           int b, int hk, int g, long long row0, long long rows,
@@ -992,10 +1029,10 @@ __device__ __forceinline__ void load_keys(float* dst, const T* base, long long k
   }
 }
 
-// This thread's 4 x 4 of S = (Q * scale) K^T and dP = dO V^T (rows tx + 16a,
-// keys ty + 16b), then P = exp(S - lse) where the key is visible to the row
-// (else 0) in s, and dS = P (dP - delta) in dp.
-template <int D, bool kCausal>
+// This thread's 4 x 4 of S = (Q * scale) K^T (over D) and dP = dO V^T (over
+// Dv) (rows tx + 16a, keys ty + 16b), then P = exp(S - lse) where the key is
+// visible to the row (else 0) in s, and dS = P (dP - delta) in dp.
+template <int D, int Dv, bool kCausal>
 __device__ __forceinline__ void probabilities(const float* qs, const float* dos, const float* ks,
                                               const float* vs, const float* lse_s,
                                               const float* del_s, const Params& p, long long row0,
@@ -1007,24 +1044,27 @@ __device__ __forceinline__ void probabilities(const float* qs, const float* dos,
     for (int b = 0; b < 4; ++b) s[a][b] = 0.f, dp[a][b] = 0.f;
 #pragma unroll 4
   for (int d = 0; d < D; ++d) {
-    float qa[4], oa[4], kb[4], vb[4];
+    float qa[4], kb[4];
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      qa[a] = qs[(tx + 16 * a) * (D + 1) + d];
-      oa[a] = dos[(tx + 16 * a) * (D + 1) + d];
-    }
+    for (int a = 0; a < 4; ++a) qa[a] = qs[(tx + 16 * a) * (D + 1) + d];
 #pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      kb[b] = ks[(ty + 16 * b) * (D + 1) + d];
-      vb[b] = vs[(ty + 16 * b) * (D + 1) + d];
-    }
+    for (int b = 0; b < 4; ++b) kb[b] = ks[(ty + 16 * b) * (D + 1) + d];
 #pragma unroll
     for (int a = 0; a < 4; ++a)
 #pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        s[a][b] = fmaf(qa[a], kb[b], s[a][b]);
-        dp[a][b] = fmaf(oa[a], vb[b], dp[a][b]);
-      }
+      for (int b = 0; b < 4; ++b) s[a][b] = fmaf(qa[a], kb[b], s[a][b]);
+  }
+#pragma unroll 4
+  for (int d = 0; d < Dv; ++d) {
+    float oa[4], vb[4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) oa[a] = dos[(tx + 16 * a) * (Dv + 1) + d];
+#pragma unroll
+    for (int b = 0; b < 4; ++b) vb[b] = vs[(ty + 16 * b) * (Dv + 1) + d];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) dp[a][b] = fmaf(oa[a], vb[b], dp[a][b]);
   }
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
@@ -1042,18 +1082,18 @@ __device__ __forceinline__ void probabilities(const float* qs, const float* dos,
   }
 }
 
-template <typename T, int D, bool kCausal>
+template <typename T, int D, int Dv, bool kCausal>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                const T* __restrict__ dout, T* __restrict__ dk, T* __restrict__ dv,
                const Params p) {
-  constexpr int kP = D + 1, kS = kKeys + 1, kC = D / 16;
+  constexpr int kP = D + 1, kPv = Dv + 1, kS = kKeys + 1, kC = D / 16, kCv = Dv / 16;
   extern __shared__ float4 smem4[];
   float* ks_ = reinterpret_cast<float*>(smem4);  // [kKeys][kP]
-  float* vs_ = ks_ + kKeys * kP;                  // [kKeys][kP]
-  float* qs_ = vs_ + kKeys * kP;                  // [kRows][kP] q * scale
-  float* dos_ = qs_ + kRows * kP;                 // [kRows][kP]
-  float* ps_ = dos_ + kRows * kP;                 // [kRows][kS] P
+  float* vs_ = ks_ + kKeys * kP;                  // [kKeys][kPv]
+  float* qs_ = vs_ + kKeys * kPv;                 // [kRows][kP] q * scale
+  float* dos_ = qs_ + kRows * kP;                 // [kRows][kPv]
+  float* ps_ = dos_ + kRows * kPv;                // [kRows][kS] P
   float* dss_ = ps_ + kRows * kS;                 // [kRows][kS] dS
   float* lse_s = dss_ + kRows * kS;
   float* del_s = lse_s + kRows;
@@ -1063,27 +1103,30 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   const int key0 = blockIdx.y * kKeys;  // the heaviest (causal) tiles come first
   const long long rows = static_cast<long long>(p.sq) * p.g;
   load_keys<T, D>(ks_, k + bi * p.ks[0] + hk * p.ks[2], p.ks[1], key0, p.skv);
-  load_keys<T, D>(vs_, v + bi * p.vs[0] + hk * p.vs[2], p.vs[1], key0, p.skv);
+  load_keys<T, Dv>(vs_, v + bi * p.vs[0] + hk * p.vs[2], p.vs[1], key0, p.skv);
 
   // causal: the first folded row whose position reaches key0
   const long long first = kCausal ? static_cast<long long>(max(key0 - p.q_offset, 0)) * p.g : 0;
   const long long n_tiles = (rows + kRows - 1) / kRows;
-  float dkv[4][kC], dvv[4][kC];
+  float dkv[4][kC], dvv[4][kCv];
 #pragma unroll
-  for (int b = 0; b < 4; ++b)
+  for (int b = 0; b < 4; ++b) {
 #pragma unroll
-    for (int c = 0; c < kC; ++c) dkv[b][c] = 0.f, dvv[b][c] = 0.f;
+    for (int c = 0; c < kC; ++c) dkv[b][c] = 0.f;
+#pragma unroll
+    for (int c = 0; c < kCv; ++c) dvv[b][c] = 0.f;
+  }
 
   for (long long t = first / kRows; t < n_tiles; ++t) {
     const long long row0 = t * kRows;
     __syncthreads();  // the previous tile's readers are done
     load_rows<T, D>(qs_, q, p.qs, bi, hk, p.g, row0, rows, p.scale);
-    load_rows<T, D>(dos_, dout, p.dos, bi, hk, p.g, row0, rows, 1.f);
+    load_rows<T, Dv>(dos_, dout, p.dos, bi, hk, p.g, row0, rows, 1.f);
     load_stats(lse_s, del_s, p, bi, hk, row0, rows);
     __syncthreads();
     float s[4][4], dp[4][4];
-    probabilities<D, kCausal>(qs_, dos_, ks_, vs_, lse_s, del_s, p, row0, rows, key0, tx, ty, s,
-                              dp);
+    probabilities<D, Dv, kCausal>(qs_, dos_, ks_, vs_, lse_s, del_s, p, row0, rows, key0, tx, ty,
+                                  s, dp);
 #pragma unroll
     for (int a = 0; a < 4; ++a)
 #pragma unroll
@@ -1102,13 +1145,16 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
         sb[b] = dss_[r * kS + ty + 16 * b];
       }
 #pragma unroll
-      for (int c = 0; c < kC; ++c) {
-        const float o = dos_[r * kP + tx + 16 * c], qv = qs_[r * kP + tx + 16 * c];
+      for (int c = 0; c < kCv; ++c) {
+        const float o = dos_[r * kPv + tx + 16 * c];
 #pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          dvv[b][c] = fmaf(pb[b], o, dvv[b][c]);
-          dkv[b][c] = fmaf(sb[b], qv, dkv[b][c]);
-        }
+        for (int b = 0; b < 4; ++b) dvv[b][c] = fmaf(pb[b], o, dvv[b][c]);
+      }
+#pragma unroll
+      for (int c = 0; c < kC; ++c) {
+        const float qv = qs_[r * kP + tx + 16 * c];
+#pragma unroll
+        for (int b = 0; b < 4; ++b) dkv[b][c] = fmaf(sb[b], qv, dkv[b][c]);
       }
     }
   }
@@ -1120,24 +1166,23 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
     T* krow = dk + bi * p.dks[0] + key * p.dks[1] + hk * p.dks[2];
     T* vrow = dv + bi * p.dvs[0] + key * p.dvs[1] + hk * p.dvs[2];
 #pragma unroll
-    for (int c = 0; c < kC; ++c) {
-      put(krow + tx + 16 * c, dkv[b][c]);
-      put(vrow + tx + 16 * c, dvv[b][c]);
-    }
+    for (int c = 0; c < kC; ++c) put(krow + tx + 16 * c, dkv[b][c]);
+#pragma unroll
+    for (int c = 0; c < kCv; ++c) put(vrow + tx + 16 * c, dvv[b][c]);
   }
 }
 
-template <typename T, int D, bool kCausal>
+template <typename T, int D, int Dv, bool kCausal>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
              const T* __restrict__ dout, T* __restrict__ dq, const Params p) {
-  constexpr int kP = D + 1, kS = kKeys + 1, kC = D / 16;
+  constexpr int kP = D + 1, kPv = Dv + 1, kS = kKeys + 1, kC = D / 16;
   extern __shared__ float4 smem4[];
   float* qs_ = reinterpret_cast<float*>(smem4);  // [kRows][kP] q * scale
-  float* dos_ = qs_ + kRows * kP;                 // [kRows][kP]
-  float* ks_ = dos_ + kRows * kP;                 // [kKeys][kP]
-  float* vs_ = ks_ + kKeys * kP;                  // [kKeys][kP]
-  float* dss_ = vs_ + kKeys * kP;                 // [kRows][kS] dS
+  float* dos_ = qs_ + kRows * kP;                 // [kRows][kPv]
+  float* ks_ = dos_ + kRows * kPv;                // [kKeys][kP]
+  float* vs_ = ks_ + kKeys * kP;                  // [kKeys][kPv]
+  float* dss_ = vs_ + kKeys * kPv;                // [kRows][kS] dS
   float* lse_s = dss_ + kRows * kS;
   float* del_s = lse_s + kRows;
 
@@ -1146,7 +1191,7 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   const long long rows = static_cast<long long>(p.sq) * p.g;
   const long long row0 = static_cast<long long>(gridDim.y - 1 - blockIdx.y) * kRows;  // heaviest first
   load_rows<T, D>(qs_, q, p.qs, bi, hk, p.g, row0, rows, p.scale);
-  load_rows<T, D>(dos_, dout, p.dos, bi, hk, p.g, row0, rows, 1.f);
+  load_rows<T, Dv>(dos_, dout, p.dos, bi, hk, p.g, row0, rows, 1.f);
   load_stats(lse_s, del_s, p, bi, hk, row0, rows);
   int n_tiles = (p.skv + kKeys - 1) / kKeys;
   if (kCausal) {
@@ -1166,11 +1211,11 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     const int key0 = t * kKeys;
     __syncthreads();  // the previous tile's readers are done
     load_keys<T, D>(ks_, kb, p.ks[1], key0, p.skv);
-    load_keys<T, D>(vs_, vb, p.vs[1], key0, p.skv);
+    load_keys<T, Dv>(vs_, vb, p.vs[1], key0, p.skv);
     __syncthreads();
     float s[4][4], dp[4][4];
-    probabilities<D, kCausal>(qs_, dos_, ks_, vs_, lse_s, del_s, p, row0, rows, key0, tx, ty, s,
-                              dp);
+    probabilities<D, Dv, kCausal>(qs_, dos_, ks_, vs_, lse_s, del_s, p, row0, rows, key0, tx, ty,
+                                  s, dp);
 #pragma unroll
     for (int a = 0; a < 4; ++a)
 #pragma unroll
@@ -1244,12 +1289,14 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 //    loop over row tiles replaces the sum across blocks: no atomics.
 //    Registers: the producer keeps 24, the consumers take 240 (dK and dV
 //    128 accumulators at D=128, S^T and dP^T 64, the bf16 parts of P^T and
-//    dS^T 64).
+//    dS^T 64).  At (D, Dv) = (192, 128) dK holds 96 and dV 64: dK's
+//    product runs at wgmma's N = 192, dV's at 128, and three row tiles are
+//    in flight instead of four (tcb::Dkdv).
 //  * flash_bwd_dq_tc: one block per (batch * kv head, 128 folded rows),
 //    heaviest first; Q and dO by cp.async once, K and V tiles of 128 keys
-//    by TMA into a ring (the forward's maps); per tile S = Q K^T and
-//    dP = dO V^T (wgmma_ss, m64n128), dS in registers, dQ += dS K
-//    (wgmma_rs on both parts of dS, K MN-major).
+//    (64 at (192, 128), tcb::Dq) by TMA into a ring of two; per tile
+//    S = Q K^T and dP = dO V^T (wgmma_ss, m64n128 or m64n64), dS in
+//    registers, dQ += dS K (wgmma_rs on both parts of dS, K MN-major).
 //  * Precision: the products of bf16 operands are exact and summed in f32;
 //    D^-1/2 scales the f32 score inside the exponent (c = D^-1/2 log2 e) and
 //    dK, dQ in f32 at the end; P and dS are each split into hi = bf16(x)
@@ -1267,14 +1314,10 @@ using tc::Tile;
 
 constexpr int kKeys = 64;              // dK/dV: keys per consumer warpgroup (wgmma's M)
 constexpr int kRows = bwd::kTileSlots; // dK/dV: rows of a streamed Q/dO tile (tile_rows used)
-constexpr int kStages = 4;             // dK/dV: row tiles in flight, one producer warp each
 constexpr int kDqRows = tc::kRows;     // dQ: folded rows per block, 64 per consumer
-constexpr int kDqKeys = tc::kKeys;     // dQ: keys per K/V tile (the forward's TMA box)
-constexpr int kDqStages = 2;           // dQ: K/V tiles in flight
 constexpr int kThreads = 384;          // one producer and two consumer warpgroups
 constexpr int kPad = 128;              // the statistics planes pad folded rows to this
 static_assert(kPad % kRows == 0, "row tiles must not overrun the planes");
-static_assert(kStages == 4, "one producer warp per stage");
 
 // Folded rows of a row tile: whole query groups of g heads (g <= kRows).
 __host__ __device__ constexpr int tile_rows(int g) { return kRows / g * g; }
@@ -1284,24 +1327,55 @@ __host__ __device__ constexpr long long plane_slots(long long rows, int g) {
   return ((rows + tile_rows(g) - 1) / tile_rows(g) * kRows + kPad - 1) / kPad * kPad;
 }
 
-// Shared memory of a dK/dV block: aligned K and V of both consumers, kStages
-// Q and dO tiles, their lse and delta, then the full and empty barriers.
-template <int D>
+// The dK/dV block at (D, Dv): Q and K tiles of D, V and dO tiles of Dv, and
+// its shared memory: aligned K and V of both consumers, kStages Q and dO
+// tiles, their lse and delta, then the full and empty barriers.  kStages
+// row tiles are in flight, one producer warp each: four where Dv = D; three
+// at MLA's (192, 128), where four would take 1 KB + K and V 80 KB + 4 x (Q
+// 24 KB + dO 16 KB + 512 B) = 243 KB, past the 227 KB of a block (three:
+// 203 KB).
+template <int D, int Dv>
 struct Dkdv {
-  using T = Tile<D>;
-  static constexpr int kBox = kRows * T::kSwizzle;      // one box of 64 rows
-  static constexpr int kTile = T::kBoxes * kBox;         // 64 rows of D bf16
-  static constexpr int kStats = 2 * kRows * 4;           // lse * log2 e and delta, f32
-  static constexpr int kSmem = tc::kAlign + 4 * kTile + 2 * kStages * kTile + kStages * kStats +
-                               16 * kStages;
+  using TK = Tile<D>;
+  using TV = Tile<Dv>;
+  static_assert(TK::kSwizzle == TV::kSwizzle, "Q/K and V/dO share one swizzle");
+  static constexpr int kStages = D == Dv ? 4 : 3;
+  static_assert(kStages <= 4, "one producer warp per stage");
+  // Row slices a consumer takes a Q/dO tile in: S^T, dP^T and the bf16
+  // parts of P^T and dS^T of one slice at a time.  At (192, 128) dK and dV
+  // hold 160 f32 accumulators a thread; with the whole tile's S^T, dP^T (64)
+  // and their parts (64) beside them the consumer spilled about three times
+  // what two slices of 32 rows leave (104-112 bytes of stack: PERF.md, row
+  // 5b-mla); four slices of 16 spilled a little less and ran slower.
+  static constexpr int kSlices = D == Dv ? 1 : 2;
+  static constexpr int kSliceRows = kRows / kSlices;
+  static constexpr int kSliceK = kSliceRows / 16;  // k-slices of 16 rows in a slice
+  static constexpr int kBox = kRows * TK::kSwizzle;  // one box of 64 rows
+  static constexpr int kTileK = TK::kBoxes * kBox;   // 64 rows of D bf16 (K, Q)
+  static constexpr int kTileV = TV::kBoxes * kBox;   // 64 rows of Dv bf16 (V, dO)
+  static constexpr int kStats = 2 * kRows * 4;       // lse * log2 e and delta, f32
+  static constexpr int kSmem = tc::kAlign + 2 * (kTileK + kTileV) +
+                               kStages * (kTileK + kTileV + kStats) + 16 * kStages;
 };
 
-// Shared memory of a dQ block: aligned Q and dO (128 rows each), kDqStages
-// K and V tiles, the full and empty barriers.
-template <int D>
+// The dQ block at (D, Dv): aligned Q (D) and dO (Dv) of 128 rows, kStages K
+// (D) and V (Dv) tiles of kKeys keys, the full and empty barriers.  Where
+// Dv = D the tiles are the forward's (128 keys, its TMA box).  At (192, 128)
+// two stages of 128 keys would take 241 KB, past the 227 KB of a block, and
+// the consumers' registers would hold dQ (96), S and dP (64 each) and dS's
+// two bf16 parts (64): tiles of 64 keys halve S, dP and dS (161 KB).
+template <int D, int Dv>
 struct Dq {
-  using T = Tile<D>;
-  static constexpr int kSmem = tc::kAlign + (2 + 2 * kDqStages) * T::kTileBytes + 16 * kDqStages;
+  using TK = Tile<D>;
+  using TV = Tile<Dv>;
+  static_assert(TK::kSwizzle == TV::kSwizzle, "Q/K and V/dO share one swizzle");
+  static constexpr int kKeys = D == Dv ? tc::kKeys : 64;
+  static constexpr int kStages = 2;
+  static constexpr int kKeyBox = kKeys * TK::kSwizzle;  // one box of kKeys rows
+  static constexpr int kTileK = TK::kBoxes * kKeyBox;
+  static constexpr int kTileV = TV::kBoxes * kKeyBox;
+  static constexpr int kSmem = tc::kAlign + TK::kTileBytes + TV::kTileBytes +
+                               kStages * (kTileK + kTileV) + 16 * kStages;
 };
 
 // One box of the (D, G, Hkv, S, B) view of q or dout into shared memory,
@@ -1352,24 +1426,25 @@ __device__ __forceinline__ int first_tile(const bwd::Params& p, bool causal, int
   return f < p.sq * p.g ? f / p.tile_rows : n_rt;
 }
 
-// P^T and dS^T = P^T (dP^T - delta) of one row tile, each split into two
-// bf16 parts (hi, lo), as A fragments (register j of k-slice kk holds
-// accumulator values 8kk + 2j and 8kk + 2j + 1, as in the forward).
-// Accumulator value i lies in key row r + 8 * (i / 2 % 2) and column
-// (folded row of the tile) 8 * (i / 4) + 2 * (lane % 4) + i % 2.  With
-// kMask, a probability is kept where its column lies in [lo[h], hi_col)
-// (relative to the thread's first column), else 0.
+// P^T and dS^T = P^T (dP^T - delta) of kK * 16 rows of a row tile (a
+// slice), each split into two bf16 parts (hi, lo), as A fragments (register
+// j of k-slice kk holds accumulator values 8kk + 2j and 8kk + 2j + 1, as in
+// the forward).  Accumulator value i lies in key row r + 8 * (i / 2 % 2)
+// and column (folded row of the slice) 8 * (i / 4) + 2 * (lane % 4) + i % 2.
+// With kMask, a probability is kept where its column lies in [lo[h],
+// hi_col) (relative to the thread's first column), else 0.
+template <int kK>
 struct Frags {
-  uint32_t hi[4][4], lo[4][4];
+  uint32_t hi[kK][4], lo[kK][4];
 };
 
-template <bool kMask>
-__device__ __forceinline__ void tile_grads(const float (&st)[32], const float (&dpt)[32],
-                                           Frags& pf, Frags& dsf, const float* lse2,
+template <bool kMask, int kK>
+__device__ __forceinline__ void tile_grads(const float (&st)[8 * kK], const float (&dpt)[8 * kK],
+                                           Frags<kK>& pf, Frags<kK>& dsf, const float* lse2,
                                            const float* dl, float c, int lane,
                                            const int (&lo)[2], int hi_col) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < kK; ++kk) {
 #pragma unroll
     for (int half = 0; half < 2; ++half) {  // columns 16kk + 8 half + 2 (lane % 4) + {0, 1}
       const int col = 16 * kk + 8 * half + 2 * (lane % 4);
@@ -1390,22 +1465,23 @@ __device__ __forceinline__ void tile_grads(const float (&st)[32], const float (&
   }
 }
 
-template <int D, bool kCausal>
+template <int D, int Dv, bool kCausal>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkdv_tc(const __grid_constant__ CUtensorMap tmq,
                   const __grid_constant__ CUtensorMap tmdo, const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
                   const __nv_bfloat16* __restrict__ dout, __nv_bfloat16* __restrict__ dk,
                   __nv_bfloat16* __restrict__ dv, const bwd::Params p) {
-  using S = Dkdv<D>;
+  using S = Dkdv<D, Dv>;
+  constexpr int kStages = S::kStages;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = tc::smem_addr(smem_raw);
   const uint32_t base = (raw + tc::kAlign - 1) & ~static_cast<uint32_t>(tc::kAlign - 1);
   const uint32_t k_s = base;                            // two K tiles (one per consumer)
-  const uint32_t v_s = k_s + 2 * S::kTile;              // two V tiles
-  const uint32_t q_s = v_s + 2 * S::kTile;              // kStages Q tiles
-  const uint32_t do_s = q_s + kStages * S::kTile;       // kStages dO tiles
-  const uint32_t st_s = do_s + kStages * S::kTile;      // kStages (lse2, delta) of 64 rows
+  const uint32_t v_s = k_s + 2 * S::kTileK;             // two V tiles
+  const uint32_t q_s = v_s + 2 * S::kTileV;             // kStages Q tiles
+  const uint32_t do_s = q_s + kStages * S::kTileK;      // kStages dO tiles
+  const uint32_t st_s = do_s + kStages * S::kTileV;     // kStages (lse2, delta) of 64 rows
   const uint32_t full = st_s + kStages * S::kStats;     // kStages barriers, then
   const uint32_t empty = full + 8 * kStages;            // kStages more
   const float* stats = reinterpret_cast<const float*>(smem_raw + (st_s - raw));
@@ -1427,11 +1503,13 @@ flash_bwd_dkdv_tc(const __grid_constant__ CUtensorMap tmq,
   }
   if (p.tile_rows < kRows) {
     // rows tile_rows .. kRows - 1 of every Q and dO stage: TMA never writes
-    // them, so zeros once make them add nothing to dV and dK
-    constexpr int kChunks = Tile<D>::kSwizzle / 16;  // of 16 bytes in a row
+    // them, so zeros once make them add nothing to dV and dK.  The stages'
+    // boxes of 64 rows lie back to back from q_s: Q's, then dO's.
+    constexpr int kChunks = S::TK::kSwizzle / 16;  // of 16 bytes in a row
+    constexpr int kBoxesAll = kStages * (S::TK::kBoxes + S::TV::kBoxes);
     const int tail = (kRows - p.tile_rows) * kChunks;
     uint4* tiles = reinterpret_cast<uint4*>(smem_raw + (q_s - raw));
-    for (int idx = threadIdx.x; idx < 2 * kStages * Tile<D>::kBoxes * tail; idx += kThreads) {
+    for (int idx = threadIdx.x; idx < kBoxesAll * tail; idx += kThreads) {
       tiles[idx / tail * (S::kBox / 16) + p.tile_rows * kChunks + idx % tail] =
           make_uint4(0, 0, 0, 0);
     }
@@ -1440,21 +1518,25 @@ flash_bwd_dkdv_tc(const __grid_constant__ CUtensorMap tmq,
   __syncthreads();
 
   if (threadIdx.x < 128) {
-    // -- producer: warp w fills stage w with row tiles t0 + w, t0 + w + 4, ... ----
+    // -- producer: warp w fills stage w with row tiles t0 + w, t0 + w + kStages, ...
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     const int w = threadIdx.x / 32;
-    if (threadIdx.x % 32 == 0) {
+    if (threadIdx.x % 32 == 0 && w < kStages) {
       const float* stat = p.delta + static_cast<long long>(blockIdx.x) * p.rows_pad;
       const long long plane = static_cast<long long>(p.batch) * p.hkv * p.rows_pad;
       for (int t = t0 + w, u = 0; t < n_rt; t += kStages, ++u) {
         tc::mbar_wait(empty + 8 * w, (u & 1) ^ 1);  // stage released
-        tc::mbar_expect_tx(full + 8 * w, 2 * p.tile_rows * D * 2 + S::kStats);
+        tc::mbar_expect_tx(full + 8 * w, p.tile_rows * (D + Dv) * 2 + S::kStats);
         const int i0 = t * (p.tile_rows / p.g);
 #pragma unroll
-        for (int i = 0; i < Tile<D>::kBoxes; ++i) {
-          const int col = i * Tile<D>::kBoxCols;
-          tma_load_rows(q_s + w * S::kTile + i * S::kBox, &tmq, full + 8 * w, col, hk, i0, b);
-          tma_load_rows(do_s + w * S::kTile + i * S::kBox, &tmdo, full + 8 * w, col, hk, i0, b);
+        for (int i = 0; i < S::TK::kBoxes; ++i) {
+          tma_load_rows(q_s + w * S::kTileK + i * S::kBox, &tmq, full + 8 * w,
+                        i * S::TK::kBoxCols, hk, i0, b);
+        }
+#pragma unroll
+        for (int i = 0; i < S::TV::kBoxes; ++i) {
+          tma_load_rows(do_s + w * S::kTileV + i * S::kBox, &tmdo, full + 8 * w,
+                        i * S::TV::kBoxCols, hk, i0, b);
         }
         bulk_load(st_s + w * S::kStats, stat + t * kRows, kRows * 4, full + 8 * w);
         bulk_load(st_s + w * S::kStats + kRows * 4, stat + plane + t * kRows, kRows * 4,
@@ -1469,10 +1551,10 @@ flash_bwd_dkdv_tc(const __grid_constant__ CUtensorMap tmq,
     const int jt = c == 0 ? pair : n_kt - 1 - pair;
     const bool active = c == 0 || jt > pair;
     const int key0 = jt * kKeys;
-    const uint32_t k_wg = k_s + c * S::kTile, v_wg = v_s + c * S::kTile;
+    const uint32_t k_wg = k_s + c * S::kTileK, v_wg = v_s + c * S::kTileV;
     if (active) {
       tc::load_rows<D>(k_wg, S::kBox, k, p.ks, b, hk, 1, key0, kKeys, p.skv, tid, 128);
-      tc::load_rows<D>(v_wg, S::kBox, v, p.vs, b, hk, 1, key0, kKeys, p.skv, tid, 128);
+      tc::load_rows<Dv>(v_wg, S::kBox, v, p.vs, b, hk, 1, key0, kKeys, p.skv, tid, 128);
       tc::cp_async_publish();
       asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
     }
@@ -1491,60 +1573,78 @@ flash_bwd_dkdv_tc(const __grid_constant__ CUtensorMap tmq,
     const bool ragged = key0 + kKeys > p.skv || p.tile_rows < kRows;
     const float cexp = p.scale * 1.4426950408889634f;
 
-    float dkv[D / 2], dvv[D / 2], st[32], dpt[32];
+    // dK (64 keys x D) and dV (64 x Dv): 160 accumulators a thread at (192,
+    // 128), where dK's product runs at wgmma's N = 192
+    constexpr int kSliceRows = S::kSliceRows, kSliceK = S::kSliceK;
+    float dkv[D / 2], dvv[Dv / 2], st[kSliceRows / 2], dpt[kSliceRows / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dkv[i] = 0.f, dvv[i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) dkv[i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < 32; ++i) st[i] = 0.f, dpt[i] = 0.f;
-    Frags pf, dsf;
+    for (int i = 0; i < Dv / 2; ++i) dvv[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kSliceRows / 2; ++i) st[i] = 0.f, dpt[i] = 0.f;
+    Frags<kSliceK> pf, dsf;
 
     for (int t = t0, u = 0; t < n_rt; ++t, ++u) {
       const int s = u % kStages;
       tc::mbar_wait(full + 8 * s, (u / kStages) & 1);
       if (t >= my_t0) {
-        const uint32_t q_t = q_s + s * S::kTile, do_t = do_s + s * S::kTile;
-        // S^T = K Q^T and dP^T = V dO^T
-        tc::wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          tc::wgmma_ss(st, tc::desc_k<D>(k_wg, kk, S::kBox), tc::desc_k<D>(q_t, kk, S::kBox),
-                       kk > 0);
-        }
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          tc::wgmma_ss(dpt, tc::desc_k<D>(v_wg, kk, S::kBox), tc::desc_k<D>(do_t, kk, S::kBox),
-                       kk > 0);
-        }
-        tc::wgmma_commit();
-        tc::wgmma_wait<0>();
-        tc::fence_regs(st);
-        tc::fence_regs(dpt);
-        const int row0 = t * p.tile_rows, col0 = row0 + 2 * (lane % 4);
+        const uint32_t q_t = q_s + s * S::kTileK, do_t = do_s + s * S::kTileV;
+        const int row0 = t * p.tile_rows;
         const float* lse2 = stats + s * (S::kStats / 4);
-        if (ragged || row0 + kRows > rows || row0 < full_from) {
-          const int lo[2] = {first[0] - col0, first[1] - col0};
-          tile_grads<true>(st, dpt, pf, dsf, lse2, lse2 + kRows, cexp, lane, lo,
-                           min(rows, row0 + p.tile_rows) - col0);
-        } else {
-          const int none[2] = {0, 0};
-          tile_grads<false>(st, dpt, pf, dsf, lse2, lse2 + kRows, cexp, lane, none, 0);
-        }
-        // dV += P^T dO and dK += dS^T Q, each part in turn
-        tc::wgmma_fence();
+        const bool masked = ragged || row0 + kRows > rows || row0 < full_from;
 #pragma unroll
-        for (int kk = 0; kk < kRows / 16; ++kk) {
-          tc::wgmma_rs(dvv, pf.hi[kk], tc::desc_mn<D>(do_t, kk, S::kBox));
-          tc::wgmma_rs(dkv, dsf.hi[kk], tc::desc_mn<D>(q_t, kk, S::kBox));
-        }
+        for (int sl = 0; sl < S::kSlices; ++sl) {
+          // S^T = K Q^T (over D) and dP^T = V dO^T (over Dv) for the
+          // slice's rows: their boxes' rows sl * kSliceRows on (a multiple
+          // of the swizzle's 8 rows)
+          const uint32_t q_sl = q_t + sl * kSliceRows * S::TK::kSwizzle;
+          const uint32_t do_sl = do_t + sl * kSliceRows * S::TV::kSwizzle;
+          tc::wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < kRows / 16; ++kk) {
-          tc::wgmma_rs(dvv, pf.lo[kk], tc::desc_mn<D>(do_t, kk, S::kBox));
-          tc::wgmma_rs(dkv, dsf.lo[kk], tc::desc_mn<D>(q_t, kk, S::kBox));
+          for (int kk = 0; kk < D / 16; ++kk) {
+            tc::wgmma_ss(st, tc::desc_k<D>(k_wg, kk, S::kBox), tc::desc_k<D>(q_sl, kk, S::kBox),
+                         kk > 0);
+          }
+#pragma unroll
+          for (int kk = 0; kk < Dv / 16; ++kk) {
+            tc::wgmma_ss(dpt, tc::desc_k<Dv>(v_wg, kk, S::kBox),
+                         tc::desc_k<Dv>(do_sl, kk, S::kBox), kk > 0);
+          }
+          tc::wgmma_commit();
+          tc::wgmma_wait<0>();
+          tc::fence_regs(st);
+          tc::fence_regs(dpt);
+          const int col0 = row0 + sl * kSliceRows + 2 * (lane % 4);
+          const float* lse2_sl = lse2 + sl * kSliceRows;
+          if (masked) {
+            const int lo[2] = {first[0] - col0, first[1] - col0};
+            tile_grads<true>(st, dpt, pf, dsf, lse2_sl, lse2_sl + kRows, cexp, lane, lo,
+                             min(rows, row0 + p.tile_rows) - col0);
+          } else {
+            const int none[2] = {0, 0};
+            tile_grads<false>(st, dpt, pf, dsf, lse2_sl, lse2_sl + kRows, cexp, lane, none, 0);
+          }
+          // dV += P^T dO and dK += dS^T Q over the slice's rows, each part
+          // in turn
+          tc::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < kSliceK; ++kk) {
+            const int rk = sl * kSliceK + kk;  // the k-slice of 16 rows in the tile
+            tc::wgmma_rs(dvv, pf.hi[kk], tc::desc_mn<Dv>(do_t, rk, S::kBox));
+            tc::wgmma_rs(dkv, dsf.hi[kk], tc::desc_mn<D>(q_t, rk, S::kBox));
+          }
+#pragma unroll
+          for (int kk = 0; kk < kSliceK; ++kk) {
+            const int rk = sl * kSliceK + kk;
+            tc::wgmma_rs(dvv, pf.lo[kk], tc::desc_mn<Dv>(do_t, rk, S::kBox));
+            tc::wgmma_rs(dkv, dsf.lo[kk], tc::desc_mn<D>(q_t, rk, S::kBox));
+          }
+          tc::wgmma_commit();
+          tc::wgmma_wait<0>();
+          tc::fence_regs(dvv);
+          tc::fence_regs(dkv);
         }
-        tc::wgmma_commit();
-        tc::wgmma_wait<0>();
-        tc::fence_regs(dvv);
-        tc::fence_regs(dkv);
       }
       if (lane == 0) tc::mbar_arrive(empty + 8 * s);  // this warp is done with the stage
     }
@@ -1561,6 +1661,9 @@ flash_bwd_dkdv_tc(const __grid_constant__ CUtensorMap tmq,
         for (int j = 0; j < D / 8; ++j) {
           *reinterpret_cast<__nv_bfloat162*>(krow + 8 * j) = __floats2bfloat162_rn(
               dkv[4 * j + 2 * h] * p.scale, dkv[4 * j + 2 * h + 1] * p.scale);
+        }
+#pragma unroll
+        for (int j = 0; j < Dv / 8; ++j) {
           *reinterpret_cast<__nv_bfloat162*>(vrow + 8 * j) =
               __floats2bfloat162_rn(dvv[4 * j + 2 * h], dvv[4 * j + 2 * h + 1]);
         }
@@ -1569,21 +1672,24 @@ flash_bwd_dkdv_tc(const __grid_constant__ CUtensorMap tmq,
   }
 }
 
-template <int D, bool kCausal>
+template <int D, int Dv, bool kCausal>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tmk, const __grid_constant__ CUtensorMap tmv,
                 const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ dout,
                 __nv_bfloat16* __restrict__ dq, const bwd::Params p) {
-  using T = Tile<D>;
+  using S = Dq<D, Dv>;
+  using TK = typename S::TK;
+  using TV = typename S::TV;
+  constexpr int kDqKeys = S::kKeys, kDqStages = S::kStages;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = tc::smem_addr(smem_raw);
   const uint32_t base = (raw + tc::kAlign - 1) & ~static_cast<uint32_t>(tc::kAlign - 1);
-  const uint32_t q_s = base;                              // 128 rows of Q
-  const uint32_t do_s = q_s + T::kTileBytes;              // and of dO
-  const uint32_t k_s = do_s + T::kTileBytes;              // kDqStages K tiles
-  const uint32_t v_s = k_s + kDqStages * T::kTileBytes;   // kDqStages V tiles
-  const uint32_t full = v_s + kDqStages * T::kTileBytes;  // kDqStages barriers, then
-  const uint32_t empty = full + 8 * kDqStages;            // kDqStages more
+  const uint32_t q_s = base;                          // 128 rows of Q
+  const uint32_t do_s = q_s + TK::kTileBytes;         // and of dO
+  const uint32_t k_s = do_s + TV::kTileBytes;         // kDqStages K tiles
+  const uint32_t v_s = k_s + kDqStages * S::kTileK;   // kDqStages V tiles
+  const uint32_t full = v_s + kDqStages * S::kTileV;  // kDqStages barriers, then
+  const uint32_t empty = full + 8 * kDqStages;        // kDqStages more
 
   const int b = blockIdx.x / p.hkv, hk = blockIdx.x % p.hkv;
   const int rows = p.sq * p.g;  // < 2^23: the launch holds row tiles to 65535
@@ -1610,12 +1716,16 @@ flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tmk, const __grid_constant__
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % kDqStages;
         tc::mbar_wait(empty + 8 * s, ((t / kDqStages) & 1) ^ 1);  // stage released
-        tc::mbar_expect_tx(full + 8 * s, 2 * T::kTileBytes);
+        tc::mbar_expect_tx(full + 8 * s, S::kTileK + S::kTileV);
 #pragma unroll
-        for (int i = 0; i < T::kBoxes; ++i) {
-          const uint32_t off = s * T::kTileBytes + i * T::kBoxBytes;
-          tc::tma_load(k_s + off, &tmk, full + 8 * s, i * T::kBoxCols, hk, t * kDqKeys, b);
-          tc::tma_load(v_s + off, &tmv, full + 8 * s, i * T::kBoxCols, hk, t * kDqKeys, b);
+        for (int i = 0; i < TK::kBoxes; ++i) {
+          tc::tma_load(k_s + s * S::kTileK + i * S::kKeyBox, &tmk, full + 8 * s,
+                       i * TK::kBoxCols, hk, t * kDqKeys, b);
+        }
+#pragma unroll
+        for (int i = 0; i < TV::kBoxes; ++i) {
+          tc::tma_load(v_s + s * S::kTileV + i * S::kKeyBox, &tmv, full + 8 * s,
+                       i * TV::kBoxCols, hk, t * kDqKeys, b);
         }
       }
     }
@@ -1625,9 +1735,9 @@ flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tmk, const __grid_constant__
     const int c = threadIdx.x / 128 - 1, tid = threadIdx.x % 128;
     const int warp = tid / 32, lane = tid % 32;
     const int wg_row0 = row0 + 64 * c;
-    const uint32_t q_wg = q_s + 64 * c * T::kSwizzle, do_wg = do_s + 64 * c * T::kSwizzle;
-    tc::load_rows<D>(q_wg, T::kBoxBytes, q, p.qs, b, hk, p.g, wg_row0, 64, rows, tid, 128);
-    tc::load_rows<D>(do_wg, T::kBoxBytes, dout, p.dos, b, hk, p.g, wg_row0, 64, rows, tid, 128);
+    const uint32_t q_wg = q_s + 64 * c * TK::kSwizzle, do_wg = do_s + 64 * c * TV::kSwizzle;
+    tc::load_rows<D>(q_wg, TK::kBoxBytes, q, p.qs, b, hk, p.g, wg_row0, 64, rows, tid, 128);
+    tc::load_rows<Dv>(do_wg, TV::kBoxBytes, dout, p.dos, b, hk, p.g, wg_row0, 64, rows, tid, 128);
     tc::cp_async_publish();
     asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
 
@@ -1663,18 +1773,18 @@ flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tmk, const __grid_constant__
 
     for (int t = 0; t < n_tiles; ++t) {
       const int s = t % kDqStages, key0 = t * kDqKeys;
-      const uint32_t k_t = k_s + s * T::kTileBytes, v_t = v_s + s * T::kTileBytes;
+      const uint32_t k_t = k_s + s * S::kTileK, v_t = v_s + s * S::kTileV;
       tc::mbar_wait(full + 8 * s, (t / kDqStages) & 1);
       tc::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        tc::wgmma_ss(sc, tc::desc_k<D>(q_wg, kk, T::kBoxBytes),
-                     tc::desc_k<D>(k_t, kk, T::kBoxBytes), kk > 0);
+        tc::wgmma_ss(sc, tc::desc_k<D>(q_wg, kk, TK::kBoxBytes),
+                     tc::desc_k<D>(k_t, kk, S::kKeyBox), kk > 0);
       }
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        tc::wgmma_ss(dp, tc::desc_k<D>(do_wg, kk, T::kBoxBytes),
-                     tc::desc_k<D>(v_t, kk, T::kBoxBytes), kk > 0);
+      for (int kk = 0; kk < Dv / 16; ++kk) {
+        tc::wgmma_ss(dp, tc::desc_k<Dv>(do_wg, kk, TV::kBoxBytes),
+                     tc::desc_k<Dv>(v_t, kk, S::kKeyBox), kk > 0);
       }
       tc::wgmma_commit();
       tc::wgmma_wait<0>();
@@ -1704,11 +1814,11 @@ flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tmk, const __grid_constant__
       tc::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kDqKeys / 16; ++kk) {
-        tc::wgmma_rs(dqv, ds_hi[kk], tc::desc_mn<D>(k_t, kk, T::kBoxBytes));
+        tc::wgmma_rs(dqv, ds_hi[kk], tc::desc_mn<D>(k_t, kk, S::kKeyBox));
       }
 #pragma unroll
       for (int kk = 0; kk < kDqKeys / 16; ++kk) {
-        tc::wgmma_rs(dqv, ds_lo[kk], tc::desc_mn<D>(k_t, kk, T::kBoxBytes));
+        tc::wgmma_rs(dqv, ds_lo[kk], tc::desc_mn<D>(k_t, kk, S::kKeyBox));
       }
       tc::wgmma_commit();
       tc::wgmma_wait<0>();
@@ -1809,9 +1919,9 @@ EncodeTiled encode_tiled() {
 }
 
 // The (D, Hkv, Skv, B) view of k or v, cut into boxes of (swizzle / 2, 1,
-// 128, 1) under that swizzle.  strides: elements of (batch, seq, head).
+// keys, 1) under that swizzle.  strides: elements of (batch, seq, head).
 cudaError_t kv_map(CUtensorMap* map, const void* base, int d, int hkv, int skv, int batch,
-                   const long long* strides, int swizzle) {
+                   const long long* strides, int swizzle, int keys) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(hkv),
@@ -1822,7 +1932,8 @@ cudaError_t kv_map(CUtensorMap* map, const void* base, int d, int hkv, int skv, 
   for (int i = 0; i < 3; ++i) {  // an extent of 1 is never stepped: any valid stride
     if (dims[i + 1] == 1) bytes[i] = i == 0 ? dims[0] * 2 : bytes[i - 1] * dims[i];
   }
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(swizzle / 2), 1, tc::kKeys, 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(swizzle / 2), 1,
+                             static_cast<cuuint32_t>(keys), 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult rc = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, bytes, box, unit,
@@ -1868,8 +1979,8 @@ struct BwdKernel {
   int smem = 0, rows = 0, keys = 0, stages = 0;
 };
 
-// The backward of one (dtype, d, causal): the delta pass, the dK/dV and dQ
-// kernels, their threads per block, and whether it is the tensor-core body
+// The backward of one (dtype, d, dv, causal): the delta pass, the dK/dV and
+// dQ kernels, their threads per block, and whether it is the tensor-core body
 // (folded statistics planes, paired key tiles, TMA maps).
 struct BwdBody {
   const void* delta = nullptr;
@@ -1878,49 +1989,51 @@ struct BwdBody {
   bool tc = false;
 };
 
-template <int D>
+template <int D, int Dv>
 BwdBody bwd_body_f32(bool causal) {
   BwdBody body;
-  body.delta = reinterpret_cast<const void*>(&bwd::flash_bwd_delta<float, D, false>);
-  body.dkdv = {causal ? reinterpret_cast<const void*>(&bwd::flash_bwd_dkdv<float, D, true>)
-                      : reinterpret_cast<const void*>(&bwd::flash_bwd_dkdv<float, D, false>),
-               4 * bwd::smem_floats_dkdv<D>(), bwd::kRows, bwd::kKeys, 1};
-  body.dq = {causal ? reinterpret_cast<const void*>(&bwd::flash_bwd_dq<float, D, true>)
-                    : reinterpret_cast<const void*>(&bwd::flash_bwd_dq<float, D, false>),
-             4 * bwd::smem_floats_dq<D>(), bwd::kRows, bwd::kKeys, 1};
+  body.delta = reinterpret_cast<const void*>(&bwd::flash_bwd_delta<float, Dv, false>);
+  body.dkdv = {causal ? reinterpret_cast<const void*>(&bwd::flash_bwd_dkdv<float, D, Dv, true>)
+                      : reinterpret_cast<const void*>(&bwd::flash_bwd_dkdv<float, D, Dv, false>),
+               4 * bwd::smem_floats_dkdv<D, Dv>(), bwd::kRows, bwd::kKeys, 1};
+  body.dq = {causal ? reinterpret_cast<const void*>(&bwd::flash_bwd_dq<float, D, Dv, true>)
+                    : reinterpret_cast<const void*>(&bwd::flash_bwd_dq<float, D, Dv, false>),
+             4 * bwd::smem_floats_dq<D, Dv>(), bwd::kRows, bwd::kKeys, 1};
   body.threads = bwd::kThreads;
   return body;
 }
 
-template <int D>
+template <int D, int Dv>
 BwdBody bwd_body_tc(bool causal) {
+  using Kv = tcb::Dkdv<D, Dv>;
+  using Q = tcb::Dq<D, Dv>;
   BwdBody body;
-  body.delta = reinterpret_cast<const void*>(&bwd::flash_bwd_delta<__nv_bfloat16, D, true>);
-  body.dkdv = {causal ? reinterpret_cast<const void*>(&tcb::flash_bwd_dkdv_tc<D, true>)
-                      : reinterpret_cast<const void*>(&tcb::flash_bwd_dkdv_tc<D, false>),
-               tcb::Dkdv<D>::kSmem, tcb::kRows, tcb::kKeys, tcb::kStages};
-  body.dq = {causal ? reinterpret_cast<const void*>(&tcb::flash_bwd_dq_tc<D, true>)
-                    : reinterpret_cast<const void*>(&tcb::flash_bwd_dq_tc<D, false>),
-             tcb::Dq<D>::kSmem, tcb::kDqRows, tcb::kDqKeys, tcb::kDqStages};
+  body.delta = reinterpret_cast<const void*>(&bwd::flash_bwd_delta<__nv_bfloat16, Dv, true>);
+  body.dkdv = {causal ? reinterpret_cast<const void*>(&tcb::flash_bwd_dkdv_tc<D, Dv, true>)
+                      : reinterpret_cast<const void*>(&tcb::flash_bwd_dkdv_tc<D, Dv, false>),
+               Kv::kSmem, tcb::kRows, tcb::kKeys, Kv::kStages};
+  body.dq = {causal ? reinterpret_cast<const void*>(&tcb::flash_bwd_dq_tc<D, Dv, true>)
+                    : reinterpret_cast<const void*>(&tcb::flash_bwd_dq_tc<D, Dv, false>),
+             Q::kSmem, tcb::kDqRows, Q::kKeys, Q::kStages};
   body.threads = tcb::kThreads;
   body.tc = true;
   return body;
 }
 
-template <int D>
+template <int D, int Dv>
 BwdBody bwd_body_d(int dtype, bool causal) {
-  if (dtype == kBF16) return bwd_body_tc<D>(causal);
-  if (dtype == kF32) return bwd_body_f32<D>(causal);
+  if (dtype == kBF16) return bwd_body_tc<D, Dv>(causal);
+  if (dtype == kF32) return bwd_body_f32<D, Dv>(causal);
   return {};
 }
 
-BwdBody pick_bwd(int dtype, int d, bool causal) {
-  switch (d) {
-    case 32: return bwd_body_d<32>(dtype, causal);
-    case 64: return bwd_body_d<64>(dtype, causal);
-    case 128: return bwd_body_d<128>(dtype, causal);
-    default: return {};
-  }
+// The (D, Dv) pairs the backward is built for: the forward's (pick's).
+BwdBody pick_bwd(int dtype, int d, int dv, bool causal) {
+  if (d == 32 && dv == 32) return bwd_body_d<32, 32>(dtype, causal);
+  if (d == 64 && dv == 64) return bwd_body_d<64, 64>(dtype, causal);
+  if (d == 128 && dv == 128) return bwd_body_d<128, 128>(dtype, causal);
+  if (d == 192 && dv == 128) return bwd_body_d<192, 128>(dtype, causal);
+  return {};
 }
 
 }  // namespace
@@ -1963,8 +2076,10 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   if (dtype == kBF16) {
     if (row_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
     CUtensorMap tmk, tmv;
-    err = kv_map(&tmk, k, d, hkv, skv, batch, strides + 3, body.swizzle);
-    if (err == cudaSuccess) err = kv_map(&tmv, v, dv, hkv, skv, batch, strides + 6, body.swizzle);
+    err = kv_map(&tmk, k, d, hkv, skv, batch, strides + 3, body.swizzle, body.keys);
+    if (err == cudaSuccess) {
+      err = kv_map(&tmv, v, dv, hkv, skv, batch, strides + 6, body.swizzle, body.keys);
+    }
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid(static_cast<unsigned>(batch * hkv), static_cast<unsigned>(row_tiles));
     void* args[] = {&tmk, &tmv, const_cast<void**>(&q), &o, &p};
@@ -2017,9 +2132,10 @@ extern "C" long long flash_attention_bwd_scratch(int dtype, int batch, int sq, i
   return static_cast<long long>(batch) * hq * sq;
 }
 
-// The gradient of flash_attention_fwd on `stream`: q, k, v, o (the
-// forward's output), dout and lse (the forward's, (batch, hq, sq) f32) in;
-// dq, dk, dv out, in the operands' dtype; delta: f32 scratch of
+// The gradient of flash_attention_fwd on `stream`: q, k (head dim d), v, o
+// (the forward's output), dout (dv) and lse (the forward's, (batch, hq, sq)
+// f32) in; dq, dk, dv out, in the operands' dtype; (d, dv) one of
+// pick_bwd's pairs; delta: f32 scratch of
 // flash_attention_bwd_scratch words.  strides[24] holds the element
 // strides of (batch, seq, head) for q, k, v, o, dout, dq, dk and dv in that
 // order (the last dim contiguous; bf16: q, k, v and dout in multiples of 8
@@ -2029,9 +2145,10 @@ extern "C" long long flash_attention_bwd_scratch(int dtype, int batch, int sq, i
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, const void* lse, void* delta, void* dq,
                                    void* dk, void* dv, int batch, int sq, int skv, int hq,
-                                   int hkv, int d, const long long* strides, int causal,
-                                   int q_offset, float scale, int dtype, void* stream) {
-  const BwdBody body = pick_bwd(dtype, d, causal != 0);
+                                   int hkv, int d, int dv_dim, const long long* strides,
+                                   int causal, int q_offset, float scale, int dtype,
+                                   void* stream) {
+  const BwdBody body = pick_bwd(dtype, d, dv_dim, causal != 0);
   const long long rows = static_cast<long long>(sq) * (hkv > 0 ? hq / hkv : 0);
   if (body.delta == nullptr || batch <= 0 || sq <= 0 || skv <= 0 || hkv <= 0 ||
       hq % hkv != 0 || q_offset < 0 || (rows + body.dq.rows - 1) / body.dq.rows > 65535 ||
@@ -2054,7 +2171,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
   p.delta = static_cast<float*>(delta);
   p.rows_pad = body.tc ? static_cast<int>(tcb::plane_slots(rows, p.g)) : 0;
   p.tile_rows = body.tc ? tcb::tile_rows(p.g) : 0;
-  const int swizzle = d >= 64 ? 128 : 64;  // tc::Tile<D>::kSwizzle
+  const int swizzle = d >= 64 ? 128 : 64;  // tc::Tile<D>::kSwizzle (Tile<Dv>'s too)
   cudaError_t err = prepare(body.dkdv.fn, body.dkdv.smem);
   if (err == cudaSuccess) err = prepare(body.dq.fn, body.dq.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -2075,7 +2192,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
     CUtensorMap tmq, tmdo;
     err = row_map(&tmq, q, d, p.g, hkv, sq, batch, strides, swizzle);
     if (err == cudaSuccess) {
-      err = row_map(&tmdo, dout, d, p.g, hkv, sq, batch, strides + 12, swizzle);
+      err = row_map(&tmdo, dout, dv_dim, p.g, hkv, sq, batch, strides + 12, swizzle);
     }
     if (err != cudaSuccess) return static_cast<int>(err);
     void* dkdv_args[] = {&tmq, &tmdo, const_cast<void**>(&q), const_cast<void**>(&k),
@@ -2093,8 +2210,10 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
                     static_cast<unsigned>((rows + body.dq.rows - 1) / body.dq.rows));
   if (body.tc) {
     CUtensorMap tmk, tmv;
-    err = kv_map(&tmk, k, d, hkv, skv, batch, strides + 3, swizzle);
-    if (err == cudaSuccess) err = kv_map(&tmv, v, d, hkv, skv, batch, strides + 6, swizzle);
+    err = kv_map(&tmk, k, d, hkv, skv, batch, strides + 3, swizzle, body.dq.keys);
+    if (err == cudaSuccess) {
+      err = kv_map(&tmv, v, dv_dim, hkv, skv, batch, strides + 6, swizzle, body.dq.keys);
+    }
     if (err != cudaSuccess) return static_cast<int>(err);
     void* dq_args[] = {&tmk, &tmv, const_cast<void**>(&q), const_cast<void**>(&dout), &dq, &p};
     err = cudaLaunchKernel(body.dq.fn, q_grid, dim3(body.threads), dq_args, body.dq.smem, st);
@@ -2110,9 +2229,10 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
 // The backward's budget: out = {numRegs, dynamic shared bytes, local
 // (spill) bytes, threads per block, resident blocks/SM, folded rows per
 // tile, keys per tile, tiles in flight} of the dK/dV kernel (which = 0) or
-// the dQ kernel (which = 1).
-extern "C" int flash_attention_bwd_attributes(int dtype, int d, int causal, int which, int* out) {
-  const BwdBody body = pick_bwd(dtype, d, causal != 0);
+// the dQ kernel (which = 1) at (d, dv).
+extern "C" int flash_attention_bwd_attributes(int dtype, int d, int dv, int causal, int which,
+                                              int* out) {
+  const BwdBody body = pick_bwd(dtype, d, dv, causal != 0);
   const BwdKernel& kern = which == 0 ? body.dkdv : body.dq;
   if (kern.fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = prepare(kern.fn, kern.smem);

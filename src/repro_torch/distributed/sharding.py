@@ -1,5 +1,12 @@
-"""Halo and boundary geometry of a sharded SU3 lattice (port of the lattice
-half of ``repro.distributed.sharding``).
+"""Halo and boundary geometry of a sharded SU3 lattice, and the LM
+sharding rules as arithmetic (port of ``repro.distributed.sharding``).
+
+The LM half (:class:`LogicalMesh`, :class:`MeshRules`,
+:func:`default_rules`, :func:`resolve_spec`, :func:`state_spec_for`) is the
+reference's rule resolver over a dict of axis sizes: which mesh axes divide
+each dim of a parameter or a state leaf.  No tensor is partitioned; the dry
+run (``launch/dryrun.py``) reads the per-device sizes from it, and one card
+is the 1 x 1 mesh, where every dim stays whole.
 
 Pure arithmetic: the L^4 lattice splits along its outermost (t) dimension
 into ``n_shards`` contiguous slabs, and a nearest-neighbour stencil needs
@@ -273,3 +280,162 @@ def halo_spec(
         words_per_site=words_per_site,
         depth=depth,
     )
+
+
+# ---------------------------------------------------------------------------
+# LM rules: logical axes -> mesh axes, as arithmetic over axis sizes
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class LogicalMesh:
+    """Named axis sizes, the reference's ``jax.sharding.Mesh`` as the rules
+    read it: ``axis_names`` in order, ``shape[name]`` and ``size``.  One card
+    is ``LogicalMesh.of(data=1, model=1)``; larger meshes are logical (the
+    dry run's analytic ``multi`` mesh)."""
+
+    axes: tuple[tuple[str, int], ...]
+
+    @classmethod
+    def of(cls, **sizes: int) -> "LogicalMesh":
+        return cls(tuple(sizes.items()))
+
+    @property
+    def axis_names(self) -> tuple[str, ...]:
+        return tuple(name for name, _ in self.axes)
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(self.axes)
+
+    @property
+    def size(self) -> int:
+        n = 1
+        for _, k in self.axes:
+            n *= k
+        return n
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshRules:
+    """Logical axis name -> tuple of mesh axis names (in sharding order)."""
+
+    data_axes: tuple[str, ...] = ("data",)  # batch / DP
+    fsdp_axes: tuple[str, ...] = ("data",)  # param 'embed' dim / ZeRO
+    model_axes: tuple[str, ...] = ("model",)  # TP / EP
+    seq_axes: tuple[str, ...] = ()  # SP (long-context)
+
+    def logical(self) -> dict[str, tuple[str, ...]]:
+        return {
+            "batch": self.data_axes,
+            "embed": self.fsdp_axes,
+            "vocab": self.model_axes,
+            "heads": self.model_axes,
+            "kv_heads": self.model_axes,
+            "mlp": self.model_axes,
+            "experts": self.model_axes,
+            "latent": (),  # MLA latents replicated, as the reference's rules keep them
+            "seq": self.seq_axes,
+            "layers": (),
+        }
+
+
+def default_rules(mesh: LogicalMesh, *, fsdp: bool = True) -> MeshRules:
+    """The reference's defaults: (data, model) meshes put DP and FSDP over
+    data and TP/EP over model; (pod, data, model) meshes DP and FSDP over
+    (pod, data)."""
+    dp = ("pod", "data") if "pod" in mesh.axis_names else ("data",)
+    return MeshRules(data_axes=dp, fsdp_axes=dp if fsdp else (), model_axes=("model",))
+
+
+def axis_size(mesh: LogicalMesh, axes: tuple[str, ...]) -> int:
+    size = 1
+    for a in axes:
+        size *= mesh.shape[a]
+    return size
+
+
+Assignment = Any  # None, a mesh axis name, or a tuple of them
+
+
+def resolve_spec(axes: tuple[str | None, ...], shape: tuple[int, ...], mesh: LogicalMesh,
+                 rules: MeshRules) -> tuple[Assignment, ...]:
+    """Logical axes + concrete shape -> the mesh axes each dim shards over
+    (the reference's ``PartitionSpec`` entries, trailing ``None`` dropped):
+    a dim takes its logical axis's mesh axes that no earlier dim took, if
+    their size divides it, else stays whole."""
+    table = rules.logical()
+    used: set[str] = set()
+    out: list[Assignment] = []
+    for dim, name in zip(shape, axes):
+        assignment: Assignment = None
+        if name is not None:
+            mesh_axes = tuple(a for a in table.get(name, ()) if a not in used)
+            if mesh_axes and dim % axis_size(mesh, mesh_axes) == 0:
+                assignment = mesh_axes if len(mesh_axes) > 1 else mesh_axes[0]
+                used.update(mesh_axes)
+        out.append(assignment)
+    while out and out[-1] is None:
+        out.pop()
+    return tuple(out)
+
+
+def state_spec_for(key: str, shape: tuple[int, ...], mesh: LogicalMesh, rules: MeshRules, *,
+                   kv_seq_shard: bool = False) -> tuple[Assignment, ...]:
+    """A decode/prefill state leaf's mesh axes by its key's last name and its
+    rank, the reference's layout contracts: KV caches (stacked (L, B, S, H,
+    D) or per layer (B, S, H, D)) batch over data, kv heads over model where
+    they divide (else, with ``kv_seq_shard``, the sequence); MLA latents
+    (``ckv``, ``k_rope``) batch only (or the sequence); SSM ``ssm`` heads and
+    ``conv`` channels over model; any other leaf of rank >= 2 batch over
+    data."""
+    model = rules.model_axes
+    msize = axis_size(mesh, model)
+    mx = model if len(model) > 1 else (model[0] if model else None)
+    dsize = axis_size(mesh, rules.data_axes)
+
+    def d_if(dim: int) -> Assignment:
+        if rules.data_axes and dim % dsize == 0:
+            return rules.data_axes if len(rules.data_axes) > 1 else rules.data_axes[0]
+        return None
+
+    def m_if(dim: int) -> Assignment:
+        return mx if mx is not None and dim % msize == 0 else None
+
+    name = key.split("/")[-1]
+    r = len(shape)
+    if name in ("k", "v", "self_k", "self_v", "cross_k", "cross_v") and r == 5:
+        h_ax = m_if(shape[3])
+        s_ax = m_if(shape[2]) if (kv_seq_shard and h_ax is None) else None
+        return (None, d_if(shape[1]), s_ax, h_ax, None)
+    if name in ("k", "v") and r == 4:
+        h_ax = m_if(shape[2])
+        s_ax = m_if(shape[1]) if (kv_seq_shard and h_ax is None) else None
+        return (d_if(shape[0]), s_ax, h_ax, None)
+    if name in ("ckv", "k_rope") and r == 4:
+        return (None, d_if(shape[1]), m_if(shape[2]) if kv_seq_shard else None, None)
+    if name in ("ckv", "k_rope") and r == 3:
+        return (d_if(shape[0]), m_if(shape[1]) if kv_seq_shard else None, None)
+    if name == "ssm" and r == 5:
+        return (None, d_if(shape[1]), m_if(shape[2]), None, None)
+    if name == "ssm" and r == 4:
+        return (d_if(shape[0]), m_if(shape[1]), None, None)
+    if name == "conv" and r == 4:
+        return (None, d_if(shape[1]), None, m_if(shape[3]))
+    if name == "conv" and r == 3:
+        return (d_if(shape[0]), None, m_if(shape[2]))
+    if r >= 2:
+        return (d_if(shape[0]),) + (None,) * (r - 1)
+    return ()
+
+
+def local_numel(shape: tuple[int, ...], spec: tuple[Assignment, ...], mesh: LogicalMesh) -> int:
+    """Elements of one device's shard of a ``shape`` laid out by ``spec``."""
+    n = 1
+    for i, dim in enumerate(shape):
+        ax = spec[i] if i < len(spec) else None
+        div = 1
+        if ax is not None:
+            div = axis_size(mesh, ax if isinstance(ax, tuple) else (ax,))
+        n *= dim // max(div, 1)
+    return n

@@ -13,8 +13,10 @@ this module holds:
   * :func:`flash_attention` — the wrapper: for CUDA tensors it checks the
     arguments, launches the kernel on the current stream and counts the
     launch in :data:`LAUNCHES`; for CPU tensors it runs the plain version;
-    any other device raises.  When grad is enabled and q, k or v requires
-    it, the call goes through :class:`FlashAttention`;
+    for ``meta`` tensors (shapes without data) it runs the plain version too,
+    which gives the shapes; any other device raises.
+    When grad is enabled and q, k or v requires it, the call goes through
+    :class:`FlashAttention`;
   * :class:`FlashAttention` — the autograd function: its forward keeps the
     log-sum-exp of each row (the kernel writes it beside ``out``, the plain
     version returns it), its backward is :func:`flash_attention_bwd`;
@@ -55,12 +57,14 @@ which shape the plain version's chunking only.  It has two bodies:
   * f32, on the CUDA cores: blocks of 64 rows against tiles of 64 keys, all
     in f32 FMAs.
 
-The backward (Dv = D, D in :data:`BWD_HEAD_DIMS`) has the same two bodies.  bf16, on the tensor cores: a dK/dV
+The backward ((D, Dv) in :data:`BWD_HEAD_DIMS`, the forward's pairs: MLA's
+training at (192, 128)) has the same two bodies.  bf16, on the tensor cores: a dK/dV
 kernel whose two consumer warpgroups own a pair of key tiles of 64 (tile j
 and tile n - 1 - j, so that causal blocks carry equal work) and share one
 stream of row tiles of q and dout (G * (64 // G) folded rows each, G <= 64)
-through four stages by TMA; a dQ kernel of blocks of 128 folded rows
-against K/V tiles of 128 keys by TMA (two stages).  P and dS are each
+through four stages by TMA (three at (192, 128)); a dQ kernel of blocks of
+128 folded rows against K/V tiles of 128 keys by TMA (two stages; tiles of
+64 keys at (192, 128)).  See :func:`bwd_smem_bytes`.  P and dS are each
 split into two bf16 parts before their products, as the forward splits p,
 so dV, dK and dQ run twice.  q, k, v and dout need 16-byte rows, as
 in the forward; a dout without them is copied.  f32, on the CUDA cores:
@@ -79,9 +83,7 @@ NEG_INF = -1e30
 # The forward's instantiations, (D, Dv): q and k's head dim, v's.  (192,
 # 128) is MLA's prefill (qk head nope 128 + rope 64, v head 128).
 HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (192, 128))
-BWD_HEAD_DIMS = (32, 64, 128)  # the backward's instantiations, Dv = D
-MLA_BWD_TODO = ("the backward kernel needs Dv == D; MLA's (D=192, Dv=128) backward is not "
-                "ported yet (ROADMAP Queue 1, the MLA training item)")
+BWD_HEAD_DIMS = HEAD_DIMS  # the backward's instantiations, (D, Dv): the forward's
 # Each body's tiling as flash_attention.cu fixes it; kernel_budget raises if
 # the built library reports another.
 BLOCK_ROWS = 64  # f32 body: folded query rows per block
@@ -94,6 +96,18 @@ MAX_BATCH_HEADS = 65535  # B * Hkv rides on a grid dimension (gridDim.y in the f
 MAX_ROW_TILES = 65535  # bf16 body: row tiles ride on gridDim.y
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # as flash_attention.cu numbers them
+_PLAIN_DEVICES = ("cpu", "meta")  # the devices the plain versions serve
+
+
+def _plain_chunks(q: torch.Tensor, k: torch.Tensor, q_chunk: int,
+                  kv_chunk: int) -> tuple[int, int]:
+    """The plain versions' chunks: as given, or on ``meta`` (shapes without
+    data: the dry run's trace, ``launch/dryrun.py``) the whole sequences, one
+    chunk pair that gives the same shapes in a few ops where chunks of 512 x
+    1,024 would repeat the ops per pair."""
+    if q.device.type == "meta":
+        return q.shape[1], k.shape[1]
+    return q_chunk, kv_chunk
 
 LAUNCHES = LaunchCounter("flash_attention")
 BWD_LAUNCHES = LaunchCounter("flash_attention_bwd")  # one per backward call (three kernels)
@@ -106,6 +120,9 @@ BWD_TILING = {
     torch.bfloat16: {"dkdv": (64, 64, 4), "dq": (128, 128, 2)},
     torch.float32: {"dkdv": (64, 64, 1), "dq": (64, 64, 1)},
 }
+# The bf16 body at Dv != D, MLA's (192, 128): BWD_TILING's would pass the
+# 227 KB of a block (see bwd_smem_bytes)
+BWD_TILING_SPLIT = {"dkdv": (64, 64, 3), "dq": (128, 64, 2)}
 
 
 def flash_attention_plain(
@@ -341,13 +358,14 @@ def _library() -> ctypes.CDLL:
         ]
         lib.flash_attention_fwd.restype = i32
         lib.flash_attention_bwd.argtypes = [
-            ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
+            ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32,
             strides, i32, i32, ctypes.c_float, i32, ptr,
         ]
         lib.flash_attention_bwd.restype = i32
         lib.flash_attention_attributes.argtypes = [i32, i32, i32, i32, ctypes.POINTER(i32)]
         lib.flash_attention_attributes.restype = i32
-        lib.flash_attention_bwd_attributes.argtypes = [i32, i32, i32, i32, ctypes.POINTER(i32)]
+        lib.flash_attention_bwd_attributes.argtypes = [i32, i32, i32, i32, i32,
+                                                       ctypes.POINTER(i32)]
         lib.flash_attention_bwd_attributes.restype = i32
         lib.flash_attention_bwd_scratch.argtypes = [i32, i32, i32, i32, i32]
         lib.flash_attention_bwd_scratch.restype = ctypes.c_longlong
@@ -396,53 +414,64 @@ def kernel_budget(
     }
 
 
-def bwd_tiling(dtype: torch.dtype) -> dict[str, tuple[int, int, int]]:
+def bwd_tiling(dtype: torch.dtype, d: int = 128,
+               dv: int | None = None) -> dict[str, tuple[int, int, int]]:
     """``{"dkdv": (rows, keys, stages), "dq": (rows, keys, stages)}`` of the
-    backward body that serves ``dtype`` (see :data:`BWD_TILING`)."""
-    return BWD_TILING[torch.bfloat16 if dtype == torch.bfloat16 else torch.float32]
+    backward body that serves ``dtype`` at head dims (d, dv) (dv None: d;
+    see :data:`BWD_TILING` and :data:`BWD_TILING_SPLIT`)."""
+    if dtype == torch.bfloat16:
+        return BWD_TILING[torch.bfloat16] if dv in (None, d) else BWD_TILING_SPLIT
+    return BWD_TILING[torch.float32]
 
 
-def bwd_smem_bytes(d: int, dtype: torch.dtype = torch.bfloat16) -> tuple[int, int]:
+def bwd_smem_bytes(d: int, dtype: torch.dtype = torch.bfloat16,
+                   dv: int | None = None) -> tuple[int, int]:
     """Dynamic shared memory of one block of the backward's dK/dV and dQ
-    kernels of the body that serves ``dtype``.
+    kernels of the body that serves ``dtype`` at head dims (d, dv) (dv None:
+    d): q, k, dq and dk have width d; v, out, dout and dv width dv.
 
     bf16: 1 KB to align the tiles to their swizzle; dK/dV: K and V of the
     block's two key tiles and, per stage, a Q and a dO tile of 64 rows with
     their lse and delta (f32), and a full and an empty barrier; dQ: Q and dO
     of the block's rows and, per stage, a K and a V tile, and two barriers.
-    f32: rows of D + 1 f32 words (K, V, q * scale and dO tiles), the
-    probabilities and dS (dK/dV) or dS alone (dQ) in rows of 65, and the
-    tile's lse and delta."""
-    t = bwd_tiling(dtype)
+    At (192, 128) four dK/dV stages would take 248,896 bytes and two dQ
+    stages of 128 keys 246,816, past the 232,448 of a block: three stages
+    (207,408) and tiles of 64 keys (164,896).  f32: rows of D + 1 f32 words
+    (K, q * scale) and of Dv + 1 (V, dO), the probabilities and dS (dK/dV)
+    or dS alone (dQ) in rows of 65, and the tile's lse and delta."""
+    dv = d if dv is None else dv
+    t = bwd_tiling(dtype, d, dv)
     if dtype == torch.bfloat16:
         rows, keys, stages = t["dkdv"]
-        dkdv = 1024 + 2 * d * (4 * keys + 2 * stages * rows) + stages * (8 * rows + 16)
+        dkdv = 1024 + 2 * (d + dv) * (2 * keys + stages * rows) + stages * (8 * rows + 16)
         rows, keys, stages = t["dq"]
-        dq = 1024 + 2 * d * (2 * rows + 2 * stages * keys) + 16 * stages
+        dq = 1024 + 2 * (d + dv) * (rows + stages * keys) + 16 * stages
         return dkdv, dq
     rows, keys, _ = t["dkdv"]
-    tile = 2 * keys * (d + 1) + 2 * rows * (d + 1) + 2 * rows
+    tile = (keys + rows) * (d + dv + 2) + 2 * rows
     return 4 * (tile + 2 * rows * (keys + 1)), 4 * (tile + rows * (keys + 1))
 
 
 def bwd_executed_flops(
     batch: int, sq: int, skv: int, hq: int, hkv: int, d: int, *, causal: bool = True,
-    q_offset: int = 0, dtype: torch.dtype = torch.bfloat16,
+    q_offset: int = 0, dtype: torch.dtype = torch.bfloat16, dv: int | None = None,
 ) -> int:
-    """Flops the backward's tiles execute, masked entries included.
+    """Flops the backward's tiles execute, masked entries included (dv None:
+    d).
 
     dK/dV: each key tile visits the row tiles from the first that holds a
     row seeing its first key to the last (bf16: tiles of G * (64 // G) rows
     computed 64 wide); per (row, key) of a visited tile,
-    products of 2D: S^T, dP^T, dV and dK, where the bf16 body runs dV and
+    products of 2D (S^T, dK) and 2Dv (dP^T, dV), where the bf16 body runs dV and
     dK twice (P and dS in two bf16 parts).  The bf16 body visits none where
     no row sees the tile's first key; the f32 body starts at that row's
     tile even past the end.  dQ: each block of folded rows visits key tiles
-    up to the last one that holds a key visible to its last row; S, dP and
-    dQ, dQ twice in the bf16 body."""
+    up to the last one that holds a key visible to its last row; S and dQ
+    (2D), dP (2Dv), dQ twice in the bf16 body."""
+    dv = d if dv is None else dv
     g = hq // hkv
     rows = sq * g
-    t = bwd_tiling(dtype)
+    t = bwd_tiling(dtype, d, dv)
     kv_rows, kv_keys, _ = t["dkdv"]
     q_rows, q_keys, _ = t["dq"]
     # rows of a dK/dV row tile: whole query groups in the bf16 body
@@ -462,32 +491,37 @@ def bwd_executed_flops(
             last = min(row0 + q_rows, rows) - 1
             n = min(n, (last // g + q_offset) // q_keys + 1)
         q_visited += n
-    kv_products, q_products = (6, 4) if dtype == torch.bfloat16 else (4, 3)
-    return batch * hkv * (kv_visited * kv_rows * kv_keys * kv_products * 2 * d
-                          + q_visited * q_rows * q_keys * q_products * 2 * d)
+    twice = 2 if dtype == torch.bfloat16 else 1  # dV, dK and dQ on two bf16 parts
+    kv_per_pair = 2 * d + 2 * dv + twice * (2 * dv + 2 * d)
+    q_per_pair = 2 * d + 2 * dv + twice * 2 * d
+    return batch * hkv * (kv_visited * kv_rows * kv_keys * kv_per_pair
+                          + q_visited * q_rows * q_keys * q_per_pair)
 
 
 def bwd_budget(dtype: torch.dtype = torch.bfloat16, d: int = 128,
-               causal: bool = True) -> dict[str, dict[str, int]]:
-    """The backward kernels' per-block budget on the current CUDA device:
-    ``{"dkdv": {...}, "dq": {...}}``, each with ``num_regs``,
+               causal: bool = True, dv: int | None = None) -> dict[str, dict[str, int]]:
+    """The backward kernels' per-block budget on the current CUDA device at
+    head dims (d, dv) (dv None: d): ``{"dkdv": {...}, "dq": {...}}``, each
+    with ``num_regs``,
     ``shared_bytes`` (dynamic), ``local_bytes`` (spills),
     ``threads_per_block`` and ``blocks_per_sm``.
 
     Raises:
         RuntimeError: the library's tiling is not :func:`bwd_tiling`'s.
     """
+    dv = d if dv is None else dv
     lib = _library()
     found = {}
+    want = bwd_tiling(dtype, d, dv)
     for which, name in enumerate(("dkdv", "dq")):
         out = (ctypes.c_int * 8)()
-        rc = lib.flash_attention_bwd_attributes(_DTYPES[dtype], d, int(causal), which, out)
+        rc = lib.flash_attention_bwd_attributes(_DTYPES[dtype], d, dv, int(causal), which, out)
         _check_error(lib, rc, "cudaFuncGetAttributes")
         *budget, rows, keys, stages = list(out)
-        if (rows, keys, stages) != bwd_tiling(dtype)[name]:
-            raise RuntimeError(f"flash_attention_bwd: the {dtype} {name} kernel is built with "
-                               f"(rows, keys, stages) = {(rows, keys, stages)}, this module "
-                               f"assumes {bwd_tiling(dtype)[name]}")
+        if (rows, keys, stages) != want[name]:
+            raise RuntimeError(f"flash_attention_bwd: the {dtype} {name} kernel at (D, Dv) = "
+                               f"({d}, {dv}) is built with (rows, keys, stages) = "
+                               f"{(rows, keys, stages)}, this module assumes {want[name]}")
         found[name] = dict(zip(("num_regs", "shared_bytes", "local_bytes", "threads_per_block",
                                 "blocks_per_sm"), budget))
     return found
@@ -560,13 +594,15 @@ def _forward(
     kv_chunk: int, q_offset: int, with_lse: bool,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """(out, lse or None): the kernel for CUDA tensors (one launch, counted),
-    the plain version for CPU tensors; any other device raises."""
-    if q.device.type == "cpu":
+    the plain version for CPU and ``meta`` tensors; any other device raises."""
+    if q.device.type in _PLAIN_DEVICES:
+        q_chunk, kv_chunk = _plain_chunks(q, k, q_chunk, kv_chunk)
         res = flash_attention_plain(q, k, v, causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk,
                                     q_offset=q_offset, return_lse=with_lse)
         return res if with_lse else (res, None)
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu tensors, got {q.device}")
+        raise ValueError(f"flash_attention runs on cuda or cpu tensors (meta for shapes), "
+                         f"got {q.device}")
     _check_cuda(q, k, v, q_offset)
     b, sq, hq, d = q.shape
     skv, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
@@ -602,10 +638,9 @@ def flash_attention_bwd(
     (B, Hq, Sq) f32.
 
     CUDA tensors go to the backward kernel (one call of three launches,
-    counted once in :data:`BWD_LAUNCHES`) or raise (Dv != D raises
-    ``NotImplementedError`` before any launch: :data:`MLA_BWD_TODO`); CPU
-    tensors go to :func:`flash_attention_bwd_plain` with ``q_chunk`` /
-    ``kv_chunk``; any other device raises.
+    counted once in :data:`BWD_LAUNCHES`) or raise; CPU and ``meta`` tensors
+    go to :func:`flash_attention_bwd_plain` with ``q_chunk`` / ``kv_chunk``
+    (on ``meta`` the whole sequences); any other device raises.
     """
     _check_shapes(q, k, v)
     b, sq, hq, d = q.shape
@@ -614,13 +649,13 @@ def flash_attention_bwd(
         raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)} and dout "
                          f"{tuple(dout.shape)} must be {want}, lse "
                          f"{tuple(lse.shape)} must be {(b, hq, sq)}")
-    if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, out, dout, lse, causal=causal, q_chunk=q_chunk,
-                                         kv_chunk=kv_chunk, q_offset=q_offset)
+    if q.device.type in _PLAIN_DEVICES:
+        q_chunk, kv_chunk = _plain_chunks(q, k, q_chunk, kv_chunk)
+        return flash_attention_bwd_plain(q, k, v, out, dout, lse, causal=causal,
+                                         q_chunk=q_chunk, kv_chunk=kv_chunk, q_offset=q_offset)
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_bwd runs on cuda or cpu tensors, got {q.device}")
-    if v.shape[-1] != d:
-        raise NotImplementedError(f"flash_attention_bwd: {MLA_BWD_TODO}")
+        raise ValueError(f"flash_attention_bwd runs on cuda or cpu tensors (meta for shapes), "
+                         f"got {q.device}")
     _check_cuda(q, k, v, q_offset)
     if not (out.device == dout.device == lse.device == q.device):
         raise ValueError("flash_attention_bwd: out, dout and lse must lie on q's device")
@@ -640,7 +675,7 @@ def flash_attention_bwd(
     elif dout.stride(-1) != 1:
         dout = dout.contiguous()
     lse = lse.contiguous()
-    skv, hkv, d = k.shape[1], k.shape[2], q.shape[-1]
+    skv, hkv, dv_dim = k.shape[1], k.shape[2], v.shape[-1]
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
@@ -653,7 +688,7 @@ def flash_attention_bwd(
         rc = lib.flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, sq, skv, hq, hkv, d, _strides(q, k, v, out, dout, dq, dk, dv), int(causal),
+            b, sq, skv, hq, hkv, d, dv_dim, _strides(q, k, v, out, dout, dq, dk, dv), int(causal),
             q_offset, d**-0.5, _DTYPES[q.dtype], stream)
     _check_error(lib, rc, "flash_attention_bwd launch")
     BWD_LAUNCHES.count += 1
@@ -696,12 +731,13 @@ def flash_attention(
     """GQA attention: q (B, Sq, Hq, D), k (B, Skv, Hkv, D), v (B, Skv, Hkv,
     Dv) -> (B, Sq, Hq, Dv).
 
-    A CUDA tensor goes to the kernel (or raises); a CPU tensor goes to
-    :func:`flash_attention_plain` with ``q_chunk`` / ``kv_chunk``; any other
-    device raises.  When grad is enabled and q, k or v requires grad, the
-    call goes through :class:`FlashAttention`, which also keeps the lse for
-    the backward; otherwise (serving: no tensor requires grad) it is the
-    forward alone, one launch and no lse.
+    A CUDA tensor goes to the kernel (or raises); a CPU or ``meta`` tensor
+    goes to :func:`flash_attention_plain` with
+    ``q_chunk`` / ``kv_chunk``; any other device raises.  When grad is
+    enabled and q, k or v requires grad, the call goes through
+    :class:`FlashAttention`, which also keeps the lse for the backward;
+    otherwise (serving: no tensor requires grad) it is the forward alone,
+    one launch and no lse.
     """
     _check_shapes(q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):

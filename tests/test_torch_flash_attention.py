@@ -151,7 +151,7 @@ def test_smem_budget_at_mla_heads():
     f32 = fa.smem_bytes(192, torch.float32, dv=128)
     assert f32 == 4 * (192 * 64 + 192 * 64 + 128 * 64 + 64 * 64) == 147456 <= 232448
     assert fa.smem_bytes(128, torch.bfloat16, dv=128) == fa.smem_bytes(128) == 230448
-    assert [d for d, dv in fa.HEAD_DIMS if d == dv] == list(fa.BWD_HEAD_DIMS)
+    assert list(fa.BWD_HEAD_DIMS) == list(fa.HEAD_DIMS)  # the backward at every pair
 
 
 def _tensor_core_body(q, k, v, *, causal, split=True):
@@ -276,10 +276,29 @@ def test_cuda_checks_reject_bf16_strides_off_16_bytes():
     fa._check_cuda(*(ok[..., i * 32:(i + 1) * 32] for i in range(3)), 0)
 
 
+class _OtherDevice(torch.Tensor):
+    """A tensor that reports ``device`` and holds no data: what the wrapper
+    reads before it routes."""
+
+    @staticmethod
+    def __new__(cls, t: torch.Tensor, device: str):
+        return torch.Tensor._make_wrapper_subclass(cls, t.shape, dtype=t.dtype,
+                                                   device=torch.device(device))
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        raise RuntimeError(f"{func} reached a tensor with no data")
+
+
 def test_wrapper_rejects_other_devices_and_mismatched_operands():
+    """A device but the card, the CPU and ``meta`` raises before any op;
+    ``meta`` (the dry run's shapes without data) goes to the plain version
+    and gives the output's shape."""
     q, k, v = (torch.from_numpy(x) for x in _qkv(1, 8, 8, 4, 2, 32, seed=7))
     with pytest.raises(ValueError, match="cuda or cpu"):
-        fa.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+        fa.flash_attention(*(_OtherDevice(t, "xpu") for t in (q, k, v)))
+    meta = fa.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+    assert meta.device.type == "meta" and meta.shape == q.shape
     with pytest.raises(ValueError, match="dtype|float"):
         fa.flash_attention(q, k.double(), v)
     with pytest.raises(ValueError, match="Hkv dividing"):

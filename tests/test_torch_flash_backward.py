@@ -33,9 +33,10 @@ LOG2E = math.log2(math.e)
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
 
-def _inputs(b, sq, skv, hq, hkv, d, seed):
+def _inputs(b, sq, skv, hq, hkv, d, seed, dv=None):
+    dv = d if dv is None else dv
     rng = np.random.default_rng(seed)
-    shapes = ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d), (b, sq, hq, d))
+    shapes = ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, dv), (b, sq, hq, dv))
     return [torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(BF16) for s in shapes]
 
 
@@ -50,13 +51,13 @@ def _tensor_core_bwd(q, k, v, out, dout, lse, *, causal, q_offset=0, split=True)
     (folded row, key) grids; the kernel's tiles only reorder f32 sums.
     ``split=False``: one bf16 rounding of P and dS instead."""
     b, sq, hq, d = q.shape
-    skv, hkv = k.shape[1], k.shape[2]
+    skv, hkv, d_v = k.shape[1], k.shape[2], v.shape[-1]
     g = hq // hkv
     f32 = torch.float32
     scale = torch.tensor(d**-0.5, dtype=f32)
     c = scale * torch.tensor(LOG2E, dtype=f32)
     qf = q.to(f32).reshape(b, sq, hkv, g, d)
-    dof = dout.to(f32).reshape(b, sq, hkv, g, d)
+    dof = dout.to(f32).reshape(b, sq, hkv, g, d_v)
     kf, vf = k.to(f32), v.to(f32)
     delta = (dout.to(f32) * out.to(f32)).sum(-1).reshape(b, sq, hkv, g).permute(0, 2, 3, 1)
     lse2 = lse.to(f32).reshape(b, hkv, g, sq) * torch.tensor(LOG2E, dtype=f32)
@@ -80,18 +81,20 @@ def _shares(got, want):
             / (atol + rtol * w.float().abs().max().item()) for g, w in zip(got, want)]
 
 
-BWD_ROUNDING_FORMS = [  # (batch, sq, skv, hq, hkv, d, causal, q_offset)
+BWD_ROUNDING_FORMS = [  # (batch, sq, skv, hq, hkv, d, causal, q_offset[, dv])
     (1, 256, 256, 8, 2, 128, True, 0),
     (1, 512, 512, 8, 2, 64, False, 0),
     (2, 300, 300, 16, 2, 32, True, 0),
     (1, 1024, 1024, 32, 8, 128, True, 0),  # the training shape at B=1
     (2, 64, 200, 8, 2, 64, True, 136),  # queries continuing a 136-token prefix
+    (1, 256, 256, 4, 4, 192, True, 0, 128),  # MLA's (D, Dv) = (192, 128), G = 1
 ]
 
 
 def _form_inputs(form):
-    b, sq, skv, hq, hkv, d, causal, q_offset = form
-    q, k, v, dout = _inputs(b, sq, skv, hq, hkv, d, seed=sum(form[:6]))
+    b, sq, skv, hq, hkv, d, causal, q_offset = form[:8]
+    dv = form[8] if len(form) > 8 else None
+    q, k, v, dout = _inputs(b, sq, skv, hq, hkv, d, seed=sum(form[:6]), dv=dv)
     kw = dict(causal=causal, q_offset=q_offset)
     out, lse = fa.flash_attention_plain(q, k, v, return_lse=True, **kw)
     return (q, k, v, out, dout, lse), kw
@@ -116,7 +119,7 @@ def test_one_bf16_rounding_leaves_under_a_tenth_of_the_tolerance():
     continuing a 136-token prefix put dk within 10 % of its limit (0.91 of
     it here; on the card a form's dv reached 0.91), where the split leaves
     it under half."""
-    args, kw = _form_inputs(BWD_ROUNDING_FORMS[-1])
+    args, kw = _form_inputs(BWD_ROUNDING_FORMS[4])
     want = fa.flash_attention_bwd_plain(*args, **kw)
     one = _shares(_tensor_core_bwd(*args, **kw, split=False), want)
     assert 0.9 < max(one) <= 1.0, one
@@ -136,8 +139,8 @@ def test_bwd_smem_fits_one_block_per_sm(dtype):
     two key tiles of 64 and four stages of Q and dO (199,744 bytes at
     D=128), the dQ block Q and dO of 128 rows and two stages of K and V
     (197,664)."""
-    for d in fa.BWD_HEAD_DIMS:
-        dkdv, dq = fa.bwd_smem_bytes(d, dtype)
+    for d, dv in fa.BWD_HEAD_DIMS:
+        dkdv, dq = fa.bwd_smem_bytes(d, dtype, dv)
         assert max(dkdv, dq) <= 232448
     if dtype == BF16:
         assert fa.bwd_smem_bytes(128, dtype) == (199744, 197664)
@@ -171,6 +174,61 @@ def test_bwd_executed_flops_count_the_tiles_each_body_visits():
     # rows in 4 tiles; key tile 1 is first seen at row 192, in tile 3
     assert fa.bwd_executed_flops(1, 77, 77, 12, 4, 128) == (
         1 * 4 * ((4 + 1) * 64 * 64 * 12 * 128 + 2 * 1 * 128 * 128 * 8 * 128))
+
+
+def test_bwd_tiling_at_mla_heads():
+    """At MLA's (192, 128) the bf16 dK/dV kernel keeps three row tiles in
+    flight and the dQ kernel reads K/V tiles of 64 keys; the f32 body's
+    tiling does not depend on the head dims."""
+    assert fa.bwd_tiling(BF16, 192, 128) == {"dkdv": (64, 64, 3), "dq": (128, 64, 2)}
+    assert fa.bwd_tiling(BF16, 128, 128) == fa.bwd_tiling(BF16) == fa.bwd_tiling(BF16, 64)
+    assert fa.bwd_tiling(torch.float32, 192, 128) == fa.bwd_tiling(torch.float32)
+    assert list(fa.BWD_HEAD_DIMS) == list(fa.HEAD_DIMS) and (192, 128) in fa.BWD_HEAD_DIMS
+
+
+@pytest.mark.parametrize("dtype", [BF16, torch.float32])
+def test_bwd_smem_at_mla_heads_fits_one_block(dtype):
+    """Shared memory at (192, 128), Q and K tiles 192 wide, V and dO 128:
+    bf16 dK/dV 1 KB + K and V of two key tiles (80 KB) + three stages of a
+    64-row Q and dO tile with their statistics = 207,408 bytes (four stages:
+    248,896, past Hopper's 232,448); bf16 dQ 1 KB + Q and dO of 128 rows +
+    two stages of 64-key K and V tiles = 164,896 (128-key tiles: 246,816);
+    f32 rows of D + 1 and Dv + 1: 198,656 and 182,016."""
+    dkdv, dq = fa.bwd_smem_bytes(192, dtype, dv=128)
+    assert max(dkdv, dq) <= 232448
+    if dtype == BF16:
+        assert (dkdv, dq) == (207408, 164896)
+        assert dkdv == 1024 + 2 * 64 * 2 * (192 + 128) + 3 * (64 * 2 * (192 + 128) + 512 + 16)
+        assert 1024 + 2 * 64 * 2 * 320 + 4 * (64 * 2 * 320 + 528) == 248896 > 232448
+        assert dq == 1024 + 128 * 2 * 320 + 2 * 64 * 2 * 320 + 32
+        assert 1024 + 128 * 2 * 320 + 2 * 128 * 2 * 320 + 32 == 246816 > 232448
+    else:
+        assert (dkdv, dq) == (198656, 182016)
+        assert dkdv == 4 * (64 * 193 * 2 + 64 * 129 * 2 + 2 * 64 * 65 + 2 * 64)
+    assert fa.bwd_smem_bytes(128, dtype, dv=128) == fa.bwd_smem_bytes(128, dtype)
+
+
+def test_bwd_executed_flops_at_mla_heads():
+    """deepseek-v3's training shape (B=2, S=1,024, H=128, G=1, causal) at
+    (192, 128): dK/dV key tile j of 64 visits row tiles j..15 (136 in all),
+    each pair S^T (2D), dP^T (2Dv), dV and dK twice (bf16 parts); dQ block i
+    of 128 rows visits 2i + 2 key tiles of 64 (72), each pair S (2D), dP
+    (2Dv) and dQ twice.  2.18x the counted flops of five products."""
+    flops = fa.bwd_executed_flops(2, 1024, 1024, 128, 128, 192, dv=128)
+    kv_pair = 2 * 192 + 2 * 128 + 2 * (2 * 128 + 2 * 192)
+    q_pair = 2 * 192 + 2 * 128 + 2 * 2 * 192
+    assert flops == 2 * 128 * (136 * 64 * 64 * kv_pair + 72 * 128 * 64 * q_pair)
+    bound = roofline.attention_bwd_bound(batch=2, sq=1024, skv=1024, hq=128, hkv=128, d=192,
+                                         dv=128, hw=roofline.H100_SXM)
+    assert bound.flops == 2 * 2 * 128 * (3 * 192 + 2 * 128) * (1024 * 1025 // 2)
+    assert 2.1 * bound.flops < flops < 2.2 * bound.flops
+    # each tensor once: q, k, dq, dk 192 wide, v, out, dout, dv 128, bf16; lse f32
+    assert bound.bytes == 2 * 2 * (1024 * 128 * 2) * 2 * (192 + 128) + 4 * 2 * 128 * 1024
+    # f32: 64-row dQ blocks against 64-key tiles, 1 + ... + 16 = 136 a head
+    assert fa.bwd_executed_flops(2, 1024, 1024, 128, 128, 192, dtype=torch.float32, dv=128) == (
+        2 * 128 * 136 * 64 * 64 * ((4 * 192 + 4 * 128) + (4 * 192 + 2 * 128)))
+    assert fa.bwd_executed_flops(2, 1024, 1024, 32, 8, 128, dv=128) == fa.bwd_executed_flops(
+        2, 1024, 1024, 32, 8, 128)
 
 
 def test_bwd_executed_flops_skip_keys_no_row_sees_in_the_bf16_body():
