@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port of SU3_Bench and its LM serving path on one
 NVIDIA card and check it.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--flash-yardsticks]
 
 Run from the root of a checkout; it needs one CUDA device and nvcc.  It
 builds every CUDA source of the port (``build/repro_torch/``, one nvcc per
@@ -59,26 +59,31 @@ source, started together) and, at the paper's L=32 lattice:
     layers with equal routing; resume bitwise); then the flash forward and
     backward at its head dim 64 and G = 2 against their plain versions,
     timed beside SDPA and their bounds;
-  * the MLA phase: the flash kernel at (D, Dv) = (192, 128) against
-    its plain version in six forms (bf16 and f32, causal and not, ragged,
-    q_offset); ``ServeEngine`` on full-width deepseek-v3-671b cut to its 3
+  * the MLA phase: the flash kernel at (D, Dv) = (192, 128) through its
+    split entry on MLA's parts (q_nope a view of the q projection, q_rope,
+    k_nope, one k_rope channel for every head or one a head, v) against its
+    plain version on the concatenated q and k in seven forms (bf16 and f32,
+    causal and not, ragged, q_offset); ``ServeEngine`` on full-width
+    deepseek-v3-671b cut to its 3
     leading dense layers and 1 MoE layer (+ MTP; 15.8 B parameters, bf16,
     matrices at std 0.02) over 4 x 1,024 prompt tokens + 32 greedy tokens
     (4 flash launches in prefill, none in decode; decode against a
     dropless teacher-forced forward with expert choices pinned); the card
     against the CPU at 2 dense layers of full width in f32 and at the
     reduced config with deepseek-v3's head dims (routing equal); the
-    kernel at the prefill shape beside SDPA and its bound;
-  * MLA training: the flash backward at (192, 128) against its plain
-    version in seven forms (bf16 and f32, causal and not, ragged, Sq < Skv,
-    q_offset; each twice bitwise); ``train.loop.train`` on deepseek-v3 at
+    kernel at the prefill shape (the split entry and the concatenated
+    call) beside SDPA and its bound;
+  * MLA training: the flash backward at (192, 128) through its split entry
+    against its plain version in eight forms (bf16 and f32, causal and not,
+    ragged, Sq < Skv, q_offset, one rope channel or one a head; five
+    gradients; each twice bitwise); ``train.loop.train`` on deepseek-v3 at
     full width cut to its 3 dense layers and the MTP layer (4.29 B
     parameters, ``MLA_TRAIN_REDUCED``) for 5 steps on 2 x 1,024 tokens (7
     flash forward and 4 backward launches a step), one step's gradients
     twice bitwise; the card against the CPU on 2 dense layers + MTP of full
     width in f32; resume bitwise on the reduced config with deepseek-v3's
     head dims; the backward at the training shape beside SDPA's backward
-    and its bound;
+    and its bound, and its three kernels' device ms;
   * GPipe: qwen3-4b's 36 layers at full width in 4 logical stages of 9
     (``distributed.pipeline``), 4 microbatches of 512 tokens in bf16:
     outputs and gradients of a sum-of-squares loss bitwise against the
@@ -139,10 +144,17 @@ It prints:
     HGMMA count of each bf16 backward kernel (dK/dV and dQ, every head dim
     and mask), which must run wgmma too;
   * one JSON line per check, per main-path row and per yardstick;
+  * a ``{"flash_rows": {...}}`` line: the flash rows PERF.md's kernels
+    table compares (rows 5 and 5b at D=128, 5-64, 5-mla, 5b-mla; ms,
+    library ms, bound, and the backward's three kernels by name);
   * a ``{"kernels": [...]}`` line with each ported kernel's numbers (the
     flash backward beside the forward, and the (192, 128) instantiations
     of both with their own launches) and the total wall time;
   * last, ``{"ok": true, "device": {...}}`` — only if every phase passed.
+
+``--flash-yardsticks`` builds and times those flash rows alone, and runs on
+a checkout from before the split MLA entry as well: run it on two
+checkouts in one call to compare them on one card.
 
 The whole output is over 20 KB; where only the end of a log is kept, run
 ``mkdir -p build && python3 chip_smoke.py | tee build/chip_smoke.log`` to
@@ -226,12 +238,21 @@ BWD_FORMS = [  # (label, batch, sq, skv, hq, hkv, d, causal, q_offset, dtype)
     # dout a slice of a (B, S, Hq, 2 D) tensor: 16-byte rows, read in place
     ("G=4 D=128 bf16 causal dout strided", 1, 512, 512, 16, 4, 128, True, 0, "bfloat16"),
 ]
-BWD_TC_KERNELS = ("flash_bwd_dkdv_tc", "flash_bwd_dq_tc")  # the bf16 backward's wgmma kernels
-# the one backward kernel that spills: bf16 dK/dV at MLA's (192, 128), whose
-# consumers hold 160 f32 accumulators beside a slice's S^T, dP^T and their
-# bf16 parts (ptxas: 104-112 bytes of stack, 144-172 of spill stores); the
-# spill is recorded (PERF.md, row 5b-mla), and a larger one fails
-BWD_SPILL_LIMITS = {("dkdv", "bfloat16", 192, 128): 128}
+# the bf16 backward's wgmma kernels, and the (D, Dv) pairs each is built for
+# (two instantiations a pair: causal or not); MLA's (192, 128) has dK/dV
+# and dQ kernels of its own
+BWD_TC_KERNELS = ("flash_bwd_dkdv_tc", "flash_bwd_dq_tc", "flash_bwd_dkdv_mla",
+                  "flash_bwd_dq_mla")
+BWD_TC_PAIRS = {"flash_bwd_dkdv_tc": 3, "flash_bwd_dq_tc": 3, "flash_bwd_dkdv_mla": 1,
+                "flash_bwd_dq_mla": 1}
+# bytes of spill a backward kernel may have: none (until PR 24 bf16 dK/dV at
+# (192, 128) held 104-112 bytes of stack under an allowance of 128)
+BWD_SPILL_LIMITS: dict[tuple, int] = {}
+# the flash rows the kernels' table compares (PERF.md), gathered from the
+# phases that time them and printed together on one line before the last
+FLASH_ROWS: dict[str, dict] = {}
+FLASH_ROW_KEYS = ("kernel_ms", "kernel_graph_ms", "concat_kernel_ms", "library_ms",
+                  "library_graph_ms", "bound_ms", "bound_by", "kernel_split_ms")
 # the MLA phase: deepseek-v3 at full width (d_model 7,168, 128 heads, q_lora
 # 1,536, kv_lora 512, qk head 128 + 64, v head 128, 256 experts top-8 sigmoid
 # aux-free + 1 shared of d_ff 2,048, dense d_ff 18,432, vocab 129,280),
@@ -239,15 +260,17 @@ BWD_SPILL_LIMITS = {("dkdv", "bfloat16", 192, 128): 128}
 MLA_ARCH = "deepseek-v3-671b"
 MLA_LAYERS = 4
 MLA_REDUCED = {"n_layers": "61 -> 4: 671 B parameters do not fit one card"}
-# the backward at MLA's (D, Dv) = (192, 128), G = 1, as BWD_FORMS (d the pair)
+# the backward at MLA's (D, Dv) = (192, 128), G = 1, through the split
+# entry: (label, batch, sq, skv, heads, rope_heads, causal, q_offset, dtype)
 MLA_BWD_FORMS = [
-    ("mla training shape bf16 causal", 2, 1024, 1024, 128, 128, (192, 128), True, 0, "bfloat16"),
-    ("mla training shape f32 causal", 2, 1024, 1024, 128, 128, (192, 128), True, 0, "float32"),
-    ("mla ragged 333 bf16 causal", 1, 333, 333, 8, 8, (192, 128), True, 0, "bfloat16"),
-    ("mla ragged 100 f32 causal", 1, 100, 100, 4, 4, (192, 128), True, 0, "float32"),
-    ("mla Sq<Skv q_offset 136 f32", 2, 64, 200, 8, 8, (192, 128), True, 136, "float32"),
-    ("mla Sq<Skv q_offset 1024 bf16", 2, 64, 1088, 16, 16, (192, 128), True, 1024, "bfloat16"),
-    ("mla ragged Sq<Skv bf16 non-causal", 2, 200, 333, 8, 8, (192, 128), False, 0, "bfloat16"),
+    ("mla training shape bf16 causal", 2, 1024, 1024, 128, 1, True, 0, "bfloat16"),
+    ("mla training shape f32 causal", 2, 1024, 1024, 128, 1, True, 0, "float32"),
+    ("mla ragged 333 bf16 causal", 1, 333, 333, 8, 1, True, 0, "bfloat16"),
+    ("mla ragged 333 bf16 causal, k_rope per head", 1, 333, 333, 8, 8, True, 0, "bfloat16"),
+    ("mla ragged 100 f32 causal", 1, 100, 100, 4, 1, True, 0, "float32"),
+    ("mla Sq<Skv q_offset 136 f32", 2, 64, 200, 8, 8, True, 136, "float32"),
+    ("mla Sq<Skv q_offset 1024 bf16", 2, 64, 1088, 16, 1, True, 1024, "bfloat16"),
+    ("mla ragged Sq<Skv bf16 non-causal", 2, 200, 333, 8, 1, False, 0, "bfloat16"),
 ]
 # deepseek-v3 trained at full width: its 3 dense layers and the dense MTP
 # layer, 4.29 B parameters (f32 master weights and AdamW moments: ~69 GB)
@@ -263,13 +286,18 @@ DRYRUN_CASES = [("whisper-tiny", "train_4k", "single"), ("xlstm-125m", "decode_3
                 ("granite-moe-1b-a400m", "prefill_32k", "multi"),
                 ("zamba2-1.2b", "long_500k", "single")]
 DRYRUN_FIG7 = ["--su3-fig7", "--L", "32", "--device-counts", "1,2,4", "--controllers", "2"]
-MLA_FORMS = [  # (label, batch, sq, skv, heads, causal, q_offset, dtype): D=192, Dv=128, G=1
-    ("prefill shape bf16 causal", 4, 1024, 1024, 128, True, 0, "bfloat16"),
-    ("f32 causal", 1, 512, 512, 16, True, 0, "float32"),
-    ("ragged Sq<Skv bf16 non-causal", 2, 200, 333, 8, False, 0, "bfloat16"),
-    ("ragged 333 f32 non-causal", 1, 333, 333, 8, False, 0, "float32"),
-    ("q_offset 1024 bf16", 2, 64, 1088, 16, True, 1024, "bfloat16"),
-    ("ragged q_offset 200 f32", 1, 100, 300, 8, True, 200, "float32"),
+# MLA's flash forms: (label, batch, sq, skv, heads, rope_heads, causal,
+# q_offset, dtype) at D=192 (nope 128 + rope 64), Dv=128, G=1, through the
+# split entry on the parts as MLA makes them (k_rope of one head, as MLA's,
+# or of every head)
+MLA_FORMS = [
+    ("prefill shape bf16 causal", 4, 1024, 1024, 128, 1, True, 0, "bfloat16"),
+    ("bf16 causal, k_rope per head", 1, 1024, 1024, 32, 32, True, 0, "bfloat16"),
+    ("f32 causal", 1, 512, 512, 16, 1, True, 0, "float32"),
+    ("ragged Sq<Skv bf16 non-causal", 2, 200, 333, 8, 1, False, 0, "bfloat16"),
+    ("ragged 333 f32 non-causal", 1, 333, 333, 8, 8, False, 0, "float32"),
+    ("q_offset 1024 bf16", 2, 64, 1088, 16, 1, True, 1024, "bfloat16"),
+    ("ragged q_offset 200 f32", 1, 100, 300, 8, 1, True, 200, "float32"),
 ]
 # the zamba phase: zamba2-1.2b at full width and depth (38 Mamba2 layers of
 # d_model 2,048, d_inner 4,096, 64 SSM heads of 64, state 64, conv 4; one
@@ -459,6 +487,10 @@ def _counts() -> dict[str, int]:
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the random SU(3) data")
+    ap.add_argument("--flash-yardsticks", action="store_true",
+                    help="build, then time the flash rows of PERF.md's kernels table alone "
+                         "(5 and 5b at D=128, 5-64, 5-mla, 5b-mla) and stop; it runs on a "
+                         "checkout from before the split MLA entry too")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -504,6 +536,16 @@ def main(argv: list[str] | None = None) -> int:
                 for w, nxt in zip(line.split(), line.split()[1:]) if nxt == "registers,"]
         spills = sorted({line.strip() for line in log.splitlines() if "spill" in line})
         print(f"ptxas[{src}]: registers per kernel {regs}; {' | '.join(spills)}")
+    if args.flash_yardsticks:
+        _flash_yardsticks(args.seed, hw, failures)
+        print(card)
+        for f in failures:
+            print(f"FAILED: {f}", file=sys.stderr)
+        if failures:
+            return 1
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
     budgets: dict[str, list] = {}
     for mode, (dtype, accum) in {"f32": (torch.float32, None),
                                  "bf16": (torch.bfloat16, None),
@@ -575,7 +617,7 @@ def main(argv: list[str] | None = None) -> int:
     _emit({"sass": "flash_attention_bwd bf16", "HGMMA_per_function": {
         kname: sorted(found.values()) for kname, found in bwd_hgmma.items()}})
     for kname, found in bwd_hgmma.items():
-        if len(found) != 2 * len(flash_attention.BWD_HEAD_DIMS) or not all(found.values()):
+        if len(found) != 2 * BWD_TC_PAIRS[kname] or not all(found.values()):
             failures.append(f"flash_attention_bwd: {kname} lacks HGMMA or instantiations: {found}")
 
     # -- 3. kernel vs plain version on random SU(3) links, L=32 --------------------
@@ -854,6 +896,9 @@ def main(argv: list[str] | None = None) -> int:
         "replaces": BWD_SOURCE_LINE, **flash_bwd_mla,
     }]})
     _emit({"phase": "total", "seconds": time.perf_counter() - t_start})
+    # the rows the kernels' table compares, side by side (ms; bound by bytes
+    # or operations; the (192, 128) backward's three kernels by name)
+    _emit({"flash_rows": FLASH_ROWS})
 
     print(card)  # again, next to the results (the first lines may scroll away)
     if failures:
@@ -1528,7 +1573,7 @@ def _kernel_class(name: str) -> str:
     reductions, copies) as ``other``."""
     if "flash_bwd" in name:
         return "flash_attention_bwd"
-    if "flash_attention" in name:
+    if "flash_attention" in name or "flash_mla_fwd" in name:
         return "flash_attention"
     if any(tag in name.lower() for tag in ("nvjet", "gemm", "cutlass", "xmma")):
         return "matmul"
@@ -1676,6 +1721,9 @@ def _lm_phase(seed: int, hw, failures: list[str]) -> dict:
     bound_f32 = roofline.attention_bound(batch=b, sq=s, skv=s, hq=hq, hkv=hkv, d=d,
                                          dtype=torch.float32, hw=hw) if hw is not None else None
     executed = fa.executed_flops(b, s, s, hq, hkv, d)  # split PV and causal tile waste included
+    FLASH_ROWS["5 D=128"] = {"kernel_ms": kernel_ms, "kernel_graph_ms": kernel_graph_ms,
+                             "library_ms": library_ms, "library_graph_ms": library_graph_ms,
+                             "bound_ms": None if bound is None else bound.bound_s * 1e3}
     _emit({"yardstick": f"flash_attention bf16 causal B={b} S={s} Hq={hq} Hkv={hkv} D={d}",
            "kernel_ms": kernel_ms, "kernel_graph_ms": kernel_graph_ms, "plain_ms": plain_ms,
            "library_ms": library_ms, "library_graph_ms": library_graph_ms,
@@ -2071,6 +2119,9 @@ def _train_phase(seed: int, hw, failures: list[str]) -> tuple[dict, int]:
     split = _profile(lambda: [fa.flash_attention_bwd(q, k, v, o, dout, lse) for _ in range(10)],
                      top=3)["top_kernels"]
     executed = fa.bwd_executed_flops(b, s, s, hq, hkv, d)  # 10 products, causal tile waste
+    FLASH_ROWS["5b D=128"] = {"kernel_ms": kernel_ms, "library_ms": library_ms,
+                              "bound_ms": None if bound is None else bound.bound_s * 1e3,
+                              "kernel_split_ms": {name: ms / count for name, ms, count in split}}
     _emit({"yardstick": f"flash_attention_bwd bf16 causal B={b} S={s} Hq={hq} Hkv={hkv} D={d}",
            "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
            "library_call": "backward of F.scaled_dot_product_attention(is_causal=True, "
@@ -2198,7 +2249,9 @@ def _moe_phase(seed: int, hw, failures: list[str]) -> dict[str, int]:
     torch.cuda.empty_cache()
     train_fwd, train_bwd = _moe_train(seed, failures)
     torch.cuda.empty_cache()
-    _head_yardsticks(MOE_ARCH, rng, hw, failures)
+    fwd, bwd = _head_yardsticks(MOE_ARCH, rng, hw, failures)
+    FLASH_ROWS["5-64"] = {key: fwd.get(key) for key in FLASH_ROW_KEYS if key in fwd}
+    FLASH_ROWS["5b-64"] = {key: bwd.get(key) for key in FLASH_ROW_KEYS if key in bwd}
     return {"serve": serve, "train_fwd": train_fwd, "train_bwd": train_bwd}
 
 
@@ -2707,17 +2760,19 @@ def _moe_train(seed: int, failures: list[str]) -> tuple[int, int]:
     return fwd, bwd
 
 
-def _head_yardsticks(arch: str, rng, hw, failures: list[str]) -> None:
+def _head_yardsticks(arch: str, rng, hw, failures: list[str]) -> tuple[dict, dict]:
     """The flash forward and backward at ``arch``'s heads (bf16, causal; the
     forward at the prefill shape, LM_BATCH x LM_PROMPT, the backward at the
     training shape, TRAIN_BATCH x TRAIN_SEQ): ``_fwd_yardstick`` and
-    ``_bwd_yardstick``."""
+    ``_bwd_yardstick``.  Returns their rows."""
     from repro_torch.configs import get_config
 
     cfg = get_config(arch)
     hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    _fwd_yardstick(arch, LM_BATCH, LM_PROMPT, LM_PROMPT, hq, hkv, d, True, rng, hw, failures)
-    _bwd_yardstick(arch, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, hq, hkv, d, True, rng, hw, failures)
+    return (_fwd_yardstick(arch, LM_BATCH, LM_PROMPT, LM_PROMPT, hq, hkv, d, True, rng, hw,
+                           failures),
+            _bwd_yardstick(arch, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, hq, hkv, d, True, rng, hw,
+                           failures))
 
 
 def _yardstick_label(kernel: str, b, sq, skv, hq, hkv, d, causal, dv=None) -> str:
@@ -2834,8 +2889,12 @@ def _bwd_yardstick(arch: str, b, sq, skv, hq, hkv, d, causal: bool, rng, hw,
                                          causal=causal, dtype=bf16, hw=hw,
                                          dv=dv) if hw is not None else None
     executed = fa.bwd_executed_flops(b, sq, skv, hq, hkv, d, causal=causal, dv=dv)
+    # the three kernels of a call (delta, dK/dV, dQ): device ms per call by
+    # name, over 10 calls
+    split = _profile(lambda: [bwd() for _ in range(10)], top=3)["top_kernels"]
     row = {"yardstick": _yardstick_label("flash_attention_bwd", b, sq, skv, hq, hkv, d, causal,
                                          dv),
+           "kernel_split_ms": {name: ms / count for name, ms, count in split},
            "arch": arch, "share_of_limit": shares, "bitwise_twice": twice, "ok": ok,
            "kernel_ms": kernel_ms, "kernel_graph_ms": kernel_graph_ms, "plain_ms": plain_ms,
            "library_ms": library_ms,
@@ -2858,8 +2917,9 @@ def _bwd_yardstick(arch: str, b, sq, skv, hq, hkv, d, causal: bool, rng, hw,
 
 
 def _mla_phase(seed: int, hw, failures: list[str]) -> dict:
-    """MLA on the card.  The flash kernel at (D, Dv) = (192, 128) against its
-    plain version in MLA_FORMS; ``ServeEngine`` on full-width deepseek-v3
+    """MLA on the card.  The flash kernel at (D, Dv) = (192, 128) through its
+    split entry on MLA's parts against its plain version in MLA_FORMS
+    (``_mla_fwd_checks``); ``ServeEngine`` on full-width deepseek-v3
     cut to MLA_LAYERS layers (``_serve_routed``: 4 flash launches in
     prefill, 0 in decode; the dropless teacher at the least capacity factor
     that holds the busiest expert of the served teacher pass, whose one MoE
@@ -2867,45 +2927,22 @@ def _mla_phase(seed: int, hw, failures: list[str]) -> dict:
     slots a group, a 15 GB dispatch buffer); the card against the CPU at 2
     dense layers of full width in f32, and on the reduced config with
     deepseek-v3's head dims (MLA, sigmoid routing, a shared expert),
-    routing equal; the kernel's yardsticks at the prefill shape.  Returns
-    the instantiation's entry of the kernels line."""
+    routing equal; the kernel's yardsticks at the prefill shape
+    (``_mla_fwd_yardstick``).  Returns the instantiation's entry of the
+    kernels line."""
     import dataclasses
 
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.core import roofline
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import mla, registry
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed + 20)
 
-    def normal(shape, dt):
-        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev, dt)
-
-    # -- the kernel against its plain version -------------------------------------------
-    worst = 0.0
-    for label, b, sq, skv, h, causal, q_offset, dtype in MLA_FORMS:
-        dt = getattr(torch, dtype)
-        q, k, v = normal((b, sq, h, 192), dt), normal((b, skv, h, 192), dt), \
-            normal((b, skv, h, 128), dt)
-        got = fa.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
-        want = fa.flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset)
-        torch.cuda.synchronize()
-        atol, rtol = fa.kernel_tolerance(dt)
-        diff = torch.abs(got.float() - want.float())
-        err = diff.max().item()
-        ok = (got.shape == (b, sq, h, 128) and bool(torch.isfinite(got.float()).all())
-              and bool((diff <= atol + rtol * torch.abs(want.float())).all()))
-        worst = max(worst, err)
-        _emit({"check": "kernel_vs_plain", "kernel": "flash_attention", "form": f"mla {label}",
-               "shape": [b, sq, skv, h, h, 192, 128], "causal": causal, "q_offset": q_offset,
-               "dtype": dtype, "max_abs_err": err, "atol": atol, "rtol": rtol, "ok": ok})
-        if not ok:
-            failures.append(f"flash_attention (192, 128) vs plain {label}: err {err}")
-        del q, k, v, got, want, diff
+    # -- the kernel against its plain version, on MLA's parts -----------------------------
+    worst = _mla_fwd_checks(rng, failures)
 
     # -- the main path: full width, 3 dense + 1 MoE layer -----------------------------------
     cfg = dataclasses.replace(get_config(MLA_ARCH), n_layers=MLA_LAYERS)
@@ -2942,54 +2979,16 @@ def _mla_phase(seed: int, hw, failures: list[str]) -> dict:
         failures)
 
     # -- yardsticks at the prefill shape ------------------------------------------------
-    b, s, h = LM_BATCH, LM_PROMPT, cfg.n_heads
-    d, dv = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, cfg.v_head_dim
-    bf16 = torch.bfloat16
-    q, k, v = normal((b, s, h, d), bf16), normal((b, s, h, d), bf16), normal((b, s, h, dv), bf16)
-    kernel_ms = _time_ms(lambda: fa.flash_attention(q, k, v), reps=20)
-    kernel_graph_ms = _graph_ms(lambda: fa.flash_attention(q, k, v))
-    plain_ms = _time_ms(lambda: fa.flash_attention_plain(q, k, v), reps=3, warmup=1)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-        qt, kt, vt, is_causal=True)
-    library = {"library_ms": None, "library_graph_ms": None, "library_backend": None,
-               "library_max_abs_diff": None, "library_refused": None}
-    try:
-        out_lib = sdpa()
-    except RuntimeError as e:  # SDPA may refuse a value head other than the key head's
-        library["library_refused"] = str(e)[:300]
-    else:
-        # the backend SDPA dispatches these inputs to (PyTorch's own choice)
-        backend = torch._fused_sdp_choice(qt, kt, vt, None, 0.0, True)
-        library.update(
-            library_ms=_time_ms(sdpa, reps=20), library_graph_ms=_graph_ms(sdpa),
-            library_backend=torch.nn.attention.SDPBackend(backend).name,
-            library_max_abs_diff=torch.abs(out_lib.transpose(1, 2).float()
-                                           - fa.flash_attention(q, k, v).float()).max().item())
-        del out_lib
-    bound = roofline.attention_bound(batch=b, sq=s, skv=s, hq=h, hkv=h, d=d, dv=dv, dtype=bf16,
-                                     hw=hw) if hw is not None else None
-    executed = fa.executed_flops(b, s, s, h, h, d, dv=dv)
-    _emit({"yardstick": f"flash_attention bf16 causal B={b} S={s} H={h} G=1 D={d} Dv={dv}",
-           "kernel_ms": kernel_ms, "kernel_graph_ms": kernel_graph_ms, "plain_ms": plain_ms,
-           **library, "timing": "*_ms: eager calls; *_graph_ms: CUDA graph of 20 calls",
-           "library_call": "F.scaled_dot_product_attention(is_causal=True) on (B, H, S, D|Dv)",
-           "flops": None if bound is None else bound.flops,
-           "bytes": None if bound is None else bound.bytes,
-           "bound_ms": None if bound is None else bound.bound_s * 1e3,
-           "bound_by": None if bound is None else bound.bound_by,
-           "ops_bound_ms": None if bound is None else bound.compute_s * 1e3,
-           "bound_share": None if bound is None else bound.bound_s * 1e3 / kernel_ms,
-           "executed_flops": executed, "executed_TFLOPs": executed / kernel_ms / 1e9})
-    return {"launches": launches, "max_abs_err": worst, "ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": None if bound is None else bound.bound_s * 1e3,
-            "bound_by": None if bound is None else bound.bound_by,
-            "library_ms": library["library_ms"]}
+    row = _mla_fwd_yardstick(LM_BATCH, LM_PROMPT, cfg.n_heads, rng, hw, failures)
+    return {"launches": launches, "max_abs_err": worst, "ms": row["kernel_ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
 
 
 def _mla_train(seed: int, hw, failures: list[str]) -> tuple[dict, int]:
     """MLA training on the card.  The flash backward at (D, Dv) = (192, 128)
-    against its plain version in MLA_BWD_FORMS (each twice, bitwise); then
+    through its split entry on MLA's parts against its plain version in
+    MLA_BWD_FORMS (``_mla_bwd_checks``: each twice, bitwise); then
     ``train.loop.train`` on deepseek-v3 at full width, cut to its 3 dense
     layers and the MTP layer (MLA_TRAIN_REDUCED; f32 master weights and
     moments, bf16 compute, remat) through ``_train_main_path`` (7 flash
@@ -3014,7 +3013,7 @@ def _mla_train(seed: int, hw, failures: list[str]) -> tuple[dict, int]:
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed + 23)
-    max_err = _bwd_checks(rng, failures, forms=MLA_BWD_FORMS)
+    max_err = _mla_bwd_checks(rng, failures)
     base = get_config(MLA_ARCH)
     cfg = dataclasses.replace(base, n_layers=MLA_TRAIN_LAYERS, n_dense_layers=MLA_TRAIN_LAYERS)
     print(f"reduced: {json.dumps(MLA_TRAIN_REDUCED)}")
@@ -3059,14 +3058,368 @@ def _mla_train(seed: int, hw, failures: list[str]) -> tuple[dict, int]:
     _resume_check("mla train resume", mla.with_kernel_heads(base.reduced()), seed, failures)
 
     # -- yardsticks at the training shape -----------------------------------------------
-    d, dv = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, cfg.v_head_dim
-    row = _bwd_yardstick(MLA_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, cfg.n_heads, cfg.n_heads,
-                         d, True, rng, hw, failures, dv=dv)
+    row = _mla_bwd_yardstick(TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, rng, hw, failures)
     return ({"launches": bwd, "launches_per_step": bwd / TRAIN_STEPS, "max_abs_err": max_err,
              "ms": row["kernel_ms"], "kernel_graph_ms": row["kernel_graph_ms"],
              "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
              "bound_by": row["bound_by"], "library_ms": row["library_ms"],
              "library_backend": row["library_backend"]}, fwd)
+
+
+def _flash_yardsticks(seed: int, hw, failures: list[str]) -> None:
+    """The flash rows of PERF.md's kernels table alone, at the shapes the
+    full run times them: row 5 (qwen3-4b's prefill, B=4, S=1,024, Hq=32,
+    Hkv=8, D=128) and 5b (its training, B=2), 5-64 (granite-moe's heads),
+    5-mla (deepseek-v3's prefill at (192, 128)) and 5b-mla (its training);
+    then the FLASH_ROWS line.  Run on two checkouts in one call (parent,
+    change, change, parent) it compares them on one card."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+
+    rng = np.random.default_rng(seed + 24)
+    for arch, row in (("qwen3-4b", "5 D=128"), (MOE_ARCH, "5-64")):
+        fwd, bwd = _head_yardsticks(arch, rng, hw, failures)
+        FLASH_ROWS[row] = {key: fwd.get(key) for key in FLASH_ROW_KEYS if key in fwd}
+        FLASH_ROWS[row.replace("5", "5b", 1)] = {key: bwd.get(key) for key in FLASH_ROW_KEYS
+                                                 if key in bwd}
+    h = get_config(MLA_ARCH).n_heads
+    _mla_fwd_yardstick(LM_BATCH, LM_PROMPT, h, rng, hw, failures)
+    _mla_bwd_yardstick(TRAIN_BATCH, TRAIN_SEQ, h, rng, hw, failures)
+    _emit({"flash_rows": FLASH_ROWS})
+    _emit({"flash_digests": _flash_digests(seed)})
+
+
+# the digest forms: (label, dtype, batch, seq, hq, hkv, d, dv), causal
+DIGEST_FORMS = [
+    ("bf16 D=128 G=4", "bfloat16", 2, 512, 16, 4, 128, 128),
+    ("bf16 D=64 G=2", "bfloat16", 2, 333, 8, 4, 64, 64),
+    ("bf16 D=32 G=1", "bfloat16", 1, 200, 4, 4, 32, 32),
+    ("f32 D=128 G=4", "float32", 1, 300, 8, 2, 128, 128),
+    ("f32 D=192 Dv=128 G=1", "float32", 1, 256, 4, 4, 192, 128),
+]
+
+
+def _flash_digests(seed: int) -> dict[str, str]:
+    """The first 16 hex digits of a sha256 over the flash kernels' results
+    in each form of DIGEST_FORMS (causal, inputs from ``seed``): the
+    forward's out and lse, the backward's dq, dk and dv.  Two checkouts
+    that print the same digest for a form give the same bits there."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    rng = np.random.default_rng(seed + 99)
+    digests = {}
+    for label, dtype, b, s, hq, hkv, d, dv in DIGEST_FORMS:
+        dt = getattr(torch, dtype)
+        q, k, v, dout = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(
+            "cuda", dt) for shape in ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, dv),
+                                      (b, s, hq, dv)))
+        out, lse = fa._forward(q, k, v, causal=True, q_chunk=512, kv_chunk=1024, q_offset=0,
+                               with_lse=True)
+        grads = fa.flash_attention_bwd(q, k, v, out, dout, lse)
+        digest = hashlib.sha256()
+        for t in (out, lse, *grads):
+            digest.update(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        digests[label] = digest.hexdigest()[:16]
+    return digests
+
+
+def _mla_parts(rng, b, sq, skv, h, rope_heads, dt, *, dout: bool = False) -> list:
+    """MLA's attention parts on the card as ``models/mla.py`` makes them:
+    q_nope a view of a 192-wide q projection (its rope columns beside it),
+    q_rope, k_nope, k_rope of ``rope_heads`` heads (MLA's one shared
+    channel, or one a head), v; and dout."""
+    import numpy as np
+    import torch
+
+    def normal(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to("cuda", dt)
+
+    parts = [normal(b, sq, h, 192)[..., :128], normal(b, sq, h, 64), normal(b, skv, h, 128),
+             normal(b, skv, rope_heads, 64), normal(b, skv, h, 128)]
+    return parts + [normal(b, sq, h, 128)] * dout
+
+
+def _mla_fwd_checks(rng, failures: list[str]) -> float:
+    """The flash forward's split entry (``flash_attention_split``, the
+    kernel on MLA's parts in place) against the plain version on the
+    concatenated q and k in every form of MLA_FORMS, within
+    ``kernel_tolerance``, and the same bits twice.  Returns the largest
+    absolute error."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    worst = 0.0
+    for label, b, sq, skv, h, hr, causal, q_offset, dtype in MLA_FORMS:
+        dt = getattr(torch, dtype)
+        parts = _mla_parts(rng, b, sq, skv, h, hr, dt)
+        got = fa.flash_attention_split(*parts, causal=causal, q_offset=q_offset)
+        again = fa.flash_attention_split(*parts, causal=causal, q_offset=q_offset)
+        q, k = fa._joined(*parts[:4])
+        want = fa.flash_attention_plain(q, k, parts[4], causal=causal, q_offset=q_offset)
+        torch.cuda.synchronize()
+        atol, rtol = fa.kernel_tolerance(dt)
+        diff = torch.abs(got.float() - want.float())
+        err = diff.max().item()
+        ok = (got.shape == (b, sq, h, 128) and bool(torch.isfinite(got.float()).all())
+              and bool((diff <= atol + rtol * torch.abs(want.float())).all())
+              and torch.equal(got, again))
+        worst = max(worst, err)
+        _emit({"check": "kernel_vs_plain", "kernel": "flash_attention_split",
+               "form": f"mla {label}", "shape": [b, sq, skv, h, hr, 192, 128], "causal": causal,
+               "q_offset": q_offset, "dtype": dtype, "max_abs_err": err, "atol": atol,
+               "rtol": rtol, "bitwise_twice": torch.equal(got, again), "ok": ok})
+        if not ok:
+            failures.append(f"flash_attention_split (192, 128) vs plain {label}: err {err}")
+        del parts, got, again, q, k, want, diff
+    return worst
+
+
+def _mla_bwd_checks(rng, failures: list[str]) -> float:
+    """The flash backward's split entry (``flash_attention_split_bwd``)
+    against the plain backward on the concatenated q and k, split the same
+    way, in every form of MLA_BWD_FORMS: the five gradients (dq's two
+    parts, dk_nope, dk_rope, dv) within ``kernel_tolerance`` scaled to each
+    one's largest magnitude; each form twice, bitwise; the forward's out
+    with lse against without it (bitwise) and its lse against the plain
+    version's (1e-5 + 1e-5 relative).  Returns the largest absolute error."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    worst = 0.0
+    names = ("dq_nope", "dq_rope", "dk_nope", "dk_rope", "dv")
+    for label, b, sq, skv, h, hr, causal, q_offset, dtype in MLA_BWD_FORMS:
+        dt = getattr(torch, dtype)
+        *parts, dout = _mla_parts(rng, b, sq, skv, h, hr, dt, dout=True)
+        kw = dict(causal=causal, q_chunk=512, kv_chunk=1024, q_offset=q_offset)
+        bare, _ = fa._split_forward(*parts, with_lse=False, **kw)
+        out, lse = fa._split_forward(*parts, with_lse=True, **kw)
+        q, k = fa._joined(*parts[:4])
+        _, lse_plain = fa.flash_attention_plain(q, k, parts[4], return_lse=True, **kw)
+        got = fa.flash_attention_split_bwd(*parts, out, dout, lse, causal=causal,
+                                           q_offset=q_offset)
+        again = fa.flash_attention_split_bwd(*parts, out, dout, lse, causal=causal,
+                                             q_offset=q_offset)
+        dq, dk, dv = fa.flash_attention_bwd_plain(q, k, parts[4], out, dout, lse, **kw)
+        want = (*fa._split_grads(dq, dk.float(), 64, hr), dv)  # dk_rope's heads summed in f32
+        torch.cuda.synchronize()
+        atol, rtol = fa.kernel_tolerance(dt)
+        row = {"check": "kernel_vs_plain", "kernel": "flash_attention_split_bwd", "form": label,
+               "shape": [b, sq, skv, h, hr, 192, 128], "causal": causal, "q_offset": q_offset,
+               "dtype": dtype, "atol": atol, "rtol_of_max": rtol}
+        ok = True
+        for name, g, w, t in zip(names, got, want, parts):
+            err, scale = (g.float() - w.float()).abs().max().item(), w.float().abs().max().item()
+            row[f"{name}_share_of_limit"] = err / (atol + rtol * scale)
+            ok = (ok and err <= atol + rtol * scale and g.shape == t.shape
+                  and bool(torch.isfinite(g.float()).all()))
+            worst = max(worst, err)
+        row["bitwise_twice"] = all(torch.equal(x, y) for x, y in zip(got, again))
+        row["out_bitwise_with_lse"] = torch.equal(out, bare)
+        lse_diff = (lse - lse_plain).abs()
+        row["lse_max_abs_err"] = lse_diff.max().item()
+        lse_ok = bool((lse_diff <= 1e-5 + 1e-5 * lse_plain.abs()).all())
+        row["ok"] = ok and row["bitwise_twice"] and row["out_bitwise_with_lse"] and lse_ok
+        _emit(row)
+        if not row["ok"]:
+            failures.append(f"flash_attention_split_bwd vs plain {label}: {row}")
+        del parts, dout, bare, out, lse, lse_plain, got, again, want, q, k, dq, dk, dv
+    return worst
+
+
+def _timed_in_turns(row: dict, forms: dict, reps: int, graph: bool, rounds: int = 3) -> None:
+    """Each form of ``forms`` (name -> call) timed in ``rounds`` turns, the
+    forms alternating within a turn, so that a card that warms over the row
+    weighs on every form alike: ``<form>_kernel_ms`` the median of the
+    turns (eager calls), ``<form>_kernel_ms_turns`` each, and with
+    ``graph`` ``<form>_kernel_graph_ms`` the median of CUDA graphs timed in
+    the same turns."""
+    import statistics
+
+    eager = {form: [] for form in forms}
+    graphs = {form: [] for form in forms}
+    for _ in range(rounds):
+        for form, fn in forms.items():
+            eager[form].append(_time_ms(fn, reps=reps))
+            if graph:
+                graphs[form].append(_graph_ms(fn))
+    for form in forms:
+        row[f"{form}_kernel_ms"] = statistics.median(eager[form])
+        row[f"{form}_kernel_ms_turns"] = eager[form]
+        if graph:
+            row[f"{form}_kernel_graph_ms"] = statistics.median(graphs[form])
+
+
+def _mla_fwd_yardstick(b: int, s: int, h: int, rng, hw, failures: list[str]) -> dict:
+    """The flash forward at MLA's prefill shape (bf16, causal, G = 1,
+    (192, 128)): the split entry on MLA's parts (k_rope one channel: the
+    main path's call) and ``flash_attention`` on the concatenated 192-wide
+    q and k (the call earlier PRs timed), each against the plain version,
+    timed in eager calls and in a CUDA graph beside the plain version, SDPA
+    (the backend it picks, or ``library_refused``) and the bounds: the
+    split form's, where k's rope channel is read once (``shared_k``), and
+    the concatenated form's.  Without ``flash_attention_split`` (a tree
+    from before it) the concatenated form alone.  Emits the row, records
+    it in FLASH_ROWS and returns it."""
+    import torch
+
+    from repro_torch.core import roofline
+    from repro_torch.kernels import flash_attention as fa
+
+    bf16 = torch.bfloat16
+    d, dv = 192, 128
+    atol, rtol = fa.kernel_tolerance(bf16)
+    parts = _mla_parts(rng, b, s, s, h, 1, bf16)
+    split = hasattr(fa, "flash_attention_split")
+    q = torch.cat(parts[:2], dim=-1)
+    k = torch.cat([parts[2], parts[3].expand(b, s, h, 64)], dim=-1)
+    v = parts[4]
+    want = fa.flash_attention_plain(q, k, v)
+    forms = {"concat": lambda: fa.flash_attention(q, k, v)}
+    if split:
+        forms["split"] = lambda: fa.flash_attention_split(*parts)
+    row = {"yardstick": f"flash_attention bf16 causal B={b} S={s} H={h} G=1 D={d} Dv={dv}"}
+    ok = True
+    for form, fn in forms.items():
+        diff = (fn().float() - want.float()).abs()
+        good = bool((diff <= atol + rtol * want.float().abs()).all())
+        ok = ok and good
+        row[f"{form}_max_abs_err"] = diff.max().item()
+    _timed_in_turns(row, forms, reps=20, graph=True)
+    main = "split" if split else "concat"
+    row["kernel_ms"], row["kernel_graph_ms"] = row[f"{main}_kernel_ms"], \
+        row[f"{main}_kernel_graph_ms"]
+    row["plain_ms"] = _time_ms(lambda: fa.flash_attention_plain(q, k, v), reps=3, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=True)
+    row.update(library_ms=None, library_graph_ms=None, library_backend=None,
+               library_max_abs_diff=None, library_refused=None)
+    try:
+        out_lib = sdpa()
+    except RuntimeError as e:  # SDPA may refuse a value head other than the key head's
+        row["library_refused"] = str(e)[:300]
+    else:
+        # the backend SDPA dispatches these inputs to (PyTorch's own choice)
+        backend = torch._fused_sdp_choice(qt, kt, vt, None, 0.0, True)
+        row.update(library_ms=_time_ms(sdpa, reps=20), library_graph_ms=_graph_ms(sdpa),
+                   library_backend=torch.nn.attention.SDPBackend(backend).name,
+                   library_max_abs_diff=(out_lib.transpose(1, 2).float()
+                                         - want.float()).abs().max().item())
+        del out_lib
+    row["library_call"] = "F.scaled_dot_product_attention(is_causal=True) on (B, H, S, D|Dv)"
+    if hw is not None:
+        for form, shared in (("concat", 0), ("split", 64))[:len(forms)]:
+            extra = {"shared_k": shared} if shared else {}
+            bound = roofline.attention_bound(batch=b, sq=s, skv=s, hq=h, hkv=h, d=d, dv=dv,
+                                             dtype=bf16, hw=hw, **extra)
+            row[f"{form}_bytes"], row[f"{form}_bound_ms"] = bound.bytes, bound.bound_s * 1e3
+            row[f"{form}_bound_by"] = bound.bound_by
+        row["flops"], row["ops_bound_ms"] = bound.flops, bound.compute_s * 1e3
+    row["bound_ms"] = row.get(f"{main}_bound_ms")
+    row["bound_by"] = row.get(f"{main}_bound_by")
+    row["bound_share"] = None if row["bound_ms"] is None else row["bound_ms"] / row["kernel_ms"]
+    executed = fa.executed_flops(b, s, s, h, h, d, dv=dv)
+    row.update(executed_flops=executed, executed_TFLOPs=executed / row["kernel_ms"] / 1e9,
+               ok=ok, timing="*_ms: eager calls; *_graph_ms: CUDA graph of 20 calls")
+    _emit(row)
+    FLASH_ROWS["5-mla"] = {key: row.get(key) for key in FLASH_ROW_KEYS + (
+        "split_kernel_ms", "concat_kernel_ms", "concat_bound_ms") if key in row}
+    if not ok:
+        failures.append(f"flash_attention at {row['yardstick']}: {row}")
+    return row
+
+
+def _mla_bwd_yardstick(b: int, s: int, h: int, rng, hw, failures: list[str]) -> dict:
+    """The flash backward at MLA's training shape (bf16, causal, G = 1,
+    (192, 128)): the split entry on MLA's parts (the main path's call) and
+    ``flash_attention_bwd`` on the concatenated q and k (the call earlier
+    PRs timed), each against the plain backward within
+    ``kernel_tolerance`` of each gradient's max and the same bits twice;
+    timed in eager calls (the split entry also in a CUDA graph) beside the
+    plain version, SDPA's backward (by backend) and the bounds (the split
+    form's, k's rope channel and its gradient moved once); the three
+    kernels' device ms by name (delta, dK/dV, dQ).  Without the split entry
+    the concatenated form alone.  Emits the row, records it in FLASH_ROWS
+    and returns it."""
+    import torch
+
+    from repro_torch.core import roofline
+    from repro_torch.kernels import flash_attention as fa
+
+    bf16 = torch.bfloat16
+    d, dv = 192, 128
+    atol, rtol = fa.kernel_tolerance(bf16)
+    *parts, dout = _mla_parts(rng, b, s, s, h, 1, bf16, dout=True)
+    split = hasattr(fa, "flash_attention_split")
+    q = torch.cat(parts[:2], dim=-1)
+    k = torch.cat([parts[2], parts[3].expand(b, s, h, 64)], dim=-1)
+    v = parts[4]
+    o, lse = fa._forward(q, k, v, causal=True, q_chunk=512, kv_chunk=1024, q_offset=0,
+                         with_lse=True)
+    dq, dk, dv_want = fa.flash_attention_bwd_plain(q, k, v, o, dout, lse)
+    forms = {"concat": (lambda: fa.flash_attention_bwd(q, k, v, o, dout, lse),
+                        (dq, dk, dv_want))}
+    if split:
+        forms["split"] = (lambda: fa.flash_attention_split_bwd(*parts, o, dout, lse),
+                          (*fa._split_grads(dq, dk.float(), 64, 1), dv_want))
+    row = {"yardstick": f"flash_attention_bwd bf16 causal B={b} S={s} H={h} G=1 D={d} Dv={dv}"}
+    ok = True
+    for form, (fn, want) in forms.items():
+        got, again = fn(), fn()
+        shares = [(g.float() - w.float()).abs().max().item()
+                  / (atol + rtol * w.float().abs().max().item()) for g, w in zip(got, want)]
+        twice = all(torch.equal(x, y) for x, y in zip(got, again))
+        ok = ok and max(shares) <= 1.0 and twice
+        row[f"{form}_share_of_limit"], row[f"{form}_bitwise_twice"] = shares, twice
+        del got, again
+    _timed_in_turns(row, {form: fn for form, (fn, _) in forms.items()}, reps=30, graph=False)
+    main = "split" if split else "concat"
+    fn = forms[main][0]
+    row["kernel_ms"], row["kernel_graph_ms"] = row[f"{main}_kernel_ms"], _graph_ms(fn)
+    split_ms = _profile(lambda: [fn() for _ in range(10)], top=3)["top_kernels"]
+    row["kernel_split_ms"] = {name: ms / count for name, ms, count in split_ms}
+    row["plain_ms"] = _time_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, o, dout, lse),
+                               reps=3, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    backend = torch.nn.attention.SDPBackend(torch._fused_sdp_choice(
+        qt, kt, vt, None, 0.0, True)).name
+    o_lib = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    sdpa_bwd = lambda: torch.autograd.grad(o_lib, (qt, kt, vt), dout.transpose(1, 2),  # noqa: E731
+                                           retain_graph=True)
+    row.update(library_ms=_time_ms(sdpa_bwd, reps=50), library_backend=backend,
+               library_call="backward of F.scaled_dot_product_attention(is_causal=True) "
+                            "(torch.autograd.grad)")
+    if hw is not None:
+        for form, shared in (("concat", 0), ("split", 64))[:len(forms)]:
+            extra = {"shared_k": shared} if shared else {}
+            bound = roofline.attention_bwd_bound(batch=b, sq=s, skv=s, hq=h, hkv=h, d=d, dv=dv,
+                                                 dtype=bf16, hw=hw, **extra)
+            row[f"{form}_bytes"], row[f"{form}_bound_ms"] = bound.bytes, bound.bound_s * 1e3
+            row[f"{form}_bytes_ms"] = bound.memory_s * 1e3
+            row[f"{form}_bound_by"] = bound.bound_by
+        row["flops"], row["ops_bound_ms"] = bound.flops, bound.compute_s * 1e3
+    row["bound_ms"] = row.get(f"{main}_bound_ms")
+    row["bound_by"] = row.get(f"{main}_bound_by")
+    row["bound_share"] = None if row["bound_ms"] is None else row["bound_ms"] / row["kernel_ms"]
+    executed = fa.bwd_executed_flops(b, s, s, h, h, d, dv=dv)
+    row.update(executed_flops=executed, executed_TFLOPs=executed / row["kernel_ms"] / 1e9,
+               own_floor_ms=None if hw is None else executed / hw.peak_flops_bf16 * 1e3,
+               kernel_vs_library=row["kernel_ms"] / row["library_ms"], ok=ok,
+               timing="*_ms: eager calls; kernel_graph_ms: CUDA graph of 20 calls")
+    _emit(row)
+    FLASH_ROWS["5b-mla"] = {key: row.get(key) for key in FLASH_ROW_KEYS + (
+        "split_kernel_ms", "concat_kernel_ms", "concat_bound_ms") if key in row}
+    if not ok:
+        failures.append(f"flash_attention_bwd at {row['yardstick']}: {row}")
+    return row
 
 
 def _pipeline_phase(seed: int, failures: list[str]) -> dict[str, float]:

@@ -269,12 +269,15 @@ def attention_bound(
     dtype: torch.dtype = torch.bfloat16,
     hw: HardwareSpec | None = None,
     dv: int | None = None,
+    shared_k: int = 0,
 ) -> SU3Roofline:
     """Bound of one attention call: q, k (head dim D), v and o (Dv; None:
     D) read and written once each, against 2 (D + Dv) flops (QK^T and PV, a
     multiply and an add each) for every visible (query, key) pair of every
     query head, at the peak of ``dtype`` (bf16: tensor cores; f32: CUDA
-    cores).
+    cores).  ``shared_k`` of k's D columns are one channel that every kv
+    head shares (MLA's rope part, 64, given apart): read once, not once a
+    head.
 
     Raises:
         LookupError: when no spec is given and the card is unknown.
@@ -289,7 +292,8 @@ def attention_bound(
         name=f"attention_b{batch}_q{sq}_k{skv}_h{hq}/{hkv}_d{d}" + ("" if dv == d else f"_dv{dv}"),
         hw=hw,
         flops=2.0 * batch * hq * (d + dv) * pairs,
-        bytes=float(word * batch * (sq * hq * (d + dv) + skv * hkv * (d + dv))),
+        bytes=float(word * batch * (sq * hq * (d + dv)
+                                    + skv * (hkv * (d - shared_k + dv) + shared_k))),
         peak_flops=hw.peak_flops_bf16 if dtype == torch.bfloat16 else hw.peak_flops_fp32,
     )
 
@@ -307,12 +311,15 @@ def attention_bwd_bound(
     dtype: torch.dtype = torch.bfloat16,
     hw: HardwareSpec | None = None,
     dv: int | None = None,
+    shared_k: int = 0,
 ) -> SU3Roofline:
     """Bound of one attention backward: q, k (head dim D), v, out, dout (Dv;
     None: D) and the f32 lse read once, dq, dk (D) and dv (Dv) written once,
     against five products per visible (query, key) pair of every query
     head: S = Q K^T recomputed, dQ = dS K and dK = dS^T Q of 2 D flops each,
     dP = dO V^T and dV = P^T dO of 2 Dv each, at the peak of ``dtype``.
+    ``shared_k`` of k's D columns are one channel shared by every kv head
+    (MLA's rope part): it and its gradient move once, not once a head.
 
     Raises:
         LookupError: when no spec is given and the card is unknown.
@@ -328,6 +335,8 @@ def attention_bwd_bound(
             "" if dv == d else f"_dv{dv}"),
         hw=hw,
         flops=2.0 * batch * hq * (3 * d + 2 * dv) * pairs,
-        bytes=float(word * batch * (sq * hq + skv * hkv) * 2 * (d + dv) + 4 * batch * hq * sq),
+        bytes=float(word * batch * 2 * (sq * hq * (d + dv)
+                                        + skv * (hkv * (d - shared_k + dv) + shared_k))
+                    + 4 * batch * hq * sq),
         peak_flops=hw.peak_flops_bf16 if dtype == torch.bfloat16 else hw.peak_flops_fp32,
     )

@@ -11,7 +11,9 @@
 //   q_offset); an online softmax with f32 statistics; out = acc / max(l,
 //   1e-37), rounded once to q's type, (B, Sq, Hq, Dv).  Dv = D at D in
 //   {32, 64, 128}; MLA's prefill (src/repro/models/mla.py apply) calls it at
-//   D = 192 (nope 128 + rope 64), Dv = 128, with G = 1 (see tc::Fwd).
+//   D = 192 (nope 128 + rope 64), Dv = 128, with G = 1, on a concatenated q
+//   and k; here MLA's prefill and training pass the parts instead
+//   (flash_attention_mla_fwd, tc::flash_mla_fwd).
 //
 // What bounds it on this card: operations.  At the prefill shape (B=4,
 // Sq=Skv=1024, Hq=32, Hkv=8, D=128, causal) a layer needs 4*B*Hq*D flops per
@@ -19,8 +21,10 @@
 // rate (989 TFLOP/s, H100 SXM) and 0.51 ms at the FP32 CUDA-core rate
 // (67 TFLOP/s), against 84 MB of q, k, v and o (0.025 ms at 3.35 TB/s).
 // MLA's prefill (B=4, S=1024, H=128, G=1, D=192, Dv=128) is bound by bytes:
-// 671 MB of q, k, v and o (every head has its own k and v), 0.200 ms at
-// 3.35 TB/s, against 2*(D+Dv) flops a visible pair, 0.174 ms at 989 TFLOP/s.
+// 604.5 MB of q, k_nope, v and o (every head has its own) and k's one rope
+// channel, 0.180 ms at 3.35 TB/s (671 MB, 0.200 ms, where k's rope part is
+// copied to every head), against 2*(D+Dv) flops a visible pair, 0.174 ms
+// at 989 TFLOP/s.
 //
 // Two bodies, chosen by the storage type:
 //
@@ -32,11 +36,12 @@
 //    the (B, S, H) strides: the GQA group is never copied.
 //  * Three warpgroups: a producer that keeps K and V tiles of 128 keys
 //    coming by TMA into a ring of three shared-memory stages (full and
-//    empty mbarriers; 230,448 B at D=128 with Q, one block per SM; two
-//    stages at D=192, Dv=128: 214,048 B, see tc::Fwd), and two
+//    empty mbarriers; 230,448 B at D=128 with Q, one block per SM), and two
 //    consumers of 64 rows each (wgmma's M), which take the producer's
 //    registers (setmaxnreg).  The consumers bring Q in once by cp.async
-//    into the same 128-byte swizzle.
+//    into the same 128-byte swizzle.  At D=192, Dv=128 a persistent block
+//    per SM walks a list of (head, row tile) items instead, Q loaded by TMA
+//    beside two K and two V stages (214,096 B; tc::flash_mla_fwd).
 //  * Per key tile, each consumer issues one batch: O += P V of the previous
 //    tile, then S = Q K^T (wgmma, bf16 operands from shared memory, f32
 //    accumulators), then runs the online softmax of S while the other
@@ -344,27 +349,17 @@ struct Tile {
   static constexpr uint64_t kLayout = kSwizzle == 128 ? 1 : 2;  // wgmma's swizzle code
 };
 
-// The forward's block at (D, Dv): Q and K tiles of D (Tile<D>), V tiles of
-// Dv (Tile<Dv>), K/V tiles in flight, and its shared memory: aligned Q, the
-// K and V stages, then the full and empty barriers.
-//
-// Dv != D is MLA's prefill (D = 192: nope 128 + rope 64; Dv = 128).  At
-// three stages of 128 keys its block would take 1 KB + Q 48 KB + 3 x (K 48
-// KB + V 32 KB) = 289 KB, past the 227 KB a block may have.  It keeps 128
-// keys a tile and takes two stages (209 KB): the tile's products, the
-// consumers' registers (S of 128 keys, P in two bf16 parts, O of Dv = 128)
-// and the online softmax are those of D = 128, and only the QK^T batch
-// grows, to 12 k16 steps.  Three stages of 64 keys (169 KB) would halve
-// each wgmma's N and double the turns and barriers per key.  With two
-// stages the producer loads tile t + 1 while the consumers run the
-// softmax of tile t; K and V of one head are read by every row tile of
-// the head, mostly from L2.
+// The forward's block at D = Dv: Q, K and V tiles of D (Tile<D>), K/V tiles
+// in flight, and its shared memory: aligned Q, the K and V stages, then the
+// full and empty barriers.  MLA's (192, 128) has a block of its own (MlaFwd,
+// flash_mla_fwd below): three stages of its 48 KB K and 32 KB V tiles beside
+// a 48 KB Q would take 289 KB, past the 227 KB a block may have.
 template <int D, int Dv>
 struct Fwd {
   using K = Tile<D>;
   using V = Tile<Dv>;
-  static_assert(K::kSwizzle == V::kSwizzle, "K and V share one TMA swizzle");
-  static constexpr int kStages = D == Dv ? 3 : 2;
+  static_assert(D == Dv, "(192, 128) is MlaFwd");
+  static constexpr int kStages = 3;
   static constexpr int kSmem =
       kAlign + K::kTileBytes + kStages * (K::kTileBytes + V::kTileBytes) + 16 * kStages;
 };
@@ -860,6 +855,267 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tmk, const __grid_constan
   }
 }
 
+// -- MLA's (192, 128): a persistent block over work items ------------------------
+//
+// MLA decompresses one K and V per head (G = 1) and builds the 192-wide q
+// and k from two parts: nope (128) and rope (64), where k's rope part is one
+// channel shared by every head.  flash_mla_fwd reads them where MLA makes
+// them: box 0-1 of a Q or K tile (64 columns each, Tile<192>) come from the
+// nope tensor's TMA map and box 2 from the rope tensor's, at head 0 of a
+// rope tensor with one head.  The contiguous 192-wide form is the same
+// kernel on views.
+//
+// One block per SM walks a fixed list of work items (batch * head, tile of
+// 128 query rows): chunks of `chunk` heads, in a chunk every head's heaviest
+// row tile first, then the next.  Block j takes items j, j + grid, ...; the
+// host picks the chunk that balances the blocks' causal work (mla_chunk), and
+// the heads of a chunk run together, so their K and V come from L2: one
+// block per (head, row tile) in head-fastest order read each head's K and V
+// once per row tile from device memory (about 1.5 GB at the prefill shape,
+// 2.4x the bytes the function moves).  The producer's TMA ring runs on
+// across items: K and V have their own stages and barriers, so K of tile
+// t + 1 loads once S = Q K^T of tile t is done, while P V of tile t still
+// reads V_t.  Q has its own full/empty pair: the producer loads the next
+// item's Q once both consumers have issued their last Q K^T, so that load
+// and the next item's first K tiles run under this item's last softmax, its
+// P V and its O store.  Per item the consumers run tc::flash_attention_tc's
+// loop (ping-pong on the tensor cores, P in two bf16 parts, the mask only
+// where a tile holds an invisible key): the same arithmetic, the same bits.
+struct MlaFwd {
+  using K = Tile<192>;
+  using V = Tile<128>;
+  static constexpr int kStages = 2;  // K tiles in flight, and V tiles
+  // aligned Q, the K and V rings, then the full and empty barriers of each K
+  // and V stage and of Q: 214,096 B
+  static constexpr int kSmem =
+      kAlign + K::kTileBytes + kStages * (K::kTileBytes + V::kTileBytes) + 8 * (4 * kStages + 2);
+};
+
+struct MlaParams {
+  int heads, rope_heads, sq, skv, q_offset;
+  int n_rt, n_bh, chunk, n_items;  // row tiles a head, batch * heads, the work list
+  float scale;
+  long long os[3];  // o's element strides of (batch, seq, head)
+  float* lse;       // (batch, heads, sq) f32, or null
+};
+
+// Work item `item`: batch * head `bh` and its row tile's first row and key
+// tiles (the causal ones up to the last that its last row sees).
+struct MlaItem {
+  int b, h, row0, n_tiles;
+};
+
+template <bool kCausal>
+__device__ __forceinline__ MlaItem mla_item(const MlaParams& p, int item) {
+  const int per = p.chunk * p.n_rt;  // items of a whole chunk
+  const int c = item / per, j = item % per;
+  const int heads = min(p.chunk, p.n_bh - c * p.chunk);  // the last chunk may hold fewer
+  const int bh = c * p.chunk + j % heads;
+  MlaItem it;
+  it.b = bh / p.heads;
+  it.h = bh % p.heads;
+  it.row0 = (p.n_rt - 1 - j / heads) * kRows;  // heaviest first
+  it.n_tiles = (p.skv + kKeys - 1) / kKeys;
+  if (kCausal) {
+    const int last_row = min(it.row0 + kRows, p.sq) - 1;
+    it.n_tiles = min(it.n_tiles, (last_row + p.q_offset) / kKeys + 1);
+  }
+  return it;
+}
+
+template <bool kCausal>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_mla_fwd(const __grid_constant__ CUtensorMap tmqn, const __grid_constant__ CUtensorMap tmqr,
+              const __grid_constant__ CUtensorMap tmkn, const __grid_constant__ CUtensorMap tmkr,
+              const __grid_constant__ CUtensorMap tmv, __nv_bfloat16* __restrict__ o,
+              const MlaParams p) {
+  using T = MlaFwd::K;
+  using TV = MlaFwd::V;
+  constexpr int kStages = MlaFwd::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + kAlign - 1) & ~static_cast<uint32_t>(kAlign - 1);
+  const uint32_t q_s = base;
+  const uint32_t k_s = q_s + T::kTileBytes;              // kStages K tiles
+  const uint32_t v_s = k_s + kStages * T::kTileBytes;    // kStages V tiles
+  const uint32_t k_full = v_s + kStages * TV::kTileBytes;
+  const uint32_t k_empty = k_full + 8 * kStages;
+  const uint32_t v_full = k_empty + 8 * kStages;
+  const uint32_t v_empty = v_full + 8 * kStages;
+  const uint32_t q_full = v_empty + 8 * kStages, q_empty = q_full + 8;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full + 8 * s, 1);   // the producer's arrival, plus the bytes
+      mbar_init(k_empty + 8 * s, 8);  // one arrival per consumer warp
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(v_empty + 8 * s, 8);
+    }
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, 8);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // -- producer: per item Q, then K_0, (K_u, V_{u-1}) for u >= 1, V_{n-1} ------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      int done = 0;  // K and V tiles loaded before this item (as many of each)
+      for (int ic = 0; blockIdx.x + ic * gridDim.x < p.n_items; ++ic) {
+        const MlaItem it = mla_item<kCausal>(p, blockIdx.x + ic * gridDim.x);
+        // two boxes of the nope map, then one of the rope map
+        auto load3 = [&](uint32_t dst, const CUtensorMap* nope, const CUtensorMap* rope,
+                         uint32_t bar, int row, int head_rope) {
+          tma_load(dst, nope, bar, 0, it.h, row, it.b);
+          tma_load(dst + T::kBoxBytes, nope, bar, T::kBoxCols, it.h, row, it.b);
+          tma_load(dst + 2 * T::kBoxBytes, rope, bar, 0, head_rope, row, it.b);
+        };
+        auto load_k = [&](int t) {
+          const int s = (done + t) % kStages;
+          mbar_wait(k_empty + 8 * s, (((done + t) / kStages) & 1) ^ 1);  // stage released
+          mbar_expect_tx(k_full + 8 * s, T::kTileBytes);
+          load3(k_s + s * T::kTileBytes, &tmkn, &tmkr, k_full + 8 * s, t * kKeys,
+                p.rope_heads == 1 ? 0 : it.h);
+        };
+        auto load_v = [&](int t) {
+          const int s = (done + t) % kStages;
+          mbar_wait(v_empty + 8 * s, (((done + t) / kStages) & 1) ^ 1);
+          mbar_expect_tx(v_full + 8 * s, TV::kTileBytes);
+#pragma unroll
+          for (int i = 0; i < TV::kBoxes; ++i) {
+            tma_load(v_s + s * TV::kTileBytes + i * TV::kBoxBytes, &tmv, v_full + 8 * s,
+                     i * TV::kBoxCols, it.h, t * kKeys, it.b);
+          }
+        };
+        mbar_wait(q_empty, (ic & 1) ^ 1);  // the previous item's last Q K^T is done
+        mbar_expect_tx(q_full, T::kTileBytes);
+        load3(q_s, &tmqn, &tmqr, q_full, it.row0, it.h);
+        load_k(0);
+        for (int t = 1; t < it.n_tiles; ++t) {
+          load_k(t);
+          load_v(t - 1);
+        }
+        load_v(it.n_tiles - 1);
+        done += it.n_tiles;
+      }
+    }
+  } else {
+    // -- consumer c: rows row0 + 64c .. row0 + 64c + 63 of each item ---------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int c = threadIdx.x / 128 - 1, tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int r = 16 * warp + lane / 4;  // this thread's rows r and r + 8 of the 64
+    // K and V tiles taken before this item (an item takes as many of each:
+    // tile t of the item is K and V number done + t, stage (done + t) % 2)
+    int done = 0;
+    for (int ic = 0; blockIdx.x + ic * gridDim.x < p.n_items; ++ic) {
+      int n_tiles, wg_row0;
+      {
+        const MlaItem it = mla_item<kCausal>(p, blockIdx.x + ic * gridDim.x);
+        n_tiles = it.n_tiles;
+        wg_row0 = it.row0 + 64 * c;
+      }
+      // a row sees keys below min(Skv, its position + 1) (causal) or Skv; rows
+      // past the end take the last row's position
+      auto lim_of = [&](int f) {
+        const int pos = min(f, p.sq - 1) + p.q_offset;
+        return kCausal ? min(p.skv, pos + 1) : p.skv;
+      };
+      const Tc<192, 128> tcx{q_s + 64 * c * T::kSwizzle, k_s, v_s,
+                             {lim_of(wg_row0 + r), lim_of(wg_row0 + r + 8)}, lim_of(wg_row0),
+                             lane, p.scale * 1.4426950408889634f};
+      float acc[64], sc[kKeys / 2], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+      uint32_t hi[kKeys / 16][4], lo[kKeys / 16][4];  // p of the previous tile
+      auto softmax = [&](int key0) {
+        if (key0 + kKeys > tcx.min_lim) {
+          tcx.template softmax<true>(sc, m, l, alpha, hi, lo, key0);
+        } else {
+          tcx.template softmax<false>(sc, m, l, alpha, hi, lo, key0);
+        }
+      };
+      auto stage = [&](int i) { return (done + i) % kStages; };
+      auto parity = [&](int i) { return static_cast<uint32_t>((done + i) / kStages) & 1; };
+
+      mbar_wait(q_full, ic & 1);
+      if (c == 1) turn_pass(1);  // warpgroup 0 takes the first turn
+      // Tile 0: S_0 and its softmax.  Tile t: P_{t-1} V_{t-1} and S_t in one
+      // batch; then the softmax of S_t, and the accumulator rescaled.
+      mbar_wait(k_full + 8 * stage(0), parity(0));
+      turn_wait(c);
+      wgmma_fence();
+      tcx.issue_qk(sc, stage(0));
+      wgmma_commit();
+      turn_pass(c);
+      wgmma_wait<0>();
+      fence_regs(sc);
+      if (lane == 0) {
+        mbar_arrive(k_empty + 8 * stage(0));     // this warp is done with K_0
+        if (n_tiles == 1) mbar_arrive(q_empty);  // and with Q
+      }
+      softmax(0);
+      for (int t = 1; t < n_tiles; ++t) {
+        mbar_wait(v_full + 8 * stage(t - 1), parity(t - 1));
+        mbar_wait(k_full + 8 * stage(t), parity(t));
+        turn_wait(c);
+        wgmma_fence();
+        tcx.issue_pv(acc, hi, lo, stage(t - 1));
+        tcx.issue_qk(sc, stage(t));
+        wgmma_commit();
+        turn_pass(c);
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_regs(sc);
+        if (lane == 0) {
+          mbar_arrive(k_empty + 8 * stage(t));
+          mbar_arrive(v_empty + 8 * stage(t - 1));
+          if (t == n_tiles - 1) mbar_arrive(q_empty);
+        }
+        softmax(t * kKeys);
+#pragma unroll
+        for (int i = 0; i < 64; ++i) acc[i] *= alpha[i / 2 % 2];
+      }
+      mbar_wait(v_full + 8 * stage(n_tiles - 1), parity(n_tiles - 1));
+      turn_wait(c);
+      wgmma_fence();
+      tcx.issue_pv(acc, hi, lo, stage(n_tiles - 1));
+      wgmma_commit();
+      if (c == 0) turn_pass(c);  // the last turn of warpgroup 1 has no taker
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (lane == 0) mbar_arrive(v_empty + 8 * stage(n_tiles - 1));
+      done += n_tiles;
+
+      // out = acc / max(l, 1e-37), rounded once to bf16; rows past Sq unstored.
+      // The item's batch and head, decoded again here, are not held in
+      // registers across its loop.
+      const MlaItem it = mla_item<kCausal>(p, blockIdx.x + ic * gridDim.x);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+        const int qi = it.row0 + 64 * c + r + 8 * h;
+        if (qi >= p.sq) continue;
+        __nv_bfloat16* orow =
+            o + it.b * p.os[0] + qi * p.os[1] + it.h * p.os[2] + 2 * (lane % 4);
+        const float inv = 1.f / fmaxf(l[h], 1e-37f);
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+              __floats2bfloat162_rn(acc[4 * j + 2 * h] * inv, acc[4 * j + 2 * h + 1] * inv);
+        }
+        // m is a max of raw q . k: scaled here, as the exponent scales it
+        if (p.lse != nullptr && lane % 4 == 0) {
+          p.lse[(static_cast<long long>(it.b) * p.heads + it.h) * p.sq + qi] =
+              m[h] * p.scale + logf(l[h]);
+        }
+      }
+    }
+  }
+}
+
 }  // namespace tc
 
 // -- backward: CUDA cores ----------------------------------------------------------
@@ -902,6 +1158,11 @@ struct Params {
   float scale;
   // element strides of (batch, seq, head): q k v o dout dq dk dv
   long long qs[3], ks[3], vs[3], os[3], dos[3], dqs[3], dks[3], dvs[3];
+  // bf16 body at (192, 128): q's and k's rope parts, read apart from their
+  // nope parts (qs, ks); k's has rope_heads heads, 1 (krs[2] = 0: one rope
+  // channel serves every head) or hkv
+  long long qrs[3], krs[3];
+  int rope_heads;
   const float* lse;  // (batch, hq, sq), the forward's
   // f32 body: (batch, hq, sq), written by flash_bwd_delta.  bf16 body: two
   // planes of (batch * hkv, rows_pad) f32, lse * log2(e) then delta, each
@@ -978,6 +1239,44 @@ flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout, const Param
   } else {
     p.delta[at] = acc;
   }
+}
+
+// The bf16 body's delta pass at MLA's (192, 128), G = 1 (a folded row is a
+// query, a row tile of 64 its 64 slots): the planes of flash_bwd_delta<bf16,
+// 128, true>, with each row's 128 columns of dO and O read as 16 threads of
+// 16 bytes (two rows a warp) where flash_bwd_delta reads them 2 bytes a lane
+// (a row a warp); each thread sums its 8 products, then the 16 threads.
+constexpr int kMlaDeltaRows = kThreads / 16;  // rows a block
+
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_delta_mla(const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
+                    const Params p) {
+  const long long plane = static_cast<long long>(p.batch) * p.hkv * p.rows_pad;
+  const long long row = static_cast<long long>(blockIdx.x) * kMlaDeltaRows + threadIdx.x / 16;
+  const int part = threadIdx.x % 16;  // columns 8 part .. 8 part + 7
+  if (row >= plane) return;  // the row's 16 threads leave together
+  const int i = static_cast<int>(row % p.rows_pad), bh = static_cast<int>(row / p.rows_pad);
+  const int b = bh / p.hkv, h = bh % p.hkv;
+  float acc = 0.f;
+  if (i < p.sq) {
+    const uint4 x = *reinterpret_cast<const uint4*>(o + b * p.os[0] + i * p.os[1] + h * p.os[2] +
+                                                    8 * part);
+    const uint4 y = *reinterpret_cast<const uint4*>(dout + b * p.dos[0] + i * p.dos[1] +
+                                                    h * p.dos[2] + 8 * part);
+    const uint32_t xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {  // a bf16 widens to f32 by a shift or a mask
+      acc = fmaf(__uint_as_float(ys[j] << 16), __uint_as_float(xs[j] << 16), acc);
+      acc = fmaf(__uint_as_float(ys[j] & 0xffff0000u), __uint_as_float(xs[j] & 0xffff0000u), acc);
+    }
+  }
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off, 16);
+  if (part != 0) return;
+  const bool real = i < p.sq;  // slots past the queries hold zeros
+  p.delta[row] = real ? p.lse[(static_cast<long long>(b) * p.hkv + h) * p.sq + i] * 1.4426950408889634f
+                      : 0.f;
+  p.delta[plane + row] = real ? acc : 0.f;
 }
 
 // Folded rows row0 .. row0 + kRows - 1 of a (B, S, H, D) tensor (row f:
@@ -1289,14 +1588,19 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 //    loop over row tiles replaces the sum across blocks: no atomics.
 //    Registers: the producer keeps 24, the consumers take 240 (dK and dV
 //    128 accumulators at D=128, S^T and dP^T 64, the bf16 parts of P^T and
-//    dS^T 64).  At (D, Dv) = (192, 128) dK holds 96 and dV 64: dK's
-//    product runs at wgmma's N = 192, dV's at 128, and three row tiles are
-//    in flight instead of four (tcb::Dkdv).
+//    dS^T 64).
+//  * flash_bwd_dkdv_mla at MLA's (192, 128), G = 1: dK (96 accumulators)
+//    and dV (64) of 64 keys do not fit one consumer beside a row tile's
+//    products; one block per key tile, whose consumers split the products
+//    (tcb::MlaDkdv).  q and k are read as nope and rope parts.
 //  * flash_bwd_dq_tc: one block per (batch * kv head, 128 folded rows),
 //    heaviest first; Q and dO by cp.async once, K and V tiles of 128 keys
 //    (64 at (192, 128), tcb::Dq) by TMA into a ring of two; per tile
 //    S = Q K^T and dP = dO V^T (wgmma_ss, m64n128 or m64n64), dS in
 //    registers, dQ += dS K (wgmma_rs on both parts of dS, K MN-major).
+//    flash_bwd_dq_mla is the same at (192, 128) on q and k as nope and rope
+//    parts, the row tiles of a head neighbouring blocks, so its K and V come
+//    from L2.
 //  * Precision: the products of bf16 operands are exact and summed in f32;
 //    D^-1/2 scales the f32 score inside the exponent (c = D^-1/2 log2 e) and
 //    dK, dQ in f32 at the end; P and dS are each split into hi = bf16(x)
@@ -1330,10 +1634,10 @@ __host__ __device__ constexpr long long plane_slots(long long rows, int g) {
 // The dK/dV block at (D, Dv): Q and K tiles of D, V and dO tiles of Dv, and
 // its shared memory: aligned K and V of both consumers, kStages Q and dO
 // tiles, their lse and delta, then the full and empty barriers.  kStages
-// row tiles are in flight, one producer warp each: four where Dv = D; three
-// at MLA's (192, 128), where four would take 1 KB + K and V 80 KB + 4 x (Q
-// 24 KB + dO 16 KB + 512 B) = 243 KB, past the 227 KB of a block (three:
-// 203 KB).
+// row tiles are in flight, one producer warp each.  It serves Dv = D; since
+// PR 24 MLA's (192, 128) runs MlaDkdv / flash_bwd_dkdv_mla, and the Dv != D
+// branches below (PR 23's three stages and two slices, which spilled) are
+// built no more: the D = Dv kernels keep PR 23's code as it was.
 template <int D, int Dv>
 struct Dkdv {
   using TK = Tile<D>;
@@ -1341,12 +1645,7 @@ struct Dkdv {
   static_assert(TK::kSwizzle == TV::kSwizzle, "Q/K and V/dO share one swizzle");
   static constexpr int kStages = D == Dv ? 4 : 3;
   static_assert(kStages <= 4, "one producer warp per stage");
-  // Row slices a consumer takes a Q/dO tile in: S^T, dP^T and the bf16
-  // parts of P^T and dS^T of one slice at a time.  At (192, 128) dK and dV
-  // hold 160 f32 accumulators a thread; with the whole tile's S^T, dP^T (64)
-  // and their parts (64) beside them the consumer spilled about three times
-  // what two slices of 32 rows leave (104-112 bytes of stack: PERF.md, row
-  // 5b-mla); four slices of 16 spilled a little less and ran slower.
+  // Row slices a consumer takes a Q/dO tile in (one at D = Dv)
   static constexpr int kSlices = D == Dv ? 1 : 2;
   static constexpr int kSliceRows = kRows / kSlices;
   static constexpr int kSliceK = kSliceRows / 16;  // k-slices of 16 rows in a slice
@@ -1356,6 +1655,34 @@ struct Dkdv {
   static constexpr int kStats = 2 * kRows * 4;       // lse * log2 e and delta, f32
   static constexpr int kSmem = tc::kAlign + 2 * (kTileK + kTileV) +
                                kStages * (kTileK + kTileV + kStats) + 16 * kStages;
+};
+
+// dK/dV at MLA's (192, 128), G = 1 (flash_bwd_dkdv_mla): one block per
+// (batch * head, key tile of 64), whose two consumers split the work by
+// product instead of by keys.  Consumer 0 holds dV (64 accumulators a
+// thread) and computes S^T = K Q^T, P^T and dV += P^T dO; consumer 1 holds
+// dK (96) and computes dP^T = V dO^T, dS^T = P^T (dP^T - delta) and dK +=
+// dS^T Q, taking P^T in f32 from consumer 0 through shared memory (each
+// thread the values of its own accumulator positions: the two products'
+// layouts are one).  A block that held dK and dV of 64 keys in each
+// consumer (PR 23's pairs of key tiles) kept 160 accumulators a thread
+// beside a row tile's S^T and dP^T and spilled in every arrangement tried;
+// here the larger consumer keeps 96 + dP^T (32) + dS^T's parts (32).  A
+// Q/dO row tile now serves 64 keys, not 128, and its loads come from L2:
+// the key tiles of a head are neighbouring blocks, heaviest (key tile 0)
+// first.  Shared memory: K and V of the 64 keys, four stages of a Q (192)
+// and a dO (128) row tile of 64 with their statistics, P^T (f32), barriers.
+struct MlaDkdv {
+  using TK = Tile<192>;
+  using TV = Tile<128>;
+  static constexpr int kStages = 4;  // row tiles in flight, one producer warp each
+  static constexpr int kBox = kRows * TK::kSwizzle;  // one box of 64 rows
+  static constexpr int kTileK = TK::kBoxes * kBox;   // 64 rows of 192 (K, Q)
+  static constexpr int kTileV = TV::kBoxes * kBox;   // 64 rows of 128 (V, dO)
+  static constexpr int kStats = 2 * kRows * 4;       // lse * log2 e and delta, f32
+  static constexpr int kPBytes = kKeys * kRows * 4;  // P^T of a row tile, f32
+  static constexpr int kSmem = tc::kAlign + kTileK + kTileV +
+                               kStages * (kTileK + kTileV + kStats) + kPBytes + 16 * kStages;
 };
 
 // The dQ block at (D, Dv): aligned Q (D) and dO (Dv) of 128 rows, kStages K
@@ -1672,6 +1999,247 @@ flash_bwd_dkdv_tc(const __grid_constant__ CUtensorMap tmq,
   }
 }
 
+// P^T = 2^(S^T c - lse2) of a row tile in place of S^T (kK k-slices of 16
+// rows), 0 where a key is invisible (kMask: kept where its column lies in
+// [lo[h], hi_col)), and its two bf16 parts as A fragments (tile_grads'
+// layout).
+template <bool kMask, int kK>
+__device__ __forceinline__ void tile_probs(float (&st)[8 * kK], Frags<kK>& pf, const float* lse2,
+                                           float c, int lane, const int (&lo)[2], int hi_col) {
+#pragma unroll
+  for (int kk = 0; kk < kK; ++kk) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {  // columns 16kk + 8 half + 2 (lane % 4) + {0, 1}
+      const int col = 16 * kk + 8 * half + 2 * (lane % 4);
+      const float2 l2 = *reinterpret_cast<const float2*>(lse2 + col);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int j = 2 * half + h, i = 8 * kk + 2 * j, e = 16 * kk + 8 * half;
+        float p0 = prob(st[i], c, l2.x), p1 = prob(st[i + 1], c, l2.y);
+        if (kMask) {
+          p0 = e >= lo[h] && e < hi_col ? p0 : 0.f;
+          p1 = e + 1 >= lo[h] && e + 1 < hi_col ? p1 : 0.f;
+        }
+        st[i] = p0;
+        st[i + 1] = p1;
+        split_bf16(p0, p1, pf.hi[kk][j], pf.lo[kk][j]);
+      }
+    }
+  }
+}
+
+template <bool kCausal>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkdv_mla(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ CUtensorMap tmqr,
+                   const __grid_constant__ CUtensorMap tmdo, const __nv_bfloat16* __restrict__ k,
+                   const __nv_bfloat16* __restrict__ k_rope, const __nv_bfloat16* __restrict__ v,
+                   __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                   const bwd::Params p) {
+  using S = MlaDkdv;
+  using TK = S::TK;
+  using TV = S::TV;
+  constexpr int kStages = S::kStages, kK = kRows / 16;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = tc::smem_addr(smem_raw);
+  const uint32_t base = (raw + tc::kAlign - 1) & ~static_cast<uint32_t>(tc::kAlign - 1);
+  const uint32_t k_s = base;                         // K of the block's 64 keys
+  const uint32_t v_s = k_s + S::kTileK;              // and their V
+  const uint32_t q_s = v_s + S::kTileV;              // kStages Q tiles
+  const uint32_t do_s = q_s + kStages * S::kTileK;   // kStages dO tiles
+  const uint32_t p_s = do_s + kStages * S::kTileV;   // P^T, consumer 0 -> consumer 1
+  const uint32_t st_s = p_s + S::kPBytes;            // kStages (lse2, delta) of 64 rows
+  const uint32_t full = st_s + kStages * S::kStats;  // kStages barriers, then
+  const uint32_t empty = full + 8 * kStages;         // kStages more
+  const float* stats = reinterpret_cast<const float*>(smem_raw + (st_s - raw));
+  float* pt = reinterpret_cast<float*>(smem_raw + (p_s - raw));
+
+  const int bh = blockIdx.y, b = bh / p.hkv, hk = bh % p.hkv;
+  const int key0 = blockIdx.x * kKeys;  // key tile 0, the heaviest, first
+  const int rows = p.sq;                // G = 1: a folded row is a query
+  const int n_rt = (rows + kRows - 1) / kRows;
+  const int t0 = first_tile(p, kCausal, key0, n_rt);  // the first row tile that sees a key
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      tc::mbar_init(full + 8 * s, 1);   // the producer's arrival, plus the bytes
+      tc::mbar_init(empty + 8 * s, 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // -- producer: warp w fills stage w with row tiles t0 + w, t0 + w + kStages, ...
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    const int w = threadIdx.x / 32;
+    if (threadIdx.x % 32 == 0 && w < kStages) {
+      const float* stat = p.delta + static_cast<long long>(bh) * p.rows_pad;
+      const long long plane = static_cast<long long>(p.batch) * p.hkv * p.rows_pad;
+      for (int t = t0 + w, u = 0; t < n_rt; t += kStages, ++u) {
+        tc::mbar_wait(empty + 8 * w, (u & 1) ^ 1);  // stage released
+        tc::mbar_expect_tx(full + 8 * w, kRows * (192 + 128) * 2 + S::kStats);
+        const int i0 = t * kRows;
+#pragma unroll
+        for (int i = 0; i < TK::kBoxes; ++i) {  // boxes 0-1 from q's nope part, 2 from its rope
+          tma_load_rows(q_s + w * S::kTileK + i * S::kBox, i < 2 ? &tmq : &tmqr, full + 8 * w,
+                        i < 2 ? i * TK::kBoxCols : 0, hk, i0, b);
+        }
+#pragma unroll
+        for (int i = 0; i < TV::kBoxes; ++i) {
+          tma_load_rows(do_s + w * S::kTileV + i * S::kBox, &tmdo, full + 8 * w,
+                        i * TV::kBoxCols, hk, i0, b);
+        }
+        bulk_load(st_s + w * S::kStats, stat + t * kRows, kRows * 4, full + 8 * w);
+        bulk_load(st_s + w * S::kStats + kRows * 4, stat + plane + t * kRows, kRows * 4,
+                  full + 8 * w);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int c = threadIdx.x / 128 - 1, tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32;
+  const int r = 16 * warp + lane / 4;  // this thread's keys: r and r + 8 of the 64
+  if (c == 0) {  // K: its nope part into boxes 0-1, its rope part into box 2
+    tc::load_rows<128>(k_s, S::kBox, k, p.ks, b, hk, 1, key0, kKeys, p.skv, tid, 128);
+    tc::load_rows<64>(k_s + 2 * S::kBox, S::kBox, k_rope, p.krs, b, hk, 1, key0, kKeys, p.skv,
+                      tid, 128);
+  } else {
+    tc::load_rows<128>(v_s, S::kBox, v, p.vs, b, hk, 1, key0, kKeys, p.skv, tid, 128);
+  }
+  tc::cp_async_publish();
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
+
+  if (c == 0) {
+    // -- consumer 0: S^T = K Q^T, P^T (to consumer 1), dV += P^T dO -----------------
+    // the first row that sees each of this thread's keys; rows at or past
+    // `full_from` see every key of the tile
+    int first[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int key = key0 + r + 8 * h;
+      first[h] = key < p.skv ? first_row(p, kCausal, key) : rows;
+    }
+    const int full_from = first_row(p, kCausal, key0 + kKeys - 1);
+    const bool ragged = key0 + kKeys > p.skv;
+    const float cexp = p.scale * 1.4426950408889634f;
+    float dvv[64], st[kRows / 2];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dvv[i] = 0.f;
+    Frags<kK> pf;
+    for (int t = t0, u = 0; t < n_rt; ++t, ++u) {
+      const int s = u % kStages, row0 = t * kRows;
+      const uint32_t q_t = q_s + s * S::kTileK, do_t = do_s + s * S::kTileV;
+      tc::mbar_wait(full + 8 * s, (u / kStages) & 1);
+      tc::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 192 / 16; ++kk) {
+        tc::wgmma_ss(st, tc::desc_k<192>(k_s, kk, S::kBox), tc::desc_k<192>(q_t, kk, S::kBox),
+                     kk > 0);
+      }
+      tc::wgmma_commit();
+      tc::wgmma_wait<0>();
+      tc::fence_regs(st);
+      const float* lse2 = stats + s * (S::kStats / 4);
+      const int col0 = row0 + 2 * (lane % 4);
+      if (ragged || row0 + kRows > rows || row0 < full_from) {
+        const int lo[2] = {first[0] - col0, first[1] - col0};
+        tile_probs<true>(st, pf, lse2, cexp, lane, lo, min(rows, row0 + kRows) - col0);
+      } else {
+        const int none[2] = {0, 0};
+        tile_probs<false>(st, pf, lse2, cexp, lane, none, 0);
+      }
+      // hand P^T to consumer 1 once it has read the previous tile's (named
+      // barrier 6), then signal it (5)
+      if (u > 0) asm volatile("bar.sync 6, 256;\n" ::: "memory");
+#pragma unroll
+      for (int i = 0; i < kRows / 2; ++i) pt[i * 128 + tid] = st[i];
+      __threadfence_block();
+      asm volatile("bar.arrive 5, 256;\n" ::: "memory");
+      tc::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kK; ++kk) tc::wgmma_rs(dvv, pf.hi[kk], tc::desc_mn<128>(do_t, kk, S::kBox));
+#pragma unroll
+      for (int kk = 0; kk < kK; ++kk) tc::wgmma_rs(dvv, pf.lo[kk], tc::desc_mn<128>(do_t, kk, S::kBox));
+      tc::wgmma_commit();
+      tc::wgmma_wait<0>();
+      tc::fence_regs(dvv);
+      if (lane == 0) tc::mbar_arrive(empty + 8 * s);  // this warp is done with the stage
+    }
+    // dV, rounded once to bf16; keys past Skv unstored
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int key = key0 + r + 8 * h;
+      if (key >= p.skv) continue;
+      __nv_bfloat16* vrow = dv + b * p.dvs[0] + key * p.dvs[1] + hk * p.dvs[2] + 2 * (lane % 4);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(vrow + 8 * j) =
+            __floats2bfloat162_rn(dvv[4 * j + 2 * h], dvv[4 * j + 2 * h + 1]);
+      }
+    }
+  } else {
+    // -- consumer 1: dP^T = V dO^T, dS^T = P^T (dP^T - delta), dK += dS^T Q ----------
+    float dkv[96], dpt[kRows / 2];
+#pragma unroll
+    for (int i = 0; i < 96; ++i) dkv[i] = 0.f;
+    Frags<kK> dsf;
+    for (int t = t0, u = 0; t < n_rt; ++t, ++u) {
+      const int s = u % kStages;
+      const uint32_t q_t = q_s + s * S::kTileK, do_t = do_s + s * S::kTileV;
+      tc::mbar_wait(full + 8 * s, (u / kStages) & 1);
+      tc::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 128 / 16; ++kk) {
+        tc::wgmma_ss(dpt, tc::desc_k<128>(v_s, kk, S::kBox), tc::desc_k<128>(do_t, kk, S::kBox),
+                     kk > 0);
+      }
+      tc::wgmma_commit();
+      tc::wgmma_wait<0>();
+      tc::fence_regs(dpt);
+      const float* dl = stats + s * (S::kStats / 4) + kRows;
+      asm volatile("bar.sync 5, 256;\n" ::: "memory");  // P^T of this tile is there
+#pragma unroll
+      for (int kk = 0; kk < kK; ++kk) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {  // columns 16kk + 8 half + 2 (lane % 4) + {0, 1}
+          const float2 de = *reinterpret_cast<const float2*>(dl + 16 * kk + 8 * half + 2 * (lane % 4));
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int j = 2 * half + h, i = 8 * kk + 2 * j;
+            split_bf16(pt[i * 128 + tid] * (dpt[i] - de.x),
+                       pt[(i + 1) * 128 + tid] * (dpt[i + 1] - de.y), dsf.hi[kk][j],
+                       dsf.lo[kk][j]);
+          }
+        }
+      }
+      // consumer 0 may write the next tile's P^T (none follows the last)
+      if (t + 1 < n_rt) asm volatile("bar.arrive 6, 256;\n" ::: "memory");
+      tc::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kK; ++kk) tc::wgmma_rs(dkv, dsf.hi[kk], tc::desc_mn<192>(q_t, kk, S::kBox));
+#pragma unroll
+      for (int kk = 0; kk < kK; ++kk) tc::wgmma_rs(dkv, dsf.lo[kk], tc::desc_mn<192>(q_t, kk, S::kBox));
+      tc::wgmma_commit();
+      tc::wgmma_wait<0>();
+      tc::fence_regs(dkv);
+      if (lane == 0) tc::mbar_arrive(empty + 8 * s);
+    }
+    // dK = D^-1/2 dS^T Q, rounded once to bf16; keys past Skv unstored
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int key = key0 + r + 8 * h;
+      if (key >= p.skv) continue;
+      __nv_bfloat16* krow = dk + b * p.dks[0] + key * p.dks[1] + hk * p.dks[2] + 2 * (lane % 4);
+#pragma unroll
+      for (int j = 0; j < 24; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(krow + 8 * j) = __floats2bfloat162_rn(
+            dkv[4 * j + 2 * h] * p.scale, dkv[4 * j + 2 * h + 1] * p.scale);
+      }
+    }
+  }
+}
+
 template <int D, int Dv, bool kCausal>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tmk, const __grid_constant__ CUtensorMap tmv,
@@ -1842,6 +2410,189 @@ flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tmk, const __grid_constant__
   }
 }
 
+// dQ at MLA's (192, 128), G = 1: flash_bwd_dq_tc's design on q and k as
+// nope and rope parts (a K tile's box 2 from k_rope's TMA map, at head 0 for
+// one rope channel; Q's box 2 from q_rope by cp.async), with the row tiles
+// of a (batch, head) as neighbouring blocks, heaviest first, so that its K
+// and V, which each of them reads, come from L2.
+template <bool kCausal>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_mla(const __grid_constant__ CUtensorMap tmk, const __grid_constant__ CUtensorMap tmkr,
+                 const __grid_constant__ CUtensorMap tmv, const __nv_bfloat16* __restrict__ q,
+                 const __nv_bfloat16* __restrict__ q_rope, const __nv_bfloat16* __restrict__ dout,
+                 __nv_bfloat16* __restrict__ dq, const bwd::Params p) {
+  constexpr int D = 192, Dv = 128;
+  using S = Dq<D, Dv>;
+  using TK = typename S::TK;
+  using TV = typename S::TV;
+  constexpr int kDqKeys = S::kKeys, kDqStages = S::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = tc::smem_addr(smem_raw);
+  const uint32_t base = (raw + tc::kAlign - 1) & ~static_cast<uint32_t>(tc::kAlign - 1);
+  const uint32_t q_s = base;                          // 128 rows of Q
+  const uint32_t do_s = q_s + TK::kTileBytes;         // and of dO
+  const uint32_t k_s = do_s + TV::kTileBytes;         // kDqStages K tiles
+  const uint32_t v_s = k_s + kDqStages * S::kTileK;   // kDqStages V tiles
+  const uint32_t full = v_s + kDqStages * S::kTileV;  // kDqStages barriers, then
+  const uint32_t empty = full + 8 * kDqStages;        // kDqStages more
+
+  const int bh = blockIdx.y;
+  const int b = bh / p.hkv, hk = bh % p.hkv;
+  const int rows = p.sq * p.g;
+  const int row0 = (gridDim.x - 1 - blockIdx.x) * kDqRows;  // heaviest first
+  int n_tiles = (p.skv + kDqKeys - 1) / kDqKeys;
+  if (kCausal) {
+    const int last_row = min(row0 + kDqRows, rows) - 1;
+    n_tiles = min(n_tiles, (last_row / p.g + p.q_offset) / kDqKeys + 1);
+  }
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kDqStages; ++s) {
+      tc::mbar_init(full + 8 * s, 1);   // the producer's arrival, plus the bytes
+      tc::mbar_init(empty + 8 * s, 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // -- producer: K and V tiles by TMA, as the forward's ------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kDqStages;
+        tc::mbar_wait(empty + 8 * s, ((t / kDqStages) & 1) ^ 1);  // stage released
+        tc::mbar_expect_tx(full + 8 * s, S::kTileK + S::kTileV);
+#pragma unroll
+        for (int i = 0; i < TK::kBoxes; ++i) {  // box 2 from the rope part
+          const bool rope = i == TK::kBoxes - 1;
+          tc::tma_load(k_s + s * S::kTileK + i * S::kKeyBox, rope ? &tmkr : &tmk, full + 8 * s,
+                       rope ? 0 : i * TK::kBoxCols, rope && p.rope_heads == 1 ? 0 : hk, t * kDqKeys,
+                       b);
+        }
+#pragma unroll
+        for (int i = 0; i < TV::kBoxes; ++i) {
+          tc::tma_load(v_s + s * S::kTileV + i * S::kKeyBox, &tmv, full + 8 * s,
+                       i * TV::kBoxCols, hk, t * kDqKeys, b);
+        }
+      }
+    }
+  } else {
+    // -- consumer c: folded rows row0 + 64c .. row0 + 64c + 63 -------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int c = threadIdx.x / 128 - 1, tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int wg_row0 = row0 + 64 * c;
+    const uint32_t q_wg = q_s + 64 * c * TK::kSwizzle, do_wg = do_s + 64 * c * TV::kSwizzle;
+    // q's nope part into boxes 0-1, its rope part into box 2
+    tc::load_rows<D - 64>(q_wg, TK::kBoxBytes, q, p.qs, b, hk, p.g, wg_row0, 64, rows, tid, 128);
+    tc::load_rows<64>(q_wg + (TK::kBoxes - 1) * TK::kBoxBytes, TK::kBoxBytes, q_rope, p.qrs, b,
+                      hk, p.g, wg_row0, 64, rows, tid, 128);
+    tc::load_rows<Dv>(do_wg, TV::kBoxBytes, dout, p.dos, b, hk, p.g, wg_row0, 64, rows, tid, 128);
+    tc::cp_async_publish();
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
+
+    // this thread's rows r and r + 8: their statistics (zeros past the end)
+    // and the keys they see (below lim); rows past the end take the last
+    // row's position and are never stored
+    const int r = 16 * warp + lane / 4;
+    const long long plane = static_cast<long long>(p.batch) * p.hkv * p.rows_pad;
+    const float* stat = p.delta + static_cast<long long>(bh) * p.rows_pad;
+    float lse2[2] = {0.f, 0.f}, del[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int f = wg_row0 + r + 8 * h;
+      if (f < rows) {
+        lse2[h] = stat[bwd::slot_of(p, f)];
+        del[h] = stat[plane + bwd::slot_of(p, f)];
+      }
+    }
+    auto lim_of = [&](int f) {
+      const int pos = min(f, rows - 1) / p.g + p.q_offset;
+      return kCausal ? min(p.skv, pos + 1) : p.skv;
+    };
+    const int lim[2] = {lim_of(wg_row0 + r), lim_of(wg_row0 + r + 8)};
+    const int min_lim = lim_of(wg_row0);
+    const float cexp = p.scale * 1.4426950408889634f;
+
+    float dqv[D / 2], sc[kDqKeys / 2], dp[kDqKeys / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dqv[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kDqKeys / 2; ++i) sc[i] = 0.f, dp[i] = 0.f;
+    uint32_t ds_hi[kDqKeys / 16][4], ds_lo[kDqKeys / 16][4];
+
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % kDqStages, key0 = t * kDqKeys;
+      const uint32_t k_t = k_s + s * S::kTileK, v_t = v_s + s * S::kTileV;
+      tc::mbar_wait(full + 8 * s, (t / kDqStages) & 1);
+      tc::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        tc::wgmma_ss(sc, tc::desc_k<D>(q_wg, kk, TK::kBoxBytes),
+                     tc::desc_k<D>(k_t, kk, S::kKeyBox), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < Dv / 16; ++kk) {
+        tc::wgmma_ss(dp, tc::desc_k<Dv>(do_wg, kk, TV::kBoxBytes),
+                     tc::desc_k<Dv>(v_t, kk, S::kKeyBox), kk > 0);
+      }
+      tc::wgmma_commit();
+      tc::wgmma_wait<0>();
+      tc::fence_regs(sc);
+      tc::fence_regs(dp);
+      // dS = P (dP - delta), P = 2^(S c - lse log2 e) where the key is
+      // visible (masked only on tiles that hold an invisible key)
+      const bool mask = key0 + kDqKeys > min_lim;
+      int rel[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) rel[h] = lim[h] - key0 - 2 * (lane % 4);
+#pragma unroll
+      for (int kk = 0; kk < kDqKeys / 16; ++kk) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int i = 8 * kk + 2 * j, h = j % 2, e = 8 * (i / 4);
+          float p0 = prob(sc[i], cexp, lse2[h]);
+          float p1 = prob(sc[i + 1], cexp, lse2[h]);
+          if (mask) {
+            p0 = e < rel[h] ? p0 : 0.f;
+            p1 = e + 1 < rel[h] ? p1 : 0.f;
+          }
+          split_bf16(p0 * (dp[i] - del[h]), p1 * (dp[i + 1] - del[h]), ds_hi[kk][j],
+                     ds_lo[kk][j]);
+        }
+      }
+      tc::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kDqKeys / 16; ++kk) {
+        tc::wgmma_rs(dqv, ds_hi[kk], tc::desc_mn<D>(k_t, kk, S::kKeyBox));
+      }
+#pragma unroll
+      for (int kk = 0; kk < kDqKeys / 16; ++kk) {
+        tc::wgmma_rs(dqv, ds_lo[kk], tc::desc_mn<D>(k_t, kk, S::kKeyBox));
+      }
+      tc::wgmma_commit();
+      tc::wgmma_wait<0>();
+      tc::fence_regs(dqv);
+      if (lane == 0) tc::mbar_arrive(empty + 8 * s);  // this warp is done with the stage
+    }
+
+    // dQ = D^-1/2 dS K, rounded once to bf16; rows past Sq * G unstored
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int f = wg_row0 + r + 8 * h;
+      if (f >= rows) continue;
+      const int qi = f / p.g, head = hk * p.g + f % p.g;
+      __nv_bfloat16* qrow = dq + b * p.dqs[0] + qi * p.dqs[1] + head * p.dqs[2] + 2 * (lane % 4);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(qrow + 8 * j) = __floats2bfloat162_rn(
+            dqv[4 * j + 2 * h] * p.scale, dqv[4 * j + 2 * h + 1] * p.scale);
+      }
+    }
+  }
+}
+
 }  // namespace tcb
 
 // -- host ---------------------------------------------------------------------------
@@ -1869,8 +2620,15 @@ struct Body {
 template <int D, int Dv>
 Body body_d(int dtype, bool causal) {
   if (dtype == kBF16) {
-    return {pick_tc<D, Dv>(causal), tc::kThreads, tc::Fwd<D, Dv>::kSmem, tc::kRows, tc::kKeys,
-            tc::Fwd<D, Dv>::kStages, tc::Tile<D>::kSwizzle};
+    if constexpr (D != Dv) {  // MLA's (192, 128): the persistent flash_mla_fwd
+      return {causal ? reinterpret_cast<const void*>(&tc::flash_mla_fwd<true>)
+                     : reinterpret_cast<const void*>(&tc::flash_mla_fwd<false>),
+              tc::kThreads, tc::MlaFwd::kSmem, tc::kRows, tc::kKeys, tc::MlaFwd::kStages,
+              tc::MlaFwd::K::kSwizzle};
+    } else {
+      return {pick_tc<D, Dv>(causal), tc::kThreads, tc::Fwd<D, Dv>::kSmem, tc::kRows, tc::kKeys,
+              tc::Fwd<D, Dv>::kStages, tc::Tile<D>::kSwizzle};
+    }
   }
   if (dtype == kF32) {
     return {pick_causal<float, D, Dv>(causal), kThreads, 4 * smem_floats<D, Dv>(), kRows, kKeys,
@@ -1972,6 +2730,109 @@ cudaError_t row_map(CUtensorMap* map, const void* base, int d, int g, int hkv, i
   return rc == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// flash_mla_fwd's chunk of heads: the one of kChunks (at most the heads)
+// whose work list, dealt to `grid` blocks in turn, gives the least largest
+// block, counting an item as its key tiles plus half a tile (its Q load and
+// O store); the smaller chunk on a tie, whose heads' K and V stay in L2.  The
+// last few answers are kept: a model calls it at one shape again and again.
+int mla_chunk(int n_bh, int n_rt, int sq, int skv, int q_offset, bool causal, int grid) {
+  constexpr int kChunks[] = {1, 2, 4, 6, 8, 12, 16, 24, 32};
+  constexpr int kMaxGrid = 1024;
+  struct Key {
+    int n_bh, n_rt, sq, skv, q_offset, causal, grid, chunk;
+  };
+  static thread_local Key seen[8];
+  static thread_local int next = 0;
+  for (const Key& k : seen) {
+    if (k.chunk > 0 && k.n_bh == n_bh && k.n_rt == n_rt && k.sq == sq && k.skv == skv &&
+        k.q_offset == q_offset && k.causal == causal && k.grid == grid) {
+      return k.chunk;
+    }
+  }
+  int best = 16;  // past kMaxGrid blocks or 2^20 items the search is skipped
+  if (grid <= kMaxGrid && static_cast<long long>(n_bh) * n_rt <= (1 << 20)) {
+    const int key_tiles = (skv + tc::kKeys - 1) / tc::kKeys;
+    long long load[kMaxGrid], best_span = -1;
+    for (const int chunk : kChunks) {
+      if (chunk > n_bh && chunk > 1) break;
+      for (int i = 0; i < grid; ++i) load[i] = 0;
+      int blk = 0;  // the block that takes the next item
+      for (int c0 = 0; c0 < n_bh; c0 += chunk) {
+        const int heads = n_bh - c0 < chunk ? n_bh - c0 : chunk;
+        for (int rank = 0; rank < n_rt; ++rank) {
+          const int row0 = (n_rt - 1 - rank) * tc::kRows;
+          int n = key_tiles;
+          if (causal) {
+            const int last = (row0 + tc::kRows < sq ? row0 + tc::kRows : sq) - 1;
+            const int seen_tiles = (last + q_offset) / tc::kKeys + 1;
+            n = n < seen_tiles ? n : seen_tiles;
+          }
+          for (int j = 0; j < heads; ++j) {
+            load[blk] += 2 * n + 1;
+            blk = blk + 1 == grid ? 0 : blk + 1;
+          }
+        }
+      }
+      long long span = 0;
+      for (int i = 0; i < grid; ++i) span = load[i] > span ? load[i] : span;
+      if (best_span < 0 || span < best_span) best = chunk, best_span = span;
+    }
+  }
+  seen[next] = {n_bh, n_rt, sq, skv, q_offset, causal ? 1 : 0, grid, best};
+  next = (next + 1) % 8;
+  return best;
+}
+
+// MLA's bf16 attention at (192, 128), G = 1: q = [q_nope | q_rope], k =
+// [k_nope | k_rope] with k_rope of rope_heads heads (1: shared by every
+// head, or heads).  strides[18]: element strides of (batch, seq, head) of
+// q_nope, q_rope, k_nope, k_rope, v and o.
+cudaError_t launch_mla_fwd(const void* qn, const void* qr, const void* kn, const void* kr,
+                           const void* v, void* o, void* lse, int batch, int sq, int skv, int heads,
+                           int rope_heads, const long long* strides, bool causal, int q_offset,
+                           float scale, cudaStream_t stream) {
+  const Body body = body_d<192, 128>(kBF16, causal);
+  if (batch <= 0 || sq <= 0 || skv <= 0 || heads <= 0 || q_offset < 0 ||
+      (rope_heads != 1 && rope_heads != heads) ||
+      static_cast<long long>(batch) * heads * ((sq + tc::kRows - 1) / tc::kRows) > (1LL << 30)) {
+    return cudaErrorInvalidValue;
+  }
+  tc::MlaParams p;
+  p.heads = heads;
+  p.rope_heads = rope_heads;
+  p.sq = sq;
+  p.skv = skv;
+  p.q_offset = q_offset;
+  p.scale = scale;
+  for (int i = 0; i < 3; ++i) p.os[i] = strides[15 + i];
+  p.lse = static_cast<float*>(lse);
+  p.n_rt = (sq + tc::kRows - 1) / tc::kRows;
+  p.n_bh = batch * heads;
+  p.n_items = p.n_bh * p.n_rt;
+  int dev = 0, n_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int grid = n_sm < p.n_items ? n_sm : p.n_items;
+  p.chunk = mla_chunk(p.n_bh, p.n_rt, sq, skv, q_offset, causal, grid);
+  CUtensorMap tmqn, tmqr, tmkn, tmkr, tmv;
+  const int sw = tc::MlaFwd::K::kSwizzle;
+  err = kv_map(&tmqn, qn, 128, heads, sq, batch, strides, sw, tc::kRows);
+  if (err == cudaSuccess) err = kv_map(&tmqr, qr, 64, heads, sq, batch, strides + 3, sw, tc::kRows);
+  if (err == cudaSuccess) err = kv_map(&tmkn, kn, 128, heads, skv, batch, strides + 6, sw, tc::kKeys);
+  if (err == cudaSuccess) {
+    err = kv_map(&tmkr, kr, 64, rope_heads, skv, batch, strides + 9, sw, tc::kKeys);
+  }
+  if (err == cudaSuccess) err = kv_map(&tmv, v, 128, heads, skv, batch, strides + 12, sw, tc::kKeys);
+  if (err == cudaSuccess) err = prepare(body.fn, body.smem);
+  if (err != cudaSuccess) return err;
+  void* args[] = {&tmqn, &tmqr, &tmkn, &tmkr, &tmv, &o, &p};
+  err = cudaLaunchKernel(body.fn, dim3(static_cast<unsigned>(grid)), dim3(body.threads), args,
+                         body.smem, stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 // One kernel of the backward: function, dynamic shared bytes and its tiling
 // (folded rows per tile, keys per tile, tiles in flight).
 struct BwdKernel {
@@ -2008,13 +2869,23 @@ BwdBody bwd_body_tc(bool causal) {
   using Kv = tcb::Dkdv<D, Dv>;
   using Q = tcb::Dq<D, Dv>;
   BwdBody body;
-  body.delta = reinterpret_cast<const void*>(&bwd::flash_bwd_delta<__nv_bfloat16, Dv, true>);
-  body.dkdv = {causal ? reinterpret_cast<const void*>(&tcb::flash_bwd_dkdv_tc<D, Dv, true>)
-                      : reinterpret_cast<const void*>(&tcb::flash_bwd_dkdv_tc<D, Dv, false>),
-               Kv::kSmem, tcb::kRows, tcb::kKeys, Kv::kStages};
-  body.dq = {causal ? reinterpret_cast<const void*>(&tcb::flash_bwd_dq_tc<D, Dv, true>)
-                    : reinterpret_cast<const void*>(&tcb::flash_bwd_dq_tc<D, Dv, false>),
-             Q::kSmem, tcb::kDqRows, Q::kKeys, Q::kStages};
+  if constexpr (D != Dv) {  // MLA's (192, 128): its own kernels on the split operands
+    body.delta = reinterpret_cast<const void*>(&bwd::flash_bwd_delta_mla);
+    body.dkdv = {causal ? reinterpret_cast<const void*>(&tcb::flash_bwd_dkdv_mla<true>)
+                        : reinterpret_cast<const void*>(&tcb::flash_bwd_dkdv_mla<false>),
+                 tcb::MlaDkdv::kSmem, tcb::kRows, tcb::kKeys, tcb::MlaDkdv::kStages};
+    body.dq = {causal ? reinterpret_cast<const void*>(&tcb::flash_bwd_dq_mla<true>)
+                      : reinterpret_cast<const void*>(&tcb::flash_bwd_dq_mla<false>),
+               Q::kSmem, tcb::kDqRows, Q::kKeys, Q::kStages};
+  } else {
+    body.delta = reinterpret_cast<const void*>(&bwd::flash_bwd_delta<__nv_bfloat16, Dv, true>);
+    body.dkdv = {causal ? reinterpret_cast<const void*>(&tcb::flash_bwd_dkdv_tc<D, Dv, true>)
+                        : reinterpret_cast<const void*>(&tcb::flash_bwd_dkdv_tc<D, Dv, false>),
+                 Kv::kSmem, tcb::kRows, tcb::kKeys, Kv::kStages};
+    body.dq = {causal ? reinterpret_cast<const void*>(&tcb::flash_bwd_dq_tc<D, Dv, true>)
+                      : reinterpret_cast<const void*>(&tcb::flash_bwd_dq_tc<D, Dv, false>),
+               Q::kSmem, tcb::kDqRows, Q::kKeys, Q::kStages};
+  }
   body.threads = tcb::kThreads;
   body.tc = true;
   return body;
@@ -2069,9 +2940,24 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     p.os[i] = strides[9 + i];
   }
   p.lse = static_cast<float*>(lse);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == kBF16 && d != dv) {
+    // MLA's (192, 128), G = 1: flash_mla_fwd on q and k as nope and rope views
+    if (p.g != 1) return static_cast<int>(cudaErrorInvalidValue);
+    const auto* qb = static_cast<const __nv_bfloat16*>(q);
+    const auto* kb = static_cast<const __nv_bfloat16*>(k);
+    long long split[18];
+    for (int i = 0; i < 3; ++i) {
+      split[i] = split[3 + i] = strides[i];
+      split[6 + i] = split[9 + i] = strides[3 + i];
+      split[12 + i] = strides[6 + i];
+      split[15 + i] = strides[9 + i];
+    }
+    return static_cast<int>(launch_mla_fwd(qb, qb + 128, kb, kb + 128, v, o, lse, batch, sq, skv,
+                                           hq, hkv, split, causal != 0, q_offset, scale, st));
+  }
   cudaError_t err = prepare(body.fn, body.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long row_tiles = (static_cast<long long>(sq) * p.g + body.rows - 1) / body.rows;
   if (dtype == kBF16) {
     if (row_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
@@ -2092,6 +2978,24 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// MLA's attention, bf16 at (D, Dv) = (192, 128), G = 1, on `stream`, from
+// its parts: q = [q_nope (batch, sq, heads, 128) | q_rope (.., 64)], k =
+// [k_nope (batch, skv, heads, 128) | k_rope (batch, skv, rope_heads, 64)]
+// (rope_heads 1: one rope channel for every head, or heads), v (batch, skv,
+// heads, 128) -> o (batch, sq, heads, 128), and lse as flash_attention_fwd's.
+// strides[18]: element strides of (batch, seq, head) of q_nope, q_rope,
+// k_nope, k_rope, v and o (16-byte rows and bases, as TMA reads them).
+// Returns the launch's cudaError_t (0 = queued).
+extern "C" int flash_attention_mla_fwd(const void* q_nope, const void* q_rope, const void* k_nope,
+                                       const void* k_rope, const void* v, void* o, void* lse,
+                                       int batch, int sq, int skv, int heads, int rope_heads,
+                                       const long long* strides, int causal, int q_offset,
+                                       float scale, void* stream) {
+  return static_cast<int>(launch_mla_fwd(q_nope, q_rope, k_nope, k_rope, v, o, lse, batch, sq, skv,
+                                         heads, rope_heads, strides, causal != 0, q_offset, scale,
+                                         static_cast<cudaStream_t>(stream)));
 }
 
 // One instantiation's per-block budget: out = {numRegs, dynamic shared
@@ -2132,6 +3036,139 @@ extern "C" long long flash_attention_bwd_scratch(int dtype, int batch, int sq, i
   return static_cast<long long>(batch) * hq * sq;
 }
 
+namespace {
+
+// The backward's operands: q and k as a nope part (d - 64 wide at (192,
+// 128), else all of d) and a rope part (q_rope, k_rope: (192, 128) only),
+// k_rope of rope_heads heads; strides[30]: element strides of (batch, seq,
+// head) of q, k, v, o, dout, dq, dk, dv, q_rope and k_rope in that order.
+struct BwdArgs {
+  const void *q, *k, *v, *o, *dout, *lse, *q_rope, *k_rope;
+  void *delta, *dq, *dk, *dv;
+  int batch, sq, skv, hq, hkv, d, dv_dim, rope_heads;
+  const long long* strides;
+  bool causal;
+  int q_offset;
+  float scale;
+};
+
+cudaError_t launch_bwd(const BwdArgs& a, int dtype, cudaStream_t st) {
+  const BwdBody body = pick_bwd(dtype, a.d, a.dv_dim, a.causal);
+  const long long rows = static_cast<long long>(a.sq) * (a.hkv > 0 ? a.hq / a.hkv : 0);
+  const bool mla = body.tc && a.d != a.dv_dim;  // (192, 128): split operands, G = 1
+  if (body.delta == nullptr || a.batch <= 0 || a.sq <= 0 || a.skv <= 0 || a.hkv <= 0 ||
+      a.hq % a.hkv != 0 || a.q_offset < 0 || (rows + body.dq.rows - 1) / body.dq.rows > 65535 ||
+      (a.skv + body.dkdv.keys - 1) / body.dkdv.keys > 65535 ||
+      (body.tc && a.hq / a.hkv > tcb::kRows) ||
+      (mla && (a.hq != a.hkv || (a.rope_heads != 1 && a.rope_heads != a.hkv)))) {
+    return cudaErrorInvalidValue;
+  }
+  bwd::Params p;
+  p.batch = a.batch;
+  p.sq = a.sq;
+  p.skv = a.skv;
+  p.g = a.hq / a.hkv;
+  p.hkv = a.hkv;
+  p.q_offset = a.q_offset;
+  p.scale = a.scale;
+  long long* dst[10] = {p.qs, p.ks, p.vs, p.os, p.dos, p.dqs, p.dks, p.dvs, p.qrs, p.krs};
+  for (int t = 0; t < 10; ++t)
+    for (int i = 0; i < 3; ++i) dst[t][i] = a.strides[3 * t + i];
+  p.rope_heads = a.rope_heads;
+  if (a.rope_heads == 1) p.krs[2] = 0;  // every head reads the one rope channel
+  p.lse = static_cast<const float*>(a.lse);
+  p.delta = static_cast<float*>(a.delta);
+  p.rows_pad = body.tc ? static_cast<int>(tcb::plane_slots(rows, p.g)) : 0;
+  p.tile_rows = body.tc ? tcb::tile_rows(p.g) : 0;
+  const int swizzle = a.d >= 64 ? 128 : 64;  // tc::Tile<D>::kSwizzle (Tile<Dv>'s too)
+  cudaError_t err = prepare(body.dkdv.fn, body.dkdv.smem);
+  if (err == cudaSuccess) err = prepare(body.dq.fn, body.dq.smem);
+  if (err != cudaSuccess) return err;
+  const long long n_rows = body.tc ? static_cast<long long>(a.batch) * a.hkv * p.rows_pad
+                                   : static_cast<long long>(a.batch) * a.sq * a.hq;
+  void* delta_args[] = {const_cast<void**>(&a.o), const_cast<void**>(&a.dout), &p};
+  const int delta_rows = mla ? bwd::kMlaDeltaRows : bwd::kDeltaRows;  // rows a block
+  err = cudaLaunchKernel(
+      body.delta, dim3(static_cast<unsigned>((n_rows + delta_rows - 1) / delta_rows)),
+      dim3(bwd::kThreads), delta_args, 0, st);
+  if (err != cudaSuccess) return err;
+  // dK/dV: one block per (batch * kv head, key tile), or pair of key tiles
+  // in the tensor-core body; at (192, 128) one per key tile, those of a
+  // head side by side
+  const int key_tiles = (a.skv + body.dkdv.keys - 1) / body.dkdv.keys;
+  const unsigned bh = static_cast<unsigned>(a.batch * a.hkv);
+  const unsigned kv_tiles = static_cast<unsigned>(body.tc && !mla ? (key_tiles + 1) / 2
+                                                                  : key_tiles);
+  const dim3 kv_grid = mla ? dim3(kv_tiles, bh) : dim3(bh, kv_tiles);
+  const int nope = mla ? a.d - 64 : a.d;  // q's and k's columns in their first part
+  if (mla) {
+    CUtensorMap tmq, tmqr, tmdo;
+    err = row_map(&tmq, a.q, nope, p.g, a.hkv, a.sq, a.batch, a.strides, swizzle);
+    if (err == cudaSuccess) {
+      err = row_map(&tmqr, a.q_rope, 64, p.g, a.hkv, a.sq, a.batch, a.strides + 24, swizzle);
+    }
+    if (err == cudaSuccess) {
+      err = row_map(&tmdo, a.dout, a.dv_dim, p.g, a.hkv, a.sq, a.batch, a.strides + 12, swizzle);
+    }
+    if (err != cudaSuccess) return err;
+    void* dkdv_args[] = {&tmq, &tmqr, &tmdo, const_cast<void**>(&a.k),
+                         const_cast<void**>(&a.k_rope), const_cast<void**>(&a.v),
+                         const_cast<void**>(&a.dk), const_cast<void**>(&a.dv), &p};
+    err = cudaLaunchKernel(body.dkdv.fn, kv_grid, dim3(body.threads), dkdv_args, body.dkdv.smem,
+                           st);
+  } else if (body.tc) {
+    CUtensorMap tmq, tmdo;
+    err = row_map(&tmq, a.q, a.d, p.g, a.hkv, a.sq, a.batch, a.strides, swizzle);
+    if (err == cudaSuccess) {
+      err = row_map(&tmdo, a.dout, a.dv_dim, p.g, a.hkv, a.sq, a.batch, a.strides + 12, swizzle);
+    }
+    if (err != cudaSuccess) return err;
+    void* dkdv_args[] = {&tmq, &tmdo, const_cast<void**>(&a.q), const_cast<void**>(&a.k),
+                         const_cast<void**>(&a.v), const_cast<void**>(&a.dout),
+                         const_cast<void**>(&a.dk), const_cast<void**>(&a.dv), &p};
+    err = cudaLaunchKernel(body.dkdv.fn, kv_grid, dim3(body.threads), dkdv_args, body.dkdv.smem,
+                           st);
+  } else {
+    void* dkdv_args[] = {const_cast<void**>(&a.q), const_cast<void**>(&a.k),
+                         const_cast<void**>(&a.v), const_cast<void**>(&a.dout),
+                         const_cast<void**>(&a.dk), const_cast<void**>(&a.dv), &p};
+    err = cudaLaunchKernel(body.dkdv.fn, kv_grid, dim3(body.threads), dkdv_args, body.dkdv.smem,
+                           st);
+  }
+  if (err != cudaSuccess) return err;
+  const unsigned row_tiles = static_cast<unsigned>((rows + body.dq.rows - 1) / body.dq.rows);
+  const dim3 q_grid = mla ? dim3(row_tiles, bh) : dim3(bh, row_tiles);
+  if (body.tc) {
+    CUtensorMap tmk, tmkr, tmv;
+    err = kv_map(&tmk, a.k, nope, a.hkv, a.skv, a.batch, a.strides + 3, swizzle, body.dq.keys);
+    if (err == cudaSuccess && mla) {
+      err = kv_map(&tmkr, a.k_rope, 64, a.rope_heads, a.skv, a.batch, a.strides + 27, swizzle,
+                   body.dq.keys);
+    }
+    if (err == cudaSuccess) {
+      err = kv_map(&tmv, a.v, a.dv_dim, a.hkv, a.skv, a.batch, a.strides + 6, swizzle,
+                   body.dq.keys);
+    }
+    if (err != cudaSuccess) return err;
+    void* mla_args[] = {&tmk, &tmkr, &tmv, const_cast<void**>(&a.q),
+                        const_cast<void**>(&a.q_rope), const_cast<void**>(&a.dout),
+                        const_cast<void**>(&a.dq), &p};
+    void* dq_args[] = {&tmk, &tmv, const_cast<void**>(&a.q), const_cast<void**>(&a.dout),
+                       const_cast<void**>(&a.dq), &p};
+    err = cudaLaunchKernel(body.dq.fn, q_grid, dim3(body.threads), mla ? mla_args : dq_args,
+                           body.dq.smem, st);
+  } else {
+    void* dq_args[] = {const_cast<void**>(&a.q), const_cast<void**>(&a.k),
+                       const_cast<void**>(&a.v), const_cast<void**>(&a.dout),
+                       const_cast<void**>(&a.dq), &p};
+    err = cudaLaunchKernel(body.dq.fn, q_grid, dim3(body.threads), dq_args, body.dq.smem, st);
+  }
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+}  // namespace
+
 // The gradient of flash_attention_fwd on `stream`: q, k (head dim d), v, o
 // (the forward's output), dout (dv) and lse (the forward's, (batch, hq, sq)
 // f32) in; dq, dk, dv out, in the operands' dtype; (d, dv) one of
@@ -2141,89 +3178,43 @@ extern "C" long long flash_attention_bwd_scratch(int dtype, int batch, int sq, i
 // order (the last dim contiguous; bf16: q, k, v and dout in multiples of 8
 // from 16-byte aligned bases, as cp.async and TMA read them).  Three
 // launches: delta, then dK/dV and dQ.  Returns the first failing launch's
-// cudaError_t (0 = all queued).
+// cudaError_t (0 = all queued).  bf16 at (192, 128) takes G = 1 and reads q
+// and k as nope and rope views (flash_attention_mla_bwd).
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, const void* lse, void* delta, void* dq,
                                    void* dk, void* dv, int batch, int sq, int skv, int hq,
                                    int hkv, int d, int dv_dim, const long long* strides,
                                    int causal, int q_offset, float scale, int dtype,
                                    void* stream) {
-  const BwdBody body = pick_bwd(dtype, d, dv_dim, causal != 0);
-  const long long rows = static_cast<long long>(sq) * (hkv > 0 ? hq / hkv : 0);
-  if (body.delta == nullptr || batch <= 0 || sq <= 0 || skv <= 0 || hkv <= 0 ||
-      hq % hkv != 0 || q_offset < 0 || (rows + body.dq.rows - 1) / body.dq.rows > 65535 ||
-      (skv + body.dkdv.keys - 1) / body.dkdv.keys > 65535 ||
-      (body.tc && hq / hkv > tcb::kRows)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  bwd::Params p;
-  p.batch = batch;
-  p.sq = sq;
-  p.skv = skv;
-  p.g = hq / hkv;
-  p.hkv = hkv;
-  p.q_offset = q_offset;
-  p.scale = scale;
-  long long* dst[8] = {p.qs, p.ks, p.vs, p.os, p.dos, p.dqs, p.dks, p.dvs};
-  for (int t = 0; t < 8; ++t)
-    for (int i = 0; i < 3; ++i) dst[t][i] = strides[3 * t + i];
-  p.lse = static_cast<const float*>(lse);
-  p.delta = static_cast<float*>(delta);
-  p.rows_pad = body.tc ? static_cast<int>(tcb::plane_slots(rows, p.g)) : 0;
-  p.tile_rows = body.tc ? tcb::tile_rows(p.g) : 0;
-  const int swizzle = d >= 64 ? 128 : 64;  // tc::Tile<D>::kSwizzle (Tile<Dv>'s too)
-  cudaError_t err = prepare(body.dkdv.fn, body.dkdv.smem);
-  if (err == cudaSuccess) err = prepare(body.dq.fn, body.dq.smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long n_rows = body.tc ? static_cast<long long>(batch) * hkv * p.rows_pad
-                                   : static_cast<long long>(batch) * sq * hq;
-  void* delta_args[] = {const_cast<void**>(&o), const_cast<void**>(&dout), &p};
-  err = cudaLaunchKernel(
-      body.delta, dim3(static_cast<unsigned>((n_rows + bwd::kDeltaRows - 1) / bwd::kDeltaRows)),
-      dim3(bwd::kThreads), delta_args, 0, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // dK/dV: one block per (batch * kv head, key tile), or pair of key tiles
-  // in the tensor-core body
-  const int key_tiles = (skv + body.dkdv.keys - 1) / body.dkdv.keys;
-  const dim3 kv_grid(static_cast<unsigned>(batch * hkv),
-                     static_cast<unsigned>(body.tc ? (key_tiles + 1) / 2 : key_tiles));
-  if (body.tc) {
-    CUtensorMap tmq, tmdo;
-    err = row_map(&tmq, q, d, p.g, hkv, sq, batch, strides, swizzle);
-    if (err == cudaSuccess) {
-      err = row_map(&tmdo, dout, dv_dim, p.g, hkv, sq, batch, strides + 12, swizzle);
-    }
-    if (err != cudaSuccess) return static_cast<int>(err);
-    void* dkdv_args[] = {&tmq, &tmdo, const_cast<void**>(&q), const_cast<void**>(&k),
-                         const_cast<void**>(&v), const_cast<void**>(&dout), &dk, &dv, &p};
-    err = cudaLaunchKernel(body.dkdv.fn, kv_grid, dim3(body.threads), dkdv_args, body.dkdv.smem,
-                           st);
-  } else {
-    void* dkdv_args[] = {const_cast<void**>(&q), const_cast<void**>(&k), const_cast<void**>(&v),
-                         const_cast<void**>(&dout), &dk, &dv, &p};
-    err = cudaLaunchKernel(body.dkdv.fn, kv_grid, dim3(body.threads), dkdv_args, body.dkdv.smem,
-                           st);
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 q_grid(static_cast<unsigned>(batch * hkv),
-                    static_cast<unsigned>((rows + body.dq.rows - 1) / body.dq.rows));
-  if (body.tc) {
-    CUtensorMap tmk, tmv;
-    err = kv_map(&tmk, k, d, hkv, skv, batch, strides + 3, swizzle, body.dq.keys);
-    if (err == cudaSuccess) {
-      err = kv_map(&tmv, v, dv_dim, hkv, skv, batch, strides + 6, swizzle, body.dq.keys);
-    }
-    if (err != cudaSuccess) return static_cast<int>(err);
-    void* dq_args[] = {&tmk, &tmv, const_cast<void**>(&q), const_cast<void**>(&dout), &dq, &p};
-    err = cudaLaunchKernel(body.dq.fn, q_grid, dim3(body.threads), dq_args, body.dq.smem, st);
-  } else {
-    void* dq_args[] = {const_cast<void**>(&q), const_cast<void**>(&k), const_cast<void**>(&v),
-                       const_cast<void**>(&dout), &dq, &p};
-    err = cudaLaunchKernel(body.dq.fn, q_grid, dim3(body.threads), dq_args, body.dq.smem, st);
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  long long all[30];
+  for (int i = 0; i < 24; ++i) all[i] = strides[i];
+  for (int i = 0; i < 3; ++i) all[24 + i] = strides[i], all[27 + i] = strides[3 + i];
+  const bool mla = dtype == kBF16 && d != dv_dim;
+  const int off = mla ? d - 64 : 0;  // the rope part's first column
+  BwdArgs a{q, k, v, o, dout, lse,
+            static_cast<const __nv_bfloat16*>(q) + off, static_cast<const __nv_bfloat16*>(k) + off,
+            delta, dq, dk, dv, batch, sq, skv, hq, hkv, d, dv_dim, hkv, all, causal != 0,
+            q_offset, scale};
+  return static_cast<int>(launch_bwd(a, dtype, static_cast<cudaStream_t>(stream)));
+}
+
+// The gradient of flash_attention_mla_fwd, bf16 at (192, 128), G = 1, on
+// `stream`: q_nope, q_rope, k_nope, k_rope (rope_heads heads), v, o, dout and
+// lse in; dq (batch, sq, heads, 192) and dk (batch, skv, heads, 192: the rope
+// gradient of every head, which the caller sums where rope_heads is 1) and
+// dv out; delta as flash_attention_bwd's.  strides[30]: element strides of
+// (batch, seq, head) of q_nope, k_nope, v, o, dout, dq, dk, dv, q_rope and
+// k_rope in that order.
+extern "C" int flash_attention_mla_bwd(const void* q_nope, const void* q_rope,
+                                       const void* k_nope, const void* k_rope, const void* v,
+                                       const void* o, const void* dout, const void* lse,
+                                       void* delta, void* dq, void* dk, void* dv, int batch,
+                                       int sq, int skv, int heads, int rope_heads,
+                                       const long long* strides, int causal, int q_offset,
+                                       float scale, void* stream) {
+  BwdArgs a{q_nope, k_nope, v, o, dout, lse, q_rope, k_rope, delta, dq, dk, dv, batch, sq, skv,
+            heads, heads, 192, 128, rope_heads, strides, causal != 0, q_offset, scale};
+  return static_cast<int>(launch_bwd(a, kBF16, static_cast<cudaStream_t>(stream)));
 }
 
 // The backward's budget: out = {numRegs, dynamic shared bytes, local

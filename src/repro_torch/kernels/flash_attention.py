@@ -20,6 +20,10 @@ this module holds:
   * :class:`FlashAttention` — the autograd function: its forward keeps the
     log-sum-exp of each row (the kernel writes it beside ``out``, the plain
     version returns it), its backward is :func:`flash_attention_bwd`;
+  * :func:`flash_attention_split`, :class:`FlashAttentionSplit` and
+    :func:`flash_attention_split_bwd` — MLA's attention on its parts
+    (q_nope, q_rope, k_nope, a k_rope shared by every head, v), read in
+    place by the bf16 kernel at (192, 128);
   * :func:`flash_attention_bwd` — the backward's wrapper: dq, dk, dv from
     q, k, v, out, dout and lse, by the kernel for CUDA tensors (counted in
     :data:`BWD_LAUNCHES`) or :func:`flash_attention_bwd_plain` for CPU
@@ -48,12 +52,14 @@ which shape the plain version's chunking only.  It has two bodies:
 
   * bf16, on the tensor cores: blocks of 128 folded rows (two consumer
     warpgroups of 64) against K/V tiles of 128 keys brought by TMA into a
-    ring of three stages (two at D = 192, Dv = 128, whose K tiles of 192
-    columns would not fit three; see :func:`smem_bytes`).  q . k is summed
-    in f32 from the bf16 operands and
-    scaled in f32 inside the exponent; p is split into two bf16 parts, so
-    P V runs twice.  TMA
-    needs k and v strides in multiples of 8 elements (16 bytes).
+    ring of three stages.  At MLA's D = 192, Dv = 128 (G = 1 only) one
+    persistent block per SM walks a list of (head, row tile) items with a
+    ring of two K and two V stages (``flash_mla_fwd``; see
+    :func:`smem_bytes`), reading q and k as nope and rope parts
+    (:func:`flash_attention_split`).  q . k is summed in f32 from the bf16
+    operands and scaled in f32 inside the exponent; p is split into two
+    bf16 parts, so P V runs twice.  TMA needs k and v strides in multiples
+    of 8 elements (16 bytes).
   * f32, on the CUDA cores: blocks of 64 rows against tiles of 64 keys, all
     in f32 FMAs.
 
@@ -62,9 +68,11 @@ training at (192, 128)) has the same two bodies.  bf16, on the tensor cores: a d
 kernel whose two consumer warpgroups own a pair of key tiles of 64 (tile j
 and tile n - 1 - j, so that causal blocks carry equal work) and share one
 stream of row tiles of q and dout (G * (64 // G) folded rows each, G <= 64)
-through four stages by TMA (three at (192, 128)); a dQ kernel of blocks of
-128 folded rows against K/V tiles of 128 keys by TMA (two stages; tiles of
-64 keys at (192, 128)).  See :func:`bwd_smem_bytes`.  P and dS are each
+through four stages by TMA; at (192, 128) a dK/dV kernel of one key tile a
+block whose two consumers split the products (dV on one, dK on the other,
+P^T handed between them), on q and k as nope and rope parts; a dQ kernel
+of blocks of 128 folded rows against K/V tiles of 128 keys by TMA (two
+stages; tiles of 64 keys at (192, 128)).  See :func:`bwd_smem_bytes`.  P and dS are each
 split into two bf16 parts before their products, as the forward splits p,
 so dV, dK and dQ run twice.  q, k, v and dout need 16-byte rows, as
 in the forward; a dout without them is copied.  f32, on the CUDA cores:
@@ -91,7 +99,7 @@ BLOCK_KEYS = 64  # f32 body: keys per tile
 TC_ROWS = 128  # bf16 body: folded query rows per block (two warpgroups of 64)
 TC_KEYS = 128  # bf16 body: keys per K/V tile
 TC_STAGES = 3  # bf16 body: K/V tiles in flight where Dv = D
-TC_STAGES_SPLIT = 2  # bf16 body at Dv != D (192, 128): three stages would not fit
+TC_STAGES_SPLIT = 2  # bf16 body at Dv != D (192, 128): K and V stages each
 MAX_BATCH_HEADS = 65535  # B * Hkv rides on a grid dimension (gridDim.y in the f32 body)
 MAX_ROW_TILES = 65535  # bf16 body: row tiles ride on gridDim.y
 
@@ -120,9 +128,11 @@ BWD_TILING = {
     torch.bfloat16: {"dkdv": (64, 64, 4), "dq": (128, 128, 2)},
     torch.float32: {"dkdv": (64, 64, 1), "dq": (64, 64, 1)},
 }
-# The bf16 body at Dv != D, MLA's (192, 128): BWD_TILING's would pass the
-# 227 KB of a block (see bwd_smem_bytes)
-BWD_TILING_SPLIT = {"dkdv": (64, 64, 3), "dq": (128, 64, 2)}
+# The bf16 body at Dv != D, MLA's (192, 128): a dK/dV block of one key tile
+# whose two consumers split the products (flash_bwd_dkdv_mla), four row tiles
+# in flight; dQ on K/V tiles of 64 keys (128 would pass the 227 KB of a
+# block; see bwd_smem_bytes)
+BWD_TILING_SPLIT = {"dkdv": (64, 64, 4), "dq": (128, 64, 2)}
 
 
 def flash_attention_plain(
@@ -311,15 +321,18 @@ def smem_bytes(d: int, dtype: torch.dtype = torch.bfloat16, dv: int | None = Non
 
     bf16: the Q tile (d wide) and a K (d) and a V tile (dv) per stage in
     bf16, 1 KB to align them to their swizzle, and a full and an empty
-    barrier per stage: 230,448 bytes at (128, 128) with three stages; at
-    (192, 128) three would take 289 KB, past the 227 KB of a block, so two
-    (214,048).  f32: q * scale and a K tile (both transposed), a V tile and
-    the probabilities, all f32: 144 KB at (192, 128).
+    barrier per stage: 230,448 bytes at (128, 128) with three stages.  At
+    (192, 128) (``flash_mla_fwd``) three stages would take 289 KB, past the
+    227 KB of a block: two K and two V stages, each with its own full and
+    empty barrier, and Q's pair (214,096).  f32: q * scale and a K tile
+    (both transposed), a V tile and the probabilities, all f32: 144 KB at
+    (192, 128).
     """
     dv = d if dv is None else dv
     rows, keys, stages = tiling(dtype, d, dv)
     if dtype == torch.bfloat16:
-        return 1024 + 2 * d * rows + 2 * stages * keys * (d + dv) + 16 * stages
+        barriers = 16 * stages if d == dv else 8 * (4 * stages + 2)
+        return 1024 + 2 * d * rows + 2 * stages * keys * (d + dv) + barriers
     return 4 * (d * rows + d * keys + dv * keys + rows * keys)
 
 
@@ -367,6 +380,16 @@ def _library() -> ctypes.CDLL:
         lib.flash_attention_bwd_attributes.argtypes = [i32, i32, i32, i32, i32,
                                                        ctypes.POINTER(i32)]
         lib.flash_attention_bwd_attributes.restype = i32
+        lib.flash_attention_mla_fwd.argtypes = [
+            ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, strides, i32, i32,
+            ctypes.c_float, ptr,
+        ]
+        lib.flash_attention_mla_fwd.restype = i32
+        lib.flash_attention_mla_bwd.argtypes = [
+            ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
+            strides, i32, i32, ctypes.c_float, ptr,
+        ]
+        lib.flash_attention_mla_bwd.restype = i32
         lib.flash_attention_bwd_scratch.argtypes = [i32, i32, i32, i32, i32]
         lib.flash_attention_bwd_scratch.restype = ctypes.c_longlong
         lib.su3_error_string.argtypes = [i32]
@@ -434,16 +457,22 @@ def bwd_smem_bytes(d: int, dtype: torch.dtype = torch.bfloat16,
     block's two key tiles and, per stage, a Q and a dO tile of 64 rows with
     their lse and delta (f32), and a full and an empty barrier; dQ: Q and dO
     of the block's rows and, per stage, a K and a V tile, and two barriers.
-    At (192, 128) four dK/dV stages would take 248,896 bytes and two dQ
-    stages of 128 keys 246,816, past the 232,448 of a block: three stages
-    (207,408) and tiles of 64 keys (164,896).  f32: rows of D + 1 f32 words
+    At (192, 128) the dK/dV block holds one key tile's K and V, four stages
+    and the row tile's P^T in f32 that its consumers hand on (224,320; two
+    key tiles with four stages would take 248,896 bytes, past the 232,448
+    of a block), and dQ takes K/V tiles of 64 keys (164,896; 128 keys:
+    246,816).  f32: rows of D + 1 f32 words
     (K, q * scale) and of Dv + 1 (V, dO), the probabilities and dS (dK/dV)
     or dS alone (dQ) in rows of 65, and the tile's lse and delta."""
     dv = d if dv is None else dv
     t = bwd_tiling(dtype, d, dv)
     if dtype == torch.bfloat16:
         rows, keys, stages = t["dkdv"]
-        dkdv = 1024 + 2 * (d + dv) * (2 * keys + stages * rows) + stages * (8 * rows + 16)
+        if d == dv:
+            dkdv = 1024 + 2 * (d + dv) * (2 * keys + stages * rows) + stages * (8 * rows + 16)
+        else:  # one key tile, and P^T (f32) of a row tile
+            dkdv = (1024 + 2 * (d + dv) * (keys + stages * rows) + stages * (8 * rows + 16)
+                    + 4 * keys * rows)
         rows, keys, stages = t["dq"]
         dq = 1024 + 2 * (d + dv) * (rows + stages * keys) + 16 * stages
         return dkdv, dq
@@ -556,6 +585,9 @@ def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int
             f"({d}, {dv})")
     if (d, dv) not in HEAD_DIMS:
         raise ValueError(f"{what}: the kernel is built for D, Dv in {HEAD_DIMS}, got ({d}, {dv})")
+    if q.dtype == torch.bfloat16 and d != dv and hq != hkv:
+        raise ValueError(f"{what}: the bf16 kernel at (D, Dv) = ({d}, {dv}) is MLA's, one kv "
+                         f"head a query head (G = 1), got Hq = {hq}, Hkv = {hkv}")
     if q.dtype not in _DTYPES:
         raise ValueError(f"{what}: the kernel takes float32 or bfloat16, got {q.dtype}")
     if min(b, sq, skv) == 0:
@@ -670,6 +702,8 @@ def flash_attention_bwd(
     # by TMA and cp.async, as q's, so a dout off 16 bytes is copied (it is
     # the caller's gradient, whose strides no check can promise).
     out = out if out.stride(-1) == 1 else out.contiguous()
+    if q.dtype == torch.bfloat16 and d != v.shape[-1] and not _rows_aligned(out):
+        out = out.clone(memory_format=torch.contiguous_format)  # (192, 128): 16-byte reads
     if dout.dtype == torch.bfloat16 and not _rows_aligned(dout):
         dout = dout.clone(memory_format=torch.contiguous_format)
     elif dout.stride(-1) != 1:
@@ -744,3 +778,222 @@ def flash_attention(
         return FlashAttention.apply(q, k, v, causal, q_chunk, kv_chunk, q_offset)
     return _forward(q, k, v, causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk,
                     q_offset=q_offset, with_lse=False)[0]
+
+
+# -- MLA's attention from its parts ---------------------------------------------------
+#
+# MLA (``models/mla.py``) makes q as a nope part (B, Sq, H, 128) and a rope
+# part (B, Sq, H, 64), and k as a nope part (B, Skv, H, 128) and one rope
+# channel (B, Skv, 1, 64) that every head shares.  The entries below take
+# those parts as they are: the bf16 kernel at (D, Dv) = (192, 128) reads a
+# Q or K tile's first two 64-column boxes from the nope tensor and its third
+# from the rope tensor (``flash_mla_fwd``, ``flash_attention_mla_bwd``), so
+# neither q nor k is concatenated, nor k's rope channel copied per head.
+# Everywhere else (the CPU, ``meta``, the f32 body, other head dims) they
+# concatenate and call the entries above: the CPU computes what it computed
+# on the concatenated tensors, bit for bit.
+MLA_SPLIT = (128, 64, 128)  # (nope, rope, v) head dims of the kernel's split entry
+
+
+def _joined(q_nope: torch.Tensor, q_rope: torch.Tensor, k_nope: torch.Tensor,
+            k_rope: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """q = [q_nope | q_rope], k = [k_nope | k_rope broadcast over the heads]."""
+    b, skv, h, _ = k_nope.shape
+    k = torch.cat([k_nope, k_rope.expand(b, skv, h, k_rope.shape[-1])], dim=-1)
+    return torch.cat([q_nope, q_rope], dim=-1), k
+
+
+def _check_split(q_nope: torch.Tensor, q_rope: torch.Tensor, k_nope: torch.Tensor,
+                 k_rope: torch.Tensor, v: torch.Tensor) -> None:
+    what = "flash_attention_split"
+    ts = (q_nope, q_rope, k_nope, k_rope, v)
+    if any(t.ndim != 4 for t in ts):
+        raise ValueError(f"{what}: every part must be (B, S, H, D), got "
+                         f"{[tuple(t.shape) for t in ts]}")
+    b, sq, h, _ = q_nope.shape
+    skv = k_nope.shape[1]
+    if (q_rope.shape[:3] != (b, sq, h) or k_nope.shape[0] != b or k_nope.shape[2] != h
+            or k_nope.shape[-1] != q_nope.shape[-1] or k_rope.shape[-1] != q_rope.shape[-1]
+            or k_rope.shape[:2] != (b, skv) or k_rope.shape[2] not in (1, h)
+            or v.shape[:3] != (b, skv, h)):
+        raise ValueError(f"{what}: q_nope (B, Sq, H, N), q_rope (B, Sq, H, R), k_nope (B, Skv, "
+                         f"H, N), k_rope (B, Skv, 1 or H, R), v (B, Skv, H, Dv), got "
+                         f"{[tuple(t.shape) for t in ts]}")
+    if len({t.device for t in ts}) != 1 or len({t.dtype for t in ts}) != 1:
+        raise ValueError(f"{what}: the parts lie on {[t.device for t in ts]} as "
+                         f"{[t.dtype for t in ts]}")
+
+
+def _split_kernel(q_nope: torch.Tensor, q_rope: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether the parts go to the split kernel: bf16 CUDA tensors at
+    :data:`MLA_SPLIT`."""
+    return (q_nope.device.type == "cuda" and q_nope.dtype == torch.bfloat16
+            and (q_nope.shape[-1], q_rope.shape[-1], v.shape[-1]) == MLA_SPLIT)
+
+
+def _check_split_cuda(ts: tuple[torch.Tensor, ...], q_offset: int) -> None:
+    what = "flash_attention_split"
+    b, sq, h, _ = ts[0].shape
+    if min(b, sq, ts[2].shape[1]) == 0:
+        raise ValueError(f"{what}: empty operands {[tuple(t.shape) for t in ts]}")
+    if q_offset < 0:
+        raise ValueError(f"{what}: q_offset must be >= 0, got {q_offset}")
+    if b * h > MAX_BATCH_HEADS:
+        raise ValueError(f"{what}: B * H = {b * h} exceeds {MAX_BATCH_HEADS}")
+    for name, t in zip(("q_nope", "q_rope", "k_nope", "k_rope", "v"), ts):
+        if not _rows_aligned(t):
+            raise ValueError(f"{what}: {name} needs a contiguous, 16-byte aligned head dim and "
+                             f"strides in multiples of 8 (bfloat16), got {t.stride()}")
+
+
+def _split_forward(
+    q_nope: torch.Tensor, q_rope: torch.Tensor, k_nope: torch.Tensor, k_rope: torch.Tensor,
+    v: torch.Tensor, *, causal: bool, q_chunk: int, kv_chunk: int, q_offset: int, with_lse: bool,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """(out, lse or None): the split kernel (one launch, counted in
+    :data:`LAUNCHES`), else :func:`_forward` on the concatenated q and k."""
+    if not _split_kernel(q_nope, q_rope, v):
+        q, k = _joined(q_nope, q_rope, k_nope, k_rope)
+        return _forward(q, k, v, causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk,
+                        q_offset=q_offset, with_lse=with_lse)
+    ts = (q_nope, q_rope, k_nope, k_rope, v)
+    _check_split_cuda(ts, q_offset)
+    b, sq, h, _ = q_nope.shape
+    skv, hr = k_nope.shape[1], k_rope.shape[2]
+    out = torch.empty((b, sq, h, v.shape[-1]), dtype=v.dtype, device=v.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=v.device) if with_lse else None
+    lib = _library()
+    with torch.cuda.device(v.device):
+        stream = torch.cuda.current_stream(v.device).cuda_stream
+        rc = lib.flash_attention_mla_fwd(
+            *(t.data_ptr() for t in ts), out.data_ptr(), None if lse is None else lse.data_ptr(),
+            b, sq, skv, h, hr, _strides(*ts, out), int(causal), q_offset,
+            (q_nope.shape[-1] + q_rope.shape[-1]) ** -0.5, stream)
+    _check_error(lib, rc, "flash_attention_mla_fwd launch")
+    LAUNCHES.count += 1
+    return out, lse
+
+
+def _split_grads(dq: torch.Tensor, dk: torch.Tensor, rope: int,
+                 rope_heads: int) -> tuple[torch.Tensor, ...]:
+    """(dq_nope, dq_rope, dk_nope, dk_rope) from the 192-wide dq and dk: views,
+    and for one rope channel its heads' gradients summed (what autograd of
+    the channel's broadcast computes, the same reduction)."""
+    dk_rope = dk[..., -rope:]
+    if rope_heads == 1 and dk.shape[2] != 1:
+        dk_rope = dk_rope.sum(dim=2, keepdim=True)
+    return dq[..., :-rope], dq[..., -rope:], dk[..., :-rope], dk_rope
+
+
+def flash_attention_split_bwd(
+    q_nope: torch.Tensor, q_rope: torch.Tensor, k_nope: torch.Tensor, k_rope: torch.Tensor,
+    v: torch.Tensor, out: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor, *,
+    causal: bool = True, q_chunk: int = 512, kv_chunk: int = 1024, q_offset: int = 0,
+) -> tuple[torch.Tensor, ...]:
+    """(dq_nope, dq_rope, dk_nope, dk_rope, dv) of :func:`flash_attention_split`,
+    given its ``out``, the gradient ``dout`` of out and the forward's ``lse``.
+
+    bf16 CUDA parts at :data:`MLA_SPLIT` go to the backward kernel on the
+    parts (one call of three launches, counted in :data:`BWD_LAUNCHES`);
+    dq_nope and dq_rope are views of one 192-wide result, dk_nope a view,
+    and for one rope channel dk_rope its heads' gradients summed over the
+    heads.  Everything else goes to :func:`flash_attention_bwd` on the
+    concatenated q and k and is split the same way."""
+    _check_split(q_nope, q_rope, k_nope, k_rope, v)
+    rope, rope_heads = q_rope.shape[-1], k_rope.shape[2]
+    if not _split_kernel(q_nope, q_rope, v):
+        q, k = _joined(q_nope, q_rope, k_nope, k_rope)
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lse, causal=causal,
+                                         q_chunk=q_chunk, kv_chunk=kv_chunk, q_offset=q_offset)
+        return (*_split_grads(dq, dk, rope, rope_heads), dv)
+    ts = (q_nope, q_rope, k_nope, k_rope, v)
+    _check_split_cuda(ts, q_offset)
+    b, sq, h, nope = q_nope.shape
+    skv = k_nope.shape[1]
+    want = (b, sq, h, v.shape[-1])
+    if out.shape != want or dout.shape != want or lse.shape != (b, h, sq):
+        raise ValueError(f"flash_attention_split_bwd: out {tuple(out.shape)} and dout "
+                         f"{tuple(dout.shape)} must be {want}, lse {tuple(lse.shape)} must be "
+                         f"{(b, h, sq)}")
+    if lse.dtype != torch.float32 or out.dtype != v.dtype or dout.dtype != v.dtype:
+        raise ValueError(f"flash_attention_split_bwd: out and dout must be {v.dtype} and lse "
+                         f"float32, got {out.dtype}, {dout.dtype}, {lse.dtype}")
+    if not (out.device == dout.device == lse.device == v.device):
+        raise ValueError("flash_attention_split_bwd: out, dout and lse must lie on v's device")
+    # out's and dout's rows are read by 16-byte loads (the delta pass), and
+    # dout's by TMA and cp.async: copied where they are not 16-byte rows
+    if not _rows_aligned(out):
+        out = out.clone(memory_format=torch.contiguous_format)
+    if not _rows_aligned(dout):
+        dout = dout.clone(memory_format=torch.contiguous_format)
+    lse = lse.contiguous()
+    dq = torch.empty((b, sq, h, nope + rope), dtype=v.dtype, device=v.device)
+    dk = torch.empty((b, skv, h, nope + rope), dtype=v.dtype, device=v.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    lib = _library()
+    delta = torch.empty(lib.flash_attention_bwd_scratch(_DTYPES[v.dtype], b, sq, h, h),
+                        dtype=torch.float32, device=v.device)
+    with torch.cuda.device(v.device):
+        stream = torch.cuda.current_stream(v.device).cuda_stream
+        rc = lib.flash_attention_mla_bwd(
+            q_nope.data_ptr(), q_rope.data_ptr(), k_nope.data_ptr(), k_rope.data_ptr(),
+            v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, skv, h, rope_heads,
+            _strides(q_nope, k_nope, v, out, dout, dq, dk, dv, q_rope, k_rope), int(causal),
+            q_offset, (nope + rope) ** -0.5, stream)
+    _check_error(lib, rc, "flash_attention_mla_bwd launch")
+    BWD_LAUNCHES.count += 1
+    return (*_split_grads(dq, dk, rope, rope_heads), dv)
+
+
+class FlashAttentionSplit(torch.autograd.Function):
+    """:func:`flash_attention_split` with a gradient: the forward keeps each
+    row's lse and saves the five parts as given (no concatenated copy); the
+    backward is :func:`flash_attention_split_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q_nope, q_rope, k_nope, k_rope, v, causal, q_chunk, kv_chunk, q_offset):
+        out, lse = _split_forward(q_nope, q_rope, k_nope, k_rope, v, causal=causal,
+                                  q_chunk=q_chunk, kv_chunk=kv_chunk, q_offset=q_offset,
+                                  with_lse=True)
+        ctx.save_for_backward(q_nope, q_rope, k_nope, k_rope, v, out, lse)
+        ctx.options = {"causal": causal, "q_chunk": q_chunk, "kv_chunk": kv_chunk,
+                       "q_offset": q_offset}
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q_nope, q_rope, k_nope, k_rope, v, out, lse = ctx.saved_tensors
+        grads = flash_attention_split_bwd(q_nope, q_rope, k_nope, k_rope, v, out, dout, lse,
+                                          **ctx.options)
+        return (*grads, None, None, None, None)
+
+
+def flash_attention_split(
+    q_nope: torch.Tensor,
+    q_rope: torch.Tensor,
+    k_nope: torch.Tensor,
+    k_rope: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    q_chunk: int = 512,
+    kv_chunk: int = 1024,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """MLA's attention from its parts: :func:`flash_attention` of q =
+    [q_nope | q_rope] (B, Sq, H, N + R) and k = [k_nope | k_rope] with
+    k_rope (B, Skv, 1 or H, R) broadcast over the H heads, v (B, Skv, H, Dv)
+    -> (B, Sq, H, Dv); the scale is (N + R)^-1/2.
+
+    bf16 CUDA parts at :data:`MLA_SPLIT` go to the split kernel (or raise),
+    reading each part in place; the rest concatenate and go to
+    :func:`flash_attention`'s kernel or plain version.  When grad is enabled
+    and a part requires it, the call goes through :class:`FlashAttentionSplit`.
+    """
+    _check_split(q_nope, q_rope, k_nope, k_rope, v)
+    ts = (q_nope, q_rope, k_nope, k_rope, v)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        return FlashAttentionSplit.apply(*ts, causal, q_chunk, kv_chunk, q_offset)
+    return _split_forward(*ts, causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk,
+                          q_offset=q_offset, with_lse=False)[0]

@@ -4,11 +4,15 @@ Low-rank q (``w_dq`` -> norm -> ``w_uq``), latent kv compression (``w_dc``
 -> norm) with a decoupled, head-less RoPE channel (``w_dr``: one k_rope
 shared by every head), and two formulations of the same attention:
 
-  * prefill and training decompress K and V per head from the latent,
-    broadcast k_rope over the heads and run :func:`flash_attention` with a
-    qk head of nope + rope (192 at full width) and a v head of 128: on the
-    card the hand-written kernel (``csrc/flash_attention.cu`` at (D, Dv) =
-    (192, 128), one launch per layer), on the CPU its plain version;
+  * prefill and training decompress K's nope part and V per head from the
+    latent and run ``flash_attention_split`` on the parts as they are made:
+    q_nope, q_rope, k_nope, the one k_rope channel that every head shares,
+    and v (a qk head of nope + rope, 192 at full width, and a v head of
+    128).  On the card that is the hand-written kernel at (D, Dv) = (192,
+    128) (``csrc/flash_attention.cu``, ``flash_mla_fwd``, one launch per
+    layer), which reads each part in place: neither q nor k is
+    concatenated, nor k_rope copied per head.  On the CPU the parts are
+    concatenated for the plain version;
   * decode is the *absorbed* formulation: ``w_uk`` is folded into the query,
     which scores against the latent cache directly, so the cache and a
     step's reads are O(kv_lora_rank + rope_dim) per token instead of
@@ -28,7 +32,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common
-from repro_torch.models.attention import NEG_INF, _proj_in, _proj_out, flash_attention
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.models.attention import NEG_INF, _proj_in, _proj_out
 from repro_torch.models.common import ParamSpec
 
 
@@ -91,16 +96,10 @@ def init_cache(
             for name, (shape, dt) in cache_spec(cfg, batch, max_len, dtype).items()}
 
 
-def _decompressed(params, q_nope, q_rope, c, k_rope, cfg: ModelConfig):
-    """(q, k, v) of the decompressed path: K and V per head from the latent,
-    k_rope broadcast over the heads and concatenated after k_nope.  Each is
-    a fresh contiguous tensor (the kernel reads rows of 16 bytes)."""
-    b, s, h = c.shape[0], c.shape[1], cfg.n_heads
-    k_nope = _proj_in(c, params["w_uk"])
-    v = _proj_in(c, params["w_uv"])
-    k = torch.cat([k_nope, k_rope[:, :, None].expand(b, s, h, cfg.qk_rope_head_dim)], dim=-1)
-    q = torch.cat([q_nope, q_rope], dim=-1)
-    return q, k, v
+def _decompressed(params, c: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(k_nope, v) of the decompressed path: K's nope part and V per head
+    from the latent, each (B, S, H, .)."""
+    return _proj_in(c, params["w_uk"]), _proj_in(c, params["w_uv"])
 
 
 def apply(
@@ -135,8 +134,9 @@ def apply(
         cache["ckv"][:, start:start + sq] = c.to(cache["ckv"].dtype)
         cache["k_rope"][:, start:start + sq] = k_rope.to(cache["k_rope"].dtype)
     if cache is None or sq > 1:
-        q, k, v = _decompressed(params, q_nope, q_rope, c, k_rope, cfg)
-        out = flash_attention(q, k, v, causal=True, q_chunk=q_chunk, kv_chunk=kv_chunk)
+        k_nope, v = _decompressed(params, c)
+        out = fa.flash_attention_split(q_nope, q_rope, k_nope, k_rope[:, :, None], v, causal=True,
+                                       q_chunk=q_chunk, kv_chunk=kv_chunk)
         return _proj_out(out, params["wo"]), cache
     # absorbed decode: fold w_uk into the query, score against the latents
     ckv, rope_c = cache["ckv"].to(dt), cache["k_rope"].to(dt)
@@ -158,7 +158,8 @@ def mla_ref(params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor) 
 
     q_nope, q_rope = _q_proj(params, x, cfg, positions)
     c, k_rope = _kv_latent(params, x, cfg, positions)
-    q, k, v = _decompressed(params, q_nope, q_rope, c, k_rope, cfg)
+    k_nope, v = _decompressed(params, c)
+    q, k = fa._joined(q_nope, q_rope, k_nope, k_rope[:, :, None])  # the oracle concatenates
     scale = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
     out = kref.flash_attention_ref(q, k, v, causal=True, scale=scale)
     return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))

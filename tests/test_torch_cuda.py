@@ -455,7 +455,7 @@ def test_cuda_flash_attention_shared_memory_budget(cuda_device, dtype, threads):
     """Each body's real budget at every (D, Dv) it is built for: within 227
     KB a block, no spills, one block per SM or more (the bf16 body holds
     one: 230,448 bytes at D=128, Q and three stages of K and V, and three
-    warpgroups; 214,048 at MLA's (192, 128), two stages), and the tiling
+    warpgroups; 214,096 at MLA's (192, 128), two K and two V stages), and the tiling
     the Python side assumes (kernel_budget raises otherwise)."""
     for d, dv in fa.HEAD_DIMS:
         for causal in (True, False):
@@ -510,6 +510,90 @@ def test_cuda_flash_attention_at_mla_heads_matches_plain_version(cuda_device, sh
     assert got.dtype == dtype and got.shape == (b, sq, h, 128)
     atol, rtol = fa.kernel_tolerance(dtype)
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+def _split_parts(shape, rope_heads, dtype, device, seed):
+    """MLA's parts on the card: q_nope a view of a 192-wide projection,
+    q_rope, k_nope, k_rope of rope_heads heads, v."""
+    b, sq, skv, h = shape[:4]
+    rng = np.random.default_rng(seed)
+
+    def normal(*s):
+        return torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(device, dtype)
+
+    return [normal(b, sq, h, 192)[..., :128], normal(b, sq, h, 64), normal(b, skv, h, 128),
+            normal(b, skv, rope_heads, 64), normal(b, skv, h, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", MLA_SHAPES)
+@pytest.mark.parametrize("rope_heads", ["one", "every"])
+def test_cuda_split_entry_at_mla_heads_matches_plain_version(cuda_device, shape, rope_heads):
+    """``flash_attention_split`` (bf16, the kernel on the parts in place)
+    against the plain version on the concatenated q and k: forward in one
+    launch within kernel_tolerance; then through autograd (one forward and
+    one backward launch), the five gradients within kernel_tolerance of
+    each one's largest magnitude, against the plain backward split the same
+    way, and the same bits twice."""
+    b, sq, skv, h, causal, q_offset = shape
+    hr = 1 if rope_heads == "one" else h
+    dt = torch.bfloat16
+    parts = _split_parts(shape, hr, dt, cuda_device, seed=sum(shape[:4]) + hr)
+    q, k = fa._joined(*parts[:4])
+    kw = dict(causal=causal, q_offset=q_offset)
+    before = fa.LAUNCHES.count
+    got = fa.flash_attention_split(*parts, **kw)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES.count == before + 1 and got.shape == (b, sq, h, 128)
+    want = fa.flash_attention_plain(q, k, parts[4], q_chunk=64, kv_chunk=128, **kw)
+    atol, rtol = fa.kernel_tolerance(dt)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    dout = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (b, sq, h, 128), dtype=np.float32)).to(cuda_device, dt)
+    grads = []
+    for _ in range(2):
+        leaves = [t.detach().clone().requires_grad_() for t in parts]
+        fwd, bwd = fa.LAUNCHES.count, fa.BWD_LAUNCHES.count
+        fa.flash_attention_split(*leaves, **kw).backward(dout)
+        torch.cuda.synchronize()
+        assert (fa.LAUNCHES.count - fwd, fa.BWD_LAUNCHES.count - bwd) == (1, 1)
+        grads.append([t.grad for t in leaves])
+    out, lse = fa._forward(q, k, parts[4], q_chunk=512, kv_chunk=1024, with_lse=True, **kw)
+    dq, dk, dv = fa.flash_attention_bwd_plain(q, k, parts[4], out, dout, lse, q_chunk=64,
+                                              kv_chunk=128, **kw)
+    dk = dk.float()  # dk_rope's heads summed in f32 for the reference
+    want = (*fa._split_grads(dq, dk, 64, hr), dv)
+    for name, g, w, t in zip(("dq_nope", "dq_rope", "dk_nope", "dk_rope", "dv"), grads[0], want,
+                             parts):
+        assert g.shape == t.shape and bool(torch.isfinite(g.float()).all()), name
+        ok, err = _within_max(g, w, dt)
+        assert ok, (name, err)
+    assert all(torch.equal(x, y) for x, y in zip(*grads))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,seq,heads", [(1, 1000, 7), (3, 129, 5), (1, 64, 1), (2, 4096, 9)])
+def test_cuda_persistent_mla_forward_over_work_lists_of_any_length(cuda_device, batch, seq,
+                                                                   heads):
+    """``flash_mla_fwd`` runs one block per SM over a list of (head, row
+    tile) items: 56, 30, 1 and 576 items here, none a multiple of 132, so
+    blocks take unequal numbers of items (and with one item, one block
+    runs).  Causal and not, each within kernel_tolerance of the plain
+    version, the same bits twice."""
+    rng = np.random.default_rng(batch * seq + heads)
+    q, k = (torch.from_numpy(rng.standard_normal((batch, seq, heads, 192), dtype=np.float32))
+            .to(cuda_device, torch.bfloat16) for _ in range(2))
+    v = torch.from_numpy(rng.standard_normal((batch, seq, heads, 128), dtype=np.float32)).to(
+        cuda_device, torch.bfloat16)
+    items = batch * heads * -(-seq // fa.TC_ROWS)
+    assert items % 132
+    atol, rtol = fa.kernel_tolerance(torch.bfloat16)
+    for causal in (True, False):
+        got = fa.flash_attention(q, k, v, causal=causal)
+        again = fa.flash_attention(q, k, v, causal=causal)
+        want = fa.flash_attention_plain(q, k, v, causal=causal)
+        torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+        assert torch.equal(got, again)
 
 
 @pytest.mark.cuda
@@ -718,15 +802,15 @@ def test_cuda_flash_backward_budget(cuda_device, dtype, threads):
     tiling the Python side assumes (bwd_budget raises otherwise).  The bf16
     kernels are warp-specialised: 168 registers a thread at launch, the pool
     that setmaxnreg hands from the producer to the consumers.  One kernel
-    spills: bf16 dK/dV at MLA's (192, 128), 104-112 bytes of stack, held
-    under 128 (PERF.md, row 5b-mla)."""
+    spilled until PR 24: bf16 dK/dV at MLA's (192, 128), 104-112 bytes of
+    stack; its consumers now split the products (flash_bwd_dkdv_mla) and it
+    is held to 0 with the rest."""
     for d, dv in fa.BWD_HEAD_DIMS:
         for causal in (True, False):
             budget = fa.bwd_budget(dtype, d, causal=causal, dv=dv)
             for name, smem in zip(("dkdv", "dq"), fa.bwd_smem_bytes(d, dtype, dv)):
-                spill = 128 if (name, dtype, d, dv) == ("dkdv", torch.bfloat16, 192, 128) else 0
                 assert budget[name]["shared_bytes"] == smem <= 232448
-                assert budget[name]["local_bytes"] <= spill and budget[name]["blocks_per_sm"] >= 1
+                assert budget[name]["local_bytes"] == 0 and budget[name]["blocks_per_sm"] >= 1
                 assert budget[name]["threads_per_block"] == threads
                 if dtype == torch.bfloat16:
                     assert budget[name]["num_regs"] == 168

@@ -141,17 +141,80 @@ def test_smem_budget_at_the_main_path_shape(dtype, blocks_per_sm):
 
 def test_smem_budget_at_mla_heads():
     """At MLA's (D, Dv) = (192, 128) the bf16 body's Q tile and three stages
-    of K (192 columns) and V (128) would take 289 KB; it takes two stages,
-    214,048 bytes, one block per SM.  The f32 body's 144 KB fits once."""
+    of K (192 columns) and V (128) would take 289 KB; the persistent
+    ``flash_mla_fwd`` takes two K and two V stages, each with its own full
+    and empty barrier, and Q's pair: 214,096 bytes, one block per SM.  The
+    f32 body's 144 KB fits once."""
     bf16 = fa.smem_bytes(192, torch.bfloat16, dv=128)
     assert fa.tiling(torch.bfloat16, 192, 128) == (128, 128, 2)
-    assert bf16 == 1024 + 2 * 128 * 192 + 2 * 2 * 128 * (192 + 128) + 2 * 16 == 214048
+    assert bf16 == 1024 + 2 * 128 * 192 + 2 * 2 * 128 * (192 + 128) + 8 * (4 * 2 + 2) == 214096
     assert bf16 + 1024 <= 228 * 1024 and bf16 <= 232448
     assert 1024 + 2 * 128 * 192 + 3 * 2 * 128 * (192 + 128) > 232448  # three stages do not fit
     f32 = fa.smem_bytes(192, torch.float32, dv=128)
     assert f32 == 4 * (192 * 64 + 192 * 64 + 128 * 64 + 64 * 64) == 147456 <= 232448
     assert fa.smem_bytes(128, torch.bfloat16, dv=128) == fa.smem_bytes(128) == 230448
     assert list(fa.BWD_HEAD_DIMS) == list(fa.HEAD_DIMS)  # the backward at every pair
+
+
+SPLIT_FORMS = [  # (batch, sq, skv, heads, rope_heads, causal, q_offset, q_chunk, kv_chunk)
+    (2, 37, 37, 3, 1, True, 0, 8, 16),
+    (2, 37, 37, 3, 3, True, 0, 8, 16),
+    (1, 20, 45, 4, 1, False, 0, 8, 16),  # ragged, Sq < Skv
+    (1, 20, 45, 4, 4, False, 0, 512, 1024),
+    (2, 11, 27, 2, 1, True, 16, 4, 8),  # queries continuing a 16-token prefix
+    (1, 11, 27, 2, 2, True, 16, 4, 8),
+]
+
+
+def _split_parts(form, nope=8, rope=4, dv=6, dtype=torch.float32):
+    b, sq, skv, h, hr = form[:5]
+    rng = np.random.default_rng(sum(form[:5]))
+    shapes = ((b, sq, h, nope), (b, sq, h, rope), (b, skv, h, nope), (b, skv, hr, rope),
+              (b, skv, h, dv))
+    return [torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(dtype) for s in shapes]
+
+
+@pytest.mark.parametrize("form", SPLIT_FORMS)
+def test_split_entry_equals_the_concatenated_plain_version(form):
+    """``flash_attention_split`` on MLA's parts (q_nope, q_rope, k_nope, a
+    k_rope of one head or of every head, v) gives the bits of
+    ``flash_attention`` on the concatenated q and k (k_rope broadcast), and
+    so do its five gradients through autograd: dq's parts, dk_nope, and
+    dk_rope (for one rope head, its heads' gradients summed, as autograd of
+    the broadcast sums them)."""
+    causal, q_offset, q_chunk, kv_chunk = form[5:]
+    kw = dict(causal=causal, q_offset=q_offset, q_chunk=q_chunk, kv_chunk=kv_chunk)
+    parts = [t.requires_grad_() for t in _split_parts(form)]
+    out = fa.flash_attention_split(*parts, **kw)
+    ref = [t.detach().clone().requires_grad_() for t in parts]
+    b, skv, h = ref[2].shape[:3]
+    q = torch.cat([ref[0], ref[1]], dim=-1)
+    k = torch.cat([ref[2], ref[3].expand(b, skv, h, ref[3].shape[-1])], dim=-1)
+    want = fa.flash_attention(q, k, ref[4], **kw)
+    assert out.shape == want.shape and torch.equal(out, want)
+    dout = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        tuple(out.shape), dtype=np.float32))
+    out.backward(dout)
+    want.backward(dout)
+    for got, w in zip(parts, ref):
+        assert got.grad.shape == got.shape and torch.equal(got.grad, w.grad)
+    # without grad: the forward alone, the same bits
+    with torch.no_grad():
+        assert torch.equal(fa.flash_attention_split(*parts, **kw), want)
+
+
+def test_split_entry_checks_its_parts():
+    """The parts' shapes must fit together: one kv head a query head, k_rope
+    of one head or of every head, the nope and rope widths of q and k
+    equal."""
+    qn, qr, kn, kr, v = _split_parts((1, 8, 8, 4, 1))
+    fa.flash_attention_split(qn, qr, kn, kr, v)
+    with pytest.raises(ValueError, match="k_rope"):
+        fa.flash_attention_split(qn, qr, kn, kr.expand(1, 8, 2, 4), v)
+    with pytest.raises(ValueError, match="q_nope"):
+        fa.flash_attention_split(qn, qr[..., :2], kn, kr, v)
+    with pytest.raises(ValueError, match="lie on"):
+        fa.flash_attention_split(qn, qr, kn, kr.double(), v)
 
 
 def _tensor_core_body(q, k, v, *, causal, split=True):
@@ -274,6 +337,40 @@ def test_cuda_checks_reject_bf16_strides_off_16_bytes():
     fa._check_cuda(*(f32[..., i * 32:(i + 1) * 32] for i in range(3)), 0)  # multiples of 4
     ok = torch.zeros((1, 8, 4, 96), dtype=torch.bfloat16)
     fa._check_cuda(*(ok[..., i * 32:(i + 1) * 32] for i in range(3)), 0)
+
+
+def test_cuda_checks_hold_the_mla_pair_to_one_kv_head_a_query_head():
+    """The bf16 kernel at (192, 128) is MLA's: G = 1 (every query head has
+    its decompressed K and V).  GQA at that pair raises before a launch; the
+    f32 body takes any G."""
+    q = torch.zeros((1, 8, 4, 192), dtype=torch.bfloat16)
+    k = torch.zeros((1, 8, 2, 192), dtype=torch.bfloat16)
+    v = torch.zeros((1, 8, 2, 128), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="G = 1"):
+        fa._check_cuda(q, k, v, 0)
+    fa._check_cuda(q, torch.zeros((1, 8, 4, 192), dtype=torch.bfloat16),
+                   torch.zeros((1, 8, 4, 128), dtype=torch.bfloat16), 0)
+    fa._check_cuda(q.float(), k.float(), v.float(), 0)
+
+
+def test_split_kernel_checks_read_shapes_strides_and_addresses():
+    """The split entry's card checks: 16-byte rows in every part (a q_nope
+    sliced from MLA's 192-wide projection is read in place), one rope head
+    or every head.  They read shapes, strides and addresses only, so they
+    run here."""
+    proj = torch.zeros((2, 8, 4, 192), dtype=torch.bfloat16)
+    rope = torch.zeros((2, 8, 64), dtype=torch.bfloat16)[:, :, None]
+    parts = (proj[..., :128], torch.zeros((2, 8, 4, 64), dtype=torch.bfloat16),
+             torch.zeros((2, 8, 4, 128), dtype=torch.bfloat16), rope,
+             torch.zeros((2, 8, 4, 128), dtype=torch.bfloat16))
+    assert fa._split_kernel(parts[0], parts[1], parts[4]) is False  # a CPU tensor
+    fa._check_split(*parts)
+    fa._check_split_cuda(parts, 0)
+    odd = torch.zeros((2, 8, 4, 196), dtype=torch.bfloat16)[..., :128]  # rows 392 bytes apart
+    with pytest.raises(ValueError, match="q_nope"):
+        fa._check_split_cuda((odd, *parts[1:]), 0)
+    with pytest.raises(ValueError, match="q_offset"):
+        fa._check_split_cuda(parts, -1)
 
 
 class _OtherDevice(torch.Tensor):

@@ -177,10 +177,11 @@ def test_bwd_executed_flops_count_the_tiles_each_body_visits():
 
 
 def test_bwd_tiling_at_mla_heads():
-    """At MLA's (192, 128) the bf16 dK/dV kernel keeps three row tiles in
-    flight and the dQ kernel reads K/V tiles of 64 keys; the f32 body's
-    tiling does not depend on the head dims."""
-    assert fa.bwd_tiling(BF16, 192, 128) == {"dkdv": (64, 64, 3), "dq": (128, 64, 2)}
+    """At MLA's (192, 128) the bf16 dK/dV kernel (``flash_bwd_dkdv_mla``)
+    holds one key tile of 64 a block, whose consumers split the products,
+    with four row tiles in flight; the dQ kernel reads K/V tiles of 64
+    keys; the f32 body's tiling does not depend on the head dims."""
+    assert fa.bwd_tiling(BF16, 192, 128) == {"dkdv": (64, 64, 4), "dq": (128, 64, 2)}
     assert fa.bwd_tiling(BF16, 128, 128) == fa.bwd_tiling(BF16) == fa.bwd_tiling(BF16, 64)
     assert fa.bwd_tiling(torch.float32, 192, 128) == fa.bwd_tiling(torch.float32)
     assert list(fa.BWD_HEAD_DIMS) == list(fa.HEAD_DIMS) and (192, 128) in fa.BWD_HEAD_DIMS
@@ -189,16 +190,18 @@ def test_bwd_tiling_at_mla_heads():
 @pytest.mark.parametrize("dtype", [BF16, torch.float32])
 def test_bwd_smem_at_mla_heads_fits_one_block(dtype):
     """Shared memory at (192, 128), Q and K tiles 192 wide, V and dO 128:
-    bf16 dK/dV 1 KB + K and V of two key tiles (80 KB) + three stages of a
-    64-row Q and dO tile with their statistics = 207,408 bytes (four stages:
-    248,896, past Hopper's 232,448); bf16 dQ 1 KB + Q and dO of 128 rows +
-    two stages of 64-key K and V tiles = 164,896 (128-key tiles: 246,816);
-    f32 rows of D + 1 and Dv + 1: 198,656 and 182,016."""
+    bf16 dK/dV 1 KB + K and V of one key tile (40 KB) + four stages of a
+    64-row Q and dO tile with their statistics + the row tile's P^T in f32
+    (16 KB) = 224,320 bytes (two key tiles with four stages: 248,896, past
+    Hopper's 232,448); bf16 dQ 1 KB + Q and dO of 128 rows + two stages of
+    64-key K and V tiles = 164,896 (128-key tiles: 246,816); f32 rows of D
+    + 1 and Dv + 1: 198,656 and 182,016."""
     dkdv, dq = fa.bwd_smem_bytes(192, dtype, dv=128)
     assert max(dkdv, dq) <= 232448
     if dtype == BF16:
-        assert (dkdv, dq) == (207408, 164896)
-        assert dkdv == 1024 + 2 * 64 * 2 * (192 + 128) + 3 * (64 * 2 * (192 + 128) + 512 + 16)
+        assert (dkdv, dq) == (224320, 164896)
+        assert dkdv == (1024 + 64 * 2 * (192 + 128) + 4 * (64 * 2 * (192 + 128) + 512 + 16)
+                        + 64 * 64 * 4)
         assert 1024 + 2 * 64 * 2 * 320 + 4 * (64 * 2 * 320 + 528) == 248896 > 232448
         assert dq == 1024 + 128 * 2 * 320 + 2 * 64 * 2 * 320 + 32
         assert 1024 + 128 * 2 * 320 + 2 * 128 * 2 * 320 + 32 == 246816 > 232448
@@ -206,6 +209,33 @@ def test_bwd_smem_at_mla_heads_fits_one_block(dtype):
         assert (dkdv, dq) == (198656, 182016)
         assert dkdv == 4 * (64 * 193 * 2 + 64 * 129 * 2 + 2 * 64 * 65 + 2 * 64)
     assert fa.bwd_smem_bytes(128, dtype, dv=128) == fa.bwd_smem_bytes(128, dtype)
+
+
+@pytest.mark.parametrize("rope_heads", [1, 4])
+def test_split_p_and_ds_keep_the_kernel_tolerance_on_mla_parts(rope_heads):
+    """The bf16 body's rounding on MLA's parts (``flash_attention_split_bwd``
+    at (192, 128), G = 1): q and k as read from q_nope | q_rope and k_nope |
+    k_rope, the rope part of one head (shared by every head, whose
+    gradient is the heads' bf16 gradients summed) or of every head.  Each
+    of the five gradients within half of ``kernel_tolerance(bf16)`` of the
+    plain split backward, against its own largest magnitude."""
+    rng = np.random.default_rng(192 + rope_heads)
+
+    def normal(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(BF16)
+
+    b, s, h = 1, 200, 4
+    parts = [normal(b, s, h, 128), normal(b, s, h, 64), normal(b, s, h, 128),
+             normal(b, s, rope_heads, 64), normal(b, s, h, 128)]
+    dout = normal(b, s, h, 128)
+    out, lse = fa._split_forward(*parts, causal=True, q_chunk=512, kv_chunk=1024, q_offset=0,
+                                 with_lse=True)
+    want = fa.flash_attention_split_bwd(*parts, out, dout, lse)
+    q, k = fa._joined(*parts[:4])
+    dq, dk, dv = _tensor_core_bwd(q, k, parts[4], out, dout, lse, causal=True)
+    got = (*fa._split_grads(dq, dk, 64, rope_heads), dv)
+    assert [g.shape for g in got] == [w.shape for w in want]
+    assert max(_shares(got, want)) < 0.5, _shares(got, want)
 
 
 def test_bwd_executed_flops_at_mla_heads():

@@ -148,6 +148,39 @@ def test_mla_prefill_into_a_cache_writes_the_latents(layer):
         mla.apply(params, tx[:, :1], cfg, positions=tpos[:, :1], cache=cache)
 
 
+def test_mla_hands_the_flash_entry_its_parts(layer, monkeypatch):
+    """Prefill and training call ``flash_attention_split`` on the parts as
+    MLA makes them: q_nope a view of the q projection (its rope columns
+    follow in memory), q_rope, k_nope and v per head, and k_rope's one
+    channel for every head, with no concatenation of q or k.  The output
+    and every gradient equal the oracle's concatenated path."""
+    _, _, cfg, params, x, pos = layer
+    seen = []
+    entry = fa.flash_attention_split
+
+    def spy(*parts, **kw):
+        seen.append([(tuple(t.shape), t.is_contiguous()) for t in parts])
+        return entry(*parts, **kw)
+
+    monkeypatch.setattr(fa, "flash_attention_split", spy)
+    leaves = {name: t.clone().requires_grad_() for name, t in params.items()}
+    tx, tpos = torch.from_numpy(x), torch.from_numpy(pos)
+    got, _ = mla.apply(leaves, tx, cfg, positions=tpos, q_chunk=8, kv_chunk=8)
+    nope, rope, vd, h = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim, cfg.n_heads
+    assert seen == [[((2, 16, h, nope), False), ((2, 16, h, rope), True),
+                     ((2, 16, h, nope), True), ((2, 16, 1, rope), True),
+                     ((2, 16, h, vd), True)]]
+    ref = {name: t.clone().requires_grad_() for name, t in params.items()}
+    want = mla.mla_ref(ref, tx, cfg, tpos)
+    np.testing.assert_allclose(got.detach().numpy(), want.detach().numpy(), rtol=1e-5, atol=1e-5)
+    cot = torch.from_numpy(np.random.default_rng(2).standard_normal(tuple(got.shape),
+                                                                    dtype=np.float32))
+    got.backward(cot)
+    want.backward(cot)
+    for name in leaves:
+        assert _max_err(leaves[name].grad, ref[name].grad) < 1e-4, name
+
+
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("chunks", [(8, 8), (5, 7)], ids=["8x8", "ragged"])
 def test_flash_plain_with_a_narrower_value_head(causal, chunks):
