@@ -27,8 +27,11 @@ source, started together) and, at the paper's L=32 lattice:
     (multiplies at L=16 and L=32, then a stencil batch and a solve),
     autotuned against a fresh cache under ``build/``;
   * the LM phase: holds the flash-attention kernel against its plain
-    version in nine forms (f32 and bf16, causal and not, G in {1, 4, 8},
-    D in {32, 64, 128}, ragged lengths, Sq != Skv, q_offset); drives
+    version in fifteen forms (f32 and bf16, causal and not, G in {1, 2, 3,
+    4, 8}, D in {32, 64, 128}, ragged lengths, Sq != Skv, q_offset; six of
+    them bf16 at D=64, ``flash_d64_fwd``'s work lists: zamba2-1.2b's and
+    granite-moe's prefill, whisper-tiny's encoder and cross-attention, a
+    q_offset, a ragged 333 at G=3 with a partial row tile); drives
     ``ServeEngine`` on full-width qwen3-4b (random bf16 weights from
     ``--seed``) over 4 prompts of 1,024 tokens plus 32 greedy tokens, with
     the counters set to 0 just before and read just after (36 flash launches
@@ -126,10 +129,13 @@ source, started together) and, at the paper's L=32 lattice:
     CPU on the whole model in f32; resume bitwise; the kernels' yardsticks
     at the encoder's and the cross-attention's prefill and at training's
     three shapes;
-  * the dry run, last: the reference's four dry-run cases through
+  * the dry run: the reference's four dry-run cases through
     ``python -m repro_torch.launch.dryrun`` (``meta`` tensors; at once), and
     ``--su3-fig7 --L 32 --device-counts 1,2,4 --controllers 2``: two
     controller processes on the card, no divergence;
+  * last, the bf16 forward at D=64 (``flash_d64_fwd``) at zamba2-1.2b's,
+    granite-moe's and whisper-tiny's shapes against its plain version, then
+    timed in turns beside SDPA (eager and in CUDA graphs);
   * times each kernel against its bound, its plain version and, where one
     PyTorch call computes the same function, that call (every time in the
     kernels line from eager calls; the flash kernel and SDPA also in a CUDA
@@ -141,14 +147,17 @@ It prints:
   * the card's name and power limit (nvidia-smi) and the tool versions;
   * the HGMMA, UTMALDG and HMMA counts of the built flash-attention library
     (``cuobjdump -sass``): its bf16 body must run wgmma fed by TMA; and the
-    HGMMA count of each bf16 backward kernel (dK/dV and dQ, every head dim
-    and mask), which must run wgmma too;
+    HGMMA count of the bf16 forward at D=64 (both masks) and of each bf16
+    backward kernel (dK/dV and dQ, every head dim and mask), which must run
+    wgmma too;
   * one JSON line per check, per main-path row and per yardstick;
   * a ``{"flash_rows": {...}}`` line: the flash rows PERF.md's kernels
-    table compares (rows 5 and 5b at D=128, 5-64, 5-mla, 5b-mla; ms,
-    library ms, bound, and the backward's three kernels by name);
+    table compares (rows 5 and 5b at D=128, 5-64, 5-zamba, 5-whisper
+    encoder and cross, 5-mla, 5b-mla; ms, library ms, bound, and the
+    backward's three kernels by name);
   * a ``{"kernels": [...]}`` line with each ported kernel's numbers (the
-    flash backward beside the forward, and the (192, 128) instantiations
+    flash backward beside the forward, the bf16 forward at D=64 with its
+    registers, shared bytes and spill, and the (192, 128) instantiations
     of both with their own launches) and the total wall time;
   * last, ``{"ok": true, "device": {...}}`` — only if every phase passed.
 
@@ -252,7 +261,7 @@ BWD_SPILL_LIMITS: dict[tuple, int] = {}
 # phases that time them and printed together on one line before the last
 FLASH_ROWS: dict[str, dict] = {}
 FLASH_ROW_KEYS = ("kernel_ms", "kernel_graph_ms", "concat_kernel_ms", "library_ms",
-                  "library_graph_ms", "bound_ms", "bound_by", "kernel_split_ms")
+                  "library_graph_ms", "bound_ms", "bound_by", "kernel_split_ms", "plain_ms")
 # the MLA phase: deepseek-v3 at full width (d_model 7,168, 128 heads, q_lora
 # 1,536, kv_lora 512, qk head 128 + 64, v head 128, 256 experts top-8 sigmoid
 # aux-free + 1 shared of d_ff 2,048, dense d_ff 18,432, vocab 129,280),
@@ -359,6 +368,27 @@ FLASH_FORMS = [  # (label, batch, sq, skv, hq, hkv, d, causal, q_offset, dtype)
     ("ragged 1000 bf16", 1, 1000, 1000, 32, 8, 128, True, 0, "bfloat16"),
     ("Sq!=Skv non-causal f32 D=64", 2, 300, 700, 16, 4, 64, False, 0, "float32"),
     ("q_offset 1024 bf16", 2, 64, 1088, 32, 8, 128, True, 1024, "bfloat16"),
+    # bf16 at D=64: flash_d64_fwd's work lists (items of G * (128 // G) folded rows)
+    ("zamba2-1.2b shared block bf16 D=64 G=1", 4, 1024, 1024, 32, 32, 64, True, 0, "bfloat16"),
+    ("granite-moe bf16 D=64 G=2", 4, 1024, 1024, 16, 8, 64, True, 0, "bfloat16"),
+    ("whisper encoder bf16 D=64 ragged 1500 non-causal", 4, 1500, 1500, 6, 6, 64, False, 0,
+     "bfloat16"),
+    ("Sq=16 Skv=1500 bf16 D=64 non-causal", 4, 16, 1500, 6, 6, 64, False, 0, "bfloat16"),
+    ("q_offset 1024 bf16 D=64 G=2", 2, 64, 1088, 16, 8, 64, True, 1024, "bfloat16"),
+    # G=3: items of 126 rows (two rows of each Q tile zero), the last one partial
+    ("ragged 333 bf16 D=64 G=3", 1, 333, 333, 12, 4, 64, True, 0, "bfloat16"),
+]
+# the largest error of each flash forward kernel against its plain version
+# over every form checked (_flash_checks): "flash_d64_fwd" (bf16 at D=64)
+# and "flash_attention" (every other form)
+FLASH_ERRS: dict[str, float] = {}
+# the D=64 forward's shapes on the main paths, timed in turns beside SDPA
+# (``_d64_fwd_yardsticks``): (row, arch, batch, sq, skv, hq, hkv, causal)
+D64_ROWS = [
+    ("5-zamba", "zamba2-1.2b", 4, 1024, 1024, 32, 32, True),
+    ("5-64", "granite-moe-1b-a400m", 4, 1024, 1024, 16, 8, True),
+    ("5-whisper encoder", "whisper-tiny", 4, 1500, 1500, 6, 6, False),
+    ("5-whisper cross", "whisper-tiny", 4, 16, 1500, 6, 6, False),
 ]
 
 
@@ -489,7 +519,8 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--seed", type=int, default=0, help="seed of the random SU(3) data")
     ap.add_argument("--flash-yardsticks", action="store_true",
                     help="build, then time the flash rows of PERF.md's kernels table alone "
-                         "(5 and 5b at D=128, 5-64, 5-mla, 5b-mla) and stop; it runs on a "
+                         "(5 and 5b at D=128, 5-64, 5-zamba, 5-whisper, 5-mla, 5b-mla) and stop; "
+                         "it runs on a "
                          "checkout from before the split MLA entry too")
     args = ap.parse_args(argv)
 
@@ -612,6 +643,11 @@ def main(argv: list[str] | None = None) -> int:
         failures.append(f"flash_attention: no HGMMA or UTMALDG in the built library: {counts}")
     # the bf16 backward on the tensor cores: HGMMA in each of its kernels
     per_fn = _sass_per_function(sass, "HGMMA")
+    # the bf16 forward at D=64: its own persistent kernel, causal and not
+    d64_hgmma = {fn: n for fn, n in per_fn.items() if "flash_d64_fwd" in fn}
+    _emit({"sass": "flash_d64_fwd", "HGMMA_per_function": sorted(d64_hgmma.values())})
+    if len(d64_hgmma) != 2 or not all(d64_hgmma.values()):
+        failures.append(f"flash_d64_fwd lacks HGMMA or instantiations: {d64_hgmma}")
     bwd_hgmma = {kname: {fn: n for fn, n in per_fn.items() if kname in fn}
                  for kname in BWD_TC_KERNELS}
     _emit({"sass": "flash_attention_bwd bf16", "HGMMA_per_function": {
@@ -801,9 +837,11 @@ def main(argv: list[str] | None = None) -> int:
     # -- 5d. the MoE phase: granite-moe served and trained, the kernels at D=64 ------
     torch.cuda.empty_cache()
     moe_launches = _moe_phase(args.seed, hw, failures)
-    flash["moe_serve_launches"] = moe_launches["serve"]
-    flash["moe_train_launches"] = moe_launches["train_fwd"]
-    flash["launches"] += moe_launches["serve"] + moe_launches["train_fwd"]
+    # granite's, zamba's and whisper's forward launches are flash_d64_fwd's
+    # (bf16 at D=64): the kernels line's entry of their own
+    flash_d64 = {"launches": moe_launches["serve"] + moe_launches["train_fwd"],
+                 "moe_serve_launches": moe_launches["serve"],
+                 "moe_train_launches": moe_launches["train_fwd"]}
     flash_bwd["moe_train_launches"] = moe_launches["train_bwd"]
     flash_bwd["launches"] += moe_launches["train_bwd"]
 
@@ -831,9 +869,9 @@ def main(argv: list[str] | None = None) -> int:
     # -- 5f. the zamba phase: zamba2-1.2b served and trained, the kernels at D=64, G=1 ----
     torch.cuda.empty_cache()
     zamba_launches = _zamba_phase(args.seed, hw, failures)
-    flash["zamba_serve_launches"] = zamba_launches["serve"]
-    flash["zamba_train_launches"] = zamba_launches["train_fwd"]
-    flash["launches"] += zamba_launches["serve"] + zamba_launches["train_fwd"]
+    flash_d64["zamba_serve_launches"] = zamba_launches["serve"]
+    flash_d64["zamba_train_launches"] = zamba_launches["train_fwd"]
+    flash_d64["launches"] += zamba_launches["serve"] + zamba_launches["train_fwd"]
     flash_bwd["zamba_train_launches"] = zamba_launches["train_bwd"]
     flash_bwd["launches"] += zamba_launches["train_bwd"]
 
@@ -852,9 +890,9 @@ def main(argv: list[str] | None = None) -> int:
     t0 = time.perf_counter()
     whisper = _whisper_phase(args.seed, hw, failures)
     _emit({"phase": "whisper", "seconds": time.perf_counter() - t0})
-    flash["whisper_serve_launches"] = whisper["serve"]
-    flash["whisper_train_launches"] = whisper["train_fwd"]
-    flash["launches"] += whisper["serve"] + whisper["train_fwd"]
+    flash_d64["whisper_serve_launches"] = whisper["serve"]
+    flash_d64["whisper_train_launches"] = whisper["train_fwd"]
+    flash_d64["launches"] += whisper["serve"] + whisper["train_fwd"]
     flash["max_abs_err"] = max(flash["max_abs_err"], whisper["fwd_err"])
     flash_bwd["whisper_train_launches"] = whisper["train_bwd"]
     flash_bwd["launches"] += whisper["train_bwd"]
@@ -865,6 +903,23 @@ def main(argv: list[str] | None = None) -> int:
     t0 = time.perf_counter()
     _dryrun_phase(failures)
     _emit({"phase": "dryrun", "seconds": time.perf_counter() - t0})
+
+    # -- 5j. the D=64 forward at the main paths' shapes, in turns beside SDPA -------------
+    torch.cuda.empty_cache()
+    d64_rows = _d64_fwd_yardsticks(np.random.default_rng(args.seed + 25), hw, failures)
+    granite = d64_rows["5-64"]  # the table's 5-64 row
+    budget = flash_attention.kernel_budget(torch.bfloat16, 64, True)
+    flash_d64.update(max_abs_err=FLASH_ERRS["flash_d64_fwd"], ms=granite["kernel_ms"],
+                     plain_ms=granite["plain_ms"], bound_ms=granite["bound_ms"],
+                     bound_by=granite["bound_by"], library_ms=granite["library_ms"],
+                     graph_ms=granite["kernel_graph_ms"],
+                     library_graph_ms=granite["library_graph_ms"],
+                     shape="granite-moe-1b-a400m prefill: B=4, S=1,024, Hq=16, Hkv=8, causal",
+                     num_regs=budget["num_regs"], shared_bytes=budget["shared_bytes"],
+                     local_bytes=budget["local_bytes"])
+    for what, entry in (("flash_attention", flash), ("flash_d64_fwd", flash_d64)):
+        if entry["launches"] == 0:
+            failures.append(f"the main paths never launched {what}")
 
     # -- 6. the kernels line -----------------------------------------------------------
     _emit({"kernels": [{
@@ -885,6 +940,9 @@ def main(argv: list[str] | None = None) -> int:
     }, {
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES, **flash,
+    }, {
+        "name": "flash_attention (bf16 D=64: flash_d64_fwd)", "route": "cuda",
+        "source": FLASH_SOURCE, "replaces": FLASH_REPLACES, **flash_d64,
     }, {
         "name": "flash_attention_bwd", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": BWD_SOURCE_LINE, **flash_bwd,
@@ -1520,6 +1578,8 @@ def _flash_checks(rng, failures: list[str], forms=FLASH_FORMS) -> float:
         ok = bool(torch.isfinite(got.float()).all()) and bool(
             (diff <= atol + rtol * torch.abs(want.float())).all())
         worst = max(worst, err)
+        kernel = "flash_d64_fwd" if dtype == "bfloat16" and d == 64 else "flash_attention"
+        FLASH_ERRS[kernel] = max(FLASH_ERRS.get(kernel, 0.0), err)
         _emit({"check": "kernel_vs_plain", "kernel": "flash_attention", "form": label,
                "shape": [b, sq, skv, hq, hkv, d], "causal": causal, "q_offset": q_offset,
                "dtype": dtype, "max_abs_err": err, "atol": atol, "rtol": rtol, "ok": ok})
@@ -3070,8 +3130,11 @@ def _flash_yardsticks(seed: int, hw, failures: list[str]) -> None:
     """The flash rows of PERF.md's kernels table alone, at the shapes the
     full run times them: row 5 (qwen3-4b's prefill, B=4, S=1,024, Hq=32,
     Hkv=8, D=128) and 5b (its training, B=2), 5-64 (granite-moe's heads),
-    5-mla (deepseek-v3's prefill at (192, 128)) and 5b-mla (its training);
-    then the FLASH_ROWS line.  Run on two checkouts in one call (parent,
+    the D=64 forward at zamba2-1.2b's, granite-moe's and whisper-tiny's
+    shapes in turns beside SDPA (``_d64_fwd_yardsticks``: 5-zamba, 5-64,
+    5-whisper encoder and cross), 5-mla (deepseek-v3's prefill at (192,
+    128)) and 5b-mla (its training); then the FLASH_ROWS line and the
+    digests.  Run on two checkouts in one call (parent,
     change, change, parent) it compares them on one card."""
     import numpy as np
 
@@ -3083,11 +3146,83 @@ def _flash_yardsticks(seed: int, hw, failures: list[str]) -> None:
         FLASH_ROWS[row] = {key: fwd.get(key) for key in FLASH_ROW_KEYS if key in fwd}
         FLASH_ROWS[row.replace("5", "5b", 1)] = {key: bwd.get(key) for key in FLASH_ROW_KEYS
                                                  if key in bwd}
+    _d64_fwd_yardsticks(rng, hw, failures)
     h = get_config(MLA_ARCH).n_heads
     _mla_fwd_yardstick(LM_BATCH, LM_PROMPT, h, rng, hw, failures)
     _mla_bwd_yardstick(TRAIN_BATCH, TRAIN_SEQ, h, rng, hw, failures)
     _emit({"flash_rows": FLASH_ROWS})
     _emit({"flash_digests": _flash_digests(seed)})
+
+
+def _d64_fwd_yardsticks(rng, hw, failures: list[str]) -> dict[str, dict]:
+    """The bf16 forward at D=64 (``flash_d64_fwd``) at each D64_ROWS shape:
+    zamba2-1.2b's shared block and granite-moe's heads at the prefill
+    shape, whisper-tiny's encoder and cross-attention at serving's prefill.
+    Each against its plain version within ``kernel_tolerance`` (the plain
+    call timed once, ``plain_ms``), then the kernel and SDPA of every shape
+    timed in three alternating turns (``_timed_in_turns``: eager calls and
+    CUDA graphs of 20 calls), beside the bound.  Emits one row, records each
+    shape in FLASH_ROWS under its row name and returns the shapes' entries."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import roofline
+    from repro_torch.kernels import flash_attention as fa
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    atol, rtol = fa.kernel_tolerance(bf16)
+    forms, shapes = {}, {}
+    for name, arch, b, sq, skv, hq, hkv, causal in D64_ROWS:
+        q, k, v = (torch.from_numpy(rng.standard_normal(shp, dtype=np.float32)).to(dev, bf16)
+                   for shp in ((b, sq, hq, 64), (b, skv, hkv, 64), (b, skv, hkv, 64)))
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = fa.flash_attention_plain(q, k, v, causal=causal)
+        end.record()
+        got = fa.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        ok = bool(torch.isfinite(got.float()).all()) and bool(
+            (diff <= atol + rtol * want.float().abs()).all())
+        if not ok:
+            failures.append(f"flash_attention vs plain at {name}: {diff.max().item()}")
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        forms[name] = lambda q=q, k=k, v=v, c=causal: fa.flash_attention(q, k, v, causal=c)
+        forms[f"{name} sdpa"] = (
+            lambda qt=qt, kt=kt, vt=vt, c=causal: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=c, enable_gqa=True))
+        bound = roofline.attention_bound(batch=b, sq=sq, skv=skv, hq=hq, hkv=hkv, d=64,
+                                         causal=causal, dtype=bf16,
+                                         hw=hw) if hw is not None else None
+        shapes[name] = {"arch": arch, "shape": [b, sq, skv, hq, hkv, 64], "causal": causal,
+                        "max_abs_err": diff.max().item(), "ok": ok,
+                        "plain_ms": start.elapsed_time(end),
+                        "bound_ms": None if bound is None else bound.bound_s * 1e3,
+                        "bound_by": None if bound is None else bound.bound_by,
+                        "executed_flops": fa.executed_flops(b, sq, skv, hq, hkv, 64,
+                                                            causal=causal)}
+        del want, got, diff
+    turns = {}
+    _timed_in_turns(turns, forms, reps=20, graph=True)
+    for name, entry in shapes.items():
+        entry.update(kernel_ms=turns[f"{name}_kernel_ms"],
+                     kernel_ms_turns=turns[f"{name}_kernel_ms_turns"],
+                     kernel_graph_ms=turns[f"{name}_kernel_graph_ms"],
+                     kernel_graph_ms_turns=turns[f"{name}_kernel_graph_ms_turns"],
+                     library_ms=turns[f"{name} sdpa_kernel_ms"],
+                     library_graph_ms=turns[f"{name} sdpa_kernel_graph_ms"],
+                     library_graph_ms_turns=turns[f"{name} sdpa_kernel_graph_ms_turns"])
+        entry["kernel_vs_library_graph"] = entry["kernel_graph_ms"] / entry["library_graph_ms"]
+        if entry["bound_ms"] is not None:
+            entry["bound_share_graph"] = entry["bound_ms"] / entry["kernel_graph_ms"]
+        FLASH_ROWS[name] = {key: entry[key] for key in FLASH_ROW_KEYS if key in entry}
+    _emit({"yardstick": "flash_attention bf16 D=64 (flash_d64_fwd) at the main paths' shapes",
+           "rows": shapes,
+           "library_call": "F.scaled_dot_product_attention(is_causal=causal, enable_gqa=True)",
+           "timing": "kernel_ms, library_ms: median of 3 alternating turns of 20 eager calls; "
+                     "*_graph_ms: of CUDA graphs of 20 calls in the same turns; plain_ms: one "
+                     "call"})
+    return shapes
 
 
 # the digest forms: (label, dtype, batch, seq, hq, hkv, d, dv), causal
@@ -3240,7 +3375,7 @@ def _timed_in_turns(row: dict, forms: dict, reps: int, graph: bool, rounds: int 
     weighs on every form alike: ``<form>_kernel_ms`` the median of the
     turns (eager calls), ``<form>_kernel_ms_turns`` each, and with
     ``graph`` ``<form>_kernel_graph_ms`` the median of CUDA graphs timed in
-    the same turns."""
+    the same turns, ``<form>_kernel_graph_ms_turns`` each."""
     import statistics
 
     eager = {form: [] for form in forms}
@@ -3255,6 +3390,7 @@ def _timed_in_turns(row: dict, forms: dict, reps: int, graph: bool, rounds: int 
         row[f"{form}_kernel_ms_turns"] = eager[form]
         if graph:
             row[f"{form}_kernel_graph_ms"] = statistics.median(graphs[form])
+            row[f"{form}_kernel_graph_ms_turns"] = graphs[form]
 
 
 def _mla_fwd_yardstick(b: int, s: int, h: int, rng, hw, failures: list[str]) -> dict:

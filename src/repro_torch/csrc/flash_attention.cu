@@ -41,7 +41,10 @@
 //    registers (setmaxnreg).  The consumers bring Q in once by cp.async
 //    into the same 128-byte swizzle.  At D=192, Dv=128 a persistent block
 //    per SM walks a list of (head, row tile) items instead, Q loaded by TMA
-//    beside two K and two V stages (214,096 B; tc::flash_mla_fwd).
+//    beside two K and two V stages (214,096 B; tc::flash_mla_fwd).  At D =
+//    Dv = 64 a persistent block per SM walks (kv head, tile of whole query
+//    groups) items with two Q, three K and three V stages (132,224 B;
+//    tc::flash_d64_fwd, G <= 128).
 //  * Per key tile, each consumer issues one batch: O += P V of the previous
 //    tile, then S = Q K^T (wgmma, bf16 operands from shared memory, f32
 //    accumulators), then runs the online softmax of S while the other
@@ -868,7 +871,7 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tmk, const __grid_constan
 // One block per SM walks a fixed list of work items (batch * head, tile of
 // 128 query rows): chunks of `chunk` heads, in a chunk every head's heaviest
 // row tile first, then the next.  Block j takes items j, j + grid, ...; the
-// host picks the chunk that balances the blocks' causal work (mla_chunk), and
+// host picks the chunk that balances the blocks' causal work (work_chunk), and
 // the heads of a chunk run together, so their K and V come from L2: one
 // block per (head, row tile) in head-fastest order read each head's K and V
 // once per row tile from device memory (about 1.5 GB at the prefill shape,
@@ -2595,6 +2598,283 @@ flash_bwd_dq_mla(const __grid_constant__ CUtensorMap tmk, const __grid_constant_
 
 }  // namespace tcb
 
+// -- bf16 at D = Dv = 64: a persistent block over work items -------------------------
+//
+// At D = 64 a causal block of flash_attention_tc at S = 1,024 walks 4.5 key
+// tiles on average (1 to 8), and its start (barriers, Q by cp.async, the
+// first Q K^T alone) and end (the last P V alone, the O store), which
+// nothing overlaps, weigh as much as its loop: zamba2-1.2b's shared block
+// ran 1.5x behind SDPA on an H100 SXM.  flash_d64_fwd:
+//  * One block per SM walks a fixed list of work items (batch * kv head,
+//    tile of tile_rows = G * (128 / G) folded rows: whole query groups, so
+//    that a tile's Q is one TMA box of 128 / G queries of G heads), in
+//    chunks of heads, in a chunk every head's heaviest row tile first, as
+//    flash_mla_fwd walks its list (the host picks the chunk: work_chunk).
+//    Rows tile_rows .. 127 of the Q stages (G not a power of two) are
+//    zeroed once, computed and never stored.
+//  * The producer keeps K and V in rings of three stages each that run on
+//    across items, and Q in two stages with their own full/empty pairs: the
+//    next item's Q and first K and V tiles load under this item's last
+//    softmax, its last P V and its O store.
+//  * Per key tile the consumers run flash_attention_tc's loop (Tc): P V of
+//    the previous tile and S = Q K^T in one batch, the two warpgroups taking
+//    turns on the tensor cores, then the softmax.  Two alternatives ran
+//    slower on an H100: the exponentials of S_t under the warpgroup's own
+//    P_{t-1} V_{t-1} with the bf16 split after it (the MUFU and F2FP phases
+//    then no longer interleave), and two P register sets alternating by key
+//    tile (ptxas serialized every wgmma for want of registers).
+//  * The arithmetic is flash_attention_tc's row for row: key tiles of 128 in
+//    order, exp2_approx, P in two bf16 parts, the rescale after each P V, the
+//    lse in raw units scaled at the store.  A row's bits do not depend on
+//    the rows beside it or on tiles past its last visible key (they add
+//    exp2(-huge) = 0 and rescale by 1), so out and lse are the same bits.
+namespace tc {
+
+struct D64Fwd {
+  using T = Tile<64>;
+  static constexpr int kStages = 3;   // K tiles in flight, and V tiles
+  static constexpr int kQStages = 2;  // Q tiles: an item's and the next one's
+  // aligned Q stages, the K and V rings, then the full and empty barriers of
+  // each K, V and Q stage: 132,224 B
+  static constexpr int kSmem =
+      kAlign + (kQStages + 2 * kStages) * T::kTileBytes + 8 * (4 * kStages + 2 * kQStages);
+};
+
+struct D64Params {
+  int sq, skv, g, hkv, q_offset;
+  int tile_rows;                   // folded rows of an item: g * (kRows / g)
+  int n_rt, n_bh, chunk, n_items;  // row tiles a kv head, batch * kv heads, the work list
+  float scale;
+  long long os[3];  // o's element strides of (batch, seq, head)
+  float* lse;       // (batch, hq, sq) f32, or null
+};
+
+// Work item `item`: batch and kv head, its row tile's first folded row and
+// key tiles (the causal ones up to the last that its last row sees).
+struct D64Item {
+  int b, hk, row0, n_tiles;
+};
+
+template <bool kCausal>
+__device__ __forceinline__ D64Item d64_item(const D64Params& p, int item) {
+  const int per = p.chunk * p.n_rt;  // items of a whole chunk
+  const int c = item / per, j = item % per;
+  const int heads = min(p.chunk, p.n_bh - c * p.chunk);  // the last chunk may hold fewer
+  const int bh = c * p.chunk + j % heads;
+  D64Item it;
+  it.b = bh / p.hkv;
+  it.hk = bh % p.hkv;
+  it.row0 = (p.n_rt - 1 - j / heads) * p.tile_rows;  // heaviest first
+  it.n_tiles = (p.skv + kKeys - 1) / kKeys;
+  if (kCausal) {
+    const int last_row = min(it.row0 + p.tile_rows, p.sq * p.g) - 1;
+    it.n_tiles = min(it.n_tiles, (last_row / p.g + p.q_offset) / kKeys + 1);
+  }
+  return it;
+}
+
+template <bool kCausal>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_d64_fwd(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ CUtensorMap tmk,
+              const __grid_constant__ CUtensorMap tmv, __nv_bfloat16* __restrict__ o,
+              const D64Params p) {
+  using T = D64Fwd::T;
+  constexpr int kStages = D64Fwd::kStages, kQStages = D64Fwd::kQStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + kAlign - 1) & ~static_cast<uint32_t>(kAlign - 1);
+  const uint32_t q_s = base;                            // kQStages Q tiles
+  const uint32_t k_s = q_s + kQStages * T::kTileBytes;  // kStages K tiles
+  const uint32_t v_s = k_s + kStages * T::kTileBytes;   // kStages V tiles
+  const uint32_t k_full = v_s + kStages * T::kTileBytes;
+  const uint32_t k_empty = k_full + 8 * kStages;
+  const uint32_t v_full = k_empty + 8 * kStages;
+  const uint32_t v_empty = v_full + 8 * kStages;
+  const uint32_t q_full = v_empty + 8 * kStages, q_empty = q_full + 8 * kQStages;
+  const int rows = p.sq * p.g;  // < 2^23 (the host's row-tile limit)
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full + 8 * s, 1);   // the producer's arrival, plus the bytes
+      mbar_init(k_empty + 8 * s, 8);  // one arrival per consumer warp
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(v_empty + 8 * s, 8);
+    }
+    for (int s = 0; s < kQStages; ++s) {
+      mbar_init(q_full + 8 * s, 1);
+      mbar_init(q_empty + 8 * s, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (p.tile_rows < kRows) {
+    // rows tile_rows .. kRows - 1 of both Q stages: TMA never writes them,
+    // so zeros once keep them finite (their outputs are never stored)
+    constexpr int kChunks = T::kSwizzle / 16;  // of 16 bytes in a row
+    const int tail = (kRows - p.tile_rows) * kChunks;
+    uint4* tiles = reinterpret_cast<uint4*>(smem_raw + (q_s - raw));
+    for (int idx = threadIdx.x; idx < kQStages * tail; idx += kThreads) {
+      tiles[idx / tail * (T::kTileBytes / 16) + p.tile_rows * kChunks + idx % tail] =
+          make_uint4(0, 0, 0, 0);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // -- producer: per item Q, then K_0, (K_u, V_{u-1}) for u >= 1, V_{n-1} --------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      for (const CUtensorMap* map : {&tmq, &tmk, &tmv}) {
+        asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map))
+                     : "memory");
+      }
+      int done = 0;  // K and V tiles loaded before this item (as many of each)
+      for (int ic = 0; blockIdx.x + ic * gridDim.x < p.n_items; ++ic) {
+        const D64Item it = d64_item<kCausal>(p, blockIdx.x + ic * gridDim.x);
+        auto load = [&](uint32_t ring, uint32_t full, uint32_t empty, const CUtensorMap* map,
+                        int t) {
+          const int s = (done + t) % kStages;
+          mbar_wait(empty + 8 * s, (((done + t) / kStages) & 1) ^ 1);  // stage released
+          mbar_expect_tx(full + 8 * s, T::kTileBytes);
+          tma_load(ring + s * T::kTileBytes, map, full + 8 * s, 0, it.hk, t * kKeys, it.b);
+        };
+        const int qs = ic % kQStages;
+        mbar_wait(q_empty + 8 * qs, ((ic / kQStages) & 1) ^ 1);  // its last Q K^T is done
+        mbar_expect_tx(q_full + 8 * qs, p.tile_rows * T::kSwizzle);
+        tcb::tma_load_rows(q_s + qs * T::kTileBytes, &tmq, q_full + 8 * qs, 0, it.hk,
+                           it.row0 / p.g, it.b);
+        load(k_s, k_full, k_empty, &tmk, 0);
+        for (int t = 1; t < it.n_tiles; ++t) {
+          load(k_s, k_full, k_empty, &tmk, t);
+          load(v_s, v_full, v_empty, &tmv, t - 1);
+        }
+        load(v_s, v_full, v_empty, &tmv, it.n_tiles - 1);
+        done += it.n_tiles;
+      }
+    }
+  } else {
+    // -- consumer c: folded rows row0 + 64c .. row0 + 64c + 63 of each item -----------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int c = threadIdx.x / 128 - 1, tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int r = 16 * warp + lane / 4;  // this thread's rows r and r + 8 of the 64
+    // K and V tiles taken before this item (tile t of the item is K and V
+    // number done + t, stage (done + t) % kStages)
+    int done = 0;
+    for (int ic = 0; blockIdx.x + ic * gridDim.x < p.n_items; ++ic) {
+      const int qs = ic % kQStages;
+      int n_tiles, wg_row0;
+      {
+        const D64Item it = d64_item<kCausal>(p, blockIdx.x + ic * gridDim.x);
+        n_tiles = it.n_tiles;
+        wg_row0 = it.row0 + 64 * c;
+      }
+      // a row sees keys below min(Skv, its position + 1) (causal) or Skv;
+      // rows past the end take the last row's position
+      auto lim_of = [&](int f) {
+        const int pos = min(f, rows - 1) / p.g + p.q_offset;
+        return kCausal ? min(p.skv, pos + 1) : p.skv;
+      };
+      const Tc<64, 64> tcx{q_s + qs * T::kTileBytes + 64 * c * T::kSwizzle, k_s, v_s,
+                           {lim_of(wg_row0 + r), lim_of(wg_row0 + r + 8)}, lim_of(wg_row0),
+                           lane, p.scale * 1.4426950408889634f};
+      float acc[32], sc[kKeys / 2], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+#pragma unroll
+      for (int i = 0; i < kKeys / 2; ++i) sc[i] = 0.f;
+      uint32_t hi[kKeys / 16][4], lo[kKeys / 16][4];  // p of the previous tile
+      auto softmax = [&](int key0) {
+        if (key0 + kKeys > tcx.min_lim) {
+          tcx.template softmax<true>(sc, m, l, alpha, hi, lo, key0);
+        } else {
+          tcx.template softmax<false>(sc, m, l, alpha, hi, lo, key0);
+        }
+      };
+      auto stage = [&](int i) { return (done + i) % kStages; };
+      auto parity = [&](int i) { return static_cast<uint32_t>((done + i) / kStages) & 1; };
+
+      mbar_wait(q_full + 8 * qs, (ic / kQStages) & 1);
+      if (c == 1) turn_pass(1);  // warpgroup 0 takes the first turn
+      // Tile 0: S_0 and its softmax.  Tile t: P_{t-1} V_{t-1} and S_t in one
+      // batch; then the softmax of S_t, and the accumulator rescaled.
+      mbar_wait(k_full + 8 * stage(0), parity(0));
+      turn_wait(c);
+      wgmma_fence();
+      tcx.issue_qk(sc, stage(0));
+      wgmma_commit();
+      turn_pass(c);
+      wgmma_wait<0>();
+      fence_regs(sc);
+      if (lane == 0) {
+        mbar_arrive(k_empty + 8 * stage(0));              // this warp is done with K_0
+        if (n_tiles == 1) mbar_arrive(q_empty + 8 * qs);  // and with Q
+      }
+      softmax(0);
+      for (int t = 1; t < n_tiles; ++t) {
+        mbar_wait(v_full + 8 * stage(t - 1), parity(t - 1));
+        mbar_wait(k_full + 8 * stage(t), parity(t));
+        turn_wait(c);
+        wgmma_fence();
+        tcx.issue_pv(acc, hi, lo, stage(t - 1));
+        tcx.issue_qk(sc, stage(t));
+        wgmma_commit();
+        turn_pass(c);
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_regs(sc);
+        if (lane == 0) {
+          mbar_arrive(k_empty + 8 * stage(t));
+          mbar_arrive(v_empty + 8 * stage(t - 1));
+          if (t == n_tiles - 1) mbar_arrive(q_empty + 8 * qs);
+        }
+        softmax(t * kKeys);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[i] *= alpha[i / 2 % 2];
+      }
+      mbar_wait(v_full + 8 * stage(n_tiles - 1), parity(n_tiles - 1));
+      turn_wait(c);
+      wgmma_fence();
+      tcx.issue_pv(acc, hi, lo, stage(n_tiles - 1));
+      wgmma_commit();
+      if (c == 0) turn_pass(c);  // the last turn of warpgroup 1 has no taker
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (lane == 0) mbar_arrive(v_empty + 8 * stage(n_tiles - 1));
+      done += n_tiles;
+
+      // out = acc / max(l, 1e-37), rounded once to bf16; rows past the item's
+      // tile and past Sq * G unstored.  The item, decoded again here, is not
+      // held in registers across its loop.
+      const D64Item it = d64_item<kCausal>(p, blockIdx.x + ic * gridDim.x);
+      const int row_end = min(it.row0 + p.tile_rows, rows);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+        const int f = it.row0 + 64 * c + r + 8 * h;
+        if (f >= row_end) continue;
+        const int qi = f / p.g, head = it.hk * p.g + f % p.g;
+        __nv_bfloat16* orow =
+            o + it.b * p.os[0] + qi * p.os[1] + head * p.os[2] + 2 * (lane % 4);
+        const float inv = 1.f / fmaxf(l[h], 1e-37f);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+              __floats2bfloat162_rn(acc[4 * j + 2 * h] * inv, acc[4 * j + 2 * h + 1] * inv);
+        }
+        // m is a max of raw q . k: scaled here, as the exponent scales it
+        if (p.lse != nullptr && lane % 4 == 0) {
+          p.lse[(static_cast<long long>(it.b) * p.hkv * p.g + head) * p.sq + qi] =
+              m[h] * p.scale + logf(l[h]);
+        }
+      }
+    }
+  }
+}
+
+}  // namespace tc
+
 // -- host ---------------------------------------------------------------------------
 
 template <typename T, int D, int Dv>
@@ -2625,6 +2905,11 @@ Body body_d(int dtype, bool causal) {
                      : reinterpret_cast<const void*>(&tc::flash_mla_fwd<false>),
               tc::kThreads, tc::MlaFwd::kSmem, tc::kRows, tc::kKeys, tc::MlaFwd::kStages,
               tc::MlaFwd::K::kSwizzle};
+    } else if constexpr (D == 64) {  // the persistent flash_d64_fwd
+      return {causal ? reinterpret_cast<const void*>(&tc::flash_d64_fwd<true>)
+                     : reinterpret_cast<const void*>(&tc::flash_d64_fwd<false>),
+              tc::kThreads, tc::D64Fwd::kSmem, tc::kRows, tc::kKeys, tc::D64Fwd::kStages,
+              tc::D64Fwd::T::kSwizzle};
     } else {
       return {pick_tc<D, Dv>(causal), tc::kThreads, tc::Fwd<D, Dv>::kSmem, tc::kRows, tc::kKeys,
               tc::Fwd<D, Dv>::kStages, tc::Tile<D>::kSwizzle};
@@ -2648,12 +2933,28 @@ Body pick(int dtype, int d, int dv, bool causal) {
 }
 
 // Dynamic shared memory above 48 KB must be allowed per kernel; ask for the
-// largest carveout so that two f32 blocks fit on one SM.
+// largest carveout so that two f32 blocks fit on one SM.  Once per kernel
+// function and device (a function always asks for the same bytes): the
+// launches after the first skip both calls.
 cudaError_t prepare(const void* fn, int bytes) {
-  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  struct Prepared {
+    const void* fn;
+    int dev;
+  };
+  static thread_local Prepared done[128];
+  static thread_local int n_done = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
-                              cudaSharedmemCarveoutMaxShared);
+  for (int i = 0; i < n_done; ++i) {
+    if (done[i].fn == fn && done[i].dev == dev) return cudaSuccess;
+  }
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess && n_done < 128) done[n_done++] = {fn, dev};
+  return err;
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -2702,11 +3003,12 @@ cudaError_t kv_map(CUtensorMap* map, const void* base, int d, int hkv, int skv, 
 }
 
 // The (D, G, Hkv, S, B) view of q or dout (element strides of (batch, seq,
-// head)), cut into boxes of (swizzle / 2, G, 1, 64 / G, 1): tcb::tile_rows(G)
+// head)), cut into boxes of (swizzle / 2, G, 1, rows / G, 1): G * (rows / G)
 // folded rows of one kv head (query f / G, head f % G of its group) under
-// that swizzle.  G <= 64.
+// that swizzle.  G <= rows: the backward's tiles of tcb::kRows (64) rows,
+// flash_d64_fwd's of tc::kRows (128).
 cudaError_t row_map(CUtensorMap* map, const void* base, int d, int g, int hkv, int sq, int batch,
-                    const long long* strides, int swizzle) {
+                    const long long* strides, int swizzle, int rows) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[5] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(g),
@@ -2720,7 +3022,7 @@ cudaError_t row_map(CUtensorMap* map, const void* base, int d, int g, int hkv, i
     if (dims[i + 1] == 1) bytes[i] = i == 0 ? dims[0] * 2 : bytes[i - 1] * dims[i];
   }
   const cuuint32_t box[5] = {static_cast<cuuint32_t>(swizzle / 2), static_cast<cuuint32_t>(g), 1,
-                             static_cast<cuuint32_t>(tcb::kRows / g), 1};
+                             static_cast<cuuint32_t>(rows / g), 1};
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
   const CUresult rc = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(base), dims, bytes, box, unit,
@@ -2730,22 +3032,27 @@ cudaError_t row_map(CUtensorMap* map, const void* base, int d, int g, int hkv, i
   return rc == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// flash_mla_fwd's chunk of heads: the one of kChunks (at most the heads)
-// whose work list, dealt to `grid` blocks in turn, gives the least largest
-// block, counting an item as its key tiles plus half a tile (its Q load and
-// O store); the smaller chunk on a tie, whose heads' K and V stay in L2.  The
-// last few answers are kept: a model calls it at one shape again and again.
-int mla_chunk(int n_bh, int n_rt, int sq, int skv, int q_offset, bool causal, int grid) {
+// A persistent forward's chunk of heads (flash_mla_fwd, flash_d64_fwd): its
+// work list holds n_bh heads (batch * kv heads) of n_rt row tiles of
+// tile_rows folded rows each (g folded rows a query).  The chunk is the one
+// of kChunks (at most the heads) whose list, dealt to `grid` blocks in turn,
+// gives the least largest block, counting an item as its key tiles plus half
+// a tile (its Q load and O store); the smaller chunk on a tie, whose heads'
+// K and V stay in L2.  The last few answers are kept: a model calls it at
+// one shape again and again.
+int work_chunk(int n_bh, int n_rt, int tile_rows, int g, int sq, int skv, int q_offset,
+               bool causal, int grid) {
   constexpr int kChunks[] = {1, 2, 4, 6, 8, 12, 16, 24, 32};
   constexpr int kMaxGrid = 1024;
   struct Key {
-    int n_bh, n_rt, sq, skv, q_offset, causal, grid, chunk;
+    int n_bh, n_rt, tile_rows, g, sq, skv, q_offset, causal, grid, chunk;
   };
   static thread_local Key seen[8];
   static thread_local int next = 0;
   for (const Key& k : seen) {
-    if (k.chunk > 0 && k.n_bh == n_bh && k.n_rt == n_rt && k.sq == sq && k.skv == skv &&
-        k.q_offset == q_offset && k.causal == causal && k.grid == grid) {
+    if (k.chunk > 0 && k.n_bh == n_bh && k.n_rt == n_rt && k.tile_rows == tile_rows &&
+        k.g == g && k.sq == sq && k.skv == skv && k.q_offset == q_offset &&
+        k.causal == causal && k.grid == grid) {
       return k.chunk;
     }
   }
@@ -2760,11 +3067,11 @@ int mla_chunk(int n_bh, int n_rt, int sq, int skv, int q_offset, bool causal, in
       for (int c0 = 0; c0 < n_bh; c0 += chunk) {
         const int heads = n_bh - c0 < chunk ? n_bh - c0 : chunk;
         for (int rank = 0; rank < n_rt; ++rank) {
-          const int row0 = (n_rt - 1 - rank) * tc::kRows;
+          const int row0 = (n_rt - 1 - rank) * tile_rows;
           int n = key_tiles;
           if (causal) {
-            const int last = (row0 + tc::kRows < sq ? row0 + tc::kRows : sq) - 1;
-            const int seen_tiles = (last + q_offset) / tc::kKeys + 1;
+            const int last = (row0 + tile_rows < sq * g ? row0 + tile_rows : sq * g) - 1;
+            const int seen_tiles = (last / g + q_offset) / tc::kKeys + 1;
             n = n < seen_tiles ? n : seen_tiles;
           }
           for (int j = 0; j < heads; ++j) {
@@ -2778,7 +3085,7 @@ int mla_chunk(int n_bh, int n_rt, int sq, int skv, int q_offset, bool causal, in
       if (best_span < 0 || span < best_span) best = chunk, best_span = span;
     }
   }
-  seen[next] = {n_bh, n_rt, sq, skv, q_offset, causal ? 1 : 0, grid, best};
+  seen[next] = {n_bh, n_rt, tile_rows, g, sq, skv, q_offset, causal ? 1 : 0, grid, best};
   next = (next + 1) % 8;
   return best;
 }
@@ -2814,7 +3121,7 @@ cudaError_t launch_mla_fwd(const void* qn, const void* qr, const void* kn, const
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   const int grid = n_sm < p.n_items ? n_sm : p.n_items;
-  p.chunk = mla_chunk(p.n_bh, p.n_rt, sq, skv, q_offset, causal, grid);
+  p.chunk = work_chunk(p.n_bh, p.n_rt, tc::kRows, 1, sq, skv, q_offset, causal, grid);
   CUtensorMap tmqn, tmqr, tmkn, tmkr, tmv;
   const int sw = tc::MlaFwd::K::kSwizzle;
   err = kv_map(&tmqn, qn, 128, heads, sq, batch, strides, sw, tc::kRows);
@@ -2827,6 +3134,54 @@ cudaError_t launch_mla_fwd(const void* qn, const void* qr, const void* kn, const
   if (err == cudaSuccess) err = prepare(body.fn, body.smem);
   if (err != cudaSuccess) return err;
   void* args[] = {&tmqn, &tmqr, &tmkn, &tmkr, &tmv, &o, &p};
+  err = cudaLaunchKernel(body.fn, dim3(static_cast<unsigned>(grid)), dim3(body.threads), args,
+                         body.smem, stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// bf16 at D = Dv = 64, any G <= 128: flash_d64_fwd over a work list of
+// (batch * kv head, tile of G * (128 / G) folded rows) items, q read by a
+// TMA map of whole query groups.
+cudaError_t launch_d64_fwd(const void* q, const void* k, const void* v, void* o, const Params& p,
+                           int batch, const long long* strides, bool causal,
+                           cudaStream_t stream) {
+  const Body body = body_d<64, 64>(kBF16, causal);
+  if (p.g > tc::kRows || static_cast<long long>(p.sq) * p.g > 65535LL * tc::kRows) {
+    return cudaErrorInvalidValue;  // whole query groups in a tile; rows as the other bodies'
+  }
+  tc::D64Params dp;
+  dp.sq = p.sq;
+  dp.skv = p.skv;
+  dp.g = p.g;
+  dp.hkv = p.hkv;
+  dp.q_offset = p.q_offset;
+  dp.tile_rows = p.g * (tc::kRows / p.g);
+  dp.scale = p.scale;
+  for (int i = 0; i < 3; ++i) dp.os[i] = p.os[i];
+  dp.lse = p.lse;
+  dp.n_rt = (p.sq * p.g + dp.tile_rows - 1) / dp.tile_rows;
+  dp.n_bh = batch * p.hkv;
+  if (static_cast<long long>(dp.n_bh) * dp.n_rt > (1LL << 30)) return cudaErrorInvalidValue;
+  dp.n_items = dp.n_bh * dp.n_rt;
+  int dev = 0, n_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int grid = n_sm < dp.n_items ? n_sm : dp.n_items;
+  dp.chunk = work_chunk(dp.n_bh, dp.n_rt, dp.tile_rows, p.g, p.sq, p.skv, p.q_offset, causal,
+                        grid);
+  CUtensorMap tmq, tmk, tmv;
+  err = row_map(&tmq, q, 64, p.g, p.hkv, p.sq, batch, strides, body.swizzle, tc::kRows);
+  if (err == cudaSuccess) {
+    err = kv_map(&tmk, k, 64, p.hkv, p.skv, batch, strides + 3, body.swizzle, body.keys);
+  }
+  if (err == cudaSuccess) {
+    err = kv_map(&tmv, v, 64, p.hkv, p.skv, batch, strides + 6, body.swizzle, body.keys);
+  }
+  if (err == cudaSuccess) err = prepare(body.fn, body.smem);
+  if (err != cudaSuccess) return err;
+  void* args[] = {&tmq, &tmk, &tmv, &o, &dp};
   err = cudaLaunchKernel(body.fn, dim3(static_cast<unsigned>(grid)), dim3(body.threads), args,
                          body.smem, stream);
   if (err != cudaSuccess) return err;
@@ -2955,6 +3310,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     }
     return static_cast<int>(launch_mla_fwd(qb, qb + 128, kb, kb + 128, v, o, lse, batch, sq, skv,
                                            hq, hkv, split, causal != 0, q_offset, scale, st));
+  }
+  if (dtype == kBF16 && d == 64) {
+    return static_cast<int>(launch_d64_fwd(q, k, v, o, p, batch, strides, causal != 0, st));
   }
   cudaError_t err = prepare(body.fn, body.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -3103,12 +3461,14 @@ cudaError_t launch_bwd(const BwdArgs& a, int dtype, cudaStream_t st) {
   const int nope = mla ? a.d - 64 : a.d;  // q's and k's columns in their first part
   if (mla) {
     CUtensorMap tmq, tmqr, tmdo;
-    err = row_map(&tmq, a.q, nope, p.g, a.hkv, a.sq, a.batch, a.strides, swizzle);
+    err = row_map(&tmq, a.q, nope, p.g, a.hkv, a.sq, a.batch, a.strides, swizzle, tcb::kRows);
     if (err == cudaSuccess) {
-      err = row_map(&tmqr, a.q_rope, 64, p.g, a.hkv, a.sq, a.batch, a.strides + 24, swizzle);
+      err = row_map(&tmqr, a.q_rope, 64, p.g, a.hkv, a.sq, a.batch, a.strides + 24, swizzle,
+                    tcb::kRows);
     }
     if (err == cudaSuccess) {
-      err = row_map(&tmdo, a.dout, a.dv_dim, p.g, a.hkv, a.sq, a.batch, a.strides + 12, swizzle);
+      err = row_map(&tmdo, a.dout, a.dv_dim, p.g, a.hkv, a.sq, a.batch, a.strides + 12, swizzle,
+                    tcb::kRows);
     }
     if (err != cudaSuccess) return err;
     void* dkdv_args[] = {&tmq, &tmqr, &tmdo, const_cast<void**>(&a.k),
@@ -3118,9 +3478,10 @@ cudaError_t launch_bwd(const BwdArgs& a, int dtype, cudaStream_t st) {
                            st);
   } else if (body.tc) {
     CUtensorMap tmq, tmdo;
-    err = row_map(&tmq, a.q, a.d, p.g, a.hkv, a.sq, a.batch, a.strides, swizzle);
+    err = row_map(&tmq, a.q, a.d, p.g, a.hkv, a.sq, a.batch, a.strides, swizzle, tcb::kRows);
     if (err == cudaSuccess) {
-      err = row_map(&tmdo, a.dout, a.dv_dim, p.g, a.hkv, a.sq, a.batch, a.strides + 12, swizzle);
+      err = row_map(&tmdo, a.dout, a.dv_dim, p.g, a.hkv, a.sq, a.batch, a.strides + 12, swizzle,
+                    tcb::kRows);
     }
     if (err != cudaSuccess) return err;
     void* dkdv_args[] = {&tmq, &tmdo, const_cast<void**>(&a.q), const_cast<void**>(&a.k),

@@ -56,7 +56,10 @@ which shape the plain version's chunking only.  It has two bodies:
     persistent block per SM walks a list of (head, row tile) items with a
     ring of two K and two V stages (``flash_mla_fwd``; see
     :func:`smem_bytes`), reading q and k as nope and rope parts
-    (:func:`flash_attention_split`).  q . k is summed in f32 from the bf16
+    (:func:`flash_attention_split`).  At D = Dv = 64 (G <= 128) one
+    persistent block per SM walks (kv head, tile of whole query groups:
+    G * (128 // G) folded rows) items with two Q, three K and three V
+    stages (``flash_d64_fwd``).  q . k is summed in f32 from the bf16
     operands and scaled in f32 inside the exponent; p is split into two
     bf16 parts, so P V runs twice.  TMA needs k and v strides in multiples
     of 8 elements (16 bytes).
@@ -100,8 +103,9 @@ TC_ROWS = 128  # bf16 body: folded query rows per block (two warpgroups of 64)
 TC_KEYS = 128  # bf16 body: keys per K/V tile
 TC_STAGES = 3  # bf16 body: K/V tiles in flight where Dv = D
 TC_STAGES_SPLIT = 2  # bf16 body at Dv != D (192, 128): K and V stages each
+TC_Q_STAGES_D64 = 2  # bf16 body at D = Dv = 64 (flash_d64_fwd): Q tiles, this item and the next
 MAX_BATCH_HEADS = 65535  # B * Hkv rides on a grid dimension (gridDim.y in the f32 body)
-MAX_ROW_TILES = 65535  # bf16 body: row tiles ride on gridDim.y
+MAX_ROW_TILES = 65535  # bf16 body: row tiles ride on gridDim.y (held in the persistent ones too)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # as flash_attention.cu numbers them
 _PLAIN_DEVICES = ("cpu", "meta")  # the devices the plain versions serve
@@ -308,11 +312,25 @@ def kernel_tolerance(dtype: torch.dtype) -> tuple[float, float]:
 
 def tiling(dtype: torch.dtype, d: int = 128, dv: int | None = None) -> tuple[int, int, int]:
     """``(rows, keys, stages)`` of the body that serves ``dtype`` at head
-    dims (d, dv) (dv None: d): folded query rows per block, keys per K/V
-    tile and K/V tiles in flight."""
+    dims (d, dv) (dv None: d): folded query rows per block (per work item
+    of the persistent bodies), keys per K/V tile and K/V tiles in flight
+    (at D = Dv = 64: K tiles, and as many V tiles)."""
     if dtype == torch.bfloat16:
         return TC_ROWS, TC_KEYS, TC_STAGES if dv in (None, d) else TC_STAGES_SPLIT
     return BLOCK_ROWS, BLOCK_KEYS, 1
+
+
+def _d64_tc(dtype: torch.dtype, d: int, dv: int) -> bool:
+    """Whether ``flash_d64_fwd`` serves (dtype, d, dv)."""
+    return dtype == torch.bfloat16 and d == dv == 64
+
+
+def tile_rows(dtype: torch.dtype, d: int, g: int, dv: int | None = None) -> int:
+    """Folded rows of a row tile (a block or a work item) of the body that
+    serves ``dtype`` at head dims (d, dv) and G = ``g``: whole query groups,
+    G * (128 // G), at bf16 D = Dv = 64; else the body's rows."""
+    rows = tiling(dtype, d, dv)[0]
+    return rows // g * g if _d64_tc(dtype, d, d if dv is None else dv) else rows
 
 
 def smem_bytes(d: int, dtype: torch.dtype = torch.bfloat16, dv: int | None = None) -> int:
@@ -324,15 +342,20 @@ def smem_bytes(d: int, dtype: torch.dtype = torch.bfloat16, dv: int | None = Non
     barrier per stage: 230,448 bytes at (128, 128) with three stages.  At
     (192, 128) (``flash_mla_fwd``) three stages would take 289 KB, past the
     227 KB of a block: two K and two V stages, each with its own full and
-    empty barrier, and Q's pair (214,096).  f32: q * scale and a K tile
+    empty barrier, and Q's pair (214,096).  At (64, 64) (``flash_d64_fwd``)
+    two Q stages and three K and three V stages, each with its own full and
+    empty barrier (132,224).  f32: q * scale and a K tile
     (both transposed), a V tile and the probabilities, all f32: 144 KB at
     (192, 128).
     """
     dv = d if dv is None else dv
     rows, keys, stages = tiling(dtype, d, dv)
     if dtype == torch.bfloat16:
-        barriers = 16 * stages if d == dv else 8 * (4 * stages + 2)
-        return 1024 + 2 * d * rows + 2 * stages * keys * (d + dv) + barriers
+        if _d64_tc(dtype, d, dv):
+            q_stages, barriers = TC_Q_STAGES_D64, 8 * (4 * stages + 2 * TC_Q_STAGES_D64)
+        else:
+            q_stages, barriers = 1, 16 * stages if d == dv else 8 * (4 * stages + 2)
+        return 1024 + 2 * q_stages * d * rows + 2 * stages * keys * (d + dv) + barriers
     return 4 * (d * rows + d * keys + dv * keys + rows * keys)
 
 
@@ -341,20 +364,22 @@ def executed_flops(
     q_offset: int = 0, dtype: torch.dtype = torch.bfloat16, dv: int | None = None,
 ) -> int:
     """Flops the kernel's tiles execute, masked entries included: each block
-    of folded rows visits key tiles up to the last one that holds a key
-    visible to its last row.  Per (row, key) of a visited tile: 2D for QK^T
-    and 2Dv for PV (dv None: D), which the bf16 body runs twice (p_hi and
-    p_lo)."""
+    (work item) of folded rows visits key tiles up to the last one that
+    holds a key visible to its last row, and computes all its rows (at bf16
+    D = 64 a tile of G * (128 // G) rows runs 128 wide).  Per (row, key) of
+    a visited tile: 2D for QK^T and 2Dv for PV (dv None: D), which the bf16
+    body runs twice (p_hi and p_lo)."""
     g = hq // hkv
     dv = d if dv is None else dv
     rows, keys, _ = tiling(dtype, d, dv)
+    tile = tile_rows(dtype, d, g, dv)
     per_pair = 2 * d + (4 if dtype == torch.bfloat16 else 2) * dv
     key_tiles = -(-skv // keys)
     visited = 0
-    for row0 in range(0, sq * g, rows):
+    for row0 in range(0, sq * g, tile):
         n = key_tiles
         if causal:
-            last = min(row0 + rows, sq * g) - 1
+            last = min(row0 + tile, sq * g) - 1
             n = min(n, (last // g + q_offset) // keys + 1)
         visited += n
     return batch * hkv * visited * rows * keys * per_pair
@@ -588,6 +613,9 @@ def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int
     if q.dtype == torch.bfloat16 and d != dv and hq != hkv:
         raise ValueError(f"{what}: the bf16 kernel at (D, Dv) = ({d}, {dv}) is MLA's, one kv "
                          f"head a query head (G = 1), got Hq = {hq}, Hkv = {hkv}")
+    if _d64_tc(q.dtype, d, dv) and hq // hkv > TC_ROWS:
+        raise ValueError(f"{what}: the bf16 kernel at D = 64 holds whole query groups of at "
+                         f"most {TC_ROWS} heads in a row tile, got G = {hq // hkv}")
     if q.dtype not in _DTYPES:
         raise ValueError(f"{what}: the kernel takes float32 or bfloat16, got {q.dtype}")
     if min(b, sq, skv) == 0:

@@ -455,7 +455,8 @@ def test_cuda_flash_attention_shared_memory_budget(cuda_device, dtype, threads):
     """Each body's real budget at every (D, Dv) it is built for: within 227
     KB a block, no spills, one block per SM or more (the bf16 body holds
     one: 230,448 bytes at D=128, Q and three stages of K and V, and three
-    warpgroups; 214,096 at MLA's (192, 128), two K and two V stages), and the tiling
+    warpgroups; 214,096 at MLA's (192, 128), two K and two V stages;
+    132,224 at D=64, two Q, three K and three V stages), and the tiling
     the Python side assumes (kernel_budget raises otherwise)."""
     for d, dv in fa.HEAD_DIMS:
         for causal in (True, False):
@@ -594,6 +595,58 @@ def test_cuda_persistent_mla_forward_over_work_lists_of_any_length(cuda_device, 
         want = fa.flash_attention_plain(q, k, v, causal=causal)
         torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
         assert torch.equal(got, again)
+
+
+D64_WORK_LISTS = [  # (batch, seq, hq, hkv): items of G * (128 // G) folded rows
+    (1, 1000, 7, 7),  # 56 items, a partial last row tile
+    (3, 129, 10, 5),  # G=2: 3 * 5 * 3 = 45 items
+    (1, 64, 1, 1),  # one item: one block runs
+    (2, 4096, 9, 9),  # 576 items
+    (1, 333, 12, 4),  # G=3: items of 126 rows (two zero rows each), 32 items
+    (2, 300, 12, 2),  # G=6: items of 126 rows, 60 items
+    (1, 64, 128, 1),  # G=128: an item is one query's group
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,seq,hq,hkv", D64_WORK_LISTS)
+def test_cuda_d64_forward_over_work_lists_of_any_length(cuda_device, batch, seq, hq, hkv):
+    """bf16 at D = 64 runs ``flash_d64_fwd``: one block per SM over a list of
+    (kv head, tile of whole query groups) items, none of these lists a
+    multiple of 132 (with one item, one block runs).  Causal and not, with
+    a q_offset, each within kernel_tolerance of the plain version, the same
+    bits twice, and ``out`` the same bits with the lse written beside it."""
+    rng = np.random.default_rng(batch * seq + hq + hkv)
+    q = torch.from_numpy(rng.standard_normal((batch, seq, hq, 64), dtype=np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((batch, seq, hkv, 64), dtype=np.float32))
+            for _ in range(2))
+    q, k, v = (t.to(cuda_device, torch.bfloat16) for t in (q, k, v))
+    g = hq // hkv
+    items = batch * hkv * -(-seq * g // fa.tile_rows(torch.bfloat16, 64, g))
+    assert items % 132
+    atol, rtol = fa.kernel_tolerance(torch.bfloat16)
+    for causal, q_offset in ((True, 0), (False, 0), (True, 37)):
+        kw = dict(causal=causal, q_offset=q_offset)
+        got = fa.flash_attention(q, k, v, **kw)
+        again = fa.flash_attention(q, k, v, **kw)
+        with_lse, lse = fa._forward(q, k, v, q_chunk=512, kv_chunk=1024, with_lse=True, **kw)
+        want, want_lse = fa.flash_attention_plain(q, k, v, return_lse=True, **kw)
+        torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+        torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)  # f32 sums, another order
+        assert torch.equal(got, again) and torch.equal(got, with_lse)
+
+
+@pytest.mark.cuda
+def test_cuda_d64_forward_budget(cuda_device):
+    """``flash_d64_fwd``'s real budget, causal and not: 132,224 bytes of
+    shared memory (two Q, three K and three V stages), 384 threads, one
+    block per SM, 168 registers at launch and no spill; and the tiling the
+    Python side assumes (kernel_budget raises otherwise)."""
+    for causal in (True, False):
+        budget = fa.kernel_budget(torch.bfloat16, 64, causal=causal)
+        assert budget["shared_bytes"] == fa.smem_bytes(64) == 132224
+        assert budget["threads_per_block"] == 384 and budget["blocks_per_sm"] == 1
+        assert budget["local_bytes"] == 0 and budget["num_regs"] <= 168
 
 
 @pytest.mark.cuda

@@ -156,6 +156,71 @@ def test_smem_budget_at_mla_heads():
     assert list(fa.BWD_HEAD_DIMS) == list(fa.HEAD_DIMS)  # the backward at every pair
 
 
+def test_smem_budget_and_tiling_of_the_persistent_d64_forward():
+    """bf16 at D = Dv = 64 is ``flash_d64_fwd``: work items of 128 folded
+    rows against key tiles of 128, two Q stages and three K and three V
+    stages, each with its own full and empty barrier: 132,224 bytes, one
+    block per SM.  The other pairs keep their bodies' numbers."""
+    bf16 = torch.bfloat16
+    assert fa.tiling(bf16, 64) == fa.tiling(bf16, 64, 64) == (128, 128, 3)
+    d64 = fa.smem_bytes(64, bf16)
+    assert d64 == 1024 + 2 * 2 * 128 * 64 + 3 * 2 * 128 * 64 * 2 + 8 * (4 * 3 + 2 * 2) == 132224
+    assert d64 + 1024 <= 228 * 1024 and d64 <= 232448
+    assert fa.smem_bytes(32, bf16) == 1024 + 2 * 32 * 128 + 3 * 2 * 128 * 64 + 16 * 3 == 58416
+    assert fa.smem_bytes(128, bf16) == 230448 and fa.tiling(bf16, 128) == (128, 128, 3)
+    assert fa.smem_bytes(192, bf16, dv=128) == 214096
+    assert fa.tiling(bf16, 192, 128) == (128, 128, 2)
+    assert fa.smem_bytes(64, torch.float32) == 4 * (64 * 64 * 3 + 64 * 64) == 65536
+    assert fa.tiling(torch.float32, 64) == (64, 64, 1)
+
+
+@pytest.mark.parametrize("d,dtype,g,rows", [
+    (64, torch.bfloat16, 1, 128), (64, torch.bfloat16, 2, 128), (64, torch.bfloat16, 3, 126),
+    (64, torch.bfloat16, 6, 126), (64, torch.bfloat16, 128, 128), (64, torch.float32, 3, 64),
+    (128, torch.bfloat16, 3, 128), (32, torch.bfloat16, 3, 128),
+])
+def test_row_tiles_hold_whole_query_groups_only_in_the_d64_forward(d, dtype, g, rows):
+    """``flash_d64_fwd``'s work items hold G * (128 // G) folded rows, whole
+    query groups, so that one TMA box of 128 // G queries of G heads loads
+    an item's Q; the other bodies' blocks hold their rows whatever G is."""
+    assert fa.tile_rows(dtype, d, g) == rows
+
+
+def test_executed_flops_of_the_d64_forward_count_its_work_items():
+    bf16_pair = 2 * 64 + 4 * 64  # QK^T, then P V twice (p_hi and p_lo)
+    # granite-moe's prefill: G=2, items of 64 queries; item i sees i // 2 + 1
+    # key tiles: 2 * (1 + ... + 8) = 72 per kv head
+    assert fa.executed_flops(4, 1024, 1024, 16, 8, 64) == 4 * 8 * 72 * 128 * 128 * bf16_pair
+    # zamba2-1.2b's shared block: G=1, item i sees i + 1 tiles: 36 per head
+    assert fa.executed_flops(4, 1024, 1024, 32, 32, 64) == 4 * 32 * 36 * 128 * 128 * bf16_pair
+    # G=3: 999 folded rows in items of 126 (42 queries); their last queries
+    # 41, 83, 125, 167, 209, 251, 293 and 332 see 1, 1, 1, 2, 2, 2, 3, 3 tiles;
+    # each item runs 128 rows wide
+    assert fa.executed_flops(1, 333, 333, 12, 4, 64) == 4 * 15 * 128 * 128 * bf16_pair
+    # whisper-tiny's encoder: 12 items of 128 rows a head, 12 key tiles each
+    assert fa.executed_flops(4, 1500, 1500, 6, 6, 64, causal=False) == (
+        4 * 6 * 12 * 12 * 128 * 128 * bf16_pair)
+    # f32 at D=64, G=3: blocks of 64 rows, whole groups or not
+    assert fa.executed_flops(1, 333, 333, 12, 4, 64, dtype=torch.float32) == (
+        4 * sum((min(r + 64, 999) - 1) // 3 // 64 + 1 for r in range(0, 999, 64))
+        * 64 * 64 * (2 * 64 + 2 * 64))
+
+
+def test_cuda_checks_hold_the_d64_forward_to_groups_of_128_heads():
+    """A row tile of ``flash_d64_fwd`` holds whole query groups, at most 128
+    heads; a larger G raises before a launch.  The other bodies take any G.
+    The checks read shapes, strides and addresses only, so they run here."""
+    q = torch.zeros((1, 4, 129, 64), dtype=torch.bfloat16)
+    k = torch.zeros((1, 4, 1, 64), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="whole query groups of at most 128"):
+        fa._check_cuda(q, k, k, 0)
+    fa._check_cuda(q[:, :, :128], k, k, 0)
+    fa._check_cuda(q.float(), k.float(), k.float(), 0)
+    q128 = torch.zeros((1, 4, 129, 128), dtype=torch.bfloat16)
+    k128 = torch.zeros((1, 4, 1, 128), dtype=torch.bfloat16)
+    fa._check_cuda(q128, k128, k128, 0)
+
+
 SPLIT_FORMS = [  # (batch, sq, skv, heads, rope_heads, causal, q_offset, q_chunk, kv_chunk)
     (2, 37, 37, 3, 1, True, 0, 8, 16),
     (2, 37, 37, 3, 3, True, 0, 8, 16),
