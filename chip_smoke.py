@@ -135,7 +135,12 @@ source, started together) and, at the paper's L=32 lattice:
     controller processes on the card, no divergence;
   * last, the bf16 forward at D=64 (``flash_d64_fwd``) at zamba2-1.2b's,
     granite-moe's and whisper-tiny's shapes against its plain version, then
-    timed in turns beside SDPA (eager and in CUDA graphs);
+    timed in turns beside SDPA (eager and in CUDA graphs); then the bf16
+    backward at D=64 (``flash_bwd_delta_d64`` and the persistent
+    ``flash_bwd_d64``) at their five training shapes against its plain
+    version and twice bitwise, its kernels by name, timed in turns beside
+    SDPA's backward (eager and in CUDA graphs), with the turns' sum of graph
+    times weighted by each shape's main-path launches;
   * times each kernel against its bound, its plain version and, where one
     PyTorch call computes the same function, that call (every time in the
     kernels line from eager calls; the flash kernel and SDPA also in a CUDA
@@ -148,17 +153,18 @@ It prints:
   * the HGMMA, UTMALDG and HMMA counts of the built flash-attention library
     (``cuobjdump -sass``): its bf16 body must run wgmma fed by TMA; and the
     HGMMA count of the bf16 forward at D=64 (both masks) and of each bf16
-    backward kernel (dK/dV and dQ, every head dim and mask), which must run
-    wgmma too;
+    backward kernel (dK/dV and dQ at D=32, 128 and (192, 128), the
+    persistent one at 64; every mask), which must run wgmma too;
   * one JSON line per check, per main-path row and per yardstick;
   * a ``{"flash_rows": {...}}`` line: the flash rows PERF.md's kernels
     table compares (rows 5 and 5b at D=128, 5-64, 5-zamba, 5-whisper
-    encoder and cross, 5-mla, 5b-mla; ms, library ms, bound, and the
-    backward's three kernels by name);
+    encoder and cross, 5b-64, 5b-zamba, 5b-whisper encoder, cross and self,
+    5-mla, 5b-mla; ms, library ms, bound, and the backward's kernels by
+    name);
   * a ``{"kernels": [...]}`` line with each ported kernel's numbers (the
-    flash backward beside the forward, the bf16 forward at D=64 with its
-    registers, shared bytes and spill, and the (192, 128) instantiations
-    of both with their own launches) and the total wall time;
+    flash backward beside the forward, the bf16 forward and backward at
+    D=64 with their registers, shared bytes and spill, and the (192, 128)
+    instantiations of both with their own launches) and the total wall time;
   * last, ``{"ok": true, "device": {...}}`` — only if every phase passed.
 
 ``--flash-yardsticks`` builds and times those flash rows alone, and runs on
@@ -249,11 +255,11 @@ BWD_FORMS = [  # (label, batch, sq, skv, hq, hkv, d, causal, q_offset, dtype)
 ]
 # the bf16 backward's wgmma kernels, and the (D, Dv) pairs each is built for
 # (two instantiations a pair: causal or not); MLA's (192, 128) has dK/dV
-# and dQ kernels of its own
+# and dQ kernels of its own, and D = Dv = 64 one persistent kernel for both
 BWD_TC_KERNELS = ("flash_bwd_dkdv_tc", "flash_bwd_dq_tc", "flash_bwd_dkdv_mla",
-                  "flash_bwd_dq_mla")
-BWD_TC_PAIRS = {"flash_bwd_dkdv_tc": 3, "flash_bwd_dq_tc": 3, "flash_bwd_dkdv_mla": 1,
-                "flash_bwd_dq_mla": 1}
+                  "flash_bwd_dq_mla", "flash_bwd_d64")
+BWD_TC_PAIRS = {"flash_bwd_dkdv_tc": 2, "flash_bwd_dq_tc": 2, "flash_bwd_dkdv_mla": 1,
+                "flash_bwd_dq_mla": 1, "flash_bwd_d64": 1}
 # bytes of spill a backward kernel may have: none (until PR 24 bf16 dK/dV at
 # (192, 128) held 104-112 bytes of stack under an allowance of 128)
 BWD_SPILL_LIMITS: dict[tuple, int] = {}
@@ -390,6 +396,16 @@ D64_ROWS = [
     ("5-whisper encoder", "whisper-tiny", 4, 1500, 1500, 6, 6, False),
     ("5-whisper cross", "whisper-tiny", 4, 16, 1500, 6, 6, False),
 ]
+# the D=64 backward's shapes on the main paths (training, B=2), timed in
+# turns beside SDPA's backward (``_d64_bwd_yardsticks``): (row, arch, batch,
+# sq, skv, hq, hkv, causal, main-path launches: 5 steps, one call a layer)
+D64_BWD_ROWS = [
+    ("5b-64", "granite-moe-1b-a400m", 2, 1024, 1024, 16, 8, True, 120),
+    ("5b-zamba", "zamba2-1.2b", 2, 1024, 1024, 32, 32, True, 30),
+    ("5b-whisper encoder", "whisper-tiny", 2, 1500, 1500, 6, 6, False, 20),
+    ("5b-whisper cross", "whisper-tiny", 2, 448, 1500, 6, 6, False, 20),
+    ("5b-whisper self", "whisper-tiny", 2, 448, 448, 6, 6, True, 20),
+]
 
 
 def _emit(obj: dict) -> None:
@@ -519,7 +535,8 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--seed", type=int, default=0, help="seed of the random SU(3) data")
     ap.add_argument("--flash-yardsticks", action="store_true",
                     help="build, then time the flash rows of PERF.md's kernels table alone "
-                         "(5 and 5b at D=128, 5-64, 5-zamba, 5-whisper, 5-mla, 5b-mla) and stop; "
+                         "(5 and 5b at D=128, 5-64, 5-zamba, 5-whisper, 5b at D=64, 5-mla, "
+                         "5b-mla) and stop; "
                          "it runs on a "
                          "checkout from before the split MLA entry too")
     args = ap.parse_args(argv)
@@ -842,8 +859,9 @@ def main(argv: list[str] | None = None) -> int:
     flash_d64 = {"launches": moe_launches["serve"] + moe_launches["train_fwd"],
                  "moe_serve_launches": moe_launches["serve"],
                  "moe_train_launches": moe_launches["train_fwd"]}
-    flash_bwd["moe_train_launches"] = moe_launches["train_bwd"]
-    flash_bwd["launches"] += moe_launches["train_bwd"]
+    # and their backward calls flash_bwd_d64's (bf16 at D=64): an entry of its own
+    flash_bwd_d64 = {"launches": moe_launches["train_bwd"],
+                     "moe_train_launches": moe_launches["train_bwd"]}
 
     # -- 5e. the MLA phase: deepseek-v3 served, the kernel at (D, Dv) = (192, 128) ------
     torch.cuda.empty_cache()
@@ -872,8 +890,8 @@ def main(argv: list[str] | None = None) -> int:
     flash_d64["zamba_serve_launches"] = zamba_launches["serve"]
     flash_d64["zamba_train_launches"] = zamba_launches["train_fwd"]
     flash_d64["launches"] += zamba_launches["serve"] + zamba_launches["train_fwd"]
-    flash_bwd["zamba_train_launches"] = zamba_launches["train_bwd"]
-    flash_bwd["launches"] += zamba_launches["train_bwd"]
+    flash_bwd_d64["zamba_train_launches"] = zamba_launches["train_bwd"]
+    flash_bwd_d64["launches"] += zamba_launches["train_bwd"]
 
     # -- 5g. the xLSTM phase: xlstm-125m served and trained (no kernel of the port) -----
     # its time loops allocate millions of short-lived objects: keep the earlier
@@ -894,9 +912,9 @@ def main(argv: list[str] | None = None) -> int:
     flash_d64["whisper_train_launches"] = whisper["train_fwd"]
     flash_d64["launches"] += whisper["serve"] + whisper["train_fwd"]
     flash["max_abs_err"] = max(flash["max_abs_err"], whisper["fwd_err"])
-    flash_bwd["whisper_train_launches"] = whisper["train_bwd"]
-    flash_bwd["launches"] += whisper["train_bwd"]
-    flash_bwd["max_abs_err"] = max(flash_bwd["max_abs_err"], whisper["bwd_err"])
+    flash_bwd_d64["whisper_train_launches"] = whisper["train_bwd"]
+    flash_bwd_d64["launches"] += whisper["train_bwd"]
+    flash_bwd["max_abs_err"] = max(flash_bwd["max_abs_err"], whisper["bwd_f32_err"])
 
     # -- 5i. the dry run: the LM cases on meta tensors, the fig7 launch on the card -------
     torch.cuda.empty_cache()
@@ -917,7 +935,23 @@ def main(argv: list[str] | None = None) -> int:
                      shape="granite-moe-1b-a400m prefill: B=4, S=1,024, Hq=16, Hkv=8, causal",
                      num_regs=budget["num_regs"], shared_bytes=budget["shared_bytes"],
                      local_bytes=budget["local_bytes"])
-    for what, entry in (("flash_attention", flash), ("flash_d64_fwd", flash_d64)):
+    # -- 5k. the D=64 backward at the main paths' training shapes, in turns ---------------
+    torch.cuda.empty_cache()
+    d64_bwd_rows = _d64_bwd_yardsticks(np.random.default_rng(args.seed + 26), hw, failures)
+    granite = d64_bwd_rows["5b-64"]  # the table's 5b-64 row
+    budget = flash_attention.bwd_budget(torch.bfloat16, 64, True)["dkdv"]  # both roles: one kernel
+    flash_bwd_d64.update(max_abs_err=max([whisper["bwd_err"]]
+                                         + [r["max_abs_err"] for r in d64_bwd_rows.values()]),
+                         ms=granite["kernel_ms"], plain_ms=granite["plain_ms"],
+                         bound_ms=granite["bound_ms"], bound_by=granite["bound_by"],
+                         library_ms=granite["library_ms"], graph_ms=granite["kernel_graph_ms"],
+                         library_graph_ms=granite["library_graph_ms"],
+                         kernel_split_ms=granite["kernel_split_ms"],
+                         shape="granite-moe-1b-a400m training: B=2, S=1,024, Hq=16, Hkv=8, causal",
+                         num_regs=budget["num_regs"], shared_bytes=budget["shared_bytes"],
+                         local_bytes=budget["local_bytes"])
+    for what, entry in (("flash_attention", flash), ("flash_d64_fwd", flash_d64),
+                        ("flash_attention_bwd", flash_bwd), ("flash_bwd_d64", flash_bwd_d64)):
         if entry["launches"] == 0:
             failures.append(f"the main paths never launched {what}")
 
@@ -946,6 +980,9 @@ def main(argv: list[str] | None = None) -> int:
     }, {
         "name": "flash_attention_bwd", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": BWD_SOURCE_LINE, **flash_bwd,
+    }, {
+        "name": "flash_attention_bwd (bf16 D=64: flash_bwd_delta_d64 + flash_bwd_d64)",
+        "route": "cuda", "source": FLASH_SOURCE, "replaces": BWD_SOURCE_LINE, **flash_bwd_d64,
     }, {
         "name": "flash_attention (D=192, Dv=128)", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES, **flash_mla,
@@ -3132,10 +3169,13 @@ def _flash_yardsticks(seed: int, hw, failures: list[str]) -> None:
     Hkv=8, D=128) and 5b (its training, B=2), 5-64 (granite-moe's heads),
     the D=64 forward at zamba2-1.2b's, granite-moe's and whisper-tiny's
     shapes in turns beside SDPA (``_d64_fwd_yardsticks``: 5-zamba, 5-64,
-    5-whisper encoder and cross), 5-mla (deepseek-v3's prefill at (192,
-    128)) and 5b-mla (its training); then the FLASH_ROWS line and the
-    digests.  Run on two checkouts in one call (parent,
-    change, change, parent) it compares them on one card."""
+    5-whisper encoder and cross), the D=64 backward at granite-moe's,
+    zamba2-1.2b's and whisper-tiny's training shapes in turns beside SDPA's
+    backward (``_d64_bwd_yardsticks``: 5b-64, 5b-zamba, 5b-whisper encoder,
+    cross and self), 5-mla (deepseek-v3's prefill at (192, 128)) and 5b-mla
+    (its training); then the FLASH_ROWS line and the digests.  Run on two
+    checkouts in one call (parent, change, change, parent) it compares them
+    on one card."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -3147,6 +3187,7 @@ def _flash_yardsticks(seed: int, hw, failures: list[str]) -> None:
         FLASH_ROWS[row.replace("5", "5b", 1)] = {key: bwd.get(key) for key in FLASH_ROW_KEYS
                                                  if key in bwd}
     _d64_fwd_yardsticks(rng, hw, failures)
+    _d64_bwd_yardsticks(rng, hw, failures)
     h = get_config(MLA_ARCH).n_heads
     _mla_fwd_yardstick(LM_BATCH, LM_PROMPT, h, rng, hw, failures)
     _mla_bwd_yardstick(TRAIN_BATCH, TRAIN_SEQ, h, rng, hw, failures)
@@ -3225,21 +3266,151 @@ def _d64_fwd_yardsticks(rng, hw, failures: list[str]) -> dict[str, dict]:
     return shapes
 
 
-# the digest forms: (label, dtype, batch, seq, hq, hkv, d, dv), causal
+def _d64_bwd_yardsticks(rng, hw, failures: list[str]) -> dict[str, dict]:
+    """The bf16 backward at D=64 (``flash_bwd_delta_d64`` then
+    ``flash_bwd_d64``) at each D64_BWD_ROWS shape: granite-moe's, zamba2-1.2b's
+    and whisper-tiny's training attention.  Each against its plain version
+    within ``kernel_tolerance`` of each gradient's max and twice bitwise (the
+    plain call timed once, ``plain_ms``), its kernels by name (device ms a
+    call, over 10 calls), then the backward and SDPA's backward of every
+    shape timed in three alternating turns (``_timed_in_turns``: eager calls
+    and CUDA graphs of 20 calls; SDPA's backward in a graph is a graph of
+    its forward and backward less one of its forward), beside the bound.  Also the turns'
+    launch-weighted sum of graph times (the main paths' launches of each
+    shape).  Emits one row, records each shape in FLASH_ROWS under its row
+    name and returns the shapes' entries."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import roofline
+    from repro_torch.kernels import flash_attention as fa
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    atol, rtol = fa.kernel_tolerance(bf16)
+    forms, graph_forms, shapes = {}, {}, {}
+    for name, arch, b, sq, skv, hq, hkv, causal, launches in D64_BWD_ROWS:
+        q, k, v, dout = (torch.from_numpy(rng.standard_normal(shp, dtype=np.float32)).to(dev, bf16)
+                         for shp in ((b, sq, hq, 64), (b, skv, hkv, 64), (b, skv, hkv, 64),
+                                     (b, sq, hq, 64)))
+        o, lse = fa._forward(q, k, v, causal=causal, q_chunk=512, kv_chunk=1024, q_offset=0,
+                             with_lse=True)
+        got = fa.flash_attention_bwd(q, k, v, o, dout, lse, causal=causal)
+        again = fa.flash_attention_bwd(q, k, v, o, dout, lse, causal=causal)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = fa.flash_attention_bwd_plain(q, k, v, o, dout, lse, causal=causal)
+        end.record()
+        torch.cuda.synchronize()
+        shares, errs = {}, []
+        for grad, g, w in zip(("dq", "dk", "dv"), got, want):
+            errs.append((g.float() - w.float()).abs().max().item())
+            shares[grad] = errs[-1] / (atol + rtol * w.float().abs().max().item())
+        twice = all(torch.equal(x, y) for x, y in zip(got, again))
+        ok = (max(shares.values()) <= 1.0 and twice
+              and all(bool(torch.isfinite(g.float()).all()) for g in got))
+        if not ok:
+            failures.append(f"flash_attention_bwd vs plain at {name}: {shares}, twice {twice}")
+        grp = hq // hkv  # query heads of a kv head
+        bwd = lambda q=q, k=k, v=v, o=o, dout=dout, lse=lse, c=causal: (  # noqa: E731
+            fa.flash_attention_bwd(q, k, v, o, dout, lse, causal=c))
+        for _ in range(3):  # the profiler at times records no device event: again
+            split = _profile(lambda bwd=bwd: [bwd() for _ in range(10)], top=3)["top_kernels"]
+            if split:
+                break
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        dout_t = dout.transpose(1, 2)
+        o_lib = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                                 enable_gqa=True)
+        forms[name] = bwd
+        forms[f"{name} sdpa"] = lambda o_lib=o_lib, ins=(qt, kt, vt), g=dout_t: (
+            torch.autograd.grad(o_lib, ins, g, retain_graph=True))
+        # A backward is captured with its forward, on leaves of their own: a
+        # leaf whose autograd node an eager forward made (and o_lib keeps)
+        # syncs the capture with the legacy stream.  SDPA's backward in a
+        # graph is the graph of both less the forward's.
+        leaves = tuple(x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        sdpa = lambda ins=leaves, c=causal: (  # noqa: E731
+            torch.nn.functional.scaled_dot_product_attention(*ins, is_causal=c, enable_gqa=True))
+        graph_forms[f"{name} sdpa"] = lambda sdpa=sdpa, ins=leaves, g=dout_t: (
+            torch.autograd.grad(sdpa(), ins, g))
+        forms[f"{name} sdpa forward"] = sdpa
+        backend = torch.nn.attention.SDPBackend(torch._fused_sdp_choice(
+            qt, kt, vt, None, 0.0, causal, enable_gqa=True)).name
+        bound = roofline.attention_bwd_bound(batch=b, sq=sq, skv=skv, hq=hq, hkv=hkv, d=64,
+                                             causal=causal, dtype=bf16,
+                                             hw=hw) if hw is not None else None
+        shapes[name] = {"arch": arch, "shape": [b, sq, skv, hq, hkv, 64], "causal": causal,
+                        "main_path_launches": launches, "share_of_limit": shares,
+                        "max_abs_err": max(errs), "bitwise_twice": twice, "ok": ok,
+                        "plain_ms": start.elapsed_time(end), "library_backend": backend,
+                        "kernel_split_ms": {kname: ms / count for kname, ms, count in split},
+                        "bound_ms": None if bound is None else bound.bound_s * 1e3,
+                        "bound_by": None if bound is None else bound.bound_by,
+                        # flash_bwd_d64's: a head's pairs of key tiles of 64 and
+                        # its dQ tiles of whole query groups
+                        "work_items": b * hkv * ((-(-skv // 64) + 1) // 2
+                                                 + -(-sq * grp // (128 // grp * grp))),
+                        # its plan: the pairing, the kind first, the chunk (a
+                        # checkout from before flash_bwd_d64 has none)
+                        "plan": fa.d64_bwd_plan(b, sq, skv, hq, hkv, causal=causal)[0]
+                        if hasattr(fa, "d64_bwd_plan") else None,
+                        "executed_flops": fa.bwd_executed_flops(b, sq, skv, hq, hkv, 64,
+                                                                causal=causal)}
+        del want, got, again
+    turns = {}
+    _timed_in_turns(turns, forms, reps=20, graph=True, graph_forms=graph_forms)
+    weighted = [0.0, 0.0, 0.0]
+    for name, entry in shapes.items():
+        library_turns = [both - fwd for both, fwd in zip(
+            turns[f"{name} sdpa_kernel_graph_ms_turns"],
+            turns[f"{name} sdpa forward_kernel_graph_ms_turns"])]
+        entry.update(kernel_ms=turns[f"{name}_kernel_ms"],
+                     kernel_ms_turns=turns[f"{name}_kernel_ms_turns"],
+                     kernel_graph_ms=turns[f"{name}_kernel_graph_ms"],
+                     kernel_graph_ms_turns=turns[f"{name}_kernel_graph_ms_turns"],
+                     library_ms=turns[f"{name} sdpa_kernel_ms"],
+                     library_graph_ms=statistics.median(library_turns),
+                     library_graph_ms_turns=library_turns,
+                     library_forward_graph_ms=turns[f"{name} sdpa forward_kernel_graph_ms"])
+        entry["kernel_vs_library_graph"] = entry["kernel_graph_ms"] / entry["library_graph_ms"]
+        if entry["bound_ms"] is not None:
+            entry["bound_share_graph"] = entry["bound_ms"] / entry["kernel_graph_ms"]
+        for i, ms in enumerate(entry["kernel_graph_ms_turns"]):
+            weighted[i] += entry["main_path_launches"] * ms
+        FLASH_ROWS[name] = {key: entry[key] for key in FLASH_ROW_KEYS if key in entry}
+    FLASH_ROWS["5b D=64 launch-weighted"] = {"launch_weighted_graph_ms_turns": weighted}
+    _emit({"yardstick": "flash_attention_bwd bf16 D=64 (flash_bwd_d64) at the main paths' "
+                        "training shapes", "rows": shapes,
+           "launch_weighted_graph_ms_turns": weighted,
+           "library_call": "backward of F.scaled_dot_product_attention(is_causal=causal, "
+                           "enable_gqa=True) (torch.autograd.grad)",
+           "timing": "kernel_ms, library_ms: median of 3 alternating turns of 20 eager calls; "
+                     "*_graph_ms: of CUDA graphs of 20 calls in the same turns (SDPA's "
+                     "backward: a graph of its forward and backward less one of its forward, "
+                     "turn by turn); plain_ms: one call; kernel_split_ms: profiler, device ms "
+                     "a call"})
+    return shapes
+
+
+# the digest forms: (label, dtype, batch, sq, skv, hq, hkv, d, dv, causal)
 DIGEST_FORMS = [
-    ("bf16 D=128 G=4", "bfloat16", 2, 512, 16, 4, 128, 128),
-    ("bf16 D=64 G=2", "bfloat16", 2, 333, 8, 4, 64, 64),
-    ("bf16 D=32 G=1", "bfloat16", 1, 200, 4, 4, 32, 32),
-    ("f32 D=128 G=4", "float32", 1, 300, 8, 2, 128, 128),
-    ("f32 D=192 Dv=128 G=1", "float32", 1, 256, 4, 4, 192, 128),
+    ("bf16 D=128 G=4", "bfloat16", 2, 512, 512, 16, 4, 128, 128, True),
+    ("bf16 D=64 G=2", "bfloat16", 2, 333, 333, 8, 4, 64, 64, True),
+    ("bf16 D=32 G=1", "bfloat16", 1, 200, 200, 4, 4, 32, 32, True),
+    ("f32 D=128 G=4", "float32", 1, 300, 300, 8, 2, 128, 128, True),
+    ("f32 D=192 Dv=128 G=1", "float32", 1, 256, 256, 4, 4, 192, 128, True),
+    # flash_bwd_d64 with fewer dQ items than dK/dV items (2 row tiles, 6 pairs a head)
+    ("bf16 D=64 G=1 Sq<Skv non-causal", "bfloat16", 2, 200, 700, 4, 4, 64, 64, False),
 ]
 
 
 def _flash_digests(seed: int) -> dict[str, str]:
     """The first 16 hex digits of a sha256 over the flash kernels' results
-    in each form of DIGEST_FORMS (causal, inputs from ``seed``): the
-    forward's out and lse, the backward's dq, dk and dv.  Two checkouts
-    that print the same digest for a form give the same bits there."""
+    in each form of DIGEST_FORMS (inputs from ``seed``): the forward's out
+    and lse, the backward's dq, dk and dv.  Two checkouts that print the
+    same digest for a form give the same bits there."""
     import hashlib
 
     import numpy as np
@@ -3249,14 +3420,14 @@ def _flash_digests(seed: int) -> dict[str, str]:
 
     rng = np.random.default_rng(seed + 99)
     digests = {}
-    for label, dtype, b, s, hq, hkv, d, dv in DIGEST_FORMS:
+    for label, dtype, b, sq, skv, hq, hkv, d, dv, causal in DIGEST_FORMS:
         dt = getattr(torch, dtype)
         q, k, v, dout = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(
-            "cuda", dt) for shape in ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, dv),
-                                      (b, s, hq, dv)))
-        out, lse = fa._forward(q, k, v, causal=True, q_chunk=512, kv_chunk=1024, q_offset=0,
+            "cuda", dt) for shape in ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, dv),
+                                      (b, sq, hq, dv)))
+        out, lse = fa._forward(q, k, v, causal=causal, q_chunk=512, kv_chunk=1024, q_offset=0,
                                with_lse=True)
-        grads = fa.flash_attention_bwd(q, k, v, out, dout, lse)
+        grads = fa.flash_attention_bwd(q, k, v, out, dout, lse, causal=causal)
         digest = hashlib.sha256()
         for t in (out, lse, *grads):
             digest.update(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
@@ -3369,13 +3540,15 @@ def _mla_bwd_checks(rng, failures: list[str]) -> float:
     return worst
 
 
-def _timed_in_turns(row: dict, forms: dict, reps: int, graph: bool, rounds: int = 3) -> None:
+def _timed_in_turns(row: dict, forms: dict, reps: int, graph: bool, rounds: int = 3,
+                    graph_forms: dict | None = None) -> None:
     """Each form of ``forms`` (name -> call) timed in ``rounds`` turns, the
     forms alternating within a turn, so that a card that warms over the row
     weighs on every form alike: ``<form>_kernel_ms`` the median of the
     turns (eager calls), ``<form>_kernel_ms_turns`` each, and with
     ``graph`` ``<form>_kernel_graph_ms`` the median of CUDA graphs timed in
-    the same turns, ``<form>_kernel_graph_ms_turns`` each."""
+    the same turns, ``<form>_kernel_graph_ms_turns`` each.  ``graph_forms``
+    (name -> call) gives a form's graph a call of its own."""
     import statistics
 
     eager = {form: [] for form in forms}
@@ -3384,7 +3557,7 @@ def _timed_in_turns(row: dict, forms: dict, reps: int, graph: bool, rounds: int 
         for form, fn in forms.items():
             eager[form].append(_time_ms(fn, reps=reps))
             if graph:
-                graphs[form].append(_graph_ms(fn))
+                graphs[form].append(_graph_ms((graph_forms or {}).get(form, fn)))
     for form in forms:
         row[f"{form}_kernel_ms"] = statistics.median(eager[form])
         row[f"{form}_kernel_ms_turns"] = eager[form]
@@ -4091,7 +4264,8 @@ def _whisper_phase(seed: int, hw, failures: list[str]) -> dict[str, int]:
     yardsticks at the encoder's and the cross-attention's serving shapes
     and at the training shapes.  Returns the flash launches of its main
     paths (``serve``, ``train_fwd``, ``train_bwd``) and the kernels' largest
-    errors against their plain versions (``fwd_err``, ``bwd_err``)."""
+    errors against their plain versions (``fwd_err``; ``bwd_err`` in bf16,
+    ``bwd_f32_err`` in f32)."""
     import numpy as np
     import torch
 
@@ -4099,7 +4273,10 @@ def _whisper_phase(seed: int, hw, failures: list[str]) -> dict[str, int]:
 
     rng = np.random.default_rng(seed + 23)
     fwd_err = _flash_checks(rng, failures, WHISPER_FORMS)
-    bwd_err = _bwd_checks(rng, failures, WHISPER_BWD_FORMS)
+    # bf16 (flash_bwd_d64) and f32 (the CUDA-core kernels): each kernel's error
+    bwd_err = _bwd_checks(rng, failures, [f for f in WHISPER_BWD_FORMS if f[-1] == "bfloat16"])
+    bwd_f32_err = _bwd_checks(rng, failures,
+                              [f for f in WHISPER_BWD_FORMS if f[-1] == "float32"])
     torch.cuda.empty_cache()
     serve = _whisper_serve(seed, rng, failures)
     torch.cuda.empty_cache()
@@ -4113,7 +4290,7 @@ def _whisper_phase(seed: int, hw, failures: list[str]) -> dict[str, int]:
                             (WHISPER_TRAIN_SEQ, WHISPER_TRAIN_SEQ, True)):  # training's three
         _bwd_yardstick(WHISPER_ARCH, TRAIN_BATCH, sq, skv, h, h, d, causal, rng, hw, failures)
     return {"serve": serve, "train_fwd": train_fwd, "train_bwd": train_bwd,
-            "fwd_err": fwd_err, "bwd_err": bwd_err}
+            "fwd_err": fwd_err, "bwd_err": bwd_err, "bwd_f32_err": bwd_f32_err}
 
 
 def _whisper_serve(seed: int, rng, failures: list[str]) -> int:

@@ -85,12 +85,17 @@
 //
 // The backward (flash_attention_bwd) is the gradient the reference takes by
 // autodiff, in three kernels: a delta pass, then dK/dV and dQ, without
-// atomics.  bf16 runs on the tensor cores (namespace tcb), f32 on the CUDA
-// cores (namespace bwd).  Both take the forward's (D, Dv) pairs: MLA's
-// training runs them at (192, 128), where Q, K, dQ and dK have width D and
-// V, dO, O and dV width Dv.
+// atomics in any sum (bf16 at D = Dv = 64: the delta pass, then one
+// persistent kernel over both, tcb::flash_bwd_d64, whose blocks claim their
+// work items from a counter).  bf16 runs on the tensor cores (namespace
+// tcb), f32 on the CUDA cores (namespace bwd).  Both take the forward's (D,
+// Dv) pairs: MLA's training runs them at (192, 128), where Q, K, dQ and dK
+// have width D and V, dO, O and dV width Dv.
 
+#include <algorithm>
 #include <cstdint>
+#include <functional>
+#include <vector>
 
 #include <cuda.h>  // CUtensorMap and its enums; the driver is reached at run time
 #include <cuda_bf16.h>
@@ -1282,6 +1287,69 @@ flash_bwd_delta_mla(const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __
   p.delta[plane + row] = real ? acc : 0.f;
 }
 
+// The bf16 body's delta pass at Dv = 64 (before tcb::flash_bwd_d64): the
+// planes of flash_bwd_delta<bf16, 64, true> and its sums in its order, four
+// threads a row reading 16 bytes at a time where it reads 2 bytes a lane, a
+// row a warp (a large share of the backward at the causal training shapes
+// on an H100, once dK/dV and dQ ran in one launch).  flash_bwd_delta's lane c
+// (of 32) sums columns c and c + 32, v_c = fma(dO, O, dO O); then the xor
+// tree leaves lane 0 with the sum of v_c + v_{c+16} (level 16), of those
+// values c and c + 8 (level 8), and so on.  Here thread j of a row holds
+// columns 8j .. 8j + 7 and 32 + 8j .. 32 + 8j + 7: its v_c for c = 8j + e
+// in register e.  Level 16 adds thread j + 2's registers to thread j's (j <
+// 2), level 8 thread 1's to thread 0's, levels 4, 2 and 1 run in thread 0's
+// registers: the same additions of the same values.  Block 0 also zeroes
+// flash_bwd_d64's work counter, which runs next on the stream.
+constexpr int kD64DeltaRows = kThreads / 4;  // rows a block
+
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_delta_d64(const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
+                    const Params p, int* __restrict__ counter) {
+  if (blockIdx.x == 0 && threadIdx.x == 0) *counter = 0;
+  const long long plane = static_cast<long long>(p.batch) * p.hkv * p.rows_pad;
+  const long long row = static_cast<long long>(blockIdx.x) * kD64DeltaRows + threadIdx.x / 4;
+  const int j = threadIdx.x % 4;  // 16-byte chunks j and j + 4 of the row
+  const int slot = static_cast<int>(row % p.rows_pad), bh = static_cast<int>(row / p.rows_pad);
+  const int f = slot / kTileSlots * p.tile_rows + slot % kTileSlots;
+  const bool real = row < plane && slot % kTileSlots < p.tile_rows && f < p.sq * p.g;
+  const int b = bh / p.hkv, i = f / p.g, h = bh % p.hkv * p.g + f % p.g;
+  float v[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) v[e] = 0.f;
+  if (real) {
+    const __nv_bfloat16* orow = o + b * p.os[0] + i * p.os[1] + h * p.os[2] + 8 * j;
+    const __nv_bfloat16* drow = dout + b * p.dos[0] + i * p.dos[1] + h * p.dos[2] + 8 * j;
+    const uint4 o0 = *reinterpret_cast<const uint4*>(orow);
+    const uint4 o1 = *reinterpret_cast<const uint4*>(orow + 32);
+    const uint4 d0 = *reinterpret_cast<const uint4*>(drow);
+    const uint4 d1 = *reinterpret_cast<const uint4*>(drow + 32);
+    const uint32_t os0[4] = {o0.x, o0.y, o0.z, o0.w}, os1[4] = {o1.x, o1.y, o1.z, o1.w};
+    const uint32_t ds0[4] = {d0.x, d0.y, d0.z, d0.w}, ds1[4] = {d1.x, d1.y, d1.z, d1.w};
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {  // a bf16 widens to f32 by a shift (even e) or a mask
+      auto wide = [&](uint32_t x) {
+        return __uint_as_float(e % 2 == 0 ? x << 16 : x & 0xffff0000u);
+      };
+      v[e] = fmaf(wide(ds1[e / 2]), wide(os1[e / 2]),
+                  fmaf(wide(ds0[e / 2]), wide(os0[e / 2]), 0.f));
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < 8; ++e) v[e] += __shfl_down_sync(0xffffffffu, v[e], 2, 4);  // level 16
+#pragma unroll
+  for (int e = 0; e < 8; ++e) v[e] += __shfl_down_sync(0xffffffffu, v[e], 1, 4);  // level 8
+  if (j != 0 || row >= plane) return;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) v[e] += v[e + 4];  // level 4
+  v[0] += v[2];  // level 2
+  v[1] += v[3];
+  v[0] += v[1];  // level 1
+  p.delta[row] = real ? p.lse[(static_cast<long long>(b) * p.hkv * p.g + h) * p.sq + i] *
+                            1.4426950408889634f
+                      : 0.f;
+  p.delta[plane + row] = real ? v[0] : 0.f;
+}
+
 // Folded rows row0 .. row0 + kRows - 1 of a (B, S, H, D) tensor (row f:
 // sequence f / G, head hk * G + f % G) as f32 rows of D + 1, times mul;
 // zeros past `rows`.  D is the tensor's head dim: D for q, Dv for dout.
@@ -1604,6 +1672,9 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 //    flash_bwd_dq_mla is the same at (192, 128) on q and k as nope and rope
 //    parts, the row tiles of a head neighbouring blocks, so its K and V come
 //    from L2.
+//  * flash_bwd_dkdv_tc and flash_bwd_dq_tc serve D = Dv = 32 and 128.  At
+//    64 both kinds of block are work items of one persistent kernel,
+//    flash_bwd_d64 (after the D=64 forward below), with its own delta pass.
 //  * Precision: the products of bf16 operands are exact and summed in f32;
 //    D^-1/2 scales the f32 score inside the exponent (c = D^-1/2 log2 e) and
 //    dK, dQ in f32 at the end; P and dS are each split into hi = bf16(x)
@@ -2875,6 +2946,510 @@ flash_d64_fwd(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ C
 
 }  // namespace tc
 
+// -- bf16 backward at D = Dv = 64: one persistent launch over both kinds of item ---------
+//
+// Replaces no TPU kernel: the reference differentiates its attention
+// (src/repro/models/attention.py:52) by autodiff.  flash_bwd_dkdv_tc and
+// flash_bwd_dq_tc were laid out for D=128.  At D=64 they reached 0.06-0.15
+// of the bound on an H100 SXM: the two launches ran in series though neither
+// reads the other's output; their grids left a nearly empty second wave
+// (whisper-tiny's encoder: 144 blocks on 132 SMs, twice) or most SMs idle
+// (its decoder: 48 blocks, twice); each short block paid its start (K/V or
+// Q/dO by cp.async, waited for) and its end (the stores) with nothing under
+// them; and the delta pass read a row 2 bytes a lane (bwd::flash_bwd_delta_d64
+// reads it 16 bytes a thread, in the same order of sums).  The bound is the
+// tensor cores' rate at these shapes but whisper's decoder (bytes); a chain
+// of row tiles of one key tile (or of key tiles of one dQ tile) runs in
+// order, one tile's products, exponentials and products again, so a causal
+// shape's longest chain, not the rate, sets its time.  flash_bwd_d64:
+//  * One launch after the delta pass, one block per SM (at most one per
+//    item).  The work list holds both kinds of item: dK/dV items (batch *
+//    kv head, pair of key tiles of 64, one a consumer) and dQ items (batch
+//    * kv head, tile of g * (128 / g) folded rows: whole query groups, so
+//    that its Q and dO are one TMA box each).  A head lists the kind whose
+//    heaviest item weighs more first, each kind heaviest first; the heads
+//    run in chunks (work_chunk), so that the items of a head run together
+//    and read its Q, dO, K and V from L2.  A block's producer claims the
+//    next item from a counter (zeroed by the delta pass) when an operand
+//    slot frees, so the blocks that finish first take the items left: the
+//    list is dealt by load, not in turn.  Every sum still runs in one block
+//    in a fixed order: the bits do not depend on which block takes an item.
+//  * Pairs: key tiles 2j and 2j + 1 (not flash_bwd_dkdv_tc's j and
+//    n - 1 - j), whose chains are about as long, so both consumers work
+//    through the item; the list dealt by load evens out the pairs' unequal
+//    weights where causal.  Both pairings, picked per shape on the host,
+//    ran whisper-tiny's decoder (one wave of 96 items, causal) 15 % faster
+//    with j and n - 1 - j, but the branch between them slowed granite-moe's
+//    training shape by 3-4 % on an H100, a larger loss by its launches.
+//  * Loads by TMA, running on across items: two operand slots of 32 KB (a
+//    dK/dV item's K and V of both key tiles, or a dQ item's Q and dO of its
+//    rows), a ring of four Q/dO row tiles of 64 with their statistics (dK/dV)
+//    and a ring of two K/V tiles of 128 keys (dQ), each slot and stage with
+//    its own full and empty barriers.  The next item's operands and first
+//    tiles load under this item's last tiles and its stores.
+//  * Per item the consumers run flash_bwd_dkdv_tc's or flash_bwd_dq_tc's
+//    loop: row tiles in ascending order into dK and dV, key tiles of 128 in
+//    ascending order into dQ, the same products, masks, prob, split_bf16
+//    and tile_grads, the scale at the store: dq, dk and dv are their bits.
+//    A dQ item's rows past its tile (g not dividing 128) are computed from
+//    whatever the slot holds and never stored; a row's bits do not depend
+//    on its tile (tiles past its last visible key add zeros).  Issuing the
+//    next tile's S^T and dP^T behind this tile's dV and dK (one wait a tile
+//    instead of two) made ptxas serialize the wgmmas (C7520) and spill,
+//    and ran slower on an H100; so did S and dP in two batches with
+//    P's exponentials under dP and dS under dV, at three of the five
+//    training shapes: neither is kept.
+namespace tcb {
+
+struct D64Bwd {
+  using T = Tile<64>;                                    // one swizzled box of 128 bytes across D
+  static constexpr int kBox = kRows * T::kSwizzle;       // 64 rows: 8 KB
+  static constexpr int kOp = 4 * kBox;                   // an item's operands: 32 KB
+  static constexpr int kKeyTile = tc::kKeys * T::kSwizzle;  // dQ: a K or V tile of 128 keys
+  static constexpr int kKvStages = 4;                    // dK/dV: Q/dO row tiles in flight
+  static constexpr int kQStages = 2;                     // dQ: K/V tiles in flight
+  static constexpr int kStats = 2 * kRows * 4;           // a row tile's lse * log2 e and delta
+  static constexpr int kBars = 2 * (2 + kKvStages + kQStages);  // a full and an empty each
+  // aligned operand slots, the row ring with its statistics, the K/V ring,
+  // the barriers, the item of each operand slot: 199,824 B
+  static constexpr int kSmem = tc::kAlign + 2 * kOp + kKvStages * (2 * kBox + kStats) +
+                               kQStages * 2 * kKeyTile + 8 * kBars + 16;
+};
+
+constexpr int kCounterWords = 4;  // the work counter after the statistics planes (16 bytes)
+
+struct D64BwdParams {
+  int n_kt, n_rt;       // key tiles of 64, row tiles of tile_rows (dK/dV)
+  int q_rows, n_qt;     // dQ: folded rows of an item, g * (128 / g), and its row tiles
+  int n_pairs, n_per;   // dK/dV items of a head, all items of a head
+  int n_bh, chunk, n_items;
+  int q_first;          // a head lists its dQ items first
+  int* next;            // the work counter: 0 at launch
+};
+
+// Work item `item`: dK/dV (pair idx: key tiles 2 idx and 2 idx + 1) or dQ
+// (row tile idx), batch and kv head.
+struct D64BwdItem {
+  int dkdv, b, hk, idx;
+};
+
+__host__ __device__ __forceinline__ D64BwdItem d64_bwd_item(const bwd::Params& p,
+                                                            const D64BwdParams& w, int item) {
+  const int per = w.chunk * w.n_per;  // items of a whole chunk
+  const int c = item / per, j = item % per;
+  const int left = w.n_bh - c * w.chunk;  // the last chunk may hold fewer heads
+  const int heads = w.chunk < left ? w.chunk : left;
+  const int bh = c * w.chunk + j % heads, rank = j / heads;
+  const int n_first = w.q_first ? w.n_qt : w.n_pairs;
+  D64BwdItem it;
+  it.dkdv = (rank < n_first) != (w.q_first != 0);
+  it.idx = rank < n_first ? rank : rank - n_first;
+  if (!it.dkdv) it.idx = w.n_qt - 1 - it.idx;  // dQ: the last row tile, the heaviest, first
+  it.b = bh / p.hkv;
+  it.hk = bh % p.hkv;
+  return it;
+}
+
+// The first row tile a dK/dV item streams (that of its lower key tile's
+// first row), and a dQ item's key tiles of 128 (the causal ones up to the
+// last its last row sees).
+template <bool kCausal>
+__device__ __forceinline__ int d64_first_tile(const bwd::Params& p, const D64BwdParams& w,
+                                              int pair) {
+  return first_tile(p, kCausal, 2 * pair * kKeys, w.n_rt);
+}
+template <bool kCausal>
+__device__ __forceinline__ int d64_key_tiles(const bwd::Params& p, const D64BwdParams& w,
+                                             int row_tile) {
+  int n = (p.skv + tc::kKeys - 1) / tc::kKeys;
+  if (kCausal) {
+    const int last_row = min((row_tile + 1) * w.q_rows, p.sq * p.g) - 1;
+    n = min(n, (last_row / p.g + p.q_offset) / tc::kKeys + 1);
+  }
+  return n;
+}
+
+// A dK/dV item in consumer c: flash_bwd_dkdv_tc's loop at D = Dv = 64 on
+// the row ring from row tile number `u0` of the block; releases the operand
+// slot, then stores.
+template <bool kCausal>
+__device__ __forceinline__ void d64_dkdv(const bwd::Params& p, const D64BwdParams& w,
+                                         const D64BwdItem& it, uint32_t op, uint32_t op_empty,
+                                         uint32_t rq_s, uint32_t rdo_s, uint32_t r_full,
+                                         uint32_t r_empty, const float* stats, int u0, int c,
+                                         int warp, int lane, __nv_bfloat16* __restrict__ dk,
+                                         __nv_bfloat16* __restrict__ dv) {
+  using S = D64Bwd;
+  const int rows = p.sq * p.g;
+  const int jt = 2 * it.idx + c;  // key tile 2j or 2j + 1: c = 0, 1
+  const bool active = jt < w.n_kt;
+  const int key0 = jt * kKeys;
+  const uint32_t k_wg = op + 2 * c * S::kBox, v_wg = k_wg + S::kBox;
+  const int t0 = d64_first_tile<kCausal>(p, w, it.idx);
+  const int my_t0 = active ? first_tile(p, kCausal, key0, w.n_rt) : w.n_rt;
+  // this thread's keys (accumulator rows r and r + 8) and the first folded
+  // row each sees; rows at or past `full_from` see every key of the tile.
+  // A tile of fewer than kRows rows is masked past them.
+  const int r = 16 * warp + lane / 4;
+  int first[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = key0 + r + 8 * h;
+    first[h] = key < p.skv ? first_row(p, kCausal, key) : rows;
+  }
+  const int full_from = first_row(p, kCausal, key0 + kKeys - 1);
+  const bool ragged = key0 + kKeys > p.skv || p.tile_rows < kRows;
+  const float cexp = p.scale * 1.4426950408889634f;
+
+  float dkv[32], dvv[32], st[32], dpt[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dkv[i] = 0.f, dvv[i] = 0.f, st[i] = 0.f, dpt[i] = 0.f;
+  Frags<kRows / 16> pf, dsf;
+  for (int t = t0, u = u0; t < w.n_rt; ++t, ++u) {
+    const int s = u % S::kKvStages;
+    tc::mbar_wait(r_full + 8 * s, (u / S::kKvStages) & 1);
+    if (t >= my_t0) {
+      const uint32_t q_t = rq_s + s * S::kBox, do_t = rdo_s + s * S::kBox;
+      const int row0 = t * p.tile_rows;
+      const float* lse2 = stats + s * (S::kStats / 4);
+      const bool masked = ragged || row0 + kRows > rows || row0 < full_from;
+      // S^T = K Q^T and dP^T = V dO^T over the tile's rows
+      tc::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 64 / 16; ++kk) {
+        tc::wgmma_ss(st, tc::desc_k<64>(k_wg, kk, S::kBox), tc::desc_k<64>(q_t, kk, S::kBox),
+                     kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 64 / 16; ++kk) {
+        tc::wgmma_ss(dpt, tc::desc_k<64>(v_wg, kk, S::kBox), tc::desc_k<64>(do_t, kk, S::kBox),
+                     kk > 0);
+      }
+      tc::wgmma_commit();
+      tc::wgmma_wait<0>();
+      tc::fence_regs(st);
+      tc::fence_regs(dpt);
+      const int col0 = row0 + 2 * (lane % 4);
+      if (masked) {
+        const int lo[2] = {first[0] - col0, first[1] - col0};
+        tile_grads<true>(st, dpt, pf, dsf, lse2, lse2 + kRows, cexp, lane, lo,
+                         min(rows, row0 + p.tile_rows) - col0);
+      } else {
+        const int none[2] = {0, 0};
+        tile_grads<false>(st, dpt, pf, dsf, lse2, lse2 + kRows, cexp, lane, none, 0);
+      }
+      // dV += P^T dO and dK += dS^T Q over the tile's rows, each part in turn
+      tc::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kRows / 16; ++kk) {
+        tc::wgmma_rs(dvv, pf.hi[kk], tc::desc_mn<64>(do_t, kk, S::kBox));
+        tc::wgmma_rs(dkv, dsf.hi[kk], tc::desc_mn<64>(q_t, kk, S::kBox));
+      }
+#pragma unroll
+      for (int kk = 0; kk < kRows / 16; ++kk) {
+        tc::wgmma_rs(dvv, pf.lo[kk], tc::desc_mn<64>(do_t, kk, S::kBox));
+        tc::wgmma_rs(dkv, dsf.lo[kk], tc::desc_mn<64>(q_t, kk, S::kBox));
+      }
+      tc::wgmma_commit();
+      tc::wgmma_wait<0>();
+      tc::fence_regs(dvv);
+      tc::fence_regs(dkv);
+    }
+    if (lane == 0) tc::mbar_arrive(r_empty + 8 * s);  // this warp is done with the stage
+  }
+  if (lane == 0) tc::mbar_arrive(op_empty);  // and with K and V
+
+  // dK = D^-1/2 dS^T Q and dV, rounded once to bf16; keys past Skv unstored
+  if (active) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int key = key0 + r + 8 * h;
+      if (key >= p.skv) continue;
+      __nv_bfloat16* krow =
+          dk + it.b * p.dks[0] + key * p.dks[1] + it.hk * p.dks[2] + 2 * (lane % 4);
+      __nv_bfloat16* vrow =
+          dv + it.b * p.dvs[0] + key * p.dvs[1] + it.hk * p.dvs[2] + 2 * (lane % 4);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(krow + 8 * j) = __floats2bfloat162_rn(
+            dkv[4 * j + 2 * h] * p.scale, dkv[4 * j + 2 * h + 1] * p.scale);
+        *reinterpret_cast<__nv_bfloat162*>(vrow + 8 * j) =
+            __floats2bfloat162_rn(dvv[4 * j + 2 * h], dvv[4 * j + 2 * h + 1]);
+      }
+    }
+  }
+}
+
+// A dQ item in consumer c (its rows 64c .. 64c + 63): flash_bwd_dq_tc's loop
+// at D = Dv = 64 on the K/V ring from key tile number `u0` of the block;
+// releases the operand slot, then stores the item's rows.
+template <bool kCausal>
+__device__ __forceinline__ void d64_dq(const bwd::Params& p, const D64BwdParams& w,
+                                       const D64BwdItem& it, uint32_t op, uint32_t op_empty,
+                                       uint32_t kk_s, uint32_t kv_s, uint32_t k_full,
+                                       uint32_t k_empty, int u0, int c, int warp, int lane,
+                                       __nv_bfloat16* __restrict__ dq) {
+  using S = D64Bwd;
+  using TK = Tile<64>;
+  const int rows = p.sq * p.g;
+  const int row0 = it.idx * w.q_rows, wg_row0 = row0 + 64 * c;
+  const uint32_t q_wg = op + 64 * c * TK::kSwizzle;  // Q of the item's rows, then dO
+  const uint32_t do_wg = q_wg + 2 * S::kBox;
+  const int n_tiles = d64_key_tiles<kCausal>(p, w, it.idx);
+
+  // this thread's rows r and r + 8: their statistics (zeros past the end)
+  // and the keys they see (below lim); rows past the end take the last
+  // row's position and are never stored
+  const int r = 16 * warp + lane / 4;
+  const long long plane = static_cast<long long>(p.batch) * p.hkv * p.rows_pad;
+  const float* stat = p.delta + static_cast<long long>(it.b * p.hkv + it.hk) * p.rows_pad;
+  float lse2[2] = {0.f, 0.f}, del[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int f = wg_row0 + r + 8 * h;
+    if (f < rows) {
+      lse2[h] = stat[bwd::slot_of(p, f)];
+      del[h] = stat[plane + bwd::slot_of(p, f)];
+    }
+  }
+  auto lim_of = [&](int f) {
+    const int pos = min(f, rows - 1) / p.g + p.q_offset;
+    return kCausal ? min(p.skv, pos + 1) : p.skv;
+  };
+  const int lim[2] = {lim_of(wg_row0 + r), lim_of(wg_row0 + r + 8)};
+  const int min_lim = lim_of(wg_row0);
+  const float cexp = p.scale * 1.4426950408889634f;
+
+  float dqv[32], sc[tc::kKeys / 2], dp[tc::kKeys / 2];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dqv[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < tc::kKeys / 2; ++i) sc[i] = 0.f, dp[i] = 0.f;
+  uint32_t ds_hi[tc::kKeys / 16][4], ds_lo[tc::kKeys / 16][4];
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int u = u0 + t, s = u % S::kQStages, key0 = t * tc::kKeys;
+    const uint32_t k_t = kk_s + s * S::kKeyTile, v_t = kv_s + s * S::kKeyTile;
+    tc::mbar_wait(k_full + 8 * s, (u / S::kQStages) & 1);
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 64 / 16; ++kk) {
+      tc::wgmma_ss(sc, tc::desc_k<64>(q_wg, kk, TK::kBoxBytes),
+                   tc::desc_k<64>(k_t, kk, S::kKeyTile), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 64 / 16; ++kk) {
+      tc::wgmma_ss(dp, tc::desc_k<64>(do_wg, kk, TK::kBoxBytes),
+                   tc::desc_k<64>(v_t, kk, S::kKeyTile), kk > 0);
+    }
+    tc::wgmma_commit();
+    tc::wgmma_wait<0>();
+    tc::fence_regs(sc);
+    tc::fence_regs(dp);
+    // dS = P (dP - delta), P = 2^(S c - lse log2 e) where the key is
+    // visible (masked only on tiles that hold an invisible key)
+    const bool mask = key0 + tc::kKeys > min_lim;
+    int rel[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) rel[h] = lim[h] - key0 - 2 * (lane % 4);
+#pragma unroll
+    for (int kk = 0; kk < tc::kKeys / 16; ++kk) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int i = 8 * kk + 2 * j, h = j % 2, e = 8 * (i / 4);
+        float p0 = prob(sc[i], cexp, lse2[h]);
+        float p1 = prob(sc[i + 1], cexp, lse2[h]);
+        if (mask) {
+          p0 = e < rel[h] ? p0 : 0.f;
+          p1 = e + 1 < rel[h] ? p1 : 0.f;
+        }
+        split_bf16(p0 * (dp[i] - del[h]), p1 * (dp[i + 1] - del[h]), ds_hi[kk][j], ds_lo[kk][j]);
+      }
+    }
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < tc::kKeys / 16; ++kk) {
+      tc::wgmma_rs(dqv, ds_hi[kk], tc::desc_mn<64>(k_t, kk, S::kKeyTile));
+    }
+#pragma unroll
+    for (int kk = 0; kk < tc::kKeys / 16; ++kk) {
+      tc::wgmma_rs(dqv, ds_lo[kk], tc::desc_mn<64>(k_t, kk, S::kKeyTile));
+    }
+    tc::wgmma_commit();
+    tc::wgmma_wait<0>();
+    tc::fence_regs(dqv);
+    if (lane == 0) tc::mbar_arrive(k_empty + 8 * s);  // this warp is done with the stage
+  }
+  if (lane == 0) tc::mbar_arrive(op_empty);  // and with Q and dO
+
+  // dQ = D^-1/2 dS K, rounded once to bf16; rows past the item's tile and
+  // past Sq * G unstored
+  const int row_end = min(row0 + w.q_rows, rows);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int f = wg_row0 + r + 8 * h;
+    if (f >= row_end) continue;
+    const int qi = f / p.g, head = it.hk * p.g + f % p.g;
+    __nv_bfloat16* qrow = dq + it.b * p.dqs[0] + qi * p.dqs[1] + head * p.dqs[2] + 2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(qrow + 8 * j) = __floats2bfloat162_rn(
+          dqv[4 * j + 2 * h] * p.scale, dqv[4 * j + 2 * h + 1] * p.scale);
+    }
+  }
+}
+
+// tmq / tmdo: q and dout as row tiles of 64 folded rows (dK/dV's stream),
+// tmqw / tmdow of 128 (a dQ item's operands); tmk / tmv: k and v as tiles of
+// 64 keys (a dK/dV item's operands), tmkw / tmvw of 128 (dQ's stream).
+template <bool kCausal>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_d64(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ CUtensorMap tmdo,
+              const __grid_constant__ CUtensorMap tmqw, const __grid_constant__ CUtensorMap tmdow,
+              const __grid_constant__ CUtensorMap tmk, const __grid_constant__ CUtensorMap tmv,
+              const __grid_constant__ CUtensorMap tmkw, const __grid_constant__ CUtensorMap tmvw,
+              __nv_bfloat16* __restrict__ dq, __nv_bfloat16* __restrict__ dk,
+              __nv_bfloat16* __restrict__ dv, const bwd::Params p, const D64BwdParams w) {
+  using S = D64Bwd;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = tc::smem_addr(smem_raw);
+  const uint32_t base = (raw + tc::kAlign - 1) & ~static_cast<uint32_t>(tc::kAlign - 1);
+  const uint32_t op_s = base;                            // two operand slots
+  const uint32_t rq_s = op_s + 2 * S::kOp;               // dK/dV: kKvStages Q row tiles,
+  const uint32_t rdo_s = rq_s + S::kKvStages * S::kBox;  // their dO row tiles,
+  const uint32_t st_s = rdo_s + S::kKvStages * S::kBox;  // and their statistics
+  const uint32_t kk_s = st_s + S::kKvStages * S::kStats;      // dQ: kQStages K tiles
+  const uint32_t kv_s = kk_s + S::kQStages * S::kKeyTile;     // and V tiles
+  const uint32_t op_full = kv_s + S::kQStages * S::kKeyTile;  // the barriers
+  const uint32_t op_empty = op_full + 16;
+  const uint32_t r_full = op_empty + 16, r_empty = r_full + 8 * S::kKvStages;
+  const uint32_t k_full = r_empty + 8 * S::kKvStages, k_empty = k_full + 8 * S::kQStages;
+  const uint32_t slots_s = k_empty + 8 * S::kQStages;  // the item in each operand slot
+  volatile int* slots = reinterpret_cast<volatile int*>(smem_raw + (slots_s - raw));
+  const float* stats = reinterpret_cast<const float*>(smem_raw + (st_s - raw));
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2; ++s) {
+      tc::mbar_init(op_full + 8 * s, 1);   // the producer's arrival, plus the bytes
+      tc::mbar_init(op_empty + 8 * s, 8);  // one arrival per consumer warp
+    }
+    for (int s = 0; s < S::kKvStages; ++s) {
+      tc::mbar_init(r_full + 8 * s, 1);
+      tc::mbar_init(r_empty + 8 * s, 8);
+    }
+    for (int s = 0; s < S::kQStages; ++s) {
+      tc::mbar_init(k_full + 8 * s, 1);
+      tc::mbar_init(k_empty + 8 * s, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (p.tile_rows < kRows) {
+    // rows tile_rows .. kRows - 1 of every Q and dO row stage: TMA never
+    // writes them, so zeros once make them add nothing to dV and dK.  The
+    // stages' boxes of 64 rows lie back to back from rq_s: Q's, then dO's.
+    constexpr int kChunks = S::T::kSwizzle / 16;  // of 16 bytes in a row
+    const int tail = (kRows - p.tile_rows) * kChunks;
+    uint4* tiles = reinterpret_cast<uint4*>(smem_raw + (rq_s - raw));
+    for (int idx = threadIdx.x; idx < 2 * S::kKvStages * tail; idx += kThreads) {
+      tiles[idx / tail * (S::kBox / 16) + p.tile_rows * kChunks + idx % tail] =
+          make_uint4(0, 0, 0, 0);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // -- producer: per item its operands, then its row tiles or key tiles -------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      for (const CUtensorMap* map : {&tmq, &tmdo, &tmqw, &tmdow, &tmk, &tmv, &tmkw, &tmvw}) {
+        asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map))
+                     : "memory");
+      }
+      const long long plane = static_cast<long long>(p.batch) * p.hkv * p.rows_pad;
+      int rt = 0, kt = 0;  // row tiles and key tiles loaded before this item
+      for (int ic = 0;; ++ic) {
+        const int slot = ic & 1;
+        const uint32_t full = op_full + 8 * slot;
+        tc::mbar_wait(op_empty + 8 * slot, ((ic >> 1) & 1) ^ 1);  // its last item is done
+        const int item = atomicAdd(w.next, 1);
+        if (item >= w.n_items) {  // none left: the consumers stop at -1
+          slots[slot] = -1;
+          tc::mbar_arrive(full);
+          break;
+        }
+        slots[slot] = item;  // published by the arrival below
+        const D64BwdItem it = d64_bwd_item(p, w, item);
+        const uint32_t op = op_s + slot * S::kOp;
+        if (it.dkdv) {
+          // the consumers' key tiles; consumer 1 has none past the end
+          const int j0 = 2 * it.idx, j1 = j0 + 1;
+          const bool two = j1 < w.n_kt;
+          tc::mbar_expect_tx(full, (two ? 4 : 2) * S::kBox);
+          tc::tma_load(op, &tmk, full, 0, it.hk, j0 * kKeys, it.b);
+          tc::tma_load(op + S::kBox, &tmv, full, 0, it.hk, j0 * kKeys, it.b);
+          if (two) {
+            tc::tma_load(op + 2 * S::kBox, &tmk, full, 0, it.hk, j1 * kKeys, it.b);
+            tc::tma_load(op + 3 * S::kBox, &tmv, full, 0, it.hk, j1 * kKeys, it.b);
+          }
+          const float* stat = p.delta + static_cast<long long>(it.b * p.hkv + it.hk) * p.rows_pad;
+          for (int t = d64_first_tile<kCausal>(p, w, it.idx); t < w.n_rt; ++t, ++rt) {
+            const int s = rt % S::kKvStages;
+            const uint32_t bar = r_full + 8 * s;
+            tc::mbar_wait(r_empty + 8 * s, ((rt / S::kKvStages) & 1) ^ 1);  // stage released
+            tc::mbar_expect_tx(bar, p.tile_rows * 2 * S::T::kSwizzle + S::kStats);
+            const int i0 = t * (p.tile_rows / p.g);
+            tma_load_rows(rq_s + s * S::kBox, &tmq, bar, 0, it.hk, i0, it.b);
+            tma_load_rows(rdo_s + s * S::kBox, &tmdo, bar, 0, it.hk, i0, it.b);
+            bulk_load(st_s + s * S::kStats, stat + t * kRows, kRows * 4, bar);
+            bulk_load(st_s + s * S::kStats + kRows * 4, stat + plane + t * kRows, kRows * 4, bar);
+          }
+        } else {
+          const int i0 = it.idx * (w.q_rows / p.g);
+          tc::mbar_expect_tx(full, 2 * w.q_rows * S::T::kSwizzle);
+          tma_load_rows(op, &tmqw, full, 0, it.hk, i0, it.b);
+          tma_load_rows(op + 2 * S::kBox, &tmdow, full, 0, it.hk, i0, it.b);
+          const int n = d64_key_tiles<kCausal>(p, w, it.idx);
+          for (int t = 0; t < n; ++t, ++kt) {
+            const int s = kt % S::kQStages;
+            const uint32_t bar = k_full + 8 * s;
+            tc::mbar_wait(k_empty + 8 * s, ((kt / S::kQStages) & 1) ^ 1);  // stage released
+            tc::mbar_expect_tx(bar, 2 * S::kKeyTile);
+            tc::tma_load(kk_s + s * S::kKeyTile, &tmkw, bar, 0, it.hk, t * tc::kKeys, it.b);
+            tc::tma_load(kv_s + s * S::kKeyTile, &tmvw, bar, 0, it.hk, t * tc::kKeys, it.b);
+          }
+        }
+      }
+    }
+  } else {
+    // -- consumer c: keys of tile 2j + c of a dK/dV item, rows 64c ..
+    // 64c + 63 of a dQ item ---------------------------------------------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int c = threadIdx.x / 128 - 1, tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    int rt = 0, kt = 0;  // row tiles and key tiles taken before this item
+    for (int ic = 0;; ++ic) {
+      const int slot = ic & 1;
+      tc::mbar_wait(op_full + 8 * slot, (ic >> 1) & 1);
+      const int item = slots[slot];
+      if (item < 0) break;
+      const D64BwdItem it = d64_bwd_item(p, w, item);
+      const uint32_t op = op_s + slot * S::kOp;
+      if (it.dkdv) {
+        d64_dkdv<kCausal>(p, w, it, op, op_empty + 8 * slot, rq_s, rdo_s, r_full, r_empty, stats,
+                          rt, c, warp, lane, dk, dv);
+        rt += w.n_rt - d64_first_tile<kCausal>(p, w, it.idx);
+      } else {
+        d64_dq<kCausal>(p, w, it, op, op_empty + 8 * slot, kk_s, kv_s, k_full, k_empty, kt, c,
+                        warp, lane, dq);
+        kt += d64_key_tiles<kCausal>(p, w, it.idx);
+      }
+    }
+  }
+}
+
+}  // namespace tcb
+
 // -- host ---------------------------------------------------------------------------
 
 template <typename T, int D, int Dv>
@@ -3032,62 +3607,93 @@ cudaError_t row_map(CUtensorMap* map, const void* base, int d, int g, int hkv, i
   return rc == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// A persistent forward's chunk of heads (flash_mla_fwd, flash_d64_fwd): its
-// work list holds n_bh heads (batch * kv heads) of n_rt row tiles of
-// tile_rows folded rows each (g folded rows a query).  The chunk is the one
-// of kChunks (at most the heads) whose list, dealt to `grid` blocks in turn,
-// gives the least largest block, counting an item as its key tiles plus half
-// a tile (its Q load and O store); the smaller chunk on a tie, whose heads'
-// K and V stay in L2.  The last few answers are kept: a model calls it at
-// one shape again and again.
-int work_chunk(int n_bh, int n_rt, int tile_rows, int g, int sq, int skv, int q_offset,
-               bool causal, int grid) {
+// Key tiles of 128 that the rows f0 .. f1 - 1 of a row tile see: up to the
+// last that its last row sees where causal, else all (a forward item's, or
+// a dQ item's).
+int seen_key_tiles(int f0, int f1, int g, int sq, int skv, int q_offset, bool causal) {
+  const int key_tiles = (skv + tc::kKeys - 1) / tc::kKeys;
+  if (!causal) return key_tiles;
+  const int last = (f1 < sq * g ? f1 : sq * g) - 1;
+  const int seen_tiles = (last / g + q_offset) / tc::kKeys + 1;
+  return key_tiles < seen_tiles ? key_tiles : seen_tiles;
+}
+
+// A persistent kernel's chunk of heads (flash_mla_fwd, flash_d64_fwd,
+// tcb::flash_bwd_d64): its work list holds n_bh heads (batch * kv heads) of
+// the same n_per items, cost[i] the weight of a head's i-th item (a head
+// lists them heaviest first), in chunks of `chunk` heads whose items run
+// rank by rank, heads fastest.  The chunk is the one of kChunks (at most the
+// heads) whose list, dealt to `grid` blocks, gives the least largest block:
+// in turn (block j takes items j, j + grid, ...: the forwards) or by load
+// (each item to the block that frees first: the backward's blocks claim
+// items from a counter); the smaller chunk on a tie, whose heads' operands
+// stay in L2.  The last few answers are kept: a model calls it at one shape
+// again and again.
+int work_chunk(int n_bh, const int* cost, int n_per, int grid, bool by_load) {
   constexpr int kChunks[] = {1, 2, 4, 6, 8, 12, 16, 24, 32};
   constexpr int kMaxGrid = 1024;
+  constexpr int kSeen = 32;  // a training step's shapes, forward and backward
+  unsigned long long hash = 1469598103934665603ULL;  // FNV-1a over the costs
+  for (int i = 0; i < n_per; ++i) hash = (hash ^ static_cast<unsigned>(cost[i])) * 1099511628211ULL;
   struct Key {
-    int n_bh, n_rt, tile_rows, g, sq, skv, q_offset, causal, grid, chunk;
+    int n_bh, n_per, grid, by_load, chunk;
+    unsigned long long hash;
   };
-  static thread_local Key seen[8];
+  static thread_local Key seen[kSeen];
   static thread_local int next = 0;
   for (const Key& k : seen) {
-    if (k.chunk > 0 && k.n_bh == n_bh && k.n_rt == n_rt && k.tile_rows == tile_rows &&
-        k.g == g && k.sq == sq && k.skv == skv && k.q_offset == q_offset &&
-        k.causal == causal && k.grid == grid) {
+    if (k.chunk > 0 && k.n_bh == n_bh && k.n_per == n_per && k.grid == grid &&
+        k.by_load == (by_load ? 1 : 0) && k.hash == hash) {
       return k.chunk;
     }
   }
-  int best = 16;  // past kMaxGrid blocks or 2^20 items the search is skipped
-  if (grid <= kMaxGrid && static_cast<long long>(n_bh) * n_rt <= (1 << 20)) {
-    const int key_tiles = (skv + tc::kKeys - 1) / tc::kKeys;
-    long long load[kMaxGrid], best_span = -1;
+  const long long items = static_cast<long long>(n_bh) * n_per;
+  int best = 16;  // past kMaxGrid blocks or 2^20 items (2^16 by load) no search
+  long long best_span = -1;
+  if (grid <= kMaxGrid && items <= (by_load ? (1 << 16) : (1 << 20))) {
+    long long load[kMaxGrid];
     for (const int chunk : kChunks) {
       if (chunk > n_bh && chunk > 1) break;
       for (int i = 0; i < grid; ++i) load[i] = 0;
-      int blk = 0;  // the block that takes the next item
+      int blk = 0;  // the block that takes the next item (in turn)
       for (int c0 = 0; c0 < n_bh; c0 += chunk) {
         const int heads = n_bh - c0 < chunk ? n_bh - c0 : chunk;
-        for (int rank = 0; rank < n_rt; ++rank) {
-          const int row0 = (n_rt - 1 - rank) * tile_rows;
-          int n = key_tiles;
-          if (causal) {
-            const int last = (row0 + tile_rows < sq * g ? row0 + tile_rows : sq * g) - 1;
-            const int seen_tiles = (last / g + q_offset) / tc::kKeys + 1;
-            n = n < seen_tiles ? n : seen_tiles;
-          }
+        for (int rank = 0; rank < n_per; ++rank) {
           for (int j = 0; j < heads; ++j) {
-            load[blk] += 2 * n + 1;
-            blk = blk + 1 == grid ? 0 : blk + 1;
+            if (by_load) {  // load[] a min-heap: the block that frees first takes it
+              std::pop_heap(load, load + grid, std::greater<long long>());
+              load[grid - 1] += cost[rank];
+              std::push_heap(load, load + grid, std::greater<long long>());
+            } else {
+              load[blk] += cost[rank];
+              blk = blk + 1 == grid ? 0 : blk + 1;
+            }
           }
         }
       }
-      long long span = 0;
-      for (int i = 0; i < grid; ++i) span = load[i] > span ? load[i] : span;
-      if (best_span < 0 || span < best_span) best = chunk, best_span = span;
+      long long largest = 0;
+      for (int i = 0; i < grid; ++i) largest = load[i] > largest ? load[i] : largest;
+      if (best_span < 0 || largest < best_span) best = chunk, best_span = largest;
     }
   }
-  seen[next] = {n_bh, n_rt, tile_rows, g, sq, skv, q_offset, causal ? 1 : 0, grid, best};
-  next = (next + 1) % 8;
+  seen[next] = {n_bh, n_per, grid, by_load ? 1 : 0, best, hash};
+  next = (next + 1) % kSeen;
   return best;
+}
+
+// A persistent forward's chunk: its items are row tiles of tile_rows folded
+// rows, the heaviest (the last) first, each weighing its key tiles plus half
+// a tile (its Q load and O store).
+int fwd_chunk(int n_bh, int n_rt, int tile_rows, int g, int sq, int skv, int q_offset,
+              bool causal, int grid) {
+  constexpr int kMaxCosts = 4096;  // past them the search is skipped (work_chunk's default)
+  if (n_rt > kMaxCosts) return 16;
+  int cost[kMaxCosts];
+  for (int rank = 0; rank < n_rt; ++rank) {
+    const int row0 = (n_rt - 1 - rank) * tile_rows;
+    cost[rank] = 2 * seen_key_tiles(row0, row0 + tile_rows, g, sq, skv, q_offset, causal) + 1;
+  }
+  return work_chunk(n_bh, cost, n_rt, grid, false);
 }
 
 // MLA's bf16 attention at (192, 128), G = 1: q = [q_nope | q_rope], k =
@@ -3121,7 +3727,7 @@ cudaError_t launch_mla_fwd(const void* qn, const void* qr, const void* kn, const
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   const int grid = n_sm < p.n_items ? n_sm : p.n_items;
-  p.chunk = work_chunk(p.n_bh, p.n_rt, tc::kRows, 1, sq, skv, q_offset, causal, grid);
+  p.chunk = fwd_chunk(p.n_bh, p.n_rt, tc::kRows, 1, sq, skv, q_offset, causal, grid);
   CUtensorMap tmqn, tmqr, tmkn, tmkr, tmv;
   const int sw = tc::MlaFwd::K::kSwizzle;
   err = kv_map(&tmqn, qn, 128, heads, sq, batch, strides, sw, tc::kRows);
@@ -3169,7 +3775,7 @@ cudaError_t launch_d64_fwd(const void* q, const void* k, const void* v, void* o,
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   const int grid = n_sm < dp.n_items ? n_sm : dp.n_items;
-  dp.chunk = work_chunk(dp.n_bh, dp.n_rt, dp.tile_rows, p.g, p.sq, p.skv, p.q_offset, causal,
+  dp.chunk = fwd_chunk(dp.n_bh, dp.n_rt, dp.tile_rows, p.g, p.sq, p.skv, p.q_offset, causal,
                         grid);
   CUtensorMap tmq, tmk, tmv;
   err = row_map(&tmq, q, 64, p.g, p.hkv, p.sq, batch, strides, body.swizzle, tc::kRows);
@@ -3196,13 +3802,17 @@ struct BwdKernel {
 };
 
 // The backward of one (dtype, d, dv, causal): the delta pass, the dK/dV and
-// dQ kernels, their threads per block, and whether it is the tensor-core body
-// (folded statistics planes, paired key tiles, TMA maps).
+// dQ kernels, their threads per block, whether it is the tensor-core body
+// (folded statistics planes, paired key tiles, TMA maps), and whether one
+// persistent kernel (dkdv and dq name it both) runs both after its own
+// delta pass (bf16 at D = Dv = 64: bwd::flash_bwd_delta_d64,
+// tcb::flash_bwd_d64).
 struct BwdBody {
   const void* delta = nullptr;
   BwdKernel dkdv, dq;
   int threads = 0;
   bool tc = false;
+  bool d64 = false;
 };
 
 template <int D, int Dv>
@@ -3232,6 +3842,14 @@ BwdBody bwd_body_tc(bool causal) {
     body.dq = {causal ? reinterpret_cast<const void*>(&tcb::flash_bwd_dq_mla<true>)
                       : reinterpret_cast<const void*>(&tcb::flash_bwd_dq_mla<false>),
                Q::kSmem, tcb::kDqRows, Q::kKeys, Q::kStages};
+  } else if constexpr (D == 64) {  // one persistent launch over both kinds of item
+    using S = tcb::D64Bwd;
+    const void* fn = causal ? reinterpret_cast<const void*>(&tcb::flash_bwd_d64<true>)
+                            : reinterpret_cast<const void*>(&tcb::flash_bwd_d64<false>);
+    body.delta = reinterpret_cast<const void*>(&bwd::flash_bwd_delta_d64);
+    body.dkdv = {fn, S::kSmem, tcb::kRows, tcb::kKeys, S::kKvStages};
+    body.dq = {fn, S::kSmem, tcb::kDqRows, tc::kKeys, S::kQStages};
+    body.d64 = true;
   } else {
     body.delta = reinterpret_cast<const void*>(&bwd::flash_bwd_delta<__nv_bfloat16, Dv, true>);
     body.dkdv = {causal ? reinterpret_cast<const void*>(&tcb::flash_bwd_dkdv_tc<D, Dv, true>)
@@ -3385,11 +4003,12 @@ extern "C" int flash_attention_attributes(int dtype, int d, int dv, int causal, 
 
 // f32 words of the backward's `delta` scratch for one call: (batch, hq, sq)
 // for the f32 body, two folded planes of (batch * hkv, padded rows) for the
-// bf16 body.
+// bf16 body and, after them, flash_bwd_d64's work counter (kCounterWords).
 extern "C" long long flash_attention_bwd_scratch(int dtype, int batch, int sq, int hq, int hkv) {
   if (batch <= 0 || sq <= 0 || hkv <= 0 || hq % hkv != 0) return 0;
-  if (dtype == kBF16) {
-    return 2LL * batch * hkv * tcb::plane_slots(static_cast<long long>(sq) * (hq / hkv), hq / hkv);
+  if (dtype == kBF16) {  // the planes, then flash_bwd_d64's work counter
+    return 2LL * batch * hkv * tcb::plane_slots(static_cast<long long>(sq) * (hq / hkv), hq / hkv) +
+           tcb::kCounterWords;
   }
   return static_cast<long long>(batch) * hq * sq;
 }
@@ -3409,6 +4028,113 @@ struct BwdArgs {
   int q_offset;
   float scale;
 };
+
+// flash_bwd_d64's work list at one shape on n_sm SMs: all of *w but the
+// counter, and the grid (one block per SM, at most one per item).
+cudaError_t d64_bwd_plan(const bwd::Params& p, bool causal, int n_sm, tcb::D64BwdParams* out,
+                         int* grid_out) {
+  tcb::D64BwdParams w;
+  const int rows = p.sq * p.g;
+  w.n_kt = (p.skv + tcb::kKeys - 1) / tcb::kKeys;
+  w.n_rt = (rows + p.tile_rows - 1) / p.tile_rows;
+  w.q_rows = p.g * (tc::kRows / p.g);
+  w.n_qt = (rows + w.q_rows - 1) / w.q_rows;
+  w.n_pairs = (w.n_kt + 1) / 2;
+  w.n_per = w.n_pairs + w.n_qt;
+  w.n_bh = p.batch * p.hkv;
+  if (static_cast<long long>(w.n_bh) * w.n_per > (1LL << 30)) return cudaErrorInvalidValue;
+  w.n_items = w.n_bh * w.n_per;
+  const int grid = n_sm < w.n_items ? n_sm : w.n_items;
+  // A head's items and their weights: each kind heaviest first (the pairs
+  // from j = 0, the dQ row tiles from the last), the kind whose heaviest
+  // weighs more first.  The weights are estimates (they order and chunk the
+  // list; the bits do not depend on them), in tenths of a row tile of 64 on
+  // one consumer: 13 a tile where both consumers run at once (the tensor
+  // cores then serve two chains), a dQ key tile of 128 one and a half such
+  // tiles (20), an item's start and end 5.
+  constexpr int kMaxCosts = 4096;  // past them no search: work_chunk's chunk
+  std::vector<int> cost(static_cast<size_t>(w.n_per));
+  auto chain = [&](int tile) {  // row tiles of 64 that key tile `tile` walks
+    if (tile >= w.n_kt) return 0;
+    const int key = tile * tcb::kKeys;
+    const int f = causal ? std::min(std::max(key - p.q_offset, 0), p.sq) * p.g : 0;
+    return f < rows ? w.n_rt - f / p.tile_rows : 0;  // tcb::first_tile's
+  };
+  int* kv_cost = cost.data();
+  int* q_cost = cost.data() + w.n_pairs;
+  for (int j = 0; j < w.n_pairs; ++j) {
+    const int c0 = chain(2 * j), c1 = chain(2 * j + 1);
+    const int lo = std::min(c0, c1), hi = std::max(c0, c1);
+    kv_cost[j] = 10 * (hi - lo) + 13 * lo + 5;
+  }
+  for (int i = 0; i < w.n_qt; ++i) {
+    const int row0 = (w.n_qt - 1 - i) * w.q_rows;
+    q_cost[i] = 20 * seen_key_tiles(row0, row0 + w.q_rows, p.g, p.sq, p.skv, p.q_offset,
+                                    causal) + 5;
+  }
+  w.q_first = q_cost[0] > kv_cost[0] ? 1 : 0;
+  if (w.q_first) std::rotate(cost.begin(), cost.begin() + w.n_pairs, cost.end());
+  w.chunk = w.n_per <= kMaxCosts ? work_chunk(w.n_bh, cost.data(), w.n_per, grid, true) : 16;
+  w.next = nullptr;
+  *out = w;
+  *grid_out = grid;
+  return cudaSuccess;
+}
+
+// bf16 at D = Dv = 64: the delta pass (bwd::flash_bwd_delta_d64, which also
+// zeroes the work counter), then tcb::flash_bwd_d64 over the heads' dK/dV
+// and dQ items (d64_bwd_plan).  The counter is the scratch's last
+// kCounterWords words.
+cudaError_t launch_d64_bwd(const BwdArgs& a, const bwd::Params& p, const BwdBody& body,
+                           cudaStream_t st) {
+  int dev = 0, n_sm = 0, grid = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  tcb::D64BwdParams w;
+  if (err == cudaSuccess) err = d64_bwd_plan(p, a.causal, n_sm, &w, &grid);
+  if (err != cudaSuccess) return err;
+  w.next = reinterpret_cast<int*>(p.delta + 2LL * a.batch * a.hkv * p.rows_pad);
+  const int sw = tc::Tile<64>::kSwizzle;
+  CUtensorMap tmq, tmdo, tmqw, tmdow, tmk, tmv, tmkw, tmvw;
+  err = row_map(&tmq, a.q, 64, p.g, a.hkv, a.sq, a.batch, a.strides, sw, tcb::kRows);
+  if (err == cudaSuccess) {
+    err = row_map(&tmdo, a.dout, 64, p.g, a.hkv, a.sq, a.batch, a.strides + 12, sw, tcb::kRows);
+  }
+  if (err == cudaSuccess) {
+    err = row_map(&tmqw, a.q, 64, p.g, a.hkv, a.sq, a.batch, a.strides, sw, tc::kRows);
+  }
+  if (err == cudaSuccess) {
+    err = row_map(&tmdow, a.dout, 64, p.g, a.hkv, a.sq, a.batch, a.strides + 12, sw, tc::kRows);
+  }
+  if (err == cudaSuccess) {
+    err = kv_map(&tmk, a.k, 64, a.hkv, a.skv, a.batch, a.strides + 3, sw, tcb::kKeys);
+  }
+  if (err == cudaSuccess) {
+    err = kv_map(&tmv, a.v, 64, a.hkv, a.skv, a.batch, a.strides + 6, sw, tcb::kKeys);
+  }
+  if (err == cudaSuccess) {
+    err = kv_map(&tmkw, a.k, 64, a.hkv, a.skv, a.batch, a.strides + 3, sw, tc::kKeys);
+  }
+  if (err == cudaSuccess) {
+    err = kv_map(&tmvw, a.v, 64, a.hkv, a.skv, a.batch, a.strides + 6, sw, tc::kKeys);
+  }
+  if (err != cudaSuccess) return err;
+  const long long n_rows = static_cast<long long>(a.batch) * a.hkv * p.rows_pad;
+  void* delta_args[] = {const_cast<void**>(&a.o), const_cast<void**>(&a.dout),
+                        const_cast<bwd::Params*>(&p), &w.next};
+  err = cudaLaunchKernel(
+      body.delta,
+      dim3(static_cast<unsigned>((n_rows + bwd::kD64DeltaRows - 1) / bwd::kD64DeltaRows)),
+      dim3(bwd::kThreads), delta_args, 0, st);
+  if (err != cudaSuccess) return err;
+  void* args[] = {&tmq, &tmdo, &tmqw, &tmdow, &tmk, &tmv, &tmkw, &tmvw,
+                  const_cast<void**>(&a.dq), const_cast<void**>(&a.dk),
+                  const_cast<void**>(&a.dv), const_cast<bwd::Params*>(&p), &w};
+  err = cudaLaunchKernel(body.dkdv.fn, dim3(static_cast<unsigned>(grid)), dim3(body.threads),
+                         args, body.dkdv.smem, st);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
 
 cudaError_t launch_bwd(const BwdArgs& a, int dtype, cudaStream_t st) {
   const BwdBody body = pick_bwd(dtype, a.d, a.dv_dim, a.causal);
@@ -3442,6 +4168,7 @@ cudaError_t launch_bwd(const BwdArgs& a, int dtype, cudaStream_t st) {
   cudaError_t err = prepare(body.dkdv.fn, body.dkdv.smem);
   if (err == cudaSuccess) err = prepare(body.dq.fn, body.dq.smem);
   if (err != cudaSuccess) return err;
+  if (body.d64) return launch_d64_bwd(a, p, body, st);
   const long long n_rows = body.tc ? static_cast<long long>(a.batch) * a.hkv * p.rows_pad
                                    : static_cast<long long>(a.batch) * a.sq * a.hq;
   void* delta_args[] = {const_cast<void**>(&a.o), const_cast<void**>(&a.dout), &p};
@@ -3538,7 +4265,8 @@ cudaError_t launch_bwd(const BwdArgs& a, int dtype, cudaStream_t st) {
 // strides of (batch, seq, head) for q, k, v, o, dout, dq, dk and dv in that
 // order (the last dim contiguous; bf16: q, k, v and dout in multiples of 8
 // from 16-byte aligned bases, as cp.async and TMA read them).  Three
-// launches: delta, then dK/dV and dQ.  Returns the first failing launch's
+// launches: delta, then dK/dV and dQ (bf16 at D = Dv = 64 two: delta, then
+// flash_bwd_d64 over both).  Returns the first failing launch's
 // cudaError_t (0 = all queued).  bf16 at (192, 128) takes G = 1 and reads q
 // and k as nope and rope views (flash_attention_mla_bwd).
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
@@ -3581,7 +4309,8 @@ extern "C" int flash_attention_mla_bwd(const void* q_nope, const void* q_rope,
 // The backward's budget: out = {numRegs, dynamic shared bytes, local
 // (spill) bytes, threads per block, resident blocks/SM, folded rows per
 // tile, keys per tile, tiles in flight} of the dK/dV kernel (which = 0) or
-// the dQ kernel (which = 1) at (d, dv).
+// the dQ kernel (which = 1) at (d, dv); bf16 at (64, 64) both are
+// flash_bwd_d64, with each role's tiling.
 extern "C" int flash_attention_bwd_attributes(int dtype, int d, int dv, int causal, int which,
                                               int* out) {
   const BwdBody body = pick_bwd(dtype, d, dv, causal != 0);
@@ -3607,6 +4336,46 @@ extern "C" int flash_attention_bwd_attributes(int dtype, int d, int dv, int caus
 }
 
 // Every csrc library exports this name; the wrappers raise with it.
+// flash_bwd_d64's work list at one shape on n_sm SMs, as the host plans it
+// and its blocks decode it: plan[3] = {q_first, chunk, items}; items (if
+// not null, room for max_items) holds 4 ints an item in the order the
+// blocks claim them: dK/dV (1) or dQ (0), batch, kv head, and the pair j
+// (key tiles 2j and 2j + 1) or the row tile.  cudaErrorInvalidValue for a
+// shape the kernel does not take or past max_items.
+extern "C" int flash_attention_bwd_d64_plan(int batch, int sq, int skv, int hq, int hkv,
+                                            int causal, int q_offset, int n_sm, int* plan,
+                                            int* items, int max_items) {
+  if (batch <= 0 || sq <= 0 || skv <= 0 || hkv <= 0 || hq % hkv != 0 ||
+      hq / hkv > tcb::kRows || q_offset < 0 || n_sm <= 0) {
+    return cudaErrorInvalidValue;
+  }
+  bwd::Params p{};
+  p.batch = batch;
+  p.sq = sq;
+  p.skv = skv;
+  p.g = hq / hkv;
+  p.hkv = hkv;
+  p.q_offset = q_offset;
+  p.tile_rows = tcb::tile_rows(p.g);
+  tcb::D64BwdParams w;
+  int grid = 0;
+  const cudaError_t err = d64_bwd_plan(p, causal != 0, n_sm, &w, &grid);
+  if (err != cudaSuccess) return err;
+  plan[0] = w.q_first;
+  plan[1] = w.chunk;
+  plan[2] = w.n_items;
+  if (items == nullptr) return cudaSuccess;
+  if (w.n_items > max_items) return cudaErrorInvalidValue;
+  for (int i = 0; i < w.n_items; ++i) {
+    const tcb::D64BwdItem it = tcb::d64_bwd_item(p, w, i);
+    items[4 * i] = it.dkdv;
+    items[4 * i + 1] = it.b;
+    items[4 * i + 2] = it.hk;
+    items[4 * i + 3] = it.idx;
+  }
+  return cudaSuccess;
+}
+
 extern "C" const char* su3_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

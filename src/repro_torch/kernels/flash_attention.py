@@ -75,7 +75,11 @@ through four stages by TMA; at (192, 128) a dK/dV kernel of one key tile a
 block whose two consumers split the products (dV on one, dK on the other,
 P^T handed between them), on q and k as nope and rope parts; a dQ kernel
 of blocks of 128 folded rows against K/V tiles of 128 keys by TMA (two
-stages; tiles of 64 keys at (192, 128)).  See :func:`bwd_smem_bytes`.  P and dS are each
+stages; tiles of 64 keys at (192, 128)); at D = Dv = 64 both kinds of
+block are work items of one persistent kernel (``flash_bwd_d64``: one
+block per SM claims the items of every head, dK/dV pairs of key tiles 2j
+and 2j + 1 and dQ tiles of G * (128 // G) folded rows, from a counter;
+:func:`d64_bwd_plan`).  See :func:`bwd_smem_bytes`.  P and dS are each
 split into two bf16 parts before their products, as the forward splits p,
 so dV, dK and dQ run twice.  q, k, v and dout need 16-byte rows, as
 in the forward; a dout without them is copied.  f32, on the CUDA cores:
@@ -122,7 +126,7 @@ def _plain_chunks(q: torch.Tensor, k: torch.Tensor, q_chunk: int,
     return q_chunk, kv_chunk
 
 LAUNCHES = LaunchCounter("flash_attention")
-BWD_LAUNCHES = LaunchCounter("flash_attention_bwd")  # one per backward call (three kernels)
+BWD_LAUNCHES = LaunchCounter("flash_attention_bwd")  # one per backward call (2 or 3 kernels)
 # The backward's tiling per body, (folded rows per tile, keys per tile, tiles
 # in flight) of each kernel; bwd_budget raises if the built library reports
 # another.  bf16 dK/dV: rows of a streamed Q/dO tile, keys of one consumer
@@ -132,6 +136,11 @@ BWD_TILING = {
     torch.bfloat16: {"dkdv": (64, 64, 4), "dq": (128, 128, 2)},
     torch.float32: {"dkdv": (64, 64, 1), "dq": (64, 64, 1)},
 }
+# At D = Dv = 64 one persistent kernel (flash_bwd_d64) holds both roles, with
+# the same tiling: its dK/dV items stream row tiles of 64 through four
+# stages, its dQ items K/V tiles of 128 keys through two (an item of
+# G * (128 // G) folded rows, whole query groups).
+D64_BWD_SLOTS = 2  # flash_bwd_d64: operand slots (an item's, the next one's)
 # The bf16 body at Dv != D, MLA's (192, 128): a dK/dV block of one key tile
 # whose two consumers split the products (flash_bwd_dkdv_mla), four row tiles
 # in flight; dQ on K/V tiles of 64 keys (128 would pass the 227 KB of a
@@ -417,6 +426,8 @@ def _library() -> ctypes.CDLL:
         lib.flash_attention_mla_bwd.restype = i32
         lib.flash_attention_bwd_scratch.argtypes = [i32, i32, i32, i32, i32]
         lib.flash_attention_bwd_scratch.restype = ctypes.c_longlong
+        lib.flash_attention_bwd_d64_plan.argtypes = [i32] * 8 + [ctypes.POINTER(i32)] * 2 + [i32]
+        lib.flash_attention_bwd_d64_plan.restype = i32
         lib.su3_error_string.argtypes = [i32]
         lib.su3_error_string.restype = ctypes.c_char_p
         lib._repro_typed = True
@@ -482,6 +493,11 @@ def bwd_smem_bytes(d: int, dtype: torch.dtype = torch.bfloat16,
     block's two key tiles and, per stage, a Q and a dO tile of 64 rows with
     their lse and delta (f32), and a full and an empty barrier; dQ: Q and dO
     of the block's rows and, per stage, a K and a V tile, and two barriers.
+    At D = Dv = 64 one kernel (``flash_bwd_d64``) holds both, its figure
+    given for each: two operand slots of 32 KB (a dK/dV item's K and V of
+    two key tiles, or a dQ item's Q and dO of 128 rows), the dK/dV ring and
+    the dQ ring, a full and an empty barrier for each slot and stage, and
+    16 bytes for the items the slots hold (199,824).
     At (192, 128) the dK/dV block holds one key tile's K and V, four stages
     and the row tile's P^T in f32 that its consumers hand on (224,320; two
     key tiles with four stages would take 248,896 bytes, past the 232,448
@@ -491,6 +507,13 @@ def bwd_smem_bytes(d: int, dtype: torch.dtype = torch.bfloat16,
     or dS alone (dQ) in rows of 65, and the tile's lse and delta."""
     dv = d if dv is None else dv
     t = bwd_tiling(dtype, d, dv)
+    if _d64_tc(dtype, d, dv):
+        rows, keys, stages = t["dkdv"]
+        q_rows, q_keys, q_stages = t["dq"]
+        slot = 4 * d * max(2 * keys, q_rows)  # K and V of two key tiles, or Q and dO
+        both = (1024 + D64_BWD_SLOTS * slot + stages * (4 * d * rows + 8 * rows)
+                + q_stages * 4 * d * q_keys + 16 * (D64_BWD_SLOTS + stages + q_stages) + 16)
+        return both, both
     if dtype == torch.bfloat16:
         rows, keys, stages = t["dkdv"]
         if d == dv:
@@ -538,11 +561,13 @@ def bwd_executed_flops(
             continue
         kv_visited += max(n_rt - first // tile, 0)
     key_tiles = -(-skv // q_keys)
+    # rows of a dQ block: whole query groups in flash_bwd_d64's items
+    q_tile = q_rows // g * g if _d64_tc(dtype, d, dv) else q_rows
     q_visited = 0
-    for row0 in range(0, rows, q_rows):
+    for row0 in range(0, rows, q_tile):
         n = key_tiles
         if causal:
-            last = min(row0 + q_rows, rows) - 1
+            last = min(row0 + q_tile, rows) - 1
             n = min(n, (last // g + q_offset) // q_keys + 1)
         q_visited += n
     twice = 2 if dtype == torch.bfloat16 else 1  # dV, dK and dQ on two bf16 parts
@@ -579,6 +604,29 @@ def bwd_budget(dtype: torch.dtype = torch.bfloat16, d: int = 128,
         found[name] = dict(zip(("num_regs", "shared_bytes", "local_bytes", "threads_per_block",
                                 "blocks_per_sm"), budget))
     return found
+
+
+def d64_bwd_plan(batch: int, sq: int, skv: int, hq: int, hkv: int, *, causal: bool = True,
+                 q_offset: int = 0, n_sm: int | None = None,
+                 ) -> tuple[dict[str, int], list[tuple[str, int, int, int]]]:
+    """``flash_bwd_d64``'s work list at one shape, as the built library plans
+    it on ``n_sm`` SMs (None: the current CUDA device's) and its blocks
+    decode it: ``({"q_first", "chunk", "items"}, items)``, the items in the
+    order the blocks claim them, each ``("dkdv", batch, kv head, j)`` (key
+    tiles 2j and 2j + 1) or ``("dq", batch, kv head, i)`` (row tile i of G *
+    (128 // G) folded rows)."""
+    lib = _library()
+    if n_sm is None:
+        n_sm = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+    plan = (ctypes.c_int * 3)()
+    args = (batch, sq, skv, hq, hkv, int(causal), q_offset, n_sm, plan)
+    _check_error(lib, lib.flash_attention_bwd_d64_plan(*args, None, 0), "d64_bwd_plan")
+    n = plan[2]
+    items = (ctypes.c_int * (4 * n))()
+    _check_error(lib, lib.flash_attention_bwd_d64_plan(*args, items, n), "d64_bwd_plan")
+    flat = list(items)
+    return (dict(zip(("q_first", "chunk", "items"), plan)),
+            [("dkdv" if flat[i] else "dq", *flat[i + 1:i + 4]) for i in range(0, 4 * n, 4)])
 
 
 def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -697,10 +745,11 @@ def flash_attention_bwd(
     ``out``, the gradient ``dout`` of out and the forward's ``lse``
     (B, Hq, Sq) f32.
 
-    CUDA tensors go to the backward kernel (one call of three launches,
-    counted once in :data:`BWD_LAUNCHES`) or raise; CPU and ``meta`` tensors
-    go to :func:`flash_attention_bwd_plain` with ``q_chunk`` / ``kv_chunk``
-    (on ``meta`` the whole sequences); any other device raises.
+    CUDA tensors go to the backward kernels (one call of three launches,
+    two in bf16 at D = Dv = 64, counted once in :data:`BWD_LAUNCHES`) or
+    raise; CPU and ``meta`` tensors go to :func:`flash_attention_bwd_plain`
+    with ``q_chunk`` / ``kv_chunk`` (on ``meta`` the whole sequences); any
+    other device raises.
     """
     _check_shapes(q, k, v)
     b, sq, hq, d = q.shape
@@ -726,12 +775,14 @@ def flash_attention_bwd(
         raise ValueError(f"flash_attention_bwd: out and dout must be q's {q.dtype} and lse "
                          f"float32, got {out.dtype}, {dout.dtype}, {lse.dtype}")
     # out is read element by element (the delta pass): only its head dim must
-    # be contiguous.  dout too in the f32 body; the bf16 body reads its rows
-    # by TMA and cp.async, as q's, so a dout off 16 bytes is copied (it is
-    # the caller's gradient, whose strides no check can promise).
+    # be contiguous, but for the bf16 delta passes at (192, 128) and D = 64,
+    # which read 16 bytes at a time.  dout too in the f32 body; the bf16 body
+    # reads its rows by TMA and cp.async, as q's, so a dout off 16 bytes is
+    # copied (it is the caller's gradient, whose strides no check can promise).
     out = out if out.stride(-1) == 1 else out.contiguous()
-    if q.dtype == torch.bfloat16 and d != v.shape[-1] and not _rows_aligned(out):
-        out = out.clone(memory_format=torch.contiguous_format)  # (192, 128): 16-byte reads
+    if (q.dtype == torch.bfloat16 and (d != v.shape[-1] or d == 64)
+            and not _rows_aligned(out)):
+        out = out.clone(memory_format=torch.contiguous_format)
     if dout.dtype == torch.bfloat16 and not _rows_aligned(dout):
         dout = dout.clone(memory_format=torch.contiguous_format)
     elif dout.stride(-1) != 1:

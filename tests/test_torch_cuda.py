@@ -771,12 +771,16 @@ def test_cuda_flash_backward_matches_plain_version(cuda_device, shape, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [BWD_SHAPES[0], BWD_SHAPES[14]])  # qwen3-4b's, MLA's
+# qwen3-4b's, MLA's, then D=64 (flash_bwd_d64): whisper-tiny's encoder (G=1,
+# non-causal) and granite-moe's training shape (G=2)
+@pytest.mark.parametrize("shape", [BWD_SHAPES[0], BWD_SHAPES[14], BWD_SHAPES[10],
+                                   BWD_SHAPES[7]])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_flash_backward_is_deterministic(cuda_device, dtype, shape):
+    causal = shape[7]
     q, k, v, dout, out, lse = _bwd_inputs(shape, dtype, cuda_device, seed=61)
-    first = fa.flash_attention_bwd(q, k, v, out, dout, lse)
-    again = fa.flash_attention_bwd(q, k, v, out, dout, lse)
+    first = fa.flash_attention_bwd(q, k, v, out, dout, lse, causal=causal)
+    again = fa.flash_attention_bwd(q, k, v, out, dout, lse, causal=causal)
     torch.cuda.synchronize()
     for a, b in zip(first, again):
         assert torch.equal(a, b)
@@ -867,6 +871,67 @@ def test_cuda_flash_backward_budget(cuda_device, dtype, threads):
                 assert budget[name]["threads_per_block"] == threads
                 if dtype == torch.bfloat16:
                     assert budget[name]["num_regs"] == 168
+            if dtype == torch.bfloat16 and d == dv == 64:  # one kernel, flash_bwd_d64, for both
+                assert budget["dkdv"] == budget["dq"]
+                assert budget["dkdv"]["shared_bytes"] == 199824
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("load", ["below", "at", "above"])
+def test_cuda_d64_work_list_below_at_and_above_the_sm_count(cuda_device, load):
+    """flash_bwd_d64 runs min(items, SMs) blocks that claim the items of a
+    work list: fewer items than SMs (blocks with one item), as many (some
+    blocks may claim two and leave another none) and more (blocks walk
+    several).  A head of 64 queries and 64 keys holds one dK/dV pair and
+    one dQ row tile; the heads take the item count where the card's SM
+    count puts it.  Every form against the plain version, twice bitwise, at
+    G=1 causal and G=2 non-causal."""
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    heads = {"below": max(n_sm // 4, 1), "at": max(n_sm // 2, 1), "above": 3 * n_sm // 2}[load]
+    for g, causal in ((1, True), (2, False)):
+        shape = (1, 64, 64, heads * g, heads, 64, 64, causal, 0)
+        assert fa.d64_bwd_plan(1, 64, 64, heads * g, heads, causal=causal)[0]["items"] == 2 * heads
+        q, k, v, dout, out, lse = _bwd_inputs(shape, torch.bfloat16, cuda_device, seed=65)
+        want = fa.flash_attention_bwd_plain(q, k, v, out, dout, lse, causal=causal)
+        got = fa.flash_attention_bwd(q, k, v, out, dout, lse, causal=causal)
+        again = fa.flash_attention_bwd(q, k, v, out, dout, lse, causal=causal)
+        torch.cuda.synchronize()
+        for name, g_, w, a in zip(("dq", "dk", "dv"), got, want, again):
+            ok, err = _within_max(g_, w, torch.bfloat16)
+            assert ok and torch.equal(g_, a), (name, g, err)
+
+
+D64_TRAIN_SHAPES = [  # (batch, sq, skv, hq, hkv, causal, dK/dV items, dQ items): training's
+    (2, 1024, 1024, 16, 8, True, 128, 256),  # granite-moe-1b-a400m, G=2
+    (2, 1024, 1024, 32, 32, True, 512, 512),  # zamba2-1.2b's shared block
+    (2, 1500, 1500, 6, 6, False, 144, 144),  # whisper-tiny's encoder
+    (2, 448, 1500, 6, 6, False, 144, 48),  # its cross-attention
+    (2, 448, 448, 6, 6, True, 48, 48),  # its decoder's self-attention
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", D64_TRAIN_SHAPES, ids=["granite", "zamba", "encoder", "cross",
+                                                         "self"])
+def test_cuda_d64_work_list_holds_each_item_once(cuda_device, shape):
+    """flash_bwd_d64's own work list (the library's plan, each item decoded
+    by the blocks' decoder) at the main paths' training shapes, on the
+    card's SMs, on fewer and on more: each dK/dV pair (key tiles 2j and 2j
+    + 1) and each dQ row tile of every head exactly once, the list starting
+    with the kind the plan puts first."""
+    b, sq, skv, hq, hkv, causal, n_kv, n_q = shape
+    g = hq // hkv
+    n_kt, n_qt = -(-skv // 64), -(-sq * g // (128 // g * g))
+    heads = [(i, h) for i in range(b) for h in range(hkv)]
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for sms in (n_sm, 8, 1024):
+        plan, items = fa.d64_bwd_plan(b, sq, skv, hq, hkv, causal=causal, n_sm=sms)
+        assert plan["items"] == len(items) == len(set(items)) == n_kv + n_q
+        assert {it for it in items if it[0] == "dkdv"} == {
+            ("dkdv", i, h, j) for i, h in heads for j in range((n_kt + 1) // 2)}
+        assert {it for it in items if it[0] == "dq"} == {
+            ("dq", i, h, t) for i, h in heads for t in range(n_qt)}
+        assert items[0][0] == ("dq" if plan["q_first"] else "dkdv")
 
 
 @pytest.mark.cuda

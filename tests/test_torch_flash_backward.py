@@ -342,3 +342,81 @@ def test_gradients_at_a_narrower_value_head_equal_jax_grad(chunks):
     want = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4, atol=1e-5, err_msg=name)
+
+
+# -- bf16 at D = Dv = 64: one persistent kernel (flash_bwd_d64) over both kinds of item --
+
+def test_bwd_tiling_smem_and_flops_at_d64():
+    """At D = Dv = 64 one kernel holds both roles with the old kernels'
+    tiling (row tiles of 64 through four stages; K/V tiles of 128 keys
+    through two), in 199,824 bytes: 1 KB to align, two operand slots of 32
+    KB (a dK/dV item's K and V of two key tiles, or a dQ item's Q and dO of
+    128 rows), four stages of a Q and a dO row tile with their statistics,
+    two stages of a K and a V tile, a full and an empty barrier for each
+    slot and stage, and the items the slots hold.  Its flops are the old
+    kernels' where G divides 128."""
+    assert fa.bwd_tiling(BF16, 64) == {"dkdv": (64, 64, 4), "dq": (128, 128, 2)}
+    smem = 1024 + 2 * 32768 + 4 * (2 * 64 * 128 + 512) + 2 * 2 * 128 * 128 + 8 * 16 + 16
+    assert fa.bwd_smem_bytes(64, BF16) == (smem, smem) == (199824, 199824)
+    assert smem <= 232448
+    # granite-moe's training shape: key tile j (of 16) walks row tiles 2j..31;
+    # dQ tile i of 128 folded rows (64 queries) key tiles i // 2 + 1
+    assert fa.bwd_executed_flops(2, 1024, 1024, 16, 8, 64) == 2 * 8 * (
+        272 * 64 * 64 * 12 * 64 + 72 * 128 * 128 * 8 * 64)
+
+
+def test_bwd_tiling_smem_and_flops_keep_the_other_head_dims():
+    """D=32, D=128 and MLA's (192, 128) keep their kernels and numbers; only
+    D=64 takes the new kernel's whole-group dQ tiles: at G=3 an item holds
+    126 folded rows, so 255 rows take three where tiles of 128 took two."""
+    assert fa.bwd_tiling(BF16, 32) == fa.bwd_tiling(BF16, 128) == {
+        "dkdv": (64, 64, 4), "dq": (128, 128, 2)}
+    assert fa.bwd_smem_bytes(32, BF16) == (52288, 50208)
+    assert fa.bwd_smem_bytes(128, BF16) == (199744, 197664)
+    assert fa.bwd_smem_bytes(192, BF16, dv=128) == (224320, 164896)
+    # 85 queries of G=3 (255 folded rows), causal, one key tile of 128 each
+    kv = 85 * 3 // 63 + 1  # row tiles of 63 folded rows: 5, all seen by key tile 0 (of 2)
+    assert fa.bwd_executed_flops(1, 85, 85, 12, 4, 64) == 4 * (
+        (kv + (kv - 64 * 3 // 63)) * 64 * 64 * 12 * 64 + 3 * 128 * 128 * 8 * 64)
+    assert fa.bwd_executed_flops(1, 85, 85, 12, 4, 128) == 4 * (
+        (kv + (kv - 64 * 3 // 63)) * 64 * 64 * 12 * 128 + 2 * 128 * 128 * 8 * 128)
+
+
+def _delta_lanes(d, o):
+    """flash_bwd_delta<bf16, 64, true>'s sum of a row (f32): lane c of 32
+    sums columns c then c + 32 by fma (a bf16 product is exact in f32, so
+    the fma is one rounding of the f32 sum), then the xor tree over lanes:
+    level k adds the value of lane c ^ k to lane c's; lane 0's is stored."""
+    v = [d[:, c + 32] * o[:, c + 32] + d[:, c] * o[:, c] for c in range(32)]
+    for off in (16, 8, 4, 2, 1):
+        v = [v[c] + v[c ^ off] for c in range(32)]
+    return v[0]
+
+
+def _delta_threads(d, o):
+    """flash_bwd_delta_d64's: thread j of 4 holds columns 8j + e and 32 + 8j
+    + e in register e; level 16 adds thread j + 2's registers to thread j's,
+    level 8 thread 1's to thread 0's, levels 4, 2, 1 add thread 0's
+    registers e + 4, e + 2, e + 1."""
+    regs = [[d[:, 32 + 8 * j + e] * o[:, 32 + 8 * j + e] + d[:, 8 * j + e] * o[:, 8 * j + e]
+             for e in range(8)] for j in range(4)]
+    regs = [[regs[j][e] + regs[j + 2][e] for e in range(8)] for j in range(2)]
+    x = [regs[0][e] + regs[1][e] for e in range(8)]
+    x = [x[e] + x[e + 4] for e in range(4)]
+    x = [x[e] + x[e + 2] for e in range(2)]
+    return x[0] + x[1]
+
+
+def test_d64_delta_pass_adds_as_the_lanes_did():
+    """The D=64 delta pass reads a row by four threads of 16 bytes where
+    flash_bwd_delta read it by 32 lanes of 2 bytes; it adds the same values
+    in the same pairs, so delta is the same f32 bits (hence dq and dk)."""
+    rng = np.random.default_rng(64)
+    d, o = (torch.from_numpy(rng.standard_normal((4096, 64), dtype=np.float32)).to(BF16).float()
+            for _ in range(2))
+    want, got = _delta_lanes(d, o), _delta_threads(d, o)
+    assert want.dtype == got.dtype == torch.float32
+    assert torch.equal(want.view(torch.int32), got.view(torch.int32))
+    # a tree of other pairs gives other bits for some rows
+    other = torch.stack([d[:, c] * o[:, c] for c in range(64)], 1).sum(1)
+    assert not torch.equal(other.view(torch.int32), want.view(torch.int32))
