@@ -29,7 +29,7 @@ source, started together) and, at the paper's L=32 lattice:
   * the LM phase: holds the flash-attention kernel against its plain
     version in fifteen forms (f32 and bf16, causal and not, G in {1, 2, 3,
     4, 8}, D in {32, 64, 128}, ragged lengths, Sq != Skv, q_offset; six of
-    them bf16 at D=64, ``flash_d64_fwd``'s work lists: zamba2-1.2b's and
+    them bf16 at D=64, ``flash_group_fwd<64>``'s work lists: zamba2-1.2b's and
     granite-moe's prefill, whisper-tiny's encoder and cross-attention, a
     q_offset, a ragged 333 at G=3 with a partial row tile); drives
     ``ServeEngine`` on full-width qwen3-4b (random bf16 weights from
@@ -133,14 +133,19 @@ source, started together) and, at the paper's L=32 lattice:
     ``python -m repro_torch.launch.dryrun`` (``meta`` tensors; at once), and
     ``--su3-fig7 --L 32 --device-counts 1,2,4 --controllers 2``: two
     controller processes on the card, no divergence;
-  * last, the bf16 forward at D=64 (``flash_d64_fwd``) at zamba2-1.2b's,
-    granite-moe's and whisper-tiny's shapes against its plain version, then
-    timed in turns beside SDPA (eager and in CUDA graphs); then the bf16
-    backward at D=64 (``flash_bwd_delta_d64`` and the persistent
-    ``flash_bwd_d64``) at their five training shapes against its plain
-    version and twice bitwise, its kernels by name, timed in turns beside
-    SDPA's backward (eager and in CUDA graphs), with the turns' sum of graph
-    times weighted by each shape's main-path launches;
+  * last, the bf16 forward at D=64 (``flash_group_fwd<64>``) at
+    zamba2-1.2b's, granite-moe's and whisper-tiny's shapes against its plain
+    version, then timed in turns beside SDPA (eager and in CUDA graphs);
+    then the bf16 backward at D=64 (``flash_bwd_delta_vec<64>`` and the
+    persistent ``flash_bwd_d64``) at their five training shapes against its
+    plain version and twice bitwise, its kernels by name, timed in turns
+    beside SDPA's backward (eager and in CUDA graphs), with the turns' sum of
+    graph times weighted by each shape's main-path launches; then the bf16
+    kernels at D=128 (``flash_group_fwd<128>``, ``flash_bwd_delta_vec<128>``
+    and the persistent ``flash_bwd_d128``) against their plain versions at
+    every D=128 architecture's heads (G = 4, 8, 6, 48), and rows 5 and 5b
+    (qwen3-4b's prefill and training shapes) timed the same way, with the
+    two rows weighted by their main-path launches;
   * times each kernel against its bound, its plain version and, where one
     PyTorch call computes the same function, that call (every time in the
     kernels line from eager calls; the flash kernel and SDPA also in a CUDA
@@ -152,24 +157,27 @@ It prints:
   * the card's name and power limit (nvidia-smi) and the tool versions;
   * the HGMMA, UTMALDG and HMMA counts of the built flash-attention library
     (``cuobjdump -sass``): its bf16 body must run wgmma fed by TMA; and the
-    HGMMA count of the bf16 forward at D=64 (both masks) and of each bf16
-    backward kernel (dK/dV and dQ at D=32, 128 and (192, 128), the
-    persistent one at 64; every mask), which must run wgmma too;
+    HGMMA count of the persistent bf16 forward at D=64 and 128 (both masks)
+    and of each bf16 backward kernel (dK/dV and dQ at D=32 and (192, 128),
+    the persistent ones at 64 and 128; every mask), which must run wgmma
+    too;
   * one JSON line per check, per main-path row and per yardstick;
   * a ``{"flash_rows": {...}}`` line: the flash rows PERF.md's kernels
     table compares (rows 5 and 5b at D=128, 5-64, 5-zamba, 5-whisper
     encoder and cross, 5b-64, 5b-zamba, 5b-whisper encoder, cross and self,
     5-mla, 5b-mla; ms, library ms, bound, and the backward's kernels by
-    name);
+    name; the launch-weighted sums of rows 5 and 5b and of the D=64
+    backward rows);
   * a ``{"kernels": [...]}`` line with each ported kernel's numbers (the
     flash backward beside the forward, the bf16 forward and backward at
-    D=64 with their registers, shared bytes and spill, and the (192, 128)
-    instantiations of both with their own launches) and the total wall time;
+    D=128 and at D=64 with their registers, shared bytes and spill and
+    their launches by kernel name, and the (192, 128) instantiations of both
+    with their own launches) and the total wall time;
   * last, ``{"ok": true, "device": {...}}`` — only if every phase passed.
 
-``--flash-yardsticks`` builds and times those flash rows alone, and runs on
-a checkout from before the split MLA entry as well: run it on two
-checkouts in one call to compare them on one card.
+``--flash-yardsticks`` builds and times those flash rows alone, then prints
+the digests, and runs on older checkouts as well: run it on two checkouts
+in one call to compare them on one card.
 
 The whole output is over 20 KB; where only the end of a log is kept, run
 ``mkdir -p build && python3 chip_smoke.py | tee build/chip_smoke.log`` to
@@ -254,12 +262,13 @@ BWD_FORMS = [  # (label, batch, sq, skv, hq, hkv, d, causal, q_offset, dtype)
     ("G=4 D=128 bf16 causal dout strided", 1, 512, 512, 16, 4, 128, True, 0, "bfloat16"),
 ]
 # the bf16 backward's wgmma kernels, and the (D, Dv) pairs each is built for
-# (two instantiations a pair: causal or not); MLA's (192, 128) has dK/dV
-# and dQ kernels of its own, and D = Dv = 64 one persistent kernel for both
+# (two instantiations a pair: causal or not): D=32 on the dK/dV and dQ
+# kernels, MLA's (192, 128) on dK/dV and dQ kernels of its own, D = Dv = 64
+# and 128 on one persistent kernel each for both
 BWD_TC_KERNELS = ("flash_bwd_dkdv_tc", "flash_bwd_dq_tc", "flash_bwd_dkdv_mla",
-                  "flash_bwd_dq_mla", "flash_bwd_d64")
-BWD_TC_PAIRS = {"flash_bwd_dkdv_tc": 2, "flash_bwd_dq_tc": 2, "flash_bwd_dkdv_mla": 1,
-                "flash_bwd_dq_mla": 1, "flash_bwd_d64": 1}
+                  "flash_bwd_dq_mla", "flash_bwd_d64", "flash_bwd_d128")
+BWD_TC_PAIRS = {"flash_bwd_dkdv_tc": 1, "flash_bwd_dq_tc": 1, "flash_bwd_dkdv_mla": 1,
+                "flash_bwd_dq_mla": 1, "flash_bwd_d64": 1, "flash_bwd_d128": 1}
 # bytes of spill a backward kernel may have: none (until PR 24 bf16 dK/dV at
 # (192, 128) held 104-112 bytes of stack under an allowance of 128)
 BWD_SPILL_LIMITS: dict[tuple, int] = {}
@@ -374,7 +383,7 @@ FLASH_FORMS = [  # (label, batch, sq, skv, hq, hkv, d, causal, q_offset, dtype)
     ("ragged 1000 bf16", 1, 1000, 1000, 32, 8, 128, True, 0, "bfloat16"),
     ("Sq!=Skv non-causal f32 D=64", 2, 300, 700, 16, 4, 64, False, 0, "float32"),
     ("q_offset 1024 bf16", 2, 64, 1088, 32, 8, 128, True, 1024, "bfloat16"),
-    # bf16 at D=64: flash_d64_fwd's work lists (items of G * (128 // G) folded rows)
+    # bf16 at D=64: flash_group_fwd<64>'s work lists (items of G * (128 // G) folded rows)
     ("zamba2-1.2b shared block bf16 D=64 G=1", 4, 1024, 1024, 32, 32, 64, True, 0, "bfloat16"),
     ("granite-moe bf16 D=64 G=2", 4, 1024, 1024, 16, 8, 64, True, 0, "bfloat16"),
     ("whisper encoder bf16 D=64 ragged 1500 non-causal", 4, 1500, 1500, 6, 6, 64, False, 0,
@@ -385,11 +394,21 @@ FLASH_FORMS = [  # (label, batch, sq, skv, hq, hkv, d, causal, q_offset, dtype)
     ("ragged 333 bf16 D=64 G=3", 1, 333, 333, 12, 4, 64, True, 0, "bfloat16"),
 ]
 # the largest error of each flash forward kernel against its plain version
-# over every form checked (_flash_checks): "flash_d64_fwd" (bf16 at D=64)
-# and "flash_attention" (every other form)
+# over every form checked (_flash_checks), by ``flash_attention.kernel_name``
 FLASH_ERRS: dict[str, float] = {}
+# the flash kernels of bf16 at D = Dv = 128 (qwen3-4b's, yi-6b's,
+# minitron-8b's, granite-34b's and internvl2-26b's heads), as
+# ``flash_attention.LAUNCHES_BY_KERNEL`` names them
+D128_FWD_KERNEL, D128_BWD_KERNEL = "flash_group_fwd<128>", "flash_bwd_d128"
+D128_ARCHS = ("qwen3-4b", "yi-6b", "minitron-8b", "granite-34b", "internvl2-26b")
+# rows 5 and 5b: qwen3-4b's prefill (B=4) and training (B=2) shapes, timed in
+# turns beside SDPA (``_group_fwd_yardsticks``, ``_group_bwd_yardsticks``):
+# (row, arch, batch, sq, skv, hq, hkv, causal, main-path launches: serving
+# 36 + training 360 + GPipe 144 forward, training 180 + GPipe 144 backward)
+D128_ROWS = [("5 D=128", "qwen3-4b", 4, 1024, 1024, 32, 8, True, 540)]
+D128_BWD_ROWS = [("5b D=128", "qwen3-4b", 2, 1024, 1024, 32, 8, True, 324)]
 # the D=64 forward's shapes on the main paths, timed in turns beside SDPA
-# (``_d64_fwd_yardsticks``): (row, arch, batch, sq, skv, hq, hkv, causal)
+# (``_group_fwd_yardsticks``): (row, arch, batch, sq, skv, hq, hkv, causal)
 D64_ROWS = [
     ("5-zamba", "zamba2-1.2b", 4, 1024, 1024, 32, 32, True),
     ("5-64", "granite-moe-1b-a400m", 4, 1024, 1024, 16, 8, True),
@@ -397,7 +416,7 @@ D64_ROWS = [
     ("5-whisper cross", "whisper-tiny", 4, 16, 1500, 6, 6, False),
 ]
 # the D=64 backward's shapes on the main paths (training, B=2), timed in
-# turns beside SDPA's backward (``_d64_bwd_yardsticks``): (row, arch, batch,
+# turns beside SDPA's backward (``_group_bwd_yardsticks``): (row, arch, batch,
 # sq, skv, hq, hkv, causal, main-path launches: 5 steps, one call a layer)
 D64_BWD_ROWS = [
     ("5b-64", "granite-moe-1b-a400m", 2, 1024, 1024, 16, 8, True, 120),
@@ -522,12 +541,23 @@ def _counters() -> tuple:
 
 
 def _reset_counts() -> None:
+    from repro_torch.kernels import flash_attention
+
     for counter in _counters():
         counter.count = 0
+    flash_attention.LAUNCHES_BY_KERNEL.clear()
 
 
 def _counts() -> dict[str, int]:
     return {c.name: c.count for c in _counters()}
+
+
+def _by_kernel() -> dict[str, int]:
+    """The flash launches since the last ``_reset_counts``, by the kernel
+    that ran (``flash_attention.kernel_name``)."""
+    from repro_torch.kernels import flash_attention
+
+    return dict(flash_attention.LAUNCHES_BY_KERNEL)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -536,9 +566,8 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--flash-yardsticks", action="store_true",
                     help="build, then time the flash rows of PERF.md's kernels table alone "
                          "(5 and 5b at D=128, 5-64, 5-zamba, 5-whisper, 5b at D=64, 5-mla, "
-                         "5b-mla) and stop; "
-                         "it runs on a "
-                         "checkout from before the split MLA entry too")
+                         "5b-mla), print the digests and stop; it runs on older checkouts "
+                         "too")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -660,11 +689,11 @@ def main(argv: list[str] | None = None) -> int:
         failures.append(f"flash_attention: no HGMMA or UTMALDG in the built library: {counts}")
     # the bf16 backward on the tensor cores: HGMMA in each of its kernels
     per_fn = _sass_per_function(sass, "HGMMA")
-    # the bf16 forward at D=64: its own persistent kernel, causal and not
-    d64_hgmma = {fn: n for fn, n in per_fn.items() if "flash_d64_fwd" in fn}
-    _emit({"sass": "flash_d64_fwd", "HGMMA_per_function": sorted(d64_hgmma.values())})
-    if len(d64_hgmma) != 2 or not all(d64_hgmma.values()):
-        failures.append(f"flash_d64_fwd lacks HGMMA or instantiations: {d64_hgmma}")
+    # the bf16 forward at D = 64 and 128: the persistent kernel, causal and not
+    group_hgmma = {fn: n for fn, n in per_fn.items() if "flash_group_fwd" in fn}
+    _emit({"sass": "flash_group_fwd", "HGMMA_per_function": sorted(group_hgmma.values())})
+    if len(group_hgmma) != 4 or not all(group_hgmma.values()):
+        failures.append(f"flash_group_fwd lacks HGMMA or instantiations: {group_hgmma}")
     bwd_hgmma = {kname: {fn: n for fn, n in per_fn.items() if kname in fn}
                  for kname in BWD_TC_KERNELS}
     _emit({"sass": "flash_attention_bwd bf16", "HGMMA_per_function": {
@@ -840,21 +869,23 @@ def main(argv: list[str] | None = None) -> int:
     torch.cuda.empty_cache()
 
     # -- 5b. the LM phase: the flash kernel, ServeEngine on qwen3-4b -----------------
-    flash = _lm_phase(args.seed, hw, failures)
+    flash = _lm_phase(args.seed, failures)
 
     # -- 5c. the training phase: the flash backward, training qwen3-4b -------------
     # full-width training needs ~70 GB of the card: free the SU3 phases' data
     del u, b_c, a, b, got, plain, vecs, codec, chained, x, in_place, aliased, b_mat, b16
     del engine
     torch.cuda.empty_cache()
-    flash_bwd, train_fwd_launches = _train_phase(args.seed, hw, failures)
+    flash_bwd, train_fwd_launches, train_fwd_named = _train_phase(args.seed, failures)
     flash["serve_launches"], flash["train_launches"] = flash["launches"], train_fwd_launches
     flash["launches"] += train_fwd_launches
+    flash["launches_by_kernel"][D128_FWD_KERNEL] = (
+        flash["launches_by_kernel"].get(D128_FWD_KERNEL, 0) + train_fwd_named)
 
     # -- 5d. the MoE phase: granite-moe served and trained, the kernels at D=64 ------
     torch.cuda.empty_cache()
     moe_launches = _moe_phase(args.seed, hw, failures)
-    # granite's, zamba's and whisper's forward launches are flash_d64_fwd's
+    # granite's, zamba's and whisper's forward launches are flash_group_fwd<64>'s
     # (bf16 at D=64): the kernels line's entry of their own
     flash_d64 = {"launches": moe_launches["serve"] + moe_launches["train_fwd"],
                  "moe_serve_launches": moe_launches["serve"],
@@ -881,6 +912,9 @@ def main(argv: list[str] | None = None) -> int:
     flash["gpipe_launches"], flash_bwd["gpipe_launches"] = gpipe["fwd"], gpipe["bwd"]
     flash["launches"] += gpipe["fwd"]
     flash_bwd["launches"] += gpipe["bwd"]
+    for entry, kname in ((flash, D128_FWD_KERNEL), (flash_bwd, D128_BWD_KERNEL)):
+        entry["launches_by_kernel"][kname] = (entry["launches_by_kernel"].get(kname, 0)
+                                              + gpipe["by_kernel"].get(kname, 0))
     flash["max_abs_err"] = max(flash["max_abs_err"], gpipe["fwd_err"])
     flash_bwd["max_abs_err"] = max(flash_bwd["max_abs_err"], gpipe["bwd_err"])
 
@@ -924,10 +958,11 @@ def main(argv: list[str] | None = None) -> int:
 
     # -- 5j. the D=64 forward at the main paths' shapes, in turns beside SDPA -------------
     torch.cuda.empty_cache()
-    d64_rows = _d64_fwd_yardsticks(np.random.default_rng(args.seed + 25), hw, failures)
+    d64_rows = _group_fwd_yardsticks(D64_ROWS, 64, np.random.default_rng(args.seed + 25), hw,
+                                     failures)
     granite = d64_rows["5-64"]  # the table's 5-64 row
     budget = flash_attention.kernel_budget(torch.bfloat16, 64, True)
-    flash_d64.update(max_abs_err=FLASH_ERRS["flash_d64_fwd"], ms=granite["kernel_ms"],
+    flash_d64.update(max_abs_err=FLASH_ERRS["flash_group_fwd<64>"], ms=granite["kernel_ms"],
                      plain_ms=granite["plain_ms"], bound_ms=granite["bound_ms"],
                      bound_by=granite["bound_by"], library_ms=granite["library_ms"],
                      graph_ms=granite["kernel_graph_ms"],
@@ -937,7 +972,8 @@ def main(argv: list[str] | None = None) -> int:
                      local_bytes=budget["local_bytes"])
     # -- 5k. the D=64 backward at the main paths' training shapes, in turns ---------------
     torch.cuda.empty_cache()
-    d64_bwd_rows = _d64_bwd_yardsticks(np.random.default_rng(args.seed + 26), hw, failures)
+    d64_bwd_rows = _group_bwd_yardsticks(D64_BWD_ROWS, 64, np.random.default_rng(args.seed + 26),
+                                         hw, failures)
     granite = d64_bwd_rows["5b-64"]  # the table's 5b-64 row
     budget = flash_attention.bwd_budget(torch.bfloat16, 64, True)["dkdv"]  # both roles: one kernel
     flash_bwd_d64.update(max_abs_err=max([whisper["bwd_err"]]
@@ -950,10 +986,32 @@ def main(argv: list[str] | None = None) -> int:
                          shape="granite-moe-1b-a400m training: B=2, S=1,024, Hq=16, Hkv=8, causal",
                          num_regs=budget["num_regs"], shared_bytes=budget["shared_bytes"],
                          local_bytes=budget["local_bytes"])
-    for what, entry in (("flash_attention", flash), ("flash_d64_fwd", flash_d64),
+    # -- 5l. D=128 at every G of the registry; rows 5 and 5b in turns beside SDPA ---------
+    torch.cuda.empty_cache()
+    d128_err, d128_bwd_err = _d128_registry_checks(np.random.default_rng(args.seed + 27), failures)
+    fwd128, bwd128 = _d128_yardsticks(np.random.default_rng(args.seed + 28), hw, failures)
+    for entry, row, err, budget in (
+            (flash, fwd128, d128_err, flash_attention.kernel_budget(torch.bfloat16, 128, True)),
+            (flash_bwd, bwd128, d128_bwd_err,
+             flash_attention.bwd_budget(torch.bfloat16, 128, True)["dkdv"])):  # both roles
+        entry.update(max_abs_err=max(entry["max_abs_err"], err), ms=row["kernel_ms"],
+                     plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                     library_ms=row["library_ms"], graph_ms=row["kernel_graph_ms"],
+                     library_graph_ms=row["library_graph_ms"],
+                     num_regs=budget["num_regs"], shared_bytes=budget["shared_bytes"],
+                     local_bytes=budget["local_bytes"])
+    flash["shape"] = "qwen3-4b prefill: B=4, S=1,024, Hq=32, Hkv=8, causal"
+    flash_bwd.update(kernel_split_ms=bwd128["kernel_split_ms"],
+                     shape="qwen3-4b training: B=2, S=1,024, Hq=32, Hkv=8, causal")
+    for what, entry in (("flash_attention", flash), ("flash_group_fwd<64>", flash_d64),
                         ("flash_attention_bwd", flash_bwd), ("flash_bwd_d64", flash_bwd_d64)):
         if entry["launches"] == 0:
             failures.append(f"the main paths never launched {what}")
+    for what, entry, kname in (("flash_attention", flash, D128_FWD_KERNEL),
+                               ("flash_attention_bwd", flash_bwd, D128_BWD_KERNEL)):
+        if entry["launches_by_kernel"].get(kname, 0) != entry["launches"]:
+            failures.append(f"{what}: qwen3-4b's main paths ran {entry['launches_by_kernel']}, "
+                            f"not {entry['launches']} launches of {kname}")
 
     # -- 6. the kernels line -----------------------------------------------------------
     _emit({"kernels": [{
@@ -972,16 +1030,16 @@ def main(argv: list[str] | None = None) -> int:
         "name": "su3_cg_fused_planar", "route": "cuda", "source": STENCIL_SOURCE,
         "replaces": CG_REPLACES, "launches": cg_launches, "max_abs_err": cg_err, **cg,
     }, {
-        "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
-        "replaces": FLASH_REPLACES, **flash,
+        "name": f"flash_attention (bf16 D=128: {D128_FWD_KERNEL})", "route": "cuda",
+        "source": FLASH_SOURCE, "replaces": FLASH_REPLACES, **flash,
     }, {
-        "name": "flash_attention (bf16 D=64: flash_d64_fwd)", "route": "cuda",
+        "name": "flash_attention (bf16 D=64: flash_group_fwd<64>)", "route": "cuda",
         "source": FLASH_SOURCE, "replaces": FLASH_REPLACES, **flash_d64,
     }, {
-        "name": "flash_attention_bwd", "route": "cuda", "source": FLASH_SOURCE,
-        "replaces": BWD_SOURCE_LINE, **flash_bwd,
+        "name": f"flash_attention_bwd (bf16 D=128: flash_bwd_delta_vec<128> + {D128_BWD_KERNEL})",
+        "route": "cuda", "source": FLASH_SOURCE, "replaces": BWD_SOURCE_LINE, **flash_bwd,
     }, {
-        "name": "flash_attention_bwd (bf16 D=64: flash_bwd_delta_d64 + flash_bwd_d64)",
+        "name": "flash_attention_bwd (bf16 D=64: flash_bwd_delta_vec<64> + flash_bwd_d64)",
         "route": "cuda", "source": FLASH_SOURCE, "replaces": BWD_SOURCE_LINE, **flash_bwd_d64,
     }, {
         "name": "flash_attention (D=192, Dv=128)", "route": "cuda", "source": FLASH_SOURCE,
@@ -1615,7 +1673,7 @@ def _flash_checks(rng, failures: list[str], forms=FLASH_FORMS) -> float:
         ok = bool(torch.isfinite(got.float()).all()) and bool(
             (diff <= atol + rtol * torch.abs(want.float())).all())
         worst = max(worst, err)
-        kernel = "flash_d64_fwd" if dtype == "bfloat16" and d == 64 else "flash_attention"
+        kernel = fa.kernel_name(dt, d)
         FLASH_ERRS[kernel] = max(FLASH_ERRS.get(kernel, 0.0), err)
         _emit({"check": "kernel_vs_plain", "kernel": "flash_attention", "form": label,
                "shape": [b, sq, skv, hq, hkv, d], "causal": causal, "q_offset": q_offset,
@@ -1670,28 +1728,27 @@ def _kernel_class(name: str) -> str:
     reductions, copies) as ``other``."""
     if "flash_bwd" in name:
         return "flash_attention_bwd"
-    if "flash_attention" in name or "flash_mla_fwd" in name:
+    if any(tag in name for tag in ("flash_attention", "flash_mla_fwd", "flash_group_fwd")):
         return "flash_attention"
     if any(tag in name.lower() for tag in ("nvjet", "gemm", "cutlass", "xmma")):
         return "matmul"
     return "other"
 
 
-def _lm_phase(seed: int, hw, failures: list[str]) -> dict:
+def _lm_phase(seed: int, failures: list[str]) -> dict:
     """The LM serving path on the card: the flash kernel's forms, then
     ``ServeEngine`` on full-width qwen3-4b (random bf16 weights from the
     seed) serving 4 x 1,024-token prompts + 32 greedy tokens, with the
     flash counter set to 0 just before and read just after; decode logits
     against a teacher-forced prefill; the card against the port's CPU path
-    at 2 layers in f32; the kernel's yardsticks at the prefill shape.
-    Returns the flash entry of the kernels line."""
+    at 2 layers in f32.  Returns the flash entry of the kernels line (its
+    times come from ``_d128_yardsticks``, row 5, at the end)."""
     import dataclasses
 
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.core import roofline
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import common, registry, transformer
     from repro_torch.serve.engine import ServeConfig, ServeEngine
@@ -1716,6 +1773,7 @@ def _lm_phase(seed: int, hw, failures: list[str]) -> dict:
     first_s = time.perf_counter() - t0
     counts = _counts()
     launches = counts[fa.LAUNCHES.name]
+    by_kernel = _by_kernel()
     # the same call again, timed in steady state, with the peak memory
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1771,6 +1829,7 @@ def _lm_phase(seed: int, hw, failures: list[str]) -> dict:
            "flash_launches": launches, "expected_launches": cfg.n_layers,
            "prefill_launches": prefill_launches, "decode_launches": decode_launches,
            "other_launches": sum(counts.values()) - launches,
+           "flash_launches_by_kernel": by_kernel,
            "prefill_ms": tm["prefill_s"] * 1e3,
            "decode_ms_per_token": tm["decode_s"] * 1e3 / tm["decode_steps"],
            "generate_wall_ms": wall_s * 1e3, "new_tokens_per_s": new_tok / wall_s,
@@ -1783,6 +1842,7 @@ def _lm_phase(seed: int, hw, failures: list[str]) -> dict:
            "teacher_mean_abs_diff": diff.mean().item(), "teacher_logit_scale": scale,
            "teacher_tol": LM_TEACHER_TOL * scale, "teacher_token_agreement": token_agree}
     row["ok"] = (launches == cfg.n_layers and prefill_launches == cfg.n_layers
+                 and by_kernel == {D128_FWD_KERNEL: cfg.n_layers}
                  and decode_launches == 0 and row["other_launches"] == 0 and finite
                  and tokens.shape == (LM_BATCH, LM_PROMPT + LM_NEW)
                  and teacher_err <= LM_TEACHER_TOL * scale)
@@ -1798,48 +1858,7 @@ def _lm_phase(seed: int, hw, failures: list[str]) -> dict:
                         registry.get(cfg2).init(torch.Generator().manual_seed(seed), cfg2), rng,
                         failures)
 
-    # -- yardsticks at the prefill shape ------------------------------------------------
-    b, s, hq, hkv, d = LM_BATCH, LM_PROMPT, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q, k, v = (torch.from_numpy(rng.standard_normal(shp, dtype=np.float32)).to(dev, torch.bfloat16)
-               for shp in ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d)))
-    # eager calls, as for every other kernel; a CUDA graph of back-to-back
-    # calls beside them, where the wrapper's host cost per call does not show
-    kernel_ms = _time_ms(lambda: fa.flash_attention(q, k, v), reps=20)
-    kernel_graph_ms = _graph_ms(lambda: fa.flash_attention(q, k, v))
-    plain_ms = _time_ms(lambda: fa.flash_attention_plain(q, k, v), reps=5, warmup=1)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-        qt, kt, vt, is_causal=True, enable_gqa=True)
-    library_ms = _time_ms(sdpa, reps=20)
-    library_graph_ms = _graph_ms(sdpa)
-    lib_err = torch.abs(sdpa().transpose(1, 2).float() - fa.flash_attention(q, k, v).float())
-    bound = roofline.attention_bound(batch=b, sq=s, skv=s, hq=hq, hkv=hkv, d=d,
-                                     dtype=torch.bfloat16, hw=hw) if hw is not None else None
-    bound_f32 = roofline.attention_bound(batch=b, sq=s, skv=s, hq=hq, hkv=hkv, d=d,
-                                         dtype=torch.float32, hw=hw) if hw is not None else None
-    executed = fa.executed_flops(b, s, s, hq, hkv, d)  # split PV and causal tile waste included
-    FLASH_ROWS["5 D=128"] = {"kernel_ms": kernel_ms, "kernel_graph_ms": kernel_graph_ms,
-                             "library_ms": library_ms, "library_graph_ms": library_graph_ms,
-                             "bound_ms": None if bound is None else bound.bound_s * 1e3}
-    _emit({"yardstick": f"flash_attention bf16 causal B={b} S={s} Hq={hq} Hkv={hkv} D={d}",
-           "kernel_ms": kernel_ms, "kernel_graph_ms": kernel_graph_ms, "plain_ms": plain_ms,
-           "library_ms": library_ms, "library_graph_ms": library_graph_ms,
-           "timing": "*_ms: eager calls; *_graph_ms: CUDA graph of 20 calls",
-           "library_call": "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)",
-           "library_max_abs_diff": lib_err.max().item(),
-           "flops": None if bound is None else bound.flops,
-           "bytes": None if bound is None else bound.bytes,
-           "bound_ms": None if bound is None else bound.bound_s * 1e3,
-           "bound_by": None if bound is None else bound.bound_by,
-           "fp32_core_bound_ms": None if bound_f32 is None else bound_f32.compute_s * 1e3,
-           "kernel_TFLOPs": None if bound is None else bound.flops / kernel_ms / 1e9,
-           "bound_share": None if bound is None else bound.bound_s * 1e3 / kernel_ms,
-           "executed_flops": executed,
-           "executed_TFLOPs": executed / kernel_ms / 1e9,
-           "own_floor_ms": None if hw is None else executed / hw.peak_flops_bf16 * 1e3})
-    return {"launches": launches, "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": None if bound is None else bound.bound_s * 1e3,
-            "bound_by": None if bound is None else bound.bound_by, "library_ms": library_ms}
+    return {"launches": launches, "launches_by_kernel": by_kernel, "max_abs_err": max_err}
 
 
 def _state_leaves(state, prefix: str = "") -> list:
@@ -2081,7 +2100,7 @@ def _bwd_checks(rng, failures: list[str], forms=BWD_FORMS) -> float:
     return worst
 
 
-def _train_phase(seed: int, hw, failures: list[str]) -> tuple[dict, int]:
+def _train_phase(seed: int, failures: list[str]) -> tuple[dict, int, int]:
     """The training path on the card: the backward kernel's checks; then
     ``train.loop.train`` on full-width, full-depth qwen3-4b (f32 master
     weights and moments, bf16 compute, remat; ~68 GB of the card) for
@@ -2090,9 +2109,9 @@ def _train_phase(seed: int, hw, failures: list[str]) -> tuple[dict, int]:
     optimizer; one step's
     loss and gradients, the card against the CPU, at 2 layers in f32; 4
     steps straight against 2 + checkpoint + restore + 2, bitwise, on the
-    card; the backward's yardsticks at the training shape.  Returns the
-    backward's entry of the kernels line and the forward launches of the
-    training run."""
+    card.  Returns the backward's entry of the kernels line (its times come
+    from ``_d128_yardsticks``, row 5b, at the end), the forward launches of
+    the training run and those of them that ran the D=128 forward kernel."""
     import dataclasses
     import math
 
@@ -2100,7 +2119,6 @@ def _train_phase(seed: int, hw, failures: list[str]) -> tuple[dict, int]:
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.core import roofline
     from repro_torch.data.pipeline import DataConfig, PipelineState, TokenPipeline, make_train_batch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import common, registry
@@ -2123,7 +2141,7 @@ def _train_phase(seed: int, hw, failures: list[str]) -> tuple[dict, int]:
     t0 = time.perf_counter()
     out = loop.train(cfg, tcfg, log=log_lines.append, device=dev)
     wall_s = time.perf_counter() - t0
-    counts = _counts()
+    counts, by_kernel = _counts(), _by_kernel()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     fwd, bwd = counts[fa.LAUNCHES.name], counts[fa.BWD_LAUNCHES.name]
     for line in log_lines:
@@ -2167,7 +2185,7 @@ def _train_phase(seed: int, hw, failures: list[str]) -> tuple[dict, int]:
            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / median_ms * 1e3,
            "split_grad_ms": grad_ms, "split_optimizer_ms": opt_ms,
            "peak_memory_GB": peak_gb, "wall_s": wall_s,
-           "flash_launches": fwd, "flash_bwd_launches": bwd,
+           "flash_launches": fwd, "flash_bwd_launches": bwd, "flash_launches_by_kernel": by_kernel,
            "flash_launches_per_step": fwd / steps, "flash_bwd_launches_per_step": bwd / steps,
            "expected_per_step": [2 * cfg.n_layers, cfg.n_layers],
            "other_launches": sum(counts.values()) - fwd - bwd,
@@ -2176,6 +2194,7 @@ def _train_phase(seed: int, hw, failures: list[str]) -> tuple[dict, int]:
     row["ok"] = (steps == TRAIN_STEPS and all(math.isfinite(x) for x in losses + gnorms)
                  and abs(losses[0] - start) <= TRAIN_START_TOL
                  and fwd == 2 * cfg.n_layers * steps and bwd == cfg.n_layers * steps
+                 and by_kernel == {D128_FWD_KERNEL: fwd, D128_BWD_KERNEL: bwd}
                  and row["other_launches"] == 0)
     _emit(row)
     if not row["ok"]:
@@ -2189,58 +2208,9 @@ def _train_phase(seed: int, hw, failures: list[str]) -> tuple[dict, int]:
     # -- resume: 4 steps straight against 2 + checkpoint + restore + 2, on the card ----
     _resume_check("lm train resume", cfg2, seed, failures)
 
-    # -- yardsticks at the training shape ------------------------------------------------
-    b, s, hq, hkv, d = TRAIN_BATCH, TRAIN_SEQ, base.n_heads, base.n_kv_heads, base.head_dim
-    q, k, v, dout = (torch.from_numpy(rng.standard_normal(shp, dtype=np.float32)).to(
-        dev, torch.bfloat16) for shp in ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d),
-                                         (b, s, hq, d)))
-    o, lse = fa._forward(q, k, v, causal=True, q_chunk=512, kv_chunk=1024, q_offset=0,
-                         with_lse=True)
-    kernel_ms = _time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, dout, lse), reps=50)
-    plain_ms = _time_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, o, dout, lse), reps=3,
-                        warmup=1)
-    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-    o_lib = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                             enable_gqa=True)
-    sdpa_bwd = lambda: torch.autograd.grad(o_lib, (qt, kt, vt), dout.transpose(1, 2),  # noqa: E731
-                                           retain_graph=True)
-    library_ms = _time_ms(sdpa_bwd, reps=50)
-    lib_dq = sdpa_bwd()[0].transpose(1, 2).float()
-    lib_diff = (lib_dq - fa.flash_attention_bwd(q, k, v, o, dout, lse)[0].float()).abs().max()
-    bound = roofline.attention_bwd_bound(batch=b, sq=s, skv=s, hq=hq, hkv=hkv, d=d,
-                                         dtype=torch.bfloat16, hw=hw) if hw is not None else None
-    fp32_bound = roofline.attention_bwd_bound(batch=b, sq=s, skv=s, hq=hq, hkv=hkv, d=d,
-                                              dtype=torch.float32, hw=hw) if hw else None
-    # the three kernels of a call (delta, dK/dV, dQ): device ms per call by
-    # name, over 10 calls
-    split = _profile(lambda: [fa.flash_attention_bwd(q, k, v, o, dout, lse) for _ in range(10)],
-                     top=3)["top_kernels"]
-    executed = fa.bwd_executed_flops(b, s, s, hq, hkv, d)  # 10 products, causal tile waste
-    FLASH_ROWS["5b D=128"] = {"kernel_ms": kernel_ms, "library_ms": library_ms,
-                              "bound_ms": None if bound is None else bound.bound_s * 1e3,
-                              "kernel_split_ms": {name: ms / count for name, ms, count in split}}
-    _emit({"yardstick": f"flash_attention_bwd bf16 causal B={b} S={s} Hq={hq} Hkv={hkv} D={d}",
-           "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-           "library_call": "backward of F.scaled_dot_product_attention(is_causal=True, "
-                           "enable_gqa=True) (torch.autograd.grad)",
-           "library_dq_max_abs_diff": lib_diff.item(),
-           "flops": None if bound is None else bound.flops,
-           "bytes": None if bound is None else bound.bytes,
-           "bound_ms": None if bound is None else bound.bound_s * 1e3,
-           "bound_by": None if bound is None else bound.bound_by,
-           "fp32_core_bound_ms": None if fp32_bound is None else fp32_bound.compute_s * 1e3,
-           "kernel_TFLOPs": None if bound is None else bound.flops / kernel_ms / 1e9,
-           "bound_share": None if bound is None else bound.bound_s * 1e3 / kernel_ms,
-           "kernel_vs_library": kernel_ms / library_ms,
-           "executed_flops": executed,
-           "executed_TFLOPs": executed / kernel_ms / 1e9,
-           "own_floor_ms": None if hw is None else executed / hw.peak_flops_bf16 * 1e3,
-           "kernel_split_ms": {name: ms / count for name, ms, count in split}})
     return ({"launches": bwd, "launches_per_step": bwd / steps, "max_abs_err": max_err,
-             "ms": kernel_ms, "plain_ms": plain_ms,
-             "bound_ms": None if bound is None else bound.bound_s * 1e3,
-             "bound_by": None if bound is None else bound.bound_by,
-             "library_ms": library_ms}, fwd)
+             "launches_by_kernel": {D128_BWD_KERNEL: by_kernel.get(D128_BWD_KERNEL, 0)}},
+            fwd, by_kernel.get(D128_FWD_KERNEL, 0))
 
 
 @contextlib.contextmanager
@@ -3165,15 +3135,16 @@ def _mla_train(seed: int, hw, failures: list[str]) -> tuple[dict, int]:
 
 def _flash_yardsticks(seed: int, hw, failures: list[str]) -> None:
     """The flash rows of PERF.md's kernels table alone, at the shapes the
-    full run times them: row 5 (qwen3-4b's prefill, B=4, S=1,024, Hq=32,
-    Hkv=8, D=128) and 5b (its training, B=2), 5-64 (granite-moe's heads),
-    the D=64 forward at zamba2-1.2b's, granite-moe's and whisper-tiny's
-    shapes in turns beside SDPA (``_d64_fwd_yardsticks``: 5-zamba, 5-64,
-    5-whisper encoder and cross), the D=64 backward at granite-moe's,
-    zamba2-1.2b's and whisper-tiny's training shapes in turns beside SDPA's
-    backward (``_d64_bwd_yardsticks``: 5b-64, 5b-zamba, 5b-whisper encoder,
-    cross and self), 5-mla (deepseek-v3's prefill at (192, 128)) and 5b-mla
-    (its training); then the FLASH_ROWS line and the digests.  Run on two
+    full run times them: rows 5 and 5b (qwen3-4b's prefill, B=4, S=1,024,
+    Hq=32, Hkv=8, D=128, and its training, B=2) in turns beside SDPA's
+    forward and backward (``_d128_yardsticks``), the D=64 forward at
+    zamba2-1.2b's, granite-moe's and whisper-tiny's shapes in turns beside
+    SDPA (``_group_fwd_yardsticks``: 5-zamba, 5-64, 5-whisper encoder and
+    cross), the D=64 backward at granite-moe's, zamba2-1.2b's and
+    whisper-tiny's training shapes in turns beside SDPA's backward
+    (``_group_bwd_yardsticks``: 5b-64, 5b-zamba, 5b-whisper encoder, cross
+    and self), 5-mla (deepseek-v3's prefill at (192, 128)) and 5b-mla (its
+    training); then the FLASH_ROWS line and the digests.  Run on two
     checkouts in one call (parent, change, change, parent) it compares them
     on one card."""
     import numpy as np
@@ -3181,13 +3152,9 @@ def _flash_yardsticks(seed: int, hw, failures: list[str]) -> None:
     from repro_torch.configs import get_config
 
     rng = np.random.default_rng(seed + 24)
-    for arch, row in (("qwen3-4b", "5 D=128"), (MOE_ARCH, "5-64")):
-        fwd, bwd = _head_yardsticks(arch, rng, hw, failures)
-        FLASH_ROWS[row] = {key: fwd.get(key) for key in FLASH_ROW_KEYS if key in fwd}
-        FLASH_ROWS[row.replace("5", "5b", 1)] = {key: bwd.get(key) for key in FLASH_ROW_KEYS
-                                                 if key in bwd}
-    _d64_fwd_yardsticks(rng, hw, failures)
-    _d64_bwd_yardsticks(rng, hw, failures)
+    _d128_yardsticks(rng, hw, failures)
+    _group_fwd_yardsticks(D64_ROWS, 64, rng, hw, failures)
+    _group_bwd_yardsticks(D64_BWD_ROWS, 64, rng, hw, failures)
     h = get_config(MLA_ARCH).n_heads
     _mla_fwd_yardstick(LM_BATCH, LM_PROMPT, h, rng, hw, failures)
     _mla_bwd_yardstick(TRAIN_BATCH, TRAIN_SEQ, h, rng, hw, failures)
@@ -3195,15 +3162,61 @@ def _flash_yardsticks(seed: int, hw, failures: list[str]) -> None:
     _emit({"flash_digests": _flash_digests(seed)})
 
 
-def _d64_fwd_yardsticks(rng, hw, failures: list[str]) -> dict[str, dict]:
-    """The bf16 forward at D=64 (``flash_d64_fwd``) at each D64_ROWS shape:
-    zamba2-1.2b's shared block and granite-moe's heads at the prefill
-    shape, whisper-tiny's encoder and cross-attention at serving's prefill.
-    Each against its plain version within ``kernel_tolerance`` (the plain
-    call timed once, ``plain_ms``), then the kernel and SDPA of every shape
-    timed in three alternating turns (``_timed_in_turns``: eager calls and
-    CUDA graphs of 20 calls), beside the bound.  Emits one row, records each
-    shape in FLASH_ROWS under its row name and returns the shapes' entries."""
+def _d128_yardsticks(rng, hw, failures: list[str]) -> tuple[dict, dict]:
+    """Rows 5 and 5b: the bf16 forward and backward at D=128 at qwen3-4b's
+    prefill and training shapes (``_group_fwd_yardsticks`` on D128_ROWS,
+    ``_group_bwd_yardsticks`` on D128_BWD_ROWS), and the two rows weighted
+    by their main-path launches, turn by turn (a forward turn and a backward
+    turn of the same index).  Returns the two rows' entries."""
+    fwd = _group_fwd_yardsticks(D128_ROWS, 128, rng, hw, failures)[D128_ROWS[0][0]]
+    bwd = _group_bwd_yardsticks(D128_BWD_ROWS, 128, rng, hw, failures)[D128_BWD_ROWS[0][0]]
+    weighted = [fwd["main_path_launches"] * f + bwd["main_path_launches"] * b
+                for f, b in zip(fwd["kernel_graph_ms_turns"], bwd["kernel_graph_ms_turns"])]
+    FLASH_ROWS["5 + 5b D=128 launch-weighted"] = {"launch_weighted_graph_ms_turns": weighted}
+    _emit({"yardstick": "rows 5 and 5b (D=128) weighted by their main-path launches",
+           "launches": [fwd["main_path_launches"], bwd["main_path_launches"]],
+           "launch_weighted_graph_ms_turns": weighted})
+    return fwd, bwd
+
+
+def _d128_registry_checks(rng, failures: list[str]) -> tuple[float, float]:
+    """The bf16 kernels at D = Dv = 128 (``flash_group_fwd<128>``,
+    ``flash_bwd_d128``) against their plain versions at every D=128
+    architecture's heads (D128_ARCHS: G = 4, 8, 4, 48, 6): causal at
+    training's length, and ragged with Sq < Skv and a q_offset (the G = 6
+    and 48 items hold 126 and 96 folded rows); the backward twice, bitwise
+    (``_flash_checks``, ``_bwd_checks``).  Returns the largest errors of the
+    forward and the backward."""
+    from repro_torch.configs import get_config
+
+    fwd_forms, bwd_forms = [], []
+    for arch in D128_ARCHS:
+        cfg = get_config(arch)
+        hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        if d != 128:
+            failures.append(f"{arch}: head dim {d}, not 128")
+            continue
+        g = hq // hkv
+        causal = (f"{arch} G={g} bf16 causal", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, hq, hkv, d,
+                  True, 0, "bfloat16")
+        ragged = (f"{arch} G={g} bf16 ragged Sq<Skv q_offset 367", 1, 333, 700, hq, hkv, d, True,
+                  367, "bfloat16")
+        fwd_forms += [causal, ragged]
+        bwd_forms += [causal, ragged]
+    return (_flash_checks(rng, failures, forms=fwd_forms),
+            _bwd_checks(rng, failures, forms=bwd_forms))
+
+
+def _group_fwd_yardsticks(rows: list, d: int, rng, hw, failures: list[str]) -> dict[str, dict]:
+    """The bf16 forward at D = Dv = ``d`` (``flash_group_fwd<d>``) at each
+    shape of ``rows`` (D64_ROWS: zamba2-1.2b's shared block and granite-moe's
+    heads at the prefill shape, whisper-tiny's encoder and cross-attention at
+    serving's prefill; D128_ROWS: qwen3-4b's prefill).  Each against its
+    plain version within ``kernel_tolerance`` (the plain call timed once,
+    ``plain_ms``), then the kernel and SDPA of every shape timed in three
+    alternating turns (``_timed_in_turns``: eager calls and CUDA graphs of
+    20 calls), beside the bound.  Emits one row, records each shape in
+    FLASH_ROWS under its row name and returns the shapes' entries."""
     import numpy as np
     import torch
 
@@ -3213,9 +3226,9 @@ def _d64_fwd_yardsticks(rng, hw, failures: list[str]) -> dict[str, dict]:
     dev, bf16 = torch.device("cuda"), torch.bfloat16
     atol, rtol = fa.kernel_tolerance(bf16)
     forms, shapes = {}, {}
-    for name, arch, b, sq, skv, hq, hkv, causal in D64_ROWS:
+    for name, arch, b, sq, skv, hq, hkv, causal, *launches in rows:
         q, k, v = (torch.from_numpy(rng.standard_normal(shp, dtype=np.float32)).to(dev, bf16)
-                   for shp in ((b, sq, hq, 64), (b, skv, hkv, 64), (b, skv, hkv, 64)))
+                   for shp in ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d)))
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         want = fa.flash_attention_plain(q, k, v, causal=causal)
@@ -3232,15 +3245,16 @@ def _d64_fwd_yardsticks(rng, hw, failures: list[str]) -> dict[str, dict]:
         forms[f"{name} sdpa"] = (
             lambda qt=qt, kt=kt, vt=vt, c=causal: torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=c, enable_gqa=True))
-        bound = roofline.attention_bound(batch=b, sq=sq, skv=skv, hq=hq, hkv=hkv, d=64,
+        bound = roofline.attention_bound(batch=b, sq=sq, skv=skv, hq=hq, hkv=hkv, d=d,
                                          causal=causal, dtype=bf16,
                                          hw=hw) if hw is not None else None
-        shapes[name] = {"arch": arch, "shape": [b, sq, skv, hq, hkv, 64], "causal": causal,
+        shapes[name] = {"arch": arch, "shape": [b, sq, skv, hq, hkv, d], "causal": causal,
+                        "main_path_launches": launches[0] if launches else None,
                         "max_abs_err": diff.max().item(), "ok": ok,
                         "plain_ms": start.elapsed_time(end),
                         "bound_ms": None if bound is None else bound.bound_s * 1e3,
                         "bound_by": None if bound is None else bound.bound_by,
-                        "executed_flops": fa.executed_flops(b, sq, skv, hq, hkv, 64,
+                        "executed_flops": fa.executed_flops(b, sq, skv, hq, hkv, d,
                                                             causal=causal)}
         del want, got, diff
     turns = {}
@@ -3257,7 +3271,8 @@ def _d64_fwd_yardsticks(rng, hw, failures: list[str]) -> dict[str, dict]:
         if entry["bound_ms"] is not None:
             entry["bound_share_graph"] = entry["bound_ms"] / entry["kernel_graph_ms"]
         FLASH_ROWS[name] = {key: entry[key] for key in FLASH_ROW_KEYS if key in entry}
-    _emit({"yardstick": "flash_attention bf16 D=64 (flash_d64_fwd) at the main paths' shapes",
+    _emit({"yardstick": f"flash_attention bf16 D={d} (flash_group_fwd<{d}>) at the main paths' "
+                        "shapes",
            "rows": shapes,
            "library_call": "F.scaled_dot_product_attention(is_causal=causal, enable_gqa=True)",
            "timing": "kernel_ms, library_ms: median of 3 alternating turns of 20 eager calls; "
@@ -3266,10 +3281,11 @@ def _d64_fwd_yardsticks(rng, hw, failures: list[str]) -> dict[str, dict]:
     return shapes
 
 
-def _d64_bwd_yardsticks(rng, hw, failures: list[str]) -> dict[str, dict]:
-    """The bf16 backward at D=64 (``flash_bwd_delta_d64`` then
-    ``flash_bwd_d64``) at each D64_BWD_ROWS shape: granite-moe's, zamba2-1.2b's
-    and whisper-tiny's training attention.  Each against its plain version
+def _group_bwd_yardsticks(rows: list, d: int, rng, hw, failures: list[str]) -> dict[str, dict]:
+    """The bf16 backward at D = Dv = ``d`` (``flash_bwd_delta_vec<d>`` then
+    ``flash_bwd_d64`` or ``flash_bwd_d128``) at each shape of ``rows``
+    (D64_BWD_ROWS: granite-moe's, zamba2-1.2b's and whisper-tiny's training
+    attention; D128_BWD_ROWS: qwen3-4b's).  Each against its plain version
     within ``kernel_tolerance`` of each gradient's max and twice bitwise (the
     plain call timed once, ``plain_ms``), its kernels by name (device ms a
     call, over 10 calls), then the backward and SDPA's backward of every
@@ -3290,10 +3306,14 @@ def _d64_bwd_yardsticks(rng, hw, failures: list[str]) -> dict[str, dict]:
     dev, bf16 = torch.device("cuda"), torch.bfloat16
     atol, rtol = fa.kernel_tolerance(bf16)
     forms, graph_forms, shapes = {}, {}, {}
-    for name, arch, b, sq, skv, hq, hkv, causal, launches in D64_BWD_ROWS:
+    # the persistent kernels' work list (a checkout from before them has none;
+    # one from before flash_bwd_d128 names it d64_bwd_plan and runs it at D=64)
+    plan = getattr(fa, "persistent_bwd_plan", None) or (
+        getattr(fa, "d64_bwd_plan", None) if d == 64 else None)
+    for name, arch, b, sq, skv, hq, hkv, causal, launches in rows:
         q, k, v, dout = (torch.from_numpy(rng.standard_normal(shp, dtype=np.float32)).to(dev, bf16)
-                         for shp in ((b, sq, hq, 64), (b, skv, hkv, 64), (b, skv, hkv, 64),
-                                     (b, sq, hq, 64)))
+                         for shp in ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d),
+                                     (b, sq, hq, d)))
         o, lse = fa._forward(q, k, v, causal=causal, q_chunk=512, kv_chunk=1024, q_offset=0,
                              with_lse=True)
         got = fa.flash_attention_bwd(q, k, v, o, dout, lse, causal=causal)
@@ -3338,25 +3358,24 @@ def _d64_bwd_yardsticks(rng, hw, failures: list[str]) -> dict[str, dict]:
         forms[f"{name} sdpa forward"] = sdpa
         backend = torch.nn.attention.SDPBackend(torch._fused_sdp_choice(
             qt, kt, vt, None, 0.0, causal, enable_gqa=True)).name
-        bound = roofline.attention_bwd_bound(batch=b, sq=sq, skv=skv, hq=hq, hkv=hkv, d=64,
+        bound = roofline.attention_bwd_bound(batch=b, sq=sq, skv=skv, hq=hq, hkv=hkv, d=d,
                                              causal=causal, dtype=bf16,
                                              hw=hw) if hw is not None else None
-        shapes[name] = {"arch": arch, "shape": [b, sq, skv, hq, hkv, 64], "causal": causal,
+        shapes[name] = {"arch": arch, "shape": [b, sq, skv, hq, hkv, d], "causal": causal,
                         "main_path_launches": launches, "share_of_limit": shares,
                         "max_abs_err": max(errs), "bitwise_twice": twice, "ok": ok,
                         "plain_ms": start.elapsed_time(end), "library_backend": backend,
                         "kernel_split_ms": {kname: ms / count for kname, ms, count in split},
                         "bound_ms": None if bound is None else bound.bound_s * 1e3,
                         "bound_by": None if bound is None else bound.bound_by,
-                        # flash_bwd_d64's: a head's pairs of key tiles of 64 and
-                        # its dQ tiles of whole query groups
+                        # the persistent kernel's: a head's pairs of key tiles of
+                        # 64 and its dQ tiles of whole query groups
                         "work_items": b * hkv * ((-(-skv // 64) + 1) // 2
                                                  + -(-sq * grp // (128 // grp * grp))),
-                        # its plan: the pairing, the kind first, the chunk (a
-                        # checkout from before flash_bwd_d64 has none)
-                        "plan": fa.d64_bwd_plan(b, sq, skv, hq, hkv, causal=causal)[0]
-                        if hasattr(fa, "d64_bwd_plan") else None,
-                        "executed_flops": fa.bwd_executed_flops(b, sq, skv, hq, hkv, 64,
+                        # its plan: the kind first, the chunk
+                        "plan": None if plan is None
+                        else plan(b, sq, skv, hq, hkv, causal=causal)[0],
+                        "executed_flops": fa.bwd_executed_flops(b, sq, skv, hq, hkv, d,
                                                                 causal=causal)}
         del want, got, again
     turns = {}
@@ -3380,9 +3399,9 @@ def _d64_bwd_yardsticks(rng, hw, failures: list[str]) -> dict[str, dict]:
         for i, ms in enumerate(entry["kernel_graph_ms_turns"]):
             weighted[i] += entry["main_path_launches"] * ms
         FLASH_ROWS[name] = {key: entry[key] for key in FLASH_ROW_KEYS if key in entry}
-    FLASH_ROWS["5b D=64 launch-weighted"] = {"launch_weighted_graph_ms_turns": weighted}
-    _emit({"yardstick": "flash_attention_bwd bf16 D=64 (flash_bwd_d64) at the main paths' "
-                        "training shapes", "rows": shapes,
+    FLASH_ROWS[f"5b D={d} launch-weighted"] = {"launch_weighted_graph_ms_turns": weighted}
+    _emit({"yardstick": f"flash_attention_bwd bf16 D={d} (the persistent flash_bwd_d{d}) at the "
+                        "main paths' training shapes", "rows": shapes,
            "launch_weighted_graph_ms_turns": weighted,
            "library_call": "backward of F.scaled_dot_product_attention(is_causal=causal, "
                            "enable_gqa=True) (torch.autograd.grad)",
@@ -3403,6 +3422,12 @@ DIGEST_FORMS = [
     ("f32 D=192 Dv=128 G=1", "float32", 1, 256, 256, 4, 4, 192, 128, True),
     # flash_bwd_d64 with fewer dQ items than dK/dV items (2 row tiles, 6 pairs a head)
     ("bf16 D=64 G=1 Sq<Skv non-causal", "bfloat16", 2, 200, 700, 4, 4, 64, 64, False),
+    # D=128 at the registry's other G: internvl2-26b's 6 (items of 126
+    # folded rows, the last group ragged), granite-34b's 48 (MQA) and
+    # yi-6b's 8, non-causal with Sq < Skv
+    ("bf16 D=128 G=6 ragged 333", "bfloat16", 2, 333, 333, 24, 4, 128, 128, True),
+    ("bf16 D=128 G=48", "bfloat16", 1, 300, 300, 48, 1, 128, 128, True),
+    ("bf16 D=128 G=8 Sq<Skv non-causal", "bfloat16", 2, 200, 700, 32, 4, 128, 128, False),
 ]
 
 
@@ -3801,7 +3826,8 @@ def _pipeline_phase(seed: int, failures: list[str]) -> dict[str, float]:
         found[name] = {"out": out.detach().cpu(), "grads": [g.cpu() for g in grads],
                        "wall_s": wall_s,
                        "peak_memory_GB": torch.cuda.max_memory_allocated() / 1e9,
-                       "launches": [counts[fa.LAUNCHES.name], counts[fa.BWD_LAUNCHES.name]]}
+                       "launches": [counts[fa.LAUNCHES.name], counts[fa.BWD_LAUNCHES.name]],
+                       "by_kernel": _by_kernel()}
         del out, grads
     pipe, seq = found["pipeline"], found["sequential"]
     same_out = torch.equal(pipe["out"], seq["out"])
@@ -3813,19 +3839,20 @@ def _pipeline_phase(seed: int, failures: list[str]) -> dict[str, float]:
            "outputs_bitwise": same_out, "grads_bitwise": same_grads,
            "finite": bool(torch.isfinite(pipe["out"].float()).all()),
            "launches": pipe["launches"], "sequential_launches": seq["launches"],
-           "expected_launches": [expected, expected],
+           "expected_launches": [expected, expected], "launches_by_kernel": pipe["by_kernel"],
            "peak_memory_GB": pipe["peak_memory_GB"],
            "sequential_peak_memory_GB": seq["peak_memory_GB"],
            "wall_s": pipe["wall_s"], "sequential_wall_s": seq["wall_s"]}
     row["ok"] = (same_out and same_grads and row["finite"]
-                 and pipe["launches"] == seq["launches"] == [expected, expected])
+                 and pipe["launches"] == seq["launches"] == [expected, expected]
+                 and pipe["by_kernel"] == {D128_FWD_KERNEL: expected, D128_BWD_KERNEL: expected})
     _emit(row)
     if not row["ok"]:
         failures.append(f"gpipe: {row}")
     del found, pipe, seq, params, leaves, x
     torch.cuda.empty_cache()
     return {"fwd": row["launches"][0], "bwd": row["launches"][1], "fwd_err": fwd_err,
-            "bwd_err": bwd_err}
+            "bwd_err": bwd_err, "by_kernel": row["launches_by_kernel"]}
 
 
 def _index_tree(tree: dict, i: int) -> dict:

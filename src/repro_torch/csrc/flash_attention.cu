@@ -28,23 +28,27 @@
 //
 // Two bodies, chosen by the storage type:
 //
-// bf16 (the prefill path): tensor cores, flash_attention_tc.  Its bound is
-// the bf16 tensor-core rate (989 TFLOP/s, against 67 for FP32).
-//  * One block per (batch * kv head, tile of 128 folded rows), launched
-//    heaviest row tile first so that the causal tail is short.  Folded row f
-//    of a kv head is query f / G, head hk * G + f % G, read in place through
-//    the (B, S, H) strides: the GQA group is never copied.
-//  * Three warpgroups: a producer that keeps K and V tiles of 128 keys
-//    coming by TMA into a ring of three shared-memory stages (full and
-//    empty mbarriers; 230,448 B at D=128 with Q, one block per SM), and two
-//    consumers of 64 rows each (wgmma's M), which take the producer's
-//    registers (setmaxnreg).  The consumers bring Q in once by cp.async
-//    into the same 128-byte swizzle.  At D=192, Dv=128 a persistent block
-//    per SM walks a list of (head, row tile) items instead, Q loaded by TMA
-//    beside two K and two V stages (214,096 B; tc::flash_mla_fwd).  At D =
-//    Dv = 64 a persistent block per SM walks (kv head, tile of whole query
-//    groups) items with two Q, three K and three V stages (132,224 B;
-//    tc::flash_d64_fwd, G <= 128).
+// bf16 (the prefill path): tensor cores.  Its bound is the bf16
+// tensor-core rate (989 TFLOP/s, against 67 for FP32).
+//  * Work: at D = Dv = 64 and 128 (every model's attention but MLA's) one
+//    persistent block per SM walks a list of (batch * kv head, tile of G *
+//    (128 / G) folded rows: whole query groups) work items, heaviest first,
+//    in chunks of heads whose K and V stay in L2 (tc::flash_group_fwd, G <=
+//    128).  Folded row f of a kv head is query f / G, head hk * G + f % G,
+//    read in place through the (B, S, H) strides: the GQA group is never
+//    copied.  At D=192, Dv=128 (MLA) a persistent block walks (head, row
+//    tile) items (tc::flash_mla_fwd).  At D=32 (the tests' small configs)
+//    flash_attention_tc runs one block per (batch * kv head, tile of 128
+//    folded rows), heaviest first.
+//  * Three warpgroups: a producer that keeps tiles of 128 keys coming by TMA
+//    into shared-memory rings (full and empty mbarriers), and two consumers
+//    of 64 rows each (wgmma's M), which take the producer's registers
+//    (setmaxnreg).  flash_group_fwd loads Q by TMA into two stages at D=64
+//    and one at D=128, K and V into rings of three stages each (132,224 B
+//    and 230,512 B), so that the next item's Q and first tiles load under
+//    this item's last tiles and its O store; flash_mla_fwd Q beside two K
+//    and two V stages (214,096 B); flash_attention_tc Q by the consumers'
+//    cp.async beside three K/V stages (58,416 B at D=32).
 //  * Per key tile, each consumer issues one batch: O += P V of the previous
 //    tile, then S = Q K^T (wgmma, bf16 operands from shared memory, f32
 //    accumulators), then runs the online softmax of S while the other
@@ -85,9 +89,9 @@
 //
 // The backward (flash_attention_bwd) is the gradient the reference takes by
 // autodiff, in three kernels: a delta pass, then dK/dV and dQ, without
-// atomics in any sum (bf16 at D = Dv = 64: the delta pass, then one
-// persistent kernel over both, tcb::flash_bwd_d64, whose blocks claim their
-// work items from a counter).  bf16 runs on the tensor cores (namespace
+// atomics in any sum (bf16 at D = Dv = 64 and 128: the delta pass, then one
+// persistent kernel over both, tcb::flash_bwd_d64 or tcb::flash_bwd_d128,
+// whose blocks claim their work items from a counter).  bf16 runs on the tensor cores (namespace
 // tcb), f32 on the CUDA cores (namespace bwd).  Both take the forward's (D,
 // Dv) pairs: MLA's training runs them at (192, 128), where Q, K, dQ and dK
 // have width D and V, dO, O and dV width Dv.
@@ -357,8 +361,9 @@ struct Tile {
   static constexpr uint64_t kLayout = kSwizzle == 128 ? 1 : 2;  // wgmma's swizzle code
 };
 
-// The forward's block at D = Dv: Q, K and V tiles of D (Tile<D>), K/V tiles
-// in flight, and its shared memory: aligned Q, the K and V stages, then the
+// flash_attention_tc's block at D = Dv (D=32 since D=64 and 128 run the
+// persistent flash_group_fwd): Q, K and V tiles of D (Tile<D>), K/V tiles in
+// flight, and its shared memory: aligned Q, the K and V stages, then the
 // full and empty barriers.  MLA's (192, 128) has a block of its own (MlaFwd,
 // flash_mla_fwd below): three stages of its 48 KB K and 32 KB V tiles beside
 // a 48 KB Q would take 289 KB, past the 227 KB a block may have.
@@ -1287,28 +1292,31 @@ flash_bwd_delta_mla(const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __
   p.delta[plane + row] = real ? acc : 0.f;
 }
 
-// The bf16 body's delta pass at Dv = 64 (before tcb::flash_bwd_d64): the
-// planes of flash_bwd_delta<bf16, 64, true> and its sums in its order, four
-// threads a row reading 16 bytes at a time where it reads 2 bytes a lane, a
-// row a warp (a large share of the backward at the causal training shapes
-// on an H100, once dK/dV and dQ ran in one launch).  flash_bwd_delta's lane c
-// (of 32) sums columns c and c + 32, v_c = fma(dO, O, dO O); then the xor
-// tree leaves lane 0 with the sum of v_c + v_{c+16} (level 16), of those
-// values c and c + 8 (level 8), and so on.  Here thread j of a row holds
-// columns 8j .. 8j + 7 and 32 + 8j .. 32 + 8j + 7: its v_c for c = 8j + e
-// in register e.  Level 16 adds thread j + 2's registers to thread j's (j <
-// 2), level 8 thread 1's to thread 0's, levels 4, 2 and 1 run in thread 0's
-// registers: the same additions of the same values.  Block 0 also zeroes
-// flash_bwd_d64's work counter, which runs next on the stream.
-constexpr int kD64DeltaRows = kThreads / 4;  // rows a block
+// The bf16 body's delta pass at Dv = 64 and 128 (before the persistent
+// tcb::flash_bwd_d64 and flash_bwd_d128): the planes of flash_bwd_delta<bf16,
+// Dv, true> and its sums in its order, four threads a row reading 16 bytes
+// at a time where it reads 2 bytes a lane, a row a warp (a large share of
+// the backward at the causal training shapes on an H100, once dK/dV and dQ
+// ran in one launch).  flash_bwd_delta's lane c (of 32) sums columns c, c +
+// 32, ... (Dv / 32 of them) by a chain of fma from 0; then the xor tree
+// leaves lane 0 with the sum of v_c + v_{c+16} (level 16), of those values c
+// and c + 8 (level 8), and so on.  Here thread j of a row holds columns 32i
+// + 8j .. 32i + 8j + 7 (i < Dv / 32): its v_c for c = 8j + e in register e,
+// chained over i in the same order.  Level 16 adds thread j + 2's registers
+// to thread j's (j < 2), level 8 thread 1's to thread 0's, levels 4, 2 and 1
+// run in thread 0's registers: the same additions of the same values.  Block
+// 0 also zeroes the persistent kernel's work counter, which runs next on the
+// stream.
+constexpr int kVecDeltaRows = kThreads / 4;  // rows a block
 
+template <int Dv>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_delta_d64(const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
+flash_bwd_delta_vec(const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
                     const Params p, int* __restrict__ counter) {
   if (blockIdx.x == 0 && threadIdx.x == 0) *counter = 0;
   const long long plane = static_cast<long long>(p.batch) * p.hkv * p.rows_pad;
-  const long long row = static_cast<long long>(blockIdx.x) * kD64DeltaRows + threadIdx.x / 4;
-  const int j = threadIdx.x % 4;  // 16-byte chunks j and j + 4 of the row
+  const long long row = static_cast<long long>(blockIdx.x) * kVecDeltaRows + threadIdx.x / 4;
+  const int j = threadIdx.x % 4;  // 16-byte chunks j, j + 4, ... of the row
   const int slot = static_cast<int>(row % p.rows_pad), bh = static_cast<int>(row / p.rows_pad);
   const int f = slot / kTileSlots * p.tile_rows + slot % kTileSlots;
   const bool real = row < plane && slot % kTileSlots < p.tile_rows && f < p.sq * p.g;
@@ -1319,19 +1327,18 @@ flash_bwd_delta_d64(const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __
   if (real) {
     const __nv_bfloat16* orow = o + b * p.os[0] + i * p.os[1] + h * p.os[2] + 8 * j;
     const __nv_bfloat16* drow = dout + b * p.dos[0] + i * p.dos[1] + h * p.dos[2] + 8 * j;
-    const uint4 o0 = *reinterpret_cast<const uint4*>(orow);
-    const uint4 o1 = *reinterpret_cast<const uint4*>(orow + 32);
-    const uint4 d0 = *reinterpret_cast<const uint4*>(drow);
-    const uint4 d1 = *reinterpret_cast<const uint4*>(drow + 32);
-    const uint32_t os0[4] = {o0.x, o0.y, o0.z, o0.w}, os1[4] = {o1.x, o1.y, o1.z, o1.w};
-    const uint32_t ds0[4] = {d0.x, d0.y, d0.z, d0.w}, ds1[4] = {d1.x, d1.y, d1.z, d1.w};
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {  // a bf16 widens to f32 by a shift (even e) or a mask
-      auto wide = [&](uint32_t x) {
-        return __uint_as_float(e % 2 == 0 ? x << 16 : x & 0xffff0000u);
-      };
-      v[e] = fmaf(wide(ds1[e / 2]), wide(os1[e / 2]),
-                  fmaf(wide(ds0[e / 2]), wide(os0[e / 2]), 0.f));
+    for (int part = 0; part < Dv / 32; ++part) {
+      const uint4 ox = *reinterpret_cast<const uint4*>(orow + 32 * part);
+      const uint4 dx = *reinterpret_cast<const uint4*>(drow + 32 * part);
+      const uint32_t os[4] = {ox.x, ox.y, ox.z, ox.w}, ds[4] = {dx.x, dx.y, dx.z, dx.w};
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {  // a bf16 widens to f32 by a shift (even e) or a mask
+        auto wide = [&](uint32_t x) {
+          return __uint_as_float(e % 2 == 0 ? x << 16 : x & 0xffff0000u);
+        };
+        v[e] = fmaf(wide(ds[e / 2]), wide(os[e / 2]), v[e]);
+      }
     }
   }
 #pragma unroll
@@ -1659,7 +1666,7 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 //    loop over row tiles replaces the sum across blocks: no atomics.
 //    Registers: the producer keeps 24, the consumers take 240 (dK and dV
 //    128 accumulators at D=128, S^T and dP^T 64, the bf16 parts of P^T and
-//    dS^T 64).
+//    dS^T 64; flash_bwd_d128's dK/dV items keep this layout).
 //  * flash_bwd_dkdv_mla at MLA's (192, 128), G = 1: dK (96 accumulators)
 //    and dV (64) of 64 keys do not fit one consumer beside a row tile's
 //    products; one block per key tile, whose consumers split the products
@@ -1672,9 +1679,11 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 //    flash_bwd_dq_mla is the same at (192, 128) on q and k as nope and rope
 //    parts, the row tiles of a head neighbouring blocks, so its K and V come
 //    from L2.
-//  * flash_bwd_dkdv_tc and flash_bwd_dq_tc serve D = Dv = 32 and 128.  At
-//    64 both kinds of block are work items of one persistent kernel,
-//    flash_bwd_d64 (after the D=64 forward below), with its own delta pass.
+//  * flash_bwd_dkdv_tc and flash_bwd_dq_tc serve D = Dv = 32 (the tests'
+//    small configs).  At 64 and 128 both kinds of block are work items of
+//    one persistent kernel, flash_bwd_d64 and flash_bwd_d128 (after the
+//    persistent forward below), whose loops per item are these kernels',
+//    after a delta pass of their own (flash_bwd_delta_vec).
 //  * Precision: the products of bf16 operands are exact and summed in f32;
 //    D^-1/2 scales the f32 score inside the exponent (c = D^-1/2 log2 e) and
 //    dK, dQ in f32 at the end; P and dS are each split into hi = bf16(x)
@@ -2669,31 +2678,40 @@ flash_bwd_dq_mla(const __grid_constant__ CUtensorMap tmk, const __grid_constant_
 
 }  // namespace tcb
 
-// -- bf16 at D = Dv = 64: a persistent block over work items -------------------------
+// -- bf16 at D = Dv = 64 and 128: a persistent block over work items ----------------
 //
-// At D = 64 a causal block of flash_attention_tc at S = 1,024 walks 4.5 key
-// tiles on average (1 to 8), and its start (barriers, Q by cp.async, the
-// first Q K^T alone) and end (the last P V alone, the O store), which
-// nothing overlaps, weigh as much as its loop: zamba2-1.2b's shared block
-// ran 1.5x behind SDPA on an H100 SXM.  flash_d64_fwd:
+// A causal block of flash_attention_tc at S = 1,024 walks 4.5 key tiles on
+// average (1 to 8), and its start (barriers, Q by cp.async, the first Q K^T
+// alone) and end (the last P V alone, the O store), which nothing overlaps,
+// weigh as much as its loop: zamba2-1.2b's shared block (D=64) ran 1.5x
+// behind SDPA on an H100 SXM, qwen3-4b's prefill (D=128) 1.5x too, at ~3.6
+// us a key tile step against ~1.7 us at the tensor-core rate.
+// flash_group_fwd<D>:
 //  * One block per SM walks a fixed list of work items (batch * kv head,
 //    tile of tile_rows = G * (128 / G) folded rows: whole query groups, so
-//    that a tile's Q is one TMA box of 128 / G queries of G heads), in
-//    chunks of heads, in a chunk every head's heaviest row tile first, as
-//    flash_mla_fwd walks its list (the host picks the chunk: work_chunk).
-//    Rows tile_rows .. 127 of the Q stages (G not a power of two) are
-//    zeroed once, computed and never stored.
+//    that a tile's Q is one TMA box of 128 / G queries of G heads across
+//    each 64 columns), in chunks of heads, in a chunk every head's heaviest
+//    row tile first, as flash_mla_fwd walks its list (the host picks the
+//    chunk: work_chunk).  Rows tile_rows .. 127 of the Q stages (G not a
+//    power of two) are zeroed once, computed and never stored.
 //  * The producer keeps K and V in rings of three stages each that run on
-//    across items, and Q in two stages with their own full/empty pairs: the
-//    next item's Q and first K and V tiles load under this item's last
-//    softmax, its last P V and its O store.
+//    across items, and Q in stages of its own, each stage with its own
+//    full/empty pair: the next item's Q and first K and V tiles load under
+//    this item's last softmax, its last P V and its O store.  D=64: two Q
+//    stages (132,224 B), the next item's Q a whole item ahead.  D=128: one
+//    Q stage (230,512 B; two would take 263,296 B), so the next item's Q
+//    loads once both consumers have run this item's last Q K^T, while its
+//    first K tiles may load earlier; two Q stages beside two K and two V
+//    stages (197,728 B) ran 3-4 % slower at qwen3-4b's prefill shape on an
+//    H100 SXM.
 //  * Per key tile the consumers run flash_attention_tc's loop (Tc): P V of
 //    the previous tile and S = Q K^T in one batch, the two warpgroups taking
 //    turns on the tensor cores, then the softmax.  Two alternatives ran
-//    slower on an H100: the exponentials of S_t under the warpgroup's own
-//    P_{t-1} V_{t-1} with the bf16 split after it (the MUFU and F2FP phases
-//    then no longer interleave), and two P register sets alternating by key
-//    tile (ptxas serialized every wgmma for want of registers).
+//    slower on an H100 at D=64: the exponentials of S_t under the
+//    warpgroup's own P_{t-1} V_{t-1} with the bf16 split after it (the MUFU
+//    and F2FP phases then no longer interleave), and two P register sets
+//    alternating by key tile (ptxas serialized every wgmma for want of
+//    registers).
 //  * The arithmetic is flash_attention_tc's row for row: key tiles of 128 in
 //    order, exp2_approx, P in two bf16 parts, the rescale after each P V, the
 //    lse in raw units scaled at the store.  A row's bits do not depend on
@@ -2701,17 +2719,18 @@ flash_bwd_dq_mla(const __grid_constant__ CUtensorMap tmk, const __grid_constant_
 //    exp2(-huge) = 0 and rescale by 1), so out and lse are the same bits.
 namespace tc {
 
-struct D64Fwd {
-  using T = Tile<64>;
-  static constexpr int kStages = 3;   // K tiles in flight, and V tiles
-  static constexpr int kQStages = 2;  // Q tiles: an item's and the next one's
+template <int D>
+struct GroupFwd {
+  using T = Tile<D>;
+  static constexpr int kStages = 3;                 // K tiles in flight, and V tiles
+  static constexpr int kQStages = D == 64 ? 2 : 1;  // Q tiles: an item's (and the next one's)
   // aligned Q stages, the K and V rings, then the full and empty barriers of
-  // each K, V and Q stage: 132,224 B
+  // each K, V and Q stage: 132,224 B at D=64, 230,512 B at D=128
   static constexpr int kSmem =
       kAlign + (kQStages + 2 * kStages) * T::kTileBytes + 8 * (4 * kStages + 2 * kQStages);
 };
 
-struct D64Params {
+struct GroupParams {
   int sq, skv, g, hkv, q_offset;
   int tile_rows;                   // folded rows of an item: g * (kRows / g)
   int n_rt, n_bh, chunk, n_items;  // row tiles a kv head, batch * kv heads, the work list
@@ -2722,17 +2741,17 @@ struct D64Params {
 
 // Work item `item`: batch and kv head, its row tile's first folded row and
 // key tiles (the causal ones up to the last that its last row sees).
-struct D64Item {
+struct GroupItem {
   int b, hk, row0, n_tiles;
 };
 
 template <bool kCausal>
-__device__ __forceinline__ D64Item d64_item(const D64Params& p, int item) {
+__device__ __forceinline__ GroupItem group_item(const GroupParams& p, int item) {
   const int per = p.chunk * p.n_rt;  // items of a whole chunk
   const int c = item / per, j = item % per;
   const int heads = min(p.chunk, p.n_bh - c * p.chunk);  // the last chunk may hold fewer
   const int bh = c * p.chunk + j % heads;
-  D64Item it;
+  GroupItem it;
   it.b = bh / p.hkv;
   it.hk = bh % p.hkv;
   it.row0 = (p.n_rt - 1 - j / heads) * p.tile_rows;  // heaviest first
@@ -2744,13 +2763,13 @@ __device__ __forceinline__ D64Item d64_item(const D64Params& p, int item) {
   return it;
 }
 
-template <bool kCausal>
+template <int D, bool kCausal>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_d64_fwd(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ CUtensorMap tmk,
-              const __grid_constant__ CUtensorMap tmv, __nv_bfloat16* __restrict__ o,
-              const D64Params p) {
-  using T = D64Fwd::T;
-  constexpr int kStages = D64Fwd::kStages, kQStages = D64Fwd::kQStages;
+flash_group_fwd(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ CUtensorMap tmk,
+                const __grid_constant__ CUtensorMap tmv, __nv_bfloat16* __restrict__ o,
+                const GroupParams p) {
+  using T = typename GroupFwd<D>::T;
+  constexpr int kStages = GroupFwd<D>::kStages, kQStages = GroupFwd<D>::kQStages;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + kAlign - 1) & ~static_cast<uint32_t>(kAlign - 1);
@@ -2778,13 +2797,14 @@ flash_d64_fwd(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ C
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   if (p.tile_rows < kRows) {
-    // rows tile_rows .. kRows - 1 of both Q stages: TMA never writes them,
-    // so zeros once keep them finite (their outputs are never stored)
+    // rows tile_rows .. kRows - 1 of every box of both Q stages: TMA never
+    // writes them, so zeros once keep them finite (their outputs are never
+    // stored).  The boxes of 128 rows lie back to back from q_s.
     constexpr int kChunks = T::kSwizzle / 16;  // of 16 bytes in a row
     const int tail = (kRows - p.tile_rows) * kChunks;
     uint4* tiles = reinterpret_cast<uint4*>(smem_raw + (q_s - raw));
-    for (int idx = threadIdx.x; idx < kQStages * tail; idx += kThreads) {
-      tiles[idx / tail * (T::kTileBytes / 16) + p.tile_rows * kChunks + idx % tail] =
+    for (int idx = threadIdx.x; idx < kQStages * T::kBoxes * tail; idx += kThreads) {
+      tiles[idx / tail * (T::kBoxBytes / 16) + p.tile_rows * kChunks + idx % tail] =
           make_uint4(0, 0, 0, 0);
     }
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
@@ -2801,19 +2821,26 @@ flash_d64_fwd(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ C
       }
       int done = 0;  // K and V tiles loaded before this item (as many of each)
       for (int ic = 0; blockIdx.x + ic * gridDim.x < p.n_items; ++ic) {
-        const D64Item it = d64_item<kCausal>(p, blockIdx.x + ic * gridDim.x);
+        const GroupItem it = group_item<kCausal>(p, blockIdx.x + ic * gridDim.x);
         auto load = [&](uint32_t ring, uint32_t full, uint32_t empty, const CUtensorMap* map,
                         int t) {
           const int s = (done + t) % kStages;
           mbar_wait(empty + 8 * s, (((done + t) / kStages) & 1) ^ 1);  // stage released
           mbar_expect_tx(full + 8 * s, T::kTileBytes);
-          tma_load(ring + s * T::kTileBytes, map, full + 8 * s, 0, it.hk, t * kKeys, it.b);
+#pragma unroll
+          for (int i = 0; i < T::kBoxes; ++i) {
+            tma_load(ring + s * T::kTileBytes + i * T::kBoxBytes, map, full + 8 * s,
+                     i * T::kBoxCols, it.hk, t * kKeys, it.b);
+          }
         };
         const int qs = ic % kQStages;
         mbar_wait(q_empty + 8 * qs, ((ic / kQStages) & 1) ^ 1);  // its last Q K^T is done
-        mbar_expect_tx(q_full + 8 * qs, p.tile_rows * T::kSwizzle);
-        tcb::tma_load_rows(q_s + qs * T::kTileBytes, &tmq, q_full + 8 * qs, 0, it.hk,
-                           it.row0 / p.g, it.b);
+        mbar_expect_tx(q_full + 8 * qs, T::kBoxes * p.tile_rows * T::kSwizzle);
+#pragma unroll
+        for (int i = 0; i < T::kBoxes; ++i) {
+          tcb::tma_load_rows(q_s + qs * T::kTileBytes + i * T::kBoxBytes, &tmq, q_full + 8 * qs,
+                             i * T::kBoxCols, it.hk, it.row0 / p.g, it.b);
+        }
         load(k_s, k_full, k_empty, &tmk, 0);
         for (int t = 1; t < it.n_tiles; ++t) {
           load(k_s, k_full, k_empty, &tmk, t);
@@ -2836,7 +2863,7 @@ flash_d64_fwd(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ C
       const int qs = ic % kQStages;
       int n_tiles, wg_row0;
       {
-        const D64Item it = d64_item<kCausal>(p, blockIdx.x + ic * gridDim.x);
+        const GroupItem it = group_item<kCausal>(p, blockIdx.x + ic * gridDim.x);
         n_tiles = it.n_tiles;
         wg_row0 = it.row0 + 64 * c;
       }
@@ -2846,12 +2873,12 @@ flash_d64_fwd(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ C
         const int pos = min(f, rows - 1) / p.g + p.q_offset;
         return kCausal ? min(p.skv, pos + 1) : p.skv;
       };
-      const Tc<64, 64> tcx{q_s + qs * T::kTileBytes + 64 * c * T::kSwizzle, k_s, v_s,
-                           {lim_of(wg_row0 + r), lim_of(wg_row0 + r + 8)}, lim_of(wg_row0),
-                           lane, p.scale * 1.4426950408889634f};
-      float acc[32], sc[kKeys / 2], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
+      const Tc<D, D> tcx{q_s + qs * T::kTileBytes + 64 * c * T::kSwizzle, k_s, v_s,
+                         {lim_of(wg_row0 + r), lim_of(wg_row0 + r + 8)}, lim_of(wg_row0),
+                         lane, p.scale * 1.4426950408889634f};
+      float acc[D / 2], sc[kKeys / 2], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
 #pragma unroll
-      for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 #pragma unroll
       for (int i = 0; i < kKeys / 2; ++i) sc[i] = 0.f;
       uint32_t hi[kKeys / 16][4], lo[kKeys / 16][4];  // p of the previous tile
@@ -2901,7 +2928,7 @@ flash_d64_fwd(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ C
         }
         softmax(t * kKeys);
 #pragma unroll
-        for (int i = 0; i < 32; ++i) acc[i] *= alpha[i / 2 % 2];
+        for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[i / 2 % 2];
       }
       mbar_wait(v_full + 8 * stage(n_tiles - 1), parity(n_tiles - 1));
       turn_wait(c);
@@ -2917,7 +2944,7 @@ flash_d64_fwd(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ C
       // out = acc / max(l, 1e-37), rounded once to bf16; rows past the item's
       // tile and past Sq * G unstored.  The item, decoded again here, is not
       // held in registers across its loop.
-      const D64Item it = d64_item<kCausal>(p, blockIdx.x + ic * gridDim.x);
+      const GroupItem it = group_item<kCausal>(p, blockIdx.x + ic * gridDim.x);
       const int row_end = min(it.row0 + p.tile_rows, rows);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -2930,7 +2957,7 @@ flash_d64_fwd(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ C
             o + it.b * p.os[0] + qi * p.os[1] + head * p.os[2] + 2 * (lane % 4);
         const float inv = 1.f / fmaxf(l[h], 1e-37f);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
+        for (int j = 0; j < D / 8; ++j) {
           *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
               __floats2bfloat162_rn(acc[4 * j + 2 * h] * inv, acc[4 * j + 2 * h + 1] * inv);
         }
@@ -2956,7 +2983,7 @@ flash_d64_fwd(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ C
 // (whisper-tiny's encoder: 144 blocks on 132 SMs, twice) or most SMs idle
 // (its decoder: 48 blocks, twice); each short block paid its start (K/V or
 // Q/dO by cp.async, waited for) and its end (the stores) with nothing under
-// them; and the delta pass read a row 2 bytes a lane (bwd::flash_bwd_delta_d64
+// them; and the delta pass read a row 2 bytes a lane (bwd::flash_bwd_delta_vec
 // reads it 16 bytes a thread, in the same order of sums).  The bound is the
 // tensor cores' rate at these shapes but whisper's decoder (bytes); a chain
 // of row tiles of one key tile (or of key tiles of one dQ tile) runs in
@@ -3018,7 +3045,7 @@ struct D64Bwd {
 
 constexpr int kCounterWords = 4;  // the work counter after the statistics planes (16 bytes)
 
-struct D64BwdParams {
+struct BwdWork {
   int n_kt, n_rt;       // key tiles of 64, row tiles of tile_rows (dK/dV)
   int q_rows, n_qt;     // dQ: folded rows of an item, g * (128 / g), and its row tiles
   int n_pairs, n_per;   // dK/dV items of a head, all items of a head
@@ -3029,19 +3056,19 @@ struct D64BwdParams {
 
 // Work item `item`: dK/dV (pair idx: key tiles 2 idx and 2 idx + 1) or dQ
 // (row tile idx), batch and kv head.
-struct D64BwdItem {
+struct BwdItem {
   int dkdv, b, hk, idx;
 };
 
-__host__ __device__ __forceinline__ D64BwdItem d64_bwd_item(const bwd::Params& p,
-                                                            const D64BwdParams& w, int item) {
+__host__ __device__ __forceinline__ BwdItem bwd_item(const bwd::Params& p, const BwdWork& w,
+                                                     int item) {
   const int per = w.chunk * w.n_per;  // items of a whole chunk
   const int c = item / per, j = item % per;
   const int left = w.n_bh - c * w.chunk;  // the last chunk may hold fewer heads
   const int heads = w.chunk < left ? w.chunk : left;
   const int bh = c * w.chunk + j % heads, rank = j / heads;
   const int n_first = w.q_first ? w.n_qt : w.n_pairs;
-  D64BwdItem it;
+  BwdItem it;
   it.dkdv = (rank < n_first) != (w.q_first != 0);
   it.idx = rank < n_first ? rank : rank - n_first;
   if (!it.dkdv) it.idx = w.n_qt - 1 - it.idx;  // dQ: the last row tile, the heaviest, first
@@ -3054,13 +3081,13 @@ __host__ __device__ __forceinline__ D64BwdItem d64_bwd_item(const bwd::Params& p
 // first row), and a dQ item's key tiles of 128 (the causal ones up to the
 // last its last row sees).
 template <bool kCausal>
-__device__ __forceinline__ int d64_first_tile(const bwd::Params& p, const D64BwdParams& w,
-                                              int pair) {
+__device__ __forceinline__ int pair_first_tile(const bwd::Params& p, const BwdWork& w,
+                                               int pair) {
   return first_tile(p, kCausal, 2 * pair * kKeys, w.n_rt);
 }
 template <bool kCausal>
-__device__ __forceinline__ int d64_key_tiles(const bwd::Params& p, const D64BwdParams& w,
-                                             int row_tile) {
+__device__ __forceinline__ int dq_key_tiles(const bwd::Params& p, const BwdWork& w,
+                                            int row_tile) {
   int n = (p.skv + tc::kKeys - 1) / tc::kKeys;
   if (kCausal) {
     const int last_row = min((row_tile + 1) * w.q_rows, p.sq * p.g) - 1;
@@ -3073,8 +3100,8 @@ __device__ __forceinline__ int d64_key_tiles(const bwd::Params& p, const D64BwdP
 // the row ring from row tile number `u0` of the block; releases the operand
 // slot, then stores.
 template <bool kCausal>
-__device__ __forceinline__ void d64_dkdv(const bwd::Params& p, const D64BwdParams& w,
-                                         const D64BwdItem& it, uint32_t op, uint32_t op_empty,
+__device__ __forceinline__ void d64_dkdv(const bwd::Params& p, const BwdWork& w,
+                                         const BwdItem& it, uint32_t op, uint32_t op_empty,
                                          uint32_t rq_s, uint32_t rdo_s, uint32_t r_full,
                                          uint32_t r_empty, const float* stats, int u0, int c,
                                          int warp, int lane, __nv_bfloat16* __restrict__ dk,
@@ -3085,7 +3112,7 @@ __device__ __forceinline__ void d64_dkdv(const bwd::Params& p, const D64BwdParam
   const bool active = jt < w.n_kt;
   const int key0 = jt * kKeys;
   const uint32_t k_wg = op + 2 * c * S::kBox, v_wg = k_wg + S::kBox;
-  const int t0 = d64_first_tile<kCausal>(p, w, it.idx);
+  const int t0 = pair_first_tile<kCausal>(p, w, it.idx);
   const int my_t0 = active ? first_tile(p, kCausal, key0, w.n_rt) : w.n_rt;
   // this thread's keys (accumulator rows r and r + 8) and the first folded
   // row each sees; rows at or past `full_from` see every key of the tile.
@@ -3184,8 +3211,8 @@ __device__ __forceinline__ void d64_dkdv(const bwd::Params& p, const D64BwdParam
 // at D = Dv = 64 on the K/V ring from key tile number `u0` of the block;
 // releases the operand slot, then stores the item's rows.
 template <bool kCausal>
-__device__ __forceinline__ void d64_dq(const bwd::Params& p, const D64BwdParams& w,
-                                       const D64BwdItem& it, uint32_t op, uint32_t op_empty,
+__device__ __forceinline__ void d64_dq(const bwd::Params& p, const BwdWork& w,
+                                       const BwdItem& it, uint32_t op, uint32_t op_empty,
                                        uint32_t kk_s, uint32_t kv_s, uint32_t k_full,
                                        uint32_t k_empty, int u0, int c, int warp, int lane,
                                        __nv_bfloat16* __restrict__ dq) {
@@ -3195,7 +3222,7 @@ __device__ __forceinline__ void d64_dq(const bwd::Params& p, const D64BwdParams&
   const int row0 = it.idx * w.q_rows, wg_row0 = row0 + 64 * c;
   const uint32_t q_wg = op + 64 * c * TK::kSwizzle;  // Q of the item's rows, then dO
   const uint32_t do_wg = q_wg + 2 * S::kBox;
-  const int n_tiles = d64_key_tiles<kCausal>(p, w, it.idx);
+  const int n_tiles = dq_key_tiles<kCausal>(p, w, it.idx);
 
   // this thread's rows r and r + 8: their statistics (zeros past the end)
   // and the keys they see (below lim); rows past the end take the last
@@ -3309,7 +3336,7 @@ flash_bwd_d64(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ C
               const __grid_constant__ CUtensorMap tmk, const __grid_constant__ CUtensorMap tmv,
               const __grid_constant__ CUtensorMap tmkw, const __grid_constant__ CUtensorMap tmvw,
               __nv_bfloat16* __restrict__ dq, __nv_bfloat16* __restrict__ dk,
-              __nv_bfloat16* __restrict__ dv, const bwd::Params p, const D64BwdParams w) {
+              __nv_bfloat16* __restrict__ dv, const bwd::Params p, const BwdWork w) {
   using S = D64Bwd;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = tc::smem_addr(smem_raw);
@@ -3379,7 +3406,7 @@ flash_bwd_d64(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ C
           break;
         }
         slots[slot] = item;  // published by the arrival below
-        const D64BwdItem it = d64_bwd_item(p, w, item);
+        const BwdItem it = bwd_item(p, w, item);
         const uint32_t op = op_s + slot * S::kOp;
         if (it.dkdv) {
           // the consumers' key tiles; consumer 1 has none past the end
@@ -3393,7 +3420,7 @@ flash_bwd_d64(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ C
             tc::tma_load(op + 3 * S::kBox, &tmv, full, 0, it.hk, j1 * kKeys, it.b);
           }
           const float* stat = p.delta + static_cast<long long>(it.b * p.hkv + it.hk) * p.rows_pad;
-          for (int t = d64_first_tile<kCausal>(p, w, it.idx); t < w.n_rt; ++t, ++rt) {
+          for (int t = pair_first_tile<kCausal>(p, w, it.idx); t < w.n_rt; ++t, ++rt) {
             const int s = rt % S::kKvStages;
             const uint32_t bar = r_full + 8 * s;
             tc::mbar_wait(r_empty + 8 * s, ((rt / S::kKvStages) & 1) ^ 1);  // stage released
@@ -3409,7 +3436,7 @@ flash_bwd_d64(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ C
           tc::mbar_expect_tx(full, 2 * w.q_rows * S::T::kSwizzle);
           tma_load_rows(op, &tmqw, full, 0, it.hk, i0, it.b);
           tma_load_rows(op + 2 * S::kBox, &tmdow, full, 0, it.hk, i0, it.b);
-          const int n = d64_key_tiles<kCausal>(p, w, it.idx);
+          const int n = dq_key_tiles<kCausal>(p, w, it.idx);
           for (int t = 0; t < n; ++t, ++kt) {
             const int s = kt % S::kQStages;
             const uint32_t bar = k_full + 8 * s;
@@ -3433,16 +3460,466 @@ flash_bwd_d64(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ C
       tc::mbar_wait(op_full + 8 * slot, (ic >> 1) & 1);
       const int item = slots[slot];
       if (item < 0) break;
-      const D64BwdItem it = d64_bwd_item(p, w, item);
+      const BwdItem it = bwd_item(p, w, item);
       const uint32_t op = op_s + slot * S::kOp;
       if (it.dkdv) {
         d64_dkdv<kCausal>(p, w, it, op, op_empty + 8 * slot, rq_s, rdo_s, r_full, r_empty, stats,
                           rt, c, warp, lane, dk, dv);
-        rt += w.n_rt - d64_first_tile<kCausal>(p, w, it.idx);
+        rt += w.n_rt - pair_first_tile<kCausal>(p, w, it.idx);
       } else {
         d64_dq<kCausal>(p, w, it, op, op_empty + 8 * slot, kk_s, kv_s, k_full, k_empty, kt, c,
                         warp, lane, dq);
-        kt += d64_key_tiles<kCausal>(p, w, it.idx);
+        kt += dq_key_tiles<kCausal>(p, w, it.idx);
+      }
+    }
+  }
+}
+
+}  // namespace tcb
+
+// -- bf16 backward at D = Dv = 128: one persistent launch over both kinds of item --------
+//
+// Replaces no TPU kernel (the reference's autodiff of
+// src/repro/models/attention.py:52).  At D=128 flash_bwd_dkdv_tc and
+// flash_bwd_dq_tc reached 0.20 of the bound at qwen3-4b's training shape on
+// an H100 SXM: 128 dK/dV blocks held 128 of 132 SMs for the whole pass, the
+// dQ launch ran after it with a tail of its own, and the delta pass read a
+// row 2 bytes a lane.  flash_bwd_d128 is flash_bwd_d64's design (the delta
+// pass bwd::flash_bwd_delta_vec<128> zeroes the counter; one block per SM
+// claims dK/dV items, pairs of key tiles 2j and 2j + 1, and dQ items, tiles
+// of g * (128 / g) folded rows, from one list; the plan is the same,
+// persistent_bwd_plan) with what D=128 forces:
+//  * Registers.  A dK/dV item keeps dK and dV (128 accumulators a consumer)
+//    beside a row tile's S^T, dP^T and their bf16 parts; a dQ item keeps dQ
+//    (64) beside S, dP (64 each) and dS's parts.  Each kind runs in a
+//    function of its own and keeps nothing of the other live: the item
+//    loop's state is the ring counter and the slot.  No spill, as the two
+//    kernels it replaces.
+//  * Shared memory.  Two operand slots of 64 KB: a dK/dV item's K and V of
+//    keys 128j .. 128j + 127 (consumer c reads rows 64c .. 64c + 63 of each
+//    box of 128, the swizzle's phase unchanged), or a dQ item's Q and dO of
+//    its 128 rows.  One ring of three 32 KB stages serves both kinds: a
+//    stage holds a Q and a dO row tile of 64 (with its statistics beside) or
+//    one K or one V tile of 128 keys; a dQ key tile takes two stages, V's
+//    first, so that V_t's stage, freed once dP is done, takes K_{t+1} while
+//    dS and dQ += dS K still read K_t (K first would hold V_{t+1} behind the
+//    end of tile t).  232,032 B of the 232,448 a block may have.  A dQ
+//    item's K/V ring of 64 KB a stage beside the dK/dV ring would not fit.
+//  * Rows tile_rows .. 63 of a row stage are zeroed once; a dQ tile written
+//    there later leaves finite K or V values (or TMA's zeros), which P^T = 0
+//    multiplies to exact zeros, as flash_bwd_dkdv_tc's zeros did.
+//  * Per item the consumers run flash_bwd_dkdv_tc's or flash_bwd_dq_tc's
+//    loop at D=128: row tiles in ascending order into dK and dV, key tiles
+//    of 128 in ascending order into dQ, the same products (S^T and dP^T at
+//    wgmma's N = 64, dK and dV at N = 128, S and dP at N = 128 keys, dQ at N
+//    = 128), masks, prob, split_bf16 and tile_grads, the scale at the
+//    store: dq, dk and dv are their bits.
+namespace tcb {
+
+struct D128Bwd {
+  using T = Tile<128>;                                      // two swizzled boxes across D
+  static constexpr int kRowBox = kRows * T::kSwizzle;       // a box of 64 rows: 8 KB
+  static constexpr int kWideBox = tc::kRows * T::kSwizzle;  // a box of 128 rows or keys: 16 KB
+  static constexpr int kOp = 4 * kWideBox;                  // an item's operands: 64 KB
+  static constexpr int kStage = 2 * T::kBoxes * kRowBox;    // Q and dO of 64 rows: 32 KB
+  static_assert(kStage == T::kTileBytes, "a stage holds a K or a V tile of 128 keys too");
+  static constexpr int kStages = 3;                         // ring stages, both kinds of item
+  static constexpr int kStats = 2 * kRows * 4;              // a row tile's lse * log2 e and delta
+  static constexpr int kBars = 2 * (2 + kStages);           // a full and an empty each
+  // aligned operand slots, the ring, its statistics, the barriers, the item
+  // of each operand slot: 232,032 B
+  static constexpr int kSmem =
+      tc::kAlign + 2 * kOp + kStages * (kStage + kStats) + 8 * kBars + 16;
+};
+
+// A dK/dV item in consumer c: flash_bwd_dkdv_tc's loop at D = Dv = 128 on
+// the ring from ring tile number `u0` of the block; releases the operand
+// slot, then stores.
+template <bool kCausal>
+__device__ __forceinline__ void d128_dkdv(const bwd::Params& p, const BwdWork& w,
+                                          const BwdItem& it, uint32_t op, uint32_t op_empty,
+                                          uint32_t ring, uint32_t r_full, uint32_t r_empty,
+                                          const float* stats, int u0, int c, int warp, int lane,
+                                          __nv_bfloat16* __restrict__ dk,
+                                          __nv_bfloat16* __restrict__ dv) {
+  using S = D128Bwd;
+  const int rows = p.sq * p.g;
+  const int jt = 2 * it.idx + c;  // key tile 2j or 2j + 1: c = 0, 1
+  const bool active = jt < w.n_kt;
+  const int key0 = jt * kKeys;
+  // this consumer's keys: rows 64c .. 64c + 63 of the slot's boxes of 128 keys
+  const uint32_t k_wg = op + 64 * c * S::T::kSwizzle, v_wg = k_wg + 2 * S::kWideBox;
+  const int t0 = pair_first_tile<kCausal>(p, w, it.idx);
+  const int my_t0 = active ? first_tile(p, kCausal, key0, w.n_rt) : w.n_rt;
+  // this thread's keys (accumulator rows r and r + 8) and the first folded
+  // row each sees; rows at or past `full_from` see every key of the tile.
+  // A tile of fewer than kRows rows is masked past them.
+  const int r = 16 * warp + lane / 4;
+  int first[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = key0 + r + 8 * h;
+    first[h] = key < p.skv ? first_row(p, kCausal, key) : rows;
+  }
+  const int full_from = first_row(p, kCausal, key0 + kKeys - 1);
+  const bool ragged = key0 + kKeys > p.skv || p.tile_rows < kRows;
+  const float cexp = p.scale * 1.4426950408889634f;
+
+  float dkv[64], dvv[64], st[32], dpt[32];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dkv[i] = 0.f, dvv[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) st[i] = 0.f, dpt[i] = 0.f;
+  Frags<kRows / 16> pf, dsf;
+  for (int t = t0, u = u0; t < w.n_rt; ++t, ++u) {
+    const int s = u % S::kStages;
+    tc::mbar_wait(r_full + 8 * s, (u / S::kStages) & 1);
+    if (t >= my_t0) {
+      const uint32_t q_t = ring + s * S::kStage, do_t = q_t + 2 * S::kRowBox;
+      const int row0 = t * p.tile_rows;
+      const float* lse2 = stats + s * (S::kStats / 4);
+      const bool masked = ragged || row0 + kRows > rows || row0 < full_from;
+      // S^T = K Q^T and dP^T = V dO^T over the tile's rows
+      tc::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 128 / 16; ++kk) {
+        tc::wgmma_ss(st, tc::desc_k<128>(k_wg, kk, S::kWideBox),
+                     tc::desc_k<128>(q_t, kk, S::kRowBox), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 128 / 16; ++kk) {
+        tc::wgmma_ss(dpt, tc::desc_k<128>(v_wg, kk, S::kWideBox),
+                     tc::desc_k<128>(do_t, kk, S::kRowBox), kk > 0);
+      }
+      tc::wgmma_commit();
+      tc::wgmma_wait<0>();
+      tc::fence_regs(st);
+      tc::fence_regs(dpt);
+      const int col0 = row0 + 2 * (lane % 4);
+      if (masked) {
+        const int lo[2] = {first[0] - col0, first[1] - col0};
+        tile_grads<true>(st, dpt, pf, dsf, lse2, lse2 + kRows, cexp, lane, lo,
+                         min(rows, row0 + p.tile_rows) - col0);
+      } else {
+        const int none[2] = {0, 0};
+        tile_grads<false>(st, dpt, pf, dsf, lse2, lse2 + kRows, cexp, lane, none, 0);
+      }
+      // dV += P^T dO and dK += dS^T Q over the tile's rows, each part in turn
+      tc::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kRows / 16; ++kk) {
+        tc::wgmma_rs(dvv, pf.hi[kk], tc::desc_mn<128>(do_t, kk, S::kRowBox));
+        tc::wgmma_rs(dkv, dsf.hi[kk], tc::desc_mn<128>(q_t, kk, S::kRowBox));
+      }
+#pragma unroll
+      for (int kk = 0; kk < kRows / 16; ++kk) {
+        tc::wgmma_rs(dvv, pf.lo[kk], tc::desc_mn<128>(do_t, kk, S::kRowBox));
+        tc::wgmma_rs(dkv, dsf.lo[kk], tc::desc_mn<128>(q_t, kk, S::kRowBox));
+      }
+      tc::wgmma_commit();
+      tc::wgmma_wait<0>();
+      tc::fence_regs(dvv);
+      tc::fence_regs(dkv);
+    }
+    if (lane == 0) tc::mbar_arrive(r_empty + 8 * s);  // this warp is done with the stage
+  }
+  if (lane == 0) tc::mbar_arrive(op_empty);  // and with K and V
+
+  // dK = D^-1/2 dS^T Q and dV, rounded once to bf16; keys past Skv unstored
+  if (active) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int key = key0 + r + 8 * h;
+      if (key >= p.skv) continue;
+      __nv_bfloat16* krow =
+          dk + it.b * p.dks[0] + key * p.dks[1] + it.hk * p.dks[2] + 2 * (lane % 4);
+      __nv_bfloat16* vrow =
+          dv + it.b * p.dvs[0] + key * p.dvs[1] + it.hk * p.dvs[2] + 2 * (lane % 4);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(krow + 8 * j) = __floats2bfloat162_rn(
+            dkv[4 * j + 2 * h] * p.scale, dkv[4 * j + 2 * h + 1] * p.scale);
+      }
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(vrow + 8 * j) =
+            __floats2bfloat162_rn(dvv[4 * j + 2 * h], dvv[4 * j + 2 * h + 1]);
+      }
+    }
+  }
+}
+
+// A dQ item in consumer c (its rows 64c .. 64c + 63): flash_bwd_dq_tc's loop
+// at D = Dv = 128 on the ring from ring tile number `u0` of the block (key
+// tile t: V in ring tile u0 + 2t, K in u0 + 2t + 1); releases the operand
+// slot, then stores the item's rows.
+template <bool kCausal>
+__device__ __forceinline__ void d128_dq(const bwd::Params& p, const BwdWork& w,
+                                        const BwdItem& it, uint32_t op, uint32_t op_empty,
+                                        uint32_t ring, uint32_t r_full, uint32_t r_empty, int u0,
+                                        int c, int warp, int lane,
+                                        __nv_bfloat16* __restrict__ dq) {
+  using S = D128Bwd;
+  const int rows = p.sq * p.g;
+  const int row0 = it.idx * w.q_rows, wg_row0 = row0 + 64 * c;
+  const uint32_t q_wg = op + 64 * c * S::T::kSwizzle;  // Q of the item's rows, then dO
+  const uint32_t do_wg = q_wg + 2 * S::kWideBox;
+  const int n_tiles = dq_key_tiles<kCausal>(p, w, it.idx);
+
+  // this thread's rows r and r + 8: their statistics (zeros past the end)
+  // and the keys they see (below lim); rows past the end take the last
+  // row's position and are never stored
+  const int r = 16 * warp + lane / 4;
+  const long long plane = static_cast<long long>(p.batch) * p.hkv * p.rows_pad;
+  const float* stat = p.delta + static_cast<long long>(it.b * p.hkv + it.hk) * p.rows_pad;
+  float lse2[2] = {0.f, 0.f}, del[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int f = wg_row0 + r + 8 * h;
+    if (f < rows) {
+      lse2[h] = stat[bwd::slot_of(p, f)];
+      del[h] = stat[plane + bwd::slot_of(p, f)];
+    }
+  }
+  auto lim_of = [&](int f) {
+    const int pos = min(f, rows - 1) / p.g + p.q_offset;
+    return kCausal ? min(p.skv, pos + 1) : p.skv;
+  };
+  const int lim[2] = {lim_of(wg_row0 + r), lim_of(wg_row0 + r + 8)};
+  const int min_lim = lim_of(wg_row0);
+  const float cexp = p.scale * 1.4426950408889634f;
+
+  float dqv[64], sc[tc::kKeys / 2], dp[tc::kKeys / 2];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dqv[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < tc::kKeys / 2; ++i) sc[i] = 0.f, dp[i] = 0.f;
+  uint32_t ds_hi[tc::kKeys / 16][4], ds_lo[tc::kKeys / 16][4];
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int u = u0 + 2 * t, sv = u % S::kStages, sk = (u + 1) % S::kStages;
+    const int key0 = t * tc::kKeys;
+    const uint32_t v_t = ring + sv * S::kStage, k_t = ring + sk * S::kStage;
+    tc::mbar_wait(r_full + 8 * sv, (u / S::kStages) & 1);
+    tc::mbar_wait(r_full + 8 * sk, ((u + 1) / S::kStages) & 1);
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 128 / 16; ++kk) {
+      tc::wgmma_ss(sc, tc::desc_k<128>(q_wg, kk, S::kWideBox),
+                   tc::desc_k<128>(k_t, kk, S::kWideBox), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 128 / 16; ++kk) {
+      tc::wgmma_ss(dp, tc::desc_k<128>(do_wg, kk, S::kWideBox),
+                   tc::desc_k<128>(v_t, kk, S::kWideBox), kk > 0);
+    }
+    tc::wgmma_commit();
+    tc::wgmma_wait<0>();
+    tc::fence_regs(sc);
+    tc::fence_regs(dp);
+    if (lane == 0) tc::mbar_arrive(r_empty + 8 * sv);  // this warp is done with V_t
+    // dS = P (dP - delta), P = 2^(S c - lse log2 e) where the key is
+    // visible (masked only on tiles that hold an invisible key)
+    const bool mask = key0 + tc::kKeys > min_lim;
+    int rel[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) rel[h] = lim[h] - key0 - 2 * (lane % 4);
+#pragma unroll
+    for (int kk = 0; kk < tc::kKeys / 16; ++kk) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int i = 8 * kk + 2 * j, h = j % 2, e = 8 * (i / 4);
+        float p0 = prob(sc[i], cexp, lse2[h]);
+        float p1 = prob(sc[i + 1], cexp, lse2[h]);
+        if (mask) {
+          p0 = e < rel[h] ? p0 : 0.f;
+          p1 = e + 1 < rel[h] ? p1 : 0.f;
+        }
+        split_bf16(p0 * (dp[i] - del[h]), p1 * (dp[i + 1] - del[h]), ds_hi[kk][j], ds_lo[kk][j]);
+      }
+    }
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < tc::kKeys / 16; ++kk) {
+      tc::wgmma_rs(dqv, ds_hi[kk], tc::desc_mn<128>(k_t, kk, S::kWideBox));
+    }
+#pragma unroll
+    for (int kk = 0; kk < tc::kKeys / 16; ++kk) {
+      tc::wgmma_rs(dqv, ds_lo[kk], tc::desc_mn<128>(k_t, kk, S::kWideBox));
+    }
+    tc::wgmma_commit();
+    tc::wgmma_wait<0>();
+    tc::fence_regs(dqv);
+    if (lane == 0) tc::mbar_arrive(r_empty + 8 * sk);  // and with K_t
+  }
+  if (lane == 0) tc::mbar_arrive(op_empty);  // and with Q and dO
+
+  // dQ = D^-1/2 dS K, rounded once to bf16; rows past the item's tile and
+  // past Sq * G unstored
+  const int row_end = min(row0 + w.q_rows, rows);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int f = wg_row0 + r + 8 * h;
+    if (f >= row_end) continue;
+    const int qi = f / p.g, head = it.hk * p.g + f % p.g;
+    __nv_bfloat16* qrow = dq + it.b * p.dqs[0] + qi * p.dqs[1] + head * p.dqs[2] + 2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(qrow + 8 * j) = __floats2bfloat162_rn(
+          dqv[4 * j + 2 * h] * p.scale, dqv[4 * j + 2 * h + 1] * p.scale);
+    }
+  }
+}
+
+// tmq / tmdo: q and dout as row tiles of 64 folded rows (dK/dV's stream),
+// tmqw / tmdow of 128 (a dQ item's operands); tmkw / tmvw: k and v as tiles
+// of 128 keys (a dK/dV item's operands, both its key tiles, and dQ's
+// stream).
+template <bool kCausal>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_d128(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ CUtensorMap tmdo,
+               const __grid_constant__ CUtensorMap tmqw, const __grid_constant__ CUtensorMap tmdow,
+               const __grid_constant__ CUtensorMap tmkw, const __grid_constant__ CUtensorMap tmvw,
+               __nv_bfloat16* __restrict__ dq, __nv_bfloat16* __restrict__ dk,
+               __nv_bfloat16* __restrict__ dv, const bwd::Params p, const BwdWork w) {
+  using S = D128Bwd;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = tc::smem_addr(smem_raw);
+  const uint32_t base = (raw + tc::kAlign - 1) & ~static_cast<uint32_t>(tc::kAlign - 1);
+  const uint32_t op_s = base;                              // two operand slots
+  const uint32_t ring = op_s + 2 * S::kOp;                 // kStages ring stages
+  const uint32_t st_s = ring + S::kStages * S::kStage;     // a row tile's statistics a stage
+  const uint32_t op_full = st_s + S::kStages * S::kStats;  // the barriers
+  const uint32_t op_empty = op_full + 16;
+  const uint32_t r_full = op_empty + 16, r_empty = r_full + 8 * S::kStages;
+  const uint32_t slots_s = r_empty + 8 * S::kStages;  // the item in each operand slot
+  volatile int* slots = reinterpret_cast<volatile int*>(smem_raw + (slots_s - raw));
+  const float* stats = reinterpret_cast<const float*>(smem_raw + (st_s - raw));
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2; ++s) {
+      tc::mbar_init(op_full + 8 * s, 1);   // the producer's arrival, plus the bytes
+      tc::mbar_init(op_empty + 8 * s, 8);  // one arrival per consumer warp
+    }
+    for (int s = 0; s < S::kStages; ++s) {
+      tc::mbar_init(r_full + 8 * s, 1);
+      tc::mbar_init(r_empty + 8 * s, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (p.tile_rows < kRows) {
+    // rows tile_rows .. kRows - 1 of every box of 64 rows of the ring (a
+    // stage's Q boxes, then its dO boxes): TMA never writes them for a row
+    // tile, so zeros once make them add nothing to dV and dK
+    constexpr int kChunks = S::T::kSwizzle / 16;  // of 16 bytes in a row
+    const int tail = (kRows - p.tile_rows) * kChunks;
+    uint4* tiles = reinterpret_cast<uint4*>(smem_raw + (ring - raw));
+    for (int idx = threadIdx.x; idx < S::kStages * 4 * tail; idx += kThreads) {
+      tiles[idx / tail * (S::kRowBox / 16) + p.tile_rows * kChunks + idx % tail] =
+          make_uint4(0, 0, 0, 0);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // -- producer: per item its operands, then its row tiles or key tiles -------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      for (const CUtensorMap* map : {&tmq, &tmdo, &tmqw, &tmdow, &tmkw, &tmvw}) {
+        asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map))
+                     : "memory");
+      }
+      const long long plane = static_cast<long long>(p.batch) * p.hkv * p.rows_pad;
+      int ru = 0;  // ring tiles loaded before this item
+      // ring tile number ru: wait for its stage, then count `bytes` on its bar
+      auto next_stage = [&](uint32_t bytes) {
+        const int s = ru % S::kStages;
+        tc::mbar_wait(r_empty + 8 * s, ((ru / S::kStages) & 1) ^ 1);  // stage released
+        tc::mbar_expect_tx(r_full + 8 * s, bytes);
+        ++ru;
+        return s;
+      };
+      for (int ic = 0;; ++ic) {
+        const int slot = ic & 1;
+        const uint32_t full = op_full + 8 * slot;
+        tc::mbar_wait(op_empty + 8 * slot, ((ic >> 1) & 1) ^ 1);  // its last item is done
+        const int item = atomicAdd(w.next, 1);
+        if (item >= w.n_items) {  // none left: the consumers stop at -1
+          slots[slot] = -1;
+          tc::mbar_arrive(full);
+          break;
+        }
+        slots[slot] = item;  // published by the arrival below
+        const BwdItem it = bwd_item(p, w, item);
+        const uint32_t op = op_s + slot * S::kOp;
+        if (it.dkdv) {
+          // K and V of keys 128j .. 128j + 127: both consumers' key tiles
+          // (zeros past Skv)
+          const int key0 = 2 * it.idx * kKeys;
+          tc::mbar_expect_tx(full, S::kOp);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            tc::tma_load(op + i * S::kWideBox, &tmkw, full, 64 * i, it.hk, key0, it.b);
+            tc::tma_load(op + (2 + i) * S::kWideBox, &tmvw, full, 64 * i, it.hk, key0, it.b);
+          }
+          const float* stat = p.delta + static_cast<long long>(it.b * p.hkv + it.hk) * p.rows_pad;
+          for (int t = pair_first_tile<kCausal>(p, w, it.idx); t < w.n_rt; ++t) {
+            const int s = next_stage(4 * p.tile_rows * S::T::kSwizzle + S::kStats);
+            const uint32_t bar = r_full + 8 * s, stage = ring + s * S::kStage;
+            const int i0 = t * (p.tile_rows / p.g);
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              tma_load_rows(stage + i * S::kRowBox, &tmq, bar, 64 * i, it.hk, i0, it.b);
+              tma_load_rows(stage + (2 + i) * S::kRowBox, &tmdo, bar, 64 * i, it.hk, i0, it.b);
+            }
+            bulk_load(st_s + s * S::kStats, stat + t * kRows, kRows * 4, bar);
+            bulk_load(st_s + s * S::kStats + kRows * 4, stat + plane + t * kRows, kRows * 4, bar);
+          }
+        } else {
+          const int i0 = it.idx * (w.q_rows / p.g);
+          tc::mbar_expect_tx(full, 4 * w.q_rows * S::T::kSwizzle);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            tma_load_rows(op + i * S::kWideBox, &tmqw, full, 64 * i, it.hk, i0, it.b);
+            tma_load_rows(op + (2 + i) * S::kWideBox, &tmdow, full, 64 * i, it.hk, i0, it.b);
+          }
+          const int n = dq_key_tiles<kCausal>(p, w, it.idx);
+          for (int t = 0; t < n; ++t) {
+            for (const CUtensorMap* map : {&tmvw, &tmkw}) {  // V_t, then K_t
+              const int s = next_stage(S::kStage);
+#pragma unroll
+              for (int i = 0; i < 2; ++i) {
+                tc::tma_load(ring + s * S::kStage + i * S::kWideBox, map, r_full + 8 * s, 64 * i,
+                             it.hk, t * tc::kKeys, it.b);
+              }
+            }
+          }
+        }
+      }
+    }
+  } else {
+    // -- consumer c: keys of tile 2j + c of a dK/dV item, rows 64c ..
+    // 64c + 63 of a dQ item ---------------------------------------------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int c = threadIdx.x / 128 - 1, tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    int ru = 0;  // ring tiles taken before this item
+    for (int ic = 0;; ++ic) {
+      const int slot = ic & 1;
+      tc::mbar_wait(op_full + 8 * slot, (ic >> 1) & 1);
+      const int item = slots[slot];
+      if (item < 0) break;
+      const BwdItem it = bwd_item(p, w, item);
+      const uint32_t op = op_s + slot * S::kOp;
+      if (it.dkdv) {
+        d128_dkdv<kCausal>(p, w, it, op, op_empty + 8 * slot, ring, r_full, r_empty, stats, ru, c,
+                           warp, lane, dk, dv);
+        ru += w.n_rt - pair_first_tile<kCausal>(p, w, it.idx);
+      } else {
+        d128_dq<kCausal>(p, w, it, op, op_empty + 8 * slot, ring, r_full, r_empty, ru, c, warp,
+                         lane, dq);
+        ru += 2 * dq_key_tiles<kCausal>(p, w, it.idx);
       }
     }
   }
@@ -3480,11 +3957,11 @@ Body body_d(int dtype, bool causal) {
                      : reinterpret_cast<const void*>(&tc::flash_mla_fwd<false>),
               tc::kThreads, tc::MlaFwd::kSmem, tc::kRows, tc::kKeys, tc::MlaFwd::kStages,
               tc::MlaFwd::K::kSwizzle};
-    } else if constexpr (D == 64) {  // the persistent flash_d64_fwd
-      return {causal ? reinterpret_cast<const void*>(&tc::flash_d64_fwd<true>)
-                     : reinterpret_cast<const void*>(&tc::flash_d64_fwd<false>),
-              tc::kThreads, tc::D64Fwd::kSmem, tc::kRows, tc::kKeys, tc::D64Fwd::kStages,
-              tc::D64Fwd::T::kSwizzle};
+    } else if constexpr (D == 64 || D == 128) {  // the persistent flash_group_fwd
+      using G = tc::GroupFwd<D>;
+      return {causal ? reinterpret_cast<const void*>(&tc::flash_group_fwd<D, true>)
+                     : reinterpret_cast<const void*>(&tc::flash_group_fwd<D, false>),
+              tc::kThreads, G::kSmem, tc::kRows, tc::kKeys, G::kStages, G::T::kSwizzle};
     } else {
       return {pick_tc<D, Dv>(causal), tc::kThreads, tc::Fwd<D, Dv>::kSmem, tc::kRows, tc::kKeys,
               tc::Fwd<D, Dv>::kStages, tc::Tile<D>::kSwizzle};
@@ -3581,7 +4058,7 @@ cudaError_t kv_map(CUtensorMap* map, const void* base, int d, int hkv, int skv, 
 // head)), cut into boxes of (swizzle / 2, G, 1, rows / G, 1): G * (rows / G)
 // folded rows of one kv head (query f / G, head f % G of its group) under
 // that swizzle.  G <= rows: the backward's tiles of tcb::kRows (64) rows,
-// flash_d64_fwd's of tc::kRows (128).
+// flash_group_fwd's of tc::kRows (128).
 cudaError_t row_map(CUtensorMap* map, const void* base, int d, int g, int hkv, int sq, int batch,
                     const long long* strides, int swizzle, int rows) {
   const EncodeTiled encode = encode_tiled();
@@ -3618,8 +4095,8 @@ int seen_key_tiles(int f0, int f1, int g, int sq, int skv, int q_offset, bool ca
   return key_tiles < seen_tiles ? key_tiles : seen_tiles;
 }
 
-// A persistent kernel's chunk of heads (flash_mla_fwd, flash_d64_fwd,
-// tcb::flash_bwd_d64): its work list holds n_bh heads (batch * kv heads) of
+// A persistent kernel's chunk of heads (flash_mla_fwd, flash_group_fwd,
+// tcb::flash_bwd_d64 and flash_bwd_d128): its work list holds n_bh heads (batch * kv heads) of
 // the same n_per items, cost[i] the weight of a head's i-th item (a head
 // lists them heaviest first), in chunks of `chunk` heads whose items run
 // rank by rank, heads fastest.  The chunk is the one of kChunks (at most the
@@ -3746,48 +4223,49 @@ cudaError_t launch_mla_fwd(const void* qn, const void* qr, const void* kn, const
   return cudaGetLastError();
 }
 
-// bf16 at D = Dv = 64, any G <= 128: flash_d64_fwd over a work list of
-// (batch * kv head, tile of G * (128 / G) folded rows) items, q read by a
+// bf16 at D = Dv = 64 or 128, any G <= 128: flash_group_fwd over a work list
+// of (batch * kv head, tile of G * (128 / G) folded rows) items, q read by a
 // TMA map of whole query groups.
-cudaError_t launch_d64_fwd(const void* q, const void* k, const void* v, void* o, const Params& p,
-                           int batch, const long long* strides, bool causal,
-                           cudaStream_t stream) {
-  const Body body = body_d<64, 64>(kBF16, causal);
+template <int D>
+cudaError_t launch_group_fwd(const void* q, const void* k, const void* v, void* o,
+                             const Params& p, int batch, const long long* strides, bool causal,
+                             cudaStream_t stream) {
+  const Body body = body_d<D, D>(kBF16, causal);
   if (p.g > tc::kRows || static_cast<long long>(p.sq) * p.g > 65535LL * tc::kRows) {
     return cudaErrorInvalidValue;  // whole query groups in a tile; rows as the other bodies'
   }
-  tc::D64Params dp;
-  dp.sq = p.sq;
-  dp.skv = p.skv;
-  dp.g = p.g;
-  dp.hkv = p.hkv;
-  dp.q_offset = p.q_offset;
-  dp.tile_rows = p.g * (tc::kRows / p.g);
-  dp.scale = p.scale;
-  for (int i = 0; i < 3; ++i) dp.os[i] = p.os[i];
-  dp.lse = p.lse;
-  dp.n_rt = (p.sq * p.g + dp.tile_rows - 1) / dp.tile_rows;
-  dp.n_bh = batch * p.hkv;
-  if (static_cast<long long>(dp.n_bh) * dp.n_rt > (1LL << 30)) return cudaErrorInvalidValue;
-  dp.n_items = dp.n_bh * dp.n_rt;
+  tc::GroupParams gp;
+  gp.sq = p.sq;
+  gp.skv = p.skv;
+  gp.g = p.g;
+  gp.hkv = p.hkv;
+  gp.q_offset = p.q_offset;
+  gp.tile_rows = p.g * (tc::kRows / p.g);
+  gp.scale = p.scale;
+  for (int i = 0; i < 3; ++i) gp.os[i] = p.os[i];
+  gp.lse = p.lse;
+  gp.n_rt = (p.sq * p.g + gp.tile_rows - 1) / gp.tile_rows;
+  gp.n_bh = batch * p.hkv;
+  if (static_cast<long long>(gp.n_bh) * gp.n_rt > (1LL << 30)) return cudaErrorInvalidValue;
+  gp.n_items = gp.n_bh * gp.n_rt;
   int dev = 0, n_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  const int grid = n_sm < dp.n_items ? n_sm : dp.n_items;
-  dp.chunk = fwd_chunk(dp.n_bh, dp.n_rt, dp.tile_rows, p.g, p.sq, p.skv, p.q_offset, causal,
-                        grid);
+  const int grid = n_sm < gp.n_items ? n_sm : gp.n_items;
+  gp.chunk = fwd_chunk(gp.n_bh, gp.n_rt, gp.tile_rows, p.g, p.sq, p.skv, p.q_offset, causal,
+                       grid);
   CUtensorMap tmq, tmk, tmv;
-  err = row_map(&tmq, q, 64, p.g, p.hkv, p.sq, batch, strides, body.swizzle, tc::kRows);
+  err = row_map(&tmq, q, D, p.g, p.hkv, p.sq, batch, strides, body.swizzle, tc::kRows);
   if (err == cudaSuccess) {
-    err = kv_map(&tmk, k, 64, p.hkv, p.skv, batch, strides + 3, body.swizzle, body.keys);
+    err = kv_map(&tmk, k, D, p.hkv, p.skv, batch, strides + 3, body.swizzle, body.keys);
   }
   if (err == cudaSuccess) {
-    err = kv_map(&tmv, v, 64, p.hkv, p.skv, batch, strides + 6, body.swizzle, body.keys);
+    err = kv_map(&tmv, v, D, p.hkv, p.skv, batch, strides + 6, body.swizzle, body.keys);
   }
   if (err == cudaSuccess) err = prepare(body.fn, body.smem);
   if (err != cudaSuccess) return err;
-  void* args[] = {&tmq, &tmk, &tmv, &o, &dp};
+  void* args[] = {&tmq, &tmk, &tmv, &o, &gp};
   err = cudaLaunchKernel(body.fn, dim3(static_cast<unsigned>(grid)), dim3(body.threads), args,
                          body.smem, stream);
   if (err != cudaSuccess) return err;
@@ -3803,16 +4281,16 @@ struct BwdKernel {
 
 // The backward of one (dtype, d, dv, causal): the delta pass, the dK/dV and
 // dQ kernels, their threads per block, whether it is the tensor-core body
-// (folded statistics planes, paired key tiles, TMA maps), and whether one
-// persistent kernel (dkdv and dq name it both) runs both after its own
-// delta pass (bf16 at D = Dv = 64: bwd::flash_bwd_delta_d64,
-// tcb::flash_bwd_d64).
+// (folded statistics planes, paired key tiles, TMA maps), and the head dim
+// of the persistent kernel (dkdv and dq name it both) that runs both after
+// its own delta pass (bf16 at D = Dv = 64 and 128: bwd::flash_bwd_delta_vec,
+// tcb::flash_bwd_d64 and tcb::flash_bwd_d128), else 0.
 struct BwdBody {
   const void* delta = nullptr;
   BwdKernel dkdv, dq;
   int threads = 0;
   bool tc = false;
-  bool d64 = false;
+  int persistent = 0;
 };
 
 template <int D, int Dv>
@@ -3846,10 +4324,18 @@ BwdBody bwd_body_tc(bool causal) {
     using S = tcb::D64Bwd;
     const void* fn = causal ? reinterpret_cast<const void*>(&tcb::flash_bwd_d64<true>)
                             : reinterpret_cast<const void*>(&tcb::flash_bwd_d64<false>);
-    body.delta = reinterpret_cast<const void*>(&bwd::flash_bwd_delta_d64);
+    body.delta = reinterpret_cast<const void*>(&bwd::flash_bwd_delta_vec<64>);
     body.dkdv = {fn, S::kSmem, tcb::kRows, tcb::kKeys, S::kKvStages};
     body.dq = {fn, S::kSmem, tcb::kDqRows, tc::kKeys, S::kQStages};
-    body.d64 = true;
+    body.persistent = 64;
+  } else if constexpr (D == 128) {  // the same, on one ring for both kinds of item
+    using S = tcb::D128Bwd;
+    const void* fn = causal ? reinterpret_cast<const void*>(&tcb::flash_bwd_d128<true>)
+                            : reinterpret_cast<const void*>(&tcb::flash_bwd_d128<false>);
+    body.delta = reinterpret_cast<const void*>(&bwd::flash_bwd_delta_vec<128>);
+    body.dkdv = {fn, S::kSmem, tcb::kRows, tcb::kKeys, S::kStages};
+    body.dq = {fn, S::kSmem, tcb::kDqRows, tc::kKeys, S::kStages};
+    body.persistent = 128;
   } else {
     body.delta = reinterpret_cast<const void*>(&bwd::flash_bwd_delta<__nv_bfloat16, Dv, true>);
     body.dkdv = {causal ? reinterpret_cast<const void*>(&tcb::flash_bwd_dkdv_tc<D, Dv, true>)
@@ -3930,7 +4416,11 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
                                            hq, hkv, split, causal != 0, q_offset, scale, st));
   }
   if (dtype == kBF16 && d == 64) {
-    return static_cast<int>(launch_d64_fwd(q, k, v, o, p, batch, strides, causal != 0, st));
+    return static_cast<int>(launch_group_fwd<64>(q, k, v, o, p, batch, strides, causal != 0, st));
+  }
+  if (dtype == kBF16 && d == 128) {
+    return static_cast<int>(launch_group_fwd<128>(q, k, v, o, p, batch, strides, causal != 0,
+                                                   st));
   }
   cudaError_t err = prepare(body.fn, body.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -4003,10 +4493,11 @@ extern "C" int flash_attention_attributes(int dtype, int d, int dv, int causal, 
 
 // f32 words of the backward's `delta` scratch for one call: (batch, hq, sq)
 // for the f32 body, two folded planes of (batch * hkv, padded rows) for the
-// bf16 body and, after them, flash_bwd_d64's work counter (kCounterWords).
+// bf16 body and, after them, the persistent kernels' work counter
+// (kCounterWords).
 extern "C" long long flash_attention_bwd_scratch(int dtype, int batch, int sq, int hq, int hkv) {
   if (batch <= 0 || sq <= 0 || hkv <= 0 || hq % hkv != 0) return 0;
-  if (dtype == kBF16) {  // the planes, then flash_bwd_d64's work counter
+  if (dtype == kBF16) {  // the planes, then the persistent kernels' work counter
     return 2LL * batch * hkv * tcb::plane_slots(static_cast<long long>(sq) * (hq / hkv), hq / hkv) +
            tcb::kCounterWords;
   }
@@ -4029,11 +4520,12 @@ struct BwdArgs {
   float scale;
 };
 
-// flash_bwd_d64's work list at one shape on n_sm SMs: all of *w but the
-// counter, and the grid (one block per SM, at most one per item).
-cudaError_t d64_bwd_plan(const bwd::Params& p, bool causal, int n_sm, tcb::D64BwdParams* out,
-                         int* grid_out) {
-  tcb::D64BwdParams w;
+// The persistent backward's work list (flash_bwd_d64's and flash_bwd_d128's:
+// the same items) at one shape on n_sm SMs: all of *w but the counter, and
+// the grid (one block per SM, at most one per item).
+cudaError_t persistent_bwd_plan(const bwd::Params& p, bool causal, int n_sm, tcb::BwdWork* out,
+                                int* grid_out) {
+  tcb::BwdWork w;
   const int rows = p.sq * p.g;
   w.n_kt = (p.skv + tcb::kKeys - 1) / tcb::kKeys;
   w.n_rt = (rows + p.tile_rows - 1) / p.tile_rows;
@@ -4081,42 +4573,45 @@ cudaError_t d64_bwd_plan(const bwd::Params& p, bool causal, int n_sm, tcb::D64Bw
   return cudaSuccess;
 }
 
-// bf16 at D = Dv = 64: the delta pass (bwd::flash_bwd_delta_d64, which also
-// zeroes the work counter), then tcb::flash_bwd_d64 over the heads' dK/dV
-// and dQ items (d64_bwd_plan).  The counter is the scratch's last
-// kCounterWords words.
-cudaError_t launch_d64_bwd(const BwdArgs& a, const bwd::Params& p, const BwdBody& body,
-                           cudaStream_t st) {
+// bf16 at D = Dv = 64 or 128: the delta pass (bwd::flash_bwd_delta_vec,
+// which also zeroes the work counter), then tcb::flash_bwd_d64 or
+// tcb::flash_bwd_d128 over the heads' dK/dV and dQ items (persistent_bwd_plan).
+// The counter is the scratch's last kCounterWords words.
+template <int D>
+cudaError_t launch_persistent_bwd(const BwdArgs& a, const bwd::Params& p, const BwdBody& body,
+                                  cudaStream_t st) {
   int dev = 0, n_sm = 0, grid = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-  tcb::D64BwdParams w;
-  if (err == cudaSuccess) err = d64_bwd_plan(p, a.causal, n_sm, &w, &grid);
+  tcb::BwdWork w;
+  if (err == cudaSuccess) err = persistent_bwd_plan(p, a.causal, n_sm, &w, &grid);
   if (err != cudaSuccess) return err;
   w.next = reinterpret_cast<int*>(p.delta + 2LL * a.batch * a.hkv * p.rows_pad);
-  const int sw = tc::Tile<64>::kSwizzle;
+  const int sw = tc::Tile<D>::kSwizzle;
+  // q and dout as row tiles of 64 and 128 folded rows, k and v as tiles of
+  // 64 keys (D=64: a dK/dV item's operands) and of 128
   CUtensorMap tmq, tmdo, tmqw, tmdow, tmk, tmv, tmkw, tmvw;
-  err = row_map(&tmq, a.q, 64, p.g, a.hkv, a.sq, a.batch, a.strides, sw, tcb::kRows);
+  err = row_map(&tmq, a.q, D, p.g, a.hkv, a.sq, a.batch, a.strides, sw, tcb::kRows);
   if (err == cudaSuccess) {
-    err = row_map(&tmdo, a.dout, 64, p.g, a.hkv, a.sq, a.batch, a.strides + 12, sw, tcb::kRows);
+    err = row_map(&tmdo, a.dout, D, p.g, a.hkv, a.sq, a.batch, a.strides + 12, sw, tcb::kRows);
   }
   if (err == cudaSuccess) {
-    err = row_map(&tmqw, a.q, 64, p.g, a.hkv, a.sq, a.batch, a.strides, sw, tc::kRows);
+    err = row_map(&tmqw, a.q, D, p.g, a.hkv, a.sq, a.batch, a.strides, sw, tc::kRows);
   }
   if (err == cudaSuccess) {
-    err = row_map(&tmdow, a.dout, 64, p.g, a.hkv, a.sq, a.batch, a.strides + 12, sw, tc::kRows);
+    err = row_map(&tmdow, a.dout, D, p.g, a.hkv, a.sq, a.batch, a.strides + 12, sw, tc::kRows);
+  }
+  if (err == cudaSuccess && D == 64) {
+    err = kv_map(&tmk, a.k, D, a.hkv, a.skv, a.batch, a.strides + 3, sw, tcb::kKeys);
+  }
+  if (err == cudaSuccess && D == 64) {
+    err = kv_map(&tmv, a.v, D, a.hkv, a.skv, a.batch, a.strides + 6, sw, tcb::kKeys);
   }
   if (err == cudaSuccess) {
-    err = kv_map(&tmk, a.k, 64, a.hkv, a.skv, a.batch, a.strides + 3, sw, tcb::kKeys);
+    err = kv_map(&tmkw, a.k, D, a.hkv, a.skv, a.batch, a.strides + 3, sw, tc::kKeys);
   }
   if (err == cudaSuccess) {
-    err = kv_map(&tmv, a.v, 64, a.hkv, a.skv, a.batch, a.strides + 6, sw, tcb::kKeys);
-  }
-  if (err == cudaSuccess) {
-    err = kv_map(&tmkw, a.k, 64, a.hkv, a.skv, a.batch, a.strides + 3, sw, tc::kKeys);
-  }
-  if (err == cudaSuccess) {
-    err = kv_map(&tmvw, a.v, 64, a.hkv, a.skv, a.batch, a.strides + 6, sw, tc::kKeys);
+    err = kv_map(&tmvw, a.v, D, a.hkv, a.skv, a.batch, a.strides + 6, sw, tc::kKeys);
   }
   if (err != cudaSuccess) return err;
   const long long n_rows = static_cast<long long>(a.batch) * a.hkv * p.rows_pad;
@@ -4124,14 +4619,17 @@ cudaError_t launch_d64_bwd(const BwdArgs& a, const bwd::Params& p, const BwdBody
                         const_cast<bwd::Params*>(&p), &w.next};
   err = cudaLaunchKernel(
       body.delta,
-      dim3(static_cast<unsigned>((n_rows + bwd::kD64DeltaRows - 1) / bwd::kD64DeltaRows)),
+      dim3(static_cast<unsigned>((n_rows + bwd::kVecDeltaRows - 1) / bwd::kVecDeltaRows)),
       dim3(bwd::kThreads), delta_args, 0, st);
   if (err != cudaSuccess) return err;
-  void* args[] = {&tmq, &tmdo, &tmqw, &tmdow, &tmk, &tmv, &tmkw, &tmvw,
-                  const_cast<void**>(&a.dq), const_cast<void**>(&a.dk),
-                  const_cast<void**>(&a.dv), const_cast<bwd::Params*>(&p), &w};
+  void* args64[] = {&tmq, &tmdo, &tmqw, &tmdow, &tmk, &tmv, &tmkw, &tmvw,
+                    const_cast<void**>(&a.dq), const_cast<void**>(&a.dk),
+                    const_cast<void**>(&a.dv), const_cast<bwd::Params*>(&p), &w};
+  void* args128[] = {&tmq, &tmdo, &tmqw, &tmdow, &tmkw, &tmvw,
+                     const_cast<void**>(&a.dq), const_cast<void**>(&a.dk),
+                     const_cast<void**>(&a.dv), const_cast<bwd::Params*>(&p), &w};
   err = cudaLaunchKernel(body.dkdv.fn, dim3(static_cast<unsigned>(grid)), dim3(body.threads),
-                         args, body.dkdv.smem, st);
+                         D == 64 ? args64 : args128, body.dkdv.smem, st);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -4168,7 +4666,8 @@ cudaError_t launch_bwd(const BwdArgs& a, int dtype, cudaStream_t st) {
   cudaError_t err = prepare(body.dkdv.fn, body.dkdv.smem);
   if (err == cudaSuccess) err = prepare(body.dq.fn, body.dq.smem);
   if (err != cudaSuccess) return err;
-  if (body.d64) return launch_d64_bwd(a, p, body, st);
+  if (body.persistent == 64) return launch_persistent_bwd<64>(a, p, body, st);
+  if (body.persistent == 128) return launch_persistent_bwd<128>(a, p, body, st);
   const long long n_rows = body.tc ? static_cast<long long>(a.batch) * a.hkv * p.rows_pad
                                    : static_cast<long long>(a.batch) * a.sq * a.hq;
   void* delta_args[] = {const_cast<void**>(&a.o), const_cast<void**>(&a.dout), &p};
@@ -4265,8 +4764,8 @@ cudaError_t launch_bwd(const BwdArgs& a, int dtype, cudaStream_t st) {
 // strides of (batch, seq, head) for q, k, v, o, dout, dq, dk and dv in that
 // order (the last dim contiguous; bf16: q, k, v and dout in multiples of 8
 // from 16-byte aligned bases, as cp.async and TMA read them).  Three
-// launches: delta, then dK/dV and dQ (bf16 at D = Dv = 64 two: delta, then
-// flash_bwd_d64 over both).  Returns the first failing launch's
+// launches: delta, then dK/dV and dQ (bf16 at D = Dv = 64 and 128 two:
+// delta, then flash_bwd_d64 or flash_bwd_d128 over both).  Returns the first failing launch's
 // cudaError_t (0 = all queued).  bf16 at (192, 128) takes G = 1 and reads q
 // and k as nope and rope views (flash_attention_mla_bwd).
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
@@ -4309,8 +4808,8 @@ extern "C" int flash_attention_mla_bwd(const void* q_nope, const void* q_rope,
 // The backward's budget: out = {numRegs, dynamic shared bytes, local
 // (spill) bytes, threads per block, resident blocks/SM, folded rows per
 // tile, keys per tile, tiles in flight} of the dK/dV kernel (which = 0) or
-// the dQ kernel (which = 1) at (d, dv); bf16 at (64, 64) both are
-// flash_bwd_d64, with each role's tiling.
+// the dQ kernel (which = 1) at (d, dv); bf16 at (64, 64) and (128, 128)
+// both are the persistent kernel, with each role's tiling.
 extern "C" int flash_attention_bwd_attributes(int dtype, int d, int dv, int causal, int which,
                                               int* out) {
   const BwdBody body = pick_bwd(dtype, d, dv, causal != 0);
@@ -4335,16 +4834,16 @@ extern "C" int flash_attention_bwd_attributes(int dtype, int d, int dv, int caus
   return 0;
 }
 
-// Every csrc library exports this name; the wrappers raise with it.
-// flash_bwd_d64's work list at one shape on n_sm SMs, as the host plans it
+// The persistent backward's work list (flash_bwd_d64 and flash_bwd_d128) at
+// one shape on n_sm SMs, as the host plans it
 // and its blocks decode it: plan[3] = {q_first, chunk, items}; items (if
 // not null, room for max_items) holds 4 ints an item in the order the
 // blocks claim them: dK/dV (1) or dQ (0), batch, kv head, and the pair j
 // (key tiles 2j and 2j + 1) or the row tile.  cudaErrorInvalidValue for a
 // shape the kernel does not take or past max_items.
-extern "C" int flash_attention_bwd_d64_plan(int batch, int sq, int skv, int hq, int hkv,
-                                            int causal, int q_offset, int n_sm, int* plan,
-                                            int* items, int max_items) {
+extern "C" int flash_attention_bwd_plan(int batch, int sq, int skv, int hq, int hkv, int causal,
+                                        int q_offset, int n_sm, int* plan, int* items,
+                                        int max_items) {
   if (batch <= 0 || sq <= 0 || skv <= 0 || hkv <= 0 || hq % hkv != 0 ||
       hq / hkv > tcb::kRows || q_offset < 0 || n_sm <= 0) {
     return cudaErrorInvalidValue;
@@ -4357,9 +4856,9 @@ extern "C" int flash_attention_bwd_d64_plan(int batch, int sq, int skv, int hq, 
   p.hkv = hkv;
   p.q_offset = q_offset;
   p.tile_rows = tcb::tile_rows(p.g);
-  tcb::D64BwdParams w;
+  tcb::BwdWork w;
   int grid = 0;
-  const cudaError_t err = d64_bwd_plan(p, causal != 0, n_sm, &w, &grid);
+  const cudaError_t err = persistent_bwd_plan(p, causal != 0, n_sm, &w, &grid);
   if (err != cudaSuccess) return err;
   plan[0] = w.q_first;
   plan[1] = w.chunk;
@@ -4367,7 +4866,7 @@ extern "C" int flash_attention_bwd_d64_plan(int batch, int sq, int skv, int hq, 
   if (items == nullptr) return cudaSuccess;
   if (w.n_items > max_items) return cudaErrorInvalidValue;
   for (int i = 0; i < w.n_items; ++i) {
-    const tcb::D64BwdItem it = tcb::d64_bwd_item(p, w, i);
+    const tcb::BwdItem it = tcb::bwd_item(p, w, i);
     items[4 * i] = it.dkdv;
     items[4 * i + 1] = it.b;
     items[4 * i + 2] = it.hk;
@@ -4376,6 +4875,7 @@ extern "C" int flash_attention_bwd_d64_plan(int batch, int sq, int skv, int hq, 
   return cudaSuccess;
 }
 
+// Every csrc library exports this name; the wrappers raise with it.
 extern "C" const char* su3_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -50,16 +50,18 @@ The kernel takes f32 or bf16, (D, Dv) in :data:`HEAD_DIMS` (Dv = D at 32,
 ragged edge is masked in the kernel) and ignores ``q_chunk`` / ``kv_chunk``,
 which shape the plain version's chunking only.  It has two bodies:
 
-  * bf16, on the tensor cores: blocks of 128 folded rows (two consumer
-    warpgroups of 64) against K/V tiles of 128 keys brought by TMA into a
-    ring of three stages.  At MLA's D = 192, Dv = 128 (G = 1 only) one
+  * bf16, on the tensor cores: tiles of 128 folded rows (two consumer
+    warpgroups of 64) against K/V tiles of 128 keys brought by TMA.  At D =
+    Dv = 64 and 128 (G <= 128) one persistent block per SM walks (kv head,
+    tile of whole query groups: G * (128 // G) folded rows) items with three
+    K and three V stages and two (D=64) or one (D=128) Q stages
+    (``flash_group_fwd``).  At MLA's D = 192, Dv = 128 (G = 1 only) one
     persistent block per SM walks a list of (head, row tile) items with a
     ring of two K and two V stages (``flash_mla_fwd``; see
     :func:`smem_bytes`), reading q and k as nope and rope parts
-    (:func:`flash_attention_split`).  At D = Dv = 64 (G <= 128) one
-    persistent block per SM walks (kv head, tile of whole query groups:
-    G * (128 // G) folded rows) items with two Q, three K and three V
-    stages (``flash_d64_fwd``).  q . k is summed in f32 from the bf16
+    (:func:`flash_attention_split`).  At D = 32 blocks of 128 folded rows
+    take K/V tiles through a ring of three stages (``flash_attention_tc``).
+    q . k is summed in f32 from the bf16
     operands and scaled in f32 inside the exponent; p is split into two
     bf16 parts, so P V runs twice.  TMA needs k and v strides in multiples
     of 8 elements (16 bytes).
@@ -75,11 +77,12 @@ through four stages by TMA; at (192, 128) a dK/dV kernel of one key tile a
 block whose two consumers split the products (dV on one, dK on the other,
 P^T handed between them), on q and k as nope and rope parts; a dQ kernel
 of blocks of 128 folded rows against K/V tiles of 128 keys by TMA (two
-stages; tiles of 64 keys at (192, 128)); at D = Dv = 64 both kinds of
-block are work items of one persistent kernel (``flash_bwd_d64``: one
-block per SM claims the items of every head, dK/dV pairs of key tiles 2j
-and 2j + 1 and dQ tiles of G * (128 // G) folded rows, from a counter;
-:func:`d64_bwd_plan`).  See :func:`bwd_smem_bytes`.  P and dS are each
+stages; tiles of 64 keys at (192, 128)); at D = Dv = 64 and 128 both
+kinds of block are work items of one persistent kernel (``flash_bwd_d64``,
+``flash_bwd_d128``: one block per SM claims the items of every head, dK/dV
+pairs of key tiles 2j and 2j + 1 and dQ tiles of G * (128 // G) folded
+rows, from a counter; :func:`persistent_bwd_plan`).  See
+:func:`bwd_smem_bytes`.  P and dS are each
 split into two bf16 parts before their products, as the forward splits p,
 so dV, dK and dQ run twice.  q, k, v and dout need 16-byte rows, as
 in the forward; a dout without them is copied.  f32, on the CUDA cores:
@@ -105,9 +108,12 @@ BLOCK_ROWS = 64  # f32 body: folded query rows per block
 BLOCK_KEYS = 64  # f32 body: keys per tile
 TC_ROWS = 128  # bf16 body: folded query rows per block (two warpgroups of 64)
 TC_KEYS = 128  # bf16 body: keys per K/V tile
-TC_STAGES = 3  # bf16 body: K/V tiles in flight where Dv = D
+TC_STAGES = 3  # bf16 body: K/V tiles in flight where Dv = D (flash_attention_tc, D=32)
 TC_STAGES_SPLIT = 2  # bf16 body at Dv != D (192, 128): K and V stages each
-TC_Q_STAGES_D64 = 2  # bf16 body at D = Dv = 64 (flash_d64_fwd): Q tiles, this item and the next
+# bf16 body at D = Dv = 64 and 128 (flash_group_fwd): K and V stages each, and
+# Q tiles by D (at 64 this item's and the next one's)
+TC_GROUP_STAGES = 3
+TC_GROUP_Q_STAGES = {64: 2, 128: 1}
 MAX_BATCH_HEADS = 65535  # B * Hkv rides on a grid dimension (gridDim.y in the f32 body)
 MAX_ROW_TILES = 65535  # bf16 body: row tiles ride on gridDim.y (held in the persistent ones too)
 
@@ -127,6 +133,10 @@ def _plain_chunks(q: torch.Tensor, k: torch.Tensor, q_chunk: int,
 
 LAUNCHES = LaunchCounter("flash_attention")
 BWD_LAUNCHES = LaunchCounter("flash_attention_bwd")  # one per backward call (2 or 3 kernels)
+# The same launches by the kernel that ran (:func:`kernel_name`): the forward
+# kernel's name, or the backward's last kernel's (its persistent one, or its
+# dQ kernel) for a backward call
+LAUNCHES_BY_KERNEL: dict[str, int] = {}
 # The backward's tiling per body, (folded rows per tile, keys per tile, tiles
 # in flight) of each kernel; bwd_budget raises if the built library reports
 # another.  bf16 dK/dV: rows of a streamed Q/dO tile, keys of one consumer
@@ -139,8 +149,11 @@ BWD_TILING = {
 # At D = Dv = 64 one persistent kernel (flash_bwd_d64) holds both roles, with
 # the same tiling: its dK/dV items stream row tiles of 64 through four
 # stages, its dQ items K/V tiles of 128 keys through two (an item of
-# G * (128 // G) folded rows, whole query groups).
-D64_BWD_SLOTS = 2  # flash_bwd_d64: operand slots (an item's, the next one's)
+# G * (128 // G) folded rows, whole query groups).  At D = Dv = 128
+# (flash_bwd_d128) both stream through one ring of three stages: a row tile
+# takes one, a dQ key tile two (its V, then its K).
+PERSISTENT_BWD_SLOTS = 2  # operand slots (an item's, the next one's)
+BWD_TILING_D128 = {"dkdv": (64, 64, 3), "dq": (128, 128, 3)}
 # The bf16 body at Dv != D, MLA's (192, 128): a dK/dV block of one key tile
 # whose two consumers split the products (flash_bwd_dkdv_mla), four row tiles
 # in flight; dQ on K/V tiles of 64 keys (128 would pass the 227 KB of a
@@ -323,23 +336,50 @@ def tiling(dtype: torch.dtype, d: int = 128, dv: int | None = None) -> tuple[int
     """``(rows, keys, stages)`` of the body that serves ``dtype`` at head
     dims (d, dv) (dv None: d): folded query rows per block (per work item
     of the persistent bodies), keys per K/V tile and K/V tiles in flight
-    (at D = Dv = 64: K tiles, and as many V tiles)."""
+    (at D = Dv = 64 and 128: K tiles, and as many V tiles)."""
+    dv = d if dv is None else dv
+    if _group_tc(dtype, d, dv):
+        return TC_ROWS, TC_KEYS, TC_GROUP_STAGES
     if dtype == torch.bfloat16:
-        return TC_ROWS, TC_KEYS, TC_STAGES if dv in (None, d) else TC_STAGES_SPLIT
+        return TC_ROWS, TC_KEYS, TC_STAGES if dv == d else TC_STAGES_SPLIT
     return BLOCK_ROWS, BLOCK_KEYS, 1
 
 
-def _d64_tc(dtype: torch.dtype, d: int, dv: int) -> bool:
-    """Whether ``flash_d64_fwd`` serves (dtype, d, dv)."""
-    return dtype == torch.bfloat16 and d == dv == 64
+def _group_tc(dtype: torch.dtype, d: int, dv: int) -> bool:
+    """Whether the persistent kernels over whole query groups serve (dtype,
+    d, dv): ``flash_group_fwd`` forward, ``flash_bwd_d64`` /
+    ``flash_bwd_d128`` backward."""
+    return dtype == torch.bfloat16 and d == dv and d in TC_GROUP_Q_STAGES
+
+
+def kernel_name(dtype: torch.dtype, d: int, dv: int | None = None, *,
+                backward: bool = False) -> str:
+    """The kernel a forward (or backward) call at (dtype, d, dv) runs, as
+    :data:`LAUNCHES_BY_KERNEL` counts it: ``flash_group_fwd<D>``,
+    ``flash_mla_fwd``, ``flash_attention_tc`` or ``flash_attention_kernel``
+    (f32); a backward by its last kernel, ``flash_bwd_d64``,
+    ``flash_bwd_d128``, ``flash_bwd_dq_mla``, ``flash_bwd_dq_tc`` or
+    ``flash_bwd_dq`` (f32)."""
+    dv = d if dv is None else dv
+    if dtype != torch.bfloat16:
+        return "flash_bwd_dq" if backward else "flash_attention_kernel"
+    if _group_tc(dtype, d, dv):
+        return f"flash_bwd_d{d}" if backward else f"flash_group_fwd<{d}>"
+    if d != dv:
+        return "flash_bwd_dq_mla" if backward else "flash_mla_fwd"
+    return "flash_bwd_dq_tc" if backward else "flash_attention_tc"
+
+
+def _count(name: str) -> None:
+    LAUNCHES_BY_KERNEL[name] = LAUNCHES_BY_KERNEL.get(name, 0) + 1
 
 
 def tile_rows(dtype: torch.dtype, d: int, g: int, dv: int | None = None) -> int:
     """Folded rows of a row tile (a block or a work item) of the body that
     serves ``dtype`` at head dims (d, dv) and G = ``g``: whole query groups,
-    G * (128 // G), at bf16 D = Dv = 64; else the body's rows."""
+    G * (128 // G), at bf16 D = Dv = 64 and 128; else the body's rows."""
     rows = tiling(dtype, d, dv)[0]
-    return rows // g * g if _d64_tc(dtype, d, d if dv is None else dv) else rows
+    return rows // g * g if _group_tc(dtype, d, d if dv is None else dv) else rows
 
 
 def smem_bytes(d: int, dtype: torch.dtype = torch.bfloat16, dv: int | None = None) -> int:
@@ -348,20 +388,22 @@ def smem_bytes(d: int, dtype: torch.dtype = torch.bfloat16, dv: int | None = Non
 
     bf16: the Q tile (d wide) and a K (d) and a V tile (dv) per stage in
     bf16, 1 KB to align them to their swizzle, and a full and an empty
-    barrier per stage: 230,448 bytes at (128, 128) with three stages.  At
+    barrier per stage: 58,416 bytes at (32, 32) with three stages.  At
     (192, 128) (``flash_mla_fwd``) three stages would take 289 KB, past the
     227 KB of a block: two K and two V stages, each with its own full and
-    empty barrier, and Q's pair (214,096).  At (64, 64) (``flash_d64_fwd``)
-    two Q stages and three K and three V stages, each with its own full and
-    empty barrier (132,224).  f32: q * scale and a K tile
+    empty barrier, and Q's pair (214,096).  At (64, 64) and (128, 128)
+    (``flash_group_fwd``) three K and three V stages and two Q stages (D=64:
+    132,224) or one (D=128: 230,512; two would take 263,296), each with its
+    own full and empty barrier.  f32: q * scale and a K tile
     (both transposed), a V tile and the probabilities, all f32: 144 KB at
     (192, 128).
     """
     dv = d if dv is None else dv
     rows, keys, stages = tiling(dtype, d, dv)
     if dtype == torch.bfloat16:
-        if _d64_tc(dtype, d, dv):
-            q_stages, barriers = TC_Q_STAGES_D64, 8 * (4 * stages + 2 * TC_Q_STAGES_D64)
+        if _group_tc(dtype, d, dv):
+            q_stages = TC_GROUP_Q_STAGES[d]
+            barriers = 8 * (4 * stages + 2 * q_stages)
         else:
             q_stages, barriers = 1, 16 * stages if d == dv else 8 * (4 * stages + 2)
         return 1024 + 2 * q_stages * d * rows + 2 * stages * keys * (d + dv) + barriers
@@ -377,7 +419,8 @@ def executed_flops(
     holds a key visible to its last row, and computes all its rows (at bf16
     D = 64 a tile of G * (128 // G) rows runs 128 wide).  Per (row, key) of
     a visited tile: 2D for QK^T and 2Dv for PV (dv None: D), which the bf16
-    body runs twice (p_hi and p_lo)."""
+    body runs twice (p_hi and p_lo).  (At bf16 D = 64 and 128 a tile of G *
+    (128 // G) rows runs 128 wide.)"""
     g = hq // hkv
     dv = d if dv is None else dv
     rows, keys, _ = tiling(dtype, d, dv)
@@ -426,8 +469,8 @@ def _library() -> ctypes.CDLL:
         lib.flash_attention_mla_bwd.restype = i32
         lib.flash_attention_bwd_scratch.argtypes = [i32, i32, i32, i32, i32]
         lib.flash_attention_bwd_scratch.restype = ctypes.c_longlong
-        lib.flash_attention_bwd_d64_plan.argtypes = [i32] * 8 + [ctypes.POINTER(i32)] * 2 + [i32]
-        lib.flash_attention_bwd_d64_plan.restype = i32
+        lib.flash_attention_bwd_plan.argtypes = [i32] * 8 + [ctypes.POINTER(i32)] * 2 + [i32]
+        lib.flash_attention_bwd_plan.restype = i32
         lib.su3_error_string.argtypes = [i32]
         lib.su3_error_string.restype = ctypes.c_char_p
         lib._repro_typed = True
@@ -478,8 +521,11 @@ def bwd_tiling(dtype: torch.dtype, d: int = 128,
     """``{"dkdv": (rows, keys, stages), "dq": (rows, keys, stages)}`` of the
     backward body that serves ``dtype`` at head dims (d, dv) (dv None: d;
     see :data:`BWD_TILING` and :data:`BWD_TILING_SPLIT`)."""
+    dv = d if dv is None else dv
+    if _group_tc(dtype, d, dv) and d == 128:
+        return BWD_TILING_D128
     if dtype == torch.bfloat16:
-        return BWD_TILING[torch.bfloat16] if dv in (None, d) else BWD_TILING_SPLIT
+        return BWD_TILING[torch.bfloat16] if dv == d else BWD_TILING_SPLIT
     return BWD_TILING[torch.float32]
 
 
@@ -497,7 +543,10 @@ def bwd_smem_bytes(d: int, dtype: torch.dtype = torch.bfloat16,
     given for each: two operand slots of 32 KB (a dK/dV item's K and V of
     two key tiles, or a dQ item's Q and dO of 128 rows), the dK/dV ring and
     the dQ ring, a full and an empty barrier for each slot and stage, and
-    16 bytes for the items the slots hold (199,824).
+    16 bytes for the items the slots hold (199,824).  At D = Dv = 128
+    (``flash_bwd_d128``) the operand slots take 64 KB each and both kinds of
+    item share one ring of three 32 KB stages (a Q and a dO row tile of 64
+    with their statistics, or a K or a V tile of 128 keys): 232,032.
     At (192, 128) the dK/dV block holds one key tile's K and V, four stages
     and the row tile's P^T in f32 that its consumers hand on (224,320; two
     key tiles with four stages would take 248,896 bytes, past the 232,448
@@ -507,12 +556,17 @@ def bwd_smem_bytes(d: int, dtype: torch.dtype = torch.bfloat16,
     or dS alone (dQ) in rows of 65, and the tile's lse and delta."""
     dv = d if dv is None else dv
     t = bwd_tiling(dtype, d, dv)
-    if _d64_tc(dtype, d, dv):
+    if _group_tc(dtype, d, dv):
         rows, keys, stages = t["dkdv"]
         q_rows, q_keys, q_stages = t["dq"]
         slot = 4 * d * max(2 * keys, q_rows)  # K and V of two key tiles, or Q and dO
-        both = (1024 + D64_BWD_SLOTS * slot + stages * (4 * d * rows + 8 * rows)
-                + q_stages * 4 * d * q_keys + 16 * (D64_BWD_SLOTS + stages + q_stages) + 16)
+        if d == 64:  # a row ring and a K/V ring
+            rings = stages * (4 * d * rows + 8 * rows) + q_stages * 4 * d * q_keys
+            barriers = 16 * (PERSISTENT_BWD_SLOTS + stages + q_stages)
+        else:  # one ring: a Q and a dO row tile with their statistics, or a K or a V tile
+            rings = stages * (max(4 * d * rows, 2 * d * q_keys) + 8 * rows)
+            barriers = 16 * (PERSISTENT_BWD_SLOTS + stages)
+        both = 1024 + PERSISTENT_BWD_SLOTS * slot + rings + barriers + 16
         return both, both
     if dtype == torch.bfloat16:
         rows, keys, stages = t["dkdv"]
@@ -561,8 +615,8 @@ def bwd_executed_flops(
             continue
         kv_visited += max(n_rt - first // tile, 0)
     key_tiles = -(-skv // q_keys)
-    # rows of a dQ block: whole query groups in flash_bwd_d64's items
-    q_tile = q_rows // g * g if _d64_tc(dtype, d, dv) else q_rows
+    # rows of a dQ block: whole query groups in the persistent kernels' items
+    q_tile = q_rows // g * g if _group_tc(dtype, d, dv) else q_rows
     q_visited = 0
     for row0 in range(0, rows, q_tile):
         n = key_tiles
@@ -606,24 +660,25 @@ def bwd_budget(dtype: torch.dtype = torch.bfloat16, d: int = 128,
     return found
 
 
-def d64_bwd_plan(batch: int, sq: int, skv: int, hq: int, hkv: int, *, causal: bool = True,
-                 q_offset: int = 0, n_sm: int | None = None,
-                 ) -> tuple[dict[str, int], list[tuple[str, int, int, int]]]:
-    """``flash_bwd_d64``'s work list at one shape, as the built library plans
-    it on ``n_sm`` SMs (None: the current CUDA device's) and its blocks
-    decode it: ``({"q_first", "chunk", "items"}, items)``, the items in the
-    order the blocks claim them, each ``("dkdv", batch, kv head, j)`` (key
-    tiles 2j and 2j + 1) or ``("dq", batch, kv head, i)`` (row tile i of G *
+def persistent_bwd_plan(batch: int, sq: int, skv: int, hq: int, hkv: int, *,
+                        causal: bool = True, q_offset: int = 0, n_sm: int | None = None,
+                        ) -> tuple[dict[str, int], list[tuple[str, int, int, int]]]:
+    """The persistent backward's work list at one shape (``flash_bwd_d64``'s
+    and ``flash_bwd_d128``'s: the same items), as the built library plans it
+    on ``n_sm`` SMs (None: the current CUDA device's) and its blocks decode
+    it: ``({"q_first", "chunk", "items"}, items)``, the items in the order
+    the blocks claim them, each ``("dkdv", batch, kv head, j)`` (key tiles 2j
+    and 2j + 1 of 64) or ``("dq", batch, kv head, i)`` (row tile i of G *
     (128 // G) folded rows)."""
     lib = _library()
     if n_sm is None:
         n_sm = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
     plan = (ctypes.c_int * 3)()
     args = (batch, sq, skv, hq, hkv, int(causal), q_offset, n_sm, plan)
-    _check_error(lib, lib.flash_attention_bwd_d64_plan(*args, None, 0), "d64_bwd_plan")
+    _check_error(lib, lib.flash_attention_bwd_plan(*args, None, 0), "persistent_bwd_plan")
     n = plan[2]
     items = (ctypes.c_int * (4 * n))()
-    _check_error(lib, lib.flash_attention_bwd_d64_plan(*args, items, n), "d64_bwd_plan")
+    _check_error(lib, lib.flash_attention_bwd_plan(*args, items, n), "persistent_bwd_plan")
     flat = list(items)
     return (dict(zip(("q_first", "chunk", "items"), plan)),
             [("dkdv" if flat[i] else "dq", *flat[i + 1:i + 4]) for i in range(0, 4 * n, 4)])
@@ -661,8 +716,8 @@ def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int
     if q.dtype == torch.bfloat16 and d != dv and hq != hkv:
         raise ValueError(f"{what}: the bf16 kernel at (D, Dv) = ({d}, {dv}) is MLA's, one kv "
                          f"head a query head (G = 1), got Hq = {hq}, Hkv = {hkv}")
-    if _d64_tc(q.dtype, d, dv) and hq // hkv > TC_ROWS:
-        raise ValueError(f"{what}: the bf16 kernel at D = 64 holds whole query groups of at "
+    if _group_tc(q.dtype, d, dv) and hq // hkv > TC_ROWS:
+        raise ValueError(f"{what}: the bf16 kernel at D = {d} holds whole query groups of at "
                          f"most {TC_ROWS} heads in a row tile, got G = {hq // hkv}")
     if q.dtype not in _DTYPES:
         raise ValueError(f"{what}: the kernel takes float32 or bfloat16, got {q.dtype}")
@@ -725,6 +780,7 @@ def _forward(
             _strides(q, k, v, out), int(causal), q_offset, d**-0.5, _DTYPES[q.dtype], stream)
     _check_error(lib, rc, "flash_attention launch")
     LAUNCHES.count += 1
+    _count(kernel_name(q.dtype, d, dv))
     return out, lse
 
 
@@ -746,7 +802,8 @@ def flash_attention_bwd(
     (B, Hq, Sq) f32.
 
     CUDA tensors go to the backward kernels (one call of three launches,
-    two in bf16 at D = Dv = 64, counted once in :data:`BWD_LAUNCHES`) or
+    two in bf16 at D = Dv = 64 and 128, counted once in :data:`BWD_LAUNCHES`
+    and under :func:`kernel_name` in :data:`LAUNCHES_BY_KERNEL`) or
     raise; CPU and ``meta`` tensors go to :func:`flash_attention_bwd_plain`
     with ``q_chunk`` / ``kv_chunk`` (on ``meta`` the whole sequences); any
     other device raises.
@@ -775,12 +832,13 @@ def flash_attention_bwd(
         raise ValueError(f"flash_attention_bwd: out and dout must be q's {q.dtype} and lse "
                          f"float32, got {out.dtype}, {dout.dtype}, {lse.dtype}")
     # out is read element by element (the delta pass): only its head dim must
-    # be contiguous, but for the bf16 delta passes at (192, 128) and D = 64,
-    # which read 16 bytes at a time.  dout too in the f32 body; the bf16 body
-    # reads its rows by TMA and cp.async, as q's, so a dout off 16 bytes is
-    # copied (it is the caller's gradient, whose strides no check can promise).
+    # be contiguous, but for the bf16 delta passes at (192, 128), D = 64 and
+    # D = 128, which read 16 bytes at a time.  dout too in the f32 body; the
+    # bf16 body reads its rows by TMA and cp.async, as q's, so a dout off 16
+    # bytes is copied (it is the caller's gradient, whose strides no check can
+    # promise).
     out = out if out.stride(-1) == 1 else out.contiguous()
-    if (q.dtype == torch.bfloat16 and (d != v.shape[-1] or d == 64)
+    if ((d != v.shape[-1] or _group_tc(q.dtype, d, d)) and q.dtype == torch.bfloat16
             and not _rows_aligned(out)):
         out = out.clone(memory_format=torch.contiguous_format)
     if dout.dtype == torch.bfloat16 and not _rows_aligned(dout):
@@ -805,6 +863,7 @@ def flash_attention_bwd(
             q_offset, d**-0.5, _DTYPES[q.dtype], stream)
     _check_error(lib, rc, "flash_attention_bwd launch")
     BWD_LAUNCHES.count += 1
+    _count(kernel_name(q.dtype, d, dv_dim, backward=True))
     return dq, dk, dv
 
 
@@ -950,6 +1009,7 @@ def _split_forward(
             (q_nope.shape[-1] + q_rope.shape[-1]) ** -0.5, stream)
     _check_error(lib, rc, "flash_attention_mla_fwd launch")
     LAUNCHES.count += 1
+    _count("flash_mla_fwd")
     return out, lse
 
 
@@ -1022,6 +1082,7 @@ def flash_attention_split_bwd(
             q_offset, (nope + rope) ** -0.5, stream)
     _check_error(lib, rc, "flash_attention_mla_bwd launch")
     BWD_LAUNCHES.count += 1
+    _count("flash_bwd_dq_mla")
     return (*_split_grads(dq, dk, rope, rope_heads), dv)
 
 

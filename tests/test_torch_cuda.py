@@ -454,8 +454,8 @@ def test_cuda_flash_attention_rejects_what_the_kernel_does_not_take(cuda_device)
 def test_cuda_flash_attention_shared_memory_budget(cuda_device, dtype, threads):
     """Each body's real budget at every (D, Dv) it is built for: within 227
     KB a block, no spills, one block per SM or more (the bf16 body holds
-    one: 230,448 bytes at D=128, Q and three stages of K and V, and three
-    warpgroups; 214,096 at MLA's (192, 128), two K and two V stages;
+    one: 230,512 bytes at D=128, one Q, three K and three V stages, and
+    three warpgroups; 214,096 at MLA's (192, 128), two K and two V stages;
     132,224 at D=64, two Q, three K and three V stages), and the tiling
     the Python side assumes (kernel_budget raises otherwise)."""
     for d, dv in fa.HEAD_DIMS:
@@ -611,7 +611,7 @@ D64_WORK_LISTS = [  # (batch, seq, hq, hkv): items of G * (128 // G) folded rows
 @pytest.mark.cuda
 @pytest.mark.parametrize("batch,seq,hq,hkv", D64_WORK_LISTS)
 def test_cuda_d64_forward_over_work_lists_of_any_length(cuda_device, batch, seq, hq, hkv):
-    """bf16 at D = 64 runs ``flash_d64_fwd``: one block per SM over a list of
+    """bf16 at D = 64 runs ``flash_group_fwd<64>``: one block per SM over a list of
     (kv head, tile of whole query groups) items, none of these lists a
     multiple of 132 (with one item, one block runs).  Causal and not, with
     a q_offset, each within kernel_tolerance of the plain version, the same
@@ -638,7 +638,7 @@ def test_cuda_d64_forward_over_work_lists_of_any_length(cuda_device, batch, seq,
 
 @pytest.mark.cuda
 def test_cuda_d64_forward_budget(cuda_device):
-    """``flash_d64_fwd``'s real budget, causal and not: 132,224 bytes of
+    """``flash_group_fwd<64>``'s real budget, causal and not: 132,224 bytes of
     shared memory (two Q, three K and three V stages), 384 threads, one
     block per SM, 168 registers at launch and no spill; and the tiling the
     Python side assumes (kernel_budget raises otherwise)."""
@@ -833,7 +833,8 @@ def test_cuda_flash_backward_reads_strided_out_and_dout(cuda_device):
     """bf16 out and dout that are views, as autograd may hand them over: out
     with its heads ahead of the sequence in memory, dout a slice of a wider
     tensor (16-byte rows, read in place) and a slice off 16 bytes (copied
-    by the wrapper).  The gradients are those of contiguous copies."""
+    by the wrapper); out off 16 bytes too (copied: the delta pass reads it
+    16 bytes at a time).  The gradients are those of contiguous copies."""
     shape = (2, 200, 200, 8, 2, 128, 128, True, 0)
     q, k, v, dout, out, lse = _bwd_inputs(shape, torch.bfloat16, cuda_device, seed=64)
     d = dout.shape[-1]
@@ -842,14 +843,18 @@ def test_cuda_flash_backward_reads_strided_out_and_dout(cuda_device):
     aligned[..., :d] = dout
     offset = torch.zeros((*dout.shape[:3], 2 * d), dtype=dout.dtype, device=cuda_device)
     offset[..., 1:d + 1] = dout
+    out_off = torch.zeros((*out.shape[:3], 2 * d), dtype=out.dtype, device=cuda_device)
+    out_off[..., 1:d + 1] = out
     assert not out_t.is_contiguous() and fa._rows_aligned(aligned[..., :d])
     assert not fa._rows_aligned(offset[..., 1:d + 1])
+    assert not fa._rows_aligned(out_off[..., 1:d + 1])
     want = fa.flash_attention_bwd(q, k, v, out, dout, lse)
     in_place = fa.flash_attention_bwd(q, k, v, out_t, aligned[..., :d], lse)
     copied = fa.flash_attention_bwd(q, k, v, out_t, offset[..., 1:d + 1], lse)
+    out_copied = fa.flash_attention_bwd(q, k, v, out_off[..., 1:d + 1], dout, lse)
     torch.cuda.synchronize()
-    for g, h, w in zip(in_place, copied, want):
-        assert torch.equal(g, w) and torch.equal(h, w)
+    for g, h, o, w in zip(in_place, copied, out_copied, want):
+        assert torch.equal(g, w) and torch.equal(h, w) and torch.equal(o, w)
 
 
 @pytest.mark.cuda
@@ -874,6 +879,9 @@ def test_cuda_flash_backward_budget(cuda_device, dtype, threads):
             if dtype == torch.bfloat16 and d == dv == 64:  # one kernel, flash_bwd_d64, for both
                 assert budget["dkdv"] == budget["dq"]
                 assert budget["dkdv"]["shared_bytes"] == 199824
+            if dtype == torch.bfloat16 and d == dv == 128:  # one kernel, flash_bwd_d128, for both
+                assert budget["dkdv"] == budget["dq"]
+                assert budget["dkdv"]["shared_bytes"] == 232032
 
 
 @pytest.mark.cuda
@@ -890,7 +898,8 @@ def test_cuda_d64_work_list_below_at_and_above_the_sm_count(cuda_device, load):
     heads = {"below": max(n_sm // 4, 1), "at": max(n_sm // 2, 1), "above": 3 * n_sm // 2}[load]
     for g, causal in ((1, True), (2, False)):
         shape = (1, 64, 64, heads * g, heads, 64, 64, causal, 0)
-        assert fa.d64_bwd_plan(1, 64, 64, heads * g, heads, causal=causal)[0]["items"] == 2 * heads
+        assert fa.persistent_bwd_plan(1, 64, 64, heads * g, heads,
+                                      causal=causal)[0]["items"] == 2 * heads
         q, k, v, dout, out, lse = _bwd_inputs(shape, torch.bfloat16, cuda_device, seed=65)
         want = fa.flash_attention_bwd_plain(q, k, v, out, dout, lse, causal=causal)
         got = fa.flash_attention_bwd(q, k, v, out, dout, lse, causal=causal)
@@ -925,13 +934,118 @@ def test_cuda_d64_work_list_holds_each_item_once(cuda_device, shape):
     heads = [(i, h) for i in range(b) for h in range(hkv)]
     n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
     for sms in (n_sm, 8, 1024):
-        plan, items = fa.d64_bwd_plan(b, sq, skv, hq, hkv, causal=causal, n_sm=sms)
+        plan, items = fa.persistent_bwd_plan(b, sq, skv, hq, hkv, causal=causal, n_sm=sms)
         assert plan["items"] == len(items) == len(set(items)) == n_kv + n_q
         assert {it for it in items if it[0] == "dkdv"} == {
             ("dkdv", i, h, j) for i, h in heads for j in range((n_kt + 1) // 2)}
         assert {it for it in items if it[0] == "dq"} == {
             ("dq", i, h, t) for i, h in heads for t in range(n_qt)}
         assert items[0][0] == ("dq" if plan["q_first"] else "dkdv")
+
+
+# bf16 at D = Dv = 128: flash_group_fwd<128> and flash_bwd_d128, at the
+# registry's G (qwen3-4b and minitron-8b 4, yi-6b 8, internvl2-26b 6,
+# granite-34b 48) and G = 1; (hq, hkv)
+D128_GROUPS = [(4, 4), (32, 8), (48, 8), (32, 4), (48, 1)]
+D128_FORMS = [(True, 0), (False, 0), (True, 367)]  # (causal, q_offset), Sq = 333 < Skv = 700
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hq,hkv", D128_GROUPS, ids=lambda x: str(x))
+def test_cuda_d128_forward_matches_plain_at_every_group(cuda_device, hq, hkv):
+    """The persistent forward at D=128 (items of G * (128 // G) folded rows:
+    126 at G=6, 96 at G=48) against its plain version at Sq = 333 != Skv =
+    700, causal and not, with a q_offset: within kernel_tolerance, lse
+    within 1e-5, the same bits twice and with lse, one launch of
+    ``flash_group_fwd<128>`` a call."""
+    rng = np.random.default_rng(hq * 131 + hkv)
+    q = torch.from_numpy(rng.standard_normal((2, 333, hq, 128), dtype=np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((2, 700, hkv, 128), dtype=np.float32))
+            for _ in range(2))
+    q, k, v = (t.to(cuda_device, torch.bfloat16) for t in (q, k, v))
+    atol, rtol = fa.kernel_tolerance(torch.bfloat16)
+    for causal, q_offset in D128_FORMS:
+        kw = dict(causal=causal, q_offset=q_offset)
+        before = fa.LAUNCHES_BY_KERNEL.get("flash_group_fwd<128>", 0)
+        got = fa.flash_attention(q, k, v, **kw)
+        again = fa.flash_attention(q, k, v, **kw)
+        assert fa.LAUNCHES_BY_KERNEL["flash_group_fwd<128>"] == before + 2
+        with_lse, lse = fa._forward(q, k, v, q_chunk=512, kv_chunk=1024, with_lse=True, **kw)
+        want, want_lse = fa.flash_attention_plain(q, k, v, return_lse=True, **kw)
+        torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+        torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)  # f32 sums, another order
+        assert torch.equal(got, again) and torch.equal(got, with_lse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hq,hkv", D128_GROUPS, ids=lambda x: str(x))
+def test_cuda_d128_backward_matches_plain_at_every_group(cuda_device, hq, hkv):
+    """The persistent backward at D=128 (``flash_bwd_delta_vec<128>``, then
+    ``flash_bwd_d128``) against its plain version at the forms of the
+    forward's test: each gradient within kernel_tolerance of its max, the
+    same bits twice, one call counted under ``flash_bwd_d128``."""
+    for causal, q_offset in D128_FORMS:
+        shape = (2, 333, 700, hq, hkv, 128, 128, causal, q_offset)
+        q, k, v, dout, out, lse = _bwd_inputs(shape, torch.bfloat16, cuda_device,
+                                              seed=hq + hkv + q_offset)
+        kw = dict(causal=causal, q_offset=q_offset)
+        want = fa.flash_attention_bwd_plain(q, k, v, out, dout, lse, **kw)
+        before = fa.LAUNCHES_BY_KERNEL.get("flash_bwd_d128", 0)
+        got = fa.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+        again = fa.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+        torch.cuda.synchronize()
+        assert fa.LAUNCHES_BY_KERNEL["flash_bwd_d128"] == before + 2
+        for name, g_, w, a in zip(("dq", "dk", "dv"), got, want, again):
+            ok, err = _within_max(g_, w, torch.bfloat16)
+            assert ok and torch.equal(g_, a), (name, causal, q_offset, err)
+
+
+D128_TRAIN_SHAPES = [  # (batch, sq, skv, hq, hkv, causal): training's, B=2, S=1,024
+    (2, 1024, 1024, 32, 8, True),  # qwen3-4b and minitron-8b, G=4
+    (2, 1024, 1024, 32, 4, True),  # yi-6b, G=8
+    (2, 1024, 1024, 48, 8, True),  # internvl2-26b, G=6: dQ items of 126 rows
+    (2, 1024, 1024, 48, 1, True),  # granite-34b, G=48: dK/dV row tiles of 48, dQ items of 96
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", D128_TRAIN_SHAPES, ids=["qwen3", "yi", "internvl2", "granite34"])
+def test_cuda_d128_work_list_holds_each_item_once(cuda_device, shape):
+    """flash_bwd_d128's work list (the library's plan, each item decoded by
+    the blocks' decoder; the items flash_bwd_d64 walks) at the D=128
+    architectures' training shapes, on the card's SMs, on fewer and on
+    more: each dK/dV pair and each dQ row tile of whole query groups of
+    every head exactly once."""
+    b, sq, skv, hq, hkv, causal = shape
+    g = hq // hkv
+    n_kt, n_qt = -(-skv // 64), -(-sq * g // (128 // g * g))
+    heads = [(i, h) for i in range(b) for h in range(hkv)]
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for sms in (n_sm, 8, 1024):
+        plan, items = fa.persistent_bwd_plan(b, sq, skv, hq, hkv, causal=causal, n_sm=sms)
+        assert plan["items"] == len(items) == len(set(items)) == len(heads) * (
+            (n_kt + 1) // 2 + n_qt)
+        assert {it for it in items if it[0] == "dkdv"} == {
+            ("dkdv", i, h, j) for i, h in heads for j in range((n_kt + 1) // 2)}
+        assert {it for it in items if it[0] == "dq"} == {
+            ("dq", i, h, t) for i, h in heads for t in range(n_qt)}
+
+
+@pytest.mark.cuda
+def test_cuda_d128_kernels_have_no_spill(cuda_device):
+    """The D=128 kernels' real budgets, causal and not: the forward 230,512
+    bytes (one Q, three K and three V stages), the backward one kernel for both
+    roles in 232,032 bytes (two 64 KB operand slots and three 32 KB ring
+    stages), 384 threads, one block per SM, 168 registers at launch and no
+    spill."""
+    for causal in (True, False):
+        fwd = fa.kernel_budget(torch.bfloat16, 128, causal=causal)
+        assert fwd["shared_bytes"] == fa.smem_bytes(128) == 230512
+        bwd = fa.bwd_budget(torch.bfloat16, 128, causal=causal)
+        assert bwd["dkdv"] == bwd["dq"] and bwd["dq"]["shared_bytes"] == 232032
+        for budget in (fwd, bwd["dq"]):
+            assert budget["threads_per_block"] == 384 and budget["blocks_per_sm"] == 1
+            assert budget["local_bytes"] == 0 and budget["num_regs"] <= 168
 
 
 @pytest.mark.cuda

@@ -129,14 +129,15 @@ def test_smem_budget_at_the_main_path_shape(dtype, blocks_per_sm):
     """Each body's shared memory per block fits Hopper's 227 KB per block
     (232,448 bytes) at the prefill shape's D=128, ``blocks_per_sm`` times
     per SM (228 KB less 1 KB reserved per block): the bf16 body's Q tile
-    and three stages of K and V (230,448 bytes) once, the f32 body's 112 KB
+    and three stages of K and V (230,512 bytes) once, the f32 body's 112 KB
     twice."""
     per_block = fa.smem_bytes(128, dtype)
     assert per_block <= 232448
     assert blocks_per_sm * (per_block + 1024) <= 228 * 1024
     assert fa.smem_bytes(32, dtype) < fa.smem_bytes(64, dtype) < per_block
-    if dtype == torch.bfloat16:
-        assert per_block >= 2 * 128 * (128 + 2 * fa.TC_STAGES * 128)  # Q, K and V tiles in bf16
+    if dtype == torch.bfloat16:  # Q, K and V tiles in bf16
+        stages = fa.tiling(dtype, 128)[2]
+        assert per_block >= 2 * 128 * 128 * (fa.TC_GROUP_Q_STAGES[128] + 2 * stages)
 
 
 def test_smem_budget_at_mla_heads():
@@ -152,22 +153,27 @@ def test_smem_budget_at_mla_heads():
     assert 1024 + 2 * 128 * 192 + 3 * 2 * 128 * (192 + 128) > 232448  # three stages do not fit
     f32 = fa.smem_bytes(192, torch.float32, dv=128)
     assert f32 == 4 * (192 * 64 + 192 * 64 + 128 * 64 + 64 * 64) == 147456 <= 232448
-    assert fa.smem_bytes(128, torch.bfloat16, dv=128) == fa.smem_bytes(128) == 230448
+    assert fa.smem_bytes(128, torch.bfloat16, dv=128) == fa.smem_bytes(128) == 230512
     assert list(fa.BWD_HEAD_DIMS) == list(fa.HEAD_DIMS)  # the backward at every pair
 
 
 def test_smem_budget_and_tiling_of_the_persistent_d64_forward():
-    """bf16 at D = Dv = 64 is ``flash_d64_fwd``: work items of 128 folded
-    rows against key tiles of 128, two Q stages and three K and three V
-    stages, each with its own full and empty barrier: 132,224 bytes, one
-    block per SM.  The other pairs keep their bodies' numbers."""
+    """bf16 at D = Dv = 64 is ``flash_group_fwd<64>``: work items of 128
+    folded rows against key tiles of 128, two Q stages and three K and three
+    V stages, each with its own full and empty barrier: 132,224 bytes, one
+    block per SM.  At D = 128 (``flash_group_fwd<128>``) one Q stage and
+    three K and three V stages: 230,512 bytes (two Q stages would take
+    263,296, past the 232,448 of a block).  The other pairs keep their
+    bodies' numbers."""
     bf16 = torch.bfloat16
     assert fa.tiling(bf16, 64) == fa.tiling(bf16, 64, 64) == (128, 128, 3)
     d64 = fa.smem_bytes(64, bf16)
     assert d64 == 1024 + 2 * 2 * 128 * 64 + 3 * 2 * 128 * 64 * 2 + 8 * (4 * 3 + 2 * 2) == 132224
     assert d64 + 1024 <= 228 * 1024 and d64 <= 232448
     assert fa.smem_bytes(32, bf16) == 1024 + 2 * 32 * 128 + 3 * 2 * 128 * 64 + 16 * 3 == 58416
-    assert fa.smem_bytes(128, bf16) == 230448 and fa.tiling(bf16, 128) == (128, 128, 3)
+    assert fa.smem_bytes(128, bf16) == 230512 and fa.tiling(bf16, 128) == (128, 128, 3)
+    assert fa.smem_bytes(128, bf16) == 1024 + (1 + 2 * 3) * 128 * 128 * 2 + 8 * (4 * 3 + 2 * 1)
+    assert 1024 + (2 + 2 * 3) * 128 * 128 * 2 + 8 * (4 * 3 + 2 * 2) == 263296 > 232448
     assert fa.smem_bytes(192, bf16, dv=128) == 214096
     assert fa.tiling(bf16, 192, 128) == (128, 128, 2)
     assert fa.smem_bytes(64, torch.float32) == 4 * (64 * 64 * 3 + 64 * 64) == 65536
@@ -177,12 +183,14 @@ def test_smem_budget_and_tiling_of_the_persistent_d64_forward():
 @pytest.mark.parametrize("d,dtype,g,rows", [
     (64, torch.bfloat16, 1, 128), (64, torch.bfloat16, 2, 128), (64, torch.bfloat16, 3, 126),
     (64, torch.bfloat16, 6, 126), (64, torch.bfloat16, 128, 128), (64, torch.float32, 3, 64),
-    (128, torch.bfloat16, 3, 128), (32, torch.bfloat16, 3, 128),
+    (128, torch.bfloat16, 3, 126), (128, torch.bfloat16, 48, 96), (128, torch.bfloat16, 8, 128),
+    (128, torch.float32, 3, 64), (32, torch.bfloat16, 3, 128),
 ])
 def test_row_tiles_hold_whole_query_groups_only_in_the_d64_forward(d, dtype, g, rows):
-    """``flash_d64_fwd``'s work items hold G * (128 // G) folded rows, whole
-    query groups, so that one TMA box of 128 // G queries of G heads loads
-    an item's Q; the other bodies' blocks hold their rows whatever G is."""
+    """``flash_group_fwd``'s work items (bf16 at D = 64 and 128) hold
+    G * (128 // G) folded rows, whole query groups, so that one TMA box of
+    128 // G queries of G heads loads each 64 columns of an item's Q; the
+    other bodies' blocks hold their rows whatever G is."""
     assert fa.tile_rows(dtype, d, g) == rows
 
 
@@ -206,19 +214,51 @@ def test_executed_flops_of_the_d64_forward_count_its_work_items():
         * 64 * 64 * (2 * 64 + 2 * 64))
 
 
+def test_executed_flops_of_the_d128_forward_count_whole_group_items():
+    """At D=128 the forward's items hold whole query groups too: qwen3-4b's
+    prefill (G=4, items of 32 queries: item i sees i // 4 + 1 key tiles, 144
+    a kv head), granite-34b's G=48 (items of two queries, 96 rows run 128
+    wide: 512 items a head at S=1,024, item i sees i // 64 + 1 tiles)."""
+    bf16_pair = 2 * 128 + 4 * 128  # QK^T, then P V twice (p_hi and p_lo)
+    assert fa.executed_flops(4, 1024, 1024, 32, 8, 128) == 4 * 8 * 144 * 128 * 128 * bf16_pair
+    assert fa.executed_flops(1, 1024, 1024, 48, 1, 128) == (
+        sum(i // 64 + 1 for i in range(512)) * 128 * 128 * bf16_pair)
+
+
+@pytest.mark.parametrize("dtype,d,dv,fwd,bwd", [
+    (torch.bfloat16, 128, 128, "flash_group_fwd<128>", "flash_bwd_d128"),
+    (torch.bfloat16, 64, 64, "flash_group_fwd<64>", "flash_bwd_d64"),
+    (torch.bfloat16, 32, 32, "flash_attention_tc", "flash_bwd_dq_tc"),
+    (torch.bfloat16, 192, 128, "flash_mla_fwd", "flash_bwd_dq_mla"),
+    (torch.float32, 128, 128, "flash_attention_kernel", "flash_bwd_dq"),
+])
+def test_kernel_names_count_launches_by_kernel(dtype, d, dv, fwd, bwd):
+    """``kernel_name`` names the kernel a call runs, as
+    ``LAUNCHES_BY_KERNEL`` counts it on the card; a CPU call runs the plain
+    version and counts nothing."""
+    assert fa.kernel_name(dtype, d, dv) == fwd
+    assert fa.kernel_name(dtype, d, dv, backward=True) == bwd
+    before = dict(fa.LAUNCHES_BY_KERNEL)
+    q = torch.zeros((1, 4, 2, 32))
+    fa.flash_attention(q, q, q)
+    assert fa.LAUNCHES_BY_KERNEL == before
+
+
 def test_cuda_checks_hold_the_d64_forward_to_groups_of_128_heads():
-    """A row tile of ``flash_d64_fwd`` holds whole query groups, at most 128
-    heads; a larger G raises before a launch.  The other bodies take any G.
-    The checks read shapes, strides and addresses only, so they run here."""
-    q = torch.zeros((1, 4, 129, 64), dtype=torch.bfloat16)
-    k = torch.zeros((1, 4, 1, 64), dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="whole query groups of at most 128"):
-        fa._check_cuda(q, k, k, 0)
-    fa._check_cuda(q[:, :, :128], k, k, 0)
-    fa._check_cuda(q.float(), k.float(), k.float(), 0)
-    q128 = torch.zeros((1, 4, 129, 128), dtype=torch.bfloat16)
-    k128 = torch.zeros((1, 4, 1, 128), dtype=torch.bfloat16)
-    fa._check_cuda(q128, k128, k128, 0)
+    """A row tile of ``flash_group_fwd`` (bf16 at D = 64 and 128) holds
+    whole query groups, at most 128 heads; a larger G raises before a
+    launch.  The other bodies take any G.  The checks read shapes, strides
+    and addresses only, so they run here."""
+    for d in (64, 128):
+        q = torch.zeros((1, 4, 129, d), dtype=torch.bfloat16)
+        k = torch.zeros((1, 4, 1, d), dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match=f"D = {d} holds whole query groups of at most 128"):
+            fa._check_cuda(q, k, k, 0)
+        fa._check_cuda(q[:, :, :128], k, k, 0)
+        fa._check_cuda(q.float(), k.float(), k.float(), 0)
+    q32 = torch.zeros((1, 4, 129, 32), dtype=torch.bfloat16)
+    k32 = torch.zeros((1, 4, 1, 32), dtype=torch.bfloat16)
+    fa._check_cuda(q32, k32, k32, 0)
 
 
 SPLIT_FORMS = [  # (batch, sq, skv, heads, rope_heads, causal, q_offset, q_chunk, kv_chunk)

@@ -127,7 +127,9 @@ def test_one_bf16_rounding_leaves_under_a_tenth_of_the_tolerance():
 
 
 def test_bwd_tiling_per_dtype():
-    assert fa.bwd_tiling(BF16) == {"dkdv": (64, 64, 4), "dq": (128, 128, 2)}
+    assert fa.bwd_tiling(BF16, 32) == {"dkdv": (64, 64, 4), "dq": (128, 128, 2)}
+    # D=128 (flash_bwd_d128): both kinds of item on one ring of three stages
+    assert fa.bwd_tiling(BF16) == {"dkdv": (64, 64, 3), "dq": (128, 128, 3)}
     assert fa.bwd_tiling(torch.float32) == {"dkdv": (64, 64, 1), "dq": (64, 64, 1)}
     assert fa.bwd_tiling(BF16)["dq"][:2] == fa.tiling(BF16)[:2]  # dQ reads K/V as the forward
 
@@ -135,15 +137,18 @@ def test_bwd_tiling_per_dtype():
 @pytest.mark.parametrize("dtype", [BF16, torch.float32])
 def test_bwd_smem_fits_one_block_per_sm(dtype):
     """Each backward kernel's shared memory per block fits Hopper's 227 KB
-    (232,448 bytes) at every head dim; the bf16 dK/dV block holds K and V of
-    two key tiles of 64 and four stages of Q and dO (199,744 bytes at
-    D=128), the dQ block Q and dO of 128 rows and two stages of K and V
-    (197,664)."""
+    (232,448 bytes) at every head dim; at D=128 the bf16 body is one
+    persistent kernel (``flash_bwd_d128``): 1 KB to align, two operand slots
+    of 64 KB (a dK/dV item's K and V of 128 keys, or a dQ item's Q and dO of
+    128 rows), three ring stages of 32 KB (a Q and a dO row tile of 64, or a
+    K or a V tile of 128 keys) with a row tile's statistics each, a full and
+    an empty barrier for each slot and stage, the slots' items: 232,032."""
     for d, dv in fa.BWD_HEAD_DIMS:
         dkdv, dq = fa.bwd_smem_bytes(d, dtype, dv)
         assert max(dkdv, dq) <= 232448
     if dtype == BF16:
-        assert fa.bwd_smem_bytes(128, dtype) == (199744, 197664)
+        smem = 1024 + 2 * 65536 + 3 * (32768 + 512) + 16 * (2 + 3) + 16
+        assert fa.bwd_smem_bytes(128, dtype) == (smem, smem) == (232032, 232032)
         assert fa.bwd_smem_bytes(32, dtype) < fa.bwd_smem_bytes(64, dtype)
     else:
         assert fa.bwd_smem_bytes(128, dtype) == (165888, 149248)  # f32 rows of D + 1
@@ -182,7 +187,8 @@ def test_bwd_tiling_at_mla_heads():
     with four row tiles in flight; the dQ kernel reads K/V tiles of 64
     keys; the f32 body's tiling does not depend on the head dims."""
     assert fa.bwd_tiling(BF16, 192, 128) == {"dkdv": (64, 64, 4), "dq": (128, 64, 2)}
-    assert fa.bwd_tiling(BF16, 128, 128) == fa.bwd_tiling(BF16) == fa.bwd_tiling(BF16, 64)
+    assert fa.bwd_tiling(BF16, 32, 32) == fa.bwd_tiling(BF16, 64)
+    assert fa.bwd_tiling(BF16, 128, 128) == fa.bwd_tiling(BF16) == fa.BWD_TILING_D128
     assert fa.bwd_tiling(torch.float32, 192, 128) == fa.bwd_tiling(torch.float32)
     assert list(fa.BWD_HEAD_DIMS) == list(fa.HEAD_DIMS) and (192, 128) in fa.BWD_HEAD_DIMS
 
@@ -366,40 +372,53 @@ def test_bwd_tiling_smem_and_flops_at_d64():
 
 
 def test_bwd_tiling_smem_and_flops_keep_the_other_head_dims():
-    """D=32, D=128 and MLA's (192, 128) keep their kernels and numbers; only
-    D=64 takes the new kernel's whole-group dQ tiles: at G=3 an item holds
-    126 folded rows, so 255 rows take three where tiles of 128 took two."""
-    assert fa.bwd_tiling(BF16, 32) == fa.bwd_tiling(BF16, 128) == {
-        "dkdv": (64, 64, 4), "dq": (128, 128, 2)}
+    """D=32 and MLA's (192, 128) keep their kernels and numbers; D=64 and
+    D=128 take the persistent kernels' whole-group dQ tiles: at G=3 an item
+    holds 126 folded rows, so 255 rows take three where tiles of 128 took
+    two."""
+    assert fa.bwd_tiling(BF16, 32) == {"dkdv": (64, 64, 4), "dq": (128, 128, 2)}
     assert fa.bwd_smem_bytes(32, BF16) == (52288, 50208)
-    assert fa.bwd_smem_bytes(128, BF16) == (199744, 197664)
+    assert fa.bwd_smem_bytes(128, BF16) == (232032, 232032)
     assert fa.bwd_smem_bytes(192, BF16, dv=128) == (224320, 164896)
     # 85 queries of G=3 (255 folded rows), causal, one key tile of 128 each
     kv = 85 * 3 // 63 + 1  # row tiles of 63 folded rows: 5, all seen by key tile 0 (of 2)
     assert fa.bwd_executed_flops(1, 85, 85, 12, 4, 64) == 4 * (
         (kv + (kv - 64 * 3 // 63)) * 64 * 64 * 12 * 64 + 3 * 128 * 128 * 8 * 64)
     assert fa.bwd_executed_flops(1, 85, 85, 12, 4, 128) == 4 * (
-        (kv + (kv - 64 * 3 // 63)) * 64 * 64 * 12 * 128 + 2 * 128 * 128 * 8 * 128)
+        (kv + (kv - 64 * 3 // 63)) * 64 * 64 * 12 * 128 + 3 * 128 * 128 * 8 * 128)
 
 
 def _delta_lanes(d, o):
-    """flash_bwd_delta<bf16, 64, true>'s sum of a row (f32): lane c of 32
-    sums columns c then c + 32 by fma (a bf16 product is exact in f32, so
-    the fma is one rounding of the f32 sum), then the xor tree over lanes:
-    level k adds the value of lane c ^ k to lane c's; lane 0's is stored."""
-    v = [d[:, c + 32] * o[:, c + 32] + d[:, c] * o[:, c] for c in range(32)]
+    """flash_bwd_delta<bf16, Dv, true>'s sum of a row (f32): lane c of 32
+    sums columns c, c + 32, ... by a chain of fma from 0 (a bf16 product is
+    exact in f32, so each fma is one rounding of the f32 sum), then the xor
+    tree over lanes: level k adds the value of lane c ^ k to lane c's; lane
+    0's is stored."""
+    v = []
+    for c in range(32):
+        acc = d[:, c] * o[:, c]
+        for col in range(c + 32, d.shape[1], 32):
+            acc = acc + d[:, col] * o[:, col]
+        v.append(acc)
     for off in (16, 8, 4, 2, 1):
         v = [v[c] + v[c ^ off] for c in range(32)]
     return v[0]
 
 
 def _delta_threads(d, o):
-    """flash_bwd_delta_d64's: thread j of 4 holds columns 8j + e and 32 + 8j
-    + e in register e; level 16 adds thread j + 2's registers to thread j's,
-    level 8 thread 1's to thread 0's, levels 4, 2, 1 add thread 0's
-    registers e + 4, e + 2, e + 1."""
-    regs = [[d[:, 32 + 8 * j + e] * o[:, 32 + 8 * j + e] + d[:, 8 * j + e] * o[:, 8 * j + e]
-             for e in range(8)] for j in range(4)]
+    """flash_bwd_delta_vec<Dv>'s: thread j of 4 holds columns 32i + 8j + e
+    (i < Dv / 32) in register e, chained over i; level 16 adds thread j +
+    2's registers to thread j's, level 8 thread 1's to thread 0's, levels 4,
+    2, 1 add thread 0's registers e + 4, e + 2, e + 1."""
+    regs = []
+    for j in range(4):
+        row = []
+        for e in range(8):
+            acc = d[:, 8 * j + e] * o[:, 8 * j + e]
+            for col in range(32 + 8 * j + e, d.shape[1], 32):
+                acc = acc + d[:, col] * o[:, col]
+            row.append(acc)
+        regs.append(row)
     regs = [[regs[j][e] + regs[j + 2][e] for e in range(8)] for j in range(2)]
     x = [regs[0][e] + regs[1][e] for e in range(8)]
     x = [x[e] + x[e + 4] for e in range(4)]
@@ -420,3 +439,35 @@ def test_d64_delta_pass_adds_as_the_lanes_did():
     # a tree of other pairs gives other bits for some rows
     other = torch.stack([d[:, c] * o[:, c] for c in range(64)], 1).sum(1)
     assert not torch.equal(other.view(torch.int32), want.view(torch.int32))
+
+
+def test_d128_delta_pass_adds_as_the_lanes_did():
+    """The D=128 delta pass (flash_bwd_delta_vec<128>, before flash_bwd_d128)
+    reads a row by four threads of 16 bytes at four column offsets where
+    flash_bwd_delta read it by 32 lanes of 2 bytes: the same chains of four
+    products and the same tree, so delta is the same f32 bits (hence dq and
+    dk are those of the separate dK/dV and dQ kernels)."""
+    rng = np.random.default_rng(128)
+    d, o = (torch.from_numpy(rng.standard_normal((4096, 128), dtype=np.float32)).to(BF16).float()
+            for _ in range(2))
+    want, got = _delta_lanes(d, o), _delta_threads(d, o)
+    assert want.dtype == got.dtype == torch.float32
+    assert torch.equal(want.view(torch.int32), got.view(torch.int32))
+    # the chains in another order give other bits for some rows
+    other = _delta_lanes(d[:, list(range(127, -1, -1))], o[:, list(range(127, -1, -1))])
+    assert not torch.equal(other.view(torch.int32), want.view(torch.int32))
+
+
+def test_bwd_items_at_d128_hold_whole_query_groups():
+    """flash_bwd_d128 walks flash_bwd_d64's items: dK/dV pairs of key tiles
+    of 64 over row tiles of G * (64 // G) folded rows, and dQ tiles of G *
+    (128 // G) folded rows against key tiles of 128.  At granite-34b's G=48
+    a row tile holds 48 rows (one query) and a dQ tile 96 (two); at
+    internvl2-26b's G=6, 60 and 126."""
+    for g, q_rows in ((48, 96), (6, 126), (4, 128)):
+        assert fa.tile_rows(BF16, 128, g) == q_rows
+    # 128 queries of 48 heads, causal: key tile 0 of 64 walks all 128 row
+    # tiles, key tile 1 the 64 from query 64 on; 64 dQ tiles of 96 rows see
+    # the one key tile of 128
+    assert fa.bwd_executed_flops(1, 128, 128, 48, 1, 128) == (
+        (128 + 64) * 64 * 64 * 12 * 128 + 64 * 128 * 128 * 8 * 128)
