@@ -133,6 +133,23 @@ source, started together) and, at the paper's L=32 lattice:
     ``python -m repro_torch.launch.dryrun`` (``meta`` tensors; at once), and
     ``--su3-fig7 --L 32 --device-counts 1,2,4 --controllers 2``: two
     controller processes on the card, no divergence;
+  * the VLM phase: full-width, full-depth internvl2-26b (48 layers, 48/8
+    heads of 128: G = 6; 256 stub patch positions; 19.86 B parameters,
+    bf16, matrices at std 0.02) through ``ServeEngine`` as above, with
+    seeded random patches drawn on the CPU and moved (48 launches of
+    ``flash_group_fwd<128>`` in prefill, none in decode; decode against one
+    cache-less teacher pass on the same patches; the peak memory beside its
+    prediction), and the card against the CPU at 2 layers in f32;
+    ``train.loop.train`` at full width on its first 6 layers
+    (``VLM_TRAIN_REDUCED``; 12 forward and 6 backward launches a step, by
+    kernel; the step's gradients twice bitwise), one step's loss and
+    gradients on the card against the CPU at 2 layers in f32;
+  * the tools phase: ``python -m repro_torch.core.autotune --L 4`` in
+    process (every sweep, no TPU constant), each of ``examples/torch/``
+    through its ``main(argv)`` at a small size (each must launch its
+    kernel on the card), ``serve_lattices.py --autotune`` twice (the second
+    starts tuned), ``scripts/torch/profile_dispatch.py --quick --trace`` and
+    ``scripts/torch/trace_report.py`` on that trace;
   * last, the bf16 forward at D=64 (``flash_group_fwd<64>``) at
     zamba2-1.2b's, granite-moe's and whisper-tiny's shapes against its plain
     version, then timed in turns beside SDPA (eager and in CUDA graphs);
@@ -370,6 +387,20 @@ WHISPER_FORMS = [  # as FLASH_FORMS: 6 heads of 64, G = 1
     ("whisper decoder self training bf16", 2, 448, 448, 6, 6, 64, True, 0, "bfloat16"),
     ("whisper cross training f32", 2, 128, 1500, 6, 6, 64, False, 0, "float32"),
 ]
+# the VLM phase: internvl2-26b at full width and depth (48 layers of d_model
+# 6,144, 48/8 heads of 128: G = 6; d_ff 16,384, vocab 92,553, 256 stub patch
+# positions at the head of the sequence; 19.86 B parameters, 39.7 GB in bf16),
+# served at the LM shapes above (the patches drawn on the CPU and moved)
+VLM_ARCH = "internvl2-26b"
+# trained at full width on its first 6 layers: at ~16.9 bytes a parameter (f32
+# master weights, gradients and AdamW moments; qwen3-4b's 67.8 GB for 4.02 B),
+# 1.14 B of embedding and head and 6 x 0.39 B of layers take ~59 GB
+VLM_TRAIN_LAYERS = 6
+VLM_TRAIN_REDUCED = {"n_layers": "48 -> 6: the training state of all 48 layers (f32 weights, "
+                                 "gradients and AdamW moments, ~318 GB) does not fit one card"}
+# the card against the CPU: 2 layers of full width in f32 over the 256 patch
+# positions and 64 tokens after them
+VLM_CROSS_SEQ = 256 + 64
 # the forms whose backward is checked too: training's shapes, and the f32
 # ones of the card-against-CPU training check
 WHISPER_BWD_FORMS = [f for f in WHISPER_FORMS if "training" in f[0] or f[0].endswith("encoder f32")]
@@ -956,6 +987,27 @@ def main(argv: list[str] | None = None) -> int:
     _dryrun_phase(failures)
     _emit({"phase": "dryrun", "seconds": time.perf_counter() - t0})
 
+    # -- 5i'. the VLM phase: internvl2-26b served at full depth, trained at a cut depth ---
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    vlm = _vlm_phase(args.seed, failures)
+    _emit({"phase": "vlm", "seconds": time.perf_counter() - t0})
+    flash["vlm_serve_launches"], flash["vlm_train_launches"] = vlm["serve"], vlm["train_fwd"]
+    flash["launches"] += vlm["serve"] + vlm["train_fwd"]
+    flash_bwd["vlm_train_launches"] = vlm["train_bwd"]
+    flash_bwd["launches"] += vlm["train_bwd"]
+    for entry, kname, named in (
+            (flash, D128_FWD_KERNEL, (vlm["serve_by_kernel"], vlm["train_by_kernel"])),
+            (flash_bwd, D128_BWD_KERNEL, (vlm["train_by_kernel"],))):
+        entry["launches_by_kernel"][kname] = (entry["launches_by_kernel"].get(kname, 0)
+                                              + sum(found.get(kname, 0) for found in named))
+
+    # -- 5i''. the port's tools: the autotune CLI, the examples, the dispatch profiler -----
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _tools_phase(failures)
+    _emit({"phase": "tools", "seconds": time.perf_counter() - t0})
+
     # -- 5j. the D=64 forward at the main paths' shapes, in turns beside SDPA -------------
     torch.cuda.empty_cache()
     d64_rows = _group_fwd_yardsticks(D64_ROWS, 64, np.random.default_rng(args.seed + 25), hw,
@@ -1010,8 +1062,9 @@ def main(argv: list[str] | None = None) -> int:
     for what, entry, kname in (("flash_attention", flash, D128_FWD_KERNEL),
                                ("flash_attention_bwd", flash_bwd, D128_BWD_KERNEL)):
         if entry["launches_by_kernel"].get(kname, 0) != entry["launches"]:
-            failures.append(f"{what}: qwen3-4b's main paths ran {entry['launches_by_kernel']}, "
-                            f"not {entry['launches']} launches of {kname}")
+            failures.append(f"{what}: the D=128 main paths (qwen3-4b, internvl2-26b) ran "
+                            f"{entry['launches_by_kernel']}, not {entry['launches']} launches "
+                            f"of {kname}")
 
     # -- 6. the kernels line -----------------------------------------------------------
     _emit({"kernels": [{
@@ -1874,8 +1927,9 @@ def _state_leaves(state, prefix: str = "") -> list:
 
 def _serve_cross_device(row_name: str, cfg2, model2, rng, failures: list[str]) -> None:
     """The card against the port's CPU path on ``model2`` (``cfg2`` in f32,
-    TF32 off): 8 greedy tokens after a 64-token prompt on each (an
-    encoder-decoder's on the same seeded frames), then the CPU's tokens
+    TF32 off): 8 greedy tokens after a prompt of 64 tokens on each (an
+    encoder-decoder's on the same seeded frames; a VLM's on the same seeded
+    patches, after its ``n_patches`` positions), then the CPU's tokens
     prefilled and decoded on both: logits within LM_CROSS_TOL, every leaf
     of the state after the last decode step (KV or latent caches, Mamba2 or
     xLSTM states, cross K/V) within LM_CROSS_TOL of its largest magnitude,
@@ -1888,13 +1942,17 @@ def _serve_cross_device(row_name: str, cfg2, model2, rng, failures: list[str]) -
     from repro_torch.models import moe, registry
     from repro_torch.serve.engine import ServeConfig, ServeEngine
 
-    cpu = ServeEngine(cfg2, copy.deepcopy(model2), ServeConfig(max_len=80), device="cpu")
-    card = ServeEngine(cfg2, model2, ServeConfig(max_len=80), device=torch.device("cuda"))
-    prompt2 = rng.integers(0, cfg2.vocab_size, (1, 64), dtype=np.int32)
+    plen = 64 + cfg2.n_patches
+    cpu = ServeEngine(cfg2, copy.deepcopy(model2), ServeConfig(max_len=plen + 16), device="cpu")
+    card = ServeEngine(cfg2, model2, ServeConfig(max_len=plen + 16), device=torch.device("cuda"))
+    prompt2 = rng.integers(0, cfg2.vocab_size, (1, plen), dtype=np.int32)
     extras = {}
     if cfg2.is_encoder_decoder:
         extras["frames"] = rng.standard_normal((1, cfg2.encoder_len, cfg2.d_model),
                                                dtype=np.float32)
+    if cfg2.n_patches:
+        extras["patches"] = rng.standard_normal((1, cfg2.n_patches, cfg2.d_model),
+                                                dtype=np.float32)
     cpu_tokens = cpu.generate(prompt2, 8, extras=extras or None)
     card_tokens = card.generate(prompt2, 8, extras=extras or None)
     logits, routes, states = [], [], []
@@ -1903,11 +1961,11 @@ def _serve_cross_device(row_name: str, cfg2, model2, rng, failures: list[str]) -
         st = eng.init_state(1)
         routes.append([])
         with _wrapped(moe, "_route", _recording_routes(routes[-1])):
-            lg, st = eng.prefill({"tokens": t[:, :64], **{
+            lg, st = eng.prefill({"tokens": t[:, :plen], **{
                 k: torch.from_numpy(v).to(eng.device) for k, v in extras.items()}}, st)
             out = [lg]
             for i in range(7):
-                lg, st = eng.decode(t[:, 64 + i:65 + i], st, 64 + i)
+                lg, st = eng.decode(t[:, plen + i:plen + i + 1], st, plen + i)
                 out.append(lg)
         logits.append(torch.cat(out, dim=1).float().cpu())
         states.append(_state_leaves(st))
@@ -1916,7 +1974,7 @@ def _serve_cross_device(row_name: str, cfg2, model2, rng, failures: list[str]) -
     same_routes = len(routes[0]) == len(routes[1]) == 8 * n_moe and all(
         torch.equal(a.cpu(), b.cpu()) for a, b in zip(*routes))
     row = {"row": row_name, "arch": cfg2.name, "n_layers": cfg2.n_layers, "dtype": cfg2.dtype,
-           "tf32": torch.backends.cuda.matmul.allow_tf32, "prompt": 64, "new_tokens": 8,
+           "tf32": torch.backends.cuda.matmul.allow_tf32, "prompt": plen, "new_tokens": 8,
            "max_abs_logit_diff": err, "tol": LM_CROSS_TOL,
            "logit_scale": logits[0].abs().max().item(), "routes_compared": len(routes[0]),
            "same_routes": same_routes, "same_tokens": bool(np.array_equal(cpu_tokens, card_tokens))}
@@ -2578,7 +2636,8 @@ def _generate_twice(engine, prompts, extras: dict | None = None) -> tuple:
     """``engine.generate`` of ``prompts`` and LM_NEW greedy tokens twice:
     the first with the counters set to 0 just before and read just after,
     the second timed, with the peak memory.  Returns the tokens, the counts
-    and the served row's speed fields."""
+    and the served row's speed fields (the first call's flash launches by
+    kernel among them)."""
     import numpy as np
     import torch
 
@@ -2587,14 +2646,15 @@ def _generate_twice(engine, prompts, extras: dict | None = None) -> tuple:
     t0 = time.perf_counter()
     tokens = engine.generate(prompts, LM_NEW, extras=extras)
     first_s = time.perf_counter() - t0
-    counts = _counts()
+    counts, by_kernel = _counts(), _by_kernel()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     again = engine.generate(prompts, LM_NEW, extras=extras)
     wall_s = time.perf_counter() - t0
     tm, (batch, prompt) = engine.last_timings, prompts.shape
     return tokens, counts, {
-        "first_generate_s": first_s, "prefill_ms": tm["prefill_s"] * 1e3,
+        "first_generate_s": first_s, "flash_launches_by_kernel": by_kernel,
+        "prefill_ms": tm["prefill_s"] * 1e3,
         "decode_ms_per_token": tm["decode_s"] * 1e3 / tm["decode_steps"],
         "generate_wall_ms": wall_s * 1e3, "new_tokens_per_s": batch * LM_NEW / wall_s,
         "decode_tokens_per_s": batch * tm["decode_steps"] / tm["decode_s"],
@@ -2692,7 +2752,7 @@ def _train_main_path(tag: str, cfg, opt, seed: int, steps: int, seq: int, failur
     t0 = time.perf_counter()
     out = loop.train(cfg, tcfg, log=log_lines.append, device=dev)
     wall_s = time.perf_counter() - t0
-    counts = _counts()
+    counts, by_kernel = _counts(), _by_kernel()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for line in log_lines:
         print(f"{tag} train: {line}")
@@ -2756,7 +2816,7 @@ def _train_main_path(tag: str, cfg, opt, seed: int, steps: int, seq: int, failur
         f"step_ms_median_2_{steps}": median_ms,
         "tokens_per_s": TRAIN_BATCH * seq / median_ms * 1e3,
         "peak_memory_GB": peak_gb, "wall_s": wall_s,
-        "flash_launches": fwd, "flash_bwd_launches": bwd,
+        "flash_launches": fwd, "flash_bwd_launches": bwd, "flash_launches_by_kernel": by_kernel,
         "flash_launches_per_step": fwd / n, "flash_bwd_launches_per_step": bwd / n,
         "other_launches": sum(counts.values()) - fwd - bwd,
         "profiled_step_flash_launches": [prof_counts[fa.LAUNCHES.name],
@@ -4464,6 +4524,295 @@ def _whisper_train(seed: int, failures: list[str]) -> tuple[int, int]:
     # -- resume: 4 steps straight against 2 + checkpoint + restore + 2, on the card ----
     _resume_check("whisper train resume", cfg2, seed, failures)
     return fwd, bwd
+
+
+def _vlm_phase(seed: int, failures: list[str]) -> dict:
+    """The VLM family on the card at internvl2-26b's full width: serving at
+    full depth (``_vlm_serve``) and training on its first VLM_TRAIN_LAYERS
+    layers (``_vlm_train``).  Returns the flash launches of its main paths
+    (``serve``, ``train_fwd``, ``train_bwd``) and those of them by kernel
+    (``serve_by_kernel``, ``train_by_kernel``)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed + 29)
+    t0 = time.perf_counter()
+    serve, serve_by_kernel = _vlm_serve(seed, rng, failures)
+    torch.cuda.empty_cache()
+    _emit({"phase": "vlm serve", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    train_fwd, train_bwd, train_by_kernel = _vlm_train(seed, failures)
+    torch.cuda.empty_cache()
+    _emit({"phase": "vlm train", "seconds": time.perf_counter() - t0})
+    return {"serve": serve, "train_fwd": train_fwd, "train_bwd": train_bwd,
+            "serve_by_kernel": serve_by_kernel, "train_by_kernel": train_by_kernel}
+
+
+def _vlm_serve_peak_gb(cfg) -> dict[str, float]:
+    """The predicted peak of serving ``cfg`` in bf16 (GB): the weights, the
+    f32 KV cache of LM_BATCH x LM_MAX_LEN positions, and one layer's
+    activations in prefill (bf16: the input, q and the attention's output
+    of d_model each, k and v of n_kv_heads x head_dim, the SwiGLU's gate,
+    up and product of d_ff each, over LM_BATCH x LM_PROMPT tokens)."""
+    kv = cfg.n_kv_heads * cfg.head_dim
+    parts = {"weights": 2 * cfg.n_params() / 1e9,
+             "kv_cache": 4 * 2 * cfg.n_layers * LM_BATCH * LM_MAX_LEN * kv / 1e9,
+             "layer_activations": 2 * LM_BATCH * LM_PROMPT
+             * (3 * cfg.d_model + 2 * kv + 3 * cfg.d_ff) / 1e9}
+    return dict(parts, total=sum(parts.values()))
+
+
+def _vlm_serve(seed: int, rng, failures: list[str]) -> tuple[int, dict[str, int]]:
+    """``ServeEngine`` on full-width, full-depth internvl2-26b (random bf16
+    weights from the seed, matrices at std 0.02 (``_matrices_at``), f32 KV
+    cache) over 4 x 1,024-token prompts, whose first 256 positions take
+    seeded random patch embeddings drawn on the CPU and moved, + 32 greedy
+    tokens, the counters set to 0 just before and read just after
+    (prefill: one launch of ``flash_group_fwd<128>`` per layer at G = 6;
+    none in decode); decode logits against one cache-less teacher pass over
+    the served tokens with the same patches; the peak memory beside its
+    prediction (``_vlm_serve_peak_gb``); then the card against the port's
+    CPU path at 2 layers of full width in f32 (matrices at std 0.02).
+    Returns the flash launches of the served generate, and by kernel.
+
+    Why std 0.02, as the MoE, MLA, zamba and whisper phases serve: the
+    reference's rule takes 1/sqrt(48) for every stacked matrix, and the
+    VLM has no qk-norm, so its attention scores have a std of ~100: a
+    saturated softmax whose near-ties two bf16 passes break differently."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import common, registry, transformer
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    dev = torch.device("cuda")
+    cfg = get_config(VLM_ARCH)
+    predicted = _vlm_serve_peak_gb(cfg)
+    _emit({"prediction": "vlm serve peak memory (GB)", "arch": cfg.name, **predicted})
+    t0 = time.perf_counter()
+    model = _matrices_at(registry.get(cfg).init(torch.Generator(device=dev).manual_seed(seed),
+                                                cfg, torch.bfloat16), 0.02, seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    engine = ServeEngine(cfg, model, ServeConfig(max_len=LM_MAX_LEN), device=dev)
+    prompts = rng.integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), dtype=np.int32)
+    patches = torch.from_numpy(rng.standard_normal((LM_BATCH, cfg.n_patches, cfg.d_model),
+                                                   dtype=np.float32)).to(dev, torch.bfloat16)
+    extras = {"patches": patches}
+    tokens, counts, speed = _generate_twice(engine, prompts, extras)
+    launches, by_kernel = counts[fa.LAUNCHES.name], speed["flash_launches_by_kernel"]
+    toks_d = torch.from_numpy(tokens).to(dev)
+    served, prefill_launches, decode_launches = _served_decode(engine, toks_d, LM_PROMPT, extras)
+    x, _, _ = transformer.forward(engine.params, {"tokens": toks_d[:, :-1], **extras}, cfg,
+                                  q_chunk=512, kv_chunk=1024)
+    teacher = _teacher_gap(served, transformer._logits(engine.params, x[:, LM_PROMPT - 1:],
+                                                       cfg).float())
+    del x, served
+    prof_prefill, prof_decode = _serving_profiles(
+        "vlm", engine, toks_d, LM_PROMPT,
+        f"4 x 1,024 tokens, the first {cfg.n_patches} positions patches", extras)
+    n_params = common.count_params(engine.params)
+    del engine, model, patches, extras, toks_d
+    torch.cuda.empty_cache()
+    row = {"row": "vlm serve", "arch": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+           "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "patches": cfg.n_patches,
+           "params": n_params, "reduced": {}, "dtype": "bfloat16", "matrices_std": 0.02,
+           "cache_dtype": "float32", "batch": LM_BATCH, "prompt": LM_PROMPT,
+           "new_tokens": LM_NEW, "max_len": LM_MAX_LEN, "init_s": init_s,
+           "flash_launches": launches, "expected_launches": cfg.n_layers,
+           "prefill_launches": prefill_launches, "decode_launches": decode_launches,
+           "other_launches": sum(counts.values()) - launches,
+           "prefill_kernel_launches": prof_prefill["kernel_launches"],
+           "decode_kernel_launches_per_step": prof_decode["kernel_launches"] / 4, **speed,
+           "predicted_peak_memory_GB": predicted["total"],
+           "prefill_idle_share": prof_prefill["idle_share"],
+           "decode_idle_share": prof_decode["idle_share"],
+           "teacher": dict(teacher, against=f"one cache-less pass over "
+                                            f"{LM_PROMPT + LM_NEW - 1} tokens, the same patches"),
+           "teacher_tol_of_scale": LM_TEACHER_TOL}
+    row["ok"] = (launches == cfg.n_layers and prefill_launches == cfg.n_layers
+                 and decode_launches == 0 and by_kernel == {D128_FWD_KERNEL: cfg.n_layers}
+                 and row["other_launches"] == 0 and row["same_tokens_twice"]
+                 and tokens.shape == (LM_BATCH, LM_PROMPT + LM_NEW) and teacher["finite"]
+                 and teacher["max_abs_diff"] <= LM_TEACHER_TOL * teacher["scale"])
+    _emit(row)
+    if not row["ok"]:
+        failures.append(f"vlm serve main path: {row}")
+
+    # -- the card against the port's CPU path: full width, 2 layers, f32 ----------
+    # (the weights are drawn on the card, which is fast; the CPU engine copies them)
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    _serve_cross_device("vlm cross-device", cfg2, _matrices_at(
+        registry.get(cfg2).init(torch.Generator(device=dev).manual_seed(seed), cfg2), 0.02, seed),
+        rng, failures)
+    torch.cuda.empty_cache()
+    return launches, by_kernel
+
+
+def _vlm_train(seed: int, failures: list[str]) -> tuple[int, int, dict[str, int]]:
+    """``train.loop.train`` on internvl2-26b at full width cut to its first
+    VLM_TRAIN_LAYERS layers (VLM_TRAIN_REDUCED; f32 master weights and
+    moments, bf16 compute, remat, the reference's init rule; the data
+    pipeline's patches, drawn on the CPU and moved) for TRAIN_STEPS steps of
+    TRAIN_BATCH x TRAIN_SEQ tokens through ``_train_main_path`` (a step:
+    ``flash_group_fwd<128>`` twice a layer, forward and remat recompute,
+    ``flash_bwd_d128`` once), the step's gradients twice bitwise; one
+    step's loss and gradients, the card against the CPU on 2 layers of full
+    width in f32 over VLM_CROSS_SEQ tokens (matrices at std 0.02).  Returns
+    the flash forward and backward launches of the training run, and both
+    by kernel."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import common, registry
+    from repro_torch.optim.adamw import AdamWConfig
+
+    dev = torch.device("cuda")
+    base = get_config(VLM_ARCH)
+    cfg = dataclasses.replace(base, n_layers=VLM_TRAIN_LAYERS)
+    print(f"reduced: {json.dumps(VLM_TRAIN_REDUCED)}")
+    opt = AdamWConfig(peak_lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+    ok, _, fields = _train_main_path("vlm", cfg, opt, seed, TRAIN_STEPS, TRAIN_SEQ, failures,
+                                     grads_twice=True)
+    fwd, bwd, by_kernel = (fields["flash_launches"], fields["flash_bwd_launches"],
+                           fields["flash_launches_by_kernel"])
+    per_step = [2 * cfg.n_layers, cfg.n_layers]
+    row = {"row": "vlm train", "arch": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+           "vocab": cfg.vocab_size, "patches": cfg.n_patches, "remat": True,
+           "reduced": VLM_TRAIN_REDUCED, **fields, "expected_per_step": per_step}
+    row["ok"] = (ok and fwd == per_step[0] * TRAIN_STEPS and bwd == per_step[1] * TRAIN_STEPS
+                 and by_kernel == {D128_FWD_KERNEL: fwd, D128_BWD_KERNEL: bwd})
+    _emit(row)
+    if not row["ok"]:
+        failures.append(f"vlm train main path: {row}")
+    torch.cuda.empty_cache()
+
+    # -- one step's loss and gradients: the card against the CPU, 2 layers, f32 -------
+    cfg2 = dataclasses.replace(base, n_layers=2, dtype="float32")
+    model2 = _matrices_at(registry.get(cfg2).init(torch.Generator(device=dev).manual_seed(seed),
+                                                  cfg2), 0.02, seed).cpu()
+    _train_cross_device("vlm train cross-device", cfg2, common.trainable(model2), seed, failures,
+                        seq=VLM_CROSS_SEQ)
+    del model2
+    torch.cuda.empty_cache()
+    return fwd, bwd, by_kernel
+
+
+# the port's examples and serving tools, run on the card through their
+# ``main(argv)`` at small sizes: (label, file, argv, the launch counter that
+# must move: a kernel of the card)
+EXAMPLE_RUNS = [
+    ("quickstart", "examples/torch/quickstart.py", [], "su3_mult_planar"),
+    ("serve_batched vlm", "examples/torch/serve_batched.py",
+     ["--arch", "internvl2-26b", "--tokens", "8"], "flash_attention"),
+    ("serve_batched whisper", "examples/torch/serve_batched.py",
+     ["--arch", "whisper-tiny", "--tokens", "8"], "flash_attention"),
+    ("train_lm vlm", "examples/torch/train_lm.py",
+     ["--arch", "internvl2-26b", "--steps", "4", "--batch", "2", "--seq-len", "64"],
+     "flash_attention_bwd"),
+    ("serve_lattices chain bf16", "examples/torch/serve_lattices.py",
+     ["--batch", "5", "--L", "4", "--chain", "4", "--bf16"], "su3_mult_planar"),
+]
+
+
+def _load_file(path: str):
+    """The module of the repository's file ``path``, loaded by path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(pathlib.Path(path).stem, ROOT / path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _run_main(label: str, path: str, argv: list[str], failures: list[str]) -> tuple[int, str]:
+    """``main(argv)`` of the file ``path`` (a module's name: of the module),
+    its standard output kept and printed, the counters set to 0 just before
+    and read just after; emits its row.  Returns its exit code and output;
+    an exception is a failure, its traceback printed."""
+    import importlib
+    import io
+    import traceback
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    _reset_counts()
+    try:
+        with contextlib.redirect_stdout(buf):
+            module = (_load_file(path) if path.endswith(".py")
+                      else importlib.import_module(path))
+            rc = module.main(argv)
+    except Exception:  # the run goes on to its other phases, and fails at the end
+        traceback.print_exc()
+        rc = -1
+    counts = _counts()
+    out = buf.getvalue()
+    print(out, end="")
+    _emit({"row": f"run {label}", "file": path, "argv": argv, "rc": rc,
+           "seconds": time.perf_counter() - t0, "launches": counts,
+           "flash_launches_by_kernel": _by_kernel()})
+    if rc != 0:
+        failures.append(f"{label}: {path} {argv} exited {rc}")
+    return rc, out
+
+
+def _tools_phase(failures: list[str]) -> None:
+    """The autotune CLI's sweeps at L=4 (``python -m repro_torch.core.autotune``
+    in process, a fresh cache under ``build/``), each example of
+    EXAMPLE_RUNS, ``serve_lattices.py --autotune`` twice (the second run
+    starts tuned from the first's cache), then ``profile_dispatch.py --quick
+    --trace`` and ``trace_report.py`` on that trace; each fails the run if it
+    exits non-zero, and each example if its kernel never launched."""
+    import shutil
+
+    from repro_torch.core import roofline
+
+    scratch = ROOT / "build" / "chip_smoke_tools"
+    shutil.rmtree(scratch, ignore_errors=True)
+    scratch.mkdir(parents=True)
+    rc, out = _run_main("autotune cli", "repro_torch.core.autotune",
+                        ["--L", "4", "--cache-dir", str(scratch / "autotune")], failures)
+    sections = ["== tile sweep", "== k sweep", "== layout sweep", "== pipeline sweep",
+                "best: TuneResult("]
+    ok = (rc == 0 and all(x in out for x in sections) and "'verified': False" not in out
+          and "v5e" not in out.lower() and "tpu" not in out.lower()
+          and f"model: {roofline.current_hardware().name}" in out)
+    _emit({"check": "autotune cli at L=4: every section, every row verified, no TPU constant",
+           "ok": ok})
+    if not ok:
+        failures.append("autotune cli: a section is missing, a row failed or a TPU constant "
+                        "was printed")
+    for label, path, argv, counter in EXAMPLE_RUNS:
+        rc, _ = _run_main(label, path, argv, failures)
+        if rc == 0 and not _counts()[counter]:
+            failures.append(f"{label}: ran no {counter} launch on the card")
+    tuned = ["--batch", "5", "--L", "4", "--autotune", "--cache-dir", str(scratch / "lattices")]
+    _, first = _run_main("serve_lattices autotune (measures)", "examples/torch/serve_lattices.py",
+                         tuned, failures)
+    _, second = _run_main("serve_lattices autotune (starts tuned)",
+                          "examples/torch/serve_lattices.py", tuned, failures)
+    plans = [next((line for line in text.splitlines() if line.startswith("plan:")), None)
+             for text in (first, second)]
+    if plans[0] is None or plans[0] != plans[1]:
+        failures.append(f"serve_lattices --autotune: the second run's plan {plans[1]} is not "
+                        f"the first's {plans[0]}")
+    trace = scratch / "dispatch.json"
+    _run_main("profile_dispatch", "scripts/torch/profile_dispatch.py",
+              ["--quick", "--json", str(scratch / "dispatch_rows.json"), "--trace", str(trace)],
+              failures)
+    rc, out = _run_main("trace_report", "scripts/torch/trace_report.py", [str(trace)], failures)
+    if rc == 0 and not ("profile.dispatch     20" in out and "backend=cuda" in out
+                        and "attribution (measured vs the roofline of" in out):
+        failures.append("trace_report: profile_dispatch's trace did not render its 20 spans, "
+                        "the card's provenance and the attribution")
 
 
 MULTISLAB_FORMS = [  # (label, hosts, layout, dtype, accum, compression)

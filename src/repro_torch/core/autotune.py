@@ -1,6 +1,10 @@
-"""SU3 autotune for the port: the multiply's roofline-pruned pipeline sweep,
-the stencil's (tile, overlap, depth) sweep, the CG iteration's (tile,
-fused) sweep, and their cache.
+"""SU3 autotune for the port: the multiply's roofline-pruned pipeline sweep
+and its marginal tile, k and layout sweeps, the stencil's (tile, overlap,
+depth) sweep, the CG iteration's (tile, fused) sweep, and their cache.
+
+    PYTHONPATH=src python -m repro_torch.core.autotune [--L 8] [--device cpu]
+
+prints the multiply's sweeps and its tuned config (:func:`main`).
 
 Port of ``repro.core.autotune``: enumerate a candidate grid, rank it with a
 roofline model, MEASURE only the top ``prune`` fraction, keep the best
@@ -31,6 +35,10 @@ What changed for Hopper:
   * **The cache.** Its own environment variable and directory (inside the
     checkout by default), and a device identity of the torch and CUDA
     versions, the card's name and its SM count.
+  * **The layout sweep.** There is no compiled HLO to count: the bytes of
+    a plain torch variant are counted op by op
+    (:func:`counted_bytes_for_variant`), and the bound is the card's HBM
+    rate, not the TPU's.
 
 The stencil and CG tuners follow the same pattern, on the plan's slabs:
 
@@ -69,11 +77,14 @@ import torch
 
 from repro_torch.core import roofline
 from repro_torch.core.su3 import layouts
+from repro_torch.core.su3 import registry as su3_registry
 from repro_torch.core.su3.engine import SU3Engine
 from repro_torch.core.su3.layouts import Layout
-from repro_torch.core.su3.plan import EngineConfig, build_plan, resolve_device, verify_tolerance
+from repro_torch.core.su3.plan import (EngineConfig, build_plan, cli_device, make_raw_step,
+                                       resolve_device, verify_tolerance)
 from repro_torch.distributed import sharding as dist_sharding
 from repro_torch.kernels import su3_matmul, su3_stencil
+from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import MeshSpec
 
 CACHE_ENV = "REPRO_TORCH_SU3_CACHE_DIR"
@@ -131,13 +142,19 @@ class PipelineCandidate:
     fused_k: int
 
 
-def _budget_fits(dtype: str, accum_dtype: str, compression: str) -> bool:
-    """The register gate: the kernel instantiation spills nothing and fits
-    at least one block per SM (on the current CUDA device)."""
-    budget = su3_matmul.kernel_budget(
+def _budget(dtype: str, accum_dtype: str, compression: str) -> dict[str, Any]:
+    """The multiply kernel's per-block budget for these dtypes (on the
+    current CUDA device)."""
+    return su3_matmul.kernel_budget(
         torch.float32 if dtype == "float32" else torch.bfloat16,
         accum_dtype or None, compression == "two_row",
     )
+
+
+def _budget_fits(dtype: str, accum_dtype: str, compression: str) -> bool:
+    """The register gate: the kernel instantiation spills nothing and fits
+    at least one block per SM (on the current CUDA device)."""
+    budget = _budget(dtype, accum_dtype, compression)
     return budget["local_bytes"] == 0 and budget["blocks_per_sm"] >= 1
 
 
@@ -297,6 +314,171 @@ def _ranked_sweep(cands: list, preds: list[dict[str, Any]], prune: float,
         rows.append(row)
     return {"rows": rows, "candidates_total": len(cands), "candidates_measured": n_meas,
             "prune": prune}
+
+
+# ---------------------------------------------------------------------------
+# Marginal sweeps: one axis at a time, exhaustive, for the CLI and diagnosis
+# (production tuning goes through the pruned joint pipeline_sweep)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class TuneResult:
+    """The tuned multiply as the CLI reports it: the winning ``config``
+    with its measured GFLOPS, its bytes per site as counted
+    (:func:`counted_bytes_for_variant`) and as modelled
+    (``TrafficModel``), the kernel's register ``budget`` on the card
+    (None on the CPU), and ``bound_gf``, the card's HBM-bound GFLOPS at the
+    config's arithmetic intensity.  The reference's HLO bytes, VMEM bytes
+    and TPU bound stand where the counted bytes, the budget and the card's
+    bound stand here."""
+
+    config: dict[str, Any]
+    measured_gflops: float
+    counted_bytes_per_site: float
+    model_bytes_per_site: float
+    budget: dict[str, Any] | None
+    bound_gf: float
+
+
+def _engine_config(L: int, dtype: str, tile: int, accum_dtype: str) -> EngineConfig:
+    return EngineConfig(L=L, dtype=dtype, variant="cuda", layout=Layout.SOA, tile=tile,
+                        accum_dtype=accum_dtype, iterations=2, warmups=1)
+
+
+def tile_sweep(
+    tiles: tuple[int, ...] = DEFAULT_TILES,
+    L: int = 8,
+    dtype: str = "float32",
+    accum_dtype: str = "",
+    device: torch.device | str | None = None,
+) -> list[dict]:
+    """Site padding, the register budget and the measured engine time per
+    tile, at k=1.
+
+    ``tile`` sets only the padding (and the AoSoA lane): the kernel's block
+    is fixed, so each row reports the sites the kernel runs, the padded
+    ones among them, and the one kernel's budget (registers, spill, blocks
+    per SM; ``fits_budget`` is the pipeline's gate), where the reference
+    reports each tile's VMEM working set against the TPU's.  On the CPU the
+    plain version has no budget: its fields are None.
+    """
+    dev = resolve_device(device)
+    gate: dict[str, Any] = dict.fromkeys(("num_regs", "local_bytes", "blocks_per_sm",
+                                          "fits_budget"))
+    if dev.type == "cuda":
+        b = _budget(dtype, accum_dtype, "none")
+        gate = {"num_regs": b["num_regs"], "local_bytes": b["local_bytes"],
+                "blocks_per_sm": b["blocks_per_sm"],
+                "fits_budget": b["local_bytes"] == 0 and b["blocks_per_sm"] >= 1}
+    rows = []
+    for tile in tiles:
+        r = SU3Engine(_engine_config(L, dtype, tile, accum_dtype), dev).run()
+        padded = -(-L**4 // tile) * tile
+        rows.append({"tile": tile, "padded_sites": padded, "pad_sites": padded - L**4, **gate,
+                     "measured_gflops": round(r.gflops, 3), "verified": r.verified})
+    return rows
+
+
+def k_sweep(
+    ks: tuple[int, ...] = DEFAULT_KS,
+    L: int = 8,
+    dtype: str = "float32",
+    tile: int = 512,
+    accum_dtype: str = "",
+    device: torch.device | str | None = None,
+) -> list[dict]:
+    """Measured per-multiply GFLOPS of the fused chain at each depth K.
+
+    The fused step amortizes one launch and one HBM round trip over K
+    multiplies; where the knee lies depends on the device and L, so it is
+    measured, and ``best_config`` keeps the winner beside the tile.
+    """
+    dev = resolve_device(device)
+    rows = []
+    for k in ks:
+        r = SU3Engine(_engine_config(L, dtype, tile, accum_dtype), dev).run_fused(k=k, reps=2)
+        rows.append({"k": k, "measured_gflops": round(r.gflops, 3), "verified": r.verified})
+    return rows
+
+
+LAYOUT_ROWS = (  # (variant, layout, dtype, accum_dtype, compression)
+    ("versionX", Layout.AOS, "float32", "", "none"),
+    ("versionX", Layout.SOA, "float32", "", "none"),
+    ("version_gemm", Layout.SOA, "float32", "", "none"),
+    ("cuda", Layout.SOA, "float32", "", "none"),
+    ("cuda", Layout.SOA, "bfloat16", "float32", "none"),
+    ("cuda", Layout.SOA, "float32", "", "two_row"),
+    ("cuda", Layout.SOA, "bfloat16", "float32", "two_row"),
+)
+
+
+def counted_bytes_for_variant(
+    variant: str,
+    layout: Layout,
+    n_sites: int = 4096,
+    tile: int = 512,
+    dtype: str = "float32",
+    accum_dtype: str = "",
+    compression: str = "none",
+) -> float:
+    """Bytes per site of one physical plan step, counted on the CPU.
+
+    A variant that runs plain torch ops (``versionX``, ``version_gemm``:
+    the codec's unpack, the multiply, the pack) is run once on packed zero
+    operands under the dry run's op byte counter
+    (:func:`repro_torch.launch.dryrun.op_bytes`): every aten op's operands
+    and results, the eager path's traffic with no fusion.  A CUDA variant
+    keeps a site's product in registers, so its count is that of its one
+    launch's operands: the packed A read and C written once each, at their
+    padded size and storage width, and B read once; its plain version's
+    ops, which run on the CPU, are not counted.  The reference lowers
+    each step through XLA and counts HLO bytes instead.
+    """
+    codec = layouts.make_codec(layout, tile=tile, dtype=dtype, accum_dtype=accum_dtype,
+                               compression=layouts.GaugeCompression(compression))
+    padded = n_sites + (-n_sites) % tile
+    a_phys = codec.pack(torch.zeros((padded, 4, 3, 3), dtype=torch.complex64)).contiguous()
+    b_p = codec.pack_b(torch.zeros((4, 3, 3), dtype=torch.complex64))
+    entry = su3_registry.get_kernel(variant)
+    if entry.form == su3_registry.PLANAR:
+        moved = 2 * a_phys.numel() * a_phys.element_size() + b_p.numel() * b_p.element_size()
+    else:
+        step = make_raw_step(codec, entry, tile=tile)
+        moved = dryrun.op_bytes(lambda: step(a_phys, b_p))
+    return moved / padded
+
+
+def layout_sweep(n_sites: int = 4096, hw: roofline.HardwareSpec = roofline.H100_SXM) -> list[dict]:
+    """The paper's AoS -> SoA traffic claim, counted per variant.
+
+    Each row has the ``TrafficModel``'s bytes per site (read A, write C),
+    the bytes counted by :func:`counted_bytes_for_variant` (the eager ops'
+    traffic for a plain torch variant; for a CUDA variant its launch's
+    operands, A and C once and B once, not a measurement of the kernel),
+    the arithmetic intensity, and ``hbm_bound_gf``, the rate ``hw``'s HBM
+    allows at that intensity (the H100 SXM's by default).  The bf16-storage
+    / f32-accumulate and the two-row rows stream 2-byte and 48-word sites.
+    """
+    rows = []
+    for variant, layout, dtype, accum, comp in LAYOUT_ROWS:
+        tm = layouts.TrafficModel.for_dtype(layout, n_sites, dtype,
+                                            compression=layouts.GaugeCompression(comp))
+        counted = counted_bytes_for_variant(variant, layout, n_sites, dtype=dtype,
+                                            accum_dtype=accum, compression=comp)
+        rows.append({
+            "variant": variant, "layout": layout.value, "dtype": dtype,
+            "accum_dtype": accum or dtype, "compression": comp,
+            "model_bytes_per_site": tm.bytes_per_site_rw,
+            "counted_bytes_per_site": round(counted, 1),
+            "counted_by": ("kernel operands"
+                           if su3_registry.get_kernel(variant).form == su3_registry.PLANAR
+                           else "aten ops"),
+            "ai": round(tm.arithmetic_intensity, 3),
+            "hbm_bound_gf": round(hw.hbm_bw * tm.arithmetic_intensity / 1e9, 1),
+            "hw": hw.name,
+        })
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1103,3 +1285,55 @@ def best_cg_config(
 
     return _tuned(key, sweep, lambda rows: max(rows, key=lambda r: r["measured_gflops"]),
                   config, cache, cache_directory)
+
+
+def main(argv: list[str] | None = None) -> int:
+    """Print the tile, k and layout sweeps, the pipeline sweep and the
+    tuned config (``best_config``, through the cache) as a
+    :class:`TuneResult`, measured on ``--device`` (the card by default).
+
+        PYTHONPATH=src python -m repro_torch.core.autotune [--L 8] [--device cpu]
+    """
+    import argparse
+
+    ap = argparse.ArgumentParser(description="the SU3 multiply's sweeps and tuned config")
+    ap.add_argument("--L", type=int, default=8, help="lattice extent of the measured engines")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu: the plain versions")
+    ap.add_argument("--cache-dir", default=None,
+                    help=f"the tuned config's cache (default: ${CACHE_ENV} or {DEFAULT_CACHE_DIR})")
+    args = ap.parse_args(argv)
+    dev = cli_device(args.device)
+    hw = roofline.current_hardware() if dev.type == "cuda" else None
+    if dev.type == "cuda" and hw is None:
+        raise LookupError(f"no Hopper spec for {torch.cuda.get_device_name(dev)}")
+    hw = hw or roofline.H100_SXM  # on the CPU the model ranks for the H100 SXM
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    print(f"device: {name}; model: {hw.name}; L={args.L}")
+    print("== tile sweep (site padding; the kernel's register budget) ==")
+    for r in tile_sweep(L=args.L, device=dev):
+        print("  ", r)
+    print("== k sweep (fused chain depth) ==")
+    for r in k_sweep(L=args.L, device=dev):
+        print("  ", r)
+    print("== layout sweep (traffic) ==")
+    counted = layout_sweep(hw=hw)
+    for r in counted:
+        print("  ", r)
+    print("== pipeline sweep (roofline-pruned joint (tile, fused_k)) ==")
+    for r in pipeline_sweep(L=args.L, hw=hw, device=dev)["rows"]:
+        print("  ", r)
+    best = best_config(L=args.L, cache_directory=args.cache_dir, hw=hw, device=dev)
+    entry = load_cache(args.cache_dir)[_keyed("soa", args.L, "float32", "", "none", dev)]
+    soa = next(r for r in counted if (r["variant"], r["dtype"], r["compression"])
+               == ("cuda", "float32", "none"))
+    print("best:", TuneResult(
+        config=best, measured_gflops=entry["measured_gflops"],
+        counted_bytes_per_site=soa["counted_bytes_per_site"],
+        model_bytes_per_site=soa["model_bytes_per_site"],
+        budget=_budget("float32", "", "none") if dev.type == "cuda" else None,
+        bound_gf=soa["hbm_bound_gf"]))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

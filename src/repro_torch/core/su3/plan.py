@@ -165,6 +165,17 @@ def resolve_device(device: torch.device | str | None) -> torch.device:
     return torch.device(device)
 
 
+def cli_device(name: str) -> torch.device:
+    """The device a command line's ``--device`` names: ``"cuda"`` is the
+    card, which must exist (as ``resolve_device(None)``); any other name is
+    taken as given.
+
+    Raises:
+        RuntimeError: ``name`` is ``"cuda"`` and CUDA is not available.
+    """
+    return resolve_device(None if name == "cuda" else name)
+
+
 def init_canonical(
     n_sites: int, device: torch.device | str = "cpu"
 ) -> tuple[torch.Tensor, torch.Tensor]:

@@ -46,7 +46,7 @@ import subprocess
 import sys
 import tempfile
 import time
-from typing import Any
+from typing import Any, Callable
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -245,6 +245,15 @@ class _ByteCounter(TorchDispatchMode):
                     self.bytes += sum(t.numel() * t.element_size() for t in x
                                       if isinstance(t, torch.Tensor))
         return out
+
+
+def op_bytes(fn: Callable[[], Any]) -> int:
+    """The bytes every aten op of one call ``fn()`` reads and writes, as
+    :func:`trace_cell` counts them (:class:`_ByteCounter`; a flash plain
+    version counts the bytes its kernel moves)."""
+    with _kernel_traffic() as tally, _ByteCounter(tally) as moved:
+        fn()
+    return moved.bytes + tally.bytes
 
 
 def _meta_params(cfg: ModelConfig, api, dtype: str):

@@ -55,7 +55,17 @@ class ServeEngine:
                                    getattr(torch, self.scfg.cache_dtype), self.device)
 
     def prefill(self, batch: dict[str, torch.Tensor], state: Any) -> tuple[torch.Tensor, Any]:
-        """Last-position logits of the prompts; writes the cache."""
+        """Last-position logits of the prompts; writes the cache.
+
+        Raises:
+            ValueError: the batch carries ``patches`` and its prompts are
+                shorter than the ``n_patches`` positions the patches
+                replace (the reference fails there with a shape error).
+        """
+        plen = batch["tokens"].shape[1]
+        if self.cfg.n_patches and "patches" in batch and plen < self.cfg.n_patches:
+            raise ValueError(f"a prompt of {plen} tokens is shorter than the "
+                             f"{self.cfg.n_patches} positions its patches replace")
         m = self.scfg.max_len
         return self.api.prefill(self.params, batch, state, self.cfg,
                                 q_chunk=min(512, m), kv_chunk=min(1024, m))
@@ -86,7 +96,15 @@ class ServeEngine:
     def generate(
         self, prompts: np.ndarray, n_new_tokens: int, extras: dict[str, Any] | None = None
     ) -> np.ndarray:
-        """prompts: (B, prompt_len) int32 -> (B, prompt_len + n_new_tokens)."""
+        """prompts: (B, prompt_len) int32 -> (B, prompt_len + n_new_tokens).
+
+        ``extras`` are the family's stub inputs (a VLM's ``patches``, an
+        encoder-decoder's ``frames``), moved to the device for prefill.
+
+        Raises:
+            ValueError: the tokens exceed ``max_len``, or (from
+                :meth:`prefill`) the prompts cannot hold their patches.
+        """
         b, plen = prompts.shape
         if plen + n_new_tokens > self.scfg.max_len:
             raise ValueError(f"{plen} + {n_new_tokens} tokens exceed max_len {self.scfg.max_len}")

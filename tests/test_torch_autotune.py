@@ -148,3 +148,81 @@ def test_exhaustive_choice_matches_reference(tmp_path, monkeypatch):
     assert sorted(tcalls) == sorted(jcalls)
     assert (got["tile"], got["fused_k"]) == (want["tile"], want["fused_k"]) == (1024, 2)
     assert got["compression"] == want["compression"] == "none"
+
+
+# -- the marginal sweeps and the CLI, on the CPU's plain versions -------------------------
+
+
+def test_tile_sweep_reports_padding_and_no_budget_on_the_cpu():
+    rows = autotune.tile_sweep(tiles=(16, 128), L=2, device="cpu")
+    assert [(r["tile"], r["padded_sites"], r["pad_sites"]) for r in rows] == \
+        [(16, 16, 0), (128, 128, 112)]
+    for r in rows:  # at 16 sites a loaded host's time rounds to 0.000 GFLOPS
+        assert r["verified"] and r["measured_gflops"] >= 0
+        # the plain version has no register budget: no gate on the CPU
+        assert r["num_regs"] is r["local_bytes"] is r["blocks_per_sm"] is r["fits_budget"] is None
+        assert not any("vmem" in key for key in r)
+
+
+def test_k_sweep_runs_every_depth_on_the_cpu():
+    rows = autotune.k_sweep(ks=(1, 3), L=2, tile=16, device="cpu")
+    assert [r["k"] for r in rows] == [1, 3]
+    assert all(r["verified"] and r["measured_gflops"] >= 0 for r in rows)
+
+
+def test_layout_sweep_counts_bytes_beside_the_traffic_model():
+    """Each row's model bytes and intensity are the reference's
+    ``TrafficModel``'s; a CUDA variant's counted bytes are its launch's
+    operands (A and C once each, B once: 288 bytes over the sites beside the
+    model's), a plain torch variant's the eager ops' (more than the model's);
+    the bound is the H100 SXM's HBM rate at the intensity."""
+    from repro.core.su3 import layouts as jlayouts
+
+    n = 4096
+    rows = autotune.layout_sweep(n_sites=n)
+    assert [(r["variant"], r["layout"], r["dtype"], r["accum_dtype"], r["compression"])
+            for r in rows] == [(v, lay.value, d, a or d, c)
+                               for v, lay, d, a, c in autotune.LAYOUT_ROWS]
+    assert [r["model_bytes_per_site"] for r in rows] == [640, 576, 576, 576, 288, 384, 192]
+    for r in rows:
+        tm = jlayouts.TrafficModel.for_dtype(jlayouts.Layout(r["layout"]), n, r["dtype"],
+                                             compression=jlayouts.GaugeCompression(
+                                                 r["compression"]))
+        assert (r["model_bytes_per_site"], r["ai"]) == (tm.bytes_per_site_rw,
+                                                         round(tm.arithmetic_intensity, 3))
+        assert r["hbm_bound_gf"] == round(HW.hbm_bw * tm.arithmetic_intensity / 1e9, 1)
+        assert r["hw"] == "h100_sxm" and not any("v5e" in key for key in r)
+        if r["variant"] == "cuda":
+            b_bytes = 2 * 36 * (2 if r["dtype"] == "bfloat16" else 4)
+            assert r["counted_by"] == "kernel operands"
+            assert r["counted_bytes_per_site"] == round(r["model_bytes_per_site"] + b_bytes / n, 1)
+        else:
+            assert r["counted_by"] == "aten ops"
+            assert r["counted_bytes_per_site"] > r["model_bytes_per_site"]
+    # the paper's claim: AoS streams more than SoA, in the model and as counted
+    aos, soa = rows[0], rows[1]
+    assert aos["model_bytes_per_site"] > soa["model_bytes_per_site"]
+    assert aos["counted_bytes_per_site"] > soa["counted_bytes_per_site"]
+
+
+def test_autotune_cli_on_the_cpu(tmp_path, capsys):
+    """``python -m repro_torch.core.autotune`` at the smallest L: the three
+    marginal sweeps, the pipeline sweep, then the tuned config, measured the
+    first time and read from the cache the second; no TPU constant."""
+    argv = ["--L", "2", "--device", "cpu", "--cache-dir", str(tmp_path)]
+    assert autotune.main(argv) == 0
+    out = capsys.readouterr().out
+    for section in ("== tile sweep", "== k sweep", "== layout sweep", "== pipeline sweep",
+                    "best: TuneResult("):
+        assert section in out, section
+    assert "device: cpu; model: h100_sxm; L=2" in out and "'cached': False" in out
+    assert "v5e" not in out.lower() and "tpu" not in out.lower()
+    assert (tmp_path / autotune.CACHE_FILE).exists()
+    assert autotune.main(argv) == 0
+    assert "'cached': True" in capsys.readouterr().out
+
+
+def test_autotune_cli_needs_cuda_unless_told_cpu(monkeypatch):
+    monkeypatch.setattr(autotune.torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        autotune.main(["--L", "2"])

@@ -1439,3 +1439,81 @@ def test_cuda_reduced_family_train_step_matches_the_cpu(cuda_device, arch):
     for name, g in grads.items():
         err = (cgrads[name].cpu().double() - g.double()).abs().max().item()
         assert err <= 1e-3 * max(g.abs().max().item(), floor), name
+
+
+# -- the VLM family ----------------------------------------------------------------------
+
+
+def _vlm_patches(cfg, batch: int, seed: int) -> np.ndarray:
+    return np.random.default_rng(seed).standard_normal((batch, cfg.n_patches, cfg.d_model),
+                                                       dtype=np.float32)
+
+
+@pytest.mark.cuda
+def test_cuda_vlm_reduced_serves_like_the_cpu(cuda_device):
+    """internvl2-26b reduced (16 patch positions, 4/2 heads of 32, f32,
+    TF32 off; matrices at std 0.02) with the same seeded patches on both
+    devices: one flash launch per layer in prefill and none in decode; the
+    greedy tokens equal the CPU's, and twice the same on the card; a
+    24-token prefill and 5 decode steps of those tokens: the logits and
+    every KV cache leaf within 1e-3 of their max."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg, model = _reduced_at("internvl2-26b")
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 24), dtype=np.int32)
+    patches = _vlm_patches(cfg, 2, seed=1)
+    cpu = ServeEngine(cfg, copy.deepcopy(model), ServeConfig(max_len=40), device="cpu")
+    card = ServeEngine(cfg, model, ServeConfig(max_len=40), device=cuda_device)
+    want = cpu.generate(prompts, 6, extras={"patches": patches})
+    before = fa.LAUNCHES.count
+    got = card.generate(prompts, 6, extras={"patches": patches})
+    assert fa.LAUNCHES.count - before == cfg.n_layers
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(card.generate(prompts, 6, extras={"patches": patches}), got)
+    toks = torch.from_numpy(want)
+    found = []
+    for eng in (cpu, card):
+        t, p = toks.to(eng.device), torch.from_numpy(patches).to(eng.device)
+        lg, state = eng.prefill({"tokens": t[:, :24], "patches": p}, eng.init_state(2))
+        out = [lg]
+        for i in range(5):
+            lg, state = eng.decode(t[:, 24 + i:25 + i], state, 24 + i)
+            out.append(lg)
+        found.append((torch.cat(out, 1), state))
+    (lc, sc), (lg, sg) = found
+    assert _max_share(lg, lc) <= 1e-3
+    for i, (a, b) in enumerate(zip(_leaves(sg), _leaves(sc))):
+        assert a.is_cuda and _max_share(a, b) <= 1e-3, i
+
+
+@pytest.mark.cuda
+def test_cuda_vlm_reduced_train_step_matches_the_cpu(cuda_device):
+    """One step's loss and gradients on the pipeline's patches (drawn on the
+    CPU and moved, so both devices train on the same) through the flash
+    forward (twice a layer: remat) and backward (once a layer), against the
+    CPU, f32, TF32 off: within 1e-4 (loss, relative) and 1e-3 of each leaf's
+    max; the card's gradients and metrics twice, the same bits."""
+    from repro_torch.data.pipeline import DataConfig, PipelineState, TokenPipeline, make_train_batch
+    from repro_torch.train import train_step
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg, model = _reduced_at("internvl2-26b")
+    model = common.trainable(model)
+    card = copy.deepcopy(model).to(cuda_device)
+    pipe = TokenPipeline(DataConfig(cfg.vocab_size, 64, 2, seed=1))
+    grad_fn = train_step.make_grad_fn(cfg, q_chunk=32, kv_chunk=32)
+    grads, metrics = grad_fn(model, make_train_batch(pipe, PipelineState(), cfg)[0])
+    batch = make_train_batch(pipe, PipelineState(), cfg, device=cuda_device)[0]
+    assert torch.equal(batch["patches"].cpu(), make_train_batch(pipe, PipelineState(), cfg)[0][
+        "patches"])
+    fwd, bwd = fa.LAUNCHES.count, fa.BWD_LAUNCHES.count
+    cgrads, cmetrics = grad_fn(card, batch)
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES.count - fwd, fa.BWD_LAUNCHES.count - bwd) == (2 * cfg.n_layers,
+                                                                      cfg.n_layers)
+    again, ametrics = grad_fn(card, batch)
+    assert all(torch.equal(again[n], g) for n, g in cgrads.items())
+    assert all(torch.equal(ametrics[k], v) for k, v in cmetrics.items())
+    assert abs(cmetrics["loss"].item() - metrics["loss"].item()) <= 1e-4 * metrics["loss"].item()
+    for name, g in grads.items():
+        err = (cgrads[name].cpu().double() - g.double()).abs().max().item()
+        assert err <= 1e-3 * g.abs().max().item(), name
