@@ -91,23 +91,23 @@ source, started together) and, at the paper's L=32 lattice:
     (``distributed.pipeline``), 4 microbatches of 512 tokens in bf16:
     outputs and gradients of a sum-of-squares loss bitwise against the
     sequential pass, launches and peak memory;
-  * the zamba phase: full-width, full-depth zamba2-1.2b (38 Mamba2
-    layers, one shared attention block applied after every 6: 6
-    applications at 32/32 heads of 64, G = 1; 1.17 B parameters, nothing
-    cut; random weights from the seed, f32 states) through ``ServeEngine``
-    as above (bf16, matrices at std 0.02; 6 flash launches in prefill, none
+  * the zamba phase: full-width zamba2-1.2b cut from 38 to 14 Mamba2
+    layers (``ZAMBA_DEPTH``, for the time limit; the shared attention
+    block applied after every 6: 2 applications at 32/32 heads of 64, G =
+    1; random weights from the seed, f32 states) through ``ServeEngine``
+    as above (bf16, matrices at std 0.02; 2 flash launches in prefill, none
     in decode; decode against one cache-less teacher forward over the
     served tokens padded to a multiple of the SSD's chunk, also at the
     reference's init rule in f32; the launches of one Mamba2
     layer and one shared application) and ``train.loop.train`` as above
-    (6 flash forward and 6 backward launches a step; one step twice
+    (2 flash forward and 2 backward launches a step; one step twice
     bitwise); the card against the CPU on a full-width cut of 3 layers
     (matrices at std 0.02): logits and every state leaf, one step's loss
     and gradients; resume bitwise; the flash forward (B=4) and backward
     (B=2, the training shape) at S=1,024, H=32, D=64, G=1 against their
     plain versions, SDPA and their bounds;
-  * the xLSTM phase: full-width xlstm-125m cut to its first 6 blocks
-    (sLSTM at 5; ``XLSTM_DEPTH``, for the time limit); bf16, f32 cells
+  * the xLSTM phase: full-width xlstm-125m cut to its first 2 blocks
+    (one mLSTM, one sLSTM; ``XLSTM_DEPTH``, for the time limit); bf16, f32 cells
     and states; no kernel of the port: both cells step through time in
     plain PyTorch) through ``ServeEngine`` as above (decode against one
     state-less teacher forward over the served tokens; the launches of one
@@ -133,17 +133,22 @@ source, started together) and, at the paper's L=32 lattice:
     ``python -m repro_torch.launch.dryrun`` (``meta`` tensors; at once), and
     ``--su3-fig7 --L 32 --device-counts 1,2,4 --controllers 2``: two
     controller processes on the card, no divergence;
-  * the VLM phase: full-width, full-depth internvl2-26b (48 layers, 48/8
-    heads of 128: G = 6; 256 stub patch positions; 19.86 B parameters,
-    bf16, matrices at std 0.02) through ``ServeEngine`` as above, with
-    seeded random patches drawn on the CPU and moved (48 launches of
-    ``flash_group_fwd<128>`` in prefill, none in decode; decode against one
-    cache-less teacher pass on the same patches; the peak memory beside its
-    prediction), and the card against the CPU at 2 layers in f32;
-    ``train.loop.train`` at full width on its first 6 layers
-    (``VLM_TRAIN_REDUCED``; 12 forward and 6 backward launches a step, by
-    kernel; the step's gradients twice bitwise), one step's loss and
-    gradients on the card against the CPU at 2 layers in f32;
+  * the wide phase (``WIDE_ARCHS``): full-width internvl2-26b (48 layers,
+    48/8 heads of 128: G = 6; 256 stub patch positions; 19.86 B
+    parameters), yi-6b (32 layers, 32/4 heads: G = 8; 6.06 B), minitron-8b
+    (32 layers, 32/8 heads: G = 4; a 256,000-wide separate head; 9.88 B)
+    and granite-34b (MQA, 48 heads on one kv head: G = 48; cut from 88 to
+    64 layers, 34.53 B), each bf16 with matrices at std 0.02, through
+    ``ServeEngine`` as above (the VLM's seeded random patches drawn on the
+    CPU and moved; one launch of ``flash_group_fwd<128>`` a layer in
+    prefill, none in decode; decode against one cache-less teacher pass;
+    the peak memory beside its prediction), and the card against the CPU at
+    2 layers in f32; ``train.loop.train`` at full width on a cut depth
+    (internvl2-26b 6 layers, yi-6b 20, minitron-8b 6, granite-34b 6; each
+    in its row's ``reduced``; 2 forward and 1 backward launches a layer a
+    step, by kernel; the step's gradients twice bitwise; the peak memory
+    beside its prediction), one step's loss and gradients on the card
+    against the CPU at 2 layers in f32 (the host's memory beside it);
   * the tools phase: ``python -m repro_torch.core.autotune --L 4`` in
     process (every sweep, no TPU constant), each of ``examples/torch/``
     through its ``main(argv)`` at a small size (each must launch its
@@ -160,9 +165,11 @@ source, started together) and, at the paper's L=32 lattice:
     graph times weighted by each shape's main-path launches; then the bf16
     kernels at D=128 (``flash_group_fwd<128>``, ``flash_bwd_delta_vec<128>``
     and the persistent ``flash_bwd_d128``) against their plain versions at
-    every D=128 architecture's heads (G = 4, 8, 6, 48), and rows 5 and 5b
-    (qwen3-4b's prefill and training shapes) timed the same way, with the
-    two rows weighted by their main-path launches;
+    every D=128 architecture's heads (G = 4, 8, 6, 48), and every D=128
+    main-path shape timed the same way (rows 5 and 5b: qwen3-4b's and
+    minitron-8b's prefill and training shapes; 5-yi, 5-internvl,
+    5-granite and their backward rows), with the rows weighted by their
+    main-path launches;
   * times each kernel against its bound, its plain version and, where one
     PyTorch call computes the same function, that call (every time in the
     kernels line from eager calls; the flash kernel and SDPA also in a CUDA
@@ -180,10 +187,11 @@ It prints:
     too;
   * one JSON line per check, per main-path row and per yardstick;
   * a ``{"flash_rows": {...}}`` line: the flash rows PERF.md's kernels
-    table compares (rows 5 and 5b at D=128, 5-64, 5-zamba, 5-whisper
+    table compares (rows 5 and 5b at D=128, 5-yi, 5-internvl, 5-granite
+    and their 5b rows, 5-64, 5-zamba, 5-whisper
     encoder and cross, 5b-64, 5b-zamba, 5b-whisper encoder, cross and self,
     5-mla, 5b-mla; ms, library ms, bound, and the backward's kernels by
-    name; the launch-weighted sums of rows 5 and 5b and of the D=64
+    name; the launch-weighted sums of the D=128 rows and of the D=64
     backward rows);
   * a ``{"kernels": [...]}`` line with each ported kernel's numbers (the
     flash backward beside the forward, the bf16 forward and backward at
@@ -340,12 +348,18 @@ MLA_FORMS = [
     ("q_offset 1024 bf16", 2, 64, 1088, 16, 1, True, 1024, "bfloat16"),
     ("ragged q_offset 200 f32", 1, 100, 300, 8, 1, True, 200, "float32"),
 ]
-# the zamba phase: zamba2-1.2b at full width and depth (38 Mamba2 layers of
-# d_model 2,048, d_inner 4,096, 64 SSM heads of 64, state 64, conv 4; one
-# shared attention + SwiGLU block of 32/32 heads of 64 and d_ff 8,192 after
-# every 6 layers: 6 applications; vocab 32,000), served and trained at the
-# LM and training shapes above; 1.17 B parameters, nothing cut
+# the zamba phase: zamba2-1.2b at full width (38 Mamba2 layers of d_model
+# 2,048, d_inner 4,096, 64 SSM heads of 64, state 64, conv 4; one shared
+# attention + SwiGLU block of 32/32 heads of 64 and d_ff 8,192 after every 6
+# layers: 6 applications; vocab 32,000; 1.17 B parameters), served and
+# trained at the LM and training shapes above
 ZAMBA_ARCH = "zamba2-1.2b"
+# its first 14 layers: the shared block after layers 6 and 12, then a tail
+# of 2; the whole depth took ~100 s of the smoke (host-bound: 51,911
+# launches a training step), and the smoke gained the wide phase
+ZAMBA_DEPTH = {"n_layers": 14}
+ZAMBA_REDUCED = {"n_layers": "38 -> 14 (the shared block after layers 6 and 12, a tail of 2): "
+                             "the smoke's time limit"}
 # the card against the CPU: full width, 2 Mamba2 layers, one shared
 # application and a tail layer, f32
 ZAMBA_CUT = {"n_layers": 3, "hybrid_attn_every": 2}
@@ -354,10 +368,11 @@ ZAMBA_CUT = {"n_layers": 3, "hybrid_attn_every": 2}
 # 50,304; 212.0 M parameters by the spec), served and trained at the LM and
 # training shapes above; nothing cut.  It reaches no kernel of the port.
 XLSTM_ARCH = "xlstm-125m"
-# its first 6 blocks (sLSTM at 5, as published): a whole-depth step took
-# 32-54 s, and the smoke gained the MLA training, GPipe and dry-run phases
-XLSTM_DEPTH = {"n_layers": 6, "slstm_layers": (5,)}
-XLSTM_REDUCED = {"n_layers": "12 -> 6 (sLSTM at 5): the smoke's time limit"}
+# its first 2 blocks, one mLSTM and one sLSTM (XLSTM_CUT): a whole-depth step
+# took 32-54 s, 6 blocks 161-185 s of the smoke, and the smoke gained the MLA
+# training, GPipe, dry-run, VLM and dense phases
+XLSTM_DEPTH = {"n_layers": 2, "slstm_layers": (1,)}
+XLSTM_REDUCED = {"n_layers": "12 -> 2 (mLSTM at 0, sLSTM at 1): the smoke's time limit"}
 # a training step makes ~1 M eager launches (30-50 s); 3 steps instead of 5,
 # and the step twice on a quarter of the tokens, keep the whole smoke inside
 # its time limit
@@ -401,6 +416,29 @@ VLM_TRAIN_REDUCED = {"n_layers": "48 -> 6: the training state of all 48 layers (
 # the card against the CPU: 2 layers of full width in f32 over the 256 patch
 # positions and 64 tokens after them
 VLM_CROSS_SEQ = 256 + 64
+# the D=128 architectures served and trained at full width beside qwen3-4b
+# (``_wide_phase``): (tag, arch, served layers, their cut, trained layers,
+# their cut, tokens of the card-against-CPU step).  yi-6b: 32 layers of
+# d_model 4,096, 32/4 heads of 128 (G = 8), d_ff 11,008, vocab 64,000, 6.06 B;
+# minitron-8b: 32 layers of 4,096, 32/8 heads (G = 4), d_ff 16,384, vocab
+# 256,000 with a separate head (2.10 B of its 9.88 B are embedding and head);
+# granite-34b: 88 layers of 6,144, 48 heads on one kv head (MQA, G = 48),
+# d_ff 24,576, vocab 49,152, 47.25 B.  Training keeps 16.2-16.9 bytes a
+# parameter (``_train_peak_gb``): the cuts below keep each under ~67 GB
+WIDE_ARCHS = [
+    ("vlm", VLM_ARCH, 48, {}, VLM_TRAIN_LAYERS, VLM_TRAIN_REDUCED, VLM_CROSS_SEQ),
+    ("yi-6b", "yi-6b", 32, {}, 20,
+     {"n_layers": "32 -> 20: the training state of all 32 layers (6.06 B parameters at "
+                  "~16.5 bytes each, ~100 GB) does not fit one card"}, TRAIN_CROSS_SEQ),
+    ("minitron-8b", "minitron-8b", 32, {}, 6,
+     {"n_layers": "32 -> 6: the training state of all 32 layers (9.88 B parameters, ~163 GB) "
+                  "does not fit one card; the 2.10 B of embedding and head stay whole"},
+     TRAIN_CROSS_SEQ),
+    ("granite-34b", "granite-34b", 64,
+     {"n_layers": "88 -> 64: 47.25 B parameters are 94.5 GB in bf16, over one card's 80 GB"}, 6,
+     {"n_layers": "88 -> 6: the training state of all 88 layers (47.25 B parameters, ~780 GB) "
+                  "does not fit one card"}, TRAIN_CROSS_SEQ),
+]
 # the forms whose backward is checked too: training's shapes, and the f32
 # ones of the card-against-CPU training check
 WHISPER_BWD_FORMS = [f for f in WHISPER_FORMS if "training" in f[0] or f[0].endswith("encoder f32")]
@@ -432,12 +470,21 @@ FLASH_ERRS: dict[str, float] = {}
 # ``flash_attention.LAUNCHES_BY_KERNEL`` names them
 D128_FWD_KERNEL, D128_BWD_KERNEL = "flash_group_fwd<128>", "flash_bwd_d128"
 D128_ARCHS = ("qwen3-4b", "yi-6b", "minitron-8b", "granite-34b", "internvl2-26b")
-# rows 5 and 5b: qwen3-4b's prefill (B=4) and training (B=2) shapes, timed in
-# turns beside SDPA (``_group_fwd_yardsticks``, ``_group_bwd_yardsticks``):
-# (row, arch, batch, sq, skv, hq, hkv, causal, main-path launches: serving
-# 36 + training 360 + GPipe 144 forward, training 180 + GPipe 144 backward)
-D128_ROWS = [("5 D=128", "qwen3-4b", 4, 1024, 1024, 32, 8, True, 540)]
-D128_BWD_ROWS = [("5b D=128", "qwen3-4b", 2, 1024, 1024, 32, 8, True, 324)]
+# the D=128 shapes of the main paths, prefill (B=4) and training (B=2), timed
+# in turns beside SDPA (``_group_fwd_yardsticks``, ``_group_bwd_yardsticks``):
+# (row, arch, batch, sq, skv, hq, hkv, causal, main-path launches).  Rows 5
+# and 5b: qwen3-4b's heads, which minitron-8b shares (serving 36 + 32,
+# training 360 + 60, GPipe 144 forward; training 180 + 30, GPipe 144
+# backward); yi-6b's G = 8 (32 + 200; 100), internvl2-26b's G = 6 (48 + 60;
+# 30), granite-34b's G = 48 (64 + 60; 30), 5 training steps each
+D128_ROWS = [("5 D=128", "qwen3-4b, minitron-8b", 4, 1024, 1024, 32, 8, True, 632),
+             ("5-yi", "yi-6b", 4, 1024, 1024, 32, 4, True, 232),
+             ("5-internvl", "internvl2-26b", 4, 1024, 1024, 48, 8, True, 108),
+             ("5-granite", "granite-34b", 4, 1024, 1024, 48, 1, True, 124)]
+D128_BWD_ROWS = [("5b D=128", "qwen3-4b, minitron-8b", 2, 1024, 1024, 32, 8, True, 354),
+                 ("5b-yi", "yi-6b", 2, 1024, 1024, 32, 4, True, 100),
+                 ("5b-internvl", "internvl2-26b", 2, 1024, 1024, 48, 8, True, 30),
+                 ("5b-granite", "granite-34b", 2, 1024, 1024, 48, 1, True, 30)]
 # the D=64 forward's shapes on the main paths, timed in turns beside SDPA
 # (``_group_fwd_yardsticks``): (row, arch, batch, sq, skv, hq, hkv, causal)
 D64_ROWS = [
@@ -451,7 +498,7 @@ D64_ROWS = [
 # sq, skv, hq, hkv, causal, main-path launches: 5 steps, one call a layer)
 D64_BWD_ROWS = [
     ("5b-64", "granite-moe-1b-a400m", 2, 1024, 1024, 16, 8, True, 120),
-    ("5b-zamba", "zamba2-1.2b", 2, 1024, 1024, 32, 32, True, 30),
+    ("5b-zamba", "zamba2-1.2b", 2, 1024, 1024, 32, 32, True, 10),
     ("5b-whisper encoder", "whisper-tiny", 2, 1500, 1500, 6, 6, False, 20),
     ("5b-whisper cross", "whisper-tiny", 2, 448, 1500, 6, 6, False, 20),
     ("5b-whisper self", "whisper-tiny", 2, 448, 448, 6, 6, True, 20),
@@ -596,7 +643,7 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--seed", type=int, default=0, help="seed of the random SU(3) data")
     ap.add_argument("--flash-yardsticks", action="store_true",
                     help="build, then time the flash rows of PERF.md's kernels table alone "
-                         "(5 and 5b at D=128, 5-64, 5-zamba, 5-whisper, 5b at D=64, 5-mla, "
+                         "(every D=128 row, 5-64, 5-zamba, 5-whisper, 5b at D=64, 5-mla, "
                          "5b-mla), print the digests and stop; it runs on older checkouts "
                          "too")
     args = ap.parse_args(argv)
@@ -734,6 +781,7 @@ def main(argv: list[str] | None = None) -> int:
             failures.append(f"flash_attention_bwd: {kname} lacks HGMMA or instantiations: {found}")
 
     # -- 3. kernel vs plain version on random SU(3) links, L=32 --------------------
+    t_su3 = time.perf_counter()
     n_sites = PAPER_L32.shape.n_sites
     rng = np.random.default_rng(args.seed)
     t0 = time.perf_counter()
@@ -898,16 +946,21 @@ def main(argv: list[str] | None = None) -> int:
     st, cg = _stencil_yardsticks(u, vecs, hw, failures)
     mega = _megakernel_yardsticks(u, rng, hw)
     torch.cuda.empty_cache()
+    _emit({"phase": "su3", "seconds": time.perf_counter() - t_su3})
 
     # -- 5b. the LM phase: the flash kernel, ServeEngine on qwen3-4b -----------------
+    t0 = time.perf_counter()
     flash = _lm_phase(args.seed, failures)
+    _emit({"phase": "lm", "seconds": time.perf_counter() - t0})
 
     # -- 5c. the training phase: the flash backward, training qwen3-4b -------------
     # full-width training needs ~70 GB of the card: free the SU3 phases' data
     del u, b_c, a, b, got, plain, vecs, codec, chained, x, in_place, aliased, b_mat, b16
     del engine
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     flash_bwd, train_fwd_launches, train_fwd_named = _train_phase(args.seed, failures)
+    _emit({"phase": "train", "seconds": time.perf_counter() - t0})
     flash["serve_launches"], flash["train_launches"] = flash["launches"], train_fwd_launches
     flash["launches"] += train_fwd_launches
     flash["launches_by_kernel"][D128_FWD_KERNEL] = (
@@ -915,7 +968,9 @@ def main(argv: list[str] | None = None) -> int:
 
     # -- 5d. the MoE phase: granite-moe served and trained, the kernels at D=64 ------
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     moe_launches = _moe_phase(args.seed, hw, failures)
+    _emit({"phase": "moe", "seconds": time.perf_counter() - t0})
     # granite's, zamba's and whisper's forward launches are flash_group_fwd<64>'s
     # (bf16 at D=64): the kernels line's entry of their own
     flash_d64 = {"launches": moe_launches["serve"] + moe_launches["train_fwd"],
@@ -927,7 +982,9 @@ def main(argv: list[str] | None = None) -> int:
 
     # -- 5e. the MLA phase: deepseek-v3 served, the kernel at (D, Dv) = (192, 128) ------
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     flash_mla = _mla_phase(args.seed, hw, failures)
+    _emit({"phase": "mla", "seconds": time.perf_counter() - t0})
     # -- 5e'. MLA training: the backward at (192, 128), deepseek-v3's 3 dense layers ----
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -951,7 +1008,9 @@ def main(argv: list[str] | None = None) -> int:
 
     # -- 5f. the zamba phase: zamba2-1.2b served and trained, the kernels at D=64, G=1 ----
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     zamba_launches = _zamba_phase(args.seed, hw, failures)
+    _emit({"phase": "zamba", "seconds": time.perf_counter() - t0})
     flash_d64["zamba_serve_launches"] = zamba_launches["serve"]
     flash_d64["zamba_train_launches"] = zamba_launches["train_fwd"]
     flash_d64["launches"] += zamba_launches["serve"] + zamba_launches["train_fwd"]
@@ -987,20 +1046,22 @@ def main(argv: list[str] | None = None) -> int:
     _dryrun_phase(failures)
     _emit({"phase": "dryrun", "seconds": time.perf_counter() - t0})
 
-    # -- 5i'. the VLM phase: internvl2-26b served at full depth, trained at a cut depth ---
+    # -- 5i'. internvl2-26b, yi-6b, minitron-8b, granite-34b: served, trained at full width ---
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    vlm = _vlm_phase(args.seed, failures)
-    _emit({"phase": "vlm", "seconds": time.perf_counter() - t0})
-    flash["vlm_serve_launches"], flash["vlm_train_launches"] = vlm["serve"], vlm["train_fwd"]
-    flash["launches"] += vlm["serve"] + vlm["train_fwd"]
-    flash_bwd["vlm_train_launches"] = vlm["train_bwd"]
-    flash_bwd["launches"] += vlm["train_bwd"]
-    for entry, kname, named in (
-            (flash, D128_FWD_KERNEL, (vlm["serve_by_kernel"], vlm["train_by_kernel"])),
-            (flash_bwd, D128_BWD_KERNEL, (vlm["train_by_kernel"],))):
-        entry["launches_by_kernel"][kname] = (entry["launches_by_kernel"].get(kname, 0)
-                                              + sum(found.get(kname, 0) for found in named))
+    wide = _wide_phase(args.seed, failures)
+    _emit({"phase": "wide", "seconds": time.perf_counter() - t0})
+    for tag, found in wide.items():
+        flash[f"{tag}_serve_launches"] = found["serve"]
+        flash[f"{tag}_train_launches"] = found["train_fwd"]
+        flash["launches"] += found["serve"] + found["train_fwd"]
+        flash_bwd[f"{tag}_train_launches"] = found["train_bwd"]
+        flash_bwd["launches"] += found["train_bwd"]
+        for entry, kname, named in (
+                (flash, D128_FWD_KERNEL, (found["serve_by_kernel"], found["train_by_kernel"])),
+                (flash_bwd, D128_BWD_KERNEL, (found["train_by_kernel"],))):
+            entry["launches_by_kernel"][kname] = (entry["launches_by_kernel"].get(kname, 0)
+                                                  + sum(n.get(kname, 0) for n in named))
 
     # -- 5i''. the port's tools: the autotune CLI, the examples, the dispatch profiler -----
     torch.cuda.empty_cache()
@@ -1010,6 +1071,7 @@ def main(argv: list[str] | None = None) -> int:
 
     # -- 5j. the D=64 forward at the main paths' shapes, in turns beside SDPA -------------
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     d64_rows = _group_fwd_yardsticks(D64_ROWS, 64, np.random.default_rng(args.seed + 25), hw,
                                      failures)
     granite = d64_rows["5-64"]  # the table's 5-64 row
@@ -1038,8 +1100,10 @@ def main(argv: list[str] | None = None) -> int:
                          shape="granite-moe-1b-a400m training: B=2, S=1,024, Hq=16, Hkv=8, causal",
                          num_regs=budget["num_regs"], shared_bytes=budget["shared_bytes"],
                          local_bytes=budget["local_bytes"])
-    # -- 5l. D=128 at every G of the registry; rows 5 and 5b in turns beside SDPA ---------
+    _emit({"phase": "d64 yardsticks", "seconds": time.perf_counter() - t0})
+    # -- 5l. D=128 at every G of the registry; its main-path shapes in turns beside SDPA ----
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     d128_err, d128_bwd_err = _d128_registry_checks(np.random.default_rng(args.seed + 27), failures)
     fwd128, bwd128 = _d128_yardsticks(np.random.default_rng(args.seed + 28), hw, failures)
     for entry, row, err, budget in (
@@ -1052,6 +1116,7 @@ def main(argv: list[str] | None = None) -> int:
                      library_graph_ms=row["library_graph_ms"],
                      num_regs=budget["num_regs"], shared_bytes=budget["shared_bytes"],
                      local_bytes=budget["local_bytes"])
+    _emit({"phase": "d128", "seconds": time.perf_counter() - t0})
     flash["shape"] = "qwen3-4b prefill: B=4, S=1,024, Hq=32, Hkv=8, causal"
     flash_bwd.update(kernel_split_ms=bwd128["kernel_split_ms"],
                      shape="qwen3-4b training: B=2, S=1,024, Hq=32, Hkv=8, causal")
@@ -1062,7 +1127,7 @@ def main(argv: list[str] | None = None) -> int:
     for what, entry, kname in (("flash_attention", flash, D128_FWD_KERNEL),
                                ("flash_attention_bwd", flash_bwd, D128_BWD_KERNEL)):
         if entry["launches_by_kernel"].get(kname, 0) != entry["launches"]:
-            failures.append(f"{what}: the D=128 main paths (qwen3-4b, internvl2-26b) ran "
+            failures.append(f"{what}: the D=128 main paths (qwen3-4b, {', '.join(wide)}) ran "
                             f"{entry['launches_by_kernel']}, not {entry['launches']} launches "
                             f"of {kname}")
 
@@ -1933,7 +1998,8 @@ def _serve_cross_device(row_name: str, cfg2, model2, rng, failures: list[str]) -
     prefilled and decoded on both: logits within LM_CROSS_TOL, every leaf
     of the state after the last decode step (KV or latent caches, Mamba2 or
     xLSTM states, cross K/V) within LM_CROSS_TOL of its largest magnitude,
-    and every MoE layer's expert choices (``moe._route``) equal."""
+    and every MoE layer's expert choices (``moe._route``) equal; the host's
+    memory over the check (``_watch_host_memory``)."""
     import copy
 
     import numpy as np
@@ -1942,6 +2008,7 @@ def _serve_cross_device(row_name: str, cfg2, model2, rng, failures: list[str]) -
     from repro_torch.models import moe, registry
     from repro_torch.serve.engine import ServeConfig, ServeEngine
 
+    host_memory = _watch_host_memory()
     plen = 64 + cfg2.n_patches
     cpu = ServeEngine(cfg2, copy.deepcopy(model2), ServeConfig(max_len=plen + 16), device="cpu")
     card = ServeEngine(cfg2, model2, ServeConfig(max_len=plen + 16), device=torch.device("cuda"))
@@ -1977,7 +2044,8 @@ def _serve_cross_device(row_name: str, cfg2, model2, rng, failures: list[str]) -
            "tf32": torch.backends.cuda.matmul.allow_tf32, "prompt": plen, "new_tokens": 8,
            "max_abs_logit_diff": err, "tol": LM_CROSS_TOL,
            "logit_scale": logits[0].abs().max().item(), "routes_compared": len(routes[0]),
-           "same_routes": same_routes, "same_tokens": bool(np.array_equal(cpu_tokens, card_tokens))}
+           "same_routes": same_routes, "same_tokens": bool(np.array_equal(cpu_tokens, card_tokens)),
+           **host_memory()}
     shares = {name: (b.cpu().double() - a.double()).abs().max().item()
               / max(a.double().abs().max().item(), 1e-30)
               for (name, a), (_, b) in zip(states[0], states[1])}
@@ -2000,7 +2068,8 @@ def _train_cross_device(row_name: str, cfg2, model, seed: int, failures: list[st
     TRAIN_CROSS_GRAD_TOL of its leaf's largest magnitude (an element near
     zero carries the rounding of the terms that cancelled in it), and
     every MoE layer's expert choices (forward and remat recompute)
-    equal."""
+    equal; the host's memory over the check, ``model`` already on the CPU
+    at its start (``_watch_host_memory``)."""
     import copy
 
     import torch
@@ -2009,6 +2078,7 @@ def _train_cross_device(row_name: str, cfg2, model, seed: int, failures: list[st
     from repro_torch.models import moe, registry
     from repro_torch.train import train_step
 
+    host_memory = _watch_host_memory()
     card_model = copy.deepcopy(model).to(torch.device("cuda"))
     pipe = TokenPipeline(DataConfig(cfg2.vocab_size, seq, TRAIN_BATCH, seed=seed))
     found, routes = {}, {}
@@ -2044,7 +2114,7 @@ def _train_cross_device(row_name: str, cfg2, model, seed: int, failures: list[st
            "router_err_of_max": max(router_errs) if router_errs else None,
            "grad_tol_of_max": TRAIN_CROSS_GRAD_TOL,
            "routes_compared": len(routes["cpu"]),
-           "same_routes": same_routes}
+           "same_routes": same_routes, **host_memory()}
     row["ok"] = (loss_rel <= TRAIN_CROSS_LOSS_TOL and not row["tf32"] and same_routes
                  and leaf_errs[worst_leaf] <= TRAIN_CROSS_GRAD_TOL)
     _emit(row)
@@ -2609,19 +2679,18 @@ def _same_bits_twice(tag: str, cfg, step_fn, params, opt_state, batch,
 
 def _same_grads_twice(tag: str, cfg, params, batch, failures: list[str]) -> None:
     """One step's gradients and metrics twice from the same parameters: the
-    same bits.  The first call's gradients wait on the host while the
-    second runs; the optimizer's update is elementwise on those inputs."""
+    same bits, both sets held on the card (the caller has freed the
+    moments); the optimizer's update is elementwise on those inputs."""
     import torch
 
     from repro_torch.train import train_step
 
     grad_fn = train_step.make_grad_fn(cfg, q_chunk=min(512, batch["tokens"].shape[1]),
                                       kv_chunk=min(1024, batch["tokens"].shape[1]))
-    grads, m1 = grad_fn(params, batch)
-    first = {n: g.cpu() for n, g in grads.items()}
-    del grads
+    first, m1 = grad_fn(params, batch)
     grads, m2 = grad_fn(params, batch)
-    twice = (all(torch.equal(first[n], g.cpu()) for n, g in grads.items())
+    twice = (first.keys() == grads.keys() and all(torch.equal(first[n], g)
+                                                   for n, g in grads.items())
              and all(torch.equal(m1[k], m2[k]) for k in m1))
     _emit({"row": f"{tag} train same bits twice", "arch": cfg.name, "tensors": len(first),
            "what": "one step's gradients and metrics", "loss": m1["loss"].item(),
@@ -2718,10 +2787,11 @@ def _train_main_path(tag: str, cfg, opt, seed: int, steps: int, seq: int, failur
     TRAIN_BATCH x ``seq`` tokens (AdamW ``opt``), the counters set to 0
     just before and read just after, its log and one line a step printed;
     one more step twice from the trained state, bitwise
-    (``_same_bits_twice``; with ``grads_twice``, the step's gradients and
-    metrics twice, ``_same_grads_twice``, where copies of the parameters
-    and moments would not fit beside them); one more step under the profiler, its flash
-    launches counted, then the gradient / optimizer split.  With
+    (``_same_bits_twice``); one more step under the profiler, its flash
+    launches counted, then the gradient / optimizer split; with
+    ``grads_twice``, where copies of the parameters and moments would not
+    fit beside them, the moments are freed after the split and the step's
+    gradients and metrics computed twice instead (``_same_grads_twice``).  With
     ``profile_seq`` the step twice and the profiled step take the batch's
     first ``profile_seq`` tokens, the profiler records the device's
     activity alone, and no split is timed: every xLSTM block steps through
@@ -2770,11 +2840,9 @@ def _train_main_path(tag: str, cfg, opt, seed: int, steps: int, seq: int, failur
     pipe = TokenPipeline(DataConfig(cfg.vocab_size, seq, TRAIN_BATCH, seed=seed))
     batch, _ = make_train_batch(pipe, PipelineState(step=steps), cfg, device=dev)
     short = batch if profile_seq is None else {k: v[:, :profile_seq] for k, v in batch.items()}
-    if grads_twice:
-        _same_grads_twice(tag, cfg, params, short, failures)
-    else:
+    if not grads_twice:
         _same_bits_twice(tag, cfg, step_fn, params, opt_state, short, failures)
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
     # where the time goes: one more step under the profiler, then the split
     fields: dict = {}
     _reset_counts()
@@ -2800,7 +2868,11 @@ def _train_main_path(tag: str, cfg, opt, seed: int, steps: int, seq: int, failur
         del grads, grad_fn
     else:
         fields.update(profiled_seq=profile_seq, profiled_step_with_processing_s=prof_s)
-    del params, opt_state, batch, short, step_fn
+    del opt_state  # with grads_twice, room for two sets of gradients on the card
+    torch.cuda.empty_cache()
+    if grads_twice:
+        _same_grads_twice(tag, cfg, params, short, failures)
+    del params, batch, short, step_fn
     torch.cuda.empty_cache()
 
     fwd, bwd = counts[fa.LAUNCHES.name], counts[fa.BWD_LAUNCHES.name]
@@ -3195,9 +3267,11 @@ def _mla_train(seed: int, hw, failures: list[str]) -> tuple[dict, int]:
 
 def _flash_yardsticks(seed: int, hw, failures: list[str]) -> None:
     """The flash rows of PERF.md's kernels table alone, at the shapes the
-    full run times them: rows 5 and 5b (qwen3-4b's prefill, B=4, S=1,024,
-    Hq=32, Hkv=8, D=128, and its training, B=2) in turns beside SDPA's
-    forward and backward (``_d128_yardsticks``), the D=64 forward at
+    full run times them: the D=128 rows (5 and 5b: qwen3-4b's and
+    minitron-8b's prefill, B=4, S=1,024, Hq=32, Hkv=8, and training, B=2;
+    5-yi, 5-internvl, 5-granite and their 5b rows at G = 8, 6 and 48) in
+    turns beside SDPA's forward and backward (``_d128_yardsticks``), the
+    D=64 forward at
     zamba2-1.2b's, granite-moe's and whisper-tiny's shapes in turns beside
     SDPA (``_group_fwd_yardsticks``: 5-zamba, 5-64, 5-whisper encoder and
     cross), the D=64 backward at granite-moe's, zamba2-1.2b's and
@@ -3223,20 +3297,22 @@ def _flash_yardsticks(seed: int, hw, failures: list[str]) -> None:
 
 
 def _d128_yardsticks(rng, hw, failures: list[str]) -> tuple[dict, dict]:
-    """Rows 5 and 5b: the bf16 forward and backward at D=128 at qwen3-4b's
-    prefill and training shapes (``_group_fwd_yardsticks`` on D128_ROWS,
-    ``_group_bwd_yardsticks`` on D128_BWD_ROWS), and the two rows weighted
-    by their main-path launches, turn by turn (a forward turn and a backward
-    turn of the same index).  Returns the two rows' entries."""
-    fwd = _group_fwd_yardsticks(D128_ROWS, 128, rng, hw, failures)[D128_ROWS[0][0]]
-    bwd = _group_bwd_yardsticks(D128_BWD_ROWS, 128, rng, hw, failures)[D128_BWD_ROWS[0][0]]
-    weighted = [fwd["main_path_launches"] * f + bwd["main_path_launches"] * b
-                for f, b in zip(fwd["kernel_graph_ms_turns"], bwd["kernel_graph_ms_turns"])]
+    """The bf16 forward and backward at D=128 at every main-path shape
+    (``_group_fwd_yardsticks`` on D128_ROWS, ``_group_bwd_yardsticks`` on
+    D128_BWD_ROWS: rows 5 and 5b, qwen3-4b's and minitron-8b's heads, and
+    yi-6b's, internvl2-26b's and granite-34b's), and every row weighted by
+    its main-path launches, turn by turn (the forward turns and backward
+    turns of the same index).  Returns rows 5 and 5b's entries."""
+    fwd = _group_fwd_yardsticks(D128_ROWS, 128, rng, hw, failures)
+    bwd = _group_bwd_yardsticks(D128_BWD_ROWS, 128, rng, hw, failures)
+    rows = list(fwd.values()) + list(bwd.values())
+    weighted = [sum(r["main_path_launches"] * r["kernel_graph_ms_turns"][i] for r in rows)
+                for i in range(len(rows[0]["kernel_graph_ms_turns"]))]
     FLASH_ROWS["5 + 5b D=128 launch-weighted"] = {"launch_weighted_graph_ms_turns": weighted}
-    _emit({"yardstick": "rows 5 and 5b (D=128) weighted by their main-path launches",
-           "launches": [fwd["main_path_launches"], bwd["main_path_launches"]],
+    _emit({"yardstick": "the D=128 rows weighted by their main-path launches",
+           "launches": {name: r["main_path_launches"] for name, r in {**fwd, **bwd}.items()},
            "launch_weighted_graph_ms_turns": weighted})
-    return fwd, bwd
+    return fwd[D128_ROWS[0][0]], bwd[D128_BWD_ROWS[0][0]]
 
 
 def _d128_registry_checks(rng, failures: list[str]) -> tuple[float, float]:
@@ -3982,7 +4058,7 @@ def _dryrun_phase(failures: list[str]) -> None:
 
 
 def _zamba_phase(seed: int, hw, failures: list[str]) -> dict[str, int]:
-    """The zamba hybrid on the card at zamba2-1.2b's full width and depth:
+    """The zamba hybrid on the card at zamba2-1.2b's full width, cut to ZAMBA_DEPTH:
     serving (``_zamba_serve``), training (``_zamba_train``) and the flash
     kernels at its shared block's heads, D=64, G = 1 (``_head_yardsticks``:
     the forward at the prefill shape, the backward at the training shape).
@@ -4045,7 +4121,7 @@ def _zamba_teacher(engine, toks_d) -> dict:
 
 
 def _zamba_serve(seed: int, rng, failures: list[str]) -> int:
-    """``ServeEngine`` on full-width, full-depth zamba2-1.2b (random bf16
+    """``ServeEngine`` on full-width zamba2-1.2b cut to ZAMBA_DEPTH (random bf16
     weights from the seed, matrices at std 0.02, f32 Mamba2 states and KV
     caches) over 4 x 1,024-token prompts + 32 greedy tokens, the counters
     set to 0 just before and read just after (one flash launch per shared
@@ -4061,7 +4137,7 @@ def _zamba_serve(seed: int, rng, failures: list[str]) -> int:
     Why std 0.02 for the served weights, as the MoE and MLA phases draw
     them: at the reference's rule (1/sqrt(38) on the stacked Mamba2
     leaves) decode parts from its teacher in bf16 by more than 0.1 of the
-    logits' range at this depth, in the reference as in the port
+    logits' range at the whole depth, in the reference as in the port
     (tests/test_torch_bf16_teacher_gap.py measures both on the CPU at 13
     of the 38 layers: the port's gap is at most the reference's, and f32
     closes it in both)."""
@@ -4076,7 +4152,8 @@ def _zamba_serve(seed: int, rng, failures: list[str]) -> int:
     from repro_torch.serve.engine import ServeConfig, ServeEngine
 
     dev = torch.device("cuda")
-    cfg = get_config(ZAMBA_ARCH)
+    cfg = dataclasses.replace(get_config(ZAMBA_ARCH), **ZAMBA_DEPTH)
+    print(f"reduced: {json.dumps(ZAMBA_REDUCED)}")
     n_groups, k, tail = zamba._counts(cfg)
     t0 = time.perf_counter()
     model = _matrices_at(registry.get(cfg).init(torch.Generator(device=dev).manual_seed(seed),
@@ -4122,7 +4199,8 @@ def _zamba_serve(seed: int, rng, failures: list[str]) -> int:
            "mamba2_dims": list(mamba2.dims(cfg)), "ssm_conv": cfg.ssm_conv,
            "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim], "d_ff": cfg.d_ff,
            "vocab": cfg.vocab_size, "params": n_params,
-           "reduced": {}, "dtype": "bfloat16", "matrices_std": 0.02, "state_dtype": "float32",
+           "reduced": ZAMBA_REDUCED, "dtype": "bfloat16", "matrices_std": 0.02,
+           "state_dtype": "float32",
            "cache_dtype": "float32", "batch": LM_BATCH, "prompt": LM_PROMPT,
            "new_tokens": LM_NEW, "max_len": LM_MAX_LEN, "init_s": init_s,
            "flash_launches": launches, "expected_launches": n_groups,
@@ -4157,7 +4235,7 @@ def _zamba_serve(seed: int, rng, failures: list[str]) -> int:
 
 
 def _zamba_train(seed: int, failures: list[str]) -> tuple[int, int]:
-    """``train.loop.train`` on full-width, full-depth zamba2-1.2b (f32 master
+    """``train.loop.train`` on full-width zamba2-1.2b cut to ZAMBA_DEPTH (f32 master
     weights and moments, bf16 compute, each Mamba2 layer rematted) for
     TRAIN_STEPS steps through ``_train_main_path`` (one flash forward and
     one backward launch per shared application a step: the shared block is
@@ -4174,13 +4252,13 @@ def _zamba_train(seed: int, failures: list[str]) -> tuple[int, int]:
     from repro_torch.optim.adamw import AdamWConfig
 
     dev = torch.device("cuda")
-    cfg = get_config(ZAMBA_ARCH)
+    cfg = dataclasses.replace(get_config(ZAMBA_ARCH), **ZAMBA_DEPTH)
     n_groups = zamba._counts(cfg)[0]
     opt = AdamWConfig(peak_lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
     ok, _, fields = _train_main_path("zamba", cfg, opt, seed, TRAIN_STEPS, TRAIN_SEQ, failures)
     fwd, bwd = fields["flash_launches"], fields["flash_bwd_launches"]
     row = {"row": "zamba train", "arch": cfg.name, "n_layers": cfg.n_layers,
-           "d_model": cfg.d_model, "vocab": cfg.vocab_size, "reduced": {},
+           "d_model": cfg.d_model, "vocab": cfg.vocab_size, "reduced": ZAMBA_REDUCED,
            "remat": "each Mamba2 layer", **fields, "expected_per_step": [n_groups, n_groups]}
     row["ok"] = ok and fwd == n_groups * TRAIN_STEPS and bwd == n_groups * TRAIN_STEPS
     _emit(row)
@@ -4526,29 +4604,42 @@ def _whisper_train(seed: int, failures: list[str]) -> tuple[int, int]:
     return fwd, bwd
 
 
-def _vlm_phase(seed: int, failures: list[str]) -> dict:
-    """The VLM family on the card at internvl2-26b's full width: serving at
-    full depth (``_vlm_serve``) and training on its first VLM_TRAIN_LAYERS
-    layers (``_vlm_train``).  Returns the flash launches of its main paths
+def _wide_phase(seed: int, failures: list[str]) -> dict[str, dict]:
+    """The D=128 architectures of WIDE_ARCHS on the card at full width:
+    each served (``_serve_full_width``) at its depth and trained
+    (``_train_full_width``) at a cut depth, each cut in its rows'
+    ``reduced``.  Returns, by tag, the flash launches of its main paths
     (``serve``, ``train_fwd``, ``train_bwd``) and those of them by kernel
     (``serve_by_kernel``, ``train_by_kernel``)."""
+    import dataclasses
+
     import numpy as np
     import torch
 
-    rng = np.random.default_rng(seed + 29)
-    t0 = time.perf_counter()
-    serve, serve_by_kernel = _vlm_serve(seed, rng, failures)
-    torch.cuda.empty_cache()
-    _emit({"phase": "vlm serve", "seconds": time.perf_counter() - t0})
-    t0 = time.perf_counter()
-    train_fwd, train_bwd, train_by_kernel = _vlm_train(seed, failures)
-    torch.cuda.empty_cache()
-    _emit({"phase": "vlm train", "seconds": time.perf_counter() - t0})
-    return {"serve": serve, "train_fwd": train_fwd, "train_bwd": train_bwd,
-            "serve_by_kernel": serve_by_kernel, "train_by_kernel": train_by_kernel}
+    from repro_torch.configs import get_config
+
+    found = {}
+    for i, (tag, arch, serve_layers, serve_cut, train_layers, train_cut,
+            cross_seq) in enumerate(WIDE_ARCHS):
+        base = get_config(arch)
+        rng = np.random.default_rng(seed + 29 + i)
+        t0 = time.perf_counter()
+        serve, serve_by_kernel = _serve_full_width(
+            tag, dataclasses.replace(base, n_layers=serve_layers), serve_cut, seed, rng, failures)
+        torch.cuda.empty_cache()
+        _emit({"phase": f"{tag} serve", "seconds": time.perf_counter() - t0})
+        t0 = time.perf_counter()
+        train_fwd, train_bwd, train_by_kernel = _train_full_width(
+            tag, dataclasses.replace(base, n_layers=train_layers), train_cut, seed, failures,
+            cross_seq)
+        torch.cuda.empty_cache()
+        _emit({"phase": f"{tag} train", "seconds": time.perf_counter() - t0})
+        found[tag] = {"serve": serve, "train_fwd": train_fwd, "train_bwd": train_bwd,
+                      "serve_by_kernel": serve_by_kernel, "train_by_kernel": train_by_kernel}
+    return found
 
 
-def _vlm_serve_peak_gb(cfg) -> dict[str, float]:
+def _serve_peak_gb(cfg) -> dict[str, float]:
     """The predicted peak of serving ``cfg`` in bf16 (GB): the weights, the
     f32 KV cache of LM_BATCH x LM_MAX_LEN positions, and one layer's
     activations in prefill (bf16: the input, q and the attention's output
@@ -4562,37 +4653,88 @@ def _vlm_serve_peak_gb(cfg) -> dict[str, float]:
     return dict(parts, total=sum(parts.values()))
 
 
-def _vlm_serve(seed: int, rng, failures: list[str]) -> tuple[int, dict[str, int]]:
-    """``ServeEngine`` on full-width, full-depth internvl2-26b (random bf16
+def _train_peak_gb(cfg) -> list[float]:
+    """The predicted peak of training ``cfg`` (GB, low and high): 16.2 to
+    16.9 bytes a parameter (f32 master weights, gradients and AdamW
+    moments, and the activations beside them), the rates measured for
+    internvl2-26b at 6 layers (56.30 GB for 3.48 B parameters) and
+    qwen3-4b (67.8 GB for 4.02 B) on an H100 80GB HBM3; a vocabulary wider
+    than qwen3-4b's 151,936 adds two to three f32 copies of its TRAIN_BATCH
+    x TRAIN_SEQ logits (the logits, their log-softmax and their gradient:
+    4.2-6.3 GB at minitron-8b's 256,000)."""
+    n = cfg.n_params()
+    wide = 4 * TRAIN_BATCH * TRAIN_SEQ * cfg.vocab_size if cfg.vocab_size > 151_936 else 0
+    return [(16.2 * n + 2 * wide) / 1e9, (16.9 * n + 3 * wide) / 1e9]
+
+
+def _host_rss_gb() -> float:
+    """This process's resident memory (GB)."""
+    import resource
+
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * resource.getpagesize() / 1e9
+
+
+def _watch_host_memory():
+    """Starts sampling this process's resident memory every 10 ms.  Returns
+    a function that stops it and gives the memory at the start, at the end
+    and the largest sample (GB)."""
+    import threading
+
+    done = threading.Event()
+    start = peak = _host_rss_gb()
+
+    def sample():
+        nonlocal peak
+        while not done.wait(0.01):
+            peak = max(peak, _host_rss_gb())
+
+    watcher = threading.Thread(target=sample, daemon=True)
+    watcher.start()
+
+    def stop() -> dict[str, float]:
+        done.set()
+        watcher.join()
+        end = _host_rss_gb()
+        return {"host_rss_GB_at_start": start, "host_rss_GB_at_end": end,
+                "host_peak_rss_GB": max(peak, end)}
+
+    return stop
+
+
+def _serve_full_width(tag: str, cfg, reduced: dict, seed: int, rng,
+                      failures: list[str]) -> tuple[int, dict[str, int]]:
+    """``ServeEngine`` on ``cfg`` at full width and its depth (random bf16
     weights from the seed, matrices at std 0.02 (``_matrices_at``), f32 KV
-    cache) over 4 x 1,024-token prompts, whose first 256 positions take
-    seeded random patch embeddings drawn on the CPU and moved, + 32 greedy
-    tokens, the counters set to 0 just before and read just after
-    (prefill: one launch of ``flash_group_fwd<128>`` per layer at G = 6;
+    cache) over 4 x 1,024-token prompts (a VLM's first ``n_patches``
+    positions take seeded random patch embeddings drawn on the CPU and
+    moved) + 32 greedy tokens, the counters set to 0 just before and read
+    just after (prefill: one launch of ``flash_group_fwd<128>`` per layer;
     none in decode); decode logits against one cache-less teacher pass over
-    the served tokens with the same patches; the peak memory beside its
-    prediction (``_vlm_serve_peak_gb``); then the card against the port's
-    CPU path at 2 layers of full width in f32 (matrices at std 0.02).
-    Returns the flash launches of the served generate, and by kernel.
+    the served tokens (and patches); the peak memory beside its prediction
+    (``_serve_peak_gb``); then the card against the port's CPU path at 2
+    layers of full width in f32 (matrices at std 0.02).  Returns the flash
+    launches of the served generate, and by kernel.
 
     Why std 0.02, as the MoE, MLA, zamba and whisper phases serve: the
-    reference's rule takes 1/sqrt(48) for every stacked matrix, and the
-    VLM has no qk-norm, so its attention scores have a std of ~100: a
-    saturated softmax whose near-ties two bf16 passes break differently."""
+    reference's rule takes 1/sqrt(n_layers) for every stacked matrix, and
+    none of these architectures has qk-norm, so its attention scores have a
+    std of ~100: a saturated softmax whose near-ties two bf16 passes break
+    differently."""
     import dataclasses
 
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import common, registry, transformer
     from repro_torch.serve.engine import ServeConfig, ServeEngine
 
     dev = torch.device("cuda")
-    cfg = get_config(VLM_ARCH)
-    predicted = _vlm_serve_peak_gb(cfg)
-    _emit({"prediction": "vlm serve peak memory (GB)", "arch": cfg.name, **predicted})
+    if reduced:
+        print(f"reduced: {json.dumps(reduced)}")
+    predicted = _serve_peak_gb(cfg)
+    _emit({"prediction": f"{tag} serve peak memory (GB)", "arch": cfg.name, **predicted})
     t0 = time.perf_counter()
     model = _matrices_at(registry.get(cfg).init(torch.Generator(device=dev).manual_seed(seed),
                                                 cfg, torch.bfloat16), 0.02, seed)
@@ -4600,9 +4742,10 @@ def _vlm_serve(seed: int, rng, failures: list[str]) -> tuple[int, dict[str, int]
     init_s = time.perf_counter() - t0
     engine = ServeEngine(cfg, model, ServeConfig(max_len=LM_MAX_LEN), device=dev)
     prompts = rng.integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), dtype=np.int32)
-    patches = torch.from_numpy(rng.standard_normal((LM_BATCH, cfg.n_patches, cfg.d_model),
-                                                   dtype=np.float32)).to(dev, torch.bfloat16)
-    extras = {"patches": patches}
+    extras = {}
+    if cfg.n_patches:
+        extras["patches"] = torch.from_numpy(rng.standard_normal(
+            (LM_BATCH, cfg.n_patches, cfg.d_model), dtype=np.float32)).to(dev, torch.bfloat16)
     tokens, counts, speed = _generate_twice(engine, prompts, extras)
     launches, by_kernel = counts[fa.LAUNCHES.name], speed["flash_launches_by_kernel"]
     toks_d = torch.from_numpy(tokens).to(dev)
@@ -4612,19 +4755,20 @@ def _vlm_serve(seed: int, rng, failures: list[str]) -> tuple[int, dict[str, int]
     teacher = _teacher_gap(served, transformer._logits(engine.params, x[:, LM_PROMPT - 1:],
                                                        cfg).float())
     del x, served
-    prof_prefill, prof_decode = _serving_profiles(
-        "vlm", engine, toks_d, LM_PROMPT,
-        f"4 x 1,024 tokens, the first {cfg.n_patches} positions patches", extras)
+    what = "4 x 1,024 tokens"
+    if cfg.n_patches:
+        what += f", the first {cfg.n_patches} positions patches"
+    prof_prefill, prof_decode = _serving_profiles(tag, engine, toks_d, LM_PROMPT, what, extras)
     n_params = common.count_params(engine.params)
-    del engine, model, patches, extras, toks_d
+    del engine, model, extras, toks_d
     torch.cuda.empty_cache()
-    row = {"row": "vlm serve", "arch": cfg.name, "n_layers": cfg.n_layers,
+    row = {"row": f"{tag} serve", "arch": cfg.name, "n_layers": cfg.n_layers,
            "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
-           "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "patches": cfg.n_patches,
-           "params": n_params, "reduced": {}, "dtype": "bfloat16", "matrices_std": 0.02,
-           "cache_dtype": "float32", "batch": LM_BATCH, "prompt": LM_PROMPT,
-           "new_tokens": LM_NEW, "max_len": LM_MAX_LEN, "init_s": init_s,
-           "flash_launches": launches, "expected_launches": cfg.n_layers,
+           "group": cfg.n_heads // cfg.n_kv_heads, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+           "patches": cfg.n_patches, "params": n_params, "reduced": reduced,
+           "dtype": "bfloat16", "matrices_std": 0.02, "cache_dtype": "float32",
+           "batch": LM_BATCH, "prompt": LM_PROMPT, "new_tokens": LM_NEW, "max_len": LM_MAX_LEN,
+           "init_s": init_s, "flash_launches": launches, "expected_launches": cfg.n_layers,
            "prefill_launches": prefill_launches, "decode_launches": decode_launches,
            "other_launches": sum(counts.values()) - launches,
            "prefill_kernel_launches": prof_prefill["kernel_launches"],
@@ -4633,7 +4777,8 @@ def _vlm_serve(seed: int, rng, failures: list[str]) -> tuple[int, dict[str, int]
            "prefill_idle_share": prof_prefill["idle_share"],
            "decode_idle_share": prof_decode["idle_share"],
            "teacher": dict(teacher, against=f"one cache-less pass over "
-                                            f"{LM_PROMPT + LM_NEW - 1} tokens, the same patches"),
+                                            f"{LM_PROMPT + LM_NEW - 1} tokens"
+                                            + (", the same patches" if cfg.n_patches else "")),
            "teacher_tol_of_scale": LM_TEACHER_TOL}
     row["ok"] = (launches == cfg.n_layers and prefill_launches == cfg.n_layers
                  and decode_launches == 0 and by_kernel == {D128_FWD_KERNEL: cfg.n_layers}
@@ -4642,65 +4787,67 @@ def _vlm_serve(seed: int, rng, failures: list[str]) -> tuple[int, dict[str, int]
                  and teacher["max_abs_diff"] <= LM_TEACHER_TOL * teacher["scale"])
     _emit(row)
     if not row["ok"]:
-        failures.append(f"vlm serve main path: {row}")
+        failures.append(f"{tag} serve main path: {row}")
 
     # -- the card against the port's CPU path: full width, 2 layers, f32 ----------
     # (the weights are drawn on the card, which is fast; the CPU engine copies them)
     cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
-    _serve_cross_device("vlm cross-device", cfg2, _matrices_at(
+    _serve_cross_device(f"{tag} cross-device", cfg2, _matrices_at(
         registry.get(cfg2).init(torch.Generator(device=dev).manual_seed(seed), cfg2), 0.02, seed),
         rng, failures)
     torch.cuda.empty_cache()
     return launches, by_kernel
 
 
-def _vlm_train(seed: int, failures: list[str]) -> tuple[int, int, dict[str, int]]:
-    """``train.loop.train`` on internvl2-26b at full width cut to its first
-    VLM_TRAIN_LAYERS layers (VLM_TRAIN_REDUCED; f32 master weights and
-    moments, bf16 compute, remat, the reference's init rule; the data
-    pipeline's patches, drawn on the CPU and moved) for TRAIN_STEPS steps of
-    TRAIN_BATCH x TRAIN_SEQ tokens through ``_train_main_path`` (a step:
-    ``flash_group_fwd<128>`` twice a layer, forward and remat recompute,
-    ``flash_bwd_d128`` once), the step's gradients twice bitwise; one
-    step's loss and gradients, the card against the CPU on 2 layers of full
-    width in f32 over VLM_CROSS_SEQ tokens (matrices at std 0.02).  Returns
-    the flash forward and backward launches of the training run, and both
-    by kernel."""
+def _train_full_width(tag: str, cfg, reduced: dict, seed: int, failures: list[str],
+                      cross_seq: int) -> tuple[int, int, dict[str, int]]:
+    """``train.loop.train`` on ``cfg`` at full width and its (cut) depth
+    (``reduced``; f32 master weights and moments, bf16 compute, remat, the
+    reference's init rule; a VLM's patches from the data pipeline, drawn on
+    the CPU and moved) for TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ
+    tokens through ``_train_main_path`` (a step: ``flash_group_fwd<128>``
+    twice a layer, forward and remat recompute, ``flash_bwd_d128`` once),
+    the step's gradients twice bitwise, the peak memory beside its
+    prediction (``_train_peak_gb``); one step's loss and gradients, the card
+    against the CPU on 2 layers of full width in f32 over ``cross_seq``
+    tokens (matrices at std 0.02).  Returns the flash forward and backward
+    launches of the training run, and both by kernel."""
     import dataclasses
 
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.models import common, registry
     from repro_torch.optim.adamw import AdamWConfig
 
     dev = torch.device("cuda")
-    base = get_config(VLM_ARCH)
-    cfg = dataclasses.replace(base, n_layers=VLM_TRAIN_LAYERS)
-    print(f"reduced: {json.dumps(VLM_TRAIN_REDUCED)}")
+    print(f"reduced: {json.dumps(reduced)}")
+    predicted = _train_peak_gb(cfg)
+    _emit({"prediction": f"{tag} train peak memory (GB)", "arch": cfg.name,
+           "n_layers": cfg.n_layers, "params": cfg.n_params(), "low_high": predicted})
     opt = AdamWConfig(peak_lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
-    ok, _, fields = _train_main_path("vlm", cfg, opt, seed, TRAIN_STEPS, TRAIN_SEQ, failures,
+    ok, _, fields = _train_main_path(tag, cfg, opt, seed, TRAIN_STEPS, TRAIN_SEQ, failures,
                                      grads_twice=True)
     fwd, bwd, by_kernel = (fields["flash_launches"], fields["flash_bwd_launches"],
                            fields["flash_launches_by_kernel"])
     per_step = [2 * cfg.n_layers, cfg.n_layers]
-    row = {"row": "vlm train", "arch": cfg.name, "n_layers": cfg.n_layers,
+    row = {"row": f"{tag} train", "arch": cfg.name, "n_layers": cfg.n_layers,
            "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
-           "vocab": cfg.vocab_size, "patches": cfg.n_patches, "remat": True,
-           "reduced": VLM_TRAIN_REDUCED, **fields, "expected_per_step": per_step}
+           "group": cfg.n_heads // cfg.n_kv_heads, "vocab": cfg.vocab_size,
+           "patches": cfg.n_patches, "remat": True, "reduced": reduced, **fields,
+           "predicted_peak_memory_GB": predicted, "expected_per_step": per_step}
     row["ok"] = (ok and fwd == per_step[0] * TRAIN_STEPS and bwd == per_step[1] * TRAIN_STEPS
                  and by_kernel == {D128_FWD_KERNEL: fwd, D128_BWD_KERNEL: bwd})
     _emit(row)
     if not row["ok"]:
-        failures.append(f"vlm train main path: {row}")
+        failures.append(f"{tag} train main path: {row}")
     torch.cuda.empty_cache()
 
     # -- one step's loss and gradients: the card against the CPU, 2 layers, f32 -------
-    cfg2 = dataclasses.replace(base, n_layers=2, dtype="float32")
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
     model2 = _matrices_at(registry.get(cfg2).init(torch.Generator(device=dev).manual_seed(seed),
                                                   cfg2), 0.02, seed).cpu()
-    _train_cross_device("vlm train cross-device", cfg2, common.trainable(model2), seed, failures,
-                        seq=VLM_CROSS_SEQ)
+    _train_cross_device(f"{tag} train cross-device", cfg2, common.trainable(model2), seed,
+                        failures, seq=cross_seq)
     del model2
     torch.cuda.empty_cache()
     return fwd, bwd, by_kernel

@@ -7,6 +7,7 @@ config of an architecture with random weights:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b --device cuda
     PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m --device cuda
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny --device cuda
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-34b --device cuda
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --device cpu
 
 Every family runs: the dense and MoE transformers (granite-moe-1b-a400m:
@@ -16,7 +17,8 @@ layer, sigmoid aux-free routing and a shared expert), the zamba hybrid
 most 128 tokens, or a multiple of 128, the SSD's chunk), the xLSTM stack
 (xlstm-125m: mLSTM and sLSTM blocks, one time step at a time) and the
 whisper encoder-decoder (whisper-tiny: random frame embeddings stand in
-for the stubbed conv front end, as in the reference).  On the card an MLA
+for the stubbed conv front end, as in the reference); granite-34b's
+reduced config keeps its MQA (one kv head).  On the card an MLA
 config keeps deepseek-v3's head dims (qk 128 + 64, v 128), the flash
 kernel's one MLA pair (``mla.with_kernel_heads``); on the CPU it is
 reduced like the others.

@@ -467,7 +467,8 @@ def test_cuda_flash_attention_shared_memory_budget(cuda_device, dtype, threads):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["qwen3-4b", "yi-6b", "granite-moe-1b-a400m"])
+@pytest.mark.parametrize("arch", ["qwen3-4b", "yi-6b", "minitron-8b", "granite-34b",
+                                  "granite-moe-1b-a400m"])
 def test_cuda_reduced_prefill_launches_once_per_layer(cuda_device, arch):
     cfg = get_config(arch).reduced()
     model = registry.get(cfg).init(torch.Generator().manual_seed(0), cfg)
@@ -1346,9 +1347,10 @@ def test_cuda_mamba2_decode_state_matches_the_cpu(cuda_device):
 # -- the xLSTM and whisper families -------------------------------------------------------
 
 
-def _reduced_at(arch: str, std: float = 0.02):
-    """``arch``'s reduced config in f32 with its matrices at ``std``."""
-    cfg = get_config(arch).reduced()
+def _reduced_at(arch: str, std: float = 0.02, **fields):
+    """``arch``'s reduced config in f32 (``fields`` replaced) with its
+    matrices at ``std``."""
+    cfg = dataclasses.replace(get_config(arch).reduced(), **fields)
     model = registry.get(cfg).init(torch.Generator().manual_seed(0), cfg)
     gen = torch.Generator().manual_seed(1)
     with torch.no_grad():
@@ -1514,6 +1516,77 @@ def test_cuda_vlm_reduced_train_step_matches_the_cpu(cuda_device):
     assert all(torch.equal(again[n], g) for n, g in cgrads.items())
     assert all(torch.equal(ametrics[k], v) for k, v in cmetrics.items())
     assert abs(cmetrics["loss"].item() - metrics["loss"].item()) <= 1e-4 * metrics["loss"].item()
+    for name, g in grads.items():
+        err = (cgrads[name].cpu().double() - g.double()).abs().max().item()
+        assert err <= 1e-3 * g.abs().max().item(), name
+
+
+# -- MQA at G = 48: granite-34b's heads ------------------------------------------------
+
+# granite-34b's reduced config keeping its 48 query heads on one kv head over
+# 2 layers, as tests/test_torch_dense_archs.py holds it against the reference,
+# but at its own head dim of 128: the kernels are built for 32, 64 and 128,
+# not the CPU tests' 16
+G48 = {"n_heads": 48, "n_kv_heads": 1, "d_head": 128, "n_layers": 2}
+
+
+@pytest.mark.cuda
+def test_cuda_mqa_g48_serves_like_the_cpu(cuda_device):
+    """granite-34b at G = 48 (f32, TF32 off, matrices at std 0.02): one
+    flash launch per layer in prefill and none in decode; the greedy tokens
+    equal the CPU's; a 24-token prefill and 5 decode steps of those tokens:
+    the logits and every KV cache leaf within 1e-3 of their max."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg, model = _reduced_at("granite-34b", **G48)
+    assert cfg.n_heads // cfg.n_kv_heads == 48
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 24), dtype=np.int32)
+    cpu = ServeEngine(cfg, copy.deepcopy(model), ServeConfig(max_len=40), device="cpu")
+    card = ServeEngine(cfg, model, ServeConfig(max_len=40), device=cuda_device)
+    want = cpu.generate(prompts, 6)
+    before = fa.LAUNCHES.count
+    got = card.generate(prompts, 6)
+    assert fa.LAUNCHES.count - before == cfg.n_layers
+    np.testing.assert_array_equal(got, want)
+    toks = torch.from_numpy(want)
+    found = []
+    for eng in (cpu, card):
+        t = toks.to(eng.device)
+        lg, state = eng.prefill({"tokens": t[:, :24]}, eng.init_state(2))
+        out = [lg]
+        for i in range(5):
+            lg, state = eng.decode(t[:, 24 + i:25 + i], state, 24 + i)
+            out.append(lg)
+        found.append((torch.cat(out, 1), state))
+    (lc, sc), (lg, sg) = found
+    assert _max_share(lg, lc) <= 1e-3
+    for i, (a, b) in enumerate(zip(_leaves(sg), _leaves(sc))):
+        assert a.is_cuda and _max_share(a, b) <= 1e-3, i
+
+
+@pytest.mark.cuda
+def test_cuda_mqa_g48_train_step_matches_the_cpu(cuda_device):
+    """granite-34b at G = 48: one step's loss and gradients through the
+    flash forward (twice a layer: remat) and backward (once a layer)
+    against the CPU, f32, TF32 off: within 1e-4 (loss, relative) and 1e-3 of
+    each leaf's max, the separate head included."""
+    from repro_torch.data.pipeline import DataConfig, PipelineState, TokenPipeline, make_train_batch
+    from repro_torch.train import train_step
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg, model = _reduced_at("granite-34b", **G48)
+    model = common.trainable(model)
+    card = copy.deepcopy(model).to(cuda_device)
+    pipe = TokenPipeline(DataConfig(cfg.vocab_size, 96, 2, seed=1))
+    grad_fn = train_step.make_grad_fn(cfg, q_chunk=32, kv_chunk=32)
+    grads, metrics = grad_fn(model, make_train_batch(pipe, PipelineState(), cfg)[0])
+    fwd, bwd = fa.LAUNCHES.count, fa.BWD_LAUNCHES.count
+    cgrads, cmetrics = grad_fn(card, make_train_batch(pipe, PipelineState(), cfg,
+                                                      device=cuda_device)[0])
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES.count - fwd, fa.BWD_LAUNCHES.count - bwd) == (2 * cfg.n_layers,
+                                                                      cfg.n_layers)
+    assert abs(cmetrics["loss"].item() - metrics["loss"].item()) <= 1e-4 * metrics["loss"].item()
+    assert "lm_head" in grads
     for name, g in grads.items():
         err = (cgrads[name].cpu().double() - g.double()).abs().max().item()
         assert err <= 1e-3 * g.abs().max().item(), name

@@ -2,7 +2,9 @@
 reference's weights carried across (``registry.params_from_reference``).
 
 Configs: ``qwen3-4b.reduced()`` (qk-norm, decoupled head dim, tied
-embeddings) and ``yi-6b.reduced()`` (plain GQA, separate head), both f32.
+embeddings), ``yi-6b.reduced()`` and ``minitron-8b.reduced()`` (plain GQA,
+separate head) and ``granite-34b.reduced()`` (MQA: one kv head, separate
+head), all f32.
 Every input is made with numpy from a seed and handed to both packages.
 Tolerances: 1e-4 at f32 on logits and on attention outputs (summation
 order only; the reference's init rule gives activations of tens); the
@@ -33,7 +35,7 @@ from repro_torch.models import (attention, common, ffn, registry, transformer, w
                                 zamba)
 from repro_torch.serve.engine import ServeConfig, ServeEngine
 
-ARCHS = ["qwen3-4b", "yi-6b"]
+ARCHS = ["qwen3-4b", "yi-6b", "minitron-8b", "granite-34b"]
 
 
 @pytest.fixture(scope="module", params=ARCHS)
