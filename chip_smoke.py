@@ -49,6 +49,17 @@ source, started together) and, at the paper's L=32 lattice:
     backward calls); profiles one more step; holds one step's loss and
     gradients on the card against the CPU at 2 layers in f32, and 4 steps
     straight against 2 + checkpoint + restore + 2, bitwise, on the card;
+  * the mesh phase: a world of one rank on NCCL (``file://`` store,
+    in-process), ``make_mesh((1, 1), ("data", "model"))``, full-width
+    qwen3-4b cut to 4 layers trained through ``train.loop.train(mesh=...)``
+    (DTensor weights, batches and moments at the reference's placements,
+    activations pinned by ``act_sharding``, the flash kernels on each
+    rank's heads through ``local_map``): 2 steps, checkpoint, the group
+    torn down, a new group and mesh, restore, 2 more steps; losses, every
+    parameter and moment against ``train.loop.train`` on one card over the
+    same 4 steps from the same weights (bitwise expected), the
+    ``flash_group_fwd<128>`` and ``flash_bwd_d128`` launches of the mesh
+    runs by name, and both step times;
   * the MoE phase, after the qwen3-4b phases have freed the card: on
     full-width, full-depth granite-moe-1b-a400m (24 layers, 32 experts
     top-8, 16/8 heads of 64), ``ServeEngine`` as above (24 flash launches in
@@ -256,6 +267,11 @@ LM_TEACHER_TOL = 0.1
 # against 1,024-key chunks), ~1e-6 relative per op on O(1) logits
 LM_CROSS_TOL = 1e-3
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 1024, 5  # 2 x 1,024 tokens a step, 5 steps
+MESH_LAYERS = 4
+MESH_REDUCED = {"n_layers": "36 -> 4: the smoke's time limit"}
+MESH_SHAPE, MESH_AXES = (1, 1), ("data", "model")
+MESH_STEPS = (2, 2)  # steps before the checkpoint, steps after the restore
+MESH_LOSS_TOL, MESH_LEAF_TOL = 1e-4, 1e-3  # if not bitwise: loss relative, leaf of its max
 # the MoE phase, served and trained at the LM and training shapes above: full
 # width, 24 layers, d_model 1,024, 16/8 heads of 64, 32 experts top-8 (d_ff
 # 512), vocab 49,155, tied embeddings; 1.33 B parameters, 0.40 B active
@@ -965,6 +981,18 @@ def main(argv: list[str] | None = None) -> int:
     flash["launches"] += train_fwd_launches
     flash["launches_by_kernel"][D128_FWD_KERNEL] = (
         flash["launches_by_kernel"].get(D128_FWD_KERNEL, 0) + train_fwd_named)
+
+    # -- 5c'. the mesh phase: qwen3-4b on a (1, 1) NCCL mesh, save, new group, restore ---
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mesh_fwd, mesh_bwd = _mesh_phase(args.seed, failures)
+    _emit({"phase": "mesh", "seconds": time.perf_counter() - t0})
+    flash["mesh_train_launches"], flash_bwd["mesh_train_launches"] = mesh_fwd, mesh_bwd
+    flash["launches"] += mesh_fwd
+    flash_bwd["launches"] += mesh_bwd
+    for entry, kname, n in ((flash, D128_FWD_KERNEL, mesh_fwd),
+                            (flash_bwd, D128_BWD_KERNEL, mesh_bwd)):
+        entry["launches_by_kernel"][kname] = entry["launches_by_kernel"].get(kname, 0) + n
 
     # -- 5d. the MoE phase: granite-moe served and trained, the kernels at D=64 ------
     torch.cuda.empty_cache()
@@ -2339,6 +2367,105 @@ def _train_phase(seed: int, failures: list[str]) -> tuple[dict, int, int]:
     return ({"launches": bwd, "launches_per_step": bwd / steps, "max_abs_err": max_err,
              "launches_by_kernel": {D128_BWD_KERNEL: by_kernel.get(D128_BWD_KERNEL, 0)}},
             fwd, by_kernel.get(D128_FWD_KERNEL, 0))
+
+
+def _mesh_phase(seed: int, failures: list[str]) -> tuple[int, int]:
+    """qwen3-4b at full width (``MESH_LAYERS`` layers: ``MESH_REDUCED``),
+    bf16 compute, f32 weights and moments, 2 x 1,024 tokens a step, trained
+    on a ``MESH_SHAPE`` mesh of one NCCL rank: ``MESH_STEPS[0]`` steps and a
+    checkpoint, the process group destroyed, a new group and mesh, the
+    checkpoint restored onto it, ``MESH_STEPS[1]`` more steps; against
+    ``train.loop.train`` on the card without a mesh over the same steps
+    from the same seeded weights.  Returns the mesh runs' D=128 forward and
+    backward launches (counted by kernel name between the counters' reset
+    just before the first mesh run and the read just after the second)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as meshes
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import loop
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=MESH_LAYERS)
+    total = sum(MESH_STEPS)
+    ckpt_dir = ROOT / "build" / "chip_smoke_mesh_checkpoints"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    quiet = lambda line: None  # noqa: E731
+
+    def tcfg(steps: int, directory=None):
+        return loop.TrainConfig(steps=steps, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                                log_every=1, seed=seed, checkpoint_dir=directory,
+                                checkpoint_every=100,
+                                opt=AdamWConfig(peak_lr=3e-4, warmup_steps=2, total_steps=total))
+
+    t0 = time.perf_counter()
+    one = loop.train(cfg, tcfg(total), log=quiet, device=dev)
+
+    def on_new_mesh(run):
+        store = tempfile.mkdtemp(dir=ROOT / "build")
+        meshes.init_distributed("cuda", init_method=f"file://{store}/store", rank=0,
+                                world_size=1)
+        try:
+            return run(meshes.make_mesh(MESH_SHAPE, MESH_AXES))
+        finally:
+            torch.distributed.destroy_process_group()
+            shutil.rmtree(store, ignore_errors=True)
+
+    _reset_counts()
+    first = on_new_mesh(lambda mesh: loop.train(cfg, tcfg(MESH_STEPS[0], str(ckpt_dir)),
+                                                log=quiet, mesh=mesh))
+    first_hist, first_ms = first["history"], first["step_ms"]
+    del first
+    torch.cuda.empty_cache()
+    t_restart = time.perf_counter()
+    second = on_new_mesh(lambda mesh: loop.train(cfg, tcfg(total), log=quiet, mesh=mesh,
+                                                 restore_dir=str(ckpt_dir)))
+    counts, by_kernel = _counts(), _by_kernel()
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    mesh_hist = first_hist + second["history"]
+    pairs = [(n, a.detach().to_local(), b.detach()) for (n, a), (_, b) in zip(
+        second["params"].named_parameters(), one["params"].named_parameters())]
+    pairs += [(f"{k}/{n}", second["opt_state"][k][n].to_local(), one["opt_state"][k][n])
+              for k in ("m", "v") for n in one["opt_state"][k]]
+    bitwise = all(torch.equal(a, b) for _, a, b in pairs)
+    leaf_errs = {n: float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(
+        1e-30)) for n, a, b in pairs}
+    worst = max(leaf_errs, key=leaf_errs.get)
+    losses_one = [h["loss"] for h in one["history"]]
+    losses_mesh = [h["loss"] for h in mesh_hist]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses_mesh, losses_one))
+    fwd, bwd = counts["flash_attention"], counts["flash_attention_bwd"]
+    expected = {D128_FWD_KERNEL: 2 * cfg.n_layers * total, D128_BWD_KERNEL: cfg.n_layers * total}
+    row = {"row": "mesh train", "arch": cfg.name, "mesh": dict(zip(MESH_AXES, MESH_SHAPE)),
+           "backend": "nccl", "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab_size, "reduced": MESH_REDUCED, "compute_dtype": cfg.dtype,
+           "master_dtype": "float32", "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "steps": list(MESH_STEPS), "losses_mesh": losses_mesh, "losses_one_card": losses_one,
+           "grad_norms_mesh": [h["grad_norm"] for h in mesh_hist],
+           "grad_norms_one_card": [h["grad_norm"] for h in one["history"]],
+           "mesh_step_ms": first_ms + second["step_ms"], "one_card_step_ms": one["step_ms"],
+           "bitwise": bitwise, "leaves_compared": len(pairs), "max_loss_rel_err": loss_err,
+           "worst_leaf": worst, "worst_leaf_err": leaf_errs[worst],
+           "flash_launches_by_kernel": by_kernel, "expected_launches_by_kernel": expected,
+           "other_launches": sum(counts.values()) - fwd - bwd,
+           "restart_s": time.perf_counter() - t_restart, "seconds": time.perf_counter() - t0}
+    row["ok"] = (len(losses_mesh) == total
+                 and (bitwise or (loss_err <= MESH_LOSS_TOL and leaf_errs[worst] <= MESH_LEAF_TOL))
+                 and by_kernel == expected and fwd == expected[D128_FWD_KERNEL]
+                 and bwd == expected[D128_BWD_KERNEL] and row["other_launches"] == 0)
+    print(f"mesh train: mesh step ms {row['mesh_step_ms']}, one-card step ms "
+          f"{row['one_card_step_ms']}")
+    _emit(row)
+    if not row["ok"]:
+        failures.append(f"mesh train: {row}")
+    del one, second, pairs
+    torch.cuda.empty_cache()
+    return fwd, bwd
 
 
 @contextlib.contextmanager

@@ -19,6 +19,15 @@ rebuilds a new tree from its template; here :meth:`CheckpointManager.restore`
 copies the saved values into the template's own tensors (the port keeps one
 set of parameters and updates it in place).  bf16 leaves are stored as
 their 16-bit patterns (numpy has no bf16) and the manifest keeps the dtype.
+
+On a mesh (DTensor leaves, a process group running) ``save`` gathers each
+leaf whole (``full_tensor()``, a collective every rank takes in the same
+order) before the writer thread starts; rank 0 alone copies it to the host
+and writes, the other ranks drop it before the next leaf.  ``wait`` ends
+with a barrier, so no rank reads a checkpoint before it is complete.
+``restore`` reads one leaf at a time and keeps each template leaf's own
+shard at its placements, on whatever mesh the template lives: a checkpoint
+of a (2, 2) mesh restores onto (1, 2).
 """
 from __future__ import annotations
 
@@ -32,6 +41,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from repro_torch.distributed.sharding import distribute, is_dtensor, whole
 
 
 @dataclasses.dataclass
@@ -53,6 +64,10 @@ def leaves(tree: Any, prefix: str = "") -> list[tuple[str, torch.Tensor]]:
         return [x for i, t in enumerate(tree) for x in leaves(t, f"{prefix}{i}/")]
     raise TypeError(f"{prefix or 'tree'}: a {type(tree).__name__} is not a tensor, module, "
                     "dict, list or tuple")
+
+
+def _distributed() -> bool:
+    return torch.distributed.is_available() and torch.distributed.is_initialized()
 
 
 def _to_numpy(x: torch.Tensor) -> np.ndarray:
@@ -82,8 +97,15 @@ class CheckpointManager:
         found = leaves(tree)
         paths = [p for p, _ in found]
         dtypes = [str(t.dtype).removeprefix("torch.") for _, t in found]
-        host = [_to_numpy(t) for _, t in found]
+        writes = not _distributed() or torch.distributed.get_rank() == 0
+        host = []
+        for _, t in found:  # every rank gathers, in this thread; rank 0 keeps
+            x = whole(t)
+            if writes:
+                host.append(_to_numpy(x))
         payload_extra = dict(extra or {})
+        if not writes:
+            return
 
         def work() -> None:
             try:
@@ -126,9 +148,16 @@ class CheckpointManager:
             shutil.rmtree(self.dir / f"step_{s:08d}", ignore_errors=True)
 
     def wait(self) -> None:
+        """Wait for the outstanding save (and, in a process group, for every
+        rank: a barrier)."""
         if self._worker is not None:
             self._worker.join()
             self._worker = None
+        if _distributed():
+            if torch.distributed.get_backend() == "nccl":
+                torch.distributed.barrier(device_ids=[torch.cuda.current_device()])
+            else:
+                torch.distributed.barrier()
         self._raise_if_failed()
 
     def _raise_if_failed(self) -> None:
@@ -156,7 +185,8 @@ class CheckpointManager:
     def restore(self, template: Any, step: int | None = None) -> tuple[Any, dict[str, Any], int]:
         """-> (template with the saved values, extra, step).
 
-        Copies each saved leaf into the template's tensor at the same path.
+        Copies each saved leaf into the template's tensor at the same path
+        (a DTensor leaf takes its own shard at its own placements).
 
         Raises:
             FileNotFoundError: no complete checkpoint (or not ``step``).
@@ -173,13 +203,16 @@ class CheckpointManager:
         if len(found) != manifest["n_leaves"]:
             raise ValueError(f"checkpoint has {manifest['n_leaves']} leaves; template expects "
                              f"{len(found)}")
-        with np.load(d / "arrays.npz") as z:
-            saved = [_from_numpy(z[f"leaf_{i}"], dt) for i, dt in enumerate(manifest["dtypes"])]
-        for (path, t), want_path, x in zip(found, manifest["paths"], saved):
-            if path != want_path or t.dtype != x.dtype or t.shape != x.shape:
-                raise ValueError(f"checkpoint leaf {want_path} {x.dtype} {tuple(x.shape)} does "
+        for (path, t), want_path, dt, shape in zip(found, manifest["paths"], manifest["dtypes"],
+                                                   manifest["shapes"]):
+            if path != want_path or str(t.dtype) != f"torch.{dt}" or tuple(t.shape) != tuple(shape):
+                raise ValueError(f"checkpoint leaf {want_path} torch.{dt} {tuple(shape)} does "
                                  f"not fit the template's {path} {t.dtype} {tuple(t.shape)}")
-        with torch.no_grad():
-            for (_, t), x in zip(found, saved):
-                t.copy_(x)
+        with np.load(d / "arrays.npz") as z, torch.no_grad():
+            for i, ((_, t), dt) in enumerate(zip(found, manifest["dtypes"])):
+                x = _from_numpy(z[f"leaf_{i}"], dt)  # one leaf read at a time
+                if is_dtensor(t):
+                    t.to_local().copy_(distribute(x, t.device_mesh, t.placements).to_local())
+                else:
+                    t.copy_(x)
         return template, manifest.get("extra", {}), step

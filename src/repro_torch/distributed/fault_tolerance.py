@@ -12,9 +12,12 @@ logic is unit-testable on one machine:
     *data* axis (pure-DP slices are stateless beyond the data shard; the
     model axis is rebuilt only when a model-shard host dies).
 
-The training loop drives one monitor for its one host; a restart over
-several cards (new mesh, resharded checkpoint, resumed pipeline) is not
-ported (ROADMAP Queue 1, the item on the rest of the LM side).
+The training loop drives one monitor for its one host.  The restart
+recipe (the planner's new mesh, the checkpoint restored onto it, the
+pipeline resumed from its step) is ``launch/train.py --restart-from DIR
+--alive ... --dead ...``: ``ElasticMeshPlanner.plan`` gives the (data,
+model) shape, ``launch.mesh.make_mesh`` builds it over the ranks left, and
+``train.loop.train(mesh=..., restore_dir=DIR)`` restores and trains on.
 """
 from __future__ import annotations
 

@@ -1,12 +1,18 @@
 """Halo and boundary geometry of a sharded SU3 lattice, and the LM
-sharding rules as arithmetic (port of ``repro.distributed.sharding``).
+sharding rules (port of ``repro.distributed.sharding``).
 
 The LM half (:class:`LogicalMesh`, :class:`MeshRules`,
 :func:`default_rules`, :func:`resolve_spec`, :func:`state_spec_for`) is the
 reference's rule resolver over a dict of axis sizes: which mesh axes divide
-each dim of a parameter or a state leaf.  No tensor is partitioned; the dry
-run (``launch/dryrun.py``) reads the per-device sizes from it, and one card
-is the 1 x 1 mesh, where every dim stays whole.
+each dim of a parameter or a state leaf.  The dry run
+(``launch/dryrun.py``) reads the per-device sizes from it.
+:func:`param_placements`, :func:`opt_state_placements` and
+:func:`batch_placements` turn the same resolution into DTensor placements,
+one ``Shard``/``Replicate`` per mesh dim (the counterparts of the
+reference's ``param_shardings``, ``opt_state_shardings`` and
+``batch_shardings``), and :func:`distribute_tree` and
+:func:`distribute_batch` place full leaves on a ``DeviceMesh``
+(``launch/mesh.py``'s ``make_mesh``) by them.
 
 Pure arithmetic: the L^4 lattice splits along its outermost (t) dimension
 into ``n_shards`` contiguous slabs, and a nearest-neighbour stencil needs
@@ -439,3 +445,152 @@ def local_numel(shape: tuple[int, ...], spec: tuple[Assignment, ...], mesh: Logi
             div = axis_size(mesh, ax if isinstance(ax, tuple) else (ax,))
         n *= dim // max(div, 1)
     return n
+
+
+# ---------------------------------------------------------------------------
+# LM rules as DTensor placements on a DeviceMesh
+# ---------------------------------------------------------------------------
+
+
+def is_dtensor(x: Any) -> bool:
+    """Whether ``x`` is a DTensor (a leaf or an activation of a mesh run)."""
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def whole(x: Any) -> Any:
+    """``x`` detached, a DTensor gathered whole on every rank (a collective:
+    every rank calls it)."""
+    x = x.detach()
+    return x.full_tensor() if is_dtensor(x) else x
+
+
+def mesh_rank(mesh: Any, dims: list[int]) -> tuple[int, int]:
+    """(this rank's index, the count) over the mesh dims ``dims`` taken as
+    one axis, major first: (0, 1) over none."""
+    coord, shards, r = mesh.get_coordinate(), 1, 0
+    for i in dims:
+        r = r * mesh.size(i) + coord[i]
+        shards *= mesh.size(i)
+    return r, shards
+
+
+def logical_mesh(mesh: Any) -> LogicalMesh:
+    """The axis sizes of ``mesh``: a :class:`LogicalMesh` as it is, or a
+    ``DeviceMesh``'s ``mesh_dim_names`` and shape."""
+    if isinstance(mesh, LogicalMesh):
+        return mesh
+    names = mesh.mesh_dim_names
+    if names is None:
+        raise ValueError("the LM rules read mesh axes by name: build the mesh with axis names")
+    return LogicalMesh(tuple(zip(names, (int(n) for n in mesh.shape))))
+
+
+def placements_of(spec: tuple[Assignment, ...], mesh: Any) -> tuple[Any, ...]:
+    """A :func:`resolve_spec` result as DTensor placements, one per mesh dim:
+    ``Shard(i)`` on each mesh axis that dim ``i`` takes, ``Replicate()`` on
+    the others.  A dim over several axes (``("pod", "data")``) takes them
+    in the mesh's order, major first, as the reference's ``PartitionSpec``
+    lays them out.
+
+    Raises:
+        ValueError: an axis the mesh lacks, or several axes out of the
+            mesh's order (a layout one ``Shard`` per mesh dim cannot give).
+    """
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = logical_mesh(mesh).axis_names
+    out: list[Any] = [Replicate()] * len(names)
+    for dim, assignment in enumerate(spec):
+        if assignment is None:
+            continue
+        axes = assignment if isinstance(assignment, tuple) else (assignment,)
+        idx = [names.index(a) if a in names else -1 for a in axes]
+        if -1 in idx:
+            raise ValueError(f"spec {spec} names an axis the mesh {names} lacks")
+        if idx != sorted(idx):
+            raise ValueError(f"dim {dim} shards over {axes}, out of the mesh's order {names}")
+        for i in idx:
+            out[i] = Shard(dim)
+    return tuple(out)
+
+
+def _map_tree(fn, tree: Any, *rest: Any) -> Any:
+    """``fn`` over the leaves of nested dicts and lists (``rest`` shaped
+    like ``tree``)."""
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_tree(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def param_placements(spec_tree: Any, mesh: Any, rules: MeshRules) -> Any:
+    """ParamSpec tree -> a tree of placement tuples (params, grads and the
+    AdamW moments), by :func:`resolve_spec`'s fallbacks: a dim that does
+    not divide its mesh axes stays whole, and no mesh axis serves two dims
+    of a leaf."""
+    lm = logical_mesh(mesh)
+    return _map_tree(lambda s: placements_of(resolve_spec(s.axes, s.shape, lm, rules), lm),
+                     spec_tree)
+
+
+def opt_state_placements(param_pl: Any, mesh: Any) -> dict[str, Any]:
+    """The AdamW state's placements: each moment as its parameter, the step
+    count replicated."""
+    from torch.distributed.tensor import Replicate
+
+    return {"m": param_pl, "v": param_pl,
+            "count": (Replicate(),) * len(logical_mesh(mesh).axis_names)}
+
+
+def batch_placements(shapes: dict[str, tuple[int, ...]], mesh: Any,
+                     rules: MeshRules) -> dict[str, tuple[Any, ...]]:
+    """Input batches shard their leading (batch) dim over the data axes when
+    it divides them, else stay replicated."""
+    lm = logical_mesh(mesh)
+    dp = tuple(rules.data_axes)
+    out = {}
+    for name, shape in shapes.items():
+        spec: tuple[Assignment, ...] = ()
+        if dp and shape and shape[0] % axis_size(lm, dp) == 0:
+            spec = (dp if len(dp) > 1 else dp[0],)
+        out[name] = placements_of(spec, lm)
+    return out
+
+
+def distribute(x: Any, mesh: Any, placements: tuple[Any, ...]) -> Any:
+    """A full tensor (or numpy array), the same on every rank, as a DTensor
+    on ``mesh``: each rank keeps its own shard, cut locally (no collective)
+    and contiguous."""
+    import numpy as np
+    import torch
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    t = torch.from_numpy(np.array(x)) if isinstance(x, np.ndarray) else x
+    t = t.detach().to(mesh.device_type)
+    d = distribute_tensor(t, mesh, list(placements), src_data_rank=None)
+    local = d.to_local()
+    if not local.is_contiguous() or (
+            local.untyped_storage().nbytes() > local.numel() * local.element_size()):
+        # a copy of its own: a shard must not hold the whole leaf's storage
+        d = DTensor.from_local(local.clone(memory_format=torch.contiguous_format), mesh,
+                               list(placements), run_check=False, shape=d.shape,
+                               stride=d.stride())
+    return d
+
+
+def distribute_batch(batch: dict[str, Any], mesh: Any, rules: MeshRules) -> dict[str, Any]:
+    """A whole input batch, the same on every rank, as DTensors at
+    :func:`batch_placements`: each rank keeps its rows."""
+    pl = batch_placements({k: tuple(v.shape) for k, v in batch.items()}, mesh, rules)
+    return {k: distribute(v, mesh, pl[k]) for k, v in batch.items()}
+
+
+def distribute_tree(tree: Any, spec_tree: Any, mesh: Any, rules: MeshRules) -> Any:
+    """Full leaves (tensors or numpy arrays, the same on every rank) ->
+    DTensors on ``mesh`` at :func:`param_placements`; ``tree`` is shaped
+    like ``spec_tree`` (the reference's tree: stacked layers)."""
+    return _map_tree(lambda x, pl: distribute(x, mesh, pl), tree,
+                     param_placements(spec_tree, mesh, rules))

@@ -1,5 +1,14 @@
-"""The SU3 lattice's (host, device) topology on one card (port of
-:class:`repro.launch.mesh.MeshSpec`).
+"""The LM-training device meshes over ``torch.distributed`` and the SU3
+lattice's (host, device) topology on one card (port of
+``repro.launch.mesh``).
+
+:func:`make_mesh` and :func:`make_production_mesh` are the reference's
+LM-training meshes: a ``torch.distributed.device_mesh.DeviceMesh`` over the
+running process group with named axes (``("data", "model")`` or ``("pod",
+"data", "model")``).  The group comes first, from
+:func:`init_distributed`: NCCL over the cards (the default) or, when the
+caller asks for the CPU, gloo.  A mesh whose size is not the world's is
+refused; nothing falls back to another backend or device.
 
 The paper's NUMA lesson (§4: data must be first-touched by the socket that
 streams it) becomes, on a fleet, *each host builds the lattice slab it
@@ -14,13 +23,12 @@ the site range ``host_site_ranges(...)[h]``, and "devices per host" all
 share that device, as the reference's short-pool oversubscription does.
 :meth:`MeshSpec.resolve` gives a :class:`SlabMesh` (the host count, the
 devices per host, the device), not a ``jax.sharding.Mesh``.
-
-The reference's LM-training meshes (``make_production_mesh``,
-``make_mesh``) have no counterpart: the port's LM path runs on one card.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
+import os
 
 import torch
 
@@ -29,6 +37,109 @@ import torch
 SITE_AXIS = "sites"
 HOST_AXIS = "hosts"
 DEVICE_AXIS = "devices"
+
+# The reference's production shapes: one pod of 16 x 16, two pods of them.
+PRODUCTION_SHAPE = (16, 16)
+PRODUCTION_AXES = ("data", "model")
+MULTI_POD_SHAPE = (2, 16, 16)
+MULTI_POD_AXES = ("pod", "data", "model")
+
+_BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
+
+
+def _device_type(device: torch.device | str | None) -> str:
+    kind = torch.device("cuda" if device is None else device).type
+    if kind not in _BACKENDS:
+        raise ValueError(f"a mesh runs on cuda (NCCL) or cpu (gloo), not {kind!r}")
+    return kind
+
+
+def init_distributed(
+    device: torch.device | str | None = None, *, init_method: str | None = None,
+    rank: int | None = None, world_size: int | None = None,
+) -> torch.device:
+    """Start the default process group and return this rank's device.
+
+    Args:
+        device: ``None`` or ``"cuda"`` (NCCL, one card per rank: the card
+            of the rank's ``LOCAL_RANK``) or ``"cpu"`` (gloo).
+        init_method: ``None`` reads ``torch.distributed.run``'s environment
+            (``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``);
+            ``"file:///path"`` rendezvous through a file, with ``rank`` and
+            ``world_size`` given.
+        rank, world_size: this process's rank and the world's size (read
+            from the environment when not given).
+
+    Raises:
+        RuntimeError: NCCL without CUDA, or with more ranks on this host
+            than cards; a group already running on another backend.
+    """
+    kind = _device_type(device)
+    backend = _BACKENDS[kind]
+    dist = torch.distributed
+    rank = int(os.environ.get("RANK", 0)) if rank is None else rank
+    world_size = int(os.environ.get("WORLD_SIZE", 1)) if world_size is None else world_size
+    local_rank = int(os.environ.get("LOCAL_RANK", rank))
+    if kind == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("NCCL needs CUDA; pass device='cpu' for gloo")
+        cards = torch.cuda.device_count()
+        if local_rank >= cards:
+            raise RuntimeError(f"local rank {local_rank} has no card: NCCL takes one card a "
+                               f"rank, and this host has {cards}")
+        dev = torch.device("cuda", local_rank)
+        torch.cuda.set_device(dev)
+    else:
+        dev = torch.device("cpu")
+    if dist.is_initialized():
+        if dist.get_backend() != backend:
+            raise RuntimeError(f"a {dist.get_backend()} group is running; {kind} needs {backend}")
+        return dev
+    if init_method is None and "MASTER_ADDR" not in os.environ:
+        raise RuntimeError("no rendezvous: run under torch.distributed.run, or pass "
+                           "init_method='file:///path' with rank and world_size")
+    kwargs = {"device_id": dev} if kind == "cuda" else {}
+    dist.init_process_group(backend, init_method=init_method or "env://", rank=rank,
+                            world_size=world_size, **kwargs)
+    return dev
+
+
+def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *,
+              device: torch.device | str | None = None):
+    """A ``DeviceMesh`` of ``shape`` with axis names ``axes`` over the
+    running process group, on the cards (``device`` None or ``"cuda"``,
+    NCCL) or the CPU (``"cpu"``, gloo).
+
+    Raises:
+        ValueError: ``shape`` and ``axes`` differ in length, or the mesh's
+            size is not the world's.
+        RuntimeError: no process group, or one on the other backend.
+    """
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape, axes = tuple(int(n) for n in shape), tuple(axes)
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {shape} and axes {axes} differ in length")
+    kind = _device_type(device)
+    dist = torch.distributed
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh needs a process group: call init_distributed first")
+    if dist.get_backend() != _BACKENDS[kind]:
+        raise RuntimeError(f"a {kind} mesh needs {_BACKENDS[kind]}, the group runs "
+                           f"{dist.get_backend()}")
+    world = dist.get_world_size()
+    if math.prod(shape) != world:
+        raise ValueError(f"mesh {shape} holds {math.prod(shape)} devices, the world has "
+                         f"{world} ranks")
+    return init_device_mesh(kind, shape, mesh_dim_names=axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device: torch.device | str | None = None):
+    """The reference's production mesh: (16, 16) ``("data", "model")``, or
+    (2, 16, 16) ``("pod", "data", "model")`` with ``multi_pod``."""
+    if multi_pod:
+        return make_mesh(MULTI_POD_SHAPE, MULTI_POD_AXES, device=device)
+    return make_mesh(PRODUCTION_SHAPE, PRODUCTION_AXES, device=device)
 
 
 @dataclasses.dataclass(frozen=True)

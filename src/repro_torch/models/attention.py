@@ -10,12 +10,19 @@ requiring grad) the same call goes through the kernel's autograd function,
 whose backward is the hand-written backward kernel on the card.  Decode
 is one query against the cache in plain PyTorch, as in the reference (no
 Pallas kernel there either).  The KV cache is written in place.
+
+On a mesh (``distributed.act_sharding.use_rules``) q, k and v are DTensors
+pinned to ``"bthd"``, the reference's sites; :func:`flash_attention` then
+runs the same kernel, forward and backward, on each rank's own heads
+through ``local_map`` (:func:`_local_heads`).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import act_sharding, sharding
+from repro_torch.distributed.act_sharding import shard
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.models import common
 from repro_torch.models.common import ParamSpec
@@ -46,9 +53,9 @@ def _proj_in(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def _project_qkv(
     params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    q = _proj_in(x, params["wq"])
-    k = _proj_in(x, params["wk"])
-    v = _proj_in(x, params["wv"])
+    q = shard(_proj_in(x, params["wq"]), "bthd")
+    k = shard(_proj_in(x, params["wk"]), "bthd")
+    v = shard(_proj_in(x, params["wv"]), "bthd")
     if cfg.qk_norm:
         q = common.rmsnorm(q, params["q_norm"], cfg.norm_eps)
         k = common.rmsnorm(k, params["k_norm"], cfg.norm_eps)
@@ -77,10 +84,62 @@ def flash_attention(
 
     CUDA tensors run the kernel (one launch); CPU tensors run the chunked
     plain version with ``q_chunk`` / ``kv_chunk``.  Under grad the call is
-    differentiable (``kernels.flash_attention.FlashAttention``).
+    differentiable (``kernels.flash_attention.FlashAttention``).  DTensors
+    (a mesh's activations) go through :func:`_local_heads`.
     """
-    return fa.flash_attention(q, k, v, causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk,
-                              q_offset=q_offset)
+    kw = dict(causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk, q_offset=q_offset)
+    if act_sharding.active()[0] is not None and sharding.is_dtensor(q):
+        return _local_heads(q, k, v, **kw)
+    return fa.flash_attention(q, k, v, **kw)
+
+
+def _local_heads(q, k, v, **kw) -> torch.Tensor:
+    """:func:`kernels.flash_attention.flash_attention` on each rank's heads
+    of DTensors q, k, v (``"bthd"``: batch over the data axes, heads over
+    the model axes where they divide), through ``local_map``: the kernel
+    and its backward, never another attention.
+
+    Where the kv heads divide the model axes they shard with q's, and a
+    rank's query groups meet their own kv heads.  Where they do not (MQA,
+    or fewer kv heads than model shards) k and v stay replicated and each
+    rank takes the kv heads of its own query heads: a slice where each of
+    them serves the same number of its query heads in order, else one kv
+    head per query head (G = 1).  Their gradients are then partial sums
+    over the model axes (``in_grad_placements``), which the redistribution
+    of k and v adds up.
+    """
+    from torch.distributed.tensor import Partial, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    q_pl = act_sharding.placements("bthd", tuple(q.shape))
+    kv_pl = act_sharding.placements("bthd", tuple(k.shape))
+    head_dims = [i for i, p in enumerate(q_pl) if p == Shard(2)]
+    hq, hkv = q.shape[2], k.shape[2]
+    kv_grad_pl = kv_pl
+    pick = None  # the kv heads of this rank's query heads, when k and v are whole
+    if head_dims and kv_pl[head_dims[0]] != Shard(2):
+        r, shards = sharding.mesh_rank(mesh, head_dims)
+        hl, g = hq // shards, hq // hkv
+        idx = [(r * hl + j) // g for j in range(hl)]  # the kv head of each local query head
+        heads = sorted(set(idx))
+        per = hl // len(heads)
+        pick = (heads[0], len(heads)) if idx == [h for h in heads for _ in range(per)] else idx
+        kv_grad_pl = tuple(Partial() if i in head_dims else p for i, p in enumerate(kv_pl))
+
+    def local(ql, kl, vl):
+        if isinstance(pick, tuple):
+            kl = kl.narrow(2, *pick).contiguous()
+            vl = vl.narrow(2, *pick).contiguous()
+        elif pick is not None:
+            at = torch.tensor(pick, device=kl.device)
+            kl, vl = kl.index_select(2, at), vl.index_select(2, at)
+        return fa.flash_attention(ql, kl, vl, **kw)
+
+    fn = local_map(local, out_placements=list(q_pl), in_placements=(q_pl, kv_pl, kv_pl),
+                   in_grad_placements=(q_pl, kv_grad_pl, kv_grad_pl), device_mesh=mesh,
+                   redistribute_inputs=True)
+    return fn(q, k, v)
 
 
 def decode_attention(

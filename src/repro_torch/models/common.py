@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any
+from typing import Any, Callable
 
 import torch
 from torch import nn
@@ -74,6 +74,7 @@ def tree_set(tree: dict[str, Any] | list[Any], path: tuple[str | int, ...], valu
 
 def init_params(
     spec: SpecTree, generator: torch.Generator, dtype: torch.dtype = torch.float32,
+    *, place: Callable[[tuple[str | int, ...], torch.Tensor], Any] | None = None,
 ) -> dict[str, Any]:
     """Materialise ``spec`` on the generator's device: zeros, ones, or
     ``scale * N(0, 1)`` drawn in ``dtype``.
@@ -84,6 +85,10 @@ def init_params(
     layer count (``wq`` (36, 2560, 32, 128) gets std 1/6): the reference's
     rule, kept so that activations have its magnitudes.  The numbers are
     torch's, not ``jax.random``'s.
+
+    ``place(path, leaf)`` gives what the tree keeps of each leaf as soon as
+    it is drawn (a mesh run's shard of it), so no more than one whole leaf
+    lives at a time; the draws keep their order and bits.
     """
     out: dict[str, Any] = {}
     dev = generator.device
@@ -100,7 +105,7 @@ def init_params(
                 scale = s.scale if s.scale is not None else 1.0 / math.sqrt(fan_in)
             x = torch.randn(s.shape, generator=generator, dtype=dtype, device=dev)
             x.mul_(scale)
-        tree_set(out, path, x)
+        tree_set(out, path, x if place is None else place(path, x))
     return out
 
 
@@ -202,8 +207,29 @@ class RMSNorm(torch.autograd.Function):
         s = torch.sum(gw * xf, dim=-1)
         inv = inv32[..., None]
         dx = (gw * inv - xf * (inv**3) * (s / d)[..., None]).to(x.dtype)
-        dw = (g.to(f32) * xf * inv).reshape(-1, d).sum(dim=0).to(w.dtype)
+        dw = _row_sum(g.to(f32) * xf * inv).to(w.dtype)
         return dx, dw, None
+
+
+def _row_sum(t: torch.Tensor) -> torch.Tensor:
+    """(..., d) -> (d,): the sum over every row, as ``reshape(-1, d)`` then
+    a sum.  A DTensor (a mesh run) sums its own rows the same way and gives
+    a partial sum over the mesh dims that split them: the one-card path's
+    op on each rank (a view that flattens a sharded dim is refused)."""
+    from repro_torch.distributed.sharding import is_dtensor
+
+    d = t.shape[-1]
+    if not is_dtensor(t):
+        return t.reshape(-1, d).sum(dim=0)
+    from torch.distributed.tensor import DTensor, Partial, Shard
+
+    pl = []
+    for p in t.placements:
+        if isinstance(p, Shard) and p.dim in (-1, t.ndim - 1):
+            raise ValueError(f"a row sum needs whole rows, got {t.placements}")
+        pl.append(Partial() if isinstance(p, Shard) else p)
+    local = t.to_local().reshape(-1, d).sum(dim=0)
+    return DTensor.from_local(local, t.device_mesh, pl, run_check=False)
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -251,15 +277,96 @@ def softmax_cross_entropy(
     """Mean token NLL; logits (..., vocab) computed in fp32."""
     lf = logits.to(torch.float32)
     lse = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    gold = _pick(lf, labels.long())
     nll = lse - gold
     if mask is not None:
         return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
     return nll.mean()
 
 
+def _pick(lf: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``lf[..., labels]``: a gather, or on a mesh (DTensor logits) each rank's
+    pick from its own vocab columns, zeros elsewhere: a partial sum over
+    the vocab's mesh dims, exact (one term and zeros)."""
+    from repro_torch.distributed.sharding import is_dtensor
+
+    if not is_dtensor(lf):
+        return torch.gather(lf, -1, labels[..., None])[..., 0]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, last = lf.device_mesh, lf.ndim - 1
+    lf_pl = tuple(p if isinstance(p, Shard) else Replicate() for p in lf.placements)
+    vocab_dims = [i for i, p in enumerate(lf_pl) if p == Shard(last)]
+    # the labels lie as the logits' rows do, whole where the vocab is split
+    lab_pl = tuple(p if isinstance(p, Shard) and p.dim < last else Replicate() for p in lf_pl)
+    out_pl = [Partial() if i in vocab_dims else lab_pl[i] for i in range(mesh.ndim)]
+    lo = _rank_offset(mesh, vocab_dims, lf.shape[-1])
+
+    def local(x, lab):
+        rel = lab - lo
+        mine = (rel >= 0) & (rel < x.shape[-1])
+        got = torch.gather(x, -1, torch.where(mine, rel, 0)[..., None])[..., 0]
+        return torch.where(mine, got, 0.0) if vocab_dims else got
+
+    fn = local_map(local, out_placements=out_pl, in_placements=(lf_pl, lab_pl),
+                   in_grad_placements=(lf_pl, lab_pl), device_mesh=mesh,
+                   redistribute_inputs=True)
+    return fn(lf, labels)
+
+
+def _rank_offset(mesh: Any, dims: list[int], n: int) -> int:
+    """The first index of this rank's block of a dim of ``n`` split evenly
+    over the mesh dims ``dims`` (major first); 0 over none."""
+    from repro_torch.distributed.sharding import mesh_rank
+
+    r, shards = mesh_rank(mesh, dims)
+    return r * (n // shards)
+
+
 def embed_lookup(embedding: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """Token embedding rows (a gather).  Its gradient sums each token's rows
     into the embedding's (``F.embedding``'s backward, which sorts the
-    tokens: the same bits on every run, on the card too)."""
+    tokens: the same bits on every run, on the card too).  A DTensor table
+    (a mesh run) goes through :func:`_sharded_lookup`."""
+    from repro_torch.distributed.sharding import is_dtensor
+
+    if is_dtensor(embedding):
+        return _sharded_lookup(embedding, tokens)
     return torch.nn.functional.embedding(tokens.long(), embedding)
+
+
+def _sharded_lookup(embedding, tokens):
+    """The lookup on a mesh, each rank on its own rows of the table: the
+    table whole along d_model (gathered over the axes its 'embed' dim
+    shards on), its vocab rows where they lie (the reference's 'vocab'
+    over the model axes); the tokens in their batch rows.  A rank looks up
+    the tokens its rows hold and gives zeros for the others, so the output
+    is a partial sum over the vocab's mesh dims, and the table's gradient
+    a partial sum over the batch's (``in_grad_placements``)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = embedding.device_mesh
+    tokens = tokens if tokens.dtype == torch.long else tokens.long()
+    vocab_dims = [i for i, p in enumerate(embedding.placements) if p == Shard(0)]
+    batch_dims = [i for i, p in enumerate(tokens.placements) if p == Shard(0)]
+    table_pl = tuple(Shard(0) if i in vocab_dims else Replicate() for i in range(mesh.ndim))
+    table_grad_pl = tuple(Shard(0) if i in vocab_dims else Partial() if i in batch_dims
+                          else Replicate() for i in range(mesh.ndim))
+    out_pl = tuple(Partial() if i in vocab_dims else tokens.placements[i]
+                   for i in range(mesh.ndim))
+    lo = _rank_offset(mesh, vocab_dims, embedding.shape[0])
+
+    def local(table, toks):
+        if not vocab_dims:
+            return torch.nn.functional.embedding(toks, table)
+        rel = toks - lo
+        mine = (rel >= 0) & (rel < table.shape[0])
+        rows = torch.nn.functional.embedding(torch.where(mine, rel, 0), table)
+        return torch.where(mine[..., None], rows, 0.0)
+
+    fn = local_map(local, out_placements=list(out_pl), in_placements=(table_pl, tokens.placements),
+                   in_grad_placements=(table_grad_pl, tokens.placements), device_mesh=mesh,
+                   redistribute_inputs=True)
+    return fn(embedding, tokens)

@@ -1,11 +1,13 @@
 """Dense FFN (SwiGLU, LLaMA-style) and the GELU variant for Whisper (port of
 ``repro.models.ffn``).  Weights are narrowed to the activations' dtype at
-each use, as the reference does."""
+each use, as the reference does; on a mesh the hidden activations are
+pinned to ``"btf"`` at the reference's sites."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.act_sharding import shard
 from repro_torch.models import common
 from repro_torch.models.common import ParamSpec
 
@@ -22,8 +24,8 @@ def spec(cfg: ModelConfig, d_ff: int | None = None) -> common.SpecTree:
 
 def apply(params, x: torch.Tensor) -> torch.Tensor:
     dt = x.dtype
-    gate = torch.matmul(x, params["w_gate"].to(dt))
-    up = torch.matmul(x, params["w_up"].to(dt))
+    gate = shard(torch.matmul(x, params["w_gate"].to(dt)), "btf")
+    up = shard(torch.matmul(x, params["w_up"].to(dt)), "btf")
     return torch.matmul(torch.nn.functional.silu(gate) * up, params["w_down"].to(dt))
 
 
@@ -40,6 +42,6 @@ def spec_gelu(cfg: ModelConfig) -> common.SpecTree:
 def apply_gelu(params, x: torch.Tensor) -> torch.Tensor:
     """GELU FFN; ``jax.nn.gelu``'s default is the tanh approximation."""
     dt = x.dtype
-    h = torch.matmul(x, params["w_in"].to(dt)) + params["b_in"].to(dt)
+    h = shard(torch.matmul(x, params["w_in"].to(dt)) + params["b_in"].to(dt), "btf")
     return (torch.matmul(torch.nn.functional.gelu(h, approximate="tanh"), params["w_out"].to(dt))
             + params["b_out"].to(dt))

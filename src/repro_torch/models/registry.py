@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.distributed.sharding import default_rules, distribute_tree, logical_mesh, whole
 from repro_torch.models import common, transformer, whisper, xlstm_model, zamba
 
 
@@ -115,7 +116,7 @@ def make_inputs(cfg: ModelConfig, shape: ShapeConfig, generator: torch.Generator
 
 def params_from_reference(
     cfg: ModelConfig, tree: dict[str, Any], dtype: torch.dtype | None = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cpu", *, mesh: Any = None,
 ) -> common.ParamTree:
     """The port's model holding the reference's weights.
 
@@ -129,6 +130,10 @@ def params_from_reference(
             list in both trees.
         dtype: the port's parameter dtype; None keeps each array's dtype.
         device: where the port's parameters live.
+        mesh: with a ``DeviceMesh``, every leaf becomes a DTensor on
+            ``mesh`` at its ``distributed.sharding.param_placements`` under
+            the reference's default rules (``device`` is then the mesh's);
+            ``tree`` is the same on every rank.
 
     Raises:
         ValueError: when a leaf of the port's spec is missing from ``tree``
@@ -147,8 +152,12 @@ def params_from_reference(
         x = np.asarray(have[path])
         if tuple(x.shape) != s.shape:
             raise ValueError(f"{common.path_name(path)}: reference shape {x.shape}, port spec {s.shape}")
-        t = torch.from_numpy(np.array(x)).to(device=device)  # a writable copy
+        t = torch.from_numpy(np.array(x))  # a writable copy
+        t = t if mesh is not None else t.to(device=device)
         common.tree_set(out, path, t if dtype is None else t.to(dtype))
+    if mesh is not None:
+        out = distribute_tree(out, get(cfg).spec(cfg), mesh,
+                              default_rules(logical_mesh(mesh)))
     return get(cfg).from_tree(cfg, out)
 
 
@@ -165,7 +174,8 @@ def params_to_reference(
         params: the port's model, or a mapping from its parameter names
             (``named_parameters()``: ``"layers.3.attn.wq"``) to tensors,
             such as the gradients a train step returns.  bf16 leaves come
-            out as f32 (numpy has no bf16).
+            out as f32 (numpy has no bf16); a DTensor leaf is gathered
+            whole (a collective: every rank calls this).
 
     Raises:
         ValueError: when a name the spec needs is missing or one is left
@@ -185,7 +195,7 @@ def params_to_reference(
         missing = [n for n in names if n not in named]
         if missing:
             raise ValueError(f"{cfg.name}: no leaf named {missing[0]}")
-        leaves = [named[n].detach().to("cpu", torch.float32 if named[n].dtype == torch.bfloat16
+        leaves = [whole(named[n]).to("cpu", torch.float32 if named[n].dtype == torch.bfloat16
                                        else named[n].dtype).numpy() for n in names]
         x = np.stack(leaves) if stacked else leaves[0]
         if tuple(x.shape) != s.shape:

@@ -10,7 +10,11 @@ layer with ``torch.utils.checkpoint`` (non-reentrant), the counterpart of
 the reference's ``jax.checkpoint(..., nothing_saveable)`` scan body: a
 layer keeps only its input and recomputes the rest, its MoE balance loss
 included, in the backward.  With ``cfg.use_mla`` every layer's attention
-is :mod:`repro_torch.models.mla` and its cache the latent one.
+is :mod:`repro_torch.models.mla` and its cache the latent one.  On a mesh
+(``distributed.act_sharding.use_rules``, DTensor parameters placed by
+``distributed.sharding.distribute_tree``) the residual stream is pinned to
+``"btd"`` and the logits to ``"btv"`` at the reference's sites; without
+rules those calls return their argument.
 
 API (uniform across families via models.registry):
   spec(cfg) / init(generator, cfg)       params
@@ -27,6 +31,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.act_sharding import shard
 from repro_torch.models import attention, common, ffn, mla, moe
 from repro_torch.models.common import ParamSpec, ParamTree
 
@@ -68,19 +73,20 @@ def layer_apply(
     kv_chunk: int = 1024,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor] | None, torch.Tensor]:
     """Pre-norm block. Returns (x, cache, aux_loss); aux is 0 for a dense FFN."""
+    x = shard(x, "btd")
     h = common.rmsnorm(x, params["attn_norm"], cfg.norm_eps)
     a, cache = _attn(cfg).apply(
         params["attn"], h, cfg, positions=positions, cache=cache, cur_len=cur_len,
         q_chunk=q_chunk, kv_chunk=kv_chunk,
     )
-    x = x + a
+    x = shard(x + a, "btd")
     h = common.rmsnorm(x, params["ffn_norm"], cfg.norm_eps)
     if moe_layer:
         f, aux = moe.apply(params["moe"], h, cfg)
     else:
         f = ffn.apply(params["ffn"], h)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + f, cache, aux
+    return shard(x + f, "btd"), cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -160,7 +166,7 @@ def _embed_inputs(params, batch: dict[str, torch.Tensor], cfg: ModelConfig) -> t
 def _logits(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     h = common.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return torch.matmul(h, w.to(h.dtype))
+    return shard(torch.matmul(h, w.to(h.dtype)), "btv")
 
 
 def forward(
@@ -185,7 +191,7 @@ def forward(
     dev = batch["tokens"].device
     start = 0 if cur_len is None else int(cur_len)
     positions = (start + torch.arange(s, device=dev)).expand(b, s)
-    x = _embed_inputs(params, batch, cfg)
+    x = shard(_embed_inputs(params, batch, cfg), "btd")
     aux_total = torch.zeros((), dtype=torch.float32, device=dev)
     sizes = stack_sizes(cfg)
     for key, state_key, is_moe in STACKS:

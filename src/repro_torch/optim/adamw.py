@@ -12,6 +12,16 @@ however large a leaf is (a 4 B-parameter model leaves ~16 GB free on an
 80 GB card).  Elementwise arithmetic is the reference's, in f32; the
 scalars (clip, learning rate, bias corrections) are 0-dim f32 tensors on
 the parameters' device, so a step never waits for the host.
+
+On a mesh the parameters, gradients and moments are DTensors at one
+placement each (``distributed.sharding.param_placements``; a gradient is
+brought to its parameter's placement first, by ``train_step``).  The
+chunks then run over each leaf's local shard (``to_local()``: ``view(-1)``
+of a sharded DTensor is no local view), with the same f32 ops in the same
+order.  :func:`global_norm` sums the squares of every rank's shards,
+counts a replicated leaf once (on the ranks at coordinate 0 of the mesh
+dims it is replicated over) and all-reduces the sum over the mesh, so
+every rank clips by the same norm.
 """
 from __future__ import annotations
 
@@ -20,6 +30,8 @@ import math
 from typing import Any, Iterator, Mapping
 
 import torch
+
+from repro_torch.distributed.sharding import is_dtensor as _is_dtensor
 
 CHUNK = 1 << 24  # elements per slice of a leaf in global_norm and update
 
@@ -70,28 +82,69 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor | int) -> torch.Tensor:
     return cfg.peak_lr * torch.where(step < cfg.warmup_steps, warm, cos)
 
 
+def _zeros_beside(p: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    if _is_dtensor(p):
+        return torch.zeros_like(p, dtype=dt)  # the parameter's placements
+    return torch.zeros(p.shape, dtype=dt, device=p.device)
+
+
 def init(params: Any, cfg: AdamWConfig) -> dict[str, Any]:
-    """Zero moments in ``cfg.moment_dtype`` beside every leaf and a step
-    count of 0 (int32, on the leaves' device)."""
+    """Zero moments in ``cfg.moment_dtype`` beside every leaf (a DTensor
+    leaf's at its placements) and a step count of 0 (int32, on the leaves'
+    device)."""
     dt = getattr(torch, cfg.moment_dtype)
     leaves = named_leaves(params)
     dev = next(iter(leaves.values())).device if leaves else None
     return {
-        "m": {n: torch.zeros(p.shape, dtype=dt, device=p.device) for n, p in leaves.items()},
-        "v": {n: torch.zeros(p.shape, dtype=dt, device=p.device) for n, p in leaves.items()},
+        "m": {n: _zeros_beside(p, dt) for n, p in leaves.items()},
+        "v": {n: _zeros_beside(p, dt) for n, p in leaves.items()},
         "count": torch.zeros((), dtype=torch.int32, device=dev),
     }
 
 
+def _local(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's shard on this rank (the same storage), or ``x``."""
+    return x.to_local() if _is_dtensor(x) else x
+
+
 def _chunks(x: torch.Tensor) -> Iterator[torch.Tensor]:
-    return iter(x.view(-1).split(CHUNK))
+    return iter(_local(x).view(-1).split(CHUNK))
+
+
+def _counted_here(x: torch.Tensor) -> bool:
+    """Whether this rank's shard of ``x`` enters the norm: a plain tensor's
+    always, a DTensor's where this rank sits at coordinate 0 of every mesh
+    dim the leaf is replicated over (each element once over the mesh)."""
+    if not _is_dtensor(x):
+        return True
+    from torch.distributed.tensor import Replicate, Shard
+
+    coord = x.device_mesh.get_coordinate()
+    for c, p in zip(coord, x.placements):
+        if not isinstance(p, (Replicate, Shard)):
+            raise ValueError(f"global_norm takes sharded or replicated leaves, not {p}")
+        if isinstance(p, Replicate) and c != 0:
+            return False
+    return True
 
 
 def global_norm(tree: Any) -> torch.Tensor:
-    """sqrt of the sum over every leaf of its squares, in f32."""
+    """sqrt of the sum over every leaf of its squares, in f32; over a mesh,
+    of every element once, the same on every rank."""
+    leaves = list(named_leaves(tree).values())
     parts = [torch.sum(torch.square(c.to(torch.float32)))
-             for x in named_leaves(tree).values() for c in _chunks(x.detach())]
-    return torch.sqrt(torch.sum(torch.stack(parts)))
+             for x in leaves if _counted_here(x) for c in _chunks(x.detach())]
+    if not leaves or not _is_dtensor(leaves[0]):
+        return torch.sqrt(torch.sum(torch.stack(parts)))
+    dist = torch.distributed
+    mesh = leaves[0].device_mesh
+    if mesh.size() != dist.get_world_size():
+        raise ValueError(f"global_norm reduces over the world: a mesh of {mesh.size()} ranks in "
+                         f"a world of {dist.get_world_size()}")
+    total = (torch.sum(torch.stack(parts)) if parts
+             else torch.zeros((), dtype=torch.float32, device=_local(leaves[0]).device))
+    dist.all_reduce(total)  # one sum over every rank: the same bits on each
+    return torch.sqrt(total)
 
 
 @torch.no_grad()
@@ -121,7 +174,11 @@ def update(
     b1c = 1 - torch.pow(cfg.b1, countf)
     b2c = 1 - torch.pow(cfg.b2, countf)
     for name, p in p_leaves.items():
-        parts = zip(_chunks(p.detach()), _chunks(g_leaves[name]), _chunks(state["m"][name]),
+        grad = g_leaves[name]
+        if _is_dtensor(p) and tuple(grad.placements) != tuple(p.placements):
+            raise ValueError(f"{name}: gradient at {grad.placements}, parameter at "
+                             f"{p.placements}")
+        parts = zip(_chunks(p.detach()), _chunks(grad), _chunks(state["m"][name]),
                     _chunks(state["v"][name]))
         for pc, gc, mc, vc in parts:  # each op rounds where the reference's does
             g = gc.to(f32) * clip

@@ -7,9 +7,18 @@ CUDA and raises without it; ``"cpu"`` runs the plain versions).  Init draws
 the weights from a ``torch.Generator`` seeded by ``TrainConfig.seed`` on
 the device (torch's numbers, not ``jax.random``'s) in f32, the master
 weights; the model computes in ``cfg.dtype``.
+
+With a ``mesh`` (``launch.mesh.make_mesh`` over a running process group)
+every rank draws the same weights leaf by leaf, keeps its shards of each
+(``distributed.sharding.distribute``) and of every batch, and runs the
+loop under ``distributed.act_sharding.use_rules``: the dense family's
+(data, model)-sharded training.  ``restore_dir`` restores a checkpoint from
+another directory first, onto this mesh, whatever mesh wrote it (the
+elastic restart).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Callable
@@ -20,8 +29,9 @@ from repro_torch.checkpoint.manager import CheckpointConfig, CheckpointManager
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.su3.plan import resolve_device
 from repro_torch.data.pipeline import DataConfig, PipelineState, TokenPipeline, make_train_batch
+from repro_torch.distributed import act_sharding, sharding
 from repro_torch.distributed.fault_tolerance import HeartbeatMonitor
-from repro_torch.models import common, registry
+from repro_torch.models import common, registry, transformer
 from repro_torch.optim import adamw
 from repro_torch.train.train_step import make_train_step
 
@@ -39,15 +49,28 @@ class TrainConfig:
     opt: adamw.AdamWConfig = dataclasses.field(default_factory=adamw.AdamWConfig)
 
 
+def _check_mesh_family(cfg: ModelConfig) -> None:
+    """Raise unless ``cfg`` is of the dense family, the one a mesh trains
+    (ROADMAP: the other families on a mesh)."""
+    if (registry.get(cfg).loss_fn is not transformer.loss_fn or cfg.is_moe or cfg.use_mla
+            or cfg.mtp_depth):
+        raise ValueError(f"{cfg.name}: a mesh trains the dense family (GQA attention, dense "
+                         f"FFNs); this config is not one")
+
+
 def train(
     cfg: ModelConfig,
     tcfg: TrainConfig,
     *,
     log: Callable[[str], None] = print,
     device: torch.device | str | None = None,
+    mesh: Any = None,
+    restore_dir: str | None = None,
 ) -> dict[str, Any]:
     """Train from scratch or from the newest checkpoint in
-    ``tcfg.checkpoint_dir`` up to ``tcfg.steps`` steps.
+    ``restore_dir`` or else ``tcfg.checkpoint_dir`` up to ``tcfg.steps``
+    steps; on ``mesh`` (at the reference's default rules) each rank trains
+    its shards, and rank 0 alone logs.
 
     Returns ``params`` and ``opt_state`` (on the device), ``losses`` (the
     loss at each logged step, as the reference), ``final_loss``, and the
@@ -56,23 +79,35 @@ def train(
     ``lr``) and ``step_ms`` (between CUDA events on the card, the host clock
     on the CPU).
     """
-    dev = resolve_device(device)
     api = registry.get(cfg)
     pipe = TokenPipeline(
         DataConfig(cfg.vocab_size, tcfg.seq_len, tcfg.global_batch, seed=tcfg.seed)
     )
-    params = common.trainable(api.init(torch.Generator(device=dev).manual_seed(tcfg.seed), cfg))
+    if mesh is None:
+        dev = resolve_device(device)
+        params = api.init(torch.Generator(device=dev).manual_seed(tcfg.seed), cfg)
+    else:
+        _check_mesh_family(cfg)
+        dev = _mesh_device(mesh)
+        rules = sharding.default_rules(sharding.logical_mesh(mesh))
+        spec = api.spec(cfg)
+        pl = dict(common.tree_leaves(sharding.param_placements(spec, mesh, rules)))
+        tree = common.init_params(spec, torch.Generator(device=dev).manual_seed(tcfg.seed),
+                                  place=lambda path, x: sharding.distribute(x, mesh, pl[path]))
+        params = api.from_tree(cfg, tree)
+        if torch.distributed.get_rank() != 0:
+            log = _silent
+    params = common.trainable(params)
     opt_state = adamw.init(params, tcfg.opt)
     pstate = PipelineState()
     start_step = 0
 
-    ckpt = None
-    if tcfg.checkpoint_dir:
-        ckpt = CheckpointManager(CheckpointConfig(tcfg.checkpoint_dir))
-        if ckpt.latest_step() is not None:
-            _, extra, start_step = ckpt.restore((params, opt_state))
-            pstate = PipelineState(step=int(extra.get("pipeline_step", start_step)))
-            log(f"restored checkpoint at step {start_step}")
+    ckpt = CheckpointManager(CheckpointConfig(tcfg.checkpoint_dir)) if tcfg.checkpoint_dir else None
+    source = CheckpointManager(CheckpointConfig(restore_dir)) if restore_dir else ckpt
+    if source is not None and source.latest_step() is not None:
+        _, extra, start_step = source.restore((params, opt_state))
+        pstate = PipelineState(step=int(extra.get("pipeline_step", start_step)))
+        log(f"restored checkpoint at step {start_step}")
 
     step_fn = make_train_step(cfg, tcfg.opt, microbatches=tcfg.microbatches,
                               q_chunk=min(512, tcfg.seq_len), kv_chunk=min(1024, tcfg.seq_len))
@@ -81,23 +116,28 @@ def train(
     steps: list[tuple[int, dict[str, torch.Tensor]]] = []
     clocks: list[tuple[Any, Any]] = []
     t_last = time.perf_counter()
-    for step in range(start_step, tcfg.steps):
-        batch, pstate = make_train_batch(pipe, pstate, cfg, device=dev)
-        t0 = _clock(dev)
-        params, opt_state, metrics = step_fn(params, opt_state, batch)
-        clocks.append((t0, _clock(dev)))
-        steps.append((step + 1, {k: metrics[k] for k in ("loss", "nll", "aux", "grad_norm", "lr")
-                                 if k in metrics}))
-        if (step + 1) % tcfg.log_every == 0 or step == tcfg.steps - 1:
-            loss = float(metrics["loss"])
-            losses.append(loss)
-            now = time.perf_counter()
-            monitor.beat("host0", step_time_s=(now - t_last) / tcfg.log_every)
-            t_last = now
-            log(f"step {step + 1:5d} loss {loss:.4f} "
-                f"gnorm {float(metrics['grad_norm']):.3f} lr {float(metrics['lr']):.2e}")
-        if ckpt and (step + 1) % tcfg.checkpoint_every == 0:
-            ckpt.save(step + 1, (params, opt_state), {"pipeline_step": pstate.step})
+    rules_on = act_sharding.use_rules(mesh, rules) if mesh is not None else contextlib.nullcontext()
+    with rules_on:
+        for step in range(start_step, tcfg.steps):
+            batch, pstate = make_train_batch(pipe, pstate, cfg, device=dev)
+            if mesh is not None:
+                batch = sharding.distribute_batch(batch, mesh, rules)
+            t0 = _clock(dev)
+            params, opt_state, metrics = step_fn(params, opt_state, batch)
+            clocks.append((t0, _clock(dev)))
+            steps.append((step + 1, {k: metrics[k]
+                                     for k in ("loss", "nll", "aux", "grad_norm", "lr")
+                                     if k in metrics}))
+            if (step + 1) % tcfg.log_every == 0 or step == tcfg.steps - 1:
+                loss = float(metrics["loss"])
+                losses.append(loss)
+                now = time.perf_counter()
+                monitor.beat("host0", step_time_s=(now - t_last) / tcfg.log_every)
+                t_last = now
+                log(f"step {step + 1:5d} loss {loss:.4f} "
+                    f"gnorm {float(metrics['grad_norm']):.3f} lr {float(metrics['lr']):.2e}")
+            if ckpt and (step + 1) % tcfg.checkpoint_every == 0:
+                ckpt.save(step + 1, (params, opt_state), {"pipeline_step": pstate.step})
     if ckpt:
         ckpt.save(tcfg.steps, (params, opt_state), {"pipeline_step": pstate.step})
         ckpt.wait()
@@ -109,6 +149,17 @@ def train(
         "history": [{"step": s, **{k: float(v) for k, v in m.items()}} for s, m in steps],
         "step_ms": [_ms(dev, a, b) for a, b in clocks],
     }
+
+
+def _silent(_: str) -> None:
+    """The log of a rank other than 0."""
+
+
+def _mesh_device(mesh: Any) -> torch.device:
+    """This rank's device on ``mesh``: its card, or the CPU."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
 
 
 def _clock(dev: torch.device) -> Any:

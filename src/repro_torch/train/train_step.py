@@ -3,10 +3,13 @@
 
 Gradient accumulation runs the microbatches one after another: each
 re-runs the remat'd forward and backward and adds its gradients into the
-accumulator, which bounds activation memory to one microbatch.  The
-reference's ``param_shardings`` pins its accumulator to the FSDP layout
-across devices; on one card there is no layout to pin, so the argument is
-taken and ignored.
+accumulator, which bounds activation memory to one microbatch.
+
+On a mesh (DTensor parameters, under ``distributed.act_sharding.use_rules``)
+each gradient is brought to its parameter's placements as it comes out of
+the backward (a partial sum over the mesh is reduced there), which is what
+the reference's ``param_shardings`` pins its accumulator to; the argument
+is taken and ignored.  The metrics come back whole on every rank.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import is_dtensor, whole
 from repro_torch.models import registry
 from repro_torch.optim import adamw
 
@@ -26,6 +30,16 @@ def make_loss_fn(cfg: ModelConfig, **loss_kwargs) -> Callable[..., Any]:
         return api.loss_fn(params, batch, cfg, **loss_kwargs)
 
     return loss_fn
+
+
+def _at_param(p: torch.Tensor, g: torch.Tensor | None) -> torch.Tensor:
+    """``g`` contiguous and, for a DTensor parameter, at its placements; a
+    zero gradient where the loss does not reach ``p``."""
+    if g is None:
+        return torch.zeros_like(p)
+    if is_dtensor(p) and tuple(g.placements) != tuple(p.placements):
+        g = g.redistribute(p.device_mesh, p.placements)
+    return g.contiguous()
 
 
 def make_grad_fn(
@@ -52,9 +66,8 @@ def make_grad_fn(
         # gets a zero gradient, as jax.grad gives it; every gradient is
         # contiguous, as the optimizer's flat chunks need (an einsum's
         # backward may give a permuted one: the sLSTM's r_gates)
-        grads = [torch.zeros_like(p) if g is None else g.contiguous()
-                 for p, g in zip(named.values(), grads)]
-        return dict(zip(named, grads)), {k: v.detach() for k, v in metrics.items()}
+        grads = [_at_param(p, g) for p, g in zip(named.values(), grads)]
+        return dict(zip(named, grads)), {k: whole(v) for k, v in metrics.items()}
 
     def grad_fn(params: Any, batch: dict[str, torch.Tensor]):
         if microbatches == 1:
@@ -71,7 +84,7 @@ def make_grad_fn(
                 if n in g_acc:
                     g_acc[n] += x.to(acc_dt)
                 else:
-                    g_acc[n] = torch.zeros(x.shape, dtype=acc_dt, device=x.device) + x.to(acc_dt)
+                    g_acc[n] = torch.zeros_like(x, dtype=acc_dt) + x.to(acc_dt)
             for k, v in metrics.items():
                 m_acc[k] = m_acc[k] + v.to(torch.float32) if k in m_acc else v.to(torch.float32)
         return ({n: g / microbatches for n, g in g_acc.items()},
@@ -95,7 +108,7 @@ def make_train_step(
     loss's (``nll``, ``aux``, ``loss``, ...) plus ``grad_norm`` and ``lr``.
 
     ``param_shardings`` is accepted for the reference's signature and
-    ignored: one card has no sharding to pin the accumulator to.
+    ignored: each gradient takes its parameter's own placements.
     """
     del param_shardings
     if microbatches < 1:

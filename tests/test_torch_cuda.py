@@ -6,6 +6,7 @@ without JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import contextlib
 import copy
 import dataclasses
 
@@ -1590,3 +1591,58 @@ def test_cuda_mqa_g48_train_step_matches_the_cpu(cuda_device):
     for name, g in grads.items():
         err = (cgrads[name].cpu().double() - g.double()).abs().max().item()
         assert err <= 1e-3 * g.abs().max().item(), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_mesh_steps_equal_the_one_card_steps(cuda_device, tmp_path, dtype):
+    """qwen3-4b reduced at head dim 128 (the kernels' D) trained 3 steps on a
+    (1, 1) mesh of one NCCL rank (DTensor weights, ``local_map`` into the
+    flash kernels) and on the card without a mesh, from the same weights:
+    the same losses and the same bits in every leaf, and the same kernel
+    launches by name."""
+    from repro_torch.data.pipeline import DataConfig, PipelineState, TokenPipeline
+    from repro_torch.data.pipeline import make_train_batch
+    from repro_torch.distributed import act_sharding, sharding
+    from repro_torch.launch import mesh as meshes
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = dataclasses.replace(get_config("qwen3-4b").reduced(), d_head=128, dtype=dtype)
+    api = registry.get(cfg)
+    opt = adamw.AdamWConfig(peak_lr=1e-3, warmup_steps=2, total_steps=20)
+    tree = common.init_params(api.spec(cfg), torch.Generator().manual_seed(0))
+    runs = {}
+    meshes.init_distributed("cuda", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        mesh = meshes.make_mesh((1, 1), ("data", "model"))
+        rules = sharding.default_rules(sharding.logical_mesh(mesh))
+        for on_mesh in (False, True):
+            if on_mesh:
+                params = api.from_tree(cfg, sharding.distribute_tree(tree, api.spec(cfg), mesh,
+                                                                     rules))
+            else:
+                params = api.from_tree(cfg, {k: v for k, v in tree.items()}).to(cuda_device)
+            params = common.trainable(params)
+            state = adamw.init(params, opt)
+            step = make_train_step(cfg, opt, q_chunk=64, kv_chunk=64)
+            pipe, ps, losses = TokenPipeline(DataConfig(cfg.vocab_size, 256, 2, seed=1)), \
+                PipelineState(), []
+            fa.LAUNCHES_BY_KERNEL.clear()
+            ctx = act_sharding.use_rules(mesh, rules) if on_mesh else contextlib.nullcontext()
+            with ctx:
+                for _ in range(3):
+                    batch, ps = make_train_batch(pipe, ps, cfg, device=cuda_device)
+                    if on_mesh:
+                        batch = sharding.distribute_batch(batch, mesh, rules)
+                    params, state, m = step(params, state, batch)
+                    losses.append(float(m["loss"]))
+            leaves = [p.detach().to_local() if on_mesh else p.detach()
+                      for p in params.parameters()]
+            runs[on_mesh] = (losses, leaves, dict(fa.LAUNCHES_BY_KERNEL))
+    finally:
+        torch.distributed.destroy_process_group()
+    assert runs[True][0] == runs[False][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs[True][1], runs[False][1]))
+    assert runs[True][2] == runs[False][2] and sum(runs[True][2].values()) == 3 * 3 * cfg.n_layers
