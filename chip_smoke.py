@@ -22,7 +22,12 @@ source, started together) and, at the paper's L=32 lattice:
     against the serial and one-slab paths, with the kernels' boundary and
     ring launches held against their plain versions, the halo faults, the
     times and phase split, the stencil and CG tuners at 2 slabs and the
-    attribution of the traced steps; and ``SU3Service`` in its batch,
+    attribution of the traced steps; the same 2 and 4 slabs owned by one
+    NCCL rank (a process group of one, started and destroyed in the
+    phase): first-touch init, ``step``, ``fused_step``, the stencil at
+    both ``overlap`` values and depths, fused and composed CG, bitwise
+    against the one-process slab plan, with the stencil-step and
+    CG-iteration ms beside its; and ``SU3Service`` in its batch,
     continuous and megakernel modes on one seeded request stream
     (multiplies at L=16 and L=32, then a stencil batch and a solve),
     autotuned against a fresh cache under ``build/``;
@@ -916,6 +921,13 @@ def main(argv: list[str] | None = None) -> int:
     cg_launches += slabs[su3_stencil.CG_LAUNCHES.name]
     if not all(slabs.values()):
         failures.append(f"the multi-slab main path left a kernel unlaunched: {slabs}")
+    # -- 4e'. the slabs on the ranks of a process group: one NCCL rank, 2 and 4 slabs --
+    ranked = _ranked_slab_phase(u, args.seed, failures)
+    main_path_launches += ranked[su3_matmul.LAUNCHES.name]
+    stencil_launches += ranked[su3_stencil.STENCIL_LAUNCHES.name]
+    cg_launches += ranked[su3_stencil.CG_LAUNCHES.name]
+    if not all(ranked.values()):
+        failures.append(f"the ranked-slab main path left a kernel unlaunched: {ranked}")
 
     # -- 4f. the serving megakernel vs its plain version, L=32 slot tables ----------
     mega_err = _megakernel_checks(u, rng, failures)
@@ -5397,6 +5409,148 @@ def _multislab_phase(u, seed: int, hw, failures: list[str]) -> dict[str, int]:
     fail("tuners", row)
 
     _emit({"provenance": provenance_block(str(ROOT))})
+    return totals
+
+
+RANKED_REPS = 20  # timed stencil steps and CG iterations per plan, medians
+
+
+def _median_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Median ms of one call over ``reps`` calls, each between two CUDA events."""
+    import statistics
+
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    pairs = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
+def _ranked_slab_phase(u, seed: int, failures: list[str]) -> dict[str, int]:
+    """PAPER_L32 on 2 and 4 t-slabs owned by one NCCL rank (a process group
+    of one, started here and destroyed at the end): first-touch init,
+    ``step``, ``fused_step``, the stencil overlapped and not at depth 1
+    and 2, fused and composed CG on ``_cg_measure_problem(32)``, each
+    against the one-process slab plan bitwise, ``verify`` true; the
+    stencil-step and CG-iteration ms (CUDA events, medians) beside the
+    one-process plan's.  On one card nothing crosses ranks: the faces go
+    by local copy and the CG reductions through the group.  Returns the
+    counted launches per kernel of the ranked runs."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.su3_bench import PAPER_L32
+    from repro_torch.core.autotune import _cg_measure_problem
+    from repro_torch.core.su3.plan import build_plan
+    from repro_torch.kernels import su3_matmul, su3_stencil
+    from repro_torch.launch import mesh as meshes
+
+    mult, sten, cgk = (su3_matmul.LAUNCHES.name, su3_stencil.STENCIL_LAUNCHES.name,
+                       su3_stencil.CG_LAUNCHES.name)
+    totals = {mult: 0, sten: 0, cgk: 0}
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 31)
+    n_sites = PAPER_L32.shape.n_sites
+    v_c = torch.from_numpy((rng.standard_normal((n_sites, 3))
+                            + 1j * rng.standard_normal((n_sites, 3))).astype(np.complex64)).to(dev)
+    u_cg, b_cg = _cg_measure_problem(PAPER_L32.L)
+    card = _tool_line(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
+    (ROOT / "build").mkdir(exist_ok=True)
+    store = tempfile.mkdtemp(dir=ROOT / "build")
+
+    def run(plan) -> dict:
+        out = {}
+        a, b, out["init_s"], _ = plan.init_data()
+        out["a_sites"] = plan._site_count(a)
+        out["a"], out["step"] = a.clone(), plan.step(a, b)
+        out["fused"] = plan.fused_step(FUSED_K)(a, b)  # in place: a is not read again
+        out["verify"] = plan.verify(out["step"])
+        tu, tv = plan.pack_gauge(u), plan.pack_rhs(v_c)
+        for overlap in (True, False):
+            for depth in (1, 2):
+                out[f"stencil {overlap} {depth}"] = plan.stencil_step(overlap, depth)(tu, tv)
+        cu, cb = plan.pack_gauge(u_cg), plan.pack_rhs(b_cg)
+        for fused in (True, False):
+            res = plan.cg_solve(cu, cb, fused=fused, overlap=True)
+            out[f"cg {fused}"] = res
+        return out
+
+    def timed(plan) -> dict:
+        tu, tv = plan.pack_gauge(u), plan.pack_rhs(v_c)
+        step = plan.stencil_step(overlap=True)
+        cu, cb = plan.pack_gauge(u_cg), plan.pack_rhs(b_cg)
+        state = [plan.cg_state_init(cb)]
+
+        def iterate():
+            state[0] = plan.cg_iterate(cu, state[0])
+
+        return {"stencil_ms": _median_ms(lambda: step(tu, tv), RANKED_REPS),
+                "cg_iteration_ms": _median_ms(iterate, RANKED_REPS)}
+
+    meshes.init_distributed("cuda", init_method=f"file://{store}/store", rank=0, world_size=1)
+    try:
+        for hosts in (2, 4):
+            one = build_plan(PAPER_L32, meshes.SlabMesh(hosts, 1, dev))  # no group: one process
+            ranked = build_plan(PAPER_L32, meshes.MeshSpec(hosts=hosts).resolve())
+            want = run(one)
+            got, counts = _counted(lambda: run(ranked), totals)
+            keys = ["a", "step", "fused"] + [f"stencil {o} {d}" for o in (True, False)
+                                             for d in (1, 2)]
+            equal = {k: torch.equal(_bits(got[k]), _bits(want[k])) for k in keys}
+            for fused in (True, False):
+                g, w = got[f"cg {fused}"], want[f"cg {fused}"]
+                equal[f"cg {fused}"] = (g.iterations == w.iterations
+                                        and g.residuals == w.residuals
+                                        and torch.equal(_bits(g.x_p), _bits(w.x_p)))
+            dispatched = got["cg True"].iterations + 1
+            expected = {mult: 2, sten: 2 + 5 + 1 + 2 + 2 * dispatched, cgk: 2 * dispatched}
+            times = {"ranked": timed(ranked), "one_process": timed(one)}
+            row = {"row": "ranked slabs", "hosts": hosts, "world": ranked.world,
+                   "backend": torch.distributed.get_backend(), "plan": ranked.describe(),
+                   "site_range": list(ranked.site_range), "a_sites": got["a_sites"],
+                   "first_touch": "first_touch_init over the rank's slabs",
+                   "bitwise_equal_one_process": equal, "verified": got["verify"],
+                   "cg_iterations": got["cg True"].iterations,
+                   "launches": {k: counts[k] for k in expected}, "expected_launches": expected,
+                   "init_s": got["init_s"], "one_process_init_s": want["init_s"],
+                   "stencil_step_ms": times["ranked"]["stencil_ms"],
+                   "one_process_stencil_step_ms": times["one_process"]["stencil_ms"],
+                   "cg_iteration_ms": times["ranked"]["cg_iteration_ms"],
+                   "one_process_cg_iteration_ms": times["one_process"]["cg_iteration_ms"],
+                   "face_bytes_per_slab_step": one.stencil_halo().halo_bytes_per_exchange,
+                   "bytes_across_ranks": 0, "card": card,
+                   "timing": f"CUDA events, median of {RANKED_REPS}; overlapped stencil, "
+                             "fused overlapped CG"}
+            row["ok"] = (all(equal.values()) and got["verify"]
+                         and got["a_sites"] == ranked.local_sites
+                         and all(counts[k] == v for k, v in expected.items()))
+            print(f"ranked slabs x{hosts}: stencil step {row['stencil_step_ms']:.4f} ms "
+                  f"(one process {row['one_process_stencil_step_ms']:.4f}), CG iteration "
+                  f"{row['cg_iteration_ms']:.4f} ms (one process "
+                  f"{row['one_process_cg_iteration_ms']:.4f}); {card}")
+            _emit(row)
+            if not row["ok"]:
+                failures.append(f"ranked slabs x{hosts}: {row}")
+            del one, ranked, want, got
+            torch.cuda.empty_cache()
+    except Exception as e:  # a rank that fails fails the phase
+        failures.append(f"ranked slabs: {type(e).__name__}: {e}")
+    finally:
+        torch.distributed.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    _emit({"phase": "ranked slabs", "seconds": time.perf_counter() - t_phase})
     return totals
 
 

@@ -11,7 +11,11 @@ roofline bound and the share of it reached.
                    are reported so the two modes compare directly.
 
 On the card each timed launch sits between a pair of ``torch.cuda.Event``
-records; on the CPU the host clock times it.  Validation follows su3_bench:
+records; on the CPU the host clock times it.  On a ranked plan (its slabs
+over a process group) the timed window opens and closes at a barrier,
+each iteration counts at the slowest rank's time, GB/s is the whole
+lattice's, and the row gives the world size and every rank's init
+seconds.  Validation follows su3_bench:
 with A entries = (1,0) and B entries = (1/3,0) every element of C is (1,0),
 a fixed point of the multiply, so chained steps validate identically.
 """
@@ -27,6 +31,7 @@ import torch
 from repro_torch.core import roofline
 from repro_torch.core.su3.layouts import GaugeCompression, Layout, TrafficModel
 from repro_torch.core.su3.plan import EngineConfig, ExecutionPlan, build_plan  # noqa: F401
+from repro_torch.launch.mesh import MeshSpec, SlabMesh
 
 
 @dataclasses.dataclass
@@ -40,6 +45,8 @@ class BenchResult:
     fused_k: int = 1  # multiplies chained per launch (1 = classic loop)
     plan_id: str = ""
     device: str = "cpu"  # torch.cuda.get_device_name() on the card
+    world: int = 1  # ranks the plan's slabs are spread over
+    rank_init_seconds: list[float] | None = None  # every rank's, on a ranked plan
 
     @property
     def best_seconds(self) -> float:
@@ -111,7 +118,8 @@ class BenchResult:
             "device": self.device,
             "bound_s": self.bound_seconds,
             "bound_share": self.bound_share,
-        }
+        } | ({} if self.rank_init_seconds is None else
+             {"world": self.world, "rank_init_s": self.rank_init_seconds})
 
 
 class _LaunchTimer:
@@ -146,9 +154,12 @@ class _LaunchTimer:
 
 class SU3Engine:
     """Paper-faithful benchmark runner over an ExecutionPlan on one device
-    (``None`` = the CUDA device; ``"cpu"`` runs the plain versions)."""
+    (``None`` = the CUDA device; ``"cpu"`` runs the plain versions) or on a
+    mesh (a ``MeshSpec`` or ``SlabMesh``: on ranks when a process group
+    runs)."""
 
-    def __init__(self, cfg: EngineConfig, device: torch.device | str | None = None):
+    def __init__(self, cfg: EngineConfig,
+                 device: MeshSpec | SlabMesh | torch.device | str | None = None):
         self.plan = build_plan(cfg, device)
         self.cfg = cfg
         self.device = self.plan.device
@@ -167,7 +178,27 @@ class SU3Engine:
             return torch.cuda.get_device_name(self.device)
         return self.device.type
 
+    def _window(self) -> None:
+        """On ranks: every rank's queued work done, then a barrier (the
+        timed window's edges)."""
+        if self.plan.is_ranked:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            torch.distributed.barrier(group=self.plan.group)
+
+    def _slowest(self, times: list[float]) -> list[float]:
+        """Each iteration's seconds at the slowest rank (as given off ranks)."""
+        if not self.plan.is_ranked:
+            return times
+        t = torch.tensor(times, dtype=torch.float64, device=self.device)
+        torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX, group=self.plan.group)
+        return t.tolist()
+
     def _result(self, init_s, scatter_s, times, verified, fused_k=1) -> BenchResult:
+        ranks = None
+        if self.plan.is_ranked:
+            mine = torch.tensor([init_s], dtype=torch.float64, device=self.device)
+            ranks = [float(x) for x in self.plan.gather_ranks(mine)]
         return BenchResult(
             config=self.cfg,
             n_devices=self.n_devices,
@@ -178,6 +209,8 @@ class SU3Engine:
             fused_k=fused_k,
             plan_id=self.plan.describe(),
             device=self._device_name(),
+            world=self.plan.world,
+            rank_init_seconds=ranks,
         )
 
     def run(self) -> BenchResult:
@@ -189,9 +222,12 @@ class SU3Engine:
         for _ in range(cfg.warmups):
             c_phys = self._step(a_phys, b_p)
         timer = _LaunchTimer(self.device)
+        self._window()
         for _ in range(cfg.iterations):
             c_phys = timer(lambda: self._step(a_phys, b_p))
         times = timer.seconds()
+        self._window()
+        times = self._slowest(times)
         verified = self.verify(c_phys)
         return self._result(init_s, scatter_s, times, verified)
 
@@ -248,8 +284,11 @@ class SU3Engine:
         for _ in range(max(1, cfg.warmups)):
             x = fstep(x, b_p)
         timer = _LaunchTimer(self.device)
+        self._window()
         for _ in range(reps):
             x = timer(lambda: fstep(x, b_p))
-        times = [t / k for t in timer.seconds()]
+        times = timer.seconds()
+        self._window()
+        times = [t / k for t in self._slowest(times)]
         verified = self.verify(x)
         return self._result(init_s, scatter_s, times, verified, fused_k=k)

@@ -18,16 +18,17 @@ slab or on a lattice split into host slabs).
                     pass (two gathers, one launch; split like the stencil on
                     several slabs) and the shared epilogue
 
-The plan lives on one device, ``"cuda"`` unless the caller asks for
-``"cpu"``.  Placement on one card:
+The plan's tensors live on one device per process, ``"cuda"`` unless the
+caller asks for ``"cpu"``.  Placement:
 
   * ``sharded``      — the lattice is built directly on the device; on
                        several slabs each slab is built from numpy and
                        copied straight into its range (first touch);
-  * ``host_scatter`` — built on the CPU, then copied with ``.to(device)``;
-                       the copy is timed as ``scatter_s``;
-  * ``replicated``   — the same as ``sharded`` on one device (``describe``
-                       says so).
+  * ``host_scatter`` — built on the CPU, then copied with ``.to(device)``
+                       (on ranks: rank 0 builds it and scatters the
+                       slabs); the copy is timed as ``scatter_s``;
+  * ``replicated``   — the whole lattice on the device (on ranks: on every
+                       rank's device); ``describe`` says so on one device.
 
 The stencil's neighbour gather runs outside the kernel, as in the
 reference: ``torch.index_select`` fills a preallocated direction-major
@@ -39,27 +40,43 @@ Slabs
 -----
 Given a :class:`~repro_torch.launch.mesh.MeshSpec` (or the
 :class:`~repro_torch.launch.mesh.SlabMesh` it resolves to), the lattice
-splits along t into ``hosts`` contiguous slabs of one tensor on the one
-card; sites are t-major, so slab ``h`` is ``host_site_ranges(...)[h]``.
-The lattice pads to a whole number of tiles per (simulated) device, as in
-the reference, so every slab's range is whole tiles; the stencil's slabs
-are the live L^4 sites split evenly, with the padding after the last.
-Where the reference shards with ``NamedSharding``, the port indexes the
-slab ranges and the boundary sets directly.  On several slabs:
+splits along t into ``hosts`` contiguous slabs; sites are t-major, so slab
+``h`` is ``host_site_ranges(...)[h]``.  The lattice pads to a whole number
+of tiles per (simulated) device, as in the reference, so every slab's range
+is whole tiles; the stencil's slabs are the live L^4 sites split evenly,
+with the padding after the last.  Where the reference shards with
+``NamedSharding``, the port indexes the slab ranges and the boundary sets
+directly.
 
-  * ``sharded`` init builds each slab host-locally (numpy) and copies it
-    into its range of the device tensor; no global host array exists;
+Without a process group every slab lives in one tensor on the one device.
+On a ranked mesh (a process group: NCCL on the cards, gloo on the CPU) rank
+``r`` of ``world`` owns ``hosts // world`` contiguous slabs and every
+tensor of the plan holds only its sites (``site_range``, ``local_sites``);
+the other ranks' sites arrive by point-to-point messages.  On several
+slabs:
+
+  * ``sharded`` init builds each of the process's slabs host-locally
+    (numpy) and copies it into its range of the device tensor; no process
+    builds the whole lattice;
   * ``stencil_step(overlap=True)`` (the default there) runs the
     reference's split schedule: the +-t ghost faces of every slab are
-    copied into their own buffers on a side CUDA stream (the exchange),
-    the interior pass runs over every site through the slab-local table on
-    the main stream meanwhile, and the boundary pass waits on the
-    exchange's event, recomputes the 2 L^3 boundary sites of each slab from
-    the true ghosts and writes them over the interior output.  Same kernel,
-    same per-site inputs: the serial step's bits.  ``depth=2`` is the
-    communication-avoiding ring: one exchange feeds two applications;
+    gathered into their own buffers on a side CUDA stream, and the faces
+    that another rank owns are sent and received there with one
+    ``batch_isend_irecv`` (the exchange); the interior pass runs over
+    every site through the slab-local table on the main stream meanwhile;
+    the boundary pass waits on the exchange, recomputes the 2 L^3 boundary
+    sites of each slab from the true ghosts and writes them over the
+    interior output.  Same kernel, same per-site inputs: the serial step's
+    bits.  ``depth=2`` is the communication-avoiding ring: one exchange
+    (the ring's vector sites and, from other ranks, its links) feeds two
+    applications;
+  * ``stencil_step(overlap=False)`` on ranks exchanges the same faces
+    first, then gathers the periodic neighbours from the field and the
+    received faces: one kernel pass, the same bits;
   * ``cg_solve(fused=True, overlap=True)`` splits the fused pass the same
-    way (ghosts of r and p; only S(p') is scattered).
+    way (ghosts of r and p; only S(p') is scattered); on ranks each
+    reduction is the ranks' partial sums, gathered and added in rank
+    order.
 
 On the CPU the same schedules run in program order, with no side stream,
 and give the same bits.  ``plan.tracer`` (spans per phase) and
@@ -236,7 +253,7 @@ def _uniform_phys_shard(codec: LayoutCodec, n_sites: int, site_offset: int) -> n
 
 def first_touch_init(
     codec: LayoutCodec, padded_sites: int, ranges: list[tuple[int, int]],
-    device: torch.device,
+    device: torch.device, base: int = 0,
 ) -> torch.Tensor:
     """The canonical lattice, built slab by slab: each of ``ranges`` is
     made host-locally and copied into its range of one device tensor; no
@@ -244,19 +261,23 @@ def first_touch_init(
 
     Args:
         codec: the plan's layout codec (decides the physical form).
-        padded_sites: the lattice's site count, padded to whole tiles.
-        ranges: the slabs' ``[lo, hi)`` site ranges (whole tiles each).
+        padded_sites: the tensor's site count (whole tiles).
+        ranges: the slabs' global ``[lo, hi)`` site ranges (whole tiles
+            each), inside ``[base, base + padded_sites)``.
         device: where the lattice lives.
+        base: the tensor's first global site id (a rank's ``site_range``
+            start; 0 for the whole lattice).
 
     Returns:
-        The physical A, equal to ``codec.pack(init_canonical(padded_sites))``.
+        The physical A of sites ``[base, base + padded_sites)``, equal to
+        that range of ``codec.pack(init_canonical(...))``.
     """
     phys = torch.empty(codec.phys_shape(padded_sites), dtype=codec.word_dtype, device=device)
     dim = _SITE_DIM[codec.layout]
     per_index = codec.tile if codec.layout == Layout.AOSOA else 1
     for lo, hi in ranges:
         shard = torch.from_numpy(_uniform_phys_shard(codec, hi - lo, lo))
-        phys.narrow(dim, lo // per_index, (hi - lo) // per_index).copy_(shard)
+        phys.narrow(dim, (lo - base) // per_index, (hi - lo) // per_index).copy_(shard)
     return phys
 
 
@@ -621,6 +642,110 @@ def _pad_to_tile(idx: torch.Tensor, tile: int) -> torch.Tensor:
     return torch.cat([idx, idx[..., :1].expand(*idx.shape[:-1], pad)], dim=-1)
 
 
+def _pad_ids(ids: np.ndarray, tile: int) -> np.ndarray:
+    """:func:`_pad_to_tile` on a numpy list of site ids."""
+    return np.concatenate([ids, np.repeat(ids[:1], (-ids.size) % tile)])
+
+
+def _select(field: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return field.index_select(-1, idx)
+
+
+class _Halo:
+    """One pattern of exchange between the ranks of a slab mesh.
+
+    ``needs[q]`` is the sorted global site ids rank ``q`` reads and does not
+    own.  Every rank builds the same lists, so each knows what it receives
+    from each peer and which of its own sites each peer receives.  ``peers``
+    are the ranks this rank sends to or receives from, ascending; the sites
+    it receives are ``needs[rank]`` in that order, one buffer per peer.
+    Without a group (one rank) nothing crosses.
+    """
+
+    def __init__(self, needs: list[np.ndarray], ranges: list[tuple[int, int]], rank: int,
+                 device: torch.device, global_rank: Callable[[int], int]):
+        self.lo, self.hi = ranges[rank]
+        self.needed = needs[rank]
+        self.peers: list[tuple[int, torch.Tensor, int]] = []  # (global rank, send idx, n_recv)
+        for q, (qlo, qhi) in enumerate(ranges):
+            if q == rank:
+                continue
+            n_recv = int(np.count_nonzero((self.needed >= qlo) & (self.needed < qhi)))
+            theirs = needs[q]
+            send = theirs[(theirs >= self.lo) & (theirs < self.hi)] - self.lo
+            if n_recv or send.size:
+                self.peers.append((global_rank(q), torch.from_numpy(send).to(device), n_recv))
+        counts = np.array([n for _, _, n in self.peers], np.int64)
+        self._ends = np.cumsum(counts)
+        self._starts = self._ends - counts
+
+    @property
+    def crosses(self) -> bool:
+        return bool(self.peers)
+
+    def locate(self, gids: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """``(source, index)`` of each global site id: source 0 is this
+        rank's field (index ``gid - lo``), source ``1 + j`` the receive
+        buffer of the ``j``-th peer."""
+        gids = np.asarray(gids, np.int64)
+        src = np.zeros(gids.shape, np.int64)
+        idx = gids - self.lo
+        remote = (gids < self.lo) | (gids >= self.hi)
+        if remote.any():
+            pos = np.searchsorted(self.needed, gids[remote])
+            if (pos >= self.needed.size).any() or not np.array_equal(self.needed[pos],
+                                                                     gids[remote]):
+                raise AssertionError("a remote site outside the exchange's needs")
+            j = np.searchsorted(self._ends, pos, side="right")
+            src[remote] = 1 + j
+            idx[remote] = pos - self._starts[j]
+        return src, idx
+
+
+# one field of an exchange: (halo, field, select(field, idx), buffer slot, rows)
+_PostEntry = tuple[_Halo, torch.Tensor, Callable[..., torch.Tensor], str, int]
+
+
+class _Gather:
+    """``out[..., i]`` from site ``idx[i]`` of source ``src[i]`` (a
+    :meth:`_Halo.locate`): source 0 is this rank's field, gathered by
+    :meth:`local`; the rest are receive buffers, gathered by :meth:`remote`
+    once they arrive.  A source that fills all of ``out`` is one
+    ``index_select`` into it."""
+
+    def __init__(self, src: np.ndarray, idx: np.ndarray, device: torch.device):
+        self.parts: list[tuple[int, torch.Tensor, torch.Tensor | None]] = []
+        for s in np.unique(src):
+            m = src == s
+            pos = None if m.all() else torch.from_numpy(np.nonzero(m)[0]).to(device)
+            self.parts.append((int(s), torch.from_numpy(idx[m]).to(device), pos))
+
+    @property
+    def all_local(self) -> bool:
+        return all(s == 0 for s, _, _ in self.parts)
+
+    def local(self, field: torch.Tensor, out: torch.Tensor,
+              select: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] = _select) -> None:
+        for s, idx, pos in self.parts:
+            if s:
+                continue
+            if pos is None and select is _select:
+                torch.index_select(field, -1, idx, out=out)
+            elif pos is None:
+                out.copy_(select(field, idx))
+            else:
+                out.index_copy_(-1, pos, select(field, idx))
+
+    def remote(self, recv: list[torch.Tensor], out: torch.Tensor) -> None:
+        for s, idx, pos in self.parts:
+            if not s:
+                continue
+            if pos is None:
+                torch.index_select(recv[s - 1], -1, idx, out=out)
+            else:
+                out.index_copy_(-1, pos, recv[s - 1].index_select(-1, idx))
+
+
 class ExecutionPlan:
     """Execution of one EngineConfig tuple on one slab mesh.
 
@@ -631,13 +756,21 @@ class ExecutionPlan:
         codec: canonical (S, 4, 3, 3) complex <-> physical layout conversions.
         kernel: the resolved :class:`~repro_torch.core.su3.registry.KernelEntry`.
         mesh: the :class:`~repro_torch.launch.mesh.SlabMesh` (slab count,
-            devices per slab, the device).
-        device: the plan's device (every slab lives there).
+            devices per slab, the device; on ranks the rank and the group).
+        device: the plan's device (this process's slabs live there).
         n_devices: hosts x devices per host (simulated devices share the
             card); the padding unit is ``n_devices * tile`` sites.
         site_axes: the mesh axes the sites run over, host-major.
         is_multi_host: the lattice splits into more than one slab.
+        is_ranked: the slabs are spread over a process group's ranks.
+        rank, world: this process's rank and the group's size (0 and 1
+            without a group).
         padded_sites: site count padded so every device's share is whole tiles.
+        site_range: the global ``[lo, hi)`` sites this process holds
+            (``(0, padded_sites)`` without a group).
+        local_sites: ``hi - lo``: the site count of every field tensor the
+            plan takes and returns (``pack_gauge``, ``pack_rhs``, the
+            stencil and CG fields, ``init_data``'s A under ``sharded``).
         step: ``(a_phys, b_planar) -> c_phys`` — one launch into a fresh
             output; the input is left intact (``SU3Engine.run`` reuses it).
         tracer: phase spans of the stencil and CG schedules; off
@@ -654,6 +787,8 @@ class ExecutionPlan:
         self.mesh = resolve_mesh(mesh)
         self.device = self.mesh.device
         self.n_devices = self.mesh.n_devices
+        self.is_ranked = self.mesh.is_ranked
+        self.rank, self.world, self.group = self.mesh.rank, self.mesh.world, self.mesh.group
         self.site_axes = dist_sharding.lattice_site_axes(self.mesh)
         self.is_multi_host = dist_sharding.lattice_is_multi_host(self.mesh)
         if cfg.placement not in PLACEMENTS:
@@ -670,11 +805,18 @@ class ExecutionPlan:
         n = cfg.shape.n_sites
         chunk = self.n_devices * cfg.tile
         self.padded_sites = ((n + chunk - 1) // chunk) * chunk
+        if self.world > 1 and self.padded_sites != n:
+            raise ValueError(
+                f"{self.world} ranks need the L^4 = {n} sites to fill whole tiles of every "
+                f"device: the padding unit n_devices * tile = {chunk} pads them to "
+                f"{self.padded_sites}; lower the tile")
+        self.site_range = self._rank_ranges()[self.rank]
+        self.local_sites = self.site_range[1] - self.site_range[0]
         self.step = make_raw_step(self.codec, self.kernel, tile=cfg.tile)
         self._fused_steps: dict[int, Step] = {}
         self._batched_steps: dict[tuple[int, int, bool], Callable[..., torch.Tensor]] = {}
         self._stencil_steps: dict[tuple[bool, int], Step] = {}
-        self._stencil_tables: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None
+        self._geometry: dict[str, Any] | None = None
         self._boundary: dict[str, Any] | None = None
         self._stencil_parts: dict[str, Any] | None = None
         self._nbr_bufs: dict[str, torch.Tensor] = {}
@@ -688,6 +830,58 @@ class ExecutionPlan:
     def n_hosts(self) -> int:
         """The number of slabs (1 on a single-slab plan)."""
         return self.mesh.hosts
+
+    # -- the ranks ----------------------------------------------------------------
+
+    def _rank_ranges(self) -> list[tuple[int, int]]:
+        """Every rank's global site range (one range without a group)."""
+        return [dist_sharding.rank_site_range(self.padded_sites, self.n_hosts, self.world, q)
+                for q in range(self.world)]
+
+    def _global_rank(self, q: int) -> int:
+        return torch.distributed.get_global_rank(self.group, q)
+
+    def gather_ranks(self, t: torch.Tensor) -> list[torch.Tensor]:
+        """Every rank's ``t`` (the same shape on each), in rank order."""
+        parts = [torch.empty_like(t) for _ in range(self.world)]
+        torch.distributed.all_gather(parts, t.contiguous(), group=self.group)
+        return parts
+
+    def every_rank(self, ok: bool) -> bool:
+        """``ok`` on every rank (the AND over the group)."""
+        if not self.is_ranked:
+            return ok
+        flag = torch.tensor([int(ok)], dtype=torch.int32, device=self.device)
+        torch.distributed.all_reduce(flag, op=torch.distributed.ReduceOp.MIN, group=self.group)
+        return bool(flag.item())
+
+    def _site_count(self, phys: torch.Tensor) -> int:
+        if self.codec.layout == Layout.SOA:
+            return phys.shape[-1]
+        return phys.shape[0] * (self.cfg.tile if self.codec.layout == Layout.AOSOA else 1)
+
+    def _is_local(self, sites: int) -> bool:
+        """A tensor of ``sites`` sites holds this rank's only, out of
+        several ranks'."""
+        return self.world > 1 and sites == self.local_sites
+
+    def _live_sites(self, sites: int) -> int:
+        """The live (unpadded) sites among the first ``sites`` of a tensor
+        that starts at this rank's ``site_range`` (or at 0 when whole)."""
+        lo = self.site_range[0] if self._is_local(sites) else 0
+        return max(0, min(lo + sites, self.cfg.shape.n_sites) - lo)
+
+    def local_part(self, phys: torch.Tensor) -> torch.Tensor:
+        """This rank's sites of a whole physical lattice (e.g. ``replicated``
+        init's A); a tensor that is not whole is returned as it is."""
+        if self.world == 1 or self._site_count(phys) != self.padded_sites:
+            return phys
+        return self._narrow_sites(phys, self.site_range[0], self.local_sites)
+
+    def _narrow_sites(self, phys: torch.Tensor, lo: int, n: int) -> torch.Tensor:
+        """Sites ``[lo, lo + n)`` of a physical lattice, contiguous."""
+        per = self.cfg.tile if self.codec.layout == Layout.AOSOA else 1
+        return phys.narrow(_SITE_DIM[self.codec.layout], lo // per, n // per).contiguous()
 
     def halo(self) -> dist_sharding.HaloSpec:
         """Boundary geometry of the plan's slabs (gauge words at storage
@@ -766,15 +960,70 @@ class ExecutionPlan:
             depth=depth,
         )
 
-    def _stencil_geometry(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """The neighbour tables of the plan's slabs as int64 tensors on its
-        device (periodic, slab-local, boundary sites), built once per plan."""
-        if self._stencil_tables is None:
-            tables = stencil_neighbor_tables(self.cfg.L, self.padded_sites, self.n_hosts)
-            self._stencil_tables = tuple(
-                torch.from_numpy(t.astype(np.int64)).to(self.device) for t in tables
-            )
-        return self._stencil_tables
+    def _stencil_geometry(self) -> dict[str, Any]:
+        """The stencil's neighbour geometry on this process's sites, built
+        once per plan: the global tables (numpy), this rank's slab-local
+        table (local ids, a tensor), its boundary sites (global ids), the
+        depth-1 exchange (``halo1``: the +-t ghosts of every rank's boundary
+        sites that another rank owns) and the periodic gathers through it."""
+        if self._geometry is None:
+            glob, local, bidx = stencil_neighbor_tables(self.cfg.L, self.padded_sites,
+                                                        self.n_hosts)
+            ranges = self._rank_ranges()
+            lo, hi = self.site_range
+
+            def boundary(q: int) -> np.ndarray:
+                return bidx[(bidx >= ranges[q][0]) & (bidx < ranges[q][1])].astype(np.int64)
+
+            def ring(q: int) -> np.ndarray:
+                b = boundary(q)  # the +-t neighbours of q's boundary: its ghosts
+                return np.concatenate([glob[3][b], glob[7][b]]).astype(np.int64)
+
+            geo: dict[str, Any] = {"glob": glob, "ring": ring, "mine": boundary(self.rank),
+                                   "halo1": self._halo(ring)}
+            geo["local"] = torch.from_numpy(local[:, lo:hi].astype(np.int64) - lo).to(self.device)
+            geo["periodic"] = [_Gather(*geo["halo1"].locate(glob[d, lo:hi]), self.device)
+                               for d in range(8)]
+            self._geometry = geo
+        return self._geometry
+
+    def _halo(self, reads: Callable[[int], np.ndarray]) -> _Halo:
+        """The exchange that brings each rank the sites ``reads(q)`` names
+        and another rank owns."""
+        ranges = self._rank_ranges()
+        needs = []
+        for q, (qlo, qhi) in enumerate(ranges):
+            ids = reads(q)
+            needs.append(np.unique(ids[(ids < qlo) | (ids >= qhi)]))
+        return _Halo(needs, ranges, self.rank, self.device, self._global_rank)
+
+    def _post(self, entries: list[_PostEntry]) -> tuple[list[Any], list[list[torch.Tensor]],
+                                                        list[torch.Tensor]]:
+        """Post one exchange: per entry ``(halo, field, select, slot, rows)``
+        send each peer the sites of ``field`` it reads (``select(field,
+        idx)``, ``(2, rows, n)``) and receive its sites into the plan's
+        buffers ``slot``; one ``batch_isend_irecv`` for every entry, the
+        ops in ascending peer order and entry order on every rank (a send
+        and its receive pair by that order on NCCL, by the entry's tag on
+        gloo).  Returns the works, each entry's receive buffers and the
+        posted tensors (the caller keeps them until the works complete)."""
+        recvs = [[self._buffer(f"{slot}_recv{j}", (2, rows, n))
+                  for j, (_, _, n) in enumerate(halo.peers)]
+                 for halo, _, _, slot, rows in entries]
+        dist = torch.distributed
+        ops = []
+        for peer in sorted({q for e in entries for q, _, _ in e[0].peers}):
+            for tag, (halo, field, select, _slot, _rows) in enumerate(entries):
+                for j, (q, send, n_recv) in enumerate(halo.peers):
+                    if q != peer:
+                        continue
+                    if send.numel():
+                        ops.append(dist.P2POp(dist.isend, select(field, send), q, self.group,
+                                              tag))
+                    if n_recv:
+                        ops.append(dist.P2POp(dist.irecv, recvs[tag][j], q, self.group, tag))
+        works = dist.batch_isend_irecv(ops) if ops else []
+        return works or [], recvs, [op.tensor for op in ops]
 
     def _buffer(self, slot: str, shape: tuple[int, ...], zero: bool = False) -> torch.Tensor:
         """The plan's reusable block ``slot``, allocated once on the main
@@ -790,18 +1039,30 @@ class ExecutionPlan:
     def gather_neighbors(
         self, v_p: torch.Tensor, slot: str = "v", overlap: bool = False
     ) -> torch.Tensor:
-        """Fill the plan's (8, 2, 3, padded_sites) block ``slot`` with the 8
-        shifted copies of ``v_p`` (2, 3, padded_sites), direction-major, and
+        """Fill the plan's (8, 2, 3, local_sites) block ``slot`` with the 8
+        shifted copies of ``v_p`` (2, 3, local_sites), direction-major, and
         return it: one ``index_select`` per direction, straight into the
         block.  The block is reused by the next gather into the same slot
         (stream order makes that safe for the kernel that reads it).
         ``overlap`` takes the slab-local table (+-t wrap inside each slab),
-        which on one slab is the periodic table."""
-        glob, local, _bidx = self._stencil_geometry()
-        table = local if overlap else glob
-        buf = self._buffer(slot, (8, 2, layouts.SU3, self.padded_sites))
-        for d in range(8):
-            torch.index_select(v_p, 2, table[d], out=buf[d])
+        which on one slab is the periodic table.  The periodic gather on
+        ranks first exchanges the +-t faces other ranks own (and waits for
+        them); the faces fill the +-t directions' boundary columns."""
+        geo = self._stencil_geometry()
+        buf = self._buffer(slot, (8, 2, layouts.SU3, self.local_sites))
+        if overlap:
+            for d in range(8):
+                torch.index_select(v_p, 2, geo["local"][d], out=buf[d])
+            return buf
+        recv: list[torch.Tensor] = []
+        if geo["halo1"].crosses:
+            works, (recv,), _sent = self._post([(geo["halo1"], v_p, _select, f"{slot}_faces",
+                                                 layouts.SU3)])
+            for w in works:
+                w.wait()
+        for d, g in enumerate(geo["periodic"]):
+            g.local(v_p, buf[d])
+            g.remote(recv, buf[d])
         return buf
 
     def _stencil_kernel_kwargs(
@@ -889,36 +1150,75 @@ class ExecutionPlan:
         _synchronize(self.device)
 
     def _issue_exchange(
-        self, copy: Callable[[], tuple[torch.Tensor, ...]]
-    ) -> tuple[tuple[torch.Tensor, ...], torch.cuda.Event | None]:
-        """Run ``copy`` (the ghost copies) on the plan's side stream and
-        return its tensors and the event the boundary pass waits on.
+        self, copy: Callable[[], tuple[tuple[torch.Tensor, ...], Callable[[], None] | None]]
+    ) -> tuple[tuple[torch.Tensor, ...], tuple[Any, Callable[[], None] | None]]:
+        """Run ``copy`` (an exchange) on the plan's side stream and return
+        its ghosts and what the boundary pass awaits.
 
-        The side stream first waits on everything queued on the main stream
-        so far: the fields it reads are ready, and the last boundary pass
-        has finished reading the ghost buffers this copy refills.  Work the
-        caller queues on the main stream afterwards (the interior pass)
-        runs alongside.  On the CPU: ``copy()`` in program order, no event.
+        ``copy`` gathers the ghosts' local columns, posts the sends and
+        receives of what crosses ranks, and returns the ghost tensors and
+        ``finish`` (``None`` when nothing crosses), which waits for the
+        receives and fills the ghosts' remote columns.  The side stream
+        first waits on everything queued on the main stream so far: the
+        fields it reads are ready, and the last boundary pass has finished
+        reading the buffers this exchange refills.  Work the caller queues
+        on the main stream afterwards (the interior pass) runs alongside.
+        On the CPU: ``copy()`` in program order, no event.
         """
         if self.device.type != "cuda":
-            return copy(), None
+            ghosts, finish = copy()
+            return ghosts, (None, finish)
         main = torch.cuda.current_stream(self.device)
         if self._side is None:
             self._side = torch.cuda.Stream(self.device)
         self._side.wait_stream(main)
         with torch.cuda.stream(self._side):
-            ghosts = copy()
+            ghosts, finish = copy()
             done = torch.cuda.Event()
             done.record(self._side)
-        return ghosts, done
+        return ghosts, (done, finish)
 
-    def _await_exchange(self, done: torch.cuda.Event | None) -> None:
+    def _await_exchange(self, pending: tuple[Any, Callable[[], None] | None]) -> None:
+        """Order the main stream after an exchange: its side-stream event,
+        then (on ranks) the receives, ``work.wait()`` ordering the current
+        stream on NCCL, and the ghosts' remote columns."""
+        done, finish = pending
         if done is not None:
             torch.cuda.current_stream(self.device).wait_event(done)
+        if finish is not None:
+            finish()
+
+    def _exchange_ghosts(
+        self, fields: tuple[tuple[str, torch.Tensor], ...], halo: _Halo,
+        gathers: list[tuple[int, _Gather, torch.Tensor]], extra: tuple = (),
+    ) -> tuple[tuple[torch.Tensor, ...], Callable[[], None] | None]:
+        """One exchange (the ``copy`` of :meth:`_issue_exchange`): each
+        ``(field index, gather, ghost buffer)`` gets its local columns now;
+        when the exchange crosses ranks the ``(slot, field)`` sites other
+        ranks read, and any ``extra`` :meth:`_post` entries, are posted in
+        one ``batch_isend_irecv`` and ``finish`` fills the remote columns
+        from the received faces."""
+        values = [f for _, f in fields]
+        for i, gather, out in gathers:
+            gather.local(values[i], out)
+        ghosts = tuple(out for _, _, out in gathers)
+        if not (halo.crosses or any(e[0].crosses for e in extra)):
+            return ghosts, None
+        works, recvs, sent = self._post([(halo, f, _select, slot, layouts.SU3)
+                                         for slot, f in fields] + list(extra))
+
+        def finish() -> None:
+            for w in works:
+                w.wait()
+            for i, gather, out in gathers:
+                gather.remote(recvs[i], out)
+            sent.clear()  # the sent faces lived until their sends completed
+
+        return ghosts, finish
 
     def _halo_fault(self, ghosts: tuple[torch.Tensor, ...], depth: int) -> tuple[torch.Tensor, ...]:
-        """The ``halo`` chaos seam after an exchange (callers guard it with
-        ``if self.faults.enabled``)."""
+        """The ``halo`` chaos seam on an exchange's received ghosts (callers
+        guard it with ``if self.faults.enabled``)."""
         f = self.faults.ask("halo", depth=depth)
         return ghosts if f is None else corrupt_ghosts(ghosts, f.action)
 
@@ -933,20 +1233,27 @@ class ExecutionPlan:
 
     def _boundary_geometry(self) -> dict[str, Any]:
         """Index sets of the boundary passes, shared by the stencil and CG
-        schedules: the boundary sites ``bidx`` (B), their +-t true
-        neighbours (the ghosts), and, padded to Bp sites by
-        :func:`_pad_to_tile`, the site list ``bidx_pad`` and the in-slab
-        neighbours ``xyz`` (6, Bp)."""
+        schedules: this rank's boundary sites ``bidx`` (B, local ids), their
+        +-t true neighbours ``fwd`` and ``bwd`` (global ids, numpy: the
+        ghosts, which ``ghost_fwd`` and ``ghost_bwd`` gather through the
+        depth-1 exchange), and, padded to Bp sites by :func:`_pad_to_tile`,
+        the site list ``bidx_pad`` and the in-slab neighbours ``xyz`` (6,
+        Bp, local ids)."""
         if self._boundary is None:
-            glob, _local, bidx = self._stencil_geometry()
-            tile = self.cfg.tile
+            geo = self._stencil_geometry()
+            glob, mine, lo, dev = geo["glob"], geo["mine"], self.site_range[0], self.device
+            bidx = torch.from_numpy(mine - lo).to(dev)
+            xyz = torch.from_numpy(glob[[0, 1, 2, 4, 5, 6]][:, mine].astype(np.int64) - lo)
+            fwd, bwd = glob[3][mine].astype(np.int64), glob[7][mine].astype(np.int64)
             self._boundary = {
-                "n": bidx.numel(),
+                "n": mine.size,
                 "bidx": bidx,
-                "bidx_pad": _pad_to_tile(bidx, tile),
-                "fwd": glob[3][bidx],
-                "bwd": glob[7][bidx],
-                "xyz": _pad_to_tile(glob[[0, 1, 2, 4, 5, 6]][:, bidx], tile),
+                "bidx_pad": _pad_to_tile(bidx, self.cfg.tile),
+                "fwd": fwd,
+                "bwd": bwd,
+                "xyz": _pad_to_tile(xyz.to(dev), self.cfg.tile),
+                "ghost_fwd": _Gather(*geo["halo1"].locate(fwd), dev),
+                "ghost_bwd": _Gather(*geo["halo1"].locate(bwd), dev),
             }
         return self._boundary
 
@@ -977,17 +1284,16 @@ class ExecutionPlan:
             return kernel.fn(u_phys, self.gather_neighbors(v_p, "v", overlap=True), **kw)
 
         parts: dict[str, Any] = {"interior": interior,
-                                 "n_boundary": self._stencil_geometry()[2].numel()}
+                                 "n_boundary": self._stencil_geometry()["mine"].size}
         if parts["n_boundary"]:
             g = self._boundary_geometry()
             n = g["n"]
-            g_fwd = self._buffer("ghost_fwd", (2, layouts.SU3, n))
-            g_bwd = self._buffer("ghost_bwd", (2, layouts.SU3, n))
+            ghosts = [(0, g["ghost_fwd"], self._buffer("ghost_fwd", (2, layouts.SU3, n))),
+                      (0, g["ghost_bwd"], self._buffer("ghost_bwd", (2, layouts.SU3, n)))]
+            halo = self._stencil_geometry()["halo1"]
 
-            def exchange(v_p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-                torch.index_select(v_p, 2, g["fwd"], out=g_fwd)
-                torch.index_select(v_p, 2, g["bwd"], out=g_bwd)
-                return g_fwd, g_bwd
+            def exchange(v_p: torch.Tensor) -> tuple[tuple[torch.Tensor, ...], Any]:
+                return self._exchange_ghosts((("ghost", v_p),), halo, ghosts)
 
             def boundary(u_phys: torch.Tensor, v_p: torch.Tensor, ghost_fwd: torch.Tensor,
                          ghost_bwd: torch.Tensor, out_interior: torch.Tensor) -> torch.Tensor:
@@ -1035,6 +1341,7 @@ class ExecutionPlan:
         parts = self._stencil_overlap_parts()
         interior = parts["interior"]
         attrs = self._stencil_trace_attrs(True, depth)
+        rank = {"rank": self.rank}
         if parts["n_boundary"] == 0:
             # one slab: the local wrap is the periodic wrap and there is no
             # exchange; depth composes the interior pass
@@ -1047,7 +1354,7 @@ class ExecutionPlan:
                     return interior(u_phys, interior(u_phys, v_p))
                 with tr.span("stencil.step", **attrs):
                     for _ in range(depth):
-                        with tr.span("stencil.interior"):
+                        with tr.span("stencil.interior", **rank):
                             v_p = interior(u_phys, v_p)
                             plan._sync()
                 return v_p
@@ -1061,23 +1368,24 @@ class ExecutionPlan:
         def overlapped(u_phys: torch.Tensor, v_p: torch.Tensor) -> torch.Tensor:
             tr = plan.tracer
             if not tr.enabled:
-                ghosts, done = plan._issue_exchange(lambda: exchange(v_p))  # issued first
+                ghosts, pending = plan._issue_exchange(lambda: exchange(v_p))  # issued first
+                out_i = interior(u_phys, v_p)  # alongside the exchange
+                plan._await_exchange(pending)
                 if plan.faults.enabled:
                     ghosts = plan._halo_fault(ghosts, 1)
-                out_i = interior(u_phys, v_p)  # alongside the exchange
-                plan._await_exchange(done)
                 return boundary(u_phys, v_p, *ghosts, out_i)
             # traced: each phase synchronizes so its span is a measurement
             with tr.span("stencil.step", **attrs):
-                with tr.span("stencil.exchange"):
-                    ghosts, _done = plan._issue_exchange(lambda: exchange(v_p))
+                with tr.span("stencil.exchange", **rank):
+                    ghosts, pending = plan._issue_exchange(lambda: exchange(v_p))
+                    plan._await_exchange(pending)
                     plan._sync()
                 if plan.faults.enabled:
                     ghosts = plan._halo_fault(ghosts, 1)
-                with tr.span("stencil.interior"):
+                with tr.span("stencil.interior", **rank):
                     out_i = interior(u_phys, v_p)
                     plan._sync()
-                with tr.span("stencil.boundary"):
+                with tr.span("stencil.boundary", **rank):
                     out = boundary(u_phys, v_p, *ghosts, out_i)
                     plan._sync()
             return out
@@ -1089,33 +1397,58 @@ class ExecutionPlan:
 
         The ring is the (+t, -t) neighbours of the boundary sites: exactly
         the sites whose step-1 results step 2's boundary pass reads as
-        ghosts.  ``exchange2`` copies the whole depth-2 payload at once (the
-        depth-1 ghosts, and the 8-direction ``v`` neighbourhoods of the
-        ring); ``ring`` then recomputes step 1's output at the ring from it,
-        so step 2 never exchanges.  A ring site is either interior to its
-        slab (step 1 computed it through the local table, which equals the
-        periodic table there) or a boundary site (step 1 computed it from
-        the periodic ghosts): either way the recompute feeds the kernel the
-        same per-site inputs, hence the bits of two depth-1 steps.
+        ghosts.  ``exchange2`` brings the whole depth-2 payload at once
+        (the depth-1 ghosts and the 8-direction ``v`` neighbourhoods of the
+        ring; on ranks also the links of the ring sites another rank owns,
+        in the same ``batch_isend_irecv``); ``ring`` then recomputes step
+        1's output at the ring from it, so step 2 never exchanges.  A ring
+        site is either interior to its slab (step 1 computed it through the
+        local table, which equals the periodic table there) or a boundary
+        site (step 1 computed it from the periodic ghosts): either way the
+        recompute feeds the kernel the same per-site inputs, hence the bits
+        of two depth-1 steps.
         """
         plan = self
         kernel, kw = self._stencil_kernel_kwargs()
-        glob, _local, _bidx = self._stencil_geometry()
+        geo = self._stencil_geometry()
+        glob, ring_of = geo["glob"], geo["ring"]
         g = self._boundary_geometry()
-        interior, boundary, exchange = parts["interior"], parts["boundary"], parts["exchange"]
-        n = g["n"]
-        ridx = _pad_to_tile(torch.cat([g["fwd"], g["bwd"]]), self.cfg.tile)  # (2B + pad)
-        ring_nbr_idx = glob[:, ridx]  # (8, 2B + pad): every v site the ring reads
-        ring_buf = self._buffer("ring", (8, 2, layouts.SU3, ridx.numel()))
+        interior, boundary = parts["interior"], parts["boundary"]
+        n, rows, dev = g["n"], self.codec.planar_rows, self.device
+        ridx = _pad_ids(ring_of(self.rank), self.cfg.tile)  # (2B + pad) global ids
+        # the depth-2 payload: v at the ghosts and at every site the ring
+        # reads, and the ring's links
+        halo_v = self._halo(lambda q: np.concatenate([ring_of(q), glob[:, ring_of(q)].ravel()]))
+        halo_u = self._halo(ring_of)
+        ghosts = [(0, _Gather(*halo_v.locate(g["fwd"]), dev),
+                   self._buffer("ghost_fwd", (2, layouts.SU3, n))),
+                  (0, _Gather(*halo_v.locate(g["bwd"]), dev),
+                   self._buffer("ghost_bwd", (2, layouts.SU3, n)))]
+        ring_buf = self._buffer("ring", (8, 2, layouts.SU3, ridx.size))
+        ghosts += [(0, _Gather(*halo_v.locate(glob[d, ridx]), dev), ring_buf[d])
+                   for d in range(8)]
+        links = _Gather(*halo_u.locate(ridx), dev)
+        ridx_local = torch.from_numpy(ridx - self.site_range[0]).to(dev)
+        u_ring = None if links.all_local else self._buffer("ring_links", (2, rows, ridx.size))
+        u_recv = [self._buffer(f"ring_u_recv{j}", (2, rows, m))
+                  for j, (_, _, m) in enumerate(halo_u.peers)]
         attrs = self._stencil_trace_attrs(True, 2)
+        rank = {"rank": self.rank}
 
-        def exchange2(v_p: torch.Tensor) -> tuple[torch.Tensor, ...]:
-            for d in range(8):
-                torch.index_select(v_p, 2, ring_nbr_idx[d], out=ring_buf[d])
-            return (*exchange(v_p), ring_buf)
+        def exchange2(u_phys: torch.Tensor, v_p: torch.Tensor) -> tuple[tuple, Any]:
+            out, finish = self._exchange_ghosts(
+                (("ring_v", v_p),), halo_v, ghosts,
+                extra=((halo_u, u_phys, self._site_links, "ring_u", rows),))
+            return (out[0], out[1], ring_buf), finish
 
         def ring(u_phys: torch.Tensor, ring_vnbr: torch.Tensor) -> tuple[torch.Tensor, ...]:
-            w_r = kernel.fn(self._site_links(u_phys, ridx), ring_vnbr, **kw)
+            if u_ring is None:
+                u_r = self._site_links(u_phys, ridx_local)
+            else:
+                links.local(u_phys, u_ring, self._site_links)
+                links.remote(u_recv, u_ring)
+                u_r = u_ring
+            w_r = kernel.fn(u_r, ring_vnbr, **kw)
             # step 1's output at the (+t, -t) neighbours of the boundary:
             # the ghosts step 2's boundary pass would otherwise exchange
             return w_r[:, :, :n], w_r[:, :, n:2 * n]
@@ -1123,35 +1456,37 @@ class ExecutionPlan:
         def overlapped2(u_phys: torch.Tensor, v_p: torch.Tensor) -> torch.Tensor:
             tr = plan.tracer
             if not tr.enabled:
-                (g_fwd, g_bwd, ring_vnbr), done = plan._issue_exchange(lambda: exchange2(v_p))
-                if plan.faults.enabled:
-                    g_fwd, g_bwd, ring_vnbr = plan._halo_fault((g_fwd, g_bwd, ring_vnbr), 2)
+                payload, pending = plan._issue_exchange(lambda: exchange2(u_phys, v_p))
                 out_1i = interior(u_phys, v_p)  # alongside the exchange
-                plan._await_exchange(done)
+                plan._await_exchange(pending)
+                if plan.faults.enabled:
+                    payload = plan._halo_fault(payload, 2)
+                g_fwd, g_bwd, ring_vnbr = payload
                 w = boundary(u_phys, v_p, g_fwd, g_bwd, out_1i)
                 ring_w = ring(u_phys, ring_vnbr)  # recompute, don't re-exchange
                 out_2i = interior(u_phys, w)
                 return boundary(u_phys, w, *ring_w, out_2i)
             with tr.span("stencil.step", **attrs):
-                with tr.span("stencil.exchange"):
-                    (g_fwd, g_bwd, ring_vnbr), _done = plan._issue_exchange(
-                        lambda: exchange2(v_p))
+                with tr.span("stencil.exchange", **rank):
+                    payload, pending = plan._issue_exchange(lambda: exchange2(u_phys, v_p))
+                    plan._await_exchange(pending)
                     plan._sync()
                 if plan.faults.enabled:
-                    g_fwd, g_bwd, ring_vnbr = plan._halo_fault((g_fwd, g_bwd, ring_vnbr), 2)
-                with tr.span("stencil.interior"):
+                    payload = plan._halo_fault(payload, 2)
+                g_fwd, g_bwd, ring_vnbr = payload
+                with tr.span("stencil.interior", **rank):
                     out_1i = interior(u_phys, v_p)
                     plan._sync()
-                with tr.span("stencil.boundary"):
+                with tr.span("stencil.boundary", **rank):
                     w = boundary(u_phys, v_p, g_fwd, g_bwd, out_1i)
                     plan._sync()
-                with tr.span("stencil.ring"):
+                with tr.span("stencil.ring", **rank):
                     ring_w = ring(u_phys, ring_vnbr)
                     plan._sync()
-                with tr.span("stencil.interior"):
+                with tr.span("stencil.interior", **rank):
                     out_2i = interior(u_phys, w)
                     plan._sync()
-                with tr.span("stencil.boundary"):
+                with tr.span("stencil.boundary", **rank):
                     out = boundary(u_phys, w, *ring_w, out_2i)
                     plan._sync()
             return out
@@ -1160,34 +1495,52 @@ class ExecutionPlan:
 
     def init_stencil_data(self) -> tuple[torch.Tensor, torch.Tensor]:
         """The canonical stencil inputs ``(u_phys, v_p)`` under the plan's
-        placement: U entries (1, 0), v entries (1/24, 0), so every output
-        component of the stencil is exactly (1, 0)."""
+        placement (this rank's sites on ranks): U entries (1, 0), v entries
+        (1/24, 0), so every output component of the stencil is exactly
+        (1, 0)."""
         a_phys, _b, _init_s, _scatter_s = self.init_data()
-        _, v = init_stencil_canonical(self.cfg.shape.n_sites, self.device)
-        return a_phys, self.codec.pack_vec(v, self.padded_sites)
+        _, v = init_stencil_canonical(self._live_sites(self.local_sites), self.device)
+        return self.local_part(a_phys), self.codec.pack_vec(v, self.local_sites)
 
     def unpack_vec(self, out_p: torch.Tensor) -> torch.Tensor:
-        """Planar stencil output -> canonical complex (n_sites, 3)."""
+        """Planar stencil output -> canonical complex (n_sites, 3); on ranks
+        every rank's sites, gathered, so a check reads the same field on
+        every rank."""
+        if self._is_local(out_p.shape[-1]):
+            out_p = torch.cat(self.gather_ranks(out_p), dim=2)
         return self.codec.unpack_vec(out_p, self.cfg.shape.n_sites)
+
+    def _rank_slice(self, x: torch.Tensor | np.ndarray) -> torch.Tensor:
+        """A canonical field's sites ``[lo, hi)`` of this rank (all of it
+        without a group), zero-padded to ``local_sites``, on the device."""
+        x = torch.as_tensor(x)
+        lo, hi = self.site_range
+        x = x[lo:min(hi, x.shape[0])].to(self.device)
+        if x.shape[0] < self.local_sites:
+            pad = torch.zeros((self.local_sites - x.shape[0],) + tuple(x.shape[1:]),
+                              dtype=x.dtype, device=self.device)
+            x = torch.cat([x, pad])
+        return x
 
     def pack_gauge(self, u: torch.Tensor | np.ndarray) -> torch.Tensor:
         """Canonical complex ``(n_sites, 4, 3, 3)`` gauge field (tensor or
         numpy) -> the physical layout on the plan's device, zero-padded to
-        ``padded_sites``.  Padding sites self-neighbour in the tables and
-        carry zero links, so they add nothing to any stencil or CG output."""
-        u = torch.as_tensor(u).to(self.device)
-        n = u.shape[0]
-        if n < self.padded_sites:
-            pad = torch.zeros((self.padded_sites - n,) + tuple(u.shape[1:]), dtype=u.dtype,
-                              device=self.device)
-            u = torch.cat([u, pad])
-        return self.codec.pack(u).contiguous()
+        ``padded_sites``; on ranks the whole field goes in and this rank's
+        ``site_range`` comes out.  Padding sites self-neighbour in the
+        tables and carry zero links, so they add nothing to any stencil or
+        CG output."""
+        phys = self.codec.pack(self._rank_slice(u)).contiguous()
+        lo = self.site_range[0]
+        if self.codec.layout == Layout.AOS and lo:  # the metadata's global site ids
+            meta = _uniform_phys_shard(self.codec, self.local_sites, lo)[:, layouts.GAUGE_WORDS:]
+            phys[:, layouts.GAUGE_WORDS:] = torch.from_numpy(meta)
+        return phys
 
     def pack_rhs(self, b: torch.Tensor | np.ndarray) -> torch.Tensor:
         """Canonical complex ``(n_sites, 3)`` vector field (tensor or numpy)
-        -> planar ``(2, 3, padded_sites)`` on the plan's device (zero padding
+        -> planar ``(2, 3, local_sites)`` on the plan's device (zero padding
         keeps every CG reduction over the padded array exact)."""
-        return self.codec.pack_vec(torch.as_tensor(b).to(self.device), self.padded_sites)
+        return self.codec.pack_vec(self._rank_slice(b), self.local_sites)
 
     def verify_stencil(self, out_p: torch.Tensor) -> bool:
         """Fixed-point check for :meth:`init_stencil_data` inputs: every
@@ -1198,7 +1551,7 @@ class ExecutionPlan:
         ``4 (U + U^T) v = (5/6, 5/6, 1/3)`` per component, computed here
         from the rebuilt link.
         """
-        c = self.unpack_vec(out_p)
+        c = self.codec.unpack_vec(out_p, self._live_sites(out_p.shape[-1]))
         if self.codec.is_compressed:
             u = np.ones((layouts.SU3, layouts.SU3))
             u[2] = 0.0  # rebuilt uniform link: row 2 = conj(r0 x r1) = 0
@@ -1209,10 +1562,10 @@ class ExecutionPlan:
         tol = verify_tolerance(
             self.cfg.dtype, self.cfg.accum_dtype, reconstruct=self.codec.is_compressed
         )
-        return bool(
+        return self.every_rank(bool(
             torch.max(torch.abs(c.real - expected)).item() < tol
             and torch.max(torch.abs(c.imag)).item() < tol
-        )
+        ))
 
     # -- conjugate-gradient solver (fused stencil+axpy iteration) ---------------
 
@@ -1220,7 +1573,9 @@ class ExecutionPlan:
         """The scalar and elementwise CG pieces, plain torch, shared verbatim
         by the fused and composed paths: alpha, beta, the x/r updates and
         both reductions are the same calls on both, so fused and composed
-        iterates match bit for bit at f32.  Every product and sum is its own
+        iterates match bit for bit at f32.  On ranks each reduction is this
+        rank's partial sum, gathered from every rank and added in rank
+        order, so every rank holds the same scalars.  Every product and sum is its own
         tensor op (no ``add(alpha=)``, ``addcmul`` or ``lerp``), so nothing
         contracts into an FMA that the fused kernel does not do."""
         if self._cg_help is not None:
@@ -1232,12 +1587,24 @@ class ExecutionPlan:
                 return x.to(f32)
             return torch.full((), float(x), dtype=f32, device=dev)  # a fill, no copy
 
+        def total(partial: torch.Tensor) -> torch.Tensor:
+            # on ranks: every rank's partial sum, added in rank order (the
+            # bits do not depend on the collective's algorithm; at world 1
+            # the partial is the whole sum)
+            if not self.is_ranked:
+                return partial
+            parts = self.gather_ranks(partial.reshape(1))
+            out = parts[0]
+            for x in parts[1:]:
+                out = out + x
+            return out.reshape(())
+
         def rr(v: torch.Tensor) -> torch.Tensor:
             v = v.to(f32)
-            return torch.sum(v * v)
+            return total(torch.sum(v * v))
 
         def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-            return torch.sum(a.to(f32) * b.to(f32))
+            return total(torch.sum(a.to(f32) * b.to(f32)))
 
         def update(x, r, p, ap, alpha):
             a = alpha.to(f32)
@@ -1309,7 +1676,7 @@ class ExecutionPlan:
                 if not tr.enabled:
                     p_new, s = whole(u_phys, r_p, p_p, coefs)
                     return p_new, h["shift"](p_new, coefs[0, 1], s)
-                with tr.span("cg.interior"):
+                with tr.span("cg.interior", rank=plan.rank):
                     p_new, s = whole(u_phys, r_p, p_p, coefs)
                     plan._sync()
                 return p_new, h["shift"](p_new, coefs[0, 1], s)
@@ -1323,13 +1690,12 @@ class ExecutionPlan:
         # the raw S(p') and the sigma shift runs once on the merged field
         g = self._boundary_geometry()
         n, wd = g["n"], (2, layouts.SU3, g["n"])
-        gh = {k: self._buffer(f"cg_{k}", wd) for k in ("r_gf", "r_gb", "p_gf", "p_gb")}
+        halo = self._stencil_geometry()["halo1"]
+        ghosts = [(i, g[f"ghost_{side}"], self._buffer(f"cg_{k}_g{side[0]}", wd))
+                  for i, k in enumerate("rp") for side in ("fwd", "bwd")]
 
         def exchange(r_p, p_p):
-            for k, v in (("r", r_p), ("p", p_p)):
-                torch.index_select(v, 2, g["fwd"], out=gh[f"{k}_gf"])
-                torch.index_select(v, 2, g["bwd"], out=gh[f"{k}_gb"])
-            return gh["r_gf"], gh["r_gb"], gh["p_gf"], gh["p_gb"]
+            return self._exchange_ghosts((("cg_r", r_p), ("cg_p", p_p)), halo, ghosts)
 
         def boundary(u_phys, r_p, p_p, r_gf, r_gb, p_gf, p_gb, coefs, s_i):
             r_nbr = self._boundary_nbr(r_p, r_gf, r_gb, "r_boundary")
@@ -1342,18 +1708,19 @@ class ExecutionPlan:
         def fused_overlapped(u_phys, r_p, p_p, coefs):
             tr = plan.tracer
             if not tr.enabled:
-                ghosts, done = plan._issue_exchange(lambda: exchange(r_p, p_p))
+                ghosts, pending = plan._issue_exchange(lambda: exchange(r_p, p_p))
                 p_new, s_i = whole(u_phys, r_p, p_p, coefs)  # slab-local, alongside
-                plan._await_exchange(done)
+                plan._await_exchange(pending)
                 s = boundary(u_phys, r_p, p_p, *ghosts, coefs, s_i)
                 return p_new, h["shift"](p_new, coefs[0, 1], s)
-            with tr.span("cg.exchange"):
-                ghosts, _done = plan._issue_exchange(lambda: exchange(r_p, p_p))
+            with tr.span("cg.exchange", rank=plan.rank):
+                ghosts, pending = plan._issue_exchange(lambda: exchange(r_p, p_p))
+                plan._await_exchange(pending)
                 plan._sync()
-            with tr.span("cg.interior"):
+            with tr.span("cg.interior", rank=plan.rank):
                 p_new, s_i = whole(u_phys, r_p, p_p, coefs)
                 plan._sync()
-            with tr.span("cg.boundary"):
+            with tr.span("cg.boundary", rank=plan.rank):
                 s = boundary(u_phys, r_p, p_p, *ghosts, coefs, s_i)
                 plan._sync()
             return p_new, h["shift"](p_new, coefs[0, 1], s)
@@ -1546,8 +1913,12 @@ class ExecutionPlan:
             (``host_scatter`` only; 0.0 otherwise).
 
         On several slabs the ``sharded`` policy goes through
-        :func:`first_touch_init`: each slab is built host-locally and copied
-        into its own range, never the whole lattice at once.
+        :func:`first_touch_init`: each of this process's slabs is built
+        host-locally and copied into its own range, never the whole lattice
+        at once; on ranks A holds this rank's ``site_range`` only.  On
+        ranks ``host_scatter`` builds the whole lattice on rank 0's host,
+        copies it to rank 0's card and scatters the slabs (the scatter is
+        timed), and ``replicated`` builds the whole lattice on every rank.
         """
 
         def build(device: torch.device) -> torch.Tensor:
@@ -1558,7 +1929,21 @@ class ExecutionPlan:
         _synchronize(self.device)
         t0 = time.perf_counter()
         scatter_s = 0.0
-        if self.cfg.placement == "host_scatter":
+        if self.cfg.placement == "host_scatter" and self.is_ranked:
+            chunks = None
+            if self.rank == 0:
+                whole = build(torch.device("cpu"))
+            t1 = time.perf_counter()
+            if self.rank == 0:
+                whole = whole.to(self.device)
+                chunks = [self._narrow_sites(whole, lo, hi - lo) for lo, hi in self._rank_ranges()]
+            a_phys = torch.empty(self.codec.phys_shape(self.local_sites),
+                                 dtype=self.codec.word_dtype, device=self.device)
+            torch.distributed.scatter(a_phys, chunks, src=self._global_rank(0),
+                                      group=self.group)
+            _synchronize(self.device)
+            scatter_s = time.perf_counter() - t1
+        elif self.cfg.placement == "host_scatter":
             a_host = build(torch.device("cpu"))
             t1 = time.perf_counter()
             a_phys = a_host.to(self.device)
@@ -1566,9 +1951,11 @@ class ExecutionPlan:
             scatter_s = time.perf_counter() - t1
         elif self.cfg.placement == "sharded" and self.is_multi_host:
             ranges = dist_sharding.host_site_ranges(self.padded_sites, self.mesh)
-            a_phys = first_touch_init(self.codec, self.padded_sites, ranges, self.device)
+            a_phys = first_touch_init(self.codec, self.local_sites,
+                                      [ranges[h] for h in self.mesh.slabs], self.device,
+                                      base=self.site_range[0])
             _synchronize(self.device)
-        else:  # sharded on one slab, and replicated (one device holds the lattice)
+        else:  # sharded on one slab, and replicated (every device holds the lattice)
             a_phys = build(self.device)
             _synchronize(self.device)
         init_s = time.perf_counter() - t0
@@ -1577,25 +1964,31 @@ class ExecutionPlan:
     # -- views / checks --------------------------------------------------------
 
     def unpack(self, c_phys: torch.Tensor) -> torch.Tensor:
-        """Physical C -> canonical complex, sliced to the live lattice sites."""
+        """Physical C -> canonical complex, sliced to the live lattice sites;
+        on ranks every rank's sites, gathered, so a check reads the same
+        lattice on every rank."""
+        if self._is_local(self._site_count(c_phys)):
+            c_phys = torch.cat(self.gather_ranks(c_phys), dim=_SITE_DIM[self.codec.layout])
         return self.codec.unpack(c_phys, self.cfg.shape.n_sites)
 
     def verify(self, c_phys: torch.Tensor) -> bool:
-        """su3_bench check: with A=(1,0), B=(1/3,0) every C element is (1,0).
+        """su3_bench check: with A=(1,0), B=(1/3,0) every C element is (1,0);
+        on ranks each rank checks its own sites and the answer is the AND
+        over the ranks.
 
         Two-row plans check the stored rows only: the uniform lattice is not
         SU(3), so the reconstructed third row is 0 by construction.
         """
-        c = self.unpack(c_phys)
+        c = self.codec.unpack(c_phys, self._live_sites(self._site_count(c_phys)))
         if self.codec.is_compressed:
             c = c[:, :, : self.codec.stored_rows, :]
         tol = verify_tolerance(
             self.cfg.dtype, self.cfg.accum_dtype, reconstruct=self.codec.is_compressed
         )
-        return bool(
+        return self.every_rank(bool(
             torch.max(torch.abs(c.real - 1.0)).item() < tol
             and torch.max(torch.abs(c.imag)).item() < tol
-        )
+        ))
 
     def describe(self) -> str:
         """Compact plan identity for benchmark rows / logs."""
@@ -1603,12 +1996,13 @@ class ExecutionPlan:
         acc = f"+acc-{c.accum_dtype}" if c.is_mixed_precision else ""
         comp = "+two-row" if c.is_compressed else ""
         placement = c.placement
-        if placement == "replicated":
+        if placement == "replicated" and self.world == 1:
             placement = "replicated(=sharded on 1 device)"
         hosts = f"x{self.n_hosts}h" if self.is_multi_host else ""
+        ranks = f"/rank{self.rank}of{self.world}" if self.is_ranked else ""
         return (
             f"{self.codec.layout.value}/{c.variant}/t{c.tile}/{placement}"
-            f"@{self.n_devices}dev{hosts}:{self.device}/{c.dtype}{acc}{comp}"
+            f"@{self.n_devices}dev{hosts}:{self.device}/{c.dtype}{acc}{comp}{ranks}"
         )
 
 

@@ -21,12 +21,16 @@ tables (``plan.stencil_neighbor_tables``) read the boundary ranges from
 here, and ``ExecutionPlan.stencil_halo`` prices the vector-field exchange.
 
 Where the reference shards arrays with ``NamedSharding`` over a
-``jax.sharding.Mesh``, the port keeps every slab in one tensor on one card:
-a :class:`repro_torch.launch.mesh.SlabMesh` names the slab count, and
+``jax.sharding.Mesh``, the port indexes slab ranges directly: a
+:class:`repro_torch.launch.mesh.SlabMesh` names the slab count, and
 :func:`host_site_ranges` gives each slab's contiguous site range, which the
-plan's first-touch init and its multi-slab schedules index directly.  The
-reference's ``lattice_site_spec`` (a ``PartitionSpec``) has no counterpart:
-nothing here partitions a tensor.
+plan's first-touch init and its multi-slab schedules index.  On a ranked
+mesh rank ``r`` owns the slabs ``rank_slabs(r, hosts, world)`` (the
+reference's host-major site spec over ``("hosts", "devices")``):
+:func:`slab_owner` names a slab's rank, :func:`rank_site_range` the rank's
+contiguous sites, and :func:`t_peers` its -t and +t neighbour ranks.  The
+reference's ``lattice_site_spec`` (a ``PartitionSpec``) has no
+counterpart: nothing here partitions a tensor.
 """
 from __future__ import annotations
 
@@ -88,6 +92,53 @@ def host_site_ranges(n_sites: int, mesh: Any) -> list[tuple[int, int]]:
         )
     per = n_sites // hosts
     return [(h * per, (h + 1) * per) for h in range(hosts)]
+
+
+def _slabs_per_rank(hosts: int, world: int) -> int:
+    if world < 1 or hosts % world:
+        raise ValueError(f"hosts={hosts} is not a multiple of the world's {world} ranks: "
+                         f"each rank owns hosts / world slabs")
+    return hosts // world
+
+
+def rank_slabs(rank: int, hosts: int, world: int) -> range:
+    """The ``hosts // world`` contiguous slabs rank ``rank`` owns.
+
+    Raises:
+        ValueError: ``hosts`` is not a multiple of ``world``, or ``rank``
+            is out of range.
+    """
+    per = _slabs_per_rank(hosts, world)
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} out of range [0, {world})")
+    return range(rank * per, (rank + 1) * per)
+
+
+def slab_owner(slab: int, hosts: int, world: int) -> int:
+    """The rank that owns slab ``slab`` (slabs are dealt host-major, in
+    contiguous blocks of ``hosts // world``)."""
+    if not 0 <= slab < hosts:
+        raise ValueError(f"slab {slab} out of range [0, {hosts})")
+    return slab // _slabs_per_rank(hosts, world)
+
+
+def rank_site_range(n_sites: int, hosts: int, world: int, rank: int) -> tuple[int, int]:
+    """Rank ``rank``'s contiguous ``[lo, hi)`` of ``n_sites`` padded sites:
+    the union of its slabs' :func:`host_site_ranges`."""
+    slabs = rank_slabs(rank, hosts, world)
+    if n_sites % hosts:
+        raise ValueError(f"{n_sites} sites do not divide over {hosts} hosts")
+    per = n_sites // hosts
+    return slabs.start * per, slabs.stop * per
+
+
+def t_peers(rank: int, world: int) -> tuple[int, int]:
+    """The ranks that own the -t and +t neighbours of rank ``rank``'s
+    slabs, with the periodic wrap: at world 2 both are the one other rank,
+    at world 1 the rank itself."""
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} out of range [0, {world})")
+    return (rank - 1) % world, (rank + 1) % world
 
 
 @dataclasses.dataclass(frozen=True)

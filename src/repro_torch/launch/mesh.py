@@ -18,19 +18,33 @@ contiguous slabs, and the plan runs its multi-slab schedules (first-touch
 init per slab, the exchange / interior / boundary stencil and CG passes,
 the depth-2 ring) over them.
 
-On one card every slab lives in one tensor on the one device: slab ``h`` is
-the site range ``host_site_ranges(...)[h]``, and "devices per host" all
-share that device, as the reference's short-pool oversubscription does.
-:meth:`MeshSpec.resolve` gives a :class:`SlabMesh` (the host count, the
-devices per host, the device), not a ``jax.sharding.Mesh``.
+:meth:`MeshSpec.resolve` gives a :class:`SlabMesh`, not a
+``jax.sharding.Mesh``.  With no process group running (and no ``group``
+given) every slab lives in one tensor on the one device: slab ``h`` is the
+site range ``host_site_ranges(...)[h]``, and "devices per host" all share
+that device, as the reference's short-pool oversubscription does.  With a
+process group (NCCL over the cards, one card a rank; gloo on the CPU) the
+mesh is *ranked*: rank ``r`` of ``world`` owns the ``hosts // world``
+contiguous slabs ``r * hosts // world ...`` and holds only those, on its
+own card; the plan exchanges the +-t faces between ranks point to point.
+``devices_per_host`` keeps its meaning on each rank's card.
+
+:func:`host_devices` and :func:`host_submesh` are the reference's per-host
+device blocks over a list of ``torch.device`` objects (the process's cards by
+default): host ``h`` owns the contiguous block ``devices[h * dph : (h + 1)
+* dph]``, and on a list shorter than ``hosts * dph`` every host shares its
+head.  ``serve.su3.SU3Service`` places host ``h``'s runners on them.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 import os
+from typing import Any
 
 import torch
+
+from repro_torch.distributed.sharding import rank_slabs
 
 # Axis names of the lattice (host, device) mesh; a one-slab mesh has the
 # single "sites" axis (the names the sharding helpers read).
@@ -144,21 +158,42 @@ def make_production_mesh(*, multi_pod: bool = False, device: torch.device | str 
 
 @dataclasses.dataclass(frozen=True)
 class SlabMesh:
-    """A resolved lattice mesh: ``hosts`` t-slabs of one tensor on ``device``.
+    """A resolved lattice mesh: ``hosts`` t-slabs, on one device or over the
+    ranks of a process group.
 
     Attributes:
         hosts: slab count (1 = the single-slab plan).
         devices_per_host: simulated devices per slab; all share ``device``.
-        device: the card (or the CPU) that holds every slab.
+        device: the card (or the CPU) that holds this process's slabs.
+        rank, world: this process's rank in ``group`` and the group's size
+            (0 and 1 without a group).
+        group: the process group the slabs are spread over; ``None`` keeps
+            every slab in this process (the one-process plan).
     """
 
     hosts: int
     devices_per_host: int
     device: torch.device
+    rank: int = 0
+    world: int = 1
+    group: Any = dataclasses.field(default=None, compare=False, repr=False)
+
+    def __post_init__(self) -> None:
+        rank_slabs(self.rank, self.hosts, self.world)  # refuses an uneven split
 
     @property
     def n_devices(self) -> int:
         return self.hosts * self.devices_per_host
+
+    @property
+    def is_ranked(self) -> bool:
+        """The slabs are spread over the ranks of a process group."""
+        return self.group is not None
+
+    @property
+    def slabs(self) -> range:
+        """The slabs this rank owns (every slab without a group)."""
+        return rank_slabs(self.rank, self.hosts, self.world)
 
     @property
     def axis_names(self) -> tuple[str, ...]:
@@ -172,6 +207,10 @@ class SlabMesh:
         if self.hosts == 1:
             return {SITE_AXIS: self.devices_per_host}
         return {HOST_AXIS: self.hosts, DEVICE_AXIS: self.devices_per_host}
+
+
+def _cards() -> list[torch.device]:
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -203,12 +242,71 @@ class MeshSpec:
     def _dph(self) -> int:
         return self.devices_per_host or 1
 
-    def resolve(self, device: torch.device | str | None = None) -> SlabMesh:
+    def resolve(self, device: torch.device | str | None = None, *,
+                group: Any = None) -> SlabMesh:
         """The slab mesh on ``device``: ``None`` is the CUDA device (raises
-        without CUDA); pass ``"cpu"`` for the plain versions."""
+        without CUDA); pass ``"cpu"`` for the plain versions.
+
+        With a running process group (or an explicit ``group``) the mesh is
+        ranked: this process's rank owns ``hosts // world`` slabs, on its
+        own card (the current CUDA device; NCCL) or on the CPU (gloo).
+
+        Raises:
+            ValueError: ``hosts`` is not a multiple of the world's size.
+            RuntimeError: the group's backend is not the device's (a card
+                needs NCCL, the CPU gloo).
+        """
         from repro_torch.core.su3.plan import resolve_device
 
-        return SlabMesh(self.hosts, self._dph, resolve_device(device))
+        dev = resolve_device(device)
+        dist = torch.distributed
+        if group is None and dist.is_available() and dist.is_initialized():
+            group = dist.group.WORLD
+        if group is None:
+            return SlabMesh(self.hosts, self._dph, dev)
+        backend = dist.get_backend(group)
+        if dev.type not in _BACKENDS or backend != _BACKENDS[dev.type]:
+            raise RuntimeError(f"slabs on {dev.type} ranks need "
+                               f"{_BACKENDS.get(dev.type, 'a cuda or cpu device')}, "
+                               f"the group runs {backend}")
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        return SlabMesh(self.hosts, self._dph, dev, dist.get_rank(group),
+                        dist.get_world_size(group), group)
+
+    def _dph_of(self, n_available: int) -> int:
+        """The reference's devices per host over a pool of ``n_available``."""
+        if self.devices_per_host:
+            return self.devices_per_host
+        return max(n_available // self.hosts, 1)
+
+    def host_devices(self, host: int, devices: list | None = None) -> list:
+        """Devices owned by ``host`` (oversubscribed when the pool is short).
+
+        Host ``h``'s contiguous block of ``devices`` (default: the
+        process's cards); on a pool smaller than the spec every host shares
+        the head of the list, as the reference does.
+
+        Raises:
+            ValueError: ``host`` is out of range.
+            RuntimeError: the pool is empty (no card and no list given).
+        """
+        if not 0 <= host < self.hosts:
+            raise ValueError(f"host {host} out of range [0, {self.hosts})")
+        devices = list(devices if devices is not None else _cards())
+        if not devices:
+            raise RuntimeError("no CUDA device: pass devices=[torch.device('cpu')]")
+        dph = self._dph_of(len(devices))
+        if len(devices) >= self.hosts * dph:
+            return devices[host * dph:(host + 1) * dph]
+        return devices[:dph]
+
+    def host_submesh(self, host: int, devices: list | None = None) -> SlabMesh:
+        """The one-slab mesh of ``host``'s block: its runners plan on the
+        block's first device, and ``devices_per_host`` counts the block
+        (the reference's 1-D ``("sites",)`` mesh over it)."""
+        block = self.host_devices(host, devices)
+        return SlabMesh(1, len(block), torch.device(block[0]))
 
     @property
     def is_multi_host(self) -> bool:

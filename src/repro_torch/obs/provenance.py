@@ -6,7 +6,8 @@ is pinned beside them.  :func:`provenance_block` captures the run's
 identity: the git sha and whether the tree was dirty, the torch and CUDA
 runtime versions, the driver, and the card (its name, power limit and SM
 count, since a card set below its maximum power runs slower under load),
-plus the autotune cache schema.  :func:`provenance_problems` is the gate:
+plus the autotune cache schema and the process group's world size and
+backend (1 and None without one).  :func:`provenance_problems` is the gate:
 a block with a missing key, or a changed environment identity without a
 re-baseline note, is a problem.
 """
@@ -90,6 +91,10 @@ def provenance_block(cwd: str | None = None) -> dict[str, Any]:
         "autotune_cache_schema": autotune.SCHEMA_VERSION,
     }
     block.update(_card())
+    dist = torch.distributed
+    running = dist.is_available() and dist.is_initialized()
+    block["dist_world"] = dist.get_world_size() if running else 1
+    block["dist_backend"] = dist.get_backend() if running else None
     note = os.environ.get(REBASELINE_ENV, "").strip()
     if note:
         block["rebaseline"] = note

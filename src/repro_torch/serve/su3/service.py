@@ -1,5 +1,6 @@
 """SU3Service: the plan layer behind a traffic-handling front door (port of
-``repro.serve.su3.service`` to PyTorch and CUDA, on one card).
+``repro.serve.su3.service`` to PyTorch and CUDA: one controller, each
+host's runners on its own card where the process has one).
 
 Composition (everything below the service already exists in the plan layer;
 the service adds the queueing discipline and the warm-pool policy):
@@ -13,8 +14,10 @@ the service adds the queueing discipline and the warm-pool policy):
           ▼
     per-host warm pool:
           {(host, L, dtype, layout, tile) -> BatchedLatticeRunner}
-          │  hosts are LOGICAL: every host's runners plan on the one card
-          │  (the reference's oversubscription of a small device pool), and
+          │  host h's runners plan on its block of the process's cards
+          │  (``MeshSpec.host_devices(h)``: its own card when the process
+          │  sees at least ``hosts`` cards, the head of the list, as the
+          │  reference oversubscribes a short pool, when it does not), and
           │  are built through the persistent autotune cache: the FIRST
           │  request for an (L, dtype) pays the tile/K sweep, every later
           │  request hits the warm plan
@@ -103,6 +106,7 @@ from repro_torch.kernels.su3_stencil import (
     CG_ITER_FLOPS_PER_SITE,
     STENCIL_FLOPS_PER_SITE,
 )
+from repro_torch.launch.mesh import MeshSpec
 from repro_torch.obs.tracer import NULL_TRACER, Tracer
 from repro_torch.serve.su3.batcher import (
     BatcherConfig,
@@ -183,11 +187,13 @@ class ServiceConfig:
         cache_directory: autotune cache override (tests).
         hosts: split the warm pool over this many LOGICAL hosts; requests
             route to an L's home host (sticky locality routing) and each
-            host has its own batcher, chains and slot table.  Every host
-            runs on the service's one card — the reference's
-            oversubscription of a device pool smaller than the host count:
-            the routing/batching semantics are identical, only physical
-            placement collapses.
+            host has its own batcher, chains and slot table.  Host ``h``
+            runs on the first device of ``MeshSpec(hosts).host_devices(h)``
+            over the service's device pool: its own card when the process
+            sees at least ``hosts`` cards; on fewer (one card, or the CPU)
+            every host shares the first — the reference's oversubscription
+            of a short pool: the routing/batching semantics are identical,
+            only physical placement collapses.
         continuous: continuous-batching dispatch (iteration-boundary
             admission into in-flight chains) instead of batch-per-step.
         chain_slots: slots per in-flight chain (continuous mode);
@@ -420,8 +426,12 @@ class SU3Service:
 
     Args:
         cfg: the :class:`ServiceConfig` serving tuple.
-        device: the card every runner plans on (``"cuda"``, which must
-            exist) or ``"cpu"``, where the kernels' plain versions run.
+        device: ``"cuda"`` (which must exist): the process's cards, host
+            ``h``'s runners on ``MeshSpec(hosts).host_devices(h)``'s first;
+            one named card (``"cuda:1"``) that every host shares; or
+            ``"cpu"``, where the kernels' plain versions run.  Request
+            operands land on :attr:`device` (the pool's first device) and
+            move to their host's card at dispatch.
         tracer: optional :class:`repro_torch.obs.Tracer` recording the request
             lifecycle (admit → queue wait → seat → dispatch → complete) and
             per-dispatch spans.  Defaults to the shared disabled tracer —
@@ -440,6 +450,12 @@ class SU3Service:
                 "CUDA is not available; pass device='cpu' to serve with the "
                 "kernels' plain versions on the CPU"
             )
+        pool = [self.device]
+        if self.device.type == "cuda" and self.device.index is None:
+            pool = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        spec = MeshSpec(hosts=self.cfg.hosts)
+        self.host_devices = [spec.host_devices(h, pool)[0] for h in range(self.cfg.hosts)]
+        self.device = self.host_devices[0] if self.device.type == "cuda" else self.device
         self.router = LocalityRouter(self.cfg.hosts)
         self._batchers = [
             DynamicBatcher(self.cfg.batcher) for _ in range(self.cfg.hosts)
@@ -555,7 +571,7 @@ class SU3Service:
                                           seq=f.seq, host=host, L=L)
                     if self.health.record_failure(host, "pool-build"):
                         self._quarantine(host)
-            runner = BatchedLatticeRunner(ecfg, self.device)
+            runner = BatchedLatticeRunner(ecfg, self.host_devices[host])
             self._pool[key] = runner
         return runner
 
@@ -618,7 +634,7 @@ class SU3Service:
         for L in Ls:
             runner = self.runner_for(L)
             n_sites = L**4
-            dev = self.device
+            dev = runner.device
             for bsz in batch_sizes:
                 a = torch.zeros((bsz, n_sites, 4, 3, 3), dtype=torch.complex64, device=dev)
                 b = torch.zeros((bsz, 4, 3, 3), dtype=torch.complex64, device=dev)
@@ -1529,7 +1545,7 @@ class SU3Service:
             u = torch.cat([u, u.new_zeros((pad,) + tuple(u.shape[1:]))])
             v = torch.cat([v, v.new_zeros((pad,) + tuple(v.shape[1:]))])
         u_phys = runner.pack_batch(u)
-        v_p = torch.stack([plan.codec.pack_vec(x, plan.padded_sites) for x in v])
+        v_p = torch.stack([plan.codec.pack_vec(x, plan.padded_sites) for x in v.to(plan.device)])
         step = self._stencil_step_for(runner, host, batch.L)
         shape_key = ("stencil", batch.L, dispatched)
         cold = shape_key not in self._seen_shapes

@@ -1646,3 +1646,57 @@ def test_cuda_mesh_steps_equal_the_one_card_steps(cuda_device, tmp_path, dtype):
     assert runs[True][0] == runs[False][0]
     assert all(torch.equal(a, b) for a, b in zip(runs[True][1], runs[False][1]))
     assert runs[True][2] == runs[False][2] and sum(runs[True][2].values()) == 3 * 3 * cfg.n_layers
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hosts", [2, 4])
+def test_cuda_ranked_slabs_of_one_nccl_rank_equal_one_process(cuda_device, tmp_path, hosts):
+    """One NCCL rank owning ``hosts`` slabs at L=8: first-touch init,
+    ``step``, ``fused_step(3)``, the stencil at both ``overlap`` values and
+    depths 1 and 2, and fused and composed CG each equal the one-process
+    slab plan bitwise (the rank holds every slab; the CG reductions go
+    through the group), with each kernel's launches counted by name."""
+    from repro_torch.core.autotune import _cg_measure_problem
+    from repro_torch.core.su3.plan import EngineConfig, build_plan
+    from repro_torch.kernels import su3_stencil
+    from repro_torch.launch import mesh as meshes
+
+    cfg = EngineConfig(L=8, tile=64)
+    spec = meshes.MeshSpec(hosts=hosts)
+    u_cg, b_cg = _cg_measure_problem(8)
+
+    def run(plan) -> dict:
+        a, b, _, _ = plan.init_data()
+        u, v = _slab_field(plan, 9)
+        out = {"a": a.clone(), "step": plan.step(a, b), "fused3": plan.fused_step(3)(a.clone(), b)}
+        for overlap in (True, False):
+            for depth in (1, 2):
+                out[f"stencil {overlap} {depth}"] = plan.stencil_step(overlap, depth)(u, v)
+        cu, cb = plan.pack_gauge(u_cg), plan.pack_rhs(b_cg)
+        for fused in (True, False):
+            res = plan.cg_solve(cu, cb, fused=fused, overlap=True)
+            out[f"cg {fused}"], out[f"cg {fused} iterations"] = res.x_p, res.iterations
+        torch.cuda.synchronize()
+        return out
+
+    want = run(build_plan(cfg, spec.resolve(cuda_device)))
+    counters = (su3_matmul.LAUNCHES, su3_stencil.STENCIL_LAUNCHES, su3_stencil.CG_LAUNCHES)
+    meshes.init_distributed("cuda", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        plan = build_plan(cfg, spec.resolve())
+        assert plan.is_ranked and (plan.world, plan.local_sites) == (1, 8**4)
+        before = {c.name: c.count for c in counters}
+        got = run(plan)
+        launched = {c.name: c.count - before[c.name] for c in counters}
+    finally:
+        torch.distributed.destroy_process_group()
+    for key, w in want.items():
+        if isinstance(w, int):
+            assert got[key] == w == 9, key
+        else:
+            assert torch.equal(got[key].view(torch.int32), w.view(torch.int32)), key
+    dispatched = want["cg True iterations"] + 1  # the residual is read one iteration late
+    assert launched == {su3_matmul.LAUNCHES.name: 2,
+                        su3_stencil.STENCIL_LAUNCHES.name: 2 + 5 + 1 + 2 + 2 * dispatched,
+                        su3_stencil.CG_LAUNCHES.name: 2 * dispatched}
