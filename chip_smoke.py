@@ -27,7 +27,13 @@ source, started together) and, at the paper's L=32 lattice:
     phase): first-touch init, ``step``, ``fused_step``, the stencil at
     both ``overlap`` values and depths, fused and composed CG, bitwise
     against the one-process slab plan, with the stencil-step and
-    CG-iteration ms beside its; and ``SU3Service`` in its batch,
+    CG-iteration ms beside its; whole-lattice batches split over a mesh's
+    devices (``[card, card]`` in one process, and one NCCL rank owning 2
+    slabs): ``BatchedLatticeRunner`` on 4 lattices at k=1 and 3 and an
+    8-slot megakernel table, 2 blocks of one launch each, bitwise against
+    one device, timed beside the one-launch path, the service's megakernel
+    mode on a host of 2 devices, the ranked stencil and CG tuners and the
+    ranked CG's two reductions; and ``SU3Service`` in its batch,
     continuous and megakernel modes on one seeded request stream
     (multiplies at L=16 and L=32, then a stencil batch and a solve),
     autotuned against a fresh cache under ``build/``;
@@ -928,11 +934,17 @@ def main(argv: list[str] | None = None) -> int:
     cg_launches += ranked[su3_stencil.CG_LAUNCHES.name]
     if not all(ranked.values()):
         failures.append(f"the ranked-slab main path left a kernel unlaunched: {ranked}")
+    # -- 4e''. whole-lattice batches over a device list and one NCCL rank ------------------
+    batches = _lattice_batch_phase(u, args.seed, hw, failures)
+    main_path_launches += batches[su3_matmul.LAUNCHES.name]
+    stencil_launches += batches[su3_stencil.STENCIL_LAUNCHES.name]
+    cg_launches += batches[su3_stencil.CG_LAUNCHES.name]
 
     # -- 4f. the serving megakernel vs its plain version, L=32 slot tables ----------
     mega_err = _megakernel_checks(u, rng, failures)
     # -- 4g. the main path: SU3Service in its three dispatch modes --------------------
     mega_launches, svc_counts = _service_main_path(u, rng, failures)
+    mega_launches += batches[su3_matmul.MEGA_LAUNCHES.name]
     if mega_launches == 0:
         failures.append("the main path never launched su3_mult_planar_batched")
     stencil_launches += svc_counts["su3_stencil_planar"]
@@ -5551,6 +5563,206 @@ def _ranked_slab_phase(u, seed: int, failures: list[str]) -> dict[str, int]:
         torch.distributed.destroy_process_group()
         shutil.rmtree(store, ignore_errors=True)
     _emit({"phase": "ranked slabs", "seconds": time.perf_counter() - t_phase})
+    return totals
+
+
+LATTICE_BATCH = 4  # the runner's request batch, whole PAPER_L32 lattices
+LATTICE_SLOT_K = [0, 1, 3, 8, 2, 5, 1, 4]  # the 8-slot table's depths (max_k 8)
+LATTICE_SERVICE_K = [3, 8, 1, 5, 2, 7, 4, 6]  # the service's 8 requests at L=32
+LATTICE_REPS = 10  # timed calls per turn, medians
+
+
+def _lattice_batch_phase(u, seed: int, hw, failures: list[str]) -> dict[str, int]:
+    """Whole PAPER_L32 lattices split over a mesh's devices: on the
+    oversubscribed list ``[card, card]`` (one process) and on one NCCL rank
+    owning 2 slabs (a process group of one, started here and destroyed at
+    the end), ``BatchedLatticeRunner.run`` on a batch of 4 at k=1 and 3
+    and ``fused_batched_step`` on an 8-slot table, each in 2 blocks (one
+    launch each), bitwise against the one-device runner, with the launches
+    counted by kernel; ``multiply`` on the rank (one all-gather); their ms
+    beside the one-launch path's (medians, in turns); ``SU3Service``'s
+    megakernel mode on a host of 2 devices against one device; the ranked
+    stencil and CG tuners at 2 slabs (served from the cache the second
+    time); and the two CG reductions of a ranked iteration on the host's
+    clock beside the one-process plan's.  Returns the counted launches per
+    kernel."""
+    import shutil
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.su3_bench import PAPER_L32
+    from repro_torch.core import autotune
+    from repro_torch.core.su3 import layouts
+    from repro_torch.core.su3.plan import BatchedLatticeRunner, build_plan
+    from repro_torch.kernels import su3_matmul, su3_stencil
+    from repro_torch.launch import mesh as meshes
+    from repro_torch.serve.su3 import ServiceConfig, SU3Service
+
+    mult, mega, sten, cgk = (su3_matmul.LAUNCHES.name, su3_matmul.MEGA_LAUNCHES.name,
+                             su3_stencil.STENCIL_LAUNCHES.name, su3_stencil.CG_LAUNCHES.name)
+    totals = {mult: 0, mega: 0, sten: 0, cgk: 0}
+    dev = u.device
+    t_phase = time.perf_counter()
+    card = _tool_line(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
+    rng = np.random.default_rng(seed + 41)
+    slots = len(LATTICE_SLOT_K)
+    lattices = torch.stack(_slot_lattices(u, slots))
+    b_c = torch.from_numpy(random_su3(rng, (slots, layouts.LINKS))).to(dev)
+    one = BatchedLatticeRunner(PAPER_L32, dev)
+    table, table_b = one.pack_batch(lattices), one.pack_b_batch(b_c)
+    a, b = table[:LATTICE_BATCH], table_b[:LATTICE_BATCH]
+    ks = torch.tensor(LATTICE_SLOT_K, dtype=torch.int32, device=dev)
+    want = {k: one.run(a, b, k=k) for k in (1, 3)}
+    one_mega = one.plan.fused_batched_step(slots, max_k=MAX_K, alias=False)
+    want_mega = one_mega(table, table_b, ks)
+    want_c = one.multiply(lattices[:LATTICE_BATCH], b_c[:LATTICE_BATCH], k=3)
+
+    def split_rows(label: str, runner) -> None:
+        step = runner.plan.fused_batched_step(slots, max_k=MAX_K, alias=False)
+
+        def drive():
+            runs = {k: runner.run(a, b, k=k) for k in (1, 3)}
+            return runs, step(table, table_b, ks), runner.multiply(
+                lattices[:LATTICE_BATCH], b_c[:LATTICE_BATCH], k=3)
+
+        (got, got_mega, got_c), counts = _counted(drive, totals)
+        equal = {f"run k={k}": torch.equal(_bits(got[k]), _bits(want[k])) for k in (1, 3)}
+        equal["megakernel 8 slots"] = torch.equal(_bits(got_mega), _bits(want_mega))
+        equal["multiply k=3"] = torch.equal(torch.view_as_real(got_c), torch.view_as_real(want_c))
+        blocks = len(runner.blocks(LATTICE_BATCH))
+        expected = {mult: 3 * blocks, mega: blocks}
+        turns = {"one": [], "split": []}
+        mega_turns = {"one": [], "split": []}
+        for who in ("one", "split", "split", "one"):
+            r, st = (one, one_mega) if who == "one" else (runner, step)
+            turns[who].append(_median_ms(lambda: r.run(a, b, k=1), LATTICE_REPS))
+            mega_turns[who].append(_median_ms(lambda: st(table, table_b, ks), LATTICE_REPS))
+        row = {"row": "lattice batches", "mesh": label, "plan": runner.plan.describe(),
+               "devices": [str(d) for d in runner.mesh.devices], "blocks": blocks,
+               "bitwise_equal_one_device": equal, "launches": {k: counts[k] for k in expected},
+               "expected_launches": expected,
+               "run_k1_ms": turns["split"], "one_launch_run_k1_ms": turns["one"],
+               "megakernel_ms": mega_turns["split"],
+               "one_launch_megakernel_ms": mega_turns["one"], "card": card,
+               "timing": f"CUDA events, median of {LATTICE_REPS} a turn; turns one, split, "
+                         "split, one; batch of 4 (k=1) and an 8-slot table, PAPER_L32"}
+        row["ok"] = all(equal.values()) and all(counts[k] == v for k, v in expected.items())
+        print(f"lattice batches [{label}]: run k=1 {turns['split']} ms in {blocks} launches "
+              f"(one launch {turns['one']}), megakernel {mega_turns['split']} ms (one launch "
+              f"{mega_turns['one']}); {card}")
+        _emit(row)
+        if not row["ok"]:
+            failures.append(f"lattice batches {label}: {row}")
+
+    def host_median_ms(fn, reps: int = 50) -> float:
+        fn()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(walls)
+
+    # -- one process: the card twice -------------------------------------------------------
+    try:
+        split_rows("[card, card]", BatchedLatticeRunner(
+            PAPER_L32, meshes.MeshSpec(1, 2).resolve(devices=[dev, dev])))
+
+        def serve(device):
+            cfg = ServiceConfig(continuous=True, megakernel=True, autotune=False,
+                                tile=PAPER_L32.tile, chain_slots=slots)
+            svc = SU3Service(cfg, device=device)
+            ids = [svc.submit(lattices[i], b_c[i], k=k) for i, k in enumerate(LATTICE_SERVICE_K)]
+            svc.run_until_drained()
+            torch.cuda.synchronize()
+            return svc, [svc.pop_result(i) for i in ids]
+
+        svc1, want_res = serve(dev)
+        t0 = time.perf_counter()
+        (svc2, got_res), counts = _counted(lambda: serve([dev, dev]), totals)
+        wall_s = time.perf_counter() - t0
+        snap1, snap2 = svc1.metrics.snapshot(), svc2.metrics.snapshot()
+        row = {"row": "lattice batches service", "mode": "megakernel", "host_devices": 2,
+               "requests": len(LATTICE_SERVICE_K), "dispatches": snap2["dispatches"],
+               "one_device_dispatches": snap1["dispatches"],
+               "launches": {mega: counts[mega]}, "expected_launches": {mega: 2 * snap2["dispatches"]},
+               "table_parts": len(svc2._tables[0][1].a_parts),
+               "bitwise_equal_one_device": all(
+                   torch.equal(torch.view_as_real(x), torch.view_as_real(y))
+                   for x, y in zip(got_res, want_res)),
+               "dispatch_wall_ms": snap2["busy_s"] / max(1, snap2["dispatches"]) * 1e3,
+               "one_device_dispatch_wall_ms": snap1["busy_s"] / max(1, snap1["dispatches"]) * 1e3,
+               "stream_wall_s": wall_s, "card": card}
+        row["ok"] = (row["bitwise_equal_one_device"] and counts[mega] == 2 * snap2["dispatches"]
+                     and snap1["dispatches"] == snap2["dispatches"]
+                     and snap2["completed"] == len(LATTICE_SERVICE_K))
+        _emit(row)
+        if not row["ok"]:
+            failures.append(f"lattice batches service: {row}")
+        del svc1, svc2, want_res, got_res
+    except Exception as e:
+        failures.append(f"lattice batches, one process: {type(e).__name__}: {e}")
+
+    # -- one NCCL rank: its blocks, the ranked tuners, the CG reductions --------------------
+    (ROOT / "build").mkdir(exist_ok=True)
+    store = tempfile.mkdtemp(dir=ROOT / "build")
+    meshes.init_distributed("cuda", init_method=f"file://{store}/store", rank=0, world_size=1)
+    try:
+        split_rows("one NCCL rank, MeshSpec(2)", BatchedLatticeRunner(
+            PAPER_L32, meshes.MeshSpec(hosts=2).resolve()))
+        cache = str(pathlib.Path(store) / "autotune")
+        t0 = time.perf_counter()
+
+        def tune():
+            return {name: [fn(L=PAPER_L32.L, hosts=2, tiles=TUNE_TILES, cache_directory=cache,
+                              hw=hw) for _ in range(2)]
+                    for name, fn in (("stencil", autotune.best_stencil_config),
+                                     ("cg", autotune.best_cg_config))}
+
+        tuned, counts = _counted(tune, totals)
+        keys = sorted(autotune.load_cache(cache))
+        row = {"row": "ranked tuners", "hosts": 2, "world": 1,
+               "stencil": tuned["stencil"][0], "cg": tuned["cg"][0],
+               "cached_again": [tuned[n][1]["cached"] for n in ("stencil", "cg")],
+               "cache_keys": keys, "launches": {sten: counts[sten], cgk: counts[cgk]},
+               "seconds": time.perf_counter() - t0}
+        row["ok"] = (all(row["cached_again"]) and not tuned["stencil"][0]["cached"]
+                     and all(tuned[n][1]["tile"] == tuned[n][0]["tile"] for n in tuned)
+                     and len(keys) == 2 and all("|w1|" in k for k in keys)
+                     and counts[sten] > 0)  # composed CG candidates launch the stencil only
+        _emit(row)
+        if not row["ok"]:
+            failures.append(f"ranked tuners: {row}")
+        ranked_plan = build_plan(PAPER_L32, meshes.MeshSpec(hosts=2).resolve())
+        one_plan = build_plan(PAPER_L32, meshes.SlabMesh(2, 1, dev))
+        x = torch.ones((2, 3, 1024), device=dev)
+        walls = {}
+        for who in ("one", "ranked", "ranked", "one"):
+            h = (ranked_plan if who == "ranked" else one_plan)._cg_helpers()
+            walls.setdefault(who, []).append(host_median_ms(lambda: (h["rr"](x),
+                                                                     h["dot"](x, x))))
+        reduce_ms = statistics.median(walls["ranked"]) - statistics.median(walls["one"])
+        _emit({"row": "ranked CG reductions", "hosts": 2, "world": 1,
+               "two_reductions_ms": walls["ranked"], "one_process_ms": walls["one"],
+               "reduction_cost_ms": reduce_ms,
+               "model_constant_ms": autotune.CG_REDUCTION_LATENCY_S * 1e3, "card": card,
+               "timing": "host clock around rr + dot of a (2, 3, 1024) field and a "
+                         "synchronize, median of 50 a turn; turns one, ranked, ranked, one"})
+        print(f"ranked CG reductions: {reduce_ms:.4f} ms an iteration (host clock); {card}")
+        del ranked_plan, one_plan
+    except Exception as e:  # a rank that fails fails the phase
+        failures.append(f"lattice batches, ranked: {type(e).__name__}: {e}")
+    finally:
+        torch.distributed.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    del lattices, table, table_b, want, want_mega, want_c
+    torch.cuda.empty_cache()
+    _emit({"phase": "lattice batches", "seconds": time.perf_counter() - t_phase})
     return totals
 
 

@@ -57,6 +57,16 @@ The stencil and CG tuners follow the same pattern, on the plan's slabs:
     ghost faces in device memory on a side stream, hidden under the
     interior pass when it is shorter; the serial path reads every
     neighbour in place and pays no exchange (see :func:`predict_stencil`).
+  * **Ranks.** Under a process group the candidates run on the ranked plan
+    (``MeshSpec.resolve`` gives it), every rank taking part: a candidate's
+    seconds are the slowest rank's and its ``verified`` the AND over the
+    ranks (one all-reduce), so every rank ranks the same rows and returns
+    the same config.  Rank 0 alone reads the cache (and tells the others
+    hit or miss) and writes it, under a key that carries the world size.
+    The model then charges each rank its share of the lattice, the ghost
+    bytes that leave the rank at the card's peer rate
+    (``HardwareSpec.peer_bw``) and, for CG, the reductions
+    (:data:`CG_REDUCTION_LATENCY_S`).
 
 Cache location: ``$REPRO_TORCH_SU3_CACHE_DIR`` or ``build/repro_torch/autotune``
 at the root of the checkout.
@@ -90,7 +100,7 @@ from repro_torch.launch.mesh import MeshSpec
 CACHE_ENV = "REPRO_TORCH_SU3_CACHE_DIR"
 CACHE_FILE = "su3_autotune.json"
 DEFAULT_CACHE_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch" / "autotune"
-SCHEMA_VERSION = 1  # the port's own schema; reference entries never share a file
+SCHEMA_VERSION = 2  # the port's own schema (2: ranked keys); reference entries never share a file
 DEFAULT_PRUNE = 0.5  # measure the top half of the model-ranked candidates
 DEFAULT_TILES = (128, 256, 512, 1024, 2048, 4096)
 DEFAULT_KS = (1, 2, 4, 8)
@@ -126,6 +136,15 @@ CG_AXPY_OPS_PER_SITE = 9 * 6 * 2
 # moves with the host.  The exchange's bytes are charged on top at the HBM
 # rate.
 HALO_EXCHANGE_LATENCY_S = 1.459e-5
+# Fixed cost of the two reductions of one CG iteration on a ranked plan
+# (each an all-gather of the ranks' partial sums, added in rank order):
+# chip_smoke.py's "ranked CG reductions" row timed rr + dot of a small field
+# on one NCCL rank at 0.7787 / 0.6822 ms (host clock to a synchronize,
+# medians of 50) against 0.0370 / 0.0416 ms on the one-process plan, a
+# difference of 0.6912 ms, on an H100 80GB HBM3 at 700 W.  A run on another
+# machine gave 0.2522: it is the host's cost of the two collectives, not
+# their 8 bytes, and moves with the host.
+CG_REDUCTION_LATENCY_S = 6.912e-4
 
 
 # ---------------------------------------------------------------------------
@@ -501,14 +520,18 @@ def cache_key(
     L: int,
     n_devices: int,
     compression: str = "none",
+    world: int | None = None,
     schema: int = SCHEMA_VERSION,
 ) -> str:
     """Versioned cache key: a ``v{schema}`` prefix, so entries of another
-    schema never match, and ``compression`` as its own segment, so an
-    18-real and a two-row decision for the same (dtype, L) never alias."""
+    schema never match, ``compression`` as its own segment, so an 18-real
+    and a two-row decision for the same (dtype, L) never alias, and, for a
+    decision measured on the ranks of a process group, their number
+    (``w{world}``)."""
+    ranks = "" if world is None else f"|w{world}"
     return (
         f"v{schema}|{backend}|{device_kind}|{layout}|{dtype}"
-        f"|{compression}|L{L}|d{n_devices}"
+        f"|{compression}{ranks}|L{L}|d{n_devices}"
     )
 
 
@@ -523,6 +546,63 @@ def load_cache(directory: str | None = None) -> dict[str, Any]:
             return json.load(f)
     except (FileNotFoundError, json.JSONDecodeError):
         return {}
+
+
+def _group() -> tuple[Any, int, int]:
+    """``(group, rank, world)`` of the running process group, ``(None, 0,
+    1)`` without one."""
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        return dist.group.WORLD, dist.get_rank(), dist.get_world_size()
+    return None, 0, 1
+
+
+def _cache_hit(key: str, valid: Callable[[Any], dict[str, Any] | None], cache: bool,
+               refresh: bool, directory: str | None) -> dict[str, Any] | None:
+    """The cached config under ``key`` (``cached=True``), or None to
+    measure.  Under a process group rank 0 alone reads the file and
+    broadcasts what it found, so either every rank sweeps or none does."""
+    group, rank, world = _group()
+    hit = valid(load_cache(directory).get(key)) if cache and not refresh and rank == 0 else None
+    if world > 1:
+        box = [hit]
+        torch.distributed.broadcast_object_list(box, src=0, group=group)
+        hit = box[0]
+    return None if hit is None else dict(hit, cached=True)
+
+
+def _ranks_agree(seconds: float, verified: bool, device: torch.device) -> tuple[float, bool]:
+    """Under a process group, the slowest rank's ``seconds`` and the AND
+    of the ranks' ``verified``, from one all-reduce (the MAX of
+    ``[seconds, failed]``); without one, both as given."""
+    group = _group()[0]
+    if group is None:
+        return seconds, verified
+    t = torch.tensor([seconds, 0.0 if verified else 1.0], dtype=torch.float64, device=device)
+    torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX, group=group)
+    return float(t[0]), float(t[1]) == 0.0
+
+
+def _check_hosts(hosts: int) -> None:
+    """Refuse, before any measurement, slabs that do not divide over the
+    running group's ranks."""
+    world = _group()[2]
+    if hosts % world:
+        raise ValueError(f"hosts={hosts} is not a multiple of the world's {world} ranks: "
+                         f"every rank owns whole slabs")
+
+
+def _fits_ranks(tile: int, L: int, hosts: int) -> bool:
+    """A ranked plan of ``hosts`` slabs pads nothing (``build_plan``
+    refuses padding on several ranks): the tile must divide each slab's
+    sites.  Without a group every tile fits."""
+    world = _group()[2]
+    return world == 1 or (L**4) % (hosts * tile) == 0
+
+
+def _same_bits(x: torch.Tensor, y: torch.Tensor) -> bool:
+    """The bitwise check of a measured candidate against its oracle."""
+    return torch.equal(x, y)
 
 
 def store_cache_entry(
@@ -607,10 +687,9 @@ def best_config(
         RuntimeError: no candidate fits, or none of the measured verified.
     """
     key = _keyed("soa", L, dtype, accum_dtype, compression, device)
-    if cache and not refresh:
-        config = _valid_cache_hit(load_cache(cache_directory).get(key))
-        if config is not None:
-            return dict(config, cached=True)
+    hit = _cache_hit(key, _valid_cache_hit, cache, refresh, cache_directory)
+    if hit is not None:
+        return hit
 
     sweep = pipeline_sweep(
         L=L, dtype=dtype, accum_dtype=accum_dtype, compression=compression,
@@ -637,29 +716,35 @@ def best_config(
 
 
 def _keyed(layout: str, L: int, dtype: str, accum_dtype: str, compression: str,
-           device: torch.device | str | None) -> str:
-    """The cache key of a tuned decision on the measuring device."""
+           device: torch.device | str | None, world: int | None = None) -> str:
+    """The cache key of a tuned decision on the measuring device (measured
+    by the ``world`` ranks of a process group, when given)."""
     backend, device_kind, n_devices = _device_identity(device)
     dtype_key = f"{dtype}+acc-{accum_dtype}" if accum_dtype else dtype
     return cache_key(backend=backend, device_kind=device_kind, layout=layout,
-                     dtype=dtype_key, L=L, n_devices=n_devices, compression=compression)
+                     dtype=dtype_key, L=L, n_devices=n_devices, compression=compression,
+                     world=world)
 
 
 def _tuned(key: str, sweep: dict[str, Any], pick: Callable[[list[dict]], dict],
            config: Callable[[dict], dict], cache: bool,
            cache_directory: str | None) -> dict[str, Any]:
     """Pick the winner among a sweep's verified rows and persist its
-    config (with its measured GFLOPS) under ``key``."""
+    config (with its measured GFLOPS) under ``key``: rank 0 alone writes
+    under a process group, and every rank passes a barrier after it."""
     rows = [r for r in sweep["rows"] if r["verified"]]
     if not rows:
         raise RuntimeError("no verified candidate in the measured set")
     winner = pick(rows)
     cfg = config(winner)
-    if cache:
+    group, rank, world = _group()
+    if cache and rank == 0:
         store_cache_entry(
             key, {"config": cfg, "measured_gflops": winner["measured_gflops"], "key": key},
             cache_directory,
         )
+    if world > 1:
+        torch.distributed.barrier(group=group)
     return dict(cfg, cached=False)
 
 
@@ -810,6 +895,32 @@ def _exchange_seconds(exchange_bytes: int, hw: roofline.HardwareSpec) -> float:
     return HALO_EXCHANGE_LATENCY_S + exchange_bytes / hw.hbm_bw
 
 
+def _ranked_world(world: int | None) -> int | None:
+    """The ranks a prediction is for: ``world`` as given, else the running
+    group's size (None without a group: the one-process plan)."""
+    if world is not None:
+        return world
+    group, _, size = _group()
+    return None if group is None else size
+
+
+def _ranked_exchange(exchange_bytes: int, ghosts: int, link_bytes: int, hosts: int,
+                     world: int, hw: roofline.HardwareSpec) -> dict[str, float]:
+    """One rank's share of an exchange on ``world`` ranks of ``hosts``
+    slabs: of the ``2 * hosts`` face transfers the ``2 * world`` at the
+    ranks' boundaries cross (none on one rank).  The crossing ghosts' bytes
+    (one copy each way; at depth 2 also the links of the ring sites another
+    rank owns, ``link_bytes`` per ghost) go at ``peer_bw`` a direction, the
+    rest of the exchange's on-card bytes at ``hbm_bw``; each rank moves
+    ``1 / world`` of both."""
+    cross = world / hosts if world > 1 else 0.0
+    card_bytes = (1.0 - cross) * exchange_bytes / world
+    peer_bytes = cross * (exchange_bytes / 2 + ghosts * link_bytes) / world
+    return {"card_bytes": card_bytes, "peer_bytes": peer_bytes,
+            "seconds": (HALO_EXCHANGE_LATENCY_S + card_bytes / hw.hbm_bw
+                        + peer_bytes / hw.peer_bw)}
+
+
 def predict_stencil(
     cand: StencilCandidate,
     L: int,
@@ -818,9 +929,10 @@ def predict_stencil(
     hosts: int = 1,
     hw: roofline.HardwareSpec | None = None,
     compression: str = "none",
+    world: int | None = None,
 ) -> dict[str, Any]:
     """Roofline prediction of one stencil application under ``cand`` on a
-    ``hosts``-slab plan on one card.
+    ``hosts``-slab plan on one card, or on the ranks of a process group.
 
     Every quantity is per application, so depth-1 and depth-2 rows compare
     directly.  The core terms are the kernel's: compute (576 flops/site at
@@ -841,6 +953,12 @@ def predict_stencil(
       per application at depth 2 counting the ring:
       ``bound = max(core, halo) + depth * boundary_fraction * core``.
 
+    On ``world`` ranks (default: the running group's; none without one)
+    each rank runs its ``1 / world`` of the sites, and the exchange is
+    :func:`_ranked_exchange`'s: the ghosts that cross to another rank at
+    ``hw.peer_bw``, the rest at the HBM rate.  Without a group the
+    prediction is the one card's above.
+
     Raises:
         LookupError: when no ``hw`` is given and the card is unknown.
     """
@@ -852,21 +970,35 @@ def predict_stencil(
     cfg = EngineConfig(L=L, dtype=dtype, accum_dtype=accum_dtype, compression=compression,
                        tile=cand.tile)
     kernel = roofline.stencil_bound(cfg, hw)
+    world = _ranked_world(world)
+    share = 1 if world is None else world  # the ranks splitting the sites
     split = cand.overlap and hosts > 1
     launches = (2.5 if cand.depth == 2 else 2.0) if split else 1.0
     issue_rate = hw.peak_flops_fp32 / 2  # one FP32 operation per lane per clock
-    issue_s = (float(stencil_ops_per_site(dtype, accum_dtype, compression)) * padded / issue_rate
-               + LAUNCH_OVERHEAD_S * launches)
-    core_s = max(kernel.compute_s, kernel.memory_s, issue_s)
+    compute_s, memory_s = kernel.compute_s / share, kernel.memory_s / share
+    issue_s = (float(stencil_ops_per_site(dtype, accum_dtype, compression)) * padded / share
+               / issue_rate + LAUNCH_OVERHEAD_S * launches)
+    core_s = max(compute_s, memory_s, issue_s)
     halo = _stencil_halo_spec(L, hosts, cfg.word_bytes, depth=cand.depth)
     exchange_bytes = _exchange_bytes(halo, hosts, 1, cand.depth) if split else 0
-    halo_s = _exchange_seconds(exchange_bytes, hw) / cand.depth if split else 0.0
+    peer_bytes = 0.0
+    if not split:
+        halo_s = 0.0
+    elif world is None:
+        halo_s = _exchange_seconds(exchange_bytes, hw) / cand.depth
+    else:
+        rows = layouts.make_codec(Layout.SOA, tile=cand.tile, compression=layouts.GaugeCompression(
+            compression)).planar_rows
+        link_bytes = 2 * rows * cfg.word_bytes if cand.depth == 2 else 0  # the ring's links
+        ex = _ranked_exchange(exchange_bytes, 2 * hosts * halo.boundary_sites, link_bytes,
+                              hosts, world, hw)
+        halo_s, peer_bytes = ex["seconds"] / cand.depth, ex["peer_bytes"]
     boundary_frac = halo.boundary_sites / halo.sites_per_shard if hosts > 1 else 0.0
     if split:
         bound_s = max(core_s, halo_s) + cand.depth * boundary_frac * core_s
     else:
         bound_s = core_s
-    terms = {"compute": kernel.compute_s, "memory": kernel.memory_s, "issue": issue_s,
+    terms = {"compute": compute_s, "memory": memory_s, "issue": issue_s,
              "halo": halo_s}
     return {
         "tile": cand.tile,
@@ -874,8 +1006,9 @@ def predict_stencil(
         "depth": cand.depth,
         "compression": compression,
         "hosts": hosts,
-        "compute_s": kernel.compute_s,
-        "memory_s": kernel.memory_s,
+        "world": world,
+        "compute_s": compute_s,
+        "memory_s": memory_s,
         "issue_s": issue_s,
         "core_s": core_s,
         "halo_s": halo_s,
@@ -883,6 +1016,7 @@ def predict_stencil(
         "dominant": max(terms, key=terms.get),
         "halo_bytes_per_exchange": halo.halo_bytes_per_exchange,
         "exchange_bytes": exchange_bytes,
+        "peer_bytes": peer_bytes,
         "bandwidth_bytes": kernel.bytes + exchange_bytes / cand.depth,
         "boundary_fraction": round(boundary_frac, 4),
         "predicted_gflops": round(kernel.flops / bound_s / 1e9, 3),
@@ -918,7 +1052,10 @@ def measure_stencil_candidate(
     """Measured per-application GFLOPS of one stencil variant on a
     ``hosts``-slab plan (useful flops 576/site; a depth-d step runs d
     applications).  Verified when the step's output equals ``depth``
-    serial steps bit for bit (and, at depth 1, holds the fixed point)."""
+    serial steps bit for bit (and, at depth 1, holds the fixed point).
+    Under a process group every rank runs its slabs of the ranked plan:
+    the seconds are the slowest rank's and ``verified`` holds on every
+    rank (:func:`_ranks_agree`), so every rank returns the same row."""
     cfg = EngineConfig(
         L=L, dtype=dtype, variant="cuda", layout=Layout.SOA, tile=cand.tile,
         accum_dtype=accum_dtype, iterations=2, warmups=1, compression=compression,
@@ -929,8 +1066,10 @@ def measure_stencil_candidate(
     u, v = plan.init_stencil_data()
     out = step(u, v)
     want = serial(u, v) if cand.depth == 1 else serial(u, serial(u, v))
-    verified = torch.equal(out, want) and (cand.depth == 2 or plan.verify_stencil(out))
+    bitwise = _same_bits(out, want)
+    fixed = True if cand.depth == 2 else plan.verify_stencil(out)  # a collective on ranks
     best = _best_seconds(lambda: step(u, v), plan.device)
+    best, verified = _ranks_agree(best, bitwise and fixed, plan.device)
     gf = cand.depth * su3_stencil.STENCIL_FLOPS_PER_SITE * L**4 / best / 1e9
     return {"tile": cand.tile, "overlap": cand.overlap, "depth": cand.depth,
             "measured_gflops": round(gf, 3), "verified": verified}
@@ -953,14 +1092,17 @@ def stencil_sweep(
 ) -> dict[str, Any]:
     """Rank the stencil grid with :func:`predict_stencil`; measure the top
     ``prune`` fraction (same return structure as :func:`pipeline_sweep`).
+    On several ranks only tiles that pad no site are candidates.
 
     Raises:
         RuntimeError: no candidate passes the kernel's register gate.
     """
-    cands = enumerate_stencil_candidates(tiles, overlaps, dtype, accum_dtype, compression,
-                                         device, depths)
+    cands = [c for c in enumerate_stencil_candidates(tiles, overlaps, dtype, accum_dtype,
+                                                     compression, device, depths)
+             if _fits_ranks(c.tile, L, hosts)]
     if not cands:
-        raise RuntimeError("no stencil candidate fits the kernel's register budget")
+        raise RuntimeError("no stencil candidate fits the kernel's register budget "
+                           "(and, on ranks, the slabs)")
     preds = [predict_stencil(c, L, dtype, accum_dtype, hosts, hw, compression=compression)
              for c in cands]
     if measure_fn is None:
@@ -1025,14 +1167,20 @@ def best_stencil_config(
     jitter must not pick the flags; ties go to the serial, shallower
     schedule.  A later call with the same key measures nothing.
 
+    Under a process group every rank sweeps the ranked plan together and
+    returns the same config; rank 0 alone reads and writes the cache, under
+    a key that carries the world size.
+
     Raises:
+        ValueError: ``hosts`` is not a multiple of the group's ranks.
         RuntimeError: no candidate fits, or none of the measured verified.
     """
-    key = _keyed(f"soa-stencil-h{hosts}", L, dtype, accum_dtype, compression, device)
-    if cache and not refresh:
-        config = _valid_stencil_hit(load_cache(cache_directory).get(key))
-        if config is not None:
-            return dict(config, cached=True)
+    _check_hosts(hosts)
+    key = _keyed(f"soa-stencil-h{hosts}", L, dtype, accum_dtype, compression, device,
+                 world=_ranked_world(None))
+    hit = _cache_hit(key, _valid_stencil_hit, cache, refresh, cache_directory)
+    if hit is not None:
+        return hit
     sweep = stencil_sweep(L=L, dtype=dtype, accum_dtype=accum_dtype, hosts=hosts,
                           compression=compression, prune=prune, tiles=tiles,
                           measure_fn=measure_fn, hw=hw, device=device)
@@ -1097,6 +1245,7 @@ def predict_cg(
     hosts: int = 1,
     hw: roofline.HardwareSpec | None = None,
     compression: str = "none",
+    world: int | None = None,
 ) -> dict[str, Any]:
     """Roofline prediction of one CG iteration under ``cand`` on a
     ``hosts``-slab plan (where ``cg_solve`` splits the pass by default).
@@ -1109,6 +1258,12 @@ def predict_cg(
     ghosts of r and p (fused) or of p' (composed) under the interior pass,
     and the boundary recompute adds ``boundary_fraction`` of a kernel pass:
     ``bound = max(core, halo) + boundary_fraction * kernel``.
+
+    On ``world`` ranks (default: the running group's; none without one)
+    each rank runs its ``1 / world`` of the sites, the exchange is
+    :func:`_ranked_exchange`'s, and the iteration's two reductions add
+    :data:`CG_REDUCTION_LATENCY_S`.  Without a group the prediction is the
+    one card's above.
 
     Raises:
         LookupError: when no ``hw`` is given and the card is unknown.
@@ -1131,28 +1286,45 @@ def predict_cg(
         stream_bytes -= terms["gathers"].bytes / 2  # one gathered field, not two
         ops = stencil_ops_per_site(dtype, accum_dtype, compression) + 12  # + the axpy
     flops = float(su3_stencil.CG_ITER_FLOPS_PER_SITE) * n_sites
-    compute_s = flops / hw.peak_flops_fp32
-    memory_s = stream_bytes / hw.hbm_bw
+    world = _ranked_world(world)
+    share = 1 if world is None else world  # the ranks splitting the sites
+    compute_s = flops / share / hw.peak_flops_fp32
+    memory_s = stream_bytes / share / hw.hbm_bw
     split = hosts > 1
     issue_rate = hw.peak_flops_fp32 / 2
-    issue_s = float(ops) * padded / issue_rate + LAUNCH_OVERHEAD_S * (2 if split else 1)
+    issue_s = float(ops) * padded / share / issue_rate + LAUNCH_OVERHEAD_S * (2 if split else 1)
     core_s = max(compute_s, memory_s, issue_s)
     halo = _stencil_halo_spec(L, hosts, cfg.word_bytes)
-    exchange_bytes = _exchange_bytes(halo, hosts, 2 if cand.fused else 1, 1) if split else 0
-    halo_s = _exchange_seconds(exchange_bytes, hw) if split else 0.0
+    fields = 2 if cand.fused else 1
+    exchange_bytes = _exchange_bytes(halo, hosts, fields, 1) if split else 0
+    peer_bytes = 0.0
+    if not split:
+        halo_s = 0.0
+    elif world is None:
+        halo_s = _exchange_seconds(exchange_bytes, hw)
+    else:
+        ex = _ranked_exchange(exchange_bytes, 2 * hosts * halo.boundary_sites * fields, 0,
+                              hosts, world, hw)
+        halo_s, peer_bytes = ex["seconds"], ex["peer_bytes"]
     boundary_frac = halo.boundary_sites / halo.sites_per_shard if split else 0.0
-    bound_s = max(core_s, halo_s) + boundary_frac * kernel.bound_s if split else core_s
+    kernel_s = kernel.bound_s / share
+    bound_s = max(core_s, halo_s) + boundary_frac * kernel_s if split else core_s
+    reduce_s = 0.0 if world is None else CG_REDUCTION_LATENCY_S
+    bound_s += reduce_s
     return {
         "tile": cand.tile,
         "fused": cand.fused,
         "compression": compression,
         "hosts": hosts,
+        "world": world,
         "compute_s": compute_s,
         "memory_s": memory_s,
         "issue_s": issue_s,
         "halo_s": halo_s,
+        "reduce_s": reduce_s,
         "bound_s": bound_s,
         "exchange_bytes": exchange_bytes,
+        "peer_bytes": peer_bytes,
         "bandwidth_bytes": stream_bytes + exchange_bytes,
         "predicted_gflops": round(flops / bound_s / 1e9, 3),
     }
@@ -1167,7 +1339,9 @@ def measure_cg_candidate(
     plan (useful flops ``CG_ITER_FLOPS_PER_SITE``/site/iteration).  A fused
     candidate is verified against the composed path: bitwise at f32
     storage, within ``verify_tolerance`` of the relative residual
-    otherwise; the composed candidate by its residual shrinking."""
+    otherwise; the composed candidate by its residual shrinking.  Under a
+    process group the seconds and the verdict are agreed over the ranks, as
+    in :func:`measure_stencil_candidate`."""
     cfg = EngineConfig(
         L=L, dtype=dtype, variant="cuda", layout=Layout.SOA, tile=cand.tile,
         accum_dtype=accum_dtype, iterations=2, warmups=1, compression=compression,
@@ -1189,13 +1363,15 @@ def measure_cg_candidate(
     if cand.fused:
         oracle = run(False)
         if dtype == "float32":
-            verified = torch.equal(state["x"], oracle["x"]) and torch.equal(state["r"],
-                                                                            oracle["r"])
+            same_x, same_r = _same_bits(state["x"], oracle["x"]), _same_bits(state["r"],
+                                                                             oracle["r"])
+            verified = same_x and same_r
         else:
             tol = verify_tolerance(dtype, accum_dtype, compression == "two_row")
             verified = abs((rs / b_rs) ** 0.5 - (float(oracle["rs"]) / b_rs) ** 0.5) <= tol
     else:
         verified = rs < b_rs
+    best, verified = _ranks_agree(best, bool(verified), plan.device)
     gf = su3_stencil.CG_ITER_FLOPS_PER_SITE * L**4 * iters / best / 1e9
     return {"tile": cand.tile, "fused": cand.fused, "measured_gflops": round(gf, 3),
             "verified": bool(verified)}
@@ -1216,14 +1392,18 @@ def cg_sweep(
     device: torch.device | str | None = None,
 ) -> dict[str, Any]:
     """Rank the CG (tile, fused) grid with :func:`predict_cg`; measure the
-    top ``prune`` fraction.
+    top ``prune`` fraction.  On several ranks only tiles that pad no site
+    are candidates.
 
     Raises:
         RuntimeError: no candidate passes the kernels' register gates.
     """
-    cands = enumerate_cg_candidates(tiles, fused, dtype, accum_dtype, compression, device)
+    cands = [c for c in enumerate_cg_candidates(tiles, fused, dtype, accum_dtype, compression,
+                                                device)
+             if _fits_ranks(c.tile, L, hosts)]
     if not cands:
-        raise RuntimeError("no CG candidate fits the kernels' register budgets")
+        raise RuntimeError("no CG candidate fits the kernels' register budgets "
+                           "(and, on ranks, the slabs)")
     preds = [predict_cg(c, L, dtype, accum_dtype, hosts, hw, compression=compression)
              for c in cands]
     if measure_fn is None:
@@ -1267,14 +1447,20 @@ def best_cg_config(
     with the best MEASURED GFLOPS among the verified candidates, persisted
     under the key layout ``soa-cg-h{hosts}``.
 
+    Under a process group every rank sweeps the ranked plan together and
+    returns the same config; rank 0 alone reads and writes the cache, under
+    a key that carries the world size.
+
     Raises:
+        ValueError: ``hosts`` is not a multiple of the group's ranks.
         RuntimeError: no candidate fits, or none of the measured verified.
     """
-    key = _keyed(f"soa-cg-h{hosts}", L, dtype, accum_dtype, compression, device)
-    if cache and not refresh:
-        config = _valid_cg_hit(load_cache(cache_directory).get(key))
-        if config is not None:
-            return dict(config, cached=True)
+    _check_hosts(hosts)
+    key = _keyed(f"soa-cg-h{hosts}", L, dtype, accum_dtype, compression, device,
+                 world=_ranked_world(None))
+    hit = _cache_hit(key, _valid_cg_hit, cache, refresh, cache_directory)
+    if hit is not None:
+        return hit
     sweep = cg_sweep(L=L, dtype=dtype, accum_dtype=accum_dtype, hosts=hosts,
                      compression=compression, prune=prune, tiles=tiles,
                      measure_fn=measure_fn, hw=hw, device=device)

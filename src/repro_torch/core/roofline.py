@@ -32,15 +32,18 @@ class HardwareSpec:
     hbm_bw: float  # bytes/s
     hbm_bytes: float  # device memory
     peak_flops_bf16: float  # bf16 on the tensor cores, dense, flop/s
+    peer_bw: float  # bytes/s to another card, per direction
 
 
 # NVIDIA H100 datasheet: SXM5 67 TFLOP/s FP32, 989 TFLOP/s bf16 dense,
-# 3.35 TB/s HBM3, 80 GB; PCIe 51 TFLOP/s FP32, 756 TFLOP/s bf16 dense,
-# 2.0 TB/s HBM2e, 80 GB.
+# 3.35 TB/s HBM3, 80 GB, NVLink 900 GB/s in total (450 GB/s a direction);
+# PCIe 51 TFLOP/s FP32, 756 TFLOP/s bf16 dense, 2.0 TB/s HBM2e, 80 GB, and
+# without an NVLink bridge its peers are across PCIe Gen5 x16 (64 GB/s a
+# direction).
 H100_SXM = HardwareSpec("h100_sxm", peak_flops_fp32=67e12, hbm_bw=3.35e12, hbm_bytes=80e9,
-                        peak_flops_bf16=989e12)
+                        peak_flops_bf16=989e12, peer_bw=450e9)
 H100_PCIE = HardwareSpec("h100_pcie", peak_flops_fp32=51e12, hbm_bw=2.0e12, hbm_bytes=80e9,
-                         peak_flops_bf16=756e12)
+                         peak_flops_bf16=756e12, peer_bw=64e9)
 
 HARDWARE = {h.name: h for h in (H100_SXM, H100_PCIE)}
 

@@ -83,9 +83,18 @@ and give the same bits.  ``plan.tracer`` (spans per phase) and
 ``plan.faults`` (the ``halo`` seam after each exchange) are off by default;
 each costs one ``if ...enabled`` branch.
 
+Whole-lattice batches
+---------------------
 :class:`BatchedLatticeRunner` serves B independent lattices through one
-plan: one launch of the multiply kernel over the whole batch (the kernel's
-batch axis stands in for the reference's ``vmap``).
+plan, and ``fused_batched_step`` advances a megakernel slot table.  Both
+split the batch as the reference shards its leading batch axis
+(``lattice_batch_sharding``): whole lattices per mesh position, host-major
+(:meth:`ExecutionPlan.lattice_batch_blocks`), one kernel launch per block
+on the block's device (the kernel's batch axis stands in for the
+reference's ``vmap``).  Blocks that share a device live in one tensor, and
+each block's launch reads and writes its rows in place; blocks on several
+devices come as a list of tensors, one per device.  On a ranked mesh a rank
+holds and computes only its own blocks.
 """
 from __future__ import annotations
 
@@ -294,7 +303,8 @@ def make_raw_step(
     The one place the kernel-form dispatch happens.  Planar kernels get the
     physical SoA/AoSoA tensor as it is; canonical kernels are wrapped with
     the codec's unpack/pack and accumulate in float32 by construction.
-    ``alias`` lets a planar kernel write C into A's storage.
+    ``alias`` lets a planar kernel write C into A's storage; a step called
+    with ``out=`` writes C there.
     """
     if not kernel.supports_layout(codec.layout):
         raise ValueError(
@@ -341,17 +351,19 @@ def make_raw_step(
         if codec.is_compressed:
             kw["compressed"] = True
 
-        def raw_step(a_phys: torch.Tensor, b_p: torch.Tensor) -> torch.Tensor:
-            return kernel.fn(a_phys, b_p, **kw)
+        def raw_step(a_phys: torch.Tensor, b_p: torch.Tensor,
+                     out: torch.Tensor | None = None) -> torch.Tensor:
+            return kernel.fn(a_phys, b_p, out=out, **kw)
 
     else:  # canonical complex kernel wrapped by the codec
 
-        def raw_step(a_phys: torch.Tensor, b_p: torch.Tensor) -> torch.Tensor:
+        def raw_step(a_phys: torch.Tensor, b_p: torch.Tensor,
+                     out: torch.Tensor | None = None) -> torch.Tensor:
             b = codec.unpack_b(b_p)
             phys = a_phys
             for _ in range(k_iters):
                 phys = codec.pack(kernel.fn(codec.unpack(phys), b)).contiguous()
-            return phys
+            return phys if out is None else out.copy_(phys)
 
     return raw_step
 
@@ -403,9 +415,10 @@ def make_raw_batched_step(
         kw["compressed"] = True
 
     def raw_batched(
-        a_batch: torch.Tensor, b_batch: torch.Tensor, slot_k: torch.Tensor
+        a_batch: torch.Tensor, b_batch: torch.Tensor, slot_k: torch.Tensor,
+        out: torch.Tensor | None = None,
     ) -> torch.Tensor:
-        return kernel.fn(a_batch, b_batch, slot_k, **kw)
+        return kernel.fn(a_batch, b_batch, slot_k, out=out, **kw)
 
     return raw_batched
 
@@ -651,6 +664,62 @@ def _select(field: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return field.index_select(-1, idx)
 
 
+def _on(t: torch.Tensor, dev: torch.device) -> bool:
+    """``t`` lies on ``dev``: the same card (a CUDA device with no index is
+    the current one), or the CPU, whatever index names it (a list of
+    ``cpu:i`` devices stands for distinct devices on one CPU)."""
+    if t.device.type != dev.type:
+        return False
+    if dev.type != "cuda":
+        return True
+    return t.device.index == (torch.cuda.current_device() if dev.index is None else dev.index)
+
+
+def _as_parts(x: torch.Tensor | list[torch.Tensor]) -> list[torch.Tensor]:
+    return [x] if isinstance(x, torch.Tensor) else list(x)
+
+
+def _launch_blocks(
+    blocks: list[dist_sharding.BatchBlock], fn: Callable[..., torch.Tensor], alias: bool,
+    a: torch.Tensor | list[torch.Tensor], *operands: torch.Tensor | list[torch.Tensor],
+) -> torch.Tensor | list[torch.Tensor]:
+    """One launch of ``fn`` per block of a whole-lattice batch, on the
+    block's device.
+
+    ``a`` and every operand hold the blocks' lattices along their first
+    axis: one tensor when the blocks share one device, else a list with one
+    tensor per run of blocks on a device
+    (:func:`~repro_torch.distributed.sharding.device_parts`).  ``fn(a_blk,
+    *operand_blks, out=out_blk)`` runs on each block's rows: into the same
+    rows of a new tensor, or in place into ``a`` when ``alias`` (then
+    ``out`` is None).  Returns the output in ``a``'s form.
+
+    Raises:
+        ValueError: a tensor does not hold its device's blocks (wrong
+            count, size or device), e.g. one tensor for blocks on several
+            devices.
+    """
+    parts = dist_sharding.device_parts(blocks)
+    a_parts, op_parts = _as_parts(a), [_as_parts(x) for x in operands]
+    if len(a_parts) != len(parts) or any(len(x) != len(parts) for x in op_parts):
+        raise ValueError(f"the batch's blocks lie on {len(parts)} device run(s): pass one "
+                         f"tensor per run, got {len(a_parts)}")
+    outs = []
+    for j, part in enumerate(parts):
+        base, n_rows, dev = part[0].lo, part[-1].hi - part[0].lo, part[0].device
+        x = a_parts[j]
+        if x.shape[0] != n_rows or not _on(x, dev):
+            raise ValueError(f"blocks {[blk.index for blk in part]} hold {n_rows} lattices on "
+                             f"{dev}, got {x.shape[0]} on {x.device}")
+        out = x if alias else torch.empty_like(x)
+        for blk in part:
+            lo, n = blk.lo - base, blk.hi - blk.lo
+            fn(x.narrow(0, lo, n), *(ops[j].narrow(0, lo, n) for ops in op_parts),
+               out=None if alias else out.narrow(0, lo, n))
+        outs.append(out)
+    return outs[0] if isinstance(a, torch.Tensor) else outs
+
+
 class _Halo:
     """One pattern of exchange between the ranks of a slab mesh.
 
@@ -890,6 +959,26 @@ class ExecutionPlan:
             L=self.cfg.L, n_shards=self.n_hosts, word_bytes=self.cfg.word_bytes
         )
 
+    def lattice_batch_blocks(self, batch: int) -> list[dist_sharding.BatchBlock]:
+        """Where a batch of ``batch`` whole lattices lives (request batches,
+        megakernel slot tables): one block per mesh position, host-major,
+        on ``mesh.devices``; on ranks only this rank's blocks.  The
+        counterpart of the reference's ``lattice_batch_sharding``.
+
+        Raises:
+            ValueError: ``batch`` is not a multiple of ``n_devices``.
+        """
+        return dist_sharding.lattice_batch_blocks(self.mesh, batch)
+
+    def slot_table_blocks(self, slots: int) -> list[dist_sharding.BatchBlock]:
+        """The blocks of a ``slots``-slot megakernel table: whole lattices
+        per device when ``slots`` divides over the mesh, else (as the
+        reference leaves such a table unsharded) the whole table in one
+        block on the process's first device."""
+        if slots % self.n_devices == 0:
+            return self.lattice_batch_blocks(slots)
+        return [dist_sharding.BatchBlock(0, self.mesh.devices[0], 0, slots)]
+
     # -- fused multi-iteration stepping ---------------------------------------
 
     def fused_step(self, k: int) -> Step:
@@ -912,15 +1001,24 @@ class ExecutionPlan:
     def fused_batched_step(
         self, slots: int, max_k: int = 8, alias: bool | None = None
     ) -> Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]:
-        """ONE megakernel launch advancing a whole slot table.
+        """One megakernel launch per block advancing a whole slot table.
 
         ``fused_batched_step(slots, max_k)(a_batch, b_batch, slot_k)`` equals
         applying ``step`` ``slot_k[s]`` times to slot ``s`` independently —
         bit for bit, since both kernels run one chain body — but every
-        slot's chain runs in one launch over (slots x sites), so a serving
-        iteration costs one launch however many chains are in flight.
-        Per-slot depths are data (an int32 tensor on the plan's device, read
-        by the kernel), clamped to ``max_k``; depth 0 passes a slot through.
+        slot's chain runs in one launch over (slots x sites) per block of
+        :meth:`slot_table_blocks`, so a serving iteration costs one launch
+        per device however many chains are in flight.  Per-slot depths are
+        data (an int32 tensor beside the table, read by the kernel), clamped
+        to ``max_k``; depth 0 passes a slot through.
+
+        When ``slots`` divides over the mesh, the table is split into whole
+        lattices per device (the reference's ``lattice_batch_sharding``):
+        the arguments are one tensor when the blocks share a device (each
+        block's launch reads and writes its rows) or one tensor per device;
+        on ranks, the rank's own slots.  Otherwise the whole table runs in
+        one launch on the first device, as the reference leaves it
+        unsharded.
 
         ``alias`` writes the table in place: ``None`` means in place on the
         card (the reference donates the table on the TPU) and out of place
@@ -941,9 +1039,12 @@ class ExecutionPlan:
         key = (slots, max_k, bool(alias))
         if key not in self._batched_steps:
             kernel = registry.get_kernel(MEGAKERNEL_VARIANT)
-            self._batched_steps[key] = make_raw_batched_step(
+            raw = make_raw_batched_step(
                 self.codec, kernel, tile=self.cfg.tile, max_k=max_k, alias=bool(alias)
             )
+            blocks = self.slot_table_blocks(slots)
+            self._batched_steps[key] = lambda a, b, k: _launch_blocks(blocks, raw, bool(alias),
+                                                                      a, b, k)
         return self._batched_steps[key]
 
     # -- nearest-neighbour stencil (Dslash-style) -------------------------------
@@ -2024,28 +2125,63 @@ def build_plan(
 
 
 class BatchedLatticeRunner:
-    """Serve B independent lattices through one plan step.
+    """Serve B independent lattices through one plan, whole lattices per
+    device.
 
     The "many users" scenario: each request carries its own (A, B) lattice
-    pair, and the whole batch runs through the plan's kernel in ONE launch
-    (the multiply kernel's batch axis, one B per lattice), with no
-    per-request wiring.  The reference shards the batch over a mesh and pads
-    it to a device multiple; on one card ``n_devices`` is 1, so nothing is
-    padded.
+    pair.  The batch splits over the plan's mesh as the reference shards
+    its batch axis (:meth:`ExecutionPlan.lattice_batch_blocks`: whole
+    lattices per device, host-major, so one host's requests stay on that
+    host's devices), and each block runs in ONE launch of the multiply
+    kernel on its device, with no per-request wiring.  A batch that does
+    not divide the device count is padded with zero lattices, and the
+    padding is sliced off.
+
+    The physical batch (``pack_batch``, ``run``) is one tensor when the
+    process's blocks share a device and a list of tensors, one per device,
+    when they do not.  On a ranked mesh a rank packs and computes only its
+    own lattices (first touch per rank): ``run`` takes and returns the
+    rank's blocks, and ``multiply`` returns the whole batch on every rank
+    through one all-gather in rank order.
 
     Args:
         cfg: the plan tuple every lattice of the batch shares.
-        device: ``None`` (the CUDA device; raises without CUDA) or an
-            explicit device such as ``"cpu"``.
+        mesh: what the reference's runner takes — a
+            :class:`~repro_torch.launch.mesh.MeshSpec` (resolved on the
+            card, ranked under a running process group), a resolved
+            :class:`~repro_torch.launch.mesh.SlabMesh`, or ``None`` (the
+            card; raises without CUDA) — or a device such as ``"cpu"`` (one
+            block).
     """
 
-    n_devices = 1
-
-    def __init__(self, cfg: EngineConfig, device: torch.device | str | None = None):
-        self.plan = build_plan(cfg, device)
+    def __init__(self, cfg: EngineConfig,
+                 mesh: MeshSpec | SlabMesh | torch.device | str | None = None):
+        self.plan = build_plan(cfg, mesh)
         self.cfg = cfg
+        self.mesh = self.plan.mesh
         self.device = self.plan.device
+        self.n_devices = self.plan.n_devices
         self._steps: dict[int, Step] = {}
+        self._plans: dict[torch.device, ExecutionPlan] = {}
+
+    def padded(self, bsz: int) -> int:
+        """``bsz`` padded to a multiple of ``n_devices``."""
+        return bsz + (-bsz) % self.n_devices
+
+    def blocks(self, bsz: int) -> list[dist_sharding.BatchBlock]:
+        """This process's blocks of a batch of ``bsz`` lattices (padded)."""
+        return self.plan.lattice_batch_blocks(self.padded(bsz))
+
+    def plan_on(self, device: torch.device | str) -> ExecutionPlan:
+        """The runner's plan on ``device``, one of its mesh's devices (the
+        same site padding), built once: per-lattice work that keeps tables
+        on its device (the stencil's gather) runs through it."""
+        dev = torch.device(device)
+        if dev == self.device:
+            return self.plan
+        if dev not in self._plans:
+            self._plans[dev] = build_plan(self.cfg, dataclasses.replace(self.mesh, device=dev))
+        return self._plans[dev]
 
     def _batched_step(self, k: int) -> Step:
         if k not in self._steps:
@@ -2054,12 +2190,33 @@ class BatchedLatticeRunner:
             if self.plan.kernel.form == registry.PLANAR:
                 self._steps[k] = raw  # the kernel takes the batch axis itself
             else:  # a plain torch variant: one call per lattice, no kernel
-                self._steps[k] = lambda a, b: torch.stack([raw(x, y) for x, y in zip(a, b)])
+                def per_lattice(a, b, out=None):
+                    c = torch.stack([raw(x, y) for x, y in zip(a, b)])
+                    return c if out is None else out.copy_(c)
+
+                self._steps[k] = per_lattice
         return self._steps[k]
 
-    def pack_batch(self, a: torch.Tensor) -> torch.Tensor:
-        """Canonical (B, n_sites, 4, 3, 3) complex -> batched physical form,
-        each lattice zero-padded to the plan's site capacity.
+    def _pack_parts(self, x: torch.Tensor, pack: Callable[[torch.Tensor], torch.Tensor]
+                    ) -> torch.Tensor | list[torch.Tensor]:
+        """``pack`` each lattice of this process's blocks of the batch ``x``
+        (zero lattices past its end) on the block's device, one tensor per
+        device run."""
+        x = torch.as_tensor(x)
+        parts = []
+        for part in dist_sharding.device_parts(self.blocks(x.shape[0])):
+            lo, hi, dev = part[0].lo, part[-1].hi, part[0].device
+            y = x[lo:min(hi, x.shape[0])].to(dev)
+            if y.shape[0] < hi - lo:
+                y = torch.cat([y, y.new_zeros((hi - lo - y.shape[0],) + tuple(y.shape[1:]))])
+            parts.append(torch.stack([pack(z) for z in y]).contiguous())
+        return parts[0] if len(parts) == 1 else parts
+
+    def pack_batch(self, a: torch.Tensor) -> torch.Tensor | list[torch.Tensor]:
+        """Canonical (B, n_sites, 4, 3, 3) complex -> this process's blocks
+        of the batch in physical form: the batch padded with zero lattices
+        to a multiple of ``n_devices``, each lattice zero-padded to the
+        plan's site capacity, each block on its device.
 
         Raises:
             ValueError: when a lattice carries more sites than the plan holds.
@@ -2069,33 +2226,77 @@ class BatchedLatticeRunner:
                 f"batch carries {a.shape[1]} sites > plan capacity "
                 f"{self.plan.padded_sites} (L={self.cfg.L}, tile={self.cfg.tile})"
             )
-        a = torch.as_tensor(a).to(self.device)
         pad = self.plan.padded_sites - a.shape[1]
+
+        def pack(x: torch.Tensor) -> torch.Tensor:
+            if pad:
+                x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+            return self.plan.codec.pack(x)
+
+        return self._pack_parts(a, pack)
+
+    def pack_lattice(self, a: torch.Tensor, device: torch.device | str) -> torch.Tensor:
+        """One canonical lattice (n_sites, 4, 3, 3) in physical form on
+        ``device``, zero-padded to the plan's site capacity."""
+        pad = self.plan.padded_sites - a.shape[0]
+        a = torch.as_tensor(a).to(device)
         if pad:
-            a = torch.cat([a, a.new_zeros((a.shape[0], pad) + tuple(a.shape[2:]))], dim=1)
-        return torch.stack([self.plan.codec.pack(x) for x in a]).contiguous()
+            a = torch.cat([a, a.new_zeros((pad,) + tuple(a.shape[1:]))])
+        return self.plan.codec.pack(a).contiguous()
 
-    def pack_b_batch(self, b: torch.Tensor) -> torch.Tensor:
-        """Canonical (B, 4, 3, 3) complex -> planar (B, 2, 36) words."""
-        b = torch.as_tensor(b).to(self.device)
-        return torch.stack([self.plan.codec.pack_b(x) for x in b]).contiguous()
+    def pack_b_batch(self, b: torch.Tensor) -> torch.Tensor | list[torch.Tensor]:
+        """Canonical (B, 4, 3, 3) complex -> planar (B', 2, 36) words, in
+        :meth:`pack_batch`'s blocks."""
+        return self._pack_parts(b, self.plan.codec.pack_b)
 
-    def unpack_batch(self, c_phys: torch.Tensor, n_sites: int | None = None) -> torch.Tensor:
+    def pack_vec_batch(self, v: torch.Tensor) -> torch.Tensor | list[torch.Tensor]:
+        """Canonical (B, n_sites, 3) vector fields -> planar (B', 2, 3,
+        padded_sites), in :meth:`pack_batch`'s blocks."""
+        return self._pack_parts(v, lambda x: self.plan.codec.pack_vec(x, self.plan.padded_sites))
+
+    def unpack_batch(self, c_phys: torch.Tensor | list[torch.Tensor],
+                     n_sites: int | None = None) -> torch.Tensor:
         """Batched physical -> canonical complex (B, n_sites, 4, 3, 3), a new
-        tensor (never a view of ``c_phys``)."""
+        tensor (never a view of ``c_phys``); a batch on several devices is
+        unpacked there and joined on the runner's device."""
         n = n_sites if n_sites is not None else self.cfg.shape.n_sites
-        return torch.stack([self.plan.codec.unpack(x, n) for x in c_phys])
+        return torch.stack([self.plan.codec.unpack(x, n).to(self.device)
+                            for part in _as_parts(c_phys) for x in part])
 
-    def run(self, a_batch: torch.Tensor, b_batch: torch.Tensor, k: int = 1) -> torch.Tensor:
-        """Batched physical (B, ...) x planar B (B, 2, 36) -> physical C
-        batch: one kernel launch chaining ``k`` multiplies per lattice."""
-        return self._batched_step(k)(a_batch, b_batch)
+    def run(self, a_batch: torch.Tensor | list[torch.Tensor],
+            b_batch: torch.Tensor | list[torch.Tensor], k: int = 1
+            ) -> torch.Tensor | list[torch.Tensor]:
+        """Batched physical A x planar B (B, 2, 36) -> physical C batch:
+        one kernel launch per block, chaining ``k`` multiplies per lattice.
+
+        Without a group a tensor of any batch size is padded to the device
+        count and the padding sliced off, as the reference's ``run`` does;
+        a list carries whole blocks, one tensor per device (``pack_batch``'s
+        form).  On ranks the arguments are this rank's blocks.
+        """
+        step = self._batched_step(k)
+        if isinstance(a_batch, torch.Tensor) and not self.plan.is_ranked:
+            bsz = a_batch.shape[0]
+            pad = self.padded(bsz) - bsz
+            if pad:
+                a_batch = torch.cat([a_batch, a_batch.new_zeros((pad,) + a_batch.shape[1:])])
+                b_batch = torch.cat([b_batch, b_batch.new_zeros((pad,) + b_batch.shape[1:])])
+            c = _launch_blocks(self.plan.lattice_batch_blocks(bsz + pad), step, False,
+                               a_batch, b_batch)
+            return c[:bsz] if pad else c
+        held = sum(x.shape[0] for x in _as_parts(a_batch))
+        blocks = self.plan.lattice_batch_blocks(held * self.plan.world)
+        return _launch_blocks(blocks, step, False, a_batch, b_batch)
 
     def multiply(self, a: torch.Tensor, b: torch.Tensor, k: int = 1) -> torch.Tensor:
-        """Canonical batched entry: a (B, S, 4, 3, 3), b (B, 4, 3, 3) complex."""
-        n_sites = a.shape[1]
-        c_phys = self.run(self.pack_batch(a), self.pack_b_batch(b), k=k)
-        return self.unpack_batch(c_phys, n_sites)
+        """Canonical batched entry: a (B, S, 4, 3, 3), b (B, 4, 3, 3)
+        complex -> the whole batch's C (B, S, 4, 3, 3) on the runner's
+        device (on every rank: one all-gather of the ranks' blocks)."""
+        bsz, n_sites = a.shape[0], a.shape[1]
+        c = self.unpack_batch(self.run(self.pack_batch(a), self.pack_b_batch(b), k=k), n_sites)
+        if self.plan.is_ranked:
+            c = torch.cat(self.plan.gather_ranks(c))
+        return c[:bsz] if c.shape[0] != bsz else c
 
 
 def _tensor_from_numpy(arr: np.ndarray, dtype: str, what: str) -> torch.Tensor:

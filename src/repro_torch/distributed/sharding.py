@@ -31,6 +31,13 @@ reference's host-major site spec over ``("hosts", "devices")``):
 contiguous sites, and :func:`t_peers` its -t and +t neighbour ranks.  The
 reference's ``lattice_site_spec`` (a ``PartitionSpec``) has no
 counterpart: nothing here partitions a tensor.
+
+A batch of whole lattices (request batches, megakernel slot tables) splits
+over the mesh's devices instead: :func:`lattice_batch_blocks` gives each mesh
+position, host-major, its contiguous range of lattices (the reference's
+``ExecutionPlan.lattice_batch_sharding``, read through
+``devices_indices_map``), and :func:`device_parts` groups consecutive blocks
+that share a device (one tensor holds them).
 """
 from __future__ import annotations
 
@@ -130,6 +137,60 @@ def rank_site_range(n_sites: int, hosts: int, world: int, rank: int) -> tuple[in
         raise ValueError(f"{n_sites} sites do not divide over {hosts} hosts")
     per = n_sites // hosts
     return slabs.start * per, slabs.stop * per
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchBlock:
+    """One mesh position's share of a whole-lattice batch.
+
+    Attributes:
+        index: the position in the mesh, host-major (``h * devices_per_host
+            + d``).
+        device: where the block's lattices live and its launch runs.
+        lo, hi: the block's lattices ``[lo, hi)`` of the whole batch.
+    """
+
+    index: int
+    device: Any
+    lo: int
+    hi: int
+
+
+def lattice_batch_blocks(mesh: Any, batch: int) -> list[BatchBlock]:
+    """A batch of ``batch`` whole lattices over ``mesh``'s ``n_devices``
+    positions, host-major: position ``i`` holds lattices ``[i * batch / n,
+    (i + 1) * batch / n)`` on ``mesh.devices``.  On a ranked mesh only the
+    rank's own positions (those of its slabs) are returned.
+
+    Args:
+        mesh: a ``SlabMesh`` (``n_devices``, ``devices``, ``rank``,
+            ``world``).
+        batch: the batch's lattice count, a multiple of ``n_devices``.
+
+    Raises:
+        ValueError: ``batch`` is not a positive multiple of ``n_devices``.
+    """
+    n = mesh.n_devices
+    if batch < 1 or batch % n:
+        raise ValueError(f"a batch of {batch} lattices does not split into whole lattices "
+                         f"over {n} devices: pad it to a multiple of {n}")
+    per, held = batch // n, n // mesh.world
+    first = mesh.rank * held
+    return [BatchBlock(first + j, mesh.devices[j], (first + j) * per, (first + j + 1) * per)
+            for j in range(held)]
+
+
+def device_parts(blocks: list[BatchBlock]) -> list[list[BatchBlock]]:
+    """``blocks`` grouped into runs of consecutive blocks on one device: one
+    tensor holds each run (the whole batch when every block shares a
+    device)."""
+    parts: list[list[BatchBlock]] = []
+    for blk in blocks:
+        if parts and parts[-1][-1].device == blk.device and parts[-1][-1].hi == blk.lo:
+            parts[-1].append(blk)
+        else:
+            parts.append([blk])
+    return parts
 
 
 def t_peers(rank: int, world: int) -> tuple[int, int]:

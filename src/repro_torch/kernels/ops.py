@@ -35,17 +35,19 @@ def su3_mult_planar(
     alias: bool = False,
     accum_dtype: str | None = None,
     compressed: bool = False,
+    out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Planar entry point: a SoA (2, 36|24, S) or AoSoA (S//T, 2, 36|24, T),
     b (2, 36).
 
     ``k_iters`` chains K multiplies in one launch; ``alias`` writes C into
-    A's storage; ``accum_dtype`` runs the chain at f32 over bf16 words;
-    ``compressed`` streams two-row gauge blocks.
+    A's storage, ``out`` into a given tensor; ``accum_dtype`` runs the
+    chain at f32 over bf16 words; ``compressed`` streams two-row gauge
+    blocks.
     """
     return su3_matmul.su3_mult_planar(
         a, b, tile=tile, k_iters=k_iters, alias=alias, accum_dtype=accum_dtype,
-        compressed=compressed,
+        compressed=compressed, out=out,
     )
 
 
@@ -68,14 +70,15 @@ def su3_mult_planar_batched(
     alias: bool = False,
     accum_dtype: str | None = None,
     compressed: bool = False,
+    out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Slot-batched entry: a physical slot table SoA (slots, 2, 36|24, S) or
     AoSoA (slots, S//T, 2, 36|24, T), b (slots, 2, 36), slot_k (slots,)
     int32 on a's device; slot s chains clamp(slot_k[s], 0, max_k)
-    multiplies in ONE launch (0 = pass-through)."""
+    multiplies in ONE launch (0 = pass-through), into ``out`` when given."""
     return su3_matmul.su3_mult_planar_batched(
         a, b, slot_k, tile=tile, max_k=max_k, alias=alias, accum_dtype=accum_dtype,
-        compressed=compressed,
+        compressed=compressed, out=out,
     )
 
 

@@ -287,6 +287,17 @@ def _check_contiguous(*operands: torch.Tensor) -> None:
         raise ValueError("the SU3 multiply kernels need contiguous operands")
 
 
+def _check_out(a: torch.Tensor, out: torch.Tensor | None, alias: bool) -> None:
+    if out is None:
+        return
+    if alias:
+        raise ValueError("pass alias (C into A) or out, not both")
+    if (out.shape != a.shape or out.dtype != a.dtype or out.device != a.device
+            or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous {tuple(a.shape)} {a.dtype} tensor on "
+                         f"{a.device}, got {tuple(out.shape)} {out.dtype} on {out.device}")
+
+
 def _plain_physical(
     a: torch.Tensor, b: torch.Tensor, k_iters: int, lane: int,
     accum_dtype: str | None, compressed: bool,
@@ -312,6 +323,7 @@ def su3_mult_planar(
     alias: bool = False,
     accum_dtype: str | None = None,
     compressed: bool = False,
+    out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Planar SU3 multiply, chained ``k_iters`` times in one launch.
 
@@ -320,9 +332,10 @@ def su3_mult_planar(
     ``tile``.  A batch of lattices — ``a`` with a leading batch axis and
     ``b`` of shape ``(B, 2, 36)``, one B per lattice — runs in ONE launch
     (the counterpart of the reference's ``vmap`` over this kernel).
-    ``alias`` writes C into A's storage and returns A.
-    ``accum_dtype="float32"`` runs the chain at f32 over bf16 words;
-    ``compressed`` streams two-row gauge blocks (rows = 24).
+    ``alias`` writes C into A's storage and returns A; ``out`` (shaped
+    like ``a``, on its device, contiguous) receives C instead of a new
+    tensor.  ``accum_dtype="float32"`` runs the chain at f32 over bf16
+    words; ``compressed`` streams two-row gauge blocks (rows = 24).
 
     A CUDA tensor goes to the kernel (or raises); a CPU tensor goes to the
     plain version; any other device raises.
@@ -339,10 +352,11 @@ def su3_mult_planar(
         raise ValueError(f"site count {n_sites} is not a multiple of tile {tile}")
     mode = _mode(a.dtype, accum_dtype)  # validates the storage dtype
     _check_b(a, b)
+    _check_out(a, out, alias)
 
     if a.device.type == "cuda":
         _check_contiguous(a, b)
-        out = a if alias else torch.empty_like(a)
+        out = a if alias else (torch.empty_like(a) if out is None else out)
         lib = _library()
         with torch.cuda.device(a.device):
             stream = torch.cuda.current_stream(a.device).cuda_stream
@@ -362,7 +376,7 @@ def su3_mult_planar(
         c = _plain_physical(a, b, k_iters, lane, accum_dtype, compressed)
     if alias:
         return a.copy_(c)
-    return c.contiguous()
+    return c.contiguous() if out is None else out.copy_(c)
 
 
 def su3_mult_planar_batched_plain(
@@ -396,6 +410,7 @@ def su3_mult_planar_batched(
     alias: bool = False,
     accum_dtype: str | None = None,
     compressed: bool = False,
+    out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """The serving megakernel: ONE launch over a whole slot table.
 
@@ -405,7 +420,9 @@ def su3_mult_planar_batched(
     a's device.  Slot ``s`` chains ``clamp(slot_k[s], 0, max_k)``
     multiplies; depth 0 passes it through.  The kernel reads ``slot_k`` on
     the device, so a launch costs no host round trip.  ``alias`` writes C
-    into A's storage (a dead slot is then not touched at all).
+    into A's storage (a dead slot is then not touched at all); ``out``
+    (shaped like ``a``, on its device, contiguous) receives C instead of a
+    new tensor.
 
     A CUDA tensor goes to the kernel (or raises); a CPU tensor goes to the
     plain version; any other device raises.
@@ -423,13 +440,14 @@ def su3_mult_planar_batched(
         raise ValueError(f"max_k must be >= 1, got {max_k}")
     mode = _mode(a.dtype, accum_dtype, "su3_mult_planar_batched")
     _check_b(a, b)
+    _check_out(a, out, alias)
 
     if a.device.type == "cuda":
         if slot_k.dtype != torch.int32 or slot_k.device != a.device:
             raise ValueError(f"slot_k must be int32 on {a.device}, got {slot_k.dtype} "
                              f"on {slot_k.device}")
         _check_contiguous(a, b, slot_k)
-        out = a if alias else torch.empty_like(a)
+        out = a if alias else (torch.empty_like(a) if out is None else out)
         lib = _library()
         with torch.cuda.device(a.device):
             stream = torch.cuda.current_stream(a.device).cuda_stream
@@ -446,4 +464,4 @@ def su3_mult_planar_batched(
                                       compressed=compressed)
     if alias:
         return a.copy_(c)
-    return c
+    return c if out is None else out.copy_(c)

@@ -29,6 +29,15 @@ contiguous slabs ``r * hosts // world ...`` and holds only those, on its
 own card; the plan exchanges the +-t faces between ranks point to point.
 ``devices_per_host`` keeps its meaning on each rank's card.
 
+A mesh's :attr:`SlabMesh.devices` are the devices its whole-lattice batch
+blocks run on (``distributed.sharding.lattice_batch_blocks``: request
+batches and megakernel slot tables, one block of whole lattices per mesh
+position, host-major).  Without a group that is every position: the
+process's first ``n_devices`` cards when it sees that many and was given no
+device index, else the one device repeated, as the reference oversubscribes
+a short pool (``resolve(devices=...)`` names them explicitly).  A ranked
+mesh keeps one card per rank: its positions all name it.
+
 :func:`host_devices` and :func:`host_submesh` are the reference's per-host
 device blocks over a list of ``torch.device`` objects (the process's cards by
 default): host ``h`` owns the contiguous block ``devices[h * dph : (h + 1)
@@ -163,12 +172,17 @@ class SlabMesh:
 
     Attributes:
         hosts: slab count (1 = the single-slab plan).
-        devices_per_host: simulated devices per slab; all share ``device``.
+        devices_per_host: devices per slab: the lattice's sites stay on
+            ``device``; whole-lattice batch blocks go to ``devices``.
         device: the card (or the CPU) that holds this process's slabs.
         rank, world: this process's rank in ``group`` and the group's size
             (0 and 1 without a group).
         group: the process group the slabs are spread over; ``None`` keeps
             every slab in this process (the one-process plan).
+        devices: the devices of the mesh positions this process holds,
+            host-major: ``n_devices`` of them without a group, ``n_devices
+            // world`` (this rank's card each) on ranks; empty means
+            ``device`` repeated.
     """
 
     hosts: int
@@ -177,9 +191,19 @@ class SlabMesh:
     rank: int = 0
     world: int = 1
     group: Any = dataclasses.field(default=None, compare=False, repr=False)
+    devices: tuple = ()
 
     def __post_init__(self) -> None:
         rank_slabs(self.rank, self.hosts, self.world)  # refuses an uneven split
+        held = self.n_devices // self.world
+        devices = tuple(torch.device(d) for d in self.devices) or (self.device,) * held
+        if len(devices) != held:
+            raise ValueError(f"a mesh of {self.n_devices} devices over {self.world} "
+                             f"process(es) holds {held} here, got {len(devices)} devices")
+        if self.is_ranked and any(d != self.device for d in devices):
+            raise ValueError(f"a ranked mesh keeps one card per rank ({self.device}), "
+                             f"got {devices}")
+        object.__setattr__(self, "devices", devices)
 
     @property
     def n_devices(self) -> int:
@@ -243,16 +267,23 @@ class MeshSpec:
         return self.devices_per_host or 1
 
     def resolve(self, device: torch.device | str | None = None, *,
-                group: Any = None) -> SlabMesh:
+                group: Any = None, devices: list | None = None) -> SlabMesh:
         """The slab mesh on ``device``: ``None`` is the CUDA device (raises
         without CUDA); pass ``"cpu"`` for the plain versions.
 
-        With a running process group (or an explicit ``group``) the mesh is
-        ranked: this process's rank owns ``hosts // world`` slabs, on its
-        own card (the current CUDA device; NCCL) or on the CPU (gloo).
+        Without a group the mesh's batch blocks run on ``devices`` (its
+        first ``n_devices``): by default the process's first ``n_devices``
+        cards when ``device`` is the card with no index and the process sees
+        that many, else ``device`` repeated (the reference's
+        oversubscription).  With a running process group (or an explicit
+        ``group``) the mesh is ranked: this process's rank owns ``hosts //
+        world`` slabs, on its own card (the current CUDA device; NCCL) or on
+        the CPU (gloo), and so do its batch blocks.
 
         Raises:
-            ValueError: ``hosts`` is not a multiple of the world's size.
+            ValueError: ``hosts`` is not a multiple of the world's size;
+                ``devices`` holds fewer than ``n_devices``, or is given to a
+                ranked mesh.
             RuntimeError: the group's backend is not the device's (a card
                 needs NCCL, the CPU gloo).
         """
@@ -262,8 +293,18 @@ class MeshSpec:
         dist = torch.distributed
         if group is None and dist.is_available() and dist.is_initialized():
             group = dist.group.WORLD
+        n = self.hosts * self._dph
         if group is None:
-            return SlabMesh(self.hosts, self._dph, dev)
+            if devices is None and dev.type == "cuda" and dev.index is None and n > 1:
+                cards = _cards()
+                devices = cards if len(cards) >= n else None
+            if devices is not None and len(devices) < n:
+                raise ValueError(f"MeshSpec(hosts={self.hosts}, devices_per_host={self._dph}) "
+                                 f"needs {n} devices, got {len(devices)}")
+            return SlabMesh(self.hosts, self._dph, dev,
+                            devices=tuple(devices[:n]) if devices is not None else ())
+        if devices is not None:
+            raise ValueError("a ranked mesh keeps one card per rank: pass no device list")
         backend = dist.get_backend(group)
         if dev.type not in _BACKENDS or backend != _BACKENDS[dev.type]:
             raise RuntimeError(f"slabs on {dev.type} ranks need "
@@ -302,11 +343,12 @@ class MeshSpec:
         return devices[:dph]
 
     def host_submesh(self, host: int, devices: list | None = None) -> SlabMesh:
-        """The one-slab mesh of ``host``'s block: its runners plan on the
-        block's first device, and ``devices_per_host`` counts the block
-        (the reference's 1-D ``("sites",)`` mesh over it)."""
-        block = self.host_devices(host, devices)
-        return SlabMesh(1, len(block), torch.device(block[0]))
+        """The one-slab mesh of ``host``'s block (the reference's 1-D
+        ``("sites",)`` mesh over it): its runners plan on the block's first
+        device, ``devices_per_host`` counts the block, and their batch
+        blocks run on every device of it."""
+        block = [torch.device(d) for d in self.host_devices(host, devices)]
+        return SlabMesh(1, len(block), block[0], devices=tuple(block))
 
     @property
     def is_multi_host(self) -> bool:

@@ -14,15 +14,16 @@ the service adds the queueing discipline and the warm-pool policy):
           ▼
     per-host warm pool:
           {(host, L, dtype, layout, tile) -> BatchedLatticeRunner}
-          │  host h's runners plan on its block of the process's cards
-          │  (``MeshSpec.host_devices(h)``: its own card when the process
-          │  sees at least ``hosts`` cards, the head of the list, as the
+          │  host h's runners plan on its block of the service's devices
+          │  (``MeshSpec.host_submesh(h)``: its own cards when the process
+          │  sees at least ``hosts`` of them, the head of the list, as the
           │  reference oversubscribes a short pool, when it does not), and
           │  are built through the persistent autotune cache: the FIRST
           │  request for an (L, dtype) pays the tile/K sweep, every later
           │  request hits the warm plan
           ▼
-    one batched kernel launch (optionally bf16-storage/f32-accumulate)
+    one batched kernel launch per device of the host's block, whole
+    lattices each (optionally bf16-storage/f32-accumulate)
           │
           ▼
     split + unpad per request  ->  results keyed by request id
@@ -102,6 +103,7 @@ from repro_torch.core.su3.plan import (
     CGDivergedError,
     EngineConfig,
 )
+from repro_torch.distributed.sharding import BatchBlock, device_parts
 from repro_torch.kernels.su3_stencil import (
     CG_ITER_FLOPS_PER_SITE,
     STENCIL_FLOPS_PER_SITE,
@@ -146,10 +148,16 @@ from repro_torch.serve.su3.tenancy import (
 DEFAULT_TILE = 128  # small enough that every L >= 2 bucket is a few tiles
 
 
-def _sync(x: torch.Tensor) -> None:
+def _parts(x: torch.Tensor | list[torch.Tensor]) -> list[torch.Tensor]:
+    """A batch's tensors: one, or one per device it lies on."""
+    return [x] if isinstance(x, torch.Tensor) else list(x)
+
+
+def _sync(x: torch.Tensor | list[torch.Tensor]) -> None:
     """Wait for the work that produced ``x`` (a no-op on the CPU)."""
-    if x.device.type == "cuda":
-        torch.cuda.synchronize(x.device)
+    for t in _parts(x):
+        if t.device.type == "cuda":
+            torch.cuda.synchronize(t.device)
 
 # Chrome-trace lane assignment: dispatch spans ride the host's lane so one
 # timeline row per host shows the dispatch cadence; request-lifecycle spans
@@ -188,12 +196,13 @@ class ServiceConfig:
         hosts: split the warm pool over this many LOGICAL hosts; requests
             route to an L's home host (sticky locality routing) and each
             host has its own batcher, chains and slot table.  Host ``h``
-            runs on the first device of ``MeshSpec(hosts).host_devices(h)``
-            over the service's device pool: its own card when the process
-            sees at least ``hosts`` cards; on fewer (one card, or the CPU)
-            every host shares the first — the reference's oversubscription
-            of a short pool: the routing/batching semantics are identical,
-            only physical placement collapses.
+            runs on ``MeshSpec(hosts).host_devices(h)`` of the service's
+            device pool, whole lattices per device: its own cards when the
+            pool holds at least ``hosts`` devices; on fewer (one card, or
+            the CPU) every host shares the head of the pool — the
+            reference's oversubscription of a short pool: the
+            routing/batching semantics are identical, only physical
+            placement collapses.
         continuous: continuous-batching dispatch (iteration-boundary
             admission into in-flight chains) instead of batch-per-step.
         chain_slots: slots per in-flight chain (continuous mode);
@@ -329,53 +338,87 @@ class ServiceConfig:
             )
 
 
-class _ChainArrays:
-    """Device-array half of one in-flight chain (scheduling half:
-    :class:`~repro_torch.serve.su3.batcher.InflightChain`).
+class _TableArrays:
+    """Device-array half of a table of ``slots`` lattice slots, split into
+    the runner's batch blocks: one tensor per device run of blocks
+    (``a_parts`` physical lattices, ``b_parts`` planar B's).  Seating a
+    request writes its slot on the device that owns it; free slots carry
+    zero lattices."""
 
-    Holds the physical lattice batch ``a_phys (slots, ...)`` and planar B
-    batch ``b_p (slots, 2, 36)``; free slots carry zero lattices (they step
-    harmlessly and are charged as padding by the metrics).
-    """
-
-    def __init__(self, runner: BatchedLatticeRunner, slots: int):
+    def __init__(self, runner: BatchedLatticeRunner, blocks: list[BatchBlock]):
         self.runner = runner
         plan = runner.plan
-        self.a_phys = torch.zeros((slots,) + plan.codec.phys_shape(plan.padded_sites),
-                                  dtype=plan.codec.word_dtype, device=plan.device)
-        self.b_p = torch.zeros((slots, 2, 36), dtype=plan.codec.word_dtype,
-                               device=plan.device)
+        self.parts = device_parts(blocks)
+        shape = plan.codec.phys_shape(plan.padded_sites)
+        self.a_parts = [torch.zeros((p[-1].hi - p[0].lo,) + shape, dtype=plan.codec.word_dtype,
+                                    device=p[0].device) for p in self.parts]
+        self.b_parts = [torch.zeros((p[-1].hi - p[0].lo, 2, 36), dtype=plan.codec.word_dtype,
+                                    device=p[0].device) for p in self.parts]
+
+    @property
+    def a_phys(self) -> torch.Tensor:
+        """The physical table as one tensor (its blocks share a device).
+
+        Raises:
+            ValueError: the table lies on several devices (read ``a_parts``).
+        """
+        if len(self.a_parts) != 1:
+            raise ValueError(f"the table lies on {len(self.a_parts)} devices: read a_parts")
+        return self.a_parts[0]
+
+    def _locate(self, slot: int) -> tuple[int, int]:
+        for j, p in enumerate(self.parts):
+            if p[0].lo <= slot < p[-1].hi:
+                return j, slot - p[0].lo
+        raise IndexError(f"slot {slot} out of range")
 
     def seat(self, slot: int, a: torch.Tensor, b: torch.Tensor) -> None:
-        """Pack one request's canonical (A, B) into ``slot`` (in place)."""
-        self.a_phys[slot] = self.runner.pack_batch(a[None])[0]
-        self.b_p[slot] = self.runner.plan.codec.pack_b(b.to(self.b_p.device))
-
-    def advance(self) -> None:
-        """One multiply-kernel launch over every slot (k=1), into a NEW
-        table: the old one stays intact for a rollback."""
-        self.a_phys = self.runner.run(self.a_phys, self.b_p, k=1)
+        """Pack one request's canonical (A, B) into ``slot`` on its device
+        (in place), zero-padding its sites up to the table's capacity."""
+        j, i = self._locate(slot)
+        dev = self.parts[j][0].device
+        self.a_parts[j][i] = self.runner.pack_lattice(a, dev)
+        self.b_parts[j][i] = self.runner.plan.codec.pack_b(b.to(dev))
 
     def result(self, slot: int, n_sites: int) -> torch.Tensor:
         """Canonical complex C of ``slot``, sliced to the live sites (a new
         tensor, not a view of the table)."""
-        return self.runner.plan.codec.unpack(self.a_phys[slot], n_sites)
+        j, i = self._locate(slot)
+        return self.runner.plan.codec.unpack(self.a_parts[j][i], n_sites)
 
     def clear(self, slot: int) -> None:
         """Zero a freed slot (its stale lattice would otherwise keep
         stepping and confuse a later occupant's first iteration)."""
-        self.a_phys[slot].zero_()
-        self.b_p[slot].zero_()
+        j, i = self._locate(slot)
+        self.a_parts[j][i].zero_()
+        self.b_parts[j][i].zero_()
 
 
-class _SlotTableArrays:
+class _ChainArrays(_TableArrays):
+    """Device-array half of one in-flight chain (scheduling half:
+    :class:`~repro_torch.serve.su3.batcher.InflightChain`): ``slots``
+    slots padded to the runner's device count, as its ``run`` pads a
+    batch (the padding slots are never seated)."""
+
+    def __init__(self, runner: BatchedLatticeRunner, slots: int):
+        super().__init__(runner, runner.blocks(slots))
+
+    def advance(self) -> None:
+        """One multiply-kernel launch per block (k=1), into NEW tensors:
+        the old table stays intact for a rollback."""
+        self.a_parts = self.runner.run(self.a_parts, self.b_parts, k=1)
+
+
+class _SlotTableArrays(_TableArrays):
     """Device-array half of one host's megakernel slot table (scheduling
     half: :class:`~repro_torch.serve.su3.batcher.SlotTable`).
 
     Every slot is padded to ``cap_L``'s site capacity, so requests of ANY
     L <= cap_L share the one dispatched shape; the whole table advances in
-    ONE ``fused_batched_step`` launch with per-slot chain depths.  Dead
-    slots carry zero lattices and depth 0 (the kernel passes them through).
+    ONE ``fused_batched_step`` launch per block (whole lattices per device
+    of the host's block when ``slots`` divides over it) with per-slot chain
+    depths.  Dead slots carry zero lattices and depth 0 (the kernel passes
+    them through).
 
     ``in_place`` lets the kernel write the table in place; a service that
     must roll back after a bad dispatch builds its tables with
@@ -384,41 +427,25 @@ class _SlotTableArrays:
 
     def __init__(self, runner: BatchedLatticeRunner, slots: int, max_k: int,
                  in_place: bool = True):
-        self.runner = runner
+        super().__init__(runner, runner.plan.slot_table_blocks(slots))
         self.slots = slots
         self.max_k = max_k
         self.cap_L = runner.cfg.L
-        plan = runner.plan
-        self.a_phys = torch.zeros((slots,) + plan.codec.phys_shape(plan.padded_sites),
-                                  dtype=plan.codec.word_dtype, device=plan.device)
-        self.b_p = torch.zeros((slots, 2, 36), dtype=plan.codec.word_dtype,
-                               device=plan.device)
-        self._step = plan.fused_batched_step(slots, max_k=max_k, alias=in_place)
-
-    def seat(self, slot: int, a: torch.Tensor, b: torch.Tensor) -> None:
-        """Pack one request's canonical (A, B) into ``slot`` (in place),
-        zero-padding its sites up to the table's capacity."""
-        self.a_phys[slot] = self.runner.pack_batch(a[None])[0]
-        self.b_p[slot] = self.runner.plan.codec.pack_b(b.to(self.b_p.device))
+        self._step = runner.plan.fused_batched_step(slots, max_k=max_k, alias=in_place)
 
     def advance(self, slot_k: list[int]) -> None:
-        """ONE megakernel launch: slot ``i`` advances ``slot_k[i]``
-        multiplies in-kernel (0 = pass-through).  The depths go to the card
-        from pinned memory without a host sync (the caching host allocator
-        keeps the pinned block until the copy has run)."""
-        dev = self.a_phys.device
-        ks = torch.tensor(slot_k, dtype=torch.int32, pin_memory=dev.type == "cuda")
-        self.a_phys = self._step(self.a_phys, self.b_p, ks.to(dev, non_blocking=True))
-
-    def result(self, slot: int, n_sites: int) -> torch.Tensor:
-        """Canonical complex C of ``slot``, sliced to the live sites (a new
-        tensor, not a view of the table)."""
-        return self.runner.plan.codec.unpack(self.a_phys[slot], n_sites)
-
-    def clear(self, slot: int) -> None:
-        """Zero a freed slot."""
-        self.a_phys[slot].zero_()
-        self.b_p[slot].zero_()
+        """ONE megakernel launch per block: slot ``i`` advances
+        ``slot_k[i]`` multiplies in-kernel (0 = pass-through).  The depths
+        go to each block's card from pinned memory without a host sync (the
+        caching host allocator keeps the pinned block until the copy has
+        run)."""
+        ks = []
+        for p, a in zip(self.parts, self.a_parts):
+            dev = a.device
+            k = torch.tensor(slot_k[p[0].lo:p[-1].hi], dtype=torch.int32,
+                             pin_memory=dev.type == "cuda")
+            ks.append(k.to(dev, non_blocking=True))
+        self.a_parts = self._step(self.a_parts, self.b_parts, ks)
 
 
 class SU3Service:
@@ -426,12 +453,14 @@ class SU3Service:
 
     Args:
         cfg: the :class:`ServiceConfig` serving tuple.
-        device: ``"cuda"`` (which must exist): the process's cards, host
-            ``h``'s runners on ``MeshSpec(hosts).host_devices(h)``'s first;
-            one named card (``"cuda:1"``) that every host shares; or
-            ``"cpu"``, where the kernels' plain versions run.  Request
+        device: the device pool: ``"cuda"`` (which must exist), the
+            process's cards, host ``h``'s runners on
+            ``MeshSpec(hosts).host_devices(h)`` of them; one named card
+            (``"cuda:1"``) that every host shares; ``"cpu"``, where the
+            kernels' plain versions run; or a list of devices (a card
+            repeated oversubscribes it, as the reference does).  Request
             operands land on :attr:`device` (the pool's first device) and
-            move to their host's card at dispatch.
+            move to the devices of their host's block at dispatch.
         tracer: optional :class:`repro_torch.obs.Tracer` recording the request
             lifecycle (admit → queue wait → seat → dispatch → complete) and
             per-dispatch spans.  Defaults to the shared disabled tracer —
@@ -440,21 +469,29 @@ class SU3Service:
     """
 
     def __init__(self, cfg: ServiceConfig | None = None,
-                 device: torch.device | str = "cuda",
+                 device: torch.device | str | list = "cuda",
                  tracer: Tracer | None = None):
         self.cfg = cfg if cfg is not None else ServiceConfig()
         self.tracer = tracer if tracer is not None else NULL_TRACER
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
+        if isinstance(device, (list, tuple)):
+            pool = [torch.device(d) for d in device]
+            if not pool:
+                raise ValueError("the device pool is empty")
+        else:
+            pool = [torch.device(device)]
+        self.device = pool[0]
+        if any(d.type == "cuda" for d in pool) and not torch.cuda.is_available():
             raise RuntimeError(
                 "CUDA is not available; pass device='cpu' to serve with the "
                 "kernels' plain versions on the CPU"
             )
-        pool = [self.device]
-        if self.device.type == "cuda" and self.device.index is None:
+        if len(pool) == 1 and self.device.type == "cuda" and self.device.index is None:
             pool = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-        spec = MeshSpec(hosts=self.cfg.hosts)
-        self.host_devices = [spec.host_devices(h, pool)[0] for h in range(self.cfg.hosts)]
+        self._spec, self._pool_devices = MeshSpec(hosts=self.cfg.hosts), pool
+        # host h's block of the pool (whole lattices per device) and its
+        # lead device, where its solves and request operands go
+        self.host_blocks = [self._spec.host_devices(h, pool) for h in range(self.cfg.hosts)]
+        self.host_devices = [block[0] for block in self.host_blocks]
         self.device = self.host_devices[0] if self.device.type == "cuda" else self.device
         self.router = LocalityRouter(self.cfg.hosts)
         self._batchers = [
@@ -571,7 +608,8 @@ class SU3Service:
                                           seq=f.seq, host=host, L=L)
                     if self.health.record_failure(host, "pool-build"):
                         self._quarantine(host)
-            runner = BatchedLatticeRunner(ecfg, self.host_devices[host])
+            runner = BatchedLatticeRunner(
+                ecfg, self._spec.host_submesh(host, self._pool_devices))
             self._pool[key] = runner
         return runner
 
@@ -642,14 +680,11 @@ class SU3Service:
                     _sync(runner.multiply(a, b, k=k))
                     self._seen_shapes.add(self._shape_key(runner, L, k, bsz))
                 if stencil:
-                    plan = runner.plan
                     host = self.router.host_for(L)
-                    u_phys = runner.pack_batch(a)
                     v = torch.zeros((bsz, n_sites, 3), dtype=torch.complex64, device=dev)
-                    v_p = torch.stack([plan.codec.pack_vec(x, plan.padded_sites) for x in v])
                     step = self._stencil_step_for(runner, host, L)
-                    _sync(step(u_phys, v_p))
-                    self._seen_shapes.add(("stencil", L, bsz))
+                    _sync(step(runner.pack_batch(a), runner.pack_vec_batch(v)))
+                    self._seen_shapes.add(("stencil", L, runner.padded(bsz)))
             if self.cfg.megakernel:
                 # per-slot depths are data, so ONE table shape at this
                 # capacity serves every (k mix, admission pattern)
@@ -657,12 +692,12 @@ class SU3Service:
                 arrays = _SlotTableArrays(runner, slots, max_k=self.cfg.chain_horizon,
                                           in_place=not self._guarded)
                 arrays.advance([0] * slots)
-                _sync(arrays.a_phys)
+                _sync(arrays.a_parts)
                 self._seen_shapes.add(("mega", L, slots, self.cfg.chain_horizon))
             elif self.cfg.continuous:
                 arrays = _ChainArrays(runner, self._chain_slots())
                 arrays.advance()
-                _sync(arrays.a_phys)
+                _sync(arrays.a_parts)
                 self._seen_shapes.add(
                     self._shape_key(runner, L, 1, self._chain_slots())
                 )
@@ -670,9 +705,9 @@ class SU3Service:
     @staticmethod
     def _shape_key(runner: BatchedLatticeRunner, L: int, k: int, bsz: int) -> tuple:
         """Dispatch-shape identity (a shape seen before is "warm"): the
-        reference pads the batch to a device multiple; on one card
-        ``n_devices`` is 1 and the batch size stands."""
-        return (L, k, bsz + (-bsz) % runner.n_devices)
+        batch padded to a multiple of the host's devices, as the reference
+        pads it."""
+        return (L, k, runner.padded(bsz))
 
     # -- tracing -------------------------------------------------------------
 
@@ -1035,8 +1070,8 @@ class SU3Service:
     # -- failure lifecycle ---------------------------------------------------------
 
     @staticmethod
-    def _finite(x: torch.Tensor) -> bool:
-        return bool(torch.isfinite(x).all().item())
+    def _finite(x: torch.Tensor | list[torch.Tensor]) -> bool:
+        return all(bool(torch.isfinite(t).all().item()) for t in _parts(x))
 
     def _fail(self, req: ServeRequest, err: Exception) -> None:
         """Deliver a structured failure through the result channel: a
@@ -1235,10 +1270,12 @@ class SU3Service:
             return None
         return f
 
-    def _poison_output(self, x: torch.Tensor, host: int, kind: str) -> torch.Tensor:
+    def _poison_output(self, x: torch.Tensor | list[torch.Tensor], host: int,
+                       kind: str) -> torch.Tensor | list[torch.Tensor]:
         """Consult the ``kernel`` seam; a fired fault poisons the dispatch
-        output with NaN/Inf for the finiteness guard to catch (in a new
-        tensor: ``x`` stays as the kernel wrote it)."""
+        output (its first device's tensor, for a batch on several) with
+        NaN/Inf for the finiteness guard to catch (in a new tensor: ``x``
+        stays as the kernel wrote it)."""
         f = self.faults.ask("kernel", host=host, kind=kind)
         if f is None:
             return x
@@ -1247,7 +1284,9 @@ class SU3Service:
             self.tracer.event(
                 "chaos.fault", lane=host, site="kernel", action=f.action,
                 seq=f.seq, host=host, kind=kind)
-        return poison_array(x, f.action)
+        if isinstance(x, torch.Tensor):
+            return poison_array(x, f.action)
+        return [poison_array(x[0], f.action), *x[1:]]
 
     def _host_busy(self, host: int) -> bool:
         """A live seat on ``host``: the active solve, a live chain, or a
@@ -1501,17 +1540,28 @@ class SU3Service:
         """The host's batched stencil dispatch for L — built once per
         warm-pool entry from the plan's reference stencil
         (``plan.raw_stencil_reference()``: the neighbour gather, then ONE
-        stencil kernel launch).  The stencil kernel has no batch axis, so
-        the batch runs one gather and one launch per lattice, each into a
-        fresh output."""
+        stencil kernel launch).  The batch comes in the runner's blocks
+        (``pack_batch`` / ``pack_vec_batch``: whole lattices per device of
+        the host's block) and each lattice runs on its block's device,
+        through the runner's plan there.  The stencil kernel has no batch
+        axis, so the batch runs one gather and one launch per lattice, each
+        into a fresh output."""
         ecfg = runner.cfg
         key = (host, L, ecfg.dtype, ecfg.layout.value, ecfg.tile, ecfg.compression)
         step = self._stencil_steps.get(key)
         if step is None:
-            one = runner.plan.raw_stencil_reference()
+            refs: dict[torch.device, Any] = {}
 
-            def step(u_phys: torch.Tensor, v_p: torch.Tensor) -> torch.Tensor:
-                return torch.stack([one(u, v) for u, v in zip(u_phys, v_p)])
+            def step(u_phys, v_p):
+                held = sum(x.shape[0] for x in _parts(u_phys))
+                outs = []
+                for part, us, vs in zip(device_parts(runner.blocks(held)), _parts(u_phys),
+                                        _parts(v_p)):
+                    dev = part[0].device
+                    if dev not in refs:
+                        refs[dev] = runner.plan_on(dev).raw_stencil_reference()
+                    outs.append(torch.stack([refs[dev](u, v) for u, v in zip(us, vs)]))
+                return outs[0] if isinstance(u_phys, torch.Tensor) else outs
 
             self._stencil_steps[key] = step
         return step
@@ -1536,16 +1586,17 @@ class SU3Service:
                     self._quarantine(host)
                 return 0
         # warm-size padding (the batcher's warm shapes) + device-multiple
-        # padding (none on one card: n_devices is 1)
-        dispatched = batch.padded_size + (-batch.padded_size) % runner.n_devices
-        pad = dispatched - len(reqs)
+        # padding (whole lattices per device of the host's block; pack_batch
+        # pads to it)
+        dispatched = runner.padded(batch.padded_size)
+        pad = batch.padded_size - len(reqs)
         u = torch.stack([r.a for r in reqs])
         v = torch.stack([r.b for r in reqs])
         if pad:
             u = torch.cat([u, u.new_zeros((pad,) + tuple(u.shape[1:]))])
             v = torch.cat([v, v.new_zeros((pad,) + tuple(v.shape[1:]))])
         u_phys = runner.pack_batch(u)
-        v_p = torch.stack([plan.codec.pack_vec(x, plan.padded_sites) for x in v.to(plan.device)])
+        v_p = runner.pack_vec_batch(v)
         step = self._stencil_step_for(runner, host, batch.L)
         shape_key = ("stencil", batch.L, dispatched)
         cold = shape_key not in self._seen_shapes
@@ -1578,8 +1629,9 @@ class SU3Service:
                 flops=float(STENCIL_FLOPS_PER_SITE) * n_sites * len(reqs),
                 cold=cold)
         done_s = time.perf_counter()
+        outs = [x for part in _parts(out_p) for x in part]
         for i, r in enumerate(reqs):
-            self._results[r.req_id] = plan.codec.unpack_vec(out_p[i], n_sites)
+            self._results[r.req_id] = plan.codec.unpack_vec(outs[i], n_sites)
             self.metrics.record_completion(
                 done_s - r.arrival_s, tenant=r.tenant, slo=r.slo)
             if self.tracer.enabled:
@@ -1826,18 +1878,18 @@ class SU3Service:
             cold = shape_key not in self._seen_shapes
             live = chain.live
             t0 = time.perf_counter()
-            prev_a = arrays.a_phys  # advance() writes a new table
+            prev_a = arrays.a_parts  # advance() writes a new table
             arrays.advance()
             if self.faults.enabled:
-                arrays.a_phys = self._poison_output(
-                    arrays.a_phys, host, "multiply")
-            _sync(arrays.a_phys)
+                arrays.a_parts = self._poison_output(
+                    arrays.a_parts, host, "multiply")
+            _sync(arrays.a_parts)
             step_s = time.perf_counter() - t0
             if (self.faults.enabled or self.cfg.numerics_guard) \
-                    and not self._finite(arrays.a_phys):
+                    and not self._finite(arrays.a_parts):
                 # roll the chain state back: the retried advance re-runs
                 # from the same iterate, bitwise clean
-                arrays.a_phys = prev_a
+                arrays.a_parts = prev_a
                 quarantined = self.health.record_failure(
                     host, "non-finite output")
                 self._charge_seated(
@@ -1968,7 +2020,7 @@ class SU3Service:
             t0 = time.perf_counter()
             # with a fault plan or the guard armed the table is written out
             # of place (in_place=False), so prev_a survives the launch
-            prev_a = arrays.a_phys
+            prev_a = arrays.a_parts
             if degraded:
                 for slot, req, _rem in occupants:
                     if not ks[slot]:
@@ -1980,13 +2032,13 @@ class SU3Service:
             else:
                 arrays.advance(ks)
                 if self.faults.enabled:
-                    arrays.a_phys = self._poison_output(
-                        arrays.a_phys, host, "multiply")
-            _sync(arrays.a_phys)
+                    arrays.a_parts = self._poison_output(
+                        arrays.a_parts, host, "multiply")
+            _sync(arrays.a_parts)
             step_s = time.perf_counter() - t0
             if not degraded and (self.faults.enabled or self.cfg.numerics_guard) \
-                    and not self._finite(arrays.a_phys):
-                arrays.a_phys = prev_a  # retried advance is bitwise clean
+                    and not self._finite(arrays.a_parts):
+                arrays.a_parts = prev_a  # retried advance is bitwise clean
                 quarantined = self.health.record_failure(
                     host, "non-finite output")
                 self._charge_seated(

@@ -1700,3 +1700,83 @@ def test_cuda_ranked_slabs_of_one_nccl_rank_equal_one_process(cuda_device, tmp_p
     assert launched == {su3_matmul.LAUNCHES.name: 2,
                         su3_stencil.STENCIL_LAUNCHES.name: 2 + 5 + 1 + 2 + 2 * dispatched,
                         su3_stencil.CG_LAUNCHES.name: 2 * dispatched}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alias", [False, True])
+def test_cuda_multiply_kernels_write_into_a_given_output(cuda_device, alias):
+    """``out=`` takes C in a given tensor (a block's rows of a batch) with
+    the bits of a fresh output; ``alias`` and ``out`` are refused together."""
+    a, b = (x.to(cuda_device) for x in _inputs("float32", False, 40))
+    batch = torch.stack([a, torch.roll(a, 7, -1), torch.roll(a, 13, -1)]).contiguous()
+    bs = torch.stack([b, b, b]).contiguous()
+    ks = torch.tensor([0, 2, 3], dtype=torch.int32, device=cuda_device)
+    want = su3_matmul.su3_mult_planar(batch, bs, tile=64, k_iters=2)
+    want_mega = su3_matmul.su3_mult_planar_batched(batch, bs, ks, tile=64, max_k=4)
+    out, out_mega = torch.empty_like(batch), torch.empty_like(batch)
+    for lo, hi in ((0, 1), (1, 3)):  # two blocks' rows
+        su3_matmul.su3_mult_planar(batch[lo:hi], bs[lo:hi], tile=64, k_iters=2,
+                                   out=out[lo:hi])
+        su3_matmul.su3_mult_planar_batched(batch[lo:hi], bs[lo:hi], ks[lo:hi], tile=64,
+                                           max_k=4, out=out_mega[lo:hi])
+    torch.cuda.synchronize()
+    assert torch.equal(out, want) and torch.equal(out_mega, want_mega)
+    if alias:
+        with pytest.raises(ValueError, match="not both"):
+            su3_matmul.su3_mult_planar(batch, bs, tile=64, alias=True, out=out)
+
+
+@pytest.mark.cuda
+def test_cuda_lattice_batches_over_the_card_twice_and_one_nccl_rank(cuda_device, tmp_path):
+    """A batch of 5 lattices at L=8 and a 4-slot megakernel table, split in
+    2 blocks (one launch each) on ``[card, card]`` and on one NCCL rank
+    owning 2 slabs, equal the one-device runner bitwise; the service's
+    megakernel mode on a host of 2 devices equals one device's."""
+    from repro_torch.core.su3.plan import BatchedLatticeRunner, EngineConfig
+    from repro_torch.launch import mesh as meshes
+    from repro_torch.serve.su3 import ServiceConfig, SU3Service
+
+    cfg = EngineConfig(L=8, tile=64)
+    rng = np.random.default_rng(5)
+
+    def su3(n):
+        g = rng.standard_normal((n, 4, 3, 3)) + 1j * rng.standard_normal((n, 4, 3, 3))
+        q, _ = np.linalg.qr(g)
+        return torch.from_numpy(q.astype(np.complex64)).to(cuda_device)
+
+    a, b = torch.stack([su3(8**4) for _ in range(5)]), su3(5)
+    ks = torch.tensor([0, 1, 3, 4], dtype=torch.int32, device=cuda_device)
+    one = BatchedLatticeRunner(cfg, cuda_device)
+    table, table_b = one.pack_batch(a[:4]), one.pack_b_batch(b[:4])
+    want = one.multiply(a, b, k=3)
+    want_mega = one.plan.fused_batched_step(4, max_k=4)(table.clone(), table_b, ks)
+
+    def check(runner):
+        before = (su3_matmul.LAUNCHES.count, su3_matmul.MEGA_LAUNCHES.count)
+        got = runner.multiply(a, b, k=3)
+        mega = runner.plan.fused_batched_step(4, max_k=4)(table.clone(), table_b, ks)
+        torch.cuda.synchronize()
+        assert (su3_matmul.LAUNCHES.count - before[0],
+                su3_matmul.MEGA_LAUNCHES.count - before[1]) == (2, 2)
+        assert got.shape[0] == 5 and torch.equal(torch.view_as_real(got),
+                                                 torch.view_as_real(want))
+        assert torch.equal(mega, want_mega)
+
+    check(BatchedLatticeRunner(cfg, meshes.MeshSpec(1, 2).resolve(
+        devices=[cuda_device, cuda_device])))
+    meshes.init_distributed("cuda", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        check(BatchedLatticeRunner(cfg, meshes.MeshSpec(hosts=2).resolve()))
+    finally:
+        torch.distributed.destroy_process_group()
+
+    def serve(device):
+        svc = SU3Service(ServiceConfig(continuous=True, megakernel=True, autotune=False,
+                                       tile=64, chain_slots=4), device=device)
+        ids = [svc.submit(a[i], b[i], k=k) for i, k in enumerate([3, 1, 4, 2])]
+        svc.run_until_drained()
+        return [svc.pop_result(i) for i in ids]
+
+    for x, y in zip(serve([cuda_device, cuda_device]), serve(cuda_device)):
+        assert torch.equal(torch.view_as_real(x), torch.view_as_real(y))
