@@ -71,6 +71,18 @@ source, started together) and, at the paper's L=32 lattice:
     same 4 steps from the same weights (bitwise expected), the
     ``flash_group_fwd<128>`` and ``flash_bwd_d128`` launches of the mesh
     runs by name, and both step times;
+  * the mesh families phase (after the whisper phase): one NCCL rank on a
+    (1, 1) mesh again; granite-moe-1b-a400m at full width and depth and
+    deepseek-v3-671b on its 3 dense layers + MTP (MLA_TRAIN_REDUCED)
+    trained 2 steps through ``train.loop.train(mesh=...)`` (experts through
+    ``local_map``, MLA's split flash call on each rank's heads) against
+    ``train.loop.train`` on the card, and qwen3-4b (MESH_LAYERS),
+    granite-moe and deepseek-v3 (MLA_LAYERS) served through
+    ``ServeEngine(..., mesh=...)`` (the state at the reference's state
+    rules, rank 0 sampling) against ``ServeEngine`` without a mesh: prefill
+    + 16 tokens; every loss, grad norm, leaf fingerprint, token and the
+    prefill logits bitwise, step / prefill / decode ms, peak GB and the
+    mesh runs' flash launches by kernel name;
   * the MoE phase, after the qwen3-4b phases have freed the card: on
     full-width, full-depth granite-moe-1b-a400m (24 layers, 32 experts
     top-8, 16/8 heads of 64), ``ServeEngine`` as above (24 flash launches in
@@ -283,6 +295,9 @@ MESH_REDUCED = {"n_layers": "36 -> 4: the smoke's time limit"}
 MESH_SHAPE, MESH_AXES = (1, 1), ("data", "model")
 MESH_STEPS = (2, 2)  # steps before the checkpoint, steps after the restore
 MESH_LOSS_TOL, MESH_LEAF_TOL = 1e-4, 1e-3  # if not bitwise: loss relative, leaf of its max
+# the mesh families phase: granite-moe and deepseek-v3 trained, qwen3-4b,
+# granite-moe and deepseek-v3 served, on one NCCL rank's (1, 1) mesh
+MESH_FAMILY_STEPS, MESH_FAMILY_NEW = 2, 16  # train steps; tokens served after the prompt
 # the MoE phase, served and trained at the LM and training shapes above: full
 # width, 24 layers, d_model 1,024, 16/8 heads of 64, 32 experts top-8 (d_ff
 # 512), vocab 49,155, tied embeddings; 1.33 B parameters, 0.40 B active
@@ -1091,6 +1106,24 @@ def main(argv: list[str] | None = None) -> int:
     flash_bwd_d64["whisper_train_launches"] = whisper["train_bwd"]
     flash_bwd_d64["launches"] += whisper["train_bwd"]
     flash_bwd["max_abs_err"] = max(flash_bwd["max_abs_err"], whisper["bwd_f32_err"])
+
+    # -- 5h'. the mesh families: MoE and MLA trained, three families served, (1, 1) NCCL --
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fam = _mesh_families_phase(args.seed, failures)
+    _emit({"phase": "mesh families", "seconds": time.perf_counter() - t0})
+    for entry, kname, parts in (
+            (flash, D128_FWD_KERNEL, ("serve",)), (flash_d64, "flash_group_fwd<64>",
+                                                   ("train", "serve")),
+            (flash_bwd_d64, "flash_bwd_d64", ("train",)),
+            (flash_mla, "flash_mla_fwd", ("train", "serve")),
+            (flash_bwd_mla, "flash_bwd_dq_mla", ("train",))):
+        for part in parts:
+            n = fam[part].get(kname, 0)
+            entry[f"mesh_families_{part}_launches"] = n
+            entry["launches"] += n
+            if "launches_by_kernel" in entry:
+                entry["launches_by_kernel"][kname] = entry["launches_by_kernel"].get(kname, 0) + n
 
     # -- 5i. the dry run: the LM cases on meta tensors, the fig7 launch on the card -------
     torch.cuda.empty_cache()
@@ -2490,6 +2523,223 @@ def _mesh_phase(seed: int, failures: list[str]) -> tuple[int, int]:
     del one, second, pairs
     torch.cuda.empty_cache()
     return fwd, bwd
+
+
+def _fingerprint(t) -> tuple[int, float]:
+    """A tensor's bits in two numbers: the int64 sum of its words (as
+    int32 or int16) and the f64 sum of its values; equal bits give equal
+    numbers, and two runs' leaves compare without both on the card."""
+    import torch
+
+    t = t.detach()
+    t = (t.to_local() if hasattr(t, "to_local") else t).contiguous()
+    words = t.view(torch.int32 if t.element_size() == 4 else torch.int16)
+    return int(words.sum(dtype=torch.int64)), float(t.sum(dtype=torch.float64))
+
+
+def _run_fingerprints(run: dict) -> dict[str, tuple[int, float]]:
+    """Every parameter's and AdamW moment's :func:`_fingerprint` of a
+    ``train.loop.train`` result."""
+    out = {n: _fingerprint(p) for n, p in run["params"].named_parameters()}
+    for k in ("m", "v"):
+        out.update({f"{k}/{n}": _fingerprint(x) for n, x in run["opt_state"][k].items()})
+    return out
+
+
+def _mesh_families_phase(seed: int, failures: list[str]) -> dict[str, dict[str, int]]:
+    """The MoE and MLA families on the mesh path, one NCCL rank on a
+    MESH_SHAPE mesh (``file://`` store under ``build/``): granite-moe at
+    full width and depth and deepseek-v3 on its 3 dense layers + MTP
+    (MLA_TRAIN_REDUCED) trained MESH_FAMILY_STEPS steps through
+    ``train.loop.train(mesh=...)`` against ``train.loop.train`` on the card
+    from the same seeded weights (``_mesh_family_train``); qwen3-4b
+    (MESH_LAYERS), granite-moe and deepseek-v3 (MLA_LAYERS) served,
+    prefill + MESH_FAMILY_NEW tokens, through ``ServeEngine(...,
+    mesh=...)`` against ``ServeEngine`` without one on the same weights
+    (``_mesh_family_serve``).  Returns the mesh runs' flash launches by
+    kernel name: ``train`` and ``serve``, each counted from 0 just before
+    a mesh run and read just after."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as meshes
+
+    rng = np.random.default_rng(seed + 31)
+    store = tempfile.mkdtemp(dir=ROOT / "build")
+    meshes.init_distributed("cuda", init_method=f"file://{store}/store", rank=0, world_size=1)
+    found = {"train": {}, "serve": {}}
+
+    def add(part: str, by_kernel: dict[str, int]) -> None:
+        for k, n in by_kernel.items():
+            found[part][k] = found[part].get(k, 0) + n
+
+    try:
+        mesh = meshes.make_mesh(MESH_SHAPE, MESH_AXES)
+        mla_train = dataclasses.replace(get_config(MLA_ARCH), n_layers=MLA_TRAIN_LAYERS,
+                                        n_dense_layers=MLA_TRAIN_LAYERS)
+        for cfg, reduced in ((get_config(MOE_ARCH), {}), (mla_train, MLA_TRAIN_REDUCED)):
+            add("train", _mesh_family_train(cfg, reduced, seed, mesh, failures))
+            torch.cuda.empty_cache()
+        for cfg, reduced in (
+                (dataclasses.replace(get_config(LM_ARCH), n_layers=MESH_LAYERS), MESH_REDUCED),
+                (get_config(MOE_ARCH), {}),
+                (dataclasses.replace(get_config(MLA_ARCH), n_layers=MLA_LAYERS), MLA_REDUCED)):
+            add("serve", _mesh_family_serve(cfg, reduced, seed, mesh, rng, failures))
+            torch.cuda.empty_cache()
+    finally:
+        torch.distributed.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    return found
+
+
+def _mesh_family_train(cfg, reduced: dict, seed: int, mesh, failures: list[str]) -> dict:
+    """``cfg`` (bf16 compute, f32 weights and moments, TRAIN_BATCH x
+    TRAIN_SEQ tokens a step) trained MESH_FAMILY_STEPS steps on the card
+    and then on ``mesh`` (the first run's state fingerprinted and freed
+    before the second: two deepseek-v3 states do not fit the card);
+    emits the "mesh family train" row and returns the mesh run's flash
+    launches by kernel name."""
+    import torch
+
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import loop
+
+    dev = torch.device("cuda")
+    quiet = lambda line: None  # noqa: E731
+    tcfg = loop.TrainConfig(steps=MESH_FAMILY_STEPS, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                            log_every=1, seed=seed,
+                            opt=AdamWConfig(peak_lr=3e-4, warmup_steps=2,
+                                            total_steps=MESH_FAMILY_STEPS))
+    runs = {}
+    for on_mesh in (False, True):
+        gc.collect()  # the last run's cycles, so the peak below is this run's
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        if on_mesh:
+            _reset_counts()
+        run = loop.train(cfg, tcfg, log=quiet, **({"mesh": mesh} if on_mesh else {"device": dev}))
+        torch.cuda.synchronize()
+        by_kernel = _by_kernel() if on_mesh else None
+        runs[on_mesh] = {"history": run["history"], "step_ms": run["step_ms"],
+                         "peak_GB": torch.cuda.max_memory_allocated() / 1e9,
+                         "fingerprints": _run_fingerprints(run), "by_kernel": by_kernel}
+        del run
+        torch.cuda.empty_cache()
+    one, on = runs[False], runs[True]
+    mtp = cfg.mtp_depth
+    per_step = {_kernel_of(cfg): 2 * cfg.n_layers + mtp, _kernel_of(cfg, True): cfg.n_layers + mtp}
+    expected = {k: n * MESH_FAMILY_STEPS for k, n in per_step.items()}
+    differ = [n for n in one["fingerprints"] if one["fingerprints"][n] != on["fingerprints"][n]]
+    row = {"row": "mesh family train", "arch": cfg.name, "mesh": dict(zip(MESH_AXES, MESH_SHAPE)),
+           "backend": "nccl", "n_layers": cfg.n_layers, "mtp_depth": mtp,
+           "d_model": cfg.d_model, "reduced": reduced, "compute_dtype": cfg.dtype,
+           "master_dtype": "float32", "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "steps": MESH_FAMILY_STEPS, "losses_mesh": [h["loss"] for h in on["history"]],
+           "losses_one_card": [h["loss"] for h in one["history"]],
+           "grad_norms_mesh": [h["grad_norm"] for h in on["history"]],
+           "mesh_step_ms": on["step_ms"], "one_card_step_ms": one["step_ms"],
+           "mesh_peak_GB": on["peak_GB"], "one_card_peak_GB": one["peak_GB"],
+           "leaves_compared": len(one["fingerprints"]), "leaves_differing": differ[:8],
+           "bitwise": on["history"] == one["history"] and not differ,
+           "flash_launches_by_kernel": on["by_kernel"], "expected_launches_by_kernel": expected}
+    row["ok"] = row["bitwise"] and on["by_kernel"] == expected
+    print(f"mesh family train {cfg.name}: mesh step ms {on['step_ms']}, one-card {one['step_ms']}")
+    _emit(row)
+    if not row["ok"]:
+        failures.append(f"mesh family train {cfg.name}: {row}")
+    return on["by_kernel"]
+
+
+def _kernel_of(cfg, backward: bool = False) -> str:
+    """The flash kernel (forward or backward, by the name the counters use)
+    of ``cfg``'s attention in bf16."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    if cfg.use_mla:
+        return fa.kernel_name(torch.bfloat16, cfg.qk_nope_head_dim + cfg.qk_rope_head_dim,
+                              cfg.v_head_dim, backward=backward)
+    return fa.kernel_name(torch.bfloat16, cfg.head_dim, backward=backward)
+
+
+def _mesh_family_serve(cfg, reduced: dict, seed: int, mesh, rng, failures: list[str]) -> dict:
+    """``cfg`` (bf16 weights from the seed, f32 caches) served to LM_BATCH
+    prompts of LM_PROMPT tokens + MESH_FAMILY_NEW tokens by ``ServeEngine``
+    on the card, then by ``ServeEngine(..., mesh=mesh)`` on the same
+    weights (placed on the (1, 1) mesh without a copy), twice (the first
+    run's launches counted, the second timed warm); the tokens and the
+    prefill's logits bitwise.  The mesh run's peak holds one transient
+    copy of a layer's weights gathered over ``data`` (FSDP's all-gather,
+    which allocates on a one-rank mesh too).  Emits the "mesh family
+    serve" row and returns the first mesh run's flash launches by kernel
+    name."""
+    import numpy as np
+    import torch
+
+    from repro_torch.distributed import sharding
+    from repro_torch.models import registry
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    dev = torch.device("cuda")
+    model = registry.get(cfg).init(torch.Generator(device=dev).manual_seed(seed), cfg,
+                                   torch.bfloat16)
+    scfg = ServeConfig(max_len=LM_PROMPT + MESH_FAMILY_NEW)
+    prompts = rng.integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), dtype=np.int32)
+    toks = torch.from_numpy(prompts).to(dev)
+    found = {}
+    for on_mesh in (False, True):
+        engine = ServeEngine(cfg, model, scfg, device=None if on_mesh else dev,
+                             mesh=mesh if on_mesh else None)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        if on_mesh:
+            _reset_counts()
+        tokens = engine.generate(prompts, MESH_FAMILY_NEW)
+        torch.cuda.synchronize()
+        by_kernel = _by_kernel() if on_mesh else None
+        first = dict(engine.last_timings)
+        tokens_again = engine.generate(prompts, MESH_FAMILY_NEW)
+        warm = dict(engine.last_timings)
+        logits, _ = engine.prefill({"tokens": toks}, engine.init_state(LM_BATCH))
+        found[on_mesh] = {"tokens": tokens, "again": tokens_again,
+                          "logits": sharding.whole(logits).float().cpu(),
+                          "first": first, "warm": warm, "by_kernel": by_kernel,
+                          "peak_GB": torch.cuda.max_memory_allocated() / 1e9}
+        del engine, logits
+    del model
+    one, on = found[False], found[True]
+    expected = {_kernel_of(cfg): cfg.n_layers}  # one a layer in prefill, none in decode
+
+    def ms(t: dict) -> dict:
+        return {"prefill_ms": t["prefill_s"] * 1e3,
+                "decode_ms_per_token": t["decode_s"] * 1e3 / t["decode_steps"]}
+
+    row = {"row": "mesh family serve", "arch": cfg.name, "mesh": dict(zip(MESH_AXES, MESH_SHAPE)),
+           "backend": "nccl", "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "reduced": reduced, "dtype": "bfloat16", "cache_dtype": scfg.cache_dtype,
+           "batch": LM_BATCH, "prompt": LM_PROMPT, "new_tokens": MESH_FAMILY_NEW,
+           "mesh_first": ms(on["first"]), "mesh_warm": ms(on["warm"]),
+           "one_card_first": ms(one["first"]), "one_card_warm": ms(one["warm"]),
+           "mesh_peak_GB": on["peak_GB"], "one_card_peak_GB": one["peak_GB"],
+           "tokens_equal": bool(np.array_equal(on["tokens"], one["tokens"])
+                                and np.array_equal(on["again"], one["tokens"])),
+           "prefill_logits_bitwise": bool(torch.equal(on["logits"], one["logits"])),
+           "finite": bool(torch.isfinite(on["logits"]).all()),
+           "flash_launches_by_kernel": on["by_kernel"], "expected_launches_by_kernel": expected}
+    row["ok"] = (row["tokens_equal"] and row["prefill_logits_bitwise"] and row["finite"]
+                 and on["by_kernel"] == expected)
+    print(f"mesh family serve {cfg.name}: mesh {row['mesh_warm']}, one card "
+          f"{row['one_card_warm']}")
+    _emit(row)
+    if not row["ok"]:
+        failures.append(f"mesh family serve {cfg.name}: {row}")
+    return on["by_kernel"]
 
 
 @contextlib.contextmanager

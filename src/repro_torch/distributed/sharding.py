@@ -12,7 +12,10 @@ one ``Shard``/``Replicate`` per mesh dim (the counterparts of the
 reference's ``param_shardings``, ``opt_state_shardings`` and
 ``batch_shardings``), and :func:`distribute_tree` and
 :func:`distribute_batch` place full leaves on a ``DeviceMesh``
-(``launch/mesh.py``'s ``make_mesh``) by them.
+(``launch/mesh.py``'s ``make_mesh``) by them.  :func:`state_placements`
+(the reference's ``state_shardings``) does the same for a decode state by
+:func:`state_spec_for`, and :func:`distribute_state` makes a zero state
+at those placements, each rank allocating its own shard only.
 
 Pure arithmetic: the L^4 lattice splits along its outermost (t) dimension
 into ``n_shards`` contiguous slabs, and a nearest-neighbour stencil needs
@@ -684,9 +687,10 @@ def distribute(x: Any, mesh: Any, placements: tuple[Any, ...]) -> Any:
     t = t.detach().to(mesh.device_type)
     d = distribute_tensor(t, mesh, list(placements), src_data_rank=None)
     local = d.to_local()
-    if not local.is_contiguous() or (
-            local.untyped_storage().nbytes() > local.numel() * local.element_size()):
+    if not local.is_contiguous() or (local.numel() < t.numel() and (
+            local.untyped_storage().nbytes() > local.numel() * local.element_size())):
         # a copy of its own: a shard must not hold the whole leaf's storage
+        # (a shard that is the whole leaf keeps the storage it came in)
         d = DTensor.from_local(local.clone(memory_format=torch.contiguous_format), mesh,
                                list(placements), run_check=False, shape=d.shape,
                                stride=d.stride())
@@ -706,3 +710,73 @@ def distribute_tree(tree: Any, spec_tree: Any, mesh: Any, rules: MeshRules) -> A
     like ``spec_tree`` (the reference's tree: stacked layers)."""
     return _map_tree(lambda x, pl: distribute(x, mesh, pl), tree,
                      param_placements(spec_tree, mesh, rules))
+
+
+def _map_with_path(fn, tree: Any, path: tuple = ()) -> Any:
+    """``fn(path, leaf)`` over the leaves of nested dicts and lists; a path
+    names dict keys and list indices, as the reference's tree paths do."""
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_with_path(fn, v, path + (i,)) for i, v in enumerate(tree)]
+    return fn(path, tree)
+
+
+def state_placements(state_tree: Any, mesh: Any, rules: MeshRules, *,
+                     kv_seq_shard: bool = False) -> Any:
+    """A decode/prefill state tree (leaves with a ``shape``: tensors, on
+    ``meta`` too) -> a tree of placement tuples, the counterpart of the
+    reference's ``state_shardings``: each leaf keyed by its path
+    (``"dense/0/k"``) and resolved by :func:`state_spec_for`.
+
+    The port keeps a stack's caches as a list of per-layer leaves where the
+    reference stacks them over a leading layer dim; the rules read a leaf's
+    last name and its rank, and give a per-layer leaf the stacked leaf's
+    layout without that dim (whisper's stacked caches, as the reference's).
+    """
+    lm = logical_mesh(mesh)
+
+    def one(path, leaf):
+        key = "/".join(map(str, path))
+        spec = state_spec_for(key, tuple(leaf.shape), lm, rules, kv_seq_shard=kv_seq_shard)
+        return placements_of(spec, lm)
+
+    return _map_with_path(one, state_tree)
+
+
+def local_shape(shape: tuple[int, ...], placements: tuple[Any, ...], mesh: Any) -> tuple[int, ...]:
+    """This rank's shard of a ``shape`` laid out by ``placements`` (every
+    split even, as the rules only split dims their axes divide)."""
+    from torch.distributed.tensor import Shard
+
+    out = list(shape)
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard):
+            if out[p.dim] % mesh.size(i):
+                raise ValueError(f"dim {p.dim} of {tuple(shape)} does not split over mesh "
+                                 f"dim {i} of {mesh.size(i)}")
+            out[p.dim] //= mesh.size(i)
+    return tuple(out)
+
+
+def distribute_state(state_tree: Any, mesh: Any, rules: MeshRules, *,
+                     kv_seq_shard: bool = False) -> Any:
+    """A zero state on ``mesh`` at :func:`state_placements`: each leaf of
+    ``state_tree`` (its shapes and dtypes, typically on ``meta``) becomes a
+    DTensor whose rank allocates zeros for its own shard only; no rank
+    builds a whole cache.  ``kv_seq_shard`` places caches sequence-sharded
+    for the placement table and the dry run; the models refuse to write or
+    decode such a cache (``models.attention.write_cache``)."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    pl_tree = state_placements(state_tree, mesh, rules, kv_seq_shard=kv_seq_shard)
+
+    def one(leaf, pl):
+        shape = tuple(leaf.shape)
+        local = torch.zeros(local_shape(shape, pl, mesh), dtype=leaf.dtype,
+                            device=mesh.device_type)
+        return DTensor.from_local(local, mesh, list(pl), run_check=False, shape=torch.Size(shape),
+                                  stride=torch.empty(shape, device="meta").stride())
+
+    return _map_tree(one, state_tree, pl_tree)

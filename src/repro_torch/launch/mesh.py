@@ -157,6 +157,13 @@ def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *,
     return init_device_mesh(kind, shape, mesh_dim_names=axes)
 
 
+def rank_device(mesh: Any) -> torch.device:
+    """This rank's device on a ``DeviceMesh``: its card, or the CPU."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
 def make_production_mesh(*, multi_pod: bool = False, device: torch.device | str | None = None):
     """The reference's production mesh: (16, 16) ``("data", "model")``, or
     (2, 16, 16) ``("pod", "data", "model")`` with ``multi_pod``."""

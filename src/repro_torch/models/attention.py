@@ -12,9 +12,13 @@ is one query against the cache in plain PyTorch, as in the reference (no
 Pallas kernel there either).  The KV cache is written in place.
 
 On a mesh (``distributed.act_sharding.use_rules``) q, k and v are DTensors
-pinned to ``"bthd"``, the reference's sites; :func:`flash_attention` then
-runs the same kernel, forward and backward, on each rank's own heads
-through ``local_map`` (:func:`_local_heads`).
+pinned to ``"bthd"``, the reference's sites; :func:`flash_attention` (and
+MLA's :func:`flash_attention_split`) then runs the same kernel, forward
+and backward, on each rank's own heads through ``local_map``
+(:func:`_local_heads`).  A cache placed by the reference's state rules
+(``distributed.sharding.distribute_state``) takes each rank's batch rows
+and kv heads in its own local shard (:func:`write_cache`), and decode
+reads that shard alone (:func:`_decode`).
 """
 from __future__ import annotations
 
@@ -89,57 +93,117 @@ def flash_attention(
     """
     kw = dict(causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk, q_offset=q_offset)
     if act_sharding.active()[0] is not None and sharding.is_dtensor(q):
-        return _local_heads(q, k, v, **kw)
+        return _local_heads(fa.flash_attention, (q,), (k, v), **kw)
     return fa.flash_attention(q, k, v, **kw)
 
 
-def _local_heads(q, k, v, **kw) -> torch.Tensor:
-    """:func:`kernels.flash_attention.flash_attention` on each rank's heads
-    of DTensors q, k, v (``"bthd"``: batch over the data axes, heads over
-    the model axes where they divide), through ``local_map``: the kernel
-    and its backward, never another attention.
-
-    Where the kv heads divide the model axes they shard with q's, and a
-    rank's query groups meet their own kv heads.  Where they do not (MQA,
-    or fewer kv heads than model shards) k and v stay replicated and each
-    rank takes the kv heads of its own query heads: a slice where each of
-    them serves the same number of its query heads in order, else one kv
-    head per query head (G = 1).  Their gradients are then partial sums
-    over the model axes (``in_grad_placements``), which the redistribution
-    of k and v adds up.
-    """
+def _head_layout(q: torch.Tensor, kvs) -> tuple[tuple, list[tuple[tuple, tuple, object]]]:
+    """The ``"bthd"`` placements of DTensor ``q`` and, for each of ``kvs``
+    (key-side parts, each with its own head count dividing q's), its
+    placements, its gradient's and the local heads ``pick`` that serve this
+    rank's query heads: None where the part's heads shard with q's, else a
+    (start, count) slice where each picked head serves the same number of
+    this rank's query heads in order, else one index per local query head
+    (G = 1).  Where a part stays whole over the model axes and q does not,
+    its gradient is a partial sum over those axes."""
     from torch.distributed.tensor import Partial, Shard
-    from torch.distributed.tensor.experimental import local_map
 
     mesh = q.device_mesh
     q_pl = act_sharding.placements("bthd", tuple(q.shape))
-    kv_pl = act_sharding.placements("bthd", tuple(k.shape))
     head_dims = [i for i, p in enumerate(q_pl) if p == Shard(2)]
-    hq, hkv = q.shape[2], k.shape[2]
-    kv_grad_pl = kv_pl
-    pick = None  # the kv heads of this rank's query heads, when k and v are whole
-    if head_dims and kv_pl[head_dims[0]] != Shard(2):
-        r, shards = sharding.mesh_rank(mesh, head_dims)
-        hl, g = hq // shards, hq // hkv
-        idx = [(r * hl + j) // g for j in range(hl)]  # the kv head of each local query head
-        heads = sorted(set(idx))
-        per = hl // len(heads)
-        pick = (heads[0], len(heads)) if idx == [h for h in heads for _ in range(per)] else idx
-        kv_grad_pl = tuple(Partial() if i in head_dims else p for i, p in enumerate(kv_pl))
+    hq = q.shape[2]
+    out = []
+    for t in kvs:
+        pl = act_sharding.placements("bthd", tuple(t.shape))
+        grad_pl, pick = pl, None
+        if head_dims and pl[head_dims[0]] != Shard(2):
+            r, shards = sharding.mesh_rank(mesh, head_dims)
+            hl, g = hq // shards, hq // t.shape[2]
+            idx = [(r * hl + j) // g for j in range(hl)]  # the part's head of each local query head
+            heads = sorted(set(idx))
+            per = hl // len(heads)
+            pick = (heads[0], len(heads)) if idx == [h for h in heads for _ in range(per)] else idx
+            grad_pl = tuple(Partial() if i in head_dims else p for i, p in enumerate(pl))
+        out.append((pl, grad_pl, pick))
+    return q_pl, out
 
-    def local(ql, kl, vl):
-        if isinstance(pick, tuple):
-            kl = kl.narrow(2, *pick).contiguous()
-            vl = vl.narrow(2, *pick).contiguous()
-        elif pick is not None:
-            at = torch.tensor(pick, device=kl.device)
-            kl, vl = kl.index_select(2, at), vl.index_select(2, at)
-        return fa.flash_attention(ql, kl, vl, **kw)
 
-    fn = local_map(local, out_placements=list(q_pl), in_placements=(q_pl, kv_pl, kv_pl),
-                   in_grad_placements=(q_pl, kv_grad_pl, kv_grad_pl), device_mesh=mesh,
-                   redistribute_inputs=True)
-    return fn(q, k, v)
+def _picked(t: torch.Tensor, pick) -> torch.Tensor:
+    """The heads ``pick`` (see :func:`_head_layout`) of a local (B, S, H, D)."""
+    if isinstance(pick, tuple):
+        return t.narrow(2, *pick).contiguous()
+    if pick is not None:
+        return t.index_select(2, torch.tensor(pick, device=t.device))
+    return t
+
+
+def _local_heads(fn, qs, kvs, **kw) -> torch.Tensor:
+    """``fn(*qs, *kvs, **kw)`` on each rank's heads of DTensors: the query
+    parts ``qs`` (q, or MLA's q_nope and q_rope) at ``"bthd"`` (batch over
+    the data axes, heads over the model axes where they divide), the
+    key-side parts ``kvs`` (k and v, or MLA's k_nope, its one k_rope channel
+    and v) each at its own ``"bthd"`` placements, through ``local_map``:
+    the flash kernel and its backward, never another attention.
+
+    Where a key-side part's heads divide the model axes they shard with
+    q's, and a rank's query groups meet their own kv heads.  Where they do
+    not (MQA, fewer kv heads than model shards, MLA's shared k_rope) the
+    part stays whole over the model axes and each rank takes the heads of
+    its own query heads (:func:`_head_layout`); its gradient is then a
+    partial sum over the model axes (``in_grad_placements``), which the
+    redistribution of the part adds up.
+    """
+    from torch.distributed.tensor.experimental import local_map
+
+    q_pl, layout = _head_layout(qs[0], kvs)
+    nq = len(qs)
+
+    def local(*parts):
+        picked = [_picked(t, pick) for t, (_, _, pick) in zip(parts[nq:], layout)]
+        return fn(*parts[:nq], *picked, **kw)
+
+    f = local_map(local, out_placements=list(q_pl),
+                  in_placements=(q_pl,) * nq + tuple(pl for pl, _, _ in layout),
+                  in_grad_placements=(q_pl,) * nq + tuple(g for _, g, _ in layout),
+                  device_mesh=qs[0].device_mesh, redistribute_inputs=True)
+    return f(*qs, *kvs)
+
+
+def flash_attention_split(q_nope, q_rope, k_nope, k_rope, v, **kw) -> torch.Tensor:
+    """MLA's attention from its parts
+    (:func:`kernels.flash_attention.flash_attention_split`); DTensors (a
+    mesh's activations) go through :func:`_local_heads`, k_rope's one
+    channel whole over the model axes."""
+    if act_sharding.active()[0] is not None and sharding.is_dtensor(q_nope):
+        return _local_heads(fa.flash_attention_split, (q_nope, q_rope), (k_nope, k_rope, v), **kw)
+    return fa.flash_attention_split(q_nope, q_rope, k_nope, k_rope, v, **kw)
+
+
+def write_cache(cache: torch.Tensor, new: torch.Tensor, start: int) -> None:
+    """``cache[:, start:start + Sq] = new`` in place, in the cache's dtype.
+    A DTensor cache takes its own rows in each rank's local shard: ``new``
+    at the cache's placements (batch rows over the data axes, kv heads over
+    the model axes where they divide, as both sets of rules place them),
+    written locally; no cache is gathered.
+
+    Raises:
+        NotImplementedError: a cache sharded along its sequence (the
+            reference's ``kv_seq_shard``): writing and decoding there need a
+            combine across ranks (flash-decoding), ROADMAP Queue 1.
+    """
+    sq = new.shape[1]
+    if not sharding.is_dtensor(cache):
+        cache[:, start:start + sq] = new.to(cache.dtype)
+        return
+    from torch.distributed.tensor import Shard
+
+    if Shard(1) in tuple(cache.placements):
+        raise NotImplementedError("a cache sharded along its sequence (kv_seq_shard) needs a "
+                                  "combine across ranks to decode (flash-decoding): ROADMAP "
+                                  "Queue 1")
+    if tuple(new.placements) != tuple(cache.placements):
+        new = new.redistribute(cache.device_mesh, cache.placements)
+    cache.to_local()[:, start:start + sq] = new.to_local().to(cache.dtype)
 
 
 def decode_attention(
@@ -157,6 +221,26 @@ def decode_attention(
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgk,bkhd->bhgd", probs, v_cache.to(torch.float32))
     return out.reshape(b, 1, hq, d).to(q.dtype)
+
+
+def _decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+            cur_len: int) -> torch.Tensor:
+    """:func:`decode_attention`; on DTensors each rank's query heads against
+    the kv heads of its own local cache shard (``local_map``, the heads
+    picked as :func:`_local_heads` picks them), nothing gathered."""
+    if not sharding.is_dtensor(q):
+        return decode_attention(q, k_cache, v_cache, cur_len)
+    from torch.distributed.tensor.experimental import local_map
+
+    q_pl, layout = _head_layout(q, (k_cache, v_cache))
+    (kv_pl, _, pick), _ = layout
+
+    def local(ql, kl, vl):
+        return decode_attention(ql, _picked(kl, pick), _picked(vl, pick), cur_len)
+
+    f = local_map(local, out_placements=list(q_pl), in_placements=(q_pl, kv_pl, kv_pl),
+                  device_mesh=q.device_mesh, redistribute_inputs=True)
+    return f(q, k_cache, v_cache)
 
 
 def init_cache(
@@ -198,10 +282,10 @@ def apply(
         if cur_len is None:
             raise ValueError("attention.apply with a cache needs cur_len")
         start = int(cur_len)
-        cache["k"][:, start:start + sq] = k.to(cache["k"].dtype)
-        cache["v"][:, start:start + sq] = v.to(cache["v"].dtype)
+        write_cache(cache["k"], k, start)
+        write_cache(cache["v"], v, start)
         if sq == 1:
-            out = decode_attention(q, cache["k"], cache["v"], start + 1)
+            out = _decode(q, cache["k"], cache["v"], start + 1)
         else:  # prefill into cache: attend over the fresh prefix only
             out = flash_attention(q, k, v, causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk)
     return _proj_out(out, params["wo"]), cache

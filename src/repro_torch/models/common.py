@@ -201,6 +201,7 @@ class RMSNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, inv32, w = ctx.saved_tensors
+        g = _whole_rows(g, x)
         f32, d = torch.float32, x.shape[-1]
         xf = x.to(f32)
         gw = g.to(f32) * w.to(f32)
@@ -209,6 +210,22 @@ class RMSNorm(torch.autograd.Function):
         dx = (gw * inv - xf * (inv**3) * (s / d)[..., None]).to(x.dtype)
         dw = _row_sum(g.to(f32) * xf * inv).to(w.dtype)
         return dx, dw, None
+
+
+def _whole_rows(g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``g`` as it is, or on a mesh at ``x``'s placements (whole rows): a
+    gradient that arrives partial over the model axes, or with its last dim
+    split (the tied head's backward splits d_model over the data axes),
+    is reduced first, else DTensor's propagation may reduce-scatter it over
+    the rows the norm's backward sums."""
+    from repro_torch.distributed.sharding import is_dtensor
+
+    if not is_dtensor(g):
+        return g
+    from torch.distributed.tensor import Replicate
+
+    want = tuple(Replicate() if p.is_partial() else p for p in x.placements)
+    return g if tuple(g.placements) == want else g.redistribute(x.device_mesh, want)
 
 
 def _row_sum(t: torch.Tensor) -> torch.Tensor:

@@ -23,6 +23,14 @@ Cache layout: ``{"ckv": (B, S, kv_lora_rank), "k_rope": (B, S, rope_dim)}``,
 written in place.  A prefill given a cache writes the prompt's latents in
 the same pass (the reference runs a cache-less forward, then recomputes
 each layer's latents from the same normed input: the same values).
+
+On a mesh q, k_nope and v are pinned to ``"bthd"`` at the reference's
+sites, the flash call runs on each rank's heads with k_rope's one channel
+whole over the model axes (``attention.flash_attention_split``), the latent
+stays whole over the model axes (the reference's rules keep ``latent``
+replicated), the cache is written in each rank's local shard (batch rows
+over the data axes) and the absorbed decode runs on each rank's heads
+against that shard (:func:`_absorbed_heads`).
 """
 from __future__ import annotations
 
@@ -31,8 +39,10 @@ import dataclasses
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import common
+from repro_torch.distributed import act_sharding, sharding
+from repro_torch.distributed.act_sharding import shard
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.models import attention, common
 from repro_torch.models.attention import NEG_INF, _proj_in, _proj_out
 from repro_torch.models.common import ParamSpec
 
@@ -63,9 +73,11 @@ def with_kernel_heads(cfg: ModelConfig) -> ModelConfig:
 
 
 def _q_proj(params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
-    ql = torch.matmul(x, params["w_dq"].to(x.dtype))
+    # the latents stay whole over the model axes (the reference's rules keep
+    # 'latent' replicated): pinned, as DTensor's propagation may split them
+    ql = shard(torch.matmul(x, params["w_dq"].to(x.dtype)), "btd")
     ql = common.rmsnorm(ql, params["q_norm"], cfg.norm_eps)
-    q = _proj_in(ql, params["w_uq"])  # (B, S, H, nope + rope)
+    q = shard(_proj_in(ql, params["w_uq"]), "bthd")  # (B, S, H, nope + rope)
     q_nope = q[..., :cfg.qk_nope_head_dim]
     q_rope = common.apply_rope(q[..., cfg.qk_nope_head_dim:], positions, cfg.rope_theta)
     return q_nope, q_rope
@@ -74,8 +86,8 @@ def _q_proj(params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
 def _kv_latent(params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
     """(c (B, S, kv_lora), k_rope (B, S, rope)): the latent and the shared
     rope channel, given a singleton head dim for ``apply_rope``."""
-    c = torch.matmul(x, params["w_dc"].to(x.dtype))
-    k_rope = torch.matmul(x, params["w_dr"].to(x.dtype))
+    c = shard(torch.matmul(x, params["w_dc"].to(x.dtype)), "btd")
+    k_rope = shard(torch.matmul(x, params["w_dr"].to(x.dtype)), "btd")
     c = common.rmsnorm(c, params["kv_norm"], cfg.norm_eps)
     k_rope = common.apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
     return c, k_rope
@@ -99,7 +111,7 @@ def init_cache(
 def _decompressed(params, c: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(k_nope, v) of the decompressed path: K's nope part and V per head
     from the latent, each (B, S, H, .)."""
-    return _proj_in(c, params["w_uk"]), _proj_in(c, params["w_uv"])
+    return shard(_proj_in(c, params["w_uk"]), "bthd"), shard(_proj_in(c, params["w_uv"]), "bthd")
 
 
 def apply(
@@ -123,7 +135,7 @@ def apply(
     The scale is ``(nope + rope)^-1/2``, the flash kernel's own D^-1/2 of
     the concatenated q (the reference's pre-scale factor is 1).
     """
-    sq, dt = x.shape[1], x.dtype
+    sq = x.shape[1]
     scale = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
     q_nope, q_rope = _q_proj(params, x, cfg, positions)
     c, k_rope = _kv_latent(params, x, cfg, positions)
@@ -131,25 +143,67 @@ def apply(
         if cur_len is None:
             raise ValueError("mla.apply with a cache needs cur_len")
         start = int(cur_len)
-        cache["ckv"][:, start:start + sq] = c.to(cache["ckv"].dtype)
-        cache["k_rope"][:, start:start + sq] = k_rope.to(cache["k_rope"].dtype)
+        attention.write_cache(cache["ckv"], c, start)
+        attention.write_cache(cache["k_rope"], k_rope, start)
     if cache is None or sq > 1:
         k_nope, v = _decompressed(params, c)
-        out = fa.flash_attention_split(q_nope, q_rope, k_nope, k_rope[:, :, None], v, causal=True,
-                                       q_chunk=q_chunk, kv_chunk=kv_chunk)
+        out = attention.flash_attention_split(q_nope, q_rope, k_nope, k_rope[:, :, None], v,
+                                              causal=True, q_chunk=q_chunk, kv_chunk=kv_chunk)
         return _proj_out(out, params["wo"]), cache
-    # absorbed decode: fold w_uk into the query, score against the latents
-    ckv, rope_c = cache["ckv"].to(dt), cache["k_rope"].to(dt)
-    q_abs = torch.einsum("bshk,rhk->bshr", q_nope, params["w_uk"].to(dt))
+    weights = (params["w_uk"], params["w_uv"], params["wo"])
+    if sharding.is_dtensor(q_nope):
+        return _absorbed_heads(weights, q_nope, q_rope, cache, start + 1, scale), cache
+    return _absorbed(*weights, q_nope, q_rope, cache["ckv"], cache["k_rope"], start + 1,
+                     scale), cache
+
+
+def _absorbed(w_uk, w_uv, wo, q_nope, q_rope, ckv_cache, rope_cache, cur_len: int,
+              scale: float) -> torch.Tensor:
+    """The absorbed decode of one token: w_uk folded into the query, scored
+    against the latents, positions from ``cur_len`` on masked, then w_uv
+    and wo; (B, 1, d)."""
+    dt = q_nope.dtype
+    ckv, rope_c = ckv_cache.to(dt), rope_cache.to(dt)
+    q_abs = torch.einsum("bshk,rhk->bshr", q_nope, w_uk.to(dt))
     s_lat = torch.einsum("bhr,bsr->bhs", q_abs[:, 0], ckv)
     s_rope = torch.einsum("bhk,bsk->bhs", q_rope[:, 0], rope_c)
     logits = (s_lat + s_rope).to(torch.float32) * scale
-    valid = torch.arange(ckv.shape[1], device=x.device)[None, None, :] < start + 1
+    valid = torch.arange(ckv.shape[1], device=ckv.device)[None, None, :] < cur_len
     logits = torch.where(valid, logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(dt)
     ctx = torch.einsum("bhs,bsr->bhr", probs, ckv)
-    out = torch.einsum("bhr,rhk->bhk", ctx, params["w_uv"].to(dt))[:, None]
-    return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dt)), cache
+    out = torch.einsum("bhr,rhk->bhk", ctx, w_uv.to(dt))[:, None]
+    return torch.einsum("bshk,hkd->bsd", out, wo.to(dt))
+
+
+def _absorbed_heads(weights, q_nope, q_rope, cache, cur_len: int, scale: float) -> torch.Tensor:
+    """:func:`_absorbed` on a mesh through ``local_map``: each rank's query
+    heads (``"bthd"``) and the same heads of w_uk, w_uv and wo (gathered
+    over the data axes, where wo's d_model lies), against its own local
+    shard of the latent cache (batch rows over the data axes, the latent
+    whole over the model axes, as the reference's state rules place it).
+    The output is each rank's heads' share of (B, 1, d): a partial sum over
+    the model axes that split the heads, which the residual's ``"btd"``
+    placement adds up."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q_nope.device_mesh
+    q_pl = act_sharding.placements("bthd", tuple(q_nope.shape))
+    heads = [i for i, p in enumerate(q_pl) if p == Shard(2)]
+    w_pl = tuple(Shard(1) if i in heads else Replicate() for i in range(mesh.ndim))
+    wo_pl = tuple(Shard(0) if i in heads else Replicate() for i in range(mesh.ndim))
+    out_pl = [Partial() if i in heads else p for i, p in enumerate(q_pl)]
+    ckv, rope_c = cache["ckv"], cache["k_rope"]
+
+    def local(w_uk, w_uv, wo, qn, qr, c, r):
+        return _absorbed(w_uk, w_uv, wo, qn, qr, c, r, cur_len, scale)
+
+    f = local_map(local, out_placements=out_pl,
+                  in_placements=(w_pl, w_pl, wo_pl, q_pl, q_pl, tuple(ckv.placements),
+                                 tuple(rope_c.placements)),
+                  device_mesh=mesh, redistribute_inputs=True)
+    return f(*weights, q_nope, q_rope, ckv, rope_c)
 
 
 def mla_ref(params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor) -> torch.Tensor:

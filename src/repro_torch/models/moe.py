@@ -7,8 +7,18 @@ to ``experts_per_token`` experts; every expert holds ``capacity`` slots per
 group, filled in token order (a stable sort of the assignments by expert),
 and assignments past the last slot are dropped, as in GShard/Switch.  The
 expert products run over every slot, ``(E, G * C, d)``, empty slots on zero
-rows.  The reference's ``act_sharding.shard`` calls are no-ops on one card
-and are dropped; its ``lax.scan`` over token chunks is a Python loop.
+rows.  The reference's ``lax.scan`` over token chunks is a Python loop.
+
+On a mesh (:func:`_moe_chunk_mesh`) groups shard over the data axes and
+experts over the model axes; the reference's three ``act_sharding.shard``
+sites (``"gecd"`` on the dispatched and the products' buffers, ``"btd"`` on
+the combined output) pin each rank's share, and the combine's partial
+sums over the model axes are reduced there.  On a (1, 1) mesh every bit
+equals the one-card layer's; where the experts split over the model axes
+a token's output adds the ranks' partial sums, which rounds otherwise
+than the one-card left-to-right sum over its slots (f32: within 1e-4 of
+the reference's, ``tests/test_torch_mesh_families.py``).  On one card (a
+plain tensor) those calls return their argument.
 
 Dispatch and combine are gathers, in both directions.  The reference
 gathers tokens into slots (``take``) and scatter-adds the slots' weighted
@@ -28,10 +38,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Any
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import act_sharding
+from repro_torch.distributed.act_sharding import shard
+from repro_torch.distributed.sharding import is_dtensor, mesh_rank
 from repro_torch.models import common, ffn
 from repro_torch.models.common import ParamSpec
 
@@ -74,6 +88,15 @@ def _route(params, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, tor
     destinations each receive one term (a token's k experts are distinct),
     so their gradient has no order to vary.
     """
+    w, idx, probs, counts = _route_parts(params, x, cfg)
+    return w, idx, _balance_loss(probs, counts, cfg, x.device)
+
+
+def _route_parts(params, x: torch.Tensor, cfg: ModelConfig):
+    """:func:`_route` up to its balance loss: (w, idx, probs, counts), the
+    last two (G, T, E) in f32 under softmax routing (the router's
+    probabilities, each token's choices one-hot over the experts) and None
+    under aux-free routing."""
     logits = torch.matmul(x.to(torch.float32), params["router"].to(torch.float32))
     k = cfg.experts_per_token
     if cfg.router_aux_free:
@@ -82,20 +105,25 @@ def _route(params, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, tor
         idx = _top_k(sel, k)
         w = torch.gather(scores, -1, idx)
         w = w / torch.clamp_min(torch.sum(w, dim=-1, keepdim=True), 1e-9)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    else:
-        probs = torch.softmax(logits, dim=-1)
-        idx = _top_k(probs, k)
-        top = torch.gather(probs, -1, idx)
-        w = top / torch.clamp_min(torch.sum(top, dim=-1, keepdim=True), 1e-9)
-        # Switch load-balance loss: E * sum_e f_e * p_e
-        e = cfg.n_experts
-        # one-hot by comparison: F.one_hot checks its range on the host
-        one_hot = (idx[..., None] == torch.arange(e, device=idx.device)).to(torch.float32)
-        f_e = torch.mean(torch.sum(one_hot, dim=2), dim=(0, 1)) / k
-        p_e = torch.mean(probs, dim=(0, 1))
-        aux = e * torch.sum(f_e * p_e)
-    return w.to(x.dtype), idx, aux
+        return w.to(x.dtype), idx, None, None
+    probs = torch.softmax(logits, dim=-1)
+    idx = _top_k(probs, k)
+    top = torch.gather(probs, -1, idx)
+    w = top / torch.clamp_min(torch.sum(top, dim=-1, keepdim=True), 1e-9)
+    # one-hot by comparison: F.one_hot checks its range on the host
+    one_hot = (idx[..., None] == torch.arange(cfg.n_experts, device=idx.device)).to(torch.float32)
+    return w.to(x.dtype), idx, probs, torch.sum(one_hot, dim=2)
+
+
+def _balance_loss(probs, counts, cfg: ModelConfig, device) -> torch.Tensor:
+    """Switch's load-balance loss, ``E * sum_e f_e * p_e`` with ``f_e`` the
+    share of assignments and ``p_e`` the mean probability of expert e over
+    every group and token; 0 under aux-free routing (``probs`` None)."""
+    if probs is None:
+        return torch.zeros((), dtype=torch.float32, device=device)
+    f_e = torch.mean(counts, dim=(0, 1)) / cfg.experts_per_token
+    p_e = torch.mean(probs, dim=(0, 1))
+    return cfg.n_experts * torch.sum(f_e * p_e)
 
 
 def _dispatch_indices(
@@ -226,21 +254,156 @@ def _moe_chunk(params, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor,
     return out.view(g_dim, t_dim, d), aux
 
 
+def _local_maps(maps: SlotMaps, shard: int, e_local: int, rows_per_expert: int) -> SlotMaps:
+    """``maps`` seen from the rank that holds experts ``[shard * e_local,
+    (shard + 1) * e_local)``: its capacity rows (a contiguous block, the
+    rows being expert-major) renumbered from 0, and every capacity row of
+    another rank's experts sent to the zero row past its own."""
+    n = e_local * rows_per_expert
+    lo = shard * n
+
+    def mine(rows: torch.Tensor) -> torch.Tensor:
+        return torch.where((rows >= lo) & (rows < lo + n), rows - lo, n)
+
+    return SlotMaps(maps.token[lo:lo + n], mine(maps.choices), maps.assignment[lo:lo + n],
+                    mine(maps.assignment_row))
+
+
+def _moe_chunk_mesh(params, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_moe_chunk` on a mesh: x a DTensor at ``"btd"`` (groups, the
+    batch rows, over the data axes), the expert weights' expert dim over
+    the model axes (the reference's ``param_placements``).  Four
+    ``local_map`` calls, each on a rank's own groups: the routing (the
+    router whole on every rank, every expert scored); the dispatch (the
+    slot maps of all experts, then the rows of this rank's experts: its
+    share of the reference's ``"gecd"`` buffer); the rank's experts'
+    products; the combine, each token's slots of this rank's experts
+    summed in ascending expert id as on one card, a partial sum over the
+    model axes that the ``"btd"`` placement reduces (the reference's EP
+    combine).  The balance loss is taken over every group: the routing's
+    probabilities and choices gathered whole, in rank order, then the
+    one-card sums.
+
+    On a (1, 1) mesh every bit equals :func:`_moe_chunk`'s.  Where the
+    experts split over the model axes a token's output is the sum of each
+    rank's partial sums, which rounds otherwise than one left-to-right sum
+    over its k slots."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x.device_mesh
+    nd = mesh.ndim
+    x = shard(x, "btd")
+    x_pl = tuple(x.placements)
+    batch = [i for i, p in enumerate(x_pl) if p == Shard(0)]
+    experts = [i for i, p in enumerate(params["w_gate"].placements) if p == Shard(0)]
+    shard_idx, n_shards = mesh_rank(mesh, experts)
+    e_local = cfg.n_experts // n_shards
+    _, t_dim, d = x.shape
+    cap = capacity(t_dim, cfg)
+
+    def pl(**dims: Any) -> tuple:
+        """One placement a mesh dim: ``batch=`` on the batch dims,
+        ``experts=`` on the expert dims, Replicate elsewhere."""
+        return tuple(dims["batch"] if i in batch and "batch" in dims
+                     else dims["experts"] if i in experts and "experts" in dims
+                     else Replicate() for i in range(nd))
+
+    rep = pl()
+    groups = pl(batch=Shard(0))
+
+    # routing: every expert scored on each rank's groups
+    aux_free = cfg.router_aux_free
+    route_in = [params["router"]] + ([params["router_bias"].detach()] if aux_free else [])
+
+    def route(xl, router, bias=None):
+        p = {"router": router} if bias is None else {"router": router, "router_bias": bias}
+        w, idx, probs, counts = _route_parts(p, xl, cfg)
+        return (w, idx) if aux_free else (w, idx, probs, counts)
+
+    routed = local_map(route, out_placements=(groups,) * (2 if aux_free else 4),
+                       in_placements=(x_pl,) + (rep,) * len(route_in),
+                       in_grad_placements=(x_pl, pl(batch=Partial())) + (rep,) * aux_free,
+                       device_mesh=mesh, redistribute_inputs=True)(x, *route_in)
+    w, idx = routed[:2]
+    if aux_free:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    else:
+        aux = _balance_loss(routed[2].redistribute(mesh, rep), routed[3].redistribute(mesh, rep),
+                            cfg, x.device)
+
+    # dispatch: this rank's experts' rows of each of its groups
+    gecd = pl(batch=Shard(0), experts=Shard(1))
+    by_slot = pl(batch=Shard(0), experts=Shard(0))  # capacity rows of the rank's experts
+    by_token = pl(batch=Shard(0), experts=Shard(1))  # token rows, columns localized per rank
+
+    def dispatch(xl, idxl):
+        g = xl.shape[0]
+        tok_slot, k_slot = _dispatch_indices(idxl, t_dim, cfg, cap)
+        maps = _local_maps(_slot_maps(tok_slot, k_slot, t_dim, cfg.experts_per_token),
+                           shard_idx, e_local, g * cap)
+        xs = _GatherRows.apply(xl.reshape(g * t_dim, d), maps.token, maps.choices)
+        return (xs.view(e_local, g, cap, d).transpose(0, 1), maps.token, maps.choices,
+                maps.assignment, maps.assignment_row)
+
+    xs, tok_map, choice_map, asg_map, asg_row_map = local_map(
+        dispatch, out_placements=(gecd, by_slot, by_token, by_slot, by_token),
+        in_placements=(x_pl, groups), in_grad_placements=(pl(batch=Shard(0),
+                                                              experts=Partial()), groups),
+        device_mesh=mesh, redistribute_inputs=True)(x, idx)
+    xs = shard(xs, "gecd")
+
+    # the rank's experts on its rows, weights gathered over the data axes
+    w_pl = pl(experts=Shard(0))
+    w_grad = pl(batch=Partial(), experts=Shard(0))
+
+    def products(xsl, wg, wu, wd):
+        g = xsl.shape[0]
+        flat = xsl.transpose(0, 1).reshape(e_local, g * cap, d)  # the dispatch buffer's own rows
+        ys = _expert_ffn({"w_gate": wg, "w_up": wu, "w_down": wd}, flat)
+        return ys.view(e_local, g, cap, d).transpose(0, 1)
+
+    ys = local_map(products, out_placements=list(gecd), in_placements=(gecd, w_pl, w_pl, w_pl),
+                   in_grad_placements=(gecd, w_grad, w_grad, w_grad), device_mesh=mesh,
+                   redistribute_inputs=True)(xs, params["w_gate"], params["w_up"],
+                                             params["w_down"])
+    ys = shard(ys, "gecd")
+
+    # combine: each token's slots of this rank's experts, in expert order
+    def combine(ysl, wl, tok, choices, asg, asg_row):
+        g = ysl.shape[0]
+        y = ysl.transpose(0, 1).reshape(-1, d)
+        ws = _GatherRows.apply(wl.reshape(-1, 1), asg, asg_row)
+        y = y * ws.to(y.dtype)
+        return _GatherRows.apply(y, choices, tok).view(g, t_dim, d)
+
+    out = local_map(combine, out_placements=list(pl(batch=Shard(0), experts=Partial())),
+                    in_placements=(gecd, groups, by_slot, by_token, by_slot, by_token),
+                    in_grad_placements=(gecd, pl(batch=Shard(0), experts=Partial()), by_slot,
+                                        by_token, by_slot, by_token),
+                    device_mesh=mesh, redistribute_inputs=True)(
+        ys, w, tok_map, choice_map, asg_map, asg_row_map)
+    return shard(out, "btd"), aux
+
+
 def apply(params, x: torch.Tensor, cfg: ModelConfig, *,
           token_chunk: int = 8192) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (out, aux_loss).  Groups = batch rows; long sequences
     run chunk by chunk so one capacity buffer is live at a time, and aux is
-    the mean of the chunks'."""
+    the mean of the chunks'.  A DTensor x on a mesh (under
+    ``act_sharding.use_rules``) runs :func:`_moe_chunk_mesh`."""
     b, s, d = x.shape
+    chunk = (_moe_chunk_mesh if act_sharding.active()[0] is not None and is_dtensor(x)
+             else _moe_chunk)
     if s > token_chunk and s % token_chunk == 0:
         outs, auxs = [], []
         for i in range(s // token_chunk):
-            out_i, aux_i = _moe_chunk(params, x[:, i * token_chunk:(i + 1) * token_chunk], cfg)
+            out_i, aux_i = chunk(params, x[:, i * token_chunk:(i + 1) * token_chunk], cfg)
             outs.append(out_i)
             auxs.append(aux_i)
         out, aux = torch.cat(outs, dim=1), torch.mean(torch.stack(auxs))
     else:
-        out, aux = _moe_chunk(params, x, cfg)
+        out, aux = chunk(params, x, cfg)
     if cfg.n_shared_experts:
         out = out + ffn.apply(params["shared"], x)
     return out, aux

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.distributed import sharding
 from repro_torch.distributed.sharding import default_rules, distribute_tree, logical_mesh, whole
 from repro_torch.models import common, transformer, whisper, xlstm_model, zamba
 
@@ -73,6 +74,65 @@ def get(cfg: ModelConfig) -> ModelApi:
     if cfg.family == "ssm":
         return _XLSTM
     return _TRANSFORMER
+
+
+def on_mesh_families(cfg: ModelConfig) -> None:
+    """Raise unless ``cfg`` runs on a mesh: the decoder-only transformers
+    (dense, MoE, MLA with its MTP head, the VLM stub).
+
+    Raises:
+        NotImplementedError: the Zamba2 hybrid and xLSTM (their SSM states
+            on a mesh) and Whisper (encoder-decoder): ROADMAP Queue 1.
+    """
+    if get(cfg) is not _TRANSFORMER:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family on a mesh (its states placed by the "
+            f"reference's state rules) is still to come: ROADMAP Queue 1")
+
+
+def init_state(
+    cfg: ModelConfig, batch: int, max_len: int, dtype: torch.dtype = torch.bfloat16,
+    device: torch.device | str | None = None, *, mesh: Any = None,
+    rules: sharding.MeshRules | None = None,
+) -> Any:
+    """``get(cfg).init_state`` on ``device``; with a ``mesh`` (a
+    ``DeviceMesh``, at ``rules`` or the reference's defaults) the zero state
+    placed by the reference's ``state_shardings`` rules
+    (``distributed.sharding.distribute_state``), each rank allocating its
+    own shard only.
+
+    Raises:
+        NotImplementedError: a family not yet on a mesh (:func:`on_mesh_families`).
+    """
+    api = get(cfg)
+    if mesh is None:
+        return api.init_state(cfg, batch, max_len, dtype, device)
+    on_mesh_families(cfg)
+    rules = rules or default_rules(logical_mesh(mesh))
+    return sharding.distribute_state(api.init_state(cfg, batch, max_len, dtype, "meta"), mesh,
+                                     rules)
+
+
+def distribute_params(cfg: ModelConfig, params: common.ParamTree, mesh: Any,
+                      rules: sharding.MeshRules | None = None) -> common.ParamTree:
+    """The port's model ``params`` (whole, the same on every rank) as a new
+    model of DTensors on ``mesh`` at the reference's ``param_placements``
+    (``rules`` or the defaults): each per-layer leaf at its stacked leaf's
+    placements without the layer dim.  Each rank keeps its shards; on a
+    (1, 1) mesh a leaf keeps its storage."""
+    rules = rules or default_rules(logical_mesh(mesh))
+    placed = dict(common.tree_leaves(sharding.param_placements(get(cfg).spec(cfg), mesh, rules)))
+    stacks = get(cfg).stack_sizes(cfg)
+    tree: dict[str, Any] = {}
+    for name, p in params.named_parameters():
+        path = tuple(int(n) if n.isdigit() else n for n in name.split("."))
+        if path[0] in stacks:
+            pl = tuple(type(q)(q.dim - 1) if hasattr(q, "dim") else q
+                       for q in placed[(path[0],) + path[2:]])
+        else:
+            pl = placed[path]
+        common.tree_set(tree, path, sharding.distribute(p.detach(), mesh, pl))
+    return common.ParamTree(tree)
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:

@@ -13,8 +13,12 @@ included, in the backward.  With ``cfg.use_mla`` every layer's attention
 is :mod:`repro_torch.models.mla` and its cache the latent one.  On a mesh
 (``distributed.act_sharding.use_rules``, DTensor parameters placed by
 ``distributed.sharding.distribute_tree``) the residual stream is pinned to
-``"btd"`` and the logits to ``"btv"`` at the reference's sites; without
-rules those calls return their argument.
+``"btd"`` and the logits to ``"btv"`` at the reference's sites (and the
+MTP head's embedded labels to ``"btd"``: the vocab-split lookup leaves a
+partial sum); MoE and MLA layers take their own mesh paths
+(``moe._moe_chunk_mesh``, ``mla._absorbed_heads``), and a decode state
+placed by ``registry.init_state(..., mesh=)`` is written in each rank's
+local shard.  Without rules those calls return their argument.
 
 API (uniform across families via models.registry):
   spec(cfg) / init(generator, cfg)       params
@@ -256,7 +260,7 @@ def loss_fn(
     if cfg.mtp_depth and "labels2" in batch:
         # DeepSeek-V3 MTP: predict t+2 from h_t and embed(label_t (=token t+1))
         m = params["mtp"]
-        e_next = common.embed_lookup(params["embed"], batch["labels"]).to(x.dtype)
+        e_next = shard(common.embed_lookup(params["embed"], batch["labels"]).to(x.dtype), "btd")
         h_in = torch.cat([common.rmsnorm(x, m["norm_h"], cfg.norm_eps),
                           common.rmsnorm(e_next, m["norm_e"], cfg.norm_eps)], dim=-1)
         h_in = torch.matmul(h_in, m["proj"].to(x.dtype))

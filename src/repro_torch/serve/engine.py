@@ -8,9 +8,19 @@ prefill attention goes through the flash kernel on the card
 is plain PyTorch.  Sampling draws from an explicit seeded
 ``torch.Generator``: the same seed gives the same tokens, but not
 ``jax.random``'s.
+
+On a mesh (``ServeEngine(..., mesh=)``, a ``DeviceMesh`` over a running
+process group) the engine runs the reference's ``lower_cell`` prefill and
+decode: parameters at ``param_placements``, prompts and tokens at
+``batch_placements``, the decode state at ``state_placements`` (each rank
+allocating its own shard), under the reference's default rules
+(``distributed.act_sharding.use_rules``).  Rank 0 samples from the logits
+gathered whole and broadcasts the tokens, so every rank decodes the same
+ones.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any
@@ -20,6 +30,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.su3.plan import resolve_device
+from repro_torch.distributed import act_sharding, sharding
+from repro_torch.launch import mesh as meshes
 from repro_torch.models import registry
 
 
@@ -36,23 +48,53 @@ class ServeEngine:
     on ``device``: None means CUDA and raises without it; ``"cpu"`` runs the
     plain versions.  The parameters are moved to the device.
 
+    With a ``mesh`` (``launch.mesh.make_mesh``; ``device`` is then the
+    mesh's) the parameters, whole and the same on every rank, are placed
+    on it (each rank keeps its shards), and every rank runs every call.
+
     ``last_timings`` holds the last :meth:`generate`'s phases in seconds:
     ``prefill_s`` and ``decode_s`` (between CUDA events on the card, host
     clock on the CPU) and ``decode_steps``.
+
+    Raises:
+        NotImplementedError: a mesh for a family not yet on one (Zamba2,
+            xLSTM, Whisper: ``registry.on_mesh_families``).
     """
 
     def __init__(self, cfg: ModelConfig, params: torch.nn.Module, scfg: ServeConfig,
-                 device: torch.device | str | None = None):
-        self.device = resolve_device(device)
+                 device: torch.device | str | None = None, *, mesh: Any = None):
         self.cfg = cfg
-        self.params = params.to(self.device)
         self.scfg = scfg
         self.api = registry.get(cfg)
+        self.mesh = mesh
         self.last_timings: dict[str, float] = {}
+        self.rules = None
+        if mesh is None:
+            self.device = resolve_device(device)
+            self.params = params.to(self.device)
+            return
+        registry.on_mesh_families(cfg)
+        self.device = meshes.rank_device(mesh)
+        self.rules = sharding.default_rules(sharding.logical_mesh(mesh))
+        self.params = registry.distribute_params(cfg, params, mesh, self.rules)
+
+    def _rules(self):
+        """The mesh's rules for the block (nothing without a mesh)."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return act_sharding.use_rules(self.mesh, self.rules)
+
+    def _placed(self, batch: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        """``batch`` at ``batch_placements`` on a mesh (whole on every rank
+        in, each rank's rows kept); as it is without one."""
+        if self.mesh is None:
+            return batch
+        return sharding.distribute_batch(batch, self.mesh, self.rules)
 
     def init_state(self, batch: int) -> Any:
-        return self.api.init_state(self.cfg, batch, self.scfg.max_len,
-                                   getattr(torch, self.scfg.cache_dtype), self.device)
+        return registry.init_state(self.cfg, batch, self.scfg.max_len,
+                                   getattr(torch, self.scfg.cache_dtype), self.device,
+                                   mesh=self.mesh, rules=self.rules)
 
     def prefill(self, batch: dict[str, torch.Tensor], state: Any) -> tuple[torch.Tensor, Any]:
         """Last-position logits of the prompts; writes the cache.
@@ -67,12 +109,28 @@ class ServeEngine:
             raise ValueError(f"a prompt of {plen} tokens is shorter than the "
                              f"{self.cfg.n_patches} positions its patches replace")
         m = self.scfg.max_len
-        return self.api.prefill(self.params, batch, state, self.cfg,
-                                q_chunk=min(512, m), kv_chunk=min(1024, m))
+        with self._rules():
+            return self.api.prefill(self.params, self._placed(batch), state, self.cfg,
+                                    q_chunk=min(512, m), kv_chunk=min(1024, m))
 
     def decode(self, tok: torch.Tensor, state: Any, cur_len: int) -> tuple[torch.Tensor, Any]:
         """Logits of one new token per row at position ``cur_len``."""
-        return self.api.decode_step(self.params, {"tokens": tok}, state, cur_len, self.cfg)
+        with self._rules():
+            return self.api.decode_step(self.params, self._placed({"tokens": tok}), state,
+                                        cur_len, self.cfg)
+
+    def _next(self, logits: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
+        """The sampled tokens (B, 1); on a mesh rank 0 samples from the
+        logits gathered whole (a collective) and broadcasts them."""
+        if self.mesh is None:
+            return self._sample(logits, gen)
+        full = sharding.whole(logits)
+        if torch.distributed.get_rank() == 0:
+            tok = self._sample(full, gen)
+        else:
+            tok = torch.empty((full.shape[0], 1), dtype=torch.int32, device=self.device)
+        torch.distributed.broadcast(tok, src=0)
+        return tok
 
     def _sample(self, logits: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
         if self.scfg.temperature <= 0.0:
@@ -117,12 +175,12 @@ class ServeEngine:
         t0 = self._clock()
         logits, state = self.prefill(batch, state)
         t1 = self._clock()
-        tok = self._sample(logits, gen)
+        tok = self._next(logits, gen)
         out = [toks, tok]
         cur = plen
         for _ in range(n_new_tokens - 1):
             logits, state = self.decode(tok, state, cur)
-            tok = self._sample(logits, gen)
+            tok = self._next(logits, gen)
             out.append(tok)
             cur += 1
         t2 = self._clock()

@@ -11,10 +11,12 @@ weights; the model computes in ``cfg.dtype``.
 With a ``mesh`` (``launch.mesh.make_mesh`` over a running process group)
 every rank draws the same weights leaf by leaf, keeps its shards of each
 (``distributed.sharding.distribute``) and of every batch, and runs the
-loop under ``distributed.act_sharding.use_rules``: the dense family's
-(data, model)-sharded training.  ``restore_dir`` restores a checkpoint from
-another directory first, onto this mesh, whatever mesh wrote it (the
-elastic restart).
+loop under ``distributed.act_sharding.use_rules``: (data, model)-sharded
+training of the dense, MoE and MLA families (experts over the model axes,
+MLA's latents whole over them, the MoE balance loss and the MTP loss taken
+over the whole batch, as the reference's metrics are).  ``restore_dir``
+restores a checkpoint from another directory first, onto this mesh,
+whatever mesh wrote it (the elastic restart).
 """
 from __future__ import annotations
 
@@ -31,7 +33,8 @@ from repro_torch.core.su3.plan import resolve_device
 from repro_torch.data.pipeline import DataConfig, PipelineState, TokenPipeline, make_train_batch
 from repro_torch.distributed import act_sharding, sharding
 from repro_torch.distributed.fault_tolerance import HeartbeatMonitor
-from repro_torch.models import common, registry, transformer
+from repro_torch.launch import mesh as meshes
+from repro_torch.models import common, registry
 from repro_torch.optim import adamw
 from repro_torch.train.train_step import make_train_step
 
@@ -47,15 +50,6 @@ class TrainConfig:
     seed: int = 0
     microbatches: int = 1
     opt: adamw.AdamWConfig = dataclasses.field(default_factory=adamw.AdamWConfig)
-
-
-def _check_mesh_family(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is of the dense family, the one a mesh trains
-    (ROADMAP: the other families on a mesh)."""
-    if (registry.get(cfg).loss_fn is not transformer.loss_fn or cfg.is_moe or cfg.use_mla
-            or cfg.mtp_depth):
-        raise ValueError(f"{cfg.name}: a mesh trains the dense family (GQA attention, dense "
-                         f"FFNs); this config is not one")
 
 
 def train(
@@ -87,8 +81,8 @@ def train(
         dev = resolve_device(device)
         params = api.init(torch.Generator(device=dev).manual_seed(tcfg.seed), cfg)
     else:
-        _check_mesh_family(cfg)
-        dev = _mesh_device(mesh)
+        registry.on_mesh_families(cfg)  # the decoder-only transformers (ROADMAP Queue 1)
+        dev = meshes.rank_device(mesh)
         rules = sharding.default_rules(sharding.logical_mesh(mesh))
         spec = api.spec(cfg)
         pl = dict(common.tree_leaves(sharding.param_placements(spec, mesh, rules)))
@@ -153,13 +147,6 @@ def train(
 
 def _silent(_: str) -> None:
     """The log of a rank other than 0."""
-
-
-def _mesh_device(mesh: Any) -> torch.device:
-    """This rank's device on ``mesh``: its card, or the CPU."""
-    if mesh.device_type == "cuda":
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device(mesh.device_type)
 
 
 def _clock(dev: torch.device) -> Any:

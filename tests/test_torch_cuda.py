@@ -1780,3 +1780,85 @@ def test_cuda_lattice_batches_over_the_card_twice_and_one_nccl_rank(cuda_device,
 
     for x, y in zip(serve([cuda_device, cuda_device]), serve(cuda_device)):
         assert torch.equal(torch.view_as_real(x), torch.view_as_real(y))
+
+
+def _family_at_kernel_heads(arch: str):
+    """``arch``'s reduced config in bf16 at head dims a flash kernel of the
+    main path serves: granite-moe at 64 (``flash_group_fwd<64>``,
+    ``flash_bwd_d64``), deepseek-v3 at MLA's (192, 128) (``flash_mla_fwd``,
+    the MLA backward)."""
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="bfloat16")
+    if cfg.use_mla:
+        return mla.with_kernel_heads(cfg)
+    return dataclasses.replace(cfg, d_head=64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "deepseek-v3-671b"])
+def test_cuda_mesh_families_train_and_serve_as_one_card(cuda_device, tmp_path, arch):
+    """The MoE and MLA families on a (1, 1) mesh of one NCCL rank in bf16:
+    2 train steps (experts through ``local_map``, the combine's partial sums
+    reduced on the mesh) and a prefill + 4 greedy tokens through
+    ``ServeEngine(..., mesh=)`` (the state at the reference's state rules),
+    each with the one-card path's bits and its flash launches by kernel
+    name."""
+    from repro_torch.data.pipeline import DataConfig, PipelineState, TokenPipeline
+    from repro_torch.data.pipeline import make_train_batch
+    from repro_torch.distributed import act_sharding, sharding
+    from repro_torch.launch import mesh as meshes
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = _family_at_kernel_heads(arch)
+    api = registry.get(cfg)
+    opt = adamw.AdamWConfig(peak_lr=1e-3, warmup_steps=2, total_steps=20)
+    tree = common.init_params(api.spec(cfg), torch.Generator().manual_seed(0))
+    prompts = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 64), dtype=np.int32)
+    runs = {}
+    meshes.init_distributed("cuda", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        mesh = meshes.make_mesh((1, 1), ("data", "model"))
+        rules = sharding.default_rules(sharding.logical_mesh(mesh))
+        for on_mesh in (False, True):
+            if on_mesh:
+                params = api.from_tree(cfg, sharding.distribute_tree(tree, api.spec(cfg), mesh,
+                                                                     rules))
+            else:
+                params = api.from_tree(cfg, copy.deepcopy(tree)).to(cuda_device)
+            params = common.trainable(params)
+            state = adamw.init(params, opt)
+            step = make_train_step(cfg, opt, q_chunk=64, kv_chunk=64)
+            pipe, ps, losses = TokenPipeline(DataConfig(cfg.vocab_size, 256, 2, seed=1)), \
+                PipelineState(), []
+            fa.LAUNCHES_BY_KERNEL.clear()
+            ctx = act_sharding.use_rules(mesh, rules) if on_mesh else contextlib.nullcontext()
+            with ctx:
+                for _ in range(2):
+                    batch, ps = make_train_batch(pipe, ps, cfg, device=cuda_device)
+                    if on_mesh:
+                        batch = sharding.distribute_batch(batch, mesh, rules)
+                    params, state, m = step(params, state, batch)
+                    losses.append(float(m["loss"]))
+            trained = dict(fa.LAUNCHES_BY_KERNEL)
+            leaves = [p.detach().to_local() if on_mesh else p.detach()
+                      for p in params.parameters()]
+            for p in params.parameters():
+                p.requires_grad_(False)
+            engine = ServeEngine(cfg, params, ServeConfig(max_len=72), device=cuda_device,
+                                 mesh=mesh if on_mesh else None)
+            fa.LAUNCHES_BY_KERNEL.clear()
+            tokens = engine.generate(prompts, 4)
+            runs[on_mesh] = (losses, leaves, trained, tokens, dict(fa.LAUNCHES_BY_KERNEL))
+    finally:
+        torch.distributed.destroy_process_group()
+    losses, leaves, trained, tokens, served = runs[True]
+    assert losses == runs[False][0] and all(np.isfinite(losses))
+    assert all(torch.equal(a, b) for a, b in zip(leaves, runs[False][1]))
+    assert np.array_equal(tokens, runs[False][3])
+    fwd = "flash_mla_fwd" if cfg.use_mla else "flash_group_fwd<64>"
+    bwd = "flash_bwd_dq_mla" if cfg.use_mla else "flash_bwd_d64"
+    mtp = 1 if cfg.mtp_depth else 0  # the MTP head's layer (not rematted)
+    assert trained == runs[False][2] == {fwd: 2 * (2 * cfg.n_layers + mtp),
+                                         bwd: 2 * (cfg.n_layers + mtp)}
+    assert served == runs[False][4] == {fwd: cfg.n_layers}
