@@ -83,6 +83,23 @@ source, started together) and, at the paper's L=32 lattice:
     + 16 tokens; every loss, grad norm, leaf fingerprint, token and the
     prefill logits bitwise, step / prefill / decode ms, peak GB and the
     mesh runs' flash launches by kernel name;
+  * the mesh state families phase (after the mesh families phase): one
+    NCCL rank on a (1, 1) mesh; zamba2-1.2b at full width cut to one group
+    of 6 Mamba2 layers and the shared block trained 2 steps and served
+    against its one-card twin; xlstm-125m (2 blocks) and whisper-tiny
+    (whole) trained and served through ``train.loop.train(mesh=...)`` and
+    ``ServeEngine(..., mesh=...)`` against the one-card runs of their own
+    phases (the same seeded weights, steps, prompts and frames):
+    Mamba2's conv and SSD on each rank's channels and heads, the xLSTM
+    cells on each rank's rows, Whisper's attention on each rank's heads;
+    every loss, grad norm, leaf fingerprint, token and prefill logit
+    bitwise; deepseek-v3 (4 layers) served with ``kv_seq_shard=True``
+    (its latents split along their sequence even on (1, 1): the combine
+    of one part), its tokens equal and its prefill logits within 1e-3 of
+    their max; the combine of 2 and 4 parts of granite-34b's decode cache
+    against ``decode_attention`` within 1e-5; the mesh runs'
+    ``flash_group_fwd<64>``, ``flash_bwd_d64`` and ``flash_mla_fwd``
+    launches by kernel name;
   * the MoE phase, after the qwen3-4b phases have freed the card: on
     full-width, full-depth granite-moe-1b-a400m (24 layers, 32 experts
     top-8, 16/8 heads of 64), ``ServeEngine`` as above (24 flash launches in
@@ -298,6 +315,15 @@ MESH_LOSS_TOL, MESH_LEAF_TOL = 1e-4, 1e-3  # if not bitwise: loss relative, leaf
 # the mesh families phase: granite-moe and deepseek-v3 trained, qwen3-4b,
 # granite-moe and deepseek-v3 served, on one NCCL rank's (1, 1) mesh
 MESH_FAMILY_STEPS, MESH_FAMILY_NEW = 2, 16  # train steps; tokens served after the prompt
+# the mesh state families phase: zamba2-1.2b at full width cut to one group (its own
+# one-card twin beside it: the zamba phase runs 14 layers); xlstm-125m (XLSTM_DEPTH)
+# and whisper-tiny held against their phases' one-card runs; deepseek-v3 (MLA_LAYERS)
+# served on a sequence-sharded latent cache against the mesh families phase's one card
+ZAMBA_MESH_DEPTH = {"n_layers": 6}
+ZAMBA_MESH_REDUCED = {"n_layers": "38 -> 6: one group of 6 Mamba2 layers and the shared block "
+                                  "(the smoke's time limit)"}
+SEQ_SHARD_LOGITS_TOL = 1e-3  # of the logits' max: the combine adds in another order than softmax
+COMBINE_PARTS, COMBINE_TOL = (2, 4), 1e-5  # parts of granite-34b's decode cache; of the max
 # the MoE phase, served and trained at the LM and training shapes above: full
 # width, 24 layers, d_model 1,024, 16/8 heads of 64, 32 experts top-8 (d_ff
 # 512), vocab 49,155, tied embeddings; 1.33 B parameters, 0.40 B active
@@ -1073,6 +1099,10 @@ def main(argv: list[str] | None = None) -> int:
     flash["max_abs_err"] = max(flash["max_abs_err"], gpipe["fwd_err"])
     flash_bwd["max_abs_err"] = max(flash_bwd["max_abs_err"], gpipe["bwd_err"])
 
+    # the one-card runs the mesh state families phase holds its mesh runs against, by
+    # arch and part: filled by the xLSTM, whisper and mesh families phases
+    twins: dict[str, dict] = {}
+
     # -- 5f. the zamba phase: zamba2-1.2b served and trained, the kernels at D=64, G=1 ----
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -1091,13 +1121,13 @@ def main(argv: list[str] | None = None) -> int:
     gc.collect()
     gc.freeze()
     t0 = time.perf_counter()
-    _xlstm_phase(args.seed, hw, failures)
+    _xlstm_phase(args.seed, hw, failures, twins)
     _emit({"phase": "xlstm", "seconds": time.perf_counter() - t0})
 
     # -- 5h. the whisper phase: whisper-tiny served and trained, the kernels at its shapes --
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    whisper = _whisper_phase(args.seed, hw, failures)
+    whisper = _whisper_phase(args.seed, hw, failures, twins)
     _emit({"phase": "whisper", "seconds": time.perf_counter() - t0})
     flash_d64["whisper_serve_launches"] = whisper["serve"]
     flash_d64["whisper_train_launches"] = whisper["train_fwd"]
@@ -1110,7 +1140,7 @@ def main(argv: list[str] | None = None) -> int:
     # -- 5h'. the mesh families: MoE and MLA trained, three families served, (1, 1) NCCL --
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    fam = _mesh_families_phase(args.seed, failures)
+    fam = _mesh_families_phase(args.seed, failures, twins)
     _emit({"phase": "mesh families", "seconds": time.perf_counter() - t0})
     for entry, kname, parts in (
             (flash, D128_FWD_KERNEL, ("serve",)), (flash_d64, "flash_group_fwd<64>",
@@ -1121,6 +1151,23 @@ def main(argv: list[str] | None = None) -> int:
         for part in parts:
             n = fam[part].get(kname, 0)
             entry[f"mesh_families_{part}_launches"] = n
+            entry["launches"] += n
+            if "launches_by_kernel" in entry:
+                entry["launches_by_kernel"][kname] = entry["launches_by_kernel"].get(kname, 0) + n
+
+    # -- 5h''. the mesh state families: Zamba2, xLSTM, Whisper on (1, 1) NCCL, held against
+    # their one-card runs; deepseek-v3 on a sequence-sharded cache; the combine ----------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    state_fam = _mesh_state_families_phase(args.seed, failures, twins)
+    del twins
+    _emit({"phase": "mesh state families", "seconds": time.perf_counter() - t0})
+    for entry, kname, parts in ((flash_d64, "flash_group_fwd<64>", ("train", "serve")),
+                                (flash_bwd_d64, "flash_bwd_d64", ("train",)),
+                                (flash_mla, "flash_mla_fwd", ("serve",))):
+        for part in parts:
+            n = state_fam[part].get(kname, 0)
+            entry[f"mesh_state_families_{part}_launches"] = n
             entry["launches"] += n
             if "launches_by_kernel" in entry:
                 entry["launches_by_kernel"][kname] = entry["launches_by_kernel"].get(kname, 0) + n
@@ -2546,7 +2593,8 @@ def _run_fingerprints(run: dict) -> dict[str, tuple[int, float]]:
     return out
 
 
-def _mesh_families_phase(seed: int, failures: list[str]) -> dict[str, dict[str, int]]:
+def _mesh_families_phase(seed: int, failures: list[str],
+                         twins: dict) -> dict[str, dict[str, int]]:
     """The MoE and MLA families on the mesh path, one NCCL rank on a
     MESH_SHAPE mesh (``file://`` store under ``build/``): granite-moe at
     full width and depth and deepseek-v3 on its 3 dense layers + MTP
@@ -2558,7 +2606,8 @@ def _mesh_families_phase(seed: int, failures: list[str]) -> dict[str, dict[str, 
     mesh=...)`` against ``ServeEngine`` without one on the same weights
     (``_mesh_family_serve``).  Returns the mesh runs' flash launches by
     kernel name: ``train`` and ``serve``, each counted from 0 just before
-    a mesh run and read just after."""
+    a mesh run and read just after.  ``twins`` takes each served arch's
+    one-card run (``_mesh_family_serve``'s ``keep``)."""
     import shutil
     import tempfile
 
@@ -2588,7 +2637,9 @@ def _mesh_families_phase(seed: int, failures: list[str]) -> dict[str, dict[str, 
                 (dataclasses.replace(get_config(LM_ARCH), n_layers=MESH_LAYERS), MESH_REDUCED),
                 (get_config(MOE_ARCH), {}),
                 (dataclasses.replace(get_config(MLA_ARCH), n_layers=MLA_LAYERS), MLA_REDUCED)):
-            add("serve", _mesh_family_serve(cfg, reduced, seed, mesh, rng, failures))
+            add("serve", _mesh_family_serve(cfg, reduced, seed, mesh, rng, failures,
+                                            keep=twins.setdefault(cfg.name, {}).setdefault(
+                                                "serve", {})))
             torch.cuda.empty_cache()
     finally:
         torch.distributed.destroy_process_group()
@@ -2596,62 +2647,38 @@ def _mesh_families_phase(seed: int, failures: list[str]) -> dict[str, dict[str, 
     return found
 
 
-def _mesh_family_train(cfg, reduced: dict, seed: int, mesh, failures: list[str]) -> dict:
+def _mesh_family_train(cfg, reduced: dict, seed: int, mesh, failures: list[str],
+                       per_step: dict | None = None) -> dict:
     """``cfg`` (bf16 compute, f32 weights and moments, TRAIN_BATCH x
-    TRAIN_SEQ tokens a step) trained MESH_FAMILY_STEPS steps on the card
-    and then on ``mesh`` (the first run's state fingerprinted and freed
-    before the second: two deepseek-v3 states do not fit the card);
-    emits the "mesh family train" row and returns the mesh run's flash
-    launches by kernel name."""
+    TRAIN_SEQ tokens a step) trained MESH_FAMILY_STEPS steps on the card,
+    its state fingerprinted and freed (two deepseek-v3 states do not fit
+    the card), then on ``mesh`` against it (``_mesh_twin_train``: the
+    "mesh family train" row); the flash launches by kernel name held
+    against ``per_step`` a step (by default a rematted decoder-only
+    stack's: two forwards and one backward a layer).  Returns them."""
     import torch
 
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train import loop
 
-    dev = torch.device("cuda")
-    quiet = lambda line: None  # noqa: E731
     tcfg = loop.TrainConfig(steps=MESH_FAMILY_STEPS, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
                             log_every=1, seed=seed,
                             opt=AdamWConfig(peak_lr=3e-4, warmup_steps=2,
                                             total_steps=MESH_FAMILY_STEPS))
-    runs = {}
-    for on_mesh in (False, True):
-        gc.collect()  # the last run's cycles, so the peak below is this run's
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        if on_mesh:
-            _reset_counts()
-        run = loop.train(cfg, tcfg, log=quiet, **({"mesh": mesh} if on_mesh else {"device": dev}))
-        torch.cuda.synchronize()
-        by_kernel = _by_kernel() if on_mesh else None
-        runs[on_mesh] = {"history": run["history"], "step_ms": run["step_ms"],
-                         "peak_GB": torch.cuda.max_memory_allocated() / 1e9,
-                         "fingerprints": _run_fingerprints(run), "by_kernel": by_kernel}
-        del run
-        torch.cuda.empty_cache()
-    one, on = runs[False], runs[True]
+    gc.collect()  # the last run's cycles, so the peak below is this run's
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    run = loop.train(cfg, tcfg, log=lambda line: None, device=torch.device("cuda"))
+    torch.cuda.synchronize()
+    twin = {"tcfg": tcfg, "history": run["history"], "step_ms": run["step_ms"],
+            "peak_GB": torch.cuda.max_memory_allocated() / 1e9,
+            "fingerprints": _run_fingerprints(run)}
+    del run
     mtp = cfg.mtp_depth
-    per_step = {_kernel_of(cfg): 2 * cfg.n_layers + mtp, _kernel_of(cfg, True): cfg.n_layers + mtp}
-    expected = {k: n * MESH_FAMILY_STEPS for k, n in per_step.items()}
-    differ = [n for n in one["fingerprints"] if one["fingerprints"][n] != on["fingerprints"][n]]
-    row = {"row": "mesh family train", "arch": cfg.name, "mesh": dict(zip(MESH_AXES, MESH_SHAPE)),
-           "backend": "nccl", "n_layers": cfg.n_layers, "mtp_depth": mtp,
-           "d_model": cfg.d_model, "reduced": reduced, "compute_dtype": cfg.dtype,
-           "master_dtype": "float32", "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
-           "steps": MESH_FAMILY_STEPS, "losses_mesh": [h["loss"] for h in on["history"]],
-           "losses_one_card": [h["loss"] for h in one["history"]],
-           "grad_norms_mesh": [h["grad_norm"] for h in on["history"]],
-           "mesh_step_ms": on["step_ms"], "one_card_step_ms": one["step_ms"],
-           "mesh_peak_GB": on["peak_GB"], "one_card_peak_GB": one["peak_GB"],
-           "leaves_compared": len(one["fingerprints"]), "leaves_differing": differ[:8],
-           "bitwise": on["history"] == one["history"] and not differ,
-           "flash_launches_by_kernel": on["by_kernel"], "expected_launches_by_kernel": expected}
-    row["ok"] = row["bitwise"] and on["by_kernel"] == expected
-    print(f"mesh family train {cfg.name}: mesh step ms {on['step_ms']}, one-card {one['step_ms']}")
-    _emit(row)
-    if not row["ok"]:
-        failures.append(f"mesh family train {cfg.name}: {row}")
-    return on["by_kernel"]
+    if per_step is None:
+        per_step = {_kernel_of(cfg): 2 * cfg.n_layers + mtp,
+                    _kernel_of(cfg, True): cfg.n_layers + mtp}
+    return _mesh_twin_train(cfg, reduced, twin, mesh, per_step, failures, "the card, before")
 
 
 def _kernel_of(cfg, backward: bool = False) -> str:
@@ -2667,21 +2694,23 @@ def _kernel_of(cfg, backward: bool = False) -> str:
     return fa.kernel_name(torch.bfloat16, cfg.head_dim, backward=backward)
 
 
-def _mesh_family_serve(cfg, reduced: dict, seed: int, mesh, rng, failures: list[str]) -> dict:
+def _mesh_family_serve(cfg, reduced: dict, seed: int, mesh, rng, failures: list[str],
+                       expected: dict | None = None, keep: dict | None = None) -> dict:
     """``cfg`` (bf16 weights from the seed, f32 caches) served to LM_BATCH
     prompts of LM_PROMPT tokens + MESH_FAMILY_NEW tokens by ``ServeEngine``
-    on the card, then by ``ServeEngine(..., mesh=mesh)`` on the same
-    weights (placed on the (1, 1) mesh without a copy), twice (the first
-    run's launches counted, the second timed warm); the tokens and the
-    prefill's logits bitwise.  The mesh run's peak holds one transient
-    copy of a layer's weights gathered over ``data`` (FSDP's all-gather,
-    which allocates on a one-rank mesh too).  Emits the "mesh family
-    serve" row and returns the first mesh run's flash launches by kernel
-    name."""
+    on the card, twice (the second timed warm), and its prefill's logits
+    kept (in ``keep``, else a dict of its own, as ``_keep_served`` keeps
+    them); then by ``ServeEngine(..., mesh=mesh)`` on the same weights
+    (placed on the (1, 1) mesh without a copy) against it
+    (``_mesh_twin_serve``: the "mesh family serve" row).  The mesh run's
+    peak holds one transient copy of a layer's weights gathered over
+    ``data`` (FSDP's all-gather, which allocates on a one-rank mesh too).
+    Returns the first mesh run's flash launches by kernel name, held
+    against ``expected`` (by default one launch a layer in prefill, none
+    in decode)."""
     import numpy as np
     import torch
 
-    from repro_torch.distributed import sharding
     from repro_torch.models import registry
     from repro_torch.serve.engine import ServeConfig, ServeEngine
 
@@ -2690,31 +2719,195 @@ def _mesh_family_serve(cfg, reduced: dict, seed: int, mesh, rng, failures: list[
                                    torch.bfloat16)
     scfg = ServeConfig(max_len=LM_PROMPT + MESH_FAMILY_NEW)
     prompts = rng.integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), dtype=np.int32)
-    toks = torch.from_numpy(prompts).to(dev)
-    found = {}
-    for on_mesh in (False, True):
-        engine = ServeEngine(cfg, model, scfg, device=None if on_mesh else dev,
-                             mesh=mesh if on_mesh else None)
-        gc.collect()
+    engine = ServeEngine(cfg, model, scfg, device=dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tokens = engine.generate(prompts, MESH_FAMILY_NEW)
+    engine.generate(prompts, MESH_FAMILY_NEW)
+    warm = engine.last_timings
+    logits, _ = engine.prefill({"tokens": torch.from_numpy(prompts).to(dev)},
+                               engine.init_state(LM_BATCH))
+    twin = keep if keep is not None else {}
+    twin.update(prompts=prompts, tokens=tokens, prefill_logits=logits[:, -1].float().cpu(),
+                max_len=scfg.max_len, new_tokens=MESH_FAMILY_NEW,
+                prefill_ms=warm["prefill_s"] * 1e3,
+                decode_ms_per_token=warm["decode_s"] * 1e3 / warm["decode_steps"],
+                peak_GB=torch.cuda.max_memory_allocated() / 1e9, extras={})
+    del engine, logits
+    if expected is None:
+        expected = {_kernel_of(cfg): cfg.n_layers}  # one a layer in prefill
+    return _mesh_twin_serve(cfg, reduced, model, twin, mesh, expected, failures,
+                            one_card_run="the card, before")
+
+
+def _mesh_state_families_phase(seed: int, failures: list[str],
+                               twins: dict) -> dict[str, dict[str, int]]:
+    """Zamba2, xLSTM and Whisper on the mesh path and decode on a cache
+    split along its sequence, one NCCL rank on a MESH_SHAPE mesh
+    (``file://`` store under ``build/``): zamba2-1.2b at full width cut to
+    ZAMBA_MESH_DEPTH trained MESH_FAMILY_STEPS steps and served against its
+    one-card twin (``_mesh_family_train``, ``_mesh_family_serve``);
+    xlstm-125m (XLSTM_DEPTH) and whisper-tiny trained and served through
+    ``train.loop.train(mesh=...)`` and ``ServeEngine(..., mesh=...)``
+    against the one-card runs of their own phases (``twins``: the same
+    ``TrainConfig``, seeded weights, prompts and frames); deepseek-v3
+    (MLA_LAYERS) served with ``kv_seq_shard=True`` against the mesh
+    families phase's one-card run; then the combine at granite-34b's
+    decode shape (``_combine_check``).  Returns the mesh runs' flash
+    launches by kernel name: ``train`` and ``serve``, each counted from 0
+    just before a mesh run and read just after."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as meshes
+    from repro_torch.models import registry, zamba
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 33)
+    store = tempfile.mkdtemp(dir=ROOT / "build")
+    meshes.init_distributed("cuda", init_method=f"file://{store}/store", rank=0, world_size=1)
+    found = {"train": {}, "serve": {}}
+
+    def add(part: str, by_kernel: dict[str, int]) -> None:
+        for k, n in by_kernel.items():
+            found[part][k] = found[part].get(k, 0) + n
         torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        if on_mesh:
-            _reset_counts()
-        tokens = engine.generate(prompts, MESH_FAMILY_NEW)
-        torch.cuda.synchronize()
-        by_kernel = _by_kernel() if on_mesh else None
-        first = dict(engine.last_timings)
-        tokens_again = engine.generate(prompts, MESH_FAMILY_NEW)
-        warm = dict(engine.last_timings)
-        logits, _ = engine.prefill({"tokens": toks}, engine.init_state(LM_BATCH))
-        found[on_mesh] = {"tokens": tokens, "again": tokens_again,
-                          "logits": sharding.whole(logits).float().cpu(),
-                          "first": first, "warm": warm, "by_kernel": by_kernel,
-                          "peak_GB": torch.cuda.max_memory_allocated() / 1e9}
-        del engine, logits
-    del model
-    one, on = found[False], found[True]
-    expected = {_kernel_of(cfg): cfg.n_layers}  # one a layer in prefill, none in decode
+
+    def init(cfg):
+        return registry.get(cfg).init(torch.Generator(device=dev).manual_seed(seed), cfg,
+                                      torch.bfloat16)
+
+    try:
+        mesh = meshes.make_mesh(MESH_SHAPE, MESH_AXES)
+        cfg = dataclasses.replace(get_config(ZAMBA_ARCH), **ZAMBA_MESH_DEPTH)
+        groups = zamba._counts(cfg)[0]  # the shared block, not rematted: once a step
+        add("train", _mesh_family_train(cfg, ZAMBA_MESH_REDUCED, seed, mesh, failures,
+                                        per_step={_kernel_of(cfg): groups,
+                                                  _kernel_of(cfg, True): groups}))
+        add("serve", _mesh_family_serve(cfg, ZAMBA_MESH_REDUCED, seed, mesh, rng, failures,
+                                        expected={_kernel_of(cfg): groups}))
+        cfg = dataclasses.replace(get_config(XLSTM_ARCH), **XLSTM_DEPTH)
+        twin = twins[XLSTM_ARCH]
+        add("train", _mesh_twin_train(cfg, XLSTM_REDUCED, twin["train"], mesh, {}, failures))
+        add("serve", _mesh_twin_serve(cfg, XLSTM_REDUCED, init(cfg), twin["serve"], mesh, {},
+                                      failures))
+        cfg = get_config(WHISPER_ARCH)
+        n_enc, n_dec, twin = cfg.n_encoder_layers, cfg.n_layers, twins[WHISPER_ARCH]
+        add("train", _mesh_twin_train(cfg, {}, twin["train"], mesh,
+                                      {_kernel_of(cfg): n_enc + 4 * n_dec,
+                                       _kernel_of(cfg, True): n_enc + 2 * n_dec}, failures))
+        add("serve", _mesh_twin_serve(cfg, {}, _matrices_at(init(cfg), 0.02, seed),
+                                      twin["serve"], mesh, {_kernel_of(cfg): n_enc + 2 * n_dec},
+                                      failures))
+        cfg = dataclasses.replace(get_config(MLA_ARCH), n_layers=MLA_LAYERS)
+        add("serve", _mesh_twin_serve(cfg, MLA_REDUCED, init(cfg), twins[MLA_ARCH]["serve"],
+                                      mesh, {_kernel_of(cfg): MLA_LAYERS}, failures,
+                                      kv_seq_shard=True))
+        _combine_check(rng, failures)
+    finally:
+        torch.distributed.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    return found
+
+
+def _mesh_twin_train(cfg, reduced: dict, twin: dict, mesh, per_step: dict,
+                     failures: list[str], one_card_run: str = "its family's phase") -> dict:
+    """``train.loop.train(cfg, twin["tcfg"], mesh=mesh)`` against the
+    one-card run of the same ``TrainConfig`` that ``twin`` holds (its
+    history, step times, peak and fingerprints: ``_train_main_path``'s
+    ``keep``; ``one_card_run`` says where it ran): every loss, grad norm
+    and leaf and moment fingerprint bitwise; the flash launches by kernel
+    name against ``per_step`` a step.  Emits the "mesh family train" row
+    and returns the launches."""
+    import torch
+
+    from repro_torch.train import loop
+
+    tcfg = twin["tcfg"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    run = loop.train(cfg, tcfg, log=lambda line: None, mesh=mesh)
+    torch.cuda.synchronize()
+    by_kernel, peak = _by_kernel(), torch.cuda.max_memory_allocated() / 1e9
+    fingerprints, hist, step_ms = _run_fingerprints(run), run["history"], run["step_ms"]
+    del run
+    differ = [n for n, f in twin["fingerprints"].items() if fingerprints.get(n) != f]
+    expected = {k: n * tcfg.steps for k, n in per_step.items()}
+    row = {"row": "mesh family train", "arch": cfg.name, "mesh": dict(zip(MESH_AXES, MESH_SHAPE)),
+           "backend": "nccl", "n_layers": cfg.n_layers, "mtp_depth": cfg.mtp_depth,
+           "d_model": cfg.d_model, "reduced": reduced, "compute_dtype": cfg.dtype,
+           "master_dtype": "float32", "batch": tcfg.global_batch, "seq": tcfg.seq_len,
+           "steps": tcfg.steps, "one_card_run": one_card_run,
+           "losses_mesh": [h["loss"] for h in hist],
+           "losses_one_card": [h["loss"] for h in twin["history"]],
+           "grad_norms_mesh": [h["grad_norm"] for h in hist], "mesh_step_ms": step_ms,
+           "one_card_step_ms": twin["step_ms"], "mesh_peak_GB": peak,
+           "one_card_peak_GB": twin["peak_GB"], "leaves_compared": len(twin["fingerprints"]),
+           "leaves_differing": differ[:8],
+           "bitwise": (hist == twin["history"] and not differ
+                       and len(fingerprints) == len(twin["fingerprints"])),
+           "flash_launches_by_kernel": by_kernel, "expected_launches_by_kernel": expected}
+    row["ok"] = row["bitwise"] and by_kernel == expected
+    print(f"mesh family train {cfg.name}: mesh step ms {step_ms}, one-card {twin['step_ms']}")
+    _emit(row)
+    if not row["ok"]:
+        failures.append(f"mesh family train {cfg.name}: {row}")
+    return by_kernel
+
+
+def _mesh_twin_serve(cfg, reduced: dict, model, twin: dict, mesh, expected: dict,
+                     failures: list[str], kv_seq_shard: bool = False,
+                     one_card_run: str = "its family's phase") -> dict:
+    """``ServeEngine(..., mesh=mesh, kv_seq_shard=...)`` on ``model`` (the
+    one-card run's seeded weights) over ``twin``'s prompts (and stub
+    inputs), twice, against the one-card run ``twin`` holds
+    (``_keep_served``; ``one_card_run`` says where it ran): the tokens
+    equal, the prefill's last-position
+    logits bitwise, or with ``kv_seq_shard`` (the latents split along their
+    sequence: every cache leaf ``Shard(1)`` on the model axis, a combine of
+    one part) within SEQ_SHARD_LOGITS_TOL of their max; the first run's
+    flash launches by kernel name against ``expected``.  Emits the "mesh
+    family serve" row and returns the launches."""
+    import numpy as np
+    import torch
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.distributed import sharding
+    from repro_torch.models import common
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    dev = torch.device("cuda")
+    engine = ServeEngine(cfg, model, ServeConfig(max_len=twin["max_len"]), mesh=mesh,
+                         kv_seq_shard=kv_seq_shard)
+    extras = {k: v.to(dev) for k, v in twin["extras"].items()} or None
+    prompts, n_new = twin["prompts"], twin["new_tokens"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    tokens = engine.generate(prompts, n_new, extras=extras)
+    torch.cuda.synchronize()
+    by_kernel, first = _by_kernel(), dict(engine.last_timings)
+    again = engine.generate(prompts, n_new, extras=extras)
+    warm = dict(engine.last_timings)
+    state = engine.init_state(prompts.shape[0])
+    batch = {"tokens": torch.from_numpy(prompts).to(dev), **(extras or {})}
+    logits, state = engine.prefill(batch, state)
+    got = sharding.whole(logits)[:, -1].float().cpu()
+    leaves = common.tree_leaves(state)
+    model_dim = MESH_AXES.index("model")  # the sequence: dim 2 of a stacked (L, B, S, H, D)
+    n_split = sum(x.placements[model_dim] == Shard(2 if x.ndim == 5 else 1) for _, x in leaves)
+    n_leaves = len(leaves)
+    del engine, logits, state, leaves, model
+    want = twin["prefill_logits"]
+    err = float((got - want).abs().max() / want.abs().max())
 
     def ms(t: dict) -> dict:
         return {"prefill_ms": t["prefill_s"] * 1e3,
@@ -2722,24 +2915,79 @@ def _mesh_family_serve(cfg, reduced: dict, seed: int, mesh, rng, failures: list[
 
     row = {"row": "mesh family serve", "arch": cfg.name, "mesh": dict(zip(MESH_AXES, MESH_SHAPE)),
            "backend": "nccl", "n_layers": cfg.n_layers, "d_model": cfg.d_model,
-           "reduced": reduced, "dtype": "bfloat16", "cache_dtype": scfg.cache_dtype,
-           "batch": LM_BATCH, "prompt": LM_PROMPT, "new_tokens": MESH_FAMILY_NEW,
-           "mesh_first": ms(on["first"]), "mesh_warm": ms(on["warm"]),
-           "one_card_first": ms(one["first"]), "one_card_warm": ms(one["warm"]),
-           "mesh_peak_GB": on["peak_GB"], "one_card_peak_GB": one["peak_GB"],
-           "tokens_equal": bool(np.array_equal(on["tokens"], one["tokens"])
-                                and np.array_equal(on["again"], one["tokens"])),
-           "prefill_logits_bitwise": bool(torch.equal(on["logits"], one["logits"])),
-           "finite": bool(torch.isfinite(on["logits"]).all()),
-           "flash_launches_by_kernel": on["by_kernel"], "expected_launches_by_kernel": expected}
-    row["ok"] = (row["tokens_equal"] and row["prefill_logits_bitwise"] and row["finite"]
-                 and on["by_kernel"] == expected)
+           "reduced": reduced, "dtype": "bfloat16", "cache_dtype": "float32",
+           "kv_seq_shard": kv_seq_shard, "batch": int(prompts.shape[0]),
+           "prompt": int(prompts.shape[1]), "new_tokens": n_new,
+           "one_card_run": one_card_run, "mesh_first": ms(first), "mesh_warm": ms(warm),
+           "one_card_warm": {"prefill_ms": twin["prefill_ms"],
+                             "decode_ms_per_token": twin["decode_ms_per_token"]},
+           "mesh_peak_GB": torch.cuda.max_memory_allocated() / 1e9,
+           "one_card_peak_GB": twin["peak_GB"],
+           "tokens_equal": bool(np.array_equal(tokens, twin["tokens"])
+                                and np.array_equal(again, twin["tokens"])),
+           "prefill_logits_bitwise": bool(torch.equal(got, want)),
+           "prefill_logits_err_of_max": err, "finite": bool(torch.isfinite(got).all()),
+           "flash_launches_by_kernel": by_kernel, "expected_launches_by_kernel": expected}
+    if kv_seq_shard:
+        row.update(logits_tol_of_max=SEQ_SHARD_LOGITS_TOL, state_leaves=n_leaves,
+                   leaves_split_along_sequence=n_split)
+        close = err <= SEQ_SHARD_LOGITS_TOL and n_split == n_leaves > 0
+    else:
+        close = row["prefill_logits_bitwise"]
+    row["ok"] = row["tokens_equal"] and row["finite"] and close and by_kernel == expected
     print(f"mesh family serve {cfg.name}: mesh {row['mesh_warm']}, one card "
           f"{row['one_card_warm']}")
     _emit(row)
     if not row["ok"]:
         failures.append(f"mesh family serve {cfg.name}: {row}")
-    return on["by_kernel"]
+    return by_kernel
+
+
+def _combine_check(rng, failures: list[str]) -> None:
+    """``attention.combine_partials`` on the card at granite-34b's decode
+    shape (LM_BATCH rows, a cache of LM_MAX_LEN rows, Hq=48 on one kv head
+    of 128; a bf16 query, f32 caches, the first decode step's ``cur_len``):
+    the partials of COMBINE_PARTS parts (``decode_partial``) combined,
+    against the unsplit ``decode_attention`` in f32 within COMBINE_TOL of
+    its max, the same bits twice; each timed beside ``decode_attention``.
+    Emits the "mesh state families combine" row."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention
+
+    dev = torch.device("cuda")
+    cfg = get_config("granite-34b")
+    b, s, hq, hkv, d = LM_BATCH, LM_MAX_LEN, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    cur = LM_PROMPT + 1
+    q = torch.from_numpy(rng.standard_normal((b, 1, hq, d), dtype=np.float32)).to(dev,
+                                                                                torch.bfloat16)
+    k, v = (torch.from_numpy(rng.standard_normal((b, s, hkv, d), dtype=np.float32)).to(dev)
+            for _ in range(2))
+    want = attention.decode_attention(q.float(), k, v, cur)[:, 0]
+    rows = {}
+    for parts in COMBINE_PARTS:
+        n = s // parts
+
+        def combined():
+            return attention.combine_partials([
+                attention.decode_partial(q, k[:, i * n:(i + 1) * n], v[:, i * n:(i + 1) * n],
+                                         cur, offset=i * n) for i in range(parts)])
+
+        got, again = combined(), combined()
+        rows[str(parts)] = {"err_of_max": float((got - want).abs().max() / want.abs().max()),
+                            "bitwise_twice": bool(torch.equal(got, again)),
+                            "ms": _time_ms(combined, 20)}
+    row = {"row": "mesh state families combine",
+           "shape": f"granite-34b decode: B={b}, cache {s} rows, Hq={hq}, Hkv={hkv}, D={d}, "
+                    f"cur_len {cur}; bf16 query, f32 caches",
+           "parts": rows, "tol_of_max": COMBINE_TOL,
+           "decode_attention_ms": _time_ms(lambda: attention.decode_attention(q, k, v, cur), 20)}
+    row["ok"] = all(r["err_of_max"] <= COMBINE_TOL and r["bitwise_twice"] for r in rows.values())
+    _emit(row)
+    if not row["ok"]:
+        failures.append(f"mesh state families combine: {row}")
 
 
 @contextlib.contextmanager
@@ -3157,6 +3405,19 @@ def _served_decode(engine, toks_d, prompt: int, extras: dict | None = None) -> t
     return torch.cat(step_logits, dim=1).float(), prefill_launches, _counts()[fa.LAUNCHES.name]
 
 
+def _keep_served(keep: dict, prompts, tokens, served, speed: dict, max_len: int,
+                 **extras) -> None:
+    """Into ``keep``: a one-card serving run's prompts, generated tokens,
+    prefill logits (``served``'s first position: ``_served_decode``'s f32
+    logits, on the CPU), its ``ServeConfig.max_len``, warm timings
+    (``_generate_twice``'s) and ``extras`` (a family's stub inputs, on the
+    CPU), for a mesh run to be held against."""
+    keep.update(prompts=prompts, tokens=tokens, prefill_logits=served[:, 0].cpu(),
+                max_len=max_len, new_tokens=LM_NEW, prefill_ms=speed["prefill_ms"],
+                decode_ms_per_token=speed["decode_ms_per_token"],
+                peak_GB=speed["peak_memory_GB"], extras=extras)
+
+
 def _serving_profiles(tag: str, engine, toks_d, prompt: int, what: str,
                       extras: dict | None = None, cpu: bool = True) -> tuple[dict, dict]:
     """Where the serving time goes: one prefill of the first ``prompt``
@@ -3182,8 +3443,8 @@ def _serving_profiles(tag: str, engine, toks_d, prompt: int, what: str,
 
 
 def _train_main_path(tag: str, cfg, opt, seed: int, steps: int, seq: int, failures: list[str],
-                     profile_seq: int | None = None,
-                     grads_twice: bool = False) -> tuple[bool, list, dict]:
+                     profile_seq: int | None = None, grads_twice: bool = False,
+                     keep: dict | None = None) -> tuple[bool, list, dict]:
     """``train.loop.train`` on ``cfg`` on the card for ``steps`` steps of
     TRAIN_BATCH x ``seq`` tokens (AdamW ``opt``), the counters set to 0
     just before and read just after, its log and one line a step printed;
@@ -3198,7 +3459,10 @@ def _train_main_path(tag: str, cfg, opt, seed: int, steps: int, seq: int, failur
     activity alone, and no split is timed: every xLSTM block steps through
     time, so a step's time, launches and idle share scale with its length,
     ~1 M launches of a whole step take the profiler minutes to read, and
-    AdamW's eager passes take ~0.1 s of a step's tens.  Returns whether the run took its steps with
+    AdamW's eager passes take ~0.1 s of a step's tens.  ``keep`` (a dict)
+    takes the run's ``TrainConfig``, history, step times, peak and every
+    leaf's and moment's fingerprint (``_run_fingerprints``), for a mesh run
+    to be held against.  Returns whether the run took its steps with
     finite metrics, a first loss (the NLL, where the family adds an aux
     loss) within TRAIN_START_TOL of ``_start_nll`` and no launch of the port's
     but the flash kernels'; its history; and the fields every family's
@@ -3231,6 +3495,9 @@ def _train_main_path(tag: str, cfg, opt, seed: int, steps: int, seq: int, failur
     for h, ms in zip(hist, step_ms):
         _emit({f"{tag}_train_step": h["step"], **{k: v for k, v in h.items() if k != "step"},
                "step_ms": ms})
+    if keep is not None:
+        keep.update(tcfg=tcfg, history=hist, fingerprints=_run_fingerprints(out),
+                    step_ms=step_ms, peak_GB=peak_gb)
     params, opt_state = out["params"], out["opt_state"]
     del out
     n_params = common.count_params(params)
@@ -4677,7 +4944,7 @@ def _zamba_train(seed: int, failures: list[str]) -> tuple[int, int]:
     return fwd, bwd
 
 
-def _xlstm_phase(seed: int, hw, failures: list[str]) -> None:
+def _xlstm_phase(seed: int, hw, failures: list[str], twins: dict) -> None:
     """The xLSTM family on the card at xlstm-125m's full width, cut to
     XLSTM_DEPTH: serving (``_xlstm_serve``) and training (``_xlstm_train``).  It reaches
     no kernel of the port: both cells are plain PyTorch, one time step at a
@@ -4687,13 +4954,14 @@ def _xlstm_phase(seed: int, hw, failures: list[str]) -> None:
     import torch
 
     rng = np.random.default_rng(seed + 22)
-    _xlstm_serve(seed, rng, failures)
+    twin = twins.setdefault(XLSTM_ARCH, {})
+    _xlstm_serve(seed, rng, failures, twin.setdefault("serve", {}))
     torch.cuda.empty_cache()
-    _xlstm_train(seed, failures)
+    _xlstm_train(seed, failures, twin.setdefault("train", {}))
     torch.cuda.empty_cache()
 
 
-def _xlstm_serve(seed: int, rng, failures: list[str]) -> None:
+def _xlstm_serve(seed: int, rng, failures: list[str], keep: dict) -> None:
     """``ServeEngine`` on full-width xlstm-125m cut to XLSTM_DEPTH (random bf16
     weights by the reference's rule, f32 states) over 4 x 1,024-token
     prompts + 32 greedy tokens, the counters set to 0 just before and read
@@ -4701,7 +4969,8 @@ def _xlstm_serve(seed: int, rng, failures: list[str]) -> None:
     state-less teacher forward over the 1,055 served tokens; the launches
     of one mLSTM and one sLSTM block in prefill and in decode; profiles of
     one prefill and 4 decode steps; then the card against the port's CPU
-    path on XLSTM_CUT in f32, logits and every state leaf."""
+    path on XLSTM_CUT in f32, logits and every state leaf.  ``keep`` takes
+    the prompts, tokens, prefill logits and timings (``_keep_served``)."""
     import dataclasses
 
     import numpy as np
@@ -4726,6 +4995,7 @@ def _xlstm_serve(seed: int, rng, failures: list[str]) -> None:
     # the teacher: one state-less forward over the served tokens
     n_real = LM_PROMPT + LM_NEW - 1
     served = _served_decode(engine, toks_d, LM_PROMPT)[0]
+    _keep_served(keep, prompts, tokens, served, speed, LM_MAX_LEN)
     x, _ = xlstm_model.forward(engine.params, {"tokens": toks_d[:, :n_real]}, cfg)
     teacher = _teacher_gap(served, xlstm_model._logits(engine.params, x[:, LM_PROMPT - 1:],
                                                        cfg).float())
@@ -4778,7 +5048,7 @@ def _xlstm_serve(seed: int, rng, failures: list[str]) -> None:
         torch.Generator(device=dev).manual_seed(seed), cfg2), rng, failures)
 
 
-def _xlstm_train(seed: int, failures: list[str]) -> None:
+def _xlstm_train(seed: int, failures: list[str], keep: dict) -> None:
     """``train.loop.train`` on full-width xlstm-125m cut to XLSTM_DEPTH (f32 master
     weights and moments, bf16 compute, each block rematted) for
     XLSTM_TRAIN_STEPS steps (XLSTM_CUTS) through ``_train_main_path`` (no
@@ -4798,7 +5068,7 @@ def _xlstm_train(seed: int, failures: list[str]) -> None:
     cfg = dataclasses.replace(get_config(XLSTM_ARCH), **XLSTM_DEPTH)
     opt = AdamWConfig(peak_lr=3e-4, warmup_steps=2, total_steps=XLSTM_TRAIN_STEPS)
     ok, _, fields = _train_main_path("xlstm", cfg, opt, seed, XLSTM_TRAIN_STEPS, TRAIN_SEQ,
-                                     failures, profile_seq=XLSTM_PROFILE_SEQ)
+                                     failures, profile_seq=XLSTM_PROFILE_SEQ, keep=keep)
     row = {"row": "xlstm train", "arch": cfg.name, "n_layers": cfg.n_layers,
            "d_model": cfg.d_model, "vocab": cfg.vocab_size, "reduced": XLSTM_REDUCED,
            "cut": XLSTM_CUTS,
@@ -4818,7 +5088,7 @@ def _xlstm_train(seed: int, failures: list[str]) -> None:
     _resume_check("xlstm train resume", cfg2, seed, failures)
 
 
-def _whisper_phase(seed: int, hw, failures: list[str]) -> dict[str, int]:
+def _whisper_phase(seed: int, hw, failures: list[str], twins: dict) -> dict[str, int]:
     """The whisper family on the card at whisper-tiny's full width and
     depth: the flash kernels at its shapes against their plain versions
     (``_flash_checks`` over WHISPER_FORMS, ``_bwd_checks`` over
@@ -4844,9 +5114,10 @@ def _whisper_phase(seed: int, hw, failures: list[str]) -> dict[str, int]:
     bwd_f32_err = _bwd_checks(rng, failures,
                               [f for f in WHISPER_BWD_FORMS if f[-1] == "float32"])
     torch.cuda.empty_cache()
-    serve = _whisper_serve(seed, rng, failures)
+    twin = twins.setdefault(WHISPER_ARCH, {})
+    serve = _whisper_serve(seed, rng, failures, twin.setdefault("serve", {}))
     torch.cuda.empty_cache()
-    train_fwd, train_bwd = _whisper_train(seed, failures)
+    train_fwd, train_bwd = _whisper_train(seed, failures, twin.setdefault("train", {}))
     torch.cuda.empty_cache()
     cfg = get_config(WHISPER_ARCH)
     h, d, f = cfg.n_heads, cfg.head_dim, cfg.encoder_len
@@ -4859,7 +5130,7 @@ def _whisper_phase(seed: int, hw, failures: list[str]) -> dict[str, int]:
             "fwd_err": fwd_err, "bwd_err": bwd_err, "bwd_f32_err": bwd_f32_err}
 
 
-def _whisper_serve(seed: int, rng, failures: list[str]) -> int:
+def _whisper_serve(seed: int, rng, failures: list[str], keep: dict) -> int:
     """``ServeEngine`` on full-width, full-depth whisper-tiny (random bf16
     weights from the seed, matrices at std 0.02 (``_matrices_at``), f32
     caches) over 4 x (1,500 seeded frames, a WHISPER_PROMPT-token prompt) +
@@ -4869,7 +5140,9 @@ def _whisper_serve(seed: int, rng, failures: list[str]) -> int:
     cache-less teacher pass over the served tokens on the same frames; the
     launches of the encoder and of one decoder layer in prefill; profiles of one prefill and 4 decode steps; then the card
     against the port's CPU path on the whole model in f32 (matrices at std
-    0.02).  Returns the flash launches of the served generate.
+    0.02).  ``keep`` takes the prompts, frames, tokens, prefill logits and
+    timings (``_keep_served``).  Returns the flash launches of the served
+    generate.
 
     Why std 0.02, as the MoE, MLA and zamba phases serve: the reference's
     rule takes 1/sqrt(4) for every stacked matrix (std 0.5 at d_model 384),
@@ -4904,6 +5177,7 @@ def _whisper_serve(seed: int, rng, failures: list[str]) -> int:
     # the served path again, counted phase by phase, then the teacher
     served, prefill_launches, decode_launches = _served_decode(engine, toks_d, WHISPER_PROMPT,
                                                                extras)
+    _keep_served(keep, prompts, tokens, served, speed, WHISPER_MAX_LEN, frames=frames.cpu())
     n_real = WHISPER_PROMPT + LM_NEW - 1
     x = whisper.forward_train(engine.params, {"tokens": toks_d[:, :n_real], **extras}, cfg)
     teacher = _teacher_gap(served, whisper._logits(engine.params, x[:, WHISPER_PROMPT - 1:],
@@ -4959,7 +5233,7 @@ def _whisper_serve(seed: int, rng, failures: list[str]) -> int:
     return launches
 
 
-def _whisper_train(seed: int, failures: list[str]) -> tuple[int, int]:
+def _whisper_train(seed: int, failures: list[str], keep: dict) -> tuple[int, int]:
     """``train.loop.train`` on full-width, full-depth whisper-tiny (f32 master
     weights and moments, bf16 compute, each decoder layer rematted; the
     reference's init rule) for TRAIN_STEPS steps of TRAIN_BATCH x (1,500
@@ -4982,7 +5256,7 @@ def _whisper_train(seed: int, failures: list[str]) -> tuple[int, int]:
     n_enc, n_dec = cfg.n_encoder_layers, cfg.n_layers
     opt = AdamWConfig(peak_lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
     ok, _, fields = _train_main_path("whisper", cfg, opt, seed, TRAIN_STEPS, WHISPER_TRAIN_SEQ,
-                                     failures)
+                                     failures, keep=keep)
     fwd, bwd = fields["flash_launches"], fields["flash_bwd_launches"]
     per_step = [n_enc + 4 * n_dec, n_enc + 2 * n_dec]
     row = {"row": "whisper train", "arch": cfg.name, "encoder_layers": n_enc,

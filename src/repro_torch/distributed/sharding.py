@@ -764,9 +764,10 @@ def distribute_state(state_tree: Any, mesh: Any, rules: MeshRules, *,
     """A zero state on ``mesh`` at :func:`state_placements`: each leaf of
     ``state_tree`` (its shapes and dtypes, typically on ``meta``) becomes a
     DTensor whose rank allocates zeros for its own shard only; no rank
-    builds a whole cache.  ``kv_seq_shard`` places caches sequence-sharded
-    for the placement table and the dry run; the models refuse to write or
-    decode such a cache (``models.attention.write_cache``)."""
+    builds a whole cache.  ``kv_seq_shard`` places the caches whose kv
+    heads do not divide the model axes along their sequence; the models
+    write each rank's own rows and decode by combining each rank's partial
+    softmax (``models.attention.write_cache``, ``_decode_seq``)."""
     import torch
     from torch.distributed.tensor import DTensor
 

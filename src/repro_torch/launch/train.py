@@ -34,9 +34,8 @@ dense layers (and the MTP layer), 4.29 B parameters, which train on one
 card.  On the card a reduced MLA config keeps deepseek-v3's head dims (qk
 128 + 64, v 128), the flash kernels' MLA pair (``mla.with_kernel_heads``).
 
-``--mesh D,M`` (with ``--pod P``, a (pod, data, model) mesh) trains the
-dense, MoE and MLA families (the decoder-only transformers; Zamba2, xLSTM
-and Whisper are refused) on a ``(data, model)`` mesh, one process a rank under
+``--mesh D,M`` (with ``--pod P``, a (pod, data, model) mesh) trains any
+family on a ``(data, model)`` mesh, one process a rank under
 ``torch.distributed.run``: NCCL over the cards, or gloo with ``--device
 cpu``.  ``--restart-from DIR --alive ... --dead ...`` is the elastic
 restart: ``ElasticMeshPlanner`` (one rank a host, the model axis of

@@ -18,7 +18,12 @@ and backward, on each rank's own heads through ``local_map``
 (:func:`_local_heads`).  A cache placed by the reference's state rules
 (``distributed.sharding.distribute_state``) takes each rank's batch rows
 and kv heads in its own local shard (:func:`write_cache`), and decode
-reads that shard alone (:func:`_decode`).
+reads that shard alone (:func:`_decode`).  A cache placed along its
+sequence (the reference's ``kv_seq_shard``: kv heads that do not divide
+the model axes) takes each rank's own rows; decode then runs
+flash-decoding: each rank's partial softmax over its own keys
+(:func:`decode_partial`), gathered over the ranks and combined in rank
+order (:func:`combine_partials`).
 """
 from __future__ import annotations
 
@@ -48,9 +53,25 @@ def spec(cfg: ModelConfig) -> common.SpecTree:
     return s
 
 
+def _whole_singleton_heads(w: torch.Tensor, dim: int) -> torch.Tensor:
+    """``w`` with a head dim of size 1 whole over the mesh, on a DTensor
+    where a mesh dim of size 1 shards it (MQA's one kv head on a (1, 1)
+    mesh): a view cannot flatten a sharded singleton dim, and the layout
+    moves no data."""
+    if w.shape[dim] != 1 or not sharding.is_dtensor(w):
+        return w
+    from torch.distributed.tensor import Replicate, Shard
+
+    if Shard(dim) not in tuple(w.placements):
+        return w
+    return w.redistribute(w.device_mesh, [Replicate() if p == Shard(dim) else p
+                                          for p in w.placements])
+
+
 def _proj_in(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum("bsd,dhk->bshk") as one matmul over the flattened (h, k)."""
     d, h, k = w.shape
+    w = _whole_singleton_heads(w, 1)
     return torch.matmul(x, w.to(x.dtype).reshape(d, h * k)).unflatten(-1, (h, k))
 
 
@@ -179,31 +200,53 @@ def flash_attention_split(q_nope, q_rope, k_nope, k_rope, v, **kw) -> torch.Tens
     return fa.flash_attention_split(q_nope, q_rope, k_nope, k_rope, v, **kw)
 
 
+def layer_cache(cache: torch.Tensor, i: int) -> torch.Tensor:
+    """Layer ``i`` of a stacked cache (L, B, S, H, D), a view that writes
+    through: a DTensor's layer is a DTensor on its local shard's layer, at
+    the stacked placements without the layer dim."""
+    if not sharding.is_dtensor(cache):
+        return cache[i]
+    from torch.distributed.tensor import DTensor, Shard
+
+    pl = [Shard(p.dim - 1) if isinstance(p, Shard) else p for p in cache.placements]
+    shape = tuple(cache.shape[1:])
+    return DTensor.from_local(cache.to_local()[i], cache.device_mesh, pl, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta").stride())
+
+
+def _seq_dims(cache: torch.Tensor) -> list[int]:
+    """The mesh dims that split a DTensor cache along its sequence (dim 1)."""
+    from torch.distributed.tensor import Shard
+
+    return [i for i, p in enumerate(cache.placements) if p == Shard(1)]
+
+
 def write_cache(cache: torch.Tensor, new: torch.Tensor, start: int) -> None:
     """``cache[:, start:start + Sq] = new`` in place, in the cache's dtype.
     A DTensor cache takes its own rows in each rank's local shard: ``new``
     at the cache's placements (batch rows over the data axes, kv heads over
     the model axes where they divide, as both sets of rules place them),
-    written locally; no cache is gathered.
-
-    Raises:
-        NotImplementedError: a cache sharded along its sequence (the
-            reference's ``kv_seq_shard``): writing and decoding there need a
-            combine across ranks (flash-decoding), ROADMAP Queue 1.
-    """
+    written locally; no cache is gathered.  A cache split along its
+    sequence (``kv_seq_shard``) takes, on each rank, the rows of
+    ``[start, start + Sq)`` that fall in its own sequence range, from
+    ``new`` whole along the sequence."""
     sq = new.shape[1]
     if not sharding.is_dtensor(cache):
         cache[:, start:start + sq] = new.to(cache.dtype)
         return
-    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor import Replicate
 
-    if Shard(1) in tuple(cache.placements):
-        raise NotImplementedError("a cache sharded along its sequence (kv_seq_shard) needs a "
-                                  "combine across ranks to decode (flash-decoding): ROADMAP "
-                                  "Queue 1")
-    if tuple(new.placements) != tuple(cache.placements):
-        new = new.redistribute(cache.device_mesh, cache.placements)
-    cache.to_local()[:, start:start + sq] = new.to_local().to(cache.dtype)
+    mesh = cache.device_mesh
+    seq = _seq_dims(cache)
+    want = tuple(Replicate() if i in seq else p for i, p in enumerate(cache.placements))
+    if tuple(new.placements) != want:
+        new = new.redistribute(mesh, want)
+    local, rows = cache.to_local(), new.to_local()
+    lo = sharding.mesh_rank(mesh, seq)[0] * local.shape[1]
+    a, b = max(start, lo), min(start + sq, lo + local.shape[1])
+    if a < b:
+        local[:, a - lo:b - lo] = rows[:, a - start:b - start].to(cache.dtype)
 
 
 def decode_attention(
@@ -223,13 +266,93 @@ def decode_attention(
     return out.reshape(b, 1, hq, d).to(q.dtype)
 
 
+DecodePartial = tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def softmax_partial(logits: torch.Tensor,
+                    valid: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One part's softmax over its keys (the last dim) in f32: (the max m of
+    the valid logits, the sum l of their exponentials ``exp(logit - m)``,
+    the part's own softmax, invalid keys masked with ``NEG_INF`` as
+    :func:`decode_attention` masks them).  A part with no valid key has a
+    finite max (``NEG_INF``) and l = 0: its weight in
+    :func:`combine_partials` is 0."""
+    logits = torch.where(valid, logits.to(torch.float32), NEG_INF)
+    m = logits.amax(dim=-1)
+    l = torch.where(valid, torch.exp(logits - m[..., None]), 0.0).sum(dim=-1)
+    return m, l, torch.softmax(logits, dim=-1)
+
+
+def decode_partial(q: torch.Tensor, k_part: torch.Tensor, v_part: torch.Tensor, cur_len: int,
+                   offset: int = 0) -> DecodePartial:
+    """:func:`decode_attention` over one part of the cache, the keys at
+    global positions ``offset .. offset + S_part`` (those at or past
+    ``cur_len`` masked), for :func:`combine_partials`.  q (B,1,Hq,D);
+    parts (B,S_part,Hkv,D).  Returns f32 (m (B,Hq): the max logit, l
+    (B,Hq): the sum of exponentials, o (B,Hq,D): the part's output, its
+    own softmax over its keys times v: the whole cache's
+    ``decode_attention`` when the part is the whole cache)."""
+    b, _, hq, d = q.shape
+    _, s, hkv, dv = v_part.shape
+    g = hq // hkv
+    qf = q.reshape(b, hkv, g, d).to(torch.float32) * d**-0.5
+    logits = torch.einsum("bhgd,bkhd->bhgk", qf, k_part.to(torch.float32))
+    valid = offset + torch.arange(s, device=q.device)[None, None, None, :] < cur_len
+    m, l, probs = softmax_partial(logits, valid)
+    o = torch.einsum("bhgk,bkhd->bhgd", probs, v_part.to(torch.float32))
+    return m.reshape(b, hq), l.reshape(b, hq), o.reshape(b, hq, dv)
+
+
+def combine_partials(parts: list[DecodePartial]) -> torch.Tensor:
+    """The attention output of one query's keys from the partials
+    ``[(m, l, o), ...]`` of its parts (:func:`decode_partial`, f32),
+    combined in list order: each part's weight ``l exp(m - M)`` (M the
+    largest max) over the weights' sum, added left to right, times its
+    output.  One part's weight is exactly 1, so one part gives its output's
+    bits.  A plain function: the same bits for the same list, whatever
+    produced it.  Returns o's shape in f32."""
+    m_all = parts[0][0]
+    for m, _, _ in parts[1:]:
+        m_all = torch.maximum(m_all, m)
+    weights = [l * torch.exp(m - m_all) for m, l, _ in parts]
+    total = weights[0]
+    for w in weights[1:]:
+        total = total + w
+    out = None
+    for w, (_, _, o) in zip(weights, parts):
+        term = (w / total)[..., None] * o
+        out = term if out is None else out + term
+    return out
+
+
+def combine_over_ranks(part: DecodePartial, mesh, dims: list[int],
+                       batch_dims: list[int]) -> torch.Tensor:
+    """:func:`combine_partials` of every rank's partial ``part`` (its batch
+    rows first) over the ranks of the mesh dims ``dims``: the partials
+    gathered in rank order (one collective), then combined; the same
+    bits on each of those ranks."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    m, l, o = part
+    packed = torch.cat([m[..., None], l[..., None], o.to(torch.float32)], dim=-1)[None]
+    pl = [Shard(0) if i in dims else Shard(1) if i in batch_dims else Replicate()
+          for i in range(mesh.ndim)]
+    whole = [Replicate() if i in dims else p for i, p in enumerate(pl)]
+    parts = DTensor.from_local(packed, mesh, pl, run_check=False).redistribute(mesh, whole)
+    return combine_partials([(x[..., 0], x[..., 1], x[..., 2:])
+                             for x in parts.to_local().unbind(0)])
+
+
 def _decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
             cur_len: int) -> torch.Tensor:
     """:func:`decode_attention`; on DTensors each rank's query heads against
     the kv heads of its own local cache shard (``local_map``, the heads
-    picked as :func:`_local_heads` picks them), nothing gathered."""
+    picked as :func:`_local_heads` picks them), nothing gathered; on a
+    cache split along its sequence, :func:`_decode_seq`."""
     if not sharding.is_dtensor(q):
         return decode_attention(q, k_cache, v_cache, cur_len)
+    if _seq_dims(k_cache):
+        return _decode_seq(q, k_cache, v_cache, cur_len)
     from torch.distributed.tensor.experimental import local_map
 
     q_pl, layout = _head_layout(q, (k_cache, v_cache))
@@ -241,6 +364,28 @@ def _decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     f = local_map(local, out_placements=list(q_pl), in_placements=(q_pl, kv_pl, kv_pl),
                   device_mesh=q.device_mesh, redistribute_inputs=True)
     return f(q, k_cache, v_cache)
+
+
+def _decode_seq(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                cur_len: int) -> torch.Tensor:
+    """Decode on a cache split along its sequence over the model axes
+    (flash-decoding): every query head on each rank (q gathered over the
+    sequence's mesh dims) against the rank's own keys, its partial
+    (:func:`decode_partial`, global positions from the rank's offset)
+    gathered over those dims and combined in rank order
+    (:func:`combine_partials`): the output whole over them, the same on
+    each rank."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = q.device_mesh
+    seq = _seq_dims(k_cache)
+    batch = [i for i, p in enumerate(k_cache.placements) if p == Shard(0)]
+    q_pl = tuple(Shard(0) if i in batch else Replicate() for i in range(mesh.ndim))
+    ql = q.redistribute(mesh, q_pl).to_local()
+    kl, vl = k_cache.to_local(), v_cache.to_local()
+    offset = sharding.mesh_rank(mesh, seq)[0] * kl.shape[1]
+    out = combine_over_ranks(decode_partial(ql, kl, vl, cur_len, offset), mesh, seq, batch)
+    return DTensor.from_local(out[:, None].to(q.dtype), mesh, q_pl, run_check=False)
 
 
 def init_cache(

@@ -231,8 +231,10 @@ def _whole_rows(g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 def _row_sum(t: torch.Tensor) -> torch.Tensor:
     """(..., d) -> (d,): the sum over every row, as ``reshape(-1, d)`` then
     a sum.  A DTensor (a mesh run) sums its own rows the same way and gives
-    a partial sum over the mesh dims that split them: the one-card path's
-    op on each rank (a view that flattens a sharded dim is refused)."""
+    a partial sum over the mesh dims that split them, and the sum's own
+    columns over the mesh dims that split ``d`` (a norm over ``"mlp"``
+    channels, Mamba2's and xLSTM's): the one-card path's op on each rank (a
+    view that flattens a sharded dim is refused)."""
     from repro_torch.distributed.sharding import is_dtensor
 
     d = t.shape[-1]
@@ -242,11 +244,13 @@ def _row_sum(t: torch.Tensor) -> torch.Tensor:
 
     pl = []
     for p in t.placements:
-        if isinstance(p, Shard) and p.dim in (-1, t.ndim - 1):
-            raise ValueError(f"a row sum needs whole rows, got {t.placements}")
-        pl.append(Partial() if isinstance(p, Shard) else p)
-    local = t.to_local().reshape(-1, d).sum(dim=0)
-    return DTensor.from_local(local, t.device_mesh, pl, run_check=False)
+        if isinstance(p, Shard):
+            pl.append(Shard(0) if p.dim in (-1, t.ndim - 1) else Partial())
+        else:
+            pl.append(p)
+    local = t.to_local().reshape(-1, t.to_local().shape[-1]).sum(dim=0)
+    return DTensor.from_local(local, t.device_mesh, pl, run_check=False, shape=torch.Size((d,)),
+                              stride=(1,))
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -258,6 +262,42 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return RMSNorm.apply(x, w, eps)
     return _rmsnorm_fwd(x, w, eps)[0]
+
+
+def conv_on_channels(conv: Callable, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                     state: torch.Tensor | None) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """A depthwise causal conv on a mesh, each rank on its own channels:
+    ``conv(x, w, b, state) -> (out, new state | None)`` through one
+    ``local_map``, x (B, S, C) at ``"btf"`` (batch rows over the data axes,
+    channels over the model axes where they divide), the taps ``w`` (K, C)
+    and bias ``b`` (C,) on the same channels (their gradients partial sums
+    over the data axes), the state (B, K-1, C) at ``"btf"``: the reference's
+    ``conv`` state rule."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.distributed import act_sharding
+
+    ch = act_sharding.placements("btf", tuple(x.shape))
+    n = len(ch)
+    chans = [i for i, q in enumerate(ch) if q == Shard(2)]
+    batch = [i for i, q in enumerate(ch) if q == Shard(0)]
+
+    def on(dim: int, grad: bool = False) -> tuple:
+        return tuple(Shard(dim) if i in chans else Partial() if grad and i in batch
+                     else Replicate() for i in range(n))
+
+    if state is not None and tuple(state.placements) != ch:
+        raise RuntimeError(f"a conv state at {tuple(state.placements)}, expected {ch}")
+    args, pls, grads = (x, w, b), (ch, on(1), on(0)), (ch, on(1, True), on(0, True))
+    if state is None:
+        out = local_map(lambda xl, wl, bl: conv(xl, wl, bl, None)[0], out_placements=list(ch),
+                        in_placements=pls, in_grad_placements=grads, device_mesh=x.device_mesh,
+                        redistribute_inputs=True)(*args)
+        return out, None
+    return local_map(conv, out_placements=(ch, ch), in_placements=pls + (ch,),
+                     in_grad_placements=grads + (ch,), device_mesh=x.device_mesh,
+                     redistribute_inputs=True)(*args, state)
 
 
 def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

@@ -15,6 +15,13 @@ the port writes it in plain PyTorch, which runs on the card as cuBLAS
 products and elementwise kernels.  Where the reference scans over chunks
 (``lax.scan``), the port loops over them in Python, so that one chunk's
 (b, h, q, q) decay matrix exists at a time, as in the reference.
+
+On a mesh (a DTensor ``x`` under ``distributed.act_sharding.use_rules``)
+the mixer runs :func:`_apply_mesh`: ``in_proj``'s columns over the model
+axes (``"btf"``), the causal conv on each rank's conv channels (the conv
+state's shard), the chunk loop and the decode recurrence inside one
+``local_map`` on each rank's batch rows and SSM heads (``"bshp"``,
+``"bhpn"``: the ``ssm`` state's shard), B and C whole on every rank.
 """
 from __future__ import annotations
 
@@ -22,6 +29,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import act_sharding, sharding
+from repro_torch.distributed.act_sharding import shard
 from repro_torch.models import common
 from repro_torch.models.common import ParamSpec
 
@@ -146,7 +155,8 @@ def ssd_chunked(
 def _ssm(params, xs: torch.Tensor, dt_raw: torch.Tensor, b_in: torch.Tensor, c_in: torch.Tensor,
          hprev: torch.Tensor | None, chunk: int) -> tuple[torch.Tensor, torch.Tensor | None]:
     """The mixer's f32 stage, from the model-dtype projections ``xs`` (b, s,
-    h, p), ``dt_raw`` (b, s, h), ``b_in`` and ``c_in`` (b, s, n): dt =
+    h, p), ``dt_raw`` (b, s, h), ``b_in`` and ``c_in`` (b, s, n) and the
+    heads' ``params["dt_bias"]``, ``["a_log"]`` and ``["d_skip"]`` (h,): dt =
     softplus(dt_raw + dt_bias) and A = -exp(a_log) in f32; the chunked SSD
     (from ``hprev`` where given) or, for one token with a state, the
     recurrence; then the skip term D * x, added in f32.  Returns (y (b, s,
@@ -186,6 +196,8 @@ def apply(
     cast to ``x``'s dtype before the gate ``y * silu(z)`` and the gated
     RMSNorm.
     """
+    if sharding.is_dtensor(x):
+        return _apply_mesh(params, x, cfg, state=state, chunk=chunk)
     d_inner, h, p, n, _ = dims(cfg)
     bsz, s, _ = x.shape
     z, xbc, dt_raw = _split_proj(params, x, cfg)
@@ -198,6 +210,89 @@ def apply(
     new_state = None if state is None else {"ssm": hnew.to(state["ssm"].dtype),
                                             "conv": conv_state.to(state["conv"].dtype)}
     y = y.reshape(bsz, s, d_inner).to(x.dtype)
+    y = common.rmsnorm(y * F.silu(z), params["gate_norm"], cfg.norm_eps)
+    return torch.matmul(y, params["out_proj"].to(x.dtype)), new_state
+
+
+def _placed(t: torch.Tensor, want: tuple, what: str) -> torch.Tensor:
+    """``t`` itself, checked to lie at ``want``: a DTensor slice at an offset
+    off the shard grid would have been redistributed silently."""
+    if tuple(t.placements) != tuple(want):
+        raise RuntimeError(f"mamba2 on a mesh: {what} at {tuple(t.placements)}, expected {want}")
+    return t
+
+
+def _apply_mesh(params, x: torch.Tensor, cfg: ModelConfig, *,
+                state: dict[str, torch.Tensor] | None, chunk: int):
+    """:func:`apply` on DTensors, the reference's sites and placements.
+
+    ``in_proj``'s output columns lie over the model axes (``"btf"``), and
+    are gathered whole before the split into z, xBC and dt: the column
+    shards do not fall on those boundaries.  The conv channels and the SSM
+    heads both lie over the model axes, but their shards do not line up
+    (``conv_dim = d_inner + 2N``: at zamba2-1.2b on 2 ranks rank 0's
+    channels end inside head 33, and B and C sit on the last rank), so
+    the causal conv runs on the channel shard the ``conv`` state holds
+    (one ``local_map``); its output is gathered whole, x goes to each
+    rank's heads (the ``ssm`` state's shard) and B and C whole to every
+    model rank.  The chunk loop, or one token's recurrence, then runs in
+    one ``local_map`` on each rank's batch rows and heads, with the heads'
+    ``dt_bias``, ``a_log`` and ``d_skip``; B's and C's gradients are
+    partial sums over the model axes that split the heads.  The gate and
+    the gated RMSNorm run on each rank's channels, ``out_proj`` gives a
+    partial sum over the model axes.  On a (1, 1) mesh every op is the
+    one-card path's, on the same local tensors."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    d_inner, h, p, n, conv_dim = dims(cfg)
+    bsz, s, _ = x.shape
+    mesh = x.device_mesh
+    zxbcdt = shard(torch.matmul(x, params["in_proj"].to(x.dtype)), "btf")
+    rows = act_sharding.placements("btd", tuple(zxbcdt.shape))  # batch rows, columns whole
+    zxbcdt = zxbcdt.redistribute(mesh, rows)
+    z = _placed(zxbcdt[..., :d_inner], rows, "z")
+    xbc = _placed(zxbcdt[..., d_inner:d_inner + conv_dim], rows, "xBC")
+    dt_raw = _placed(zxbcdt[..., d_inner + conv_dim:], rows, "dt")
+
+    # the causal conv on each rank's channels
+    def conv(xl, wl, bl, st):
+        return _causal_conv({"conv_w": wl, "conv_b": bl}, xl, st, cfg)
+
+    xbc_c, conv_state = common.conv_on_channels(
+        conv, xbc, params["conv_w"], params["conv_b"], None if state is None else state["conv"])
+
+    # x to each rank's heads, B and C whole
+    xbc_c = xbc_c.redistribute(mesh, rows)
+    xs = shard(_placed(xbc_c[..., :d_inner], rows, "x").reshape(bsz, s, h, p), "bshp")
+    b_in = _placed(xbc_c[..., d_inner:d_inner + n], rows, "B")
+    c_in = _placed(xbc_c[..., d_inner + n:], rows, "C")
+    hp = tuple(xs.placements)
+    heads = [i for i, q in enumerate(hp) if q == Shard(2)]
+    # the heads' dt_bias, a_log, d_skip: their gradients partial sums over the batch rows
+    vec_pl = tuple(Shard(0) if i in heads else Replicate() for i in range(mesh.ndim))
+    vec_grad = tuple(Shard(0) if i in heads else Partial() if q == Shard(0) else Replicate()
+                     for i, q in enumerate(rows))
+    bc_grad = tuple(Partial() if i in heads else q for i, q in enumerate(rows))
+    st_pl = act_sharding.placements("bhpn", (bsz, h, p, n))
+    ssm_args = (xs, dt_raw, b_in, c_in, params["dt_bias"], params["a_log"], params["d_skip"])
+    ssm_in = (hp, hp, rows, rows, vec_pl, vec_pl, vec_pl)
+    ssm_grad = (hp, hp, bc_grad, bc_grad, vec_grad, vec_grad, vec_grad)
+
+    def ssm(xl, dtl, bl, cl, dtb, alog, dsk, *hprev):
+        vecs = {"dt_bias": dtb, "a_log": alog, "d_skip": dsk}
+        y, hnew = _ssm(vecs, xl, dtl, bl, cl, hprev[0] if hprev else None, chunk)
+        y = y.reshape(y.shape[0], y.shape[1], -1).to(x.dtype)
+        return (y, hnew) if hprev else y
+
+    st = () if state is None else (_placed(state["ssm"], st_pl, "the ssm state"),)
+    out = local_map(ssm, out_placements=(hp, st_pl) if st else list(hp),
+                    in_placements=ssm_in + (st_pl,) * len(st),
+                    in_grad_placements=ssm_grad + (st_pl,) * len(st), device_mesh=mesh,
+                    redistribute_inputs=True)(*ssm_args, *st)
+    y, new_state = (out[0], {"ssm": out[1].to(state["ssm"].dtype),
+                             "conv": conv_state.to(state["conv"].dtype)}) if st else (out, None)
+    z = z.redistribute(mesh, y.placements)
     y = common.rmsnorm(y * F.silu(z), params["gate_norm"], cfg.norm_eps)
     return torch.matmul(y, params["out_proj"].to(x.dtype)), new_state
 

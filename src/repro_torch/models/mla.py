@@ -30,7 +30,10 @@ whole over the model axes (``attention.flash_attention_split``), the latent
 stays whole over the model axes (the reference's rules keep ``latent``
 replicated), the cache is written in each rank's local shard (batch rows
 over the data axes) and the absorbed decode runs on each rank's heads
-against that shard (:func:`_absorbed_heads`).
+against that shard (:func:`_absorbed_heads`).  Latents split along their
+sequence (the reference's ``kv_seq_shard``) take each rank's own rows, and
+the absorbed decode combines each rank's partial softmax over them
+(:func:`_absorbed_seq`).
 """
 from __future__ import annotations
 
@@ -151,6 +154,8 @@ def apply(
                                               causal=True, q_chunk=q_chunk, kv_chunk=kv_chunk)
         return _proj_out(out, params["wo"]), cache
     weights = (params["w_uk"], params["w_uv"], params["wo"])
+    if sharding.is_dtensor(q_nope) and attention._seq_dims(cache["ckv"]):
+        return _absorbed_seq(weights, q_nope, q_rope, cache, start + 1, scale), cache
     if sharding.is_dtensor(q_nope):
         return _absorbed_heads(weights, q_nope, q_rope, cache, start + 1, scale), cache
     return _absorbed(*weights, q_nope, q_rope, cache["ckv"], cache["k_rope"], start + 1,
@@ -204,6 +209,60 @@ def _absorbed_heads(weights, q_nope, q_rope, cache, cur_len: int, scale: float) 
                                  tuple(rope_c.placements)),
                   device_mesh=mesh, redistribute_inputs=True)
     return f(*weights, q_nope, q_rope, ckv, rope_c)
+
+
+def _absorbed_seq(weights, q_nope, q_rope, cache, cur_len: int, scale: float) -> torch.Tensor:
+    """:func:`_absorbed` on latents split along their sequence over the
+    model axes (``kv_seq_shard``): each rank folds w_uk into its own query
+    heads, the folded queries and q_rope gathered whole over the model
+    axes; every head scores the rank's own latents (global positions from
+    its offset), its partial softmax (m, l and the latent context of its
+    own softmax, :func:`_absorbed`'s ops on the rank's rows) gathered over
+    the sequence's mesh dims and combined in rank order
+    (``attention.combine_partials``: one part gives :func:`_absorbed`'s
+    bits); then each rank's heads of
+    the context through its w_uv and wo, a partial sum over the model axes
+    that split the heads (as in :func:`_absorbed_heads`)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q_nope.device_mesh
+    ckv, rope_c = cache["ckv"], cache["k_rope"]
+    seq = attention._seq_dims(ckv)
+    batch = [i for i, p in enumerate(ckv.placements) if p == Shard(0)]
+    q_pl = act_sharding.placements("bthd", tuple(q_nope.shape))
+    heads = [i for i, p in enumerate(q_pl) if p == Shard(2)]
+    w_pl = tuple(Shard(1) if i in heads else Replicate() for i in range(mesh.ndim))
+    wo_pl = tuple(Shard(0) if i in heads else Replicate() for i in range(mesh.ndim))
+    rows = tuple(Shard(0) if i in batch else Replicate() for i in range(mesh.ndim))
+    w_uk, w_uv, wo = weights
+    dt = q_nope.dtype
+
+    def fold(qn, wk):
+        return torch.einsum("bshk,rhk->bshr", qn, wk.to(dt))
+
+    q_abs = local_map(fold, out_placements=list(q_pl), in_placements=(q_pl, w_pl),
+                      device_mesh=mesh, redistribute_inputs=True)(q_nope, w_uk)
+    q_abs = q_abs.redistribute(mesh, rows).to_local()[:, 0]
+    q_r = q_rope.redistribute(mesh, rows).to_local()[:, 0]
+    c_l, r_l = ckv.to_local().to(dt), rope_c.to_local().to(dt)
+    s_lat = torch.einsum("bhr,bsr->bhs", q_abs, c_l)
+    s_rope = torch.einsum("bhk,bsk->bhs", q_r, r_l)
+    offset = sharding.mesh_rank(mesh, seq)[0] * c_l.shape[1]
+    valid = offset + torch.arange(c_l.shape[1], device=c_l.device)[None, None, :] < cur_len
+    m, l, probs = attention.softmax_partial((s_lat + s_rope).to(torch.float32) * scale, valid)
+    o = torch.einsum("bhs,bsr->bhr", probs.to(dt), c_l)  # as _absorbed: probs in dt
+    ctx = attention.combine_over_ranks((m, l, o), mesh, seq, batch)
+    ctx = DTensor.from_local(ctx.to(dt), mesh, rows, run_check=False)
+    ctx_pl = tuple(Shard(1) if i in heads else p for i, p in enumerate(rows))
+    out_pl = [Partial() if i in heads else p for i, p in enumerate(q_pl)]
+
+    def unfold(c, wv, w_o):
+        out = torch.einsum("bhr,rhk->bhk", c, wv.to(dt))[:, None]
+        return torch.einsum("bshk,hkd->bsd", out, w_o.to(dt))
+
+    return local_map(unfold, out_placements=out_pl, in_placements=(ctx_pl, w_pl, wo_pl),
+                     device_mesh=mesh, redistribute_inputs=True)(ctx, w_uv, wo)
 
 
 def mla_ref(params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor) -> torch.Tensor:

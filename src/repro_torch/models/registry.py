@@ -76,41 +76,23 @@ def get(cfg: ModelConfig) -> ModelApi:
     return _TRANSFORMER
 
 
-def on_mesh_families(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` runs on a mesh: the decoder-only transformers
-    (dense, MoE, MLA with its MTP head, the VLM stub).
-
-    Raises:
-        NotImplementedError: the Zamba2 hybrid and xLSTM (their SSM states
-            on a mesh) and Whisper (encoder-decoder): ROADMAP Queue 1.
-    """
-    if get(cfg) is not _TRANSFORMER:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family on a mesh (its states placed by the "
-            f"reference's state rules) is still to come: ROADMAP Queue 1")
-
-
 def init_state(
     cfg: ModelConfig, batch: int, max_len: int, dtype: torch.dtype = torch.bfloat16,
     device: torch.device | str | None = None, *, mesh: Any = None,
-    rules: sharding.MeshRules | None = None,
+    rules: sharding.MeshRules | None = None, kv_seq_shard: bool = False,
 ) -> Any:
     """``get(cfg).init_state`` on ``device``; with a ``mesh`` (a
     ``DeviceMesh``, at ``rules`` or the reference's defaults) the zero state
     placed by the reference's ``state_shardings`` rules
-    (``distributed.sharding.distribute_state``), each rank allocating its
-    own shard only.
-
-    Raises:
-        NotImplementedError: a family not yet on a mesh (:func:`on_mesh_families`).
-    """
+    (``distributed.sharding.distribute_state``; ``kv_seq_shard`` places the
+    caches whose kv heads do not divide the model axes along their
+    sequence), each rank allocating its own shard only."""
     api = get(cfg)
     if mesh is None:
         return api.init_state(cfg, batch, max_len, dtype, device)
-    on_mesh_families(cfg)
     rules = rules or default_rules(logical_mesh(mesh))
     return sharding.distribute_state(api.init_state(cfg, batch, max_len, dtype, "meta"), mesh,
-                                     rules)
+                                     rules, kv_seq_shard=kv_seq_shard)
 
 
 def distribute_params(cfg: ModelConfig, params: common.ParamTree, mesh: Any,

@@ -24,6 +24,16 @@ Decode state, stacked over the decoder layers as the reference's:
    "cross_k", "cross_v": (L, B, encoder_len, H, hd)}
 Prefill fills the cross K/V from the encoder's output once; a call writes
 the caches in place and returns the same state.
+
+On a mesh (DTensor parameters, ``distributed.act_sharding.use_rules``)
+q, k and v are pinned to ``"bthd"`` at the reference's sites, so every
+attention runs the flash kernel on each rank's heads
+(``attention._local_heads``), and the logits to ``"btv"``.  The stacked
+caches lie at ``state_placements`` (the reference's ``state_shardings``):
+each layer is written in each rank's local shard (``attention.layer_cache``,
+``write_cache``), and decode reads it there (``attention._decode``: each
+rank's heads, or, on a cache split along its sequence, each rank's
+partial softmax combined).
 """
 from __future__ import annotations
 
@@ -34,6 +44,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.act_sharding import shard
 from repro_torch.models import attention, common, ffn
 from repro_torch.models.common import ParamSpec, ParamTree
 
@@ -117,11 +128,14 @@ def init(generator: torch.Generator, cfg: ModelConfig, dtype: torch.dtype = torc
     return from_tree(cfg, common.init_params(spec(cfg), generator, dtype))
 
 
+def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x's heads by ``w`` (d, h, hd), pinned to ``"bthd"``."""
+    return shard(attention._proj_in(x, w), "bthd")
+
+
 def _mha(params, xq: torch.Tensor, xkv: torch.Tensor, *, causal: bool, q_chunk: int,
          kv_chunk: int) -> torch.Tensor:
-    q = attention._proj_in(xq, params["wq"])
-    k = attention._proj_in(xkv, params["wk"])
-    v = attention._proj_in(xkv, params["wv"])
+    q, k, v = _heads(xq, params["wq"]), _heads(xkv, params["wk"]), _heads(xkv, params["wv"])
     out = attention.flash_attention(q, k, v, causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk)
     return attention._proj_out(out, params["wo"])
 
@@ -175,7 +189,7 @@ def forward_train(
 
 def _logits(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     h = common.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return torch.matmul(h, params["lm_head"].to(h.dtype))
+    return shard(torch.matmul(h, params["lm_head"].to(h.dtype)), "btv")
 
 
 def loss_fn(
@@ -213,19 +227,22 @@ def prefill(
     enc = encode(params, batch["frames"], cfg, q_chunk=q_chunk, kv_chunk=kv_chunk)
     s = batch["tokens"].shape[1]
     x = _embed(params, batch["tokens"], torch.arange(s, device=enc.device), cfg)
+    layer = attention.layer_cache
     for i, lp in enumerate(params["dec_layers"]):
         h = common.rmsnorm(x, lp["self_norm"], cfg.norm_eps)
-        q, k, v = (attention._proj_in(h, lp["self"][w]) for w in ("wq", "wk", "wv"))
-        state["self_k"][i, :, :s] = k.to(state["self_k"].dtype)
-        state["self_v"][i, :, :s] = v.to(state["self_v"].dtype)
+        q, k, v = (_heads(h, lp["self"][w]) for w in ("wq", "wk", "wv"))
+        attention.write_cache(layer(state["self_k"], i), k, 0)
+        attention.write_cache(layer(state["self_v"], i), v, 0)
         out = attention.flash_attention(q, k, v, causal=True, q_chunk=q_chunk, kv_chunk=kv_chunk)
         x = x + attention._proj_out(out, lp["self"]["wo"])
         h = common.rmsnorm(x, lp["cross_norm"], cfg.norm_eps)
-        state["cross_k"][i] = attention._proj_in(enc, lp["cross"]["wk"]).to(state["cross_k"].dtype)
-        state["cross_v"][i] = attention._proj_in(enc, lp["cross"]["wv"]).to(state["cross_v"].dtype)
-        qx = attention._proj_in(h, lp["cross"]["wq"])
-        out = attention.flash_attention(qx, state["cross_k"][i].to(x.dtype),
-                                        state["cross_v"][i].to(x.dtype), causal=False,
+        # the cross K/V in the cache's dtype, written, and attended as the cache holds them
+        ck = _heads(enc, lp["cross"]["wk"]).to(state["cross_k"].dtype)
+        cv = _heads(enc, lp["cross"]["wv"]).to(state["cross_v"].dtype)
+        attention.write_cache(layer(state["cross_k"], i), ck, 0)
+        attention.write_cache(layer(state["cross_v"], i), cv, 0)
+        qx = _heads(h, lp["cross"]["wq"])
+        out = attention.flash_attention(qx, ck.to(x.dtype), cv.to(x.dtype), causal=False,
                                         q_chunk=q_chunk, kv_chunk=kv_chunk)
         x = x + attention._proj_out(out, lp["cross"]["wo"])
         h = common.rmsnorm(x, lp["ffn_norm"], cfg.norm_eps)
@@ -247,18 +264,19 @@ def decode_step(
     x = _embed(params, batch["tokens"],
                torch.full((b, 1), float(cur), device=batch["tokens"].device), cfg)
     f = state["cross_k"].shape[2]
+    layer = attention.layer_cache
     for i, lp in enumerate(params["dec_layers"]):
         h = common.rmsnorm(x, lp["self_norm"], cfg.norm_eps)
-        q, k, v = (attention._proj_in(h, lp["self"][w]) for w in ("wq", "wk", "wv"))
-        state["self_k"][i, :, cur:cur + 1] = k.to(state["self_k"].dtype)
-        state["self_v"][i, :, cur:cur + 1] = v.to(state["self_v"].dtype)
-        out = attention.decode_attention(q, state["self_k"][i].to(dt), state["self_v"][i].to(dt),
-                                         cur + 1)
+        q, k, v = (_heads(h, lp["self"][w]) for w in ("wq", "wk", "wv"))
+        attention.write_cache(layer(state["self_k"], i), k, cur)
+        attention.write_cache(layer(state["self_v"], i), v, cur)
+        out = attention._decode(q, layer(state["self_k"], i).to(dt),
+                                layer(state["self_v"], i).to(dt), cur + 1)
         x = x + attention._proj_out(out, lp["self"]["wo"])
         h = common.rmsnorm(x, lp["cross_norm"], cfg.norm_eps)
-        qx = attention._proj_in(h, lp["cross"]["wq"])
-        out = attention.decode_attention(qx, state["cross_k"][i].to(dt),
-                                         state["cross_v"][i].to(dt), f)
+        qx = _heads(h, lp["cross"]["wq"])
+        out = attention._decode(qx, layer(state["cross_k"], i).to(dt),
+                                layer(state["cross_v"], i).to(dt), f)
         x = x + attention._proj_out(out, lp["cross"]["wo"])
         h = common.rmsnorm(x, lp["ffn_norm"], cfg.norm_eps)
         x = x + ffn.apply_gelu(lp["ffn"], h)

@@ -13,6 +13,16 @@ the cells and their states are f32, as in the reference.
 mLSTM state: {"c": (B,H,dk,dv), "n": (B,H,dk), "m": (B,H), "conv": (B,K-1,d_inner)}
 sLSTM state: {"c", "n", "m", "h": (B,d_inner)}
 A call with a state returns a new state in the state's dtype.
+
+On a mesh (a DTensor ``x`` under ``distributed.act_sharding.use_rules``)
+the up projections put their columns over the model axes (``"btf"``, the
+reference's site), the mLSTM's causal conv runs on each rank's channels
+(the ``conv`` state's shard), the projections into q, k, v and the gates
+contract those channels (a partial sum over the model axes, reduced), and
+each cell's time loop runs inside one ``local_map`` on each rank's batch
+rows with the heads whole: the reference's state rule places the cells'
+states by batch only.  The output norms and the down projections run on
+each rank's channels.
 """
 from __future__ import annotations
 
@@ -20,6 +30,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import act_sharding, sharding
+from repro_torch.distributed.act_sharding import shard
 from repro_torch.models import common
 from repro_torch.models.common import ParamSpec
 
@@ -124,37 +136,91 @@ def mlstm_apply(
     """The mLSTM block's mixer: x (B, S, d) -> (B, S, d), and the new state
     when one is given."""
     d_inner, h, p = _dims(cfg)
-    bsz, s, _ = x.shape
     dt, f32 = x.dtype, torch.float32
-    up = torch.matmul(x, params["w_up"].to(dt))
+    mesh = sharding.is_dtensor(x)
+    up = shard(torch.matmul(x, params["w_up"].to(dt)), "btf")
+    if mesh:  # the columns whole before the split: x_in's and z's need not meet the shards
+        up = up.redistribute(x.device_mesh, act_sharding.placements("btd", tuple(up.shape)))
     x_in, z = up[..., :d_inner], up[..., d_inner:]
-    x_c, new_conv = _causal_conv(params, x_in, None if state is None else state["conv"], cfg)
+    conv_state = None if state is None else state["conv"]
+    if mesh:
+        x_c, new_conv = common.conv_on_channels(
+            lambda xl, wl, bl, st: _causal_conv({"conv_w": wl, "conv_b": bl}, xl, st, cfg),
+            x_in, params["conv_w"], params["conv_b"], conv_state)
+    else:
+        x_c, new_conv = _causal_conv(params, x_in, conv_state, cfg)
 
     q = _proj(x_c, params["w_q"]).to(f32)
     k = _proj(x_c, params["w_k"]).to(f32) * (p**-0.5)
     v = _proj(x_in, params["w_v"]).to(f32)
     i_pre = (_proj(x_in, params["w_i"]) + params["b_i"]).to(f32)
     f_pre = (_proj(x_in, params["w_f"]) + params["b_f"]).to(f32)
+    carry = None if state is None else (state["c"], state["n"], state["m"])
+    h_flat, carry = _on_batch_rows(_mlstm_loop, (q, k, v, i_pre, f_pre), carry, 3, dt)
+    new_state = None if state is None else {
+        "c": carry[0].to(state["c"].dtype), "n": carry[1].to(state["n"].dtype),
+        "m": carry[2].to(state["m"].dtype), "conv": new_conv.to(state["conv"].dtype)}
 
-    if state is None:
-        carry = (torch.zeros((bsz, h, p, p), dtype=f32, device=x.device),
-                 torch.zeros((bsz, h, p), dtype=f32, device=x.device),
-                 torch.zeros((bsz, h), dtype=f32, device=x.device))
+    if mesh:  # the rest on each rank's channels
+        h_flat, z = (t.redistribute(x.device_mesh, x_c.placements) for t in (h_flat, z))
+    h_flat = h_flat + params["skip"].to(dt) * x_c
+    h_flat = common.rmsnorm(h_flat, params["out_norm"], cfg.norm_eps) * F.silu(z)
+    return torch.matmul(h_flat, params["w_down"].to(dt)), new_state
+
+
+def _mlstm_loop(q, k, v, i_pre, f_pre, carry, dt: torch.dtype):
+    """The mLSTM's time loop from ``carry`` (c, n, m; zeros when None):
+    (h (b, s, d_inner) in ``dt``, the final carry in f32)."""
+    bsz, s, h, p = q.shape
+    f32 = torch.float32
+    if carry is None:
+        carry = (torch.zeros((bsz, h, p, p), dtype=f32, device=q.device),
+                 torch.zeros((bsz, h, p), dtype=f32, device=q.device),
+                 torch.zeros((bsz, h), dtype=f32, device=q.device))
     else:
-        carry = (state["c"].to(f32), state["n"].to(f32), state["m"].to(f32))
+        carry = tuple(c.to(f32) for c in carry)
     hs = []
     for q_t, k_t, v_t, i_t, f_t in zip(*map(_steps, (q, k, v, i_pre, f_pre))):
         carry, h_t = _mlstm_cell(carry, q_t, k_t, v_t, i_t, f_t)
         hs.append(h_t)
     h_seq = torch.stack(hs, dim=1)  # (b, s, h, p)
-    new_state = None if state is None else {
-        "c": carry[0].to(state["c"].dtype), "n": carry[1].to(state["n"].dtype),
-        "m": carry[2].to(state["m"].dtype), "conv": new_conv.to(state["conv"].dtype)}
+    return h_seq.reshape(bsz, s, h * p).to(dt), carry
 
-    h_flat = h_seq.reshape(bsz, s, d_inner).to(dt)
-    h_flat = h_flat + params["skip"].to(dt) * x_c
-    h_flat = common.rmsnorm(h_flat, params["out_norm"], cfg.norm_eps) * F.silu(z)
-    return torch.matmul(h_flat, params["w_down"].to(dt)), new_state
+
+def _on_batch_rows(loop, inputs: tuple, carry: tuple | None, n_carry: int, dt: torch.dtype,
+                   *weights):
+    """``loop(*inputs, *weights, carry, dt)`` (a cell's time loop, whose
+    carry has ``n_carry`` tensors), or on DTensors the same loop inside one
+    ``local_map`` on each rank's batch rows: the inputs whole over the
+    model axes (partial sums from the projections are reduced first), the
+    ``weights`` whole, the carry at the reference's state rule (batch
+    only).  Every model rank runs the same loop, so the inputs' gradients
+    are whole over the model axes and the weights' partial sums over the
+    data axes."""
+    if not sharding.is_dtensor(inputs[0]):
+        return loop(*inputs, *weights, carry, dt)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = inputs[0].device_mesh
+    rows = act_sharding.placements("btd", (inputs[0].shape[0], 1, 1))  # batch rows, all else whole
+    batch = [i for i, q in enumerate(rows) if q == Shard(0)]
+    whole = tuple(Replicate() for _ in range(mesh.ndim))
+    w_grad = tuple(Partial() if i in batch else Replicate() for i in range(mesh.ndim))
+    n_in, n_w = len(inputs), len(weights)
+
+    def local(*args):
+        cs = args[n_in + n_w:]
+        out, new = loop(*args[:n_in + n_w], tuple(cs) if cs else None, dt)
+        return (out, *new)
+
+    n_given = 0 if carry is None else n_carry
+    outs = local_map(local, out_placements=(rows,) * (1 + n_carry),
+                     in_placements=(rows,) * n_in + (whole,) * n_w + (rows,) * n_given,
+                     in_grad_placements=(rows,) * n_in + (w_grad,) * n_w + (rows,) * n_given,
+                     device_mesh=mesh, redistribute_inputs=True)(*inputs, *weights,
+                                                                 *(carry or ()))
+    return outs[0], tuple(outs[1:])
 
 
 def mlstm_init_state(
@@ -220,29 +286,35 @@ def slstm_apply(
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor] | None]:
     """The sLSTM block's mixer: x (B, S, d) -> (B, S, d), and the new state
     when one is given."""
-    d_inner, _, _ = _dims(cfg)
-    bsz, s, _ = x.shape
     dt, f32 = x.dtype, torch.float32
-    u = torch.matmul(x, params["w_up"].to(dt))
+    u = shard(torch.matmul(x, params["w_up"].to(dt)), "btf")
     # the input's gate contributions and the bias, (b, s, 4, d_inner) f32
     gates_in = _proj(u, params["w_gates"]).to(f32) + params["b_gates"].to(f32)
-    r_hq = _recurrent(params["r_gates"])
+    carry = None if state is None else tuple(state[k] for k in ("c", "n", "m", "h"))
+    h_seq, carry = _on_batch_rows(_slstm_loop, (gates_in,), carry, 4, dt, params["r_gates"])
+    new_state = None if state is None else {
+        k: c.to(state[k].dtype) for k, c in zip(("c", "n", "m", "h"), carry)}
 
-    if state is None:
-        zeros = torch.zeros((bsz, d_inner), dtype=f32, device=x.device)
+    y = common.rmsnorm(shard(h_seq, "btf"), params["out_norm"], cfg.norm_eps)
+    return torch.matmul(y, params["w_down"].to(dt)), new_state
+
+
+def _slstm_loop(gates_in, r_gates, carry, dt: torch.dtype):
+    """The sLSTM's time loop from ``carry`` (c, n, m, h; zeros when None):
+    (h (b, s, d_inner) in ``dt``, the final carry in f32)."""
+    bsz, _, _, d_inner = gates_in.shape
+    f32 = torch.float32
+    r_hq = _recurrent(r_gates)
+    if carry is None:
+        zeros = torch.zeros((bsz, d_inner), dtype=f32, device=gates_in.device)
         carry = (zeros, zeros, zeros, zeros)
     else:
-        carry = tuple(state[k].to(f32) for k in ("c", "n", "m", "h"))
+        carry = tuple(c.to(f32) for c in carry)
     hs = []
     for x_t in _steps(gates_in):
         carry, h_t = _slstm_cell(r_hq, carry, x_t)
         hs.append(h_t)
-    h_seq = torch.stack(hs, dim=1)
-    new_state = None if state is None else {
-        k: c.to(state[k].dtype) for k, c in zip(("c", "n", "m", "h"), carry)}
-
-    y = common.rmsnorm(h_seq.to(dt), params["out_norm"], cfg.norm_eps)
-    return torch.matmul(y, params["w_down"].to(dt)), new_state
+    return torch.stack(hs, dim=1).to(dt), carry
 
 
 def slstm_init_state(

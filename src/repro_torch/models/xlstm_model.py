@@ -12,6 +12,10 @@ PyTorch, as the reference writes them in plain jnp.
 
 Decode state: one dict per block (``xlstm.mlstm_init_state`` or
 ``slstm_init_state``), O(1) in the sequence length.
+
+On a mesh the residual stream is pinned to ``"btd"`` at the reference's
+sites and the logits to ``"btv"``; each block runs the cells' mesh path
+(``models/xlstm.py``).
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.act_sharding import shard
 from repro_torch.models import common, xlstm
 from repro_torch.models.common import ParamSpec, ParamTree
 
@@ -61,9 +66,10 @@ def init(generator: torch.Generator, cfg: ModelConfig, dtype: torch.dtype = torc
 
 def _block(bp, x: torch.Tensor, cfg: ModelConfig, i: int, state=None):
     apply = xlstm.slstm_apply if _is_slstm(cfg, i) else xlstm.mlstm_apply
+    x = shard(x, "btd")
     y, new_state = apply(bp["cell"], common.rmsnorm(x, bp["norm"], cfg.norm_eps), cfg,
                          state=state)
-    return x + y, new_state
+    return shard(x + y, "btd"), new_state
 
 
 def _block_out(bp, x: torch.Tensor, cfg: ModelConfig, i: int) -> torch.Tensor:
@@ -76,7 +82,8 @@ def forward(
     remat: bool = False,
 ) -> tuple[torch.Tensor, list | None]:
     """Returns (hidden (B, S, d), the new per-block states or None)."""
-    x = common.embed_lookup(params["embed"], batch["tokens"]).to(getattr(torch, cfg.dtype))
+    x = shard(common.embed_lookup(params["embed"], batch["tokens"]).to(getattr(torch, cfg.dtype)),
+              "btd")
     new_states = []
     for i, bp in enumerate(params["blocks"]):
         if state is not None:
@@ -91,7 +98,7 @@ def forward(
 
 def _logits(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     h = common.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return torch.matmul(h, params["lm_head"].to(h.dtype))
+    return shard(torch.matmul(h, params["lm_head"].to(h.dtype)), "btv")
 
 
 def loss_fn(

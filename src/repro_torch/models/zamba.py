@@ -24,6 +24,13 @@ The Mamba2 states are f32 whatever the cache dtype, as the reference's
 ``mamba2.state_spec`` makes them.  A call with a state puts each layer's
 new Mamba2 state in its list and writes the KV caches in place, and
 returns the same state.
+
+On a mesh (DTensor parameters, ``distributed.act_sharding.use_rules``) the
+residual stream is pinned to ``"btd"`` at the reference's sites and the
+logits to ``"btv"``; each Mamba2 layer runs ``mamba2._apply_mesh`` and the
+shared block the DTensor branches of ``attention`` and ``ffn``; each
+application's cache lies at its state rule (``registry.init_state(...,
+mesh=)``).
 """
 from __future__ import annotations
 
@@ -33,6 +40,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.act_sharding import shard
 from repro_torch.models import attention, common, ffn, mamba2
 from repro_torch.models.common import ParamSpec, ParamTree
 
@@ -95,9 +103,10 @@ def init(generator: torch.Generator, cfg: ModelConfig, dtype: torch.dtype = torc
 
 
 def _mamba_block(lp, x: torch.Tensor, cfg: ModelConfig, state=None):
+    x = shard(x, "btd")
     h = common.rmsnorm(x, lp["norm"], cfg.norm_eps)
     y, new_state = mamba2.apply(lp["mixer"], h, cfg, state=state)
-    return x + y, new_state
+    return shard(x + y, "btd"), new_state
 
 
 def _mamba_out(lp, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -134,7 +143,8 @@ def forward(
     dev = batch["tokens"].device
     start = 0 if cur_len is None else int(cur_len)
     positions = (start + torch.arange(s, device=dev)).expand(b, s)
-    x = common.embed_lookup(params["embed"], batch["tokens"]).to(getattr(torch, cfg.dtype))
+    x = shard(common.embed_lookup(params["embed"], batch["tokens"]).to(getattr(torch, cfg.dtype)),
+              "btd")
     k = cfg.hybrid_attn_every
     for i, lp in enumerate(params["mamba_layers"]):
         if state is not None:
@@ -152,7 +162,7 @@ def forward(
 
 def _logits(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     h = common.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return torch.matmul(h, params["lm_head"].to(h.dtype))
+    return shard(torch.matmul(h, params["lm_head"].to(h.dtype)), "btv")
 
 
 def loss_fn(

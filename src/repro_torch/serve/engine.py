@@ -51,29 +51,30 @@ class ServeEngine:
     With a ``mesh`` (``launch.mesh.make_mesh``; ``device`` is then the
     mesh's) the parameters, whole and the same on every rank, are placed
     on it (each rank keeps its shards), and every rank runs every call.
+    ``kv_seq_shard`` places the caches whose kv heads do not divide the
+    model axes along their sequence (the reference's ``lower_cell(...,
+    kv_seq_shard=)``): MQA's, MLA's latents, Whisper's on a model axis of
+    4; decode then combines each rank's partial softmax over its keys.
 
     ``last_timings`` holds the last :meth:`generate`'s phases in seconds:
     ``prefill_s`` and ``decode_s`` (between CUDA events on the card, host
     clock on the CPU) and ``decode_steps``.
-
-    Raises:
-        NotImplementedError: a mesh for a family not yet on one (Zamba2,
-            xLSTM, Whisper: ``registry.on_mesh_families``).
     """
 
     def __init__(self, cfg: ModelConfig, params: torch.nn.Module, scfg: ServeConfig,
-                 device: torch.device | str | None = None, *, mesh: Any = None):
+                 device: torch.device | str | None = None, *, mesh: Any = None,
+                 kv_seq_shard: bool = False):
         self.cfg = cfg
         self.scfg = scfg
         self.api = registry.get(cfg)
         self.mesh = mesh
+        self.kv_seq_shard = kv_seq_shard
         self.last_timings: dict[str, float] = {}
         self.rules = None
         if mesh is None:
             self.device = resolve_device(device)
             self.params = params.to(self.device)
             return
-        registry.on_mesh_families(cfg)
         self.device = meshes.rank_device(mesh)
         self.rules = sharding.default_rules(sharding.logical_mesh(mesh))
         self.params = registry.distribute_params(cfg, params, mesh, self.rules)
@@ -94,7 +95,8 @@ class ServeEngine:
     def init_state(self, batch: int) -> Any:
         return registry.init_state(self.cfg, batch, self.scfg.max_len,
                                    getattr(torch, self.scfg.cache_dtype), self.device,
-                                   mesh=self.mesh, rules=self.rules)
+                                   mesh=self.mesh, rules=self.rules,
+                                   kv_seq_shard=self.kv_seq_shard)
 
     def prefill(self, batch: dict[str, torch.Tensor], state: Any) -> tuple[torch.Tensor, Any]:
         """Last-position logits of the prompts; writes the cache.

@@ -12,11 +12,13 @@ With a ``mesh`` (``launch.mesh.make_mesh`` over a running process group)
 every rank draws the same weights leaf by leaf, keeps its shards of each
 (``distributed.sharding.distribute``) and of every batch, and runs the
 loop under ``distributed.act_sharding.use_rules``: (data, model)-sharded
-training of the dense, MoE and MLA families (experts over the model axes,
-MLA's latents whole over them, the MoE balance loss and the MTP loss taken
-over the whole batch, as the reference's metrics are).  ``restore_dir``
-restores a checkpoint from another directory first, onto this mesh,
-whatever mesh wrote it (the elastic restart).
+training of every family (experts over the model axes, MLA's latents whole
+over them, the MoE balance loss and the MTP loss taken over the whole
+batch, as the reference's metrics are; Mamba2's heads and conv channels
+over the model axes; the xLSTM cells on each rank's batch rows; Whisper's
+heads over the model axes).  ``restore_dir`` restores a checkpoint from
+another directory first, onto this mesh, whatever mesh wrote it (the
+elastic restart).
 """
 from __future__ import annotations
 
@@ -81,7 +83,6 @@ def train(
         dev = resolve_device(device)
         params = api.init(torch.Generator(device=dev).manual_seed(tcfg.seed), cfg)
     else:
-        registry.on_mesh_families(cfg)  # the decoder-only transformers (ROADMAP Queue 1)
         dev = meshes.rank_device(mesh)
         rules = sharding.default_rules(sharding.logical_mesh(mesh))
         spec = api.spec(cfg)

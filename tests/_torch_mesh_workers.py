@@ -56,10 +56,13 @@ def save_tree(path: str | pathlib.Path, tree: dict) -> None:
 
 
 def load_tree(path: str | pathlib.Path) -> dict:
+    """:func:`save_tree`'s tree back: a digit in a path is a list index
+    (xLSTM's ``blocks/0/...``)."""
     out: dict = {}
     with np.load(path) as z:
         for key in z.files:
-            common.tree_set(out, tuple(key.split("/")), z[key])
+            common.tree_set(out, tuple(int(k) if k.isdigit() else k for k in key.split("/")),
+                            z[key])
     return out
 
 

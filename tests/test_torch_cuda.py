@@ -1862,3 +1862,127 @@ def test_cuda_mesh_families_train_and_serve_as_one_card(cuda_device, tmp_path, a
     assert trained == runs[False][2] == {fwd: 2 * (2 * cfg.n_layers + mtp),
                                          bwd: 2 * (cfg.n_layers + mtp)}
     assert served == runs[False][4] == {fwd: cfg.n_layers}
+
+
+def _state_family_at_kernel_heads(arch: str):
+    """``arch``'s reduced config in bf16, its attention at D=64
+    (``flash_group_fwd<64>``, ``flash_bwd_d64``: zamba2's shared block and
+    Whisper's; xLSTM reaches no kernel)."""
+    return dataclasses.replace(get_config(arch).reduced(), dtype="bfloat16", d_head=64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-125m", "whisper-tiny"])
+def test_cuda_state_families_train_and_serve_as_one_card(cuda_device, tmp_path, arch):
+    """Zamba2, xLSTM and Whisper on a (1, 1) mesh of one NCCL rank in bf16:
+    2 train steps (Mamba2's conv and SSD, the xLSTM cells, Whisper's heads
+    through ``local_map``) and a prefill + 4 greedy tokens through
+    ``ServeEngine(..., mesh=)`` (the state at the reference's state rules),
+    each with the one-card path's bits and its flash launches by kernel
+    name: per train step one forward and one backward a shared-block
+    application (zamba2: not rematted), the encoder's forwards once and the
+    decoder's twice (remat) with one backward each (Whisper); in prefill
+    one a shared application, one an encoder layer and two a decoder
+    layer."""
+    from repro_torch.data.pipeline import DataConfig, PipelineState, TokenPipeline
+    from repro_torch.data.pipeline import make_train_batch
+    from repro_torch.distributed import act_sharding, sharding
+    from repro_torch.launch import mesh as meshes
+    from repro_torch.models import zamba
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = _state_family_at_kernel_heads(arch)
+    api = registry.get(cfg)
+    opt = adamw.AdamWConfig(peak_lr=1e-3, warmup_steps=2, total_steps=20)
+    tree = common.init_params(api.spec(cfg), torch.Generator().manual_seed(0))
+    prompts = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 64), dtype=np.int32)
+    extras = None
+    if cfg.is_encoder_decoder:
+        extras = {"frames": np.random.default_rng(4).standard_normal(
+            (2, cfg.encoder_len, cfg.d_model)).astype(np.float32)}
+    runs = {}
+    meshes.init_distributed("cuda", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        mesh = meshes.make_mesh((1, 1), ("data", "model"))
+        rules = sharding.default_rules(sharding.logical_mesh(mesh))
+        for on_mesh in (False, True):
+            if on_mesh:
+                params = api.from_tree(cfg, sharding.distribute_tree(tree, api.spec(cfg), mesh,
+                                                                     rules))
+            else:
+                params = api.from_tree(cfg, copy.deepcopy(tree)).to(cuda_device)
+            params = common.trainable(params)
+            state = adamw.init(params, opt)
+            step = make_train_step(cfg, opt, q_chunk=64, kv_chunk=64)
+            pipe, ps, losses = TokenPipeline(DataConfig(cfg.vocab_size, 256, 2, seed=1)), \
+                PipelineState(), []
+            fa.LAUNCHES_BY_KERNEL.clear()
+            ctx = act_sharding.use_rules(mesh, rules) if on_mesh else contextlib.nullcontext()
+            with ctx:
+                for _ in range(2):
+                    batch, ps = make_train_batch(pipe, ps, cfg, device=cuda_device)
+                    if on_mesh:
+                        batch = sharding.distribute_batch(batch, mesh, rules)
+                    params, state, m = step(params, state, batch)
+                    losses.append(float(m["loss"]))
+            trained = dict(fa.LAUNCHES_BY_KERNEL)
+            leaves = [p.detach().to_local() if on_mesh else p.detach()
+                      for p in params.parameters()]
+            for p in params.parameters():
+                p.requires_grad_(False)
+            engine = ServeEngine(cfg, params, ServeConfig(max_len=72), device=cuda_device,
+                                 mesh=mesh if on_mesh else None)
+            fa.LAUNCHES_BY_KERNEL.clear()
+            tokens = engine.generate(prompts, 4, extras)
+            runs[on_mesh] = (losses, leaves, trained, tokens, dict(fa.LAUNCHES_BY_KERNEL))
+    finally:
+        torch.distributed.destroy_process_group()
+    losses, leaves, trained, tokens, served = runs[True]
+    assert losses == runs[False][0] and all(np.isfinite(losses))
+    assert all(torch.equal(a, b) for a, b in zip(leaves, runs[False][1]))
+    assert np.array_equal(tokens, runs[False][3])
+    fwd, bwd = "flash_group_fwd<64>", "flash_bwd_d64"
+    if cfg.hybrid_attn_every:
+        groups = zamba._counts(cfg)[0]
+        per_step, prefill = {fwd: groups, bwd: groups}, {fwd: groups}
+    elif cfg.is_encoder_decoder:
+        n_enc, n_dec = cfg.n_encoder_layers, cfg.n_layers
+        per_step = {fwd: n_enc + 4 * n_dec, bwd: n_enc + 2 * n_dec}
+        prefill = {fwd: n_enc + 2 * n_dec}
+    else:
+        per_step, prefill = {}, {}
+    assert trained == runs[False][2] == {k: 2 * n for k, n in per_step.items()}
+    assert served == runs[False][4] == prefill
+
+
+@pytest.mark.cuda
+def test_cuda_seq_sharded_latents_serve_as_one_card(cuda_device, tmp_path):
+    """deepseek-v3 reduced at MLA's kernel heads in bf16 served on a (1, 1)
+    NCCL mesh with ``kv_seq_shard=True``: its latents split along their
+    sequence (one part), the absorbed decode through the partial softmax
+    and its combine; the greedy tokens the one card's, the prefill's flash
+    launches the one card's."""
+    from repro_torch.launch import mesh as meshes
+
+    cfg = _family_at_kernel_heads("deepseek-v3-671b")
+    api = registry.get(cfg)
+    tree = common.init_params(api.spec(cfg), torch.Generator().manual_seed(0))
+    prompts = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 64), dtype=np.int32)
+    runs = {}
+    meshes.init_distributed("cuda", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        mesh = meshes.make_mesh((1, 1), ("data", "model"))
+        for on_mesh in (False, True):
+            params = api.from_tree(cfg, copy.deepcopy(tree)).to(cuda_device, torch.bfloat16)
+            engine = ServeEngine(cfg, params, ServeConfig(max_len=72), device=cuda_device,
+                                 mesh=mesh if on_mesh else None, kv_seq_shard=on_mesh)
+            fa.LAUNCHES_BY_KERNEL.clear()
+            tokens = engine.generate(prompts, 4)
+            runs[on_mesh] = (tokens, dict(fa.LAUNCHES_BY_KERNEL))
+    finally:
+        torch.distributed.destroy_process_group()
+    assert np.array_equal(runs[True][0], runs[False][0])
+    assert runs[True][1] == runs[False][1] == {"flash_mla_fwd": cfg.n_layers}

@@ -5,8 +5,7 @@ jitted ``make_train_step(..., param_shardings=p_sh)`` on its forced
 4-device CPU meshes (``in_shardings=(p_sh, opt_sh, b_sh)``, as its
 ``lower_cell`` builds the step), against the port's one process, and on a
 (1, 1) mesh bitwise against that one process.  Also the placements of
-every arch's decode state against the reference's ``state_shardings``, and
-the families a mesh does not run yet.
+every arch's decode state against the reference's ``state_shardings``.
 
 Tolerances are ``test_torch_mesh_train.py``'s: each loss (and its nll,
 aux and mtp_nll) within 1e-4 relative, the grad norm 1e-3, the first
@@ -21,13 +20,13 @@ deepseek-v3's (1, 4) run is held against the port's one process (the
 reference compiles a deepseek step for ~40 s a mesh).
 """
 import concurrent.futures
-import json
 
 import numpy as np
 import pytest
 import torch
 from jax.sharding import AbstractMesh
 
+import _torch_mesh_family_checks as checks
 import _torch_mesh_family_workers as fw
 import _torch_mesh_workers as workers
 from conftest import run_forced_device_subprocess
@@ -36,24 +35,12 @@ from repro.distributed import sharding as jsharding
 from repro.models import registry as jregistry
 from repro_torch.configs import ALL_ARCHS, get_config
 from repro_torch.distributed import sharding
-from repro_torch.launch import mesh as meshes
 from repro_torch.models import common, registry
-from repro_torch.serve.engine import ServeConfig, ServeEngine
-from repro_torch.train import loop
 from _torch_threads import one_cpu_thread  # noqa: F401  (autouse)
 
 GRANITE, DEEPSEEK = fw.TRAIN_ARCHS
 REFERENCE_RUNS = [(GRANITE, (2, 2)), (DEEPSEEK, (2, 2)), (GRANITE, (1, 4))]
 MESH_RUNS = [(a, s) for a in fw.TRAIN_ARCHS for s in fw.TRAIN_MESHES]
-B1 = 0.9  # AdamW's first-moment decay (the reference's and the port's default)
-
-
-def _load_run(stem: str) -> dict:
-    with open(stem + ".json") as f:
-        run = json.load(f)
-    run["params"] = workers.load_tree(stem + ".params.npz")
-    run["grads"] = workers.load_tree(stem + ".grads.npz")
-    return run
 
 
 def _routes(stem: str, ranks: list[int]) -> list[np.ndarray]:
@@ -87,29 +74,7 @@ def runs(tmp_path_factory):
             fw.train_one_process(arch, str(ref_dir / f"{arch}.init.npz"),
                                  fw.tag(str(port_dir), arch, ("one",)))
         ref = ref.result()
-    return {"ref": ref, "ref_dir": str(ref_dir), "port_dir": str(port_dir)}
-
-
-def _reference(runs, arch, shape) -> dict:
-    stem = fw.tag(runs["ref_dir"], arch, shape)
-    out = dict(runs["ref"][stem])
-    out["params"] = workers.load_tree(stem + ".params.npz")
-    norm = out["metrics"][0]["grad_norm"]
-    clip = min(1.0, 1.0 / max(norm, 1e-9))
-    m1 = workers.load_tree(stem + ".m1.npz")
-    out["grads"] = {p: x / (1 - B1) / clip for p, x in common.tree_leaves(m1)}
-    with np.load(stem + ".routes.npz") as z:
-        out["routes"] = [z[f"arr_{i}"] for i in range(len(z.files))]
-    return out
-
-
-def _assert_metrics_close(got: list[dict], want: list[dict]):
-    assert len(got) == len(want) == fw.STEPS
-    for g, w in zip(got, want):
-        for k in fw.METRICS:
-            if k in w:
-                tol = 1e-3 if k == "grad_norm" else 1e-4
-                assert abs(g[k] - w[k]) <= tol * max(abs(w[k]), 1e-6), (k, g[k], w[k])
+    return {"ref_train": ref, "ref_dir": str(ref_dir), "port_dir": str(port_dir)}
 
 
 @pytest.mark.parametrize("arch,shape", REFERENCE_RUNS)
@@ -117,11 +82,11 @@ def test_mesh_training_matches_the_reference(runs, arch, shape):
     """Each loss, the first step's gradients leaf by leaf, every leaf after
     3 steps, and the routing: the port's mesh run against the reference's
     jitted step on its forced mesh of the same shape."""
-    ref = _reference(runs, arch, shape)
+    ref = checks.reference_run(runs, arch, shape)
     assert ref["devices"] == 4
     stem = fw.tag(runs["port_dir"], arch, shape)
-    got = _load_run(stem)
-    _assert_metrics_close(got["metrics"], ref["metrics"])
+    got = checks.load_run(stem)
+    checks.assert_metrics_close(got["metrics"], ref["metrics"])
     grads = {common.path_name(p): x for p, x in common.tree_leaves(got["grads"])}
     for path, w in ref["grads"].items():
         err = workers.max_err(grads[common.path_name(path)], w)
@@ -139,9 +104,9 @@ def test_mesh_training_matches_the_reference(runs, arch, shape):
 def test_mesh_training_matches_the_one_process_run(runs, arch, shape):
     """Every mesh run against the port's one process, within the same
     bounds; every model rank of a data row routes its groups alike."""
-    got = _load_run(fw.tag(runs["port_dir"], arch, shape))
-    one = _load_run(fw.tag(runs["port_dir"], arch, ("one",)))
-    _assert_metrics_close(got["metrics"], one["metrics"])
+    got = checks.load_run(fw.tag(runs["port_dir"], arch, shape))
+    one = checks.load_run(fw.tag(runs["port_dir"], arch, ("one",)))
+    checks.assert_metrics_close(got["metrics"], one["metrics"])
     workers.assert_leaves_close(got["grads"], one["grads"], embed_tol=workers.LEAF_TOL)
     workers.assert_leaves_close(got["params"], one["params"])
     stem = fw.tag(runs["port_dir"], arch, shape)
@@ -156,8 +121,8 @@ def test_mesh_training_matches_the_one_process_run(runs, arch, shape):
 def test_one_rank_mesh_is_bitwise_the_one_process_run(runs, arch):
     """On a (1, 1) gloo mesh every metric, gradient, leaf and route has the
     one-process run's bits."""
-    got = _load_run(fw.tag(runs["port_dir"], arch, (1, 1)))
-    one = _load_run(fw.tag(runs["port_dir"], arch, ("one",)))
+    got = checks.load_run(fw.tag(runs["port_dir"], arch, (1, 1)))
+    one = checks.load_run(fw.tag(runs["port_dir"], arch, ("one",)))
     assert got["metrics"] == one["metrics"]
     for key in ("grads", "params"):
         want = dict(common.tree_leaves(one[key]))
@@ -173,7 +138,7 @@ def test_mesh_parameters_keep_the_reference_placements(runs, arch, shape):
     """After 3 steps every parameter lies at the reference's
     ``param_shardings`` spec (each layer's view without the stacked dim):
     the experts over the model axis, MLA's latents whole over it."""
-    got = _load_run(fw.tag(runs["port_dir"], arch, shape))["placements"]
+    got = checks.load_run(fw.tag(runs["port_dir"], arch, shape))["placements"]
     cfg = get_config(arch).reduced()
     lm = sharding.LogicalMesh.of(data=shape[0], model=shape[1])
     want = sharding.param_placements(registry.get(cfg).spec(cfg), lm, sharding.default_rules(lm))
@@ -188,9 +153,9 @@ def test_mesh_parameters_keep_the_reference_placements(runs, arch, shape):
         for name in names:
             assert got[name] == str(pl), name
     if (arch, shape) in REFERENCE_RUNS:  # and the reference's own specs, read back
-        specs = runs["ref"][fw.tag(runs["ref_dir"], arch, shape)]["specs"]
+        specs = runs["ref_train"][fw.tag(runs["ref_dir"], arch, shape)]["specs"]
         for path, pl in common.tree_leaves(want):
-            assert pl == _spec_placements(specs[common.path_name(path)], ("data", "model")), path
+            assert pl == checks.spec_placements(specs[common.path_name(path)]), path
     if arch == DEEPSEEK:
         assert got["layers.0.attn.w_dc"].endswith("Replicate())")  # the latent: not over model
 
@@ -220,17 +185,6 @@ STATE_MESHES = {"2x2": ((2, 2), ("data", "model")), "1x4": ((1, 4), ("data", "mo
                 "pod 2x2x2": ((2, 2, 2), ("pod", "data", "model"))}
 
 
-def _spec_placements(spec, axes) -> tuple:
-    from torch.distributed.tensor import Replicate, Shard
-
-    out = []
-    for name in axes:
-        dims = [i for i, e in enumerate(spec)
-                if e == name or (isinstance(e, (tuple, list)) and name in e)]
-        out.append(Shard(dims[0]) if dims else Replicate())
-    return tuple(out)
-
-
 @pytest.mark.parametrize("kv_seq_shard", [False, True])
 @pytest.mark.parametrize("mesh_label", list(STATE_MESHES))
 @pytest.mark.parametrize("arch", ALL_ARCHS)
@@ -253,7 +207,7 @@ def test_state_placements_equal_the_reference(arch, mesh_label, kv_seq_shard):
                                      kv_seq_shard=kv_seq_shard)
     flat = jax.tree_util.tree_flatten_with_path(want)[0]
     want_pl = {tuple(getattr(k, "key", getattr(k, "idx", None)) for k in p):
-               _spec_placements(s.spec, axes) for p, s in flat}
+               checks.spec_placements(s.spec, axes) for p, s in flat}
     # the reference's own leaves (shapes on meta), exactly
     stacked = {}
     for p, s in jax.tree_util.tree_flatten_with_path(sds)[0]:
@@ -275,50 +229,3 @@ def test_state_placements_equal_the_reference(arch, mesh_label, kv_seq_shard):
         assert all(getattr(p, "dim", 1) > 0 for p in want_stacked), path
         assert pl == tuple(type(p)(p.dim - 1) if hasattr(p, "dim") else p
                            for p in want_stacked), path
-
-
-# -- the families a mesh does not run yet, and a sequence-sharded cache -------------
-
-@pytest.fixture
-def one_rank_world(tmp_path):
-    meshes.init_distributed("cpu", init_method=f"file://{tmp_path}/store", rank=0,
-                            world_size=1)
-    yield meshes.make_mesh((1, 1), ("data", "model"), device="cpu")
-    torch.distributed.destroy_process_group()
-
-
-@pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-125m", "whisper-tiny"])
-def test_families_still_to_come_refuse_a_mesh(one_rank_world, arch):
-    cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        loop.train(cfg, loop.TrainConfig(steps=1, seq_len=8, global_batch=2),
-                   mesh=one_rank_world, log=lambda _: None)
-    params = registry.get(cfg).init(torch.Generator().manual_seed(0), cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeEngine(cfg, params, ServeConfig(max_len=16), mesh=one_rank_world)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        registry.init_state(cfg, 2, 16, mesh=one_rank_world)
-
-
-def test_decode_on_a_sequence_sharded_cache_raises(one_rank_world):
-    """``kv_seq_shard`` places MLA's latent caches along their sequence (on
-    a (1, 1) mesh the whole sequence, but a Shard placement) and the first
-    cache write raises, naming ROADMAP: nothing falls back.  A GQA cache
-    placed so raises alike."""
-    from torch.distributed.tensor import Replicate, Shard
-
-    from repro_torch.models import attention
-
-    cfg = get_config("deepseek-v3-671b").reduced()
-    params = registry.get(cfg).init(torch.Generator().manual_seed(0), cfg)
-    engine = ServeEngine(cfg, params, ServeConfig(max_len=16), mesh=one_rank_world)
-    state = sharding.distribute_state(
-        registry.get(cfg).init_state(cfg, 2, 16, torch.float32, "meta"), one_rank_world,
-        engine.rules, kv_seq_shard=True)
-    assert all(x.placements[1] == Shard(1) for _, x in common.tree_leaves(state))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.prefill({"tokens": torch.zeros((2, 4), dtype=torch.int32)}, state)
-    cache = sharding.distribute(torch.zeros(2, 16, 2, 8), one_rank_world, (Replicate(), Shard(1)))
-    new = sharding.distribute(torch.ones(2, 1, 2, 8), one_rank_world, (Replicate(), Replicate()))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attention.write_cache(cache, new, 3)

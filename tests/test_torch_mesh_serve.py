@@ -21,6 +21,7 @@ import json
 import numpy as np
 import pytest
 
+import _torch_mesh_family_checks as checks
 import _torch_mesh_family_workers as fw
 import _torch_mesh_workers as workers
 from conftest import run_forced_device_subprocess
@@ -41,7 +42,8 @@ def served(tmp_path_factory):
         workers.save_tree(d / f"{arch}.init.npz", fw.init_tree(arch))
     code = fw.REFERENCE_SERVE.format(archs=list(fw.SERVE_ARCHS), shape=fw.SERVE_MESH, out=str(d),
                                      batch=fw.SERVE_BATCH, prompt=fw.SERVE_PROMPT,
-                                     steps=fw.SERVE_STEPS, max_len=fw.SERVE_MAX_LEN)
+                                     steps=fw.SERVE_STEPS, max_len=fw.SERVE_MAX_LEN,
+                                     kv_seq_shard=False, suffix="")
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         ref = pool.submit(run_forced_device_subprocess, code, timeout=600)
         workers.spawn(fw.serve_rank, 4, 4, list(fw.SERVE_ARCHS), fw.SERVE_MESH, str(d), str(d))
@@ -65,18 +67,10 @@ def _reference(served, arch) -> dict:
     return out
 
 
-def _assert_logits_close(got, want):
-    assert got.shape == want.shape == (fw.SERVE_STEPS + 1, fw.SERVE_BATCH, want.shape[-1])
-    assert np.isfinite(got).all()
-    for step, (g, w) in enumerate(zip(got, want)):
-        err = workers.max_err(g, w)
-        assert err <= 1e-4, (step, err)
-
-
 @pytest.mark.parametrize("arch", fw.SERVE_ARCHS)
 def test_mesh_serving_matches_the_reference(served, arch):
     got, ref = _port(served, arch, fw.SERVE_MESH), _reference(served, arch)
-    _assert_logits_close(got["logits"], ref["logits"])
+    checks.assert_logits_close(got["logits"], ref["logits"])
     np.testing.assert_array_equal(got["tokens"], ref["tokens"])
     prompts = fw.serve_prompts(get_config(arch).reduced())
     np.testing.assert_array_equal(got["generated"],
@@ -86,7 +80,7 @@ def test_mesh_serving_matches_the_reference(served, arch):
 @pytest.mark.parametrize("arch", fw.SERVE_ARCHS)
 def test_mesh_serving_matches_the_one_process(served, arch):
     got, one = _port(served, arch, fw.SERVE_MESH), served["one"][arch]
-    _assert_logits_close(got["logits"], one["logits"])
+    checks.assert_logits_close(got["logits"], one["logits"])
     np.testing.assert_array_equal(got["tokens"], one["tokens"])
 
 
@@ -95,17 +89,6 @@ def test_one_rank_mesh_serving_is_bitwise_the_one_process(served, arch):
     got, one = _port(served, arch, (1, 1)), served["one"][arch]
     np.testing.assert_array_equal(got["logits"], one["logits"])
     np.testing.assert_array_equal(got["tokens"], one["tokens"])
-
-
-def _placements(spec) -> tuple:
-    from torch.distributed.tensor import Replicate, Shard
-
-    out = []
-    for name in AXES:
-        dims = [i for i, e in enumerate(spec)
-                if e == name or (isinstance(e, (tuple, list)) and name in e)]
-        out.append(Shard(dims[0]) if dims else Replicate())
-    return tuple(out)
 
 
 @pytest.mark.parametrize("arch", fw.SERVE_ARCHS)
@@ -129,7 +112,7 @@ def test_cache_leaves_keep_the_reference_placements_and_only_their_shards(served
             spec = ref["state_specs"][f"{stack}/{last}"]
             assert spec[0] is None  # the reference's layer dim
             layer_spec = tuple(spec[1:])
-            assert leaf["placements"] == str(_placements(layer_spec)), (rank, name)
+            assert leaf["placements"] == str(checks.spec_placements(layer_spec)), (rank, name)
             shape = tuple(leaf["shape"])
             assert leaf["local_numel"] == sharding.local_numel(
                 shape, tuple(tuple(e) if isinstance(e, list) else e for e in layer_spec), lm)
